@@ -1,0 +1,91 @@
+"""Runtime knobs of the PyTorch port, read from the same `REPRO_*`
+environment variables as the JAX package, at call time.
+
+  fused_epilogue    — fuse bias add / activation into the GEMM epilogue
+                      (models/layers.py passes bias=/act= to sa_dot). On
+                      the `cuda` backend this runs inside the kernel after
+                      the K loop, before the single output write; on
+                      `torch` it is the same fp32 math before cast_out.
+  pallas_attention  — serving prefill through the hand-written flash
+                      kernel (kernels/sa_attention.py). The name is the
+                      JAX package's; here it is on when the tensors lie on
+                      a CUDA device and off on the CPU, where the plain
+                      `blockwise_attention` runs (`prefill_kernel_on`).
+  bf16_params_in_layers — cast fp32 matrices to bf16 at superblock entry
+                      (the CPU's fp32 storage; CUDA stores bf16 already).
+                      Numerically identical under the bf16 policy.
+
+`REPRO_OPT=0` disables all three.
+
+String knobs: `gemm_backend()` (REPRO_GEMM_BACKEND: `torch` — the plain
+PyTorch GEMM and the default — or `cuda`, the hand-written SA GEMM
+kernel; `emulate` is not ported yet), `sa_mode()` (REPRO_SA_MODE),
+`decode_attn_impl()` (REPRO_DECODE_ATTN: `fused` page walk, the default,
+or `gather`), `kv_layout()` (REPRO_KV) and `prefix_cache_enabled()`
+(REPRO_PREFIX_CACHE).
+"""
+from __future__ import annotations
+
+import os
+
+
+def _opt_enabled() -> bool:
+    return os.environ.get("REPRO_OPT", "1") not in ("0", "false", "off")
+
+
+_PERF_FLAGS = ("fused_epilogue", "pallas_attention", "bf16_params_in_layers")
+
+
+def enabled(name: str) -> bool:
+    return name in _PERF_FLAGS and _opt_enabled()
+
+
+def prefill_kernel_on(device) -> bool:
+    """Serving prefill runs the hand-written flash kernel: on for CUDA
+    tensors, off for CPU ones (there it is the plain blockwise path)."""
+    return enabled("pallas_attention") and str(device).startswith("cuda")
+
+
+_GEMM_BACKENDS = ("torch", "cuda", "emulate")
+
+
+def gemm_backend() -> str:
+    backend = os.environ.get("REPRO_GEMM_BACKEND", "torch")
+    if backend not in _GEMM_BACKENDS:
+        raise ValueError(
+            f"REPRO_GEMM_BACKEND={backend!r}; want one of {_GEMM_BACKENDS}")
+    return backend
+
+
+_DECODE_ATTN_IMPLS = ("fused", "gather")
+
+
+def decode_attn_impl() -> str:
+    impl = os.environ.get("REPRO_DECODE_ATTN", "fused")
+    if impl not in _DECODE_ATTN_IMPLS:
+        raise ValueError(
+            f"REPRO_DECODE_ATTN={impl!r}; want one of {_DECODE_ATTN_IMPLS}")
+    return impl
+
+
+def kv_layout() -> str:
+    layout = os.environ.get("REPRO_KV", "paged")
+    if layout not in ("ring", "paged"):
+        raise ValueError(
+            f"REPRO_KV/kv_layout={layout!r}; want 'ring' or 'paged'")
+    return layout
+
+
+def prefix_cache_enabled() -> bool:
+    return os.environ.get("REPRO_PREFIX_CACHE", "1") not in (
+        "0", "false", "off")
+
+
+_SA_MODES = ("exact", "approx")
+
+
+def sa_mode() -> str:
+    mode = os.environ.get("REPRO_SA_MODE", "exact")
+    if mode not in _SA_MODES:
+        raise ValueError(f"REPRO_SA_MODE={mode!r}; want one of {_SA_MODES}")
+    return mode

@@ -1,0 +1,157 @@
+"""The paper's arithmetic contract as the port-wide GEMM entry point.
+
+Every matrix multiplication of the port goes through :func:`sa_dot` (or
+:func:`sa_einsum` for attention), which enforces the systolic-array
+datapath semantics of the paper (§II):
+
+  * inputs quantized to a reduced-precision format (Bfloat16 / FP8),
+  * products accumulated in FP32 with no intermediate rounding,
+  * one rounding at the end of the reduction.
+
+Backends (``REPRO_GEMM_BACKEND``):
+  * ``torch`` — the plain version (default): operands upcast to fp32 and
+                `torch.matmul` in fp32 with TF32 off. The upcast matters:
+                `torch.matmul` on bf16 tensors rounds its result to bf16,
+                which breaks the round-once contract.
+  * ``cuda``  — the hand-written SA GEMM kernel
+                (`repro_torch.kernels.ops.sa_matmul`) with the fused
+                epilogue; on a CPU tensor that call runs the plain version.
+  * ``emulate`` — the bit-exact integer datapath; not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import optflags
+from .fpformats import get_format, quantize
+
+# TF32 keeps 10 mantissa bits: a float32 product on the card must stay a
+# float32 product for the contract to hold.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+_TORCH_INPUT_DTYPE = {"bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+def exact_cpu_containers(device) -> bool:
+    """fp32 containers on the CPU, reduced-format containers on CUDA.
+
+    Every reduced-format value is exact in fp32 and products of <= 12-bit
+    significands are exact in fp32, so carrying quantized values in fp32
+    containers on the CPU is bit-identical to the bf16 contract; on the
+    card the operands stay bf16 (half the bytes) and the kernels upcast."""
+    return torch.device(device).type != "cuda"
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionPolicy:
+    """What the SA does to a GEMM: formats + backend."""
+
+    input_format: str = "bf16"       # paper's evaluated configuration
+    accum_format: str = "fp32"       # "double-width reduction"
+    output_format: str = "fp32"      # rounding target at the column end
+    backend: str = "torch"           # torch | cuda
+    mode: str = "exact"              # exact | approx (bulk-tier coarse LZA)
+
+    def __post_init__(self):
+        get_format(self.input_format)
+        if self.accum_format != "fp32":
+            raise ValueError("the SA reduces in FP32 (paper §II)")
+        if self.backend == "emulate":
+            raise ValueError("the emulate backend (chained_fma) is not "
+                             "ported yet; use 'torch' or 'cuda'")
+        if self.backend not in ("torch", "cuda"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.mode not in ("exact", "approx"):
+            raise ValueError(f"unknown SA mode {self.mode!r}")
+
+    def cast_in(self, x: torch.Tensor) -> torch.Tensor:
+        fmt = get_format(self.input_format)
+        if fmt.name == "fp32":
+            return x.to(torch.float32)
+        if fmt.name in ("bf16", "fp16"):
+            q = x.to(_TORCH_INPUT_DTYPE[fmt.name])
+            return q.to(torch.float32) if exact_cpu_containers(x.device) else q
+        # fp8: values snapped to the format's grid, carried in bf16 on the
+        # card (bf16 holds every FP8 value exactly)
+        q = quantize(x, fmt)
+        return q if exact_cpu_containers(x.device) else q.to(torch.bfloat16)
+
+    def cast_out(self, y: torch.Tensor) -> torch.Tensor:
+        fmt = get_format(self.output_format)
+        if fmt.name == "fp32":
+            return y.to(torch.float32)
+        return quantize(y, fmt)
+
+
+_POLICY_STACK: list[PrecisionPolicy] = [
+    PrecisionPolicy(backend=optflags.gemm_backend(), mode=optflags.sa_mode())]
+
+
+def current_policy() -> PrecisionPolicy:
+    """Innermost `use_policy` scope, else the default policy that tracks
+    REPRO_GEMM_BACKEND / REPRO_SA_MODE at call time."""
+    if len(_POLICY_STACK) == 1:
+        backend, mode = optflags.gemm_backend(), optflags.sa_mode()
+        if (backend != _POLICY_STACK[0].backend
+                or mode != _POLICY_STACK[0].mode):
+            _POLICY_STACK[0] = PrecisionPolicy(backend=backend, mode=mode)
+    return _POLICY_STACK[-1]
+
+
+class use_policy:
+    """Context manager scoping the active precision policy."""
+
+    def __init__(self, policy: PrecisionPolicy):
+        self.policy = policy
+
+    def __enter__(self):
+        _POLICY_STACK.append(self.policy)
+        return self.policy
+
+    def __exit__(self, *exc):
+        _POLICY_STACK.pop()
+
+
+def sa_dot(a: torch.Tensor, w: torch.Tensor,
+           policy: PrecisionPolicy | None = None, *,
+           bias: torch.Tensor | None = None, act: str = "none"
+           ) -> torch.Tensor:
+    """`a @ w` under the SA arithmetic contract. Batched `a` supported.
+
+    `bias`/`act` are the fused epilogue, applied to the fp32 chain before
+    the single output rounding on every backend. ``policy.mode ==
+    "approx"`` truncates the chain's low mantissa bits first
+    (`kernels.sa_matmul.truncate_mantissa`) on every backend."""
+    from repro_torch.kernels import ops  # lazy: kernels import this module
+
+    policy = policy or current_policy()
+    a_q, w_q = policy.cast_in(a), policy.cast_in(w)
+    if policy.backend == "cuda":
+        if w_q.ndim != 2:
+            raise ValueError(f"the cuda GEMM backend takes a 2-D weight, got "
+                             f"{tuple(w_q.shape)}")
+        # batched `a` folds into the kernel's M rows
+        y = ops.sa_matmul(a_q.reshape(-1, a_q.shape[-1]), w_q, bias=bias,
+                          act=act, mode=policy.mode)
+        return policy.cast_out(y.reshape(*a_q.shape[:-1], w_q.shape[1]))
+    from repro_torch.kernels.sa_matmul import sa_matmul_ref
+
+    return policy.cast_out(sa_matmul_ref(a_q, w_q, bias=bias, act=act,
+                                         mode=policy.mode))
+
+
+def sa_einsum(spec: str, a: torch.Tensor, w: torch.Tensor,
+              policy: PrecisionPolicy | None = None) -> torch.Tensor:
+    """Einsum under the SA contract (attention paths)."""
+    from repro_torch.kernels.sa_matmul import truncate_mantissa
+
+    policy = policy or current_policy()
+    a_q = policy.cast_in(a).to(torch.float32)
+    w_q = policy.cast_in(w).to(torch.float32)
+    y = torch.einsum(spec, a_q, w_q)
+    if policy.mode == "approx":
+        y = truncate_mantissa(y)
+    return policy.cast_out(y)

@@ -1,0 +1,108 @@
+"""Build and load the hand-written Hopper kernels.
+
+Each `csrc/<name>.cu` compiles with `nvcc -gencode
+arch=compute_90a,code=sm_90a -shared` into its own shared library with a
+plain C interface, loaded with `ctypes` (no PyTorch headers: a build takes
+seconds). Libraries land in `build/repro_torch_kernels/` at the repository
+root, named by a hash of their source and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+
+`build_all()` starts one `nvcc` per source, all at once, and returns each
+kernel's `-Xptxas -v` report (registers, shared memory, spills). Nothing
+here runs at import time: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = ("sa_matmul", "sa_decode_attention", "sa_attention")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+REPORTS: dict[str, str] = {}
+
+
+def build_dir() -> pathlib.Path:
+    return CSRC.parents[3] / "build" / "repro_torch_kernels"
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
+    return build_dir() / f"lib{name}-{h}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every source not built yet, in parallel; return the ptxas
+    reports of what was compiled. Raises on any compiler error."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        REPORTS[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {name} ---\n{log}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {n: REPORTS.get(n, "") for n in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        target = _target(name)
+        if not target.exists():
+            build_all((name,))
+        lib = _LIBS[name] = ctypes.CDLL(str(target))
+    return lib
+
+
+_FUNCS: dict[str, object] = {}
+
+
+def function(lib: str, name: str, argtypes):
+    """The C entry point `name` of library `lib`, with its argument types
+    set once (ctypes otherwise passes every int as 32 bits and cuts
+    pointers). Every entry point returns `cudaGetLastError()` as an int."""
+    fn = _FUNCS.get(name)
+    if fn is None:
+        fn = getattr(library(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _FUNCS[name] = fn
+    return fn
+
+
+def check(err: int, what: str):
+    """Raise on a nonzero `cudaGetLastError()` returned by a C launcher."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError_t {err})")

@@ -1,0 +1,221 @@
+"""Prefill flash attention under the SA contract: plain version and the
+hand-written Hopper kernel.
+
+Replaces the TPU kernel `repro/kernels/sa_attention.py` `_attn_kernel`
+(forward-only flash attention: online max and normalizer, unnormalized
+fp32 accumulator, one normalization with a 1e-30 floor; causal, window,
+softcap, `q_offset`, GQA through h // g).
+
+The contract is the JAX package's `models/layers.blockwise_attention`
+(forward), not the literal TPU kernel: q and k are cast in (bf16 under the
+default policy) before the fp32 q·k, and the unnormalized probabilities P
+and v are cast in before the fp32 P·V. The TPU kernel feeds raw fp32
+operands and has no approx path; the serve engine's prefill runs `exact`,
+so the kernel takes `exact` only and raises on `approx`.
+
+Layout at both functions: q (B, T, H, hd), k and v (B, S, KVH, hd) →
+(B, T, H, hd), the layer's own.
+
+The kernel (`csrc/sa_attention.cu`): one block per (16-query tile, head,
+batch row) walks 32-key tiles with an online softmax and normalizes once.
+At the serving prompt lengths (T ≤ a few hundred) its work is small next
+to the projections; it is bound by the q·k and P·V flops it does in SIMT
+fp32 (no tensor cores yet), and causal tiles past the block's last query
+are skipped rather than masked.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+LAUNCHES = 0       # kernel launches through `sa_attention_cuda`
+PLAIN_CALLS = 0    # calls of the plain version `flash_attention_ref`
+
+_FMT_CODE = {"fp32": 0, "bf16": 1, "fp16": 2}
+
+
+def _div_block(n, target):  # largest divisor of n that is <= target
+    b = min(target, n)
+    while n % b:
+        b -= 1
+    return b
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0,
+                        q_offset=0, block_q=1024, block_kv=1024, scale=None,
+                        policy=None):
+    """Plain version: the online-softmax forward of `blockwise_attention`
+    with its (block_q, block_kv) tiling, every contraction under the SA
+    contract (`sa_einsum`)."""
+    global PLAIN_CALLS
+    from repro_torch.core.precision import current_policy, sa_einsum
+
+    PLAIN_CALLS += 1
+    policy = policy or current_policy()
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    g = H // KVH
+    scale = scale or hd ** -0.5
+    bq, bkv = _div_block(T, block_q), _div_block(S, block_kv)
+    nq, nkv = T // bq, S // bkv
+    qg = q.reshape(B, T, KVH, g, hd)
+    dev = q.device
+    blocks = []
+    for iq in range(nq):
+        q_i = qg[:, iq * bq:(iq + 1) * bq]
+        q_pos = q_offset + iq * bq + torch.arange(bq, device=dev)
+        acc = torch.zeros((B, KVH, g, bq, hd), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((B, KVH, g, bq), float("-inf"), device=dev)
+        l = torch.zeros((B, KVH, g, bq), device=dev)
+        for jk in range(nkv):
+            k_j = k[:, jk * bkv:(jk + 1) * bkv]
+            v_j = v[:, jk * bkv:(jk + 1) * bkv]
+            kv_pos = jk * bkv + torch.arange(bkv, device=dev)
+            s = sa_einsum("bqhgd,bkhd->bhgqk", q_i, k_j, policy).float()
+            s = s * scale
+            if cap:
+                s = cap * torch.tanh(s / cap)
+            ok = torch.ones((bq, bkv), dtype=torch.bool, device=dev)
+            if causal:
+                ok &= q_pos[:, None] >= kv_pos[None, :]
+            if window:
+                ok &= q_pos[:, None] - kv_pos[None, :] < window
+            s = s + torch.where(ok, 0.0, float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1))
+            # fully-masked tiles leave m_new = -inf; the guard keeps exp()
+            # at exactly 0 instead of NaN
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            corr = torch.exp(m - m_safe)
+            l = l * corr + p.sum(-1)
+            pv = sa_einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype), v_j, policy)
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        blocks.append(out.to(q.dtype))
+    out = torch.cat(blocks, dim=3)                     # (B, KVH, g, T, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
+
+
+def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
+                      q_offset=0, scale=None, policy=None):
+    """Launch the prefill flash kernel. q (B, T, H, hd), k/v (B, S, KVH,
+    hd) fp32 on one CUDA device; hd a multiple of 32, at most 128."""
+    global LAUNCHES
+    from repro_torch.core.precision import current_policy
+    from .build import check, function
+
+    policy = policy or current_policy()
+    if policy.mode != "exact":
+        raise ValueError("the prefill attention kernel runs exact mode only "
+                         "(serving prefill is exact)")
+    if policy.input_format not in _FMT_CODE or policy.output_format != "fp32":
+        raise ValueError(f"prefill attention kernel does not support "
+                         f"input_format={policy.input_format!r} / "
+                         f"output_format={policy.output_format!r}")
+    for t in (q, k, v):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("sa_attention_cuda needs q, k, v on one CUDA "
+                             "device")
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    if H % KVH or hd % 32 or hd > 128 or v.shape != k.shape:
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    scale = scale or hd ** -0.5
+    qh = q.to(torch.float32).permute(0, 2, 1, 3).contiguous()
+    kh = k.to(torch.float32).permute(0, 2, 1, 3).contiguous()
+    vh = v.to(torch.float32).permute(0, 2, 1, 3).contiguous()
+    out = torch.empty((B, H, T, hd), dtype=torch.float32, device=q.device)
+    fn = function("sa_attention", "sa_attention_launch",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
+    err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
+             B, H, KVH, T, S, hd, float(scale), float(cap or 0.0),
+             int(causal), int(window), int(q_offset),
+             _FMT_CODE[policy.input_format],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "sa_attention")
+    LAUNCHES += 1
+    return out.permute(0, 2, 1, 3)
+
+
+# unit roundoff of the cast-in format (fp32 and anything else: 2⁻²⁴)
+UNIT_ROUNDOFF = {"bf16": 2.0 ** -8, "fp16": 2.0 ** -11}
+
+
+def softmax_error_terms(s_raw, a_abs, ok, *, hd, scale, cap=0.0,
+                        approx=False):
+    """The exact softmax weights of one set of attention scores, and how far
+    an fp32 implementation's weights may stray from them.
+
+    `s_raw` (..., S) are the exact (fp64) dots of the cast-in q and k,
+    `a_abs` (..., S) the matching Σ_d |q_d||k_d|, `ok` the mask. Returns
+    `p` (..., S), the normalized weights (0 where masked), and `eps`
+    (..., 1), a bound on |p_impl − p| / p for either implementation, per
+    row: an fp32 dot of hd exact products is off by ≤ hd·2⁻²⁴·Σ|q||k| (in
+    approx mode plus one truncation quantum, 2⁻²⁰·|s|), scaled by `scale`,
+    plus a few ulp of the scaling, softcap and exp; p = e^(s − m)
+    moves by the score's error and the row max's, and its normalizer by
+    the fp32 sum of S terms. Kernel and plain version each lie within
+    `eps` of `p`."""
+    ds = 2 * hd * 2.0 ** -24 * a_abs
+    if approx:
+        ds = ds + 2.0 ** -20 * s_raw.abs()
+    s = cap * torch.tanh(s_raw * (scale / cap)) if cap else s_raw * scale
+    ds = scale * ds + 2.0 ** -22 * s.abs() + (2.0 ** -21 * cap if cap else 0)
+    s = torch.where(ok, s, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    e = torch.exp(s - m)
+    p = e / e.sum(-1, keepdim=True).clamp_min(1e-300)
+    e_s = torch.where(ok, ds, 0.0).amax(-1, keepdim=True)
+    spread = torch.where(ok, (s - m).abs(), 0.0).amax(-1, keepdim=True)
+    eps = (2 * e_s + 2.0 ** -21 * (1 + spread)
+           + 2 * s.shape[-1] * 2.0 ** -24)
+    return p, eps
+
+
+def error_bound(q, k, v, *, causal=True, window=0, cap=0.0, q_offset=0,
+                scale=None, policy=None):
+    """Per-output bound on |kernel − plain| (B, T, H, hd), from the plain
+    version's own terms.
+
+    With p the exact softmax weights and W_d = Σ_j p_j |v_jd| (cast-in v):
+    the two tile the keys differently, so each rounds its unnormalized P to
+    the input format against a different running max — up to one rounding
+    u_in per element on each side (u_in = 2⁻⁸ bf16, 2⁻¹¹ fp16, 2⁻²⁴ fp32) —
+    on top of each side's weights straying by `eps` (numerator and
+    normalizer, `softmax_error_terms`), the fp32 P·V and normalizer sums
+    and the running rescales (≤ S each) and the final division:
+    |Δo_d| ≤ (2·u_in + 2·eps + 8·S·2⁻²⁴ + 2⁻²²)·W_d. The leading 2 of the
+    returned bound covers the second-order terms."""
+    from repro_torch.core.precision import current_policy
+
+    policy = policy or current_policy()
+    u_in = UNIT_ROUNDOFF.get(policy.input_format, 2.0 ** -24)
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    g = H // KVH
+    scale = scale or hd ** -0.5
+    f64 = torch.float64
+    qc = policy.cast_in(q).to(f64).reshape(B, T, KVH, g, hd)
+    kc, vc = (policy.cast_in(x).to(f64) for x in (k, v))
+    s_raw = torch.einsum("bthgd,bshd->bhgts", qc, kc)
+    a_abs = torch.einsum("bthgd,bshd->bhgts", qc.abs(), kc.abs())
+    q_pos = q_offset + torch.arange(T, device=q.device)[:, None]
+    kv_pos = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= q_pos >= kv_pos
+    if window:
+        ok &= q_pos - kv_pos < window
+    p, eps = softmax_error_terms(s_raw, a_abs, ok, hd=hd, scale=scale,
+                                 cap=cap)
+    w = torch.einsum("bhgts,bshd->bthgd", p, vc.abs())
+    rel = (2 * u_in + 2 * eps.permute(0, 3, 1, 2, 4)
+           + 8 * S * 2.0 ** -24 + 2.0 ** -22)
+    return (2 * rel * w).reshape(B, T, H, hd).to(torch.float32) + 1e-30

@@ -1,0 +1,158 @@
+"""Paged decode attention: plain version and the hand-written Hopper kernel.
+
+Replaces the TPU kernel `repro/kernels/sa_decode_attention.py`
+`_decode_kernel` (flash-decoding over the paged pool: walk the block
+table, mask unmapped (-1) and trash (0) pages without reading them,
+per-head fp32 q·k on cast-in operands, approx truncation, host-folded
+softcap, window and position masks, deferred softmax with the all-masked
+guard, P·V in fp32, approx truncation).
+
+The plain version is `gather_pages` + `decode_attention` of the port's
+`models/layers.py`, exactly as the JAX kernel is pinned to the JAX pair.
+
+The kernel (`csrc/sa_decode_attention.cu`) runs one block per (slot, KV
+head): the g query heads of a KV head share every K and V row it reads,
+and their scores stay in shared memory for the softmax. It is bound by the
+bytes of the mapped pages' K and V rows; see the source for where the
+shared-memory score buffer stops fitting.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+LAUNCHES = 0       # kernel launches through `paged_decode_cuda`
+PLAIN_CALLS = 0    # calls of the plain version `paged_decode_ref`
+
+_SUPPORTED_INPUT_FORMATS = ("fp32", "bf16", "fp16")
+_FMT_CODE = {"fp32": 0, "bf16": 1, "fp16": 2}
+
+
+def fused_decode_supported(policy) -> bool:
+    """True when the fused kernel reproduces the gather path for `policy`
+    (FP8 inputs and non-fp32 output rounding stay on the gather path)."""
+    return (policy.input_format in _SUPPORTED_INPUT_FORMATS
+            and policy.output_format == "fp32")
+
+
+def paged_decode_ref(q, k_pool, v_pool, page_positions, block_table, pos, *,
+                     window: int = 0, cap: float = 0.0, scale=None,
+                     policy=None):
+    """Plain version: gather the slot's pages, then `decode_attention`."""
+    global PLAIN_CALLS
+    from repro_torch.core.precision import current_policy, use_policy
+    from repro_torch.models.layers import (PagedKVCache, decode_attention,
+                                           gather_pages)
+
+    PLAIN_CALLS += 1
+    policy = policy or current_policy()
+    k, v, kvp = gather_pages(PagedKVCache(k_pool, v_pool, page_positions,
+                                          block_table))
+    with use_policy(policy):
+        return decode_attention(q, k, v, kvp, pos, window=window, cap=cap,
+                                scale=scale)
+
+
+def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
+                      *, window: int = 0, cap: float = 0.0, scale=None,
+                      policy=None):
+    """Launch the paged decode kernel. q (B, 1, H, hd) fp32; pools
+    (n_pages, psz, KVH, hd) fp32; page_positions (n_pages, psz) int32;
+    block_table (B, P) int32; pos (B,) int32 → (B, 1, H, hd) fp32."""
+    global LAUNCHES
+    from repro_torch.core.precision import current_policy
+    from .build import check, function
+
+    policy = policy or current_policy()
+    if not fused_decode_supported(policy):
+        raise ValueError(
+            f"fused paged decode does not support input_format="
+            f"{policy.input_format!r} / output_format="
+            f"{policy.output_format!r}; use the gather path")
+    for t in (q, k_pool, v_pool, page_positions, block_table, pos):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("paged_decode_cuda needs every operand on one "
+                             "CUDA device")
+    B, _, H, hd = q.shape
+    psz, KVH = k_pool.shape[1], k_pool.shape[2]
+    P = block_table.shape[1]
+    g = H // KVH
+    if (H % KVH or g > 16 or hd % 32 or hd > 256
+            or k_pool.dtype != torch.float32
+            or v_pool.dtype != torch.float32):
+        raise ValueError(f"unsupported paged decode operands q "
+                         f"{tuple(q.shape)} pool {tuple(k_pool.shape)} "
+                         f"{k_pool.dtype}")
+    scale = scale or hd ** -0.5
+    cap = float(cap or 0.0)
+    q = q.to(torch.float32).contiguous()
+    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
+    pp = page_positions.to(torch.int32).contiguous()
+    bt = block_table.to(torch.int32).contiguous()
+    ps = pos.to(torch.int32).reshape(B).contiguous()
+    out = torch.empty((B, 1, H, hd), dtype=torch.float32, device=q.device)
+    fn = function("sa_decode_attention", "paged_decode_launch",
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                  + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p])
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             pp.data_ptr(), bt.data_ptr(), ps.data_ptr(), out.data_ptr(),
+             B, KVH, g, hd, psz, P, float(scale),
+             float(scale / cap) if cap else 0.0, cap, int(window),
+             _FMT_CODE[policy.input_format], int(policy.mode == "approx"),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "paged_decode")
+    LAUNCHES += 1
+    return out
+
+
+def error_bound(q, k_pool, v_pool, page_positions, block_table, pos, *,
+                window: int = 0, cap: float = 0.0, scale=None, policy=None):
+    """Per-output bound on |kernel − plain| (B, 1, H, hd), from the plain
+    version's own terms.
+
+    Both normalize with the full row max before P is rounded to the input
+    format, so with p the exact softmax weights each side's weight lies in
+    p·(1 ± eps) (`sa_attention.softmax_error_terms`) and its rounding P
+    between rnd(p·(1 − eps)) and rnd(p·(1 + eps)): the weights differ by at
+    most D_j, the width of that interval — zero for most keys, one ulp of
+    the format where a rounding boundary falls inside. Then
+    |Δo_d| ≤ Σ_j D_j·|v_jd| + (2·S·2⁻²⁴ + approx 2⁻²⁰)·Σ_j p_j·|v_jd| (the
+    fp32 P·V sums in two orders, the output's truncation quantum). The
+    leading 2 of the returned bound covers the second-order terms."""
+    from repro_torch.core.precision import current_policy
+    from repro_torch.models.layers import PagedKVCache, gather_pages
+
+    from .sa_attention import softmax_error_terms
+
+    policy = policy or current_policy()
+    approx = policy.mode == "approx"
+    B, _, H, hd = q.shape
+    KVH = k_pool.shape[2]
+    g = H // KVH
+    scale = scale or hd ** -0.5
+    k, v, kvp = gather_pages(PagedKVCache(k_pool, v_pool, page_positions,
+                                          block_table))
+    S = k.shape[1]
+    f64 = torch.float64
+    qc = policy.cast_in(q).to(f64).reshape(B, KVH, g, hd)
+    kc, vc = (policy.cast_in(x).to(f64) for x in (k, v))
+    s_raw = torch.einsum("bhgd,bshd->bhgs", qc, kc)
+    a_abs = torch.einsum("bhgd,bshd->bhgs", qc.abs(), kc.abs())
+    pos = pos.reshape(B, 1)
+    ok = (kvp >= 0) & (kvp <= pos)
+    if window:
+        ok &= kvp > pos - window
+    p, eps = softmax_error_terms(s_raw, a_abs, ok[:, None, None, :], hd=hd,
+                                 scale=scale, cap=cap, approx=approx)
+
+    def rnd(x):
+        return policy.cast_in(x.to(torch.float32)).to(f64)
+
+    d_p = rnd(p * (1 + eps)) - rnd(p * (1 - eps))
+    va = vc.abs()
+    bound = (torch.einsum("bhgs,bshd->bhgd", d_p, va)
+             + (2 * S * 2.0 ** -24 + (2.0 ** -20 if approx else 0.0))
+             * torch.einsum("bhgs,bshd->bhgd", p, va))
+    return (2 * bound).reshape(B, 1, H, hd).to(torch.float32) + 1e-30

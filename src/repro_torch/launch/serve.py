@@ -1,0 +1,189 @@
+"""Request-stream serving driver for the PyTorch port: Poisson arrivals
+through the continuous-batching engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
+        --batch 4 --requests 8 --prompt-lens 32,64,128 --max-new 16 --rate 0
+
+Runs on CUDA unless `--device cpu` is given (with `--reduced` that is the
+CPU smoke run). The GEMM backend is REPRO_GEMM_BACKEND (`torch`, the
+plain version, or `cuda`, the hand-written SA GEMM kernel). The summary
+line `[continuous] k=v ...` and its `stream_digest` are the JAX driver's.
+
+Flags of features not ported yet (--tier-mix, --spec-k, --disagg,
+--decode-replicas, --bucket-prompts, --kv ring) raise
+`ValueError("... not ported yet")`.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+
+import numpy as np
+
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.core.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.scheduler import SlotScheduler
+
+
+def build_requests(sched: SlotScheduler, cfg, n: int, rate: float,
+                   prompt_lens: list[int], max_new: int, seed: int,
+                   tier_mix: float = 0.0, prefix_mix: float = 0.0,
+                   prefix_len: int = 32):
+    """Queue `n` synthetic requests, a pure function of `seed` (the JAX
+    driver's stream: the same seed gives the same prompts)."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab_size, prefix_len)
+    t = 0.0
+    for i in range(n):
+        if rate > 0:
+            t += float(rng.exponential(1.0 / rate))
+        plen = prompt_lens[i % len(prompt_lens)]
+        prompt = rng.integers(0, cfg.vocab_size, plen)
+        if rng.random() < prefix_mix:
+            prompt = np.concatenate([system, prompt])
+        tier = "bulk" if rng.random() < tier_mix else "premium"
+        sched.submit(prompt, max_new_tokens=max_new, arrival_time=t,
+                     tier=tier)
+
+
+def itl_p50_ms(finished) -> float | None:
+    itls = [(r.t_done - r.t_first_token) / (r.n_generated - 1)
+            for r in finished
+            if r.t_first_token is not None and r.t_done is not None
+            and r.n_generated >= 2]
+    if not itls:
+        return None
+    return round(float(np.percentile(itls, 50)) * 1000, 3)
+
+
+def stream_digest(finished) -> str:
+    """sha1 of the rid-ordered token streams (the JAX driver's digest)."""
+    streams = ",".join(
+        f"{r.rid}:{'-'.join(map(str, r.tokens))}"
+        for r in sorted(finished, key=lambda r: r.rid))
+    return hashlib.sha1(streams.encode()).hexdigest()[:16]
+
+
+def _print_phases(summary) -> None:
+    print(f"[phases] disagg={summary.get('disagg')} "
+          f"prefill_busy={summary.get('prefill_busy_s')}s "
+          f"decode_busy={summary.get('decode_busy_s')}s "
+          f"handoff={summary.get('handoff_s')}s "
+          f"decode_stall={summary.get('decode_stall_s')}s "
+          f"itl_p50={summary.get('decode_itl_p50_ms')}ms "
+          f"ready_p50={summary.get('ready_depth_p50')} "
+          f"prefill_compiles={summary.get('prefill_compiles')}")
+
+
+def serve_continuous(args, cfg, params, plens, device):
+    """Serve the stream; returns (summary, scheduler, engine)."""
+    engine = ServeEngine(cfg, params, args.batch, args.cache_len,
+                         eos_id=args.eos_id, sync_every=args.sync_every,
+                         kv_layout=args.kv, page_size=args.page_size,
+                         pool_pages=args.pool_pages,
+                         max_seq_len=args.max_seq_len, spec_k=args.spec_k,
+                         disagg=args.disagg or None,
+                         bucket_prompts=args.bucket_prompts or None,
+                         device=device)
+    sched = SlotScheduler(args.batch, eos_id=args.eos_id)
+    build_requests(sched, cfg, args.requests, args.rate, plens,
+                   args.max_new, args.seed, tier_mix=args.tier_mix,
+                   prefix_mix=args.prefix_mix, prefix_len=args.prefix_len)
+    summary = engine.serve(sched, greedy=True)
+    summary["stream_digest"] = stream_digest(sched.finished)
+    itl = itl_p50_ms(sched.finished)
+    if itl is not None:
+        summary["decode_itl_p50_ms"] = itl
+    _print_phases(summary)
+    for r in sorted(sched.finished, key=lambda r: r.rid):
+        ttft = float("nan") if r.ttft is None else r.ttft
+        print(f"req {r.rid:3d} slot {r.slot} {r.tier:7s} "
+              f"prompt {r.prompt_len:4d} "
+              f"gen {r.n_generated:4d} ({r.finish_reason or 'n/a':8s}) "
+              f"ttft {ttft:.3f}s "
+              f"decode {r.decode_tok_s or float('nan'):.1f} tok/s")
+    return summary, sched, engine
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu; no card and no --device "
+                         "cpu is an error")
+    ap.add_argument("--batch", type=int, default=4, help="decode slots")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="Poisson arrival rate, req/s (0 = all at t=0)")
+    ap.add_argument("--prompt-lens", default="8,16,32",
+                    help="comma-set of prompt lengths, cycled per request")
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--cache-len", type=int, default=None)
+    ap.add_argument("--kv", default=None, choices=(None, "ring", "paged"),
+                    help="KV layout (default: $REPRO_KV or 'paged'); "
+                         "'ring' is not ported yet")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="total pages in the pool (default: batch*cache_len "
+                         "tokens + the trash page)")
+    ap.add_argument("--max-seq-len", type=int, default=None,
+                    help="per-request token cap = block-table width "
+                         "(default: cache-len)")
+    ap.add_argument("--sync-every", type=int, default=8,
+                    help="decode steps per host sync / scheduler tick")
+    ap.add_argument("--prefix-mix", type=float, default=0.0,
+                    help="fraction of requests sharing one fixed system "
+                         "prompt (the prefix-cache workload)")
+    ap.add_argument("--prefix-len", type=int, default=32,
+                    help="shared system-prompt length for --prefix-mix")
+    ap.add_argument("--tier-mix", type=float, default=0.0,
+                    help="fraction of 'bulk' tier requests (not ported yet: "
+                         "must be 0)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative draft length (not ported yet: must "
+                         "be 0)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="two-pool disaggregated serving (not ported yet)")
+    ap.add_argument("--decode-replicas", type=int, default=1,
+                    help="engine replicas (not ported yet: must be 1)")
+    ap.add_argument("--bucket-prompts", action="store_true",
+                    help="prompt-length bucketing (not ported yet)")
+    ap.add_argument("--layers-per-period", type=int, default=1,
+                    help="depth multiplier for --reduced configs")
+    ap.add_argument("--width", type=int, default=1,
+                    help="width multiplier for --reduced configs")
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help="EOS token id (-1: never fires on synthetic vocab)")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def main(argv=None, *, return_state: bool = False):
+    """Serve the synthetic stream and print the summary line. Returns the
+    summary, or (summary, scheduler, engine) with `return_state`."""
+    args = parse_args(argv)
+    if args.tier_mix > 0:
+        raise ValueError("--tier-mix (the bulk tier) is not ported yet")
+    if args.decode_replicas > 1:
+        raise ValueError("--decode-replicas is not ported yet")
+    device = resolve_device(args.device)
+    cfg = (reduced_config(args.arch,
+                          layers_per_period=args.layers_per_period,
+                          width=args.width)
+           if args.reduced else get_config(args.arch))
+    params = M.init_params(cfg, seed=args.seed, device=device)
+    plens = [int(x) for x in args.prompt_lens.split(",")]
+    extra = args.prefix_len if args.prefix_mix > 0 else 0
+    args.cache_len = args.cache_len or (max(plens) + extra + args.max_new)
+    summary, sched, engine = serve_continuous(args, cfg, params, plens,
+                                              device)
+    print("[continuous] " + " ".join(f"{k}={v}" for k, v in summary.items()))
+    return (summary, sched, engine) if return_state else summary
+
+
+if __name__ == "__main__":
+    main()

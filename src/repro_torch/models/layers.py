@@ -1,0 +1,303 @@
+"""Model layers, main-path subset. Every GEMM routes through the SA
+precision policy (`repro_torch.core.precision.sa_dot` / `sa_einsum`).
+
+Caches are tensors updated in place: where the JAX package returns a new
+cache from `.at[].set` (and donates the old buffer), the port writes into
+the given tensors and returns the same cache object. Each such write says
+so in a comment.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import optflags
+from repro_torch.core.precision import sa_dot, sa_einsum
+
+# ---------------------------------------------------------------------------
+# Norms / activations
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x, w, eps=1e-6):
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+
+
+def norm_apply(x, p, kind="rmsnorm", eps=1e-6):
+    if kind != "rmsnorm":
+        raise ValueError(f"norm {kind!r} is not ported yet")
+    return rmsnorm(x, p["w"], eps)
+
+
+def act_fn(x, kind="silu"):
+    # one activation table for fused and unfused paths
+    from repro_torch.kernels.sa_matmul import EPILOGUES, apply_act
+    if kind not in EPILOGUES or kind == "none":
+        raise ValueError(f"unknown activation {kind!r}")
+    return apply_act(x, kind)
+
+
+def _fuse_epilogue() -> bool:
+    return optflags.enabled("fused_epilogue")
+
+
+def softcap(x, cap: float):
+    return cap * torch.tanh(x / cap) if cap else x
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(hd: int, theta: float, device=None):
+    exps = -torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
+                     exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., T, hd); positions: broadcastable to (..., T)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def blockwise_attention(q, k, v, *, causal=True, window=0, cap=0.0,
+                        q_offset=0, block_q=1024, block_kv=1024, scale=None):
+    """q: (B, T, H, hd); k, v: (B, S, KVH, hd) → (B, T, H, hd).
+
+    Flash-style online-softmax forward under the SA contract; the plain
+    version of the prefill kernel (kernels/sa_attention.py). Forward only:
+    the backward comes with the training slice."""
+    from repro_torch.kernels.sa_attention import flash_attention_ref
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               cap=cap, q_offset=q_offset, block_q=block_q,
+                               block_kv=block_kv, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window=0,
+                     cap=0.0, scale=None):
+    """Single-token attention against a per-slot cache.
+
+    q: (B, 1, H, hd); caches: (B, S, KVH, hd); kv_positions: (B, S) token
+    position per cache row (-1 = empty); pos: (B,) per-slot position."""
+    B, _, H, hd = q.shape
+    S, KVH = k_cache.shape[1], k_cache.shape[2]
+    g = H // KVH
+    scale = scale or hd ** -0.5
+    qg = q.reshape(B, KVH, g, hd)
+    s = sa_einsum("bhgd,bkhd->bhgk", qg, k_cache).to(torch.float32)
+    # softcap with the constants folded on the host (one multiply, then
+    # tanh) — the expression the paged kernel computes
+    s = cap * torch.tanh(s * (scale / cap)) if cap else s * scale
+    pos = pos.reshape(B)
+    ok = (kv_positions >= 0) & (kv_positions <= pos[:, None])
+    if window:
+        ok &= kv_positions > pos[:, None] - window
+    s = torch.where(ok[:, None, None, :], s, float("-inf"))
+    # safe-row softmax: a slot with no valid entry is a row of -inf; the
+    # guarded max keeps exp() at 0 and the floored normalizer gives zeros
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(s - m_safe[..., None])
+    p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    out = sa_einsum("bhgk,bkhd->bhgd", p.to(q.dtype), v_cache)
+    return out.reshape(B, 1, H, hd)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, S_cache, KVH, hd)
+    v: torch.Tensor
+    positions: torch.Tensor  # (B, S_cache) int32 per-slot positions, -1 = empty
+
+
+class PagedKVCache(NamedTuple):
+    """Paged KV layout: a global page pool shared by every batch slot.
+    Page 0 is the reserved trash page: decode writes from slots with no
+    mapped page for their position land there, and it is never handed out
+    by the allocator."""
+    k: torch.Tensor            # (n_pages, page_size, KVH, hd)
+    v: torch.Tensor
+    positions: torch.Tensor    # (n_pages, page_size) int32, -1 = empty
+    block_table: torch.Tensor  # (B, max_pages) int32 page ids, -1 = unmapped
+
+
+def gather_pages(cache: PagedKVCache):
+    """Each slot's mapped pages as a dense (B, max_pages·page_size) view.
+    Unmapped entries and the trash page (id <= 0) gather zeros with
+    positions -1, so they are masked like empty ring entries."""
+    B, P = cache.block_table.shape
+    psz = cache.k.shape[1]
+    safe = torch.clamp_min(cache.block_table, 0).long()       # (B, P)
+    mapped = (cache.block_table > 0)[:, :, None]              # (B, P, 1)
+    kvhd = cache.k.shape[2:]
+    zero = torch.zeros((), dtype=cache.k.dtype, device=cache.k.device)
+    k = torch.where(mapped[..., None, None], cache.k[safe], zero)
+    v = torch.where(mapped[..., None, None], cache.v[safe], zero)
+    pos = torch.where(mapped, cache.positions[safe], -1)
+    return (k.reshape(B, P * psz, *kvhd), v.reshape(B, P * psz, *kvhd),
+            pos.reshape(B, P * psz))
+
+
+def qkv_project(x, p, cfg):
+    """x: (B, T, D) → q (B,T,H,hd), k/v (B,T,KVH,hd)."""
+    B, T, _ = x.shape
+    xf = x.reshape(B * T, -1)
+    # fused: the bias rides the GEMM epilogue, added to the fp32 chain
+    fused = cfg.qkv_bias and _fuse_epilogue()
+    q = sa_dot(xf, p["wq"], bias=p["bq"] if fused else None
+               ).reshape(B, T, cfg.num_heads, cfg.hd)
+    k = sa_dot(xf, p["wk"], bias=p["bk"] if fused else None
+               ).reshape(B, T, cfg.num_kv_heads, cfg.hd)
+    v = sa_dot(xf, p["wv"], bias=p["bv"] if fused else None
+               ).reshape(B, T, cfg.num_kv_heads, cfg.hd)
+    if cfg.qkv_bias and not fused:
+        q = q + p["bq"].reshape(cfg.num_heads, cfg.hd)
+        k = k + p["bk"].reshape(cfg.num_kv_heads, cfg.hd)
+        v = v + p["bv"].reshape(cfg.num_kv_heads, cfg.hd)
+    return q, k, v
+
+
+def attn_out(x_attn, p):
+    B, T, H, hd = x_attn.shape
+    return sa_dot(x_attn.reshape(B * T, H * hd), p["wo"]).reshape(B, T, -1)
+
+
+def _paged_write(cache: PagedKVCache, k, v, pos):
+    """Write one token per slot into the pool, IN PLACE. Position p of
+    slot b lives at offset p % page_size of page block_table[b, p //
+    page_size]; rows whose position falls outside their mapped pages
+    (free slots, steps after retirement) go to the trash page 0."""
+    B = k.shape[0]
+    psz = cache.k.shape[1]
+    P = cache.block_table.shape[1]
+    pos = pos.long()
+    page_i = pos // psz
+    off = pos % psz
+    b = torch.arange(B, device=k.device)
+    pid = cache.block_table[b, page_i.clamp(0, P - 1)].long()
+    pid = torch.where((page_i < P) & (pid >= 0), pid, 0)
+    cache.k[pid, off] = k.to(cache.k.dtype)                 # in place
+    cache.v[pid, off] = v.to(cache.v.dtype)                 # in place
+    cache.positions[pid, off] = pos.to(cache.positions.dtype)  # in place
+
+
+def attention_block(x, p, cfg, meta, positions, cache=None, pos=None,
+                    causal: bool = True, prefix_len: int = 0):
+    """Attention sub-layer. Returns (out, cache).
+
+    With a cache and a single token: decode (paged pool or per-slot ring),
+    writing the token's K/V into the cache in place. Otherwise prefill: a
+    dense cache is filled in place; `prefix_len` is continued prefill over
+    KV already in the cache's first `prefix_len` rows."""
+    window = cfg.window if meta.get("attn") == "local" else 0
+    q, k, v = qkv_project(x, p, cfg)
+    q = apply_rope(q.transpose(1, 2), positions[:, None, :],
+                   cfg.rope_theta).transpose(1, 2)
+    k = apply_rope(k.transpose(1, 2), positions[:, None, :],
+                   cfg.rope_theta).transpose(1, 2)
+    if cache is not None and cache.k.shape[-2] != k.shape[2]:
+        raise ValueError("padded KV heads are not ported yet")
+    if (cache is not None and x.shape[1] == 1
+            and isinstance(cache, PagedKVCache)):
+        from repro_torch.kernels import ops
+        _paged_write(cache, k[:, 0], v[:, 0], pos)
+        # attention over the slot's mapped pages: the hand kernel walks the
+        # block table (default; on the card it raises for a policy it cannot
+        # reproduce, FP8 in or non-fp32 out); REPRO_DECODE_ATTN=gather
+        # materializes the dense view (the A/B path)
+        if optflags.decode_attn_impl() == "fused":
+            o = ops.paged_decode_attention(
+                q, cache.k, cache.v, cache.positions, cache.block_table, pos,
+                window=window, cap=cfg.attn_softcap)
+        else:
+            k_g, v_g, pos_g = gather_pages(cache)
+            o = decode_attention(q, k_g, v_g, pos_g, pos, window=window,
+                                 cap=cfg.attn_softcap)
+    elif cache is not None and x.shape[1] == 1:
+        # per-slot ring write: row b is an independent request at its own
+        # depth, written into its own ring slot (in place)
+        B = x.shape[0]
+        S = cache.k.shape[1]
+        slot = (pos % S).long()
+        b = torch.arange(B, device=x.device)
+        cache.k[b, slot] = k[:, 0].to(cache.k.dtype)              # in place
+        cache.v[b, slot] = v[:, 0].to(cache.v.dtype)              # in place
+        cache.positions[b, slot] = pos.to(cache.positions.dtype)  # in place
+        o = decode_attention(q, cache.k, cache.v, cache.positions, pos,
+                             window=window, cap=cfg.attn_softcap)
+    else:
+        from repro_torch.kernels import ops
+        if cache is not None and isinstance(cache, PagedKVCache):
+            raise ValueError(
+                "paged KV caches take prefill via the engine's fragment "
+                "splice, not a multi-token forward")
+        k_att, v_att = k, v
+        if cache is not None and prefix_len:
+            # continued prefill: suffix queries attend over [cached prefix
+            # ‖ fragment] at their absolute offset
+            k_att = torch.cat([cache.k[:, :prefix_len].to(k.dtype), k], 1)
+            v_att = torch.cat([cache.v[:, :prefix_len].to(v.dtype), v], 1)
+        if cache is not None and optflags.prefill_kernel_on(q.device):
+            # serving prefill through the hand-written flash kernel
+            o = ops.sa_attention(q, k_att, v_att, causal=causal,
+                                 window=window, cap=cfg.attn_softcap,
+                                 q_offset=prefix_len)
+        else:
+            o = blockwise_attention(q, k_att, v_att, causal=causal,
+                                    window=window, cap=cfg.attn_softcap,
+                                    q_offset=prefix_len)
+        if cache is not None:
+            _fill_dense(cache, k, v, positions, prefix_len)
+    return attn_out(o, p), cache
+
+
+def _fill_dense(cache: KVCache, k, v, positions, prefix_len: int):
+    """Prefill write into a dense per-slot cache, IN PLACE."""
+    S = cache.k.shape[1]
+    T = k.shape[1]
+    k = k.to(cache.k.dtype)
+    v = v.to(cache.v.dtype)
+    if T >= S:                   # keep the last S positions (ring)
+        assert not prefix_len, (
+            "continued prefill needs prefix_len + suffix <= cache capacity")
+        pos_keep = positions[:, -S:].long()                   # (B, S)
+        slots = pos_keep % S
+        bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+        cache.k.zero_()
+        cache.v.zero_()
+        cache.positions.fill_(-1)
+        cache.k[bidx, slots] = k[:, -S:]                      # in place
+        cache.v[bidx, slots] = v[:, -S:]                      # in place
+        cache.positions[bidx, slots] = pos_keep.to(cache.positions.dtype)
+    else:                        # suffix rows land after the prefix
+        end = prefix_len + T
+        cache.k[:, prefix_len:end] = k                        # in place
+        cache.v[:, prefix_len:end] = v                        # in place
+        cache.positions[:, prefix_len:end] = positions.to(
+            cache.positions.dtype)
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+def ffn_swiglu(x, p, act="silu"):
+    B, T, D = x.shape
+    xf = x.reshape(B * T, D)
+    if _fuse_epilogue():
+        h = sa_dot(xf, p["wg"], act=act) * sa_dot(xf, p["wu"])
+    else:
+        h = act_fn(sa_dot(xf, p["wg"]), act) * sa_dot(xf, p["wu"])
+    return sa_dot(h, p["wd"]).reshape(B, T, D)

@@ -1,0 +1,219 @@
+"""Model assembly, main-path subset: the dense decoder-only LM.
+
+Parameters are a plain nested dict with the JAX package's key names and
+its stacked superblock axis: `params["layers"]` is a tuple of
+`cfg.stack_period` layer dicts whose leaves carry the superblock index on
+axis 0. On CUDA, matrices (≥ 2-D leaves) are stored in bf16 — the JAX
+forward casts them to bf16 at superblock entry and `cast_in` rounds to
+bf16 at every use, so this is the same arithmetic at half the memory (the
+full qwen2.5-14b in fp32 would take 59 GB). On the CPU they stay fp32 and
+the forward casts at superblock entry, as the JAX package does.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core import optflags
+from repro_torch.core.device import resolve_device
+from repro_torch.core.precision import sa_dot
+from .config import ArchConfig
+from . import layers as L
+from .layers import KVCache, PagedKVCache
+
+
+def check_supported(cfg: ArchConfig):
+    """The port's model code covers the dense decoder-only family."""
+    if (cfg.family != "dense" or cfg.norm != "rmsnorm" or cfg.is_encdec
+            or cfg.tie_embeddings):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} / norm "
+                         f"{cfg.norm!r} is not ported yet (dense rmsnorm "
+                         f"decoders only)")
+
+
+def tree_map(fn, tree):
+    """Map `fn` over the tensor leaves of nested dicts, tuples and the
+    cache NamedTuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (KVCache, PagedKVCache)):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree) if tree is not None else None
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
+                generator: torch.Generator | None = None):
+    """Full parameter tree drawn on `device` (default CUDA) from a
+    `torch.Generator`: the JAX package's distributions (normal · fan_in⁻½
+    matrices, 0.02-scaled embedding, unit norms, zero biases), not its
+    random bits."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = generator or torch.Generator(device=dev).manual_seed(seed)
+    mat_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    period = cfg.stack_period
+    n_super = cfg.num_layers // period
+    assert n_super * period == cfg.num_layers, (cfg.num_layers, period)
+    d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    ff = cfg.d_ff_dense or cfg.d_ff
+
+    def normal(shape, std):
+        # drawn in fp32 one superblock slice at a time, then stored: the
+        # fp32 temporary never exceeds one layer's matrix
+        out = torch.empty(shape, dtype=mat_dtype, device=dev)
+        for i in range(shape[0]):
+            out[i] = torch.randn(shape[1:], generator=gen, device=dev) * std
+        return out
+
+    def dense(fan_in, shape):
+        return normal((n_super, *shape), fan_in ** -0.5)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    def layer():
+        attn = {"wq": dense(d, (d, H * hd)), "wk": dense(d, (d, KVH * hd)),
+                "wv": dense(d, (d, KVH * hd)),
+                "wo": dense(H * hd, (H * hd, d))}
+        if cfg.qkv_bias:
+            attn |= {"bq": zeros(n_super, H * hd),
+                     "bk": zeros(n_super, KVH * hd),
+                     "bv": zeros(n_super, KVH * hd)}
+        return {"norm1": {"w": ones(n_super, d)},
+                "norm2": {"w": ones(n_super, d)},
+                "attn": attn,
+                "ffn": {"wg": dense(d, (d, ff)), "wu": dense(d, (d, ff)),
+                        "wd": dense(ff, (ff, d))}}
+
+    params: dict[str, Any] = {
+        "embed": normal((cfg.padded_vocab, d), 0.02),
+        "final_norm": {"w": ones(d)},
+        "layers": tuple(layer() for _ in range(period)),
+    }
+    params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Caches (decode)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
+               dtype=torch.bfloat16, device=None,
+               paged: tuple[int, int] | None = None):
+    """Stacked per-layer cache, leaves with the superblock index on axis 0
+    and (dense) the batch slot on axis 1.
+
+    `paged=(n_pages, page_size)`: a shared `PagedKVCache` page pool plus a
+    per-slot block table of ceil(seq_len / page_size) columns."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    period = cfg.stack_period
+    n_super = cfg.num_layers // period
+    kvh, hd = cfg.num_kv_heads, cfg.hd
+
+    def full(shape, fill, dt):
+        return torch.full(shape, fill, dtype=dt, device=dev)
+
+    def layer_cache(j):
+        meta = cfg.layer_kind(j)
+        if meta["attn"] == "local" and cfg.window and cfg.window < seq_len:
+            raise ValueError("local-window caches are not ported yet")
+        if paged is not None:
+            n_pages, psz = paged
+            max_pages = -(-seq_len // psz)
+            return {"kv": PagedKVCache(
+                k=full((n_super, n_pages, psz, kvh, hd), 0, dtype),
+                v=full((n_super, n_pages, psz, kvh, hd), 0, dtype),
+                positions=full((n_super, n_pages, psz), -1, torch.int32),
+                block_table=full((n_super, batch, max_pages), -1,
+                                 torch.int32))}
+        return {"kv": KVCache(
+            k=full((n_super, batch, seq_len, kvh, hd), 0, dtype),
+            v=full((n_super, batch, seq_len, kvh, hd), 0, dtype),
+            positions=full((n_super, batch, seq_len), -1, torch.int32))}
+
+    return tuple(layer_cache(j) for j in range(period))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _sublayer(x, p, cfg, meta, positions, cache, pos, prefix_len: int = 0):
+    """One transformer layer. Returns (x, cache)."""
+    h = L.norm_apply(x, p["norm1"], cfg.norm, cfg.norm_eps)
+    mix, kv = L.attention_block(h, p["attn"], cfg, meta, positions,
+                                cache=cache["kv"] if cache else None,
+                                pos=pos, prefix_len=prefix_len)
+    x = x + mix.to(x.dtype)
+    h = L.norm_apply(x, p["norm2"], cfg.norm, cfg.norm_eps)
+    f = L.ffn_swiglu(h, p["ffn"], cfg.act)
+    return x + f.to(x.dtype), ({"kv": kv} if cache is not None else None)
+
+
+def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
+            pos=None, last_only: bool = False, last_index=None,
+            prefix_len: int = 0):
+    """Token ids (B, T) → (logits, cache, aux).
+
+    `cache`/`pos` engage the decode path (`pos` is a (B,) vector of
+    per-slot positions; a scalar is broadcast). The cache is updated in
+    place and returned. `prefix_len` is the continued-prefill offset.
+    `last_index` (with `last_only`) picks which row feeds the lm_head.
+    `aux` is None (the MoE aux losses come with the MoE families)."""
+    check_supported(cfg)
+    B, T = tokens.shape
+    dev = tokens.device
+    x = params["embed"][tokens.long()].to(torch.bfloat16)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=torch.bfloat16,
+                             device=dev)
+    if pos is None and prefix_len:
+        pos = prefix_len
+    if pos is not None:
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=dev
+                              ).reshape(-1).expand(B)
+    if positions is None:
+        ar = torch.arange(T, dtype=torch.int32, device=dev)
+        positions = (pos[:, None] + ar[None] if pos is not None
+                     else ar[None].expand(B, T))
+    period = cfg.stack_period
+    n_super = cfg.num_layers // period
+    cast = optflags.enabled("bf16_params_in_layers")
+    for sb in range(n_super):
+        for j in range(period):
+            # cast matrices to bf16 at superblock entry (a no-op for the
+            # bf16 storage on CUDA; 1-D norms and biases stay fp32)
+            p_j = tree_map(
+                lambda w: w[sb].to(torch.bfloat16)
+                if cast and w.ndim >= 3 and w.dtype == torch.float32
+                else w[sb], params["layers"][j])
+            c_j = (None if cache is None
+                   else tree_map(lambda t: t[sb], cache[j]))
+            x, _ = _sublayer(x, p_j, cfg, cfg.layer_kind(j), positions, c_j,
+                             pos, prefix_len)
+    x = L.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    if last_only:
+        if last_index is not None:
+            i = int(last_index)
+            x = x[:, i:i + 1]
+        else:
+            x = x[:, -1:]
+    logits = sa_dot(x.reshape(-1, cfg.d_model), params["lm_head"]
+                    ).reshape(x.shape[0], x.shape[1], cfg.padded_vocab)
+    logits = L.softcap(logits.to(torch.float32), cfg.final_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:   # mask padding logits
+        valid = torch.arange(cfg.padded_vocab, device=dev) < cfg.vocab_size
+        logits = torch.where(valid, logits, float("-inf"))
+    return logits, cache, None

@@ -1,0 +1,433 @@
+"""Continuous-batching serving engine, unified paged path.
+
+* **Slot table**: batch row == slot. The host-side `SlotScheduler`
+  admits queued requests into free slots and retires finished ones
+  between decode chunks.
+* **Per-slot positions**: the decode step takes a (B,) position vector,
+  so sequences at different depths share one decode GEMM batch
+  (M = batch rows per GEMM).
+* **One host sync per chunk**: `sync_every` decode steps run back to back
+  on the device; their tokens are fetched once per chunk.
+* **Paged KV**: a global page pool with per-slot block tables; the
+  scheduler's `PageAllocator` hands pages out at admission. Each
+  admission prefills a dense batch-1 fragment and `_insert_impl` scatters
+  it into the pool and binds the slot's block-table row.
+
+Where the JAX engine donates the cache buffer to a jitted update, this
+engine updates the pool tensors in place (`_scatter_impl`, `_bind_impl`,
+`_clear_slot_impl`, the decode step's KV write) and says so at each site.
+
+Not ported yet, and refused with `ValueError("... not ported yet")`:
+disaggregated serving, speculative decoding, prompt-length bucketing, the
+bulk tier's approximate chunks, the ring KV layout, local-window caches
+and static-batch `generate`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import optflags
+from repro_torch.core.precision import current_policy, use_policy
+from repro_torch.kernels.ops import fused_decode_supported
+from repro_torch.models import model as M
+from repro_torch.models.config import ArchConfig
+from repro_torch.train.step import make_prefill_step, make_serve_step
+from .scheduler import PageAllocator, SlotScheduler
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-int(x) // m) * m
+
+
+def _not_ported(what: str):
+    return ValueError(f"{what} is not ported yet")
+
+
+def _env_on(name: str) -> bool:
+    return os.environ.get(name, "0") not in ("0", "false", "off")
+
+
+class ServeEngine:
+    def __init__(self, cfg: ArchConfig, params: Any, batch: int,
+                 cache_len: int, eos_id: int = 2,
+                 cache_dtype=torch.float32, sync_every: int = 8,
+                 kv_layout: str | None = None, page_size: int = 16,
+                 pool_pages: int | None = None,
+                 max_seq_len: int | None = None, spec_k: int | None = None,
+                 disagg: bool | None = None,
+                 bucket_prompts: bool | None = None, device=None):
+        """`cache_len` sizes the pool: by default it holds `batch ·
+        cache_len` tokens plus the trash page, while `max_seq_len`
+        (default `cache_len`, rounded up to a page) caps one request.
+        `device` defaults to the device the parameters live on."""
+        M.check_supported(cfg)
+        self.cfg = cfg
+        self.params = params
+        self.device = torch.device(device) if device is not None \
+            else params["embed"].device
+        self.batch = batch
+        self.cache_len = cache_len
+        self.eos_id = eos_id
+        self.cache_dtype = cache_dtype
+        self.sync_every = max(1, int(sync_every))
+        kv_layout = kv_layout or optflags.kv_layout()
+        if kv_layout not in ("ring", "paged"):
+            raise ValueError(
+                f"REPRO_KV/kv_layout={kv_layout!r}; want 'ring' or 'paged'")
+        if kv_layout == "ring":
+            raise _not_ported("ring KV layout serving")
+        if disagg or (disagg is None and _env_on("REPRO_DISAGG")):
+            raise _not_ported("disaggregated serving")
+        if bucket_prompts or (bucket_prompts is None
+                              and _env_on("REPRO_PREFILL_BUCKET")):
+            raise _not_ported("prompt-length bucketing")
+        k = int(os.environ.get("REPRO_SPEC_K", 0)) if spec_k is None \
+            else int(spec_k)
+        if k > 0:
+            raise _not_ported("speculative decoding")
+        if any(cfg.layer_kind(j).get("attn") == "local"
+               for j in range(cfg.stack_period)):
+            raise _not_ported("serving with local-window layers")
+        self.kv_layout = kv_layout
+        self.page_size = int(page_size)
+        self.max_seq_len = _round_up(max_seq_len or cache_len, self.page_size)
+        self.max_pages = self.max_seq_len // self.page_size
+        self.pool_pages = int(
+            pool_pages
+            or _round_up(batch * cache_len, self.page_size) // self.page_size
+            + 1)                 # +1: the reserved trash page
+        self._prefills: dict[int, Any] = {}
+        self._prefill_shapes: set[tuple[int, int, bool]] = set()
+        self._serve_step = make_serve_step(cfg)
+        self._chunks: dict[tuple[int, bool, str], Any] = {}
+        self.last_stats: dict[str, float] = {}
+
+    def new_cache(self, batch: int | None = None):
+        return M.init_cache(self.cfg, batch or self.batch, self.cache_len,
+                            dtype=self.cache_dtype, device=self.device)
+
+    def new_pool(self):
+        """Paged serve cache: global page pools + per-slot block tables."""
+        return M.init_cache(self.cfg, self.batch, self.max_seq_len,
+                            dtype=self.cache_dtype, device=self.device,
+                            paged=(self.pool_pages, self.page_size))
+
+    def new_frag(self, prompt_len: int):
+        """Dense batch-1 prefill fragment: the prompt rounded up to whole
+        pages."""
+        cap = _round_up(max(prompt_len, 1), self.page_size)
+        return M.init_cache(self.cfg, 1, cap, dtype=self.cache_dtype,
+                            device=self.device)
+
+    def prefix_caching_on(self) -> bool:
+        """Prefix sharing (REPRO_PREFIX_CACHE, default on): every prompt
+        page is a pure function of the prompt tokens for the dense
+        decoders this engine serves."""
+        return optflags.prefix_cache_enabled() and self.kv_layout == "paged"
+
+    def _fingerprint(self) -> str:
+        """Cache-key component isolating engines whose pages would not be
+        interchangeable: config, cache dtype, GEMM backend."""
+        raw = f"{self.cfg!r}|{self.cache_dtype}|{optflags.gemm_backend()}"
+        return hashlib.sha1(raw.encode()).hexdigest()[:16]
+
+    def new_allocator(self) -> PageAllocator:
+        return PageAllocator(
+            self.pool_pages, self.page_size,
+            max_request_pages=self.max_pages, min_request_tokens=1,
+            prefix_caching=self.prefix_caching_on(),
+            fingerprint=self._fingerprint())
+
+    # ------------------------------------------------------------------
+    # cache splices (all in place on the pool tensors)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _scatter_impl(cache, frag, block_row, keep: int = 0):
+        """Write a batch-1 fragment's rows into the page pool, IN PLACE,
+        without touching any block table. Rows land at flat offsets
+        `block_row[t // psz] · psz + t % psz` after the positions of every
+        page in `block_row` are wiped to -1 (recycled pages still hold the
+        previous owner's positions, which the mask would otherwise see).
+        The first `keep` pages are shared prefix-cache pages: their wipe
+        and writes go to the trash page 0 instead."""
+        for full_c, one_c in zip(cache, frag):
+            full, one = full_c["kv"], one_c["kv"]
+            n_super, n_pages, psz = full.k.shape[:3]
+            npp = one.k.shape[2] // psz
+            dev = full.k.device
+            lane = torch.arange(psz, device=dev)
+            row = block_row.to(dev).long()
+            dest_row = torch.where(torch.arange(npp, device=dev) < keep, 0,
+                                   row[:npp])
+            dest_row = torch.where(dest_row >= 0, dest_row, 0)
+            dest = (dest_row[:, None] * psz + lane).reshape(-1)
+            wipe_row = torch.where(row >= 0, row, 0)
+            wipe_row = torch.where(
+                torch.arange(row.shape[0], device=dev) < keep, 0, wipe_row)
+            wipe = (wipe_row[:, None] * psz + lane).reshape(-1)
+            kf = full.k.view(n_super, n_pages * psz, *full.k.shape[3:])
+            vf = full.v.view(n_super, n_pages * psz, *full.v.shape[3:])
+            pf = full.positions.view(n_super, n_pages * psz)
+            kf[:, dest] = one.k[:, 0].to(kf.dtype)             # in place
+            vf[:, dest] = one.v[:, 0].to(vf.dtype)             # in place
+            pf[:, wipe] = -1                                    # in place
+            pf[:, dest] = one.positions[:, 0].to(pf.dtype)      # in place
+        return cache
+
+    @staticmethod
+    def _bind_impl(cache, block_row, slot: int):
+        """Map a scattered page run into batch row `slot` (in place)."""
+        for c in cache:
+            bt = c["kv"].block_table
+            bt[:, slot] = block_row.to(bt.device, bt.dtype)     # in place
+        return cache
+
+    @staticmethod
+    def _insert_impl(cache, frag, slot: int, block_row, keep: int = 0):
+        """Splice a batch-1 fragment into slot `slot`: page scatter, then
+        the block-table bind (both in place)."""
+        cache = ServeEngine._scatter_impl(cache, frag, block_row, keep)
+        return ServeEngine._bind_impl(cache, block_row, slot)
+
+    @staticmethod
+    def _load_prefix_impl(frag, cache, src_row, prefix_len: int):
+        """Load a shared prompt prefix from pool pages into the dense
+        fragment's first `prefix_len` rows (in place on the fragment).
+        `src_row` holds the source page ids in sequence order (the hit
+        pages, plus the copy-on-write donor's partial page last)."""
+        for one_c, full_c in zip(frag, cache):
+            one, full = one_c["kv"], full_c["kv"]
+            n_super, _, psz = full.k.shape[:3]
+            dev = full.k.device
+            lane = torch.arange(psz, device=dev)
+            src = (src_row.to(dev).long()[:, None] * psz
+                   + lane).reshape(-1)[:prefix_len]
+            kf = full.k.reshape(n_super, -1, *full.k.shape[3:])[:, src]
+            vf = full.v.reshape(n_super, -1, *full.v.shape[3:])[:, src]
+            one.k[:, 0, :prefix_len] = kf.to(one.k.dtype)       # in place
+            one.v[:, 0, :prefix_len] = vf.to(one.v.dtype)       # in place
+            one.positions[:, 0, :prefix_len] = torch.arange(
+                prefix_len, dtype=one.positions.dtype, device=dev)
+        return frag
+
+    @staticmethod
+    def _clear_slot_impl(cache, slot: int):
+        """Unmap a freed slot's block-table rows (in place) so its decode
+        writes fall to the trash page before its pages are reused."""
+        for c in cache:
+            c["kv"].block_table[:, slot] = -1                   # in place
+        return cache
+
+    def _prefill_for(self, prefix_len: int):
+        fn = self._prefills.get(prefix_len)
+        if fn is None:
+            fn = self._prefills[prefix_len] = make_prefill_step(
+                self.cfg, prefix_len)
+        return fn
+
+    def _pick(self, logits, greedy: bool, gen):
+        """Next tokens from (B, V) logits: argmax, or a sample drawn with
+        the explicit generator."""
+        if greedy:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.to(torch.float32), dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(
+            torch.int32)
+
+    def _prefill_request(self, scheduler, req, cache, greedy: bool, gen):
+        """Build the dense fragment (prefix-cache load included), prefill
+        the uncached suffix and pick the first token. Returns (frag,
+        first, row, keep): `row` is the -1-padded (max_pages,) page run,
+        `keep` the shared leading page count."""
+        shared = req.shared_tokens
+        suffix = req.prompt_len - shared
+        frag = self.new_frag(shared + suffix)
+        if shared:
+            src = list(req.pages[:shared // self.page_size])
+            if req.cow_src is not None:
+                src.append(req.cow_src)
+            frag = self._load_prefix_impl(
+                frag, cache, torch.tensor(src, dtype=torch.int32), shared)
+            if req.cow_src is not None:
+                scheduler.cow_done(req)
+        tokens = torch.tensor(req.prompt[shared:], dtype=torch.int32,
+                              device=self.device)[None]
+        self._prefill_shapes.add((shared, suffix, False))
+        logits, frag = self._prefill_for(shared)(self.params, tokens, frag)
+        self._note_logits(logits)
+        first = int(self._pick(logits[:, -1], greedy, gen)[0])
+        r = np.full((self.max_pages,), -1, np.int32)
+        r[:len(req.pages)] = req.pages
+        row = torch.from_numpy(r).to(self.device)
+        return frag, first, row, shared // self.page_size
+
+    def _must_reject(self, req) -> bool:
+        """The allocator marked the request unallocatable (more pages than
+        the pool or the per-request block table holds)."""
+        return req.pages is None
+
+    def _note_logits(self, logits):
+        # device-side count of non-finite logits over the real vocabulary
+        # (padding columns are -inf by design); read once after serving
+        bad = (~torch.isfinite(logits[..., :self.cfg.vocab_size])).sum()
+        self._nonfinite = self._nonfinite + bad
+
+    def _chunk_fn(self, steps: int, greedy: bool, mode: str = "exact"):
+        """`steps` decode iterations back to back, no host sync inside.
+
+        Returns run(params, tok, cache, pos, frontend, gen) → (tok, cache,
+        pos, gen, toks (steps, B)); the caller fetches `toks` once per
+        chunk. `mode` selects the SA datapath for the chunk's policy."""
+        key = (steps, greedy, mode)
+        if key not in self._chunks:
+            serve_step = self._serve_step
+
+            def run(params, tok, cache, pos, frontend, gen):
+                pol = dataclasses.replace(current_policy(), mode=mode)
+                toks = []
+                with use_policy(pol):
+                    for _ in range(steps):
+                        logits, cache = serve_step(params, tok[:, None],
+                                                   cache, pos, frontend)
+                        self._note_logits(logits)
+                        tok = self._pick(logits[:, -1], greedy, gen)
+                        pos = pos + 1
+                        toks.append(tok)
+                return tok, cache, pos, gen, torch.stack(toks)
+
+            self._chunks[key] = run
+        return self._chunks[key]
+
+    # ------------------------------------------------------------------
+    # continuous batching
+    # ------------------------------------------------------------------
+
+    def serve(self, scheduler: SlotScheduler, greedy: bool = True,
+              rng: torch.Generator | None = None,
+              clock=time.monotonic) -> dict:
+        """Run the continuous-batching loop until the scheduler drains.
+        Per-request results live on `scheduler.finished`; returns
+        `scheduler.summary()` merged with the engine's wall-time split and
+        `nonfinite_logits` (logits over the real vocabulary that were not
+        finite, prefill and decode)."""
+        assert scheduler.n_slots == self.batch, (
+            scheduler.n_slots, self.batch)
+        if any(r.tier != "premium" for r in scheduler.pending):
+            raise _not_ported("the bulk tier (approximate decode chunks)")
+        B = self.batch
+        if scheduler.pages is None:
+            scheduler.pages = self.new_allocator()
+        gen = rng
+        if gen is None and not greedy:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+        self._nonfinite = torch.zeros((), dtype=torch.int64,
+                                      device=self.device)
+        t0 = clock()
+        skew = 0.0          # engine-time fast-forward for frozen clocks
+
+        def now():
+            return clock() - t0 + skew
+
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        cache = self.new_pool()
+        tok = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        pos = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        prefill_s = decode_s = handoff_s = decode_stall_s = 0.0
+
+        # warm-up chunk before the timed loop (kernel libraries load on
+        # first use). Safe on the fresh pool: no block table is mapped,
+        # so its writes land on the trash page; tok/pos are discarded.
+        t_c = clock()
+        cache = self._chunk_fn(self.sync_every, greedy)(
+            self.params, tok, cache, pos, None, gen)[1]
+        sync()
+        compile_s = clock() - t_c
+
+        def clear_freed():
+            # unmap freed slots before their pages can be reallocated
+            nonlocal cache
+            for freed in scheduler.drain_freed():
+                cache = self._clear_slot_impl(cache, freed)
+
+        while not scheduler.drained():
+            clear_freed()
+            for slot in scheduler.free_slots():
+                req = scheduler.admit(slot, now())
+                if req is None:
+                    break
+                if self._must_reject(req):
+                    scheduler.reject(slot, now())
+                    continue
+                t_p = now()
+                frag, first, row, keep = self._prefill_request(
+                    scheduler, req, cache, greedy, gen)
+                t_h = now()
+                cache = self._insert_impl(cache, frag, slot, row, keep)
+                # register the prompt's pages BEFORE the scheduler sees the
+                # first token: a first-token EOS retires the request at
+                # once, and registered pages must park as cached
+                scheduler.pages.prefix_register(req.prompt, req.pages,
+                                                req.tier)
+                handoff_s += now() - t_h
+                tok[slot] = first
+                pos[slot] = req.prompt_len
+                dt = now() - t_p
+                prefill_s += dt
+                if scheduler.num_active() > 1:
+                    decode_stall_s += dt
+                scheduler.start(slot, first, now(), prefill_s=dt)
+            clear_freed()
+
+            if scheduler.num_active() == 0:
+                nxt = scheduler.next_arrival()
+                if nxt is None:
+                    break
+                wait = nxt - now()
+                if wait > 0:
+                    before = clock()
+                    time.sleep(min(wait, 0.05))
+                    if clock() == before:
+                        skew += wait
+                continue
+
+            t_d = now()
+            tok, cache, pos, gen, toks = self._chunk_fn(
+                self.sync_every, greedy)(self.params, tok, cache, pos, None,
+                                         gen)
+            toks_np = toks.cpu().numpy()   # the chunk's single host sync
+            decode_s += now() - t_d
+            scheduler.observe(toks_np, now(), mode="exact")
+
+        summary = scheduler.summary()
+        summary |= {"prefill_s": round(prefill_s, 4),
+                    "decode_s": round(decode_s, 4),
+                    "compile_s": round(compile_s, 4),
+                    "wall_s": round(now(), 4),
+                    "prefill_busy_s": round(prefill_s, 4),
+                    "decode_busy_s": round(decode_s, 4),
+                    "handoff_s": round(handoff_s, 4),
+                    "decode_stall_s": round(decode_stall_s, 4),
+                    "prefill_compiles": len(self._prefill_shapes),
+                    "disagg": False}
+        impl = optflags.decode_attn_impl()
+        if impl == "fused" and not fused_decode_supported(current_policy()):
+            impl = "gather"
+        summary["decode_attn"] = impl
+        summary["nonfinite_logits"] = int(self._nonfinite)
+        served = summary["requests"] - summary["rejected"]
+        if decode_s > 0 and served:
+            decode_tokens = summary["generated_tokens"] - served
+            summary["decode_tok_s"] = round(decode_tokens / decode_s, 2)
+        self.last_stats = summary
+        return summary

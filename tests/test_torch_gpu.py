@@ -1,0 +1,187 @@
+"""PyTorch port on the card: each hand-written kernel against its plain
+version at the main path's shapes, the wrappers' refusals, and a short
+full-width serve. Marked `gpu`; each test skips inside itself where no
+CUDA device is present. Needs no JAX, so it runs on the card's machine:
+
+    python -m pytest -m gpu tests/test_torch_*.py
+
+Tolerances are the kernel modules' `error_bound` (see their docstrings):
+fp32 reassociation (R1), one truncation quantum in approx mode, and for
+attention the rounding of the probabilities to the input format, per
+output from the plain version's own terms; a planted off-by-one mask lands
+outside it.
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.precision import PrecisionPolicy  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import sa_attention as FA  # noqa: E402
+from repro_torch.kernels import sa_decode_attention as DA  # noqa: E402
+from repro_torch.kernels import sa_matmul as MM  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    """The test needs a card; decided here, never at import time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("k,n,act,mode", [
+    (5120, 1024, "none", "exact"), (5120, 13824, "silu", "approx"),
+    (13824, 5120, "none", "exact"), (1000, 999, "gelu", "approx")])
+def test_sa_matmul_matches_plain(cuda, m, k, n, act, mode):
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=cuda) * k ** -0.5).to(
+        torch.bfloat16)
+    bias = torch.randn((n,), generator=g, device=cuda)
+    got = ops.sa_matmul(a, w, bias=bias, act=act, mode=mode)
+    ref = MM.sa_matmul_ref(a, w, bias, act=act, mode=mode)
+    bound = MM.error_bound(a, w, mode=mode, y=ref)
+    assert bool(((got - ref).abs() <= bound).all())
+
+
+def _pool(dev, B=4, KVH=8, grp=5, hd=128, psz=16, P=9, lens=(144, 100, 40,
+                                                                0)):
+    """Slot b owns ceil(lens[b] / psz) pages; the trash page is poisoned
+    with NaN and slot 0 carries an explicit page-0 entry."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    n_pages = B * P + 1
+    q = torch.randn((B, 1, KVH * grp, hd), generator=g, device=dev)
+    k = torch.randn((n_pages, psz, KVH, hd), generator=g, device=dev)
+    v = torch.randn((n_pages, psz, KVH, hd), generator=g, device=dev)
+    k[0] = v[0] = float("nan")
+    pp = torch.full((n_pages, psz), -1, dtype=torch.int32, device=dev)
+    bt = torch.full((B, P), -1, dtype=torch.int32, device=dev)
+    nxt = 1
+    for b, n in enumerate(lens):
+        for j in range(-(-n // psz)):
+            bt[b, j] = nxt
+            pp[nxt] = torch.arange(j * psz, (j + 1) * psz, device=dev)
+            nxt += 1
+    bt[0, 1] = 0
+    pos = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32,
+                       device=dev)
+    return q, k, v, pp, bt, pos
+
+
+@pytest.mark.parametrize("fmt,mode,window,cap", [
+    ("bf16", "exact", 0, 0.0), ("bf16", "approx", 64, 50.0),
+    ("fp32", "exact", 0, 0.0), ("fp16", "exact", 0, 0.0)])
+def test_paged_decode_matches_plain(cuda, fmt, mode, window, cap):
+    q, k, v, pp, bt, pos = _pool(cuda)
+    pol = PrecisionPolicy(input_format=fmt, mode=mode)
+    got = ops.paged_decode_attention(q, k, v, pp, bt, pos, window=window,
+                                     cap=cap, policy=pol)
+    ref = DA.paged_decode_ref(q, k, v, pp, bt, pos, window=window, cap=cap,
+                              policy=pol)
+    bound = DA.error_bound(q, k, v, pp, bt, pos, window=window, cap=cap,
+                           policy=pol)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[3] == 0).all())            # the all-masked slot
+    assert bool(((got - ref).abs() <= bound).all())
+    # the same bound rejects a decode that masks out the token just written
+    bad = DA.paged_decode_ref(q, k, v, pp, bt, pos - 1, window=window,
+                              cap=cap, policy=pol)
+    assert float(((got - bad).abs() / bound).max()) > 1.0
+
+
+@pytest.mark.parametrize("T,S,kw", [
+    (32, 32, {}), (64, 64, {}), (128, 128, {}), (100, 100, {"window": 33}),
+    (64, 128, {"q_offset": 64, "window": 48, "cap": 50.0})])
+def test_prefill_matches_plain(cuda, T, S, kw):
+    g = torch.Generator(device=cuda).manual_seed(T + S)
+    q = torch.randn((1, T, 40, 128), generator=g, device=cuda)
+    k = torch.randn((1, S, 8, 128), generator=g, device=cuda)
+    v = torch.randn((1, S, 8, 128), generator=g, device=cuda)
+    got = ops.sa_attention(q, k, v, **kw)
+    ref = FA.flash_attention_ref(q, k, v, **kw)
+    assert bool(((got - ref).abs() <= FA.error_bound(q, k, v, **kw)).all())
+
+
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    a = torch.zeros((4, 64), device=cuda)
+    w = torch.zeros((64, 32), device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        ops.sa_matmul(a, w)                     # fp32 operands
+    q, k, v, pp, bt, pos = _pool(cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops.paged_decode_attention(q, k.to(torch.bfloat16), v, pp, bt, pos)
+    x = torch.zeros((1, 8, 4, 16), device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        ops.sa_attention(x, x, x)               # hd 16 < one warp
+
+
+def test_decode_layer_raises_for_a_policy_the_kernel_lacks(cuda):
+    """On the card the layer's default fused decode launches the kernel or
+    raises: an FP8 policy does not quietly take the gather path."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.precision import use_policy
+    from repro_torch.models import model as M
+
+    cfg = reduced_config("qwen2.5-14b")
+    params = M.init_params(cfg, seed=0, device=cuda)
+    cache = M.init_cache(cfg, 2, 8, dtype=torch.float32, device=cuda,
+                         paged=(5, 4))
+    for c in cache:
+        c["kv"].block_table[:, :, 0] = torch.tensor([1, 2], device=cuda)
+    tok = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    with use_policy(PrecisionPolicy(input_format="fp8_e4m3")):
+        with pytest.raises(ValueError, match="does not support"):
+            M.forward(params, cfg, tok, cache=cache, pos=0)
+
+
+def test_sa_dot_cuda_backend_folds_batched_a(cuda):
+    """Under the cuda backend a batched `a` runs the kernel on its rows."""
+    from repro_torch.core.precision import sa_dot
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn((2, 3, 256), generator=g, device=cuda)
+    w = (torch.randn((256, 96), generator=g, device=cuda) / 16).to(
+        torch.bfloat16)
+    ops.reset_counts()
+    got = sa_dot(a, w, PrecisionPolicy(backend="cuda"))
+    assert ops.counts()["sa_matmul"] == {"launches": 1, "plain_calls": 0}
+    ref = sa_dot(a, w, PrecisionPolicy(backend="torch"))
+    assert got.shape == (2, 3, 96)
+    bound = MM.error_bound(a.reshape(6, 256).to(torch.bfloat16), w,
+                           y=ref.reshape(6, 96)).reshape(2, 3, 96)
+    assert bool(((got - ref).abs() <= bound).all())
+
+
+def test_serve_full_width_two_layers(cuda, monkeypatch):
+    """qwen2.5-14b at full width, cut to two layers: a short stream through
+    the engine on the cuda GEMM backend completes, leaks no page, and runs
+    every kernel of the path and no plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), num_layers=2)
+    params = M.init_params(cfg, seed=0, device=cuda)
+    eng = ServeEngine(cfg, params, batch=2, cache_len=48, eos_id=-1,
+                      sync_every=4)
+    sched = SlotScheduler(2, eos_id=-1)
+    g = torch.Generator().manual_seed(0)
+    for n in (17, 40, 9):
+        sched.submit(torch.randint(0, cfg.vocab_size, (n,),
+                                   generator=g).tolist(), max_new_tokens=6)
+    ops.reset_counts()
+    summary = eng.serve(sched)
+    assert [r.n_generated for r in sched.finished] == [6, 6, 6]
+    assert summary["pages_leaked"] == 0
+    assert summary["nonfinite_logits"] == 0
+    c = ops.counts()
+    assert all(v["launches"] > 0 for v in c.values()), c
+    assert all(v["plain_calls"] == 0 for v in c.values()), c

@@ -1,0 +1,276 @@
+"""PyTorch port: each kernel's plain version against its JAX counterpart
+(the Pallas kernels in interpret mode, as the JAX tests run them). The
+hand-written kernels against their plain versions, on the card, are in
+tests/test_torch_gpu.py.
+
+Tolerances (R1: the fp32 summation order is not fixed across
+implementations, so nothing here is asserted bit-equal):
+  * SA GEMM — `sa_matmul.error_bound`: 2·K·2⁻²⁴·Σ|a||w| reassociation,
+    one truncation quantum (2⁻¹⁹·Σ|a||w|) in approx mode, a few ulp of
+    |y| for the epilogue, plus 2⁻²⁰·|x| for gelu/silu's last bits;
+  * attention — the module's `error_bound`, per output from the plain
+    version's own terms: the softmax weights' drift from the fp32 q·k
+    reassociation (Σ|q||k| per key), the rounding of P to the input format
+    (a flip of one ulp where a rounding boundary lies within that drift for
+    paged decode; one rounding per side for prefill, whose tiles round P
+    against different running maxima) and the fp32 P·V sums, each weighted
+    by Σ_j p_j|v_jd|. `test_*_bound_rejects_planted_fault` shows the bound
+    is tight enough to catch an off-by-one mask or a dropped page.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# the parity tests need the JAX package; the card's machine has no JAX and
+# runs tests/test_torch_gpu.py instead
+pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import precision as JP  # noqa: E402
+from repro.kernels.sa_attention import sa_attention as j_sa_attention  # noqa: E402,E501
+from repro.kernels.sa_decode_attention import (  # noqa: E402
+    sa_paged_decode_attention as j_paged)
+from repro.kernels.sa_matmul import sa_matmul_pallas  # noqa: E402
+from repro.models.layers import blockwise_attention as j_blockwise  # noqa: E402,E501
+from repro_torch.core import precision as TP  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import sa_attention as FA  # noqa: E402
+from repro_torch.kernels import sa_decode_attention as DA  # noqa: E402
+from repro_torch.kernels import sa_matmul as MM  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def _bf16_values(x):
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+# ---------------------------------------------------------------------------
+# SA GEMM: plain version vs the Pallas kernel (interpret mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,act,with_bias,scale,mode", [
+    (5, 37, 23, "none", True, None, "exact"),
+    (3, 130, 17, "silu", True, 0.5, "approx"),
+    (17, 64, 140, "gelu", False, 2.0, "exact"),
+    (4, 96, 33, "relu", True, None, "approx"),
+    (1, 200, 9, "silu", False, None, "exact"),
+])
+def test_sa_matmul_plain_matches_pallas(m, k, n, act, with_bias, scale,
+                                        mode):
+    rng = np.random.default_rng(m * 1000 + k)
+    a = _bf16_values(rng.standard_normal((m, k)).astype(np.float32))
+    w = _bf16_values((rng.standard_normal((k, n)) / np.sqrt(k)).astype(
+        np.float32))
+    bias = (rng.standard_normal(n) * 0.2).astype(np.float32) \
+        if with_bias else None
+    ref = np.array(sa_matmul_pallas(
+        jnp.asarray(a), jnp.asarray(w),
+        None if bias is None else jnp.asarray(bias), scale, act=act,
+        interpret=True, mode=mode))
+    ta, tw = torch.from_numpy(a), torch.from_numpy(w)
+    tb = None if bias is None else torch.from_numpy(bias)
+    got = ops.sa_matmul(ta, tw, bias=tb, act=act, scale=scale, mode=mode)
+    pre = MM.sa_matmul_ref(ta, tw, tb, scale, mode=mode).numpy()
+    bound = (MM.error_bound(ta, tw, scale, mode, y=torch.from_numpy(ref))
+             .numpy() + 2.0 ** -20 * np.abs(pre))
+    err = np.abs(got.numpy() - ref)
+    assert (err <= bound).all(), float((err / bound).max())
+
+
+def test_sa_matmul_rejects_bad_args():
+    a, w = torch.zeros(2, 3), torch.zeros(3, 4)
+    with pytest.raises(ValueError, match="act"):
+        ops.sa_matmul(a, w, act="tanh")
+    with pytest.raises(ValueError, match="mode"):
+        ops.sa_matmul(a, w, mode="fast")
+    with pytest.raises(ValueError, match="bias"):
+        ops.sa_matmul(a, w, bias=torch.zeros(1, 4))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A wrapper that launches a kernel never runs on the CPU: given CPU
+    tensors it raises instead of falling back to the plain version."""
+    a = torch.zeros(2, 64, dtype=torch.bfloat16)
+    w = torch.zeros(64, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        MM.sa_matmul_cuda(a, w)
+    q, k, v, pp, bt, pos = _paged_workload(0, 2, 1, 2, 32, 4, 3, [2, 1])
+    with pytest.raises(ValueError, match="CUDA"):
+        DA.paged_decode_cuda(*map(torch.from_numpy, (q, k, v, pp, bt, pos)))
+    x = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.sa_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="exact"):
+        FA.sa_attention_cuda(x, x, x, policy=TP.PrecisionPolicy(
+            mode="approx"))
+
+
+def test_launch_counters_count_only_plain_calls_on_cpu():
+    ops.reset_counts()
+    a, w = torch.ones(2, 3), torch.ones(3, 4)
+    ops.sa_matmul(a, w)
+    c = ops.counts()
+    assert c["sa_matmul"] == {"launches": 0, "plain_calls": 1}
+    assert c["paged_decode"] == {"launches": 0, "plain_calls": 0}
+    ops.reset_counts()
+    assert ops.counts()["sa_matmul"]["plain_calls"] == 0
+
+
+# ---------------------------------------------------------------------------
+# paged decode: plain version vs the Pallas kernel (interpret mode)
+# ---------------------------------------------------------------------------
+
+def _paged_workload(seed, batch, kvh, g, hd, psz, max_pages, mapped,
+                    trash_entry=True):
+    """Pool + block tables: slot b maps `mapped[b]` pages (0 = an empty,
+    all-masked slot); the trash page 0 is NaN-poisoned and slot 0 carries
+    an explicit page-0 entry, so a masking bug turns into a NaN."""
+    rng = np.random.default_rng(seed)
+    n_pages = batch * max_pages + 1
+    q = rng.standard_normal((batch, 1, kvh * g, hd)).astype(np.float32)
+    k = rng.standard_normal((n_pages, psz, kvh, hd)).astype(np.float32)
+    v = rng.standard_normal((n_pages, psz, kvh, hd)).astype(np.float32)
+    k[0] = v[0] = np.nan
+    pp = np.full((n_pages, psz), -1, np.int32)
+    bt = np.full((batch, max_pages), -1, np.int32)
+    for b in range(batch):
+        pids = 1 + b * max_pages + np.arange(mapped[b])
+        bt[b, :mapped[b]] = pids
+        pp[pids] = np.arange(mapped[b] * psz, dtype=np.int32).reshape(
+            mapped[b], psz)
+    if trash_entry and mapped[0] > 1:
+        bt[0, 1] = 0
+    pos = np.array([max(m * psz - 2, 0) for m in mapped], np.int32)
+    return q, k, v, pp, bt, pos
+
+
+@pytest.mark.parametrize("fmt,mode,window,cap", [
+    ("fp32", "exact", 0, 0.0),
+    ("bf16", "exact", 5, 0.0),
+    ("bf16", "exact", 0, 3.0),
+    ("bf16", "approx", 7, 2.0),
+    ("fp16", "exact", 0, 0.0),
+])
+def test_paged_decode_plain_matches_pallas(fmt, mode, window, cap):
+    q, k, v, pp, bt, pos = _paged_workload(1, 3, 2, 2, 16, 4, 4, [3, 1, 0])
+    jpol = JP.PrecisionPolicy(input_format=fmt, mode=mode)
+    ref = np.array(j_paged(*map(jnp.asarray, (q, k, v, pp, bt, pos)),
+                           window=window, cap=cap, policy=jpol,
+                           interpret=True))
+    tpol = TP.PrecisionPolicy(input_format=fmt, mode=mode)
+    t = [torch.from_numpy(x) for x in (q, k, v, pp, bt, pos)]
+    got = ops.paged_decode_attention(*t, window=window, cap=cap,
+                                     policy=tpol).numpy()
+    assert np.isfinite(got).all() and np.isfinite(ref).all()
+    assert (got[2] == 0).all()                 # all-masked slot
+    bound = DA.error_bound(*t, window=window, cap=cap, policy=tpol).numpy()
+    err = np.abs(got - ref)
+    assert (err <= bound).all(), float((err / bound).max())
+
+
+def test_paged_decode_gather_plain_is_decode_attention():
+    """The plain version is exactly `gather_pages` + `decode_attention`."""
+    from repro_torch.models.layers import (PagedKVCache, decode_attention,
+                                           gather_pages)
+    q, k, v, pp, bt, pos = map(torch.from_numpy, _paged_workload(
+        2, 2, 2, 3, 16, 4, 3, [2, 3]))
+    with TP.use_policy(TP.PrecisionPolicy()):
+        a = DA.paged_decode_ref(q, k, v, pp, bt, pos, window=6)
+        b = decode_attention(q, *gather_pages(PagedKVCache(k, v, pp, bt)),
+                             pos, window=6)
+    assert torch.equal(a, b)
+
+
+def _drop_last_page(bt):
+    bt = bt.clone()
+    for b in range(bt.shape[0]):
+        live = (bt[b] > 0).nonzero()
+        if len(live):
+            bt[b, live[-1]] = -1
+    return bt
+
+
+@pytest.mark.parametrize("fault", ["mask_off_by_one", "last_page_dropped"])
+@pytest.mark.parametrize("fmt", ["bf16", "fp32"])
+def test_paged_decode_bound_rejects_planted_fault(fault, fmt):
+    """The stated bound is tight enough to tell a faulty decode from a
+    correct one: the plain version with the token just written masked out
+    (kv_pos < pos), or with each slot's last, partial page skipped, lands
+    outside the bound of the correct one."""
+    q, k, v, pp, bt, pos = map(torch.from_numpy, _paged_workload(
+        3, 3, 2, 2, 32, 4, 4, [4, 3, 2], trash_entry=False))
+    pol = TP.PrecisionPolicy(input_format=fmt)
+    ref = DA.paged_decode_ref(q, k, v, pp, bt, pos, policy=pol)
+    if fault == "mask_off_by_one":
+        bad = DA.paged_decode_ref(q, k, v, pp, bt, pos - 1, policy=pol)
+    else:
+        bad = DA.paged_decode_ref(q, k, v, pp, _drop_last_page(bt), pos,
+                                  policy=pol)
+    bound = DA.error_bound(q, k, v, pp, bt, pos, policy=pol)
+    assert float(((bad - ref).abs() / bound).max()) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# prefill attention: plain version vs blockwise_attention / the Pallas kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T,S,kw", [
+    (12, 12, {}),
+    (12, 12, {"window": 5}),
+    (12, 12, {"cap": 3.0}),
+    (8, 16, {"q_offset": 8, "window": 6, "cap": 2.0}),
+    (10, 10, {"causal": False}),
+])
+def test_prefill_plain_matches_blockwise_bf16(T, S, kw):
+    rng = np.random.default_rng(T * 31 + S)
+    q = rng.standard_normal((2, T, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, S, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, S, 2, 16)).astype(np.float32)
+    with JP.use_policy(JP.PrecisionPolicy()):
+        ref = np.array(j_blockwise(*map(jnp.asarray, (q, k, v)),
+                                   block_q=4, block_kv=4, **kw))
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    pol = TP.PrecisionPolicy()
+    got = FA.flash_attention_ref(*t, block_q=4, block_kv=4, policy=pol,
+                                 **kw).numpy()
+    bound = FA.error_bound(*t, policy=pol, **kw).numpy()
+    assert (np.abs(got - ref) <= bound).all()
+
+
+@pytest.mark.parametrize("kw", [{}, {"window": 7}, {"cap": 4.0},
+                                {"window": 5, "cap": 2.0}])
+def test_prefill_plain_matches_pallas_fp32(kw):
+    """Under fp32 inputs the contract and the TPU kernel agree (the TPU
+    kernel skips cast_in, which is the identity there)."""
+    rng = np.random.default_rng(9)
+    T = 24
+    q = rng.standard_normal((1, 6, T, 8)).astype(np.float32)
+    k = rng.standard_normal((1, 3, T, 8)).astype(np.float32)
+    v = rng.standard_normal((1, 3, T, 8)).astype(np.float32)
+    ref = np.array(j_sa_attention(*map(jnp.asarray, (q, k, v)), bq=8,
+                                  bkv=8, interpret=True, **kw))
+    t = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)]
+    pol = TP.PrecisionPolicy(input_format="fp32")
+    got = ops.sa_attention(*t, policy=pol, **kw).transpose(1, 2).numpy()
+    bound = FA.error_bound(*t, policy=pol, **kw).transpose(1, 2).numpy()
+    assert (np.abs(got - ref) <= bound).all()
+
+
+@pytest.mark.parametrize("fault", [{"q_offset": 1}, {"window": 11}])
+@pytest.mark.parametrize("fmt", ["bf16", "fp32"])
+def test_prefill_bound_rejects_planted_fault(fault, fmt):
+    """The plain prefill with a causal mask one key too wide (q_offset + 1)
+    or a window one key too narrow lands outside the bound of the correct
+    one."""
+    rng = np.random.default_rng(17)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 24, 4, 32)).astype(
+        np.float32)) for _ in range(3))
+    k, v = k[:, :, :2], v[:, :, :2]
+    pol = TP.PrecisionPolicy(input_format=fmt)
+    good = {"window": 12} if "window" in fault else {}
+    ref = FA.flash_attention_ref(q, k, v, policy=pol, **good)
+    bad = FA.flash_attention_ref(q, k, v, policy=pol, **fault)
+    bound = FA.error_bound(q, k, v, policy=pol, **good)
+    assert float(((bad - ref).abs() / bound).max()) > 1.0

@@ -1,0 +1,230 @@
+"""PyTorch port: the model forward and one paged decode step against the
+JAX package on the same weights (carried over by `params_from_numpy`).
+
+Tolerance: the residual stream is bf16 (model.py's compute dtype) in both
+frameworks, and their rmsnorm/rope/softmax differ in the last fp32 bit, so
+a value just at a bf16 rounding boundary may round one ulp (2⁻⁸ relative)
+differently and carry that through the layers. Logits are held to
+2⁻⁵·max|logit| (measured ≈ 2⁻⁷ on these configs), the greedy token to
+equality wherever the top-2 gap exceeds twice that bound, and cached K/V
+to 2⁻⁵·max|K|. Integer state (positions, block tables) and pure data
+movement (the page scatter) are bit-exact.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# the parity tests need the JAX package; the card's machine has no JAX and
+# runs tests/test_torch_gpu.py instead
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import reduced_config  # noqa: E402
+from repro.core import PrecisionPolicy, use_policy  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.serve.engine import ServeEngine as JEngine  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.configs import reduced_config as t_reduced  # noqa: E402
+from repro_torch.core import precision as TP  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models.convert import (cache_from_numpy,  # noqa: E402
+                                        params_from_numpy)
+from repro_torch.serve.engine import ServeEngine as TEngine  # noqa: E402
+
+torch.set_num_threads(2)
+REL = 2.0 ** -5
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = dataclasses.replace(
+        reduced_config("qwen2.5-14b", layers_per_period=2), remat=False)
+    jp = JM.init_params(jax.random.key(1), cfg)
+    # a nonzero QKV bias exercises the fused epilogue's bias path
+    jp["layers"] = tuple(
+        {**lay, "attn": {**lay["attn"], **{
+            b: jax.random.normal(jax.random.key(i), lay["attn"][b].shape)
+            * 0.1 for i, b in enumerate(("bq", "bk", "bv"))}}}
+        for lay in jp["layers"])
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return cfg, jp, tp
+
+
+def _np(x):
+    return np.asarray(x) if not isinstance(x, torch.Tensor) else x.numpy()
+
+
+def _check_logits(ref, got, vocab):
+    ref, got = _np(ref), _np(got)
+    assert np.isneginf(ref[..., vocab:]).all()
+    assert np.isneginf(got[..., vocab:]).all()
+    r, g = ref[..., :vocab], got[..., :vocab]
+    bound = REL * np.abs(r).max()
+    assert np.abs(r - g).max() <= bound
+    top2 = np.sort(r, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > 2 * bound
+    assert (r.argmax(-1) == g.argmax(-1))[decided].all()
+
+
+def _check_kv(ref, got):
+    ref, got = _np(ref), _np(got)
+    assert np.abs(ref - got).max() <= REL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "fp32"])
+def test_prefill_forward_matches_jax(setup, fmt):
+    cfg, jp, tp = setup
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 13)).astype(np.int32)
+    with use_policy(PrecisionPolicy(input_format=fmt)):
+        jl, jc, _ = JM.forward(jp, cfg, jnp.asarray(toks), last_only=True,
+                               cache=JM.init_cache(cfg, 2, 16,
+                                                   dtype=jnp.float32))
+    with TP.use_policy(TP.PrecisionPolicy(input_format=fmt)):
+        tl, tc, _ = TM.forward(tp, cfg, torch.from_numpy(toks),
+                               last_only=True,
+                               cache=TM.init_cache(cfg, 2, 16,
+                                                   dtype=torch.float32,
+                                                   device="cpu"))
+    assert tuple(tl.shape) == (2, 1, cfg.padded_vocab)
+    _check_logits(jl, tl, cfg.vocab_size)
+    for j in range(cfg.stack_period):
+        jkv, tkv = jc[j]["kv"], tc[j]["kv"]
+        assert np.array_equal(np.asarray(jkv.positions), tkv.positions)
+        _check_kv(jkv.k, tkv.k)
+        _check_kv(jkv.v, tkv.v)
+
+
+def test_full_forward_matches_jax(setup):
+    """No cache, every position's logits (not just the last)."""
+    cfg, jp, tp = setup
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 9)).astype(np.int32)
+    jl, _, _ = JM.forward(jp, cfg, jnp.asarray(toks))
+    tl, _, _ = TM.forward(tp, cfg, torch.from_numpy(toks))
+    _check_logits(jl, tl, cfg.vocab_size)
+
+
+def _jax_pool(cfg, jp, prompts, policy, n_pages=9, psz=8, max_seq=32):
+    """A JAX paged pool with each prompt prefilled through a dense fragment
+    and spliced into its slot by the reference engine's `_insert_impl`."""
+    pool = JM.init_cache(cfg, len(prompts), max_seq, dtype=jnp.float32,
+                         paged=(n_pages, psz))
+    nxt = 1
+    for slot, prompt in enumerate(prompts):
+        cap = -(-len(prompt) // psz) * psz
+        with use_policy(policy):
+            _, frag, _ = JM.forward(
+                jp, cfg, jnp.asarray(prompt, jnp.int32)[None],
+                cache=JM.init_cache(cfg, 1, cap, dtype=jnp.float32),
+                last_only=True)
+        npg = cap // psz
+        row = np.full((max_seq // psz,), -1, np.int32)
+        row[:npg] = np.arange(nxt, nxt + npg)
+        nxt += npg
+        pool = JEngine._insert_impl(pool, frag, slot, jnp.asarray(row),
+                                    jnp.asarray(0, jnp.int32))
+    return pool
+
+
+@pytest.mark.parametrize("impl", ["fused", "gather"])
+def test_paged_decode_step_matches_jax(setup, impl, monkeypatch):
+    cfg, jp, tp = setup
+    monkeypatch.setenv("REPRO_DECODE_ATTN", impl)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (11, 6)]
+    pol = PrecisionPolicy()
+    pool = _jax_pool(cfg, jp, prompts, pol)
+    t_pool = cache_from_numpy(jax.tree.map(np.asarray, pool), "cpu")
+    tok = np.array([[5], [17]], np.int32)
+    pos = np.array([len(p) for p in prompts], np.int32)
+    with use_policy(pol):
+        jl, jc, _ = JM.forward(jp, cfg, jnp.asarray(tok), cache=pool,
+                               pos=jnp.asarray(pos))
+    with TP.use_policy(TP.PrecisionPolicy()):
+        tl, tc, _ = TM.forward(tp, cfg, torch.from_numpy(tok), cache=t_pool,
+                               pos=torch.from_numpy(pos))
+    assert tc is t_pool                       # the pool is updated in place
+    _check_logits(jl, tl, cfg.vocab_size)
+    for j in range(cfg.stack_period):
+        jkv, tkv = jc[j]["kv"], tc[j]["kv"]
+        assert np.array_equal(np.asarray(jkv.positions), tkv.positions)
+        assert np.array_equal(np.asarray(jkv.block_table), tkv.block_table)
+        _check_kv(jkv.k, tkv.k)
+        _check_kv(jkv.v, tkv.v)
+
+
+@pytest.mark.parametrize("keep", [0, 1])
+def test_scatter_bind_matches_jax_bit_exact(setup, keep):
+    """The page scatter (with the recycled-page position wipe and kept
+    shared pages redirected to the trash page) and the block-table bind
+    are pure data movement: bit-exact against the reference engine."""
+    cfg, _, _ = setup
+    rng = np.random.default_rng(3)
+    n_pages, psz, P = 7, 4, 4
+    pool = JM.init_cache(cfg, 2, P * psz, dtype=jnp.float32,
+                         paged=(n_pages, psz))
+    # recycled pages: stale positions from an earlier owner
+    pool = jax.tree.map(
+        lambda x: (jnp.asarray(rng.integers(0, 50, x.shape), x.dtype)
+                   if x.dtype == jnp.int32 and x.ndim == 3
+                   and x.shape[1] == n_pages else x), pool)
+    frag = JM.init_cache(cfg, 1, 2 * psz, dtype=jnp.float32)
+    frag = jax.tree.map(
+        lambda x: jnp.asarray(rng.standard_normal(x.shape), x.dtype)
+        if x.dtype == jnp.float32 else
+        jnp.asarray(np.broadcast_to(np.arange(x.shape[-1]), x.shape),
+                    x.dtype), frag)
+    row = np.array([3, 5, 2, -1], np.int32)
+    t_pool = cache_from_numpy(jax.tree.map(np.asarray, pool), "cpu")
+    t_frag = cache_from_numpy(jax.tree.map(np.asarray, frag), "cpu")
+    ref = JEngine._insert_impl(pool, frag, 1, jnp.asarray(row),
+                               jnp.asarray(keep, jnp.int32))
+    got = TEngine._insert_impl(t_pool, t_frag, 1, torch.from_numpy(row),
+                               keep)
+    for j in range(cfg.stack_period):
+        for field in ("k", "v", "positions", "block_table"):
+            a = np.asarray(getattr(ref[j]["kv"], field))
+            b = getattr(got[j]["kv"], field).numpy()
+            assert np.array_equal(a, b), field
+
+
+def test_init_params_matches_jax_tree():
+    """Same key names, stacked superblock axis and shapes as the JAX
+    tree; the port's own draws follow the same distributions."""
+    cfg = t_reduced("qwen2.5-14b", layers_per_period=3)
+    tp = TM.init_params(cfg, seed=0, device="cpu")
+    jshape = jax.eval_shape(lambda k: JM.init_params(k, cfg),
+                            jax.random.key(0))
+    jflat = {jax.tree_util.keystr(p): x.shape for p, x in
+             jax.tree_util.tree_flatten_with_path(jshape)[0]}
+    tflat = {jax.tree_util.keystr(p): tuple(x.shape) for p, x in
+             jax.tree_util.tree_flatten_with_path(tp)[0]}
+    assert jflat == tflat
+    wq = tp["layers"][0]["attn"]["wq"]
+    assert wq.dtype == torch.float32
+    assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
+    assert float(tp["layers"][0]["attn"]["bq"].abs().max()) == 0.0
+    again = TM.init_params(cfg, seed=0, device="cpu")
+    assert torch.equal(again["embed"], tp["embed"])
+
+
+def test_entry_points_need_a_card_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    cfg = t_reduced("qwen2.5-14b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_cache(cfg, 1, 8)
+
+
+def test_unported_families_raise():
+    for name in ("mamba2-2.7b", "whisper-tiny", "granite-moe-3b-a800m"):
+        with pytest.raises(ValueError, match="not ported"):
+            TM.init_params(t_reduced(name), device="cpu")
+    assert t_get_config("qwen2.5-14b").padded_vocab == 153600
