@@ -8,32 +8,46 @@ Phases, in order; any failure exits nonzero:
 
 1. device  — the card's name and power limit (nvidia-smi), torch, CUDA and
              nvcc versions.
-2. build   — every kernel of the main path built from `src/repro_torch/
+2. build   — every kernel of the port built from `src/repro_torch/
              kernels/csrc` for sm_90a, one nvcc per source, all at once;
              registers, shared memory and spills from `-Xptxas -v`.
 3. kernels — each kernel against its plain PyTorch version on the same
-             inputs at the main path's shapes, every output within the
-             kernel's stated bound (`error_bound` of its module); CUDA-event
-             times of the kernel, the plain version and one PyTorch call
-             that computes the same function (a yardstick the port never
-             calls), beside the least time the card could take.
+             inputs at the main paths' shapes: the SA GEMM and the two
+             attention kernels within their stated bounds (`error_bound` of
+             their modules), fp_emu and quantize bit for bit, the FP8 GEMM
+             (quantize → SA GEMM) within the SA GEMM's bound; CUDA-event
+             times of the kernel, the plain version and, where one exists,
+             one PyTorch call that computes the same function (a yardstick
+             the port never calls), beside the least time the card could
+             take.
 4. serve   — full-width, full-depth qwen2.5-14b (random weights from a
              seed) served through `repro_torch.launch.serve.main` with the
              `cuda` GEMM backend; every request must generate `max_new`
-             tokens with finite logits, no page may leak, every kernel of the
-             path must have launched and no plain version may have run.
+             tokens with finite logits, no page may leak, the path's three
+             kernels must have launched and no plain version may have run.
              Then one prompt's prefill logits under the `cuda` and `torch`
              GEMM backends, within the stated bound.
 5. profile — four more requests served under torch.profiler: the device's
              busy and idle share of the wall and the kernels that take the
              device time.
+6. emulate — the same model served under `REPRO_GEMM_BACKEND=emulate`:
+             every GEMM through the fp_emu kernel (the SA GEMM never
+             launches), attention through the two attention kernels, no
+             plain version; then one prompt's prefill logits under
+             `emulate` and `cuda`, within the same bound.
+7. study   — `repro_torch.launch.precision_study.main` at full width: the
+             skewed and baseline chains bit-exact per format, the cycle and
+             energy model equal to the JAX package's numbers, and the
+             precision ladder ordered; its FP8 rows through the quantize
+             kernel, whose plain version never runs.
 
-The last lines are the kernels JSON line, the nvidia-smi line and
-`{"ok": true, "device": {...}}`.
+Each phase's wall time is printed. The last lines are the kernels JSON
+line, the nvidia-smi line and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -43,6 +57,7 @@ import time
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s (data sheet)
 PEAK_BF16 = 989e12        # dense bf16 tensor-core flop/s (data sheet)
 PEAK_FP32 = 67e12         # fp32 flop/s outside the tensor cores (data sheet)
+ISSUE_LANES = 128         # thread-instructions issued per SM per clock
 
 ARCH = "qwen2.5-14b"
 SERVE_ARGS = ["--arch", ARCH, "--batch", "4", "--requests", "8",
@@ -52,6 +67,21 @@ BATCH, MAX_NEW, PROMPT_LENS = 4, 16, (32, 64, 128)
 PAGE = 16
 # the served stream's per-request capacity: longest prompt + max_new
 CACHE_LEN = max(PROMPT_LENS) + MAX_NEW
+# the emulate serve: every GEMM walks K serially through the PE chain
+EMU_ARGS = ["--arch", ARCH, "--batch", "2", "--requests", "2",
+            "--prompt-lens", "16,32", "--max-new", "4", "--rate", "0",
+            "--seed", "0"]
+EMU_REQUESTS, EMU_MAX_NEW = 2, 4
+D_MODEL, D_FF = 5120, 13824
+
+# The JAX package's section-2 numbers of the precision study (its
+# `systolic.gemm_latency` and `energy.network_totals`), which
+# tests/test_torch_study.py holds equal to the JAX package: (M, K, N,
+# baseline cycles, skewed cycles) and each network's savings.
+STUDY_GEMMS = [(49, 1024, 1024, 27840, 19712), (12544, 27, 32, 12657, 12631),
+               (4096, 5120, 5120, 7168128, 6964928)]
+STUDY_NETWORKS = {"mobilenet": (0.1707624630822332, 0.09389819165630042),
+                  "resnet50": (0.21931369204186524, 0.13947224394832314)}
 
 
 def log(msg=""):
@@ -97,8 +127,8 @@ class Timer:
     enqueues a call while the flush runs, so its launch overhead shows only
     where it exceeds the flush (~0.16 ms at the byte rate).
     `device`: the summed durations of the CUDA kernels one call launched,
-    from torch.profiler, the flush's excluded (None when the profiler
-    records no device time)."""
+    from torch.profiler, the flush's excluded, each kernel at its mean over
+    the records kept (None when the profiler records no device time)."""
 
     FLUSH_KERNEL = "bitwise_not"
 
@@ -123,22 +153,34 @@ class Timer:
         torch.cuda.synchronize()
         return sum(e0.elapsed_time(e1) for e0, e1 in events) / reps
 
-    def device(self, fn, reps=5):
+    def device(self, fn, reps=5, tries=3):
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                self.flush.bitwise_not_()
-                fn()
-            torch.cuda.synchronize()
-        ks = device_kernels(torch, prof)
+        ks = {}
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self.flush.bitwise_not_()
+                    fn()
+                torch.cuda.synchronize()
+            got = {name: v for name, v in device_kernels(torch, prof).items()
+                   if self.FLUSH_KERNEL not in name}
+            ks = got or ks
+            # the profiler sometimes keeps only part of a short window's
+            # records: profile again until every kernel has all of its own
+            if got and all(n >= reps for _, n in got.values()):
+                break
         if not ks:
             return None
-        return sum(ms for name, (ms, _) in ks.items()
-                   if self.FLUSH_KERNEL not in name) / reps
+        short = {name[:40]: n for name, (_, n) in ks.items() if n < reps}
+        if short:
+            log(f"  (the profiler kept {short} records of {reps} calls)")
+        # each kernel a call launches at its mean duration over the records
+        # kept
+        return sum(ms / n * max(1, round(n / reps)) for ms, n in ks.values())
 
 
 # ---------------------------------------------------------------------------
@@ -430,40 +472,396 @@ def check_prefill(torch, timer):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 (continued): the paper's datapath — fp_emu and quantize
+# ---------------------------------------------------------------------------
+
+def issue_rate(torch) -> float:
+    """Thread-instructions the card can issue per second: SMs x 128 x the
+    maximum SM clock that nvidia-smi reports."""
+    mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * ISSUE_LANES * mhz * 1e6
+
+
+def sass_per_step(tm: int):
+    """(instructions per PE step, steps, instructions) of the K loop in
+    the SASS of fp_emu's kernel for `tm` rows per block, or None.
+
+    The loop is the backward branch whose span holds FLO (find leading
+    one, two per PE step: the product's msb and the LZA) at the fewest
+    instructions per step, so an unrolled body counts its steps."""
+
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    res = subprocess.run([tool, "-sass", str(build._target("fp_emu"))],
+                         capture_output=True, text=True)
+    return _sass_loop(res.stdout, f"fp_emu_kernelILi{tm}E")
+
+
+def _sass_loop(sass: str, kernel: str):
+    import re
+
+    inst_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
+    func, insts, labels, pending = None, [], {}, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+            continue
+        if func is None or kernel not in func:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = inst_re.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending = []
+            insts.append((addr, m.group(2)))
+    best = None
+    for addr, text in insts:
+        m = re.search(r"\bBRA\b[^`0-9]*(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))",
+                      text)
+        if not m:
+            continue
+        dest = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+        if dest is None or dest >= addr:
+            continue
+        body = [t for a, t in insts if dest <= a <= addr]
+        flo = sum(1 for t in body if re.search(r"\bFLO\b", t))
+        if flo >= 2:
+            per = len(body) / (flo / 2)
+            if best is None or per < best[0]:
+                best = (per, flo // 2, len(body))
+    return best
+
+
+def _emu_operands(torch, g, M, K, N, fmt):
+    """(M, K) and (K, N) operands on `fmt`'s grid in the card's containers
+    (fp16 for fp16, bf16 otherwise): odd rows of A and every other block of
+    8 columns of W scaled x25, ~10 % zeros, column 1 all zero, and columns
+    2-4 cancellation-heavy (A's two halves of K equal, W's second half the
+    negated first: exact, near and one-term-residual cancellation)."""
+    from repro_torch.core.fpformats import quantize
+
+    dev = "cuda"
+    a = torch.randn((M, K), generator=g, device=dev)
+    w = torch.randn((K, N), generator=g, device=dev)
+    a[1::2] *= 25.0
+    w[:, (torch.arange(N, device=dev) // 8) % 2 == 1] *= 25.0
+    a[torch.rand((M, K), generator=g, device=dev) < 0.1] = 0.0
+    w[torch.rand((K, N), generator=g, device=dev) < 0.1] = 0.0
+    h = K // 2
+    a[:, h:2 * h] = a[:, :h]
+    w[:, 1] = 0.0
+    w[h:2 * h, 2] = -w[:h, 2]
+    w[h:2 * h, 3] = -w[:h, 3] * (1 + 2.0 ** -6)
+    w[h:2 * h, 4] = -w[:h, 4]
+    w[0, 4] = 1.0
+    box = torch.float16 if fmt == "fp16" else torch.bfloat16
+    return quantize(a, fmt).to(box), quantize(w, fmt).to(box)
+
+
+def check_fp_emu(torch, timer):
+    import numpy as np
+
+    from repro_torch.core import chained_fma as cf
+    from repro_torch.kernels import fp_emu as fe
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    # (name, M, K, N, columns held against the plain version): a decode
+    # GEMM whole, a prefill GEMM on a slice of its columns
+    shapes = [("decode wk", BATCH // 2, D_MODEL, 1024, 1024),
+              ("prefill wg", 16, D_MODEL, D_FF, 256)]
+    compared = mism = cf_compared = 0
+    for fmt in ("bf16", "fp16", "fp8_e4m3", "fp8_e5m2"):
+        for mode in ("exact", "approx"):
+            for name, M, K, N, cols in shapes:
+                a, w = _emu_operands(torch, g, M, K, N, fmt)
+                y = ops.skewed_datapath_matmul(a, w, fmt, mode)
+                ref = fe.fma_emu_matmul_ref(a, w[:, :cols], fmt, mode)
+                torch.cuda.synchronize()
+                got = y[:, :cols].contiguous()
+                bad = int((got.view(torch.int32)
+                           != ref.view(torch.int32)).sum())
+                line = (f"fp_emu {fmt:8s} {mode:6s} {name:10s} M={M:2d} "
+                        f"K={K} N={N} (plain on {cols} cols): "
+                        f"{bad} of {ref.numel()} outputs differ")
+                if not bool(torch.isfinite(y).all()):
+                    raise AssertionError(f"fp_emu {fmt} {mode} {name}: "
+                                         f"non-finite outputs")
+                compared += ref.numel()
+                mism += bad
+                if name.startswith("decode"):
+                    # four columns against the numpy chained_fma copy
+                    pipe = "approx" if mode == "approx" else "skewed"
+                    c = cf.matmul_emulated(a.float().cpu().numpy(),
+                                           w[:, :4].float().cpu().numpy(),
+                                           fmt, pipe)
+                    cb = int((c.view(np.uint32) != got[:, :4].cpu().numpy()
+                              .view(np.uint32)).sum())
+                    line += f"; chained_fma on 4 cols: {cb} differ"
+                    mism += cb
+                    cf_compared += c.size
+                log(line)
+    if mism:
+        raise AssertionError(f"fp_emu: {mism} outputs differ from the plain "
+                             f"version or chained_fma")
+    # times: the decode wk GEMM (M = 2), bf16 exact
+    M, K, N = BATCH // 2, D_MODEL, 1024
+    a, w = _emu_operands(torch, g, M, K, N, "bf16")
+    t_k = timer.wall(lambda: ops.skewed_datapath_matmul(a, w))
+    d_k = timer.device(lambda: ops.skewed_datapath_matmul(a, w))
+    t_p = timer.wall(lambda: fe.fma_emu_matmul_ref(a, w), reps=1)
+    # least time: every instruction of a PE step takes an issue slot (4
+    # schedulers x 32 lanes per SM per clock). Not the 64 int32 lanes:
+    # moves and adds also issue to the FMA pipe as IMAD, and the M = 32
+    # GEMMs run faster than 64 lanes would allow. Instructions per step
+    # from the SASS of the K loop, else the source count.
+    sass = sass_per_step(fe.rows_per_block(M))
+    per_step, how = ((sass[0], f"{sass[0]:.2f} SASS instructions per PE "
+                      f"step, {sass[2]} in a loop body of {sass[1]} steps")
+                     if sass else (fe.OPS_PER_STEP, "source count"))
+    rate = issue_rate(torch)
+    nbytes = 2 * (M * K + K * N) + 4 * M * N
+    b_ms, by = bound_ms(nbytes, float(M * N * K * per_step), rate)
+    log(f"fp_emu times (decode wk, M={M} K={K} N={N}): kernel {t_k:.4f} ms "
+        f"(device {d_k}), plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({by}; "
+        f"{how}, over {rate:.4e} issue slots/s)")
+    # one layer's seven GEMMs and the lm_head, decode (M = 2) and a
+    # 32-token prefill, kernel only
+    layer = [("wq", D_MODEL, D_MODEL), ("wk", D_MODEL, 1024),
+             ("wv", D_MODEL, 1024), ("wo", D_MODEL, D_MODEL),
+             ("wg", D_MODEL, D_FF), ("wu", D_MODEL, D_FF),
+             ("wd", D_FF, D_MODEL), ("lm_head", D_MODEL, 153600)]
+    for m in (BATCH // 2, 32):
+        tot = steps = 0.0
+        parts = []
+        for name, k, n in layer:
+            a, w = _emu_operands(torch, g, m, k, n, "bf16")
+            t = timer.wall(lambda: ops.skewed_datapath_matmul(a, w), reps=3)
+            parts.append(f"{name} {t:.3f}")
+            if name != "lm_head":
+                tot += t
+                steps += m * k * n
+            del a, w
+        b = steps * per_step / rate * 1e3
+        log(f"fp_emu M={m}: one layer's 7 GEMMs {tot:.3f} ms, bound "
+            f"{b:.3f} ms ({steps:.4e} PE steps) ("
+            + ", ".join(parts) + " ms)")
+    return {"name": "fp_emu", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fp_emu.cu",
+            "replaces": "src/repro/kernels/fp_emu.py:72",
+            "max_abs_err": 0.0, "err_over_bound": 0.0,
+            "ms": t_k, "device_ms": d_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "outputs_compared": compared + cf_compared,
+            "timed": f"the decode wk GEMM, M={M} K={K} N={N}, bf16 exact"}
+
+
+def _same_bits(torch, x, y) -> int:
+    """Positions where two fp32 tensors differ: NaN where the other is not,
+    or unequal bit patterns elsewhere (NaN payloads may differ)."""
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    diff = (x.view(torch.int32) != y.view(torch.int32)) & ~nx
+    return int((nx != ny).sum() + diff.sum())
+
+
+def planted_ties(np, fmt_name, scales):
+    """{scale: inputs x} where x/s rounds (fp32) onto an FP8 rounding tie
+    but x·fl(1/s) does not round to the same FP8 value: there the kernel's
+    multiply by the reciprocal and a division part."""
+    import torch
+
+    from repro_torch.core.fpformats import get_format, round_fp8
+
+    fmt = get_format(fmt_name)
+    mb = fmt.man_bits
+    mants = 1 + (2 * np.arange(2 ** mb) + 1) / 2.0 ** (mb + 1)
+    exps = np.arange(fmt.emin, fmt.emax)
+    ties = (mants[None] * 2.0 ** exps[:, None]).ravel().astype(np.float32)
+    ties = np.concatenate([ties, -ties])
+
+    def rnd(v):
+        return round_fp8(torch.from_numpy(v), fmt).numpy()
+
+    out = {}
+    for s in scales:
+        s = np.float32(s)
+        x = (ties * s).astype(np.float32)
+        on_tie = (x / s).astype(np.float32) == ties
+        mul = (x * (np.float32(1) / s)).astype(np.float32)
+        part = on_tie & (rnd(mul).view(np.uint32) != rnd(ties).view(np.uint32))
+        out[float(s)] = (x[part], ties[part])
+    return out
+
+
+def check_quantize(torch, timer):
+    import numpy as np
+
+    from repro_torch.core.fpformats import round_fp8
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import sa_matmul as mm
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n = 2 ** 24
+    specials = torch.tensor(
+        [0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-40,
+         -1e-40, 448.0, 449.0, 464.0, 57344.0, 61440.0, 1e38, -3.4e38,
+         2.0 ** -6, 2.0 ** -7, 2.0 ** -14, 2.0 ** -15], device="cuda")
+    x = torch.randn((n,), generator=g, device="cuda") * 300.0
+    x[:specials.numel()] = specials
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (4096,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    x[-4096:] = bits.view(torch.float32)        # every bit pattern class
+    mism = compared = 0
+    for fmt in qz.FORMATS:
+        amax = qz.amax_scale(x[64:-4096], fmt)     # the randn part
+        for sname, scale in (("amax", amax), ("1", 1.0), ("0.37", 0.37)):
+            for cname, xin in (("fp32", x), ("bf16", x.to(torch.bfloat16)),
+                               ("fp32 unaligned", x[1:])):
+                y = ops.quantize_fp8(xin, scale, fmt)
+                ref = qz.quantize_fp8_ref(xin, scale, fmt)
+                torch.cuda.synchronize()
+                bad = _same_bits(torch, y, ref)
+                mism += bad
+                compared += y.numel()
+                log(f"quantize {fmt} scale={sname:4s} {cname:14s} "
+                    f"n={y.numel()}: {bad} differ")
+        # planted ties: the kernel multiplies by the reciprocal, as the TPU
+        # kernel does; dividing would round these differently
+        scales = np.random.default_rng(0).uniform(0.01, 100.0, 64)
+        ties = planted_ties(np, fmt, scales.astype(np.float32))
+        planted = 0
+        for s, (xs, ts) in ties.items():
+            if not len(xs):
+                continue
+            xd = torch.from_numpy(xs).cuda()
+            y = ops.quantize_fp8(xd, s, fmt)
+            ref = qz.quantize_fp8_ref(xd, s, fmt)
+            div = round_fp8(torch.from_numpy(ts), fmt).numpy()
+            bad = _same_bits(torch, y, ref)
+            same_as_div = int((y.cpu().numpy().view(np.uint32)
+                               == div.view(np.uint32)).sum())
+            mism += bad + same_as_div
+            planted += len(xs)
+        log(f"quantize {fmt} planted ties: {planted} inputs over "
+            f"{sum(len(v[0]) > 0 for v in ties.values())} scales, kernel "
+            f"equals the plain version and differs from x/s at each")
+        if planted < 20:
+            raise AssertionError(f"quantize {fmt}: only {planted} planted "
+                                 f"ties found")
+    if mism:
+        raise AssertionError(f"quantize: {mism} outputs differ")
+    # the FP8 GEMM: both operands quantized with per-tensor scales on the
+    # card, then the SA GEMM with the descale in its epilogue
+    M, K, N = 128, D_MODEL, D_FF
+    a = torch.randn((M, K), generator=g, device="cuda")
+    w = (torch.randn((K, N), generator=g, device="cuda") * K ** -0.5).to(
+        torch.bfloat16)
+    fp8_ratio = 0.0
+    for fmt in qz.FORMATS:
+        y = ops.sa_matmul_fp8(a, w, fmt)
+        sa_, sw = qz.amax_scale(a, fmt), qz.amax_scale(w, fmt)
+        aq = qz.quantize_fp8_ref(a, sa_, fmt).to(torch.bfloat16)
+        wq = qz.quantize_fp8_ref(w, sw, fmt).to(torch.bfloat16)
+        ref = mm.sa_matmul_ref(aq, wq, scale=sa_ * sw)
+        torch.cuda.synchronize()
+        bnd = mm.error_bound(aq, wq, sa_ * sw, y=ref)
+        ratio = float(((y - ref).abs() / bnd).max())
+        if not bool(torch.isfinite(y).all()) or ratio > 1.0:
+            raise AssertionError(f"sa_matmul_fp8 {fmt}: err/bound {ratio}")
+        fp8_ratio = max(fp8_ratio, ratio)
+        t_f = timer.wall(lambda: ops.sa_matmul_fp8(a, w, fmt))
+        log(f"sa_matmul_fp8 {fmt} M={M} K={K} N={N}: max_err "
+            f"{float((y - ref).abs().max()):.3e} err/bound {ratio:.4f}, "
+            f"{t_f:.4f} ms (amax x2, quantize x2, SA GEMM)")
+    # times: 2^24 fp32 elements, E4M3, scale from amax on the card
+    xs = torch.randn((n,), generator=g, device="cuda") * 300.0
+    sc = qz.amax_scale(xs, "fp8_e4m3")
+    t_k = timer.wall(lambda: ops.quantize_fp8(xs, sc, "fp8_e4m3"))
+    d_k = timer.device(lambda: ops.quantize_fp8(xs, sc, "fp8_e4m3"))
+    t_p = timer.wall(lambda: qz.quantize_fp8_ref(xs, sc, "fp8_e4m3"))
+    b_ms, by = bound_ms(8.0 * n, 0.0, 1.0)
+    log(f"quantize times (n=2^24 fp32, E4M3): kernel {t_k:.4f} ms (device "
+        f"{d_k}), plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({by})")
+    return {"name": "quantize_fp8", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize.cu",
+            "replaces": "src/repro/kernels/quantize.py:38",
+            "max_abs_err": 0.0, "err_over_bound": 0.0,
+            "ms": t_k, "device_ms": d_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "outputs_compared": compared,
+            "fp8_gemm_err_over_bound": fp8_ratio,
+            "timed": "2^24 fp32 elements, E4M3, amax scale on the card"}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
-def serve(torch):
+# the kernels each serve path must launch (every other kernel may not run
+# its plain version either)
+PATH_KERNELS = {"cuda": ("sa_matmul", "paged_decode", "prefill_attention"),
+                "emulate": ("fp_emu", "paged_decode", "prefill_attention")}
+
+
+def _serve_backend(torch, backend, args, n_req, max_new):
+    """Serve `args` through `launch/serve.main` under
+    REPRO_GEMM_BACKEND=`backend` and check the run: every request
+    complete, no page leaked, finite logits, the path's kernels launched,
+    no plain version run; under `emulate` the SA GEMM must not launch."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as drv
 
-    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    os.environ["REPRO_GEMM_BACKEND"] = backend
     ops.reset_counts()
     t0 = time.monotonic()
-    summary, sched, engine = drv.main(SERVE_ARGS, return_state=True)
+    summary, sched, engine = drv.main(args, return_state=True)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = ops.counts()
-    log(f"[serve] wall {wall:.2f} s (init + serve); counts {counts}")
+    log(f"[serve {backend}] wall {wall:.2f} s (init + serve); counts "
+        f"{counts}")
     done = sched.finished
     problems = []
-    if len(done) != 8 or any(r.n_generated != MAX_NEW for r in done):
+    if len(done) != n_req or any(r.n_generated != max_new for r in done):
         problems.append(f"requests incomplete: "
                         f"{[(r.rid, r.n_generated) for r in done]}")
     if summary.get("pages_leaked") != 0:
         problems.append(f"pages_leaked={summary.get('pages_leaked')}")
     if summary.get("nonfinite_logits") != 0:
         problems.append(f"nonfinite logits: {summary.get('nonfinite_logits')}")
-    for name, c in counts.items():
-        if c["launches"] <= 0:
+    for name in PATH_KERNELS[backend]:
+        if counts[name]["launches"] <= 0:
             problems.append(f"kernel {name} never launched on the path")
+    if backend == "emulate" and counts["sa_matmul"]["launches"] != 0:
+        problems.append("the SA GEMM launched under the emulate backend")
+    for name, c in counts.items():
         if c["plain_calls"] != 0:
             problems.append(f"plain version of {name} ran on the path "
                             f"({c['plain_calls']} calls)")
     if problems:
-        raise AssertionError("serve phase failed: " + "; ".join(problems))
+        raise AssertionError(f"serve {backend} phase failed: "
+                             + "; ".join(problems))
     launches = {name: c["launches"] for name, c in counts.items()}
     return summary, launches, engine, sched
+
+
+def serve(torch):
+    return _serve_backend(torch, "cuda", SERVE_ARGS, 8, MAX_NEW)
+
+
+def serve_emulate(torch):
+    return _serve_backend(torch, "emulate", EMU_ARGS, EMU_REQUESTS,
+                          EMU_MAX_NEW)
 
 
 def profile_serve(torch, engine):
@@ -502,22 +900,22 @@ def profile_serve(torch, engine):
             f"{n:7d} launches  {name[:90]}")
 
 
-def backend_logits(torch, engine, prompt):
-    """One prompt's prefill logits under the cuda and torch GEMM backends
-    (same weights, same policy otherwise)."""
+def backend_logits(torch, engine, prompt, backends=("cuda", "torch")):
+    """One prompt's prefill logits under two GEMM backends (same weights,
+    same policy otherwise)."""
     from repro_torch.core.precision import PrecisionPolicy, use_policy
     from repro_torch.train.step import make_prefill_step
 
     tokens = torch.tensor(prompt, dtype=torch.int32, device="cuda")[None]
     step = make_prefill_step(engine.cfg)
     out = {}
-    for backend in ("cuda", "torch"):
+    for backend in backends:
         with use_policy(PrecisionPolicy(backend=backend)):
             frag = engine.new_frag(len(prompt))
             logits, _ = step(engine.params, tokens, frag)
         out[backend] = logits[0, -1, :engine.cfg.vocab_size].float()
     torch.cuda.synchronize()
-    a, b = out["cuda"], out["torch"]
+    a, b = (out[k] for k in backends)
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("non-finite prefill logits")
     diff = float((a - b).abs().max())
@@ -529,14 +927,53 @@ def backend_logits(torch, engine, prompt):
     bound = 2.0 ** -3 * scale
     top2 = torch.topk(b, 2).values
     gap = float(top2[0] - top2[1])
-    log(f"[backends] prefill logits cuda vs torch: max|diff| {diff:.4e}, "
-        f"max|logit| {scale:.4e}, bound {bound:.4e}, top-2 gap {gap:.4e}, "
-        f"argmax {int(a.argmax())} vs {int(b.argmax())}")
+    log(f"[backends] prefill logits {backends[0]} vs {backends[1]} "
+        f"({len(prompt)} tokens): max|diff| {diff:.4e}, max|logit| "
+        f"{scale:.4e}, bound {bound:.4e}, top-2 gap {gap:.4e}, argmax "
+        f"{int(a.argmax())} vs {int(b.argmax())}")
     if diff > bound:
         raise AssertionError("prefill logits differ beyond the bound")
     if gap > 2 * diff and int(a.argmax()) != int(b.argmax()):
         raise AssertionError("argmax differs with a top-2 gap above 2x diff")
     return diff, bound
+
+
+def study(torch):
+    """The precision study at full width; returns the quantize kernel's
+    launches in it."""
+    import math
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import precision_study as ps
+
+    ops.reset_counts()
+    res = ps.main(["--arch", ARCH, "--seed", "0"])
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    log(f"[study] counts {counts}")
+    problems = []
+    if not all(res["bit_exact"].values()):
+        problems.append(f"skewed vs baseline not bit-exact: "
+                        f"{res['bit_exact']}")
+    if [tuple(x) for x in res["gemms"]] != STUDY_GEMMS:
+        problems.append(f"GEMM cycles {res['gemms']} != {STUDY_GEMMS}")
+    for net, (lat, en) in STUDY_NETWORKS.items():
+        t = res["networks"][net]
+        if (t["latency_saving"], t["energy_saving"]) != (lat, en):
+            problems.append(f"{net}: savings {t['latency_saving']}, "
+                            f"{t['energy_saving']} != {lat}, {en}")
+    lad = res["ladder"]
+    devs = {f: r["max_rel_dev"] for f, r in lad.items()}
+    if not all(math.isfinite(d) for d in devs.values()) or not (
+            0 < devs["bf16"] < devs["fp8_e4m3"]):
+        problems.append(f"precision ladder out of order: {devs}")
+    if counts["quantize"]["launches"] <= 0:
+        problems.append("the quantize kernel never launched")
+    if counts["quantize"]["plain_calls"] != 0:
+        problems.append("the quantize kernel's plain version ran")
+    if problems:
+        raise AssertionError("study phase failed: " + "; ".join(problems))
+    return counts["quantize"]["launches"]
 
 
 def main(argv=None):
@@ -580,7 +1017,8 @@ def main(argv=None):
     t = time.monotonic()
     timer = Timer(torch)
     kernels = [check_gemm(torch, timer), check_decode(torch, timer),
-               check_prefill(torch, timer)]
+               check_prefill(torch, timer), check_quantize(torch, timer),
+               check_fp_emu(torch, timer)]
     del timer
     phases["kernels"] = time.monotonic() - t
     log("kernels " + " ".join(
@@ -593,9 +1031,9 @@ def main(argv=None):
     if not args.skip_serve:
         t = time.monotonic()
         summary, got, engine, sched = serve(torch)
-        launches = {"sa_matmul": got["sa_matmul"],
-                    "paged_decode_attention": got["paged_decode"],
-                    "prefill_attention": got["prefill_attention"]}
+        launches.update(sa_matmul=got["sa_matmul"],
+                        paged_decode_attention=got["paged_decode"],
+                        prefill_attention=got["prefill_attention"])
         phases["serve"] = time.monotonic() - t
         t = time.monotonic()
         prompt = min(sched.finished, key=lambda r: r.rid).prompt
@@ -604,7 +1042,31 @@ def main(argv=None):
         t = time.monotonic()
         profile_serve(torch, engine)
         phases["profile"] = time.monotonic() - t
-        del engine
+        # the engine holds itself through its step closures: collect it
+        del engine, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.monotonic()
+        summary, got, engine, sched = serve_emulate(torch)
+        launches["fp_emu"] = got["fp_emu"]
+        log(f"[serve emulate] launches {got}; prefill_s "
+            f"{summary['prefill_s']} decode_s {summary['decode_s']} "
+            f"compile_s {summary['compile_s']} wall_s {summary['wall_s']} "
+            f"itl_p50 {summary.get('decode_itl_p50_ms')} ms")
+        phases["emulate_serve"] = time.monotonic() - t
+        t = time.monotonic()
+        prompt = min(sched.finished, key=lambda r: r.rid).prompt
+        backend_logits(torch, engine, prompt, ("emulate", "cuda"))
+        phases["emulate_backends"] = time.monotonic() - t
+        del engine, sched
+        os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.monotonic()
+        launches["quantize_fp8"] = study(torch)
+        phases["study"] = time.monotonic() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -123,9 +123,17 @@ def quantize(x: torch.Tensor, fmt: str | FPFormat) -> torch.Tensor:
         y = f32.to(dt).to(torch.float32)
         # FTZ: the IEEE cast keeps subnormals, the SA datapath does not
         return torch.where(y.abs() < fmt.min_normal, torch.zeros_like(y), y)
-    # FP8: round the fp32 mantissa to `man_bits` (RNE) in the integer
-    # domain, then clamp the exponent range with FTZ + saturation / Inf
-    bits = _f32_bits(f32.contiguous())
+    return round_fp8(f32, fmt)
+
+
+def round_fp8(x: torch.Tensor, fmt: str | FPFormat) -> torch.Tensor:
+    """An fp32 tensor onto an FP8 grid, returned as fp32: round the fp32
+    mantissa to `man_bits` (RNE) in the integer domain, flush what falls
+    below the normal range to +0 after rounding, then saturate (E4M3) or
+    overflow to ±Inf (E5M2); NaN passes. The body of the quantize kernel
+    (`kernels/quantize.py`) and of `quantize`'s FP8 branch."""
+    fmt = get_format(fmt)
+    bits = _f32_bits(x.contiguous())
     shift = 23 - fmt.man_bits
     half = 1 << (shift - 1)
     lsb = (bits >> shift) & 1
@@ -137,4 +145,4 @@ def quantize(x: torch.Tensor, fmt: str | FPFormat) -> torch.Tensor:
         y = torch.clamp(y, -fmt.max_finite, fmt.max_finite)
     else:
         y = torch.where(ay > fmt.max_finite, torch.sign(y) * float("inf"), y)
-    return torch.where(torch.isnan(f32), f32, y)
+    return torch.where(torch.isnan(x), x, y)

@@ -18,8 +18,9 @@ environment variables as the JAX package, at call time.
 `REPRO_OPT=0` disables all three.
 
 String knobs: `gemm_backend()` (REPRO_GEMM_BACKEND: `torch` — the plain
-PyTorch GEMM and the default — or `cuda`, the hand-written SA GEMM
-kernel; `emulate` is not ported yet), `sa_mode()` (REPRO_SA_MODE),
+PyTorch GEMM and the default —, `cuda`, the hand-written SA GEMM kernel,
+or `emulate`, the paper's bit-exact skewed datapath through the
+hand-written fp_emu kernel), `sa_mode()` (REPRO_SA_MODE),
 `decode_attn_impl()` (REPRO_DECODE_ATTN: `fused` page walk, the default,
 or `gather`), `kv_layout()` (REPRO_KV) and `prefix_cache_enabled()`
 (REPRO_PREFIX_CACHE).

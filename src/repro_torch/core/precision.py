@@ -16,7 +16,15 @@ Backends (``REPRO_GEMM_BACKEND``):
   * ``cuda``  — the hand-written SA GEMM kernel
                 (`repro_torch.kernels.ops.sa_matmul`) with the fused
                 epilogue; on a CPU tensor that call runs the plain version.
-  * ``emulate`` — the bit-exact integer datapath; not ported yet.
+  * ``emulate`` — the paper's bit-exact skewed integer datapath
+                (`repro_torch.kernels.ops.skewed_datapath_matmul`: the
+                hand-written fp_emu kernel on the card, its plain version on
+                the CPU; `approx` mode is the coarse-LZA chain), 2-D GEMMs
+                of a format whose significand product fits the 27-bit
+                accumulator (not fp32), epilogue in fp32 after it.
+
+FP8 input and output formats round through the quantize kernel
+(`ops.quantize_fp8` at scale 1, bit-identical to `fpformats.quantize`).
 """
 from __future__ import annotations
 
@@ -52,20 +60,20 @@ class PrecisionPolicy:
     input_format: str = "bf16"       # paper's evaluated configuration
     accum_format: str = "fp32"       # "double-width reduction"
     output_format: str = "fp32"      # rounding target at the column end
-    backend: str = "torch"           # torch | cuda
+    backend: str = "torch"           # torch | cuda | emulate
     mode: str = "exact"              # exact | approx (bulk-tier coarse LZA)
 
     def __post_init__(self):
         get_format(self.input_format)
         if self.accum_format != "fp32":
             raise ValueError("the SA reduces in FP32 (paper §II)")
-        if self.backend == "emulate":
-            raise ValueError("the emulate backend (chained_fma) is not "
-                             "ported yet; use 'torch' or 'cuda'")
-        if self.backend not in ("torch", "cuda"):
+        if self.backend not in ("torch", "cuda", "emulate"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.mode not in ("exact", "approx"):
             raise ValueError(f"unknown SA mode {self.mode!r}")
+        if self.backend == "emulate":
+            from repro_torch.kernels.fp_emu import check_format
+            check_format(self.input_format)
 
     def cast_in(self, x: torch.Tensor) -> torch.Tensor:
         fmt = get_format(self.input_format)
@@ -74,16 +82,25 @@ class PrecisionPolicy:
         if fmt.name in ("bf16", "fp16"):
             q = x.to(_TORCH_INPUT_DTYPE[fmt.name])
             return q.to(torch.float32) if exact_cpu_containers(x.device) else q
-        # fp8: values snapped to the format's grid, carried in bf16 on the
-        # card (bf16 holds every FP8 value exactly)
-        q = quantize(x, fmt)
+        # fp8: values snapped to the format's grid by the quantize kernel,
+        # carried in bf16 on the card (bf16 holds every FP8 value exactly)
+        q = _quantize(x, fmt)
         return q if exact_cpu_containers(x.device) else q.to(torch.bfloat16)
 
     def cast_out(self, y: torch.Tensor) -> torch.Tensor:
         fmt = get_format(self.output_format)
         if fmt.name == "fp32":
             return y.to(torch.float32)
-        return quantize(y, fmt)
+        return _quantize(y, fmt)
+
+
+def _quantize(x: torch.Tensor, fmt) -> torch.Tensor:
+    """`fpformats.quantize`, with FP8 formats through `ops.quantize_fp8`
+    at scale 1 (x · (1/1) = x exactly, so the two are bit-identical)."""
+    if fmt.name in ("fp8_e4m3", "fp8_e5m2"):
+        from repro_torch.kernels import ops  # lazy: kernels import this module
+        return ops.quantize_fp8(x, 1.0, fmt.name)
+    return quantize(x, fmt)
 
 
 _POLICY_STACK: list[PrecisionPolicy] = [
@@ -119,15 +136,29 @@ def sa_dot(a: torch.Tensor, w: torch.Tensor,
            policy: PrecisionPolicy | None = None, *,
            bias: torch.Tensor | None = None, act: str = "none"
            ) -> torch.Tensor:
-    """`a @ w` under the SA arithmetic contract. Batched `a` supported.
+    """`a @ w` under the SA arithmetic contract. Batched `a` supported
+    (not under `emulate`, which takes 2-D GEMMs only).
 
     `bias`/`act` are the fused epilogue, applied to the fp32 chain before
     the single output rounding on every backend. ``policy.mode ==
     "approx"`` truncates the chain's low mantissa bits first
-    (`kernels.sa_matmul.truncate_mantissa`) on every backend."""
+    (`kernels.sa_matmul.truncate_mantissa`) on `torch` and `cuda`, and
+    runs the coarse-LZA chain under `emulate`."""
     from repro_torch.kernels import ops  # lazy: kernels import this module
+    from repro_torch.kernels.sa_matmul import EPILOGUES, apply_act
 
     policy = policy or current_policy()
+    if policy.backend == "emulate":
+        if a.ndim != 2 or w.ndim != 2:
+            raise ValueError("emulate backend supports 2-D GEMMs only")
+        if act not in EPILOGUES:
+            raise ValueError(f"unknown epilogue act {act!r}; have "
+                             f"{EPILOGUES}")
+        y = ops.skewed_datapath_matmul(policy.cast_in(a), policy.cast_in(w),
+                                       policy.input_format, policy.mode)
+        if bias is not None:
+            y = y + bias.to(torch.float32)
+        return policy.cast_out(apply_act(y, act))
     a_q, w_q = policy.cast_in(a), policy.cast_in(w)
     if policy.backend == "cuda":
         if w_q.ndim != 2:

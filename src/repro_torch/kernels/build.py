@@ -21,7 +21,10 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sa_matmul", "sa_decode_attention", "sa_attention")
+SOURCES = ("sa_matmul", "sa_decode_attention", "sa_attention", "quantize",
+           "fp_emu")
+# no --use_fast_math: quantize.cu needs the IEEE reciprocal (-prec-div=true)
+# and products kept below the normal range (-ftz=false)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 

@@ -133,8 +133,12 @@ __device__ __forceinline__ float act_apply(float y, int act) {
 
 __global__ void sa_gemm_epilogue(const float* __restrict__ ws,
                                  const float* __restrict__ bias,
-                                 float* __restrict__ out, float scale, int M,
+                                 float* __restrict__ out, float scale,
+                                 const float* __restrict__ scale_dev, int M,
                                  int N, int KS, int act, int approx) {
+  // a scale computed on the card (the FP8 GEMM's sa * sw) is read here, so
+  // its caller never waits on the host
+  if (scale_dev != nullptr) scale = scale_dev[0];
   const size_t total = (size_t)M * N;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -151,7 +155,8 @@ __global__ void sa_gemm_epilogue(const float* __restrict__ ws,
 
 extern "C" int sa_matmul_launch(const void* a, const void* w,
                                 const void* bias, void* ws, void* out,
-                                float scale, int M, int N, int K, int KS,
+                                float scale, const void* scale_dev, int M,
+                                int N, int K, int KS,
                                 int kslice, int act, int approx,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -168,6 +173,7 @@ extern "C" int sa_matmul_launch(const void* a, const void* w,
       static_cast<int>(std::min<size_t>((total + threads - 1) / threads, 4096));
   sa_gemm_epilogue<<<blocks, threads, 0, st>>>(
       static_cast<const float*>(ws), static_cast<const float*>(bias),
-      static_cast<float*>(out), scale, M, N, KS, act, approx);
+      static_cast<float*>(out), scale, static_cast<const float*>(scale_dev),
+      M, N, KS, act, approx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,13 +10,18 @@ and `PLAIN_CALLS` (calls of its plain version). `counts()` reads them and
 """
 from __future__ import annotations
 
+import torch
+
+from . import fp_emu as _emu
+from . import quantize as _quant
 from . import sa_attention as _attn
 from . import sa_decode_attention as _decode
 from . import sa_matmul as _mm
+from .quantize import amax_scale
 from .sa_decode_attention import fused_decode_supported
 
 _MODULES = {"sa_matmul": _mm, "paged_decode": _decode,
-            "prefill_attention": _attn}
+            "prefill_attention": _attn, "quantize": _quant, "fp_emu": _emu}
 
 
 def sa_matmul(a, w, *, bias=None, act: str = "none", scale=None,
@@ -46,6 +51,34 @@ def sa_attention(q, k, v, **kw):
     return _attn.sa_attention_cuda(q, k, v, **kw)
 
 
+def quantize_fp8(x, scale, fmt_name: str = "fp8_e4m3"):
+    """`x · (1/scale)` rounded onto the FP8 grid, fp32 out (see
+    quantize.py); `scale` a float or a 1-element tensor."""
+    if x.device.type == "cpu":
+        return _quant.quantize_fp8_ref(x, scale, fmt_name)
+    return _quant.quantize_fp8_cuda(x, scale, fmt_name)
+
+
+def sa_matmul_fp8(a, w, fmt_name: str = "fp8_e4m3", **kw):
+    """FP8 GEMM: per-tensor scaled quantization of both operands (carried
+    in bf16, which holds every FP8 value), then the SA GEMM with the
+    descale sa·sw in its epilogue, before the single output rounding. The
+    scales stay on the device."""
+    sa_, sw = amax_scale(a, fmt_name), amax_scale(w, fmt_name)
+    aq = quantize_fp8(a, sa_, fmt_name).to(torch.bfloat16)
+    wq = quantize_fp8(w, sw, fmt_name).to(torch.bfloat16)
+    return sa_matmul(aq, wq, scale=sa_ * sw, **kw)
+
+
+def skewed_datapath_matmul(a, w, fmt_name: str = "bf16",
+                           mode: str = "exact"):
+    """(M, K) @ (K, N) through the bit-exact skewed PE chain (see
+    fp_emu.py); ``mode="approx"`` is the coarse-LZA datapath."""
+    if a.device.type == "cpu":
+        return _emu.fma_emu_matmul_ref(a, w, fmt_name, mode)
+    return _emu.fma_emu_matmul_cuda(a, w, fmt_name, mode)
+
+
 def counts() -> dict[str, dict[str, int]]:
     return {name: {"launches": m.LAUNCHES, "plain_calls": m.PLAIN_CALLS}
             for name, m in _MODULES.items()}
@@ -57,5 +90,6 @@ def reset_counts():
         m.PLAIN_CALLS = 0
 
 
-__all__ = ["sa_matmul", "paged_decode_attention", "sa_attention",
-           "fused_decode_supported", "counts", "reset_counts"]
+__all__ = ["sa_matmul", "sa_matmul_fp8", "skewed_datapath_matmul",
+           "paged_decode_attention", "sa_attention", "quantize_fp8",
+           "amax_scale", "fused_decode_supported", "counts", "reset_counts"]

@@ -83,7 +83,9 @@ def sa_matmul_ref(a: torch.Tensor, w: torch.Tensor,
     y = torch.matmul(a.to(torch.float32), w.to(torch.float32))
     if mode == "approx":
         y = truncate_mantissa(y)
-    if scale is not None:
+    if isinstance(scale, torch.Tensor):
+        y = y * scale.to(device=y.device, dtype=torch.float32).reshape(())
+    elif scale is not None:
         y = y * float(scale)
     if bias is not None:
         y = y + bias.to(torch.float32)
@@ -112,7 +114,9 @@ def sa_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
                    bias: torch.Tensor | None = None, scale=None, *,
                    act: str = "none", mode: str = "exact") -> torch.Tensor:
     """Launch the SA GEMM kernel: a (M, K) and w (K, N) bf16 on one CUDA
-    device, bias (N,) fp32 or None → (M, N) fp32."""
+    device, bias (N,) fp32 or None → (M, N) fp32. `scale` is a float or a
+    1-element tensor on the device, which the epilogue reads there (no
+    host sync)."""
     global LAUNCHES
     from .build import check, function
 
@@ -128,6 +132,12 @@ def sa_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
                          f"{a.dtype} @ {w.dtype}")
     a, w = a.contiguous(), w.contiguous()
     bias = None if bias is None else bias.to(torch.float32).contiguous()
+    scale_dev = None
+    if isinstance(scale, torch.Tensor):
+        if scale.numel() != 1 or scale.device != a.device:
+            raise ValueError("a tensor scale must hold one value on the "
+                             "operands' device")
+        scale_dev = scale.to(torch.float32).reshape(1).contiguous()
     m, k = a.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
@@ -137,12 +147,13 @@ def sa_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
     kslice = -(-k // ks)
     ws = torch.empty((ks, m, n), dtype=torch.float32, device=a.device)
     fn = function("sa_matmul", "sa_matmul_launch",
-                  [ctypes.c_void_p] * 5 + [ctypes.c_float]
+                  [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     err = fn(a.data_ptr(), w.data_ptr(),
              None if bias is None else bias.data_ptr(),
              ws.data_ptr(), out.data_ptr(),
-             1.0 if scale is None else float(scale),
+             1.0 if scale is None or scale_dev is not None else float(scale),
+             None if scale_dev is None else scale_dev.data_ptr(),
              m, n, k, ks, kslice, _ACT_CODE[act], int(mode == "approx"),
              torch.cuda.current_stream(a.device).cuda_stream)
     check(err, "sa_matmul")

@@ -6,7 +6,8 @@ through the continuous-batching engine.
 
 Runs on CUDA unless `--device cpu` is given (with `--reduced` that is the
 CPU smoke run). The GEMM backend is REPRO_GEMM_BACKEND (`torch`, the
-plain version, or `cuda`, the hand-written SA GEMM kernel). The summary
+plain version, `cuda`, the hand-written SA GEMM kernel, or `emulate`, the
+paper's bit-exact skewed datapath through the fp_emu kernel). The summary
 line `[continuous] k=v ...` and its `stream_digest` are the JAX driver's.
 
 Flags of features not ported yet (--tier-mix, --spec-k, --disagg,

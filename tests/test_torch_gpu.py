@@ -1,6 +1,6 @@
 """PyTorch port on the card: each hand-written kernel against its plain
-version at the main path's shapes, the wrappers' refusals, and a short
-full-width serve. Marked `gpu`; each test skips inside itself where no
+version at the main path's shapes, the wrappers' refusals, and short
+full-width serves under the `cuda` and `emulate` GEMM backends. Marked `gpu`; each test skips inside itself where no
 CUDA device is present. Needs no JAX, so it runs on the card's machine:
 
     python -m pytest -m gpu tests/test_torch_*.py
@@ -9,7 +9,8 @@ Tolerances are the kernel modules' `error_bound` (see their docstrings):
 fp32 reassociation (R1), one truncation quantum in approx mode, and for
 attention the rounding of the probabilities to the input format, per
 output from the plain version's own terms; a planted off-by-one mask lands
-outside it.
+outside it. The fp_emu and quantize kernels are held to their plain
+versions bit for bit (NaN payloads aside).
 """
 import dataclasses
 
@@ -18,7 +19,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.precision import PrecisionPolicy  # noqa: E402
+from repro_torch.kernels import fp_emu as FE  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import quantize as QZ  # noqa: E402
 from repro_torch.kernels import sa_attention as FA  # noqa: E402
 from repro_torch.kernels import sa_decode_attention as DA  # noqa: E402
 from repro_torch.kernels import sa_matmul as MM  # noqa: E402
@@ -183,5 +186,140 @@ def test_serve_full_width_two_layers(cuda, monkeypatch):
     assert summary["pages_leaked"] == 0
     assert summary["nonfinite_logits"] == 0
     c = ops.counts()
-    assert all(v["launches"] > 0 for v in c.values()), c
+    for name in ("sa_matmul", "paged_decode", "prefill_attention"):
+        assert c[name]["launches"] > 0, c
+    assert all(v["plain_calls"] == 0 for v in c.values()), c
+
+
+def _on_grid(t, fmt):
+    from repro_torch.core.fpformats import quantize
+    box = torch.float16 if fmt == "fp16" else torch.bfloat16
+    return quantize(t, fmt).to(box)
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "fp16", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("m,k,n", [(3, 1000, 96), (16, 640, 80)])
+def test_fp_emu_matches_plain_bit_exact(cuda, fmt, mode, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m * k + n)
+    a = torch.randn((m, k), generator=g, device=cuda)
+    w = torch.randn((k, n), generator=g, device=cuda)
+    a[1::2] *= 25.0
+    w[:, 1] = 0.0
+    a[0, : k // 3] = 0.0
+    h = k // 2
+    a[:, h:2 * h] = a[:, :h]
+    w[h:2 * h, 2] = -w[:h, 2]                  # exact cancellation
+    a, w = _on_grid(a, fmt), _on_grid(w, fmt)
+    ops.reset_counts()
+    got = ops.skewed_datapath_matmul(a, w, fmt, mode)
+    assert ops.counts()["fp_emu"] == {"launches": 1, "plain_calls": 0}
+    ref = FE.fma_emu_matmul_ref(a, w, fmt, mode)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("fmt", ["fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 0),
+                                          (torch.float32, 1),
+                                          (torch.bfloat16, 0)])
+def test_quantize_matches_plain_bit_exact(cuda, fmt, dtype, offset):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((2 ** 20 + 3,), generator=g, device=cuda) * 300.0
+    x[:6] = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e-40,
+                          -0.0, 1e38])
+    x = x.to(dtype)[offset:]                    # offset 1: unaligned loads
+    for scale in (QZ.amax_scale(x[8:], fmt), 1.0, 0.37):
+        got = ops.quantize_fp8(x, scale, fmt)
+        ref = QZ.quantize_fp8_ref(x, scale, fmt)
+        nan = torch.isnan(ref)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32),
+                           ref[~nan].view(torch.int32))
+
+
+def test_datapath_wrappers_refuse_bad_operands(cuda):
+    a = torch.zeros((2, 64), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((64, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        FE.fma_emu_matmul_cuda(a, w.cpu())
+    with pytest.raises(ValueError, match="accumulator"):
+        ops.skewed_datapath_matmul(a, w, "fp32")
+    with pytest.raises(ValueError, match="containers"):
+        ops.skewed_datapath_matmul(a.to(torch.int32), w)
+    with pytest.raises(ValueError, match="CUDA"):
+        QZ.quantize_fp8_cuda(a.cpu(), 1.0)
+    with pytest.raises(ValueError, match="fp8"):
+        ops.quantize_fp8(a, 1.0, "bf16")
+
+
+def test_emulate_sa_dot_runs_the_kernel(cuda):
+    """`sa_dot` under `emulate` on the card launches fp_emu once, runs no
+    plain version, and equals the plain version on the CPU bit for bit
+    (bias add and relu are exact in fp32 on both)."""
+    from repro_torch.core.precision import sa_dot
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn((4, 512), generator=g, device=cuda)
+    w = (torch.randn((512, 96), generator=g, device=cuda) / 16).to(
+        torch.bfloat16)
+    bias = torch.randn((96,), generator=g, device=cuda)
+    for mode in ("exact", "approx"):
+        pol = PrecisionPolicy(backend="emulate", mode=mode)
+        ops.reset_counts()
+        got = sa_dot(a, w, pol, bias=bias, act="relu")
+        c = ops.counts()
+        assert c["fp_emu"] == {"launches": 1, "plain_calls": 0}, c
+        assert c["sa_matmul"] == {"launches": 0, "plain_calls": 0}, c
+        ref = sa_dot(a.cpu(), w.cpu(), pol, bias=bias.cpu(), act="relu")
+        assert torch.equal(got.cpu().view(torch.int32),
+                           ref.view(torch.int32))
+
+
+def test_sa_matmul_fp8_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randn((64, 1024), generator=g, device=cuda)
+    w = (torch.randn((1024, 384), generator=g, device=cuda) / 32).to(
+        torch.bfloat16)
+    for fmt in QZ.FORMATS:
+        ops.reset_counts()
+        got = ops.sa_matmul_fp8(a, w, fmt, act="silu")
+        c = ops.counts()
+        assert c["quantize"] == {"launches": 2, "plain_calls": 0}, c
+        assert c["sa_matmul"] == {"launches": 1, "plain_calls": 0}, c
+        sa_, sw = QZ.amax_scale(a, fmt), QZ.amax_scale(w, fmt)
+        aq = QZ.quantize_fp8_ref(a, sa_, fmt).to(torch.bfloat16)
+        wq = QZ.quantize_fp8_ref(w, sw, fmt).to(torch.bfloat16)
+        ref = MM.sa_matmul_ref(aq, wq, scale=sa_ * sw, act="silu")
+        bound = MM.error_bound(aq, wq, sa_ * sw, y=ref)
+        assert bool(((got - ref).abs() <= bound).all())
+
+
+def test_serve_emulate_full_width_two_layers(cuda, monkeypatch):
+    """qwen2.5-14b at full width, cut to two layers, under the emulate
+    backend: every GEMM launches fp_emu, the SA GEMM never runs, attention
+    goes through its two kernels, and no plain version runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "emulate")
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), num_layers=2)
+    params = M.init_params(cfg, seed=0, device=cuda)
+    eng = ServeEngine(cfg, params, batch=2, cache_len=24, eos_id=-1,
+                      sync_every=2)
+    sched = SlotScheduler(2, eos_id=-1)
+    g = torch.Generator().manual_seed(0)
+    for n in (9, 17):
+        sched.submit(torch.randint(0, cfg.vocab_size, (n,),
+                                   generator=g).tolist(), max_new_tokens=3)
+    ops.reset_counts()
+    summary = eng.serve(sched)
+    assert [r.n_generated for r in sched.finished] == [3, 3]
+    assert summary["pages_leaked"] == 0
+    assert summary["nonfinite_logits"] == 0
+    c = ops.counts()
+    for name in ("fp_emu", "paged_decode", "prefill_attention"):
+        assert c[name]["launches"] > 0, c
+    assert c["sa_matmul"]["launches"] == 0, c
     assert all(v["plain_calls"] == 0 for v in c.values()), c

@@ -114,8 +114,17 @@ def test_launch_counters_count_only_plain_calls_on_cpu():
     c = ops.counts()
     assert c["sa_matmul"] == {"launches": 0, "plain_calls": 1}
     assert c["paged_decode"] == {"launches": 0, "plain_calls": 0}
+    assert c["quantize"] == c["fp_emu"] == {"launches": 0, "plain_calls": 0}
+    ops.quantize_fp8(a, 1.0, "fp8_e4m3")
+    ops.skewed_datapath_matmul(a, w)
+    ops.skewed_datapath_matmul(a, w, "fp8_e5m2", "approx")
+    c = ops.counts()
+    assert c["quantize"] == {"launches": 0, "plain_calls": 1}
+    assert c["fp_emu"] == {"launches": 0, "plain_calls": 2}
+    assert c["sa_matmul"] == {"launches": 0, "plain_calls": 1}
     ops.reset_counts()
-    assert ops.counts()["sa_matmul"]["plain_calls"] == 0
+    assert all(v == {"launches": 0, "plain_calls": 0}
+               for v in ops.counts().values())
 
 
 # ---------------------------------------------------------------------------

@@ -170,13 +170,18 @@ def test_sa_einsum_matches_jax():
 
 
 def test_policy_knobs(monkeypatch):
-    with pytest.raises(ValueError, match="not ported"):
-        TP.PrecisionPolicy(backend="emulate")
+    # emulate is served (the skewed datapath); its 27-bit accumulator
+    # refuses fp32 significand products
+    assert TP.PrecisionPolicy(backend="emulate").backend == "emulate"
+    with pytest.raises(ValueError, match="accumulator"):
+        TP.PrecisionPolicy(backend="emulate", input_format="fp32")
     with pytest.raises(ValueError):
         TP.PrecisionPolicy(backend="xla")
     monkeypatch.setenv("REPRO_GEMM_BACKEND", "bogus")
     with pytest.raises(ValueError, match="REPRO_GEMM_BACKEND"):
         optflags.gemm_backend()
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "emulate")
+    assert TP.current_policy().backend == "emulate"
     monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
     monkeypatch.setenv("REPRO_SA_MODE", "approx")
     pol = TP.current_policy()
