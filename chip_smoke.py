@@ -40,6 +40,19 @@ Phases, in order; any failure exits nonzero:
              energy model equal to the JAX package's numbers, and the
              precision ladder ordered; its FP8 rows through the quantize
              kernel, whose plain version never runs.
+8. train   — qwen2.5-14b at full width cut to 4 layers (fp32 masters and
+             AdamW moments: 16 B a parameter), batch 4 x 512 in two
+             strided microbatches. Step 0's loss and gradients under the
+             `cuda` and `torch` GEMM backends on the same parameters and
+             batch, every leaf within the stated bound, and two planted
+             backward faults outside it; then six steps through
+             `repro_torch.launch.train.run` under `cuda`: finite losses and
+             gradient norms, the SA GEMM's forward and backward launched,
+             its plain version never run; peak memory and time per step.
+
+The kernel phase also holds the SA GEMM's backward GEMMs (dA = dY·Wᵀ, dW
+= Aᵀ·dY, fp32 x bf16) and its raw output at the training shapes (M = 1024
+tokens) against the plain version.
 
 Each phase's wall time is printed. The last lines are the kernels JSON
 line, the nvidia-smi line and `{"ok": true, "device": {...}}`.
@@ -47,8 +60,10 @@ line, the nvidia-smi line and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -73,6 +88,16 @@ EMU_ARGS = ["--arch", ARCH, "--batch", "2", "--requests", "2",
             "--seed", "0"]
 EMU_REQUESTS, EMU_MAX_NEW = 2, 4
 D_MODEL, D_FF = 5120, 13824
+# the train phase: full width, depth cut to 4 of 48 layers (2.674 B
+# parameters, 42.8 GB of fp32 masters, gradients, mu and nu)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 4, 512, 2, 6
+TRAIN_M = TRAIN_BATCH * TRAIN_SEQ // TRAIN_ACCUM     # tokens a microbatch
+# step-0 gradients, kernel vs plain GEMM: every cotangent that reaches a
+# master is rounded to bf16, so a last-bit fp32 difference between the two
+# GEMMs' sums flips a bf16 rounding (2^-8) that the backward carries
+# through the layers; each leaf within 2^-5 of its norm, the loss within
+# 2^-10 (the CPU parity tests' tolerances, tests/test_torch_train.py)
+TRAIN_GRAD_REL, TRAIN_LOSS_REL = 2.0 ** -5, 2.0 ** -10
 
 # The JAX package's section-2 numbers of the precision study (its
 # `systolic.gemm_latency` and `energy.network_totals`), which
@@ -277,6 +302,133 @@ def check_gemm(torch, timer):
             "library_ms": step["library_ms"],
             "timed": "one decoder layer's 7 decode GEMMs at M=4 "
                      "(wq,wk,wv,wo,wg,wu,wd), summed"}
+
+
+LAYER_GEMMS = [("wq", D_MODEL, 40 * 128, True, "none"),
+               ("wk", D_MODEL, 8 * 128, True, "none"),
+               ("wv", D_MODEL, 8 * 128, True, "none"),
+               ("wo", 40 * 128, D_MODEL, False, "none"),
+               ("wg", D_MODEL, D_FF, False, "silu"),
+               ("wu", D_MODEL, D_FF, False, "none"),
+               ("wd", D_FF, D_MODEL, False, "none")]
+
+
+def check_gemm_train(torch, timer):
+    """The SA GEMM at the training shapes (M = 1024 tokens a microbatch):
+    the forward (tiled kernel) and, for wg+silu, its raw accumulator; the
+    backward GEMMs dA = dY·Wᵀ (fp32 x bf16ᵀ) and dW = Aᵀ·dY (bf16ᵀ x fp32)
+    of every projection and the lm_head, each within `error_bound` of the
+    plain version. Times: one layer's seven backward pairs, summed, beside
+    the bound at the fp32 SIMT peak (the products are fp32) and fp32
+    `torch.matmul` (TF32 off) of the same two products."""
+    from repro_torch.kernels import sa_matmul as mm
+
+    # the yardstick is full fp32: TF32 would keep 10 mantissa bits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = TRAIN_M
+    g = torch.Generator(device="cuda").manual_seed(6)
+    worst = max_err = 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+           "flops": 0.0, "fwd_ms": 0.0}
+    for name, k, n, has_bias, act in LAYER_GEMMS + [
+            ("lm_head", D_MODEL, 153600, False, "none")]:
+        a = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        bias = (torch.randn((n,), generator=g, device="cuda") * 0.1
+                if has_bias else None)
+        dus = torch.randn((m, n), generator=g, device="cuda") * n ** -0.5
+        y, raw = mm.sa_matmul_cuda(a, w, bias, act=act, save_raw=True)
+        ref, raw_ref = mm.sa_matmul_ref(a, w, bias, act=act, save_raw=True)
+        torch.cuda.synchronize()
+        ratios = {"fwd": float(((y - ref).abs()
+                                / mm.error_bound(a, w, y=ref)).max())}
+        if act != "none":
+            ratios["raw"] = float(((raw - raw_ref).abs()
+                                   / mm.error_bound(a, w)).max())
+        del y, ref, raw, raw_ref
+        errs = [0.0]
+        got = dict(zip(("dA", "dW"), mm.backward_gemms(a, w, dus)))
+        want = dict(zip(("dA", "dW"), mm.backward_gemms_ref(a, w, dus)))
+        torch.cuda.synchronize()
+        for which, bnd_of in (("dA", lambda: mm.error_bound(dus, w.t())),
+                              ("dW", lambda: mm.error_bound(a.t(), dus))):
+            diff = (got[which] - want[which]).abs()
+            errs.append(float(diff.max()))
+            if not bool(torch.isfinite(got[which]).all()):
+                raise AssertionError(f"sa_matmul_bwd {name} {which}: "
+                                     f"non-finite outputs")
+            ratios[which] = float((diff / bnd_of()).max())
+            del diff
+        del got, want
+        for what, r in ratios.items():
+            if not r <= 1.0:
+                raise AssertionError(f"sa_matmul {name} M={m} {what}: "
+                                     f"err/bound {r:.3f}")
+        worst = max([worst] + [ratios["dA"], ratios["dW"]])
+        max_err = max([max_err] + errs)
+        reps = 3
+        t_f = timer.wall(lambda: mm.sa_matmul_cuda(a, w, bias, act=act),
+                         reps=reps)
+        t_k = timer.wall(lambda: mm.backward_gemms(a, w, dus), reps=reps)
+        t_p = timer.wall(lambda: mm.backward_gemms_ref(a, w, dus), reps=reps)
+        a32, w32 = a.float(), w.float()
+        t_l = timer.wall(lambda: (torch.matmul(dus, w32.t()),
+                                  torch.matmul(a32.t(), dus)), reps=reps)
+        del a32, w32
+        # dA reads dY and W, writes (M, K); dW reads A and dY, writes (K, N)
+        nbytes = (4 * m * n + 2 * k * n + 4 * m * k) + (
+            2 * m * k + 4 * m * n + 4 * k * n)
+        flops = 2 * 2.0 * m * n * k
+        b_ms, by = bound_ms(nbytes, flops, PEAK_FP32)
+        log(f"sa_matmul train {name:8s} M={m} K={k:5d} N={n:6d}: err/bound "
+            + " ".join(f"{w_}={r:.4f}" for w_, r in ratios.items())
+            + f"; fwd {t_f:.3f} ms ({2 * m * n * k / t_f / 1e9:.1f} TFLOP/s);"
+            f" bwd dA+dW {t_k:.3f} ms ({flops / t_k / 1e9:.1f} TFLOP/s), "
+            f"plain {t_p:.3f} ms, fp32 torch.matmul {t_l:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({by})")
+        if name != "lm_head":
+            for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                           ("bytes", nbytes), ("flops", flops),
+                           ("fwd_ms", t_f)):
+                tot[key] += v
+        del a, w, bias, dus
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the route: the split-K kernel (made for decode) against the tiled
+    # one on a layer's seven forward GEMMs, at a prefill and the training M
+    for mr in (128, m):
+        t_route = {}
+        for route, min_m in (("split-K", 1 << 30), ("tiled", 0)):
+            keep, mm.TILED_MIN_M = mm.TILED_MIN_M, min_m
+            try:
+                t_route[route] = 0.0
+                for _, k, n, _, _ in LAYER_GEMMS:
+                    a = torch.randn((mr, k), generator=g, device="cuda").to(
+                        torch.bfloat16)
+                    w = torch.randn((k, n), generator=g, device="cuda").to(
+                        torch.bfloat16)
+                    t_route[route] += timer.wall(
+                        lambda: mm.sa_matmul_cuda(a, w), reps=3)
+            finally:
+                mm.TILED_MIN_M = keep
+        log(f"sa_matmul route at M={mr}: a layer's 7 forward GEMMs "
+            f"{t_route['split-K']:.3f} ms split-K, {t_route['tiled']:.3f} ms "
+            f"tiled (the wrapper takes the tiled kernel from M = "
+            f"{mm.TILED_MIN_M})")
+    b_ms, by = bound_ms(tot["bytes"], tot["flops"], PEAK_FP32)
+    log(f"sa_matmul train: one layer's 7 GEMMs at M={m}: forward "
+        f"{tot['fwd_ms']:.3f} ms, backward {tot['ms']:.3f} ms (bound "
+        f"{b_ms:.3f} ms, {by}); backward max err/bound {worst:.4f}")
+    return {"name": "sa_matmul_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sa_matmul.cu",
+            "replaces": "src/repro/kernels/sa_matmul.py:244",
+            "max_abs_err": max_err, "err_over_bound": worst,
+            "ms": tot["ms"], "device_ms": None, "plain_ms": tot["plain_ms"],
+            "bound_ms": b_ms, "bound_by": by,
+            "library_ms": tot["library_ms"],
+            "timed": f"one decoder layer's 7 backward GEMM pairs (dA + dW) "
+                     f"at M={m}, summed"}
 
 
 def _paged_workload(torch, g, B, KVH, grp, hd, psz, P, n_pages, lens):
@@ -941,8 +1093,6 @@ def backend_logits(torch, engine, prompt, backends=("cuda", "torch")):
 def study(torch):
     """The precision study at full width; returns the quantize kernel's
     launches in it."""
-    import math
-
     from repro_torch.kernels import ops
     from repro_torch.launch import precision_study as ps
 
@@ -974,6 +1124,199 @@ def study(torch):
     if problems:
         raise AssertionError("study phase failed: " + "; ".join(problems))
     return counts["quantize"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: train
+# ---------------------------------------------------------------------------
+
+def _grad_leaves(torch, grads, prefix=""):
+    if isinstance(grads, dict):
+        return {p: t for k, v in grads.items()
+                for p, t in _grad_leaves(torch, v, f"{prefix}/{k}").items()}
+    if isinstance(grads, (tuple, list)):
+        return {p: t for i, v in enumerate(grads)
+                for p, t in _grad_leaves(torch, v, f"{prefix}/{i}").items()}
+    return {prefix: grads}
+
+
+def _leaf_rel(torch, got, want):
+    return {p: float(torch.linalg.vector_norm(got[p] - want[p])
+                     / torch.linalg.vector_norm(want[p]).clamp_min(1e-30))
+            for p in want}
+
+
+def train_step0(torch, cfg):
+    """Step 0's loss and gradients (accum 2) under the `cuda` and `torch`
+    GEMM backends on the same fp32 masters and batch: the loss within
+    TRAIN_LOSS_REL, every leaf within TRAIN_GRAD_REL of its norm. Two
+    planted faults must land outside: the kernel's dW of `wo` transposed
+    (a square weight, so the shapes still fit), and a backward through
+    the kernel that drops the activation jacobian (du = dy)."""
+    from repro_torch.core.precision import PrecisionPolicy, use_policy
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_grad_fn
+
+    params = M.init_params(cfg, seed=1, device="cuda", dtype=torch.float32)
+    for p in M.tree_leaves(params):
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1).batch_at(0).items()}
+    grad_fn = make_grad_fn(cfg, TRAIN_ACCUM)
+    out = {}
+    for backend in ("torch", "cuda"):
+        with use_policy(PrecisionPolicy(backend=backend)):
+            t0 = time.monotonic()
+            loss, _, grads = grad_fn(params, batch)
+            torch.cuda.synchronize()
+        # grad_fn releases .grad on its next call; these references stay
+        out[backend] = (float(loss), _grad_leaves(torch, grads),
+                        time.monotonic() - t0)
+    (l_t, g_t, s_t), (l_c, g_c, s_c) = out["torch"], out["cuda"]
+    rel = _leaf_rel(torch, g_c, g_t)
+    worst = max(rel, key=rel.get)
+    log(f"[train step0] loss torch {l_t:.6f} cuda {l_c:.6f} (rel "
+        f"{abs(l_c - l_t) / abs(l_t):.3e}, bound {TRAIN_LOSS_REL:.3e}); "
+        f"grad leaves {len(rel)}, max rel {rel[worst]:.3e} at {worst}, "
+        f"median {sorted(rel.values())[len(rel) // 2]:.3e} (bound "
+        f"{TRAIN_GRAD_REL:.3e}); grad pass {s_t:.2f} s torch, {s_c:.2f} s "
+        f"cuda")
+    problems = []
+    if not (abs(l_c - l_t) <= TRAIN_LOSS_REL * abs(l_t)):
+        problems.append("loss beyond its bound")
+    if not rel[worst] <= TRAIN_GRAD_REL:
+        problems.append(f"leaf {worst} beyond its bound")
+    # planted fault 1: the transposed dW of a square weight
+    wo = "/layers/0/attn/wo"
+    bad = g_c[wo].transpose(-1, -2)
+    r_t = _leaf_rel(torch, {wo: bad}, {wo: g_t[wo]})[wo]
+    # planted fault 2: the kernel's backward without the activation
+    # jacobian (every FFN gate's du = dy)
+    backward = mm.SAMatmulFn.backward
+
+    class NoJacobian(mm.SAMatmulFn):
+        @staticmethod
+        def backward(ctx, dy):
+            ctx.act = "none"
+            return backward(ctx, dy)
+
+    mm.SAMatmulFn = NoJacobian
+    try:
+        with use_policy(PrecisionPolicy(backend="cuda")):
+            _, _, grads = grad_fn(params, batch)
+    finally:
+        mm.SAMatmulFn = NoJacobian.__base__
+    wg = "/layers/0/ffn/wg"
+    r_j = _leaf_rel(torch, _grad_leaves(torch, grads), g_t)[wg]
+    log(f"[train step0] planted faults: transposed dW of {wo} rel "
+        f"{r_t:.3e}, dropped activation jacobian at {wg} rel {r_j:.3e} "
+        f"(bound {TRAIN_GRAD_REL:.3e})")
+    if not (r_t > TRAIN_GRAD_REL and r_j > TRAIN_GRAD_REL):
+        problems.append("the gradient bound does not reject a planted fault")
+    if problems:
+        raise AssertionError("train step 0: " + "; ".join(problems))
+    return {"loss_rel": abs(l_c - l_t) / abs(l_t), "grad_rel_max": rel[worst],
+            "fault_transposed": r_t, "fault_jacobian": r_j}
+
+
+def profile_train_step(torch, cfg, args, state):
+    """Where a training step's time goes: one more step (the seventh
+    batch) under torch.profiler, CUDA activity only: the device's busy
+    and idle share of the wall and the kernels that take the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+
+    opt = AdamW(schedule=warmup_cosine(args.lr, max(2, args.steps // 10),
+                                       args.steps))
+    step = make_train_step(cfg, opt, accum_steps=args.accum)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        cfg.vocab_size, args.seq, args.batch, seed=args.seed).batch_at(
+            args.steps).items()}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    ks = device_kernels(torch, prof)
+    if not ks:
+        log("[train profile] the profiler recorded no device time")
+        return
+    busy = sum(ms for ms, _ in ks.values()) / 1e3
+    log(f"[train profile] one step: wall {wall:.3f} s, device busy "
+        f"{busy:.3f} s, idle share {1 - busy / wall:.3f}")
+    for name, (ms, n) in sorted(ks.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[train profile]   {ms / 1e3:8.4f} s {100 * ms / 1e3 / busy:5.1f}"
+            f"% {n:7d} launches  {name[:90]}")
+
+
+def train(torch, card):
+    """Six AdamW steps through `launch.train.run` under the `cuda` GEMM
+    backend; returns the SA GEMM backward's launches in them."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as drv
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    t = time.monotonic()
+    step0 = train_step0(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train step0] {time.monotonic() - t:.1f} s")
+
+    args = drv.parse_args(["--arch", ARCH, "--batch", str(TRAIN_BATCH),
+                           "--seq", str(TRAIN_SEQ), "--accum",
+                           str(TRAIN_ACCUM), "--steps", str(TRAIN_STEPS),
+                           "--seed", "0"])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.monotonic()
+    state, hist = drv.run(cfg, args)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in _grad_leaves(torch, state.params)
+                   .values())
+    profile_train_step(torch, cfg, args, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = [h["wall_s"] for h in hist]
+    later = steps[1:] or steps
+    log(f"[train] {card}: qwen2.5-14b full width, {TRAIN_LAYERS} layers, "
+        f"{n_params / 1e9:.3f} B parameters, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, accum {TRAIN_ACCUM}: {len(hist)} steps in "
+        f"{wall:.2f} s (with init), step wall s {steps}, mean of steps "
+        f"2-{len(steps)} {sum(later) / len(later):.4f} s "
+        f"({TRAIN_BATCH * TRAIN_SEQ * len(later) / sum(later):.1f} tok/s); "
+        f"peak memory {peak / 2 ** 30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    log(f"[train] losses {[round(h['loss'], 4) for h in hist]} grad norms "
+        f"{[round(h['grad_norm'], 4) for h in hist]}; counts {counts}")
+    problems = []
+    if len(hist) != TRAIN_STEPS:
+        problems.append(f"{len(hist)} of {TRAIN_STEPS} steps")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        problems.append("non-finite loss or grad norm")
+    if counts["sa_matmul"]["launches"] <= 0:
+        problems.append("the SA GEMM's forward never launched")
+    if counts["sa_matmul_bwd"]["launches"] <= 0:
+        problems.append("the SA GEMM's backward never launched")
+    for key in ("sa_matmul", "sa_matmul_bwd"):
+        if counts[key]["plain_calls"] != 0:
+            problems.append(f"the plain GEMM ran ({key}: "
+                            f"{counts[key]['plain_calls']} calls)")
+    if problems:
+        raise AssertionError("train phase failed: " + "; ".join(problems))
+    return counts["sa_matmul_bwd"]["launches"], step0
 
 
 def main(argv=None):
@@ -1016,9 +1359,9 @@ def main(argv=None):
 
     t = time.monotonic()
     timer = Timer(torch)
-    kernels = [check_gemm(torch, timer), check_decode(torch, timer),
-               check_prefill(torch, timer), check_quantize(torch, timer),
-               check_fp_emu(torch, timer)]
+    kernels = [check_gemm(torch, timer), check_gemm_train(torch, timer),
+               check_decode(torch, timer), check_prefill(torch, timer),
+               check_quantize(torch, timer), check_fp_emu(torch, timer)]
     del timer
     phases["kernels"] = time.monotonic() - t
     log("kernels " + " ".join(
@@ -1067,6 +1410,12 @@ def main(argv=None):
         t = time.monotonic()
         launches["quantize_fp8"] = study(torch)
         phases["study"] = time.monotonic() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.monotonic()
+        launches["sa_matmul_bwd"], _ = train(torch, card)
+        phases["train"] = time.monotonic() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -143,12 +143,23 @@ def sa_dot(a: torch.Tensor, w: torch.Tensor,
     the single output rounding on every backend. ``policy.mode ==
     "approx"`` truncates the chain's low mantissa bits first
     (`kernels.sa_matmul.truncate_mantissa`) on `torch` and `cuda`, and
-    runs the coarse-LZA chain under `emulate`."""
+    runs the coarse-LZA chain under `emulate`.
+
+    Gradients: `torch` differentiates through plain autograd (the JAX
+    `xla` backend's way), `cuda` through `SAMatmulFn` (the kernel's VJP),
+    and `emulate` raises where autograd would record the call. `cast_in`
+    is differentiable: its cast's backward rounds each cotangent to the
+    input format, as JAX's transpose of `astype` does."""
     from repro_torch.kernels import ops  # lazy: kernels import this module
     from repro_torch.kernels.sa_matmul import EPILOGUES, apply_act
 
     policy = policy or current_policy()
     if policy.backend == "emulate":
+        from repro_torch.kernels.sa_matmul import needs_grad
+        if needs_grad(a, w, bias):
+            raise ValueError("the emulate backend has no gradient, as in "
+                             "the JAX package (its datapath is a host "
+                             "callback there)")
         if a.ndim != 2 or w.ndim != 2:
             raise ValueError("emulate backend supports 2-D GEMMs only")
         if act not in EPILOGUES:

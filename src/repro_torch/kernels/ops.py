@@ -27,7 +27,11 @@ _MODULES = {"sa_matmul": _mm, "paged_decode": _decode,
 def sa_matmul(a, w, *, bias=None, act: str = "none", scale=None,
               mode: str = "exact"):
     """(M, K) @ (K, N) under the SA contract with the fused epilogue
-    `act(truncate?(acc) · scale + bias)`, fp32 out."""
+    `act(truncate?(acc) · scale + bias)`, fp32 out. Differentiable: where
+    autograd records the call it goes through `SAMatmulFn`, whose backward
+    GEMMs run the same kernel (the plain version on the CPU)."""
+    if _mm.needs_grad(a, w, bias, scale):
+        return _mm.SAMatmulFn.apply(a, w, bias, scale, act, mode)
     if a.device.type == "cpu":
         return _mm.sa_matmul_ref(a, w, bias, scale, act=act, mode=mode)
     return _mm.sa_matmul_cuda(a, w, bias, scale, act=act, mode=mode)
@@ -80,14 +84,21 @@ def skewed_datapath_matmul(a, w, fmt_name: str = "bf16",
 
 
 def counts() -> dict[str, dict[str, int]]:
-    return {name: {"launches": m.LAUNCHES, "plain_calls": m.PLAIN_CALLS}
-            for name, m in _MODULES.items()}
+    """Launches and plain calls per kernel; `sa_matmul_bwd` counts the SA
+    GEMM's backward GEMMs (dA and dW) apart from its forward."""
+    out = {name: {"launches": m.LAUNCHES, "plain_calls": m.PLAIN_CALLS}
+           for name, m in _MODULES.items()}
+    out["sa_matmul_bwd"] = {"launches": _mm.BWD_LAUNCHES,
+                            "plain_calls": _mm.BWD_PLAIN_CALLS}
+    return out
 
 
 def reset_counts():
     for m in _MODULES.values():
         m.LAUNCHES = 0
         m.PLAIN_CALLS = 0
+    _mm.BWD_LAUNCHES = 0
+    _mm.BWD_PLAIN_CALLS = 0
 
 
 __all__ = ["sa_matmul", "sa_matmul_fp8", "skewed_datapath_matmul",

@@ -42,28 +42,39 @@ def _div_block(n, target):  # largest divisor of n that is <= target
     return b
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0,
-                        q_offset=0, block_q=1024, block_kv=1024, scale=None,
-                        policy=None):
-    """Plain version: the online-softmax forward of `blockwise_attention`
-    with its (block_q, block_kv) tiling, every contraction under the SA
-    contract (`sa_einsum`)."""
-    global PLAIN_CALLS
-    from repro_torch.core.precision import current_policy, sa_einsum
+def scores(q_i, k_j, q_pos, kv_pos, causal, window, cap, scale, policy):
+    """Raw and masked, capped scores of one (q block, kv block) tile, the
+    JAX package's `layers._scores`: (B, KVH, g, bq, bkv) fp32 each."""
+    from repro_torch.core.precision import sa_einsum
 
-    PLAIN_CALLS += 1
-    policy = policy or current_policy()
-    B, T, H, hd = q.shape
-    S, KVH = k.shape[1], k.shape[2]
-    g = H // KVH
-    scale = scale or hd ** -0.5
-    bq, bkv = _div_block(T, block_q), _div_block(S, block_kv)
+    s_raw = sa_einsum("bqhgd,bkhd->bhgqk", q_i, k_j, policy).float()
+    s = s_raw * scale
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    ok = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                    device=q_i.device)
+    if causal:
+        ok &= q_pos[:, None] >= kv_pos[None, :]
+    if window:
+        ok &= q_pos[:, None] - kv_pos[None, :] < window
+    return s_raw, s + torch.where(ok, 0.0, float("-inf"))
+
+
+def flash_forward(q, k, v, *, causal, window, cap, q_offset, bq, bkv, scale,
+                  policy):
+    """The online-softmax forward of the JAX package's `_flash_fwd_impl`:
+    grouped q (B, T, KVH, g, hd), k/v (B, S, KVH, hd) → out (B, KVH, g, T,
+    hd) in q's dtype and the log-sum-exp lse (B, KVH, g, T), with the
+    (bq, bkv) tiling and every contraction under the SA contract."""
+    from repro_torch.core.precision import sa_einsum
+
+    B, T, KVH, g, hd = q.shape
+    S = k.shape[1]
     nq, nkv = T // bq, S // bkv
-    qg = q.reshape(B, T, KVH, g, hd)
     dev = q.device
-    blocks = []
+    blocks, lses = [], []
     for iq in range(nq):
-        q_i = qg[:, iq * bq:(iq + 1) * bq]
+        q_i = q[:, iq * bq:(iq + 1) * bq]
         q_pos = q_offset + iq * bq + torch.arange(bq, device=dev)
         acc = torch.zeros((B, KVH, g, bq, hd), dtype=torch.float32,
                           device=dev)
@@ -73,16 +84,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0,
             k_j = k[:, jk * bkv:(jk + 1) * bkv]
             v_j = v[:, jk * bkv:(jk + 1) * bkv]
             kv_pos = jk * bkv + torch.arange(bkv, device=dev)
-            s = sa_einsum("bqhgd,bkhd->bhgqk", q_i, k_j, policy).float()
-            s = s * scale
-            if cap:
-                s = cap * torch.tanh(s / cap)
-            ok = torch.ones((bq, bkv), dtype=torch.bool, device=dev)
-            if causal:
-                ok &= q_pos[:, None] >= kv_pos[None, :]
-            if window:
-                ok &= q_pos[:, None] - kv_pos[None, :] < window
-            s = s + torch.where(ok, 0.0, float("-inf"))
+            _, s = scores(q_i, k_j, q_pos, kv_pos, causal, window, cap,
+                          scale, policy)
             m_new = torch.maximum(m, s.amax(-1))
             # fully-masked tiles leave m_new = -inf; the guard keeps exp()
             # at exactly 0 instead of NaN
@@ -93,9 +96,29 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0,
             pv = sa_einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype), v_j, policy)
             acc = acc * corr[..., None] + pv.float()
             m = m_new
-        out = acc / torch.clamp_min(l, 1e-30)[..., None]
-        blocks.append(out.to(q.dtype))
-    out = torch.cat(blocks, dim=3)                     # (B, KVH, g, T, hd)
+        blocks.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+        lses.append(m + torch.log(torch.clamp_min(l, 1e-30)))
+    return torch.cat(blocks, dim=3), torch.cat(lses, dim=3)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0,
+                        q_offset=0, block_q=1024, block_kv=1024, scale=None,
+                        policy=None):
+    """Plain version: the online-softmax forward of `blockwise_attention`
+    with its (block_q, block_kv) tiling, every contraction under the SA
+    contract (`sa_einsum`)."""
+    global PLAIN_CALLS
+    from repro_torch.core.precision import current_policy
+
+    PLAIN_CALLS += 1
+    policy = policy or current_policy()
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    out, _ = flash_forward(
+        q.reshape(B, T, KVH, H // KVH, hd), k, v, causal=causal,
+        window=window, cap=cap, q_offset=q_offset,
+        bq=_div_block(T, block_q), bkv=_div_block(S, block_kv),
+        scale=scale or hd ** -0.5, policy=policy)
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
 
 

@@ -1,9 +1,11 @@
-"""Carry trees of numpy arrays (for example the JAX package's parameter
-and cache trees, converted leaf by leaf with `np.asarray`) into the port.
+"""Carry trees of numpy arrays (for example the JAX package's parameter,
+cache and train-state trees, converted leaf by leaf with `np.asarray`) into
+the port.
 
 The port's parameters keep the JAX tree's key names and stacked
 superblock axis, so the conversion is a key-for-key copy. Nothing here
-imports JAX: the caller hands over nested dicts / tuples of numpy arrays.
+imports JAX: the caller hands over nested dicts / tuples / NamedTuples of
+numpy arrays; a NamedTuple maps to the port's class with the same fields.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from .layers import KVCache, PagedKVCache
+from .model import tree_leaves
 
 
 def _leaf(x, dev, mat_dtype):
@@ -21,12 +24,13 @@ def _leaf(x, dev, mat_dtype):
     return t
 
 
-def params_from_numpy(tree, device=None):
+def params_from_numpy(tree, device=None, dtype=None):
     """The port's parameters from a numpy tree with the JAX key names.
-    Matrices are stored in bf16 on CUDA and fp32 on the CPU (see
-    models/model.py); 1-D leaves stay fp32."""
+    Matrices are stored in `dtype`: by default bf16 on CUDA and fp32 on
+    the CPU (see models/model.py); `torch.float32` keeps fp32 masters for
+    training. 1-D leaves stay fp32."""
     dev = resolve_device(device)
-    mat = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    mat = dtype or (torch.bfloat16 if dev.type == "cuda" else torch.float32)
     return _convert(tree, lambda x: _leaf(x, dev, mat))
 
 
@@ -38,12 +42,33 @@ def cache_from_numpy(tree, device=None):
         np.array(x, copy=True)).to(dev))
 
 
+def state_from_numpy(tree, device=None):
+    """A JAX `TrainState(step, params, opt_state=AdamWState(count, mu,
+    nu))` as numpy leaves → the port's `TrainState`: fp32 masters (with
+    gradients on), fp32 μ and ν, the integer step and count as they are."""
+    dev = resolve_device(device)
+    state = _convert(tree, lambda x: _leaf(x, dev, torch.float32))
+    for p in tree_leaves(state.params):
+        p.requires_grad_(True)
+    return state
+
+
+def _named(fields):
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_state import TrainState
+
+    for cls in (PagedKVCache, KVCache, AdamWState, TrainState):
+        if set(cls._fields) == set(fields):
+            return cls
+    raise ValueError(f"no port class has the fields {fields}")
+
+
 def _convert(tree, leaf):
     if isinstance(tree, dict):
         return {k: _convert(v, leaf) for k, v in tree.items()}
     fields = getattr(tree, "_fields", None)
     if fields is not None:
-        cls = PagedKVCache if "block_table" in fields else KVCache
+        cls = _named(fields)
         return cls(**{f: _convert(getattr(tree, f), leaf)
                       for f in cls._fields})
     if isinstance(tree, (tuple, list)):

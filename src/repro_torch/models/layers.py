@@ -73,17 +73,108 @@ def apply_rope(x, positions, theta: float):
 # Attention
 # ---------------------------------------------------------------------------
 
+class _Flash(torch.autograd.Function):
+    """Flash attention with the JAX package's custom VJP (`_flash`): the
+    forward keeps only (out, lse); the backward recomputes the
+    probabilities tile by tile, O(block²) memory. Plain torch, as the JAX
+    package computes it outside any Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap, q_offset, bq, bkv, scale,
+                policy):
+        from repro_torch.kernels.sa_attention import flash_forward
+        out, lse = flash_forward(q, k, v, causal=causal, window=window,
+                                 cap=cap, q_offset=q_offset, bq=bq, bkv=bkv,
+                                 scale=scale, policy=policy)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, cap, q_offset, bq, bkv, scale, policy)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return (dq, dk, dv) + (None,) * 8
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, window, cap, q_offset, bq,
+               bkv, scale, policy):
+    """The JAX package's `_flash_bwd`: a dq pass over q blocks (kv inner)
+    and a dk/dv pass over kv blocks (q inner) on the same (bq, bkv) tiles,
+    with the same `sa_einsum` casts."""
+    from repro_torch.kernels.sa_attention import scores
+
+    B, T, KVH, g, hd = q.shape
+    S = k.shape[1]
+    nq, nkv = T // bq, S // bkv
+    dev = q.device
+    # delta = rowsum(dout ⊙ out)
+    delta = torch.sum(dout.float() * out.float(), -1)        # (B,KVH,g,T)
+
+    def p_and_ds(iq, jk):
+        q_i = q[:, iq * bq:(iq + 1) * bq]
+        k_j = k[:, jk * bkv:(jk + 1) * bkv]
+        v_j = v[:, jk * bkv:(jk + 1) * bkv]
+        do_i = dout[:, :, :, iq * bq:(iq + 1) * bq]
+        q_pos = q_offset + iq * bq + torch.arange(bq, device=dev)
+        kv_pos = jk * bkv + torch.arange(bkv, device=dev)
+        s_raw, s = scores(q_i, k_j, q_pos, kv_pos, causal, window, cap,
+                          scale, policy)
+        p = torch.exp(s - lse[..., iq * bq:(iq + 1) * bq, None])
+        dp = sa_einsum("bhgqd,bkhd->bhgqk", do_i, v_j, policy).float()
+        ds = p * (dp - delta[..., iq * bq:(iq + 1) * bq, None])
+        if cap:   # softcap jacobian: d tanh = 1 - tanh²
+            ds = ds * (1.0 - (softcap(s_raw * scale, cap) / cap) ** 2)
+        return q_i, k_j, do_i, p, ds * scale
+
+    dq_blocks = []
+    for iq in range(nq):
+        dq_acc = torch.zeros((B, bq, KVH, g, hd), dtype=torch.float32,
+                             device=dev)
+        for jk in range(nkv):
+            _, k_j, _, _, ds = p_and_ds(iq, jk)
+            dq_acc += sa_einsum("bhgqk,bkhd->bqhgd", ds.to(q.dtype), k_j,
+                                policy).float()
+        dq_blocks.append(dq_acc)
+    dk_blocks, dv_blocks = [], []
+    for jk in range(nkv):
+        dk_acc = torch.zeros((B, bkv, KVH, hd), dtype=torch.float32,
+                             device=dev)
+        dv_acc = torch.zeros_like(dk_acc)
+        for iq in range(nq):
+            q_i, _, do_i, p, ds = p_and_ds(iq, jk)
+            dv_acc += sa_einsum("bhgqk,bhgqd->bkhd", p.to(q.dtype), do_i,
+                                policy).float()
+            dk_acc += sa_einsum("bhgqk,bqhgd->bkhd", ds.to(q.dtype), q_i,
+                                policy).float()
+        dk_blocks.append(dk_acc)
+        dv_blocks.append(dv_acc)
+    dq = torch.cat(dq_blocks, dim=1)
+    dk, dv = torch.cat(dk_blocks, dim=1), torch.cat(dv_blocks, dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def blockwise_attention(q, k, v, *, causal=True, window=0, cap=0.0,
                         q_offset=0, block_q=1024, block_kv=1024, scale=None):
     """q: (B, T, H, hd); k, v: (B, S, KVH, hd) → (B, T, H, hd).
 
-    Flash-style online-softmax forward under the SA contract; the plain
-    version of the prefill kernel (kernels/sa_attention.py). Forward only:
-    the backward comes with the training slice."""
-    from repro_torch.kernels.sa_attention import flash_attention_ref
-    return flash_attention_ref(q, k, v, causal=causal, window=window,
-                               cap=cap, q_offset=q_offset, block_q=block_q,
-                               block_kv=block_kv, scale=scale)
+    Flash-style attention under the SA contract with the JAX package's
+    custom VJP (`_Flash`): the forward keeps only (out, lse), the backward
+    recomputes probabilities tile by tile. The forward is the plain
+    version of the prefill kernel (kernels/sa_attention.py). The policy in
+    force at the forward also runs the backward."""
+    from repro_torch.core.precision import current_policy
+    from repro_torch.kernels.sa_attention import _div_block
+
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    g = H // KVH
+    out = _Flash.apply(q.reshape(B, T, KVH, g, hd), k, v, causal, window,
+                       cap, q_offset, _div_block(T, block_q),
+                       _div_block(S, block_kv), scale or hd ** -0.5,
+                       current_policy())
+    # (B, KVH, g, T, hd) → (B, T, H, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
 
 
 def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window=0,

@@ -3,17 +3,20 @@
 Parameters are a plain nested dict with the JAX package's key names and
 its stacked superblock axis: `params["layers"]` is a tuple of
 `cfg.stack_period` layer dicts whose leaves carry the superblock index on
-axis 0. On CUDA, matrices (≥ 2-D leaves) are stored in bf16 — the JAX
-forward casts them to bf16 at superblock entry and `cast_in` rounds to
-bf16 at every use, so this is the same arithmetic at half the memory (the
-full qwen2.5-14b in fp32 would take 59 GB). On the CPU they stay fp32 and
-the forward casts at superblock entry, as the JAX package does.
+axis 0. For serving on CUDA, matrices (≥ 2-D leaves) are stored in bf16 —
+the JAX forward casts them to bf16 at superblock entry and `cast_in`
+rounds to bf16 at every use, so this is the same arithmetic at half the
+memory (the full qwen2.5-14b in fp32 would take 59 GB). On the CPU, and
+for training (`init_params(..., dtype=torch.float32)`: fp32 masters, as
+the JAX package's), they are fp32 and the forward casts at superblock
+entry, as the JAX package does.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import optflags
 from repro_torch.core.device import resolve_device
@@ -44,20 +47,33 @@ def tree_map(fn, tree):
     return fn(tree) if tree is not None else None
 
 
+def tree_leaves(tree) -> list:
+    """The tensor leaves of nested dicts (in key order), tuples, lists and
+    NamedTuples, depth first; None is no leaf."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, dtype=None):
     """Full parameter tree drawn on `device` (default CUDA) from a
     `torch.Generator`: the JAX package's distributions (normal · fan_in⁻½
     matrices, 0.02-scaled embedding, unit norms, zero biases), not its
-    random bits."""
+    random bits. `dtype` is the matrices' storage type: by default bf16 on
+    CUDA (serving) and fp32 on the CPU; `torch.float32` gives the fp32
+    masters training keeps."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
-    mat_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    mat_dtype = dtype or (torch.bfloat16 if dev.type == "cuda"
+                          else torch.float32)
     period = cfg.stack_period
     n_super = cfg.num_layers // period
     assert n_super * period == cfg.num_layers, (cfg.num_layers, period)
@@ -171,7 +187,13 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     per-slot positions; a scalar is broadcast). The cache is updated in
     place and returned. `prefix_len` is the continued-prefill offset.
     `last_index` (with `last_only`) picks which row feeds the lm_head.
-    `aux` is None (the MoE aux losses come with the MoE families)."""
+    `aux` is None (the MoE aux losses come with the MoE families).
+
+    With `cfg.remat`, no cache and autograd recording, each superblock
+    runs under `torch.utils.checkpoint` (the JAX package's `jax.checkpoint`
+    for training): its activations are recomputed in the backward by the
+    same operations on the same inputs, so the gradients are the same
+    (bit for bit on the CPU, tests/test_torch_train.py)."""
     check_supported(cfg)
     B, T = tokens.shape
     dev = tokens.device
@@ -191,7 +213,8 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     period = cfg.stack_period
     n_super = cfg.num_layers // period
     cast = optflags.enabled("bf16_params_in_layers")
-    for sb in range(n_super):
+
+    def superblock(x, sb):
         for j in range(period):
             # cast matrices to bf16 at superblock entry (a no-op for the
             # bf16 storage on CUDA; 1-D norms and biases stay fp32)
@@ -203,6 +226,15 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
                    else tree_map(lambda t: t[sb], cache[j]))
             x, _ = _sublayer(x, p_j, cfg, cfg.layer_kind(j), positions, c_j,
                              pos, prefix_len)
+        return x
+
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    for sb in range(n_super):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(superblock, x, sb,
+                                                  use_reentrant=False)
+        else:
+            x = superblock(x, sb)
     x = L.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     if last_only:
         if last_index is not None:
@@ -217,3 +249,14 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
         valid = torch.arange(cfg.padded_vocab, device=dev) < cfg.vocab_size
         logits = torch.where(valid, logits, float("-inf"))
     return logits, cache, None
+
+
+def lm_loss(params, cfg: ArchConfig, tokens, labels):
+    """Next-token cross-entropy (fp32 logsumexp minus the gold logit,
+    mean) → (loss, nll). The JAX package adds `aux_weight` times the MoE
+    aux losses, which are zero for the dense family, so loss == nll."""
+    logits, _, _ = forward(params, cfg, tokens)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = torch.mean(lse - gold)
+    return nll, nll

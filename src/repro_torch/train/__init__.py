@@ -1,1 +1,1 @@
-"""Serve-side step factories."""
+"""Training: optimizer, train state, step factories, checkpoints and fault handling."""

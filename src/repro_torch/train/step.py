@@ -1,14 +1,80 @@
-"""Serve-side step factories (the training step comes with the training
-slice).
+"""Train and serve step factories.
 
-`make_prefill_step` / `make_serve_step` return plain functions: PyTorch
-runs eagerly, so there is nothing to trace. Both update the cache in
-place and return it.
+`make_train_step` is the JAX package's training step: strided microbatch
+gradient accumulation in fp32, remat inside the model's superblocks, AdamW
+on fp32 masters. `make_prefill_step` / `make_serve_step` are the decode
+path's steps. PyTorch runs eagerly, so each factory returns a plain
+function; the serve steps update the cache in place and return it.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
+from .optimizer import AdamW
+from .train_state import TrainState
+
+
+def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1):
+    """grad_fn(params, batch) → (loss, nll, grads), the gradient half of
+    `make_train_step`. `params` leaves require grad; their `.grad` is
+    cleared, filled and returned as `grads` (the same tree of tensors,
+    owned by the caller until the next call).
+
+    batch: {"tokens": (B, T) int, "labels": (B, T) int}. With accum_steps
+    > 1, B must divide evenly; microbatches are strided (row j of
+    microbatch i is row j·A + i, as the JAX step splits them), gradients
+    accumulate in fp32 over them and are divided by A, and loss and nll
+    are averaged."""
+
+    def grad_fn(params, batch):
+        leaves = M.tree_leaves(params)
+        for p in leaves:
+            p.grad = None
+        if accum_steps == 1:
+            loss, nll = M.lm_loss(params, cfg, batch["tokens"],
+                                  batch["labels"])
+            loss.backward()
+            loss, nll = loss.detach(), nll.detach()
+        else:
+            def split(x, i):
+                mb = x.shape[0] // accum_steps
+                return x.reshape(mb, accum_steps, *x.shape[1:])[:, i]
+            loss = nll = torch.zeros((), device=batch["tokens"].device)
+            for i in range(accum_steps):
+                l, n = M.lm_loss(params, cfg, split(batch["tokens"], i),
+                                 split(batch["labels"], i))
+                # .backward() adds into .grad (fp32): g1 + g2 + ...
+                l.backward()
+                loss, nll = loss + l.detach(), nll + n.detach()
+            for p in leaves:
+                p.grad.div_(accum_steps)
+            loss, nll = loss / accum_steps, nll / accum_steps
+        grads = M.tree_map(lambda p: p.grad, params)
+        return loss, nll, grads
+
+    return grad_fn
+
+
+def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1):
+    """Returns train_step(state, batch) → (state, metrics), metrics the
+    0-d tensors loss, nll, grad_norm and lr. The parameters and optimizer
+    moments are updated in place (see train/optimizer.py); the gradients
+    are released after the update."""
+    grad_fn = make_grad_fn(cfg, accum_steps)
+
+    def train_step(state: TrainState, batch):
+        loss, nll, grads = grad_fn(state.params, batch)
+        params, opt_state, om = opt.update(grads, state.opt_state,
+                                           state.params)
+        for p in M.tree_leaves(params):
+            p.grad = None
+        metrics = {"loss": loss, "nll": nll, **om}
+        return TrainState(step=state.step + 1, params=params,
+                          opt_state=opt_state), metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, prefix_len: int = 0):

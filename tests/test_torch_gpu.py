@@ -1,5 +1,6 @@
 """PyTorch port on the card: each hand-written kernel against its plain
-version at the main path's shapes, the wrappers' refusals, and short
+version at the main path's shapes (the SA GEMM's backward, `SAMatmulFn`,
+against plain autograd too), the wrappers' refusals, and short
 full-width serves under the `cuda` and `emulate` GEMM backends. Marked `gpu`; each test skips inside itself where no
 CUDA device is present. Needs no JAX, so it runs on the card's machine:
 
@@ -112,10 +113,10 @@ def test_prefill_matches_plain(cuda, T, S, kw):
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
-    a = torch.zeros((4, 64), device=cuda)
-    w = torch.zeros((64, 32), device=cuda)
+    a = torch.zeros((4, 64), dtype=torch.float16, device=cuda)
+    w = torch.zeros((64, 32), dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError, match="bf16"):
-        ops.sa_matmul(a, w)                     # fp32 operands
+        ops.sa_matmul(a, w)                     # fp16 operands
     q, k, v, pp, bt, pos = _pool(cuda)
     with pytest.raises(ValueError, match="unsupported"):
         ops.paged_decode_attention(q, k.to(torch.bfloat16), v, pp, bt, pos)
@@ -323,3 +324,127 @@ def test_serve_emulate_full_width_two_layers(cuda, monkeypatch):
         assert c[name]["launches"] > 0, c
     assert c["sa_matmul"]["launches"] == 0, c
     assert all(v["plain_calls"] == 0 for v in c.values()), c
+
+
+# ---------------------------------------------------------------------------
+# the SA GEMM at training shapes and its backward (SAMatmulFn)
+# ---------------------------------------------------------------------------
+
+def _operand(g, shape, dtype, transposed, dev):
+    """A (rows, cols) operand in `dtype`; `transposed` gives the same
+    values as the transposed view of a row-major (cols, rows) tensor."""
+    x = torch.randn(shape, generator=g, device=dev) * shape[0] ** -0.5
+    x = x.to(dtype)
+    return x.t().contiguous().t() if transposed else x
+
+
+@pytest.mark.parametrize("m,k,n", [(1024, 640, 384), (300, 1000, 999),
+                                   (4, 1024, 96)])
+@pytest.mark.parametrize("a_dt,w_dt", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.bfloat16),
+                                       (torch.bfloat16, torch.float32),
+                                       (torch.float32, torch.float32)])
+@pytest.mark.parametrize("a_t,w_t", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+def test_sa_matmul_types_and_layouts_match_plain(cuda, m, k, n, a_dt, w_dt,
+                                                 a_t, w_t):
+    """Every operand type and layout the backward uses, both kernels (the
+    tiled one from M = 256 and for any transposed operand), the raw output
+    and a split K, within the reassociation bound."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = _operand(g, (m, k), a_dt, a_t, cuda)
+    w = _operand(g, (k, n), w_dt, w_t, cuda)
+    bias = torch.randn((n,), generator=g, device=cuda)
+    got, raw = MM.sa_matmul_cuda(a, w, bias, 0.75, act="silu",
+                                 save_raw=True)
+    ref, raw_ref = MM.sa_matmul_ref(a, w, bias, 0.75, act="silu",
+                                    save_raw=True)
+    bound = MM.error_bound(a, w, 0.75, y=ref)
+    assert bool(((got - ref).abs() <= bound).all())
+    assert bool(((raw - raw_ref).abs() <= MM.error_bound(a, w)).all())
+
+
+def test_sa_matmul_is_deterministic(cuda):
+    """The split K is summed in a fixed order: two runs are bit-identical
+    (remat's recompute depends on it)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn((1024, 5120), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((5120, 1024), generator=g, device=cuda) / 72).to(
+        torch.bfloat16)
+    assert MM.tiled_split_k(1024, 1024, 5120) > 1
+    y1 = ops.sa_matmul(a, w)
+    y2 = ops.sa_matmul(a, w)
+    assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+
+
+@pytest.mark.parametrize("act", ["none", "silu", "gelu"])
+@pytest.mark.parametrize("m", [1024, 8])
+def test_sa_matmul_backward_matches_plain(cuda, act, m):
+    """SAMatmulFn on the card against plain autograd through the plain
+    version on the same inputs: dA and dW (bf16, as the operands) within
+    the backward GEMMs' bound plus one bf16 rounding, dbias and dscale
+    within the bound the raw accumulator's drift allows; the backward
+    launched the kernel twice and no plain version ran."""
+    k, n = 640, 384
+    g = torch.Generator(device=cuda).manual_seed(17 + m)
+    a0 = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w0 = (torch.randn((k, n), generator=g, device=cuda) / 25).to(
+        torch.bfloat16)
+    b0 = torch.randn((n,), generator=g, device=cuda) * 0.1
+    dy = torch.randn((m, n), generator=g, device=cuda)
+
+    def grads(fn):
+        a, w, b = (t.clone().requires_grad_(True) for t in (a0, w0, b0))
+        s = torch.tensor(0.5, device=cuda, requires_grad=True)
+        y = fn(a, w, b, s)
+        (y * dy).sum().backward()
+        return y.detach(), a.grad, w.grad, b.grad, s.grad
+
+    ops.reset_counts()
+    y, da, dw, db, ds = grads(lambda a, w, b, s: ops.sa_matmul(
+        a, w, bias=b, scale=s, act=act))
+    c = ops.counts()
+    assert c["sa_matmul"] == {"launches": 1, "plain_calls": 0}, c
+    assert c["sa_matmul_bwd"] == {"launches": 2, "plain_calls": 0}, c
+    y_r, da_r, dw_r, db_r, ds_r = grads(lambda a, w, b, s: MM.sa_matmul_ref(
+        a, w, b, s, act=act))
+    # the backward GEMMs' operands: du·s (fp32) against the bf16 W and A;
+    # each result is then rounded to bf16 (one ulp ≤ 2⁻⁷ of the value)
+    raw = a0.float() @ w0.float()
+    du = torch.autograd.functional.vjp(lambda t: MM.apply_act(t, act),
+                                       raw * 0.5 + b0, dy)[1]
+    dus = du * 0.5
+    b_da = MM.error_bound(dus, w0.float().t()) + 2.0 ** -7 * \
+        da_r.float().abs()
+    b_dw = MM.error_bound(a0.float().t(), dus) + 2.0 ** -7 * \
+        dw_r.float().abs()
+    assert bool(((da.float() - da_r.float()).abs() <= b_da).all())
+    assert bool(((dw.float() - dw_r.float()).abs() <= b_dw).all())
+    # dbias = Σ_rows du and dscale = Σ du·raw: raw moves by the forward
+    # bound, u by 0.5x that, du by at most |act''| ≤ 1 times that times
+    # |dy|; then the fp32 sums' own reassociation
+    raw_b = MM.error_bound(a0, w0)
+    d_du = 0.5 * raw_b * dy.abs()
+    b_db = d_du.sum(0) + 2 * m * 2.0 ** -24 * du.abs().sum(0) + 1e-6
+    assert bool(((db - db_r).abs() <= b_db).all())
+    b_ds = float((d_du * raw.abs() + du.abs() * raw_b).sum()
+                 + 2 * m * n * 2.0 ** -24 * (du * raw).abs().sum()) + 1e-6
+    assert abs(float(ds) - float(ds_r)) <= b_ds
+
+
+def test_sa_matmul_backward_bound_rejects_a_dropped_jacobian(cuda):
+    """A backward that skips the activation jacobian lands outside the dA
+    bound the test above holds the kernel to."""
+    m, k, n = 1024, 640, 384
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=cuda) / 25).to(
+        torch.bfloat16)
+    dy = torch.randn((m, n), generator=g, device=cuda)
+    u = a.float() @ w.float()
+    du = torch.autograd.functional.vjp(lambda t: MM.apply_act(t, "silu"), u,
+                                       dy)[1]
+    da, _ = MM.backward_gemms(a, w, du)
+    bad, _ = MM.backward_gemms_ref(a, w, dy)
+    bound = MM.error_bound(du, w.float().t()) + 2.0 ** -7 * da.abs()
+    assert float(((da - bad).abs() / bound).max()) > 1.0
