@@ -19,12 +19,18 @@ Phases, in order; any failure exits nonzero:
              times of the kernel, the plain version and, where one exists,
              one PyTorch call that computes the same function (a yardstick
              the port never calls), beside the least time the card could
-             take.
+             take. The attention checks add each policy's route (prefill:
+             `mma` for bf16/fp16, `simt` for fp32), the grid and cluster
+             shape, registers and spills, prefill times at T = 32, 64, 128
+             and 1024 and decode times at the serve shape and at
+             2048-token slots with the block width and cluster size swept,
+             a 12,288-token slot and bit-identical repeats.
 4. serve   — full-width, full-depth qwen2.5-14b (random weights from a
              seed) served through `repro_torch.launch.serve.main` with the
              `cuda` GEMM backend; every request must generate `max_new`
              tokens with finite logits, no page may leak, the path's three
-             kernels must have launched and no plain version may have run.
+             kernels must have launched (prefill attention on its `mma`
+             route only) and no plain version may have run.
              Then one prompt's prefill logits under the `cuda` and `torch`
              GEMM backends, within the stated bound.
 5. profile — four more requests served under torch.profiler: the device's
@@ -456,12 +462,76 @@ def _paged_workload(torch, g, B, KVH, grp, hd, psz, P, n_pages, lens):
     return q, k, v, pp, bt, pos
 
 
+def ptxas_summary(name: str) -> str:
+    """Registers and spills of each entry function of kernel library
+    `name`, from the build phase's `-Xptxas -v` report."""
+    import re
+
+    from repro_torch.kernels import build
+
+    rep = build.REPORTS.get(name)
+    if not rep:
+        return "(no ptxas report: the library was not built in this process)"
+    out, entry, spills = [], None, ""
+    for line in rep.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            # _ZN<n>_GLOBAL__N__<hash>_<n>_<file>_cu_<8 hex><n><kernel>I<args>E
+            mangled = m.group(1)
+            mk = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            if mk:
+                n0 = mk.end()
+                kname = mangled[n0:n0 + int(mk.group(1))]
+                targs = re.match(r"I(.*?)EE", mangled[n0 + len(kname):])
+                entry = kname + (f"<{targs.group(1)}>" if targs else "")
+            else:
+                entry = mangled[:48]
+            spills = ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            spills = f", spills {m.group(1)}/{m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append(f"{entry}: {m.group(1)} regs{spills}")
+            entry = None
+    return "; ".join(out)
+
+
+def _sdpa_gathered(torch, q, k, v, pp, bt, pos, grp):
+    """SDPA on the gathered dense view of a paged pool (the yardstick)."""
+    kg, vg, pg = _gathered(torch, k, v, pp, bt)
+    mask = ((pg >= 0) & (pg <= pos[:, None]))[:, None, None, :]
+    qs = q.transpose(1, 2)                     # (B, H, 1, hd)
+    kh = kg.transpose(1, 2).repeat_interleave(grp, 1)
+    vh = vg.transpose(1, 2).repeat_interleave(grp, 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qs, kh, vh, attn_mask=mask)
+
+
+def _decode_bound(torch, bt, B, H, KVH, hd, psz, P, pol):
+    mapped = int((bt > 0).sum())
+    nbytes = (4 * B * H * hd * 2 + mapped * psz * KVH * hd * 4 * 2
+              + mapped * psz * 4 + 4 * B * P + 4 * B)
+    flops = 4.0 * H * mapped * psz * hd     # q.k and p.v
+    return bound_ms(nbytes, flops, peak_flops(pol))
+
+
 def check_decode(torch, timer):
+    """Paged decode against its plain version within `error_bound` under
+    every policy the serve path can take, each bound rejecting two planted
+    faults; the split at several cluster sizes (boundaries inside and
+    between pages), bit-identical repeats, a 12,288-token slot; times at
+    the serve shape and at 2048-token slots."""
     from repro_torch.core.precision import PrecisionPolicy
     from repro_torch.kernels import ops
     from repro_torch.kernels import sa_decode_attention as da
 
     KVH, grp, hd, psz = 8, 5, 128, PAGE
+    H = KVH * grp
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     P = -(-CACHE_LEN // psz)
     n_pages = -(-BATCH * CACHE_LEN // psz) + 1
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -470,9 +540,11 @@ def check_decode(torch, timer):
              ("softcap+window", {"cap": 50.0, "window": 64},
               PrecisionPolicy()),
              ("approx", {}, PrecisionPolicy(mode="approx")),
-             ("fp32", {}, PrecisionPolicy(input_format="fp32"))]
+             ("fp32", {}, PrecisionPolicy(input_format="fp32")),
+             ("fp16", {}, PrecisionPolicy(input_format="fp16"))]
     worst = max_err = 0.0
-    out = {}
+    out, readings = {}, {}
+    log(f"[paged decode] build: {ptxas_summary('sa_decode_attention')}")
     for name, kw, pol in cases:
         q, k, v, pp, bt, pos = _paged_workload(torch, g, BATCH, KVH, grp, hd,
                                                psz, P, n_pages, lens)
@@ -489,9 +561,13 @@ def check_decode(torch, timer):
             raise AssertionError("paged decode: an all-masked slot must "
                                  "give zeros")
         worst, max_err = max(worst, ratio), max(max_err, float(err.max()))
-        log(f"paged decode {name:16s} B={BATCH} H={KVH * grp} KVH={KVH} "
+        plan = da.split_plan(BATCH, KVH, grp, hd, psz, P, n_sm=sms)
+        log(f"paged decode {name:16s} B={BATCH} H={H} KVH={KVH} "
             f"hd={hd} P={P} psz={psz} max_err={float(err.max()):.3e} "
-            f"err/bound={ratio:.4f} median bound {float(bnd.median()):.3e}")
+            f"err/bound={ratio:.4f} median bound {float(bnd.median()):.3e}; "
+            f"grid ({BATCH}, {KVH}, {plan.n_split}), cluster (1, 1, "
+            f"{plan.n_split}), {plan.keys_per_cta} keys a block, "
+            f"{plan.smem} B shared")
         # planted faults, each in the plain version: the kernel's output
         # must land outside the bound of each
         faults = {"mask_off_by_one": dict(pos=pos - 1),
@@ -507,36 +583,96 @@ def check_decode(torch, timer):
             if not r > 1.0:
                 raise AssertionError(f"paged decode bound does not reject "
                                      f"the planted fault {fault}")
-        if name == "default":
-            mapped = int((bt > 0).sum())
+        if name != "default":
+            continue
+        # the split: runs of 144 and 48 keys (ends on page boundaries), 24
+        # (ends inside pages) and 16 (9 blocks, a non-portable cluster);
+        # each within the bound, each call bit-identical to its repeat
+        for n in (1, 3, 6, 16):
+            sp = da.split_plan(BATCH, KVH, grp, hd, psz, P, n_sm=sms,
+                               n_split=n)
+            y1 = da.paged_decode_cuda(q, k, v, pp, bt, pos, n_split=n)
+            y2 = da.paged_decode_cuda(q, k, v, pp, bt, pos, n_split=n)
+            torch.cuda.synchronize()
+            r = float(((y1 - ref).abs() / bnd).max())
+            same = torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+            log(f"  split n_split={n} -> {sp.n_split} blocks of "
+                f"{sp.keys_per_cta} keys: err/bound {r:.4f}, repeat "
+                f"bit-identical {same}")
+            if not (r <= 1.0 and same):
+                raise AssertionError(f"paged decode split {n}: err/bound {r}"
+                                     f", bit-identical {same}")
+            worst = max(worst, r)
+        t_k = timer.wall(lambda: ops.paged_decode_attention(
+            q, k, v, pp, bt, pos))
+        d_k = timer.device(lambda: ops.paged_decode_attention(
+            q, k, v, pp, bt, pos))
+        t_p = timer.wall(lambda: da.paged_decode_ref(q, k, v, pp, bt, pos))
+        lib = _sdpa_gathered(torch, q, k, v, pp, bt, pos, grp)
+        t_l, d_l = timer.wall(lib), timer.device(lib)
+        b_ms, by = _decode_bound(torch, bt, BATCH, H, KVH, hd, psz, P, pol)
+        log(f"paged decode times (B={BATCH}, {CACHE_LEN}-token slots): "
+            f"kernel {t_k:.4f} ms (device {d_k}), plain {t_p:.4f} ms, SDPA "
+            f"on the gathered view {t_l:.4f} ms (device {d_l}), bound "
+            f"{b_ms:.5f} ms ({by}, {100 * b_ms / t_k:.1f} % of it)")
+        out = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p,
+               "library_ms": t_l, "bound_ms": b_ms, "bound_by": by}
+        readings["serve_shape_library_device_ms"] = d_l
+        del q, k, v, pp, bt, pos, y, ref, bnd
+
+    # long slots: 12,288 tokens (beyond one block's shared memory, the
+    # earlier kernel's limit) against the plain version, then the 2048-token
+    # reading at B = 4 where the bytes bound the call
+    pol = PrecisionPolicy()
+    for slot, lens_l in ((12288, [12288, 5000, 0, 2049]),
+                         (2048, [2048] * BATCH)):
+        Pl = -(-slot // psz)
+        q, k, v, pp, bt, pos = _paged_workload(
+            torch, g, BATCH, KVH, grp, hd, psz, Pl, BATCH * Pl + 1, lens_l)
+        sp = da.split_plan(BATCH, KVH, grp, hd, psz, Pl, n_sm=sms)
+        y = ops.paged_decode_attention(q, k, v, pp, bt, pos)
+        y2 = ops.paged_decode_attention(q, k, v, pp, bt, pos)
+        ref = da.paged_decode_ref(q, k, v, pp, bt, pos)
+        torch.cuda.synchronize()
+        bnd = da.error_bound(q, k, v, pp, bt, pos)
+        r = float(((y - ref).abs() / bnd).max())
+        same = torch.equal(y.view(torch.int32), y2.view(torch.int32))
+        line = (f"paged decode {slot}-token slots (lens {lens_l}): err/bound "
+                f"{r:.4f}, repeat bit-identical {same}; grid ({BATCH}, {KVH},"
+                f" {sp.n_split}), cluster (1, 1, {sp.n_split}), "
+                f"{sp.keys_per_cta} keys a block, {sp.smem} B shared")
+        if not (r <= 1.0 and same and bool(torch.isfinite(y).all())):
+            raise AssertionError(line)
+        worst = max(worst, r)
+        del ref, bnd, y2
+        if slot == 2048:
             t_k = timer.wall(lambda: ops.paged_decode_attention(
                 q, k, v, pp, bt, pos))
             d_k = timer.device(lambda: ops.paged_decode_attention(
                 q, k, v, pp, bt, pos))
-            t_p = timer.wall(lambda: da.paged_decode_ref(q, k, v, pp, bt,
-                                                         pos))
-            kg, vg, pg = _gathered(torch, k, v, pp, bt)
-            mask = ((pg >= 0) & (pg <= pos[:, None]))[:, None, None, :]
-            qs = q.transpose(1, 2)                     # (B, H, 1, hd)
-            kh = kg.transpose(1, 2).repeat_interleave(grp, 1)
-            vh = vg.transpose(1, 2).repeat_interleave(grp, 1)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            t_l = timer.wall(lambda: sdpa(qs, kh, vh, attn_mask=mask))
-            H = KVH * grp
-            nbytes = (4 * BATCH * H * hd * 2 + mapped * psz * KVH * hd * 4 * 2
-                      + mapped * psz * 4 + 4 * BATCH * P + 4 * BATCH)
-            flops = 4.0 * H * mapped * psz * hd     # q.k and p.v
-            b_ms, by = bound_ms(nbytes, flops, peak_flops(pol))
-            log(f"paged decode times: kernel {t_k:.4f} ms (device {d_k}), "
-                f"plain {t_p:.4f} ms, SDPA on the gathered view {t_l:.4f} "
-                f"ms, bound {b_ms:.5f} ms ({by})")
-            out = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p,
-                   "library_ms": t_l,
-                   "bound_ms": b_ms, "bound_by": by}
+            # the cluster size: the plan's against others
+            sweep = {n: timer.wall(lambda: da.paged_decode_cuda(
+                q, k, v, pp, bt, pos, n_split=n)) for n in (4, 8, 12, 16)}
+            log("paged decode 2048-token slots by cluster size: " + ", ".join(
+                f"n_split {n} {ms:.4f} ms" for n, ms in sweep.items()))
+            t_l = timer.wall(_sdpa_gathered(torch, q, k, v, pp, bt, pos, grp))
+            b_ms, by = _decode_bound(torch, bt, BATCH, H, KVH, hd, psz, Pl,
+                                     pol)
+            line += (f"; kernel {t_k:.4f} ms (device {d_k}), SDPA on the "
+                     f"gathered view {t_l:.4f} ms, bound {b_ms:.5f} ms "
+                     f"({by}): {100 * b_ms / t_k:.1f} % of the bound")
+            readings["slots_2048"] = {"ms": t_k, "device_ms": d_k,
+                                      "library_ms": t_l, "bound_ms": b_ms,
+                                      "bound_by": by, "n_split_ms": sweep}
+        log(line)
+        del q, k, v, pp, bt, pos, y
+        gc.collect()
+        torch.cuda.empty_cache()
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sa_decode_attention.cu",
             "replaces": "src/repro/kernels/sa_decode_attention.py:94",
             "max_abs_err": max_err, "err_over_bound": worst, **out,
+            "readings": readings,
             "timed": f"one layer's decode step, B={BATCH}, "
                      f"{CACHE_LEN}-token slots, pool fp32"}
 
@@ -556,7 +692,21 @@ def _gathered(torch, k, v, pp, bt):
     return gather_pages(PagedKVCache(k, v, pp, bt))
 
 
+def _prefill_bound(T, S, H, KVH, hd):
+    """(bound ms, by, byte ms, flop ms) of a causal prefill."""
+    pairs = T * (T + 1) / 2 if S == T else T * S
+    nbytes = 4 * (T * H * hd * 2 + 2 * S * KVH * hd)
+    flops = 4.0 * H * pairs * hd
+    b_ms, by = bound_ms(nbytes, flops, PEAK_BF16)
+    return b_ms, by, nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
+
+
 def check_prefill(torch, timer):
+    """Prefill attention against its plain version within `error_bound`
+    under bf16, fp16 and fp32 (each policy's route counted), with a q view
+    laid out as `attention_block` hands it over, and with a planted mask
+    one key too wide outside each bound; times at every serve prompt length
+    and at T = 1024."""
     from repro_torch.core.precision import PrecisionPolicy
     from repro_torch.kernels import ops
     from repro_torch.kernels import sa_attention as fa
@@ -564,23 +714,38 @@ def check_prefill(torch, timer):
     H, KVH, hd = 40, 8, 128
     g = torch.Generator(device="cuda").manual_seed(3)
     cases = [(t, t, {}) for t in PROMPT_LENS]
-    cases += [(64, 128, {"q_offset": 64, "window": 48, "cap": 50.0})]
+    cases += [(64, 128, {"q_offset": 64, "window": 48, "cap": 50.0}),
+              (17, 17, {}), (200, 200, {"window": 33})]
+    pols = {"bf16": PrecisionPolicy(), "fp16": PrecisionPolicy(
+        input_format="fp16"), "fp32": PrecisionPolicy(input_format="fp32")}
     worst = max_err = 0.0
-    out = {}
+    out, readings = {}, {}
+    log(f"[prefill attention] build: {ptxas_summary('sa_attention')}")
     for T, S, kw in cases:
-        q = torch.randn((1, T, H, hd), generator=g, device="cuda")
+        # q as attention_block makes it: a (B, T, H, hd) view of a
+        # (B, H, T, hd) tensor
+        q = torch.randn((1, H, T, hd), generator=g, device="cuda").transpose(
+            1, 2)
         k = torch.randn((1, S, KVH, hd), generator=g, device="cuda")
         v = torch.randn((1, S, KVH, hd), generator=g, device="cuda")
-        for pol in (PrecisionPolicy(), PrecisionPolicy(input_format="fp32")):
+        for fmt, pol in pols.items():
+            ops.reset_counts()
             y = ops.sa_attention(q, k, v, policy=pol, **kw)
+            routes = ops.route_counts()["prefill_attention"]
+            plan = fa.launch_plan(1, T, H, hd, fmt)
+            want = {"mma": 0, "simt": 0, plan["route"]: 1}
+            if routes != want or plan["route"] != ("simt" if fmt == "fp32"
+                                                   else "mma"):
+                raise AssertionError(f"prefill {fmt}: routes {routes}")
             ref = fa.flash_attention_ref(q, k, v, policy=pol, **kw)
             torch.cuda.synchronize()
             err = (y - ref).abs()
             bnd = fa.error_bound(q, k, v, policy=pol, **kw)
             ratio = float((err / bnd).max())
             if not torch.isfinite(y).all() or ratio > 1.0:
-                raise AssertionError(f"prefill attention T={T} {kw}: max err "
-                                     f"{float(err.max()):.3e} exceeds bound")
+                raise AssertionError(f"prefill attention T={T} {fmt} {kw}: "
+                                     f"max err {float(err.max()):.3e} "
+                                     f"exceeds bound (ratio {ratio:.3f})")
             # planted fault in the plain version: a causal mask one key too
             # wide must land outside the bound
             bad = fa.flash_attention_ref(
@@ -592,35 +757,67 @@ def check_prefill(torch, timer):
                                      "mask one key too wide")
             worst, max_err = max(worst, ratio), max(max_err,
                                                     float(err.max()))
-            log(f"prefill attention T={T:4d} S={S:4d} {pol.input_format} "
-                f"{kw} max_err={float(err.max()):.3e} err/bound={ratio:.4f}"
+            log(f"prefill attention T={T:4d} S={S:4d} {fmt} {kw} route "
+                f"{plan['route']} grid {plan['grid']} {plan['warps']} warps "
+                f"max_err={float(err.max()):.3e} err/bound={ratio:.4f}"
                 f" median bound {float(bnd.median()):.3e}; planted fault "
                 f"(mask one key too wide) err/bound {r_bad:.1f}")
-        if T == max(PROMPT_LENS) and not kw:
-            t_k = timer.wall(lambda: ops.sa_attention(q, k, v))
-            d_k = timer.device(lambda: ops.sa_attention(q, k, v))
-            t_p = timer.wall(lambda: fa.flash_attention_ref(q, k, v))
-            qh = q.transpose(1, 2)
-            kh = k.transpose(1, 2).repeat_interleave(H // KVH, 1)
-            vh = v.transpose(1, 2).repeat_interleave(H // KVH, 1)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            t_l = timer.wall(lambda: sdpa(qh, kh, vh, is_causal=True))
-            pairs = T * (T + 1) / 2
-            nbytes = 4 * (T * H * hd * 2 + 2 * S * KVH * hd)
-            flops = 4.0 * H * pairs * hd
-            b_ms, by = bound_ms(nbytes, flops, peak_flops(PrecisionPolicy()))
-            log(f"prefill attention times (T={T}): kernel {t_k:.4f} ms "
-                f"(device {d_k}), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms, "
-                f"bound {b_ms:.5f} ms ({by})")
-            out = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p,
-                   "library_ms": t_l,
-                   "bound_ms": b_ms, "bound_by": by}
+    # times: every serve prompt length and T = 1024, bf16 policy (the
+    # serve's), fp32 q/k/v; SDPA (causal, fp32) as the yardstick
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for T in PROMPT_LENS + (1024,):
+        q = torch.randn((1, H, T, hd), generator=g, device="cuda").transpose(
+            1, 2)
+        k = torch.randn((1, T, KVH, hd), generator=g, device="cuda")
+        v = torch.randn((1, T, KVH, hd), generator=g, device="cuda")
+        if T == 1024:
+            y = ops.sa_attention(q, k, v)
+            ref = fa.flash_attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            r = float(((y - ref).abs() / fa.error_bound(q, k, v)).max())
+            if not r <= 1.0:
+                raise AssertionError(f"prefill T=1024: err/bound {r}")
+            worst = max(worst, r)
+            del y, ref
+        t_k = timer.wall(lambda: ops.sa_attention(q, k, v))
+        d_k = timer.device(lambda: ops.sa_attention(q, k, v))
+        t_p = timer.wall(lambda: fa.flash_attention_ref(q, k, v))
+        qh = q.transpose(1, 2)
+        kh = k.transpose(1, 2).repeat_interleave(H // KVH, 1)
+        vh = v.transpose(1, 2).repeat_interleave(H // KVH, 1)
+        t_l = timer.wall(lambda: sdpa(qh, kh, vh, is_causal=True))
+        d_l = timer.device(lambda: sdpa(qh, kh, vh, is_causal=True))
+        b_ms, by, byte_ms, flop_ms = _prefill_bound(T, T, H, KVH, hd)
+        plan = fa.launch_plan(1, T, H, hd, "bf16")
+        # the block width: the wrapper's MMA_WARPS against the others
+        keep, sweep = fa.MMA_WARPS, {}
+        try:
+            for w in (1, 2, 4, 8):
+                fa.MMA_WARPS = w
+                sweep[w] = timer.wall(lambda: ops.sa_attention(q, k, v))
+        finally:
+            fa.MMA_WARPS = keep
+        log(f"prefill attention T={T} block width: " + ", ".join(
+            f"{w} warps {ms:.4f} ms" for w, ms in sweep.items()))
+        log(f"prefill attention times (T={T}, route {plan['route']}, grid "
+            f"{plan['grid']}, {plan['warps']} warps): kernel {t_k:.4f} ms "
+            f"(device {d_k}), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms (device "
+            f"{d_l}), bound {b_ms:.5f} ms ({by}); {100 * byte_ms / t_k:.1f} % "
+            f"of the byte bound, {100 * flop_ms / t_k:.1f} % of the flop "
+            f"bound")
+        readings[f"T{T}"] = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p,
+                             "library_ms": t_l, "library_device_ms": d_l,
+                             "bound_ms": b_ms, "bound_by": by,
+                             "warps_ms": sweep}
+        if T == max(PROMPT_LENS):
+            out = dict(readings[f"T{T}"])
     return {"name": "prefill_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sa_attention.cu",
             "replaces": "src/repro/kernels/sa_attention.py:27",
             "max_abs_err": max_err, "err_over_bound": worst, **out,
+            "readings": readings,
             "timed": f"one layer's prefill of a {max(PROMPT_LENS)}-token "
-                     f"prompt, fp32 q/k/v"}
+                     f"prompt, fp32 q/k/v, bf16 policy (mma route)"}
 
 
 # ---------------------------------------------------------------------------
@@ -981,7 +1178,7 @@ def _serve_backend(torch, backend, args, n_req, max_new):
     wall = time.monotonic() - t0
     counts = ops.counts()
     log(f"[serve {backend}] wall {wall:.2f} s (init + serve); counts "
-        f"{counts}")
+        f"{counts}; prefill attention routes {ops.route_counts()}")
     done = sched.finished
     problems = []
     if len(done) != n_req or any(r.n_generated != max_new for r in done):
@@ -994,6 +1191,11 @@ def _serve_backend(torch, backend, args, n_req, max_new):
     for name in PATH_KERNELS[backend]:
         if counts[name]["launches"] <= 0:
             problems.append(f"kernel {name} never launched on the path")
+    # the serve's policy casts in to bf16: prefill takes the tensor cores
+    routes = ops.route_counts()["prefill_attention"]
+    if routes["mma"] != counts["prefill_attention"]["launches"]:
+        problems.append(f"prefill attention routes {routes}: the bf16 "
+                        f"serve must run the mma route only")
     if backend == "emulate" and counts["sa_matmul"]["launches"] != 0:
         problems.append("the SA GEMM launched under the emulate backend")
     for name, c in counts.items():
@@ -1359,6 +1561,9 @@ def main(argv=None):
 
     t = time.monotonic()
     timer = Timer(torch)
+    one = torch.zeros(1, device="cuda")
+    log(f"[timer] a 1-element add reads {timer.wall(lambda: one.add_(1)):.4f} "
+        f"ms wall: the floor under every wall time below")
     kernels = [check_gemm(torch, timer), check_gemm_train(torch, timer),
                check_decode(torch, timer), check_prefill(torch, timer),
                check_quantize(torch, timer), check_fp_emu(torch, timer)]
@@ -1421,8 +1626,8 @@ def main(argv=None):
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms", "err_over_bound", "timed")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys}
+            "device_ms", "err_over_bound", "timed", "readings")
+    print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

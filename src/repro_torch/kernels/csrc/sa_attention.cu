@@ -7,34 +7,382 @@
 //   online softmax per query row: running max m, normalizer l (fp32 p),
 //   unnormalized accumulator acc = acc * corr + sum_j cast_in(p_j) cast_in(v_j);
 //   one normalization acc / max(l, 1e-30) at the end.
-// GQA: query head h reads kv head h / (H / KVH).
+// GQA: query head h reads kv head h / (H / KVH). q (B, T, H, hd) and k, v
+// (B, S, KVH, hd) are read through their strides (the last one 1); out is
+// (B, T, H, hd) contiguous, so nothing around the kernel copies a layout.
 //
-// Design: one block of 4 warps per (16-query tile, head, batch row); each
-// warp owns 4 query rows. Key tiles of 32 rows are staged cast-in in shared
-// memory (K padded by one column so lane j reading row j hits distinct
-// banks); lane j scores key j, the warp reduces max and sum with shuffles,
-// and for P.V lane owns output columns lane + 32 i. At prompt lengths of a
-// few hundred the kernel is bound by these SIMT fp32 flops (no tensor cores
-// yet). Causal tiles past the block's last query are skipped: an all-masked
-// tile leaves (m, l, acc) unchanged, so skipping it is exact.
+// Two routes, chosen by the policy's input format (kernels/sa_attention.py):
+//
+// mma (bf16, fp16). Every operand of both products is cast in to a 16-bit
+// type before its dot: exactly what mma.sync.m16n8k16 consumes, with fp32
+// accumulation. A block of 8 warps (the wrapper's plan; 1 to 8 run) owns
+// 16 query rows a warp of one head: the block converts each key tile once
+// for all its warps, and on the card 8 and 4 warps beat 2 and 1 at every
+// T measured (8 is faster at T = 1024), though T = 128 with 40 heads then
+// gives 40 blocks on 132 SMs. Each warp converts its q rows to
+// 16-bit A fragments once (round to nearest even, which is cast_in) and
+// keeps them in registers. Key tiles of 64 rows of K and V come in fp32
+// through cp.async (16-byte pieces, only the rows below S), are converted
+// once by the whole block into 16-bit tiles in shared memory
+// (16-byte chunks XOR-swizzled by row, so ldmatrix reads without bank
+// conflicts) and read with ldmatrix (.trans for V). The next tile's copy is
+// in flight while the current one computes. The S fragments feed the
+// softmax through quad shuffles; P is rounded to 16 bits (the contract's
+// cast_in(p)) and used directly as the A operand of P.V, as in
+// FlashAttention-2. Tiles past the block's last query (causal) or before
+// its first window are skipped: an all-masked tile leaves (m, l, acc)
+// unchanged, so skipping it is exact.
+//
+// What bounds it on the H100: at serving lengths (T <= 128, 40/8 heads,
+// hd 128) the products are 1.7e8 flop (0.17 us at 989 TFLOP/s) against
+// 6.3 MB of fp32 q, k, v and out (1.9 us at 3.35 TB/s), so neither bounds a
+// call of a few microseconds: latency does (launch, one cold read of q and
+// of each key tile, its conversion to 16 bits, two block barriers a tile).
+// The design keeps each block's loads in flight together (cp.async, no
+// register staging) and shares each converted tile among 8 warps. wgmma
+// and TMA would raise the flop ceiling, which is not the limit here. At
+// T = 1024 each head's blocks re-read its kv head's K and V from L2 (g = 5
+// heads share them) and convert them again.
+//
+// simt (fp32). fp32 operands have no exact tensor-core type (TF32 drops 13
+// bits), so this route keeps fp32 FMA chains: one block of 4 warps per
+// (16-query tile, head, batch row), each warp 4 query rows; key tiles of 32
+// rows staged in shared memory (K padded by one column); lane j scores key j
+// and owns output columns lane + 32 i.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBQ = kWarps * kRowsPerWarp;  // 16 query rows per block
-constexpr int kBK = 32;                      // keys per tile
-constexpr int kMaxChunks = 4;                // hd <= 128, lane owns hd / 32
+// ---------------------------------------------------------------------------
+// mma route
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float cast_in(float x, int fmt) {
-  if (fmt == 1) return __bfloat162float(__float2bfloat16_rn(x));
-  if (fmt == 2) return __half2float(__float2half_rn(x));
-  return x;
+constexpr int kKeyTile = 64;
+constexpr int kMaxWarps = 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+template <bool F16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (F16) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
+                                          uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// d += a . b, m16n8k16, 16-bit operands, fp32 accumulate
+template <bool F16>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (F16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+        "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(~0u, v, 1));
+  return fmaxf(v, __shfl_xor_sync(~0u, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(~0u, v, 1);
+  return v + __shfl_xor_sync(~0u, v, 2);
+}
+
+__device__ __forceinline__ float2 ld_row2(const float* p, bool in) {
+  return in ? __ldg(reinterpret_cast<const float2*>(p)) : make_float2(0.f, 0.f);
+}
+
+template <int HD, bool F16>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+attn_mma(const float* __restrict__ q, const float* __restrict__ k,
+         const float* __restrict__ v, float* __restrict__ out, int H, int KVH,
+         int T, int S, long long sqb, long long sqt, long long sqh,
+         long long skb, long long sks, long long skh, long long svb,
+         long long svs, long long svh, float scale, float cap, int causal,
+         int window, int q_offset) {
+  constexpr int kChunks = HD / 8;      // 16-byte chunks of a 16-bit row
+  constexpr int kPieces = HD / 4;      // 16-byte pieces of an fp32 row
+  constexpr int kNT = kKeyTile / 8;    // n-tiles of S per key tile
+  constexpr int kKS = HD / 16;         // k-steps of q.k
+  constexpr int kOT = HD / 8;          // n-tiles of the output
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* stage_k = reinterpret_cast<float*>(smem);  // [64][HD] fp32
+  float* stage_v = stage_k + kKeyTile * HD;         // [64][HD] fp32
+  unsigned char* k16 = reinterpret_cast<unsigned char*>(stage_v + kKeyTile * HD);
+  unsigned char* v16 = k16 + kKeyTile * HD * 2;     // [64][HD] 16-bit, swizzled
+  const uint32_t k16_u = smem_u32(k16), v16_u = smem_u32(v16);
+
+  const int nthreads = blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane >> 2, qd = lane & 3;
+  const int rows = nthreads >> 1;      // 16 query rows a warp
+  const int t0 = blockIdx.x * rows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const float* qb = q + b * sqb + h * sqh;
+  const float* kb = k + b * skb + kvh * skh;
+  const float* vb = v + b * svb + kvh * svh;
+
+  // the key tiles this block needs: up to its last query (causal), from
+  // its first query's window start
+  const int first_q = q_offset + t0;
+  const int last_q = q_offset + min(T, t0 + rows) - 1;
+  int j_end = (S + kKeyTile - 1) / kKeyTile;
+  if (causal) j_end = min(j_end, last_q / kKeyTile + 1);
+  const int j_begin =
+      window ? max(0, first_q - window + 1) / kKeyTile : 0;
+
+  // copy the tile's keys below S; rows past S are never staged
+  auto issue = [&](int kv0) {
+    const int n = min(kKeyTile, S - kv0) * kPieces;
+    for (int i = threadIdx.x; i < n; i += nthreads) {
+      const int r = i / kPieces, c = i % kPieces;
+      const long long key = kv0 + r;
+      cp_async16(smem_u32(stage_k + r * HD + c * 4), kb + key * sks + c * 4,
+                 16);
+      cp_async16(smem_u32(stage_v + r * HD + c * 4), vb + key * svs + c * 4,
+                 16);
+    }
+    cp_async_commit();
+  };
+  if (j_begin < j_end) issue(j_begin * kKeyTile);
+
+  // this warp's query rows as A fragments, cast in once
+  const int ra = t0 + warp * 16 + grp, rb = ra + 8;
+  uint32_t qa[kKS][4];
+#pragma unroll
+  for (int ks = 0; ks < kKS; ++ks) {
+    const int c = ks * 16 + 2 * qd;
+    const float2 x0 = ld_row2(qb + ra * sqt + c, ra < T);
+    const float2 x1 = ld_row2(qb + rb * sqt + c, rb < T);
+    const float2 x2 = ld_row2(qb + ra * sqt + c + 8, ra < T);
+    const float2 x3 = ld_row2(qb + rb * sqt + c + 8, rb < T);
+    qa[ks][0] = pack2<F16>(x0.x, x0.y);
+    qa[ks][1] = pack2<F16>(x1.x, x1.y);
+    qa[ks][2] = pack2<F16>(x2.x, x2.y);
+    qa[ks][3] = pack2<F16>(x3.x, x3.y);
+  }
+  const int pa_pos = q_offset + ra, pb_pos = q_offset + rb;
+  const int warp_first = q_offset + t0 + warp * 16;
+  const int warp_last = q_offset + min(T, t0 + warp * 16 + 16) - 1;
+  const bool warp_live = t0 + warp * 16 < T;
+
+  float o[kOT][4];
+#pragma unroll
+  for (int n = 0; n < kOT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int j = j_begin; j < j_end; ++j) {
+    const int kv0 = j * kKeyTile;
+    cp_async_wait_all();
+    __syncthreads();  // tile j staged; every warp is done with tile j - 1
+    const int n_keys = min(kKeyTile, S - kv0);
+    for (int i = threadIdx.x; i < kKeyTile * kChunks; i += nthreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const int dst = r * HD * 2 + ((c ^ (r & 7)) << 4);
+      if (r >= n_keys) {  // past S: P is 0 there, and 0 * V must stay 0
+        *reinterpret_cast<uint4*>(v16 + dst) = make_uint4(0, 0, 0, 0);
+        continue;
+      }
+      const float4 a0 = *reinterpret_cast<const float4*>(stage_k + r * HD + c * 8);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(stage_k + r * HD + c * 8 + 4);
+      *reinterpret_cast<uint4*>(k16 + dst) =
+          make_uint4(pack2<F16>(a0.x, a0.y), pack2<F16>(a0.z, a0.w),
+                     pack2<F16>(a1.x, a1.y), pack2<F16>(a1.z, a1.w));
+      const float4 b0 = *reinterpret_cast<const float4*>(stage_v + r * HD + c * 8);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(stage_v + r * HD + c * 8 + 4);
+      *reinterpret_cast<uint4*>(v16 + dst) =
+          make_uint4(pack2<F16>(b0.x, b0.y), pack2<F16>(b0.z, b0.w),
+                     pack2<F16>(b1.x, b1.y), pack2<F16>(b1.z, b1.w));
+    }
+    __syncthreads();  // 16-bit tile ready; the staging buffer is free
+    if (j + 1 < j_end) issue(kv0 + kKeyTile);
+    if (!warp_live || (causal && kv0 > warp_last) ||
+        (window && kv0 + kKeyTile - 1 <= warp_first - window))
+      continue;  // every score of this warp in the tile is masked
+
+    // s = q . k over the tile's 64 keys
+    float s[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    const int mi = lane >> 3, ri = lane & 7;
+#pragma unroll
+    for (int np = 0; np < kNT; np += 2) {
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        const int key = (np + (mi >> 1)) * 8 + ri;
+        const int ch = 2 * ks + (mi & 1);
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(k16_u + key * HD * 2 + ((ch ^ ri) << 4), b0, b1, b2, b3);
+        mma16816<F16>(s[np], qa[ks], b0, b1);
+        mma16816<F16>(s[np + 1], qa[ks], b2, b3);
+      }
+    }
+
+    // scale, softcap, masks; online max and normalizer
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kv0 + n * 8 + 2 * qd + (e & 1);
+        const int qp = e < 2 ? pa_pos : pb_pos;
+        float x = s[n][e] * scale;
+        if (cap != 0.f) x = cap * tanhf(x / cap);
+        bool ok = key < S;
+        if (causal) ok = ok && qp >= key;
+        if (window) ok = ok && qp - key < window;
+        x = ok ? x : -INFINITY;
+        s[n][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    // a row with no unmasked key so far keeps m = -inf; the guard keeps
+    // exp() at exactly 0 instead of NaN
+    const float ms0 = isfinite(mn0) ? mn0 : 0.f;
+    const float ms1 = isfinite(mn1) ? mn1 : 0.f;
+    const float corr0 = expf(m0 - ms0), corr1 = expf(m1 - ms1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      s[n][0] = expf(s[n][0] - ms0);
+      s[n][1] = expf(s[n][1] - ms0);
+      s[n][2] = expf(s[n][2] - ms1);
+      s[n][3] = expf(s[n][3] - ms1);
+      sum0 += s[n][0] + s[n][1];
+      sum1 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * corr0 + quad_sum(sum0);
+    l1 = l1 * corr1 + quad_sum(sum1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < kOT; ++n) {
+      o[n][0] *= corr0;
+      o[n][1] *= corr0;
+      o[n][2] *= corr1;
+      o[n][3] *= corr1;
+    }
+
+    // acc += cast_in(p) . cast_in(v): P's fragments are the A operand
+#pragma unroll
+    for (int ks = 0; ks < kNT / 2; ++ks) {
+      uint32_t pa[4];
+      pa[0] = pack2<F16>(s[2 * ks][0], s[2 * ks][1]);
+      pa[1] = pack2<F16>(s[2 * ks][2], s[2 * ks][3]);
+      pa[2] = pack2<F16>(s[2 * ks + 1][0], s[2 * ks + 1][1]);
+      pa[3] = pack2<F16>(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+      const int key = ks * 16 + (mi & 1) * 8 + ri;
+#pragma unroll
+      for (int np = 0; np < kOT; np += 2) {
+        const int ch = np + (mi >> 1);
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(v16_u + key * HD * 2 + ((ch ^ ri) << 4), b0, b1, b2, b3);
+        mma16816<F16>(o[np], pa, b0, b1);
+        mma16816<F16>(o[np + 1], pa, b2, b3);
+      }
+    }
+  }
+
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < kOT; ++n) {
+    const int c = n * 8 + 2 * qd;
+    if (ra < T)
+      *reinterpret_cast<float2*>(out + ((size_t)(b * T + ra) * H + h) * HD + c) =
+          make_float2(o[n][0] / den0, o[n][1] / den0);
+    if (rb < T)
+      *reinterpret_cast<float2*>(out + ((size_t)(b * T + rb) * H + h) * HD + c) =
+          make_float2(o[n][2] / den1, o[n][3] / den1);
+  }
+}
+
+template <int HD, bool F16>
+int launch_mma(const float* q, const float* k, const float* v, float* out,
+               int B, int H, int KVH, int T, int S, const long long* st,
+               float scale, float cap, int causal, int window, int q_offset,
+               int warps, int smem, cudaStream_t stream) {
+  auto kern = attn_mma<HD, F16>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rows = warps * 16;
+  dim3 grid((T + rows - 1) / rows, H, B);
+  kern<<<grid, warps * 32, smem, stream>>>(
+      q, k, v, out, H, KVH, T, S, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], scale, cap, causal, window, q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// simt route (fp32 operands)
+// ---------------------------------------------------------------------------
+
+constexpr int kSimtWarps = 4;
+constexpr int kRowsPerWarp = 4;
+constexpr int kBQ = kSimtWarps * kRowsPerWarp;  // 16 query rows per block
+constexpr int kBK = 32;                          // keys per tile
+constexpr int kMaxChunks = 4;                    // hd <= 128, lane owns hd / 32
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -48,13 +396,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-sa_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int H,
-                 int KVH, int T, int S, int hd, float scale, float cap,
-                 int causal, int window, int q_offset, int fmt) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                      // [kBQ][hd]
+__global__ void __launch_bounds__(kSimtWarps * 32)
+attn_simt(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ out, int H, int KVH,
+          int T, int S, int hd, long long sqb, long long sqt, long long sqh,
+          long long skb, long long sks, long long skh, long long svb,
+          long long svs, long long svh, float scale, float cap, int causal,
+          int window, int q_offset) {
+  extern __shared__ float smem_f[];
+  float* q_s = smem_f;                    // [kBQ][hd]
   float* k_s = q_s + kBQ * hd;            // [kBK][hd + 1]
   float* v_s = k_s + kBK * (hd + 1);      // [kBK][hd]
   const int lane = threadIdx.x & 31;
@@ -64,13 +414,13 @@ sa_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
   const int nchunks = hd / 32;
-  const float* qb = q + ((size_t)b * H + h) * T * hd;
-  const float* kb = k + ((size_t)b * KVH + kvh) * S * hd;
-  const float* vb = v + ((size_t)b * KVH + kvh) * S * hd;
+  const float* qb = q + b * sqb + h * sqh;
+  const float* kb = k + b * skb + kvh * skh;
+  const float* vb = v + b * svb + kvh * svh;
 
   for (int i = threadIdx.x; i < kBQ * hd; i += blockDim.x) {
     const int r = i / hd, d = i % hd;
-    q_s[i] = (t0 + r < T) ? cast_in(qb[(size_t)(t0 + r) * hd + d], fmt) : 0.f;
+    q_s[i] = (t0 + r < T) ? qb[(t0 + r) * sqt + d] : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kMaxChunks];
@@ -90,9 +440,8 @@ sa_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = threadIdx.x; i < kBK * hd; i += blockDim.x) {
       const int j = i / hd, d = i % hd;
       const bool in = kv0 + j < S;
-      k_s[j * (hd + 1) + d] =
-          in ? cast_in(kb[(size_t)(kv0 + j) * hd + d], fmt) : 0.f;
-      v_s[j * hd + d] = in ? cast_in(vb[(size_t)(kv0 + j) * hd + d], fmt) : 0.f;
+      k_s[j * (hd + 1) + d] = in ? kb[(kv0 + j) * sks + d] : 0.f;
+      v_s[j * hd + d] = in ? vb[(kv0 + j) * svs + d] : 0.f;
     }
     __syncthreads();
     const int kv = kv0 + lane;
@@ -111,17 +460,16 @@ sa_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
       if (window) ok = ok && qpos - kv < window;
       s = ok ? s : -INFINITY;
       const float m_new = fmaxf(m[rr], warp_max(s));
-      const float m_safe = isinf(m_new) ? 0.f : m_new;
+      const float m_safe = isfinite(m_new) ? m_new : 0.f;
       const float p = expf(s - m_safe);
       const float corr = expf(m[rr] - m_safe);
       l[rr] = l[rr] * corr + warp_sum(p);
       m[rr] = m_new;
-      const float pq = cast_in(p, fmt);
       float pv[kMaxChunks];
 #pragma unroll
       for (int c = 0; c < kMaxChunks; ++c) pv[c] = 0.f;
       for (int j = 0; j < kBK; ++j) {
-        const float pj = __shfl_sync(~0u, pq, j);
+        const float pj = __shfl_sync(~0u, p, j);
 #pragma unroll
         for (int c = 0; c < kMaxChunks; ++c)
           if (c < nchunks) pv[c] = fmaf(pj, v_s[j * hd + lane + 32 * c], pv[c]);
@@ -135,7 +483,7 @@ sa_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const int t = t0 + warp * kRowsPerWarp + rr;
     if (t >= T) continue;
     const float denom = fmaxf(l[rr], 1e-30f);
-    float* o = out + (((size_t)b * H + h) * T + t) * hd;
+    float* o = out + ((size_t)(b * T + t) * H + h) * hd;
 #pragma unroll
     for (int c = 0; c < kMaxChunks; ++c)
       if (c < nchunks) o[lane + 32 * c] = acc[rr][c] / denom;
@@ -144,25 +492,59 @@ sa_attention_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace
 
-extern "C" int sa_attention_launch(const void* q, const void* k,
-                                   const void* v, void* out, int B, int H,
-                                   int KVH, int T, int S, int hd, float scale,
-                                   float cap, int causal, int window,
-                                   int q_offset, int fmt, void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kBQ * hd + (size_t)kBK * (hd + 1) +
-                       (size_t)kBK * hd);
+// strides: q (b, t, h), k (b, s, h), v (b, s, h) in elements; the last
+// dimension is contiguous. `smem` is the wrapper's plan; it is refused when
+// it is smaller than the kernel's layout.
+extern "C" int sa_attention_mma_launch(
+    const void* q, const void* k, const void* v, void* out, int B, int H,
+    int KVH, int T, int S, int hd, long long sqb, long long sqt, long long sqh,
+    long long skb, long long sks, long long skh, long long svb, long long svs,
+    long long svh, float scale, float cap, int causal, int window,
+    int q_offset, int fp16, int warps, int smem, void* stream) {
+  const long long st[9] = {sqb, sqt, sqh, skb, sks, skh, svb, svs, svh};
+  if (warps < 1 || warps > kMaxWarps ||
+      smem < kKeyTile * hd * 12)  // fp32 staging (K, V) + 16-bit K, V
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_MMA(HD_, F16_)                                                  \
+  return launch_mma<HD_, F16_>(qf, kf, vf, of, B, H, KVH, T, S, st, scale,   \
+                               cap, causal, window, q_offset, warps, smem, s)
+  if (hd == 128) {
+    if (fp16) REPRO_MMA(128, true);
+    REPRO_MMA(128, false);
+  }
+  if (hd == 64) {
+    if (fp16) REPRO_MMA(64, true);
+    REPRO_MMA(64, false);
+  }
+#undef REPRO_MMA
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int sa_attention_simt_launch(
+    const void* q, const void* k, const void* v, void* out, int B, int H,
+    int KVH, int T, int S, int hd, long long sqb, long long sqt, long long sqh,
+    long long skb, long long sks, long long skh, long long svb, long long svs,
+    long long svh, float scale, float cap, int causal, int window,
+    int q_offset, int smem, void* stream) {
+  const int need =
+      static_cast<int>(sizeof(float)) * (kBQ * hd + kBK * (hd + 1) + kBK * hd);
+  if (hd % 32 || hd > 32 * kMaxChunks || smem < need)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sa_attention_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        attn_simt, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  sa_attention_fwd<<<grid, kWarps * 32, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  attn_simt<<<grid, kSimtWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, KVH, T, S,
-      hd, scale, cap, causal, window, q_offset, fmt);
+      static_cast<const float*>(v), static_cast<float*>(out), H, KVH, T, S, hd,
+      sqb, sqt, sqh, skb, sks, skh, svb, svs, svh, scale, cap, causal, window,
+      q_offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,28 +10,53 @@
 //     cap)) or s * scale with the constants folded on the host, then the
 //     position mask (0 <= kv_pos <= pos, and kv_pos > pos - window);
 //   * deferred softmax with the all-masked guard: m_safe = 0 when the row
-//     max is -inf, p = exp(s - m_safe) / max(sum, 1e-30), p cast in;
+//     max is -inf, p = exp(s - m_safe) / max(sum, 1e-30), p cast in: P is
+//     normalized by the whole row's max and sum before it is rounded;
 //   * out = sum_k p_k cast_in(v_k) in fp32, then the approx truncation.
 //
-// Design: one block of 4 warps per (slot, KV head) serves the g query heads
-// that share the KV head, so every K and V row is read once per step. Warps
-// take one key each (lanes split hd) and reduce the g dots with shuffles;
-// the scores of the g heads stay in shared memory (g * S fp32), so the
-// softmax needs no second pass over the pool. That holds while
-// g * (S + hd) * 4 bytes fits the 227 KB a block may use: for g = 5 and
-// hd = 128, up to about 11,500 cached tokens per slot (the launcher raises
-// the dynamic limit above 48 KB and refuses what does not fit). Bound by
-// bytes: the K and V rows of the mapped pages are the traffic.
+// Design: a thread-block cluster per (slot, KV head) splits the slot's keys
+// into n_split contiguous runs, one per block (grid (B, KVH, n_split),
+// cluster (1, 1, n_split), launched with cudaLaunchKernelEx; the wrapper's
+// `split_plan` picks n_split and the run length). The g query heads of the
+// KV head share every K and V row a block reads. A block stages its
+// block-table entries in shared memory, then each of its 8 warps takes 8
+// keys at a time: 8 independent 16-byte loads a lane (one K row a
+// warp-load at hd = 128) are in flight together, each lane forms the g
+// partial dots of its columns for all 8 keys, and one butterfly reduces the
+// 8 g partials in 9 g shuffles (the keys are halved across lanes 16, 8 and
+// 4 apart, then summed across the quad), instead of 5 g a key. The block's
+// g x (its keys) scores stay in its shared memory. Three exchanges through
+// distributed shared memory follow, each behind cluster.sync() and read in
+// rank order: the blocks' maxima give the row max m; their sums of
+// exp(s - m) give the denominator; after P is normalized and cast in, each
+// block's fp32 partial of P.V over its keys (its warps' partials added in
+// warp order) is added across the cluster in rank order, each block
+// finishing a slice of the g x hd outputs. Every block holds the same m and
+// denominator, so P is the reference's P; only the order of the fp32 sums
+// changes (the bound's 2 S 2^-24), and the result is deterministic.
+//
+// What bounds it on the H100: latency. At the serving shape (B = 4,
+// 144-token slots) a call moves 2.4 MB (0.75 us at 3.35 TB/s), less than
+// one cold read plus three cluster barriers take. At 2048-token slots it
+// moves 67 MB (20 us at the byte rate) in two dependent passes over the
+// pool, K then V, each warp holding 8 rows in flight; on the card that
+// reaches about 38 % of the byte rate (PERF.md). A block holds
+// g * keys_per_block scores, so a slot's length is limited only by the
+// cluster's shared memory (16 blocks of at most 227 KB: about 165,000
+// tokens at g = 5, hd = 128).
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kMaxG = 16;      // query heads per KV head
-constexpr int kMaxChunks = 8;  // hd <= 256: lane owns hd / 32 columns
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kNK = 8;  // keys a warp has in flight
 
 __device__ __forceinline__ float cast_in(float x, int fmt) {
   if (fmt == 1) return __bfloat162float(__float2bfloat16_rn(x));
@@ -43,133 +68,352 @@ __device__ __forceinline__ float truncate3(float y) {
   return __int_as_float(__float_as_int(y) & ~7);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode(const float* __restrict__ q, const float* __restrict__ k_pool,
-             const float* __restrict__ v_pool, const int* __restrict__ ppos,
-             const int* __restrict__ bt, const int* __restrict__ pos,
-             float* __restrict__ out, int KVH, int g, int hd, int psz, int P,
-             float scale, float scale_over_cap, float cap, int window, int fmt,
-             int approx) {
-  extern __shared__ float smem[];
-  const int S = P * psz;
-  float* q_s = smem;            // [g][hd]
-  float* s_buf = smem + g * hd;  // [g][S]
+// Lane `lane` owns VEC columns of an hd = 32 VEC row: 2 lane, 2 lane + 1 for
+// VEC = 2; 4 lane + {0..3} + 128 i for VEC = 4, 8, so every warp-load is one
+// contiguous 256- or 512-byte run.
+template <int VEC>
+__device__ __forceinline__ int col(int lane, int e) {
+  return VEC == 2 ? 2 * lane + e : 128 * (e >> 2) + 4 * lane + (e & 3);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_row(const float* __restrict__ p, int lane,
+                                         float (&x)[VEC]) {
+  if constexpr (VEC == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p) + lane);
+    x[0] = t.x;
+    x[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + 128 * i) + lane);
+      x[4 * i] = t.x;
+      x[4 * i + 1] = t.y;
+      x[4 * i + 2] = t.z;
+      x[4 * i + 3] = t.w;
+    }
+  }
+}
+
+// Three blocks an SM (at most 85 registers a thread) keep the clusters of
+// long slots in one wave (at B = 4, KVH = 8: 32 clusters of 8 blocks); on
+// the card, variants that needed more registers ran markedly slower at
+// 2048-token slots. The wider instantiations would spill under that cap,
+// so they keep the compiler's choice.
+template <int G, int VEC>
+__global__ void __launch_bounds__(kThreads, G * VEC <= 20 ? 3 : 1)
+paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_pool,
+                   const float* __restrict__ v_pool, const int* __restrict__ ppos,
+                   const int* __restrict__ bt, const int* __restrict__ pos,
+                   float* __restrict__ out, int KVH, int psz, int P, int kpc,
+                   float scale, float scale_over_cap, float cap, int window,
+                   int fmt, int approx) {
+  constexpr int HD = 32 * VEC;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nsplit = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  extern __shared__ float4 smem4[];
+  float* s_buf = reinterpret_cast<float*>(smem4);  // [G][kpc] scores, then P
+  float* o_w = s_buf + G * kpc;                    // [kWarps][G][HD]
+  float* o_c = o_w + kWarps * G * HD;              // [G][HD] this block's P.V
+  float* red = o_c + G * HD;  // [4][G]: local max, local sum, m_safe, denom
+  int* bt_s = reinterpret_cast<int*>(red + 4 * G);  // this run's pages
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
-  const int H = KVH * g;
-  const int nchunks = hd / 32;
+  const int H = KVH * G;
+  const int S = P * psz;
+  const int k0 = rank * kpc;
+  const int n_local = max(0, min(S, k0 + kpc) - k0);
+  const int j0 = k0 / psz;
+  const int n_pg = n_local ? (k0 + n_local - 1) / psz - j0 + 1 : 0;
   const int my_pos = pos[b];
-  const int* bt_row = bt + (size_t)b * P;
+  for (int i = threadIdx.x; i < n_pg; i += kThreads)
+    bt_s[i] = bt[(size_t)b * P + j0 + i];
 
-  for (int i = threadIdx.x; i < g * hd; i += blockDim.x) {
-    const int h = i / hd, d = i % hd;
-    q_s[i] = cast_in(q[((size_t)b * H + kvh * g + h) * hd + d], fmt);
+  float qv[G][VEC];
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    load_row<VEC>(q + ((size_t)b * H + kvh * G + h) * HD, lane, qv[h]);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) qv[h][e] = cast_in(qv[h][e], fmt);
   }
   __syncthreads();
 
-  // scores: one key per warp at a time
-  for (int idx = warp; idx < S; idx += kWarps) {
-    const int j = idx / psz, off = idx % psz;
-    const int pid = bt_row[j];
-    if (pid <= 0) {  // unmapped or trash page: masked, never read
-      if (lane < g) s_buf[lane * S + idx] = -INFINITY;
-      continue;
+  // scores, kNK keys a warp at a time: every load of the batch is issued
+  // before any mask is formed, so the kNK rows are in flight together
+  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
+  for (int base = warp * kNK; base < n_local; base += kWarps * kNK) {
+    float kx[kNK][VEC];
+    int kvp[kNK];
+#pragma unroll
+    for (int i = 0; i < kNK; ++i) {
+      const int key = k0 + base + i;
+      const int pid = base + i < n_local ? bt_s[key / psz - j0] : 0;
+      const size_t row = (size_t)pid * psz + (key - (key / psz) * psz);
+      kvp[i] = -1;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) kx[i][e] = 0.f;
+      if (pid > 0) {  // mapped: read; unmapped and trash pages never are
+        load_row<VEC>(k_pool + (row * KVH + kvh) * HD, lane, kx[i]);
+        kvp[i] = __ldg(ppos + row);
+      }
     }
-    const int kvp = ppos[(size_t)pid * psz + off];
-    bool ok = kvp >= 0 && kvp <= my_pos;
-    if (window) ok = ok && kvp > my_pos - window;
-    const float* kr = k_pool + (((size_t)pid * psz + off) * KVH + kvh) * hd;
-    float kv[kMaxChunks];
+    unsigned okm = 0;
 #pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c)
-      kv[c] = c < nchunks ? cast_in(kr[lane + 32 * c], fmt) : 0.f;
-    for (int h = 0; h < g; ++h) {
-      float part = 0.f;
+    for (int i = 0; i < kNK; ++i) {
+      bool ok = kvp[i] >= 0 && kvp[i] <= my_pos;
+      if (window) ok = ok && kvp[i] > my_pos - window;
+      okm |= static_cast<unsigned>(ok) << i;
+    }
+    float part[kNK][G];
 #pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c)
-        if (c < nchunks) part = fmaf(q_s[h * hd + lane + 32 * c], kv[c], part);
+    for (int i = 0; i < kNK; ++i) {
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(~0u, part, o);
-      if (lane == 0) {
-        float s = approx ? truncate3(part) : part;
+      for (int e = 0; e < VEC; ++e) kx[i][e] = cast_in(kx[i][e], fmt);
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) a = fmaf(qv[h][e], kx[i][e], a);
+        part[i][h] = a;
+      }
+    }
+    // butterfly: halve the keys across lanes 16, 8, 4 apart, then sum the
+    // quad; lane l ends with the full dots of key (l >> 2) & 7
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        const float keep = hi16 ? part[i + 4][h] : part[i][h];
+        const float send = hi16 ? part[i][h] : part[i + 4][h];
+        part[i][h] = keep + __shfl_xor_sync(~0u, send, 16);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        const float keep = hi8 ? part[i + 2][h] : part[i][h];
+        const float send = hi8 ? part[i][h] : part[i + 2][h];
+        part[i][h] = keep + __shfl_xor_sync(~0u, send, 8);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < G; ++h) {
+      const float keep = hi4 ? part[1][h] : part[0][h];
+      const float send = hi4 ? part[0][h] : part[1][h];
+      float a = keep + __shfl_xor_sync(~0u, send, 4);
+      a += __shfl_xor_sync(~0u, a, 2);
+      part[0][h] = a + __shfl_xor_sync(~0u, a, 1);
+    }
+    const int kk = (lane >> 2) & 7;
+    const int idx = base + kk;
+    const bool ok = (okm >> kk) & 1u;
+    if (idx < n_local) {
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        if ((h & 3) != (lane & 3)) continue;
+        float s = approx ? truncate3(part[0][h]) : part[0][h];
         s = cap != 0.f ? cap * tanhf(s * scale_over_cap) : s * scale;
-        s_buf[h * S + idx] = ok ? s : -INFINITY;
+        s_buf[h * kpc + idx] = ok ? s : -INFINITY;
       }
     }
   }
   __syncthreads();
 
-  // deferred softmax, one warp per head
-  for (int h = warp; h < g; h += kWarps) {
-    float* row = s_buf + (size_t)h * S;
+  // the V rows of this warp's first batch, cast in: their loads run under
+  // the three exchanges
+  auto load_v = [&](int base, float (&vx)[kNK][VEC]) {
+#pragma unroll
+    for (int i = 0; i < kNK; ++i) {
+      const int key = k0 + base + i;
+      const int pid = base + i < n_local ? bt_s[key / psz - j0] : 0;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) vx[i][e] = 0.f;
+      if (pid > 0)
+        load_row<VEC>(v_pool + (((size_t)pid * psz + key - (key / psz) * psz) *
+                                    KVH + kvh) * HD,
+                      lane, vx[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kNK; ++i)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) vx[i][e] = cast_in(vx[i][e], fmt);
+  };
+  float vx[kNK][VEC];
+  if (warp * kNK < n_local) load_v(warp * kNK, vx);
+
+  // exchange 1: the row max over the cluster
+  if (warp < G) {
     float mx = -INFINITY;
-    for (int i = lane; i < S; i += 32) mx = fmaxf(mx, row[i]);
+    for (int i = lane; i < n_local; i += 32) mx = fmaxf(mx, s_buf[warp * kpc + i]);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, o));
-    const float m_safe = isinf(mx) ? 0.f : mx;
+    if (lane == 0) red[warp] = mx;
+  }
+  cluster.sync();
+  if (threadIdx.x < G) {
+    float m = -INFINITY;
+    for (int r = 0; r < nsplit; ++r)
+      m = fmaxf(m, cluster.map_shared_rank(red, r)[threadIdx.x]);
+    red[2 * G + threadIdx.x] = isfinite(m) ? m : 0.f;
+  }
+  __syncthreads();
+
+  // exchange 2: the denominator, block sums added in rank order
+  if (warp < G) {
+    const float ms = red[2 * G + warp];
     float sum = 0.f;
-    for (int i = lane; i < S; i += 32) {
-      const float p = expf(row[i] - m_safe);
-      row[i] = p;
-      sum += p;
+    for (int i = lane; i < n_local; i += 32) {
+      const float e = expf(s_buf[warp * kpc + i] - ms);
+      s_buf[warp * kpc + i] = e;
+      sum += e;
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(~0u, sum, o);
-    const float denom = fmaxf(sum, 1e-30f);
-    for (int i = lane; i < S; i += 32) row[i] = cast_in(row[i] / denom, fmt);
+    if (lane == 0) red[G + warp] = sum;
+  }
+  cluster.sync();
+  if (threadIdx.x < G) {
+    float den = 0.f;
+    for (int r = 0; r < nsplit; ++r)
+      den += cluster.map_shared_rank(red, r)[G + threadIdx.x];
+    red[3 * G + threadIdx.x] = fmaxf(den, 1e-30f);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < G * kpc; t += kThreads) {
+    const int h = t / kpc, i = t - h * kpc;
+    if (i < n_local) s_buf[t] = cast_in(s_buf[t] / red[3 * G + h], fmt);
   }
   __syncthreads();
 
-  // P.V over the mapped pages; thread d owns output column d of every head
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float acc[kMaxG];
+  // P.V over this block's keys (the first batch's rows already in flight)
+  float acc[G][VEC];
 #pragma unroll
-    for (int h = 0; h < kMaxG; ++h) acc[h] = 0.f;
-    for (int j = 0; j < P; ++j) {
-      const int pid = bt_row[j];
-      if (pid <= 0) continue;
-      for (int off = 0; off < psz; ++off) {
-        const int idx = j * psz + off;
-        const float vv = cast_in(
-            v_pool[(((size_t)pid * psz + off) * KVH + kvh) * hd + d], fmt);
+  for (int h = 0; h < G; ++h)
 #pragma unroll
-        for (int h = 0; h < kMaxG; ++h)
-          if (h < g) acc[h] = fmaf(s_buf[h * S + idx], vv, acc[h]);
+    for (int e = 0; e < VEC; ++e) acc[h][e] = 0.f;
+  for (int base = warp * kNK; base < n_local; base += kWarps * kNK) {
+    if (base != warp * kNK) load_v(base, vx);
+#pragma unroll
+    for (int i = 0; i < kNK; ++i) {
+      if (base + i >= n_local) break;
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        const float p = s_buf[h * kpc + base + i];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[h][e] = fmaf(p, vx[i][e], acc[h][e]);
       }
     }
-#pragma unroll
-    for (int h = 0; h < kMaxG; ++h)
-      if (h < g)
-        out[((size_t)b * H + kvh * g + h) * hd + d] =
-            approx ? truncate3(acc[h]) : acc[h];
   }
+#pragma unroll
+  for (int h = 0; h < G; ++h)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      o_w[(warp * G + h) * HD + col<VEC>(lane, e)] = acc[h][e];
+  __syncthreads();
+  for (int t = threadIdx.x; t < G * HD; t += kThreads) {
+    float sum = 0.f;
+    for (int w = 0; w < kWarps; ++w) sum += o_w[w * G * HD + t];
+    o_c[t] = sum;
+  }
+
+  // exchange 3: the blocks' partials added in rank order, each block
+  // finishing a slice of the outputs
+  cluster.sync();
+  const int chunk = (G * HD + nsplit - 1) / nsplit;
+  const int end = min(G * HD, (rank + 1) * chunk);
+  for (int t = rank * chunk + threadIdx.x; t < end; t += kThreads) {
+    float y = 0.f;
+    for (int r = 0; r < nsplit; ++r) y += cluster.map_shared_rank(o_c, r)[t];
+    const int h = t / HD, d = t - h * HD;
+    out[((size_t)b * H + kvh * G + h) * HD + d] = approx ? truncate3(y) : y;
+  }
+  cluster.sync();  // no block leaves while another still reads its memory
+}
+
+template <int G, int VEC>
+int launch(const float* q, const float* k_pool, const float* v_pool,
+           const int* ppos, const int* bt, const int* pos, float* out, int B,
+           int KVH, int psz, int P, int n_split, int kpc, int smem,
+           float scale, float scale_over_cap, float cap, int window, int fmt,
+           int approx, cudaStream_t stream) {
+  auto kern = paged_decode_split<G, VEC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n_split > 8) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, KVH, n_split);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = n_split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, q, k_pool, v_pool, ppos, bt, pos, out, KVH,
+                         psz, P, kpc, scale, scale_over_cap, cap, window, fmt,
+                         approx);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// `n_split`, `kpc` (keys a block) and `smem` come from the wrapper's
+// `split_plan`; a plan whose shared memory is smaller than this layout
+// needs, or larger than a block may have, is refused.
 extern "C" int paged_decode_launch(const void* q, const void* k_pool,
                                    const void* v_pool, const void* ppos,
                                    const void* bt, const void* pos, void* out,
                                    int B, int KVH, int g, int hd, int psz,
-                                   int P, float scale, float scale_over_cap,
+                                   int P, int n_split, int kpc, int smem,
+                                   float scale, float scale_over_cap,
                                    float cap, int window, int fmt, int approx,
                                    void* stream) {
-  const size_t smem = sizeof(float) * (size_t)g * ((size_t)P * psz + hd);
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid(B, KVH);
-  paged_decode<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pool),
-      static_cast<const float*>(v_pool), static_cast<const int*>(ppos),
-      static_cast<const int*>(bt), static_cast<const int*>(pos),
-      static_cast<float*>(out), KVH, g, hd, psz, P, scale, scale_over_cap, cap,
-      window, fmt, approx);
-  return static_cast<int>(cudaGetLastError());
+  const long long need =
+      4LL * ((long long)g * kpc + (long long)(kWarps + 1) * g * hd + 4 * g) +
+      4LL * (kpc / psz + 2);
+  if (n_split < 1 || n_split > 16 || kpc < 1 || smem < need ||
+      smem > 227 * 1024 || (long long)n_split * kpc < (long long)P * psz)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k_pool);
+  const float* vf = static_cast<const float*>(v_pool);
+  const int* pp = static_cast<const int*>(ppos);
+  const int* btp = static_cast<const int*>(bt);
+  const int* ps = static_cast<const int*>(pos);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_CASE(G_, VEC_)                                                  \
+  if (g == G_ && hd == 32 * VEC_)                                             \
+  return launch<G_, VEC_>(qf, kf, vf, pp, btp, ps, of, B, KVH, psz, P,       \
+                          n_split, kpc, smem, scale, scale_over_cap, cap,     \
+                          window, fmt, approx, s)
+#define REPRO_G(G_) \
+  REPRO_CASE(G_, 2); \
+  REPRO_CASE(G_, 4); \
+  REPRO_CASE(G_, 8)
+  REPRO_G(1);
+  REPRO_G(2);
+  REPRO_G(3);
+  REPRO_G(4);
+  REPRO_G(5);
+  REPRO_G(6);
+  REPRO_G(7);
+  REPRO_G(8);
+#undef REPRO_G
+#undef REPRO_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

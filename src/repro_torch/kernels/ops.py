@@ -6,7 +6,8 @@ from the kernel to the plain version.
 
 Each kernel module keeps two plain integers: `LAUNCHES` (kernel launches)
 and `PLAIN_CALLS` (calls of its plain version). `counts()` reads them and
-`reset_counts()` sets them to 0, so a run can show which path it took.
+`reset_counts()` sets them to 0, so a run can show which path it took;
+`route_counts()` splits the prefill kernel's launches by route.
 """
 from __future__ import annotations
 
@@ -93,14 +94,23 @@ def counts() -> dict[str, dict[str, int]]:
     return out
 
 
+def route_counts() -> dict[str, dict[str, int]]:
+    """The prefill kernel's launches by route (`mma` for bf16 and fp16
+    inputs, `simt` for fp32)."""
+    return {"prefill_attention": dict(_attn.ROUTE_LAUNCHES)}
+
+
 def reset_counts():
     for m in _MODULES.values():
         m.LAUNCHES = 0
         m.PLAIN_CALLS = 0
+    for route in _attn.ROUTE_LAUNCHES:
+        _attn.ROUTE_LAUNCHES[route] = 0
     _mm.BWD_LAUNCHES = 0
     _mm.BWD_PLAIN_CALLS = 0
 
 
 __all__ = ["sa_matmul", "sa_matmul_fp8", "skewed_datapath_matmul",
            "paged_decode_attention", "sa_attention", "quantize_fp8",
-           "amax_scale", "fused_decode_supported", "counts", "reset_counts"]
+           "amax_scale", "fused_decode_supported", "counts", "route_counts",
+           "reset_counts"]

@@ -16,12 +16,29 @@ so the kernel takes `exact` only and raises on `approx`.
 Layout at both functions: q (B, T, H, hd), k and v (B, S, KVH, hd) →
 (B, T, H, hd), the layer's own.
 
-The kernel (`csrc/sa_attention.cu`): one block per (16-query tile, head,
-batch row) walks 32-key tiles with an online softmax and normalizes once.
-At the serving prompt lengths (T ≤ a few hundred) its work is small next
-to the projections; it is bound by the q·k and P·V flops it does in SIMT
-fp32 (no tensor cores yet), and causal tiles past the block's last query
-are skipped rather than masked.
+The kernel (`csrc/sa_attention.cu`) has two routes, chosen by the policy's
+input format and counted apart in `ROUTE_LAUNCHES`; a failed build or
+launch of either raises:
+
+* `mma` (bf16, fp16): q·k and P·V on the tensor cores (`mma.sync` m16n8k16,
+  fp32 accumulate), whose 16-bit operands are exactly the contract's
+  cast-in q, k, P and v. A warp owns 16 query rows of one head; 64-key
+  tiles of fp32 K and V arrive by cp.async while the previous tile
+  computes and are converted once per block into swizzled 16-bit tiles.
+  At serving lengths (T ≤ 128) neither the flops (0.17 µs at 989 TFLOP/s)
+  nor the bytes (1.9 µs at 3.35 TB/s) bound a call: latency does, the
+  loads and the 16-bit conversion of each block's key tiles, so a block
+  keeps its loads in flight together and shares each converted tile among
+  its 8 warps (`launch_plan`). The tensor cores' truncating accumulation
+  is charged in `softmax_error_terms` (`tensor_cores`).
+* `simt` (fp32): fp32 FMA chains (fp32 has no exact tensor-core type),
+  one block per (16-query tile, head, batch row).
+
+Both read q, k, v through their strides (the last dimension contiguous)
+and write out (B, T, H, hd) contiguous: the layer's `attention_block`
+hands its rotated q view over as it is, and `attn_out` reshapes the
+result without a copy. Causal tiles past a block's last query are
+skipped.
 """
 from __future__ import annotations
 
@@ -31,8 +48,9 @@ import torch
 
 LAUNCHES = 0       # kernel launches through `sa_attention_cuda`
 PLAIN_CALLS = 0    # calls of the plain version `flash_attention_ref`
+ROUTE_LAUNCHES = {"mma": 0, "simt": 0}   # the launches by route
 
-_FMT_CODE = {"fp32": 0, "bf16": 1, "fp16": 2}
+_INPUT_FORMATS = ("fp32", "bf16", "fp16")
 
 
 def _div_block(n, target):  # largest divisor of n that is <= target
@@ -122,10 +140,55 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
 
 
+KEY_TILE = 64        # keys a tile of the mma route
+MMA_WARPS = 8        # mma route: warps a block, 16 query rows each
+_SIMT_ROWS = 16      # simt route: 4 warps x 4 query rows
+
+
+def launch_plan(B: int, T: int, H: int, hd: int, input_format: str) -> dict:
+    """How `sa_attention_cuda` launches: the route (`mma` for bf16 and fp16
+    inputs, `simt` for fp32), warps a block, query rows a block, the grid
+    (q tiles, H, B) and the dynamic shared memory a block.
+
+    The mma route's blocks have MMA_WARPS warps at every T: each block
+    converts its key tiles to 16 bits once for all its warps: on the card
+    8 warps (128 rows) and 4 beat 2 and 1 at T = 32, 64, 128 and 1024,
+    though they give fewer blocks than SMs at short T; 8 and 4 are within
+    noise of each other at T ≤ 128 and 8 is faster at T = 1024
+    (chip_smoke sweeps the width; PERF.md)."""
+    if input_format == "fp32":
+        rows = _SIMT_ROWS
+        plan = {"route": "simt", "warps": 4,
+                "smem": 4 * (rows * hd + 32 * (hd + 1) + 32 * hd)}
+    else:
+        rows = 16 * MMA_WARPS
+        # fp32 staging of a K and a V tile, and their 16-bit copies
+        plan = {"route": "mma", "warps": MMA_WARPS,
+                "smem": KEY_TILE * hd * (2 * 4 + 2 * 2)}
+    plan.update(rows=rows, grid=(-(-T // rows), H, B))
+    return plan
+
+
+def _strides(t) -> list:
+    """(batch, row, head) strides of a (B, rows, heads, hd) fp32 view whose
+    last dimension is contiguous and whose rows start on 16 bytes (0 for a
+    dimension of size 1), or a ValueError."""
+    st = [s if n > 1 else 0 for s, n in zip(t.stride(), t.shape)]
+    if (t.stride(3) != 1 or any(s % 4 for s in st[:3])
+            or t.data_ptr() % 16):
+        raise ValueError(f"sa_attention_cuda reads q, k, v through their "
+                         f"strides; unsupported layout {tuple(t.shape)} "
+                         f"strides {t.stride()}")
+    return st[:3]
+
+
 def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
                       q_offset=0, scale=None, policy=None):
     """Launch the prefill flash kernel. q (B, T, H, hd), k/v (B, S, KVH,
-    hd) fp32 on one CUDA device; hd a multiple of 32, at most 128."""
+    hd) fp32 on one CUDA device, any strides with the last dimension
+    contiguous → (B, T, H, hd) contiguous. The route follows the policy's
+    input format (`launch_plan`): `mma` (tensor cores) for bf16 and fp16,
+    hd 64 or 128; `simt` for fp32, hd a multiple of 32 up to 128."""
     global LAUNCHES
     from repro_torch.core.precision import current_policy
     from .build import check, function
@@ -134,7 +197,8 @@ def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
     if policy.mode != "exact":
         raise ValueError("the prefill attention kernel runs exact mode only "
                          "(serving prefill is exact)")
-    if policy.input_format not in _FMT_CODE or policy.output_format != "fp32":
+    if (policy.input_format not in _INPUT_FORMATS
+            or policy.output_format != "fp32"):
         raise ValueError(f"prefill attention kernel does not support "
                          f"input_format={policy.input_format!r} / "
                          f"output_format={policy.output_format!r}")
@@ -144,34 +208,51 @@ def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
                              "device")
     B, T, H, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
-    if H % KVH or hd % 32 or hd > 128 or v.shape != k.shape:
+    plan = launch_plan(B, T, H, hd, policy.input_format)
+    route = plan["route"]
+    hd_ok = hd in (64, 128) if route == "mma" else hd % 32 == 0 and hd <= 128
+    if H % KVH or not hd_ok or v.shape != k.shape:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} for the "
+                         f"{route} route")
     scale = scale or hd ** -0.5
-    qh = q.to(torch.float32).permute(0, 2, 1, 3).contiguous()
-    kh = k.to(torch.float32).permute(0, 2, 1, 3).contiguous()
-    vh = v.to(torch.float32).permute(0, 2, 1, 3).contiguous()
-    out = torch.empty((B, H, T, hd), dtype=torch.float32, device=q.device)
-    fn = function("sa_attention", "sa_attention_launch",
-                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
-                  + [ctypes.c_void_p])
-    err = fn(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-             B, H, KVH, T, S, hd, float(scale), float(cap or 0.0),
-             int(causal), int(window), int(q_offset),
-             _FMT_CODE[policy.input_format],
-             torch.cuda.current_stream(q.device).cuda_stream)
-    check(err, "sa_attention")
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    strides = [*_strides(q), *_strides(k), *_strides(v)]
+    out = torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device)
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KVH, T, S, hd, *strides, float(scale), float(cap or 0.0),
+            int(causal), int(window), int(q_offset)]
+    common = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+              + [ctypes.c_longlong] * 9 + [ctypes.c_float] * 2
+              + [ctypes.c_int] * 3)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "mma":
+        fn = function("sa_attention", "sa_attention_mma_launch",
+                      common + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        err = fn(*head, int(policy.input_format == "fp16"), plan["warps"],
+                 plan["smem"], stream)
+    else:
+        fn = function("sa_attention", "sa_attention_simt_launch",
+                      common + [ctypes.c_int, ctypes.c_void_p])
+        err = fn(*head, plan["smem"], stream)
+    check(err, f"sa_attention ({route})")
     LAUNCHES += 1
-    return out.permute(0, 2, 1, 3)
+    ROUTE_LAUNCHES[route] += 1
+    return out
 
 
 # unit roundoff of the cast-in format (fp32 and anything else: 2⁻²⁴)
 UNIT_ROUNDOFF = {"bf16": 2.0 ** -8, "fp16": 2.0 ** -11}
 
 
+# products a tensor-core group aligns before one addition: at least 4 (the
+# smallest group Fasi, Higham, Mikaitis and Pranesh, "Numerical behavior of
+# NVIDIA tensor cores", PeerJ CS 2021, found on any NVIDIA tensor core)
+TC_GROUP = 4
+
+
 def softmax_error_terms(s_raw, a_abs, ok, *, hd, scale, cap=0.0,
-                        approx=False):
+                        approx=False, tensor_cores=False):
     """The exact softmax weights of one set of attention scores, and how far
     an fp32 implementation's weights may stray from them.
 
@@ -179,13 +260,21 @@ def softmax_error_terms(s_raw, a_abs, ok, *, hd, scale, cap=0.0,
     `a_abs` (..., S) the matching Σ_d |q_d||k_d|, `ok` the mask. Returns
     `p` (..., S), the normalized weights (0 where masked), and `eps`
     (..., 1), a bound on |p_impl − p| / p for either implementation, per
-    row: an fp32 dot of hd exact products is off by ≤ hd·2⁻²⁴·Σ|q||k| (in
-    approx mode plus one truncation quantum, 2⁻²⁰·|s|), scaled by `scale`,
-    plus a few ulp of the scaling, softcap and exp; p = e^(s − m)
-    moves by the score's error and the row max's, and its normalizer by
-    the fp32 sum of S terms. Kernel and plain version each lie within
-    `eps` of `p`."""
-    ds = 2 * hd * 2.0 ** -24 * a_abs
+    row. An fp32 dot of hd exact products makes hd additions, each off by
+    less than one unit in the 24th bit of a partial sum (2⁻²³, rounding
+    either way), so by ≤ hd·2⁻²³·Σ|q||k|. On tensor cores
+    (`tensor_cores`, the bf16 and fp16 dots of the prefill kernel) the
+    products are exact, but a group of n_g ≥ TC_GROUP of them and the
+    running sum are aligned to the largest exponent and truncated before
+    one addition, whose result is truncated once more (Fasi et al., 2021):
+    n_g + 1 errors a group, each < 2⁻²³ of a term or partial sum, so
+    ≤ (hd + ⌈hd / n_g⌉)·2⁻²³·Σ|q||k|. In approx mode add one truncation
+    quantum, 2⁻²⁰·|s|; then scale, plus a few ulp of the scaling, softcap
+    and exp; p = e^(s − m) moves by the score's error and the row max's,
+    and its normalizer by the fp32 sum of S terms. Kernel and plain version
+    each lie within `eps` of `p`."""
+    terms = hd + (-(-hd // TC_GROUP) if tensor_cores else 0)
+    ds = terms * 2.0 ** -23 * a_abs
     if approx:
         ds = ds + 2.0 ** -20 * s_raw.abs()
     s = cap * torch.tanh(s_raw * (scale / cap)) if cap else s_raw * scale
@@ -212,10 +301,14 @@ def error_bound(q, k, v, *, causal=True, window=0, cap=0.0, q_offset=0,
     the input format against a different running max — up to one rounding
     u_in per element on each side (u_in = 2⁻⁸ bf16, 2⁻¹¹ fp16, 2⁻²⁴ fp32) —
     on top of each side's weights straying by `eps` (numerator and
-    normalizer, `softmax_error_terms`), the fp32 P·V and normalizer sums
-    and the running rescales (≤ S each) and the final division:
-    |Δo_d| ≤ (2·u_in + 2·eps + 8·S·2⁻²⁴ + 2⁻²²)·W_d. The leading 2 of the
-    returned bound covers the second-order terms."""
+    normalizer, `softmax_error_terms`; the kernel's bf16 and fp16 q·k on
+    tensor cores), the fp32 P·V and normalizer sums and the running
+    rescales and the final division:
+    |Δo_d| ≤ (2·u_in + 2·eps + 8·S·2⁻²⁴ + 2⁻²²)·W_d. The 8·S·2⁻²⁴ holds
+    the kernel's P·V on tensor cores (≤ (S + ⌈S / 4⌉)·2⁻²³, the same count
+    as the q·k above), its normalizer (S·2⁻²⁴) and the plain version's
+    two sums (S·2⁻²⁴ each), with the rescales (one a key tile) to spare.
+    The leading 2 of the returned bound covers the second-order terms."""
     from repro_torch.core.precision import current_policy
 
     policy = policy or current_policy()
@@ -236,8 +329,9 @@ def error_bound(q, k, v, *, causal=True, window=0, cap=0.0, q_offset=0,
         ok &= q_pos >= kv_pos
     if window:
         ok &= q_pos - kv_pos < window
-    p, eps = softmax_error_terms(s_raw, a_abs, ok, hd=hd, scale=scale,
-                                 cap=cap)
+    p, eps = softmax_error_terms(
+        s_raw, a_abs, ok, hd=hd, scale=scale, cap=cap,
+        tensor_cores=policy.input_format in ("bf16", "fp16"))
     w = torch.einsum("bhgts,bshd->bthgd", p, vc.abs())
     rel = (2 * u_in + 2 * eps.permute(0, 3, 1, 2, 4)
            + 8 * S * 2.0 ** -24 + 2.0 ** -22)

@@ -10,15 +10,27 @@ guard, P·V in fp32, approx truncation).
 The plain version is `gather_pages` + `decode_attention` of the port's
 `models/layers.py`, exactly as the JAX kernel is pinned to the JAX pair.
 
-The kernel (`csrc/sa_decode_attention.cu`) runs one block per (slot, KV
-head): the g query heads of a KV head share every K and V row it reads,
-and their scores stay in shared memory for the softmax. It is bound by the
-bytes of the mapped pages' K and V rows; see the source for where the
-shared-memory score buffer stops fitting.
+The kernel (`csrc/sa_decode_attention.cu`) splits each (slot, KV head)'s
+keys across a thread-block cluster: grid (B, KVH, n_split), n_split
+blocks a cluster, each a contiguous run of the slot's keys (`split_plan`:
+enough blocks for two per SM, at most 8 a cluster, 16 where shared memory
+needs it). The g query heads of a KV head share every K and V row a block
+reads; each warp keeps 8 keys' loads in flight and reduces their g dots in
+one butterfly. A block keeps its own scores in shared memory, and three
+exchanges through distributed shared memory, in rank order, give the row
+max, the denominator and the sum of the blocks' P·V partials: P is
+normalized by the whole row before it is rounded, as in the reference, and
+the result is deterministic. At the serving shape a call is bound by
+latency (one cold read and three cluster barriers against 0.75 µs of
+bytes); at long slots by the two dependent passes over the pool (K, then
+V), each warp holding 8 rows in flight, short of the bytes' bound (38 %
+at 2048-token slots, PERF.md). A slot's length is limited by the cluster's shared memory (about 165,000
+tokens at g = 5, hd = 128, over 16 blocks), not by one block's.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -54,12 +66,78 @@ def paged_decode_ref(q, k_pool, v_pool, page_positions, block_table, pos, *,
                                 scale=scale)
 
 
+WARPS = 8              # warps a block (csrc/sa_decode_attention.cu kWarps)
+KEY_ALIGN = 8          # keys a warp has in flight: runs are whole batches
+PORTABLE_CLUSTER = 8   # blocks a cluster every sm_90 part schedules
+MAX_CLUSTER = 16       # with the non-portable cluster size (H100)
+SMEM_LIMIT = 227 * 1024
+_SM_COUNT: dict = {}
+
+
+class SplitPlan(NamedTuple):
+    n_split: int        # blocks a (slot, KV head) cluster
+    keys_per_cta: int   # keys a block: block r takes [r·kpc, (r + 1)·kpc)
+    smem: int           # dynamic shared memory a block, bytes
+
+
+def decode_smem(g: int, hd: int, psz: int, kpc: int) -> int:
+    """A block's shared memory (the kernel's layout): g·kpc scores, the 8
+    warps' and the block's P·V partials, 4g reduction slots, and the block
+    table entries a run of kpc keys can touch."""
+    return 4 * (g * kpc + (WARPS + 1) * g * hd + 4 * g) + 4 * (kpc // psz + 2)
+
+
+def _keys_per_cta(S: int, n: int) -> int:
+    return -(-(-(-S // n)) // KEY_ALIGN) * KEY_ALIGN
+
+
+def split_plan(B: int, KVH: int, g: int, hd: int, psz: int, P: int, *,
+               n_sm: int = 132, n_split: int | None = None) -> SplitPlan:
+    """How the slot's S = P·psz keys are split across a cluster.
+
+    n_split starts at the blocks that give two per SM over the B·KVH
+    clusters (at most PORTABLE_CLUSTER, at most one per KEY_ALIGN keys),
+    doubles up to MAX_CLUSTER while a block's scores do not fit SMEM_LIMIT,
+    and shrinks to the runs the rounded run length needs, so no block is
+    empty. `n_split` given (tests) fixes the start. Raises where no cluster
+    holds the slot."""
+    S = P * psz
+    if n_split is None:
+        n = max(1, min(PORTABLE_CLUSTER, -(-2 * n_sm // (B * KVH)),
+                       -(-S // KEY_ALIGN)))
+        while (n < MAX_CLUSTER
+               and decode_smem(g, hd, psz, _keys_per_cta(S, n)) > SMEM_LIMIT):
+            n = min(MAX_CLUSTER, 2 * n)
+    else:
+        n = n_split
+    if not 1 <= n <= MAX_CLUSTER:
+        raise ValueError(f"paged decode: n_split {n} outside 1..{MAX_CLUSTER}")
+    kpc = _keys_per_cta(S, n)
+    n = -(-S // kpc)
+    smem = decode_smem(g, hd, psz, kpc)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"paged decode: a {S}-token slot needs {smem} bytes "
+                         f"of shared memory a block at {n} blocks a cluster "
+                         f"(at most {SMEM_LIMIT})")
+    return SplitPlan(n, kpc, smem)
+
+
+def _sm_count(device) -> int:
+    n = _SM_COUNT.get(device)
+    if n is None:
+        n = _SM_COUNT[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
                       *, window: int = 0, cap: float = 0.0, scale=None,
-                      policy=None):
+                      policy=None, n_split: int | None = None):
     """Launch the paged decode kernel. q (B, 1, H, hd) fp32; pools
     (n_pages, psz, KVH, hd) fp32; page_positions (n_pages, psz) int32;
-    block_table (B, P) int32; pos (B,) int32 → (B, 1, H, hd) fp32."""
+    block_table (B, P) int32; pos (B,) int32 → (B, 1, H, hd) fp32. g = H /
+    KVH up to 8, hd 64, 128 or 256. `n_split` fixes the cluster size of
+    `split_plan` (tests of the split; default: the plan's)."""
     global LAUNCHES
     from repro_torch.core.precision import current_policy
     from .build import check, function
@@ -78,12 +156,14 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
     psz, KVH = k_pool.shape[1], k_pool.shape[2]
     P = block_table.shape[1]
     g = H // KVH
-    if (H % KVH or g > 16 or hd % 32 or hd > 256
+    if (H % KVH or not 1 <= g <= 8 or hd not in (64, 128, 256)
             or k_pool.dtype != torch.float32
             or v_pool.dtype != torch.float32):
         raise ValueError(f"unsupported paged decode operands q "
                          f"{tuple(q.shape)} pool {tuple(k_pool.shape)} "
                          f"{k_pool.dtype}")
+    plan = split_plan(B, KVH, g, hd, psz, P, n_sm=_sm_count(q.device),
+                      n_split=n_split)
     scale = scale or hd ** -0.5
     cap = float(cap or 0.0)
     q = q.to(torch.float32).contiguous()
@@ -93,12 +173,12 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
     ps = pos.to(torch.int32).reshape(B).contiguous()
     out = torch.empty((B, 1, H, hd), dtype=torch.float32, device=q.device)
     fn = function("sa_decode_attention", "paged_decode_launch",
-                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                   + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              pp.data_ptr(), bt.data_ptr(), ps.data_ptr(), out.data_ptr(),
-             B, KVH, g, hd, psz, P, float(scale),
+             B, KVH, g, hd, psz, P, *plan, float(scale),
              float(scale / cap) if cap else 0.0, cap, int(window),
              _FMT_CODE[policy.input_format], int(policy.mode == "approx"),
              torch.cuda.current_stream(q.device).cuda_stream)

@@ -78,20 +78,48 @@ def _pool(dev, B=4, KVH=8, grp=5, hd=128, psz=16, P=9, lens=(144, 100, 40,
     return q, k, v, pp, bt, pos
 
 
-@pytest.mark.parametrize("fmt,mode,window,cap", [
-    ("bf16", "exact", 0, 0.0), ("bf16", "approx", 64, 50.0),
-    ("fp32", "exact", 0, 0.0), ("fp16", "exact", 0, 0.0)])
-def test_paged_decode_matches_plain(cuda, fmt, mode, window, cap):
-    q, k, v, pp, bt, pos = _pool(cuda)
+SERVE_LENS = (144, 100, 40, 0)
+
+
+@pytest.mark.parametrize("fmt,mode,window,cap,lens,n_split", [
+    ("bf16", "exact", 0, 0.0, SERVE_LENS, None),
+    ("bf16", "approx", 64, 50.0, SERVE_LENS, None),
+    ("fp32", "exact", 0, 0.0, SERVE_LENS, None),
+    ("fp16", "exact", 0, 0.0, SERVE_LENS, None),
+    # cluster runs of 24 keys (ends inside pages), 48 (on page boundaries)
+    # and 16 (9 blocks: the non-portable cluster size)
+    ("bf16", "exact", 0, 0.0, SERVE_LENS, 6),
+    ("fp32", "approx", 0, 0.0, SERVE_LENS, 3),
+    ("bf16", "exact", 0, 0.0, SERVE_LENS, 16),
+    ("bf16", "exact", 0, 0.0, (2048, 1000, 17, 0), None),
+    # a slot whose scores exceed one block's shared memory
+    ("bf16", "exact", 100, 0.0, (12288, 2049, 0, 5), None),
+])
+def test_paged_decode_matches_plain(cuda, fmt, mode, window, cap, lens,
+                                    n_split):
+    """Within the bound of the plain version (the trash page is NaN and
+    never read, the empty slot gives zeros), bit-identical across calls,
+    and the bound rejects a decode that masks out the token just
+    written."""
+    q, k, v, pp, bt, pos = _pool(cuda, P=-(-max(lens) // 16), lens=lens)
     pol = PrecisionPolicy(input_format=fmt, mode=mode)
-    got = ops.paged_decode_attention(q, k, v, pp, bt, pos, window=window,
-                                     cap=cap, policy=pol)
+    if n_split is None:
+        def run():
+            return ops.paged_decode_attention(q, k, v, pp, bt, pos,
+                                              window=window, cap=cap,
+                                              policy=pol)
+    else:
+        def run():
+            return DA.paged_decode_cuda(q, k, v, pp, bt, pos, window=window,
+                                        cap=cap, policy=pol, n_split=n_split)
+    got = run()
+    assert torch.equal(got.view(torch.int32), run().view(torch.int32))
     ref = DA.paged_decode_ref(q, k, v, pp, bt, pos, window=window, cap=cap,
                               policy=pol)
     bound = DA.error_bound(q, k, v, pp, bt, pos, window=window, cap=cap,
                            policy=pol)
     assert bool(torch.isfinite(got).all())
-    assert bool((got[3] == 0).all())            # the all-masked slot
+    assert bool((got[lens.index(0)] == 0).all())   # the all-masked slot
     assert bool(((got - ref).abs() <= bound).all())
     # the same bound rejects a decode that masks out the token just written
     bad = DA.paged_decode_ref(q, k, v, pp, bt, pos - 1, window=window,
@@ -99,17 +127,44 @@ def test_paged_decode_matches_plain(cuda, fmt, mode, window, cap):
     assert float(((got - bad).abs() / bound).max()) > 1.0
 
 
-@pytest.mark.parametrize("T,S,kw", [
-    (32, 32, {}), (64, 64, {}), (128, 128, {}), (100, 100, {"window": 33}),
-    (64, 128, {"q_offset": 64, "window": 48, "cap": 50.0})])
-def test_prefill_matches_plain(cuda, T, S, kw):
+@pytest.mark.parametrize("T,S,kw,fmt", [
+    (32, 32, {}, "bf16"), (64, 64, {}, "bf16"), (128, 128, {}, "bf16"),
+    (100, 100, {"window": 33}, "bf16"),
+    (64, 128, {"q_offset": 64, "window": 48, "cap": 50.0}, "bf16"),
+    (1, 1, {}, "bf16"), (17, 17, {}, "bf16"), (200, 200, {}, "bf16"),
+    (128, 128, {}, "fp16"), (17, 17, {"cap": 30.0}, "fp16"),
+    (128, 128, {}, "fp32"), (200, 200, {"window": 33}, "fp32"),
+    (32, 96, {"q_offset": 64}, "bf16"), (32, 96, {"q_offset": 64}, "fp32")])
+@pytest.mark.parametrize("q_view", [False, True])
+def test_prefill_matches_plain(cuda, T, S, kw, fmt, q_view):
+    """Within the bound of the plain version, through the route the policy
+    picks (`mma` for bf16 and fp16, `simt` for fp32), q either contiguous
+    or the (B, H, T, hd) → (B, T, H, hd) view `attention_block` hands over;
+    out is written contiguous, and the bound rejects a causal mask one key
+    too wide."""
     g = torch.Generator(device=cuda).manual_seed(T + S)
-    q = torch.randn((1, T, 40, 128), generator=g, device=cuda)
+    if q_view:
+        q = torch.randn((1, 40, T, 128), generator=g,
+                        device=cuda).transpose(1, 2)
+    else:
+        q = torch.randn((1, T, 40, 128), generator=g, device=cuda)
     k = torch.randn((1, S, 8, 128), generator=g, device=cuda)
     v = torch.randn((1, S, 8, 128), generator=g, device=cuda)
-    got = ops.sa_attention(q, k, v, **kw)
-    ref = FA.flash_attention_ref(q, k, v, **kw)
-    assert bool(((got - ref).abs() <= FA.error_bound(q, k, v, **kw)).all())
+    pol = PrecisionPolicy(input_format=fmt)
+    ops.reset_counts()
+    got = ops.sa_attention(q, k, v, policy=pol, **kw)
+    route = "simt" if fmt == "fp32" else "mma"
+    assert ops.route_counts()["prefill_attention"] == {
+        "mma": 0, "simt": 0, route: 1}
+    assert got.is_contiguous() and got.shape == q.shape
+    ref = FA.flash_attention_ref(q, k, v, policy=pol, **kw)
+    bound = FA.error_bound(q, k, v, policy=pol, **kw)
+    assert bool(((got - ref).abs() <= bound).all())
+    wider = kw.get("q_offset", 0) + 1
+    if wider < S:       # a key exists that the wider mask lets in
+        bad = FA.flash_attention_ref(q, k, v, policy=pol,
+                                     **{**kw, "q_offset": wider})
+        assert float(((got - bad).abs() / bound).max()) > 1.0
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):

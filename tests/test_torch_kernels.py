@@ -283,3 +283,90 @@ def test_prefill_bound_rejects_planted_fault(fault, fmt):
     bad = FA.flash_attention_ref(q, k, v, policy=pol, **fault)
     bound = FA.error_bound(q, k, v, policy=pol, **good)
     assert float(((bad - ref).abs() / bound).max()) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# launch plans of the attention kernels (pure Python: checked here, used on
+# the card)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,psz,S", [
+    (4, 16, 144), (4, 16, 2048), (4, 16, 12288), (4, 16, 131072),
+    (1, 16, 131072), (64, 16, 4096), (1, 12, 36), (3, 7, 700), (2, 16, 16)])
+@pytest.mark.parametrize("n_split", [None, 1, 5, 16])
+def test_decode_split_plan_covers_every_key_once(B, psz, S, n_split):
+    """Block r of a (slot, KV head) cluster takes keys [r·kpc, (r+1)·kpc):
+    the runs cover the slot's S keys once each, so every row of every
+    mapped page lies in exactly one block's run; no block is empty, the
+    cluster stays within 16 blocks (8 unless shared memory needs more),
+    and a block's shared memory fits 227 KB, up to 131,072-token slots; a
+    forced cluster size too small for the slot is refused."""
+    KVH, g, hd = 8, 5, 128
+    P = -(-S // psz)
+    if n_split and DA.decode_smem(g, hd, psz, DA._keys_per_cta(
+            P * psz, n_split)) > DA.SMEM_LIMIT:
+        with pytest.raises(ValueError, match="shared memory"):
+            DA.split_plan(B, KVH, g, hd, psz, P, n_sm=132, n_split=n_split)
+        return
+    plan = DA.split_plan(B, KVH, g, hd, psz, P, n_sm=132, n_split=n_split)
+    runs = [(r * plan.keys_per_cta,
+             min(P * psz, (r + 1) * plan.keys_per_cta))
+            for r in range(plan.n_split)]
+    owner = np.zeros(P * psz, np.int64)
+    for lo, hi in runs:
+        assert lo < hi                        # no empty block
+        owner[lo:hi] += 1
+    assert (owner == 1).all()
+    for page in range(P):                     # each page row in one run
+        rows = owner[page * psz:(page + 1) * psz]
+        assert rows.sum() == psz
+    assert 1 <= plan.n_split <= DA.MAX_CLUSTER
+    if n_split is None and plan.n_split > DA.PORTABLE_CLUSTER:
+        portable = DA._keys_per_cta(P * psz, DA.PORTABLE_CLUSTER)
+        assert DA.decode_smem(g, hd, psz, portable) > DA.SMEM_LIMIT
+    assert plan.smem == DA.decode_smem(g, hd, psz, plan.keys_per_cta)
+    assert plan.smem <= 227 * 1024
+    assert plan.keys_per_cta % DA.KEY_ALIGN == 0
+
+
+def test_decode_split_plan_refuses_what_no_cluster_holds():
+    with pytest.raises(ValueError, match="shared memory"):
+        DA.split_plan(1, 8, 5, 128, 16, 2 ** 18 // 16)
+    with pytest.raises(ValueError, match="n_split"):
+        DA.split_plan(1, 8, 5, 128, 16, 9, n_split=17)
+
+
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 32, 64, 100, 128, 200, 1024])
+@pytest.mark.parametrize("fmt", ["bf16", "fp16", "fp32"])
+def test_prefill_launch_plan_tiles_cover_t(T, fmt):
+    """The q tiles of the launch grid cover 0..T-1 exactly once, ragged T
+    included; bf16 and fp16 take the tensor-core route, fp32 the SIMT
+    one."""
+    H, hd = 40, 128
+    plan = FA.launch_plan(1, T, H, hd, fmt)
+    assert plan["route"] == ("simt" if fmt == "fp32" else "mma")
+    nq, h, b = plan["grid"]
+    assert (h, b) == (H, 1)
+    rows = plan["rows"]
+    covered = np.zeros(T, np.int64)
+    for i in range(nq):
+        lo, hi = i * rows, min(T, (i + 1) * rows)
+        assert lo < hi                        # no tile past T
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if plan["route"] == "mma":
+        assert rows == 16 * plan["warps"]
+    assert plan["smem"] <= 227 * 1024
+
+
+def test_prefill_route_counts_stay_zero_on_cpu():
+    """On the CPU the prefill runs its plain version: no route counts a
+    launch, and `reset_counts` clears the route counters with the rest."""
+    q = torch.zeros(1, 4, 2, 32)
+    FA.ROUTE_LAUNCHES["mma"] = 3
+    ops.reset_counts()
+    ops.sa_attention(q, q, q)
+    assert ops.route_counts() == {"prefill_attention": {"mma": 0,
+                                                        "simt": 0}}
+    assert ops.counts()["prefill_attention"] == {"launches": 0,
+                                                 "plain_calls": 1}
