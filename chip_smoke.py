@@ -30,9 +30,12 @@ Phases, in order; any failure exits nonzero:
              `cuda` GEMM backend; every request must generate `max_new`
              tokens with finite logits, no page may leak, the path's three
              kernels must have launched (prefill attention on its `mma`
-             route only) and no plain version may have run.
-             Then one prompt's prefill logits under the `cuda` and `torch`
-             GEMM backends, within the stated bound.
+             route only) and no plain version may have run. The same
+             stream again on the same weights with a bf16 KV pool
+             (`ServeEngine(cache_dtype=torch.bfloat16)`): the same checks
+             and the same stream digest. Then one prompt's prefill logits
+             under the `cuda` and `torch` GEMM backends, within the stated
+             bound.
 5. profile — four more requests served under torch.profiler: the device's
              busy and idle share of the wall and the kernels that take the
              device time.
@@ -53,12 +56,20 @@ Phases, in order; any failure exits nonzero:
              batch, every leaf within the stated bound, and two planted
              backward faults outside it; then six steps through
              `repro_torch.launch.train.run` under `cuda`: finite losses and
-             gradient norms, the SA GEMM's forward and backward launched,
-             its plain version never run; peak memory and time per step.
+             gradient norms, the SA GEMM's forward and backward launched
+             (every forward GEMM on its `mma` route, every backward GEMM on
+             `split3`), its plain version never run; peak memory and time
+             per step.
 
-The kernel phase also holds the SA GEMM's backward GEMMs (dA = dY·Wᵀ, dW
-= Aᵀ·dY, fp32 x bf16) and its raw output at the training shapes (M = 1024
-tokens) against the plain version.
+The kernel phase also holds the SA GEMM at the training shapes (M = 1024
+tokens): the forward on the tensor cores (`mma`), its raw output, and the
+backward GEMMs (dA = dY·Wᵀ, dW = Aᵀ·dY, fp32 x bf16) on the `split3` route,
+each within its route's bound and `split_check`, which a planted backward
+with dY rounded once to bf16 must fail; the split bit for bit; the times
+beside bf16 and fp32 torch.matmul; and the route threshold's sweep (M = 8
+to 256, split-K against `mma`). The decode and prefill checks add bf16
+(and fp16) KV pools and 16-bit K/V, bit-identical to fp32 under the bf16
+policy.
 
 Each phase's wall time is printed. The last lines are the kernels JSON
 line, the nvidia-smi line and `{"ok": true, "device": {...}}`.
@@ -241,12 +252,16 @@ def check_gemm(torch, timer):
     worst = 0.0
     max_err = 0.0
     step = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-            "library_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+            "library_ms": 0.0, "library_fp32_ms": 0.0, "bytes": 0.0,
+            "flops": 0.0}
+    # the bf16 yardstick accumulates in fp32 throughout, as the kernel does
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f"{'gemm':24s} {'M':>4s} {'K':>6s} {'N':>7s} {'max_err':>10s} "
-        f"{'err/bound':>9s} {'ms':>8s} {'plain_ms':>9s} {'lib_ms':>8s} "
-        f"{'bound_ms':>8s}")
+        f"{'err/bound':>9s} {'ms':>8s} {'plain_ms':>9s} {'bf16_lib':>8s} "
+        f"{'f32_lib':>8s} {'bound_ms':>8s} route")
     cases = [(n, k, nn, b, act, "exact", None) for n, k, nn, b, act in shapes]
     cases += extra
+    log(f"[sa_matmul] build: {ptxas_summary('sa_matmul')}")
     for m in (BATCH, 128):
         for name, k, n, has_bias, act, mode, scale in cases:
             a = torch.randn((m, k), generator=g, device="cuda").to(
@@ -255,8 +270,14 @@ def check_gemm(torch, timer):
                  * k ** -0.5).to(torch.bfloat16)
             bias = (torch.randn((n,), generator=g, device="cuda") * 0.1
                     if has_bias else None)
+            ops.reset_counts()
             y = ops.sa_matmul(a, w, bias=bias, act=act, scale=scale,
                               mode=mode)
+            route = [r for r, c in ops.route_counts()["sa_matmul"].items()
+                     if c][0]
+            if route != mm.gemm_route(m, a.dtype, w.dtype):
+                raise AssertionError(f"sa_matmul {name} M={m}: route "
+                                     f"{route}")
             ref = mm.sa_matmul_ref(a, w, bias, scale, act=act, mode=mode)
             torch.cuda.synchronize()
             err = (y - ref).abs()
@@ -279,13 +300,14 @@ def check_gemm(torch, timer):
                                                          act=act))
                 t_p = timer.wall(lambda: mm.sa_matmul_ref(a, w, bias,
                                                           act=act))
-                t_l = timer.wall(lambda: torch.matmul(a32, w32))
+                t_l = timer.wall(lambda: torch.matmul(a, w))
+                t_l32 = timer.wall(lambda: torch.matmul(a32, w32))
                 nbytes = 2 * (m * k + k * n) + 4 * m * n + (
                     4 * n if has_bias else 0)
                 flops = 2.0 * m * n * k
                 b_ms, _ = bound_ms(nbytes, flops, PEAK_BF16)
-                line += (f" {t_k:8.4f} {t_p:9.4f} {t_l:8.4f} {b_ms:8.4f}"
-                         f" device_ms={d_k}")
+                line += (f" {t_k:8.4f} {t_p:9.4f} {t_l:8.4f} {t_l32:8.4f} "
+                         f"{b_ms:8.4f} {route} device_ms={d_k}")
                 if m == BATCH and name != "lm_head":
                     step["ms"] += t_k
                     step["device_ms"] = (None if d_k is None
@@ -293,11 +315,17 @@ def check_gemm(torch, timer):
                                          else step["device_ms"] + d_k)
                     step["plain_ms"] += t_p
                     step["library_ms"] += t_l
+                    step["library_fp32_ms"] += t_l32
                     step["bytes"] += nbytes
                     step["flops"] += flops
+            else:
+                line += f" {route}"
             log(line)
     b_ms, by = bound_ms(step["bytes"], step["flops"], PEAK_BF16)
-    log(f"gemm max err/bound over all cases: {worst:.4f}")
+    log(f"gemm max err/bound over all cases: {worst:.4f}; one layer's 7 "
+        f"decode GEMMs {step['ms']:.4f} ms, bf16 torch.matmul "
+        f"{step['library_ms']:.4f} ms, fp32 {step['library_fp32_ms']:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({by})")
     return {"name": "sa_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sa_matmul.cu",
             "replaces": "src/repro/kernels/sa_matmul.py:101",
@@ -306,8 +334,10 @@ def check_gemm(torch, timer):
             "plain_ms": step["plain_ms"],
             "bound_ms": b_ms, "bound_by": by,
             "library_ms": step["library_ms"],
+            "library_fp32_ms": step["library_fp32_ms"],
             "timed": "one decoder layer's 7 decode GEMMs at M=4 "
-                     "(wq,wk,wv,wo,wg,wu,wd), summed"}
+                     "(wq,wk,wv,wo,wg,wu,wd), summed; library: bf16 "
+                     "torch.matmul (fp32 accumulation), fp32 beside it"}
 
 
 LAYER_GEMMS = [("wq", D_MODEL, 40 * 128, True, "none"),
@@ -319,23 +349,91 @@ LAYER_GEMMS = [("wq", D_MODEL, 40 * 128, True, "none"),
                ("wd", D_FF, D_MODEL, False, "none")]
 
 
-def check_gemm_train(torch, timer):
-    """The SA GEMM at the training shapes (M = 1024 tokens a microbatch):
-    the forward (tiled kernel) and, for wg+silu, its raw accumulator; the
-    backward GEMMs dA = dY·Wᵀ (fp32 x bf16ᵀ) and dW = Aᵀ·dY (bf16ᵀ x fp32)
-    of every projection and the lm_head, each within `error_bound` of the
-    plain version. Times: one layer's seven backward pairs, summed, beside
-    the bound at the fp32 SIMT peak (the products are fp32) and fp32
-    `torch.matmul` (TF32 off) of the same two products."""
+# values the split must reconstruct bit for bit: ties of each piece's
+# rounding, powers of two, the smallest normal, 2^-110 (the exact range's
+# edge), the largest floats (hi taken toward zero) and non-finite values
+SPLIT_PLANTED = [0.0, -0.0, 1.0, -2.0, 2.0 ** -126, 2.0 ** -110, 2.0 ** 127,
+                 3.4028234663852886e38, -3.4028234663852886e38,
+                 1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, 1.0 + 2 ** -8 + 2 ** -16,
+                 1.0 + 2 ** -23, float("inf"), -float("inf"), float("nan")]
+
+
+def check_split(torch, mm, dus):
+    """The split3 route's pre-pass on a backward's dus and on the planted
+    values: bit for bit `split3_ref`, and hi + mid + lo == x exactly (in
+    fp64, which holds the three pieces) wherever x is finite."""
+    x = torch.tensor(SPLIT_PLANTED, device="cuda")
+    ok = True
+    for t in (dus, x[None]):
+        got = mm.split3_cuda(t)
+        same = torch.equal(got.view(torch.int16),
+                           mm.split3_ref(t).view(torch.int16))
+        fin = torch.isfinite(t)
+        exact = bool(((got.double().sum(0) == t.double()) | ~fin).all())
+        ok = ok and same and exact
+        del got
+    return ok
+
+
+def sweep_routes(torch, timer, g):
+    """The route threshold: a layer's 7 forward GEMMs at M = 8..256 through
+    the split-K `partial` kernel and the tensor-core `mma` kernel (forced
+    by TILED_MIN_M), beside bf16 torch.matmul."""
     from repro_torch.kernels import sa_matmul as mm
 
-    # the yardstick is full fp32: TF32 would keep 10 mantissa bits
+    out = {}
+    for mr in (4, 8, 16, 32, 64, 128, 256):
+        ops_in = []
+        for _, k, n, _, _ in LAYER_GEMMS:
+            a = torch.randn((mr, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            w = (torch.randn((k, n), generator=g, device="cuda")
+                 * k ** -0.5).to(torch.bfloat16)
+            ops_in.append((a, w))
+        t = {}
+        for route, min_m in (("partial", 1 << 30), ("mma", 0)):
+            keep, mm.TILED_MIN_M = mm.TILED_MIN_M, min_m
+            try:
+                t[route] = sum(timer.wall(lambda: mm.sa_matmul_cuda(a, w),
+                                          reps=5) for a, w in ops_in)
+            finally:
+                mm.TILED_MIN_M = keep
+        t["bf16_library"] = sum(timer.wall(lambda: torch.matmul(a, w),
+                                           reps=5) for a, w in ops_in)
+        out[mr] = t
+        log(f"sa_matmul route sweep M={mr:3d}: a layer's 7 forward GEMMs "
+            f"partial {t['partial']:.4f} ms, mma {t['mma']:.4f} ms, bf16 "
+            f"torch.matmul {t['bf16_library']:.4f} ms; the wrapper takes "
+            f"{mm.gemm_route(mr, torch.bfloat16, torch.bfloat16)}")
+    return out
+
+
+def check_gemm_train(torch, timer):
+    """The SA GEMM at the training shapes (M = 1024 tokens a microbatch):
+    the forward (`mma` route) and, for wg+silu, its raw accumulator; the
+    backward GEMMs dA = dY·Wᵀ (fp32 x bf16ᵀ) and dW = Aᵀ·dY (bf16ᵀ x fp32)
+    (`split3` route) of every projection and the lm_head, each within
+    `error_bound` of the plain version and within `split_check`, which a
+    planted backward with dus rounded once to bf16 (no split) must fail;
+    the split itself bit for bit. Times: one layer's seven forward GEMMs
+    beside bf16 and fp32 torch.matmul and the flop bound, its seven
+    backward pairs beside fp32 torch.matmul (TF32 off), the split3 bound
+    (3 bf16 products per product at the bf16 peak) and the fp32 SIMT
+    bound; then the route threshold's sweep."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_matmul as mm
+
+    # the yardsticks: full fp32 (TF32 would keep 10 mantissa bits) and
+    # bf16 accumulated in fp32 throughout
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     m = TRAIN_M
     g = torch.Generator(device="cuda").manual_seed(6)
     worst = max_err = 0.0
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-           "flops": 0.0, "fwd_ms": 0.0}
+           "flops": 0.0, "fwd_ms": 0.0, "fwd_bf16_ms": 0.0,
+           "fwd_fp32_ms": 0.0, "fwd_flops": 0.0}
+    faults, split_ok = {}, True
     for name, k, n, has_bias, act in LAYER_GEMMS + [
             ("lm_head", D_MODEL, 153600, False, "none")]:
         a = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
@@ -344,6 +442,7 @@ def check_gemm_train(torch, timer):
         bias = (torch.randn((n,), generator=g, device="cuda") * 0.1
                 if has_bias else None)
         dus = torch.randn((m, n), generator=g, device="cuda") * n ** -0.5
+        ops.reset_counts()
         y, raw = mm.sa_matmul_cuda(a, w, bias, act=act, save_raw=True)
         ref, raw_ref = mm.sa_matmul_ref(a, w, bias, act=act, save_raw=True)
         torch.cuda.synchronize()
@@ -352,33 +451,61 @@ def check_gemm_train(torch, timer):
         if act != "none":
             ratios["raw"] = float(((raw - raw_ref).abs()
                                    / mm.error_bound(a, w)).max())
+        ratios["fwd_split_check"] = mm.split_check(a, w, raw)
         del y, ref, raw, raw_ref
         errs = [0.0]
         got = dict(zip(("dA", "dW"), mm.backward_gemms(a, w, dus)))
         want = dict(zip(("dA", "dW"), mm.backward_gemms_ref(a, w, dus)))
         torch.cuda.synchronize()
-        for which, bnd_of in (("dA", lambda: mm.error_bound(dus, w.t())),
-                              ("dW", lambda: mm.error_bound(a.t(), dus))):
+        routes = ops.route_counts()["sa_matmul"]
+        if routes != {"partial": 0, "mma": 1, "split3": 2, "simt": 0}:
+            raise AssertionError(f"sa_matmul {name}: routes {routes}")
+        operands = {"dA": (dus, w.t()), "dW": (a.t(), dus)}
+        for which, (x, z) in operands.items():
             diff = (got[which] - want[which]).abs()
             errs.append(float(diff.max()))
             if not bool(torch.isfinite(got[which]).all()):
                 raise AssertionError(f"sa_matmul_bwd {name} {which}: "
                                      f"non-finite outputs")
-            ratios[which] = float((diff / bnd_of()).max())
+            ratios[which] = float((diff / mm.error_bound(x, z)).max())
+            ratios[f"{which}_split_check"] = mm.split_check(x, z, got[which])
             del diff
         del got, want
+        # planted faults in the kernel's input: dus rounded once to bf16
+        # (its split is (hi, 0, 0): a kernel without the split) must fail
+        # the split check; the lo piece dropped is reported
+        bad = dict(zip(("dA", "dW"), mm.backward_gemms(
+            a, w, dus.to(torch.bfloat16).float())))
+        planes, _ = mm._split3_planes(dus, n)
+        planes[2].zero_()
+        no_lo = dict(zip(("dA", "dW"), mm.backward_gemms(a, w, dus,
+                                                         planes=planes)))
+        del planes
+        for which, (x, z) in operands.items():
+            faults[f"{name} {which} no split"] = mm.split_check(
+                x, z, bad[which])
+            faults[f"{name} {which} lo dropped"] = mm.split_check(
+                x, z, no_lo[which])
+        del bad, no_lo
+        split_ok = split_ok and check_split(torch, mm, dus)
         for what, r in ratios.items():
             if not r <= 1.0:
                 raise AssertionError(f"sa_matmul {name} M={m} {what}: "
                                      f"err/bound {r:.3f}")
+        for which in operands:
+            if not faults[f"{name} {which} no split"] > 1.0:
+                raise AssertionError(f"split_check passes a backward "
+                                     f"without the split ({name} {which})")
         worst = max([worst] + [ratios["dA"], ratios["dW"]])
         max_err = max([max_err] + errs)
         reps = 3
         t_f = timer.wall(lambda: mm.sa_matmul_cuda(a, w, bias, act=act),
                          reps=reps)
+        t_fb = timer.wall(lambda: torch.matmul(a, w), reps=reps)
+        a32, w32 = a.float(), w.float()
+        t_f32 = timer.wall(lambda: torch.matmul(a32, w32), reps=reps)
         t_k = timer.wall(lambda: mm.backward_gemms(a, w, dus), reps=reps)
         t_p = timer.wall(lambda: mm.backward_gemms_ref(a, w, dus), reps=reps)
-        a32, w32 = a.float(), w.float()
         t_l = timer.wall(lambda: (torch.matmul(dus, w32.t()),
                                   torch.matmul(a32.t(), dus)), reps=reps)
         del a32, w32
@@ -386,55 +513,66 @@ def check_gemm_train(torch, timer):
         nbytes = (4 * m * n + 2 * k * n + 4 * m * k) + (
             2 * m * k + 4 * m * n + 4 * k * n)
         flops = 2 * 2.0 * m * n * k
-        b_ms, by = bound_ms(nbytes, flops, PEAK_FP32)
+        b3, _ = bound_ms(nbytes, 3 * flops, PEAK_BF16)
+        b32, _ = bound_ms(nbytes, flops, PEAK_FP32)
+        f_fl = 2.0 * m * n * k
         log(f"sa_matmul train {name:8s} M={m} K={k:5d} N={n:6d}: err/bound "
             + " ".join(f"{w_}={r:.4f}" for w_, r in ratios.items())
-            + f"; fwd {t_f:.3f} ms ({2 * m * n * k / t_f / 1e9:.1f} TFLOP/s);"
-            f" bwd dA+dW {t_k:.3f} ms ({flops / t_k / 1e9:.1f} TFLOP/s), "
-            f"plain {t_p:.3f} ms, fp32 torch.matmul {t_l:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({by})")
+            + f"; fwd {t_f:.3f} ms ({f_fl / t_f / 1e9:.1f} TFLOP/s, bf16 "
+            f"torch.matmul {t_fb:.3f}, fp32 {t_f32:.3f}); bwd dA+dW "
+            f"{t_k:.3f} ms ({3 * flops / t_k / 1e9:.1f} bf16 TFLOP/s), plain "
+            f"{t_p:.3f} ms, fp32 torch.matmul {t_l:.3f} ms, split3 bound "
+            f"{b3:.3f} ms, fp32 SIMT bound {b32:.3f} ms")
         if name != "lm_head":
             for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
                            ("bytes", nbytes), ("flops", flops),
-                           ("fwd_ms", t_f)):
+                           ("fwd_ms", t_f), ("fwd_bf16_ms", t_fb),
+                           ("fwd_fp32_ms", t_f32), ("fwd_flops", f_fl)):
                 tot[key] += v
+        else:
+            lm = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                  "bound_split3_ms": b3, "bound_simt_ms": b32,
+                  "fwd_ms": t_f, "fwd_bf16_ms": t_fb, "fwd_fp32_ms": t_f32}
         del a, w, bias, dus
         gc.collect()
         torch.cuda.empty_cache()
-    # the route: the split-K kernel (made for decode) against the tiled
-    # one on a layer's seven forward GEMMs, at a prefill and the training M
-    for mr in (128, m):
-        t_route = {}
-        for route, min_m in (("split-K", 1 << 30), ("tiled", 0)):
-            keep, mm.TILED_MIN_M = mm.TILED_MIN_M, min_m
-            try:
-                t_route[route] = 0.0
-                for _, k, n, _, _ in LAYER_GEMMS:
-                    a = torch.randn((mr, k), generator=g, device="cuda").to(
-                        torch.bfloat16)
-                    w = torch.randn((k, n), generator=g, device="cuda").to(
-                        torch.bfloat16)
-                    t_route[route] += timer.wall(
-                        lambda: mm.sa_matmul_cuda(a, w), reps=3)
-            finally:
-                mm.TILED_MIN_M = keep
-        log(f"sa_matmul route at M={mr}: a layer's 7 forward GEMMs "
-            f"{t_route['split-K']:.3f} ms split-K, {t_route['tiled']:.3f} ms "
-            f"tiled (the wrapper takes the tiled kernel from M = "
-            f"{mm.TILED_MIN_M})")
-    b_ms, by = bound_ms(tot["bytes"], tot["flops"], PEAK_FP32)
+    log("split_check planted faults (> 1 rejects): " + ", ".join(
+        f"{k_} {v:.3f}" for k_, v in faults.items()))
+    if not split_ok:
+        raise AssertionError("the kernel's split is not split3_ref's, or "
+                             "does not reconstruct dus")
+    log("split3 pre-pass: bit for bit split3_ref on every dus and the "
+        "planted values, hi + mid + lo == x exactly")
+    sweep = sweep_routes(torch, timer, g)
+    b_ms, by = bound_ms(tot["bytes"], 3 * tot["flops"], PEAK_BF16)
+    b32, _ = bound_ms(tot["bytes"], tot["flops"], PEAK_FP32)
+    f_ms, _ = bound_ms(0, tot["fwd_flops"], PEAK_BF16)
     log(f"sa_matmul train: one layer's 7 GEMMs at M={m}: forward "
-        f"{tot['fwd_ms']:.3f} ms, backward {tot['ms']:.3f} ms (bound "
-        f"{b_ms:.3f} ms, {by}); backward max err/bound {worst:.4f}")
+        f"{tot['fwd_ms']:.3f} ms ({tot['fwd_flops'] / tot['fwd_ms'] / 1e9:.1f}"
+        f" TFLOP/s, {100 * f_ms / tot['fwd_ms']:.1f} % of its {f_ms:.3f} ms "
+        f"flop bound; bf16 torch.matmul {tot['fwd_bf16_ms']:.3f} ms, fp32 "
+        f"{tot['fwd_fp32_ms']:.3f} ms), backward {tot['ms']:.3f} ms (split3 "
+        f"bound {b_ms:.3f} ms, fp32 SIMT bound {b32:.3f} ms; fp32 "
+        f"torch.matmul {tot['library_ms']:.3f} ms); lm_head pair "
+        f"{lm['ms']:.3f} ms (fp32 torch.matmul {lm['library_ms']:.3f}); "
+        f"backward max err/bound {worst:.4f}")
+    readings = {"forward_M1024": {
+        "ms": tot["fwd_ms"], "library_ms": tot["fwd_bf16_ms"],
+        "library_fp32_ms": tot["fwd_fp32_ms"], "bound_ms": f_ms,
+        "bound_by": "operations"}, "lm_head_pair": lm,
+        "bound_simt_ms": b32, "split_check_faults": faults,
+        "route_sweep_ms": sweep}
     return {"name": "sa_matmul_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sa_matmul.cu",
             "replaces": "src/repro/kernels/sa_matmul.py:244",
             "max_abs_err": max_err, "err_over_bound": worst,
             "ms": tot["ms"], "device_ms": None, "plain_ms": tot["plain_ms"],
             "bound_ms": b_ms, "bound_by": by,
-            "library_ms": tot["library_ms"],
+            "library_ms": tot["library_ms"], "readings": readings,
             "timed": f"one decoder layer's 7 backward GEMM pairs (dA + dW) "
-                     f"at M={m}, summed"}
+                     f"at M={m}, summed, split3 route; bound: 3 bf16 "
+                     f"products per product at the bf16 peak (fp32 SIMT "
+                     f"bound in readings); library: fp32 torch.matmul"}
 
 
 def _paged_workload(torch, g, B, KVH, grp, hd, psz, P, n_pages, lens):
@@ -511,9 +649,9 @@ def _sdpa_gathered(torch, q, k, v, pp, bt, pos, grp):
     return lambda: sdpa(qs, kh, vh, attn_mask=mask)
 
 
-def _decode_bound(torch, bt, B, H, KVH, hd, psz, P, pol):
+def _decode_bound(torch, bt, B, H, KVH, hd, psz, P, pol, pool_bytes=4):
     mapped = int((bt > 0).sum())
-    nbytes = (4 * B * H * hd * 2 + mapped * psz * KVH * hd * 4 * 2
+    nbytes = (4 * B * H * hd * 2 + mapped * psz * KVH * hd * pool_bytes * 2
               + mapped * psz * 4 + 4 * B * P + 4 * B)
     flops = 4.0 * H * mapped * psz * hd     # q.k and p.v
     return bound_ms(nbytes, flops, peak_flops(pol))
@@ -541,14 +679,36 @@ def check_decode(torch, timer):
               PrecisionPolicy()),
              ("approx", {}, PrecisionPolicy(mode="approx")),
              ("fp32", {}, PrecisionPolicy(input_format="fp32")),
-             ("fp16", {}, PrecisionPolicy(input_format="fp16"))]
+             ("fp16", {}, PrecisionPolicy(input_format="fp16")),
+             # 16-bit pools (ServeEngine(cache_dtype=)): a bf16 pool under
+             # the bf16 policy must give the fp32 pool's output bit for bit
+             ("bf16 pool", {}, PrecisionPolicy()),
+             ("fp16 pool", {}, PrecisionPolicy(input_format="fp16")),
+             ("bf16 pool approx", {"cap": 50.0, "window": 64},
+              PrecisionPolicy(mode="approx"))]
+    pools = {"bf16 pool": torch.bfloat16, "fp16 pool": torch.float16,
+             "bf16 pool approx": torch.bfloat16}
     worst = max_err = 0.0
     out, readings = {}, {}
     log(f"[paged decode] build: {ptxas_summary('sa_decode_attention')}")
     for name, kw, pol in cases:
         q, k, v, pp, bt, pos = _paged_workload(torch, g, BATCH, KVH, grp, hd,
                                                psz, P, n_pages, lens)
+        same = ""
+        if name in pools:
+            y32 = ops.paged_decode_attention(q, k, v, pp, bt, pos, policy=pol,
+                                             **kw)
+            k, v = k.to(pools[name]), v.to(pools[name])
         y = ops.paged_decode_attention(q, k, v, pp, bt, pos, policy=pol, **kw)
+        if name in pools:
+            same = torch.equal(y.view(torch.int32), y32.view(torch.int32))
+            # the same bits where the pool holds the policy's own type
+            cast = {"bf16": torch.bfloat16, "fp16": torch.float16}.get(
+                pol.input_format)
+            if (pools[name] == cast) != same:
+                raise AssertionError(f"paged decode {name}: bit-identical "
+                                     f"to the fp32 pool: {same}")
+            same = f" bit-identical to the fp32 pool {same};"
         ref = da.paged_decode_ref(q, k, v, pp, bt, pos, policy=pol, **kw)
         torch.cuda.synchronize()
         err = (y - ref).abs()
@@ -564,8 +724,8 @@ def check_decode(torch, timer):
         plan = da.split_plan(BATCH, KVH, grp, hd, psz, P, n_sm=sms)
         log(f"paged decode {name:16s} B={BATCH} H={H} KVH={KVH} "
             f"hd={hd} P={P} psz={psz} max_err={float(err.max()):.3e} "
-            f"err/bound={ratio:.4f} median bound {float(bnd.median()):.3e}; "
-            f"grid ({BATCH}, {KVH}, {plan.n_split}), cluster (1, 1, "
+            f"err/bound={ratio:.4f} median bound {float(bnd.median()):.3e};"
+            f"{same} grid ({BATCH}, {KVH}, {plan.n_split}), cluster (1, 1, "
             f"{plan.n_split}), {plan.keys_per_cta} keys a block, "
             f"{plan.smem} B shared")
         # planted faults, each in the plain version: the kernel's output
@@ -664,6 +824,27 @@ def check_decode(torch, timer):
             readings["slots_2048"] = {"ms": t_k, "device_ms": d_k,
                                       "library_ms": t_l, "bound_ms": b_ms,
                                       "bound_by": by, "n_split_ms": sweep}
+            # the same slots in a bf16 pool: half the bytes, the same bits
+            k16, v16 = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            y16 = ops.paged_decode_attention(q, k16, v16, pp, bt, pos)
+            same16 = torch.equal(y16.view(torch.int32), y.view(torch.int32))
+            if not same16:
+                raise AssertionError("paged decode 2048-token slots: the "
+                                     "bf16 pool differs from the fp32 pool")
+            t_16 = timer.wall(lambda: ops.paged_decode_attention(
+                q, k16, v16, pp, bt, pos))
+            t_l16 = timer.wall(_sdpa_gathered(torch, q.to(torch.bfloat16),
+                                              k16, v16, pp, bt, pos, grp))
+            b16, by16 = _decode_bound(torch, bt, BATCH, H, KVH, hd, psz, Pl,
+                                      pol, pool_bytes=2)
+            line += (f"; bf16 pool: bit-identical {same16}, kernel "
+                     f"{t_16:.4f} ms, SDPA (bf16) {t_l16:.4f} ms, bound "
+                     f"{b16:.5f} ms ({by16}): {100 * b16 / t_16:.1f} % of "
+                     f"the bound")
+            readings["slots_2048_bf16_pool"] = {
+                "ms": t_16, "library_ms": t_l16, "bound_ms": b16,
+                "bound_by": by16}
+            del k16, v16, y16
         log(line)
         del q, k, v, pp, bt, pos, y
         gc.collect()
@@ -692,10 +873,10 @@ def _gathered(torch, k, v, pp, bt):
     return gather_pages(PagedKVCache(k, v, pp, bt))
 
 
-def _prefill_bound(T, S, H, KVH, hd):
+def _prefill_bound(T, S, H, KVH, hd, kv_bytes=4):
     """(bound ms, by, byte ms, flop ms) of a causal prefill."""
     pairs = T * (T + 1) / 2 if S == T else T * S
-    nbytes = 4 * (T * H * hd * 2 + 2 * S * KVH * hd)
+    nbytes = 4 * T * H * hd * 2 + kv_bytes * 2 * S * KVH * hd
     flops = 4.0 * H * pairs * hd
     b_ms, by = bound_ms(nbytes, flops, PEAK_BF16)
     return b_ms, by, nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
@@ -809,6 +990,22 @@ def check_prefill(torch, timer):
                              "library_ms": t_l, "library_device_ms": d_l,
                              "bound_ms": b_ms, "bound_by": by,
                              "warps_ms": sweep}
+        if T in (max(PROMPT_LENS), 1024):
+            # K and V from a bf16 cache: read as they are, no fp32 copy;
+            # under the bf16 policy the same bits out
+            kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            same = torch.equal(ops.sa_attention(q, kb, vb).view(torch.int32),
+                               ops.sa_attention(q, k, v).view(torch.int32))
+            if not same:
+                raise AssertionError(f"prefill T={T}: bf16 K/V differ from "
+                                     f"fp32 K/V under the bf16 policy")
+            t_16 = timer.wall(lambda: ops.sa_attention(q, kb, vb))
+            b16, by16, byte16, _ = _prefill_bound(T, T, H, KVH, hd, 2)
+            log(f"prefill attention T={T} bf16 K/V: bit-identical to fp32 "
+                f"K/V {same}; kernel {t_16:.4f} ms, bound {b16:.5f} ms "
+                f"({by16}), {100 * byte16 / t_16:.1f} % of the byte bound")
+            readings[f"T{T}_bf16_kv"] = {"ms": t_16, "bound_ms": b16,
+                                         "bound_by": by16}
         if T == max(PROMPT_LENS):
             out = dict(readings[f"T{T}"])
     return {"name": "prefill_attention", "route": "cuda",
@@ -1213,6 +1410,58 @@ def serve(torch):
     return _serve_backend(torch, "cuda", SERVE_ARGS, 8, MAX_NEW)
 
 
+def serve_bf16_pool(torch, engine, summary):
+    """The `cuda` serve's stream again, on the same weights, through a
+    ServeEngine whose KV pool is bf16 (`cache_dtype`): every request
+    complete, no page leaked, the decode kernel launched on the 16-bit
+    pool, prefill on the `mma` route, no plain version, and the stream
+    digest equal to the fp32-pool run's (under the bf16 policy a bf16
+    pool holds exactly what cast_in makes of the fp32 one, and the
+    kernel's order of sums does not depend on the pool type)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    args = drv.parse_args(SERVE_ARGS)
+    plens = [int(x) for x in args.prompt_lens.split(",")]
+    eng = ServeEngine(engine.cfg, engine.params, args.batch, CACHE_LEN,
+                      eos_id=args.eos_id, sync_every=args.sync_every,
+                      page_size=args.page_size, cache_dtype=torch.bfloat16)
+    sched = SlotScheduler(args.batch, eos_id=args.eos_id)
+    drv.build_requests(sched, eng.cfg, args.requests, args.rate, plens,
+                       args.max_new, args.seed)
+    ops.reset_counts()
+    got = eng.serve(sched, greedy=True)
+    torch.cuda.synchronize()
+    digest = drv.stream_digest(sched.finished)
+    counts, routes = ops.counts(), ops.route_counts()
+    log(f"[serve bf16 pool] digest {digest} (fp32 pool "
+        f"{summary['stream_digest']}); pages_leaked {got['pages_leaked']}; "
+        f"prefill_s {got['prefill_s']} decode_s {got['decode_s']} itl_p50 "
+        f"{drv.itl_p50_ms(sched.finished)} ms; counts {counts}; routes "
+        f"{routes}")
+    problems = []
+    if digest != summary["stream_digest"]:
+        problems.append("stream digest differs from the fp32 pool's")
+    if (len(sched.finished) != args.requests
+            or any(r.n_generated != args.max_new for r in sched.finished)):
+        problems.append("requests incomplete")
+    if got["pages_leaked"] != 0 or got["nonfinite_logits"] != 0:
+        problems.append(f"pages_leaked {got['pages_leaked']}, nonfinite "
+                        f"{got['nonfinite_logits']}")
+    for name in PATH_KERNELS["cuda"]:
+        if counts[name]["launches"] <= 0:
+            problems.append(f"kernel {name} never launched")
+    if any(c["plain_calls"] for c in counts.values()):
+        problems.append("a plain version ran")
+    if routes["prefill_attention"]["simt"]:
+        problems.append("prefill took the simt route")
+    if problems:
+        raise AssertionError("serve bf16 pool: " + "; ".join(problems))
+    return digest
+
+
 def serve_emulate(torch):
     return _serve_backend(torch, "emulate", EMU_ARGS, EMU_REQUESTS,
                           EMU_MAX_NEW)
@@ -1483,6 +1732,7 @@ def train(torch, card):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = ops.counts()
+    routes = ops.route_counts()["sa_matmul"]
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in _grad_leaves(torch, state.params)
                    .values())
@@ -1501,7 +1751,8 @@ def train(torch, card):
         f"peak memory {peak / 2 ** 30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
     log(f"[train] losses {[round(h['loss'], 4) for h in hist]} grad norms "
-        f"{[round(h['grad_norm'], 4) for h in hist]}; counts {counts}")
+        f"{[round(h['grad_norm'], 4) for h in hist]}; counts {counts}; SA "
+        f"GEMM routes {routes}")
     problems = []
     if len(hist) != TRAIN_STEPS:
         problems.append(f"{len(hist)} of {TRAIN_STEPS} steps")
@@ -1516,9 +1767,16 @@ def train(torch, card):
         if counts[key]["plain_calls"] != 0:
             problems.append(f"the plain GEMM ran ({key}: "
                             f"{counts[key]['plain_calls']} calls)")
+    # under the bf16 policy every forward GEMM runs on the tensor cores
+    # (mma) and every backward GEMM splits dus (split3)
+    if (routes["mma"] != counts["sa_matmul"]["launches"]
+            or routes["split3"] != counts["sa_matmul_bwd"]["launches"]
+            or routes["simt"] or routes["partial"]):
+        problems.append(f"SA GEMM routes {routes}: the forward must run "
+                        f"mma only and the backward split3 only")
     if problems:
         raise AssertionError("train phase failed: " + "; ".join(problems))
-    return counts["sa_matmul_bwd"]["launches"], step0
+    return counts["sa_matmul_bwd"]["launches"], step0, routes
 
 
 def main(argv=None):
@@ -1557,7 +1815,9 @@ def main(argv=None):
                     or "Compiling entry" in line):
                 log(f"[build {name}] {line.strip()}")
     phases["build"] = time.monotonic() - t
-    log(f"[build] {len(reports)} kernels for sm_90a in {phases['build']:.1f} s")
+    log(f"[build] {len(reports)} kernels for sm_90a in {phases['build']:.1f} s"
+        f" (each nvcc's seconds: "
+        + ", ".join(f"{n} {v:.1f}" for n, v in build.SECONDS.items()) + ")")
 
     t = time.monotonic()
     timer = Timer(torch)
@@ -1568,6 +1828,10 @@ def main(argv=None):
                check_decode(torch, timer), check_prefill(torch, timer),
                check_quantize(torch, timer), check_fp_emu(torch, timer)]
     del timer
+    # the forward's training-shape readings belong to the forward's entry
+    kernels[0]["readings"] = {
+        key: kernels[1]["readings"].pop(key)
+        for key in ("forward_M1024", "route_sweep_ms")}
     phases["kernels"] = time.monotonic() - t
     log("kernels " + " ".join(
         f"{k['name']}: max_err={k['max_abs_err']:.3e} "
@@ -1583,6 +1847,9 @@ def main(argv=None):
                         paged_decode_attention=got["paged_decode"],
                         prefill_attention=got["prefill_attention"])
         phases["serve"] = time.monotonic() - t
+        t = time.monotonic()
+        serve_bf16_pool(torch, engine, summary)
+        phases["serve_bf16_pool"] = time.monotonic() - t
         t = time.monotonic()
         prompt = min(sched.finished, key=lambda r: r.rid).prompt
         backend_logits(torch, engine, prompt)
@@ -1619,7 +1886,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
         t = time.monotonic()
-        launches["sa_matmul_bwd"], _ = train(torch, card)
+        launches["sa_matmul_bwd"], _, train_routes = train(torch, card)
+        kernels[1]["readings"]["train_routes"] = train_routes
         phases["train"] = time.monotonic() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
     for k in kernels:

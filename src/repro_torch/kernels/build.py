@@ -19,6 +19,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sa_matmul", "sa_decode_attention", "sa_attention", "quantize",
@@ -27,9 +28,16 @@ SOURCES = ("sa_matmul", "sa_decode_attention", "sa_attention", "quantize",
 # and products kept below the normal range (-ftz=false)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+# where nvcc has it, the SA GEMM library's 22 kernels are optimized in
+# parallel on every core: on the card's machine its build falls from ~100
+# to ~40 s with the same registers, spills and times. Not for the decode
+# library: built so, its fp32 decode at 2048-token slots ran 40 % slower.
+SPLIT_COMPILE = "--split-compile=0"
+SPLIT_COMPILE_SOURCES = ("sa_matmul",)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 REPORTS: dict[str, str] = {}
+SECONDS: dict[str, float] = {}
 
 
 def build_dir() -> pathlib.Path:
@@ -44,35 +52,61 @@ def nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+_SPLIT: list = []
+
+
+def flags(name: str) -> tuple:
+    """nvcc's flags for source `name`: FLAGS, and SPLIT_COMPILE for the
+    sources that take it where this nvcc has it."""
+    if not _SPLIT:
+        usage = subprocess.run([nvcc(), "--help"], capture_output=True,
+                               text=True).stdout
+        _SPLIT.append(SPLIT_COMPILE.split("=")[0] in usage)
+    split = _SPLIT[0] and name in SPLIT_COMPILE_SOURCES
+    return FLAGS + ((SPLIT_COMPILE,) if split else ())
+
+
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(src + " ".join(flags(name)).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{h}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every source not built yet, in parallel; return the ptxas
-    reports of what was compiled. Raises on any compiler error."""
+    reports of what was compiled (and each compile's seconds in
+    `SECONDS`). Raises on any compiler error."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.monotonic()
     for name in names:
         target = _target(name)
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        log = open(target.with_suffix(f".{os.getpid()}.log"), "w+")
+        cmd = [nvcc(), *flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, target)
+                       tmp, target, log)
     failed = []
-    for name, (proc, tmp, target) in procs.items():
-        log, _ = proc.communicate()
-        REPORTS[name] = log
-        if proc.returncode != 0:
-            failed.append(f"--- {name} ---\n{log}")
-            continue
-        os.replace(tmp, target)
+    while procs:
+        for name, (proc, tmp, target, log) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            del procs[name]
+            SECONDS[name] = time.monotonic() - t0
+            log.seek(0)
+            REPORTS[name] = log.read()
+            log.close()
+            os.remove(log.name)
+            if proc.returncode != 0:
+                failed.append(f"--- {name} ---\n{REPORTS[name]}")
+                continue
+            os.replace(tmp, target)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return {n: REPORTS.get(n, "") for n in names}

@@ -25,7 +25,11 @@
 // through cp.async (16-byte pieces, only the rows below S), are converted
 // once by the whole block into 16-bit tiles in shared memory
 // (16-byte chunks XOR-swizzled by row, so ldmatrix reads without bank
-// conflicts) and read with ldmatrix (.trans for V). The next tile's copy is
+// conflicts) and read with ldmatrix (.trans for V). K and V that arrive in
+// the policy's 16-bit type (KV16) skip the fp32 staging: cp.async copies
+// their rows straight into the swizzled tiles, two tiles deep, and rows
+// past S are zero-filled by the copy; their bits are what the conversion
+// of the fp32 values would give, so the result is the same. The next tile's copy is
 // in flight while the current one computes. The S fragments feed the
 // softmax through quad shuffles; P is rounded to 16 bits (the contract's
 // cast_in(p)) and used directly as the A operand of P.V, as in
@@ -54,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -145,10 +151,18 @@ __device__ __forceinline__ float2 ld_row2(const float* p, bool in) {
   return in ? __ldg(reinterpret_cast<const float2*>(p)) : make_float2(0.f, 0.f);
 }
 
-template <int HD, bool F16>
+// KV16: k and v arrive in the policy's 16-bit type (a 16-bit cache read
+// back), so their tiles are copied by cp.async straight into the swizzled
+// 16-bit layout, two buffers deep, with no fp32 staging and no conversion;
+// otherwise k and v are fp32 and each tile is staged and converted once.
+template <int HD, bool F16, bool KV16>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-attn_mma(const float* __restrict__ q, const float* __restrict__ k,
-         const float* __restrict__ v, float* __restrict__ out, int H, int KVH,
+attn_mma(const float* __restrict__ q,
+         const typename std::conditional<KV16, uint16_t, float>::type*
+             __restrict__ k,
+         const typename std::conditional<KV16, uint16_t, float>::type*
+             __restrict__ v,
+         float* __restrict__ out, int H, int KVH,
          int T, int S, long long sqb, long long sqt, long long sqh,
          long long skb, long long sks, long long skh, long long svb,
          long long svs, long long svh, float scale, float cap, int causal,
@@ -158,12 +172,16 @@ attn_mma(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kNT = kKeyTile / 8;    // n-tiles of S per key tile
   constexpr int kKS = HD / 16;         // k-steps of q.k
   constexpr int kOT = HD / 8;          // n-tiles of the output
+  constexpr int kTile16 = kKeyTile * HD * 2;  // bytes of a 16-bit tile
   extern __shared__ __align__(16) unsigned char smem[];
-  float* stage_k = reinterpret_cast<float*>(smem);  // [64][HD] fp32
-  float* stage_v = stage_k + kKeyTile * HD;         // [64][HD] fp32
-  unsigned char* k16 = reinterpret_cast<unsigned char*>(stage_v + kKeyTile * HD);
-  unsigned char* v16 = k16 + kKeyTile * HD * 2;     // [64][HD] 16-bit, swizzled
-  const uint32_t k16_u = smem_u32(k16), v16_u = smem_u32(v16);
+  // fp32 K/V: [64][HD] fp32 staging of K and V, then one 16-bit K and V
+  // tile; KV16: two (K, V) pairs of 16-bit tiles, no staging
+  float* stage_k = reinterpret_cast<float*>(smem);
+  float* stage_v = stage_k + kKeyTile * HD;
+  unsigned char* k16 =
+      KV16 ? smem : reinterpret_cast<unsigned char*>(stage_v + kKeyTile * HD);
+  unsigned char* v16 = k16 + kTile16 * (KV16 ? 2 : 1);  // 16-bit, swizzled
+  const uint32_t k16_base = smem_u32(k16), v16_base = smem_u32(v16);
 
   const int nthreads = blockDim.x;
   const int lane = threadIdx.x & 31;
@@ -175,8 +193,8 @@ attn_mma(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
   const float* qb = q + b * sqb + h * sqh;
-  const float* kb = k + b * skb + kvh * skh;
-  const float* vb = v + b * svb + kvh * svh;
+  const auto* kb = k + b * skb + kvh * skh;
+  const auto* vb = v + b * svb + kvh * svh;
 
   // the key tiles this block needs: up to its last query (causal), from
   // its first query's window start
@@ -187,20 +205,33 @@ attn_mma(const float* __restrict__ q, const float* __restrict__ k,
   const int j_begin =
       window ? max(0, first_q - window + 1) / kKeyTile : 0;
 
-  // copy the tile's keys below S; rows past S are never staged
-  auto issue = [&](int kv0) {
-    const int n = min(kKeyTile, S - kv0) * kPieces;
-    for (int i = threadIdx.x; i < n; i += nthreads) {
-      const int r = i / kPieces, c = i % kPieces;
-      const long long key = kv0 + r;
-      cp_async16(smem_u32(stage_k + r * HD + c * 4), kb + key * sks + c * 4,
-                 16);
-      cp_async16(smem_u32(stage_v + r * HD + c * 4), vb + key * svs + c * 4,
-                 16);
+  // copy the tile's keys below S; rows past S are never staged (KV16:
+  // zero-filled, since P is 0 there and 0 * V must stay 0)
+  auto issue = [&](int kv0, int buf) {
+    if constexpr (KV16) {
+      const int n_keys = min(kKeyTile, S - kv0);
+      for (int i = threadIdx.x; i < kKeyTile * kChunks; i += nthreads) {
+        const int r = i / kChunks, c = i % kChunks;
+        const int dst = buf * kTile16 + r * HD * 2 + ((c ^ (r & 7)) << 4);
+        const bool in = r < n_keys;
+        const long long key = kv0 + (in ? r : 0);
+        cp_async16(k16_base + dst, kb + key * sks + c * 8, in ? 16 : 0);
+        cp_async16(v16_base + dst, vb + key * svs + c * 8, in ? 16 : 0);
+      }
+    } else {
+      const int n = min(kKeyTile, S - kv0) * kPieces;
+      for (int i = threadIdx.x; i < n; i += nthreads) {
+        const int r = i / kPieces, c = i % kPieces;
+        const long long key = kv0 + r;
+        cp_async16(smem_u32(stage_k + r * HD + c * 4), kb + key * sks + c * 4,
+                   16);
+        cp_async16(smem_u32(stage_v + r * HD + c * 4), vb + key * svs + c * 4,
+                   16);
+      }
     }
     cp_async_commit();
   };
-  if (j_begin < j_end) issue(j_begin * kKeyTile);
+  if (j_begin < j_end) issue(j_begin * kKeyTile, 0);
 
   // this warp's query rows as A fragments, cast in once
   const int ra = t0 + warp * 16 + grp, rb = ra + 8;
@@ -231,29 +262,37 @@ attn_mma(const float* __restrict__ q, const float* __restrict__ k,
     const int kv0 = j * kKeyTile;
     cp_async_wait_all();
     __syncthreads();  // tile j staged; every warp is done with tile j - 1
-    const int n_keys = min(kKeyTile, S - kv0);
-    for (int i = threadIdx.x; i < kKeyTile * kChunks; i += nthreads) {
-      const int r = i / kChunks, c = i % kChunks;
-      const int dst = r * HD * 2 + ((c ^ (r & 7)) << 4);
-      if (r >= n_keys) {  // past S: P is 0 there, and 0 * V must stay 0
-        *reinterpret_cast<uint4*>(v16 + dst) = make_uint4(0, 0, 0, 0);
-        continue;
+    const int buf = KV16 ? (j - j_begin) & 1 : 0;
+    const uint32_t k16_u = k16_base + buf * kTile16;
+    const uint32_t v16_u = v16_base + buf * kTile16;
+    if constexpr (KV16) {
+      // the other buffer held tile j - 1, which every warp has finished
+      if (j + 1 < j_end) issue(kv0 + kKeyTile, buf ^ 1);
+    } else {
+      const int n_keys = min(kKeyTile, S - kv0);
+      for (int i = threadIdx.x; i < kKeyTile * kChunks; i += nthreads) {
+        const int r = i / kChunks, c = i % kChunks;
+        const int dst = r * HD * 2 + ((c ^ (r & 7)) << 4);
+        if (r >= n_keys) {  // past S: P is 0 there, and 0 * V must stay 0
+          *reinterpret_cast<uint4*>(v16 + dst) = make_uint4(0, 0, 0, 0);
+          continue;
+        }
+        const float4 a0 = *reinterpret_cast<const float4*>(stage_k + r * HD + c * 8);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(stage_k + r * HD + c * 8 + 4);
+        *reinterpret_cast<uint4*>(k16 + dst) =
+            make_uint4(pack2<F16>(a0.x, a0.y), pack2<F16>(a0.z, a0.w),
+                       pack2<F16>(a1.x, a1.y), pack2<F16>(a1.z, a1.w));
+        const float4 b0 = *reinterpret_cast<const float4*>(stage_v + r * HD + c * 8);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(stage_v + r * HD + c * 8 + 4);
+        *reinterpret_cast<uint4*>(v16 + dst) =
+            make_uint4(pack2<F16>(b0.x, b0.y), pack2<F16>(b0.z, b0.w),
+                       pack2<F16>(b1.x, b1.y), pack2<F16>(b1.z, b1.w));
       }
-      const float4 a0 = *reinterpret_cast<const float4*>(stage_k + r * HD + c * 8);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(stage_k + r * HD + c * 8 + 4);
-      *reinterpret_cast<uint4*>(k16 + dst) =
-          make_uint4(pack2<F16>(a0.x, a0.y), pack2<F16>(a0.z, a0.w),
-                     pack2<F16>(a1.x, a1.y), pack2<F16>(a1.z, a1.w));
-      const float4 b0 = *reinterpret_cast<const float4*>(stage_v + r * HD + c * 8);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(stage_v + r * HD + c * 8 + 4);
-      *reinterpret_cast<uint4*>(v16 + dst) =
-          make_uint4(pack2<F16>(b0.x, b0.y), pack2<F16>(b0.z, b0.w),
-                     pack2<F16>(b1.x, b1.y), pack2<F16>(b1.z, b1.w));
+      __syncthreads();  // 16-bit tile ready; the staging buffer is free
+      if (j + 1 < j_end) issue(kv0 + kKeyTile, 0);
     }
-    __syncthreads();  // 16-bit tile ready; the staging buffer is free
-    if (j + 1 < j_end) issue(kv0 + kKeyTile);
     if (!warp_live || (causal && kv0 > warp_last) ||
         (window && kv0 + kKeyTile - 1 <= warp_first - window))
       continue;  // every score of this warp in the tile is masked
@@ -357,12 +396,12 @@ attn_mma(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD, bool F16>
-int launch_mma(const float* q, const float* k, const float* v, float* out,
+template <int HD, bool F16, bool KV16, typename KVT>
+int launch_mma(const float* q, const KVT* k, const KVT* v, float* out,
                int B, int H, int KVH, int T, int S, const long long* st,
                float scale, float cap, int causal, int window, int q_offset,
                int warps, int smem, cudaStream_t stream) {
-  auto kern = attn_mma<HD, F16>;
+  auto kern = attn_mma<HD, F16, KV16>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -495,24 +534,33 @@ attn_simt(const float* __restrict__ q, const float* __restrict__ k,
 // strides: q (b, t, h), k (b, s, h), v (b, s, h) in elements; the last
 // dimension is contiguous. `smem` is the wrapper's plan; it is refused when
 // it is smaller than the kernel's layout.
+// kv16: k and v are 16-bit values of the policy's type (bf16, or fp16 with
+// fp16 = 1), read without an fp32 copy; otherwise fp32.
 extern "C" int sa_attention_mma_launch(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int KVH, int T, int S, int hd, long long sqb, long long sqt, long long sqh,
     long long skb, long long sks, long long skh, long long svb, long long svs,
     long long svh, float scale, float cap, int causal, int window,
-    int q_offset, int fp16, int warps, int smem, void* stream) {
+    int q_offset, int fp16, int kv16, int warps, int smem, void* stream) {
   const long long st[9] = {sqb, sqt, sqh, skb, sks, skh, svb, svs, svh};
-  if (warps < 1 || warps > kMaxWarps ||
-      smem < kKeyTile * hd * 12)  // fp32 staging (K, V) + 16-bit K, V
+  // fp32 staging (K, V) + 16-bit K, V; or two 16-bit (K, V) pairs
+  if (warps < 1 || warps > kMaxWarps || smem < kKeyTile * hd * (kv16 ? 8 : 12))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_MMA(HD_, F16_)                                                  \
-  return launch_mma<HD_, F16_>(qf, kf, vf, of, B, H, KVH, T, S, st, scale,   \
-                               cap, causal, window, q_offset, warps, smem, s)
+  {                                                                           \
+    if (kv16)                                                                 \
+      return launch_mma<HD_, F16_, true>(                                     \
+          qf, static_cast<const uint16_t*>(k),                                \
+          static_cast<const uint16_t*>(v), of, B, H, KVH, T, S, st, scale,    \
+          cap, causal, window, q_offset, warps, smem, s);                     \
+    return launch_mma<HD_, F16_, false>(                                      \
+        qf, static_cast<const float*>(k), static_cast<const float*>(v), of,   \
+        B, H, KVH, T, S, st, scale, cap, causal, window, q_offset, warps,     \
+        smem, s);                                                             \
+  }
   if (hd == 128) {
     if (fp16) REPRO_MMA(128, true);
     REPRO_MMA(128, false);

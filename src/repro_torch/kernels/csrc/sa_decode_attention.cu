@@ -35,11 +35,23 @@
 // denominator, so P is the reference's P; only the order of the fp32 sums
 // changes (the bound's 2 S 2^-24), and the result is deterministic.
 //
+// Pools: fp32, bf16 or fp16, the pool type a template parameter of the
+// row loads. A 16-bit row stays packed two values to a register while its
+// loads are in flight (the 85-register budget holds 8 rows of K, and of V
+// across the exchanges); each value is widened to fp32 exactly when read
+// and then cast in as above, so the order of every sum is the same for
+// every pool type. A
+// 16-bit pool holds the fp32 K/V rounded once to nearest even on the
+// write, which is what cast_in does to an fp32 pool's values: under the
+// bf16 policy a bf16 pool gives the fp32 pool's output bit for bit, and an
+// fp16 pool is rounded to bf16 on the read, as the reference casts each
+// page in.
+//
 // What bounds it on the H100: latency. At the serving shape (B = 4,
 // 144-token slots) a call moves 2.4 MB (0.75 us at 3.35 TB/s), less than
 // one cold read plus three cluster barriers take. At 2048-token slots it
-// moves 67 MB (20 us at the byte rate) in two dependent passes over the
-// pool, K then V, each warp holding 8 rows in flight; on the card that
+// moves 67 MB of an fp32 pool (20 us at the byte rate; a bf16 pool half
+// that, 10 us) in two dependent passes over the pool, K then V, each warp holding 8 rows in flight; on the card that
 // reaches about 38 % of the byte rate (PERF.md). A block holds
 // g * keys_per_block scores, so a slot's length is limited only by the
 // cluster's shared memory (16 blocks of at most 227 KB: about 165,000
@@ -49,6 +61,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -68,9 +82,18 @@ __device__ __forceinline__ float truncate3(float y) {
   return __int_as_float(__float_as_int(y) & ~7);
 }
 
+// a 16-bit pool value's bits widened to fp32 (exact)
+template <typename T>
+__device__ __forceinline__ float widen(unsigned int bits) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
+  return __uint_as_float(bits << 16);  // bf16: the high half of an fp32
+}
+
 // Lane `lane` owns VEC columns of an hd = 32 VEC row: 2 lane, 2 lane + 1 for
 // VEC = 2; 4 lane + {0..3} + 128 i for VEC = 4, 8, so every warp-load is one
-// contiguous 256- or 512-byte run.
+// contiguous run (256 or 512 bytes of an fp32 row, half that of a 16-bit
+// one). A 16-bit pool's values are widened to fp32 exactly.
 template <int VEC>
 __device__ __forceinline__ int col(int lane, int e) {
   return VEC == 2 ? 2 * lane + e : 128 * (e >> 2) + 4 * lane + (e & 3);
@@ -86,7 +109,8 @@ __device__ __forceinline__ void load_row(const float* __restrict__ p, int lane,
   } else {
 #pragma unroll
     for (int i = 0; i < VEC / 4; ++i) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(p + 128 * i) + lane);
+      const float4 t =
+          __ldg(reinterpret_cast<const float4*>(p + 128 * i) + lane);
       x[4 * i] = t.x;
       x[4 * i + 1] = t.y;
       x[4 * i + 2] = t.z;
@@ -95,15 +119,53 @@ __device__ __forceinline__ void load_row(const float* __restrict__ p, int lane,
   }
 }
 
+// A K or V row's VEC values a lane while its loads are in flight: fp32 as
+// loaded; a 16-bit pool's kept packed two to a register (half the
+// registers across the batch and the cluster exchanges) and widened
+// exactly when read.
+template <typename T, int VEC>
+struct Row {
+  static constexpr bool kWide = std::is_same<T, float>::value;
+  typename std::conditional<kWide, float, unsigned int>::type
+      v[kWide ? VEC : VEC / 2];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < (kWide ? VEC : VEC / 2); ++i) v[i] = 0;
+  }
+  __device__ __forceinline__ void load(const T* __restrict__ p, int lane) {
+    if constexpr (kWide) {
+      load_row<VEC>(p, lane, v);
+    } else if constexpr (VEC == 2) {
+      v[0] = __ldg(reinterpret_cast<const unsigned int*>(p) + lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC / 4; ++i) {
+        const uint2 t =
+            __ldg(reinterpret_cast<const uint2*>(p + 128 * i) + lane);
+        v[2 * i] = t.x;
+        v[2 * i + 1] = t.y;
+      }
+    }
+  }
+  __device__ __forceinline__ float get(int e) const {
+    if constexpr (kWide) {
+      return v[e];
+    } else {
+      return widen<T>(e & 1 ? v[e >> 1] >> 16 : v[e >> 1] & 0xffffu);
+    }
+  }
+};
+
 // Three blocks an SM (at most 85 registers a thread) keep the clusters of
 // long slots in one wave (at B = 4, KVH = 8: 32 clusters of 8 blocks); on
 // the card, variants that needed more registers ran markedly slower at
 // 2048-token slots. The wider instantiations would spill under that cap,
 // so they keep the compiler's choice.
-template <int G, int VEC>
+template <int G, int VEC, typename T>
 __global__ void __launch_bounds__(kThreads, G * VEC <= 20 ? 3 : 1)
-paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_pool,
-                   const float* __restrict__ v_pool, const int* __restrict__ ppos,
+paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
+                   const T* __restrict__ v_pool, const int* __restrict__ ppos,
                    const int* __restrict__ bt, const int* __restrict__ pos,
                    float* __restrict__ out, int KVH, int psz, int P, int kpc,
                    float scale, float scale_over_cap, float cap, int window,
@@ -146,7 +208,7 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_pool
   // before any mask is formed, so the kNK rows are in flight together
   const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
   for (int base = warp * kNK; base < n_local; base += kWarps * kNK) {
-    float kx[kNK][VEC];
+    Row<T, VEC> kx[kNK];
     int kvp[kNK];
 #pragma unroll
     for (int i = 0; i < kNK; ++i) {
@@ -154,10 +216,9 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_pool
       const int pid = base + i < n_local ? bt_s[key / psz - j0] : 0;
       const size_t row = (size_t)pid * psz + (key - (key / psz) * psz);
       kvp[i] = -1;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) kx[i][e] = 0.f;
+      kx[i].zero();
       if (pid > 0) {  // mapped: read; unmapped and trash pages never are
-        load_row<VEC>(k_pool + (row * KVH + kvh) * HD, lane, kx[i]);
+        kx[i].load(k_pool + (row * KVH + kvh) * HD, lane);
         kvp[i] = __ldg(ppos + row);
       }
     }
@@ -171,13 +232,14 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_pool
     float part[kNK][G];
 #pragma unroll
     for (int i = 0; i < kNK; ++i) {
+      float xk[VEC];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) kx[i][e] = cast_in(kx[i][e], fmt);
+      for (int e = 0; e < VEC; ++e) xk[e] = cast_in(kx[i].get(e), fmt);
 #pragma unroll
       for (int h = 0; h < G; ++h) {
         float a = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) a = fmaf(qv[h][e], kx[i][e], a);
+        for (int e = 0; e < VEC; ++e) a = fmaf(qv[h][e], xk[e], a);
         part[i][h] = a;
       }
     }
@@ -224,26 +286,28 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_pool
   }
   __syncthreads();
 
-  // the V rows of this warp's first batch, cast in: their loads run under
-  // the three exchanges
-  auto load_v = [&](int base, float (&vx)[kNK][VEC]) {
+  // the V rows of this warp's first batch (fp32 cast in at once; 16-bit
+  // packed, cast in when used): their loads run under the three exchanges
+  using VRow = Row<T, VEC>;
+  auto load_v = [&](int base, VRow (&vx)[kNK]) {
 #pragma unroll
     for (int i = 0; i < kNK; ++i) {
       const int key = k0 + base + i;
       const int pid = base + i < n_local ? bt_s[key / psz - j0] : 0;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) vx[i][e] = 0.f;
+      vx[i].zero();
       if (pid > 0)
-        load_row<VEC>(v_pool + (((size_t)pid * psz + key - (key / psz) * psz) *
-                                    KVH + kvh) * HD,
-                      lane, vx[i]);
+        vx[i].load(v_pool + (((size_t)pid * psz + key - (key / psz) * psz) *
+                                 KVH + kvh) * HD,
+                   lane);
     }
+    if constexpr (VRow::kWide) {
 #pragma unroll
-    for (int i = 0; i < kNK; ++i)
+      for (int i = 0; i < kNK; ++i)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) vx[i][e] = cast_in(vx[i][e], fmt);
+        for (int e = 0; e < VEC; ++e) vx[i].v[e] = cast_in(vx[i].v[e], fmt);
+    }
   };
-  float vx[kNK][VEC];
+  VRow vx[kNK];
   if (warp * kNK < n_local) load_v(warp * kNK, vx);
 
   // exchange 1: the row max over the cluster
@@ -301,11 +365,15 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_pool
 #pragma unroll
     for (int i = 0; i < kNK; ++i) {
       if (base + i >= n_local) break;
+      float xv[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        xv[e] = VRow::kWide ? vx[i].get(e) : cast_in(vx[i].get(e), fmt);
 #pragma unroll
       for (int h = 0; h < G; ++h) {
         const float p = s_buf[h * kpc + base + i];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[h][e] = fmaf(p, vx[i][e], acc[h][e]);
+        for (int e = 0; e < VEC; ++e) acc[h][e] = fmaf(p, xv[e], acc[h][e]);
       }
     }
   }
@@ -335,13 +403,13 @@ paged_decode_split(const float* __restrict__ q, const float* __restrict__ k_pool
   cluster.sync();  // no block leaves while another still reads its memory
 }
 
-template <int G, int VEC>
-int launch(const float* q, const float* k_pool, const float* v_pool,
+template <int G, int VEC, typename T>
+int launch(const float* q, const T* k_pool, const T* v_pool,
            const int* ppos, const int* bt, const int* pos, float* out, int B,
            int KVH, int psz, int P, int n_split, int kpc, int smem,
            float scale, float scale_over_cap, float cap, int window, int fmt,
            int approx, cudaStream_t stream) {
-  auto kern = paged_decode_split<G, VEC>;
+  auto kern = paged_decode_split<G, VEC, T>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -373,7 +441,8 @@ int launch(const float* q, const float* k_pool, const float* v_pool,
 
 // `n_split`, `kpc` (keys a block) and `smem` come from the wrapper's
 // `split_plan`; a plan whose shared memory is smaller than this layout
-// needs, or larger than a block may have, is refused.
+// needs, or larger than a block may have, is refused. `pool_dt` is the K/V
+// pools' element type: 0 fp32, 1 bf16, 2 fp16 (both pools the same).
 extern "C" int paged_decode_launch(const void* q, const void* k_pool,
                                    const void* v_pool, const void* ppos,
                                    const void* bt, const void* pos, void* out,
@@ -381,26 +450,39 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
                                    int P, int n_split, int kpc, int smem,
                                    float scale, float scale_over_cap,
                                    float cap, int window, int fmt, int approx,
-                                   void* stream) {
+                                   int pool_dt, void* stream) {
   const long long need =
       4LL * ((long long)g * kpc + (long long)(kWarps + 1) * g * hd + 4 * g) +
       4LL * (kpc / psz + 2);
   if (n_split < 1 || n_split > 16 || kpc < 1 || smem < need ||
-      smem > 227 * 1024 || (long long)n_split * kpc < (long long)P * psz)
+      smem > 227 * 1024 || (long long)n_split * kpc < (long long)P * psz ||
+      pool_dt < 0 || pool_dt > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k_pool);
-  const float* vf = static_cast<const float*>(v_pool);
   const int* pp = static_cast<const int*>(ppos);
   const int* btp = static_cast<const int*>(bt);
   const int* ps = static_cast<const int*>(pos);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_CASE(G_, VEC_)                                                  \
-  if (g == G_ && hd == 32 * VEC_)                                             \
-  return launch<G_, VEC_>(qf, kf, vf, pp, btp, ps, of, B, KVH, psz, P,       \
-                          n_split, kpc, smem, scale, scale_over_cap, cap,     \
-                          window, fmt, approx, s)
+  if (g == G_ && hd == 32 * VEC_) {                                           \
+    if (pool_dt == 1)                                                         \
+      return launch<G_, VEC_>(qf, static_cast<const __nv_bfloat16*>(k_pool), \
+                              static_cast<const __nv_bfloat16*>(v_pool), pp, \
+                              btp, ps, of, B, KVH, psz, P, n_split, kpc,     \
+                              smem, scale, scale_over_cap, cap, window, fmt, \
+                              approx, s);                                    \
+    if (pool_dt == 2)                                                         \
+      return launch<G_, VEC_>(qf, static_cast<const __half*>(k_pool),        \
+                              static_cast<const __half*>(v_pool), pp, btp,   \
+                              ps, of, B, KVH, psz, P, n_split, kpc, smem,    \
+                              scale, scale_over_cap, cap, window, fmt,       \
+                              approx, s);                                    \
+    return launch<G_, VEC_>(qf, static_cast<const float*>(k_pool),           \
+                            static_cast<const float*>(v_pool), pp, btp, ps,  \
+                            of, B, KVH, psz, P, n_split, kpc, smem, scale,   \
+                            scale_over_cap, cap, window, fmt, approx, s);    \
+  }
 #define REPRO_G(G_) \
   REPRO_CASE(G_, 2); \
   REPRO_CASE(G_, 4); \

@@ -4,37 +4,72 @@
 //
 // Replaces the TPU kernel repro/kernels/sa_matmul.py `_matmul_kernel`,
 // forward and backward: its custom VJP runs dA = dY·Wᵀ and dW = Aᵀ·dY
-// through the same kernel with fp32 operands, and its `save_raw` output
-// keeps the accumulator (after the approx truncation, before the scale)
-// for the activation jacobian and dscale.
+// through the same kernel with fp32 dY, and its `save_raw` output keeps
+// the accumulator (after the approx truncation, before the scale) for the
+// activation jacobian and dscale.
 //
-// Two kernels, chosen by the wrapper from the shapes:
+// Four routes, chosen by the wrapper (kernels/sa_matmul.py `gemm_route`)
+// from the rows and the operand types, each counted apart:
 //
-// * sa_gemm_partial — decode and short prefill (M < 256). Bound by bytes:
-//   every weight is read once and feeds only 2*M flops. A block owns 64
-//   output columns x up to 8 rows of A; each warp reads whole 64-column
-//   rows of W (coalesced), so W is read once per 8 rows of A. K is split
-//   over gridDim.z (deterministic split-K: each slice writes its partial
-//   sums to a workspace, the epilogue kernel adds the slices in order
-//   0..KS-1) so narrow N still puts two blocks on every SM; the 8 warps of
-//   a block stride over the K slice and their partials are added in warp
-//   order through shared memory. Operands row-major.
-// * sa_gemm_tiled — training shapes (M >= 256: 1024 tokens a microbatch)
-//   and every backward GEMM. Bound by fp32 FMAs (SIMT, no tensor cores:
-//   the backward's products are fp32 x bf16). A block of 256 threads owns
-//   a 128 x 128 output tile, each thread an 8 x 8 register tile; 16-deep K
-//   tiles of A and W are staged in shared memory as fp32 (double-buffered,
-//   the next tile's global loads in flight during the current tile's 1024
-//   FMAs a thread), so each staged value feeds 8 FMAs. Either operand may
-//   be a transposed view (Aᵀ, Wᵀ of a row-major tensor): the stage reads
-//   along whichever dimension is contiguous, so no transpose is copied and
-//   W is never upcast in memory. Each output's chain runs k = 0..K-1 in
-//   order in one thread; a K split (when the grid is under two waves)
-//   goes through the same ordered workspace sum.
+// * partial: sa_gemm_partial — decode (M < 8, row-major operands). Bound
+//   by bytes: every weight is read once and feeds only 2*M flops. A block
+//   owns 64 output columns x up to 8 rows of A; each warp reads whole
+//   64-column rows of W (coalesced). K is split over gridDim.z
+//   (deterministic split-K: each slice writes its partial sums to a
+//   workspace, the epilogue kernel adds the slices in order 0..KS-1) so
+//   narrow N still puts two blocks on every SM.
+// * mma: sa_gemm_mma, one piece — bf16 x bf16 from M = 8 (the forward
+//   under the bf16 and FP8 policies). mma.sync.m16n8k16 bf16 on the tensor
+//   cores, fp32 accumulate. At training shapes it is bound by the tensor
+//   cores (a layer's 7 GEMMs at M = 1024 are 0.57 ms at 989 TFLOP/s);
+//   mma.sync issues from registers and reaches well under that peak (wgmma
+//   with TMA is the later step). At prefill's M it is bound by W's bytes
+//   and by how many blocks fill the 132 SMs. Operand tiles are copied by
+//   cp.async into a ring of XOR-swizzled bf16 tiles in shared memory and
+//   read by ldmatrix: .trans for a row-contiguous operand (W as stored, Aᵀ
+//   of a row-major A), plain for a K-contiguous one (Wᵀ, A), so either
+//   operand is read in place through its strides and no transpose is
+//   copied. The tile (TileLarge, TileSmall below) was chosen by a sweep on
+//   the card; the wrapper takes the small one where the large blocks would
+//   leave SMs idle. The epilogue runs on the accumulator fragments.
+// * split3: sa_gemm_mma, three pieces — one fp32 and one bf16 operand: both
+//   backward GEMMs. The fp32 operand is split once (sa_split3, shared by
+//   dA and dW) into three bf16 planes with hi + mid + lo == x exactly (see
+//   split3 below). Each piece x bf16 product is exact in fp32, so the
+//   tensor cores form exactly the reference's products (fp32 x bf16) and
+//   only the order of the sums differs. Each fragment of the bf16 operand
+//   is loaded once and feeds three mma, one a piece. The split runs as its
+//   own pass, not while staging or loading fragments: it is done once per
+//   element (not once per block or per warp that reads it), both backward
+//   GEMMs share it, the GEMM's A loads stay pure cp.async with no
+//   registers held across the pipeline (the accumulators take 64 a
+//   thread), and it costs 10 bytes an element of dY against 3 x 2 K flops.
+//   Bound by the tensor cores at three times the mma route's products.
+//   With the fp32 operand on the weight side the wrapper transposes the
+//   problem (C^T = W^T A^T) and the epilogue writes through strides.
+// * simt: sa_gemm_tiled — fp32 x fp32 (the fp32 policy; fp32 has no exact
+//   tensor-core type). Bound by fp32 FMAs: a 128 x 128 output tile per
+//   block, 8 x 8 per thread, 16-deep K tiles staged in shared memory as
+//   fp32 (double-buffered), either operand read through its strides; a K
+//   split (when the grid is under two waves) goes through the ordered
+//   workspace sum.
 //
-// A product of two bf16 values is exact in fp32; a product with an fp32
-// operand is fused into the FMA. Nothing is rounded below fp32 until the
-// epilogue.
+// Each output's sum: in sa_gemm_mma one thread accumulates its k16 steps
+// in order k = 0, 16, ..., whatever M, N or the tile: K is never split
+// there, so a row's result does not depend on the other rows. A step's 16
+// products (48 under split3: the pieces lo, mid, hi) are summed by the
+// tensor cores from zero, and the step's sum is added to the fp32
+// accumulator with one rounding to nearest. A product of two bf16 values is exact
+// in fp32; in the SIMT kernels a product with an fp32 operand is fused into
+// the FMA. The tensor cores do not round each addition: they align a group
+// of products and the running sum to the largest exponent, truncate, add,
+// and truncate the sum (Fasi, Higham, Mikaitis and Pranesh, PeerJ CS 2021);
+// with each step summed from zero, that truncation is relative to one
+// step's terms, not to the running sum. Left on the running sum it would
+// grow with K, toward zero: about (3K / 16) / 4 units of 2^-23 of the
+// partial sums under split3, which at the lm_head's K = 153600 is as large
+// as rounding dY once to bf16. The wrapper's `error_bound` charges both
+// per route. Nothing is rounded below fp32 until the epilogue.
 //
 // Epilogue, in the TPU kernel's order: truncate the low 3 mantissa bits
 // (RTZ, approx mode only) -> [raw store] -> x scale -> + bias -> act
@@ -358,10 +393,401 @@ cudaError_t launch_tiled_layout(const void* a, const void* w, int a_kcont,
                                             KS, kslice, st);
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core routes: mma (bf16 x bf16) and split3 (fp32 x bf16)
+// ---------------------------------------------------------------------------
+
+// A block tile: BM x BN outputs over WARPS_M x WARPS_N warps, K staged BK
+// deep (BK / 16 k16 steps) in a ring of STAGES cp.async stages.
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int BK_, int STAGES_>
+struct TcTile {
+  static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_,
+                       WARPS_N = WARPS_N_, BK = BK_, STAGES = STAGES_,
+                       THREADS = 32 * WARPS_M_ * WARPS_N_;
+  static constexpr int smem(int npiece) {
+    return STAGES * (npiece * BM + BN) * BK * 2;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; bytes past `src_bytes` are zero-filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a . b, m16n8k16, bf16 operands, fp32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte chunk `c` of row `r` in a staged tile.
+// K-contiguous tiles ([rows][BK] bf16): with BK = 32, 64-byte rows of 4
+// chunks, chunk c ^ ((r >> 1) & 3); with BK = 64, 128-byte rows, chunk
+// c ^ (r & 7): either way the 8 rows an ldmatrix phase reads fill all 8
+// 16-byte slots of a 128-byte bank line. Row-contiguous tiles ([BK][W]
+// bf16, W >= 64): chunk c ^ (r & 7).
+template <bool KCONT, int W, int BK>
+__device__ __forceinline__ int tile_off(int r, int c) {
+  if constexpr (KCONT && BK == 32) return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+  if constexpr (KCONT) return r * (BK * 2) + ((c ^ (r & 7)) << 4);
+  return r * (W * 2) + ((c ^ (r & 7)) << 4);
+}
+
+struct TcEpilogue {
+  const float* bias;       // null, or indexed by the output column (or row)
+  float* out;              // element (m, n) at m * ldo_m + n * ldo_n
+  float* raw;              // null, or the chain before the scale, same layout
+  float scale;
+  const float* scale_dev;  // one value on the card, or null
+  long long ldo_m, ldo_n;
+  int act, approx, bias_on_m;
+};
+
+// C (M, N) = sum over pieces p of A_p (M, K) . B (K, N), fp32 accumulators,
+// then the fused epilogue. A_p is bf16 plane p of A (NPIECE = 3: the hi,
+// mid, lo split of an fp32 operand, planes `a_plane` elements apart), read
+// at a[m * lda + k] (A_KCONT) or a[k * lda + m]; B at b[n * ldb + k]
+// (B_KCONT) or b[k * ldb + n]. Every pointer and leading dimension is 16-byte
+// aligned (the wrapper's check). A block owns BM x BN outputs, its 4 warps
+// (BM / 2) x (BN / 2) each; each output's products are accumulated by one
+// thread in k16 steps k = 0, 16, ..., in order, and the pieces of a step
+// hi, mid, lo: the order does not depend on M, N or the tile.
+// At most 128 registers a thread, so two 8-warp (or four 4-warp) blocks
+// share an SM: on the card the step sums' extra registers otherwise left
+// one block an SM and cost more than the few bytes of spill this takes.
+template <class Tile, int NPIECE, bool A_KCONT, bool B_KCONT>
+__global__ void __launch_bounds__(Tile::THREADS, 512 / Tile::THREADS)
+sa_gemm_mma(const __nv_bfloat16* __restrict__ a, long long a_plane, int lda,
+            const __nv_bfloat16* __restrict__ b, int ldb, TcEpilogue epi,
+            int M, int N, int K) {
+  constexpr int BM = Tile::BM, BN = Tile::BN, kTcBK = Tile::BK;
+  constexpr int kTcStages = Tile::STAGES, kTcThreads = Tile::THREADS;
+  constexpr int WM = BM / Tile::WARPS_M, WN = BN / Tile::WARPS_N;  // a warp
+  constexpr int MT = WM / 16, NT = WN / 8;  // m16 and n8 tiles a warp
+  constexpr int kATile = BM * kTcBK * 2;    // bytes of one A plane's stage
+  constexpr int kBTile = BN * kTcBK * 2;
+  constexpr int kStage = NPIECE * kATile + kBTile;
+  static_assert(NT % 2 == 0 && BM >= 64 && BN >= 64, "tile");
+  static_assert((BM * kTcBK / 8) % kTcThreads == 0 &&
+                    (BN * kTcBK / 8) % kTcThreads == 0,
+                "whole chunks a thread");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t smem0 = smem_u32(smem);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / Tile::WARPS_N, wn = warp % Tile::WARPS_N;
+  const int g = lane >> 2, q = lane & 3;
+  const int mi = lane >> 3, r8 = lane & 7;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + kTcBK - 1) / kTcBK;
+
+  // one stage: every plane of A's tile and B's tile, 16-byte chunks
+  auto load_stage = [&](int slot, int kt) {
+    const int k0 = kt * kTcBK;
+    const uint32_t base = smem0 + slot * kStage;
+#pragma unroll
+    for (int p = 0; p < NPIECE; ++p) {
+      const __nv_bfloat16* ap = a + p * a_plane;
+      constexpr int kChunks = BM * kTcBK / 8;
+#pragma unroll
+      for (int it = 0; it < kChunks / kTcThreads; ++it) {
+        const int i = it * kTcThreads + tid;
+        int r, c, bytes;
+        const __nv_bfloat16* src;
+        if constexpr (A_KCONT) {  // rows m, BK / 8 chunks of k
+          r = i / (kTcBK / 8);
+          c = i % (kTcBK / 8);
+          const int m = m0 + r, k = k0 + c * 8;
+          bytes = m < M ? max(0, min(16, (K - k) * 2)) : 0;
+          src = bytes ? ap + (size_t)m * lda + k : ap;
+        } else {                  // rows k, BM / 8 chunks of m
+          r = i / (BM / 8);
+          c = i % (BM / 8);
+          const int k = k0 + r, m = m0 + c * 8;
+          bytes = k < K ? max(0, min(16, (M - m) * 2)) : 0;
+          src = bytes ? ap + (size_t)k * lda + m : ap;
+        }
+        cp_async16(base + p * kATile + tile_off<A_KCONT, BM, kTcBK>(r, c), src,
+                   bytes);
+      }
+    }
+    constexpr int kChunks = BN * kTcBK / 8;
+#pragma unroll
+    for (int it = 0; it < kChunks / kTcThreads; ++it) {
+      const int i = it * kTcThreads + tid;
+      int r, c, bytes;
+      const __nv_bfloat16* src;
+      if constexpr (B_KCONT) {    // rows n, BK / 8 chunks of k
+        r = i / (kTcBK / 8);
+        c = i % (kTcBK / 8);
+        const int n = n0 + r, k = k0 + c * 8;
+        bytes = n < N ? max(0, min(16, (K - k) * 2)) : 0;
+        src = bytes ? b + (size_t)n * ldb + k : b;
+      } else {                    // rows k, BN / 8 chunks of n
+        r = i / (BN / 8);
+        c = i % (BN / 8);
+        const int k = k0 + r, n = n0 + c * 8;
+        bytes = k < K ? max(0, min(16, (N - n) * 2)) : 0;
+        src = bytes ? b + (size_t)k * ldb + n : b;
+      }
+      cp_async16(base + NPIECE * kATile + tile_off<B_KCONT, BN, kTcBK>(r, c), src,
+                 bytes);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kTcStages - 2>();
+    // stage kt has landed for every thread; every warp is done with stage
+    // kt - 1, whose slot the next load reuses
+    __syncthreads();
+    const int nxt = kt + kTcStages - 1;
+    if (nxt < nk) load_stage(nxt % kTcStages, nxt);
+    cp_async_commit();
+
+    const uint32_t base = smem0 + (kt % kTcStages) * kStage;
+    const uint32_t b_base = base + NPIECE * kATile;
+#pragma unroll
+    for (int kk = 0; kk < kTcBK; kk += 16) {
+      // B's fragments once, reused by every piece and row tile
+      uint32_t bf[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t r[4];
+        const int nb = wn * WN + j * 8;
+        if constexpr (B_KCONT) {
+          ldsm_x4(b_base + tile_off<true, BN, kTcBK>(nb + (mi >> 1) * 8 + r8,
+                                                      kk / 8 + (mi & 1)),
+                  r);
+        } else {
+          ldsm_x4_t(b_base + tile_off<false, BN, kTcBK>(kk + (mi & 1) * 8 + r8,
+                                                         nb / 8 + (mi >> 1)),
+                    r);
+        }
+        bf[j][0] = r[0];
+        bf[j][1] = r[1];
+        bf[j + 1][0] = r[2];
+        bf[j + 1][1] = r[3];
+      }
+      // a k16 step's products (every piece) are summed by the tensor cores
+      // from zero and the step's sum added to the accumulator in fp32
+      // (round to nearest): their truncation acts on one step's terms, not
+      // on the running sum
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int mb = wm * WM + i * 16;
+        uint32_t af[NPIECE][4];  // lo, mid, hi: the smallest summed first
+#pragma unroll
+        for (int p = 0; p < NPIECE; ++p) {
+          const uint32_t a_base = base + (NPIECE - 1 - p) * kATile;
+          if constexpr (A_KCONT) {
+            ldsm_x4(a_base + tile_off<true, BM, kTcBK>(mb + (mi & 1) * 8 + r8,
+                                                        kk / 8 + (mi >> 1)),
+                    af[p]);
+          } else {
+            ldsm_x4_t(a_base + tile_off<false, BM, kTcBK>(
+                                   kk + (mi >> 1) * 8 + r8, mb / 8 + (mi & 1)),
+                      af[p]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int p = 0; p < NPIECE; ++p)
+            mma16816(t, af[p], bf[j][0], bf[j][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the epilogue on the accumulator fragments: c0, c1 at (g, 2q, 2q + 1),
+  // c2, c3 eight rows below
+  const float scale = epi.scale_dev != nullptr ? epi.scale_dev[0] : epi.scale;
+  const bool pair = epi.ldo_n == 1 && (epi.ldo_m & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * WM + i * 16 + g + h * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + wn * WN + j * 8 + 2 * q;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float s = acc[i][j][2 * h + e];
+          if (epi.approx) s = truncate3(s);
+          v[e] = s;
+        }
+        const size_t o = (size_t)m * epi.ldo_m + (size_t)n * epi.ldo_n;
+        if (pair && n + 1 < N) {
+          if (epi.raw != nullptr)
+            *reinterpret_cast<float2*>(epi.raw + o) = make_float2(v[0], v[1]);
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            y[e] = v[e] * scale;
+            if (epi.bias != nullptr) y[e] += epi.bias[epi.bias_on_m ? m : n + e];
+            y[e] = act_apply(y[e], epi.act);
+          }
+          *reinterpret_cast<float2*>(epi.out + o) = make_float2(y[0], y[1]);
+          continue;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (n + e >= N) continue;
+          const size_t oe = o + e * epi.ldo_n;
+          if (epi.raw != nullptr) epi.raw[oe] = v[e];
+          float y = v[e] * scale;
+          if (epi.bias != nullptr) y += epi.bias[epi.bias_on_m ? m : n + e];
+          epi.out[oe] = act_apply(y, epi.act);
+        }
+      }
+    }
+  }
+}
+
+template <class Tile, int NPIECE, bool AK, bool BK_>
+cudaError_t launch_mma(const void* a, long long a_plane, int lda,
+                       const void* b, int ldb, const TcEpilogue& epi, int M,
+                       int N, int K, cudaStream_t st) {
+  auto kern = sa_gemm_mma<Tile, NPIECE, AK, BK_>;
+  const int smem = Tile::smem(NPIECE);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + Tile::BN - 1) / Tile::BN, (M + Tile::BM - 1) / Tile::BM);
+  kern<<<grid, Tile::THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(a), a_plane, lda,
+      static_cast<const __nv_bfloat16*>(b), ldb, epi, M, N, K);
+  return cudaGetLastError();
+}
+
+template <class Tile, int NPIECE>
+cudaError_t launch_mma_layout(int a_kcont, int b_kcont, const void* a,
+                              long long a_plane, int lda, const void* b,
+                              int ldb, const TcEpilogue& epi, int M, int N,
+                              int K, cudaStream_t st) {
+  if (a_kcont && b_kcont)
+    return launch_mma<Tile, NPIECE, true, true>(a, a_plane, lda, b, ldb, epi,
+                                                M, N, K, st);
+  if (a_kcont)
+    return launch_mma<Tile, NPIECE, true, false>(a, a_plane, lda, b, ldb, epi,
+                                                 M, N, K, st);
+  if (b_kcont)
+    return launch_mma<Tile, NPIECE, false, true>(a, a_plane, lda, b, ldb, epi,
+                                                 M, N, K, st);
+  return launch_mma<Tile, NPIECE, false, false>(a, a_plane, lda, b, ldb, epi,
+                                                M, N, K, st);
+}
+
+// The three tiles the wrapper's `mma_plan` chooses from (a sweep on the
+// H100 chose them; PERF.md): the forward's from M = 1024 down to where its
+// blocks fill the card, 8 warps of 32 x 64 over 128 x 128 with 64-deep
+// stages two deep; below that 4 warps of 32 x 32 over 64 x 64; the split's
+// three A pieces take 32-deep stages three deep, so two 96 KB blocks share
+// an SM.
+using TileLarge = TcTile<128, 128, 4, 2, 64, 2>;
+using TileSmall = TcTile<64, 64, 2, 2, 64, 3>;
+using TileSplit = TcTile<128, 128, 4, 2, 32, 3>;
+
+// hi = bf16_rn(x), mid = bf16_rn(x - hi), lo = bf16_rn(x - hi - mid): both
+// differences are exact in fp32, and hi + mid + lo == x exactly wherever
+// lo's last bit, 2^(e - 23) for x in [2^e, 2^(e + 1)), is at or above
+// bf16's smallest subnormal 2^-133: for |x| >= 2^-110 (and for any x whose
+// low bits are zero). A finite x that would round to a bf16 infinity takes
+// hi toward zero instead, and the split stays exact; a non-finite x gives
+// (x, 0, 0).
+__device__ __forceinline__ void split3(float x, __nv_bfloat16& hi,
+                                       __nv_bfloat16& mid,
+                                       __nv_bfloat16& lo) {
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  hi = __float2bfloat16_rn(x);
+  if (!isfinite(x)) {
+    mid = lo = zero;
+    return;
+  }
+  if (isinf(__bfloat162float(hi))) hi = __float2bfloat16_rz(x);
+  const float r1 = x - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r1);
+  lo = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+}
+
+// x: rows x cols fp32 at x[r * ldx + c]; planes: three bf16 (rows, ldp)
+// planes, `plane` elements apart, the same layout with leading dim ldp
+__global__ void sa_split3(const float* __restrict__ x, int rows, int cols,
+                          long long ldx, __nv_bfloat16* __restrict__ planes,
+                          long long ldp, long long plane) {
+  const size_t total = (size_t)rows * cols;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t r = i / cols, c = i % cols;
+    __nv_bfloat16 hi, mid, lo;
+    split3(x[r * ldx + c], hi, mid, lo);
+    const size_t o = r * ldp + c;
+    planes[o] = hi;
+    planes[plane + o] = mid;
+    planes[2 * plane + o] = lo;
+  }
+}
+
 }  // namespace
 
 // dtype codes: 0 = fp32, 1 = bf16. tiled = 0 runs sa_gemm_partial (both
-// operands row-major with lda = K, ldw = N), 1 runs sa_gemm_tiled. `ws`
+// operands row-major with lda = K, ldw = N), 1 runs sa_gemm_tiled (the simt
+// route: fp32 operands only). `ws`
 // holds KS (M, N) partial sums; with KS == 1 it may be `out`.
 extern "C" int sa_matmul_launch(const void* a, int a_dt, int a_kcont, int lda,
                                 const void* w, int w_dt, int w_ncont, int ldw,
@@ -378,30 +804,12 @@ extern "C" int sa_matmul_launch(const void* a, int a_dt, int a_kcont, int lda,
   const int combo = a_dt * 2 + w_dt;
   cudaError_t err;
   if (tiled) {
-    switch (combo) {
-      case 0:
-        err = launch_tiled_layout<float, float>(a, w, a_kcont, w_ncont, lda,
-                                                ldw, wsf, epi, M, N, K, KS,
-                                                kslice, st);
-        break;
-      case 1:
-        err = launch_tiled_layout<float, __nv_bfloat16>(
-            a, w, a_kcont, w_ncont, lda, ldw, wsf, epi, M, N, K, KS, kslice,
-            st);
-        break;
-      case 2:
-        err = launch_tiled_layout<__nv_bfloat16, float>(
-            a, w, a_kcont, w_ncont, lda, ldw, wsf, epi, M, N, K, KS, kslice,
-            st);
-        break;
-      case 3:
-        err = launch_tiled_layout<__nv_bfloat16, __nv_bfloat16>(
-            a, w, a_kcont, w_ncont, lda, ldw, wsf, epi, M, N, K, KS, kslice,
-            st);
-        break;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    // the simt route: fp32 x fp32 (bf16 operands take the tensor cores,
+    // sa_mma_launch)
+    if (combo != 0) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_tiled_layout<float, float>(a, w, a_kcont, w_ncont, lda, ldw,
+                                            wsf, epi, M, N, K, KS, kslice,
+                                            st);
     if (err != cudaSuccess || KS == 1) return static_cast<int>(err);
   } else {
     switch (combo) {
@@ -430,5 +838,55 @@ extern "C" int sa_matmul_launch(const void* a, int a_dt, int a_kcont, int lda,
   const int blocks =
       static_cast<int>(std::min<size_t>((total + threads - 1) / threads, 4096));
   sa_gemm_epilogue<<<blocks, threads, 0, st>>>(wsf, epi, M, N, KS);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core routes. npiece 1: bf16 A (mma); 3: A's hi, mid, lo
+// planes `a_plane` elements apart (split3). Output (m, n) at m * ldo_m + n *
+// ldo_n, the bias indexed by m when bias_on_m (a transposed problem). small:
+// TileSmall, else TileLarge (npiece 3: TileSplit).
+extern "C" int sa_mma_launch(const void* a, int npiece, int a_kcont, int lda,
+                             long long a_plane, const void* b, int b_kcont,
+                             int ldb, const void* bias, int bias_on_m,
+                             void* out, void* raw, long long ldo_m,
+                             long long ldo_n, float scale,
+                             const void* scale_dev, int M, int N, int K,
+                             int act, int approx, int small, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  TcEpilogue epi{static_cast<const float*>(bias), static_cast<float*>(out),
+                 static_cast<float*>(raw), scale,
+                 static_cast<const float*>(scale_dev), ldo_m, ldo_n, act,
+                 approx, bias_on_m};
+  if (lda % 8 || ldb % 8 || a_plane % 8 ||
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (npiece == 1 && small)
+    err = launch_mma_layout<TileSmall, 1>(a_kcont, b_kcont, a, a_plane, lda,
+                                          b, ldb, epi, M, N, K, st);
+  else if (npiece == 1)
+    err = launch_mma_layout<TileLarge, 1>(a_kcont, b_kcont, a, a_plane, lda,
+                                          b, ldb, epi, M, N, K, st);
+  else if (npiece == 3)
+    err = launch_mma_layout<TileSplit, 3>(a_kcont, b_kcont, a, a_plane, lda,
+                                          b, ldb, epi, M, N, K, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
+}
+
+// x (rows, cols) fp32 at x[r * ldx + c] -> three bf16 planes (hi, mid, lo)
+// of (rows, ldp), `plane` elements apart
+extern "C" int sa_split3_launch(const void* x, int rows, int cols,
+                                long long ldx, void* planes, long long ldp,
+                                long long plane, void* stream) {
+  const size_t total = (size_t)rows * cols;
+  if (total == 0) return 0;
+  const int threads = 256;
+  const int blocks =
+      static_cast<int>(std::min<size_t>((total + threads - 1) / threads, 8192));
+  sa_split3<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), rows, cols, ldx,
+      static_cast<__nv_bfloat16*>(planes), ldp, plane);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,8 @@ from the kernel to the plain version.
 Each kernel module keeps two plain integers: `LAUNCHES` (kernel launches)
 and `PLAIN_CALLS` (calls of its plain version). `counts()` reads them and
 `reset_counts()` sets them to 0, so a run can show which path it took;
-`route_counts()` splits the prefill kernel's launches by route.
+`route_counts()` splits the SA GEMM's launches (forward and backward) and
+the prefill kernel's by route.
 """
 from __future__ import annotations
 
@@ -95,17 +96,20 @@ def counts() -> dict[str, dict[str, int]]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """The prefill kernel's launches by route (`mma` for bf16 and fp16
-    inputs, `simt` for fp32)."""
-    return {"prefill_attention": dict(_attn.ROUTE_LAUNCHES)}
+    """Launches by route: the SA GEMM's, forward and backward together
+    (`sa_matmul.gemm_route`: `partial`, `mma`, `split3`, `simt`), and the
+    prefill kernel's (`mma` for bf16 and fp16 inputs, `simt` for fp32)."""
+    return {"sa_matmul": dict(_mm.ROUTE_LAUNCHES),
+            "prefill_attention": dict(_attn.ROUTE_LAUNCHES)}
 
 
 def reset_counts():
     for m in _MODULES.values():
         m.LAUNCHES = 0
         m.PLAIN_CALLS = 0
-    for route in _attn.ROUTE_LAUNCHES:
-        _attn.ROUTE_LAUNCHES[route] = 0
+    for routes in (_attn.ROUTE_LAUNCHES, _mm.ROUTE_LAUNCHES):
+        for route in routes:
+            routes[route] = 0
     _mm.BWD_LAUNCHES = 0
     _mm.BWD_PLAIN_CALLS = 0
 

@@ -24,7 +24,10 @@ launch of either raises:
   fp32 accumulate), whose 16-bit operands are exactly the contract's
   cast-in q, k, P and v. A warp owns 16 query rows of one head; 64-key
   tiles of fp32 K and V arrive by cp.async while the previous tile
-  computes and are converted once per block into swizzled 16-bit tiles.
+  computes and are converted once per block into swizzled 16-bit tiles;
+  K and V already in the policy's 16-bit type (a 16-bit cache) are copied
+  by cp.async straight into those tiles, two deep, with no fp32 copy and
+  no conversion (the same bits the conversion would give).
   At serving lengths (T ≤ 128) neither the flops (0.17 µs at 989 TFLOP/s)
   nor the bytes (1.9 µs at 3.35 TB/s) bound a call: latency does, the
   loads and the 16-bit conversion of each block's key tiles, so a block
@@ -51,6 +54,8 @@ PLAIN_CALLS = 0    # calls of the plain version `flash_attention_ref`
 ROUTE_LAUNCHES = {"mma": 0, "simt": 0}   # the launches by route
 
 _INPUT_FORMATS = ("fp32", "bf16", "fp16")
+_KV_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_TYPE_16 = {"bf16": torch.bfloat16, "fp16": torch.float16}
 
 
 def _div_block(n, target):  # largest divisor of n that is <= target
@@ -145,10 +150,13 @@ MMA_WARPS = 8        # mma route: warps a block, 16 query rows each
 _SIMT_ROWS = 16      # simt route: 4 warps x 4 query rows
 
 
-def launch_plan(B: int, T: int, H: int, hd: int, input_format: str) -> dict:
+def launch_plan(B: int, T: int, H: int, hd: int, input_format: str,
+                kv16: bool = False) -> dict:
     """How `sa_attention_cuda` launches: the route (`mma` for bf16 and fp16
     inputs, `simt` for fp32), warps a block, query rows a block, the grid
-    (q tiles, H, B) and the dynamic shared memory a block.
+    (q tiles, H, B) and the dynamic shared memory a block (`kv16`: the mma
+    route reading K and V in the policy's 16-bit type, two 16-bit tile
+    pairs and no fp32 staging).
 
     The mma route's blocks have MMA_WARPS warps at every T: each block
     converts its key tiles to 16 bits once for all its warps: on the card
@@ -162,19 +170,22 @@ def launch_plan(B: int, T: int, H: int, hd: int, input_format: str) -> dict:
                 "smem": 4 * (rows * hd + 32 * (hd + 1) + 32 * hd)}
     else:
         rows = 16 * MMA_WARPS
-        # fp32 staging of a K and a V tile, and their 16-bit copies
+        # fp32 staging of a K and a V tile and their 16-bit copies; or, for
+        # 16-bit K and V, two 16-bit (K, V) tile pairs
         plan = {"route": "mma", "warps": MMA_WARPS,
-                "smem": KEY_TILE * hd * (2 * 4 + 2 * 2)}
+                "smem": KEY_TILE * hd * (2 * 2 * 2 if kv16
+                                         else 2 * 4 + 2 * 2)}
     plan.update(rows=rows, grid=(-(-T // rows), H, B))
     return plan
 
 
 def _strides(t) -> list:
-    """(batch, row, head) strides of a (B, rows, heads, hd) fp32 view whose
-    last dimension is contiguous and whose rows start on 16 bytes (0 for a
+    """(batch, row, head) strides of a (B, rows, heads, hd) view whose last
+    dimension is contiguous and whose rows start on 16 bytes (0 for a
     dimension of size 1), or a ValueError."""
     st = [s if n > 1 else 0 for s, n in zip(t.stride(), t.shape)]
-    if (t.stride(3) != 1 or any(s % 4 for s in st[:3])
+    per16 = 16 // t.element_size()
+    if (t.stride(3) != 1 or any(s % per16 for s in st[:3])
             or t.data_ptr() % 16):
         raise ValueError(f"sa_attention_cuda reads q, k, v through their "
                          f"strides; unsupported layout {tuple(t.shape)} "
@@ -184,11 +195,14 @@ def _strides(t) -> list:
 
 def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
                       q_offset=0, scale=None, policy=None):
-    """Launch the prefill flash kernel. q (B, T, H, hd), k/v (B, S, KVH,
-    hd) fp32 on one CUDA device, any strides with the last dimension
-    contiguous → (B, T, H, hd) contiguous. The route follows the policy's
-    input format (`launch_plan`): `mma` (tensor cores) for bf16 and fp16,
-    hd 64 or 128; `simt` for fp32, hd a multiple of 32 up to 128."""
+    """Launch the prefill flash kernel. q (B, T, H, hd) fp32, k/v (B, S,
+    KVH, hd) fp32, bf16 or fp16 (one type), on one CUDA device, any strides
+    with the last dimension contiguous → (B, T, H, hd) contiguous. The
+    route follows the policy's input format (`launch_plan`): `mma` (tensor
+    cores) for bf16 and fp16, hd 64 or 128, which reads 16-bit K and V of
+    the policy's type as they are (another 16-bit type is cast in first,
+    exactly as `cast_in` does); `simt` for fp32, hd a multiple of 32 up to
+    128, which widens 16-bit K and V to fp32."""
     global LAUNCHES
     from repro_torch.core.precision import current_policy
     from .build import check, function
@@ -208,7 +222,11 @@ def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
                              "device")
     B, T, H, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
-    plan = launch_plan(B, T, H, hd, policy.input_format)
+    if k.dtype not in _KV_DTYPES or v.dtype != k.dtype:
+        raise ValueError(f"unsupported K/V types {k.dtype}, {v.dtype}")
+    kv16 = (policy.input_format != "fp32"
+            and k.dtype in (torch.bfloat16, torch.float16))
+    plan = launch_plan(B, T, H, hd, policy.input_format, kv16)
     route = plan["route"]
     hd_ok = hd in (64, 128) if route == "mma" else hd % 32 == 0 and hd <= 128
     if H % KVH or not hd_ok or v.shape != k.shape:
@@ -216,7 +234,9 @@ def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
                          f"k {tuple(k.shape)} v {tuple(v.shape)} for the "
                          f"{route} route")
     scale = scale or hd ** -0.5
-    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    q = q.to(torch.float32)
+    kv_dtype = _TYPE_16[policy.input_format] if kv16 else torch.float32
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
     strides = [*_strides(q), *_strides(k), *_strides(v)]
     out = torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device)
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -228,9 +248,9 @@ def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if route == "mma":
         fn = function("sa_attention", "sa_attention_mma_launch",
-                      common + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        err = fn(*head, int(policy.input_format == "fp16"), plan["warps"],
-                 plan["smem"], stream)
+                      common + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        err = fn(*head, int(policy.input_format == "fp16"), int(kv16),
+                 plan["warps"], plan["smem"], stream)
     else:
         fn = function("sa_attention", "sa_attention_simt_launch",
                       common + [ctypes.c_int, ctypes.c_void_p])

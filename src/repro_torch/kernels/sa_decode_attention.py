@@ -26,6 +26,13 @@ bytes); at long slots by the two dependent passes over the pool (K, then
 V), each warp holding 8 rows in flight, short of the bytes' bound (38 %
 at 2048-token slots, PERF.md). A slot's length is limited by the cluster's shared memory (about 165,000
 tokens at g = 5, hd = 128, over 16 blocks), not by one block's.
+
+The pools may be fp32, bf16 or fp16 (`ServeEngine(cache_dtype=)`, as the
+reference takes): the pool type is a template parameter of the kernel's
+row loads, and each value is widened exactly and cast in as before, so the
+order of the sums does not depend on it. Under the bf16 policy a bf16 pool
+gives the fp32 pool's output bit for bit (its values are the fp32 ones
+rounded once, as cast_in rounds them), and halves the bytes.
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ PLAIN_CALLS = 0    # calls of the plain version `paged_decode_ref`
 
 _SUPPORTED_INPUT_FORMATS = ("fp32", "bf16", "fp16")
 _FMT_CODE = {"fp32": 0, "bf16": 1, "fp16": 2}
+# the pools' element types the kernel reads (both pools one type)
+POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def fused_decode_supported(policy) -> bool:
@@ -134,7 +143,8 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
                       *, window: int = 0, cap: float = 0.0, scale=None,
                       policy=None, n_split: int | None = None):
     """Launch the paged decode kernel. q (B, 1, H, hd) fp32; pools
-    (n_pages, psz, KVH, hd) fp32; page_positions (n_pages, psz) int32;
+    (n_pages, psz, KVH, hd) fp32, bf16 or fp16 (both one type; a 16-bit
+    pool is widened exactly, then cast in as an fp32 one); page_positions (n_pages, psz) int32;
     block_table (B, P) int32; pos (B,) int32 → (B, 1, H, hd) fp32. g = H /
     KVH up to 8, hd 64, 128 or 256. `n_split` fixes the cluster size of
     `split_plan` (tests of the split; default: the plan's)."""
@@ -157,8 +167,8 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
     P = block_table.shape[1]
     g = H // KVH
     if (H % KVH or not 1 <= g <= 8 or hd not in (64, 128, 256)
-            or k_pool.dtype != torch.float32
-            or v_pool.dtype != torch.float32):
+            or k_pool.dtype not in POOL_DTYPES
+            or v_pool.dtype != k_pool.dtype):
         raise ValueError(f"unsupported paged decode operands q "
                          f"{tuple(q.shape)} pool {tuple(k_pool.shape)} "
                          f"{k_pool.dtype}")
@@ -174,13 +184,14 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
     out = torch.empty((B, 1, H, hd), dtype=torch.float32, device=q.device)
     fn = function("sa_decode_attention", "paged_decode_launch",
                   [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                  + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
+                  + [ctypes.c_float] * 3 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              pp.data_ptr(), bt.data_ptr(), ps.data_ptr(), out.data_ptr(),
              B, KVH, g, hd, psz, P, *plan, float(scale),
              float(scale / cap) if cap else 0.0, cap, int(window),
              _FMT_CODE[policy.input_format], int(policy.mode == "approx"),
+             POOL_DTYPES[k_pool.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "paged_decode")
     LAUNCHES += 1

@@ -9,35 +9,57 @@ this order — `truncate_mantissa` (approx only) → × scale → + bias → act
 and one fp32 write, optionally beside the raw fp32 accumulator (taken
 after the truncation, before the scale) that the backward needs.
 
-The kernel (`csrc/sa_matmul.cu`) is SIMT fp32 FMA in two shapes. At the
-serving shapes (M < 256) it is bound by bytes: decode runs at M = batch
-(4), so every weight element is read once for 2·M flops, far below the
-card's ~295 flops per byte; a block owns 64 output columns and up to 8
-rows of A and K is split across blocks (deterministic split-K, partials
-reduced in a fixed order by a second kernel that also runs the epilogue)
-so that narrow N (1024 for wk/wv) still fills the 132 SMs. At training
-shapes (1024 tokens a microbatch) and in every backward GEMM it is bound
-by fp32 FMAs: a 128 × 128 output tile per block, 8 × 8 per thread, K
-tiles staged in shared memory, each operand read in place through its
-strides (Wᵀ and Aᵀ are views, never copies, and W is never upcast in
-memory). Neither uses tensor cores (`wgmma` is later work).
+The kernel library (`csrc/sa_matmul.cu`) has four routes, chosen by
+`gemm_route` from the rows and the operand types (not as fallbacks: a
+failed build or launch of any route raises) and counted apart in
+`ROUTE_LAUNCHES`:
+
+* `partial` — decode (M < TILED_MIN_M, row-major operands). Bound by
+  bytes: every weight is read once for 2·M flops. SIMT fp32 FMA, a block
+  per 64 columns and 8 rows, K split across blocks (slices added in
+  order by the epilogue kernel) so narrow N fills the SMs.
+* `mma` — bf16 × bf16 from M = TILED_MIN_M: the forward under the bf16
+  and FP8 policies (`cast_in` gives bf16 on the card). `mma.sync`
+  m16n8k16 on the tensor cores, fp32 accumulate; operand tiles staged by
+  cp.async into XOR-swizzled shared memory and read by ldmatrix (`.trans`
+  for a row-contiguous operand), so either operand is read in place
+  through its strides. Bound by the tensor cores at training shapes (M =
+  1024), by W's bytes at prefill's M; `mma_plan` takes 64 × 64 block
+  tiles where the large ones leave SMs idle. K is never split: every
+  output's sum runs in one thread, k16 steps in order, whatever M or the
+  tile, so a row's result does not depend on the other rows (ROADMAP F2).
+* `split3` — one fp32 and one bf16 operand: both backward GEMMs (dA =
+  dus·Wᵀ, dW = Aᵀ·dus, fp32 × bf16 products in exact mode). The fp32
+  operand is split once (`split3_cuda`, shared by dA and dW) into three
+  bf16 pieces with hi + mid + lo = x exactly; each piece × bf16 is exact
+  in fp32, so the tensor cores form exactly the reference's products and
+  only the order of the sums differs. Three `mma` run on each fragment of
+  the bf16 operand, loaded once. With the fp32 operand on the weight side
+  the problem is transposed (Cᵀ = Wᵀ·Aᵀ) and written through strides.
+  Three times `mma`'s products.
+* `simt` — fp32 × fp32 (the fp32 policy): the 128 × 128 SIMT FMA kernel
+  of the earlier design (fp32 has no exact tensor-core type).
 
 `SAMatmulFn` is the gradient, as the JAX package's VJP: the raw
 accumulator is kept only when the activation or a real scale needs it,
 `du` is the activation's VJP at `u = raw·scale + bias`, and dA = du·s·Wᵀ
-and dW = Aᵀ·du·s run through the same kernel with fp32 operands in exact
-mode (the approx tier is forward only). On a CPU tensor every GEMM runs
-the plain version.
+and dW = Aᵀ·du·s run through the same kernel with fp32 dus in exact mode
+(the approx tier is forward only). On a CPU tensor every GEMM runs the
+plain version.
 
 The sum's order differs from XLA's and from the plain version's; the
-contract holds it to a reassociation bound (`error_bound`).
+contract holds it to a per-route bound (`error_bound`), and the tensor-core
+routes to the sharper `split_check` as well.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
+
+from .sa_attention import TC_GROUP
 
 EPILOGUES = ("none", "relu", "gelu", "silu")
 MODES = ("exact", "approx")
@@ -50,14 +72,21 @@ LAUNCHES = 0          # forward kernel launches (`sa_matmul_cuda`)
 PLAIN_CALLS = 0       # calls of the plain version `sa_matmul_ref`
 BWD_LAUNCHES = 0      # backward GEMM launches (dA and dW: two a backward)
 BWD_PLAIN_CALLS = 0   # backward GEMMs through the plain version
+# every GEMM launch, forward and backward, by route (`gemm_route`)
+ROUTES = ("partial", "mma", "split3", "simt")
+ROUTE_LAUNCHES = {r: 0 for r in ROUTES}
 
 _ACT_CODE = {a: i for i, a in enumerate(EPILOGUES)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _COLS_PER_BLOCK = 64
 _ROWS_PER_BLOCK = 8
-_TILE = 128           # the tiled kernel's output tile (rows and columns)
+_TILE = 128           # the simt kernel's output tile (rows and columns)
 _TILE_K = 16          # ... and its K stage depth
-TILED_MIN_M = 256     # rows from which the forward takes the tiled kernel
+TILED_MIN_M = 8       # rows from which a GEMM takes a tiled route
+# the tensor-core kernel's tiles (csrc/sa_matmul.cu TileLarge, TileSmall,
+# TileSplit): (block rows, block columns, warps, K stage depth, stages)
+MMA_TILES = {"large": (128, 128, 8, 64, 2), "small": (64, 64, 4, 64, 3),
+             "split3": (128, 128, 8, 32, 3)}
 
 
 def truncate_mantissa(y: torch.Tensor, bits: int = APPROX_DROP_BITS
@@ -124,11 +153,44 @@ def split_k(m: int, n: int, k: int, sms: int = 132) -> int:
 
 
 def tiled_split_k(m: int, n: int, k: int, sms: int = 132) -> int:
-    """K slices of the tiled kernel: two waves of two blocks per SM where
+    """K slices of the simt route: two waves of two blocks per SM where
     the output tiles alone give fewer, each slice at least 1024 deep."""
     base = -(-m // _TILE) * -(-n // _TILE)
     want = -(-4 * sms // base)
     return max(1, min(want, k // 1024, 16))
+
+
+def gemm_route(m: int, a_dtype, w_dtype, a_kcont: bool = True,
+               w_ncont: bool = True) -> str:
+    """The kernel a GEMM of m rows runs: `partial` (split-K SIMT, row-major
+    operands, m < TILED_MIN_M: decode); else by the operand types: `mma`
+    (bf16 x bf16, tensor cores), `split3` (one fp32 and one bf16 operand,
+    the fp32 one split into three bf16 pieces, tensor cores) or `simt`
+    (fp32 x fp32)."""
+    if m < TILED_MIN_M and a_kcont and w_ncont:
+        return "partial"
+    bf = (a_dtype == torch.bfloat16, w_dtype == torch.bfloat16)
+    return "mma" if all(bf) else "split3" if any(bf) else "simt"
+
+
+def mma_plan(m: int, n: int, route: str, sms: int = 132) -> dict:
+    """How the tensor-core kernel covers an (m, n) output: `npiece` bf16
+    pieces of A (1 for `mma`, 3 for `split3`), the tile (`MMA_TILES`:
+    `mma` takes the large one where its blocks fill the SMs and the small
+    one below that; `split3` its own), the grid (n tiles, m tiles) and each
+    block's shared memory. K is never split: each output's sum runs k =
+    0..K-1 in one thread whatever m or the tile, so a row's result does not
+    depend on the other rows (ROADMAP F2)."""
+    npiece = 3 if route == "split3" else 1
+    if npiece == 3:
+        tile = "split3"
+    else:
+        bm, bn = MMA_TILES["large"][:2]
+        tile = "large" if -(-m // bm) * -(-n // bn) >= sms else "small"
+    bm, bn, warps, bk, stages = MMA_TILES[tile]
+    return {"npiece": npiece, "tile": tile, "block": (bm, bn),
+            "warps": warps, "grid": (-(-n // bn), -(-m // bm)),
+            "smem": stages * (npiece * bm + bn) * bk * 2}
 
 
 _SMS: dict = {}
@@ -154,8 +216,123 @@ def _operand(t: torch.Tensor):
     return t, True, c
 
 
-def _launch(a, w, bias, scale, act, mode, save_raw):
-    """One kernel launch: (out, raw or None), both (M, N) fp32."""
+def _aligned(st: torch.Tensor, ld: int):
+    """A bf16 operand's storage matrix `st` (last dimension contiguous,
+    leading dimension ld) and ld, copied to a leading dimension that is a
+    multiple of 8 elements where the tensor-core kernel's 16-byte copies
+    need one (ragged shapes only: every shape of the model's path is
+    aligned)."""
+    r, c = st.shape
+    if ld % 8 == 0 and st.data_ptr() % 16 == 0:
+        return st, ld
+    buf = torch.empty((r, -(-c // 8) * 8), dtype=st.dtype, device=st.device)
+    buf[:, :c] = st
+    return buf[:, :c], buf.shape[1]
+
+
+def split3_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split: (3, ...) bf16, hi = bf16_rn(x), mid =
+    bf16_rn(x − hi), lo = bf16_rn(x − hi − mid), so hi + mid + lo = x
+    exactly for |x| ≥ 2⁻¹¹⁰ (`split3_cuda`). A finite x beyond bf16's
+    largest value takes hi toward zero; a non-finite x gives (x, 0, 0)."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    over = torch.isinf(hi) & torch.isfinite(x)
+    if bool(over.any()):
+        rz = (x.view(torch.int32) & -65536).view(torch.float32)
+        hi = torch.where(over, rz.to(torch.bfloat16), hi)
+    fin = torch.isfinite(x)
+    r1 = torch.where(fin, x - hi.float(), 0.0)
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
+
+
+def _split3_planes(st: torch.Tensor, ld: int) -> tuple[torch.Tensor, int]:
+    """The three bf16 planes (3, rows, ldp) of an fp32 matrix stored as
+    `st` (last dimension contiguous, leading dimension ld), and ldp."""
+    from .build import check, function
+
+    r, c = st.shape
+    ldp = -(-c // 8) * 8
+    planes = torch.empty((3, r, ldp), dtype=torch.bfloat16, device=st.device)
+    fn = function("sa_matmul", "sa_split3_launch",
+                  [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_void_p])
+    err = fn(st.data_ptr(), r, c, ld, planes.data_ptr(), ldp, r * ldp,
+             torch.cuda.current_stream(st.device).cuda_stream)
+    check(err, "sa_split3")
+    return planes, ldp
+
+
+def split3_cuda(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's split of a 2-D fp32 tensor on the card (the pre-pass of
+    the `split3` route): (3, rows, cols) bf16, hi, mid, lo."""
+    if not x.is_cuda or x.dtype != torch.float32 or x.ndim != 2:
+        raise ValueError("split3_cuda takes a 2-D fp32 CUDA tensor")
+    t, lastcontig, ld = _operand(x)
+    st = t if lastcontig else t.t()
+    planes, _ = _split3_planes(st, ld)
+    planes = planes[:, :, :st.shape[1]]
+    return planes if lastcontig else planes.transpose(1, 2)
+
+
+def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
+               scale_dev, act, mode, out, raw, planes):
+    """One launch of the tensor-core kernel (`mma` or `split3`). The
+    kernel's A carries the pieces: under `split3` with the fp32 operand on
+    the weight side the problem is transposed (C^T = W^T A^T) and written
+    back through the output's strides."""
+    from .build import check, function
+
+    m, k = a.shape
+    n = w.shape[1]
+    trans = route == "split3" and a.dtype == torch.bfloat16
+    if trans:   # A' = W^T (fp32), B' = A^T; C' (n, m) into out (m, n)
+        A, A_kc, A_ld, B, B_kc, B_ld = w.t(), not w_ncont, ldw, a.t(), \
+            a_kcont, lda
+        M, N, ldo = n, m, (1, n)
+    else:
+        A, A_kc, A_ld, B, B_kc, B_ld = a, a_kcont, lda, w, not w_ncont, ldw
+        M, N, ldo = m, n, (n, 1)
+    # storage views: A (M, K) stored K-contiguous or as (K, M); B (K, N)
+    # stored K-contiguous as (N, K) or as (K, N)
+    a_st = A if A_kc else A.t()
+    b_st = B.t() if B_kc else B
+    b_st, ldb = _aligned(b_st, B_ld)
+    if route == "split3":
+        if planes is None:
+            planes, lda_k = _split3_planes(a_st, A_ld)
+        else:
+            lda_k = planes.shape[2]
+        a_ptr, a_plane = planes.data_ptr(), planes.shape[1] * lda_k
+    else:
+        a_st, lda_k = _aligned(a_st, A_ld)
+        a_ptr, a_plane = a_st.data_ptr(), 0
+    plan = mma_plan(M, N, route, _sm_count(out.device))
+    fn = function("sa_matmul", "sa_mma_launch",
+                  [ctypes.c_void_p] + [ctypes.c_int] * 3
+                  + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                  + [ctypes.c_longlong] * 2
+                  + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 6
+                  + [ctypes.c_void_p])
+    err = fn(a_ptr, plan["npiece"], int(A_kc), lda_k, a_plane,
+             b_st.data_ptr(), int(B_kc), ldb,
+             None if bias is None else bias.data_ptr(), int(trans),
+             out.data_ptr(), None if raw is None else raw.data_ptr(), *ldo,
+             1.0 if scale is None or scale_dev is not None else float(scale),
+             None if scale_dev is None else scale_dev.data_ptr(),
+             M, N, k, _ACT_CODE[act], int(mode == "approx"),
+             int(plan["tile"] == "small"),
+             torch.cuda.current_stream(out.device).cuda_stream)
+    check(err, f"sa_matmul ({route})")
+
+
+def _launch(a, w, bias, scale, act, mode, save_raw, planes=None):
+    """One kernel launch: (out, raw or None), both (M, N) fp32. `planes`:
+    the fp32 operand's three bf16 pieces, already split (`split3` only)."""
     from .build import check, function
 
     _check_args(a, w, bias, act, mode)
@@ -184,7 +361,13 @@ def _launch(a, w, bias, scale, act, mode, save_raw):
         return out, raw
     a, a_kcont, lda = _operand(a)
     w, w_ncont, ldw = _operand(w)
-    tiled = m >= TILED_MIN_M or not (a_kcont and w_ncont)
+    route = gemm_route(m, a.dtype, w.dtype, a_kcont, w_ncont)
+    if route in ("mma", "split3"):
+        _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
+                   scale_dev, act, mode, out, raw, planes)
+        ROUTE_LAUNCHES[route] += 1
+        return out, raw
+    tiled = route == "simt"
     sms = _sm_count(a.device)
     if tiled:
         ks = tiled_split_k(m, n, k, sms)
@@ -209,7 +392,8 @@ def _launch(a, w, bias, scale, act, mode, save_raw):
              None if scale_dev is None else scale_dev.data_ptr(),
              m, n, k, ks, kslice, _ACT_CODE[act], int(mode == "approx"),
              int(tiled), torch.cuda.current_stream(a.device).cuda_stream)
-    check(err, "sa_matmul")
+    check(err, f"sa_matmul ({route})")
+    ROUTE_LAUNCHES[route] += 1
     return out, raw
 
 
@@ -236,16 +420,22 @@ def backward_gemms_ref(a: torch.Tensor, w: torch.Tensor, dus: torch.Tensor):
     return torch.matmul(dus, w32.t()), torch.matmul(a32.t(), dus)
 
 
-def backward_gemms(a: torch.Tensor, w: torch.Tensor, dus: torch.Tensor):
+def backward_gemms(a: torch.Tensor, w: torch.Tensor, dus: torch.Tensor,
+                   planes: torch.Tensor | None = None):
     """dA = dus·Wᵀ (M, K) and dW = Aᵀ·dus (K, N), fp32, exact mode, no
     epilogue: on a CUDA tensor two kernel launches, reading Wᵀ and Aᵀ
-    through their strides; on the CPU the plain version."""
+    through their strides; on the CPU the plain version. With a bf16 A or
+    W the fp32 dus is split once into three bf16 pieces (`split3`), shared
+    by both GEMMs; `planes` passes that split in (tests plant faults
+    there)."""
     global BWD_LAUNCHES
     if dus.device.type == "cpu":
         return backward_gemms_ref(a, w, dus)
     dus = dus.to(torch.float32).contiguous()
-    da, _ = _launch(dus, w.t(), None, None, "none", "exact", False)
-    dw, _ = _launch(a.t(), dus, None, None, "none", "exact", False)
+    if planes is None and torch.bfloat16 in (a.dtype, w.dtype):
+        planes, _ = _split3_planes(dus, dus.shape[1])
+    da, _ = _launch(dus, w.t(), None, None, "none", "exact", False, planes)
+    dw, _ = _launch(a.t(), dus, None, None, "none", "exact", False, planes)
     BWD_LAUNCHES += 2
     return da, dw
 
@@ -314,25 +504,124 @@ def needs_grad(*tensors) -> bool:
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
+def _route_of(a, w) -> str:
+    """The route `sa_matmul_cuda` takes for these operands."""
+    a2 = a.reshape(-1, a.shape[-1]) if a.ndim != 2 else a
+    _, a_kc, _ = _operand(a2)
+    _, w_nc, _ = _operand(w)
+    return gemm_route(a2.shape[0], a.dtype, w.dtype, a_kc, w_nc)
+
+
+def chain_terms(k: int, route: str) -> float:
+    """Units of 2⁻²⁴·Σ|a||w| by which kernel and plain version may differ
+    on a K-deep sum, per route (see `error_bound`)."""
+    steps = -(-k // 16)               # fp32 adds of the k16 steps' sums
+    if route == "mma":                # 16 exact products a step; plain K
+        return 2 * (16 + 16 // TC_GROUP) + steps + k
+    if route == "split3":             # 48 a step, pieces ≤ (1 + 2⁻⁶)|x|;
+        return (2 * (48 + 48 // TC_GROUP) * (1 + 2.0 ** -6) + steps
+                + 2 * k)              # plain: K sums, K rounded products
+    return 2 * k                      # simt, partial: fp32 chains both
+
+
 def error_bound(a: torch.Tensor, w: torch.Tensor, scale=None,
-                mode: str = "exact", y: torch.Tensor | None = None
-                ) -> torch.Tensor:
-    """Per-output bound on |kernel − plain| (R1). Each fp32 sum of the K
-    products is within (K−1)·2⁻²⁴·Σ|a||w| of the exact sum, whatever its
-    order; a product of two bf16 values is exact in fp32, and a product
-    with an fp32 operand (the backward GEMMs) is either fused into the
-    FMA or rounded once, which adds at most one more 2⁻²⁴·|a||w| per term.
-    So two implementations differ by at most 2·K·2⁻²⁴·Σ|a||w| for bf16 and
-    fp32 operands alike. Approx mode adds one truncation quantum (8 ulp of
-    the chain, ≤ 2⁻¹⁹·Σ|a||w|); the epilogue's activation (slope ≤ 1.13)
-    and its own roundings add a few ulp of |y|."""
+                mode: str = "exact", y: torch.Tensor | None = None,
+                route: str | None = None) -> torch.Tensor:
+    """Per-output bound on |kernel − plain|, for the route the kernel takes
+    on these operands (`gemm_route`; `route` overrides it).
+
+    The plain version is fp32 `torch.matmul` of the upcast operands: its
+    K − 1 fp32 additions each err by at most 2⁻²⁴ of a partial sum, and a
+    product with an fp32 operand is rounded once (or fused), so it is
+    within 2·K·2⁻²⁴·Σ|a||w| of the exact sum whatever its order (R1).
+
+    * `simt`, `partial` (fp32 FMA chains, split-K slices added in order):
+      the same 2·K·2⁻²⁴·Σ|a||w|, so the two differ by at most 2·K units
+      (2⁻²⁴·Σ|a||w|) for bf16 and fp32 operands alike.
+    * `mma` (bf16 × bf16 on tensor cores): the products are exact. Each
+      k16 step's 16 products are summed by the tensor cores from zero,
+      and they do not round each addition: a group of n_g ≥ TC_GROUP
+      products and the running sum are aligned to the largest exponent
+      and truncated, then added, and the sum is truncated once more (Fasi
+      et al., 2021). That is n_g + 1 errors a group, each under 2⁻²³ of
+      the step's Σ|a||w| (S_s): ≤ (16 + 4)·2⁻²³·S_s a step, 40 units of
+      S_s, and 40 units of Σ|a||w| over all steps. Each step's sum is
+      then added to the fp32 accumulator, rounded to nearest: ⌈K/16⌉
+      additions, each within 2⁻²⁴ of a partial sum ≤ Σ|a||w|. The plain
+      version (exact bf16 products) is within K units: together
+      40 + ⌈K/16⌉ + K.
+    * `split3` (fp32 x against bf16 w): x = hi + mid + lo exactly
+      (`split3_ref`), each piece × w is exact, so a step sums 48 exact
+      products with |hi| + |mid| + |lo| ≤ (1 + 2⁻⁶)·|x|: 2·(48 + 12)·
+      (1 + 2⁻⁶) units, plus the ⌈K/16⌉ additions, plus the plain
+      version's 2K.
+
+    Approx mode adds one truncation quantum (8 ulp of the chain, ≤
+    2⁻¹⁹·Σ|a||w|); the epilogue's activation (slope ≤ 1.13) and its own
+    roundings add a few ulp of |y|. Nothing else widens it.
+
+    This bound holds for any order of the sums, and so it is far wider
+    than what a kernel that drops the split would err by: at K = 5120,
+    2·K·2⁻²⁴·Σ|a||w| is ~3·t for t a typical |a·w| sum with random signs,
+    while rounding dus once to bf16 errs by ~√K·2⁻⁹·t/√3 ≈ 0.08·t.
+    `split_check` is the sharper test that catches that fault (and a
+    kernel that left the truncation on the running sum)."""
     k = a.shape[-1]
+    route = route or _route_of(a, w)
     s = abs(1.0 if scale is None else float(scale))
     mag = torch.matmul(a.to(torch.float32).abs(), w.to(torch.float32).abs())
-    bound = 2.0 * k * 2.0 ** -24 * mag
+    bound = chain_terms(k, route) * 2.0 ** -24 * mag
     if mode == "approx":
         bound = bound + 2.0 ** -19 * mag
     bound = 1.13 * s * bound
     if y is not None:
         bound = bound + 2.0 ** -20 * y.abs()
     return bound + 1e-30
+
+
+# the split check's constant: its allowance over the typical size of the
+# tensor-core kernel's own error (see `split_check`)
+SPLIT_CHECK_C = 4
+
+
+def split_check(a: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
+                route: str | None = None) -> float:
+    """The sharper check of a tensor-core GEMM y ≈ a @ w (no epilogue):
+    R = max_ij |y − e|_ij / (E_lib + T_ij), with e the fp64 product, E_lib
+    = max_ij |fp32 torch.matmul(a, w) − e| (TF32 off: the library's own
+    fp32 error) and T_ij the typical size of the kernel's error, times
+    SPLIT_CHECK_C:
+
+        T_ij = C·2⁻²³·(√⌈K/16⌉·(|e_ij| + σ_ij) + 64·n·σ_ij),
+        σ_ij = √(Σ_k a_ik² w_kj²)   (the random walk of the partial sums),
+
+    n the pieces a step (3 for `split3`, 1 for `mma`). The first term is
+    the ⌈K/16⌉ round-to-nearest additions of the steps' sums into the
+    accumulator (each within 2⁻²⁴ of a partial sum of size |e| + σ, signs
+    at random); the second the tensor cores' truncation inside the steps
+    (≤ (16n + 4n)·2⁻²³ of a step's magnitude, at random across steps:
+    ~10·n·2⁻²³·σ, with room). A right kernel gives R well under 1. One
+    that rounds the fp32 operand once to bf16 errs by ~2⁻⁹·σ/√3 an output
+    (~1.1e-3·σ, against T ≈ 1e-4·σ at K = 5120 and ≈ 2e-4·σ at K =
+    153600): R > 1. One that leaves the truncation on the running sum errs
+    by ~(3K/16)/4 units of 2⁻²³·σ, growing with K. Dropping only the lo
+    piece errs by ~2⁻¹⁷·σ and is not caught. Returns R."""
+    k = a.shape[-1]
+    route = route or _route_of(a, w)
+    pieces = 3 if route == "split3" else 1
+    a64, w64 = a.to(torch.float64), w.to(torch.float64)
+    e = torch.matmul(a64, w64)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib = torch.matmul(a.to(torch.float32), w.to(torch.float32))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    e_lib = float((lib.to(torch.float64) - e).abs().max())
+    del lib
+    sigma = torch.matmul(a64 * a64, w64 * w64).sqrt_()
+    t = (SPLIT_CHECK_C * 2.0 ** -23) * (
+        math.sqrt(-(-k // 16)) * (e.abs() + sigma) + 64 * pieces * sigma)
+    del sigma, a64, w64
+    return float(((y.to(torch.float64) - e).abs() / (e_lib + t + 1e-300))
+                 .max())

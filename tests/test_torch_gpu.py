@@ -81,28 +81,43 @@ def _pool(dev, B=4, KVH=8, grp=5, hd=128, psz=16, P=9, lens=(144, 100, 40,
 SERVE_LENS = (144, 100, 40, 0)
 
 
-@pytest.mark.parametrize("fmt,mode,window,cap,lens,n_split", [
-    ("bf16", "exact", 0, 0.0, SERVE_LENS, None),
-    ("bf16", "approx", 64, 50.0, SERVE_LENS, None),
-    ("fp32", "exact", 0, 0.0, SERVE_LENS, None),
-    ("fp16", "exact", 0, 0.0, SERVE_LENS, None),
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+
+
+@pytest.mark.parametrize("fmt,mode,window,cap,lens,n_split,pool", [
+    ("bf16", "exact", 0, 0.0, SERVE_LENS, None, F32),
+    ("bf16", "approx", 64, 50.0, SERVE_LENS, None, F32),
+    ("fp32", "exact", 0, 0.0, SERVE_LENS, None, F32),
+    ("fp16", "exact", 0, 0.0, SERVE_LENS, None, F32),
     # cluster runs of 24 keys (ends inside pages), 48 (on page boundaries)
     # and 16 (9 blocks: the non-portable cluster size)
-    ("bf16", "exact", 0, 0.0, SERVE_LENS, 6),
-    ("fp32", "approx", 0, 0.0, SERVE_LENS, 3),
-    ("bf16", "exact", 0, 0.0, SERVE_LENS, 16),
-    ("bf16", "exact", 0, 0.0, (2048, 1000, 17, 0), None),
+    ("bf16", "exact", 0, 0.0, SERVE_LENS, 6, F32),
+    ("fp32", "approx", 0, 0.0, SERVE_LENS, 3, F32),
+    ("bf16", "exact", 0, 0.0, SERVE_LENS, 16, F32),
+    ("bf16", "exact", 0, 0.0, (2048, 1000, 17, 0), None, F32),
     # a slot whose scores exceed one block's shared memory
-    ("bf16", "exact", 100, 0.0, (12288, 2049, 0, 5), None),
+    ("bf16", "exact", 100, 0.0, (12288, 2049, 0, 5), None, F32),
+    # 16-bit pools (`ServeEngine(cache_dtype=)`), each policy
+    ("bf16", "exact", 0, 0.0, SERVE_LENS, None, BF16),
+    ("bf16", "approx", 64, 50.0, SERVE_LENS, 6, BF16),
+    ("bf16", "exact", 0, 0.0, SERVE_LENS, None, F16),
+    ("fp16", "exact", 0, 0.0, SERVE_LENS, None, F16),
+    ("fp16", "exact", 0, 0.0, SERVE_LENS, 16, BF16),
+    ("fp32", "exact", 0, 0.0, SERVE_LENS, None, BF16),
+    ("bf16", "exact", 0, 0.0, (2048, 1000, 17, 0), None, BF16),
 ])
 def test_paged_decode_matches_plain(cuda, fmt, mode, window, cap, lens,
-                                    n_split):
+                                    n_split, pool):
     """Within the bound of the plain version (the trash page is NaN and
     never read, the empty slot gives zeros), bit-identical across calls,
     and the bound rejects a decode that masks out the token just
-    written."""
+    written. A 16-bit pool holds the fp32 pool's values rounded once; where
+    the policy casts in to that same type, the output is the fp32 pool's
+    bit for bit."""
     q, k, v, pp, bt, pos = _pool(cuda, P=-(-max(lens) // 16), lens=lens)
     pol = PrecisionPolicy(input_format=fmt, mode=mode)
+    k32, v32 = k, v
+    k, v = k.to(pool), v.to(pool)
     if n_split is None:
         def run():
             return ops.paged_decode_attention(q, k, v, pp, bt, pos,
@@ -125,18 +140,36 @@ def test_paged_decode_matches_plain(cuda, fmt, mode, window, cap, lens,
     bad = DA.paged_decode_ref(q, k, v, pp, bt, pos - 1, window=window,
                               cap=cap, policy=pol)
     assert float(((got - bad).abs() / bound).max()) > 1.0
+    if pool != F32 and fmt == {BF16: "bf16", F16: "fp16"}[pool]:
+        if n_split is None:
+            y32 = ops.paged_decode_attention(q, k32, v32, pp, bt, pos,
+                                             window=window, cap=cap,
+                                             policy=pol)
+        else:
+            y32 = DA.paged_decode_cuda(q, k32, v32, pp, bt, pos,
+                                       window=window, cap=cap, policy=pol,
+                                       n_split=n_split)
+        assert torch.equal(got.view(torch.int32), y32.view(torch.int32))
 
 
-@pytest.mark.parametrize("T,S,kw,fmt", [
-    (32, 32, {}, "bf16"), (64, 64, {}, "bf16"), (128, 128, {}, "bf16"),
-    (100, 100, {"window": 33}, "bf16"),
-    (64, 128, {"q_offset": 64, "window": 48, "cap": 50.0}, "bf16"),
-    (1, 1, {}, "bf16"), (17, 17, {}, "bf16"), (200, 200, {}, "bf16"),
-    (128, 128, {}, "fp16"), (17, 17, {"cap": 30.0}, "fp16"),
-    (128, 128, {}, "fp32"), (200, 200, {"window": 33}, "fp32"),
-    (32, 96, {"q_offset": 64}, "bf16"), (32, 96, {"q_offset": 64}, "fp32")])
+@pytest.mark.parametrize("T,S,kw,fmt,kv", [
+    (32, 32, {}, "bf16", F32), (64, 64, {}, "bf16", F32),
+    (128, 128, {}, "bf16", F32),
+    (100, 100, {"window": 33}, "bf16", F32),
+    (64, 128, {"q_offset": 64, "window": 48, "cap": 50.0}, "bf16", F32),
+    (1, 1, {}, "bf16", F32), (17, 17, {}, "bf16", F32),
+    (200, 200, {}, "bf16", F32),
+    (128, 128, {}, "fp16", F32), (17, 17, {"cap": 30.0}, "fp16", F32),
+    (128, 128, {}, "fp32", F32), (200, 200, {"window": 33}, "fp32", F32),
+    (32, 96, {"q_offset": 64}, "bf16", F32),
+    (32, 96, {"q_offset": 64}, "fp32", F32),
+    # 16-bit K/V: read without an fp32 copy on the mma route
+    (128, 128, {}, "bf16", BF16), (200, 200, {"window": 33}, "bf16", BF16),
+    (64, 128, {"q_offset": 64, "window": 48, "cap": 50.0}, "bf16", BF16),
+    (17, 17, {}, "fp16", F16), (128, 128, {}, "fp16", BF16),
+    (128, 128, {}, "bf16", F16), (100, 100, {}, "fp32", BF16)])
 @pytest.mark.parametrize("q_view", [False, True])
-def test_prefill_matches_plain(cuda, T, S, kw, fmt, q_view):
+def test_prefill_matches_plain(cuda, T, S, kw, fmt, kv, q_view):
     """Within the bound of the plain version, through the route the policy
     picks (`mma` for bf16 and fp16, `simt` for fp32), q either contiguous
     or the (B, H, T, hd) → (B, T, H, hd) view `attention_block` hands over;
@@ -148,8 +181,9 @@ def test_prefill_matches_plain(cuda, T, S, kw, fmt, q_view):
                         device=cuda).transpose(1, 2)
     else:
         q = torch.randn((1, T, 40, 128), generator=g, device=cuda)
-    k = torch.randn((1, S, 8, 128), generator=g, device=cuda)
-    v = torch.randn((1, S, 8, 128), generator=g, device=cuda)
+    k32 = torch.randn((1, S, 8, 128), generator=g, device=cuda)
+    v32 = torch.randn((1, S, 8, 128), generator=g, device=cuda)
+    k, v = k32.to(kv), v32.to(kv)
     pol = PrecisionPolicy(input_format=fmt)
     ops.reset_counts()
     got = ops.sa_attention(q, k, v, policy=pol, **kw)
@@ -165,6 +199,10 @@ def test_prefill_matches_plain(cuda, T, S, kw, fmt, q_view):
         bad = FA.flash_attention_ref(q, k, v, policy=pol,
                                      **{**kw, "q_offset": wider})
         assert float(((got - bad).abs() / bound).max()) > 1.0
+    if kv != F32 and fmt == {BF16: "bf16", F16: "fp16"}[kv]:
+        # the 16-bit values are the fp32 ones cast in: the same bits out
+        y32 = ops.sa_attention(q, k32, v32, policy=pol, **kw)
+        assert torch.equal(got.view(torch.int32), y32.view(torch.int32))
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -173,7 +211,7 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="bf16"):
         ops.sa_matmul(a, w)                     # fp16 operands
     q, k, v, pp, bt, pos = _pool(cuda)
-    with pytest.raises(ValueError, match="unsupported"):
+    with pytest.raises(ValueError, match="unsupported"):   # mixed pools
         ops.paged_decode_attention(q, k.to(torch.bfloat16), v, pp, bt, pos)
     x = torch.zeros((1, 8, 4, 16), device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
@@ -393,8 +431,12 @@ def _operand(g, shape, dtype, transposed, dev):
     return x.t().contiguous().t() if transposed else x
 
 
-@pytest.mark.parametrize("m,k,n", [(1024, 640, 384), (300, 1000, 999),
-                                   (4, 1024, 96)])
+@pytest.mark.parametrize("m,k,n", [
+    (1024, 640, 384), (300, 1000, 999), (4, 1024, 96),
+    # at and around the route threshold; K not a multiple of the 32-deep
+    # stage (nor of 8: the operands' 16-byte rows are padded copies)
+    (MM.TILED_MIN_M - 1, 1000, 384), (MM.TILED_MIN_M, 1000, 384),
+    (MM.TILED_MIN_M + 1, 1003, 96), (128, 5120, 1024)])
 @pytest.mark.parametrize("a_dt,w_dt", [(torch.bfloat16, torch.bfloat16),
                                        (torch.float32, torch.bfloat16),
                                        (torch.bfloat16, torch.float32),
@@ -403,20 +445,28 @@ def _operand(g, shape, dtype, transposed, dev):
                                      (False, True), (True, True)])
 def test_sa_matmul_types_and_layouts_match_plain(cuda, m, k, n, a_dt, w_dt,
                                                  a_t, w_t):
-    """Every operand type and layout the backward uses, both kernels (the
-    tiled one from M = 256 and for any transposed operand), the raw output
-    and a split K, within the reassociation bound."""
+    """Every operand type and layout, through the route `gemm_route`
+    names (split-K below TILED_MIN_M for row-major operands; else `mma`,
+    `split3` or `simt` by the operand types), the raw output and the
+    epilogue within the route's bound; on the tensor-core routes the raw
+    output also passes `split_check`."""
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     a = _operand(g, (m, k), a_dt, a_t, cuda)
     w = _operand(g, (k, n), w_dt, w_t, cuda)
     bias = torch.randn((n,), generator=g, device=cuda)
+    ops.reset_counts()
     got, raw = MM.sa_matmul_cuda(a, w, bias, 0.75, act="silu",
                                  save_raw=True)
+    route = MM.gemm_route(m, a_dt, w_dt, not a_t, not w_t)
+    assert ops.route_counts()["sa_matmul"] == {
+        r: int(r == route) for r in MM.ROUTES}
     ref, raw_ref = MM.sa_matmul_ref(a, w, bias, 0.75, act="silu",
                                     save_raw=True)
     bound = MM.error_bound(a, w, 0.75, y=ref)
     assert bool(((got - ref).abs() <= bound).all())
     assert bool(((raw - raw_ref).abs() <= MM.error_bound(a, w)).all())
+    if route in ("mma", "split3"):
+        assert MM.split_check(a, w, raw) <= 1.0
 
 
 def test_sa_matmul_is_deterministic(cuda):
@@ -461,6 +511,10 @@ def test_sa_matmul_backward_matches_plain(cuda, act, m):
     c = ops.counts()
     assert c["sa_matmul"] == {"launches": 1, "plain_calls": 0}, c
     assert c["sa_matmul_bwd"] == {"launches": 2, "plain_calls": 0}, c
+    fwd = "mma" if m >= MM.TILED_MIN_M else "partial"
+    assert ops.route_counts()["sa_matmul"] == {
+        "partial": int(fwd == "partial"), "mma": int(fwd == "mma"),
+        "split3": 2, "simt": 0}
     y_r, da_r, dw_r, db_r, ds_r = grads(lambda a, w, b, s: MM.sa_matmul_ref(
         a, w, b, s, act=act))
     # the backward GEMMs' operands: du·s (fp32) against the bf16 W and A;
@@ -469,12 +523,20 @@ def test_sa_matmul_backward_matches_plain(cuda, act, m):
     du = torch.autograd.functional.vjp(lambda t: MM.apply_act(t, act),
                                        raw * 0.5 + b0, dy)[1]
     dus = du * 0.5
-    b_da = MM.error_bound(dus, w0.float().t()) + 2.0 ** -7 * \
-        da_r.float().abs()
-    b_dw = MM.error_bound(a0.float().t(), dus) + 2.0 ** -7 * \
-        dw_r.float().abs()
+    # the backward GEMMs run the split3 route (fp32 dus against bf16 W, A):
+    # its bound (3K truncated tensor-core products), then one bf16 rounding
+    b_da = MM.error_bound(dus, w0.t()) + 2.0 ** -7 * da_r.float().abs()
+    b_dw = MM.error_bound(a0.t(), dus) + 2.0 ** -7 * dw_r.float().abs()
     assert bool(((da.float() - da_r.float()).abs() <= b_da).all())
     assert bool(((dw.float() - dw_r.float()).abs() <= b_dw).all())
+    # the sharper check on the two fp32 GEMMs themselves: the split passes,
+    # and the same GEMMs with dus rounded once to bf16 (no split) fail
+    da32, dw32 = MM.backward_gemms(a0, w0, dus)
+    assert MM.split_check(dus, w0.t(), da32) <= 1.0
+    assert MM.split_check(a0.t(), dus, dw32) <= 1.0
+    fa, fw = MM.backward_gemms(a0, w0, dus.to(torch.bfloat16).float())
+    assert MM.split_check(dus, w0.t(), fa) > 1.0
+    assert MM.split_check(a0.t(), dus, fw) > 1.0
     # dbias = Σ_rows du and dscale = Σ du·raw: raw moves by the forward
     # bound, u by 0.5x that, du by at most |act''| ≤ 1 times that times
     # |dy|; then the fp32 sums' own reassociation
@@ -485,6 +547,55 @@ def test_sa_matmul_backward_matches_plain(cuda, act, m):
     b_ds = float((d_du * raw.abs() + du.abs() * raw_b).sum()
                  + 2 * m * n * 2.0 ** -24 * (du * raw).abs().sum()) + 1e-6
     assert abs(float(ds) - float(ds_r)) <= b_ds
+
+
+def test_split3_is_the_plain_split_bit_for_bit(cuda):
+    """The kernel's split (the split3 route's pre-pass) equals `split3_ref`
+    bit for bit, and hi + mid + lo == x exactly, on a backward's dus and on
+    planted values: ties of each piece, powers of two, the smallest normal,
+    the largest floats, ±Inf and NaN (which give (x, 0, 0)); a transposed
+    view is split in place."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((1024, 1000), generator=g, device=cuda) * 1e-3
+    planted = torch.tensor(
+        [0.0, -0.0, 1.0, -2.0, 2.0 ** -126, 2.0 ** -110, 2.0 ** 127,
+         3.4028234663852886e38, -3.4028234663852886e38, 1.0 + 2 ** -8,
+         1.0 + 3 * 2 ** -8, 1.0 + 2 ** -8 + 2 ** -16, 1.0 + 2 ** -23,
+         float("inf"), -float("inf"), float("nan")], device=cuda)
+    x[0, :len(planted)] = planted
+    for t in (x, x[:, :999].t()):
+        got = MM.split3_cuda(t)
+        assert torch.equal(got.view(torch.int16),
+                           MM.split3_ref(t).view(torch.int16))
+        fin = torch.isfinite(t)
+        assert bool(((got.double().sum(0) == t.double()) | ~fin).all())
+        assert bool((got[1:][:, ~fin] == 0).all())
+
+
+def test_sa_matmul_route_counters(cuda):
+    """Under the bf16 policy a training-shape GEMM's forward launches the
+    `mma` route and its backward two `split3` launches; under the fp32
+    policy the forward and backward launch `simt`; decode-sized row-major
+    GEMMs `partial`."""
+    from repro_torch.core.precision import sa_dot
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((256, 512), generator=g, device=cuda)
+    w = (torch.randn((512, 384), generator=g, device=cuda) / 23
+         ).requires_grad_(True)
+    for fmt, fwd, bwd in (("bf16", "mma", "split3"), ("fp32", "simt",
+                                                      "simt")):
+        ops.reset_counts()
+        y = sa_dot(x, w, PrecisionPolicy(backend="cuda", input_format=fmt))
+        y.sum().backward()
+        want = {r: 0 for r in MM.ROUTES}
+        want[fwd] += 1
+        want[bwd] += 2
+        assert ops.route_counts()["sa_matmul"] == want, fmt
+        assert all(v["plain_calls"] == 0 for v in ops.counts().values())
+    ops.reset_counts()
+    sa_dot(x[:4], w.detach(), PrecisionPolicy(backend="cuda"))
+    assert ops.route_counts()["sa_matmul"]["partial"] == 1
 
 
 def test_sa_matmul_backward_bound_rejects_a_dropped_jacobian(cuda):
@@ -501,5 +612,5 @@ def test_sa_matmul_backward_bound_rejects_a_dropped_jacobian(cuda):
                                        dy)[1]
     da, _ = MM.backward_gemms(a, w, du)
     bad, _ = MM.backward_gemms_ref(a, w, dy)
-    bound = MM.error_bound(du, w.float().t()) + 2.0 ** -7 * da.abs()
+    bound = MM.error_bound(du, w.t()) + 2.0 ** -7 * da.abs()
     assert float(((da - bad).abs() / bound).max()) > 1.0

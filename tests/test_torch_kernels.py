@@ -366,7 +366,159 @@ def test_prefill_route_counts_stay_zero_on_cpu():
     FA.ROUTE_LAUNCHES["mma"] = 3
     ops.reset_counts()
     ops.sa_attention(q, q, q)
-    assert ops.route_counts() == {"prefill_attention": {"mma": 0,
-                                                        "simt": 0}}
+    assert ops.route_counts()["prefill_attention"] == {"mma": 0,
+                                                       "simt": 0}
     assert ops.counts()["prefill_attention"] == {"launches": 0,
                                                  "plain_calls": 1}
+
+
+# ---------------------------------------------------------------------------
+# SA GEMM: routes, the tensor-core plan and the fp32 split (host logic)
+# ---------------------------------------------------------------------------
+
+def test_sa_matmul_route_counts_stay_zero_on_cpu():
+    """On the CPU every SA GEMM, forward and backward, runs the plain
+    version: no route counts a launch, and `reset_counts` clears them."""
+    MM.ROUTE_LAUNCHES["mma"] = 2
+    ops.reset_counts()
+    a = torch.randn(8, 16).to(torch.bfloat16).requires_grad_(True)
+    w = torch.randn(16, 4).to(torch.bfloat16).requires_grad_(True)
+    ops.sa_matmul(a, w, act="silu").sum().backward()
+    assert ops.route_counts()["sa_matmul"] == {
+        "partial": 0, "mma": 0, "split3": 0, "simt": 0}
+    c = ops.counts()
+    assert c["sa_matmul"] == {"launches": 0, "plain_calls": 1}
+    assert c["sa_matmul_bwd"] == {"launches": 0, "plain_calls": 2}
+
+
+@pytest.mark.parametrize("a_dt,w_dt,route", [
+    (torch.bfloat16, torch.bfloat16, "mma"),
+    (torch.float32, torch.bfloat16, "split3"),
+    (torch.bfloat16, torch.float32, "split3"),
+    (torch.float32, torch.float32, "simt")])
+def test_gemm_route_follows_the_operand_types(a_dt, w_dt, route):
+    """Below TILED_MIN_M a row-major GEMM takes the split-K kernel; from it,
+    or with any transposed operand (the backward's), the route is the
+    operand types' whatever M is."""
+    m = MM.TILED_MIN_M
+    assert MM.gemm_route(m - 1, a_dt, w_dt) == "partial"
+    for rows in (1, m - 1, m, 1024):
+        assert MM.gemm_route(rows, a_dt, w_dt, False, True) == route
+        assert MM.gemm_route(rows, a_dt, w_dt, True, False) == route
+    for rows in (m, m + 1, 1024):
+        assert MM.gemm_route(rows, a_dt, w_dt) == route
+
+
+@pytest.mark.parametrize("m", [1, 8, 63, 64, 65, 128, 256, 1000, 1024])
+@pytest.mark.parametrize("n", [1, 96, 999, 1024, 5120, 13824])
+@pytest.mark.parametrize("route", ["mma", "split3"])
+def test_mma_plan_covers_the_output_once(m, n, route):
+    """The block tiles of the tensor-core grid cover the (m, n) output
+    exactly once, ragged edges included; the shared memory fits a block;
+    and nothing in the plan splits K, so each output's order of sums does
+    not depend on M (ROADMAP F2)."""
+    plan = MM.mma_plan(m, n, route)
+    bm, bn = plan["block"]
+    gx, gy = plan["grid"]
+    assert plan["npiece"] == (3 if route == "split3" else 1)
+    assert (bm, bn, plan["warps"]) == MM.MMA_TILES[plan["tile"]][:3]
+    assert (gx - 1) * bn < n <= gx * bn and (gy - 1) * bm < m <= gy * bm
+    assert plan["smem"] <= 227 * 1024
+    assert set(plan) == {"npiece", "tile", "block", "warps", "grid", "smem"}
+    assert (plan["tile"] == "split3") == (route == "split3")
+
+
+def test_mma_plan_keeps_the_grid_full_at_prefill_m():
+    """At prefill's M the 128-row tiles give only N/128 blocks; the plan
+    takes 64 x 64 tiles there, and the large ones once they fill the
+    card."""
+    for n in (5120, 13824):
+        assert MM.mma_plan(128, n, "mma")["tile"] == "small"
+        gx, gy = MM.mma_plan(128, n, "mma")["grid"]
+        assert gx * gy >= 132
+    assert MM.mma_plan(1024, 5120, "mma")["tile"] == "large"
+
+
+def _planted_split_values():
+    """Ties at each piece's rounding, powers of two, the smallest normals,
+    values whose lo piece is at bf16's subnormal edge, the largest floats,
+    and non-finite values."""
+    one = np.float32(1.0)
+    vals = [0.0, -0.0, 1.0, -1.0, 2.0 ** -126, -(2.0 ** -126), 2.0 ** -110,
+            2.0 ** 127, np.finfo(np.float32).max, -np.finfo(np.float32).max,
+            np.nextafter(one, np.float32(2)),          # 1 + 2^-23
+            1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8,      # ties of hi
+            1.0 + 2.0 ** -8 + 2.0 ** -16,              # a tie of mid
+            1.0 + 2.0 ** -8 + 2.0 ** -16 + 2.0 ** -23,
+            3.0 * 2.0 ** 100, 1.5 * 2.0 ** -100]
+    return np.array(vals, np.float32)
+
+
+def test_split3_ref_reconstructs_exactly():
+    """hi + mid + lo == x bit for bit (summed in fp64, which holds the
+    three pieces exactly) for |x| ≥ 2⁻¹¹⁰ across the exponent range and at
+    the planted values; each piece is bf16 and |mid| ≤ 2⁻⁷|x|, |lo| ≤
+    2⁻¹⁵|x| (half that but for the largest floats, whose hi is taken
+    toward zero); a non-finite x gives (x, 0, 0)."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(20000) * np.exp2(rng.integers(-109, 126, 20000))
+         ).astype(np.float32)
+    x = x[np.abs(x) >= 2.0 ** -110]
+    x = np.concatenate([x, _planted_split_values()])
+    t = torch.from_numpy(x)
+    p = MM.split3_ref(t)
+    assert p.dtype == torch.bfloat16 and p.shape == (3, len(x))
+    back = p[0].double() + p[1].double() + p[2].double()
+    assert torch.equal(back, t.double())
+    # below 2^-110 lo's last bit falls under bf16's subnormals: within it
+    tiny = torch.tensor([1.2345678e-34, -3.3e-38, 1e-40])
+    pt = MM.split3_ref(tiny)
+    assert bool(((pt.double().sum(0) - tiny.double()).abs()
+                 <= 2.0 ** -134).all())
+    assert bool((p[1].double().abs() <= 2.0 ** -7 * t.double().abs()).all())
+    assert bool((p[2].double().abs() <= 2.0 ** -15 * t.double().abs()).all())
+    bad = torch.tensor([float("inf"), -float("inf"), float("nan")])
+    pb = MM.split3_ref(bad)
+    assert torch.equal(pb[0][:2].float(), bad[:2]) and pb[0][2].isnan()
+    assert bool((pb[1:] == 0).all())
+
+
+def test_error_bound_terms_follow_the_route():
+    """The bound's units (2⁻²⁴·Σ|a||w|) per route: the fp32 chains' 2K;
+    for `mma` the tensor cores' truncation inside a k16 step (16 + 4 units
+    of 2⁻²³ of the step), the ⌈K/16⌉ additions of the steps' sums and the
+    plain version's K; for `split3` 48 + 12 truncations a step over the
+    pieces (≤ (1 + 2⁻⁶)·|x|), the additions, and the plain version's 2K."""
+    k = 5120
+    assert MM.chain_terms(k, "simt") == MM.chain_terms(k, "partial") == 2 * k
+    assert MM.chain_terms(k, "mma") == 40 + k // 16 + k
+    assert MM.chain_terms(k, "split3") == pytest.approx(
+        120 * (1 + 2.0 ** -6) + k // 16 + 2 * k)
+    a = torch.randn(MM.TILED_MIN_M, k)
+    w = torch.randn(k, 8).to(torch.bfloat16)
+    assert torch.equal(MM.error_bound(a, w), MM.error_bound(
+        a, w, route="split3"))
+    assert torch.equal(MM.error_bound(a[:4], w), MM.error_bound(
+        a[:4], w, route="partial"))
+    assert torch.equal(MM.error_bound(a, w.float()),
+                       MM.error_bound(a, w.float(), route="simt"))
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 5120, 256), (64, 13824, 128),
+                                   (16, 153600, 32)])
+def test_split_check_rejects_an_unsplit_operand(m, k, n):
+    """`split_check` on the plain arithmetic of three candidate GEMMs of an
+    fp32 operand against a bf16 one: fp32 `torch.matmul` passes, the fp32
+    operand rounded once to bf16 (no split) fails, and the lo piece dropped
+    passes (its error is below the tensor cores' truncation) — at the
+    layer's K and at the lm_head backward's K = 153600."""
+    g = torch.Generator().manual_seed(k)
+    x = torch.randn((m, k), generator=g) * 0.01
+    w = (torch.randn((k, n), generator=g) / k ** 0.5).to(torch.bfloat16)
+    p = MM.split3_ref(x)
+    whole = MM.split_check(x, w, x @ w.float(), route="split3")
+    unsplit = MM.split_check(x, w, p[0].float() @ w.float(), route="split3")
+    no_lo = MM.split_check(x, w, (p[0].float() + p[1].float()) @ w.float(),
+                           route="split3")
+    assert whole < 0.1 and no_lo < 0.1
+    assert unsplit > 2.0

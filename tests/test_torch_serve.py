@@ -199,13 +199,17 @@ def setup():
     return cfg, jp, tp
 
 
-def _streams(engine_cls, sched_cls, cfg, params, prompts, budgets, **kw):
-    eng = engine_cls(cfg, params, batch=2, cache_len=32, eos_id=-1,
-                     sync_every=2, kv_layout="paged", page_size=8, **kw)
-    sched = sched_cls(2, eos_id=-1)
+def _streams(engine_cls, sched_cls, cfg, params, prompts, budgets,
+             eos_id=-1, sync_every=2, finished=None, **kw):
+    eng = engine_cls(cfg, params, batch=2, cache_len=32, eos_id=eos_id,
+                     sync_every=sync_every, kv_layout="paged", page_size=8,
+                     **kw)
+    sched = sched_cls(2, eos_id=eos_id)
     for p, n in zip(prompts, budgets):
         sched.submit(p, max_new_tokens=n)
     summary = eng.serve(sched)
+    if finished is not None:
+        finished.extend(sched.finished)
     return {r.rid: r.tokens for r in sched.finished}, summary
 
 
@@ -227,6 +231,68 @@ def test_engine_matches_jax_engine(setup, seed, lens, budgets):
     assert summary["pages_leaked"] == 0
     assert summary["decode_attn"] == "fused"
     assert summary["nonfinite_logits"] == 0
+
+
+def _probe_prompts(cfg, seed=23, lens=(5, 9, 7)):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def test_engine_bf16_pool_matches_jax_engine(setup):
+    """A bf16 KV pool (`cache_dtype`) in both engines, on the
+    `test_engine_matches_jax_engine` stream: identical tokens, no page
+    leaked."""
+    import jax.numpy as jnp
+
+    cfg, jp, tp = setup
+    prompts, budgets = _probe_prompts(cfg), (6, 3, 4)
+    with use_policy(FP32_J):
+        ref, _ = _streams(JEngine, JSched, cfg, jp, prompts, budgets,
+                          cache_dtype=jnp.bfloat16)
+    with TP.use_policy(TP.PrecisionPolicy(input_format="fp32")):
+        got, summary = _streams(ServeEngine, SlotScheduler, cfg, tp, prompts,
+                                budgets, cache_dtype=torch.bfloat16)
+    assert got == ref
+    assert [len(got[i]) for i in sorted(got)] == list(budgets)
+    assert summary["pages_leaked"] == 0
+
+
+def test_engine_eos_frees_slot_mid_chunk(setup):
+    """EOS at the engine level. The EOS id is taken from a probe stream
+    (no EOS) at a token whose first occurrence in that stream is at index
+    2 and which no other stream emits; with it, the port engine's streams
+    equal the JAX engine's, the request stops there in the middle of a
+    4-step decode chunk, its slot is refilled, and no page leaks."""
+    cfg, jp, tp = setup
+    prompts, budgets = _probe_prompts(cfg), (6, 3, 4)
+    fp32 = TP.PrecisionPolicy(input_format="fp32")
+    with TP.use_policy(fp32):
+        probe, _ = _streams(ServeEngine, SlotScheduler, cfg, tp, prompts,
+                            budgets)
+    # the first token of stream 0 that first occurs at index >= 2 and
+    # appears in no other stream
+    others = {t for rid, toks in probe.items() if rid != 0 for t in toks}
+    idx, eos = next((i, t) for i, t in enumerate(probe[0])
+                    if i >= 2 and t not in probe[0][:i] and t not in others)
+    sync = 4
+    assert idx < budgets[0] - 1 and idx % sync != 0   # mid-chunk
+    with use_policy(FP32_J):
+        ref, _ = _streams(JEngine, JSched, cfg, jp, prompts, budgets,
+                          eos_id=eos, sync_every=sync)
+    done = []
+    with TP.use_policy(fp32):
+        got, summary = _streams(ServeEngine, SlotScheduler, cfg, tp, prompts,
+                                budgets, eos_id=eos, sync_every=sync,
+                                finished=done)
+    assert got == ref
+    r0 = next(r for r in done if r.rid == 0)
+    assert r0.finish_reason == "eos" and r0.tokens == probe[0][:idx + 1]
+    # every other stream runs to its budget, unchanged
+    assert all(got[rid] == probe[rid] for rid in got if rid != 0)
+    # the third request took the slot the EOS freed
+    assert next(r for r in done if r.rid == 2).slot == r0.slot
+    assert summary["pages_leaked"] == 0
+    assert summary["eos_finishes"] == 1
 
 
 def test_engine_prefix_cache_hits_keep_tokens(setup, monkeypatch):
