@@ -25,31 +25,37 @@ Phases, in order; any failure exits nonzero:
              and 1024 and decode times at the serve shape and at
              2048-token slots with the block width and cluster size swept,
              a 12,288-token slot and bit-identical repeats.
-4. serve   — full-width, full-depth qwen2.5-14b (random weights from a
+4. fold    — ROADMAP F2 at full width: every row of the path's bf16
+             GEMMs (7 layer shapes and the lm_head) bit-identical at M =
+             1, 4, 7, 8, 20 and 1024, and a slot's paged decode at B = 4
+             bit-identical to the same slot inside B = 20.
+5. serve   — full-width, full-depth qwen2.5-14b (random weights from a
              seed) served through `repro_torch.launch.serve.main` with the
              `cuda` GEMM backend; every request must generate `max_new`
              tokens with finite logits, no page may leak, the path's three
              kernels must have launched (prefill attention on its `mma`
-             route only) and no plain version may have run. The same
+             route only, every SA GEMM, decode included, on `mma`: 0
+             `partial`) and no plain version may have run. The same
              stream again on the same weights with a bf16 KV pool
              (`ServeEngine(cache_dtype=torch.bfloat16)`): the same checks
              and the same stream digest. Then one prompt's prefill logits
              under the `cuda` and `torch` GEMM backends, within the stated
              bound.
-5. profile — four more requests served under torch.profiler: the device's
+6. profile — four more requests served under torch.profiler: the device's
              busy and idle share of the wall and the kernels that take the
-             device time.
-6. emulate — the same model served under `REPRO_GEMM_BACKEND=emulate`:
+             device time; then one decode chunk alone: kernel launches a
+             decode step and the decode tile's share of device time.
+7. emulate — the same model served under `REPRO_GEMM_BACKEND=emulate`:
              every GEMM through the fp_emu kernel (the SA GEMM never
              launches), attention through the two attention kernels, no
              plain version; then one prompt's prefill logits under
              `emulate` and `cuda`, within the same bound.
-7. study   — `repro_torch.launch.precision_study.main` at full width: the
+8. study   — `repro_torch.launch.precision_study.main` at full width: the
              skewed and baseline chains bit-exact per format, the cycle and
              energy model equal to the JAX package's numbers, and the
              precision ladder ordered; its FP8 rows through the quantize
              kernel, whose plain version never runs.
-8. train   — qwen2.5-14b at full width cut to 4 layers (fp32 masters and
+9. train   — qwen2.5-14b at full width cut to 4 layers (fp32 masters and
              AdamW moments: 16 B a parameter), batch 4 x 512 in two
              strided microbatches. Step 0's loss and gradients under the
              `cuda` and `torch` GEMM backends on the same parameters and
@@ -66,8 +72,11 @@ tokens): the forward on the tensor cores (`mma`), its raw output, and the
 backward GEMMs (dA = dY·Wᵀ, dW = Aᵀ·dY, fp32 x bf16) on the `split3` route,
 each within its route's bound and `split_check`, which a planted backward
 with dY rounded once to bf16 must fail; the split bit for bit; the times
-beside bf16 and fp32 torch.matmul; and the route threshold's sweep (M = 8
-to 256, split-K against `mma`). The decode and prefill checks add bf16
+beside bf16 and fp32 torch.matmul; and the tile sweep (M = 1 to 256: the
+decode, small and large tiles, split-K `partial` below 8 rows). At decode's
+M = 4 it prints each GEMM's tile and grid and times the decode tile, wall
+and device, for a layer's 7 GEMMs and for the lm_head, each beside its byte
+bound and bf16 torch.matmul. The decode and prefill checks add bf16
 (and fp16) KV pools and 16-bit K/V, bit-identical to fp32 under the bf16
 policy.
 
@@ -243,11 +252,17 @@ def check_gemm(torch, timer):
               ("wg", d, ff, False, "silu"), ("wu", d, ff, False, "none"),
               ("wd", ff, d, False, "none"),
               ("lm_head", d, vocab, False, "none")]
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (name, K, N, bias, act, mode, scale, A's type): fp32 A is the fp32
+    # policy's decode, the only pair left on `partial` (split3 at M=128)
     extra = [("wk+gelu+approx+scale", d, KVH * hd, True, "gelu", "approx",
-              0.5),
-             ("wg+silu+approx", d, ff, True, "silu", "approx", None),
-             ("wq+relu", d, H * hd, True, "relu", "exact", None),
-             ("ragged", 1000, 999, True, "silu", "approx", None)]
+              0.5, bf16),
+             ("wg+silu+approx", d, ff, True, "silu", "approx", None, bf16),
+             ("wq+relu", d, H * hd, True, "relu", "exact", None, bf16),
+             ("ragged", 1000, 999, True, "silu", "approx", None, bf16),
+             ("wk fp32 A", d, KVH * hd, True, "none", "exact", None, f32),
+             ("wg+silu+approx fp32 A", d, ff, False, "silu", "approx", 0.5,
+              f32)]
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
     max_err = 0.0
@@ -258,14 +273,15 @@ def check_gemm(torch, timer):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f"{'gemm':24s} {'M':>4s} {'K':>6s} {'N':>7s} {'max_err':>10s} "
         f"{'err/bound':>9s} {'ms':>8s} {'plain_ms':>9s} {'bf16_lib':>8s} "
-        f"{'f32_lib':>8s} {'bound_ms':>8s} route")
-    cases = [(n, k, nn, b, act, "exact", None) for n, k, nn, b, act in shapes]
+        f"{'f32_lib':>8s} {'bound_ms':>8s} route tile grid")
+    cases = [(n, k, nn, b, act, "exact", None, bf16)
+             for n, k, nn, b, act in shapes]
     cases += extra
     log(f"[sa_matmul] build: {ptxas_summary('sa_matmul')}")
+    routes_seen = set()
     for m in (BATCH, 128):
-        for name, k, n, has_bias, act, mode, scale in cases:
-            a = torch.randn((m, k), generator=g, device="cuda").to(
-                torch.bfloat16)
+        for name, k, n, has_bias, act, mode, scale, a_dt in cases:
+            a = torch.randn((m, k), generator=g, device="cuda").to(a_dt)
             w = (torch.randn((k, n), generator=g, device="cuda")
                  * k ** -0.5).to(torch.bfloat16)
             bias = (torch.randn((n,), generator=g, device="cuda") * 0.1
@@ -275,9 +291,18 @@ def check_gemm(torch, timer):
                               mode=mode)
             route = [r for r, c in ops.route_counts()["sa_matmul"].items()
                      if c][0]
-            if route != mm.gemm_route(m, a.dtype, w.dtype):
+            if (route != mm.gemm_route(m, a.dtype, w.dtype)
+                    or (m == BATCH and route != ("partial" if a_dt == f32
+                                                 else "mma"))):
                 raise AssertionError(f"sa_matmul {name} M={m}: route "
                                      f"{route}")
+            routes_seen.add(route)
+            if route == "partial":
+                where = (f"{route} split-K "
+                         f"{mm.split_k(m, n, k, mm._sm_count(a.device))}")
+            else:
+                plan = mm.mma_plan(m, n, route)
+                where = f"{route} {plan['tile']} {plan['grid']}"
             ref = mm.sa_matmul_ref(a, w, bias, scale, act=act, mode=mode)
             torch.cuda.synchronize()
             err = (y - ref).abs()
@@ -305,10 +330,15 @@ def check_gemm(torch, timer):
                 nbytes = 2 * (m * k + k * n) + 4 * m * n + (
                     4 * n if has_bias else 0)
                 flops = 2.0 * m * n * k
-                b_ms, _ = bound_ms(nbytes, flops, PEAK_BF16)
+                b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
                 line += (f" {t_k:8.4f} {t_p:9.4f} {t_l:8.4f} {t_l32:8.4f} "
-                         f"{b_ms:8.4f} {route} device_ms={d_k}")
-                if m == BATCH and name != "lm_head":
+                         f"{b_ms:8.4f} {where} device_ms={d_k}")
+                if name == "lm_head":
+                    lm_head = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p,
+                               "library_ms": t_l, "library_fp32_ms": t_l32,
+                               "bound_ms": b_ms, "bound_by": b_by,
+                               "tile": plan["tile"], "grid": plan["grid"]}
+                else:
                     step["ms"] += t_k
                     step["device_ms"] = (None if d_k is None
                                          or step["device_ms"] is None
@@ -319,13 +349,22 @@ def check_gemm(torch, timer):
                     step["bytes"] += nbytes
                     step["flops"] += flops
             else:
-                line += f" {route}"
+                line += f" {where}"
             log(line)
+    if routes_seen != {"partial", "mma", "split3"}:
+        raise AssertionError(f"sa_matmul checks ran the routes "
+                             f"{sorted(routes_seen)}")
     b_ms, by = bound_ms(step["bytes"], step["flops"], PEAK_BF16)
-    log(f"gemm max err/bound over all cases: {worst:.4f}; one layer's 7 "
-        f"decode GEMMs {step['ms']:.4f} ms, bf16 torch.matmul "
+    log(f"gemm max err/bound over all cases (routes "
+        f"{sorted(routes_seen)}): {worst:.4f}; one layer's 7 "
+        f"decode GEMMs (M={BATCH}) {step['ms']:.4f} ms wall, "
+        f"{step['device_ms']} ms device, bf16 torch.matmul "
         f"{step['library_ms']:.4f} ms, fp32 {step['library_fp32_ms']:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({by})")
+        f"ms, bound {b_ms:.4f} ms ({by}: {100 * b_ms / step['ms']:.1f} % of "
+        f"it); lm_head (M={BATCH}) {lm_head['ms']:.4f} ms wall, "
+        f"{lm_head['device_ms']} ms device, bf16 torch.matmul "
+        f"{lm_head['library_ms']:.4f} ms, bound {lm_head['bound_ms']:.4f} "
+        f"ms ({100 * lm_head['bound_ms'] / lm_head['ms']:.1f} % of it)")
     return {"name": "sa_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sa_matmul.cu",
             "replaces": "src/repro/kernels/sa_matmul.py:101",
@@ -335,9 +374,11 @@ def check_gemm(torch, timer):
             "bound_ms": b_ms, "bound_by": by,
             "library_ms": step["library_ms"],
             "library_fp32_ms": step["library_fp32_ms"],
+            "readings": {"lm_head_M4": lm_head},
             "timed": "one decoder layer's 7 decode GEMMs at M=4 "
-                     "(wq,wk,wv,wo,wg,wu,wd), summed; library: bf16 "
-                     "torch.matmul (fp32 accumulation), fp32 beside it"}
+                     "(wq,wk,wv,wo,wg,wu,wd), summed, on the decode tile; "
+                     "library: bf16 torch.matmul (fp32 accumulation), fp32 "
+                     "beside it; the lm_head at M=4 in readings"}
 
 
 LAYER_GEMMS = [("wq", D_MODEL, 40 * 128, True, "none"),
@@ -376,13 +417,16 @@ def check_split(torch, mm, dus):
 
 
 def sweep_routes(torch, timer, g):
-    """The route threshold: a layer's 7 forward GEMMs at M = 8..256 through
-    the split-K `partial` kernel and the tensor-core `mma` kernel (forced
-    by TILED_MIN_M), beside bf16 torch.matmul."""
+    """The tile and route crossover: a layer's 7 forward GEMMs at M = 1 to
+    256 on each tensor-core tile (`decode` up to M = 32, `small`, `large`,
+    forced through `tile`), on the split-K `partial` kernel below
+    TILED_MIN_M (fed the fp32 upcast of A: bf16 x bf16 no longer has a
+    `partial` kernel, and W's bytes, which bound decode, are the same),
+    beside bf16 torch.matmul."""
     from repro_torch.kernels import sa_matmul as mm
 
     out = {}
-    for mr in (4, 8, 16, 32, 64, 128, 256):
+    for mr in (1, 2, 4, 8, 16, 32, 64, 128, 256):
         ops_in = []
         for _, k, n, _, _ in LAYER_GEMMS:
             a = torch.randn((mr, k), generator=g, device="cuda").to(
@@ -391,20 +435,24 @@ def sweep_routes(torch, timer, g):
                  * k ** -0.5).to(torch.bfloat16)
             ops_in.append((a, w))
         t = {}
-        for route, min_m in (("partial", 1 << 30), ("mma", 0)):
-            keep, mm.TILED_MIN_M = mm.TILED_MIN_M, min_m
-            try:
-                t[route] = sum(timer.wall(lambda: mm.sa_matmul_cuda(a, w),
-                                          reps=5) for a, w in ops_in)
-            finally:
-                mm.TILED_MIN_M = keep
+        tiles = ("decode", "small", "large") if mr <= 32 else ("small",
+                                                               "large")
+        for tile in tiles:
+            t[tile] = sum(timer.wall(lambda: mm._launch(
+                a, w, None, None, "none", "exact", False, tile=tile),
+                reps=5) for a, w in ops_in)
+        if mr < mm.TILED_MIN_M:
+            t["partial"] = sum(timer.wall(
+                lambda: mm.sa_matmul_cuda(a32, w), reps=5)
+                for a32, w in ((a.float(), w) for a, w in ops_in))
         t["bf16_library"] = sum(timer.wall(lambda: torch.matmul(a, w),
                                            reps=5) for a, w in ops_in)
         out[mr] = t
-        log(f"sa_matmul route sweep M={mr:3d}: a layer's 7 forward GEMMs "
-            f"partial {t['partial']:.4f} ms, mma {t['mma']:.4f} ms, bf16 "
-            f"torch.matmul {t['bf16_library']:.4f} ms; the wrapper takes "
-            f"{mm.gemm_route(mr, torch.bfloat16, torch.bfloat16)}")
+        route = mm.gemm_route(mr, torch.bfloat16, torch.bfloat16)
+        tile = mm.mma_plan(mr, D_MODEL, route)["tile"]
+        log(f"sa_matmul tile sweep M={mr:3d}: a layer's 7 forward GEMMs "
+            + ", ".join(f"{k_} {v:.4f} ms" for k_, v in t.items())
+            + f"; the wrapper takes {route} on the {tile} tile")
     return out
 
 
@@ -575,6 +623,111 @@ def check_gemm_train(torch, timer):
                      f"bound in readings); library: fp32 torch.matmul"}
 
 
+FOLD_M = (1, 4, 7, 8, 20, 1024)
+
+
+def check_fold(torch, timer):
+    """ROADMAP F2 at full width: each row of a bf16 GEMM of the path (the
+    7 layer shapes with their bias and activation, one with approx and a
+    scale on the card, and the lm_head) is bit-identical at M = 1, 4, 7,
+    8, 20 and 1024 (the decode, small and large tiles), raw accumulator
+    included; a slot's paged decode is bit-identical at B = 4 and inside
+    B = 20 with the same block-table width (serve shape on an fp32 and a
+    bf16 pool, 2048-token slots). Any mismatch raises. Returns paged
+    decode's times above the serve's batch (`batch_fold_ms`)."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.kernels import sa_decode_attention as da
+    from repro_torch.kernels import sa_matmul as mm
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cases = [(n, k, nn, b, act, "exact", None) for n, k, nn, b, act in
+             LAYER_GEMMS + [("lm_head", D_MODEL, 153600, False, "none")]]
+    cases.append(("wk+gelu+approx+dev scale", D_MODEL, 8 * 128, True, "gelu",
+                  "approx", "dev"))
+    for name, k, n, has_bias, act, mode, scale in cases:
+        a = torch.randn((max(FOLD_M), k), generator=g, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        bias = (torch.randn((n,), generator=g, device="cuda") * 0.1
+                if has_bias else None)
+        if scale == "dev":
+            scale = torch.tensor(0.5, device="cuda")
+        full, full_raw = mm.sa_matmul_cuda(a, w, bias, scale, act=act,
+                                           mode=mode, save_raw=True)
+        tiles = {}
+        for m in FOLD_M[:-1]:
+            y, raw = mm.sa_matmul_cuda(a[:m], w, bias, scale, act=act,
+                                       mode=mode, save_raw=True)
+            same = (torch.equal(y.view(torch.int32),
+                                full[:m].view(torch.int32))
+                    and torch.equal(raw.view(torch.int32),
+                                    full_raw[:m].view(torch.int32)))
+            tiles[m] = mm.mma_plan(m, n, "mma")["tile"]
+            if not same:
+                raise AssertionError(f"fold: sa_matmul {name} rows at M={m} "
+                                     f"differ from the same rows at M="
+                                     f"{max(FOLD_M)}")
+        tiles[max(FOLD_M)] = mm.mma_plan(max(FOLD_M), n, "mma")["tile"]
+        log(f"[fold] sa_matmul {name:26s} K={k:5d} N={n:6d}: rows "
+            f"bit-identical at M={FOLD_M} (tiles {tiles})")
+        del a, w, full, full_raw
+        torch.cuda.empty_cache()
+    KVH, grp, hd, psz = 8, 5, 128, PAGE
+    for slot, pool in ((CACHE_LEN, torch.float32), (CACHE_LEN, torch.bfloat16),
+                       (2048, torch.float32)):
+        P = -(-slot // psz)
+        lens = [slot, 100, 40, 0] + [(37 * i) % slot + 1 for i in range(16)]
+        q, k, v, pp, bt, pos = _paged_workload(torch, g, 20, KVH, grp, hd,
+                                               psz, P, 20 * P + 1, lens)
+        k, v = k.to(pool), v.to(pool)
+        y20 = da.paged_decode_cuda(q, k, v, pp, bt, pos)
+        y4 = da.paged_decode_cuda(q[:4], k, v, pp, bt[:4], pos[:4])
+        torch.cuda.synchronize()
+        plan4 = da.launch_plan(q[:4], k, v, bt[:4])
+        if (not torch.equal(y4.view(torch.int32), y20[:4].view(torch.int32))
+                or plan4 != da.launch_plan(q, k, v, bt)):
+            raise AssertionError(f"fold: paged decode slots at B=4 differ "
+                                 f"from the same slots at B=20 ({slot}-token "
+                                 f"slots, {pool} pool)")
+        log(f"[fold] paged decode {slot}-token slots, {pool} pool: B=4 "
+            f"bit-identical to the same slots inside B=20 ({plan4.n_split} "
+            f"blocks a cluster at both)")
+        del q, k, v, pp, bt, pos, y4, y20
+    # what the slot-only cluster costs above the serve's batch, against the
+    # earlier batch-sized plan (two blocks an SM over the B·KVH clusters:
+    # 2 blocks at B = 20, 1 at B = 64), full slots, fp32 pool
+    H = KVH * grp
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {}
+    for slot in (CACHE_LEN, 2048):
+        P = -(-slot // psz)
+        for B in (BATCH, 20, 64):
+            q, k, v, pp, bt, pos = _paged_workload(
+                torch, g, B, KVH, grp, hd, psz, P, B * P + 1, [slot] * B)
+            plan = da.launch_plan(q, k, v, bt)
+            old = da.launch_plan(q, k, v, bt, n_split=max(1, min(
+                da.PORTABLE_CLUSTER, -(-2 * sms // (B * KVH))))).n_split
+            row = {"n_split": plan.n_split, "earlier_n_split": old}
+            for key, n_split in (("", None), ("earlier_", old)):
+                def run():
+                    return da.paged_decode_cuda(q, k, v, pp, bt, pos,
+                                                n_split=n_split)
+                row[key + "ms"] = timer.wall(run)
+                row[key + "device_ms"] = timer.device(run)
+            row["bound_ms"], row["bound_by"] = _decode_bound(
+                torch, bt, B, H, KVH, hd, psz, P, PrecisionPolicy())
+            times[f"B{B}_slots{slot}"] = row
+            log(f"[fold] paged decode B={B}, {slot}-token slots: "
+                f"{plan.n_split} blocks a cluster {row['ms']:.4f} ms wall "
+                f"({row['device_ms']} device); the earlier plan's {old} "
+                f"blocks {row['earlier_ms']:.4f} ms "
+                f"({row['earlier_device_ms']} device); bound "
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+            del q, k, v, pp, bt, pos
+    return times
+
+
 def _paged_workload(torch, g, B, KVH, grp, hd, psz, P, n_pages, lens):
     """A pool with slot b owning ceil(lens[b] / psz) pages (0 = an empty
     slot with an unmapped row), one explicit trash-page (0) entry, and
@@ -669,7 +822,6 @@ def check_decode(torch, timer):
 
     KVH, grp, hd, psz = 8, 5, 128, PAGE
     H = KVH * grp
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     P = -(-CACHE_LEN // psz)
     n_pages = -(-BATCH * CACHE_LEN // psz) + 1
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -721,7 +873,7 @@ def check_decode(torch, timer):
             raise AssertionError("paged decode: an all-masked slot must "
                                  "give zeros")
         worst, max_err = max(worst, ratio), max(max_err, float(err.max()))
-        plan = da.split_plan(BATCH, KVH, grp, hd, psz, P, n_sm=sms)
+        plan = da.split_plan(grp, hd, psz, P)
         log(f"paged decode {name:16s} B={BATCH} H={H} KVH={KVH} "
             f"hd={hd} P={P} psz={psz} max_err={float(err.max()):.3e} "
             f"err/bound={ratio:.4f} median bound {float(bnd.median()):.3e};"
@@ -749,8 +901,7 @@ def check_decode(torch, timer):
         # (ends inside pages) and 16 (9 blocks, a non-portable cluster);
         # each within the bound, each call bit-identical to its repeat
         for n in (1, 3, 6, 16):
-            sp = da.split_plan(BATCH, KVH, grp, hd, psz, P, n_sm=sms,
-                               n_split=n)
+            sp = da.split_plan(grp, hd, psz, P, n_split=n)
             y1 = da.paged_decode_cuda(q, k, v, pp, bt, pos, n_split=n)
             y2 = da.paged_decode_cuda(q, k, v, pp, bt, pos, n_split=n)
             torch.cuda.synchronize()
@@ -789,7 +940,7 @@ def check_decode(torch, timer):
         Pl = -(-slot // psz)
         q, k, v, pp, bt, pos = _paged_workload(
             torch, g, BATCH, KVH, grp, hd, psz, Pl, BATCH * Pl + 1, lens_l)
-        sp = da.split_plan(BATCH, KVH, grp, hd, psz, Pl, n_sm=sms)
+        sp = da.split_plan(grp, hd, psz, Pl)
         y = ops.paged_decode_attention(q, k, v, pp, bt, pos)
         y2 = ops.paged_decode_attention(q, k, v, pp, bt, pos)
         ref = da.paged_decode_ref(q, k, v, pp, bt, pos)
@@ -1375,7 +1526,7 @@ def _serve_backend(torch, backend, args, n_req, max_new):
     wall = time.monotonic() - t0
     counts = ops.counts()
     log(f"[serve {backend}] wall {wall:.2f} s (init + serve); counts "
-        f"{counts}; prefill attention routes {ops.route_counts()}")
+        f"{counts}; routes {ops.route_counts()}")
     done = sched.finished
     problems = []
     if len(done) != n_req or any(r.n_generated != max_new for r in done):
@@ -1395,6 +1546,13 @@ def _serve_backend(torch, backend, args, n_req, max_new):
                         f"serve must run the mma route only")
     if backend == "emulate" and counts["sa_matmul"]["launches"] != 0:
         problems.append("the SA GEMM launched under the emulate backend")
+    # the bf16 policy's decode GEMMs take the tensor cores' decode tile
+    gemm_routes = ops.route_counts()["sa_matmul"]
+    if backend == "cuda" and (gemm_routes["partial"] or gemm_routes["mma"]
+                              != counts["sa_matmul"]["launches"]):
+        problems.append(f"sa_matmul routes {gemm_routes}: every bf16 GEMM, "
+                        f"decode included, must run the mma route (0 "
+                        f"partial)")
     for name, c in counts.items():
         if c["plain_calls"] != 0:
             problems.append(f"plain version of {name} ran on the path "
@@ -1457,6 +1615,8 @@ def serve_bf16_pool(torch, engine, summary):
         problems.append("a plain version ran")
     if routes["prefill_attention"]["simt"]:
         problems.append("prefill took the simt route")
+    if routes["sa_matmul"]["partial"]:
+        problems.append("a bf16 GEMM took the partial route")
     if problems:
         raise AssertionError("serve bf16 pool: " + "; ".join(problems))
     return digest
@@ -1467,11 +1627,21 @@ def serve_emulate(torch):
                           EMU_MAX_NEW)
 
 
+DECODE_TILE = "TcTile<16, "    # the decode tile's kernels, by name
+
+
+def _is_decode_tile(name: str) -> bool:
+    return "sa_gemm_mma" in name and DECODE_TILE in name
+
+
 def profile_serve(torch, engine):
     """Where the time goes: four requests (the three prompt lengths and
     one more of the longest, 16 new tokens each) served again under
     torch.profiler (CUDA activity only); device-busy share of the wall and
-    the kernels that take the device time."""
+    the kernels that take the device time. Then one decode chunk alone
+    (`sync_every` steps on a fresh pool, as the engine's warm-up runs it):
+    its kernel launches per decode step and the decode tile's share of
+    its device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.precision import PrecisionPolicy, use_policy
@@ -1495,12 +1665,38 @@ def profile_serve(torch, engine):
     if not ks:
         log("[profile] the profiler recorded no device time")
         return
+    tile_ms = sum(ms for name, (ms, _) in ks.items() if _is_decode_tile(name))
     log(f"[profile] wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
         f"{1 - busy / wall:.3f}; prefill_s {summary['prefill_s']} decode_s "
-        f"{summary['decode_s']} itl_p50 {itl_p50_ms(sched.finished)} ms")
+        f"{summary['decode_s']} itl_p50 {itl_p50_ms(sched.finished)} ms; "
+        f"the decode tile {100 * tile_ms / 1e3 / busy:.1f} % of device time")
     for name, (ms, n) in sorted(ks.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"[profile]   {ms / 1e3:8.4f} s {100 * ms / 1e3 / busy:5.1f}% "
             f"{n:7d} launches  {name[:90]}")
+    steps = engine.sync_every
+    run = engine._chunk_fn(steps, True)
+    state = (torch.zeros((BATCH,), dtype=torch.int32, device="cuda"),
+             engine.new_pool(),
+             torch.zeros((BATCH,), dtype=torch.int32, device="cuda"))
+    with use_policy(PrecisionPolicy(backend="cuda")):
+        run(engine.params, *state, None, None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(engine.params, *state, None, None)
+            torch.cuda.synchronize()
+    ks = device_kernels(torch, prof)
+    busy = sum(ms for ms, _ in ks.values())
+    launches = sum(n for _, n in ks.values())
+    tile = [(ms, n) for name, (ms, n) in ks.items() if _is_decode_tile(name)]
+    partial = sum(n for name, (_, n) in ks.items() if "sa_gemm_partial" in name)
+    log(f"[profile] one decode chunk ({steps} steps, B={BATCH}): "
+        f"{launches / steps:.1f} kernel launches a decode step, device "
+        f"{busy / steps:.4f} ms a step; the decode tile "
+        f"{sum(n for _, n in tile) / steps:.1f} launches and "
+        f"{100 * sum(ms for ms, _ in tile) / busy:.1f} % of device time; "
+        f"sa_gemm_partial {partial} launches")
+    if partial:
+        raise AssertionError("the bf16 decode step launched sa_gemm_partial")
 
 
 def backend_logits(torch, engine, prompt, backends=("cuda", "torch")):
@@ -1827,12 +2023,15 @@ def main(argv=None):
     kernels = [check_gemm(torch, timer), check_gemm_train(torch, timer),
                check_decode(torch, timer), check_prefill(torch, timer),
                check_quantize(torch, timer), check_fp_emu(torch, timer)]
-    del timer
     # the forward's training-shape readings belong to the forward's entry
-    kernels[0]["readings"] = {
+    kernels[0]["readings"].update({
         key: kernels[1]["readings"].pop(key)
-        for key in ("forward_M1024", "route_sweep_ms")}
+        for key in ("forward_M1024", "route_sweep_ms")})
     phases["kernels"] = time.monotonic() - t
+    t = time.monotonic()
+    kernels[2]["readings"]["batch_fold_ms"] = check_fold(torch, timer)
+    del timer
+    phases["fold"] = time.monotonic() - t
     log("kernels " + " ".join(
         f"{k['name']}: max_err={k['max_abs_err']:.3e} "
         f"err/bound={k['err_over_bound']:.4f} ms={k['ms']:.4f} "

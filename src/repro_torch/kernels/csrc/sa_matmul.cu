@@ -11,27 +11,32 @@
 // Four routes, chosen by the wrapper (kernels/sa_matmul.py `gemm_route`)
 // from the rows and the operand types, each counted apart:
 //
-// * partial: sa_gemm_partial — decode (M < 8, row-major operands). Bound
-//   by bytes: every weight is read once and feeds only 2*M flops. A block
+// * partial: sa_gemm_partial — fp32 decode (M < 8, row-major operands, at
+//   least one operand fp32: the fp32 policy and mixed pairs). Bound by
+//   bytes: every weight is read once and feeds only 2*M flops. A block
 //   owns 64 output columns x up to 8 rows of A; each warp reads whole
 //   64-column rows of W (coalesced). K is split over gridDim.z
 //   (deterministic split-K: each slice writes its partial sums to a
 //   workspace, the epilogue kernel adds the slices in order 0..KS-1) so
 //   narrow N still puts two blocks on every SM.
-// * mma: sa_gemm_mma, one piece — bf16 x bf16 from M = 8 (the forward
-//   under the bf16 and FP8 policies). mma.sync.m16n8k16 bf16 on the tensor
-//   cores, fp32 accumulate. At training shapes it is bound by the tensor
-//   cores (a layer's 7 GEMMs at M = 1024 are 0.57 ms at 989 TFLOP/s);
-//   mma.sync issues from registers and reaches well under that peak (wgmma
-//   with TMA is the later step). At prefill's M it is bound by W's bytes
-//   and by how many blocks fill the 132 SMs. Operand tiles are copied by
-//   cp.async into a ring of XOR-swizzled bf16 tiles in shared memory and
-//   read by ldmatrix: .trans for a row-contiguous operand (W as stored, Aᵀ
-//   of a row-major A), plain for a K-contiguous one (Wᵀ, A), so either
-//   operand is read in place through its strides and no transpose is
-//   copied. The tile (TileLarge, TileSmall below) was chosen by a sweep on
-//   the card; the wrapper takes the small one where the large blocks would
-//   leave SMs idle. The epilogue runs on the accumulator fragments.
+// * mma: sa_gemm_mma, one piece — bf16 x bf16 at every M (the forward
+//   under the bf16 and FP8 policies, decode included). mma.sync.m16n8k16
+//   bf16 on the tensor cores, fp32 accumulate. At training shapes it is
+//   bound by the tensor cores (a layer's 7 GEMMs at M = 1024 are 0.57 ms
+//   at 989 TFLOP/s); mma.sync issues from registers and reaches well under
+//   that peak (wgmma with TMA is the later step). At prefill's M it is
+//   bound by W's bytes and by how many blocks fill the 132 SMs; at
+//   decode's (M <= 16) by W's bytes alone: every weight feeds 2*M flops.
+//   Operand tiles are copied by cp.async (TileDecode's W by TMA) into a
+//   ring of XOR-swizzled bf16 tiles in shared memory and read by ldmatrix:
+//   .trans for a row-contiguous operand (W as stored, Aᵀ of a row-major A),
+//   plain for a K-contiguous one (Wᵀ, A), so either operand is read in
+//   place through its strides and no transpose is copied. The tiles
+//   (TileLarge, TileSmall, TileDecode below) were chosen by sweeps on the
+//   card; the wrapper takes the small one where the large blocks would
+//   leave SMs idle and the decode one for M <= 16, whose blocks each
+//   stream a 64-column strip of W (see TileDecode). The epilogue runs on
+//   the accumulator fragments: one launch a GEMM, no workspace.
 // * split3: sa_gemm_mma, three pieces — one fp32 and one bf16 operand: both
 //   backward GEMMs. The fp32 operand is split once (sa_split3, shared by
 //   dA and dW) into three bf16 planes with hi + mid + lo == x exactly (see
@@ -56,7 +61,8 @@
 //
 // Each output's sum: in sa_gemm_mma one thread accumulates its k16 steps
 // in order k = 0, 16, ..., whatever M, N or the tile: K is never split
-// there, so a row's result does not depend on the other rows. A step's 16
+// there, so a row's result does not depend on the other rows, and a bf16
+// GEMM gives every row the same bits at every M (ROADMAP F2). A step's 16
 // products (48 under split3: the pieces lo, mid, hi) are summed by the
 // tensor cores from zero, and the step's sum is added to the fp32
 // accumulator with one rounding to nearest. A product of two bf16 values is exact
@@ -74,6 +80,7 @@
 // Epilogue, in the TPU kernel's order: truncate the low 3 mantissa bits
 // (RTZ, approx mode only) -> [raw store] -> x scale -> + bias -> act
 // (none / relu / gelu-tanh / silu) -> one fp32 store.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -398,14 +405,24 @@ cudaError_t launch_tiled_layout(const void* a, const void* w, int a_kcont,
 // ---------------------------------------------------------------------------
 
 // A block tile: BM x BN outputs over WARPS_M x WARPS_N warps, K staged BK
-// deep (BK / 16 k16 steps) in a ring of STAGES cp.async stages.
-template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int BK_, int STAGES_>
+// deep (BK / 16 k16 steps) in a ring of STAGES stages. A's tiles are copied
+// by cp.async; B's too, or (TMA_B, for B as stored (K, N)) by the tensor
+// memory accelerator: one bulk copy a stage, issued by one thread,
+// completing on the stage's mbarrier, in the same swizzled layout (TMA's
+// 32-, 64- or 128-byte swizzle is swz_off's, for tile rows of that many
+// bytes, on a 1024-byte aligned tile).
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int BK_, int STAGES_,
+          bool TMA_B_ = false>
 struct TcTile {
   static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_,
                        WARPS_N = WARPS_N_, BK = BK_, STAGES = STAGES_,
                        THREADS = 32 * WARPS_M_ * WARPS_N_;
+  static constexpr bool TMA_B = TMA_B_;
+  // the ring, then (TMA_B) the stages' mbarriers and room to align the
+  // ring to 1024 bytes
   static constexpr int smem(int npiece) {
-    return STAGES * (npiece * BM + BN) * BK * 2;
+    return STAGES * (npiece * BM + BN) * BK * 2 + (TMA_B ? 1024 + 8 * STAGES
+                                                          : 0);
   }
 };
 
@@ -427,6 +444,47 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+// the one arrival of a stage's barrier, expecting `bytes` from the copy
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// until the barrier's phase `parity` has completed; a copy that never
+// lands traps (the launch fails and the wrapper raises) instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1LL << 32)) __trap();
+  }
+}
+
+// a (c1, c0)-cornered box of a 2-D tensor map into shared memory, counted
+// against `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
@@ -454,17 +512,23 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Byte offset of 16-byte chunk `c` of row `r` in a staged tile.
-// K-contiguous tiles ([rows][BK] bf16): with BK = 32, 64-byte rows of 4
-// chunks, chunk c ^ ((r >> 1) & 3); with BK = 64, 128-byte rows, chunk
-// c ^ (r & 7): either way the 8 rows an ldmatrix phase reads fill all 8
-// 16-byte slots of a 128-byte bank line. Row-contiguous tiles ([BK][W]
-// bf16, W >= 64): chunk c ^ (r & 7).
+// Byte offset of 16-byte chunk `c` of row `r` in a staged tile of ROW-byte
+// rows: K-contiguous tiles ([rows][BK] bf16) have BK * 2-byte rows,
+// row-contiguous ones ([BK][W] bf16) W * 2. The chunk is XORed with the
+// row's index among the rows that share a 128-byte bank line's chunk
+// slots (c ^ (r & 7) for rows of 128 bytes or more, c ^ ((r >> 1) & 3) for
+// 64, c ^ ((r >> 2) & 1) for 32), so the 8 rows an ldmatrix phase reads
+// fill all 8 16-byte slots of a bank line.
+template <int ROW>
+__device__ __forceinline__ int swz_off(int r, int c) {
+  constexpr int kXor = ROW / 16 < 8 ? ROW / 16 : 8;  // chunk slots permuted
+  constexpr int kLine = 8 / kXor;                    // rows a bank line
+  return r * ROW + ((c ^ ((r / kLine) % kXor)) << 4);
+}
+
 template <bool KCONT, int W, int BK>
 __device__ __forceinline__ int tile_off(int r, int c) {
-  if constexpr (KCONT && BK == 32) return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-  if constexpr (KCONT) return r * (BK * 2) + ((c ^ (r & 7)) << 4);
-  return r * (W * 2) + ((c ^ (r & 7)) << 4);
+  return swz_off<KCONT ? BK * 2 : W * 2>(r, c);
 }
 
 struct TcEpilogue {
@@ -482,8 +546,9 @@ struct TcEpilogue {
 // mid, lo split of an fp32 operand, planes `a_plane` elements apart), read
 // at a[m * lda + k] (A_KCONT) or a[k * lda + m]; B at b[n * ldb + k]
 // (B_KCONT) or b[k * ldb + n]. Every pointer and leading dimension is 16-byte
-// aligned (the wrapper's check). A block owns BM x BN outputs, its 4 warps
-// (BM / 2) x (BN / 2) each; each output's products are accumulated by one
+// aligned (the wrapper's check). A block owns BM x BN outputs, its WARPS_M x
+// WARPS_N warps (BM / WARPS_M) x (BN / WARPS_N) each; each output's
+// products are accumulated by one
 // thread in k16 steps k = 0, 16, ..., in order, and the pieces of a step
 // hi, mid, lo: the order does not depend on M, N or the tile.
 // At most 128 registers a thread, so two 8-warp (or four 4-warp) blocks
@@ -493,7 +558,7 @@ template <class Tile, int NPIECE, bool A_KCONT, bool B_KCONT>
 __global__ void __launch_bounds__(Tile::THREADS, 512 / Tile::THREADS)
 sa_gemm_mma(const __nv_bfloat16* __restrict__ a, long long a_plane, int lda,
             const __nv_bfloat16* __restrict__ b, int ldb, TcEpilogue epi,
-            int M, int N, int K) {
+            int M, int N, int K, const __grid_constant__ CUtensorMap tmap_b) {
   constexpr int BM = Tile::BM, BN = Tile::BN, kTcBK = Tile::BK;
   constexpr int kTcStages = Tile::STAGES, kTcThreads = Tile::THREADS;
   constexpr int WM = BM / Tile::WARPS_M, WN = BN / Tile::WARPS_N;  // a warp
@@ -501,12 +566,20 @@ sa_gemm_mma(const __nv_bfloat16* __restrict__ a, long long a_plane, int lda,
   constexpr int kATile = BM * kTcBK * 2;    // bytes of one A plane's stage
   constexpr int kBTile = BN * kTcBK * 2;
   constexpr int kStage = NPIECE * kATile + kBTile;
-  static_assert(NT % 2 == 0 && BM >= 64 && BN >= 64, "tile");
+  // B's fragments come two n8 tiles an ldmatrix; a row-contiguous tile row
+  // holds at least the two 16-byte chunks an ldmatrix phase reads
+  static_assert(NT % 2 == 0 && BM % 16 == 0 && BN % 16 == 0, "tile");
   static_assert((BM * kTcBK / 8) % kTcThreads == 0 &&
                     (BN * kTcBK / 8) % kTcThreads == 0,
                 "whole chunks a thread");
+  // TMA takes B as stored (K, N) (the weights); a K-contiguous view (Wᵀ)
+  // keeps cp.async, whose tile rows may be wider than TMA's swizzle
+  constexpr bool kTmaB = Tile::TMA_B && !B_KCONT;
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t smem0 = smem_u32(smem);
+  // TMA's swizzle follows the address bits: its ring starts 1024-aligned
+  const uint32_t smem0 =
+      kTmaB ? (smem_u32(smem) + 1023) & ~1023u : smem_u32(smem);
+  const uint32_t bar0 = smem0 + kTcStages * kStage;  // kTmaB: the barriers
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -515,6 +588,13 @@ sa_gemm_mma(const __nv_bfloat16* __restrict__ a, long long a_plane, int lda,
   const int mi = lane >> 3, r8 = lane & 7;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int nk = (K + kTcBK - 1) / kTcBK;
+  if constexpr (kTmaB) {
+    if (tid == 0) {
+      for (int s = 0; s < kTcStages; ++s) mbar_init(bar0 + 8 * s);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
 
   // one stage: every plane of A's tile and B's tile, 16-byte chunks
   auto load_stage = [&](int slot, int kt) {
@@ -546,27 +626,37 @@ sa_gemm_mma(const __nv_bfloat16* __restrict__ a, long long a_plane, int lda,
                    bytes);
       }
     }
-    constexpr int kChunks = BN * kTcBK / 8;
-#pragma unroll
-    for (int it = 0; it < kChunks / kTcThreads; ++it) {
-      const int i = it * kTcThreads + tid;
-      int r, c, bytes;
-      const __nv_bfloat16* src;
-      if constexpr (B_KCONT) {    // rows n, BK / 8 chunks of k
-        r = i / (kTcBK / 8);
-        c = i % (kTcBK / 8);
-        const int n = n0 + r, k = k0 + c * 8;
-        bytes = n < N ? max(0, min(16, (K - k) * 2)) : 0;
-        src = bytes ? b + (size_t)n * ldb + k : b;
-      } else {                    // rows k, BN / 8 chunks of n
-        r = i / (BN / 8);
-        c = i % (BN / 8);
-        const int k = k0 + r, n = n0 + c * 8;
-        bytes = k < K ? max(0, min(16, (N - n) * 2)) : 0;
-        src = bytes ? b + (size_t)k * ldb + n : b;
+    if constexpr (kTmaB) {
+      // B's whole stage in one bulk copy: the box at (k0, n0), zero past K
+      // and N as the cp.async path fills it
+      if (tid == 0) {
+        const uint32_t bar = bar0 + 8 * slot;
+        mbar_expect_tx(bar, kBTile);
+        tma_load_2d(base + NPIECE * kATile, &tmap_b, n0, k0, bar);
       }
-      cp_async16(base + NPIECE * kATile + tile_off<B_KCONT, BN, kTcBK>(r, c), src,
-                 bytes);
+    } else {
+      constexpr int kChunks = BN * kTcBK / 8;
+#pragma unroll
+      for (int it = 0; it < kChunks / kTcThreads; ++it) {
+        const int i = it * kTcThreads + tid;
+        int r, c, bytes;
+        const __nv_bfloat16* src;
+        if constexpr (B_KCONT) {  // rows n, BK / 8 chunks of k
+          r = i / (kTcBK / 8);
+          c = i % (kTcBK / 8);
+          const int n = n0 + r, k = k0 + c * 8;
+          bytes = n < N ? max(0, min(16, (K - k) * 2)) : 0;
+          src = bytes ? b + (size_t)n * ldb + k : b;
+        } else {                  // rows k, BN / 8 chunks of n
+          r = i / (BN / 8);
+          c = i % (BN / 8);
+          const int k = k0 + r, n = n0 + c * 8;
+          bytes = k < K ? max(0, min(16, (N - n) * 2)) : 0;
+          src = bytes ? b + (size_t)k * ldb + n : b;
+        }
+        cp_async16(base + NPIECE * kATile + tile_off<B_KCONT, BN, kTcBK>(r, c),
+                   src, bytes);
+      }
     }
   };
 
@@ -585,10 +675,18 @@ sa_gemm_mma(const __nv_bfloat16* __restrict__ a, long long a_plane, int lda,
   }
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait<kTcStages - 2>();
+    if constexpr (kTmaB)
+      mbar_wait(bar0 + 8 * (kt % kTcStages), (kt / kTcStages) & 1);
     // stage kt has landed for every thread; every warp is done with stage
     // kt - 1, whose slot the next load reuses
     __syncthreads();
     const int nxt = kt + kTcStages - 1;
+    if constexpr (kTmaB) {
+      // the slot's generic-proxy reads (ldmatrix) before the bulk copy
+      // overwrites it
+      if (tid == 0)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
     if (nxt < nk) load_stage(nxt % kTcStages, nxt);
     cp_async_commit();
 
@@ -699,6 +797,56 @@ sa_gemm_mma(const __nv_bfloat16* __restrict__ a, long long a_plane, int lda,
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
+// (no libcuda link)
+static_assert(CUDART_VERSION >= 12050,
+              "cudaGetDriverEntryPointByVersion needs CUDA 12.5 or later");
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// B (K, N) bf16 stored as (K, N) rows of ldb elements, as a 2-D tensor map
+// whose box is one stage's tile, BK rows x BN. The swizzle is the tile
+// row's width (32, 64 or 128 bytes), which is tile_off's layout.
+template <class Tile>
+cudaError_t b_tensor_map(CUtensorMap* map, const void* b, int ldb, int N,
+                         int K) {
+  constexpr int kRow = Tile::BN * 2;  // bytes
+  static_assert(kRow == 32 || kRow == 64 || kRow == 128, "TMA swizzle");
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(K)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldb) * 2};
+  const cuuint32_t box[2] = {Tile::BN, Tile::BK};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapSwizzle swz = kRow == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : kRow == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(b), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <class Tile, int NPIECE, bool AK, bool BK_>
 cudaError_t launch_mma(const void* a, long long a_plane, int lda,
                        const void* b, int ldb, const TcEpilogue& epi, int M,
@@ -708,10 +856,15 @@ cudaError_t launch_mma(const void* a, long long a_plane, int lda,
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
+  CUtensorMap map{};  // read by TMA tiles' B as stored only
+  if constexpr (Tile::TMA_B && !BK_) {
+    e = b_tensor_map<Tile>(&map, b, ldb, N, K);
+    if (e != cudaSuccess) return e;
+  }
   dim3 grid((N + Tile::BN - 1) / Tile::BN, (M + Tile::BM - 1) / Tile::BM);
   kern<<<grid, Tile::THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(a), a_plane, lda,
-      static_cast<const __nv_bfloat16*>(b), ldb, epi, M, N, K);
+      static_cast<const __nv_bfloat16*>(b), ldb, epi, M, N, K, map);
   return cudaGetLastError();
 }
 
@@ -733,15 +886,30 @@ cudaError_t launch_mma_layout(int a_kcont, int b_kcont, const void* a,
                                                 M, N, K, st);
 }
 
-// The three tiles the wrapper's `mma_plan` chooses from (a sweep on the
-// H100 chose them; PERF.md): the forward's from M = 1024 down to where its
+// The tiles the wrapper's `mma_plan` chooses from (sweeps on the H100
+// chose them; PERF.md): the forward's from M = 1024 down to where its
 // blocks fill the card, 8 warps of 32 x 64 over 128 x 128 with 64-deep
 // stages two deep; below that 4 warps of 32 x 32 over 64 x 64; the split's
 // three A pieces take 32-deep stages three deep, so two 96 KB blocks share
 // an SM.
+//
+// TileDecode, M <= 16: one m16 row of A (zero-filled past M) and four warps
+// of 16 columns over 64, 128-deep stages six deep, W by TMA (123 KB a
+// block, one an SM). Decode is bound by W's bytes, and K is never split, so
+// a GEMM's parallelism is its N / BN column strips, each streamed through
+// one SM. Sweeps on the H100 (PERF.md §6) found a strip's pace set by
+// the number of W row segments its SM fetches, not by their bytes, the
+// ring's depth or the products: cp.async reached ~14 GB/s a block with
+// 64-byte rows and ~23 GB/s with 128-byte ones whatever the depth; TMA, one
+// bulk copy a stage, and 128-deep stages (half the waits) raised that, and
+// 128-byte rows (BN = 64, the widest TMA swizzles) halve the segments a
+// byte. So: 16 strips for wk and wv, 80 for wq, wo and wd, 216 for gate
+// and up, 2400 for the lm_head. A is restaged from L2 with every stage
+// (its rows, 40-110 KB, would not fit beside the ring).
 using TileLarge = TcTile<128, 128, 4, 2, 64, 2>;
 using TileSmall = TcTile<64, 64, 2, 2, 64, 3>;
 using TileSplit = TcTile<128, 128, 4, 2, 32, 3>;
+using TileDecode = TcTile<16, 64, 1, 4, 128, 6, true>;
 
 // hi = bf16_rn(x), mid = bf16_rn(x - hi), lo = bf16_rn(x - hi - mid): both
 // differences are exact in fp32, and hi + mid + lo == x exactly wherever
@@ -786,9 +954,10 @@ __global__ void sa_split3(const float* __restrict__ x, int rows, int cols,
 }  // namespace
 
 // dtype codes: 0 = fp32, 1 = bf16. tiled = 0 runs sa_gemm_partial (both
-// operands row-major with lda = K, ldw = N), 1 runs sa_gemm_tiled (the simt
-// route: fp32 operands only). `ws`
-// holds KS (M, N) partial sums; with KS == 1 it may be `out`.
+// operands row-major with lda = K, ldw = N, at least one fp32: bf16 x bf16
+// takes the tensor cores at every M, sa_mma_launch), 1 runs sa_gemm_tiled
+// (the simt route: fp32 operands only). `ws` holds KS (M, N) partial sums;
+// with KS == 1 it may be `out`.
 extern "C" int sa_matmul_launch(const void* a, int a_dt, int a_kcont, int lda,
                                 const void* w, int w_dt, int w_ncont, int ldw,
                                 const void* bias, void* ws, void* out,
@@ -824,10 +993,6 @@ extern "C" int sa_matmul_launch(const void* a, int a_dt, int a_kcont, int lda,
         err = launch_partial<__nv_bfloat16, float>(a, w, wsf, M, N, K, KS,
                                                    kslice, st);
         break;
-      case 3:
-        err = launch_partial<__nv_bfloat16, __nv_bfloat16>(a, w, wsf, M, N, K,
-                                                           KS, kslice, st);
-        break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -843,15 +1008,16 @@ extern "C" int sa_matmul_launch(const void* a, int a_dt, int a_kcont, int lda,
 
 // The tensor-core routes. npiece 1: bf16 A (mma); 3: A's hi, mid, lo
 // planes `a_plane` elements apart (split3). Output (m, n) at m * ldo_m + n *
-// ldo_n, the bias indexed by m when bias_on_m (a transposed problem). small:
-// TileSmall, else TileLarge (npiece 3: TileSplit).
+// ldo_n, the bias indexed by m when bias_on_m (a transposed problem). tile
+// (the `code` of sa_matmul.py's MMA_TILES entry): 0 TileLarge, 1
+// TileSmall, 2 TileDecode (npiece 1), 3 TileSplit (npiece 3).
 extern "C" int sa_mma_launch(const void* a, int npiece, int a_kcont, int lda,
                              long long a_plane, const void* b, int b_kcont,
                              int ldb, const void* bias, int bias_on_m,
                              void* out, void* raw, long long ldo_m,
                              long long ldo_n, float scale,
                              const void* scale_dev, int M, int N, int K,
-                             int act, int approx, int small, void* stream) {
+                             int act, int approx, int tile, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   TcEpilogue epi{static_cast<const float*>(bias), static_cast<float*>(out),
                  static_cast<float*>(raw), scale,
@@ -861,13 +1027,16 @@ extern "C" int sa_mma_launch(const void* a, int npiece, int a_kcont, int lda,
       reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (npiece == 1 && small)
-    err = launch_mma_layout<TileSmall, 1>(a_kcont, b_kcont, a, a_plane, lda,
-                                          b, ldb, epi, M, N, K, st);
-  else if (npiece == 1)
+  if (npiece == 1 && tile == 0)
     err = launch_mma_layout<TileLarge, 1>(a_kcont, b_kcont, a, a_plane, lda,
                                           b, ldb, epi, M, N, K, st);
-  else if (npiece == 3)
+  else if (npiece == 1 && tile == 1)
+    err = launch_mma_layout<TileSmall, 1>(a_kcont, b_kcont, a, a_plane, lda,
+                                          b, ldb, epi, M, N, K, st);
+  else if (npiece == 1 && tile == 2)
+    err = launch_mma_layout<TileDecode, 1>(a_kcont, b_kcont, a, a_plane, lda,
+                                           b, ldb, epi, M, N, K, st);
+  else if (npiece == 3 && tile == 3)
     err = launch_mma_layout<TileSplit, 3>(a_kcont, b_kcont, a, a_plane, lda,
                                           b, ldb, epi, M, N, K, st);
   else

@@ -13,10 +13,11 @@ The plain version is `gather_pages` + `decode_attention` of the port's
 The kernel (`csrc/sa_decode_attention.cu`) splits each (slot, KV head)'s
 keys across a thread-block cluster: grid (B, KVH, n_split), n_split
 blocks a cluster, each a contiguous run of the slot's keys (`split_plan`:
-enough blocks for two per SM, at most 8 a cluster, 16 where shared memory
-needs it). The g query heads of a KV head share every K and V row a block
-reads; each warp keeps 8 keys' loads in flight and reduces their g dots in
-one butterfly. A block keeps its own scores in shared memory, and three
+one block per 8 keys up to 8 a cluster, 16 where shared memory needs it;
+from the slot's own shape alone, so a slot's order of sums does not depend
+on how many other slots share the batch: ROADMAP F2). The g query heads
+of a KV head share every K and V row a block reads; each warp keeps 8
+keys' loads in flight and reduces their g dots in one butterfly. A block keeps its own scores in shared memory, and three
 exchanges through distributed shared memory, in rank order, give the row
 max, the denominator and the sum of the blocks' P·V partials: P is
 normalized by the whole row before it is rounded, as in the reference, and
@@ -80,7 +81,6 @@ KEY_ALIGN = 8          # keys a warp has in flight: runs are whole batches
 PORTABLE_CLUSTER = 8   # blocks a cluster every sm_90 part schedules
 MAX_CLUSTER = 16       # with the non-portable cluster size (H100)
 SMEM_LIMIT = 227 * 1024
-_SM_COUNT: dict = {}
 
 
 class SplitPlan(NamedTuple):
@@ -100,20 +100,21 @@ def _keys_per_cta(S: int, n: int) -> int:
     return -(-(-(-S // n)) // KEY_ALIGN) * KEY_ALIGN
 
 
-def split_plan(B: int, KVH: int, g: int, hd: int, psz: int, P: int, *,
-               n_sm: int = 132, n_split: int | None = None) -> SplitPlan:
-    """How the slot's S = P·psz keys are split across a cluster.
+def split_plan(g: int, hd: int, psz: int, P: int, *,
+               n_split: int | None = None) -> SplitPlan:
+    """How a slot's S = P·psz keys are split across a cluster.
 
-    n_split starts at the blocks that give two per SM over the B·KVH
-    clusters (at most PORTABLE_CLUSTER, at most one per KEY_ALIGN keys),
-    doubles up to MAX_CLUSTER while a block's scores do not fit SMEM_LIMIT,
-    and shrinks to the runs the rounded run length needs, so no block is
-    empty. `n_split` given (tests) fixes the start. Raises where no cluster
-    holds the slot."""
+    n_split starts at PORTABLE_CLUSTER blocks (at most one per KEY_ALIGN
+    keys), doubles up to MAX_CLUSTER while a block's scores do not fit
+    SMEM_LIMIT, and shrinks to the runs the rounded run length needs, so
+    no block is empty. Nothing else enters: not the batch, not the card's
+    SM count, so a slot's blocks and their order of sums are the same in
+    any batch (ROADMAP F2; at the serve shape, 4 slots x 8 KV heads, this
+    is the 8 blocks the earlier batch-sized plan chose). `n_split` given
+    (tests) fixes the start. Raises where no cluster holds the slot."""
     S = P * psz
     if n_split is None:
-        n = max(1, min(PORTABLE_CLUSTER, -(-2 * n_sm // (B * KVH)),
-                       -(-S // KEY_ALIGN)))
+        n = max(1, min(PORTABLE_CLUSTER, -(-S // KEY_ALIGN)))
         while (n < MAX_CLUSTER
                and decode_smem(g, hd, psz, _keys_per_cta(S, n)) > SMEM_LIMIT):
             n = min(MAX_CLUSTER, 2 * n)
@@ -131,12 +132,21 @@ def split_plan(B: int, KVH: int, g: int, hd: int, psz: int, P: int, *,
     return SplitPlan(n, kpc, smem)
 
 
-def _sm_count(device) -> int:
-    n = _SM_COUNT.get(device)
-    if n is None:
-        n = _SM_COUNT[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return n
+def launch_plan(q, k_pool, v_pool, block_table,
+                n_split: int | None = None) -> SplitPlan:
+    """The kernel's split for these operands' shapes (`split_plan`), after
+    checking what the kernel takes: g = H / KVH up to 8, hd 64, 128 or
+    256, both pools of one type in POOL_DTYPES."""
+    H, hd = q.shape[2], q.shape[3]
+    psz, KVH = k_pool.shape[1], k_pool.shape[2]
+    g = H // KVH
+    if (H % KVH or not 1 <= g <= 8 or hd not in (64, 128, 256)
+            or k_pool.dtype not in POOL_DTYPES
+            or v_pool.dtype != k_pool.dtype):
+        raise ValueError(f"unsupported paged decode operands q "
+                         f"{tuple(q.shape)} pool {tuple(k_pool.shape)} "
+                         f"{k_pool.dtype}")
+    return split_plan(g, hd, psz, block_table.shape[1], n_split=n_split)
 
 
 def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
@@ -162,18 +172,11 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
         if not t.is_cuda or t.device != q.device:
             raise ValueError("paged_decode_cuda needs every operand on one "
                              "CUDA device")
+    plan = launch_plan(q, k_pool, v_pool, block_table, n_split)
     B, _, H, hd = q.shape
     psz, KVH = k_pool.shape[1], k_pool.shape[2]
     P = block_table.shape[1]
     g = H // KVH
-    if (H % KVH or not 1 <= g <= 8 or hd not in (64, 128, 256)
-            or k_pool.dtype not in POOL_DTYPES
-            or v_pool.dtype != k_pool.dtype):
-        raise ValueError(f"unsupported paged decode operands q "
-                         f"{tuple(q.shape)} pool {tuple(k_pool.shape)} "
-                         f"{k_pool.dtype}")
-    plan = split_plan(B, KVH, g, hd, psz, P, n_sm=_sm_count(q.device),
-                      n_split=n_split)
     scale = scale or hd ** -0.5
     cap = float(cap or 0.0)
     q = q.to(torch.float32).contiguous()

@@ -14,20 +14,25 @@ The kernel library (`csrc/sa_matmul.cu`) has four routes, chosen by
 failed build or launch of any route raises) and counted apart in
 `ROUTE_LAUNCHES`:
 
-* `partial` — decode (M < TILED_MIN_M, row-major operands). Bound by
-  bytes: every weight is read once for 2·M flops. SIMT fp32 FMA, a block
-  per 64 columns and 8 rows, K split across blocks (slices added in
-  order by the epilogue kernel) so narrow N fills the SMs.
-* `mma` — bf16 × bf16 from M = TILED_MIN_M: the forward under the bf16
-  and FP8 policies (`cast_in` gives bf16 on the card). `mma.sync`
-  m16n8k16 on the tensor cores, fp32 accumulate; operand tiles staged by
-  cp.async into XOR-swizzled shared memory and read by ldmatrix (`.trans`
-  for a row-contiguous operand), so either operand is read in place
-  through its strides. Bound by the tensor cores at training shapes (M =
-  1024), by W's bytes at prefill's M; `mma_plan` takes 64 × 64 block
-  tiles where the large ones leave SMs idle. K is never split: every
-  output's sum runs in one thread, k16 steps in order, whatever M or the
-  tile, so a row's result does not depend on the other rows (ROADMAP F2).
+* `partial` — fp32 decode (M < TILED_MIN_M, row-major operands, at least
+  one of them fp32: the fp32 policy). Bound by bytes: every weight is
+  read once for 2·M flops. SIMT fp32 FMA, a block per 64 columns and 8
+  rows, K split across blocks (slices added in order by the epilogue
+  kernel) so narrow N fills the SMs.
+* `mma` — bf16 × bf16 at every M: the forward under the bf16 and FP8
+  policies (`cast_in` gives bf16 on the card), decode included.
+  `mma.sync` m16n8k16 on the tensor cores, fp32 accumulate; operand tiles
+  staged by cp.async into XOR-swizzled shared memory and read by ldmatrix
+  (`.trans` for a row-contiguous operand), so either operand is read in
+  place through its strides. Bound by the tensor cores at training shapes
+  (M = 1024), by W's bytes at prefill's and decode's M; `mma_plan` takes
+  64 × 64 block tiles where the large ones leave SMs idle, and for M ≤
+  DECODE_MAX_M the decode tile (one m16 row, 64 columns, W streamed by
+  TMA bulk copies into a six-stage ring), one launch a GEMM and no
+  workspace. K is never split: every output's sum runs in one thread,
+  k16 steps in order, whatever M or the tile, so a row's result does not
+  depend on the other rows, and a bf16 GEMM's rows carry the same bits
+  at every M (ROADMAP F2).
 * `split3` — one fp32 and one bf16 operand: both backward GEMMs (dA =
   dus·Wᵀ, dW = Aᵀ·dus, fp32 × bf16 products in exact mode). The fp32
   operand is split once (`split3_cuda`, shared by dA and dW) into three
@@ -55,6 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -82,11 +88,29 @@ _COLS_PER_BLOCK = 64
 _ROWS_PER_BLOCK = 8
 _TILE = 128           # the simt kernel's output tile (rows and columns)
 _TILE_K = 16          # ... and its K stage depth
-TILED_MIN_M = 8       # rows from which a GEMM takes a tiled route
-# the tensor-core kernel's tiles (csrc/sa_matmul.cu TileLarge, TileSmall,
-# TileSplit): (block rows, block columns, warps, K stage depth, stages)
-MMA_TILES = {"large": (128, 128, 8, 64, 2), "small": (64, 64, 4, 64, 3),
-             "split3": (128, 128, 8, 32, 3)}
+TILED_MIN_M = 8       # rows from which a non-bf16 GEMM takes a tiled route
+DECODE_MAX_M = 16     # rows up to which a bf16 GEMM takes the decode tile
+
+
+class MmaTile(NamedTuple):
+    """A tile of the tensor-core kernel (csrc/sa_matmul.cu TcTile): block
+    rows and columns, warps, K stage depth, stages, the code that selects
+    it in `sa_mma_launch`, and whether W's stages arrive by TMA bulk copies
+    (a stage's mbarrier each, the ring aligned to 1024 bytes)."""
+    bm: int
+    bn: int
+    warps: int
+    bk: int
+    stages: int
+    code: int
+    tma: bool = False
+
+
+# TileLarge, TileSmall, TileDecode, TileSplit
+MMA_TILES = {"large": MmaTile(128, 128, 8, 64, 2, code=0),
+             "small": MmaTile(64, 64, 4, 64, 3, code=1),
+             "decode": MmaTile(16, 64, 4, 128, 6, code=2, tma=True),
+             "split3": MmaTile(128, 128, 8, 32, 3, code=3)}
 
 
 def truncate_mantissa(y: torch.Tensor, bits: int = APPROX_DROP_BITS
@@ -162,35 +186,44 @@ def tiled_split_k(m: int, n: int, k: int, sms: int = 132) -> int:
 
 def gemm_route(m: int, a_dtype, w_dtype, a_kcont: bool = True,
                w_ncont: bool = True) -> str:
-    """The kernel a GEMM of m rows runs: `partial` (split-K SIMT, row-major
-    operands, m < TILED_MIN_M: decode); else by the operand types: `mma`
-    (bf16 x bf16, tensor cores), `split3` (one fp32 and one bf16 operand,
-    the fp32 one split into three bf16 pieces, tensor cores) or `simt`
-    (fp32 x fp32)."""
+    """The kernel a GEMM of m rows runs: `mma` (bf16 x bf16, tensor cores)
+    at every m; otherwise `partial` (split-K SIMT, row-major operands, m <
+    TILED_MIN_M: fp32 decode), else by the operand types: `split3` (one
+    fp32 and one bf16 operand, the fp32 one split into three bf16 pieces,
+    tensor cores) or `simt` (fp32 x fp32)."""
+    bf = (a_dtype == torch.bfloat16, w_dtype == torch.bfloat16)
+    if all(bf):
+        return "mma"
     if m < TILED_MIN_M and a_kcont and w_ncont:
         return "partial"
-    bf = (a_dtype == torch.bfloat16, w_dtype == torch.bfloat16)
-    return "mma" if all(bf) else "split3" if any(bf) else "simt"
+    return "split3" if any(bf) else "simt"
 
 
-def mma_plan(m: int, n: int, route: str, sms: int = 132) -> dict:
+def mma_plan(m: int, n: int, route: str, sms: int = 132,
+             tile: str | None = None) -> dict:
     """How the tensor-core kernel covers an (m, n) output: `npiece` bf16
     pieces of A (1 for `mma`, 3 for `split3`), the tile (`MMA_TILES`:
-    `mma` takes the large one where its blocks fill the SMs and the small
-    one below that; `split3` its own), the grid (n tiles, m tiles) and each
-    block's shared memory. K is never split: each output's sum runs k =
-    0..K-1 in one thread whatever m or the tile, so a row's result does not
-    depend on the other rows (ROADMAP F2)."""
+    `mma` takes the decode one up to DECODE_MAX_M rows, the large one
+    where its blocks fill the SMs and the small one between; `split3` its
+    own; `tile` forces one of `mma`'s, for sweeps and tests), the grid (n
+    tiles, m tiles) and each block's shared memory. K is never split: each
+    output's sum runs k = 0..K-1 in one thread whatever m or the tile, so
+    a row's result does not depend on the other rows (ROADMAP F2)."""
     npiece = 3 if route == "split3" else 1
     if npiece == 3:
         tile = "split3"
-    else:
+    elif tile is None:
         bm, bn = MMA_TILES["large"][:2]
-        tile = "large" if -(-m // bm) * -(-n // bn) >= sms else "small"
-    bm, bn, warps, bk, stages = MMA_TILES[tile]
-    return {"npiece": npiece, "tile": tile, "block": (bm, bn),
-            "warps": warps, "grid": (-(-n // bn), -(-m // bm)),
-            "smem": stages * (npiece * bm + bn) * bk * 2}
+        tile = ("decode" if m <= DECODE_MAX_M else "large"
+                if -(-m // bm) * -(-n // bn) >= sms else "small")
+    elif tile == "split3" or tile not in MMA_TILES:
+        raise ValueError(f"unknown mma tile {tile!r}; have "
+                         f"{[t for t in MMA_TILES if t != 'split3']}")
+    t = MMA_TILES[tile]
+    return {"npiece": npiece, "tile": tile, "block": (t.bm, t.bn),
+            "warps": t.warps, "grid": (-(-n // t.bn), -(-m // t.bm)),
+            "smem": t.stages * (npiece * t.bm + t.bn) * t.bk * 2
+            + (1024 + 8 * t.stages if t.tma else 0)}
 
 
 _SMS: dict = {}
@@ -279,7 +312,7 @@ def split3_cuda(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
-               scale_dev, act, mode, out, raw, planes):
+               scale_dev, act, mode, out, raw, planes, tile=None):
     """One launch of the tensor-core kernel (`mma` or `split3`). The
     kernel's A carries the pieces: under `split3` with the fp32 operand on
     the weight side the problem is transposed (C^T = W^T A^T) and written
@@ -310,7 +343,7 @@ def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
     else:
         a_st, lda_k = _aligned(a_st, A_ld)
         a_ptr, a_plane = a_st.data_ptr(), 0
-    plan = mma_plan(M, N, route, _sm_count(out.device))
+    plan = mma_plan(M, N, route, _sm_count(out.device), tile)
     fn = function("sa_matmul", "sa_mma_launch",
                   [ctypes.c_void_p] + [ctypes.c_int] * 3
                   + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 2
@@ -325,14 +358,16 @@ def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
              1.0 if scale is None or scale_dev is not None else float(scale),
              None if scale_dev is None else scale_dev.data_ptr(),
              M, N, k, _ACT_CODE[act], int(mode == "approx"),
-             int(plan["tile"] == "small"),
+             MMA_TILES[plan["tile"]].code,
              torch.cuda.current_stream(out.device).cuda_stream)
     check(err, f"sa_matmul ({route})")
 
 
-def _launch(a, w, bias, scale, act, mode, save_raw, planes=None):
+def _launch(a, w, bias, scale, act, mode, save_raw, planes=None,
+            tile=None):
     """One kernel launch: (out, raw or None), both (M, N) fp32. `planes`:
-    the fp32 operand's three bf16 pieces, already split (`split3` only)."""
+    the fp32 operand's three bf16 pieces, already split (`split3` only);
+    `tile` forces the `mma` route's tile (`mma_plan`; sweeps and tests)."""
     from .build import check, function
 
     _check_args(a, w, bias, act, mode)
@@ -364,7 +399,7 @@ def _launch(a, w, bias, scale, act, mode, save_raw, planes=None):
     route = gemm_route(m, a.dtype, w.dtype, a_kcont, w_ncont)
     if route in ("mma", "split3"):
         _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
-                   scale_dev, act, mode, out, raw, planes)
+                   scale_dev, act, mode, out, raw, planes, tile)
         ROUTE_LAUNCHES[route] += 1
         return out, raw
     tiled = route == "simt"

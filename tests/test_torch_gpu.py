@@ -446,8 +446,10 @@ def _operand(g, shape, dtype, transposed, dev):
 def test_sa_matmul_types_and_layouts_match_plain(cuda, m, k, n, a_dt, w_dt,
                                                  a_t, w_t):
     """Every operand type and layout, through the route `gemm_route`
-    names (split-K below TILED_MIN_M for row-major operands; else `mma`,
-    `split3` or `simt` by the operand types), the raw output and the
+    names (`mma` for bf16 x bf16 at every M, the decode tile below 17
+    rows; for the other pairs split-K below TILED_MIN_M for row-major
+    operands, else `split3` or `simt` by the operand types), the raw
+    output and the
     epilogue within the route's bound; on the tensor-core routes the raw
     output also passes `split_check`."""
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
@@ -511,7 +513,7 @@ def test_sa_matmul_backward_matches_plain(cuda, act, m):
     c = ops.counts()
     assert c["sa_matmul"] == {"launches": 1, "plain_calls": 0}, c
     assert c["sa_matmul_bwd"] == {"launches": 2, "plain_calls": 0}, c
-    fwd = "mma" if m >= MM.TILED_MIN_M else "partial"
+    fwd = MM.gemm_route(m, a0.dtype, w0.dtype)
     assert ops.route_counts()["sa_matmul"] == {
         "partial": int(fwd == "partial"), "mma": int(fwd == "mma"),
         "split3": 2, "simt": 0}
@@ -575,8 +577,9 @@ def test_split3_is_the_plain_split_bit_for_bit(cuda):
 def test_sa_matmul_route_counters(cuda):
     """Under the bf16 policy a training-shape GEMM's forward launches the
     `mma` route and its backward two `split3` launches; under the fp32
-    policy the forward and backward launch `simt`; decode-sized row-major
-    GEMMs `partial`."""
+    policy the forward and backward launch `simt`. A decode-sized
+    row-major GEMM launches `mma` under the bf16 policy (the decode tile)
+    and `partial` under the fp32 policy."""
     from repro_torch.core.precision import sa_dot
 
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -593,9 +596,94 @@ def test_sa_matmul_route_counters(cuda):
         want[bwd] += 2
         assert ops.route_counts()["sa_matmul"] == want, fmt
         assert all(v["plain_calls"] == 0 for v in ops.counts().values())
-    ops.reset_counts()
-    sa_dot(x[:4], w.detach(), PrecisionPolicy(backend="cuda"))
-    assert ops.route_counts()["sa_matmul"]["partial"] == 1
+    for fmt, route in (("bf16", "mma"), ("fp32", "partial")):
+        ops.reset_counts()
+        sa_dot(x[:4], w.detach(), PrecisionPolicy(backend="cuda",
+                                                 input_format=fmt))
+        want = {r: int(r == route) for r in MM.ROUTES}
+        assert ops.route_counts()["sa_matmul"] == want, fmt
+
+
+# the path's bf16 GEMMs at reduced K (full N), and a ragged one: (K, N,
+# bias, act, mode, scale); "dev" is a scale held on the card (the FP8
+# GEMM's descale)
+FOLD_SHAPES = {
+    "wq": (640, 5120, True, "none", "exact", None),
+    "wk": (640, 1024, True, "none", "approx", None),
+    "wv": (640, 1024, True, "gelu", "exact", "dev"),
+    "wo": (640, 5120, False, "none", "exact", None),
+    "gate": (640, 13824, False, "silu", "exact", None),
+    "up": (640, 13824, False, "none", "approx", "dev"),
+    "down": (1728, 5120, False, "none", "exact", None),
+    "ragged": (1000, 999, True, "silu", "approx", 0.75)}
+
+
+@pytest.mark.parametrize("name", list(FOLD_SHAPES))
+def test_sa_matmul_rows_fold_bit_identically(cuda, name):
+    """ROADMAP F2: each row of a bf16 x bf16 GEMM at M = 1, 4, 7 (the
+    decode tile) is bit-identical to the same row inside the products of
+    M = 8, 20 (the decode and small tiles) and 128 — the epilogue (bias,
+    activation, approx truncation, a scale on the card) and the raw
+    accumulator included — so a speculative verify fold of B·(k+1) rows
+    gives each row what the decode step gave it."""
+    k, n, has_bias, act, mode, scale = FOLD_SHAPES[name]
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    a = torch.randn((128, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=cuda) * k ** -0.5).to(
+        torch.bfloat16)
+    bias = (torch.randn((n,), generator=g, device=cuda) * 0.1
+            if has_bias else None)
+    if scale == "dev":
+        scale = torch.tensor(0.5, device=cuda)
+
+    def run(m):
+        y, raw = MM.sa_matmul_cuda(a[:m], w, bias, scale, act=act,
+                                   mode=mode, save_raw=True)
+        return y.view(torch.int32), raw.view(torch.int32)
+
+    big = {m: run(m) for m in (8, 20, 128)}
+    assert MM.mma_plan(8, n, "mma")["tile"] == "decode"
+    assert MM.mma_plan(20, n, "mma")["tile"] != "decode"
+    for m in (1, 4, 7):
+        y, raw = run(m)
+        for mb, (yb, rawb) in big.items():
+            assert torch.equal(y, yb[:m]), (m, mb)
+            assert torch.equal(raw, rawb[:m]), (m, mb)
+
+
+@pytest.mark.parametrize("tile", ["large", "small", "decode"])
+def test_sa_matmul_tiles_give_the_same_bits(cuda, tile):
+    """Every `mma` tile gives every output the same bits (one summation
+    order: k16 steps in order, K never split), at decode's M and at M =
+    128, for each operand layout."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    for m in (4, 128):
+        for a_t, w_t in ((False, False), (True, False), (False, True),
+                         (True, True)):
+            a = _operand(g, (m, 1000), torch.bfloat16, a_t, cuda)
+            w = _operand(g, (1000, 520), torch.bfloat16, w_t, cuda)
+            want = MM.sa_matmul_cuda(a, w, act="silu")
+            got, _ = MM._launch(a, w, None, None, "silu", "exact", False,
+                                tile=tile)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (m, a_t, w_t)
+
+
+@pytest.mark.parametrize("lens,pool", [
+    ((144, 100, 40, 0), F32), ((144, 100, 40, 0), BF16),
+    ((2048, 1000, 17, 0), F32)])
+def test_paged_decode_slots_fold_bit_identically(cuda, lens, pool):
+    """ROADMAP F2: a slot's decode output at B = 4 is bit-identical to the
+    same slot inside a batch of B = 20 with the same block-table width
+    (the cluster is planned from the slot alone)."""
+    P = -(-max(lens) // 16)
+    lens20 = lens + tuple((37 * i) % (16 * P) + 1 for i in range(16))
+    q, k, v, pp, bt, pos = _pool(cuda, B=20, P=P, lens=lens20)
+    k, v = k.to(pool), v.to(pool)
+    y20 = DA.paged_decode_cuda(q, k, v, pp, bt, pos)
+    y4 = DA.paged_decode_cuda(q[:4], k, v, pp, bt[:4], pos[:4])
+    assert torch.equal(y4.view(torch.int32), y20[:4].view(torch.int32))
+    assert DA.launch_plan(q[:4], k, v, bt[:4]) == DA.launch_plan(q, k, v, bt)
 
 
 def test_sa_matmul_backward_bound_rejects_a_dropped_jacobian(cuda):

@@ -306,9 +306,11 @@ def test_decode_split_plan_covers_every_key_once(B, psz, S, n_split):
     if n_split and DA.decode_smem(g, hd, psz, DA._keys_per_cta(
             P * psz, n_split)) > DA.SMEM_LIMIT:
         with pytest.raises(ValueError, match="shared memory"):
-            DA.split_plan(B, KVH, g, hd, psz, P, n_sm=132, n_split=n_split)
+            DA.split_plan(g, hd, psz, P, n_split=n_split)
         return
-    plan = DA.split_plan(B, KVH, g, hd, psz, P, n_sm=132, n_split=n_split)
+    plan = DA.split_plan(g, hd, psz, P, n_split=n_split)
+    # the wrapper's plan for B slots of these shapes is the same
+    assert _decode_launch_plan(B, KVH, g, hd, psz, P, n_split) == plan
     runs = [(r * plan.keys_per_cta,
              min(P * psz, (r + 1) * plan.keys_per_cta))
             for r in range(plan.n_split)]
@@ -331,9 +333,40 @@ def test_decode_split_plan_covers_every_key_once(B, psz, S, n_split):
 
 def test_decode_split_plan_refuses_what_no_cluster_holds():
     with pytest.raises(ValueError, match="shared memory"):
-        DA.split_plan(1, 8, 5, 128, 16, 2 ** 18 // 16)
+        DA.split_plan(5, 128, 16, 2 ** 18 // 16)
     with pytest.raises(ValueError, match="n_split"):
-        DA.split_plan(1, 8, 5, 128, 16, 9, n_split=17)
+        DA.split_plan(5, 128, 16, 9, n_split=17)
+
+
+def _decode_launch_plan(B, KVH, g, hd, psz, P, n_split=None,
+                        dtype=torch.float32):
+    """The paged decode wrapper's plan for B slots (shapes only: meta
+    tensors)."""
+    q = torch.empty((B, 1, KVH * g, hd), device="meta")
+    pool = torch.empty((B * P + 1, psz, KVH, hd), dtype=dtype, device="meta")
+    bt = torch.empty((B, P), dtype=torch.int32, device="meta")
+    return DA.launch_plan(q, pool, pool, bt, n_split)
+
+
+@pytest.mark.parametrize("S,psz,g,hd", [
+    (144, 16, 5, 128), (2048, 16, 5, 128), (12288, 16, 5, 128),
+    (131072, 16, 5, 128), (40, 16, 5, 128), (700, 7, 8, 64),
+    (36, 12, 1, 256), (4096, 32, 4, 128)])
+@pytest.mark.parametrize("B", [1, 4, 20, 64])
+def test_decode_split_plan_does_not_depend_on_the_batch(S, psz, g, hd, B):
+    """ROADMAP F2: a slot's cluster (its blocks, their runs of keys, hence
+    its order of sums) is the same whatever the batch around it — B = 1,
+    4, 20, 64 at 8 KV heads, for either pool type — so a slot gives the
+    same bits decoded alone or folded into a larger batch. At the serve
+    shape (144-token slots) and at 2048-token slots it is the plan the
+    earlier batch-sized rule gave at B = 4: a start of 8 blocks (6 of 24
+    keys at 144 tokens)."""
+    P = -(-S // psz)
+    want = _decode_launch_plan(4, 8, g, hd, psz, P)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert _decode_launch_plan(B, 8, g, hd, psz, P, dtype=dtype) == want
+    if (S, psz, g, hd) in ((144, 16, 5, 128), (2048, 16, 5, 128)):
+        assert want == DA.split_plan(g, hd, psz, P, n_split=8)
 
 
 @pytest.mark.parametrize("T", [1, 15, 16, 17, 32, 64, 100, 128, 200, 1024])
@@ -397,20 +430,26 @@ def test_sa_matmul_route_counts_stay_zero_on_cpu():
     (torch.bfloat16, torch.float32, "split3"),
     (torch.float32, torch.float32, "simt")])
 def test_gemm_route_follows_the_operand_types(a_dt, w_dt, route):
-    """Below TILED_MIN_M a row-major GEMM takes the split-K kernel; from it,
-    or with any transposed operand (the backward's), the route is the
-    operand types' whatever M is."""
+    """bf16 x bf16 takes the tensor cores (`mma`) at every M and layout,
+    decode included (ROADMAP F2: no route flips with the rows). Any other
+    pair: below TILED_MIN_M a row-major GEMM takes the split-K kernel;
+    from it, or with any transposed operand (the backward's), the route is
+    the operand types' whatever M is."""
     m = MM.TILED_MIN_M
-    assert MM.gemm_route(m - 1, a_dt, w_dt) == "partial"
+    small = "mma" if route == "mma" else "partial"
+    for rows in (1, 4, m - 1):
+        assert MM.gemm_route(rows, a_dt, w_dt) == small
     for rows in (1, m - 1, m, 1024):
         assert MM.gemm_route(rows, a_dt, w_dt, False, True) == route
         assert MM.gemm_route(rows, a_dt, w_dt, True, False) == route
+        assert MM.gemm_route(rows, a_dt, w_dt, False, False) == route
     for rows in (m, m + 1, 1024):
         assert MM.gemm_route(rows, a_dt, w_dt) == route
 
 
-@pytest.mark.parametrize("m", [1, 8, 63, 64, 65, 128, 256, 1000, 1024])
-@pytest.mark.parametrize("n", [1, 96, 999, 1024, 5120, 13824])
+@pytest.mark.parametrize("m", [1, 4, 7, 8, 16, 63, 64, 65, 128, 256, 1000,
+                               1024])
+@pytest.mark.parametrize("n", [1, 96, 999, 1024, 5120, 13824, 153600])
 @pytest.mark.parametrize("route", ["mma", "split3"])
 def test_mma_plan_covers_the_output_once(m, n, route):
     """The block tiles of the tensor-core grid cover the (m, n) output
@@ -426,6 +465,33 @@ def test_mma_plan_covers_the_output_once(m, n, route):
     assert plan["smem"] <= 227 * 1024
     assert set(plan) == {"npiece", "tile", "block", "warps", "grid", "smem"}
     assert (plan["tile"] == "split3") == (route == "split3")
+    if route == "mma":
+        assert (plan["tile"] == "decode") == (m <= MM.DECODE_MAX_M)
+    t = MM.MMA_TILES[plan["tile"]]
+    tma = 1024 + 8 * t.stages if t.tma else 0
+    assert plan["smem"] == t.stages * (plan["npiece"] * bm + bn) * t.bk * 2 \
+        + tma
+
+
+@pytest.mark.parametrize("n,blocks", [(1024, 16), (5120, 80),
+                                      (13824, 216), (153600, 2400)])
+def test_mma_plan_streams_decode_weights_in_column_strips(n, blocks):
+    """Decode (M ≤ 16) takes one m16 row of blocks 64 columns wide, one
+    column strip of W streamed a block without a K split (wk and wv 16,
+    wq, wo and wd 80, gate and up 216, the lm_head 2400), each block's
+    ring within an SM's shared memory; a forced tile is honoured and an
+    unknown one refused."""
+    for m in (1, 4, 7, MM.DECODE_MAX_M):
+        plan = MM.mma_plan(m, n, "mma")
+        assert plan["tile"] == "decode" and plan["grid"] == (blocks, 1)
+        assert plan["smem"] <= 227 * 1024
+    assert MM.mma_plan(MM.DECODE_MAX_M + 1, n, "mma")["tile"] != "decode"
+    assert MM.mma_plan(4, n, "mma", tile="large")["tile"] == "large"
+    assert MM.mma_plan(1024, n, "mma", tile="decode")["grid"] == (blocks, 64)
+    assert MM.mma_plan(4, n, "split3", tile="decode")["tile"] == "split3"
+    for bad in ("split3", "huge"):
+        with pytest.raises(ValueError, match="tile"):
+            MM.mma_plan(4, n, "mma", tile=bad)
 
 
 def test_mma_plan_keeps_the_grid_full_at_prefill_m():
