@@ -25,10 +25,12 @@ Phases, in order; any failure exits nonzero:
              and 1024 and decode times at the serve shape and at
              2048-token slots with the block width and cluster size swept,
              a 12,288-token slot and bit-identical repeats.
-4. fold    — ROADMAP F2 at full width: every row of the path's bf16
-             GEMMs (7 layer shapes and the lm_head) bit-identical at M =
-             1, 4, 7, 8, 20 and 1024, and a slot's paged decode at B = 4
-             bit-identical to the same slot inside B = 20.
+4. fold    — ROADMAP F2 and F2b at full width: every row of the path's
+             GEMMs (7 layer shapes and the lm_head), bf16 x bf16 and fp32
+             x fp32, bit-identical at M = 1, 4, 7, 8, 20 and 1024, and a
+             slot's paged decode at B = 4 bit-identical to the same slot
+             inside B = 20; then the fp32 routes' times (a layer's 7 GEMMs
+             fp32 x fp32 at M = 4 and 1024).
 5. serve   — full-width, full-depth qwen2.5-14b (random weights from a
              seed) served through `repro_torch.launch.serve.main` with the
              `cuda` GEMM backend; every request must generate `max_new`
@@ -48,8 +50,10 @@ Phases, in order; any failure exits nonzero:
 7. emulate — the same model served under `REPRO_GEMM_BACKEND=emulate`:
              every GEMM through the fp_emu kernel (the SA GEMM never
              launches), attention through the two attention kernels, no
-             plain version; then one prompt's prefill logits under
-             `emulate` and `cuda`, within the same bound.
+             plain version; its two requests again under torch.profiler
+             (prefill_s, decode ITL, idle share, fp_emu's share of device
+             time); then one prompt's prefill logits under `emulate` and
+             `cuda`, within the same bound.
 8. study   — `repro_torch.launch.precision_study.main` at full width: the
              skewed and baseline chains bit-exact per format, the cycle and
              energy model equal to the JAX package's numbers, and the
@@ -66,6 +70,17 @@ Phases, in order; any failure exits nonzero:
              (every forward GEMM on its `mma` route, every backward GEMM on
              `split3`), its plain version never run; peak memory and time
              per step.
+
+The kernel phase holds fp_emu bit for bit to its plain version and to
+chained_fma in four formats and both modes, at decode's and prefill's
+shapes and at one (M, N) for each launch geometry its plan picks (the
+producer/consumer kernel, and rows a thread x warps a block of the
+other); it prints the SASS a PE step (the K loop, its dependent path, the
+chain probe's), the chain's cycles a step, the decode wk GEMM's times
+beside its issue bound (the fewest SASS a PE step of any geometry) and
+its chain-latency bound (K x this design's chain cycles), the larger
+named as its bound, wk at M = 1-33, and a layer's 7 GEMMs and the lm_head
+at M = 2 and 32.
 
 The kernel phase also holds the SA GEMM at the training shapes (M = 1024
 tokens): the forward on the tensor cores (`mma`), its raw output, and the
@@ -298,8 +313,8 @@ def check_gemm(torch, timer):
                                      f"{route}")
             routes_seen.add(route)
             if route == "partial":
-                where = (f"{route} split-K "
-                         f"{mm.split_k(m, n, k, mm._sm_count(a.device))}")
+                where = (f"{route} "
+                         f"{mm.fp32_k_plan(n, k)['slices']} K slices")
             else:
                 plan = mm.mma_plan(m, n, route)
                 where = f"{route} {plan['tile']} {plan['grid']}"
@@ -381,15 +396,6 @@ def check_gemm(torch, timer):
                      "beside it; the lm_head at M=4 in readings"}
 
 
-LAYER_GEMMS = [("wq", D_MODEL, 40 * 128, True, "none"),
-               ("wk", D_MODEL, 8 * 128, True, "none"),
-               ("wv", D_MODEL, 8 * 128, True, "none"),
-               ("wo", 40 * 128, D_MODEL, False, "none"),
-               ("wg", D_MODEL, D_FF, False, "silu"),
-               ("wu", D_MODEL, D_FF, False, "none"),
-               ("wd", D_FF, D_MODEL, False, "none")]
-
-
 # values the split must reconstruct bit for bit: ties of each piece's
 # rounding, powers of two, the smallest normal, 2^-110 (the exact range's
 # edge), the largest floats (hi taken toward zero) and non-finite values
@@ -424,6 +430,7 @@ def sweep_routes(torch, timer, g):
     `partial` kernel, and W's bytes, which bound decode, are the same),
     beside bf16 torch.matmul."""
     from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import LAYER_GEMMS
 
     out = {}
     for mr in (1, 2, 4, 8, 16, 32, 64, 128, 256):
@@ -470,6 +477,7 @@ def check_gemm_train(torch, timer):
     bound; then the route threshold's sweep."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import LAYER_GEMMS, LM_HEAD
 
     # the yardsticks: full fp32 (TF32 would keep 10 mantissa bits) and
     # bf16 accumulated in fp32 throughout
@@ -478,12 +486,12 @@ def check_gemm_train(torch, timer):
     m = TRAIN_M
     g = torch.Generator(device="cuda").manual_seed(6)
     worst = max_err = 0.0
+    dev_ms = 0.0
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
            "flops": 0.0, "fwd_ms": 0.0, "fwd_bf16_ms": 0.0,
            "fwd_fp32_ms": 0.0, "fwd_flops": 0.0}
     faults, split_ok = {}, True
-    for name, k, n, has_bias, act in LAYER_GEMMS + [
-            ("lm_head", D_MODEL, 153600, False, "none")]:
+    for name, k, n, has_bias, act in LAYER_GEMMS + [LM_HEAD]:
         a = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
         w = (torch.randn((k, n), generator=g, device="cuda")
              * k ** -0.5).to(torch.bfloat16)
@@ -553,6 +561,7 @@ def check_gemm_train(torch, timer):
         a32, w32 = a.float(), w.float()
         t_f32 = timer.wall(lambda: torch.matmul(a32, w32), reps=reps)
         t_k = timer.wall(lambda: mm.backward_gemms(a, w, dus), reps=reps)
+        d_k = timer.device(lambda: mm.backward_gemms(a, w, dus), reps=reps)
         t_p = timer.wall(lambda: mm.backward_gemms_ref(a, w, dus), reps=reps)
         t_l = timer.wall(lambda: (torch.matmul(dus, w32.t()),
                                   torch.matmul(a32.t(), dus)), reps=reps)
@@ -568,17 +577,21 @@ def check_gemm_train(torch, timer):
             + " ".join(f"{w_}={r:.4f}" for w_, r in ratios.items())
             + f"; fwd {t_f:.3f} ms ({f_fl / t_f / 1e9:.1f} TFLOP/s, bf16 "
             f"torch.matmul {t_fb:.3f}, fp32 {t_f32:.3f}); bwd dA+dW "
-            f"{t_k:.3f} ms ({3 * flops / t_k / 1e9:.1f} bf16 TFLOP/s), plain "
+            f"{t_k:.3f} ms (device {d_k}; {3 * flops / t_k / 1e9:.1f} bf16 "
+            f"TFLOP/s), plain "
             f"{t_p:.3f} ms, fp32 torch.matmul {t_l:.3f} ms, split3 bound "
             f"{b3:.3f} ms, fp32 SIMT bound {b32:.3f} ms")
         if name != "lm_head":
+            dev_ms = (None if d_k is None or dev_ms is None
+                      else dev_ms + d_k)
             for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
                            ("bytes", nbytes), ("flops", flops),
                            ("fwd_ms", t_f), ("fwd_bf16_ms", t_fb),
                            ("fwd_fp32_ms", t_f32), ("fwd_flops", f_fl)):
                 tot[key] += v
         else:
-            lm = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            lm = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p,
+                  "library_ms": t_l,
                   "bound_split3_ms": b3, "bound_simt_ms": b32,
                   "fwd_ms": t_f, "fwd_bf16_ms": t_fb, "fwd_fp32_ms": t_f32}
         del a, w, bias, dus
@@ -599,7 +612,8 @@ def check_gemm_train(torch, timer):
         f"{tot['fwd_ms']:.3f} ms ({tot['fwd_flops'] / tot['fwd_ms'] / 1e9:.1f}"
         f" TFLOP/s, {100 * f_ms / tot['fwd_ms']:.1f} % of its {f_ms:.3f} ms "
         f"flop bound; bf16 torch.matmul {tot['fwd_bf16_ms']:.3f} ms, fp32 "
-        f"{tot['fwd_fp32_ms']:.3f} ms), backward {tot['ms']:.3f} ms (split3 "
+        f"{tot['fwd_fp32_ms']:.3f} ms), backward {tot['ms']:.3f} ms "
+        f"(device {dev_ms} ms; split3 "
         f"bound {b_ms:.3f} ms, fp32 SIMT bound {b32:.3f} ms; fp32 "
         f"torch.matmul {tot['library_ms']:.3f} ms); lm_head pair "
         f"{lm['ms']:.3f} ms (fp32 torch.matmul {lm['library_ms']:.3f}); "
@@ -614,7 +628,7 @@ def check_gemm_train(torch, timer):
             "source": "src/repro_torch/kernels/csrc/sa_matmul.cu",
             "replaces": "src/repro/kernels/sa_matmul.py:244",
             "max_abs_err": max_err, "err_over_bound": worst,
-            "ms": tot["ms"], "device_ms": None, "plain_ms": tot["plain_ms"],
+            "ms": tot["ms"], "device_ms": dev_ms, "plain_ms": tot["plain_ms"],
             "bound_ms": b_ms, "bound_by": by,
             "library_ms": tot["library_ms"], "readings": readings,
             "timed": f"one decoder layer's 7 backward GEMM pairs (dA + dW) "
@@ -626,53 +640,66 @@ def check_gemm_train(torch, timer):
 FOLD_M = (1, 4, 7, 8, 20, 1024)
 
 
+def _fold_where(mm, m, n, k, dt):
+    """Where a GEMM of m rows runs: the `mma` tile, or the fp32 route with
+    its K slices and parts (the same at every m)."""
+    route = mm.gemm_route(m, dt, dt)
+    if route == "mma":
+        return mm.mma_plan(m, n, route)["tile"]
+    p = mm.fp32_launch(m, n, k, route)
+    return f"{route} {p['slices']}x{p['slice']}/{p['parts']}"
+
+
 def check_fold(torch, timer):
-    """ROADMAP F2 at full width: each row of a bf16 GEMM of the path (the
-    7 layer shapes with their bias and activation, one with approx and a
-    scale on the card, and the lm_head) is bit-identical at M = 1, 4, 7,
-    8, 20 and 1024 (the decode, small and large tiles), raw accumulator
-    included; a slot's paged decode is bit-identical at B = 4 and inside
-    B = 20 with the same block-table width (serve shape on an fp32 and a
-    bf16 pool, 2048-token slots). Any mismatch raises. Returns paged
+    """ROADMAP F2 and F2b at full width: each row of a GEMM of the path
+    (the 7 layer shapes with their bias and activation, one with approx and
+    a scale on the card, and the lm_head) is bit-identical at M = 1, 4, 7,
+    8, 20 and 1024, raw accumulator included: bf16 x bf16 on the decode,
+    small and large tiles, fp32 x fp32 on `partial` (M < 8) and `simt`
+    (the fp32 policy); a slot's paged decode is bit-identical at B = 4 and
+    inside B = 20 with the same block-table width (serve shape on an fp32
+    and a bf16 pool, 2048-token slots). Any mismatch raises. Returns paged
     decode's times above the serve's batch (`batch_fold_ms`)."""
     from repro_torch.core.precision import PrecisionPolicy
     from repro_torch.kernels import sa_decode_attention as da
     from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import LAYER_GEMMS, LM_HEAD
 
     g = torch.Generator(device="cuda").manual_seed(9)
     cases = [(n, k, nn, b, act, "exact", None) for n, k, nn, b, act in
-             LAYER_GEMMS + [("lm_head", D_MODEL, 153600, False, "none")]]
+             LAYER_GEMMS + [LM_HEAD]]
     cases.append(("wk+gelu+approx+dev scale", D_MODEL, 8 * 128, True, "gelu",
                   "approx", "dev"))
-    for name, k, n, has_bias, act, mode, scale in cases:
-        a = torch.randn((max(FOLD_M), k), generator=g, device="cuda").to(
-            torch.bfloat16)
-        w = (torch.randn((k, n), generator=g, device="cuda")
-             * k ** -0.5).to(torch.bfloat16)
-        bias = (torch.randn((n,), generator=g, device="cuda") * 0.1
-                if has_bias else None)
-        if scale == "dev":
-            scale = torch.tensor(0.5, device="cuda")
-        full, full_raw = mm.sa_matmul_cuda(a, w, bias, scale, act=act,
+    for dt in (torch.bfloat16, torch.float32):
+        for name, k, n, has_bias, act, mode, scale in cases:
+            a = torch.randn((max(FOLD_M), k), generator=g, device="cuda").to(
+                dt)
+            w = (torch.randn((k, n), generator=g, device="cuda")
+                 * k ** -0.5).to(dt)
+            bias = (torch.randn((n,), generator=g, device="cuda") * 0.1
+                    if has_bias else None)
+            if scale == "dev":
+                scale = torch.tensor(0.5, device="cuda")
+            full, full_raw = mm.sa_matmul_cuda(a, w, bias, scale, act=act,
+                                               mode=mode, save_raw=True)
+            where = {}
+            for m in FOLD_M[:-1]:
+                y, raw = mm.sa_matmul_cuda(a[:m], w, bias, scale, act=act,
                                            mode=mode, save_raw=True)
-        tiles = {}
-        for m in FOLD_M[:-1]:
-            y, raw = mm.sa_matmul_cuda(a[:m], w, bias, scale, act=act,
-                                       mode=mode, save_raw=True)
-            same = (torch.equal(y.view(torch.int32),
-                                full[:m].view(torch.int32))
-                    and torch.equal(raw.view(torch.int32),
-                                    full_raw[:m].view(torch.int32)))
-            tiles[m] = mm.mma_plan(m, n, "mma")["tile"]
-            if not same:
-                raise AssertionError(f"fold: sa_matmul {name} rows at M={m} "
-                                     f"differ from the same rows at M="
-                                     f"{max(FOLD_M)}")
-        tiles[max(FOLD_M)] = mm.mma_plan(max(FOLD_M), n, "mma")["tile"]
-        log(f"[fold] sa_matmul {name:26s} K={k:5d} N={n:6d}: rows "
-            f"bit-identical at M={FOLD_M} (tiles {tiles})")
-        del a, w, full, full_raw
-        torch.cuda.empty_cache()
+                same = (torch.equal(y.view(torch.int32),
+                                    full[:m].view(torch.int32))
+                        and torch.equal(raw.view(torch.int32),
+                                        full_raw[:m].view(torch.int32)))
+                where[m] = _fold_where(mm, m, n, k, dt)
+                if not same:
+                    raise AssertionError(
+                        f"fold: sa_matmul {name} ({dt}) rows at M={m} differ "
+                        f"from the same rows at M={max(FOLD_M)}")
+            where[max(FOLD_M)] = _fold_where(mm, max(FOLD_M), n, k, dt)
+            log(f"[fold] sa_matmul {str(dt)[6:]:8s} {name:26s} K={k:5d} "
+                f"N={n:6d}: rows bit-identical at M={FOLD_M} ({where})")
+            del a, w, full, full_raw
+            torch.cuda.empty_cache()
     KVH, grp, hd, psz = 8, 5, 128, PAGE
     for slot, pool in ((CACHE_LEN, torch.float32), (CACHE_LEN, torch.bfloat16),
                        (2048, torch.float32)):
@@ -1180,31 +1207,29 @@ def issue_rate(torch) -> float:
     return sms * ISSUE_LANES * mhz * 1e6
 
 
-def sass_per_step(tm: int):
-    """(instructions per PE step, steps, instructions) of the K loop in
-    the SASS of fp_emu's kernel for `tm` rows per block, or None.
-
-    The loop is the backward branch whose span holds FLO (find leading
-    one, two per PE step: the product's msb and the LZA) at the fewest
-    instructions per step, so an unrolled body counts its steps."""
-
+def fp_emu_sass():
+    """The SASS of the fp_emu library (`cuobjdump -sass`)."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        return None
-    res = subprocess.run([tool, "-sass", str(build._target("fp_emu"))],
-                         capture_output=True, text=True)
-    return _sass_loop(res.stdout, f"fp_emu_kernelILi{tm}E")
+        raise AssertionError(f"fp_emu: no cuobjdump beside nvcc ({tool}): "
+                             f"the SASS counts cannot be taken")
+    return subprocess.run([tool, "-sass", str(build._target("fp_emu"))],
+                          capture_output=True, text=True, check=True).stdout
 
 
-def _sass_loop(sass: str, kernel: str):
+def _sass_function(sass: str, kernel: str):
+    """(instructions [(address, text)], labels {name: address}) of the
+    first function whose mangled name holds `kernel`."""
     import re
 
     inst_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
     func, insts, labels, pending = None, [], {}, []
     for line in sass.splitlines():
         if "Function :" in line:
+            if insts:
+                break
             func = line.split("Function :")[1].strip()
             continue
         if func is None or kernel not in func:
@@ -1220,6 +1245,75 @@ def _sass_loop(sass: str, kernel: str):
                 labels[label] = addr
             pending = []
             insts.append((addr, m.group(2)))
+    return insts, labels
+
+
+_NO_DEST = ("ST", "BRA", "BAR", "EXIT", "RET", "BSYNC", "BSSY", "WARPSYNC",
+            "NOP", "YIELD", "DEPBAR", "MEMBAR", "CALL", "RED", "CCTL")
+
+
+def _regs(text: str):
+    """(registers written, registers read) of one SASS instruction."""
+    import re
+
+    def expand(tok):
+        out = []
+        for name, num, wide in re.findall(r"\b(U?R|P)(\d+)(\.64)?\b", tok):
+            out.append(f"{name}{num}")
+            if wide:
+                out.append(f"{name}{int(num) + 1}")
+        return out
+
+    guard = re.match(r"@!?(U?P\d+)\s+", text)
+    srcs = [guard.group(1)] if guard else []
+    text = text[guard.end():] if guard else text
+    op, _, rest = text.partition(" ")
+    ops = [o.strip() for o in rest.split(",")] if rest else []
+    if op.startswith(_NO_DEST) or not ops:
+        return [], srcs + [r for o in ops for r in expand(o)]
+    ndst = 2 if ("SETP" in op or op.startswith("PLOP3")) else 1
+    dst = [r for o in ops[:ndst] for r in expand(o) if r.startswith(("R", "P"))
+           or r.startswith("UR")]
+    if ndst == 1 and dst:
+        width = 4 if ".128" in op else 2 if (".64" in op or "WIDE" in op) \
+            else 1
+        base = dst[0]
+        if width > 1 and base[0] == "R":
+            dst = [f"R{int(base[1:]) + i}" for i in range(width)]
+    # a predicated write keeps the old value where the guard is false
+    return dst, srcs + (dst if guard else []) + [
+        r for o in ops[ndst:] for r in expand(o)]
+
+
+def _dependent_per_pass(body, passes=6):
+    """The loop-carried dependent path of a loop body, in instructions a
+    pass: the longest chain of instructions each reading the one before
+    (register and predicate dataflow, every instruction one unit), run
+    over `passes` passes of the body, its growth per pass in the last."""
+    depth = {}
+    tops = []
+    parsed = [_regs(t) for t in body]
+    for _ in range(passes):
+        for dst, src in parsed:
+            d = 1 + max((depth.get(r, 0) for r in src), default=0)
+            for r in dst:
+                depth[r] = d
+        tops.append(max(depth.values(), default=0))
+    return tops[-1] - tops[-2]
+
+
+def sass_loop(sass: str, kernel: str, min_steps: int = 2):
+    """The PE-step loop of `kernel` in the library's SASS: the backward
+    branch whose body holds at least `min_steps` LZAs (FLO, one a PE step)
+    at the fewest instructions a step. Returns {"steps", "instructions",
+    "per_step", "dependent_per_step"}; raises where no such loop is
+    found (a new layout the count does not know: fix the count, do not
+    guess)."""
+    import re
+
+    insts, labels = _sass_function(sass, kernel)
+    if not insts:
+        raise AssertionError(f"fp_emu SASS: no function {kernel}")
     best = None
     for addr, text in insts:
         m = re.search(r"\bBRA\b[^`0-9]*(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))",
@@ -1231,71 +1325,137 @@ def _sass_loop(sass: str, kernel: str):
             continue
         body = [t for a, t in insts if dest <= a <= addr]
         flo = sum(1 for t in body if re.search(r"\bFLO\b", t))
-        if flo >= 2:
-            per = len(body) / (flo / 2)
-            if best is None or per < best[0]:
-                best = (per, flo // 2, len(body))
+        if flo >= min_steps and (best is None
+                                 or len(body) / flo < best["per_step"]):
+            best = {"steps": flo, "instructions": len(body),
+                    "per_step": len(body) / flo, "body": body}
+    if best is None:
+        raise AssertionError(f"fp_emu SASS: {kernel} has no loop with "
+                             f"{min_steps} or more FLO (PE steps)")
+    body = best.pop("body")
+    best["dependent_per_step"] = _dependent_per_pass(body) / best["steps"]
     return best
 
 
-def _emu_operands(torch, g, M, K, N, fmt):
-    """(M, K) and (K, N) operands on `fmt`'s grid in the card's containers
-    (fp16 for fp16, bf16 otherwise): odd rows of A and every other block of
-    8 columns of W scaled x25, ~10 % zeros, column 1 all zero, and columns
-    2-4 cancellation-heavy (A's two halves of K equal, W's second half the
-    negated first: exact, near and one-term-residual cancellation)."""
-    from repro_torch.core.fpformats import quantize
+def sass_kernel_name(tw: str, plan: dict, approx: bool = False) -> str:
+    """The mangled-name fragment of the kernel a launch plan runs:
+    fp_emu_pc_kernel<TW, approx> or fp_emu_kernel<TW, rows, approx>."""
+    t = {"bf16": "13__nv_bfloat16", "fp16": "6__half", "fp32": "f"}[tw]
+    if plan["kernel"] == "pc":
+        return f"fp_emu_pc_kernelI{t}Lb{int(approx)}ELi2E"
+    return f"fp_emu_kernelI{t}Li{plan['rows']}ELb{int(approx)}E"
 
-    dev = "cuda"
-    a = torch.randn((M, K), generator=g, device=dev)
-    w = torch.randn((K, N), generator=g, device=dev)
-    a[1::2] *= 25.0
-    w[:, (torch.arange(N, device=dev) // 8) % 2 == 1] *= 25.0
-    a[torch.rand((M, K), generator=g, device=dev) < 0.1] = 0.0
-    w[torch.rand((K, N), generator=g, device=dev) < 0.1] = 0.0
-    h = K // 2
-    a[:, h:2 * h] = a[:, :h]
-    w[:, 1] = 0.0
-    w[h:2 * h, 2] = -w[:h, 2]
-    w[h:2 * h, 3] = -w[:h, 3] * (1 + 2.0 ** -6)
-    w[h:2 * h, 4] = -w[:h, 4]
-    w[0, 4] = 1.0
-    box = torch.float16 if fmt == "fp16" else torch.bfloat16
-    return quantize(a, fmt).to(box), quantize(w, fmt).to(box)
+
+def sass_plan(sass: str, plan: dict, tw: str = "bf16") -> dict:
+    """The SASS a PE step of the kernel a plan runs: the chain's loop
+    (`sass_loop`), and for the producer/consumer kernel also the producer's
+    chunk loop (the backward branch whose body arrives on a named barrier,
+    BAR.ARV, one STS.64 a step), whose instructions a step add to the
+    consumer's in `per_step`."""
+    import re
+
+    name = sass_kernel_name(tw, plan)
+    out = sass_loop(sass, name, min_steps=2 * plan["rows"])
+    out["chain_per_step"] = out["per_step"]
+    if plan["kernel"] != "pc":
+        return out
+    insts, labels = _sass_function(sass, name)
+    prod = None
+    for addr, text in insts:
+        m = re.search(r"\bBRA\b[^`0-9]*(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))",
+                      text)
+        if not m:
+            continue
+        dest = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+        if dest is None or dest >= addr:
+            continue
+        body = [t for a, t in insts if dest <= a <= addr]
+        steps = sum(1 for t in body if t.startswith("STS.64"))
+        if any("BAR.ARV" in t for t in body) and steps:
+            prod = len(body) / steps
+    if prod is None:
+        raise AssertionError(f"fp_emu SASS: {name} has no producer loop "
+                             f"(BAR.ARV and STS.64)")
+    out["producer_per_step"] = prod
+    out["per_step"] = out["chain_per_step"] + prod
+    return out
+
+
+# the path's GEMM widths (N) at which the launch plan is surveyed for its
+# geometries, and the depth of the geometry checks (five 32-deep chunks and
+# a ragged tail)
+EMU_NS = (1024, D_MODEL, D_FF, 153600)
+EMU_GEOMETRY_K = 165
+
+
+def fp_emu_geometries():
+    """{(kernel, rows, warps): (M, N)}: each launch geometry the plan picks
+    for the path's N at M = 1 to 64, with the first (M, N) that picks it, M
+    = 1 and M = 16-33 first."""
+    from repro_torch.kernels import fp_emu as fe
+
+    out = {}
+    for m in [1] + list(range(16, 34)) + list(range(2, 16)) + list(
+            range(34, 65)):
+        for n in EMU_NS:
+            p = fe.launch_plan(m, n)
+            out.setdefault((p["kernel"], p["rows"], p["warps"]), (m, n))
+    return out
 
 
 def check_fp_emu(torch, timer):
+    """fp_emu against its plain version and chained_fma, bit for bit, in
+    the four formats and both modes: the decode and prefill GEMMs at full
+    K, and one (M, N) per launch geometry at K = EMU_GEOMETRY_K. Then its
+    times: the decode wk GEMM (wall, device, cycles a PE step), wk at M =
+    1-33, a layer's 7 GEMMs and the lm_head at M = 2 and 32; the SASS of
+    the K loop (instructions a PE step, the dependent path a step) and the
+    chain probe's cycles a step; the issue bound and the chain-latency
+    bound."""
     import numpy as np
 
     from repro_torch.core import chained_fma as cf
     from repro_torch.kernels import fp_emu as fe
     from repro_torch.kernels import ops
+    from repro_torch.kernels.gemm_cases import (LAYER_GEMMS, LM_HEAD,
+                                                emu_operands)
 
     g = torch.Generator(device="cuda").manual_seed(4)
+    geos = fp_emu_geometries()
     # (name, M, K, N, columns held against the plain version): a decode
-    # GEMM whole, a prefill GEMM on a slice of its columns
+    # GEMM whole, a prefill GEMM on a slice of its columns, then each
+    # launch geometry on 64 columns
     shapes = [("decode wk", BATCH // 2, D_MODEL, 1024, 1024),
               ("prefill wg", 16, D_MODEL, D_FF, 256)]
+    shapes += [(f"geo {kern} r{r}w{y}", m, EMU_GEOMETRY_K, n, 64)
+               for (kern, r, y), (m, n) in sorted(geos.items())]
+    log(f"fp_emu launch geometries (kernel, rows a thread, warps a block) "
+        f"the plan picks at M = 1-64, N = {EMU_NS}: "
+        + ", ".join(f"{kern} {r}x{y} at M={m} N={n}"
+                    for (kern, r, y), (m, n) in sorted(geos.items())))
     compared = mism = cf_compared = 0
     for fmt in ("bf16", "fp16", "fp8_e4m3", "fp8_e5m2"):
         for mode in ("exact", "approx"):
             for name, M, K, N, cols in shapes:
-                a, w = _emu_operands(torch, g, M, K, N, fmt)
+                a, w = emu_operands(g, M, K, N, fmt)
+                plan = fe.launch_plan(M, N)
                 y = ops.skewed_datapath_matmul(a, w, fmt, mode)
                 ref = fe.fma_emu_matmul_ref(a, w[:, :cols], fmt, mode)
                 torch.cuda.synchronize()
                 got = y[:, :cols].contiguous()
                 bad = int((got.view(torch.int32)
                            != ref.view(torch.int32)).sum())
-                line = (f"fp_emu {fmt:8s} {mode:6s} {name:10s} M={M:2d} "
-                        f"K={K} N={N} (plain on {cols} cols): "
-                        f"{bad} of {ref.numel()} outputs differ")
+                line = (f"fp_emu {fmt:8s} {mode:6s} {name:14s} M={M:2d} "
+                        f"K={K} N={N} ({plan['kernel']}, rows "
+                        f"{plan['rows']}, warps {plan['warps']}; plain on "
+                        f"{cols} cols): {bad} of {ref.numel()} outputs "
+                        f"differ")
                 if not bool(torch.isfinite(y).all()):
                     raise AssertionError(f"fp_emu {fmt} {mode} {name}: "
                                          f"non-finite outputs")
                 compared += ref.numel()
                 mism += bad
-                if name.startswith("decode"):
+                if name.startswith(("decode", "geo")):
                     # four columns against the numpy chained_fma copy
                     pipe = "approx" if mode == "approx" else "skewed"
                     c = cf.matmul_emulated(a.float().cpu().numpy(),
@@ -1310,56 +1470,191 @@ def check_fp_emu(torch, timer):
     if mism:
         raise AssertionError(f"fp_emu: {mism} outputs differ from the plain "
                              f"version or chained_fma")
-    # times: the decode wk GEMM (M = 2), bf16 exact
+    mhz = float(smi("clocks.max.sm").split()[0])
+    times = fp_emu_times(torch, timer, g)
+    # the decode wk GEMM (M = 2), bf16 exact: its plain version's time
     M, K, N = BATCH // 2, D_MODEL, 1024
-    a, w = _emu_operands(torch, g, M, K, N, "bf16")
-    t_k = timer.wall(lambda: ops.skewed_datapath_matmul(a, w))
-    d_k = timer.device(lambda: ops.skewed_datapath_matmul(a, w))
+    t_k, d_k = times["wk"][M]["ms"], times["wk"][M]["device_ms"]
+    a, w = emu_operands(g, M, K, N, "bf16")
     t_p = timer.wall(lambda: fe.fma_emu_matmul_ref(a, w), reps=1)
-    # least time: every instruction of a PE step takes an issue slot (4
-    # schedulers x 32 lanes per SM per clock). Not the 64 int32 lanes:
-    # moves and adds also issue to the FMA pipe as IMAD, and the M = 32
-    # GEMMs run faster than 64 lanes would allow. Instructions per step
-    # from the SASS of the K loop, else the source count.
-    sass = sass_per_step(fe.rows_per_block(M))
-    per_step, how = ((sass[0], f"{sass[0]:.2f} SASS instructions per PE "
-                      f"step, {sass[2]} in a loop body of {sass[1]} steps")
-                     if sass else (fe.OPS_PER_STEP, "source count"))
+    cyc = (d_k or t_k) * 1e-3 * mhz * 1e6 / K
+    # the SASS a PE step of every geometry the plan picks, and of the
+    # chain probe
+    sass = fp_emu_sass()
+    per_geo = {}
+    for geo in sorted(geos):
+        per_geo[geo] = sass_plan(sass, dict(zip(("kernel", "rows", "warps"),
+                                                geo)))
+        log(f"fp_emu SASS {geo}: {per_geo[geo]['per_step']:.2f} "
+            f"instructions a PE step ({per_geo[geo]['chain_per_step']:.2f} "
+            f"in the chain's loop, {per_geo[geo]['dependent_per_step']:.2f} "
+            f"of them on its dependent path)")
+    plan = fe.launch_plan(M, N)
+    loop = per_geo[(plan["kernel"], plan["rows"], plan["warps"])]
+    least = min(per_geo.values(), key=lambda v: v["per_step"])
+    least_geo = min(per_geo, key=lambda geo: per_geo[geo]["per_step"])
+    probe = sass_loop(sass, "fp_emu_chain_probe", min_steps=1)
+    chain = fe.chain_cycles()
+    log(f"fp_emu SASS: the decode plan ({plan['kernel']}, bf16, exact) "
+        f"{loop['per_step']:.2f} instructions a PE step, the chain's loop "
+        f"{loop['chain_per_step']:.2f} ({loop['instructions']} for "
+        f"{loop['steps']} steps), {loop['dependent_per_step']:.2f} of them "
+        f"a step on the loop-carried dependent path; the fewest of any "
+        f"geometry {least['per_step']:.2f} ({least_geo}); the chain probe's "
+        f"loop {probe['per_step']:.2f} instructions a step, "
+        f"{probe['dependent_per_step']:.2f} dependent (the source: "
+        f"{fe.OPS_PER_STEP} operations a step); the chain takes "
+        f"{chain:.2f} cycles a step (chain probe, one thread), "
+        f"{chain / max(probe['dependent_per_step'], 1):.2f} a dependent "
+        f"instruction")
+    # bounds. Issue: the fewest SASS instructions any geometry of the
+    # library spends on a PE step, each taking an issue slot (4 schedulers
+    # x 32 lanes per SM per clock; moves and adds also issue to the FMA
+    # pipe as IMAD, so not 64 int32 lanes), with the bytes beside them.
+    # Chain latency: each output's K steps are serial, K x this design's
+    # chain (the probe's cycles a step) at the max SM clock. The bound is
+    # the larger.
     rate = issue_rate(torch)
-    nbytes = 2 * (M * K + K * N) + 4 * M * N
-    b_ms, by = bound_ms(nbytes, float(M * N * K * per_step), rate)
-    log(f"fp_emu times (decode wk, M={M} K={K} N={N}): kernel {t_k:.4f} ms "
-        f"(device {d_k}), plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({by}; "
-        f"{how}, over {rate:.4e} issue slots/s)")
-    # one layer's seven GEMMs and the lm_head, decode (M = 2) and a
-    # 32-token prefill, kernel only
-    layer = [("wq", D_MODEL, D_MODEL), ("wk", D_MODEL, 1024),
-             ("wv", D_MODEL, 1024), ("wo", D_MODEL, D_MODEL),
-             ("wg", D_MODEL, D_FF), ("wu", D_MODEL, D_FF),
-             ("wd", D_FF, D_MODEL), ("lm_head", D_MODEL, 153600)]
-    for m in (BATCH // 2, 32):
-        tot = steps = 0.0
+
+    def bounds(m, k, n):
+        """(issue ms, chain ms) of an (m, k) @ (k, n) GEMM."""
+        nbytes = 2 * (m * k + k * n) + 4 * m * n
+        return (bound_ms(nbytes, float(m * n * k * least["per_step"]),
+                         rate)[0], k * chain / (mhz * 1e6) * 1e3)
+
+    issue_ms, chain_ms = bounds(M, K, N)
+    b_ms = max(issue_ms, chain_ms)
+    by = bound_ms(2 * (M * K + K * N) + 4 * M * N,
+                  float(M * N * K * least["per_step"]), rate)[1]
+    kind = ("chain latency" if chain_ms > issue_ms
+            else "issue" if by == "operations" else "bytes")
+    log(f"fp_emu times (decode wk, M={M} K={K} N={N}, {plan['kernel']}, "
+        f"grid {plan['grid']}): kernel {t_k:.4f} ms "
+        f"(device {d_k}; {cyc:.1f} cycles a PE step at {mhz:.0f} MHz), "
+        f"plain {t_p:.4f} ms; issue bound {issue_ms:.5f} ms "
+        f"({least['per_step']:.2f} SASS a step over {rate:.4e} issue "
+        f"slots/s); chain-latency bound {chain_ms:.5f} ms (K x "
+        f"{chain:.2f} cycles); the bound is the larger, the {kind}")
+    for m, row in times["wk"].items():
+        p = fe.launch_plan(m, N)
+        row.update(kernel=p["kernel"], rows=p["rows"], warps=p["warps"],
+                   cycles_a_step=(row["device_ms"] or row["ms"]) * 1e-3
+                   * mhz * 1e6 / K)
+        log(f"fp_emu wk M={m:2d}: wall {row['ms']:.4f} ms, device "
+            f"{row['device_ms']} ms, {row['cycles_a_step']:.1f} cycles a PE "
+            f"step ({p['kernel']}, rows {p['rows']}, warps {p['warps']}, "
+            f"grid {p['grid']})")
+    # a layer's GEMMs run one after another: its bound sums each GEMM's
+    layers = {}
+    for m, row in times["layer"].items():
+        tot = issue = lat = bound = 0.0
         parts = []
-        for name, k, n in layer:
-            a, w = _emu_operands(torch, g, m, k, n, "bf16")
-            t = timer.wall(lambda: ops.skewed_datapath_matmul(a, w), reps=3)
-            parts.append(f"{name} {t:.3f}")
-            if name != "lm_head":
-                tot += t
-                steps += m * k * n
-            del a, w
-        b = steps * per_step / rate * 1e3
-        log(f"fp_emu M={m}: one layer's 7 GEMMs {tot:.3f} ms, bound "
-            f"{b:.3f} ms ({steps:.4e} PE steps) ("
+        for name, k, n, _, _ in LAYER_GEMMS + [LM_HEAD]:
+            p = fe.launch_plan(m, n)
+            parts.append(f"{name} {row[name]:.3f} ({p['kernel']} rows "
+                         f"{p['rows']})")
+            if name == LM_HEAD[0]:
+                layers[f"lm_head_M{m}_ms"] = row[name]
+                continue
+            i_ms, c_ms = bounds(m, k, n)
+            tot += row[name]
+            issue += i_ms
+            lat += c_ms
+            bound += max(i_ms, c_ms)
+        layers.update({f"layer_M{m}_ms": tot,
+                       f"layer_M{m}_issue_bound_ms": issue,
+                       f"layer_M{m}_chain_bound_ms": lat,
+                       f"layer_M{m}_bound_ms": bound})
+        log(f"fp_emu M={m}: one layer's 7 GEMMs {tot:.3f} ms; bound "
+            f"{bound:.3f} ms (each GEMM's larger: issue {issue:.3f} ms, "
+            f"chain latency {lat:.3f} ms summed) ("
             + ", ".join(parts) + " ms)")
     return {"name": "fp_emu", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fp_emu.cu",
             "replaces": "src/repro/kernels/fp_emu.py:72",
             "max_abs_err": 0.0, "err_over_bound": 0.0,
             "ms": t_k, "device_ms": d_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": "bytes" if kind == "bytes"
+            else "operations", "library_ms": None,
             "outputs_compared": compared + cf_compared,
-            "timed": f"the decode wk GEMM, M={M} K={K} N={N}, bf16 exact"}
+            "readings": {"bound_kind": kind, "issue_bound_ms": issue_ms,
+                         "chain_bound_ms": chain_ms,
+                         "chain_cycles_a_step": chain,
+                         "cycles_a_step": cyc, "sm_mhz": mhz,
+                         "sass_a_step": loop["per_step"],
+                         "sass_fewest_a_step": least["per_step"],
+                         "sass_chain_loop_a_step": loop["chain_per_step"],
+                         "sass_dependent_a_step":
+                             loop["dependent_per_step"],
+                         "chain_sass_a_step": probe["per_step"],
+                         "chain_dependent_a_step":
+                             probe["dependent_per_step"],
+                         "wk_by_m": times["wk"], **layers},
+            "timed": f"the decode wk GEMM, M={M} K={K} N={N}, bf16 exact; "
+                     f"bound_ms: the larger of the issue bound (the fewest "
+                     f"SASS a PE step of any geometry) and the chain-latency "
+                     f"bound (K x this design's chain), here the {kind}"}
+
+
+def fp_emu_times(torch, timer, g):
+    """The skewed datapath's times on the path's shapes, bf16 exact, through
+    `ops.skewed_datapath_matmul` alone (tools/chip_ab.py runs them against
+    another checkout's port): {"wk": {M: {"ms", "device_ms"}}} for the wk
+    GEMM at M = 1-33 (each launch plan the decode and prefill rows pick),
+    and {"layer": {M: {name: ms}}} for a layer's seven GEMMs and the
+    lm_head at M = 2 (decode) and 32 (a prefill), wall."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gemm_cases import (LAYER_GEMMS, LM_HEAD,
+                                                emu_operands)
+
+    out = {"wk": {}, "layer": {}}
+    for m in (1, 2, 4, 8, 16, 17, 24, 32, 33):
+        a, w = emu_operands(g, m, D_MODEL, 1024, "bf16")
+        out["wk"][m] = {
+            "ms": timer.wall(lambda: ops.skewed_datapath_matmul(a, w)),
+            "device_ms": timer.device(
+                lambda: ops.skewed_datapath_matmul(a, w))}
+    for m in (BATCH // 2, 32):
+        row = out["layer"][m] = {}
+        for name, k, n, _, _ in LAYER_GEMMS + [LM_HEAD]:
+            a, w = emu_operands(g, m, k, n, "bf16")
+            row[name] = timer.wall(lambda: ops.skewed_datapath_matmul(a, w),
+                                   reps=3)
+            del a, w
+    return out
+
+
+def fp32_gemm_times(torch, timer, g):
+    """The SA GEMM's fp32 routes (the fp32 policy), through `sa_matmul_cuda`
+    alone (tools/chip_ab.py runs them against another checkout's port):
+    each of a layer's 7 GEMMs fp32 x fp32 at M = 4 (`partial`) and M = 1024
+    (`simt`), ms wall and device, their sums, and wk with fp32 A and bf16 W
+    at M = 4 (`partial`)."""
+    from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import LAYER_GEMMS
+
+    out = {}
+    for m in (BATCH, 1024):
+        wall, dev = 0.0, 0.0
+        for name, k, n, _, _ in LAYER_GEMMS:
+            a = torch.randn((m, k), generator=g, device="cuda")
+            w = torch.randn((k, n), generator=g, device="cuda") / k ** .5
+            t = timer.wall(lambda: mm.sa_matmul_cuda(a, w), reps=5)
+            d = timer.device(lambda: mm.sa_matmul_cuda(a, w), reps=3)
+            out[f"{name} M={m} ms"] = t
+            wall += t
+            dev = None if d is None or dev is None else dev + d
+            del a, w
+        out[f"layer M={m} ms"] = wall
+        out[f"layer M={m} device_ms"] = dev
+    a = torch.randn((BATCH, D_MODEL), generator=g, device="cuda")
+    w = (torch.randn((D_MODEL, 1024), generator=g, device="cuda")
+         / D_MODEL ** .5).to(torch.bfloat16)
+    out[f"wk fp32 A M={BATCH} ms"] = timer.wall(
+        lambda: mm.sa_matmul_cuda(a, w))
+    out[f"wk fp32 A M={BATCH} device_ms"] = timer.device(
+        lambda: mm.sa_matmul_cuda(a, w))
+    return out
 
 
 def _same_bits(torch, x, y) -> int:
@@ -1699,6 +1994,45 @@ def profile_serve(torch, engine):
         raise AssertionError("the bf16 decode step launched sa_gemm_partial")
 
 
+def profile_emulate(torch, engine):
+    """The `emulate` serve's time under torch.profiler: its two requests
+    (the EMU_ARGS prompt lengths, EMU_MAX_NEW new tokens each) served again
+    on the same engine; prefill_s, decode ITL, the device's idle share and
+    fp_emu's share of device time. Returns those readings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.precision import PrecisionPolicy, use_policy
+    from repro_torch.launch.serve import itl_p50_ms
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    g = torch.Generator().manual_seed(6)
+    sched = SlotScheduler(EMU_REQUESTS, eos_id=-1)
+    for n in (16, 32):
+        sched.submit(torch.randint(0, engine.cfg.vocab_size, (n,),
+                                   generator=g).tolist(), EMU_MAX_NEW)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with use_policy(PrecisionPolicy(backend="emulate")):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            summary = engine.serve(sched)
+            torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    ks = device_kernels(torch, prof)
+    busy = sum(ms for ms, _ in ks.values()) / 1e3
+    emu = sum(ms for name, (ms, _) in ks.items() if "fp_emu" in name) / 1e3
+    out = {"wall_s": wall, "prefill_s": summary["prefill_s"],
+           "decode_s": summary["decode_s"],
+           "decode_itl_p50_ms": itl_p50_ms(sched.finished),
+           "device_busy_s": busy,
+           "idle_share": 1 - busy / wall if ks else None,
+           "fp_emu_share": emu / busy if busy else None}
+    log(f"[profile emulate] {out}")
+    for name, (ms, n) in sorted(ks.items(), key=lambda kv: -kv[1][0])[:5]:
+        log(f"[profile emulate]   {ms / 1e3:8.4f} s {n:7d} launches  "
+            f"{name[:90]}")
+    return out
+
+
 def backend_logits(torch, engine, prompt, backends=("cuda", "torch")):
     """One prompt's prefill logits under two GEMM backends (same weights,
     same policy otherwise)."""
@@ -2030,6 +2364,13 @@ def main(argv=None):
     phases["kernels"] = time.monotonic() - t
     t = time.monotonic()
     kernels[2]["readings"]["batch_fold_ms"] = check_fold(torch, timer)
+    # what the fp32 routes' one order of sums (F2b) costs
+    fp32 = fp32_gemm_times(torch, timer,
+                           torch.Generator(device="cuda").manual_seed(3))
+    kernels[0]["readings"]["fp32_policy_ms"] = fp32
+    log("[fold] sa_matmul fp32 x fp32 (the fp32 policy's routes): " + ", ".join(
+        f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
+        for k_, v in fp32.items()))
     del timer
     phases["fold"] = time.monotonic() - t
     log("kernels " + " ".join(
@@ -2069,6 +2410,12 @@ def main(argv=None):
             f"compile_s {summary['compile_s']} wall_s {summary['wall_s']} "
             f"itl_p50 {summary.get('decode_itl_p50_ms')} ms")
         phases["emulate_serve"] = time.monotonic() - t
+        t = time.monotonic()
+        kernels[5]["readings"]["emulate_serve"] = dict(
+            profile_emulate(torch, engine),
+            serve_prefill_s=summary["prefill_s"],
+            serve_decode_itl_p50_ms=summary.get("decode_itl_p50_ms"))
+        phases["emulate_profile"] = time.monotonic() - t
         t = time.monotonic()
         prompt = min(sched.finished, key=lambda r: r.rid).prompt
         backend_logits(torch, engine, prompt, ("emulate", "cuda"))

@@ -13,12 +13,12 @@
 //
 // * partial: sa_gemm_partial — fp32 decode (M < 8, row-major operands, at
 //   least one operand fp32: the fp32 policy and mixed pairs). Bound by
-//   bytes: every weight is read once and feeds only 2*M flops. A block
-//   owns 64 output columns x up to 8 rows of A; each warp reads whole
-//   64-column rows of W (coalesced). K is split over gridDim.z
-//   (deterministic split-K: each slice writes its partial sums to a
-//   workspace, the epilogue kernel adds the slices in order 0..KS-1) so
-//   narrow N still puts two blocks on every SM.
+//   bytes: every weight is read once and feeds only 2*M flops. A thread
+//   owns one output column and up to 8 rows of A, a block 128 columns and
+//   one K slice (gridDim.z = the slices): each slice's sum is one in-order
+//   FMA chain in one thread, written to a workspace, and the epilogue kernel
+//   folds the slices (see "Each output's sum"). The slices, not the rows,
+//   fill the SMs: a narrow N still puts blocks on every SM.
 // * mma: sa_gemm_mma, one piece — bf16 x bf16 at every M (the forward
 //   under the bf16 and FP8 policies, decode included). mma.sync.m16n8k16
 //   bf16 on the tensor cores, fp32 accumulate. At training shapes it is
@@ -55,11 +55,23 @@
 // * simt: sa_gemm_tiled — fp32 x fp32 (the fp32 policy; fp32 has no exact
 //   tensor-core type). Bound by fp32 FMAs: a 128 x 128 output tile per
 //   block, 8 x 8 per thread, 16-deep K tiles staged in shared memory as
-//   fp32 (double-buffered), either operand read through its strides; a K
-//   split (when the grid is under two waves) goes through the ordered
-//   workspace sum.
+//   fp32 (double-buffered), either operand read through its strides. A
+//   block sums one part of K (gridDim.z = the parts): each slice's chain
+//   from zero, folded in the thread into the part's sum (kept in dynamic
+//   shared memory, 64 a thread); several parts go through the workspace
+//   and the epilogue kernel.
 //
-// Each output's sum: in sa_gemm_mma one thread accumulates its k16 steps
+// The fp32 routes' order (ROADMAP F2b): K is cut into slices of kSlice =
+// 256 (the last one ragged), each summed from zero as an in-order FMA
+// chain; a part is `per_part` consecutive slices, its sum the slices folded
+// left in order from zero; the output is the parts folded left in order
+// from zero. The slices and parts depend on N and K only (the wrapper's
+// fp32_k_plan), never on M, so partial (M < 8) and simt give every fp32 x
+// fp32 output the same bits, and a row's bits do not depend on the rows
+// beside it. partial writes every slice and the epilogue folds both
+// levels; simt folds the slices of its part in the thread.
+//
+// Each output's sum in sa_gemm_mma: one thread accumulates its k16 steps
 // in order k = 0, 16, ..., whatever M, N or the tile: K is never split
 // there, so a row's result does not depend on the other rows, and a bf16
 // GEMM gives every row the same bits at every M (ROADMAP F2). A step's 16
@@ -89,11 +101,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 64;   // output columns per block (2 per lane)
-constexpr int kRows = 8;    // rows of A per block
-constexpr int kChunk = 256; // K rows staged in shared memory at a time
+constexpr int kThreads = 256;   // tiled (simt): threads per block
+constexpr int kRows = 8;    // partial: rows of A per block
+constexpr int kPCols = 128; // partial: output columns per block (one a thread)
+constexpr int kSlice = 256; // fp32 routes: K depth of a slice (one FMA chain)
 
 constexpr int kTBM = 128;   // tiled: output rows per block
 constexpr int kTBN = 128;   // tiled: output columns per block
@@ -145,81 +156,51 @@ __device__ __forceinline__ void epilogue_store(float s, size_t i, int n,
 }
 
 template <typename TA, typename TW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPCols)
 sa_gemm_partial(const TA* __restrict__ a, const TW* __restrict__ w,
-                float* __restrict__ ws, int M, int N, int K, int kslice) {
-  __shared__ float a_s[kRows][kChunk];
-  __shared__ float red[kWarps][kRows][kCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * kRows;      // rows fastest: blocks that share
-  const int n0 = blockIdx.y * kCols;      // W columns run side by side
-  const int ks = blockIdx.z;
-  const int k_begin = ks * kslice;
-  const int k_end = min(K, k_begin + kslice);
-  const int c0 = n0 + lane, c1 = n0 + 32 + lane;
-  const bool ok0 = c0 < N, ok1 = c1 < N;
-
-  float acc0[kRows], acc1[kRows];
+                float* __restrict__ ws, int M, int N, int K) {
+  __shared__ float a_s[kRows][kSlice];
+  const int m0 = blockIdx.x * kRows;
+  const int n = blockIdx.y * kPCols + threadIdx.x;
+  const int s = blockIdx.z;
+  const int k0 = s * kSlice;
+  const int len = min(kSlice, K - k0);
+  for (int i = threadIdx.x; i < kRows * kSlice; i += kPCols) {
+    const int r = i / kSlice, kk = i % kSlice;
+    const int m = m0 + r;
+    a_s[r][kk] = (m < M && kk < len) ? to_f32(a[(size_t)m * K + k0 + kk])
+                                     : 0.f;
+  }
+  __syncthreads();
+  if (n >= N) return;
+  // the slice's chain, k in order; sixteen rows of W in flight before
+  // their FMAs (at decode each thread streams its column)
+  float acc[kRows];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc0[r] = acc1[r] = 0.f;
-
-  for (int kc = k_begin; kc < k_end; kc += kChunk) {
-    const int len = min(kChunk, k_end - kc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * kChunk; i += kThreads) {
-      const int r = i / kChunk, kk = i % kChunk;
-      const int m = m0 + r;
-      a_s[r][kk] = (m < M && kk < len) ? to_f32(a[(size_t)m * K + kc + kk])
-                                       : 0.f;
-    }
-    __syncthreads();
-    int kk = warp;
-    // four rows in flight per warp before their FMAs
-    for (; kk + 3 * kWarps < len; kk += 4 * kWarps) {
-      float w0[4], w1[4];
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+  const TW* wp = w + (size_t)k0 * N + n;
+  int kk = 0;
+  for (; kk + 16 <= len; kk += 16) {
+    float wv[16];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const size_t row = (size_t)(kc + kk + u * kWarps) * N;
-        w0[u] = ok0 ? to_f32(w[row + c0]) : 0.f;
-        w1[u] = ok1 ? to_f32(w[row + c1]) : 0.f;
-      }
+    for (int u = 0; u < 16; ++u) wv[u] = to_f32(wp[(size_t)(kk + u) * N]);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float av = a_s[r][kk + u * kWarps];
-          acc0[r] = fmaf(av, w0[u], acc0[r]);
-          acc1[r] = fmaf(av, w1[u], acc1[r]);
-        }
-      }
-    }
-    for (; kk < len; kk += kWarps) {
-      const size_t row = (size_t)(kc + kk) * N;
-      const float w0 = ok0 ? to_f32(w[row + c0]) : 0.f;
-      const float w1 = ok1 ? to_f32(w[row + c1]) : 0.f;
+    for (int u = 0; u < 16; ++u) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const float av = a_s[r][kk];
-        acc0[r] = fmaf(av, w0, acc0[r]);
-        acc1[r] = fmaf(av, w1, acc1[r]);
+        acc[r] = fmaf(a_s[r][kk + u], wv[u], acc[r]);
       }
     }
+  }
+  for (; kk < len; ++kk) {
+    const float wv = to_f32(wp[(size_t)kk * N]);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(a_s[r][kk], wv, acc[r]);
   }
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    red[warp][r][lane] = acc0[r];
-    red[warp][r][32 + lane] = acc1[r];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
-    const int r = i / kCols, c = i % kCols;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < kWarps; ++q) s += red[q][r][c];
-    ws[((size_t)ks * M + m) * N + n] = s;
+    const int m = m0 + r;
+    if (m < M) ws[((size_t)s * M + m) * N + n] = acc[r];
   }
 }
 
@@ -229,15 +210,18 @@ template <typename TA, typename TW, bool A_KCONT, bool W_NCONT>
 __global__ void __launch_bounds__(kThreads, 2)
 sa_gemm_tiled(const TA* __restrict__ a, const TW* __restrict__ w, int lda,
               int ldw, float* __restrict__ ws, Epilogue epi, int M, int N,
-              int K, int kslice) {
+              int K, int per_part) {
   __shared__ __align__(16) float a_s[2][kTBK][kTBM + kTPad];
   __shared__ __align__(16) float w_s[2][kTBK][kTBN + kTPad];
+  // the part's running sum of each of the thread's 64 outputs: output j at
+  // u_s[j * kThreads + tid] (dynamic shared memory, 64 KB)
+  extern __shared__ float u_s[];
   constexpr int kPer = kTBM * kTBK / kThreads;  // staged values per thread
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * kTBM, n0 = blockIdx.x * kTBN;
-  const int k_begin = blockIdx.z * kslice;
-  const int k_end = min(K, k_begin + kslice);
+  const int k_begin = blockIdx.z * per_part * kSlice;
+  const int k_end = min(K, k_begin + per_part * kSlice);
 
   float acc[8][8];
 #pragma unroll
@@ -294,12 +278,29 @@ sa_gemm_tiled(const TA* __restrict__ a, const TW* __restrict__ w, int lda,
 #undef SA_A_POS
 #undef SA_W_POS
 
+  // a slice's chain ends: fold it into the part's sum (from zero at the
+  // part's first slice) and start the next chain from zero
+  bool first = true;
+  auto fold = [&]() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float& u = u_s[(i * 8 + j) * kThreads + tid];
+        u = __fadd_rn(first ? 0.f : u, acc[i][j]);
+        acc[i][j] = 0.f;
+      }
+    }
+    first = false;
+  };
+
   if (k_begin < k_end) {
     load(k_begin);
     stage(0);
   }
   __syncthreads();
   int buf = 0;
+  int tiles_left = kSlice / kTBK;   // K tiles left in the slice
   for (int kc = k_begin; kc < k_end; kc += kTBK) {
     const bool more = kc + kTBK < k_end;
     if (more) load(kc + kTBK);
@@ -318,11 +319,16 @@ sa_gemm_tiled(const TA* __restrict__ a, const TW* __restrict__ w, int lda,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
     }
+    if (--tiles_left == 0 || !more) {
+      fold();
+      tiles_left = kSlice / kTBK;
+    }
     // the other buffer was last read before the previous barrier
     if (more) stage(buf ^ 1);
     __syncthreads();
     buf ^= 1;
   }
+  if (first) fold();   // an empty K: the sum of nothing, +0
 
   const bool split = gridDim.z > 1;
   const float scale = epi.scale_dev != nullptr ? epi.scale_dev[0] : epi.scale;
@@ -334,51 +340,65 @@ sa_gemm_tiled(const TA* __restrict__ a, const TW* __restrict__ w, int lda,
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
       if (n >= N) continue;
+      const float u = u_s[(i * 8 + j) * kThreads + tid];
       if (split) {
-        ws[((size_t)blockIdx.z * M + m) * N + n] = acc[i][j];
-      } else {
-        epilogue_store(acc[i][j], (size_t)m * N + n, n, epi, scale);
+        ws[((size_t)blockIdx.z * M + m) * N + n] = u;
+      } else {   // one part: the outer fold is 0 + u
+        epilogue_store(__fadd_rn(0.f, u), (size_t)m * N + n, n, epi, scale);
       }
     }
   }
 }
 
-// Adds the K slices in order 0..KS-1 and applies the epilogue. With KS == 1
-// the workspace may be the output itself (each element is read, then
-// written, by one thread), so neither pointer is __restrict__.
+// Folds the workspace's S partial sums in the fp32 routes' order: parts of
+// `per_part` consecutive entries, each folded left from zero, the parts
+// folded left from zero; then the epilogue. With S == 1 the workspace may be
+// the output itself (each element is read, then written, by one thread),
+// so neither pointer is __restrict__.
 __global__ void sa_gemm_epilogue(const float* ws, Epilogue epi, int M, int N,
-                                 int KS) {
+                                 int S, int per_part) {
   // a scale computed on the card (the FP8 GEMM's sa * sw) is read here, so
   // its caller never waits on the host
   const float scale = epi.scale_dev != nullptr ? epi.scale_dev[0] : epi.scale;
   const size_t total = (size_t)M * N;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int q = 0; q < KS; ++q) s += ws[(size_t)q * total + i];
-    epilogue_store(s, i, static_cast<int>(i % N), epi, scale);
+    float t = 0.f;
+    for (int p0 = 0; p0 < S; p0 += per_part) {
+      float u = 0.f;
+      for (int q = p0; q < min(S, p0 + per_part); ++q) {
+        u = __fadd_rn(u, ws[(size_t)q * total + i]);
+      }
+      t = __fadd_rn(t, u);
+    }
+    epilogue_store(t, i, static_cast<int>(i % N), epi, scale);
   }
 }
 
 template <typename TA, typename TW>
 cudaError_t launch_partial(const void* a, const void* w, float* ws, int M,
-                           int N, int K, int KS, int kslice,
-                           cudaStream_t st) {
-  dim3 grid((M + kRows - 1) / kRows, (N + kCols - 1) / kCols, KS);
-  sa_gemm_partial<TA, TW><<<grid, kThreads, 0, st>>>(
-      static_cast<const TA*>(a), static_cast<const TW*>(w), ws, M, N, K,
-      kslice);
+                           int N, int K, int S, cudaStream_t st) {
+  dim3 grid((M + kRows - 1) / kRows, (N + kPCols - 1) / kPCols, S);
+  sa_gemm_partial<TA, TW><<<grid, kPCols, 0, st>>>(
+      static_cast<const TA*>(a), static_cast<const TW*>(w), ws, M, N, K);
   return cudaGetLastError();
 }
+
+constexpr int kTiledDynSmem = 64 * kThreads * 4;   // u_s
 
 template <typename TA, typename TW, bool AK, bool WN>
 cudaError_t launch_tiled(const void* a, const void* w, int lda, int ldw,
                          float* ws, const Epilogue& epi, int M, int N, int K,
-                         int KS, int kslice, cudaStream_t st) {
-  dim3 grid((N + kTBN - 1) / kTBN, (M + kTBM - 1) / kTBM, KS);
-  sa_gemm_tiled<TA, TW, AK, WN><<<grid, kThreads, 0, st>>>(
+                         int parts, int per_part, cudaStream_t st) {
+  // set on every launch: the attribute belongs to the current device
+  cudaError_t attr = cudaFuncSetAttribute(
+      sa_gemm_tiled<TA, TW, AK, WN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kTiledDynSmem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((N + kTBN - 1) / kTBN, (M + kTBM - 1) / kTBM, parts);
+  sa_gemm_tiled<TA, TW, AK, WN><<<grid, kThreads, kTiledDynSmem, st>>>(
       static_cast<const TA*>(a), static_cast<const TW*>(w), lda, ldw, ws,
-      epi, M, N, K, kslice);
+      epi, M, N, K, per_part);
   return cudaGetLastError();
 }
 
@@ -386,18 +406,18 @@ template <typename TA, typename TW>
 cudaError_t launch_tiled_layout(const void* a, const void* w, int a_kcont,
                                 int w_ncont, int lda, int ldw, float* ws,
                                 const Epilogue& epi, int M, int N, int K,
-                                int KS, int kslice, cudaStream_t st) {
+                                int parts, int per_part, cudaStream_t st) {
   if (a_kcont && w_ncont)
     return launch_tiled<TA, TW, true, true>(a, w, lda, ldw, ws, epi, M, N, K,
-                                            KS, kslice, st);
+                                            parts, per_part, st);
   if (a_kcont)
     return launch_tiled<TA, TW, true, false>(a, w, lda, ldw, ws, epi, M, N,
-                                             K, KS, kslice, st);
+                                             K, parts, per_part, st);
   if (w_ncont)
     return launch_tiled<TA, TW, false, true>(a, w, lda, ldw, ws, epi, M, N,
-                                             K, KS, kslice, st);
+                                             K, parts, per_part, st);
   return launch_tiled<TA, TW, false, false>(a, w, lda, ldw, ws, epi, M, N, K,
-                                            KS, kslice, st);
+                                            parts, per_part, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -956,13 +976,14 @@ __global__ void sa_split3(const float* __restrict__ x, int rows, int cols,
 // dtype codes: 0 = fp32, 1 = bf16. tiled = 0 runs sa_gemm_partial (both
 // operands row-major with lda = K, ldw = N, at least one fp32: bf16 x bf16
 // takes the tensor cores at every M, sa_mma_launch), 1 runs sa_gemm_tiled
-// (the simt route: fp32 operands only). `ws` holds KS (M, N) partial sums;
-// with KS == 1 it may be `out`.
+// (the simt route: fp32 operands only). K is cut into S slices of kSlice,
+// `per_part` slices a part (the wrapper's fp32_k_plan). `ws` holds S (M, N)
+// slice sums (partial) or one per part (simt); with one it may be `out`.
 extern "C" int sa_matmul_launch(const void* a, int a_dt, int a_kcont, int lda,
                                 const void* w, int w_dt, int w_ncont, int ldw,
                                 const void* bias, void* ws, void* out,
                                 void* raw, float scale, const void* scale_dev,
-                                int M, int N, int K, int KS, int kslice,
+                                int M, int N, int K, int S, int per_part,
                                 int act, int approx, int tiled,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -971,27 +992,30 @@ extern "C" int sa_matmul_launch(const void* a, int a_dt, int a_kcont, int lda,
                static_cast<const float*>(scale_dev), act, approx};
   float* wsf = static_cast<float*>(ws);
   const int combo = a_dt * 2 + w_dt;
+  if (S < 1 || per_part < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
+  int fold_s = S, fold_per = per_part;
   if (tiled) {
     // the simt route: fp32 x fp32 (bf16 operands take the tensor cores,
     // sa_mma_launch)
     if (combo != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int parts = (S + per_part - 1) / per_part;
     err = launch_tiled_layout<float, float>(a, w, a_kcont, w_ncont, lda, ldw,
-                                            wsf, epi, M, N, K, KS, kslice,
-                                            st);
-    if (err != cudaSuccess || KS == 1) return static_cast<int>(err);
+                                            wsf, epi, M, N, K, parts,
+                                            per_part, st);
+    if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
+    fold_s = parts;   // the workspace holds the parts' sums
+    fold_per = 1;
   } else {
     switch (combo) {
       case 0:
-        err = launch_partial<float, float>(a, w, wsf, M, N, K, KS, kslice, st);
+        err = launch_partial<float, float>(a, w, wsf, M, N, K, S, st);
         break;
       case 1:
-        err = launch_partial<float, __nv_bfloat16>(a, w, wsf, M, N, K, KS,
-                                                   kslice, st);
+        err = launch_partial<float, __nv_bfloat16>(a, w, wsf, M, N, K, S, st);
         break;
       case 2:
-        err = launch_partial<__nv_bfloat16, float>(a, w, wsf, M, N, K, KS,
-                                                   kslice, st);
+        err = launch_partial<__nv_bfloat16, float>(a, w, wsf, M, N, K, S, st);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);
@@ -1002,7 +1026,8 @@ extern "C" int sa_matmul_launch(const void* a, int a_dt, int a_kcont, int lda,
   const int threads = 256;
   const int blocks =
       static_cast<int>(std::min<size_t>((total + threads - 1) / threads, 4096));
-  sa_gemm_epilogue<<<blocks, threads, 0, st>>>(wsf, epi, M, N, KS);
+  sa_gemm_epilogue<<<blocks, threads, 0, st>>>(wsf, epi, M, N, fold_s,
+                                               fold_per);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,11 +17,15 @@ fp32, bf16 or fp16 containers. Formats whose significand product does not
 fit the accumulator (fp32: 24 × 24 bits) are refused (ROADMAP R5: the TPU
 kernel's int32 product overflows there).
 
-The kernel (`csrc/fp_emu.cu`) runs one thread per output; K stays serial,
-because truncating alignment does not associate. A PE step is some 60
-dependent integer instructions, so the kernel is bound by instruction
-issue when many outputs are in flight, and by the latency of the K chain
-at decode (M = 2).
+The kernel (`csrc/fp_emu.cu`) walks each output's K chain in one thread;
+K stays serial, because truncating alignment does not associate. It
+carries the sum normalized by its LZA count (T = S << (L + 4)) and e_t = ê
+− L, so a PE step's dependent path is two shift amounts, two aligning
+shifts, an add, abs and the LZA; the product and the operands' fields are
+off the chain. A GEMM is bound by K times that path's latency where few
+outputs are in flight (decode) and by instruction issue where many are
+(prefill); `launch_plan` picks, from (M, N), how many chains a thread
+interleaves and how the warps spread over the SMs.
 """
 from __future__ import annotations
 
@@ -39,15 +43,29 @@ MODES = ("exact", "approx")
 _Q = ACC_MSB + 1
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-# int32 operations of one PE step, counted in csrc/fp_emu.cu's K loop:
-# multiplier 11 (two masks, multiply, xor, shift, max, clz, subtract, two
-# adds, select), the shift of the product into the accumulator 4, the
-# speculative compare and fix 8, the exponent select 5, the net shift of
-# the incoming sum 11, the product's alignment 6, the signed add 5, the
-# LZA 5 and the state update 5: 60. chip_smoke.py's bound counts the SASS
-# of the loop instead where `cuobjdump` is present, and uses this count
-# where it is not.
-OPS_PER_STEP = 60
+# The launch plan's model of the card (csrc/fp_emu.cu), from chip_smoke.py
+# readings on an H100 SXM (PERF.md §6): SMS SMs, four warp schedulers
+# each issuing one instruction a cycle; CHAIN_CYCLES, a PE step's
+# dependent path (the chain probe, `chain_cycles`: 50.8); SASS a PE step of
+# the interleaved kernel by rows a thread (its K loop: 34.75, 28.5, 25.8);
+# PC_BLOCKS, the producer/consumer blocks an SM up to which that kernel
+# beat the interleaved one (wk at M = 1-16, wq, wo, wd at M = 2; not wg at
+# M = 2 nor wk at M = 17). OPS_PER_STEP is the source's count of one PE
+# step: `product` 6 (multiply, two exponent adds, the high bit, two sign
+# xors) and `pe_chain` 24 (hi and the sign 2, g, p and the signs' sum 5,
+# the cap 1, the two shift amounts 4, e_max 2, the two aligning shifts 2,
+# the add 3, abs 1, the LZA 1, the normalizing shift 1, sign and exponent
+# tag 2); chip_smoke.py prints it beside the SASS it counts.
+OPS_PER_STEP = 30
+SMS = 132
+SCHEDULERS = 4
+CHAIN_CYCLES = 51
+SASS_A_STEP = {1: 35, 2: 29, 4: 26}
+PC_BLOCKS = 4
+ROWS = tuple(SASS_A_STEP)  # chains a thread of `ilp` (kernel template)
+ILP_WARPS = 4             # warps a block of `ilp`
+PC_WARPS = 3              # warps a block of `pc`: a consumer, two producers
+KERNELS = ("pc", "ilp")
 
 
 def check_format(fmt_name: str):
@@ -184,21 +202,49 @@ def fma_emu_matmul_ref(a: torch.Tensor, w: torch.Tensor,
     return bits.to(torch.int32).view(torch.float32)
 
 
-def rows_per_block(m: int) -> int:
-    """Output rows per block of the kernel: 1, 2, 4 or 8 (32 columns
-    each), the least power of two that covers M, at most 8."""
-    tm = 1
-    while tm < min(m, 8):
-        tm *= 2
-    return tm
+def launch_plan(m: int, n: int, sms: int = SMS) -> dict:
+    """How the kernel covers an (m, n) output, 32 columns a warp (`strips`
+    of them): the `kernel`, `rows` chains a thread, `warps` a block and the
+    `grid` (strip groups, row groups).
+
+    * `pc` (producer/consumer) where few chains are in flight, its blocks
+      (one row of 32 outputs each) at most PC_BLOCKS an SM (decode): each
+      block's two producer warps compute every step's product ahead into
+      shared memory and its consumer warp runs only the chain, so the
+      chain's latency, not one warp's in-order issue, sets the pace; rows
+      1, warps PC_WARPS, grid (strips, m).
+    * `ilp` elsewhere (prefill): each thread interleaves `rows` chains of
+      one column, sharing W's field, in blocks of ILP_WARPS warps (one a
+      scheduler); rows minimize a step's modelled time, the largest of the
+      chain's latency, one warp's issue (rows × SASS_A_STEP[rows]) and the
+      card's (all warps' over sms × SCHEDULERS), ties to fewer rows.
+
+    Every plan gives every output the same bits: an output is one chain,
+    walked k = 0..K-1 in one thread."""
+    strips = -(-n // 32)
+    if strips * m <= PC_BLOCKS * sms:
+        return {"kernel": "pc", "rows": 1, "warps": PC_WARPS,
+                "strips": strips, "grid": (strips, m)}
+    best = None
+    for rows, ops in SASS_A_STEP.items():
+        if rows > max(m, 1):
+            break
+        per_warp = rows * ops
+        t = max(CHAIN_CYCLES, per_warp,
+                strips * -(-m // rows) * per_warp / (sms * SCHEDULERS))
+        if best is None or t < best[0]:
+            best = (t, rows)
+    rows = best[1]
+    return {"kernel": "ilp", "rows": rows, "warps": ILP_WARPS,
+            "strips": strips,
+            "grid": (-(-strips // ILP_WARPS), -(-m // rows))}
 
 
-def fma_emu_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
-                        fmt_name: str = "bf16", mode: str = "exact"
-                        ) -> torch.Tensor:
-    """Launch the skewed-datapath kernel: a (M, K) and w (K, N) on one CUDA
-    device in fp32, bf16 or fp16 containers → (M, N) fp32."""
-    global LAUNCHES
+def _launch(a: torch.Tensor, w: torch.Tensor, fmt_name: str, mode: str,
+            plan: dict | None = None) -> torch.Tensor:
+    """One launch of the skewed-datapath kernel → (M, N) fp32. `plan`
+    forces a launch plan's `kernel` and, for `ilp`, its `rows` (tests and
+    sweeps); by default `launch_plan(M, N)`."""
     from .build import check, function
 
     fmt = _check_args(a, w, fmt_name, mode)
@@ -215,13 +261,54 @@ def fma_emu_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     if M == 0 or N == 0:
         return out
+    if K == 0:           # no PE: every column ends on a zero sum, +0
+        return out.zero_()
+    plan = plan or launch_plan(M, N)
+    pc = plan.get("kernel") == "pc"
+    if plan.get("kernel") not in KERNELS or not pc and plan.get(
+            "rows") not in ROWS:
+        raise ValueError(f"fp_emu plan {plan}: kernel in {KERNELS}; for ilp "
+                         f"rows in {ROWS}")
     fn = function("fp_emu", "fp_emu_launch",
-                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                   + [ctypes.c_void_p])
     err = fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
              _DTYPE_CODE[a.dtype], _DTYPE_CODE[w.dtype], fmt.man_bits,
-             int(mode == "approx"), rows_per_block(M),
+             int(mode == "approx"), int(pc), plan.get("rows", 1),
              torch.cuda.current_stream(a.device).cuda_stream)
     check(err, "fp_emu")
+    return out
+
+
+def fma_emu_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
+                        fmt_name: str = "bf16", mode: str = "exact"
+                        ) -> torch.Tensor:
+    """Launch the skewed-datapath kernel on `launch_plan(M, N)`: a (M, K)
+    and w (K, N) on one CUDA device in fp32, bf16 or fp16 containers →
+    (M, N) fp32."""
+    global LAUNCHES
+    out = _launch(a, w, fmt_name, mode)
     LAUNCHES += 1
     return out
+
+
+def chain_cycles(steps: int = 8192, device: str = "cuda") -> float:
+    """SM cycles of one PE step's dependent path on the card: the kernel
+    library's chain probe (`fp_emu_chain_probe_launch`), one thread
+    walking `steps` exact-mode steps of one output with a bf16 product (1.5
+    × 1.25) that the compiler holds outside the loop. K times this, at the
+    SM clock, is the least time an output's serial chain can take."""
+    from .build import check, function
+
+    c = ACC_MSB - 2 * get_format("bf16").man_bits
+    fields = torch.tensor([0xC0 << c, 0, 0, 0xA0, 0, 0], dtype=torch.int32,
+                          device=device)
+    cycles = torch.zeros(2, dtype=torch.int64, device=device)
+    fn = function("fp_emu", "fp_emu_chain_probe_launch",
+                  [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p])
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for _ in range(2):   # the first launch loads the module
+        check(fn(fields.data_ptr(), steps, cycles.data_ptr(), stream),
+              "fp_emu chain probe")
+    return float(cycles[0]) / steps

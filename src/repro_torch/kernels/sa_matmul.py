@@ -16,9 +16,9 @@ failed build or launch of any route raises) and counted apart in
 
 * `partial` — fp32 decode (M < TILED_MIN_M, row-major operands, at least
   one of them fp32: the fp32 policy). Bound by bytes: every weight is
-  read once for 2·M flops. SIMT fp32 FMA, a block per 64 columns and 8
-  rows, K split across blocks (slices added in order by the epilogue
-  kernel) so narrow N fills the SMs.
+  read once for 2·M flops. SIMT fp32 FMA, a thread per column and up to 8
+  rows, a block per 128 columns and one K slice (`fp32_k_plan`), so narrow
+  N fills the SMs; the epilogue kernel folds the slices.
 * `mma` — bf16 × bf16 at every M: the forward under the bf16 and FP8
   policies (`cast_in` gives bf16 on the card), decode included.
   `mma.sync` m16n8k16 on the tensor cores, fp32 accumulate; operand tiles
@@ -43,7 +43,14 @@ failed build or launch of any route raises) and counted apart in
   the problem is transposed (Cᵀ = Wᵀ·Aᵀ) and written through strides.
   Three times `mma`'s products.
 * `simt` — fp32 × fp32 (the fp32 policy): the 128 × 128 SIMT FMA kernel
-  of the earlier design (fp32 has no exact tensor-core type).
+  of the earlier design (fp32 has no exact tensor-core type), a block per
+  tile and part of K (`fp32_k_plan`).
+
+`partial` and `simt` sum each output in one order that depends on N and K
+only (`fp32_k_plan`, ROADMAP F2b): slices of FP32_SLICE along K, each an
+in-order FMA chain from zero; parts of consecutive slices, each the
+slices folded left from zero; the output the parts folded left from zero.
+So an fp32 × fp32 row carries the same bits at every M, on either route.
 
 `SAMatmulFn` is the gradient, as the JAX package's VJP: the raw
 accumulator is kept only when the activation or a real scale needs it,
@@ -84,10 +91,8 @@ ROUTE_LAUNCHES = {r: 0 for r in ROUTES}
 
 _ACT_CODE = {a: i for i, a in enumerate(EPILOGUES)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_COLS_PER_BLOCK = 64
-_ROWS_PER_BLOCK = 8
 _TILE = 128           # the simt kernel's output tile (rows and columns)
-_TILE_K = 16          # ... and its K stage depth
+FP32_SLICE = 256      # K depth of a slice of the fp32 routes (one FMA chain)
 TILED_MIN_M = 8       # rows from which a non-bf16 GEMM takes a tiled route
 DECODE_MAX_M = 16     # rows up to which a bf16 GEMM takes the decode tile
 
@@ -168,20 +173,33 @@ def sa_matmul_ref(a: torch.Tensor, w: torch.Tensor,
     return (y, raw) if save_raw else y
 
 
-def split_k(m: int, n: int, k: int, sms: int = 132) -> int:
-    """K slices of the small-M kernel: about two blocks per SM, each slice
-    at least 256 deep."""
-    base = -(-n // _COLS_PER_BLOCK) * -(-m // _ROWS_PER_BLOCK)
-    want = -(-2 * sms // base)
-    return max(1, min(want, k // 256, 64))
+def fp32_k_plan(n: int, k: int) -> dict:
+    """The fp32 routes' order of sums for an output of K-deep sums in a
+    GEMM of N columns, whatever M (ROADMAP F2b): `slices` of `slice` along
+    K (the last one ragged), `per_part` consecutive slices a part, `parts`
+    parts. `simt` runs a block per (tile, part): up to 16 parts, two
+    waves of two blocks an SM from one row of its 128-column tiles, which
+    fills the card at any M; `partial` runs a block per slice."""
+    slices = max(1, -(-k // FP32_SLICE))
+    want = -(-4 * 132 // -(-n // _TILE))
+    per_part = -(-slices // max(1, min(want, slices, 16)))
+    return {"slice": FP32_SLICE, "slices": slices, "per_part": per_part,
+            "parts": -(-slices // per_part)}
 
 
-def tiled_split_k(m: int, n: int, k: int, sms: int = 132) -> int:
-    """K slices of the simt route: two waves of two blocks per SM where
-    the output tiles alone give fewer, each slice at least 1024 deep."""
-    base = -(-m // _TILE) * -(-n // _TILE)
-    want = -(-4 * sms // base)
-    return max(1, min(want, k // 1024, 16))
+def fp32_launch(m: int, n: int, k: int, route: str) -> dict:
+    """How `partial` or `simt` covers an (m, n) output of K-deep sums: the
+    order of sums (`fp32_k_plan`, which does not see m), the grid, and the
+    workspace's partial sums (0: they go straight to the output)."""
+    plan = fp32_k_plan(n, k)
+    if route == "partial":
+        grid, nws = (-(-m // 8), -(-n // 128), plan["slices"]), plan["slices"]
+    elif route == "simt":
+        grid, nws = (-(-n // _TILE), -(-m // _TILE), plan["parts"]), \
+            plan["parts"]
+    else:
+        raise ValueError(f"{route!r} is not an fp32 route")
+    return {**plan, "grid": grid, "workspace": nws if nws > 1 else 0}
 
 
 def gemm_route(m: int, a_dtype, w_dtype, a_kcont: bool = True,
@@ -403,18 +421,13 @@ def _launch(a, w, bias, scale, act, mode, save_raw, planes=None,
         ROUTE_LAUNCHES[route] += 1
         return out, raw
     tiled = route == "simt"
-    sms = _sm_count(a.device)
-    if tiled:
-        ks = tiled_split_k(m, n, k, sms)
-        kslice = -(-(-(-k // ks)) // _TILE_K) * _TILE_K
-    else:
+    if not tiled:
         a, w = a.contiguous(), w.contiguous()
         lda, ldw = k, n
-        ks = split_k(m, n, k, sms)
-        kslice = -(-k // ks)
-    # with one K slice the partial sums go straight to the output
-    ws = out if ks == 1 else torch.empty((ks, m, n), dtype=torch.float32,
-                                         device=a.device)
+    plan = fp32_launch(m, n, k, route)
+    # the workspace holds the slices' sums (partial) or the parts' (simt)
+    ws = (torch.empty((plan["workspace"], m, n), dtype=torch.float32,
+                      device=a.device) if plan["workspace"] else out)
     fn = function("sa_matmul", "sa_matmul_launch",
                   ([ctypes.c_void_p] + [ctypes.c_int] * 3) * 2
                   + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p]
@@ -425,8 +438,9 @@ def _launch(a, w, bias, scale, act, mode, save_raw, planes=None,
              out.data_ptr(), None if raw is None else raw.data_ptr(),
              1.0 if scale is None or scale_dev is not None else float(scale),
              None if scale_dev is None else scale_dev.data_ptr(),
-             m, n, k, ks, kslice, _ACT_CODE[act], int(mode == "approx"),
-             int(tiled), torch.cuda.current_stream(a.device).cuda_stream)
+             m, n, k, plan["slices"], plan["per_part"], _ACT_CODE[act],
+             int(mode == "approx"), int(tiled),
+             torch.cuda.current_stream(a.device).cuda_stream)
     check(err, f"sa_matmul ({route})")
     ROUTE_LAUNCHES[route] += 1
     return out, raw
@@ -568,11 +582,16 @@ def error_bound(a: torch.Tensor, w: torch.Tensor, scale=None,
     The plain version is fp32 `torch.matmul` of the upcast operands: its
     K − 1 fp32 additions each err by at most 2⁻²⁴ of a partial sum, and a
     product with an fp32 operand is rounded once (or fused), so it is
-    within 2·K·2⁻²⁴·Σ|a||w| of the exact sum whatever its order (R1).
+    within 2·K·2⁻²⁴·Σ|a||w| of the exact sum whatever its order (R1);
+    counted closer, the products' roundings (each under 2⁻²⁴ of its own
+    product) add up to one unit, so within K units.
 
-    * `simt`, `partial` (fp32 FMA chains, split-K slices added in order):
-      the same 2·K·2⁻²⁴·Σ|a||w|, so the two differ by at most 2·K units
-      (2⁻²⁴·Σ|a||w|) for bf16 and fp32 operands alike.
+    * `simt`, `partial` (fp32 FMA chains over the slices of `fp32_k_plan`,
+      folded in order): a slice's n ≤ FP32_SLICE FMAs each err by at most
+      2⁻²⁴ of a partial sum of the slice, and the folds' first additions
+      (to zero) are exact, so the kernel is within min(K, FP32_SLICE) +
+      slices − 1 ≤ K units, and the plain version within K: together at
+      most 2·K units (2⁻²⁴·Σ|a||w|) for bf16 and fp32 operands alike.
     * `mma` (bf16 × bf16 on tensor cores): the products are exact. Each
       k16 step's 16 products are summed by the tensor cores from zero,
       and they do not round each addition: a group of n_g ≥ TC_GROUP

@@ -40,6 +40,7 @@ from repro.kernels.quantize import amax_scale as j_amax_scale  # noqa: E402
 from repro.kernels.quantize import quantize_fp8 as j_quantize_fp8  # noqa: E402,E501
 from repro_torch.core import chained_fma as TCF  # noqa: E402
 from repro_torch.core import precision as TP  # noqa: E402
+from repro_torch.core.fpformats import get_format as t_get_format  # noqa: E402,E501
 from repro_torch.core.fpformats import quantize as t_quantize  # noqa: E402
 from repro_torch.kernels import fp_emu as FE  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -209,6 +210,146 @@ def test_fp_emu_plain_matches_pallas_and_chained_fma(fmt, mode, scale):
     _assert_bits(kern, got.numpy(), f"{fmt} {mode} x{scale}")
     # the port's own oracle, the chained_fma copy, agrees as well
     _assert_bits(oracle, TCF.matmul_emulated(a, w, fmt, pipe))
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _i32(u):
+    """A uint32 (held in int64) read as int32."""
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u)
+
+
+def _lza(x):
+    """bfind.shiftamt.u32: 31 - msb(x), 0xffffffff for 0."""
+    msb = torch.frexp(x.clamp_min(1).to(torch.float64))[1].to(torch.int64) - 1
+    return torch.where(x == 0, _U32, 31 - msb)
+
+
+def _shr_u(x, n):       # shr.u32: amounts of 32 or more give 0
+    return torch.where(n >= 32, 0, x >> n.clamp(0, 31))
+
+
+def _shr_s(x, n):       # shr.s32: amounts of 32 or more give the sign
+    return x >> n.clamp(0, 31)
+
+
+def _shl(x, n):         # shl.b32: amounts of 32 or more give 0
+    return torch.where(n >= 32, 0, (x << n.clamp(0, 31)) & _U32)
+
+
+def _chain_model(a, w, fmt, mode, saturate=False):
+    """csrc/fp_emu.cu's algebra step for step (`pe_step`, `column_end`): the
+    sum carried normalized, T = S << (L + 4), with H = e_max + 5 and q = L +
+    4 (0xffffffff for a zero sum, capped at 2^22 in the exponent), the
+    shift amounts max(g + q, 5) and max(p − q, hi) from g = e_m + 5 − H and
+    p = H − e0 taken before the LZA, the product's significand in one's
+    complement when negative. `saturate`: the producer/consumer kernel's
+    ring, which carries the product's exponents in 16 bits, a zero
+    product's at -2^14. int64 torch ops with the kernel's 32-bit semantics
+    (PTX's clamped shifts, bfind)."""
+    mb = t_get_format(fmt).man_bits
+
+    def fields(x):
+        bits = torch.from_numpy(np.ascontiguousarray(x, np.float32)).view(
+            torch.int32).to(torch.int64) & _U32
+        e32 = (bits >> 23) & 0xFF
+        frac = (bits >> (23 - mb)) & ((1 << mb) - 1)
+        m = torch.where(e32 > 0, frac | (1 << mb), 0)
+        e = torch.where(e32 > 0, e32 - 127, TCF.E_ZERO)
+        return m, e, -(bits >> 31)
+
+    am, ae, asg = fields(a)
+    wm, we, wsg = fields(w)
+    am = am << (TCF.ACC_MSB - 2 * mb)
+    M, K = a.shape
+    N = w.shape[1]
+    T = torch.zeros((M, N), dtype=torch.int64)
+    sp = torch.zeros_like(T)
+    H = torch.zeros_like(T)
+    q = torch.full_like(T, _U32)
+    for k in range(K):
+        mm = am[:, k:k + 1] * wm[k:k + 1]
+        hi = mm >> 27
+        e0 = ae[:, k:k + 1] + we[k:k + 1]
+        e_m = e0 + hi
+        if saturate:
+            e_m, e0 = e_m.clamp_min(-(1 << 14)), e0.clamp_min(-(1 << 14))
+            hi = e_m - e0
+        sm = asg[:, k:k + 1] ^ wsg[k:k + 1]
+        mmc = mm ^ sm
+        g = e_m + 5 - H
+        p = H - e0
+        nss = -(sm + sp)
+        qc = torch.clamp_max(q, 1 << 22)
+        sh_s = torch.clamp_min(g + _i32(q), 5)
+        sh_m = torch.maximum(p - qc, hi)
+        e_max = torch.maximum(e_m, H - qc)
+        sa = _shr_u(T, sh_s)
+        v = _shr_s(mmc, sh_m) + _i32(sa ^ (sp & _U32)) + nss
+        so = v.abs()
+        qn = _lza(so)
+        if mode == "approx":
+            qn = qn & (_U32 & ~3)
+        T = _shl(so, qn)
+        sp = torch.where(v < 0, -1, 0)
+        H = e_max + 5
+        q = qn
+    sgn = (sp & 1) << 31
+    c0 = torch.where(T == 0, 0, _lza(T))
+    e = H - _i32(q) - c0
+    mn = ((T << c0) & _U32) >> 5
+    low = mn & 7
+    keep = mn >> 3
+    keep = keep + ((low > 4) | ((low == 4) & ((keep & 1) == 1))).long()
+    ovf = (keep >> 24) != 0
+    keep = torch.where(ovf, keep >> 1, keep)
+    e = e + ovf.long()
+    e32 = e + 127
+    bits = sgn | (e32.clamp(0, 255) << 23) | (keep & 0x7FFFFF)
+    bits = torch.where(e32 >= 255, sgn | 0x7F800000, bits)
+    bits = torch.where((T == 0) | (e32 <= 0), sgn, bits)
+    return _i32(bits).to(torch.int32).view(torch.float32)
+
+
+def _spread_inputs(fmt, seed, m=6, k=200, n=10):
+    """Exponents far apart (products that align past the accumulator and
+    sums that overflow into bit 27), long cancellation runs and zeros."""
+    rng = np.random.default_rng(seed)
+    span = {"bf16": 40, "fp16": 6, "fp8_e4m3": 3, "fp8_e5m2": 6}[fmt]
+    a = rng.standard_normal((m, k)) * 2.0 ** rng.integers(-span, span + 1,
+                                                          (m, k))
+    w = rng.standard_normal((k, n)) * 2.0 ** rng.integers(-span, span + 1,
+                                                          (k, n))
+    a[rng.random((m, k)) < 0.1] = 0.0
+    w[:, 0] = 2.0 ** rng.integers(-2, 3, k) * np.sign(rng.standard_normal(k))
+    w[1::2, 1] = -w[0::2, 1]
+    a[:, 1::2] = a[:, 0::2]
+    a = t_quantize(torch.from_numpy(a.astype(np.float32)), fmt).numpy()
+    w = t_quantize(torch.from_numpy(w.astype(np.float32)), fmt).numpy()
+    return a, w
+
+
+@pytest.mark.parametrize("fmt", EMU_FORMATS)
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("inputs", ["planted x1", "planted x25", "spread"])
+@pytest.mark.parametrize("kernel", ["ilp", "pc"])
+def test_fp_emu_kernel_algebra_matches_plain(fmt, mode, inputs, kernel):
+    """The hand-written kernel's per-step algebra (carried e_t = ê − L, the
+    sum normalized ahead, one's-complement products, the zero sum through
+    a capped LZA count; in the producer/consumer kernel a zero product's
+    exponent saturated), modelled step for step on the CPU, is bit for bit
+    `fma_emu_matmul_ref` (the TPU kernel's algebra): planted zeros, signed
+    zeros, exact and near cancellation, exponents far apart, both modes."""
+    if inputs == "spread":
+        a, w = _spread_inputs(fmt, seed=len(fmt) + len(mode))
+    else:
+        scale = 25.0 if inputs.endswith("x25") else 1.0
+        a, w = _emu_inputs(fmt, scale, seed=int(scale) + len(fmt))
+    ref = FE.fma_emu_matmul_ref(torch.from_numpy(a), torch.from_numpy(w),
+                                fmt, mode)
+    got = _chain_model(a, w, fmt, mode, saturate=kernel == "pc")
+    _assert_bits(ref.numpy(), got.numpy(), f"{fmt} {mode} {inputs}")
 
 
 def test_fp_emu_takes_reduced_containers():

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.precision import PrecisionPolicy  # noqa: E402
 from repro_torch.kernels import fp_emu as FE  # noqa: E402
+from repro_torch.kernels import gemm_cases as GC  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as QZ  # noqa: E402
 from repro_torch.kernels import sa_attention as FA  # noqa: E402
@@ -291,10 +292,23 @@ def _on_grid(t, fmt):
     return quantize(t, fmt).to(box)
 
 
+# every launch geometry (the producer/consumer kernel; the interleaved one
+# at each rows a thread), forced on one ragged shape; the plan's own choice
+# at decode's and prefill's M
+FP_EMU_PLANS = ([(1, 1000, 96, None), (2, 1000, 96, None),
+                 (3, 1000, 96, None), (16, 640, 80, None),
+                 (33, 165, 200, None), (33, 165, 200, ("pc", 1))]
+                + [(33, 165, 200, ("ilp", r)) for r in FE.ROWS])
+
+
 @pytest.mark.parametrize("fmt", ["bf16", "fp16", "fp8_e4m3", "fp8_e5m2"])
 @pytest.mark.parametrize("mode", ["exact", "approx"])
-@pytest.mark.parametrize("m,k,n", [(3, 1000, 96), (16, 640, 80)])
-def test_fp_emu_matches_plain_bit_exact(cuda, fmt, mode, m, k, n):
+@pytest.mark.parametrize("m,k,n,plan", FP_EMU_PLANS)
+def test_fp_emu_matches_plain_bit_exact(cuda, fmt, mode, m, k, n, plan):
+    """The kernel against its plain version bit for bit: M = 1 to 33, K
+    not a multiple of the 32-deep chunk, ragged N, every launch geometry,
+    on planted zeros and cancellation (this test's and `emu_operands`, the
+    operands chip_smoke.py checks and times)."""
     g = torch.Generator(device=cuda).manual_seed(m * k + n)
     a = torch.randn((m, k), generator=g, device=cuda)
     w = torch.randn((k, n), generator=g, device=cuda)
@@ -305,11 +319,24 @@ def test_fp_emu_matches_plain_bit_exact(cuda, fmt, mode, m, k, n):
     a[:, h:2 * h] = a[:, :h]
     w[h:2 * h, 2] = -w[:h, 2]                  # exact cancellation
     a, w = _on_grid(a, fmt), _on_grid(w, fmt)
-    ops.reset_counts()
-    got = ops.skewed_datapath_matmul(a, w, fmt, mode)
-    assert ops.counts()["fp_emu"] == {"launches": 1, "plain_calls": 0}
-    ref = FE.fma_emu_matmul_ref(a, w, fmt, mode)
-    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    cases = [(a, w), GC.emu_operands(g, m, k, n, fmt)]
+    for a, w in cases:
+        ops.reset_counts()
+        if plan is None:
+            got = ops.skewed_datapath_matmul(a, w, fmt, mode)
+            assert ops.counts()["fp_emu"] == {"launches": 1,
+                                              "plain_calls": 0}
+        else:
+            got = FE._launch(a, w, fmt, mode, dict(
+                zip(("kernel", "rows"), plan)))
+        ref = FE.fma_emu_matmul_ref(a, w, fmt, mode)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_fp_emu_chain_probe_runs(cuda):
+    """The chain probe (the chain-latency bound's unit) launches and gives
+    a plausible count of cycles a PE step."""
+    assert 4.0 < FE.chain_cycles(2048) < 1000.0
 
 
 @pytest.mark.parametrize("fmt", ["fp8_e4m3", "fp8_e5m2"])
@@ -475,13 +502,13 @@ def test_sa_matmul_is_deterministic(cuda):
     """The split K is summed in a fixed order: two runs are bit-identical
     (remat's recompute depends on it)."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    a = torch.randn((1024, 5120), generator=g, device=cuda).to(torch.bfloat16)
-    w = (torch.randn((5120, 1024), generator=g, device=cuda) / 72).to(
-        torch.bfloat16)
-    assert MM.tiled_split_k(1024, 1024, 5120) > 1
-    y1 = ops.sa_matmul(a, w)
-    y2 = ops.sa_matmul(a, w)
-    assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+    assert MM.fp32_k_plan(1024, 5120)["parts"] > 1
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.randn((1024, 5120), generator=g, device=cuda).to(dt)
+        w = (torch.randn((5120, 1024), generator=g, device=cuda) / 72).to(dt)
+        y1 = ops.sa_matmul(a, w)
+        y2 = ops.sa_matmul(a, w)
+        assert torch.equal(y1.view(torch.int32), y2.view(torch.int32)), dt
 
 
 @pytest.mark.parametrize("act", ["none", "silu", "gelu"])
@@ -604,9 +631,9 @@ def test_sa_matmul_route_counters(cuda):
         assert ops.route_counts()["sa_matmul"] == want, fmt
 
 
-# the path's bf16 GEMMs at reduced K (full N), and a ragged one: (K, N,
-# bias, act, mode, scale); "dev" is a scale held on the card (the FP8
-# GEMM's descale)
+# the path's GEMMs at reduced K (full N), one at full K (several slices a
+# part on the fp32 routes), and a ragged one: (K, N, bias, act, mode,
+# scale); "dev" is a scale held on the card (the FP8 GEMM's descale)
 FOLD_SHAPES = {
     "wq": (640, 5120, True, "none", "exact", None),
     "wk": (640, 1024, True, "none", "approx", None),
@@ -615,35 +642,46 @@ FOLD_SHAPES = {
     "gate": (640, 13824, False, "silu", "exact", None),
     "up": (640, 13824, False, "none", "approx", "dev"),
     "down": (1728, 5120, False, "none", "exact", None),
+    "gate_full_k": (5120, 13824, False, "silu", "exact", None),
     "ragged": (1000, 999, True, "silu", "approx", 0.75)}
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
 @pytest.mark.parametrize("name", list(FOLD_SHAPES))
-def test_sa_matmul_rows_fold_bit_identically(cuda, name):
-    """ROADMAP F2: each row of a bf16 x bf16 GEMM at M = 1, 4, 7 (the
-    decode tile) is bit-identical to the same row inside the products of
-    M = 8, 20 (the decode and small tiles) and 128 — the epilogue (bias,
-    activation, approx truncation, a scale on the card) and the raw
-    accumulator included — so a speculative verify fold of B·(k+1) rows
-    gives each row what the decode step gave it."""
+def test_sa_matmul_rows_fold_bit_identically(cuda, name, dtype):
+    """ROADMAP F2 and F2b: each row of a GEMM at M = 1, 4, 7 is
+    bit-identical to the same row inside the products of M = 8, 20 and
+    1024 — the epilogue (bias, activation, approx truncation, a scale on
+    the card) and the raw accumulator included — so a speculative verify
+    fold of B·(k+1) rows gives each row what the decode step gave it.
+    bf16 x bf16 runs the decode tile at M ≤ 16 and the small and large
+    tiles above; fp32 x fp32 runs `partial` below TILED_MIN_M and `simt`
+    from it, in one order of sums (`fp32_k_plan`)."""
     k, n, has_bias, act, mode, scale = FOLD_SHAPES[name]
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     g = torch.Generator(device=cuda).manual_seed(k + n)
-    a = torch.randn((128, k), generator=g, device=cuda).to(torch.bfloat16)
-    w = (torch.randn((k, n), generator=g, device=cuda) * k ** -0.5).to(
-        torch.bfloat16)
+    a = torch.randn((1024, k), generator=g, device=cuda).to(dt)
+    w = (torch.randn((k, n), generator=g, device=cuda) * k ** -0.5).to(dt)
     bias = (torch.randn((n,), generator=g, device=cuda) * 0.1
             if has_bias else None)
     if scale == "dev":
         scale = torch.tensor(0.5, device=cuda)
 
     def run(m):
+        ops.reset_counts()
         y, raw = MM.sa_matmul_cuda(a[:m], w, bias, scale, act=act,
                                    mode=mode, save_raw=True)
+        route = [r for r, c in ops.route_counts()["sa_matmul"].items() if c]
+        assert route == [MM.gemm_route(m, dt, dt)], (m, route)
         return y.view(torch.int32), raw.view(torch.int32)
 
-    big = {m: run(m) for m in (8, 20, 128)}
-    assert MM.mma_plan(8, n, "mma")["tile"] == "decode"
-    assert MM.mma_plan(20, n, "mma")["tile"] != "decode"
+    big = {m: run(m) for m in (8, 20, 1024)}
+    if dtype == "bf16":
+        assert MM.mma_plan(8, n, "mma")["tile"] == "decode"
+        assert MM.mma_plan(20, n, "mma")["tile"] != "decode"
+    else:
+        assert MM.gemm_route(7, dt, dt) == "partial"
+        assert MM.gemm_route(8, dt, dt) == "simt"
     for m in (1, 4, 7):
         y, raw = run(m)
         for mb, (yb, rawb) in big.items():

@@ -34,6 +34,7 @@ from repro.kernels.sa_decode_attention import (  # noqa: E402
 from repro.kernels.sa_matmul import sa_matmul_pallas  # noqa: E402
 from repro.models.layers import blockwise_attention as j_blockwise  # noqa: E402,E501
 from repro_torch.core import precision as TP  # noqa: E402
+from repro_torch.kernels import fp_emu as FE  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import sa_attention as FA  # noqa: E402
 from repro_torch.kernels import sa_decode_attention as DA  # noqa: E402
@@ -445,6 +446,83 @@ def test_gemm_route_follows_the_operand_types(a_dt, w_dt, route):
         assert MM.gemm_route(rows, a_dt, w_dt, False, False) == route
     for rows in (m, m + 1, 1024):
         assert MM.gemm_route(rows, a_dt, w_dt) == route
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 80, 200, 999, 1024, 5120,
+                               13824, 153600])
+def test_fp_emu_launch_plan_covers_each_output_once(n):
+    """fp_emu's launch plan at M = 1 to 64: each output (m, n) belongs to
+    exactly one thread (`ilp`: block x, warp, lane -> column, block y, row
+    r -> row; `pc`: block x, lane -> column, block y -> row), every warp
+    that holds a column is launched, an `ilp` thread walks 1, 2 or 4 rows
+    in blocks of ILP_WARPS warps, a `pc` block is one consumer warp and two
+    producers; the plan is a function of (M, N) alone."""
+    for m in range(1, 65):
+        p = FE.launch_plan(m, n)
+        assert p == FE.launch_plan(m, n)
+        rows, warps, (gx, gy) = p["rows"], p["warps"], p["grid"]
+        assert p["strips"] == -(-n // 32) and p["kernel"] in FE.KERNELS
+        if p["kernel"] == "pc":
+            assert (rows, warps, gx, gy) == (1, FE.PC_WARPS, p["strips"], m)
+            continue
+        assert rows in FE.ROWS and rows <= max(m, 1)
+        assert warps == FE.ILP_WARPS
+        if n <= 1024:
+            cols = np.zeros(n, np.int64)
+            for bx in range(gx):
+                for wy in range(warps):
+                    base = (bx * warps + wy) * 32
+                    if base >= n:       # a spare warp returns at once
+                        continue
+                    c = np.arange(base, base + 32)
+                    cols[c[c < n]] += 1
+            assert (cols == 1).all(), (m, n)
+        else:
+            assert (gx - 1) * warps * 32 < n <= gx * warps * 32
+        rws = np.zeros(m, np.int64)
+        for by in range(gy):
+            r = np.arange(by * rows, by * rows + rows)
+            rws[r[r < m]] += 1
+        assert (rws == 1).all(), (m, n)
+
+
+def test_fp_emu_launch_plan_spreads_decode_and_shares_prefill():
+    """At decode's M the plan takes the producer/consumer kernel, a block a
+    row of 32 outputs, so wk's (M = 2, N = 1024) 64 blocks land on 64 SMs;
+    at prefill's M = 32 the wide GEMMs interleave 4 rows a thread, sharing
+    each W field."""
+    p = FE.launch_plan(2, 1024)
+    assert p["kernel"] == "pc" and p["grid"][0] * p["grid"][1] == 64
+    for n in (5120, 13824, 153600):
+        p = FE.launch_plan(32, n)
+        assert (p["kernel"], p["rows"]) == ("ilp", 4)
+
+
+@pytest.mark.parametrize("n,k", [(5120, 5120), (1024, 5120), (13824, 5120),
+                                 (5120, 13824), (153600, 5120), (999, 1000),
+                                 (96, 1024), (384, 256), (8, 16)])
+def test_fp32_k_plan_does_not_depend_on_the_rows(n, k):
+    """ROADMAP F2b: an fp32 x fp32 output's order of sums — its K slices,
+    each an FMA chain from zero, and the parts they are folded in — is the
+    same at every M (1, 4, 7 on `partial`, 8, 20, 1024 on `simt`), on the
+    path's (N, K) and ragged ones; the slices cover K once, the parts the
+    slices once, and each route's grid the (m, n) output once."""
+    want = MM.fp32_k_plan(n, k)
+    S, D, per, P = want["slices"], want["slice"], want["per_part"], \
+        want["parts"]
+    assert D % 16 == 0 and (S - 1) * D < k <= S * D
+    assert (P - 1) * per < S <= P * per and P <= 16
+    for m in (1, 4, 7, 8, 20, 1024):
+        route = MM.gemm_route(m, torch.float32, torch.float32)
+        assert route == ("partial" if m < MM.TILED_MIN_M else "simt")
+        plan = MM.fp32_launch(m, n, k, route)
+        assert {key: plan[key] for key in want} == want, m
+        gx, gy, gz = plan["grid"]
+        rows, cols, bm = ((gx * 8, gy * 128, 8) if route == "partial"
+                          else (gy * 128, gx * 128, 128))
+        assert rows - bm < m <= rows and cols - 128 < n <= cols
+        assert gz == (S if route == "partial" else P)
+        assert plan["workspace"] == (gz if gz > 1 else 0)
 
 
 @pytest.mark.parametrize("m", [1, 4, 7, 8, 16, 63, 64, 65, 128, 256, 1000,
