@@ -30,7 +30,8 @@ Phases, in order; any failure exits nonzero:
              x fp32, bit-identical at M = 1, 4, 7, 8, 20 and 1024, and a
              slot's paged decode at B = 4 bit-identical to the same slot
              inside B = 20; then the fp32 routes' times (a layer's 7 GEMMs
-             fp32 x fp32 at M = 4 and 1024).
+             fp32 x fp32 at M = 4 and 1024, beside the plain version,
+             fp32 torch.matmul and the bound).
 5. serve   — full-width, full-depth qwen2.5-14b (random weights from a
              seed) served through `repro_torch.launch.serve.main` with the
              `cuda` GEMM backend; every request must generate `max_new`
@@ -47,13 +48,28 @@ Phases, in order; any failure exits nonzero:
              busy and idle share of the wall and the kernels that take the
              device time; then one decode chunk alone: kernel launches a
              decode step and the decode tile's share of device time.
+   tiers   — the serve stream with `--tier-mix 0.5` on the same weights
+             (the bulk tier, DESIGN.md §6): approx chunks ran, each
+             kernel's launches by mode (`ops.mode_counts()`) exactly as the
+             run's chunks and divergence probe account for, no plain
+             version, every premium request's tokens bit-identical to the
+             all-premium serve's; the full-depth `[divergence]` line
+             (max_ulp > 0, every value finite) and the `energy_*` keys.
+   ring    — the serve stream with `--kv ring` and on the paged pool, both
+             under REPRO_DECODE_ATTN=gather: one digest; the ring's digest
+             beside the fused paged serve's (tokens that agree counted);
+             `generate()` on 4 equal-length prompts (the prefill kernel at
+             B = 4) equal to the ring serve of the same requests.
 7. emulate — the same model served under `REPRO_GEMM_BACKEND=emulate`:
              every GEMM through the fp_emu kernel (the SA GEMM never
              launches), attention through the two attention kernels, no
              plain version; its two requests again under torch.profiler
              (prefill_s, decode ITL, idle share, fp_emu's share of device
              time); then one prompt's prefill logits under `emulate` and
-             `cuda`, within the same bound.
+             `cuda`, within the same bound; then the two requests as bulk
+             (`--tier-mix 1.0`): every chunk approx, fp_emu's launches by
+             mode as accounted, and fp_emu's device time a decode step in
+             each mode.
 8. study   — `repro_torch.launch.precision_study.main` at full width: the
              skewed and baseline chains bit-exact per format, the cycle and
              energy model equal to the JAX package's numbers, and the
@@ -96,7 +112,8 @@ bound and bf16 torch.matmul. The decode and prefill checks add bf16
 policy.
 
 Each phase's wall time is printed. The last lines are the kernels JSON
-line, the nvidia-smi line and `{"ok": true, "device": {...}}`.
+line (with each tiered kernel's `mode_launches`), the nvidia-smi line and
+`{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -1629,24 +1646,36 @@ def fp32_gemm_times(torch, timer, g):
     alone (tools/chip_ab.py runs them against another checkout's port):
     each of a layer's 7 GEMMs fp32 x fp32 at M = 4 (`partial`) and M = 1024
     (`simt`), ms wall and device, their sums, and wk with fp32 A and bf16 W
-    at M = 4 (`partial`)."""
+    at M = 4 (`partial`). Beside each layer sum, on the same inputs: the
+    plain version's wall time (`sa_matmul_ref`), fp32 `torch.matmul`'s
+    (the library yardstick) and the bound (each operand read once, the
+    output written once, at the byte rate; 2·M·N·K flops at the fp32
+    peak; the larger)."""
     from repro_torch.kernels import sa_matmul as mm
     from repro_torch.kernels.gemm_cases import LAYER_GEMMS
 
     out = {}
     for m in (BATCH, 1024):
-        wall, dev = 0.0, 0.0
+        wall, dev, plain, lib, nbytes, flops = 0.0, 0.0, 0.0, 0.0, 0, 0
         for name, k, n, _, _ in LAYER_GEMMS:
             a = torch.randn((m, k), generator=g, device="cuda")
             w = torch.randn((k, n), generator=g, device="cuda") / k ** .5
             t = timer.wall(lambda: mm.sa_matmul_cuda(a, w), reps=5)
             d = timer.device(lambda: mm.sa_matmul_cuda(a, w), reps=3)
+            plain += timer.wall(lambda: mm.sa_matmul_ref(a, w), reps=5)
+            lib += timer.wall(lambda: torch.matmul(a, w), reps=5)
+            nbytes += 4 * (m * k + k * n + m * n)
+            flops += 2 * m * n * k
             out[f"{name} M={m} ms"] = t
             wall += t
             dev = None if d is None or dev is None else dev + d
             del a, w
         out[f"layer M={m} ms"] = wall
         out[f"layer M={m} device_ms"] = dev
+        out[f"layer M={m} plain_ms"] = plain
+        out[f"layer M={m} library_ms"] = lib
+        out[f"layer M={m} bound_ms"], out[f"layer M={m} bound_by"] = \
+            bound_ms(nbytes, flops, PEAK_FP32)
     a = torch.randn((BATCH, D_MODEL), generator=g, device="cuda")
     w = (torch.randn((D_MODEL, 1024), generator=g, device="cuda")
          / D_MODEL ** .5).to(torch.bfloat16)
@@ -1920,6 +1949,276 @@ def serve_bf16_pool(torch, engine, summary):
 def serve_emulate(torch):
     return _serve_backend(torch, "emulate", EMU_ARGS, EMU_REQUESTS,
                           EMU_MAX_NEW)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: tiers and ring — the bulk quality tier and the ring KV layout
+# ---------------------------------------------------------------------------
+
+def _expected_modes(cfg, summary, sync_every, probe_steps, prefills):
+    """Each kernel's launches by mode that a tiered run of the driver must
+    show, counted from the run's own record: a forward launches 7 GEMMs a
+    layer and the lm_head's (prefill computes the last row's logits
+    only); the engine's warm-up chunk (`sync_every` steps) and every exact
+    chunk run exact, approx chunks approx; the divergence probe prefills
+    once (exact) and decodes `probe_steps` exact and `probe_steps` approx
+    steps on a dense ring (plain attention, as in the JAX engine)."""
+    L = cfg.num_layers
+    gemms = 7 * L + 1
+    exact_steps = sync_every * (1 + summary.get("chunks_exact", 0))
+    approx_steps = sync_every * summary.get("chunks_approx", 0)
+    return {
+        "gemm": {"exact": gemms * (prefills + exact_steps + 1 + probe_steps),
+                 "approx": gemms * (approx_steps + probe_steps)},
+        "paged_decode": {"exact": L * exact_steps, "approx": L * approx_steps},
+        "prefill_attention": {"exact": L * (prefills + 1), "approx": 0}}
+
+
+def _tier_checks(summary, sched, max_new, n_req):
+    problems = []
+    done = sched.finished
+    if len(done) != n_req or any(r.n_generated != max_new for r in done):
+        problems.append(f"requests incomplete: "
+                        f"{[(r.rid, r.n_generated) for r in done]}")
+    if summary.get("pages_leaked") != 0 or summary.get("nonfinite_logits"):
+        problems.append(f"pages_leaked {summary.get('pages_leaked')}, "
+                        f"nonfinite {summary.get('nonfinite_logits')}")
+    tmt = summary.get("tier_mode_tokens", {})
+    if not summary.get("chunks_approx") or not tmt.get("bulk/approx"):
+        problems.append(f"no approx chunk ran: chunks_approx "
+                        f"{summary.get('chunks_approx')}, {tmt}")
+    if "premium/approx" in tmt:
+        problems.append(f"a premium token decoded approx: {tmt}")
+    probe = {k: summary.get(f"divergence_{k}")
+             for k in ("steps", "max_ulp", "kl_mean", "max_abs_diff")}
+    if not (probe["max_ulp"] and probe["max_ulp"] > 0
+            and all(v is not None and math.isfinite(v)
+                    for v in probe.values())):
+        problems.append(f"divergence probe {probe}: want max_ulp > 0 and "
+                        f"every value finite")
+    if not all(k in summary for k in ("energy_energy_uj",
+                                      "energy_energy_saving")):
+        problems.append("no energy_* keys in the summary")
+    return problems
+
+
+def tiers(torch, engine, serve_sched):
+    """The serve phase's stream with `--tier-mix 0.5` (the same prompts:
+    the tier is drawn after each prompt) on the serve phase's weights,
+    through the driver: every request complete, finite logits, no page
+    leaked, approx chunks ran (bulk/approx tokens, no premium/approx),
+    each kernel's launches by mode exactly as the run's chunks and the
+    probe account for (`_expected_modes`: the SA GEMM's and paged
+    decode's approx launches > 0, prefill attention exact only), no plain
+    version, the full-depth divergence probe with max_ulp > 0 and every
+    value finite, and every premium request's tokens equal to the same
+    request's in the serve phase's all-premium stream, bit for bit.
+    Returns the launches by mode."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+
+    allprem = {r.rid: r.tokens for r in serve_sched.finished}
+    ops.reset_counts()
+    t0 = time.monotonic()
+    summary, sched, eng = drv.main(SERVE_ARGS + ["--tier-mix", "0.5"],
+                                   return_state=True, params=engine.params)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    modes, counts = ops.mode_counts(), ops.counts()
+    problems = _tier_checks(summary, sched, MAX_NEW, 8)
+    want = _expected_modes(eng.cfg, summary, eng.sync_every,
+                           summary.get("divergence_steps", 0), 8)
+    got = {"gemm": modes["sa_matmul"], "paged_decode": modes["paged_decode"],
+           "prefill_attention": modes["prefill_attention"]}
+    if got != want:
+        problems.append(f"launches by mode {got}, want {want}")
+    if any(c["plain_calls"] for c in counts.values()):
+        problems.append(f"a plain version ran: {counts}")
+    prem = [r for r in sched.finished if r.tier == "premium"]
+    bulk = [r for r in sched.finished if r.tier == "bulk"]
+    differ = [r.rid for r in prem if r.tokens != allprem[r.rid]]
+    if not prem or not bulk or differ:
+        problems.append(f"premium requests {[r.rid for r in prem]}, bulk "
+                        f"{[r.rid for r in bulk]}; premium tokens differing "
+                        f"from the all-premium stream: {differ}")
+    agree = sum(a == b for r in bulk for a, b in zip(r.tokens,
+                                                      allprem[r.rid]))
+    log(f"[tiers cuda] wall {wall:.2f} s (serve + probe); chunks exact "
+        f"{summary.get('chunks_exact')} approx {summary.get('chunks_approx')}"
+        f"; tier_mode_tokens {summary.get('tier_mode_tokens')}; "
+        f"tier_affine_picks {summary.get('tier_affine_picks')}; launches by "
+        f"mode {modes}")
+    log(f"[tiers cuda] premium rids {[r.rid for r in prem]} bit-identical "
+        f"to the all-premium stream; bulk tokens agreeing with it "
+        f"{agree}/{sum(len(r.tokens) for r in bulk)}; prefill_s "
+        f"{summary['prefill_s']} decode_s {summary['decode_s']} itl_p50 "
+        f"{summary.get('decode_itl_p50_ms')} ms; digest "
+        f"{summary['stream_digest']}")
+    log("[tiers cuda] " + " ".join(f"{k}={v}" for k, v in summary.items()
+                                   if k.startswith(("energy_",
+                                                    "divergence_"))))
+    if problems:
+        raise AssertionError("tiers phase failed: " + "; ".join(problems))
+    return modes
+
+
+def emulate_step_ms(torch, engine, steps=2):
+    """fp_emu's device time a decode step, exact and approx: a `steps`-step
+    chunk of each mode on a fresh pool (its writes land on the trash
+    page), under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.precision import PrecisionPolicy, use_policy
+
+    out = {}
+    with use_policy(PrecisionPolicy(backend="emulate")):
+        for mode in ("exact", "approx"):
+            run = engine._chunk_fn(steps, True, mode)
+            state = (torch.zeros((engine.batch,), dtype=torch.int32,
+                                 device="cuda"), engine.new_pool(),
+                     torch.zeros((engine.batch,), dtype=torch.int32,
+                                 device="cuda"))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(engine.params, *state, None, None)
+                torch.cuda.synchronize()
+            ks = device_kernels(torch, prof)
+            emu = sum(ms for name, (ms, _) in ks.items() if "fp_emu" in name)
+            out[mode] = emu / steps if ks else None
+    return out
+
+
+def tiers_emulate(torch, engine, exact):
+    """The emulate phase's two requests with `--tier-mix 1.0` (both bulk)
+    through the driver on the emulate phase's weights: every decode chunk
+    approx, fp_emu's launches by mode exactly as the run's chunks and the
+    probe account for (its exact launches the prefills', the warm-up
+    chunk's and the probe's exact pass; approx > 0), the SA GEMM never
+    launched, no plain version. Prints prefill_s, ITL and fp_emu's device
+    time a decode step beside the exact emulate serve's (`exact`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+
+    ops.reset_counts()
+    summary, sched, eng = drv.main(EMU_ARGS + ["--tier-mix", "1.0"],
+                                   return_state=True, params=engine.params)
+    torch.cuda.synchronize()
+    modes, counts = ops.mode_counts(), ops.counts()
+    problems = _tier_checks(summary, sched, EMU_MAX_NEW, EMU_REQUESTS)
+    if summary.get("chunks_exact") != 0:
+        problems.append(f"chunks_exact {summary.get('chunks_exact')}: every "
+                        f"chunk of an all-bulk stream must run approx")
+    want = _expected_modes(eng.cfg, summary, eng.sync_every,
+                           summary.get("divergence_steps", 0), EMU_REQUESTS)
+    if modes["fp_emu"] != want["gemm"] or modes["fp_emu"]["approx"] <= 0:
+        problems.append(f"fp_emu launches by mode {modes['fp_emu']}, want "
+                        f"{want['gemm']}")
+    if counts["sa_matmul"]["launches"] != 0:
+        problems.append("the SA GEMM launched under the emulate backend")
+    if any(c["plain_calls"] for c in counts.values()):
+        problems.append(f"a plain version ran: {counts}")
+    step = emulate_step_ms(torch, eng)
+    log(f"[tiers emulate] chunks approx {summary.get('chunks_approx')} exact "
+        f"{summary.get('chunks_exact')}; launches by mode {modes}; prefill_s "
+        f"{summary['prefill_s']} (exact serve {exact['prefill_s']}); itl_p50 "
+        f"{summary.get('decode_itl_p50_ms')} ms (exact serve "
+        f"{exact['itl']} ms); fp_emu device ms a decode step (B="
+        f"{eng.batch}, one call): exact {step['exact']} approx "
+        f"{step['approx']}; divergence max_ulp "
+        f"{summary.get('divergence_max_ulp')} kl_mean "
+        f"{summary.get('divergence_kl_mean')} max_abs_diff "
+        f"{summary.get('divergence_max_abs_diff')}")
+    if problems:
+        raise AssertionError("tiers emulate phase failed: "
+                             + "; ".join(problems))
+    return modes, step
+
+
+def ring(torch, engine, serve_summary, serve_sched):
+    """The ring KV layout at full width on the serve phase's weights:
+    the serve stream with `--kv ring` and the paged serve, both under
+    REPRO_DECODE_ATTN=gather (the same dense rows in the same order), must
+    give one digest (the ring's insert, refill and clear); the ring's
+    digest beside the fused paged serve's (printed, the tokens that agree
+    counted: the decode kernel is held to an ulp bound, not to bits);
+    then `generate()` on 4 equal-length prompts (one batched prefill,
+    B = 4, through the prefill kernel) must equal the ring serve of the
+    same 4 requests."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    problems = []
+    out = {}
+    os.environ["REPRO_DECODE_ATTN"] = "gather"
+    try:
+        for layout in ("ring", "paged"):
+            ops.reset_counts()
+            summary, sched, _ = drv.main(SERVE_ARGS + ["--kv", layout],
+                                         return_state=True,
+                                         params=engine.params)
+            torch.cuda.synchronize()
+            counts = ops.counts()
+            out[layout] = (summary, {r.rid: r.tokens for r in sched.finished})
+            if (len(sched.finished) != 8 or summary["nonfinite_logits"]
+                    or any(r.n_generated != MAX_NEW for r in sched.finished)):
+                problems.append(f"{layout} gather serve incomplete or "
+                                f"non-finite")
+            if any(c["plain_calls"] for c in counts.values()):
+                problems.append(f"a plain version ran ({layout}): {counts}")
+            if counts["paged_decode"]["launches"]:
+                problems.append(f"paged decode launched under gather "
+                                f"({layout})")
+    finally:
+        del os.environ["REPRO_DECODE_ATTN"]
+    d_ring = out["ring"][0]["stream_digest"]
+    d_paged = out["paged"][0]["stream_digest"]
+    if d_ring != d_paged:
+        problems.append(f"ring digest {d_ring} != paged gather {d_paged}")
+    fused = {r.rid: r.tokens for r in serve_sched.finished}
+    agree = sum(a == b for rid, toks in out["ring"][1].items()
+                for a, b in zip(toks, fused[rid]))
+    log(f"[ring] digest ring (gather) {d_ring}, paged (gather) {d_paged}, "
+        f"paged (fused kernel, serve phase) {serve_summary['stream_digest']}"
+        f"; ring tokens equal to the fused serve's {agree}/{8 * MAX_NEW}; "
+        f"ring prefill_s {out['ring'][0]['prefill_s']} decode_s "
+        f"{out['ring'][0]['decode_s']} itl_p50 "
+        f"{out['ring'][0].get('decode_itl_p50_ms')} ms")
+
+    eng = ServeEngine(engine.cfg, engine.params, BATCH, CACHE_LEN,
+                      eos_id=-1, kv_layout="ring", device="cuda")
+    g = torch.Generator().manual_seed(4)
+    prompts = torch.randint(0, eng.cfg.vocab_size, (BATCH, 64), generator=g)
+    ops.reset_counts()
+    t0 = time.monotonic()
+    got = eng.generate(prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts, stats = ops.counts(), dict(eng.last_stats)
+    if counts["prefill_attention"]["launches"] != eng.cfg.num_layers:
+        problems.append(f"generate's batched prefill launched the prefill "
+                        f"kernel {counts['prefill_attention']['launches']} "
+                        f"times, want one a layer")
+    if any(c["plain_calls"] for c in counts.values()):
+        problems.append(f"a plain version ran in generate: {counts}")
+    if stats["nonfinite_logits"] or tuple(got.shape) != (BATCH, MAX_NEW):
+        problems.append(f"generate: shape {tuple(got.shape)}, nonfinite "
+                        f"{stats['nonfinite_logits']}")
+    sched = SlotScheduler(BATCH, eos_id=-1)
+    for p in prompts.tolist():
+        sched.submit(p, max_new_tokens=MAX_NEW)
+    eng.serve(sched)
+    served = {r.rid: r.tokens for r in sched.finished}
+    differ = [rid for rid in range(BATCH) if got[rid].tolist() != served[rid]]
+    if differ:
+        problems.append(f"generate differs from the ring serve in rows "
+                        f"{differ}")
+    log(f"[ring] generate B={BATCH} T=64 x {MAX_NEW} tokens: wall {wall:.2f}"
+        f" s, prefill_s {stats['prefill_s']:.4f} decode_s "
+        f"{stats['decode_s']:.4f}; rows equal to the ring serve "
+        f"{BATCH - len(differ)}/{BATCH}")
+    if problems:
+        raise AssertionError("ring phase failed: " + "; ".join(problems))
 
 
 DECODE_TILE = "TcTile<16, "    # the decode tile's kernels, by name
@@ -2397,6 +2696,12 @@ def main(argv=None):
         t = time.monotonic()
         profile_serve(torch, engine)
         phases["profile"] = time.monotonic() - t
+        t = time.monotonic()
+        tier_modes = tiers(torch, engine, sched)
+        phases["tiers"] = time.monotonic() - t
+        t = time.monotonic()
+        ring(torch, engine, summary, sched)
+        phases["ring"] = time.monotonic() - t
         # the engine holds itself through its step closures: collect it
         del engine, sched
         gc.collect()
@@ -2420,6 +2725,12 @@ def main(argv=None):
         prompt = min(sched.finished, key=lambda r: r.rid).prompt
         backend_logits(torch, engine, prompt, ("emulate", "cuda"))
         phases["emulate_backends"] = time.monotonic() - t
+        t = time.monotonic()
+        emu_modes, emu_step = tiers_emulate(
+            torch, engine, {"prefill_s": summary["prefill_s"],
+                            "itl": summary.get("decode_itl_p50_ms")})
+        kernels[5]["readings"]["emulate_bulk_step_ms"] = emu_step
+        phases["tiers_emulate"] = time.monotonic() - t
         del engine, sched
         os.environ["REPRO_GEMM_BACKEND"] = "cuda"
         gc.collect()
@@ -2438,7 +2749,18 @@ def main(argv=None):
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    if not args.skip_serve:
+        # the tiered runs' launches by mode (the tiers phase's for the
+        # `cuda` path's kernels, the emulate bulk run's for fp_emu)
+        for k in kernels:
+            name = {"paged_decode_attention": "paged_decode"}.get(
+                k["name"], k["name"])
+            if name == "fp_emu":
+                k["mode_launches"] = emu_modes["fp_emu"]
+            elif name in tier_modes:
+                k["mode_launches"] = tier_modes[name]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "mode_launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "err_over_bound", "timed", "readings")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}

@@ -40,6 +40,7 @@ LAUNCHES = 0       # kernel launches through `fma_emu_matmul_cuda`
 PLAIN_CALLS = 0    # calls of the plain version `fma_emu_matmul_ref`
 
 MODES = ("exact", "approx")
+MODE_LAUNCHES = {m: 0 for m in MODES}   # the launches by mode
 _Q = ACC_MSB + 1
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -289,6 +290,7 @@ def fma_emu_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
     global LAUNCHES
     out = _launch(a, w, fmt_name, mode)
     LAUNCHES += 1
+    MODE_LAUNCHES[mode] += 1
     return out
 
 

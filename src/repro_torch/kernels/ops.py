@@ -8,7 +8,10 @@ Each kernel module keeps two plain integers: `LAUNCHES` (kernel launches)
 and `PLAIN_CALLS` (calls of its plain version). `counts()` reads them and
 `reset_counts()` sets them to 0, so a run can show which path it took;
 `route_counts()` splits the SA GEMM's launches (forward and backward) and
-the prefill kernel's by route.
+the prefill kernel's by route, and `mode_counts()` splits the launches of
+the kernels that run the bulk tier's arithmetic by the policy's mode
+(`exact` or `approx`), so a run can show that an approximate decode chunk
+really ran the approximate datapath.
 """
 from __future__ import annotations
 
@@ -103,13 +106,24 @@ def route_counts() -> dict[str, dict[str, int]]:
             "prefill_attention": dict(_attn.ROUTE_LAUNCHES)}
 
 
+_MODE_MODULES = {"sa_matmul": _mm, "paged_decode": _decode,
+                 "prefill_attention": _attn, "fp_emu": _emu}
+
+
+def mode_counts() -> dict[str, dict[str, int]]:
+    """Launches by mode: the SA GEMM's forward, paged decode, prefill
+    attention (exact only: serving prefill is exact) and fp_emu."""
+    return {name: dict(m.MODE_LAUNCHES) for name, m in _MODE_MODULES.items()}
+
+
 def reset_counts():
     for m in _MODULES.values():
         m.LAUNCHES = 0
         m.PLAIN_CALLS = 0
-    for routes in (_attn.ROUTE_LAUNCHES, _mm.ROUTE_LAUNCHES):
-        for route in routes:
-            routes[route] = 0
+    for counters in ([_attn.ROUTE_LAUNCHES, _mm.ROUTE_LAUNCHES]
+                     + [m.MODE_LAUNCHES for m in _MODE_MODULES.values()]):
+        for key in counters:
+            counters[key] = 0
     _mm.BWD_LAUNCHES = 0
     _mm.BWD_PLAIN_CALLS = 0
 
@@ -117,4 +131,4 @@ def reset_counts():
 __all__ = ["sa_matmul", "sa_matmul_fp8", "skewed_datapath_matmul",
            "paged_decode_attention", "sa_attention", "quantize_fp8",
            "amax_scale", "fused_decode_supported", "counts", "route_counts",
-           "reset_counts"]
+           "mode_counts", "reset_counts"]

@@ -52,6 +52,8 @@ import torch
 LAUNCHES = 0       # kernel launches through `sa_attention_cuda`
 PLAIN_CALLS = 0    # calls of the plain version `flash_attention_ref`
 ROUTE_LAUNCHES = {"mma": 0, "simt": 0}   # the launches by route
+# the launches by policy mode: `approx` stays 0 (the kernel raises on it)
+MODE_LAUNCHES = {"exact": 0, "approx": 0}
 
 _INPUT_FORMATS = ("fp32", "bf16", "fp16")
 _KV_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -258,6 +260,7 @@ def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
     check(err, f"sa_attention ({route})")
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
+    MODE_LAUNCHES[policy.mode] += 1
     return out
 
 

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 LAUNCHES = 0       # kernel launches through `paged_decode_cuda`
+MODE_LAUNCHES = {"exact": 0, "approx": 0}   # the launches by policy mode
 PLAIN_CALLS = 0    # calls of the plain version `paged_decode_ref`
 
 _SUPPORTED_INPUT_FORMATS = ("fp32", "bf16", "fp16")
@@ -198,6 +199,7 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
              torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "paged_decode")
     LAUNCHES += 1
+    MODE_LAUNCHES[policy.mode] += 1
     return out
 
 

@@ -82,6 +82,7 @@ MODES = ("exact", "approx")
 APPROX_DROP_BITS = 3
 
 LAUNCHES = 0          # forward kernel launches (`sa_matmul_cuda`)
+MODE_LAUNCHES = {m: 0 for m in MODES}   # the forward launches by mode
 PLAIN_CALLS = 0       # calls of the plain version `sa_matmul_ref`
 BWD_LAUNCHES = 0      # backward GEMM launches (dA and dW: two a backward)
 BWD_PLAIN_CALLS = 0   # backward GEMMs through the plain version
@@ -458,6 +459,7 @@ def sa_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
     global LAUNCHES
     out, raw = _launch(a, w, bias, scale, act, mode, save_raw)
     LAUNCHES += 1
+    MODE_LAUNCHES[mode] += 1
     return (out, raw) if save_raw else out
 
 

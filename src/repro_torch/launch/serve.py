@@ -10,9 +10,16 @@ plain version, `cuda`, the hand-written SA GEMM kernel, or `emulate`, the
 paper's bit-exact skewed datapath through the fp_emu kernel). The summary
 line `[continuous] k=v ...` and its `stream_digest` are the JAX driver's.
 
-Flags of features not ported yet (--tier-mix, --spec-k, --disagg,
---decode-replicas, --bucket-prompts, --kv ring) raise
-`ValueError("... not ported yet")`.
+`--kv ring` serves on per-slot dense rings instead of the paged pool.
+`--tier-mix p` marks each request `bulk` with probability p (drawn after
+its prompt, so the prompts do not depend on p): a decode chunk whose
+slots are all bulk runs the approximate datapath. With a mix the driver
+also runs the engine's divergence probe on one prompt (the `[divergence]`
+line) and adds the per-tier energy model's `energy_*` and the probe's
+`divergence_*` keys to the summary, as the JAX driver does.
+
+Flags of features not ported yet (--spec-k, --disagg, --decode-replicas,
+--bucket-prompts) raise `ValueError("... not ported yet")`.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import numpy as np
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.device import resolve_device
+from repro_torch.core.energy import tier_energy_summary
 from repro_torch.models import model as M
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import SlotScheduler
@@ -105,6 +113,18 @@ def serve_continuous(args, cfg, params, plens, device):
               f"gen {r.n_generated:4d} ({r.finish_reason or 'n/a':8s}) "
               f"ttft {ttft:.3f}s "
               f"decode {r.decode_tok_s or float('nan'):.1f} tok/s")
+    if args.tier_mix > 0:
+        energy = tier_energy_summary(sched.tier_mode_tokens,
+                                     engine.macs_per_token())
+        summary |= {f"energy_{k}": v for k, v in energy.items()}
+        rng = np.random.default_rng(args.seed + 7)
+        probe = engine.divergence_probe(
+            rng.integers(0, cfg.vocab_size, plens[0]),
+            steps=min(16, args.max_new))
+        print(f"[divergence] steps={probe['steps']} "
+              f"max_ulp={probe['max_ulp']} kl_mean={probe['kl_mean']:.3e} "
+              f"max_abs_diff={probe['max_abs_diff']:.3e}")
+        summary |= {f"divergence_{k}": v for k, v in probe.items()}
     return summary, sched, engine
 
 
@@ -124,8 +144,9 @@ def parse_args(argv=None):
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--cache-len", type=int, default=None)
     ap.add_argument("--kv", default=None, choices=(None, "ring", "paged"),
-                    help="KV layout (default: $REPRO_KV or 'paged'); "
-                         "'ring' is not ported yet")
+                    help="KV layout (default: $REPRO_KV or 'paged'): "
+                         "'paged' pools pages across slots; 'ring' gives "
+                         "each slot a dense ring of --cache-len rows")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page")
     ap.add_argument("--pool-pages", type=int, default=None,
@@ -142,8 +163,9 @@ def parse_args(argv=None):
     ap.add_argument("--prefix-len", type=int, default=32,
                     help="shared system-prompt length for --prefix-mix")
     ap.add_argument("--tier-mix", type=float, default=0.0,
-                    help="fraction of 'bulk' tier requests (not ported yet: "
-                         "must be 0)")
+                    help="fraction of requests submitted as the 'bulk' "
+                         "quality tier (approximate decode when a whole "
+                         "chunk is bulk); 0 = all premium")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative draft length (not ported yet: must "
                          "be 0)")
@@ -163,12 +185,12 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None, *, return_state: bool = False):
+def main(argv=None, *, return_state: bool = False, params=None):
     """Serve the synthetic stream and print the summary line. Returns the
-    summary, or (summary, scheduler, engine) with `return_state`."""
+    summary, or (summary, scheduler, engine) with `return_state`.
+    `params` serves given weights (on the run's device) instead of
+    drawing them from `--seed`."""
     args = parse_args(argv)
-    if args.tier_mix > 0:
-        raise ValueError("--tier-mix (the bulk tier) is not ported yet")
     if args.decode_replicas > 1:
         raise ValueError("--decode-replicas is not ported yet")
     device = resolve_device(args.device)
@@ -176,7 +198,8 @@ def main(argv=None, *, return_state: bool = False):
                           layers_per_period=args.layers_per_period,
                           width=args.width)
            if args.reduced else get_config(args.arch))
-    params = M.init_params(cfg, seed=args.seed, device=device)
+    if params is None:
+        params = M.init_params(cfg, seed=args.seed, device=device)
     plens = [int(x) for x in args.prompt_lens.split(",")]
     extra = args.prefix_len if args.prefix_mix > 0 else 0
     args.cache_len = args.cache_len or (max(plens) + extra + args.max_new)

@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine, unified paged path.
+"""Continuous-batching serving engine.
 
 * **Slot table**: batch row == slot. The host-side `SlotScheduler`
   admits queued requests into free slots and retires finished ones
@@ -8,19 +8,30 @@
   (M = batch rows per GEMM).
 * **One host sync per chunk**: `sync_every` decode steps run back to back
   on the device; their tokens are fetched once per chunk.
-* **Paged KV**: a global page pool with per-slot block tables; the
-  scheduler's `PageAllocator` hands pages out at admission. Each
-  admission prefills a dense batch-1 fragment and `_insert_impl` scatters
-  it into the pool and binds the slot's block-table row.
+* **Paged KV** (default, `REPRO_KV=paged`): a global page pool with
+  per-slot block tables; the scheduler's `PageAllocator` hands pages out
+  at admission. Each admission prefills a dense batch-1 fragment and
+  `_insert_impl` scatters it into the pool and binds the slot's
+  block-table row.
+* **Ring KV** (`REPRO_KV=ring` / `kv_layout="ring"`): a dense per-slot
+  ring of `cache_len` rows (`new_cache()`); an admission's fragment is a
+  whole ring row, copied into its slot. No allocator, no prefix cache; a
+  request whose prompt plus budget exceeds `cache_len` is rejected (it
+  would wrap a global-attention ring). `generate()` (static batches)
+  always runs on rings.
+* **Quality tiers** (DESIGN.md §6): a decode chunk runs the approximate
+  datapath (`mode="approx"`) only when every active slot is a `bulk`
+  request; prefill is always exact. `divergence_probe` measures the
+  approximate tier's logits against the exact ones on one prompt.
 
 Where the JAX engine donates the cache buffer to a jitted update, this
-engine updates the pool tensors in place (`_scatter_impl`, `_bind_impl`,
-`_clear_slot_impl`, the decode step's KV write) and says so at each site.
+engine updates the cache tensors in place (`_scatter_impl`, `_bind_impl`,
+`_insert_impl`, `_clear_slot_impl`, the decode step's KV write) and says
+so at each site.
 
 Not ported yet, and refused with `ValueError("... not ported yet")`:
-disaggregated serving, speculative decoding, prompt-length bucketing, the
-bulk tier's approximate chunks, the ring KV layout, local-window caches
-and static-batch `generate`.
+disaggregated serving, speculative decoding, prompt-length bucketing and
+local-window caches.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from repro_torch.core.precision import current_policy, use_policy
 from repro_torch.kernels.ops import fused_decode_supported
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import PagedKVCache
 from repro_torch.train.step import make_prefill_step, make_serve_step
 from .scheduler import PageAllocator, SlotScheduler
 
@@ -63,10 +75,11 @@ class ServeEngine:
                  max_seq_len: int | None = None, spec_k: int | None = None,
                  disagg: bool | None = None,
                  bucket_prompts: bool | None = None, device=None):
-        """`cache_len` sizes the pool: by default it holds `batch ·
-        cache_len` tokens plus the trash page, while `max_seq_len`
-        (default `cache_len`, rounded up to a page) caps one request.
-        `device` defaults to the device the parameters live on."""
+        """`cache_len` is the per-request capacity of the ring layout and
+        sizes the paged one's pool: by default it holds `batch · cache_len`
+        tokens plus the trash page, while `max_seq_len` (default
+        `cache_len`, rounded up to a page) caps one request. `device`
+        defaults to the device the parameters live on."""
         M.check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -81,8 +94,6 @@ class ServeEngine:
         if kv_layout not in ("ring", "paged"):
             raise ValueError(
                 f"REPRO_KV/kv_layout={kv_layout!r}; want 'ring' or 'paged'")
-        if kv_layout == "ring":
-            raise _not_ported("ring KV layout serving")
         if disagg or (disagg is None and _env_on("REPRO_DISAGG")):
             raise _not_ported("disaggregated serving")
         if bucket_prompts or (bucket_prompts is None
@@ -191,11 +202,19 @@ class ServeEngine:
         return cache
 
     @staticmethod
-    def _insert_impl(cache, frag, slot: int, block_row, keep: int = 0):
-        """Splice a batch-1 fragment into slot `slot`: page scatter, then
-        the block-table bind (both in place)."""
-        cache = ServeEngine._scatter_impl(cache, frag, block_row, keep)
-        return ServeEngine._bind_impl(cache, block_row, slot)
+    def _insert_impl(cache, frag, slot: int, block_row=None, keep: int = 0):
+        """Splice a batch-1 fragment into slot `slot`, in place. Paged
+        (`block_row` given): page scatter, then the block-table bind.
+        Ring: the fragment is a whole ring row (`new_cache(batch=1)`),
+        copied over the slot's row, positions included, so nothing of
+        the slot's previous request stays visible."""
+        if block_row is not None:
+            cache = ServeEngine._scatter_impl(cache, frag, block_row, keep)
+            return ServeEngine._bind_impl(cache, block_row, slot)
+        for full_c, one_c in zip(cache, frag):
+            for full, one in zip(full_c["kv"], one_c["kv"]):
+                full[:, slot] = one[:, 0].to(full.dtype)         # in place
+        return cache
 
     @staticmethod
     def _load_prefix_impl(frag, cache, src_row, prefix_len: int):
@@ -220,10 +239,15 @@ class ServeEngine:
 
     @staticmethod
     def _clear_slot_impl(cache, slot: int):
-        """Unmap a freed slot's block-table rows (in place) so its decode
-        writes fall to the trash page before its pages are reused."""
+        """Free a slot's cache row, in place. Paged: unmap its block-table
+        rows so its decode writes fall to the trash page before its pages
+        are reused. Ring: set its positions to -1 (every row masked)."""
         for c in cache:
-            c["kv"].block_table[:, slot] = -1                   # in place
+            kv = c["kv"]
+            if isinstance(kv, PagedKVCache):
+                kv.block_table[:, slot] = -1                    # in place
+            else:
+                kv.positions[:, slot] = -1                      # in place
         return cache
 
     def _prefill_for(self, prefix_len: int):
@@ -246,10 +270,13 @@ class ServeEngine:
         """Build the dense fragment (prefix-cache load included), prefill
         the uncached suffix and pick the first token. Returns (frag,
         first, row, keep): `row` is the -1-padded (max_pages,) page run,
-        `keep` the shared leading page count."""
-        shared = req.shared_tokens
+        `keep` the shared leading page count (both None on the ring
+        layout, whose fragment is a whole ring row)."""
+        paged = self.kv_layout == "paged"
+        shared = req.shared_tokens if paged else 0
         suffix = req.prompt_len - shared
-        frag = self.new_frag(shared + suffix)
+        frag = (self.new_frag(shared + suffix) if paged
+                else self.new_cache(batch=1))
         if shared:
             src = list(req.pages[:shared // self.page_size])
             if req.cow_src is not None:
@@ -264,15 +291,21 @@ class ServeEngine:
         logits, frag = self._prefill_for(shared)(self.params, tokens, frag)
         self._note_logits(logits)
         first = int(self._pick(logits[:, -1], greedy, gen)[0])
+        if not paged:
+            return frag, first, None, None
         r = np.full((self.max_pages,), -1, np.int32)
         r[:len(req.pages)] = req.pages
         row = torch.from_numpy(r).to(self.device)
         return frag, first, row, shared // self.page_size
 
     def _must_reject(self, req) -> bool:
-        """The allocator marked the request unallocatable (more pages than
-        the pool or the per-request block table holds)."""
-        return req.pages is None
+        """A just-admitted request the engine cannot serve. Paged: the
+        allocator marked it unallocatable (more pages than the pool or the
+        per-request block table holds). Ring: prompt plus budget would
+        wrap the global-attention ring."""
+        if self.kv_layout == "paged":
+            return req.pages is None
+        return req.prompt_len + req.max_new_tokens > self.cache_len
 
     def _note_logits(self, logits):
         # device-side count of non-finite logits over the real vocabulary
@@ -307,6 +340,137 @@ class ServeEngine:
         return self._chunks[key]
 
     # ------------------------------------------------------------------
+    # quality-tier instrumentation
+    # ------------------------------------------------------------------
+
+    def macs_per_token(self) -> int:
+        """Model MACs per generated token ≈ the parameter count (every
+        dense weight element is one MAC a token at decode); feeds the
+        per-tier energy model (core/energy.py). The parameter tree keeps
+        the JAX package's leaves and shapes (padded vocabulary included),
+        so this is the JAX engine's count."""
+        return int(sum(t.numel() for t in M.tree_leaves(self.params)))
+
+    def _probe_logits(self, prompt, steps: int):
+        """The divergence probe's logits, each (steps, vocab_size) fp32
+        numpy over the real vocabulary: the exact pass (greedy from the
+        prefill's token) and the approximate pass teacher-forced on the
+        exact pass's tokens. Both decode from the same post-prefill cache:
+        the decode step writes the cache in place, so the approximate
+        pass starts from a copy taken before the exact pass runs."""
+        prompt = [int(t) for t in prompt]
+        T = len(prompt)
+        if T + steps > self.cache_len:
+            raise ValueError(f"probe needs {T + steps} cache slots; "
+                             f"engine has {self.cache_len}")
+        V = self.cfg.vocab_size
+        cache0 = self.new_cache(batch=1)
+        tokens = torch.tensor(prompt, dtype=torch.int32,
+                              device=self.device)[None]
+        with use_policy(dataclasses.replace(current_policy(), mode="exact")):
+            logits, cache0 = self._prefill_for(0)(self.params, tokens, cache0)
+        first = int(torch.argmax(logits[0, -1, :V]))
+        cache_a = M.tree_map(torch.clone, cache0)
+
+        def run_mode(mode, cache, teacher):
+            pol = dataclasses.replace(current_policy(), mode=mode)
+            rows, tok = [], first
+            with use_policy(pol):
+                for i in range(steps):
+                    if teacher is not None:
+                        tok = teacher[i]
+                    logits, cache = self._serve_step(
+                        self.params,
+                        torch.tensor([[tok]], dtype=torch.int32,
+                                     device=self.device),
+                        cache, torch.tensor([T + i], dtype=torch.int32,
+                                            device=self.device))
+                    row = logits[0, -1, :V].to(torch.float32).cpu().numpy()
+                    rows.append(row)
+                    tok = int(row.argmax())
+            return np.stack(rows)
+
+        le = run_mode("exact", cache0, None)
+        teacher = [first] + [int(r.argmax()) for r in le[:-1]]
+        la = run_mode("approx", cache_a, teacher)
+        return le, la
+
+    def divergence_probe(self, prompt, steps: int = 16) -> dict:
+        """The bulk tier's divergence from the exact datapath on this
+        engine's weights: prefill `prompt` once, exact, on a batch-1
+        dense cache; decode `steps` tokens exact, then teacher-force the
+        same tokens through the approximate datapath from the same cache
+        state, and compare each step's next-token logits.
+
+        Returns {"steps", "max_ulp", "kl_mean", "max_abs_diff"}: max_ulp is
+        the largest per-logit distance in units in the last place (the
+        ordered int32 mapping), kl_mean the mean per-step KL(exact ‖
+        approx) of the next-token distributions. The logits are compared
+        over the real vocabulary: the padding logits are -inf in both
+        passes (the JAX probe, which keeps them, reports NaN for
+        kl_mean and max_abs_diff where the vocabulary is padded)."""
+        le, la = self._probe_logits(prompt, steps)
+
+        def ordered(x):
+            b = x.view(np.int32).astype(np.int64)
+            return np.where(b < 0, -(b & 0x7FFFFFFF), b)
+
+        max_ulp = int(np.max(np.abs(ordered(le) - ordered(la))))
+        pe = torch.log_softmax(torch.from_numpy(le), dim=-1)
+        pa = torch.log_softmax(torch.from_numpy(la), dim=-1)
+        kl = torch.sum(torch.exp(pe) * (pe - pa), dim=-1)
+        return {"steps": int(steps), "max_ulp": max_ulp,
+                "kl_mean": float(torch.mean(kl)),
+                "max_abs_diff": float(np.max(np.abs(le - la)))}
+
+    # ------------------------------------------------------------------
+    # static-batch generation
+    # ------------------------------------------------------------------
+
+    def generate(self, prompts, max_new_tokens: int, frontend=None,
+                 greedy: bool = True, rng: torch.Generator | None = None):
+        """prompts (B, T) int → (B, ≤ max_new_tokens) int32 tensor on the
+        CPU.
+
+        Static batch on a ring cache: one batched prefill, then lock-step
+        decode in chunks of `sync_every` steps; EOS is checked once per
+        fetched chunk, so a batch that finishes early stops at chunk
+        granularity. `last_stats` records the prefill/decode wall split
+        and the non-finite logits over the real vocabulary."""
+        prompts = torch.as_tensor(prompts, dtype=torch.int32,
+                                  device=self.device)
+        B, T = prompts.shape
+        assert B == self.batch, (B, self.batch)
+        gen = rng
+        if gen is None and not greedy:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+        self._nonfinite = torch.zeros((), dtype=torch.int64,
+                                      device=self.device)
+        t0 = time.monotonic()
+        cache = self.new_cache()
+        logits, cache = self._prefill_for(0)(self.params, prompts, cache,
+                                             frontend)
+        self._note_logits(logits)
+        tok = self._pick(logits[:, -1], greedy, gen)
+        first = tok.cpu().numpy()       # sync: the prefill boundary (TTFT)
+        t_prefill = time.monotonic() - t0
+        pos = torch.full((B,), T, dtype=torch.int32, device=self.device)
+        cols = [first]
+        done = first == self.eos_id
+        while len(cols) < max_new_tokens and not done.all():
+            steps = min(self.sync_every, max_new_tokens - len(cols))
+            tok, cache, pos, gen, toks = self._chunk_fn(steps, greedy)(
+                self.params, tok, cache, pos, frontend, gen)
+            t_np = toks.cpu().numpy()   # one sync per chunk
+            cols.extend(t_np)
+            done |= (t_np == self.eos_id).any(axis=0)
+        self.last_stats = {"prefill_s": t_prefill,
+                           "decode_s": time.monotonic() - t0 - t_prefill,
+                           "decode_tokens": (len(cols) - 1) * B,
+                           "nonfinite_logits": int(self._nonfinite)}
+        return torch.from_numpy(np.stack(cols, axis=1).astype(np.int32))
+
+    # ------------------------------------------------------------------
     # continuous batching
     # ------------------------------------------------------------------
 
@@ -317,13 +481,13 @@ class ServeEngine:
         Per-request results live on `scheduler.finished`; returns
         `scheduler.summary()` merged with the engine's wall-time split and
         `nonfinite_logits` (logits over the real vocabulary that were not
-        finite, prefill and decode)."""
+        finite, prefill and decode); `chunks_exact` and `chunks_approx`
+        where an approximate chunk ran."""
         assert scheduler.n_slots == self.batch, (
             scheduler.n_slots, self.batch)
-        if any(r.tier != "premium" for r in scheduler.pending):
-            raise _not_ported("the bulk tier (approximate decode chunks)")
         B = self.batch
-        if scheduler.pages is None:
+        paged = self.kv_layout == "paged"
+        if paged and scheduler.pages is None:
             scheduler.pages = self.new_allocator()
         gen = rng
         if gen is None and not greedy:
@@ -340,14 +504,16 @@ class ServeEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-        cache = self.new_pool()
+        cache = self.new_pool() if paged else self.new_cache()
         tok = torch.zeros((B,), dtype=torch.int32, device=self.device)
         pos = torch.zeros((B,), dtype=torch.int32, device=self.device)
         prefill_s = decode_s = handoff_s = decode_stall_s = 0.0
+        chunk_modes = {"exact": 0, "approx": 0}
 
         # warm-up chunk before the timed loop (kernel libraries load on
-        # first use). Safe on the fresh pool: no block table is mapped,
-        # so its writes land on the trash page; tok/pos are discarded.
+        # first use). Safe on the fresh cache: no block table is mapped,
+        # so paged writes land on the trash page, and an admission
+        # overwrites a ring row whole; tok/pos are discarded.
         t_c = clock()
         cache = self._chunk_fn(self.sync_every, greedy)(
             self.params, tok, cache, pos, None, gen)[1]
@@ -355,7 +521,8 @@ class ServeEngine:
         compile_s = clock() - t_c
 
         def clear_freed():
-            # unmap freed slots before their pages can be reallocated
+            # unmap freed slots before their pages can be reallocated (a
+            # ring row is masked whole until its next admission)
             nonlocal cache
             for freed in scheduler.drain_freed():
                 cache = self._clear_slot_impl(cache, freed)
@@ -374,11 +541,13 @@ class ServeEngine:
                     scheduler, req, cache, greedy, gen)
                 t_h = now()
                 cache = self._insert_impl(cache, frag, slot, row, keep)
-                # register the prompt's pages BEFORE the scheduler sees the
-                # first token: a first-token EOS retires the request at
-                # once, and registered pages must park as cached
-                scheduler.pages.prefix_register(req.prompt, req.pages,
-                                                req.tier)
+                if paged:
+                    # register the prompt's pages BEFORE the scheduler sees
+                    # the first token: a first-token EOS retires the
+                    # request at once, and registered pages must park as
+                    # cached
+                    scheduler.pages.prefix_register(req.prompt, req.pages,
+                                                    req.tier)
                 handoff_s += now() - t_h
                 tok[slot] = first
                 pos[slot] = req.prompt_len
@@ -401,15 +570,27 @@ class ServeEngine:
                         skew += wait
                 continue
 
+            # the chunk's datapath: approximate only when EVERY active slot
+            # is a bulk request (the tier is a quality floor: bulk slots
+            # that share a chunk with premium ones get exact arithmetic);
+            # tier-affine admission phase-separates mixed streams so
+            # all-bulk chunks occur
+            active_tiers = {s.req.tier for s in scheduler.slots
+                            if s.req is not None}
+            mode = "approx" if active_tiers == {"bulk"} else "exact"
+            chunk_modes[mode] += 1
             t_d = now()
             tok, cache, pos, gen, toks = self._chunk_fn(
-                self.sync_every, greedy)(self.params, tok, cache, pos, None,
-                                         gen)
+                self.sync_every, greedy, mode)(self.params, tok, cache, pos,
+                                               None, gen)
             toks_np = toks.cpu().numpy()   # the chunk's single host sync
             decode_s += now() - t_d
-            scheduler.observe(toks_np, now(), mode="exact")
+            scheduler.observe(toks_np, now(), mode=mode)
 
         summary = scheduler.summary()
+        if chunk_modes["approx"]:
+            summary |= {"chunks_exact": chunk_modes["exact"],
+                        "chunks_approx": chunk_modes["approx"]}
         summary |= {"prefill_s": round(prefill_s, 4),
                     "decode_s": round(decode_s, 4),
                     "compile_s": round(compile_s, 4),
@@ -420,10 +601,15 @@ class ServeEngine:
                     "decode_stall_s": round(decode_stall_s, 4),
                     "prefill_compiles": len(self._prefill_shapes),
                     "disagg": False}
-        impl = optflags.decode_attn_impl()
-        if impl == "fused" and not fused_decode_supported(current_policy()):
-            impl = "gather"
-        summary["decode_attn"] = impl
+        if paged:
+            # the paged decode-attention path the chunks ran (the ring
+            # layout attends over its dense rows, plain torch as in the
+            # JAX engine)
+            impl = optflags.decode_attn_impl()
+            if impl == "fused" and not fused_decode_supported(
+                    current_policy()):
+                impl = "gather"
+            summary["decode_attn"] = impl
         summary["nonfinite_logits"] = int(self._nonfinite)
         served = summary["requests"] - summary["rejected"]
         if decode_s > 0 and served:

@@ -256,25 +256,35 @@ def test_sa_dot_cuda_backend_folds_batched_a(cuda):
     assert bool(((got - ref).abs() <= bound).all())
 
 
+def _two_layer_engine(cuda, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), num_layers=2)
+    params = M.init_params(cfg, seed=0, device=cuda)
+    return ServeEngine(cfg, params, batch=2, cache_len=48, eos_id=-1,
+                       sync_every=4, **kw)
+
+
+def _submit(sched, cfg, lens, tiers, max_new=6):
+    g = torch.Generator().manual_seed(0)
+    for n, tier in zip(lens, tiers):
+        sched.submit(torch.randint(0, cfg.vocab_size, (n,),
+                                   generator=g).tolist(),
+                     max_new_tokens=max_new, tier=tier)
+
+
 def test_serve_full_width_two_layers(cuda, monkeypatch):
     """qwen2.5-14b at full width, cut to two layers: a short stream through
     the engine on the cuda GEMM backend completes, leaks no page, and runs
     every kernel of the path and no plain version."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.scheduler import SlotScheduler
 
     monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
-    cfg = dataclasses.replace(get_config("qwen2.5-14b"), num_layers=2)
-    params = M.init_params(cfg, seed=0, device=cuda)
-    eng = ServeEngine(cfg, params, batch=2, cache_len=48, eos_id=-1,
-                      sync_every=4)
+    eng = _two_layer_engine(cuda)
     sched = SlotScheduler(2, eos_id=-1)
-    g = torch.Generator().manual_seed(0)
-    for n in (17, 40, 9):
-        sched.submit(torch.randint(0, cfg.vocab_size, (n,),
-                                   generator=g).tolist(), max_new_tokens=6)
+    _submit(sched, eng.cfg, (17, 40, 9), ("premium",) * 3)
     ops.reset_counts()
     summary = eng.serve(sched)
     assert [r.n_generated for r in sched.finished] == [6, 6, 6]
@@ -284,6 +294,75 @@ def test_serve_full_width_two_layers(cuda, monkeypatch):
     for name in ("sa_matmul", "paged_decode", "prefill_attention"):
         assert c[name]["launches"] > 0, c
     assert all(v["plain_calls"] == 0 for v in c.values()), c
+
+
+def test_serve_mixed_tiers_full_width_two_layers(cuda, monkeypatch):
+    """A mixed premium/bulk stream at full width (two layers) on the cuda
+    GEMM backend: all-bulk chunks run the SA GEMM's and paged decode's
+    approx mode, prefill stays exact, no plain version runs, and every
+    premium request's tokens are the all-premium stream's bit for bit
+    (rows independent of the batch, ROADMAP F2)."""
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    eng = _two_layer_engine(cuda)
+    lens = (17, 40, 9, 23)
+    tiers = ("premium", "bulk", "premium", "bulk")
+    out = {}
+    for name, ts in (("mixed", tiers), ("premium", ("premium",) * 4)):
+        sched = SlotScheduler(2, eos_id=-1)
+        _submit(sched, eng.cfg, lens, ts)
+        ops.reset_counts()
+        summary = eng.serve(sched)
+        out[name] = ({r.rid: r.tokens for r in sched.finished}, summary,
+                     ops.mode_counts(), ops.counts())
+    toks, summary, modes, c = out["mixed"]
+    assert summary["chunks_approx"] > 0 and summary["pages_leaked"] == 0
+    assert summary["nonfinite_logits"] == 0
+    assert "premium/approx" not in summary["tier_mode_tokens"]
+    assert modes["sa_matmul"]["approx"] > 0, modes
+    assert modes["paged_decode"]["approx"] > 0, modes
+    assert modes["prefill_attention"]["approx"] == 0, modes
+    assert all(v["plain_calls"] == 0 for v in c.values()), c
+    assert out["premium"][2]["sa_matmul"]["approx"] == 0
+    for rid, tier in enumerate(tiers):
+        if tier == "premium":
+            assert toks[rid] == out["premium"][0][rid], rid
+
+
+def test_generate_matches_ring_serve_full_width_two_layers(cuda,
+                                                           monkeypatch):
+    """`generate()` (one batched prefill at B = 2 through the prefill
+    kernel, decode on a ring) gives the ring serve's tokens for the same
+    equal-length requests, and the ring serve gives the paged serve's
+    under REPRO_DECODE_ATTN=gather (the same dense rows in the same
+    order)."""
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    monkeypatch.setenv("REPRO_DECODE_ATTN", "gather")
+    ring = _two_layer_engine(cuda, kv_layout="ring")
+    g = torch.Generator().manual_seed(3)
+    prompts = torch.randint(0, ring.cfg.vocab_size, (2, 24), generator=g)
+    ops.reset_counts()
+    got = ring.generate(prompts, 9)
+    # one batched prefill: a launch a layer
+    assert ops.counts()["prefill_attention"]["launches"] == \
+        ring.cfg.num_layers
+    assert ring.last_stats["nonfinite_logits"] == 0
+    streams = {}
+    for layout in ("ring", "paged"):
+        eng = ring if layout == "ring" else _two_layer_engine(
+            cuda, kv_layout="paged")
+        sched = SlotScheduler(2, eos_id=-1)
+        for p in prompts.tolist():
+            sched.submit(p, max_new_tokens=9)
+        eng.serve(sched)
+        streams[layout] = {r.rid: r.tokens for r in sched.finished}
+        del eng
+    assert streams["ring"] == streams["paged"]
+    for rid in (0, 1):
+        assert got[rid].tolist() == streams["ring"][rid]
 
 
 def _on_grid(t, fmt):

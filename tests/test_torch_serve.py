@@ -316,24 +316,16 @@ def test_engine_prefix_cache_hits_keep_tokens(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,env", [
-    ({"kv_layout": "ring"}, {}), ({"spec_k": 2}, {}),
+    ({"spec_k": 2}, {}),
     ({"disagg": True}, {}), ({"bucket_prompts": True}, {}),
-    ({}, {"REPRO_DISAGG": "1"}), ({}, {"REPRO_PREFILL_BUCKET": "1"})])
+    ({}, {"REPRO_DISAGG": "1"}), ({}, {"REPRO_PREFILL_BUCKET": "1"})],
+    ids=[f"kw{i}-env{i}" for i in range(1, 6)])
 def test_engine_refuses_unported_features(setup, monkeypatch, kw, env):
     cfg, _, tp = setup
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(ValueError, match="not ported"):
         ServeEngine(cfg, tp, batch=2, cache_len=16, **kw)
-
-
-def test_engine_refuses_bulk_tier(setup):
-    cfg, _, tp = setup
-    eng = ServeEngine(cfg, tp, batch=2, cache_len=16, page_size=8)
-    sched = SlotScheduler(2, eos_id=-1)
-    sched.submit([1, 2, 3], max_new_tokens=2, tier="bulk")
-    with pytest.raises(ValueError, match="not ported"):
-        eng.serve(sched)
 
 
 # ---------------------------------------------------------------------------
@@ -379,9 +371,10 @@ def test_driver_digest_is_the_jax_drivers():
     assert drv.stream_digest(rs) == want
 
 
-@pytest.mark.parametrize("extra", [["--tier-mix", "0.5"], ["--spec-k", "2"],
-                                   ["--disagg"], ["--decode-replicas", "2"],
-                                   ["--bucket-prompts"], ["--kv", "ring"]])
+@pytest.mark.parametrize("extra", [["--spec-k", "2"], ["--disagg"],
+                                   ["--decode-replicas", "2"],
+                                   ["--bucket-prompts"]],
+                         ids=[f"extra{i}" for i in range(1, 5)])
 def test_driver_refuses_unported_flags(extra):
     with pytest.raises(ValueError, match="not ported"):
         drv.main(ARGS + extra)
