@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as the checks run it
     python3 chip_smoke.py --skip-serve    # device, build and kernel phases
+    python3 chip_smoke.py --log FILE      # every phase, the log also in FILE
 
 Phases, in order; any failure exits nonzero:
 
@@ -60,6 +61,23 @@ Phases, in order; any failure exits nonzero:
              beside the fused paged serve's (tokens that agree counted);
              `generate()` on 4 equal-length prompts (the prefill kernel at
              B = 4) equal to the ring serve of the same requests.
+   spec    — the serve stream with `--spec-k 4` on the same weights
+             (self-speculative decoding, fp32 pool, fused decode), with
+             drafts of 24 and of all 48 superblocks: every request
+             complete, no page leaked, no plain version, every SA GEMM
+             and prefill on `mma`, each kernel's launches exactly as the
+             run's iterations and timing probe imply (`_expected_spec`);
+             the plain serve's digest at both depths, drafts ran, and at
+             48 every draft accepted (the verify's rows at M = 20 carry
+             the draft's bits at M = 4: F2 on a served path); the accept
+             histogram, ITL, decode_tok_s, the probe's draft and verify
+             seconds an iteration, and the device time a layer of the
+             decode step, the draft and the verify by kernel class.
+   bucket  — 8 requests of 17, 20, 23, 40 and 47 prompt tokens on the
+             same weights, with and without `--bucket-prompts`: one
+             digest, 2 prefill shapes (24, 48) against 5, prefill
+             attention on `mma` at every padded length, no page leaked,
+             no plain version.
 7. emulate — the same model served under `REPRO_GEMM_BACKEND=emulate`:
              every GEMM through the fp_emu kernel (the SA GEMM never
              launches), attention through the two attention kernels, no
@@ -112,8 +130,10 @@ bound and bf16 torch.matmul. The decode and prefill checks add bf16
 policy.
 
 Each phase's wall time is printed. The last lines are the kernels JSON
-line (with each tiered kernel's `mode_launches`), the nvidia-smi line and
-`{"ok": true, "device": {...}}`.
+line (with each tiered kernel's `mode_launches`, the spec phase's launches
+and per-layer times, the bucket phase's prefill readings), the nvidia-smi
+line and `{"ok": true, "device": {...}}`. `--log FILE` also writes every
+line this script logs to FILE.
 """
 from __future__ import annotations
 
@@ -167,8 +187,15 @@ STUDY_NETWORKS = {"mobilenet": (0.1707624630822332, 0.09389819165630042),
                   "resnet50": (0.21931369204186524, 0.13947224394832314)}
 
 
+# `--log FILE`: every logged line also goes to FILE (set in main)
+LOG_FILE = None
+
+
 def log(msg=""):
     print(msg, flush=True)
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as f:
+            f.write(msg + "\n")
 
 
 def smi(query: str) -> str:
@@ -2221,6 +2248,255 @@ def ring(torch, engine, serve_summary, serve_sched):
         raise AssertionError("ring phase failed: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# spec and bucket: self-speculative decoding and prompt-length bucketing
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# the driver's spec_timing_probe runs the drafts and the verify once to
+# warm up and 3 times timed
+PROBE_RUNS = 4
+# prompt lengths that `_bucket_len` maps to two buckets, 24 and 48
+BUCKET_LENS = (17, 20, 23, 40, 47)
+BUCKET_ARGS = ["--arch", ARCH, "--batch", str(BATCH), "--requests", "8",
+               "--prompt-lens", ",".join(map(str, BUCKET_LENS)),
+               "--max-new", str(MAX_NEW), "--rate", "0", "--seed", "0"]
+# the path's GEMMs by output width (a layer's wq, wk, wv, wo, wg, wu, wd,
+# then the lm_head)
+PATH_NS = {"wq": D_MODEL, "wk": 1024, "wv": 1024, "wo": D_MODEL,
+           "wg": D_FF, "wu": D_FF, "wd": D_MODEL, "lm_head": 153600}
+
+
+def _expected_spec(cfg, summary, iters_per_chunk, draft_layers, k, prefills,
+                   probe_runs):
+    """Each kernel's launches that a spec serve through the driver must
+    show, counted from the run's own record: a forward launches 7 GEMMs a
+    layer and the lm_head's and a paged decode a layer; prefill computes
+    the last row's logits only; a spec iteration is k draft steps of
+    `draft_layers` layers and one full-depth verify; the engine's warm-up
+    chunk runs `iters_per_chunk` iterations on top of the summary's
+    `spec_iters`, and the driver's timing probe runs the k drafts and the
+    verify `probe_runs` times each (a warm-up and its repetitions)."""
+    L, E = cfg.num_layers, draft_layers * cfg.stack_period
+    iters = summary["spec_iters"] + iters_per_chunk + probe_runs
+    return {"gemm": (7 * L + 1) * prefills
+            + iters * (k * (7 * E + 1) + 7 * L + 1),
+            "paged_decode": iters * (k * E + L),
+            "prefill_attention": L * prefills}
+
+
+def _path_checks(summary, sched, counts, routes, n_req, max_new):
+    problems = []
+    done = sched.finished
+    if len(done) != n_req or any(r.n_generated != max_new for r in done):
+        problems.append(f"requests incomplete: "
+                        f"{[(r.rid, r.n_generated) for r in done]}")
+    if summary.get("pages_leaked") != 0 or summary.get("nonfinite_logits"):
+        problems.append(f"pages_leaked {summary.get('pages_leaked')}, "
+                        f"nonfinite {summary.get('nonfinite_logits')}")
+    if any(c["plain_calls"] for c in counts.values()):
+        problems.append(f"a plain version ran: {counts}")
+    mm = routes["sa_matmul"]
+    if mm["partial"] or mm["mma"] != counts["sa_matmul"]["launches"]:
+        problems.append(f"sa_matmul routes {mm}: every GEMM must run mma")
+    pre = routes["prefill_attention"]
+    if pre["simt"] or pre["mma"] != counts["prefill_attention"]["launches"]:
+        problems.append(f"prefill attention routes {pre}: mma only")
+    return problems
+
+
+def spec_layer_ms(torch, eng, slot_len=144):
+    """Device time a layer of the decode step (B rows), the draft step and
+    the verify (B·(k+1) rows folded), by kernel class, from torch.profiler
+    on a pool whose B slots map `slot_len` tokens each (144: the serve
+    stream's CACHE_LEN); the GEMMs' tile at each M from `mma_plan`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import sa_matmul as MM
+    from repro_torch.train.step import (make_draft_step, make_serve_step,
+                                        make_verify_step)
+
+    B, k, L = eng.batch, eng.spec_k, eng.cfg.num_layers
+    cache = eng.new_pool()
+    npg = slot_len // PAGE
+    for c in cache:
+        kv = c["kv"]
+        for b in range(B):
+            pages = torch.arange(1 + npg * b, 1 + npg * (b + 1),
+                                 device=eng.device)
+            kv.block_table[:, b, :npg] = pages.to(torch.int32)
+            kv.positions[:, pages] = torch.arange(
+                slot_len, dtype=torch.int32, device=eng.device).reshape(
+                    npg, PAGE)
+    pos = torch.full((B,), slot_len - k - 1, dtype=torch.int32,
+                     device=eng.device)
+    g = torch.Generator().manual_seed(6)
+    tok = torch.randint(0, eng.cfg.vocab_size, (B, k + 1), generator=g,
+                        dtype=torch.int32).to(eng.device)
+    E = eng.spec_draft_layers * eng.cfg.stack_period
+    steps = {
+        "decode": (lambda: make_serve_step(eng.cfg)(
+            eng.params, tok[:, :1], cache, pos), L, B),
+        "draft": (lambda: make_draft_step(eng.cfg, eng.spec_draft_layers)(
+            eng.params, tok[:, :1], cache, pos), E, B),
+        "verify": (lambda: make_verify_step(eng.cfg)(
+            eng.params, tok, cache, pos), L, B * (k + 1))}
+    out = {}
+    for name, (fn, layers, m) in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ks = device_kernels(torch, prof)
+        if not ks:
+            out[name] = None
+            continue
+        gemm = sum(ms for n, (ms, _) in ks.items() if "sa_gemm" in n)
+        attn = sum(ms for n, (ms, _) in ks.items() if "paged_decode" in n)
+        total = sum(ms for ms, _ in ks.values())
+        out[name] = {
+            "rows": m, "layers": layers,
+            "gemm_ms_a_layer": round(gemm / layers, 5),
+            "paged_decode_ms_a_layer": round(attn / layers, 5),
+            "device_ms": round(total, 4),
+            "tiles": {g_: MM.mma_plan(m, n, "mma")["tile"]
+                      for g_, n in PATH_NS.items()}}
+    return out
+
+
+def spec(torch, engine, serve_summary):
+    """Self-speculative decoding at full width and depth: the serve
+    stream through the driver with `--spec-k 4` on the serve phase's
+    weights (fp32 pool, fused decode), once with a 24-superblock draft
+    and once with all 48. Gates: requests complete, no page leaked, no
+    plain version, every SA GEMM on `mma` and prefill on `mma`, each
+    kernel's launches exactly as the run's iterations imply
+    (`_expected_spec`); at 24 the stream digest equals the plain serve's
+    and drafts ran; at 48 every draft is accepted (the draft is the plain
+    decode step at M = 4, the verify the same rows folded at M = 20: F2 on
+    a served path). Prints the accept rate and histogram, ITL,
+    decode_tok_s, the probe's draft and verify seconds an iteration and
+    the per-layer device times of the decode step, the draft and the
+    verify. Returns the readings."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+
+    L = engine.cfg.num_layers
+    problems, out = [], {}
+    for E in (L // 2, L):
+        ops.reset_counts()
+        t0 = time.monotonic()
+        summary, sched, eng = drv.main(
+            SERVE_ARGS + ["--spec-k", str(SPEC_K), "--spec-draft-layers",
+                          str(E)], return_state=True, params=engine.params)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts, routes = ops.counts(), ops.route_counts()
+        problems += [f"E={E}: {p}" for p in _path_checks(
+            summary, sched, counts, routes, 8, MAX_NEW)]
+        per_chunk = -(-eng.sync_every // (SPEC_K + 1))
+        want = _expected_spec(eng.cfg, summary, per_chunk, E, SPEC_K, 8,
+                              PROBE_RUNS)
+        got = {"gemm": counts["sa_matmul"]["launches"],
+               "paged_decode": counts["paged_decode"]["launches"],
+               "prefill_attention": counts["prefill_attention"]["launches"]}
+        if got != want:
+            problems.append(f"E={E}: launches {got}, want {want}")
+        iters = summary["spec_iters"]
+        # the verify-shaped launches inside the held totals: every
+        # iteration's verify (the warm-up chunk's and the probe's too) runs
+        # 7 GEMMs a layer at M = B·(k+1) plus the lm_head, and a paged
+        # decode a layer over B·(k+1) rows
+        n_verify = iters + per_chunk + PROBE_RUNS
+        verify = {"gemm_rows": BATCH * (SPEC_K + 1),
+                  "gemm": n_verify * (7 * L + 1),
+                  "paged_decode": n_verify * L}
+        r = {"digest": summary["stream_digest"],
+             "spec_accept_rate": summary["spec_accept_rate"],
+             "spec_accept_hist": summary["spec_accept_hist"],
+             "spec_iters": iters, "spec_drafted": summary["spec_drafted"],
+             "decode_itl_p50_ms": summary.get("decode_itl_p50_ms"),
+             "decode_tok_s": summary.get("decode_tok_s"),
+             "prefill_s": summary["prefill_s"],
+             "decode_s": summary["decode_s"],
+             "draft_s_an_iter": round(summary["spec_draft_s"] / iters, 5),
+             "verify_s_an_iter": round(summary["spec_verify_s"] / iters, 5),
+             "launches": got, "verify_launches": verify,
+             "routes": routes["sa_matmul"]}
+        out[E] = r
+        log(f"[spec E={E}/{L}] wall {wall:.2f} s; " + " ".join(
+            f"{k_}={v}" for k_, v in r.items()))
+        if E == L:
+            out["layer_ms"] = spec_layer_ms(torch, eng)
+        del eng, sched
+    half, full = out[L // 2], out[L]
+    if half["digest"] != serve_summary["stream_digest"]:
+        problems.append(f"spec digest {half['digest']} (draft {L // 2}) != "
+                        f"the plain serve's {serve_summary['stream_digest']}")
+    if not half["spec_drafted"]:
+        problems.append("no draft ran")
+    if full["spec_accept_rate"] != 1.0:
+        problems.append(f"draft of the whole stack: accept rate "
+                        f"{full['spec_accept_rate']}, want 1.0 "
+                        f"({full['spec_accept_hist']})")
+    if full["digest"] != serve_summary["stream_digest"]:
+        problems.append(f"spec digest {full['digest']} (draft {L}) != the "
+                        f"plain serve's")
+    for name, v in out["layer_ms"].items():
+        log(f"[spec] {name} step: {v}")
+    if problems:
+        raise AssertionError("spec phase failed: " + "; ".join(problems))
+    return out
+
+
+def bucket(torch, engine):
+    """Prompt-length bucketing at full width and depth: 8 requests of
+    prompt lengths 17, 20, 23, 40, 47 (buckets 24 and 48) served through
+    the driver with and without `--bucket-prompts` on the serve phase's
+    weights. Gates: one stream digest, `prefill_compiles` 2 bucketed
+    against 5, prefill attention on its `mma` route at every padded T,
+    requests complete, no page leaked, no plain version. Returns the
+    readings."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+
+    problems, out = [], {}
+    for name, flag in (("plain", []), ("bucketed", ["--bucket-prompts"])):
+        ops.reset_counts()
+        t0 = time.monotonic()
+        summary, sched, _ = drv.main(BUCKET_ARGS + flag, return_state=True,
+                                     params=engine.params)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts, routes = ops.counts(), ops.route_counts()
+        problems += [f"{name}: {p}" for p in _path_checks(
+            summary, sched, counts, routes, 8, MAX_NEW)]
+        n_pre = counts["prefill_attention"]["launches"]
+        if n_pre != 8 * engine.cfg.num_layers:
+            problems.append(f"{name}: prefill attention launched {n_pre}")
+        out[name] = {"digest": summary["stream_digest"],
+                     "prefill_compiles": summary["prefill_compiles"],
+                     "prefill_s": summary["prefill_s"],
+                     "ttft_mean_s": summary.get("ttft_mean_s"),
+                     "decode_itl_p50_ms": summary.get("decode_itl_p50_ms"),
+                     "prefill_launches": counts["prefill_attention"][
+                         "launches"], "routes": routes}
+        log(f"[bucket {name}] wall {wall:.2f} s; " + " ".join(
+            f"{k_}={v}" for k_, v in out[name].items()))
+    if out["plain"]["digest"] != out["bucketed"]["digest"]:
+        problems.append(f"digest bucketed {out['bucketed']['digest']} != "
+                        f"plain {out['plain']['digest']}")
+    if (out["plain"]["prefill_compiles"], out["bucketed"]["prefill_compiles"]
+            ) != (5, 2):
+        problems.append(f"prefill_compiles plain "
+                        f"{out['plain']['prefill_compiles']}, bucketed "
+                        f"{out['bucketed']['prefill_compiles']}: want 5, 2")
+    if problems:
+        raise AssertionError("bucket phase failed: " + "; ".join(problems))
+    return out
+
+
 DECODE_TILE = "TcTile<16, "    # the decode tile's kernels, by name
 
 
@@ -2612,6 +2888,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel phase")
+    ap.add_argument("--log", default=None,
+                    help="also write every logged line to this file (the "
+                         "end of the output may be all a caller keeps)")
     args = ap.parse_args(argv)
     import torch
 
@@ -2625,6 +2904,12 @@ def main(argv=None):
         return 3
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.kernels import build
+
+    global LOG_FILE
+    if args.log:
+        LOG_FILE = os.path.abspath(args.log)
+        os.makedirs(os.path.dirname(LOG_FILE), exist_ok=True)
+        open(LOG_FILE, "w").close()
 
     phases = {}
     t = time.monotonic()
@@ -2702,6 +2987,23 @@ def main(argv=None):
         t = time.monotonic()
         ring(torch, engine, summary, sched)
         phases["ring"] = time.monotonic() - t
+        t = time.monotonic()
+        spec_out = spec(torch, engine, summary)
+        phases["spec"] = time.monotonic() - t
+        t = time.monotonic()
+        bucket_out = bucket(torch, engine)
+        phases["bucket"] = time.monotonic() - t
+        L = engine.cfg.num_layers
+        kernels[0]["readings"]["spec"] = {
+            E: {key: spec_out[E][key]
+                for key in ("launches", "verify_launches", "routes")}
+            for E in (L // 2, L)} | {"layer_ms": spec_out["layer_ms"]}
+        kernels[2]["readings"]["spec_launches"] = {
+            E: spec_out[E]["launches"]["paged_decode"] for E in (L // 2, L)}
+        kernels[3]["readings"]["bucket"] = {
+            name: {key: v[key] for key in ("prefill_launches", "prefill_s",
+                                           "prefill_compiles")}
+            for name, v in bucket_out.items()}
         # the engine holds itself through its step closures: collect it
         del engine, sched
         gc.collect()

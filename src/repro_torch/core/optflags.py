@@ -22,8 +22,9 @@ PyTorch GEMM and the default —, `cuda`, the hand-written SA GEMM kernel,
 or `emulate`, the paper's bit-exact skewed datapath through the
 hand-written fp_emu kernel), `sa_mode()` (REPRO_SA_MODE),
 `decode_attn_impl()` (REPRO_DECODE_ATTN: `fused` page walk, the default,
-or `gather`), `kv_layout()` (REPRO_KV) and `prefix_cache_enabled()`
-(REPRO_PREFIX_CACHE).
+or `gather`), `kv_layout()` (REPRO_KV), `prefix_cache_enabled()`
+(REPRO_PREFIX_CACHE), `prefill_bucket_enabled()` (REPRO_PREFILL_BUCKET),
+`spec_decode_enabled()` (REPRO_SPEC_DECODE) and `spec_k()` (REPRO_SPEC_K).
 """
 from __future__ import annotations
 
@@ -80,6 +81,31 @@ def kv_layout() -> str:
 def prefix_cache_enabled() -> bool:
     return os.environ.get("REPRO_PREFIX_CACHE", "1") not in (
         "0", "false", "off")
+
+
+def prefill_bucket_enabled() -> bool:
+    """Prompt-length bucketing in the serve prefill (default off): each
+    prefill's token block is right-padded to a bucket length, so a mixed
+    stream runs a few prefill shapes; the padded rows' cache positions are
+    set to -1 and the logits are read at the real last token."""
+    return os.environ.get("REPRO_PREFILL_BUCKET", "0") not in (
+        "0", "false", "off")
+
+
+def spec_decode_enabled() -> bool:
+    """Self-speculative decoding kill switch (default on). It only arms the
+    path: an engine drafts when its `spec_k >= 1`. "0" is the A/B: greedy
+    spec streams equal the plain chunked decode's."""
+    return os.environ.get("REPRO_SPEC_DECODE", "1") not in (
+        "0", "false", "off")
+
+
+def spec_k(default: int = 0) -> int:
+    """Default draft length of self-speculative decoding (0 = off)."""
+    k = int(os.environ.get("REPRO_SPEC_K", default))
+    if k < 0:
+        raise ValueError(f"REPRO_SPEC_K={k}; want >= 0")
+    return k
 
 
 _SA_MODES = ("exact", "approx")

@@ -18,15 +18,27 @@ also runs the engine's divergence probe on one prompt (the `[divergence]`
 line) and adds the per-tier energy model's `energy_*` and the probe's
 `divergence_*` keys to the summary, as the JAX driver does.
 
-Flags of features not ported yet (--spec-k, --disagg, --decode-replicas,
---bucket-prompts) raise `ValueError("... not ported yet")`.
+`--spec-k k` serves with self-speculative decoding (k drafts a slot from
+an early exit after `--spec-draft-layers` superblocks, default half the
+stack, then one folded verify); the summary gains `spec_*` and a `[spec]`
+line gives the draft/verify split (the engine's `spec_timing_probe`,
+scaled by the iterations run). Greedy streams equal `REPRO_SPEC_DECODE=0`'s.
+`--spec-warmup n` first trains the fp32 weights n AdamW steps on a seeded
+Markov corpus, so a shallow draft has something to agree with.
+`--bucket-prompts` pads each prefill to a bucket length (summary:
+`prefill_compiles`), with the same stream digest.
+
+Flags of features not ported yet (--disagg, --decode-replicas) raise
+`ValueError("... not ported yet")`.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.device import resolve_device
@@ -55,6 +67,48 @@ def build_requests(sched: SlotScheduler, cfg, n: int, rate: float,
         tier = "bulk" if rng.random() < tier_mix else "premium"
         sched.submit(prompt, max_new_tokens=max_new, arrival_time=t,
                      tier=tier)
+
+
+def spec_warmup_train(cfg, params, steps: int, seed: int):
+    """Seed-pure warm-up training for the speculative-decoding demo (the
+    JAX driver's): `steps` AdamW steps (constant lr 3e-3, no weight decay)
+    on an order-1 Markov corpus whose dominant successors are drawn once
+    from `seed` and taken with p = 0.9, learnable by the early layers
+    alone. `params` are fp32 masters, trained in place and returned with
+    gradients off. A pure function of (cfg, params, seed)."""
+    from repro_torch.models import model as M_
+    from repro_torch.train.optimizer import AdamW, constant_lr
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.train_state import TrainState
+
+    rng = np.random.default_rng(seed + 11)
+    succ = rng.integers(0, cfg.vocab_size, size=cfg.vocab_size)
+    dev = params["embed"].device
+
+    def markov_batch(bsz=8, T=32):
+        toks = np.empty((bsz, T + 1), np.int64)
+        toks[:, 0] = rng.integers(0, cfg.vocab_size, size=bsz)
+        for t in range(T):
+            toks[:, t + 1] = np.where(
+                rng.random(bsz) < 0.9, succ[toks[:, t]],
+                rng.integers(0, cfg.vocab_size, size=bsz))
+        return {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+
+    opt = AdamW(constant_lr(3e-3), weight_decay=0.0)
+    step = make_train_step(dataclasses.replace(cfg, remat=False), opt)
+    for p in M_.tree_leaves(params):
+        p.requires_grad_(True)
+    state = TrainState(step=torch.zeros((), dtype=torch.int32),
+                       params=params, opt_state=opt.init(params))
+    metrics = {}
+    for _ in range(steps):
+        state, metrics = step(state, markov_batch())
+    print(f"[spec-warmup] steps={steps} "
+          f"final_loss={float(metrics.get('loss', float('nan'))):.3f}")
+    for p in M_.tree_leaves(state.params):
+        p.requires_grad_(False)
+    return state.params
 
 
 def itl_p50_ms(finished) -> float | None:
@@ -93,6 +147,7 @@ def serve_continuous(args, cfg, params, plens, device):
                          kv_layout=args.kv, page_size=args.page_size,
                          pool_pages=args.pool_pages,
                          max_seq_len=args.max_seq_len, spec_k=args.spec_k,
+                         spec_draft_layers=args.spec_draft_layers or None,
                          disagg=args.disagg or None,
                          bucket_prompts=args.bucket_prompts or None,
                          device=device)
@@ -106,6 +161,22 @@ def serve_continuous(args, cfg, params, plens, device):
     if itl is not None:
         summary["decode_itl_p50_ms"] = itl
     _print_phases(summary)
+    if engine.spec_decoding_on() and summary.get("spec_iters"):
+        # the draft/verify split, timed apart at the serving shapes and
+        # scaled by the iterations the serve ran (serve() runs both in one
+        # chunk without a sync between them)
+        split = engine.spec_timing_probe()
+        iters = summary["spec_iters"]
+        summary["spec_draft_s"] = round(split["draft_s"] * iters, 4)
+        summary["spec_verify_s"] = round(split["verify_s"] * iters, 4)
+        print(f"[spec] k={engine.spec_k} "
+              f"draft_layers={engine.spec_draft_layers}/"
+              f"{cfg.num_layers // cfg.stack_period} "
+              f"accept_rate={summary.get('spec_accept_rate', 0.0)} "
+              f"accepted={summary.get('spec_accepted', 0)}/"
+              f"drafted={summary.get('spec_drafted', 0)} "
+              f"draft_s~{summary['spec_draft_s']} "
+              f"verify_s~{summary['spec_verify_s']}")
     for r in sorted(sched.finished, key=lambda r: r.rid):
         ttft = float("nan") if r.ttft is None else r.ttft
         print(f"req {r.rid:3d} slot {r.slot} {r.tier:7s} "
@@ -167,14 +238,22 @@ def parse_args(argv=None):
                          "quality tier (approximate decode when a whole "
                          "chunk is bulk); 0 = all premium")
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="speculative draft length (not ported yet: must "
-                         "be 0)")
+                    help="self-speculative draft length (0 = off); greedy "
+                         "output equals --spec-k 0's, REPRO_SPEC_DECODE=0 "
+                         "switches it off")
+    ap.add_argument("--spec-draft-layers", type=int, default=0,
+                    help="superblocks the draft runs (0 = half the stack)")
+    ap.add_argument("--spec-warmup", type=int, default=0,
+                    help="seed-pure AdamW warm-up steps on a Markov corpus "
+                         "before serving (fp32 weights)")
     ap.add_argument("--disagg", action="store_true",
                     help="two-pool disaggregated serving (not ported yet)")
     ap.add_argument("--decode-replicas", type=int, default=1,
                     help="engine replicas (not ported yet: must be 1)")
     ap.add_argument("--bucket-prompts", action="store_true",
-                    help="prompt-length bucketing (not ported yet)")
+                    help="pad each prefill to a bucket length (fewer "
+                         "prefill shapes, the same tokens; "
+                         "REPRO_PREFILL_BUCKET=1 is the env equivalent)")
     ap.add_argument("--layers-per-period", type=int, default=1,
                     help="depth multiplier for --reduced configs")
     ap.add_argument("--width", type=int, default=1,
@@ -198,7 +277,12 @@ def main(argv=None, *, return_state: bool = False, params=None):
                           layers_per_period=args.layers_per_period,
                           width=args.width)
            if args.reduced else get_config(args.arch))
-    if params is None:
+    if params is None and args.spec_warmup > 0:
+        params = spec_warmup_train(
+            cfg, M.init_params(cfg, seed=args.seed, device=device,
+                               dtype=torch.float32),
+            args.spec_warmup, args.seed)
+    elif params is None:
         params = M.init_params(cfg, seed=args.seed, device=device)
     plens = [int(x) for x in args.prompt_lens.split(",")]
     extra = args.prefix_len if args.prefix_mix > 0 else 0

@@ -266,17 +266,18 @@ def attn_out(x_attn, p):
 
 
 def _paged_write(cache: PagedKVCache, k, v, pos):
-    """Write one token per slot into the pool, IN PLACE. Position p of
-    slot b lives at offset p % page_size of page block_table[b, p //
-    page_size]; rows whose position falls outside their mapped pages
-    (free slots, steps after retirement) go to the trash page 0."""
+    """Write K/V rows into the pool, IN PLACE: k, v (B, T, KVH, hd) at
+    positions pos (B, T). Position p of slot b lives at offset p %
+    page_size of page block_table[b, p // page_size]; rows whose position
+    falls outside their mapped pages (free slots, steps after retirement,
+    verify rows past a request's run) go to the trash page 0."""
     B = k.shape[0]
     psz = cache.k.shape[1]
     P = cache.block_table.shape[1]
     pos = pos.long()
     page_i = pos // psz
     off = pos % psz
-    b = torch.arange(B, device=k.device)
+    b = torch.arange(B, device=k.device)[:, None]
     pid = cache.block_table[b, page_i.clamp(0, P - 1)].long()
     pid = torch.where((page_i < P) & (pid >= 0), pid, 0)
     cache.k[pid, off] = k.to(cache.k.dtype)                 # in place
@@ -284,14 +285,64 @@ def _paged_write(cache: PagedKVCache, k, v, pos):
     cache.positions[pid, off] = pos.to(cache.positions.dtype)  # in place
 
 
-def attention_block(x, p, cfg, meta, positions, cache=None, pos=None,
-                    causal: bool = True, prefix_len: int = 0):
+def _decode_attend(q, k, v, cache, positions, window: int, cap: float):
+    """Decode with a cache: each slot's T tokens are T consecutive decode
+    steps (T = 1: the decode step; T > 1: the speculative verify). Row t
+    writes its K/V at position pos + t in place (paged pool or per-slot
+    ring: row b is an independent request at its own depth), then the B·T
+    query rows fold into the batch and each runs the single-token decode
+    arithmetic, `kv_positions <= pos + t` standing in for the causal mask.
+    Every kernel on this path gives a row the same bits at any batch
+    (ROADMAP F2), so verify row t equals the sequential decode step it
+    replaces. Each slot's block-table row (or ring row) is repeated for
+    its T query rows in `jnp.repeat`'s order (`repeat_interleave`)."""
+    from repro_torch.kernels import ops
+
+    B, T, H, hd = q.shape
+    tpos = positions.to(torch.int32)                     # (B, T) = pos + t
+    qf = q.reshape(B * T, 1, H, hd)
+    posf = tpos.reshape(B * T)
+
+    def rows(t):
+        return t if T == 1 else torch.repeat_interleave(t, T, dim=0)
+
+    if isinstance(cache, PagedKVCache):
+        _paged_write(cache, k, v, tpos)
+        # attention over the slot's mapped pages: the hand kernel walks the
+        # block table (default; on the card it raises for a policy it cannot
+        # reproduce, FP8 in or non-fp32 out); REPRO_DECODE_ATTN=gather
+        # materializes the dense view (the A/B path)
+        if optflags.decode_attn_impl() == "fused":
+            o = ops.paged_decode_attention(
+                qf, cache.k, cache.v, cache.positions,
+                rows(cache.block_table), posf, window=window, cap=cap)
+        else:
+            k_g, v_g, pos_g = gather_pages(cache)
+            o = decode_attention(qf, rows(k_g), rows(v_g), rows(pos_g), posf,
+                                 window=window, cap=cap)
+    else:
+        slot = tpos.long() % cache.k.shape[1]
+        b = torch.arange(B, device=q.device)[:, None]
+        cache.k[b, slot] = k.to(cache.k.dtype)                # in place
+        cache.v[b, slot] = v.to(cache.v.dtype)                # in place
+        cache.positions[b, slot] = tpos                       # in place
+        o = decode_attention(qf, rows(cache.k), rows(cache.v),
+                             rows(cache.positions), posf, window=window,
+                             cap=cap)
+    return o.reshape(B, T, H, hd)
+
+
+def attention_block(x, p, cfg, meta, positions, cache=None,
+                    causal: bool = True, prefix_len: int = 0,
+                    decode_multi: bool = False):
     """Attention sub-layer. Returns (out, cache).
 
     With a cache and a single token: decode (paged pool or per-slot ring),
-    writing the token's K/V into the cache in place. Otherwise prefill: a
-    dense cache is filled in place; `prefix_len` is continued prefill over
-    KV already in the cache's first `prefix_len` rows."""
+    writing the token's K/V into the cache in place; with `decode_multi`
+    the T tokens are T consecutive decode steps a slot (`_decode_attend`).
+    Otherwise prefill: a dense cache is filled in place; `prefix_len` is
+    continued prefill over KV already in the cache's first `prefix_len`
+    rows."""
     window = cfg.window if meta.get("attn") == "local" else 0
     q, k, v = qkv_project(x, p, cfg)
     q = apply_rope(q.transpose(1, 2), positions[:, None, :],
@@ -300,34 +351,9 @@ def attention_block(x, p, cfg, meta, positions, cache=None, pos=None,
                    cfg.rope_theta).transpose(1, 2)
     if cache is not None and cache.k.shape[-2] != k.shape[2]:
         raise ValueError("padded KV heads are not ported yet")
-    if (cache is not None and x.shape[1] == 1
-            and isinstance(cache, PagedKVCache)):
-        from repro_torch.kernels import ops
-        _paged_write(cache, k[:, 0], v[:, 0], pos)
-        # attention over the slot's mapped pages: the hand kernel walks the
-        # block table (default; on the card it raises for a policy it cannot
-        # reproduce, FP8 in or non-fp32 out); REPRO_DECODE_ATTN=gather
-        # materializes the dense view (the A/B path)
-        if optflags.decode_attn_impl() == "fused":
-            o = ops.paged_decode_attention(
-                q, cache.k, cache.v, cache.positions, cache.block_table, pos,
-                window=window, cap=cfg.attn_softcap)
-        else:
-            k_g, v_g, pos_g = gather_pages(cache)
-            o = decode_attention(q, k_g, v_g, pos_g, pos, window=window,
-                                 cap=cfg.attn_softcap)
-    elif cache is not None and x.shape[1] == 1:
-        # per-slot ring write: row b is an independent request at its own
-        # depth, written into its own ring slot (in place)
-        B = x.shape[0]
-        S = cache.k.shape[1]
-        slot = (pos % S).long()
-        b = torch.arange(B, device=x.device)
-        cache.k[b, slot] = k[:, 0].to(cache.k.dtype)              # in place
-        cache.v[b, slot] = v[:, 0].to(cache.v.dtype)              # in place
-        cache.positions[b, slot] = pos.to(cache.positions.dtype)  # in place
-        o = decode_attention(q, cache.k, cache.v, cache.positions, pos,
-                             window=window, cap=cfg.attn_softcap)
+    if cache is not None and (decode_multi or x.shape[1] == 1):
+        o = _decode_attend(q, k, v, cache, positions, window,
+                           cfg.attn_softcap)
     else:
         from repro_torch.kernels import ops
         if cache is not None and isinstance(cache, PagedKVCache):

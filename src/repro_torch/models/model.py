@@ -166,12 +166,14 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _sublayer(x, p, cfg, meta, positions, cache, pos, prefix_len: int = 0):
+def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
+              decode_multi: bool = False):
     """One transformer layer. Returns (x, cache)."""
     h = L.norm_apply(x, p["norm1"], cfg.norm, cfg.norm_eps)
     mix, kv = L.attention_block(h, p["attn"], cfg, meta, positions,
                                 cache=cache["kv"] if cache else None,
-                                pos=pos, prefix_len=prefix_len)
+                                prefix_len=prefix_len,
+                                decode_multi=decode_multi)
     x = x + mix.to(x.dtype)
     h = L.norm_apply(x, p["norm2"], cfg.norm, cfg.norm_eps)
     f = L.ffn_swiglu(h, p["ffn"], cfg.act)
@@ -180,13 +182,19 @@ def _sublayer(x, p, cfg, meta, positions, cache, pos, prefix_len: int = 0):
 
 def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
             pos=None, last_only: bool = False, last_index=None,
-            prefix_len: int = 0):
+            prefix_len: int = 0, decode_multi: bool = False):
     """Token ids (B, T) → (logits, cache, aux).
 
     `cache`/`pos` engage the decode path (`pos` is a (B,) vector of
     per-slot positions; a scalar is broadcast). The cache is updated in
     place and returned. `prefix_len` is the continued-prefill offset.
+    `decode_multi` makes the T tokens T consecutive decode steps a slot
+    (the speculative verify): row t writes and attends at position pos + t.
     `last_index` (with `last_only`) picks which row feeds the lm_head.
+    The forward runs the first `cfg.num_layers // cfg.stack_period`
+    superblocks of the stacked params and cache, so a config of fewer
+    layers over the full tree is the early-exit draft
+    (train/step.py `make_draft_step`).
     `aux` is None (the MoE aux losses come with the MoE families).
 
     With `cfg.remat`, no cache and autograd recording, each superblock
@@ -225,7 +233,7 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
             c_j = (None if cache is None
                    else tree_map(lambda t: t[sb], cache[j]))
             x, _ = _sublayer(x, p_j, cfg, cfg.layer_kind(j), positions, c_j,
-                             pos, prefix_len)
+                             prefix_len, decode_multi)
         return x
 
     remat = cfg.remat and cache is None and torch.is_grad_enabled()

@@ -23,6 +23,18 @@
   datapath (`mode="approx"`) only when every active slot is a `bulk`
   request; prefill is always exact. `divergence_probe` measures the
   approximate tier's logits against the exact ones on one prompt.
+* **Self-speculative decoding** (DESIGN.md §9; `spec_k >= 1`,
+  `REPRO_SPEC_K`, kill switch `REPRO_SPEC_DECODE=0`): each iteration
+  drafts `spec_k` tokens with an early-exit forward over the first
+  `spec_draft_layers` superblocks, verifies them in one full-depth
+  forward whose B·(spec_k + 1) query rows fold into the decode batch,
+  and advances each slot by its accepted prefix plus one. Greedy streams
+  equal the plain chunked decode's.
+* **Prompt-length bucketing** (`bucket_prompts=True`,
+  `REPRO_PREFILL_BUCKET=1`): each prefill suffix is right-padded to a
+  bucket length (`_bucket_len`), so a mixed stream runs a few prefill
+  shapes; padded rows get position -1 and the first token reads the real
+  last row. `prefill_compiles` counts the distinct prefill shapes.
 
 Where the JAX engine donates the cache buffer to a jitted update, this
 engine updates the cache tensors in place (`_scatter_impl`, `_bind_impl`,
@@ -30,8 +42,7 @@ engine updates the cache tensors in place (`_scatter_impl`, `_bind_impl`,
 so at each site.
 
 Not ported yet, and refused with `ValueError("... not ported yet")`:
-disaggregated serving, speculative decoding, prompt-length bucketing and
-local-window caches.
+disaggregated serving and local-window caches.
 """
 from __future__ import annotations
 
@@ -50,12 +61,38 @@ from repro_torch.kernels.ops import fused_decode_supported
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import PagedKVCache
-from repro_torch.train.step import make_prefill_step, make_serve_step
+from repro_torch.train.step import (make_bucketed_prefill_step,
+                                    make_draft_step, make_prefill_step,
+                                    make_serve_step, make_verify_step)
 from .scheduler import PageAllocator, SlotScheduler
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-int(x) // m) * m
+
+
+def _bucket_len(n: int) -> int:
+    """Smallest length of 8, 12, 16, 24, 32, 48, 64, ... that is >= n:
+    neighbours are at most 1.5x apart, so bucketed prefill pads at most
+    50 % while a mixed-length stream runs O(log) prefill shapes."""
+    b = 8
+    while b < n:
+        b = b * 3 // 2 if (b & (b - 1)) == 0 else b * 4 // 3
+    return b
+
+
+def _draft(draft_step, params, tok, cache, pos, k: int):
+    """k greedy early-exit draft steps from each slot's last token at its
+    position → (drafts (B, k), cache). The drafts thread the shared cache:
+    draft i attends over draft i-1's early-layer keys; the verify later
+    rewrites every row a draft wrote."""
+    drafts = []
+    for _ in range(k):
+        logits, cache = draft_step(params, tok[:, None], cache, pos)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        pos = pos + 1
+        drafts.append(tok)
+    return torch.stack(drafts, dim=1), cache
 
 
 def _not_ported(what: str):
@@ -73,13 +110,19 @@ class ServeEngine:
                  kv_layout: str | None = None, page_size: int = 16,
                  pool_pages: int | None = None,
                  max_seq_len: int | None = None, spec_k: int | None = None,
+                 spec_draft_layers: int | None = None,
                  disagg: bool | None = None,
                  bucket_prompts: bool | None = None, device=None):
         """`cache_len` is the per-request capacity of the ring layout and
         sizes the paged one's pool: by default it holds `batch · cache_len`
         tokens plus the trash page, while `max_seq_len` (default
         `cache_len`, rounded up to a page) caps one request. `device`
-        defaults to the device the parameters live on."""
+        defaults to the device the parameters live on.
+
+        `spec_k` (default REPRO_SPEC_K, 0 = off) is the self-speculative
+        draft length, `spec_draft_layers` the draft's superblocks (default
+        half the stack); `bucket_prompts` (default REPRO_PREFILL_BUCKET)
+        pads prefill suffixes to bucket lengths."""
         M.check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -96,13 +139,13 @@ class ServeEngine:
                 f"REPRO_KV/kv_layout={kv_layout!r}; want 'ring' or 'paged'")
         if disagg or (disagg is None and _env_on("REPRO_DISAGG")):
             raise _not_ported("disaggregated serving")
-        if bucket_prompts or (bucket_prompts is None
-                              and _env_on("REPRO_PREFILL_BUCKET")):
-            raise _not_ported("prompt-length bucketing")
-        k = int(os.environ.get("REPRO_SPEC_K", 0)) if spec_k is None \
-            else int(spec_k)
-        if k > 0:
-            raise _not_ported("speculative decoding")
+        self._bucket_arg = bucket_prompts
+        self.spec_k = (optflags.spec_k() if spec_k is None
+                       else max(0, int(spec_k)))
+        n_super = cfg.num_layers // cfg.stack_period
+        self.spec_draft_layers = (
+            min(max(1, int(spec_draft_layers)), n_super)
+            if spec_draft_layers else max(1, n_super // 2))
         if any(cfg.layer_kind(j).get("attn") == "local"
                for j in range(cfg.stack_period)):
             raise _not_ported("serving with local-window layers")
@@ -115,9 +158,17 @@ class ServeEngine:
             or _round_up(batch * cache_len, self.page_size) // self.page_size
             + 1)                 # +1: the reserved trash page
         self._prefills: dict[int, Any] = {}
+        self._bucketed_prefills: dict[int, Any] = {}
+        # distinct prefill shapes run: (prefix_len, T, bucketed), the
+        # summary's `prefill_compiles`
         self._prefill_shapes: set[tuple[int, int, bool]] = set()
         self._serve_step = make_serve_step(cfg)
-        self._chunks: dict[tuple[int, bool, str], Any] = {}
+        # decode chunks keyed (steps or iters, greedy, mode, spec_k), 0 for
+        # the plain chunk: the JAX engine's jit-cache key
+        self._chunks: dict[tuple[int, bool, str, int], Any] = {}
+        # non-finite logits counted on the device (`_note_logits`); serve()
+        # and generate() reset it
+        self._nonfinite = 0
         self.last_stats: dict[str, float] = {}
 
     def new_cache(self, batch: int | None = None):
@@ -142,6 +193,25 @@ class ServeEngine:
         page is a pure function of the prompt tokens for the dense
         decoders this engine serves."""
         return optflags.prefix_cache_enabled() and self.kv_layout == "paged"
+
+    def bucketing_on(self) -> bool:
+        """Prompt-length bucketing (REPRO_PREFILL_BUCKET / `bucket_prompts`,
+        default off). The JAX engine gates it to pure-attention stacks
+        without local-window rings; every engine of the port is one (the
+        constructor refuses local windows, `check_supported` the rest)."""
+        return (self._bucket_arg if self._bucket_arg is not None
+                else optflags.prefill_bucket_enabled())
+
+    def spec_decoding_on(self) -> bool:
+        """Self-speculative decoding is armed (`spec_k >= 1` and the
+        REPRO_SPEC_DECODE kill switch up) and sound: the stack has at
+        least two superblocks to exit early from, and a ring holds the
+        verify block's `spec_k + 1` rows without collision."""
+        n_super = self.cfg.num_layers // self.cfg.stack_period
+        ring_ok = (self.kv_layout != "ring"
+                   or self.spec_k + 1 <= self.cache_len)
+        return (optflags.spec_decode_enabled() and self.spec_k >= 1
+                and n_super >= 2 and ring_ok)
 
     def _fingerprint(self) -> str:
         """Cache-key component isolating engines whose pages would not be
@@ -257,25 +327,43 @@ class ServeEngine:
                 self.cfg, prefix_len)
         return fn
 
+    def _bucketed_prefill_for(self, prefix_len: int):
+        fn = self._bucketed_prefills.get(prefix_len)
+        if fn is None:
+            fn = self._bucketed_prefills[prefix_len] = \
+                make_bucketed_prefill_step(self.cfg, prefix_len)
+        return fn
+
     def _pick(self, logits, greedy: bool, gen):
-        """Next tokens from (B, V) logits: argmax, or a sample drawn with
+        """Next tokens from (..., V) logits: argmax, or a sample drawn with
         the explicit generator."""
         if greedy:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(
-            torch.int32)
+        flat = probs.reshape(-1, probs.shape[-1])
+        return torch.multinomial(flat, 1, generator=gen)[:, 0].to(
+            torch.int32).reshape(probs.shape[:-1])
 
     def _prefill_request(self, scheduler, req, cache, greedy: bool, gen):
         """Build the dense fragment (prefix-cache load included), prefill
         the uncached suffix and pick the first token. Returns (frag,
         first, row, keep): `row` is the -1-padded (max_pages,) page run,
         `keep` the shared leading page count (both None on the ring
-        layout, whose fragment is a whole ring row)."""
+        layout, whose fragment is a whole ring row). With bucketing on the
+        suffix is padded to `_bucket_len(suffix)` where that still fits
+        one request (`max_seq_len`, or the ring's `cache_len`); a paged
+        fragment rounded up past the request's pages scatters its padding
+        pages to the trash page (`_scatter_impl`)."""
         paged = self.kv_layout == "paged"
         shared = req.shared_tokens if paged else 0
         suffix = req.prompt_len - shared
-        frag = (self.new_frag(shared + suffix) if paged
+        Tb = suffix
+        bucketed = self.bucketing_on()
+        if bucketed:
+            b = _bucket_len(suffix)
+            if shared + b <= (self.max_seq_len if paged else self.cache_len):
+                Tb = b
+        frag = (self.new_frag(shared + Tb) if paged
                 else self.new_cache(batch=1))
         if shared:
             src = list(req.pages[:shared // self.page_size])
@@ -285,10 +373,16 @@ class ServeEngine:
                 frag, cache, torch.tensor(src, dtype=torch.int32), shared)
             if req.cow_src is not None:
                 scheduler.cow_done(req)
-        tokens = torch.tensor(req.prompt[shared:], dtype=torch.int32,
-                              device=self.device)[None]
-        self._prefill_shapes.add((shared, suffix, False))
-        logits, frag = self._prefill_for(shared)(self.params, tokens, frag)
+        padded = np.zeros((1, Tb), np.int32)
+        padded[0, :suffix] = req.prompt[shared:]
+        tokens = torch.from_numpy(padded).to(self.device)
+        self._prefill_shapes.add((shared, Tb, bucketed))
+        if bucketed:
+            logits, frag = self._bucketed_prefill_for(shared)(
+                self.params, tokens, frag, suffix - 1, req.prompt_len)
+        else:
+            logits, frag = self._prefill_for(shared)(self.params, tokens,
+                                                     frag)
         self._note_logits(logits)
         first = int(self._pick(logits[:, -1], greedy, gen)[0])
         if not paged:
@@ -319,7 +413,7 @@ class ServeEngine:
         Returns run(params, tok, cache, pos, frontend, gen) → (tok, cache,
         pos, gen, toks (steps, B)); the caller fetches `toks` once per
         chunk. `mode` selects the SA datapath for the chunk's policy."""
-        key = (steps, greedy, mode)
+        key = (steps, greedy, mode, 0)      # 0: the non-speculative chunk
         if key not in self._chunks:
             serve_step = self._serve_step
 
@@ -338,6 +432,98 @@ class ServeEngine:
 
             self._chunks[key] = run
         return self._chunks[key]
+
+    def _spec_chunk_fn(self, iters: int, greedy: bool, mode: str, k: int):
+        """`iters` draft-then-verify iterations back to back, no host sync
+        inside. Each drafts k tokens a slot with the early-exit step (greedy
+        whatever the sampling), scores [tok ‖ drafts] with one verify
+        forward and advances every slot by its accepted prefix plus one:
+
+        * verify column t's target is the token plain decode would emit at
+          position pos + t, so the longest prefix where draft == target is
+          correct output, and column `acc` rides free (a reject-all
+          iteration still emits one token);
+        * rollback is the position's non-advance: verify writes past the
+          new position stay masked (positions <= pos) and the next
+          iteration overwrites them in place.
+
+        Returns run(params, tok, cache, pos, frontend, gen) → (tok, cache,
+        pos, gen, toks (iters, B, k+1), accs (iters, B)); the caller
+        fetches `toks` and `accs` once per chunk and hands them to
+        `scheduler.observe_spec`. `mode` selects the SA datapath."""
+        key = (iters, greedy, mode, k)
+        if key not in self._chunks:
+            draft_step = make_draft_step(self.cfg, self.spec_draft_layers)
+            verify_step = make_verify_step(self.cfg)
+
+            def run(params, tok, cache, pos, frontend, gen):
+                if frontend is not None:
+                    raise ValueError("serve() is text-only")
+                pol = dataclasses.replace(current_policy(), mode=mode)
+                toks, accs = [], []
+                with use_policy(pol):
+                    for _ in range(iters):
+                        drafts, cache = _draft(draft_step, params, tok,
+                                               cache, pos, k)   # (B, k)
+                        block = torch.cat([tok[:, None], drafts], dim=1)
+                        logits, cache = verify_step(params, block, cache,
+                                                    pos)
+                        self._note_logits(logits)
+                        out = self._pick(logits, greedy, gen)  # (B, k+1)
+                        match = (drafts == out[:, :-1]).to(torch.int32)
+                        acc = torch.cumprod(match, dim=1).sum(dim=1).to(
+                            torch.int32)                         # (B,)
+                        tok = torch.gather(out, 1, acc[:, None].long())[:, 0]
+                        pos = pos + acc + 1
+                        toks.append(out)
+                        accs.append(acc)
+                return (tok, cache, pos, gen, torch.stack(toks),
+                        torch.stack(accs))
+
+            self._chunks[key] = run
+        return self._chunks[key]
+
+    def spec_timing_probe(self, reps: int = 3) -> dict:
+        """Per-iteration wall time of the draft (k early-exit steps) and of
+        the verify at this engine's serving shapes, on a fresh cache (the
+        same operations; serve() cannot split the two without a sync
+        between them). Timed with CUDA events on the card and the host
+        clock on the CPU. Returns {"draft_s", "verify_s"}."""
+        k = self.spec_k
+        draft_step = make_draft_step(self.cfg, self.spec_draft_layers)
+        verify_step = make_verify_step(self.cfg)
+        cache = (self.new_pool() if self.kv_layout == "paged"
+                 else self.new_cache())
+        zeros = torch.zeros((self.batch,), dtype=torch.int32,
+                            device=self.device)
+        block = torch.zeros((self.batch, k + 1), dtype=torch.int32,
+                            device=self.device)
+
+        def draft():
+            _draft(draft_step, self.params, zeros, cache, zeros, k)
+
+        def verify():
+            verify_step(self.params, block, cache, zeros)
+
+        cuda = self.device.type == "cuda"
+        out = {}
+        for name, fn in (("draft_s", draft), ("verify_s", verify)):
+            fn()                                            # warm
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    fn()
+                end.record()
+                end.synchronize()
+                out[name] = start.elapsed_time(end) / 1000.0 / reps
+            else:
+                t = time.monotonic()
+                for _ in range(reps):
+                    fn()
+                out[name] = (time.monotonic() - t) / reps
+        return out
 
     # ------------------------------------------------------------------
     # quality-tier instrumentation
@@ -481,8 +667,11 @@ class ServeEngine:
         Per-request results live on `scheduler.finished`; returns
         `scheduler.summary()` merged with the engine's wall-time split and
         `nonfinite_logits` (logits over the real vocabulary that were not
-        finite, prefill and decode); `chunks_exact` and `chunks_approx`
-        where an approximate chunk ran."""
+        finite, prefill, decode and verify); `chunks_exact` and
+        `chunks_approx` where an approximate chunk ran; with speculative
+        decoding on, `spec_k`, `spec_draft_layers`, `spec_iters` and
+        `spec_accept_hist` beside the scheduler's `spec_drafted`,
+        `spec_accepted` and `spec_accept_rate`."""
         assert scheduler.n_slots == self.batch, (
             scheduler.n_slots, self.batch)
         B = self.batch
@@ -509,14 +698,21 @@ class ServeEngine:
         pos = torch.zeros((B,), dtype=torch.int32, device=self.device)
         prefill_s = decode_s = handoff_s = decode_stall_s = 0.0
         chunk_modes = {"exact": 0, "approx": 0}
+        spec = self.spec_decoding_on()
+        # a spec iteration emits 1..spec_k+1 tokens: the chunk's emission
+        # capacity matches the plain chunk's sync_every tokens
+        spec_iters = (max(1, -(-self.sync_every // (self.spec_k + 1)))
+                      if spec else 0)
+        spec_chunks = 0
 
         # warm-up chunk before the timed loop (kernel libraries load on
         # first use). Safe on the fresh cache: no block table is mapped,
         # so paged writes land on the trash page, and an admission
         # overwrites a ring row whole; tok/pos are discarded.
         t_c = clock()
-        cache = self._chunk_fn(self.sync_every, greedy)(
-            self.params, tok, cache, pos, None, gen)[1]
+        warm = (self._spec_chunk_fn(spec_iters, greedy, "exact", self.spec_k)
+                if spec else self._chunk_fn(self.sync_every, greedy))
+        cache = warm(self.params, tok, cache, pos, None, gen)[1]
         sync()
         compile_s = clock() - t_c
 
@@ -580,12 +776,22 @@ class ServeEngine:
             mode = "approx" if active_tiers == {"bulk"} else "exact"
             chunk_modes[mode] += 1
             t_d = now()
-            tok, cache, pos, gen, toks = self._chunk_fn(
-                self.sync_every, greedy, mode)(self.params, tok, cache, pos,
-                                               None, gen)
-            toks_np = toks.cpu().numpy()   # the chunk's single host sync
-            decode_s += now() - t_d
-            scheduler.observe(toks_np, now(), mode=mode)
+            if spec:
+                tok, cache, pos, gen, toks, accs = self._spec_chunk_fn(
+                    spec_iters, greedy, mode, self.spec_k)(
+                    self.params, tok, cache, pos, None, gen)
+                toks_np = toks.cpu().numpy()   # the chunk's host sync
+                accs_np = accs.cpu().numpy()
+                decode_s += now() - t_d
+                spec_chunks += 1
+                scheduler.observe_spec(toks_np, accs_np, now(), mode=mode)
+            else:
+                tok, cache, pos, gen, toks = self._chunk_fn(
+                    self.sync_every, greedy, mode)(self.params, tok, cache,
+                                                   pos, None, gen)
+                toks_np = toks.cpu().numpy()   # the chunk's single host sync
+                decode_s += now() - t_d
+                scheduler.observe(toks_np, now(), mode=mode)
 
         summary = scheduler.summary()
         if chunk_modes["approx"]:
@@ -601,6 +807,12 @@ class ServeEngine:
                     "decode_stall_s": round(decode_stall_s, 4),
                     "prefill_compiles": len(self._prefill_shapes),
                     "disagg": False}
+        if spec_chunks:
+            summary |= {"spec_k": self.spec_k,
+                        "spec_draft_layers": self.spec_draft_layers,
+                        "spec_iters": spec_chunks * spec_iters,
+                        "spec_accept_hist": dict(sorted(
+                            scheduler.spec_accept_hist.items()))}
         if paged:
             # the paged decode-attention path the chunks ran (the ring
             # layout attends over its dense rows, plain torch as in the

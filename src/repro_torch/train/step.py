@@ -2,11 +2,15 @@
 
 `make_train_step` is the JAX package's training step: strided microbatch
 gradient accumulation in fp32, remat inside the model's superblocks, AdamW
-on fp32 masters. `make_prefill_step` / `make_serve_step` are the decode
-path's steps. PyTorch runs eagerly, so each factory returns a plain
-function; the serve steps update the cache in place and return it.
+on fp32 masters. `make_prefill_step`, `make_bucketed_prefill_step` and
+`make_serve_step` are the decode path's steps, `make_draft_step` and
+`make_verify_step` self-speculative decoding's. PyTorch runs eagerly, so
+each factory returns a plain function; the serve steps update the cache in
+place and return it.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -94,6 +98,31 @@ def make_prefill_step(cfg: ArchConfig, prefix_len: int = 0):
     return prefill
 
 
+def make_bucketed_prefill_step(cfg: ArchConfig, prefix_len: int = 0):
+    """prefill(params, tokens, cache, last_idx, valid_len) → (logits_last,
+    cache) for prompt-length bucketing: `tokens` is a suffix right-padded
+    to a bucket length. The lm_head reads row `last_idx` (the real
+    suffix's last row), and every cache row at position >= `valid_len`
+    (the real absolute prompt length) gets position -1 after the forward:
+    its K/V came from padding, and -1 hides it from the attention mask
+    until a decode step overwrites it. Causal masking keeps the padding
+    out of the real rows, so they come out of an exact-length prefill's
+    arithmetic. Sound for attention-only stacks without local windows."""
+
+    def prefill(params, tokens, cache, last_idx: int, valid_len: int,
+                frontend=None):
+        if frontend is not None:
+            raise ValueError("modality frontends are not ported yet")
+        logits, cache, _ = M.forward(params, cfg, tokens, cache=cache,
+                                     last_only=True, last_index=last_idx,
+                                     prefix_len=prefix_len)
+        for c in cache:
+            c["kv"].positions[..., int(valid_len):] = -1          # in place
+        return logits, cache
+
+    return prefill
+
+
 def make_serve_step(cfg: ArchConfig):
     """One decode step: (params, token (B,1), cache, pos (B,), [frontend])
     → (logits (B,1,V), cache)."""
@@ -106,3 +135,37 @@ def make_serve_step(cfg: ArchConfig):
         return logits, cache
 
     return serve_step
+
+
+def make_draft_step(cfg: ArchConfig, draft_layers: int):
+    """Early-exit decode step for self-speculative drafting: the first
+    `draft_layers` superblocks of the same params, then the shared final
+    norm and lm_head. (params, token (B,1), cache, pos (B,)) → (logits
+    (B,1,V), cache). The forward of a config with `draft_layers` periods
+    runs exactly those superblocks of the full params and cache, and its
+    in-place KV writes land in them: what the JAX step merges back into
+    the full cache. The verify later rewrites every row a draft wrote."""
+    sub = dataclasses.replace(cfg,
+                              num_layers=draft_layers * cfg.stack_period)
+
+    def draft_step(params, token, cache, pos):
+        logits, cache, _ = M.forward(params, sub, token, cache=cache,
+                                     pos=pos)
+        return logits, cache
+
+    return draft_step
+
+
+def make_verify_step(cfg: ArchConfig):
+    """Batched speculative verify: (params, tokens (B, k+1), cache, pos
+    (B,)) → (logits (B, k+1, V), cache). Column 0 is each slot's last
+    emitted token, columns 1..k the draft; one full-depth forward in
+    decode_multi mode scores all k+1 next-token distributions and writes
+    KV at pos..pos+k a slot."""
+
+    def verify_step(params, tokens, cache, pos):
+        logits, cache, _ = M.forward(params, cfg, tokens, cache=cache,
+                                     pos=pos, decode_multi=True)
+        return logits, cache
+
+    return verify_step

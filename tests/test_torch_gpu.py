@@ -819,3 +819,108 @@ def test_sa_matmul_backward_bound_rejects_a_dropped_jacobian(cuda):
     bad, _ = MM.backward_gemms_ref(a, w, dy)
     bound = MM.error_bound(du, w.t()) + 2.0 ** -7 * da.abs()
     assert float(((da - bad).abs() / bound).max()) > 1.0
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 5, 15, 16, 17, 20, 23, 24, 64, 1024])
+def test_rmsnorm_rows_fold_bit_identically(cuda, m):
+    """A row's rmsnorm (a PyTorch reduction between the kernels) on the
+    card does not depend on how many rows the call holds: decode's B
+    against the verify's B·(k+1), a prompt against its bucket. The
+    speculative verify's exactness rests on it as on ROADMAP F2."""
+    from repro_torch.models.layers import rmsnorm
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((1024, 5120), generator=g, device=cuda).to(
+        torch.bfloat16)
+    w = torch.rand((5120,), generator=g, device=cuda) + 0.5
+    ref = rmsnorm(x[:20], w)
+    got = rmsnorm(x[:m], w)
+    n = min(m, 20)
+    assert torch.equal(got[:n].view(torch.int16), ref[:n].view(torch.int16))
+
+
+def _spec_stream(eng, lens=(17, 40, 9), max_new=9):
+    from repro_torch.launch.serve import stream_digest
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    sched = SlotScheduler(eng.batch, eos_id=-1)
+    _submit(sched, eng.cfg, lens, ("premium",) * len(lens), max_new)
+    ops.reset_counts()
+    summary = eng.serve(sched)
+    assert summary["pages_leaked"] == 0 and summary["nonfinite_logits"] == 0
+    assert all(v["plain_calls"] == 0 for v in ops.counts().values())
+    return stream_digest(sched.finished), summary
+
+
+def test_spec_full_width_two_layers(cuda, monkeypatch):
+    """Self-speculative decoding at full width, two layers, on the cuda
+    backend with the fused decode kernel: a draft of the whole stack is
+    the plain decode step at M = B, the verify the same rows folded at M =
+    B·(k+1), so every draft is accepted; a one-layer draft gives the plain
+    stream's digest."""
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    plain, _ = _spec_stream(_two_layer_engine(cuda))
+    full, s_full = _spec_stream(_two_layer_engine(cuda, spec_k=4,
+                                                  spec_draft_layers=2))
+    half, s_half = _spec_stream(_two_layer_engine(cuda, spec_k=4,
+                                                  spec_draft_layers=1))
+    assert s_full["spec_accept_rate"] == 1.0
+    assert full == half == plain
+    assert s_half["spec_drafted"] > 0 and s_half["spec_draft_layers"] == 1
+    assert ops.route_counts()["sa_matmul"]["partial"] == 0
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16])
+def test_verify_logits_fold_bit_identically(cuda, monkeypatch, pool):
+    """The exactness argument at full width under the bf16 policy: the
+    verify's folded logits (B = 4, k = 4: M = 20, the SA GEMM's small tile
+    and 20 paged decode rows) equal four sequential decode steps' (M = 4,
+    the decode tile) bit for bit, and both leave the same pool."""
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_serve_step, make_verify_step
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    eng = _two_layer_engine(cuda, cache_dtype=pool)
+    eng = type(eng)(eng.cfg, eng.params, batch=4, cache_len=48,
+                    cache_dtype=pool, page_size=16)
+    cache = eng.new_pool()
+    for c in cache:
+        for b in range(4):
+            c["kv"].block_table[:, b, :3] = torch.arange(1 + 3 * b,
+                                                        4 + 3 * b)
+    g = torch.Generator().manual_seed(1)
+    pre = torch.randint(0, eng.cfg.vocab_size, (4, 11), generator=g,
+                        dtype=torch.int32).to(cuda)
+    block = torch.randint(0, eng.cfg.vocab_size, (4, 5), generator=g,
+                          dtype=torch.int32).to(cuda)
+    step = make_serve_step(eng.cfg)
+    pos = torch.tensor([0, 3, 5, 6], dtype=torch.int32, device=cuda)
+    for t in range(11):
+        _, cache = step(eng.params, pre[:, t:t + 1], cache, pos + t)
+    pos = pos + 11
+    folded = M.tree_map(torch.clone, cache)
+    ops.reset_counts()
+    vl, folded = make_verify_step(eng.cfg)(eng.params, block, folded, pos)
+    assert ops.counts()["paged_decode"]["launches"] == eng.cfg.num_layers
+    rows = []
+    for t in range(5):
+        lg, cache = step(eng.params, block[:, t:t + 1], cache, pos + t)
+        rows.append(lg[:, 0])
+    seq = torch.stack(rows, 1)
+    assert torch.equal(vl.view(torch.int32), seq.view(torch.int32))
+    for a, b in zip(M.tree_leaves(folded), M.tree_leaves(cache)):
+        assert torch.equal(a, b)
+
+
+def test_bucketed_prefill_full_width_two_layers(cuda, monkeypatch):
+    """Prompt lengths 17, 20 and 23 bucket to one prefill shape (24): the
+    stream digest equals the unbucketed serve's (three shapes), and
+    prefill attention runs the `mma` route at the padded length."""
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    plain, s_plain = _spec_stream(_two_layer_engine(cuda), lens=(17, 20, 23))
+    got, s_got = _spec_stream(_two_layer_engine(cuda, bucket_prompts=True),
+                              lens=(17, 20, 23))
+    routes = ops.route_counts()["prefill_attention"]
+    assert got == plain
+    assert s_plain["prefill_compiles"] == 3 and s_got["prefill_compiles"] == 1
+    assert routes["simt"] == 0 and routes["mma"] > 0
