@@ -55,12 +55,26 @@ Phases, in order; any failure exits nonzero:
              run's chunks and divergence probe account for, no plain
              version, every premium request's tokens bit-identical to the
              all-premium serve's; the full-depth `[divergence]` line
-             (max_ulp > 0, every value finite) and the `energy_*` keys.
+             (max_ulp > 0, every value finite) and the `energy_*` keys;
+             the probe's batch-1 ring decodes through the paged-decode
+             kernel (its launches in the exact counts).
    ring    — the serve stream with `--kv ring` and on the paged pool, both
-             under REPRO_DECODE_ATTN=gather: one digest; the ring's digest
-             beside the fused paged serve's (tokens that agree counted);
-             `generate()` on 4 equal-length prompts (the prefill kernel at
-             B = 4) equal to the ring serve of the same requests.
+             under REPRO_DECODE_ATTN=gather (ROADMAP F5): both decode
+             through the paged-decode kernel over dense rows, L launches a
+             decode step the run's chunks and warm-up imply, and both give
+             the fused serve's digest, every token equal; `generate()` on
+             4 equal-length prompts (the prefill kernel at B = 4) equal to
+             the ring serve of the same requests.
+   disagg  — the serve stream with a 32-token system prompt before half
+             the prompts (the prefix cache hit: continued prefill at
+             `q_offset` 32, the prefix loaded from the pool) served
+             unified, `--disagg --prefill-workers 2`, unified under
+             REPRO_PREFIX_CACHE=0 and `--decode-replicas 2 --disagg`: one
+             digest, prefix hits >= 1 and equal in the first two and none
+             in the third, no page leaked, `disagg` with the ready queue's
+             depth where asked, no plain version, every GEMM and prefill
+             on `mma`; each run's wall split and ITL, the replicas'
+             serial and parallel walls.
    spec    — the serve stream with `--spec-k 4` on the same weights
              (self-speculative decoding, fp32 pool, fused decode), with
              drafts of 24 and of all 48 superblocks: every request
@@ -72,7 +86,11 @@ Phases, in order; any failure exits nonzero:
              the draft's bits at M = 4: F2 on a served path); the accept
              histogram, ITL, decode_tok_s, the probe's draft and verify
              seconds an iteration, and the device time a layer of the
-             decode step, the draft and the verify by kernel class.
+             decode step, the draft and the verify by kernel class; the
+             verify's 20 rows a layer beside their yardsticks (the 7
+             GEMMs at M = 20 against bf16 torch.matmul and the byte bound,
+             paged decode over 20 rows against SDPA on the gathered view
+             and its bound).
    bucket  — 8 requests of 17, 20, 23, 40 and 47 prompt tokens on the
              same weights, with and without `--bucket-prompts`: one
              digest, 2 prefill shapes (24, 48) against 5, prefill
@@ -131,7 +149,8 @@ policy.
 
 Each phase's wall time is printed. The last lines are the kernels JSON
 line (with each tiered kernel's `mode_launches`, the spec phase's launches
-and per-layer times, the bucket phase's prefill readings), the nvidia-smi
+and per-layer times, the verify's yardsticks, the bucket phase's prefill
+readings, the ring and disagg runs' launches), the nvidia-smi
 line and `{"ok": true, "device": {...}}`. `--log FILE` also writes every
 line this script logs to FILE.
 """
@@ -146,6 +165,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s (data sheet)
 PEAK_BF16 = 989e12        # dense bf16 tensor-core flop/s (data sheet)
@@ -1986,10 +2006,12 @@ def _expected_modes(cfg, summary, sync_every, probe_steps, prefills):
     """Each kernel's launches by mode that a tiered run of the driver must
     show, counted from the run's own record: a forward launches 7 GEMMs a
     layer and the lm_head's (prefill computes the last row's logits
-    only); the engine's warm-up chunk (`sync_every` steps) and every exact
-    chunk run exact, approx chunks approx; the divergence probe prefills
-    once (exact) and decodes `probe_steps` exact and `probe_steps` approx
-    steps on a dense ring (plain attention, as in the JAX engine)."""
+    only) and a decode step a paged decode a layer; the engine's warm-up
+    chunk (`sync_every` steps) and every exact chunk run exact, approx
+    chunks approx; the divergence probe prefills once (exact) and decodes
+    `probe_steps` exact and `probe_steps` approx steps on a batch-1 dense
+    ring, which on the card decodes through the paged-decode kernel over
+    the ring's rows (ROADMAP F5)."""
     L = cfg.num_layers
     gemms = 7 * L + 1
     exact_steps = sync_every * (1 + summary.get("chunks_exact", 0))
@@ -1997,7 +2019,8 @@ def _expected_modes(cfg, summary, sync_every, probe_steps, prefills):
     return {
         "gemm": {"exact": gemms * (prefills + exact_steps + 1 + probe_steps),
                  "approx": gemms * (approx_steps + probe_steps)},
-        "paged_decode": {"exact": L * exact_steps, "approx": L * approx_steps},
+        "paged_decode": {"exact": L * (exact_steps + probe_steps),
+                         "approx": L * (approx_steps + probe_steps)},
         "prefill_attention": {"exact": L * (prefills + 1), "approx": 0}}
 
 
@@ -2119,8 +2142,9 @@ def tiers_emulate(torch, engine, exact):
     through the driver on the emulate phase's weights: every decode chunk
     approx, fp_emu's launches by mode exactly as the run's chunks and the
     probe account for (its exact launches the prefills', the warm-up
-    chunk's and the probe's exact pass; approx > 0), the SA GEMM never
-    launched, no plain version. Prints prefill_s, ITL and fp_emu's device
+    chunk's and the probe's exact pass; approx > 0) and paged decode's
+    likewise (the probe's ring included), the SA GEMM never launched, no
+    plain version. Prints prefill_s, ITL and fp_emu's device
     time a decode step beside the exact emulate serve's (`exact`)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as drv
@@ -2139,6 +2163,10 @@ def tiers_emulate(torch, engine, exact):
     if modes["fp_emu"] != want["gemm"] or modes["fp_emu"]["approx"] <= 0:
         problems.append(f"fp_emu launches by mode {modes['fp_emu']}, want "
                         f"{want['gemm']}")
+    if modes["paged_decode"] != want["paged_decode"]:
+        problems.append(f"paged decode launches by mode "
+                        f"{modes['paged_decode']}, want "
+                        f"{want['paged_decode']}")
     if counts["sa_matmul"]["launches"] != 0:
         problems.append("the SA GEMM launched under the emulate backend")
     if any(c["plain_calls"] for c in counts.values()):
@@ -2160,30 +2188,38 @@ def tiers_emulate(torch, engine, exact):
     return modes, step
 
 
+def _decode_steps(eng, sched) -> int:
+    """The decode steps a plain (non-speculative) serve ran, from its own
+    record: the warm-up chunk and one chunk a scheduler observation, each
+    `sync_every` steps."""
+    return eng.sync_every * (1 + len(sched.depth_samples))
+
+
 def ring(torch, engine, serve_summary, serve_sched):
-    """The ring KV layout at full width on the serve phase's weights:
-    the serve stream with `--kv ring` and the paged serve, both under
-    REPRO_DECODE_ATTN=gather (the same dense rows in the same order), must
-    give one digest (the ring's insert, refill and clear); the ring's
-    digest beside the fused paged serve's (printed, the tokens that agree
-    counted: the decode kernel is held to an ulp bound, not to bits);
-    then `generate()` on 4 equal-length prompts (one batched prefill,
-    B = 4, through the prefill kernel) must equal the ring serve of the
-    same 4 requests."""
+    """The ring KV layout at full width on the serve phase's weights, and
+    ROADMAP F5: the serve stream with `--kv ring` and on the paged pool
+    under REPRO_DECODE_ATTN=gather. On the card both decode through the
+    paged-decode kernel over dense rows (`dense_pool_view`: the ring's
+    rows, and the pool's gathered view), so each must launch it exactly L
+    times a decode step that the run's chunks and warm-up imply, and both
+    must give the fused serve's digest (the serve phase's), every token
+    equal; then `generate()` on 4 equal-length prompts (one batched
+    prefill, B = 4, through the prefill kernel) must equal the ring serve
+    of the same 4 requests. Returns the ring and gather runs' launches."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as drv
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.scheduler import SlotScheduler
 
     problems = []
-    out = {}
+    out, launches = {}, {}
     os.environ["REPRO_DECODE_ATTN"] = "gather"
     try:
         for layout in ("ring", "paged"):
             ops.reset_counts()
-            summary, sched, _ = drv.main(SERVE_ARGS + ["--kv", layout],
-                                         return_state=True,
-                                         params=engine.params)
+            summary, sched, eng = drv.main(SERVE_ARGS + ["--kv", layout],
+                                           return_state=True,
+                                           params=engine.params)
             torch.cuda.synchronize()
             counts = ops.counts()
             out[layout] = (summary, {r.rid: r.tokens for r in sched.finished})
@@ -2193,24 +2229,38 @@ def ring(torch, engine, serve_summary, serve_sched):
                                 f"non-finite")
             if any(c["plain_calls"] for c in counts.values()):
                 problems.append(f"a plain version ran ({layout}): {counts}")
-            if counts["paged_decode"]["launches"]:
-                problems.append(f"paged decode launched under gather "
-                                f"({layout})")
+            want = eng.cfg.num_layers * _decode_steps(eng, sched)
+            got = counts["paged_decode"]["launches"]
+            launches[layout] = got
+            if got != want:
+                problems.append(f"paged decode launched {got} times under "
+                                f"gather ({layout}), want {want}: L x the "
+                                f"run's decode steps")
+            del eng, sched
     finally:
         del os.environ["REPRO_DECODE_ATTN"]
     d_ring = out["ring"][0]["stream_digest"]
     d_paged = out["paged"][0]["stream_digest"]
-    if d_ring != d_paged:
-        problems.append(f"ring digest {d_ring} != paged gather {d_paged}")
+    d_fused = serve_summary["stream_digest"]
     fused = {r.rid: r.tokens for r in serve_sched.finished}
-    agree = sum(a == b for rid, toks in out["ring"][1].items()
-                for a, b in zip(toks, fused[rid]))
+    agree = {layout: sum(a == b for rid, toks in out[layout][1].items()
+                         for a, b in zip(toks, fused[rid]))
+             for layout in out}
+    if not d_ring == d_paged == d_fused:
+        problems.append(f"digests ring (gather) {d_ring}, paged (gather) "
+                        f"{d_paged}, fused serve {d_fused}: want one (F5)")
+    for layout, n in agree.items():
+        if n != 8 * MAX_NEW:
+            problems.append(f"{layout} (gather) tokens equal to the fused "
+                            f"serve's {n}/{8 * MAX_NEW}")
     log(f"[ring] digest ring (gather) {d_ring}, paged (gather) {d_paged}, "
-        f"paged (fused kernel, serve phase) {serve_summary['stream_digest']}"
-        f"; ring tokens equal to the fused serve's {agree}/{8 * MAX_NEW}; "
-        f"ring prefill_s {out['ring'][0]['prefill_s']} decode_s "
-        f"{out['ring'][0]['decode_s']} itl_p50 "
-        f"{out['ring'][0].get('decode_itl_p50_ms')} ms")
+        f"paged (fused kernel, serve phase) {d_fused}; tokens equal to the "
+        f"fused serve's: ring {agree['ring']}/{8 * MAX_NEW}, gather "
+        f"{agree['paged']}/{8 * MAX_NEW}; paged decode launches ring "
+        f"{launches['ring']}, gather {launches['paged']}; ring prefill_s "
+        f"{out['ring'][0]['prefill_s']} decode_s {out['ring'][0]['decode_s']}"
+        f" itl_p50 {out['ring'][0].get('decode_itl_p50_ms')} ms; gather "
+        f"itl_p50 {out['paged'][0].get('decode_itl_p50_ms')} ms")
 
     eng = ServeEngine(engine.cfg, engine.params, BATCH, CACHE_LEN,
                       eos_id=-1, kv_layout="ring", device="cuda")
@@ -2246,6 +2296,103 @@ def ring(torch, engine, serve_summary, serve_sched):
         f"{BATCH - len(differ)}/{BATCH}")
     if problems:
         raise AssertionError("ring phase failed: " + "; ".join(problems))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# disagg: disaggregated serving, replicas and the prefix cache
+# ---------------------------------------------------------------------------
+
+# the serve stream with one 32-token system prompt (two whole pages) before
+# half the prompts: seed 0 gives it to rids 0, 1, 3, 5, 6 and 7
+PREFIX_ARGS = SERVE_ARGS + ["--prefix-mix", "0.5", "--prefix-len", "32"]
+DISAGG_RUNS = {"unified": ([], {}),
+               "disagg": (["--disagg", "--prefill-workers", "2"], {}),
+               "no_prefix_cache": ([], {"REPRO_PREFIX_CACHE": "0"}),
+               "replicas": (["--decode-replicas", "2", "--disagg"], {})}
+
+
+def disagg(torch, engine):
+    """Disaggregated serving, replicas and the prefix cache at full width
+    and depth on the serve phase's weights: the prefix stream
+    (`PREFIX_ARGS`) served (a) unified, (b) `--disagg --prefill-workers
+    2`, (c) unified under REPRO_PREFIX_CACHE=0 and (d) `--decode-replicas
+    2 --disagg`. The shared prompt's pages are hit (continued prefill with
+    `q_offset` into the prefill kernel, the prefix loaded from the pool,
+    the copy-on-write tail). Gates: one stream digest across the four (a
+    prefix hit gives a row the bits of a full prefill); 8 requests of 16
+    tokens in each; prefix hits >= 1 in (a) and as many in (b), none in
+    (c) (no `prefix_hits` key); no page leaked; `disagg` True with
+    `ready_depth_p50` in (b) and (d); finite logits; no plain version; the
+    path's kernels launched, every SA GEMM and prefill on `mma`. Prints
+    each run's wall split, ITL and the replicas' serial and parallel
+    walls. Returns the readings."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+
+    problems, out = [], {}
+    for name, (flags, env) in DISAGG_RUNS.items():
+        os.environ.update(env)
+        ops.reset_counts()
+        t0 = time.monotonic()
+        try:
+            state = drv.main(PREFIX_ARGS + flags, return_state=True,
+                             params=engine.params)
+        finally:
+            for key in env:
+                del os.environ[key]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        summary = state[0]
+        scheds = state[1] if name == "replicas" else [state[1]]
+        finished = [r for sc in scheds for r in sc.finished]
+        counts, routes = ops.counts(), ops.route_counts()
+        # the replicas' requests are checked as one scheduler's
+        problems += [f"{name}: {p}" for p in _path_checks(
+            summary, types.SimpleNamespace(finished=finished), counts,
+            routes, 8, MAX_NEW)]
+        for kern in PATH_KERNELS["cuda"]:
+            if counts[kern]["launches"] <= 0:
+                problems.append(f"{name}: kernel {kern} never launched")
+        keys = ("stream_digest", "prefix_hits", "prefix_tokens_saved",
+                "cow_forks", "pages_leaked", "disagg", "ready_depth_p50",
+                "prefill_busy_s", "decode_busy_s", "handoff_s",
+                "decode_stall_s", "decode_itl_p50_ms", "prefill_compiles",
+                "wall_s", "wall_s_serial", "wall_s_parallel")
+        r = {k: summary[k] for k in keys if k in summary}
+        r["launches"] = {k: counts[k]["launches"] for k in PATH_KERNELS["cuda"]}
+        out[name] = r
+        log(f"[disagg {name}] wall {wall:.2f} s; " + " ".join(
+            f"{k}={v}" for k, v in r.items()))
+        del state, scheds, finished
+    digests = {name: r["stream_digest"] for name, r in out.items()}
+    if len(set(digests.values())) != 1:
+        problems.append(f"stream digests {digests}: want one")
+    hits = out["unified"].get("prefix_hits")
+    if not hits or out["disagg"].get("prefix_hits") != hits:
+        problems.append(f"prefix hits unified {hits}, disagg "
+                        f"{out['disagg'].get('prefix_hits')}: want >= 1 and "
+                        f"equal")
+    if "prefix_hits" in out["no_prefix_cache"]:
+        problems.append("REPRO_PREFIX_CACHE=0 reported prefix hits")
+    for name in ("disagg", "replicas"):
+        if out[name].get("disagg") is not True or out[name].get(
+                "ready_depth_p50") is None:
+            problems.append(f"{name}: disagg {out[name].get('disagg')}, "
+                            f"ready_depth_p50 "
+                            f"{out[name].get('ready_depth_p50')}")
+    log("[disagg] " + "; ".join(
+        f"{name}: prefill_busy {out[name].get('prefill_busy_s')} s "
+        f"decode_busy {out[name].get('decode_busy_s')} s handoff "
+        f"{out[name].get('handoff_s')} s decode_stall "
+        f"{out[name].get('decode_stall_s')} s itl_p50 "
+        f"{out[name].get('decode_itl_p50_ms')} ms"
+        for name in ("unified", "disagg"))
+        + f"; replicas wall_s_serial {out['replicas'].get('wall_s_serial')}"
+        f" wall_s_parallel {out['replicas'].get('wall_s_parallel')}")
+    if problems:
+        raise AssertionError("disagg phase failed: " + "; ".join(problems))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2365,6 +2512,76 @@ def spec_layer_ms(torch, eng, slot_len=144):
     return out
 
 
+def verify_yardsticks(torch, slot_len=144):
+    """The spec verify's work a layer beside its yardsticks, at the verify's
+    B·(k+1) = 20 rows: the 7 layer GEMMs at M = 20 (the kernel's wall and
+    device times, bf16 `torch.matmul`, the byte bound of A, W, the bias
+    and the fp32 output) and paged decode over 20 rows (4 slots of
+    `slot_len` tokens, each slot's block-table row repeated for its 5
+    rows: the kernel, SDPA on the gathered view, and the bound with each
+    slot's pages read once and each row's q and output)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gemm_cases import LAYER_GEMMS
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    T = SPEC_K + 1
+    m = BATCH * T
+    gemm = {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0}
+    nbytes = flops = 0.0
+    for _, k, n, has_bias, act in LAYER_GEMMS:
+        a = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        bias = (torch.randn((n,), generator=g, device="cuda") * 0.1
+                if has_bias else None)
+
+        def run():
+            return ops.sa_matmul(a, w, bias=bias, act=act)
+        gemm["ms"] += timer.wall(run)
+        d = timer.device(run)
+        gemm["device_ms"] = (None if d is None or gemm["device_ms"] is None
+                             else gemm["device_ms"] + d)
+        gemm["library_ms"] += timer.wall(lambda: torch.matmul(a, w))
+        nbytes += 2 * (m * k + k * n) + 4 * m * n + (4 * n if has_bias
+                                                       else 0)
+        flops += 2.0 * m * n * k
+    gemm["bound_ms"], gemm["bound_by"] = bound_ms(nbytes, flops, PEAK_BF16)
+    del a, w, bias
+
+    KVH, grp, hd, psz = 8, 5, 128, PAGE
+    H, P = KVH * grp, -(-slot_len // psz)
+    _, k, v, pp, bt, pos4 = _paged_workload(
+        torch, g, BATCH, KVH, grp, hd, psz, P, BATCH * P + 1,
+        [slot_len] * BATCH)
+    q = torch.randn((m, 1, H, hd), generator=g, device="cuda")
+    rows = torch.repeat_interleave(bt, T, dim=0)
+    pos = (pos4[:, None] - SPEC_K + torch.arange(T, device="cuda")
+           ).reshape(m).to(torch.int32)
+
+    def run():
+        return ops.paged_decode_attention(q, k, v, pp, rows, pos)
+    mapped, mapped_rows = int((bt > 0).sum()), int((rows > 0).sum())
+    b_ms, by = bound_ms(
+        4 * m * H * hd * 2 + mapped * psz * (KVH * hd * 4 * 2 + 4)
+        + 4 * m * P + 4 * m, 4.0 * H * hd * psz * mapped_rows, PEAK_BF16)
+    decode = {"ms": timer.wall(run), "device_ms": timer.device(run),
+              "library_ms": timer.wall(_sdpa_gathered(
+                  torch, q, k, v, pp, rows, pos, grp)),
+              "bound_ms": b_ms, "bound_by": by}
+    del timer, q, k, v, pp, bt, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"rows": m, "gemm_layer": gemm, "paged_decode": decode}
+    log(f"[spec] the verify's {m} rows, a layer: 7 GEMMs {gemm['ms']:.4f} "
+        f"ms wall ({gemm['device_ms']} device), bf16 torch.matmul "
+        f"{gemm['library_ms']:.4f} ms, bound {gemm['bound_ms']:.4f} ms "
+        f"({gemm['bound_by']}); paged decode {decode['ms']:.4f} ms wall "
+        f"({decode['device_ms']} device), SDPA on the gathered view "
+        f"{decode['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({by})")
+    return out
+
+
 def spec(torch, engine, serve_summary):
     """Self-speculative decoding at full width and depth: the serve
     stream through the driver with `--spec-k 4` on the serve phase's
@@ -2429,6 +2646,7 @@ def spec(torch, engine, serve_summary):
             f"{k_}={v}" for k_, v in r.items()))
         if E == L:
             out["layer_ms"] = spec_layer_ms(torch, eng)
+            out["verify_yardsticks"] = verify_yardsticks(torch)
         del eng, sched
     half, full = out[L // 2], out[L]
     if half["digest"] != serve_summary["stream_digest"]:
@@ -2985,8 +3203,11 @@ def main(argv=None):
         tier_modes = tiers(torch, engine, sched)
         phases["tiers"] = time.monotonic() - t
         t = time.monotonic()
-        ring(torch, engine, summary, sched)
+        ring_launches = ring(torch, engine, summary, sched)
         phases["ring"] = time.monotonic() - t
+        t = time.monotonic()
+        disagg_out = disagg(torch, engine)
+        phases["disagg"] = time.monotonic() - t
         t = time.monotonic()
         spec_out = spec(torch, engine, summary)
         phases["spec"] = time.monotonic() - t
@@ -3000,6 +3221,14 @@ def main(argv=None):
             for E in (L // 2, L)} | {"layer_ms": spec_out["layer_ms"]}
         kernels[2]["readings"]["spec_launches"] = {
             E: spec_out[E]["launches"]["paged_decode"] for E in (L // 2, L)}
+        yard = spec_out["verify_yardsticks"]
+        kernels[0]["readings"]["verify_M20_layer"] = yard["gemm_layer"]
+        kernels[2]["readings"]["verify_rows20"] = yard["paged_decode"]
+        # the dense-row decode (F5) and the disagg runs' launches
+        kernels[2]["readings"]["gather_ring_launches"] = ring_launches
+        for k_, name in ((2, "paged_decode"), (3, "prefill_attention")):
+            kernels[k_]["readings"]["disagg_launches"] = {
+                run: r["launches"][name] for run, r in disagg_out.items()}
         kernels[3]["readings"]["bucket"] = {
             name: {key: v[key] for key in ("prefill_launches", "prefill_s",
                                            "prefill_compiles")}

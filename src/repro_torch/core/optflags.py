@@ -23,7 +23,8 @@ or `emulate`, the paper's bit-exact skewed datapath through the
 hand-written fp_emu kernel), `sa_mode()` (REPRO_SA_MODE),
 `decode_attn_impl()` (REPRO_DECODE_ATTN: `fused` page walk, the default,
 or `gather`), `kv_layout()` (REPRO_KV), `prefix_cache_enabled()`
-(REPRO_PREFIX_CACHE), `prefill_bucket_enabled()` (REPRO_PREFILL_BUCKET),
+(REPRO_PREFIX_CACHE), `disagg_enabled()` (REPRO_DISAGG),
+`prefill_bucket_enabled()` (REPRO_PREFILL_BUCKET),
 `spec_decode_enabled()` (REPRO_SPEC_DECODE) and `spec_k()` (REPRO_SPEC_K).
 """
 from __future__ import annotations
@@ -81,6 +82,17 @@ def kv_layout() -> str:
 def prefix_cache_enabled() -> bool:
     return os.environ.get("REPRO_PREFIX_CACHE", "1") not in (
         "0", "false", "off")
+
+
+def disagg_enabled() -> bool:
+    """Disaggregated prefill/decode serving (default off): paged engines
+    split into a prefill pool that stages finished prompts' pages in the
+    shared pool and a decode pool that binds them from a ready queue
+    between chunks (DESIGN.md §10). "1" and "0" give the same greedy
+    stream digest: the knob changes scheduling, never tokens. Engines
+    serve unified where pages are not a pure function of the prompt (the
+    ring layout)."""
+    return os.environ.get("REPRO_DISAGG", "0") not in ("0", "false", "off")
 
 
 def prefill_bucket_enabled() -> bool:

@@ -3,8 +3,10 @@
 // Replaces the TPU kernel repro/kernels/sa_decode_attention.py
 // `_decode_kernel`, and computes what repro/models/layers.py `gather_pages`
 // + `decode_attention` compute, without the gathered dense view:
-//   * walk slot b's block-table row; entries with page id <= 0 (unmapped -1
-//     and the trash page 0) are masked and never read;
+//   * walk slot b's block-table row; entries with a page id below `min_page`
+//     are masked and never read: 1 for the pool (unmapped -1 and the trash
+//     page 0), 0 for dense per-slot rows presented as a pool (a ring, or
+//     the gathered view: -1 marks what the pool would not read);
 //   * s = cast_in(q) . cast_in(k) in fp32 per query head, then the approx
 //     truncation (low 3 mantissa bits, RTZ), then cap * tanh(s * (scale /
 //     cap)) or s * scale with the constants folded on the host, then the
@@ -168,8 +170,8 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
                    const T* __restrict__ v_pool, const int* __restrict__ ppos,
                    const int* __restrict__ bt, const int* __restrict__ pos,
                    float* __restrict__ out, int KVH, int psz, int P, int kpc,
-                   float scale, float scale_over_cap, float cap, int window,
-                   int fmt, int approx) {
+                   int min_page, float scale, float scale_over_cap, float cap,
+                   int window, int fmt, int approx) {
   constexpr int HD = 32 * VEC;
   cg::cluster_group cluster = cg::this_cluster();
   const int nsplit = static_cast<int>(cluster.num_blocks());
@@ -213,11 +215,11 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int i = 0; i < kNK; ++i) {
       const int key = k0 + base + i;
-      const int pid = base + i < n_local ? bt_s[key / psz - j0] : 0;
+      const int pid = base + i < n_local ? bt_s[key / psz - j0] : -1;
       const size_t row = (size_t)pid * psz + (key - (key / psz) * psz);
       kvp[i] = -1;
       kx[i].zero();
-      if (pid > 0) {  // mapped: read; unmapped and trash pages never are
+      if (pid >= min_page) {  // mapped: read; pages below never are
         kx[i].load(k_pool + (row * KVH + kvh) * HD, lane);
         kvp[i] = __ldg(ppos + row);
       }
@@ -293,9 +295,9 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int i = 0; i < kNK; ++i) {
       const int key = k0 + base + i;
-      const int pid = base + i < n_local ? bt_s[key / psz - j0] : 0;
+      const int pid = base + i < n_local ? bt_s[key / psz - j0] : -1;
       vx[i].zero();
-      if (pid > 0)
+      if (pid >= min_page)
         vx[i].load(v_pool + (((size_t)pid * psz + key - (key / psz) * psz) *
                                  KVH + kvh) * HD,
                    lane);
@@ -407,8 +409,8 @@ template <int G, int VEC, typename T>
 int launch(const float* q, const T* k_pool, const T* v_pool,
            const int* ppos, const int* bt, const int* pos, float* out, int B,
            int KVH, int psz, int P, int n_split, int kpc, int smem,
-           float scale, float scale_over_cap, float cap, int window, int fmt,
-           int approx, cudaStream_t stream) {
+           int min_page, float scale, float scale_over_cap, float cap,
+           int window, int fmt, int approx, cudaStream_t stream) {
   auto kern = paged_decode_split<G, VEC, T>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -431,8 +433,8 @@ int launch(const float* q, const T* k_pool, const T* v_pool,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, q, k_pool, v_pool, ppos, bt, pos, out, KVH,
-                         psz, P, kpc, scale, scale_over_cap, cap, window, fmt,
-                         approx);
+                         psz, P, kpc, min_page, scale, scale_over_cap, cap,
+                         window, fmt, approx);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -443,12 +445,15 @@ int launch(const float* q, const T* k_pool, const T* v_pool,
 // `split_plan`; a plan whose shared memory is smaller than this layout
 // needs, or larger than a block may have, is refused. `pool_dt` is the K/V
 // pools' element type: 0 fp32, 1 bf16, 2 fp16 (both pools the same).
+// `min_page` is the lowest page id the kernel reads: 1 for the pool, whose
+// page 0 is the trash page, 0 for dense rows presented as a pool.
 extern "C" int paged_decode_launch(const void* q, const void* k_pool,
                                    const void* v_pool, const void* ppos,
                                    const void* bt, const void* pos, void* out,
                                    int B, int KVH, int g, int hd, int psz,
                                    int P, int n_split, int kpc, int smem,
-                                   float scale, float scale_over_cap,
+                                   int min_page, float scale,
+                                   float scale_over_cap,
                                    float cap, int window, int fmt, int approx,
                                    int pool_dt, void* stream) {
   const long long need =
@@ -456,7 +461,7 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
       4LL * (kpc / psz + 2);
   if (n_split < 1 || n_split > 16 || kpc < 1 || smem < need ||
       smem > 227 * 1024 || (long long)n_split * kpc < (long long)P * psz ||
-      pool_dt < 0 || pool_dt > 2)
+      pool_dt < 0 || pool_dt > 2 || min_page < 0 || min_page > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
   const int* pp = static_cast<const int*>(ppos);
@@ -470,18 +475,19 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
       return launch<G_, VEC_>(qf, static_cast<const __nv_bfloat16*>(k_pool), \
                               static_cast<const __nv_bfloat16*>(v_pool), pp, \
                               btp, ps, of, B, KVH, psz, P, n_split, kpc,     \
-                              smem, scale, scale_over_cap, cap, window, fmt, \
-                              approx, s);                                    \
+                              smem, min_page, scale, scale_over_cap, cap,    \
+                              window, fmt, approx, s);                       \
     if (pool_dt == 2)                                                         \
       return launch<G_, VEC_>(qf, static_cast<const __half*>(k_pool),        \
                               static_cast<const __half*>(v_pool), pp, btp,   \
                               ps, of, B, KVH, psz, P, n_split, kpc, smem,    \
-                              scale, scale_over_cap, cap, window, fmt,       \
-                              approx, s);                                    \
+                              min_page, scale, scale_over_cap, cap, window,  \
+                              fmt, approx, s);                               \
     return launch<G_, VEC_>(qf, static_cast<const float*>(k_pool),           \
                             static_cast<const float*>(v_pool), pp, btp, ps,  \
-                            of, B, KVH, psz, P, n_split, kpc, smem, scale,   \
-                            scale_over_cap, cap, window, fmt, approx, s);    \
+                            of, B, KVH, psz, P, n_split, kpc, smem,          \
+                            min_page, scale, scale_over_cap, cap, window,    \
+                            fmt, approx, s);                                 \
   }
 #define REPRO_G(G_) \
   REPRO_CASE(G_, 2); \

@@ -10,6 +10,13 @@ guard, P·V in fp32, approx truncation).
 The plain version is `gather_pages` + `decode_attention` of the port's
 `models/layers.py`, exactly as the JAX kernel is pinned to the JAX pair.
 
+Dense per-slot rows (a ring, or the gathered view of the pool) go through
+the same kernel as a pool with an identity block table (`dense_pool_view`,
+no copy; `min_page=0`, since a dense view has no trash page). A slot whose
+rows are its pool pages in sequence order then gets the pool's split and
+order of sums, so on the card the `gather` path and the ring layout decode
+a slot to the fused path's bits (ROADMAP F5).
+
 The kernel (`csrc/sa_decode_attention.cu`) splits each (slot, KV head)'s
 keys across a thread-block cluster: grid (B, KVH, n_split), n_split
 blocks a cluster, each a contiguous run of the slot's keys (`split_plan`:
@@ -61,8 +68,9 @@ def fused_decode_supported(policy) -> bool:
 
 def paged_decode_ref(q, k_pool, v_pool, page_positions, block_table, pos, *,
                      window: int = 0, cap: float = 0.0, scale=None,
-                     policy=None):
-    """Plain version: gather the slot's pages, then `decode_attention`."""
+                     policy=None, min_page: int = 1):
+    """Plain version: gather the slot's pages (those with an id of at least
+    `min_page`), then `decode_attention`."""
     global PLAIN_CALLS
     from repro_torch.core.precision import current_policy, use_policy
     from repro_torch.models.layers import (PagedKVCache, decode_attention,
@@ -71,7 +79,7 @@ def paged_decode_ref(q, k_pool, v_pool, page_positions, block_table, pos, *,
     PLAIN_CALLS += 1
     policy = policy or current_policy()
     k, v, kvp = gather_pages(PagedKVCache(k_pool, v_pool, page_positions,
-                                          block_table))
+                                          block_table), min_page=min_page)
     with use_policy(policy):
         return decode_attention(q, k, v, kvp, pos, window=window, cap=cap,
                                 scale=scale)
@@ -133,6 +141,32 @@ def split_plan(g: int, hd: int, psz: int, P: int, *,
     return SplitPlan(n, kpc, smem)
 
 
+def dense_pool_view(k, v, positions, page_size: int, block_table=None):
+    """Dense per-slot rows as a pool the kernel walks, without a copy.
+
+    k, v (B, S, KVH, hd) and positions (B, S), S a multiple of
+    `page_size`, become pools (B·S/psz, psz, KVH, hd) and (B·S/psz, psz)
+    with the identity block table `table[b, j] = b·S/psz + j` (B, S/psz)
+    int32: slot b's row i is key i of its view, as key i of a pool slot is
+    row i of its pages in sequence order. Launch it with `min_page=0`.
+    `block_table` (B, S/psz), given for the gathered view of a pool, marks
+    -1 every entry whose source entry is <= 0 (unmapped or the trash
+    page): those zero rows are then skipped, as the pool's are, not read
+    and masked. Returns (k_pool, v_pool, page_positions, table)."""
+    B, S = positions.shape
+    if S % page_size:
+        raise ValueError(f"dense decode view: {S} rows a slot are not a "
+                         f"multiple of the page size {page_size}")
+    P = S // page_size
+    table = torch.arange(B * P, dtype=torch.int32,
+                         device=k.device).reshape(B, P)
+    if block_table is not None:
+        table = torch.where(block_table > 0, table, -1)
+    return (k.view(B * P, page_size, *k.shape[2:]),
+            v.view(B * P, page_size, *v.shape[2:]),
+            positions.view(B * P, page_size), table)
+
+
 def launch_plan(q, k_pool, v_pool, block_table,
                 n_split: int | None = None) -> SplitPlan:
     """The kernel's split for these operands' shapes (`split_plan`), after
@@ -152,18 +186,23 @@ def launch_plan(q, k_pool, v_pool, block_table,
 
 def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
                       *, window: int = 0, cap: float = 0.0, scale=None,
-                      policy=None, n_split: int | None = None):
+                      policy=None, n_split: int | None = None,
+                      min_page: int = 1):
     """Launch the paged decode kernel. q (B, 1, H, hd) fp32; pools
     (n_pages, psz, KVH, hd) fp32, bf16 or fp16 (both one type; a 16-bit
     pool is widened exactly, then cast in as an fp32 one); page_positions (n_pages, psz) int32;
     block_table (B, P) int32; pos (B,) int32 → (B, 1, H, hd) fp32. g = H /
     KVH up to 8, hd 64, 128 or 256. `n_split` fixes the cluster size of
-    `split_plan` (tests of the split; default: the plan's)."""
+    `split_plan` (tests of the split; default: the plan's). `min_page` is
+    the lowest page id read: 1 for the pool (page 0 is the trash page), 0
+    for a `dense_pool_view`."""
     global LAUNCHES
     from repro_torch.core.precision import current_policy
     from .build import check, function
 
     policy = policy or current_policy()
+    if min_page not in (0, 1):
+        raise ValueError(f"paged decode: min_page {min_page}, want 0 or 1")
     if not fused_decode_supported(policy):
         raise ValueError(
             f"fused paged decode does not support input_format="
@@ -187,12 +226,12 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
     ps = pos.to(torch.int32).reshape(B).contiguous()
     out = torch.empty((B, 1, H, hd), dtype=torch.float32, device=q.device)
     fn = function("sa_decode_attention", "paged_decode_launch",
-                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              pp.data_ptr(), bt.data_ptr(), ps.data_ptr(), out.data_ptr(),
-             B, KVH, g, hd, psz, P, *plan, float(scale),
+             B, KVH, g, hd, psz, P, *plan, int(min_page), float(scale),
              float(scale / cap) if cap else 0.0, cap, int(window),
              _FMT_CODE[policy.input_format], int(policy.mode == "approx"),
              POOL_DTYPES[k_pool.dtype],

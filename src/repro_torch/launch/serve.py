@@ -28,8 +28,12 @@ Markov corpus, so a shallow draft has something to agree with.
 `--bucket-prompts` pads each prefill to a bucket length (summary:
 `prefill_compiles`), with the same stream digest.
 
-Flags of features not ported yet (--disagg, --decode-replicas) raise
-`ValueError("... not ported yet")`.
+`--disagg` serves with two pools (DESIGN.md §10): `--prefill-workers`
+prefills a chunk stage their pages in the shared pool and a ready queue
+feeds decode admissions; the summary gains `ready_depth_p50`, and the
+digest is the unified run's. `--decode-replicas N` routes the stream up
+front to N engine replicas (`serve_replicas`), which serve one after
+another on the same weights; the `[replicas xN]` line aggregates them.
 """
 from __future__ import annotations
 
@@ -140,17 +144,22 @@ def _print_phases(summary) -> None:
           f"prefill_compiles={summary.get('prefill_compiles')}")
 
 
+def _make_engine(args, cfg, params, device) -> ServeEngine:
+    return ServeEngine(cfg, params, args.batch, args.cache_len,
+                       eos_id=args.eos_id, sync_every=args.sync_every,
+                       kv_layout=args.kv, page_size=args.page_size,
+                       pool_pages=args.pool_pages,
+                       max_seq_len=args.max_seq_len, spec_k=args.spec_k,
+                       spec_draft_layers=args.spec_draft_layers or None,
+                       disagg=args.disagg or None,
+                       prefill_workers=args.prefill_workers,
+                       bucket_prompts=args.bucket_prompts or None,
+                       device=device)
+
+
 def serve_continuous(args, cfg, params, plens, device):
     """Serve the stream; returns (summary, scheduler, engine)."""
-    engine = ServeEngine(cfg, params, args.batch, args.cache_len,
-                         eos_id=args.eos_id, sync_every=args.sync_every,
-                         kv_layout=args.kv, page_size=args.page_size,
-                         pool_pages=args.pool_pages,
-                         max_seq_len=args.max_seq_len, spec_k=args.spec_k,
-                         spec_draft_layers=args.spec_draft_layers or None,
-                         disagg=args.disagg or None,
-                         bucket_prompts=args.bucket_prompts or None,
-                         device=device)
+    engine = _make_engine(args, cfg, params, device)
     sched = SlotScheduler(args.batch, eos_id=args.eos_id)
     build_requests(sched, cfg, args.requests, args.rate, plens,
                    args.max_new, args.seed, tier_mix=args.tier_mix,
@@ -197,6 +206,76 @@ def serve_continuous(args, cfg, params, plens, device):
               f"max_abs_diff={probe['max_abs_diff']:.3e}")
         summary |= {f"divergence_{k}": v for k, v in probe.items()}
     return summary, sched, engine
+
+
+def serve_replicas(args, cfg, params, plens, device):
+    """`--decode-replicas N`: N engine replicas behind one arrival stream
+    (DESIGN.md §10, the JAX driver's `serve_replicas`). The stream is built
+    once and each request is routed up front, in arrival order, to the
+    least-loaded replica (`ReplicaRouter`: a pure function of the stream,
+    ties to the lowest index). The replicas serve one after another on
+    this device over the same `params`, so each replica's wall and ITL are
+    measured; the aggregate gives the serial wall paid and the parallel
+    wall of a deployment (the slowest replica). Requests keep their global
+    rids, so the aggregate `stream_digest` compares with a one-replica run
+    of the stream. Returns (aggregate summary, the replicas' schedulers)."""
+    from repro_torch.serve.scheduler import ReplicaRouter
+
+    n = args.decode_replicas
+    master = SlotScheduler(args.batch, eos_id=args.eos_id)
+    build_requests(master, cfg, args.requests, args.rate, plens,
+                   args.max_new, args.seed, tier_mix=args.tier_mix,
+                   prefix_mix=args.prefix_mix, prefix_len=args.prefix_len)
+    router = ReplicaRouter(n)
+    scheds = [SlotScheduler(args.batch, eos_id=args.eos_id)
+              for _ in range(n)]
+    for req in master.pending:     # already in arrival order
+        i = router.route(req.prompt_len, req.max_new_tokens)
+        r2 = scheds[i].submit(req.prompt, req.max_new_tokens,
+                              arrival_time=req.arrival_time, tier=req.tier)
+        r2.rid = req.rid           # the global rid keys the digest
+
+    summaries, finished = [], []
+    for i, sched in enumerate(scheds):
+        s = _make_engine(args, cfg, params, device).serve(sched, greedy=True)
+        s["decode_itl_p50_ms"] = itl_p50_ms(sched.finished)
+        summaries.append(s)
+        finished.extend(sched.finished)
+        print(f"[replica {i}] requests={s['requests']} "
+              f"wall_s={s['wall_s']} decode_tok_s={s.get('decode_tok_s')} "
+              f"itl_p50={s['decode_itl_p50_ms']}ms "
+              f"pages_leaked={s.get('pages_leaked')} "
+              f"decode_stall={s.get('decode_stall_s')}s")
+
+    def total(key):
+        return round(sum(s.get(key) or 0 for s in summaries), 4)
+
+    summary = {
+        "replicas": n,
+        "requests": sum(s["requests"] for s in summaries),
+        "generated_tokens": sum(s["generated_tokens"] for s in summaries),
+        "rejected": sum(s.get("rejected", 0) for s in summaries),
+        "pages_leaked": total("pages_leaked"),
+        "prefill_busy_s": total("prefill_busy_s"),
+        "decode_busy_s": total("decode_busy_s"),
+        "handoff_s": total("handoff_s"),
+        "decode_stall_s": total("decode_stall_s"),
+        "prefill_compiles": sum(s.get("prefill_compiles", 0)
+                                for s in summaries),
+        "nonfinite_logits": sum(s["nonfinite_logits"] for s in summaries),
+        # serial: what serving the replicas one after another paid;
+        # parallel: a deployment's wall, the slowest replica
+        "wall_s_serial": total("wall_s"),
+        "wall_s_parallel": round(max(s["wall_s"] for s in summaries), 4),
+        "disagg": summaries[0].get("disagg"),
+        "ready_depth_p50": summaries[0].get("ready_depth_p50"),
+        "stream_digest": stream_digest(finished),
+    }
+    itl = itl_p50_ms(finished)
+    if itl is not None:
+        summary["decode_itl_p50_ms"] = itl
+    _print_phases(summary)
+    return summary, scheds
 
 
 def parse_args(argv=None):
@@ -247,9 +326,20 @@ def parse_args(argv=None):
                     help="seed-pure AdamW warm-up steps on a Markov corpus "
                          "before serving (fp32 weights)")
     ap.add_argument("--disagg", action="store_true",
-                    help="two-pool disaggregated serving (not ported yet)")
+                    help="two-pool disaggregated serving (DESIGN.md §10): "
+                         "prefill workers stage finished prompts' KV pages "
+                         "and a ready queue feeds decode admissions, so "
+                         "decode chunks never wait on a prefill. Paged "
+                         "layout only; the tokens are the unified run's "
+                         "(REPRO_DISAGG=1 is the env equivalent)")
+    ap.add_argument("--prefill-workers", type=int, default=1,
+                    help="prefills the prefill pool runs a chunk under "
+                         "--disagg")
     ap.add_argument("--decode-replicas", type=int, default=1,
-                    help="engine replicas (not ported yet: must be 1)")
+                    help="N engine replicas behind the one arrival stream, "
+                         "routed least-loaded (ReplicaRouter); served one "
+                         "after another on this device, the parallel wall "
+                         "modelled as the slowest replica's")
     ap.add_argument("--bucket-prompts", action="store_true",
                     help="pad each prefill to a bucket length (fewer "
                          "prefill shapes, the same tokens; "
@@ -266,12 +356,11 @@ def parse_args(argv=None):
 
 def main(argv=None, *, return_state: bool = False, params=None):
     """Serve the synthetic stream and print the summary line. Returns the
-    summary, or (summary, scheduler, engine) with `return_state`.
+    summary, or (summary, scheduler, engine) with `return_state`; with
+    `--decode-replicas` N > 1, (aggregate summary, the N schedulers).
     `params` serves given weights (on the run's device) instead of
     drawing them from `--seed`."""
     args = parse_args(argv)
-    if args.decode_replicas > 1:
-        raise ValueError("--decode-replicas is not ported yet")
     device = resolve_device(args.device)
     cfg = (reduced_config(args.arch,
                           layers_per_period=args.layers_per_period,
@@ -287,10 +376,17 @@ def main(argv=None, *, return_state: bool = False, params=None):
     plens = [int(x) for x in args.prompt_lens.split(",")]
     extra = args.prefix_len if args.prefix_mix > 0 else 0
     args.cache_len = args.cache_len or (max(plens) + extra + args.max_new)
-    summary, sched, engine = serve_continuous(args, cfg, params, plens,
-                                              device)
-    print("[continuous] " + " ".join(f"{k}={v}" for k, v in summary.items()))
-    return (summary, sched, engine) if return_state else summary
+    if args.decode_replicas > 1:
+        summary, scheds = serve_replicas(args, cfg, params, plens, device)
+        state = (summary, scheds)
+        mode = f"replicas x{args.decode_replicas}"
+    else:
+        summary, sched, engine = serve_continuous(args, cfg, params, plens,
+                                                  device)
+        state = (summary, sched, engine)
+        mode = "continuous"
+    print(f"[{mode}] " + " ".join(f"{k}={v}" for k, v in summary.items()))
+    return state if return_state else summary
 
 
 if __name__ == "__main__":

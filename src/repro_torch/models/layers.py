@@ -224,14 +224,15 @@ class PagedKVCache(NamedTuple):
     block_table: torch.Tensor  # (B, max_pages) int32 page ids, -1 = unmapped
 
 
-def gather_pages(cache: PagedKVCache):
+def gather_pages(cache: PagedKVCache, min_page: int = 1):
     """Each slot's mapped pages as a dense (B, max_pages·page_size) view.
-    Unmapped entries and the trash page (id <= 0) gather zeros with
-    positions -1, so they are masked like empty ring entries."""
+    Unmapped entries and the trash page (id < `min_page`: id <= 0 for the
+    pool; 0 reads page 0, for dense rows presented as a pool) gather zeros
+    with positions -1, so they are masked like empty ring entries."""
     B, P = cache.block_table.shape
     psz = cache.k.shape[1]
     safe = torch.clamp_min(cache.block_table, 0).long()       # (B, P)
-    mapped = (cache.block_table > 0)[:, :, None]              # (B, P, 1)
+    mapped = (cache.block_table >= min_page)[:, :, None]      # (B, P, 1)
     kvhd = cache.k.shape[2:]
     zero = torch.zeros((), dtype=cache.k.dtype, device=cache.k.device)
     k = torch.where(mapped[..., None, None], cache.k[safe], zero)
@@ -285,7 +286,8 @@ def _paged_write(cache: PagedKVCache, k, v, pos):
     cache.positions[pid, off] = pos.to(cache.positions.dtype)  # in place
 
 
-def _decode_attend(q, k, v, cache, positions, window: int, cap: float):
+def _decode_attend(q, k, v, cache, positions, window: int, cap: float,
+                   page_size: int):
     """Decode with a cache: each slot's T tokens are T consecutive decode
     steps (T = 1: the decode step; T > 1: the speculative verify). Row t
     writes its K/V at position pos + t in place (paged pool or per-slot
@@ -295,16 +297,38 @@ def _decode_attend(q, k, v, cache, positions, window: int, cap: float):
     Every kernel on this path gives a row the same bits at any batch
     (ROADMAP F2), so verify row t equals the sequential decode step it
     replaces. Each slot's block-table row (or ring row) is repeated for
-    its T query rows in `jnp.repeat`'s order (`repeat_interleave`)."""
+    its T query rows in `jnp.repeat`'s order (`repeat_interleave`).
+
+    On the card every layout decodes through the paged-decode kernel
+    wherever the policy lets it (ROADMAP F5): the pool by its block table,
+    the gathered view and the ring as dense rows presented as a pool
+    (`dense_pool_view`, split into `page_size`-row pages for the ring, the
+    pool's pages for the gathered view), so a slot gets the fused path's
+    order of sums whichever way it decodes. On the CPU, and for a policy
+    the kernel does not reproduce (FP8 in, non-fp32 out), the gathered
+    view and the ring run `decode_attention`, as in the JAX engine."""
+    from repro_torch.core.precision import current_policy
     from repro_torch.kernels import ops
+    from repro_torch.kernels.sa_decode_attention import dense_pool_view
 
     B, T, H, hd = q.shape
     tpos = positions.to(torch.int32)                     # (B, T) = pos + t
     qf = q.reshape(B * T, 1, H, hd)
     posf = tpos.reshape(B * T)
+    dense_kernel = q.is_cuda and ops.fused_decode_supported(current_policy())
 
     def rows(t):
         return t if T == 1 else torch.repeat_interleave(t, T, dim=0)
+
+    def attend_dense(k_d, v_d, pos_d, psz, block_table=None):
+        if not dense_kernel:
+            return decode_attention(qf, rows(k_d), rows(v_d), rows(pos_d),
+                                    posf, window=window, cap=cap)
+        kp, vp, pp, table = dense_pool_view(k_d, v_d, pos_d, psz,
+                                            block_table)
+        return ops.paged_decode_attention(qf, kp, vp, pp, rows(table), posf,
+                                          window=window, cap=cap,
+                                          min_page=0)
 
     if isinstance(cache, PagedKVCache):
         _paged_write(cache, k, v, tpos)
@@ -317,29 +341,27 @@ def _decode_attend(q, k, v, cache, positions, window: int, cap: float):
                 qf, cache.k, cache.v, cache.positions,
                 rows(cache.block_table), posf, window=window, cap=cap)
         else:
-            k_g, v_g, pos_g = gather_pages(cache)
-            o = decode_attention(qf, rows(k_g), rows(v_g), rows(pos_g), posf,
-                                 window=window, cap=cap)
+            o = attend_dense(*gather_pages(cache), cache.k.shape[1],
+                             cache.block_table)
     else:
         slot = tpos.long() % cache.k.shape[1]
         b = torch.arange(B, device=q.device)[:, None]
         cache.k[b, slot] = k.to(cache.k.dtype)                # in place
         cache.v[b, slot] = v.to(cache.v.dtype)                # in place
         cache.positions[b, slot] = tpos                       # in place
-        o = decode_attention(qf, rows(cache.k), rows(cache.v),
-                             rows(cache.positions), posf, window=window,
-                             cap=cap)
+        o = attend_dense(cache.k, cache.v, cache.positions, page_size)
     return o.reshape(B, T, H, hd)
 
 
 def attention_block(x, p, cfg, meta, positions, cache=None,
                     causal: bool = True, prefix_len: int = 0,
-                    decode_multi: bool = False):
+                    decode_multi: bool = False, page_size: int = 16):
     """Attention sub-layer. Returns (out, cache).
 
     With a cache and a single token: decode (paged pool or per-slot ring),
     writing the token's K/V into the cache in place; with `decode_multi`
-    the T tokens are T consecutive decode steps a slot (`_decode_attend`).
+    the T tokens are T consecutive decode steps a slot (`_decode_attend`;
+    `page_size` splits a ring's rows for the decode kernel on the card).
     Otherwise prefill: a dense cache is filled in place; `prefix_len` is
     continued prefill over KV already in the cache's first `prefix_len`
     rows."""
@@ -353,7 +375,7 @@ def attention_block(x, p, cfg, meta, positions, cache=None,
         raise ValueError("padded KV heads are not ported yet")
     if cache is not None and (decode_multi or x.shape[1] == 1):
         o = _decode_attend(q, k, v, cache, positions, window,
-                           cfg.attn_softcap)
+                           cfg.attn_softcap, page_size)
     else:
         from repro_torch.kernels import ops
         if cache is not None and isinstance(cache, PagedKVCache):

@@ -167,13 +167,14 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
 # ---------------------------------------------------------------------------
 
 def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
-              decode_multi: bool = False):
+              decode_multi: bool = False, page_size: int = 16):
     """One transformer layer. Returns (x, cache)."""
     h = L.norm_apply(x, p["norm1"], cfg.norm, cfg.norm_eps)
     mix, kv = L.attention_block(h, p["attn"], cfg, meta, positions,
                                 cache=cache["kv"] if cache else None,
                                 prefix_len=prefix_len,
-                                decode_multi=decode_multi)
+                                decode_multi=decode_multi,
+                                page_size=page_size)
     x = x + mix.to(x.dtype)
     h = L.norm_apply(x, p["norm2"], cfg.norm, cfg.norm_eps)
     f = L.ffn_swiglu(h, p["ffn"], cfg.act)
@@ -182,7 +183,8 @@ def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
 
 def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
             pos=None, last_only: bool = False, last_index=None,
-            prefix_len: int = 0, decode_multi: bool = False):
+            prefix_len: int = 0, decode_multi: bool = False,
+            page_size: int = 16):
     """Token ids (B, T) → (logits, cache, aux).
 
     `cache`/`pos` engage the decode path (`pos` is a (B,) vector of
@@ -191,6 +193,9 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     `decode_multi` makes the T tokens T consecutive decode steps a slot
     (the speculative verify): row t writes and attends at position pos + t.
     `last_index` (with `last_only`) picks which row feeds the lm_head.
+    `page_size` is the page a dense ring's rows are split into when the
+    decode kernel walks them on the card (`layers._decode_attend`; the
+    engine passes its own, so a ring slot gets the pool's split).
     The forward runs the first `cfg.num_layers // cfg.stack_period`
     superblocks of the stacked params and cache, so a config of fewer
     layers over the full tree is the early-exit draft
@@ -233,7 +238,7 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
             c_j = (None if cache is None
                    else tree_map(lambda t: t[sb], cache[j]))
             x, _ = _sublayer(x, p_j, cfg, cfg.layer_kind(j), positions, c_j,
-                             prefix_len, decode_multi)
+                             prefix_len, decode_multi, page_size)
         return x
 
     remat = cfg.remat and cache is None and torch.is_grad_enabled()

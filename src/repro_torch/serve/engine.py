@@ -14,11 +14,20 @@
   `_insert_impl` scatters it into the pool and binds the slot's
   block-table row.
 * **Ring KV** (`REPRO_KV=ring` / `kv_layout="ring"`): a dense per-slot
-  ring of `cache_len` rows (`new_cache()`); an admission's fragment is a
+  ring of `cache_len` rows (`new_cache()`; on the card `cache_len` rounded
+  up to a page, so the decode kernel walks a ring slot as it walks a pool
+  slot of `max_seq_len` tokens: `ring_len`); an admission's fragment is a
   whole ring row, copied into its slot. No allocator, no prefix cache; a
   request whose prompt plus budget exceeds `cache_len` is rejected (it
   would wrap a global-attention ring). `generate()` (static batches)
   always runs on rings.
+* **Disaggregated serving** (`disagg=True`, `REPRO_DISAGG=1`; DESIGN.md
+  §10): a prefill pool of `prefill_workers` prefills a chunk stages each
+  finished prompt's pages in the shared pool (the handoff: `_scatter_impl`,
+  then a device sync) and queues the request; decode admissions bind
+  ready requests to free slots (`_bind_impl`), so a decode chunk never
+  waits on a prefill's compute. Paged layout only (`disagg_on`); the
+  tokens are the unified engine's.
 * **Quality tiers** (DESIGN.md §6): a decode chunk runs the approximate
   datapath (`mode="approx"`) only when every active slot is a `bulk`
   request; prefill is always exact. `divergence_probe` measures the
@@ -42,13 +51,12 @@ engine updates the cache tensors in place (`_scatter_impl`, `_bind_impl`,
 so at each site.
 
 Not ported yet, and refused with `ValueError("... not ported yet")`:
-disaggregated serving and local-window caches.
+local-window caches.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-import os
 import time
 from typing import Any
 
@@ -99,10 +107,6 @@ def _not_ported(what: str):
     return ValueError(f"{what} is not ported yet")
 
 
-def _env_on(name: str) -> bool:
-    return os.environ.get(name, "0") not in ("0", "false", "off")
-
-
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: Any, batch: int,
                  cache_len: int, eos_id: int = 2,
@@ -111,7 +115,7 @@ class ServeEngine:
                  pool_pages: int | None = None,
                  max_seq_len: int | None = None, spec_k: int | None = None,
                  spec_draft_layers: int | None = None,
-                 disagg: bool | None = None,
+                 disagg: bool | None = None, prefill_workers: int = 1,
                  bucket_prompts: bool | None = None, device=None):
         """`cache_len` is the per-request capacity of the ring layout and
         sizes the paged one's pool: by default it holds `batch · cache_len`
@@ -121,7 +125,9 @@ class ServeEngine:
 
         `spec_k` (default REPRO_SPEC_K, 0 = off) is the self-speculative
         draft length, `spec_draft_layers` the draft's superblocks (default
-        half the stack); `bucket_prompts` (default REPRO_PREFILL_BUCKET)
+        half the stack); `disagg` (default REPRO_DISAGG) selects the
+        two-pool serve loop, `prefill_workers` the prefills the prefill
+        pool runs a chunk; `bucket_prompts` (default REPRO_PREFILL_BUCKET)
         pads prefill suffixes to bucket lengths."""
         M.check_supported(cfg)
         self.cfg = cfg
@@ -137,8 +143,8 @@ class ServeEngine:
         if kv_layout not in ("ring", "paged"):
             raise ValueError(
                 f"REPRO_KV/kv_layout={kv_layout!r}; want 'ring' or 'paged'")
-        if disagg or (disagg is None and _env_on("REPRO_DISAGG")):
-            raise _not_ported("disaggregated serving")
+        self._disagg_arg = disagg
+        self.prefill_workers = max(1, int(prefill_workers))
         self._bucket_arg = bucket_prompts
         self.spec_k = (optflags.spec_k() if spec_k is None
                        else max(0, int(spec_k)))
@@ -153,6 +159,12 @@ class ServeEngine:
         self.page_size = int(page_size)
         self.max_seq_len = _round_up(max_seq_len or cache_len, self.page_size)
         self.max_pages = self.max_seq_len // self.page_size
+        # a ring's rows: on the card a whole number of pages, so its slots
+        # split across the decode kernel's cluster as a pool slot of
+        # max_seq_len tokens does (the rows past cache_len stay masked at
+        # position -1; the reject rule stays on cache_len)
+        self.ring_len = (_round_up(cache_len, self.page_size)
+                         if self.device.type == "cuda" else cache_len)
         self.pool_pages = int(
             pool_pages
             or _round_up(batch * cache_len, self.page_size) // self.page_size
@@ -162,7 +174,7 @@ class ServeEngine:
         # distinct prefill shapes run: (prefix_len, T, bucketed), the
         # summary's `prefill_compiles`
         self._prefill_shapes: set[tuple[int, int, bool]] = set()
-        self._serve_step = make_serve_step(cfg)
+        self._serve_step = make_serve_step(cfg, self.page_size)
         # decode chunks keyed (steps or iters, greedy, mode, spec_k), 0 for
         # the plain chunk: the JAX engine's jit-cache key
         self._chunks: dict[tuple[int, bool, str, int], Any] = {}
@@ -172,7 +184,7 @@ class ServeEngine:
         self.last_stats: dict[str, float] = {}
 
     def new_cache(self, batch: int | None = None):
-        return M.init_cache(self.cfg, batch or self.batch, self.cache_len,
+        return M.init_cache(self.cfg, batch or self.batch, self.ring_len,
                             dtype=self.cache_dtype, device=self.device)
 
     def new_pool(self):
@@ -193,6 +205,17 @@ class ServeEngine:
         page is a pure function of the prompt tokens for the dense
         decoders this engine serves."""
         return optflags.prefix_cache_enabled() and self.kv_layout == "paged"
+
+    def disagg_on(self) -> bool:
+        """The two-pool split (REPRO_DISAGG / `disagg`, default off) is
+        sound exactly where prefix sharing is: a handed-off page run must
+        mean the same to whichever decode slot binds it, so pages must be a
+        pure function of the prompt: the paged layout (every engine of the
+        port is a dense decoder without local windows). A ring engine
+        serves unified, without a word, as `spec_decoding_on` does."""
+        on = (self._disagg_arg if self._disagg_arg is not None
+              else optflags.disagg_enabled())
+        return bool(on) and self.kv_layout == "paged"
 
     def bucketing_on(self) -> bool:
         """Prompt-length bucketing (REPRO_PREFILL_BUCKET / `bucket_prompts`,
@@ -453,8 +476,9 @@ class ServeEngine:
         `scheduler.observe_spec`. `mode` selects the SA datapath."""
         key = (iters, greedy, mode, k)
         if key not in self._chunks:
-            draft_step = make_draft_step(self.cfg, self.spec_draft_layers)
-            verify_step = make_verify_step(self.cfg)
+            draft_step = make_draft_step(self.cfg, self.spec_draft_layers,
+                                         self.page_size)
+            verify_step = make_verify_step(self.cfg, self.page_size)
 
             def run(params, tok, cache, pos, frontend, gen):
                 if frontend is not None:
@@ -490,8 +514,9 @@ class ServeEngine:
         between them). Timed with CUDA events on the card and the host
         clock on the CPU. Returns {"draft_s", "verify_s"}."""
         k = self.spec_k
-        draft_step = make_draft_step(self.cfg, self.spec_draft_layers)
-        verify_step = make_verify_step(self.cfg)
+        draft_step = make_draft_step(self.cfg, self.spec_draft_layers,
+                                     self.page_size)
+        verify_step = make_verify_step(self.cfg, self.page_size)
         cache = (self.new_pool() if self.kv_layout == "paged"
                  else self.new_cache())
         zeros = torch.zeros((self.batch,), dtype=torch.int32,
@@ -665,8 +690,10 @@ class ServeEngine:
               clock=time.monotonic) -> dict:
         """Run the continuous-batching loop until the scheduler drains.
         Per-request results live on `scheduler.finished`; returns
-        `scheduler.summary()` merged with the engine's wall-time split and
-        `nonfinite_logits` (logits over the real vocabulary that were not
+        `scheduler.summary()` merged with the engine's wall-time split
+        (`prefill_busy_s`, `decode_busy_s`, `handoff_s`, `decode_stall_s`),
+        `disagg` (the two-pool loop ran; the scheduler then adds
+        `ready_depth_p50`) and `nonfinite_logits` (logits over the real vocabulary that were not
         finite, prefill, decode and verify); `chunks_exact` and
         `chunks_approx` where an approximate chunk ran; with speculative
         decoding on, `spec_k`, `spec_draft_layers`, `spec_iters` and
@@ -696,9 +723,16 @@ class ServeEngine:
         cache = self.new_pool() if paged else self.new_cache()
         tok = torch.zeros((B,), dtype=torch.int32, device=self.device)
         pos = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        # the wall split: handoff = the page scatter and block-table
+        # writes; decode_stall = admission wall while another slot waits
+        # to decode (unified: the whole prefill and insert; two-pool: only
+        # the synced handoff, what a prefill pool on devices of its own
+        # would leave). One device serves both pools here, so the stall is
+        # the modelled decode-blocking time; wall_s and ITL are measured.
         prefill_s = decode_s = handoff_s = decode_stall_s = 0.0
         chunk_modes = {"exact": 0, "approx": 0}
         spec = self.spec_decoding_on()
+        disagg = self.disagg_on()
         # a spec iteration emits 1..spec_k+1 tokens: the chunk's emission
         # capacity matches the plain chunk's sync_every tokens
         spec_iters = (max(1, -(-self.sync_every // (self.spec_k + 1)))
@@ -725,36 +759,92 @@ class ServeEngine:
 
         while not scheduler.drained():
             clear_freed()
-            for slot in scheduler.free_slots():
-                req = scheduler.admit(slot, now())
-                if req is None:
-                    break
-                if self._must_reject(req):
-                    scheduler.reject(slot, now())
-                    continue
-                t_p = now()
-                frag, first, row, keep = self._prefill_request(
-                    scheduler, req, cache, greedy, gen)
-                t_h = now()
-                cache = self._insert_impl(cache, frag, slot, row, keep)
-                if paged:
-                    # register the prompt's pages BEFORE the scheduler sees
-                    # the first token: a first-token EOS retires the
-                    # request at once, and registered pages must park as
-                    # cached
+            if disagg:
+                # decode-pool admissions: bind already-prefilled requests
+                # off the ready queue (a block-table write, no prefill
+                # compute), so free slots refill between chunks at the
+                # handoff's cost only
+                for slot in scheduler.free_slots():
+                    req = scheduler.admit_ready(slot, now())
+                    if req is None:
+                        break
+                    t_h = now()
+                    r = np.full((self.max_pages,), -1, np.int32)
+                    r[:len(req.pages)] = req.pages
+                    cache = self._bind_impl(
+                        cache, torch.from_numpy(r).to(self.device), slot)
+                    # the first token came from finish_prefill: resume
+                    # after it
+                    tok[slot] = req.tokens[0]
+                    pos[slot] = req.prompt_len
+                    handoff_s += now() - t_h
+                # prefill pool: up to `prefill_workers` prefills a chunk,
+                # stopping once the ready queue could refill every slot
+                n_pf = 0
+                while (n_pf < self.prefill_workers
+                       and scheduler.ready_depth() < B):
+                    req = scheduler.begin_prefill(now())
+                    if req is None:
+                        break
+                    if self._must_reject(req):
+                        scheduler.reject_prefill(req, now())
+                        continue
+                    t_p = now()
+                    frag, first, row, keep = self._prefill_request(
+                        scheduler, req, cache, greedy, gen)
+                    dt = now() - t_p
+                    prefill_s += dt
+                    # the handoff: scatter the staged fragment's pages into
+                    # the pool, then sync: the one wall decode can block on
+                    # (one device, so no reshard between the two pools)
+                    t_h = now()
+                    cache = self._scatter_impl(cache, frag, row, keep)
+                    sync()
+                    dt_h = now() - t_h
+                    handoff_s += dt_h
+                    if scheduler.num_active() > 0:
+                        decode_stall_s += dt_h
+                    # register BEFORE the scheduler sees the first token: a
+                    # first-token EOS retires the request at once, and its
+                    # registered pages must park as cached
                     scheduler.pages.prefix_register(req.prompt, req.pages,
                                                     req.tier)
-                handoff_s += now() - t_h
-                tok[slot] = first
-                pos[slot] = req.prompt_len
-                dt = now() - t_p
-                prefill_s += dt
-                if scheduler.num_active() > 1:
-                    decode_stall_s += dt
-                scheduler.start(slot, first, now(), prefill_s=dt)
+                    scheduler.finish_prefill(req, first, now(), prefill_s=dt)
+                    n_pf += 1
+            else:
+                for slot in scheduler.free_slots():
+                    req = scheduler.admit(slot, now())
+                    if req is None:
+                        break
+                    if self._must_reject(req):
+                        scheduler.reject(slot, now())
+                        continue
+                    t_p = now()
+                    frag, first, row, keep = self._prefill_request(
+                        scheduler, req, cache, greedy, gen)
+                    t_h = now()
+                    cache = self._insert_impl(cache, frag, slot, row, keep)
+                    if paged:
+                        # register the prompt's pages BEFORE the scheduler
+                        # sees the first token: a first-token EOS retires
+                        # the request at once, and registered pages must
+                        # park as cached
+                        scheduler.pages.prefix_register(req.prompt,
+                                                        req.pages, req.tier)
+                    handoff_s += now() - t_h
+                    tok[slot] = first
+                    pos[slot] = req.prompt_len
+                    dt = now() - t_p
+                    prefill_s += dt
+                    if scheduler.num_active() > 1:
+                        decode_stall_s += dt
+                    scheduler.start(slot, first, now(), prefill_s=dt)
             clear_freed()
 
             if scheduler.num_active() == 0:
+                if scheduler.ready_depth() > 0:
+                    # staged but unbound work: the next pass binds it
+                    continue
                 nxt = scheduler.next_arrival()
                 if nxt is None:
                     break
@@ -806,7 +896,7 @@ class ServeEngine:
                     "handoff_s": round(handoff_s, 4),
                     "decode_stall_s": round(decode_stall_s, 4),
                     "prefill_compiles": len(self._prefill_shapes),
-                    "disagg": False}
+                    "disagg": disagg}
         if spec_chunks:
             summary |= {"spec_k": self.spec_k,
                         "spec_draft_layers": self.spec_draft_layers,
@@ -814,9 +904,9 @@ class ServeEngine:
                         "spec_accept_hist": dict(sorted(
                             scheduler.spec_accept_hist.items()))}
         if paged:
-            # the paged decode-attention path the chunks ran (the ring
-            # layout attends over its dense rows, plain torch as in the
-            # JAX engine)
+            # the paged decode-attention path the chunks ran (`gather` and
+            # the ring attend over dense rows: on the card through the
+            # paged-decode kernel, on the CPU through decode_attention)
             impl = optflags.decode_attn_impl()
             if impl == "fused" and not fused_decode_supported(
                     current_policy()):

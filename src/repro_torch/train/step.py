@@ -123,21 +123,24 @@ def make_bucketed_prefill_step(cfg: ArchConfig, prefix_len: int = 0):
     return prefill
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, page_size: int = 16):
     """One decode step: (params, token (B,1), cache, pos (B,), [frontend])
-    → (logits (B,1,V), cache)."""
+    → (logits (B,1,V), cache). `page_size` splits a ring's rows for the
+    decode kernel on the card (`M.forward`); the serve steps below take it
+    too."""
 
     def serve_step(params, token, cache, pos, frontend=None):
         if frontend is not None:
             raise ValueError("modality frontends are not ported yet")
         logits, cache, _ = M.forward(params, cfg, token, cache=cache,
-                                     pos=pos)
+                                     pos=pos, page_size=page_size)
         return logits, cache
 
     return serve_step
 
 
-def make_draft_step(cfg: ArchConfig, draft_layers: int):
+def make_draft_step(cfg: ArchConfig, draft_layers: int,
+                    page_size: int = 16):
     """Early-exit decode step for self-speculative drafting: the first
     `draft_layers` superblocks of the same params, then the shared final
     norm and lm_head. (params, token (B,1), cache, pos (B,)) → (logits
@@ -150,13 +153,13 @@ def make_draft_step(cfg: ArchConfig, draft_layers: int):
 
     def draft_step(params, token, cache, pos):
         logits, cache, _ = M.forward(params, sub, token, cache=cache,
-                                     pos=pos)
+                                     pos=pos, page_size=page_size)
         return logits, cache
 
     return draft_step
 
 
-def make_verify_step(cfg: ArchConfig):
+def make_verify_step(cfg: ArchConfig, page_size: int = 16):
     """Batched speculative verify: (params, tokens (B, k+1), cache, pos
     (B,)) → (logits (B, k+1, V), cache). Column 0 is each slot's last
     emitted token, columns 1..k the draft; one full-depth forward in
@@ -165,7 +168,8 @@ def make_verify_step(cfg: ArchConfig):
 
     def verify_step(params, tokens, cache, pos):
         logits, cache, _ = M.forward(params, cfg, tokens, cache=cache,
-                                     pos=pos, decode_multi=True)
+                                     pos=pos, decode_multi=True,
+                                     page_size=page_size)
         return logits, cache
 
     return verify_step

@@ -924,3 +924,61 @@ def test_bucketed_prefill_full_width_two_layers(cuda, monkeypatch):
     assert got == plain
     assert s_plain["prefill_compiles"] == 3 and s_got["prefill_compiles"] == 1
     assert routes["simt"] == 0 and routes["mma"] > 0
+
+
+@pytest.mark.parametrize("B", [4, 20])
+@pytest.mark.parametrize("pool", [F32, BF16])
+@pytest.mark.parametrize("table", ["masked", "identity"])
+def test_paged_decode_dense_view_equals_pool(cuda, B, pool, table):
+    """ROADMAP F5: the kernel over dense rows presented as a pool
+    (`dense_pool_view`, `min_page=0`) gives the kernel over the pool the
+    same bits, at B = 4 and B = 20. The rows are the pool slots' gathered
+    view; with the source table's unmapped and trash entries marked -1
+    they are skipped as the pool's are, and with the bare identity table
+    (a ring's) they are read as zeros at position -1 and masked."""
+    from repro_torch.models.layers import PagedKVCache, gather_pages
+
+    lens = (144, 100, 40, 0) + tuple((37 * i) % 144 + 1
+                                     for i in range(B - 4))
+    q, k, v, pp, bt, pos = _pool(cuda, B=B, lens=lens)
+    k, v = k.to(pool), v.to(pool)
+    want = DA.paged_decode_cuda(q, k, v, pp, bt, pos)
+    kg, vg, pg = gather_pages(PagedKVCache(k, v, pp, bt))
+    view = DA.dense_pool_view(kg, vg, pg, k.shape[1],
+                              bt if table == "masked" else None)
+    assert DA.launch_plan(q, *view[:2], view[3]) == \
+        DA.launch_plan(q, k, v, bt)
+    before = DA.LAUNCHES
+    got = ops.paged_decode_attention(q, *view, pos, min_page=0)
+    assert DA.LAUNCHES == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_serve_fused_gather_ring_equal_tokens_full_width_two_layers(
+        cuda, monkeypatch):
+    """ROADMAP F5 on a served path: the fused serve, the paged serve under
+    REPRO_DECODE_ATTN=gather and the ring serve of one stream give the
+    same tokens (on the card all three decode through the paged-decode
+    kernel in one order of sums), each launching the kernel and no plain
+    version."""
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    streams = {}
+    for name, impl, layout in (("fused", "fused", "paged"),
+                               ("gather", "gather", "paged"),
+                               ("ring", "gather", "ring")):
+        monkeypatch.setenv("REPRO_DECODE_ATTN", impl)
+        eng = _two_layer_engine(cuda, kv_layout=layout)
+        sched = SlotScheduler(2, eos_id=-1)
+        _submit(sched, eng.cfg, (17, 30, 9), ("premium",) * 3, max_new=9)
+        ops.reset_counts()
+        summary = eng.serve(sched)
+        c = ops.counts()
+        assert c["paged_decode"]["launches"] > 0, (name, c)
+        assert all(v["plain_calls"] == 0 for v in c.values()), (name, c)
+        assert summary["nonfinite_logits"] == 0
+        streams[name] = {r.rid: r.tokens for r in sched.finished}
+        del eng
+    assert streams["fused"] == streams["gather"] == streams["ring"]
+    assert all(len(t) == 9 for t in streams["fused"].values())

@@ -315,15 +315,17 @@ def test_engine_prefix_cache_hits_keep_tokens(setup, monkeypatch):
     assert out["1"] == out["0"]
 
 
-@pytest.mark.parametrize("kw,env", [
-    ({"disagg": True}, {}), ({}, {"REPRO_DISAGG": "1"})],
-    ids=["kw2-env2", "kw4-env4"])
-def test_engine_refuses_unported_features(setup, monkeypatch, kw, env):
+@pytest.mark.parametrize("pattern", [("local", "global"), ("local",)],
+                         ids=["kw2-env2", "kw4-env4"])
+def test_engine_refuses_unported_features(setup, pattern):
+    """Local-window layers are not ported: an engine over a dense config
+    with a local:global layer pattern, or with local layers only, is
+    refused at construction."""
     cfg, _, tp = setup
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(ValueError, match="not ported"):
-        ServeEngine(cfg, tp, batch=2, cache_len=16, **kw)
+    local = dataclasses.replace(cfg, attn_pattern=pattern, window=8,
+                                num_layers=len(pattern))
+    with pytest.raises(ValueError, match="local-window layers is not ported"):
+        ServeEngine(local, tp, batch=2, cache_len=16)
 
 
 # ---------------------------------------------------------------------------
@@ -367,14 +369,6 @@ def test_driver_digest_is_the_jax_drivers():
     rs = [R(1, [4, 5]), R(0, [7])]
     want = hashlib.sha1(b"0:7,1:4-5").hexdigest()[:16]
     assert drv.stream_digest(rs) == want
-
-
-@pytest.mark.parametrize("extra", [["--disagg"],
-                                   ["--decode-replicas", "2"]],
-                         ids=["extra2", "extra3"])
-def test_driver_refuses_unported_flags(extra):
-    with pytest.raises(ValueError, match="not ported"):
-        drv.main(ARGS + extra)
 
 
 def test_driver_needs_a_card_or_device_cpu():
