@@ -11,7 +11,13 @@ Phases, in order; any failure exits nonzero:
              nvcc versions.
 2. build   — every kernel of the port built from `src/repro_torch/
              kernels/csrc` for sm_90a, one nvcc per source, all at once;
-             registers, shared memory and spills from `-Xptxas -v`.
+             registers, shared memory and spills from `-Xptxas -v`, and
+             any note of ptxas's that it serialized wgmma.
+   probe   — the SA GEMM large tile's premise (ROADMAP F2): each k16
+             step of random and planted operands (exponent spreads of
+             2^±20 to 2^±60, near-total cancellation, products around
+             fp32's smallest normal, signed zeros) summed from zero by
+             mma.sync and by wgmma, the two equal on every output.
 3. kernels — each kernel against its plain PyTorch version on the same
              inputs at the main paths' shapes: the SA GEMM and the two
              attention kernels within their stated bounds (`error_bound` of
@@ -120,8 +126,10 @@ Phases, in order; any failure exits nonzero:
              `repro_torch.launch.train.run` under `cuda`: finite losses and
              gradient norms, the SA GEMM's forward and backward launched
              (every forward GEMM on its `mma` route, every backward GEMM on
-             `split3`), its plain version never run; peak memory and time
-             per step.
+             `split3`, each tile's launches equal to what `mma_plan` gives
+             the run's shapes: q, o, gate, up, down and the lm_head on the
+             large tile, wk and wv on the small one), its plain version
+             never run; peak memory and time per step.
 
 The kernel phase holds fp_emu bit for bit to its plain version and to
 chained_fma in four formats and both modes, at decode's and prefill's
@@ -139,8 +147,12 @@ tokens): the forward on the tensor cores (`mma`), its raw output, and the
 backward GEMMs (dA = dY·Wᵀ, dW = Aᵀ·dY, fp32 x bf16) on the `split3` route,
 each within its route's bound and `split_check`, which a planted backward
 with dY rounded once to bf16 must fail; the split bit for bit; the times
-beside bf16 and fp32 torch.matmul; and the tile sweep (M = 1 to 256: the
-decode, small and large tiles, split-K `partial` below 8 rows). At decode's
+beside bf16 and fp32 torch.matmul; the forward of a layer's 7 GEMMs and
+of the lm_head at M = 1024 on the large tile (wgmma), wall and device,
+beside its flop bound and its FADD bound (one add an output a k16 step);
+the tile sweep (M = 1 to 256: the decode, small and large tiles, split-K
+`partial` below 8 rows); and each distinct GEMM on the large and small
+tiles at M = 20 to 1024 beside the tile the plan takes. At decode's
 M = 4 it prints each GEMM's tile and grid and times the decode tile, wall
 and device, for a layer's 7 GEMMs and for the lm_head, each beside its byte
 bound and bf16 torch.matmul. The decode and prefill checks add bf16
@@ -206,6 +218,14 @@ STUDY_GEMMS = [(49, 1024, 1024, 27840, 19712), (12544, 27, 32, 12657, 12631),
 STUDY_NETWORKS = {"mobilenet": (0.1707624630822332, 0.09389819165630042),
                   "resnet50": (0.21931369204186524, 0.13947224394832314)}
 
+
+# the SA GEMM's large tile (csrc/sa_matmul.cu TileLarge), for the kernels
+# line
+LARGE_TILE_DESIGN = ("wgmma m64n128k16, scale-d 0 each k16 step, its sum "
+                     "added to the fp32 accumulator (FADD, round to "
+                     "nearest); 128 x 128 blocks of two consumer "
+                     "warpgroups and a TMA producer, 6 stages 64 deep in "
+                     "the 128-byte swizzle, blocks in column-strip order")
 
 # `--log FILE`: every logged line also goes to FILE (set in main)
 LOG_FILE = None
@@ -311,6 +331,79 @@ class Timer:
         # each kernel a call launches at its mean duration over the records
         # kept
         return sum(ms / n * max(1, round(n / reps)) for ms, n in ks.values())
+
+
+# ---------------------------------------------------------------------------
+# the k16 probe: wgmma's step sum against mma.sync's (ROADMAP F2)
+# ---------------------------------------------------------------------------
+
+def probe(torch):
+    """Each k16 step of the probe's operands (`gemm_cases.
+    k16_probe_operands`: random, exponent spreads of 2^±20 to 2^±60,
+    near-total cancellation, products around fp32's smallest normal,
+    signed zeros) summed from zero by mma.sync (C = 0) and by wgmma
+    (scale-d = 0): the two must agree in value on every output (the sign
+    of a zero step sum aside: an accumulator started at +0 cannot see it),
+    or the large tile would give a row other bits than the other tiles.
+    Also how many outputs each category moves off the fp64 sum (the
+    tensor cores' truncation at work: the probe is not vacuous)."""
+    from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import (k16_mismatches,
+                                                k16_probe_operands)
+
+    out, bad = {}, []
+    for name, (a, b) in k16_probe_operands(0).items():
+        got_mma, got_wg = mm.k16_probe(a.cuda(), b.cuda())
+        torch.cuda.synchronize()
+        diff = k16_mismatches(got_mma, got_wg)
+        off = k16_mismatches(got_mma, mm.k16_probe_ref(a, b).cuda())
+        out[name] = dict(diff, outputs=got_mma.numel(),
+                         off_fp64=off["values"])
+        log(f"[probe] {name:7s} {got_mma.numel()} step sums: wgmma vs "
+            f"mma.sync {diff['values']} values differ ({diff['bits']} "
+            f"bits), worst {diff['worst']}; {off['values']} differ from "
+            f"the fp64 sum")
+        if diff["values"]:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"probe: wgmma's k16 sum from zero differs "
+                             f"from mma.sync's in {bad} (ROADMAP F6)")
+    return out
+
+
+def forward_times(torch, timer, g):
+    """A layer's 7 forward GEMMs (with their bias and activation) and the
+    lm_head at the training M (1024) through `sa_matmul_cuda`, wall and
+    device, beside bf16 torch.matmul (fp32 accumulation): the `large`
+    tile wherever its blocks fill the card (tools/chip_ab.py times both
+    checkouts with it)."""
+    from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import LAYER_GEMMS, LM_HEAD
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    m = TRAIN_M
+    out = {"layer": {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0}}
+    for name, k, n, has_bias, act in LAYER_GEMMS + [LM_HEAD]:
+        a = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        bias = (torch.randn((n,), generator=g, device="cuda") * 0.1
+                if has_bias else None)
+        row = {"ms": timer.wall(lambda: mm.sa_matmul_cuda(a, w, bias,
+                                                          act=act), reps=5),
+               "device_ms": timer.device(lambda: mm.sa_matmul_cuda(
+                   a, w, bias, act=act), reps=3),
+               "library_ms": timer.wall(lambda: torch.matmul(a, w), reps=5)}
+        if name == "lm_head":
+            out["lm_head"] = row
+        else:
+            lay = out["layer"]
+            for key, v in row.items():
+                lay[key] = None if v is None or lay[key] is None \
+                    else lay[key] + v
+        del a, w, bias
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -527,6 +620,39 @@ def sweep_routes(torch, timer, g):
     return out
 
 
+def crossover_times(torch, timer, g):
+    """Each distinct GEMM of the path (a layer's N = 1024, 5120 at K =
+    5120 and 13824, 13824, and the lm_head) on the `large` and `small`
+    tiles, forced, at M = 20 (the verify) to 1024, wall: where `mma_plan`'s
+    small-to-large crossover stands against the tiles' times. Returns
+    {M: {name: {tile: ms, "plan": tile}}}."""
+    from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import LAYER_GEMMS, LM_HEAD
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gemms = {name: (k, n) for name, k, n, _, _ in LAYER_GEMMS + [LM_HEAD]
+             if name in ("wq", "wk", "wg", "wd", "lm_head")}
+    out = {}
+    for m in (20, 64, 128, 256, 512, 1024):
+        row = {}
+        for name, (k, n) in gemms.items():
+            a = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            w = (torch.randn((k, n), generator=g, device="cuda")
+                 * k ** -0.5).to(torch.bfloat16)
+            row[name] = {tile: timer.wall(lambda: mm._launch(
+                a, w, None, None, "none", "exact", False, tile=tile), reps=5)
+                for tile in ("large", "small")}
+            row[name]["plan"] = mm.mma_plan(m, n, "mma", sms)["tile"]
+            del a, w
+        out[m] = row
+        log(f"sa_matmul crossover M={m:4d}: " + ", ".join(
+            f"{nm} N={gemms[nm][1]} large {r['large']:.4f} small "
+            f"{r['small']:.4f} plan {r['plan']}" for nm, r in row.items()))
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_gemm_train(torch, timer):
     """The SA GEMM at the training shapes (M = 1024 tokens a microbatch):
     the forward (`mma` route) and, for wg+silu, its raw accumulator; the
@@ -669,9 +795,30 @@ def check_gemm_train(torch, timer):
     log("split3 pre-pass: bit for bit split3_ref on every dus and the "
         "planted values, hi + mid + lo == x exactly")
     sweep = sweep_routes(torch, timer, g)
+    crossover = crossover_times(torch, timer, g)
     b_ms, by = bound_ms(tot["bytes"], 3 * tot["flops"], PEAK_BF16)
     b32, _ = bound_ms(tot["bytes"], tot["flops"], PEAK_FP32)
     f_ms, _ = bound_ms(0, tot["fwd_flops"], PEAK_BF16)
+    # the forward again through forward_times (wall and device, the
+    # lm_head too), beside both of the large tile's bounds: the tensor
+    # cores' flops, and the step sums' adds (one FADD an output a k16
+    # step) at the card's issue rate
+    fwd = forward_times(torch, timer, g)
+    lay, lmf = fwd["layer"], fwd["lm_head"]
+    rate = issue_rate(torch)
+    fadd_ms = tot["fwd_flops"] / 2 / 16 / rate * 1e3
+    _, lk, ln, _, _ = LM_HEAD
+    lm_fl = 2.0 * m * ln * lk
+    lm_b, lm_by = bound_ms(2 * (m * lk + lk * ln) + 4 * m * ln, lm_fl,
+                           PEAK_BF16)
+    lm_fadd = lm_fl / 2 / 16 / rate * 1e3
+    log(f"sa_matmul forward at M={m} (the large tile on wgmma where it "
+        f"fills the card): one layer's 7 GEMMs {lay['ms']:.4f} ms wall, "
+        f"{lay['device_ms']} ms device (flop bound {f_ms:.4f} ms, FADD "
+        f"bound {fadd_ms:.4f} ms; bf16 torch.matmul {lay['library_ms']:.4f}"
+        f" ms); lm_head {lmf['ms']:.4f} ms wall, {lmf['device_ms']} ms "
+        f"device (bound {lm_b:.4f} ms by {lm_by}, FADD bound {lm_fadd:.4f} "
+        f"ms; bf16 torch.matmul {lmf['library_ms']:.4f} ms)")
     log(f"sa_matmul train: one layer's 7 GEMMs at M={m}: forward "
         f"{tot['fwd_ms']:.3f} ms ({tot['fwd_flops'] / tot['fwd_ms'] / 1e9:.1f}"
         f" TFLOP/s, {100 * f_ms / tot['fwd_ms']:.1f} % of its {f_ms:.3f} ms "
@@ -683,11 +830,16 @@ def check_gemm_train(torch, timer):
         f"{lm['ms']:.3f} ms (fp32 torch.matmul {lm['library_ms']:.3f}); "
         f"backward max err/bound {worst:.4f}")
     readings = {"forward_M1024": {
-        "ms": tot["fwd_ms"], "library_ms": tot["fwd_bf16_ms"],
+        "ms": lay["ms"], "device_ms": lay["device_ms"],
+        "library_ms": lay["library_ms"],
         "library_fp32_ms": tot["fwd_fp32_ms"], "bound_ms": f_ms,
-        "bound_by": "operations"}, "lm_head_pair": lm,
+        "bound_by": "operations", "fadd_bound_ms": fadd_ms},
+        "lm_head_fwd_M1024": dict(lmf, bound_ms=lm_b, bound_by=lm_by,
+                                  fadd_bound_ms=lm_fadd,
+                                  library_fp32_ms=lm["fwd_fp32_ms"]),
+        "lm_head_pair": lm,
         "bound_simt_ms": b32, "split_check_faults": faults,
-        "route_sweep_ms": sweep}
+        "route_sweep_ms": sweep, "tile_crossover_ms": crossover}
     return {"name": "sa_matmul_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sa_matmul.cu",
             "replaces": "src/repro/kernels/sa_matmul.py:244",
@@ -3056,6 +3208,9 @@ def train(torch, card):
     wall = time.monotonic() - t0
     counts = ops.counts()
     routes = ops.route_counts()["sa_matmul"]
+    tiles = ops.tile_counts()
+    want_tiles = _expected_train_tiles(torch, counts["sa_matmul_bwd"][
+        "launches"])
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in _grad_leaves(torch, state.params)
                    .values())
@@ -3075,7 +3230,7 @@ def train(torch, card):
         f"(torch.cuda.max_memory_allocated)")
     log(f"[train] losses {[round(h['loss'], 4) for h in hist]} grad norms "
         f"{[round(h['grad_norm'], 4) for h in hist]}; counts {counts}; SA "
-        f"GEMM routes {routes}")
+        f"GEMM routes {routes}; tiles {tiles} (the plan's: {want_tiles})")
     problems = []
     if len(hist) != TRAIN_STEPS:
         problems.append(f"{len(hist)} of {TRAIN_STEPS} steps")
@@ -3097,9 +3252,32 @@ def train(torch, card):
             or routes["simt"] or routes["partial"]):
         problems.append(f"SA GEMM routes {routes}: the forward must run "
                         f"mma only and the backward split3 only")
+    if tiles != want_tiles:
+        problems.append(f"SA GEMM tiles {tiles}, the plan implies "
+                        f"{want_tiles}")
     if problems:
         raise AssertionError("train phase failed: " + "; ".join(problems))
-    return counts["sa_matmul_bwd"]["launches"], step0, routes
+    return counts["sa_matmul_bwd"]["launches"], step0, routes, tiles
+
+
+def _expected_train_tiles(torch, bwd_launches):
+    """The SA GEMM's launches by tile that the train phase's shapes imply:
+    a microbatch of TRAIN_M rows runs each layer's 7 forward GEMMs twice
+    (the forward, and remat's recompute in the backward) and the lm_head
+    once, each on the tile `mma_plan` gives its (M, N) on this card (q, o,
+    gate, up, down and the lm_head on `large`, wk and wv on `small`); every
+    backward GEMM runs the `split3` tile."""
+    from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import LAYER_GEMMS, LM_HEAD
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {t: 0 for t in mm.MMA_TILES}
+    per_micro = [(n, 2 * TRAIN_LAYERS) for _, _, n, _, _ in LAYER_GEMMS]
+    for n, times in per_micro + [(LM_HEAD[2], 1)]:
+        tile = mm.mma_plan(TRAIN_M, n, "mma", sms)["tile"]
+        want[tile] += times * TRAIN_ACCUM * TRAIN_STEPS
+    want["split3"] = bwd_launches
+    return want
 
 
 def main(argv=None):
@@ -3143,13 +3321,18 @@ def main(argv=None):
     reports = build.build_all()
     for name, rep in reports.items():
         for line in rep.splitlines():
+            # ptxas's C75xx notes: wgmma serialized (a performance loss)
             if ("registers" in line or "spill" in line
-                    or "Compiling entry" in line):
+                    or "Compiling entry" in line or "(C75" in line):
                 log(f"[build {name}] {line.strip()}")
     phases["build"] = time.monotonic() - t
     log(f"[build] {len(reports)} kernels for sm_90a in {phases['build']:.1f} s"
         f" (each nvcc's seconds: "
         + ", ".join(f"{n} {v:.1f}" for n, v in build.SECONDS.items()) + ")")
+
+    t = time.monotonic()
+    probe_out = probe(torch)
+    phases["probe"] = time.monotonic() - t
 
     t = time.monotonic()
     timer = Timer(torch)
@@ -3162,7 +3345,10 @@ def main(argv=None):
     # the forward's training-shape readings belong to the forward's entry
     kernels[0]["readings"].update({
         key: kernels[1]["readings"].pop(key)
-        for key in ("forward_M1024", "route_sweep_ms")})
+        for key in ("forward_M1024", "lm_head_fwd_M1024", "route_sweep_ms",
+                    "tile_crossover_ms")})
+    kernels[0]["readings"]["large_tile"] = {
+        "design": LARGE_TILE_DESIGN, "k16_probe": probe_out}
     phases["kernels"] = time.monotonic() - t
     t = time.monotonic()
     kernels[2]["readings"]["batch_fold_ms"] = check_fold(torch, timer)
@@ -3274,8 +3460,11 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
         t = time.monotonic()
-        launches["sa_matmul_bwd"], _, train_routes = train(torch, card)
+        launches["sa_matmul_bwd"], _, train_routes, train_tiles = train(
+            torch, card)
         kernels[1]["readings"]["train_routes"] = train_routes
+        kernels[0]["readings"]["large_tile"]["train_tile_launches"] = \
+            train_tiles
         phases["train"] = time.monotonic() - t
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
     for k in kernels:

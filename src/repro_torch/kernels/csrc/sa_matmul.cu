@@ -19,24 +19,24 @@
 //   FMA chain in one thread, written to a workspace, and the epilogue kernel
 //   folds the slices (see "Each output's sum"). The slices, not the rows,
 //   fill the SMs: a narrow N still puts blocks on every SM.
-// * mma: sa_gemm_mma, one piece — bf16 x bf16 at every M (the forward
-//   under the bf16 and FP8 policies, decode included). mma.sync.m16n8k16
-//   bf16 on the tensor cores, fp32 accumulate. At training shapes it is
-//   bound by the tensor cores (a layer's 7 GEMMs at M = 1024 are 0.57 ms
-//   at 989 TFLOP/s); mma.sync issues from registers and reaches well under
-//   that peak (wgmma with TMA is the later step). At prefill's M it is
-//   bound by W's bytes and by how many blocks fill the 132 SMs; at
-//   decode's (M <= 16) by W's bytes alone: every weight feeds 2*M flops.
-//   Operand tiles are copied by cp.async (TileDecode's W by TMA) into a
-//   ring of XOR-swizzled bf16 tiles in shared memory and read by ldmatrix:
-//   .trans for a row-contiguous operand (W as stored, Aᵀ of a row-major A),
-//   plain for a K-contiguous one (Wᵀ, A), so either operand is read in
-//   place through its strides and no transpose is copied. The tiles
-//   (TileLarge, TileSmall, TileDecode below) were chosen by sweeps on the
-//   card; the wrapper takes the small one where the large blocks would
-//   leave SMs idle and the decode one for M <= 16, whose blocks each
-//   stream a 64-column strip of W (see TileDecode). The epilogue runs on
-//   the accumulator fragments: one launch a GEMM, no workspace.
+// * mma: bf16 x bf16 at every M (the forward under the bf16 and FP8
+//   policies, decode included), fp32 accumulate on the tensor cores. At
+//   training shapes it is bound by the tensor cores and by the step sums'
+//   adds (a layer's 7 GEMMs at M = 1024: 0.570 ms at 989 TFLOP/s, 0.527 ms
+//   of FADDs; see TileLarge). At prefill's M it is bound by W's bytes and
+//   by how many blocks fill the 132 SMs; at decode's (M <= 16) by W's
+//   bytes alone: every weight feeds 2*M flops. Three tiles, chosen by the
+//   wrapper's `mma_plan`: TileLarge (sa_gemm_wgmma: warp-specialized, TMA
+//   into a 128-byte-swizzled ring read by wgmma m64n128k16) where its
+//   128 x 128 blocks pay (`large_pays`); below that TileSmall, and TileDecode
+//   for M <= 16, whose blocks each stream a 64-column strip of W (see
+//   TileDecode); both sa_gemm_mma, one piece: mma.sync.m16n8k16 on
+//   operand tiles copied by cp.async (TileDecode's W by TMA) into a ring
+//   of XOR-swizzled bf16 tiles and read by ldmatrix: .trans for a
+//   row-contiguous operand (W as stored, Aᵀ of a row-major A), plain for a
+//   K-contiguous one (Wᵀ, A). Either operand is read in place through its
+//   strides on every tile, no transpose copied. The epilogue runs on the
+//   accumulator fragments: one launch a GEMM, no workspace.
 // * split3: sa_gemm_mma, three pieces — one fp32 and one bf16 operand: both
 //   backward GEMMs. The fp32 operand is split once (sa_split3, shared by
 //   dA and dW) into three bf16 planes with hi + mid + lo == x exactly (see
@@ -71,9 +71,9 @@
 // beside it. partial writes every slice and the epilogue folds both
 // levels; simt folds the slices of its part in the thread.
 //
-// Each output's sum in sa_gemm_mma: one thread accumulates its k16 steps
-// in order k = 0, 16, ..., whatever M, N or the tile: K is never split
-// there, so a row's result does not depend on the other rows, and a bf16
+// Each output's sum on the tensor-core routes (sa_gemm_mma and
+// sa_gemm_wgmma): one thread accumulates its k16 steps in order k = 0, 16,
+// ..., whatever M, N or the tile: K is never split there, so a row's result does not depend on the other rows, and a bf16
 // GEMM gives every row the same bits at every M (ROADMAP F2). A step's 16
 // products (48 under split3: the pieces lo, mid, hi) are summed by the
 // tensor cores from zero, and the step's sum is added to the fp32
@@ -466,10 +466,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+// a barrier whose phase completes on `count` arrivals (and, where a copy
+// expects bytes, when they have landed)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
+
 
 // the one arrival of a stage's barrier, expecting `bytes` from the copy
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
@@ -493,6 +497,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
     if (!done && clock64() - t0 > (1LL << 32)) __trap();
   }
+}
+
+// mbar_wait for the wgmma consumers: every lane polls and the warp leaves
+// the loop together (a vote), with the same trap after 2^32 cycles. With
+// mbar_wait's per-lane exit here, and the arrive below in a branch, the
+// large tile ran a layer's GEMMs three times slower on the H100.
+__device__ __forceinline__ void mbar_wait_wg(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (__all_sync(0xffffffff, done)) break;
+    if (__any_sync(0xffffffff, clock64() - t0 > (1LL << 32))) __trap();
+  }
+}
+
+// an arrival where `pred` holds, predicated inside the asm: no branch
+// between the consumers' wgmma (see mbar_wait_wg)
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(static_cast<uint32_t>(pred))
+      : "memory");
 }
 
 // a (c1, c0)-cornered box of a 2-D tensor map into shared memory, counted
@@ -532,6 +566,76 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// A wgmma shared-memory descriptor of a tile stored in 128-byte rows with
+// the 128-byte swizzle (chunk c of row r at c ^ (r & 7), the tile
+// 1024-byte aligned, so the base offset is 0): the start address, the
+// leading byte offset (an M- or N-contiguous tile: between its 64-element
+// column blocks; a K-contiguous one does not read it) and the stride byte
+// offset (between groups of 8 rows: 1024), each in 16-byte units; the
+// swizzle mode 1 (128 bytes) in bits 62-63.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// A fragment that an asynchronous wgmma wrote is read only after the wait
+// that covers it: the empty asm "writes" each register here, so the
+// compiler cannot move a read of it above this point.
+__device__ __forceinline__ void fence_regs(float (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d = a . b for one k16 step of a warpgroup: wgmma m64n128k16, bf16
+// operands read from shared memory through their descriptors, fp32 out,
+// scale-d = 0 (the step is summed from zero; d's old values are not
+// read). TA, TB: the transpose bits (1: an M- or N-contiguous tile).
+// d[i] is output (16 * warp + g + 8 * ((i >> 1) & 1), 8 * (i >> 2) + 2q +
+// (i & 1)) of the warpgroup's 64 x 128, mma.sync's fragment layout
+// repeated over 16 column blocks.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_k16(float (&d)[64], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(0), "n"(TA), "n"(TB));
+}
+
 // Byte offset of 16-byte chunk `c` of row `r` in a staged tile of ROW-byte
 // rows: K-contiguous tiles ([rows][BK] bf16) have BK * 2-byte rows,
 // row-contiguous ones ([BK][W] bf16) W * 2. The chunk is XORed with the
@@ -560,6 +664,42 @@ struct TcEpilogue {
   long long ldo_m, ldo_n;
   int act, approx, bias_on_m;
 };
+
+// The epilogue of outputs (m, n) and (m, n + 1) from their chains v0, v1:
+// the approx truncation, the raw store, x scale, + bias, act, one fp32
+// store each; a float2 store where the output is row-major with an even
+// leading dimension, else one by one, n + 1 skipped past N.
+__device__ __forceinline__ void store_pair(const TcEpilogue& epi, float scale,
+                                           bool pair, int m, int n, int N,
+                                           float v0, float v1) {
+  float v[2] = {v0, v1};
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    if (epi.approx) v[e] = truncate3(v[e]);
+  const size_t o = (size_t)m * epi.ldo_m + (size_t)n * epi.ldo_n;
+  if (pair && n + 1 < N) {
+    if (epi.raw != nullptr)
+      *reinterpret_cast<float2*>(epi.raw + o) = make_float2(v[0], v[1]);
+    float y[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      y[e] = v[e] * scale;
+      if (epi.bias != nullptr) y[e] += epi.bias[epi.bias_on_m ? m : n + e];
+      y[e] = act_apply(y[e], epi.act);
+    }
+    *reinterpret_cast<float2*>(epi.out + o) = make_float2(y[0], y[1]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (n + e >= N) continue;
+    const size_t oe = o + e * epi.ldo_n;
+    if (epi.raw != nullptr) epi.raw[oe] = v[e];
+    float y = v[e] * scale;
+    if (epi.bias != nullptr) y += epi.bias[epi.bias_on_m ? m : n + e];
+    epi.out[oe] = act_apply(y, epi.act);
+  }
+}
 
 // C (M, N) = sum over pieces p of A_p (M, K) . B (K, N), fp32 accumulators,
 // then the fused epilogue. A_p is bf16 plane p of A (NPIECE = 3: the hi,
@@ -780,39 +920,9 @@ sa_gemm_mma(const __nv_bfloat16* __restrict__ a, long long a_plane, int lda,
       const int m = m0 + wm * WM + i * 16 + g + h * 8;
       if (m >= M) continue;
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = n0 + wn * WN + j * 8 + 2 * q;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float s = acc[i][j][2 * h + e];
-          if (epi.approx) s = truncate3(s);
-          v[e] = s;
-        }
-        const size_t o = (size_t)m * epi.ldo_m + (size_t)n * epi.ldo_n;
-        if (pair && n + 1 < N) {
-          if (epi.raw != nullptr)
-            *reinterpret_cast<float2*>(epi.raw + o) = make_float2(v[0], v[1]);
-          float y[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            y[e] = v[e] * scale;
-            if (epi.bias != nullptr) y[e] += epi.bias[epi.bias_on_m ? m : n + e];
-            y[e] = act_apply(y[e], epi.act);
-          }
-          *reinterpret_cast<float2*>(epi.out + o) = make_float2(y[0], y[1]);
-          continue;
-        }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (n + e >= N) continue;
-          const size_t oe = o + e * epi.ldo_n;
-          if (epi.raw != nullptr) epi.raw[oe] = v[e];
-          float y = v[e] * scale;
-          if (epi.bias != nullptr) y += epi.bias[epi.bias_on_m ? m : n + e];
-          epi.out[oe] = act_apply(y, epi.act);
-        }
-      }
+      for (int j = 0; j < NT; ++j)
+        store_pair(epi, scale, pair, m, n0 + wn * WN + j * 8 + 2 * q, N,
+                   acc[i][j][2 * h], acc[i][j][2 * h + 1]);
     }
   }
 }
@@ -841,30 +951,40 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// B (K, N) bf16 stored as (K, N) rows of ldb elements, as a 2-D tensor map
-// whose box is one stage's tile, BK rows x BN. The swizzle is the tile
-// row's width (32, 64 or 128 bytes), which is tile_off's layout.
-template <class Tile>
-cudaError_t b_tensor_map(CUtensorMap* map, const void* b, int ldb, int N,
-                         int K) {
-  constexpr int kRow = Tile::BN * 2;  // bytes
-  static_assert(kRow == 32 || kRow == 64 || kRow == 128, "TMA swizzle");
+// A bf16 matrix of `outer` rows of `inner` elements, rows ld elements
+// apart, as a 2-D tensor map whose box is box_outer rows x box_inner. The
+// swizzle is the box row's width (32, 64 or 128 bytes), which is
+// tile_off's layout and, at 128 bytes, wgmma's. A box past the matrix's
+// edge lands zero-filled.
+cudaError_t tensor_map_2d(CUtensorMap* map, const void* p, int inner,
+                          int outer, int ld, int box_inner, int box_outer) {
+  const int row = box_inner * 2;  // bytes
+  if (row != 32 && row != 64 && row != 128) return cudaErrorInvalidValue;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
-                              static_cast<cuuint64_t>(K)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldb) * 2};
-  const cuuint32_t box[2] = {Tile::BN, Tile::BK};
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t elem[2] = {1, 1};
-  const CUtensorMapSwizzle swz = kRow == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : kRow == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swz = row == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(b), dims, strides, box, elem,
+                         const_cast<void*>(p), dims, strides, box, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// B (K, N) bf16 stored as (K, N) rows of ldb elements, as a 2-D tensor map
+// whose box is one stage's tile, BK rows x BN.
+template <class Tile>
+cudaError_t b_tensor_map(CUtensorMap* map, const void* b, int ldb, int N,
+                         int K) {
+  return tensor_map_2d(map, b, N, K, ldb, Tile::BN, Tile::BK);
 }
 
 template <class Tile, int NPIECE, bool AK, bool BK_>
@@ -906,12 +1026,305 @@ cudaError_t launch_mma_layout(int a_kcont, int b_kcont, const void* a,
                                                 M, N, K, st);
 }
 
-// The tiles the wrapper's `mma_plan` chooses from (sweeps on the H100
-// chose them; PERF.md): the forward's from M = 1024 down to where its
-// blocks fill the card, 8 warps of 32 x 64 over 128 x 128 with 64-deep
-// stages two deep; below that 4 warps of 32 x 32 over 64 x 64; the split's
-// three A pieces take 32-deep stages three deep, so two 96 KB blocks share
-// an SM.
+// ---------------------------------------------------------------------------
+// TileLarge: the forward's large tile on wgmma (bf16 x bf16, sa_gemm_wgmma)
+// ---------------------------------------------------------------------------
+//
+// It computes what sa_gemm_mma computes, bit for bit: each output's k16
+// steps in order k = 0, 16, ..., each step's 16 products summed by the
+// tensor cores from zero, the step's sum added to the fp32 accumulator with
+// one rounding to nearest (acc + t, as sa_gemm_mma's `acc += t`). K is never
+// split, so the rows fold as every other tile's do (ROADMAP F2). That
+// wgmma's k16 sum from zero carries mma.sync's bits is not given by the
+// hardware's documentation: sa_k16_probe below tests it (chip_smoke's probe
+// phase, 0 mismatches).
+//
+// Bound, a layer's 7 forward GEMMs at M = 1024 (2 M sum(N) K = 563.7
+// GFLOP): the tensor cores, 0.570 ms at 989 TFLOP/s, and the step sums'
+// adds, one FADD an output a k16 step, M sum(N) K / 16 = 17.6 G, 0.527 ms
+// at 132 SMs x 128 lanes x 1.98 GHz; the two are nearly equal, so the
+// design overlaps them. wgmma reads both operands from shared memory: no
+// ldmatrix, and the issue slots that mma.sync spent on fragments and on
+// one mma a 16 x 8 block go to the adds.
+//
+// A block owns 128 x 128 outputs. One producer warpgroup (one thread of it
+// issuing) keeps TMA copies of A's and W's 64-deep K tiles in flight into
+// a ring of STAGES stages, each with a full mbarrier (the copy's bytes) and
+// an empty one (one arrival a consumer warp). Tiles are stored in 128-byte
+// rows with the 128-byte swizzle that both the copy and wgmma's
+// descriptors use: a K-contiguous operand (A as (M, K), W as Wᵀ) as one
+// box of 128 rows of 64 K values, an M- or N-contiguous one (A as (K, M),
+// W as stored (K, N)) as two boxes of 64 K rows of 64 columns, read with
+// wgmma's transpose bit. Boxes past M, N and K land zero-filled, as
+// cp.async fills them in sa_gemm_mma, so a ragged edge sums the same zero
+// products. Two consumer warpgroups own 64 x 128 outputs each: for step s
+// a warpgroup issues wgmma m64n128k16 with scale-d = 0 into one of two
+// step fragments, waits until only that wgmma is pending (the step s - 1
+// wgmma is done), and adds step s - 1's fragment into the accumulator while
+// the tensor cores run step s; the other warpgroup's steps interleave with
+// these. setmaxnreg moves registers from the producer (40 a thread) to the
+// consumers (232: 64 accumulators and 2 x 64 step sums). The epilogue
+// runs on wgmma's fragment layout (store_pair), the ragged edge masked.
+struct TileLarge {
+  static constexpr int BM = 128, BN = 128, BK = 64, STAGES = 6;
+  static constexpr int CONSUMERS = 2;                 // warpgroups
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int BOX = 64 * BK * 2;  // a 64-column box of K rows
+  // the ring, its full and empty mbarriers, room to align it to 1024
+  static constexpr int smem() { return STAGES * STAGE + 16 * STAGES + 1024; }
+};
+
+template <bool A_KCONT, bool B_KCONT>
+__global__ void __launch_bounds__(TileLarge::THREADS, 1)
+sa_gemm_wgmma(TcEpilogue epi, int M, int N, int K,
+              const __grid_constant__ CUtensorMap tmap_a,
+              const __grid_constant__ CUtensorMap tmap_b) {
+  using T = TileLarge;
+  static_assert(T::BK == 64, "4 k16 steps a stage: the step fragments "
+                             "alternate within a stage");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t ring = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t full0 = ring + T::STAGES * T::STAGE;
+  const uint32_t empty0 = full0 + 8 * T::STAGES;
+  const int nk = (K + T::BK - 1) / T::BK;
+  // the warpgroup, broadcast from lane 0 so the compiler knows the role
+  // branch warp-uniform
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  // blocks in column-strip order: the row blocks of one 128-column strip
+  // of W are consecutive, so they run together and W streams from memory
+  // once (A, 10-28 MB at M = 1024, stays in L2); in the grid's own order
+  // each row block would stream all of W
+  const int bid = blockIdx.y * gridDim.x + blockIdx.x;
+  const int m0 = (bid % gridDim.y) * T::BM, n0 = (bid / gridDim.y) * T::BN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(full0 + 8 * s);
+      mbar_init(empty0 + 8 * s, 4 * T::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == T::CONSUMERS) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x % 128 == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % T::STAGES;
+        // the slot's previous round has been read (the first round's wait
+        // passes at once)
+        mbar_wait(empty0 + 8 * s, ((kt / T::STAGES) & 1) ^ 1);
+        const uint32_t bar = full0 + 8 * s;
+        const uint32_t a_st = ring + s * T::STAGE, b_st = a_st + T::A_BYTES;
+        const int k0 = kt * T::BK;
+        mbar_expect_tx(bar, T::STAGE);
+        if constexpr (A_KCONT) {
+          tma_load_2d(a_st, &tmap_a, k0, m0, bar);
+        } else {
+          tma_load_2d(a_st, &tmap_a, m0, k0, bar);
+          tma_load_2d(a_st + T::BOX, &tmap_a, m0 + 64, k0, bar);
+        }
+        if constexpr (B_KCONT) {
+          tma_load_2d(b_st, &tmap_b, k0, n0, bar);
+        } else {
+          tma_load_2d(b_st, &tmap_b, n0, k0, bar);
+          tma_load_2d(b_st + T::BOX, &tmap_b, n0 + 64, k0, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x % 128, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  // the descriptors of stage 0's first step: this warpgroup's 64 rows of
+  // A's tile and all of B's. A step or a stage moves only the start
+  // address (its low 14 bits, in 16 bytes: no carry out of them, shared
+  // memory being under 256 KB): a k16 step is 32 bytes along a
+  // K-contiguous row or 16 rows down a column box.
+  const uint64_t da0 = wg_desc(ring + (A_KCONT ? wg * 64 * 128 : wg * T::BOX),
+                               A_KCONT ? 16 : T::BOX, 1024);
+  const uint64_t db0 = wg_desc(ring + T::A_BYTES, B_KCONT ? 16 : T::BOX,
+                               1024);
+  constexpr uint64_t kAStep = (A_KCONT ? 32 : 16 * 128) >> 4;
+  constexpr uint64_t kBStep = (B_KCONT ? 32 : 16 * 128) >> 4;
+  float acc[64], t0[64], t1[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = t0[i] = t1[i] = 0.f;
+
+  // step kk of the stage `so` (its offset, in 16 bytes) into t; then step
+  // kk - 1's sum u (the wait leaves only this step's wgmma pending) into
+  // the accumulator. The first step adds t1's initial +0 to +0: +0, as no
+  // add.
+  auto step = [&](uint64_t so, int kk, float(&t)[64], float(&u)[64]) {
+    wg_fence();
+    wgmma_k16<A_KCONT ? 0 : 1, B_KCONT ? 0 : 1>(t, da0 + so + kk * kAStep,
+                                                db0 + so + kk * kBStep);
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(u);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], u[i]);
+  };
+  int s = 0, prev = T::STAGES - 1;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    mbar_wait_wg(full0 + 8 * s, phase);
+    const uint64_t so = static_cast<uint64_t>(s * T::STAGE) >> 4;
+    step(so, 0, t0, t1);
+    // the previous stage's last wgmma is done: each warp frees its slot
+    mbar_arrive_if(empty0 + 8 * prev, kt > 0 && lane == 0);
+    step(so, 1, t1, t0);
+    step(so, 2, t0, t1);
+    step(so, 3, t1, t0);
+    prev = s;
+    if (++s == T::STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  // the last step's sum (for an empty K, t1's +0: the sum of nothing is
+  // +0). The wait is unconditional: one that only some paths take leaves
+  // the compiler a wait of its own to insert in a divergent path, and then
+  // it serializes every wgmma.
+  wg_wait<0>();
+  fence_regs(t1);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], t1[i]);
+
+  const float scale = epi.scale_dev != nullptr ? epi.scale_dev[0] : epi.scale;
+  const bool pair = epi.ldo_n == 1 && (epi.ldo_m & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + wg * 64 + warp * 16 + g + 8 * h;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      store_pair(epi, scale, pair, m, n0 + 8 * j + 2 * q, N,
+                 acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+template <bool AK, bool BK_>
+cudaError_t launch_wgmma(const void* a, int lda, const void* b, int ldb,
+                         const TcEpilogue& epi, int M, int N, int K,
+                         cudaStream_t st) {
+  using T = TileLarge;
+  auto kern = sa_gemm_wgmma<AK, BK_>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::smem());
+  if (e != cudaSuccess) return e;
+  // a map's extents are at least 1 (K = 0 loads nothing: the sum of
+  // nothing, +0)
+  const int k = std::max(K, 1);
+  CUtensorMap ma{}, mb{};
+  e = AK ? tensor_map_2d(&ma, a, k, M, lda, T::BK, T::BM)
+         : tensor_map_2d(&ma, a, M, k, lda, 64, T::BK);
+  if (e != cudaSuccess) return e;
+  e = BK_ ? tensor_map_2d(&mb, b, k, N, ldb, T::BK, T::BN)
+          : tensor_map_2d(&mb, b, N, k, ldb, 64, T::BK);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+  kern<<<grid, T::THREADS, T::smem(), st>>>(epi, M, N, K, ma, mb);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma_layout(int a_kcont, int b_kcont, const void* a,
+                                int lda, const void* b, int ldb,
+                                const TcEpilogue& epi, int M, int N, int K,
+                                cudaStream_t st) {
+  if (a_kcont && b_kcont)
+    return launch_wgmma<true, true>(a, lda, b, ldb, epi, M, N, K, st);
+  if (a_kcont)
+    return launch_wgmma<true, false>(a, lda, b, ldb, epi, M, N, K, st);
+  if (b_kcont)
+    return launch_wgmma<false, true>(a, lda, b, ldb, epi, M, N, K, st);
+  return launch_wgmma<false, false>(a, lda, b, ldb, epi, M, N, K, st);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16;
+}
+
+// The k16 probe: step s's 16 products of A_s (64 x 16, K-contiguous) and
+// B_s (16 x 128, N-contiguous), summed from zero two ways and both written
+// out (steps, 64, 128) fp32, for a bit-for-bit comparison: by
+// mma.sync.m16n8k16 with C = 0, as sa_gemm_mma sums a step (fragments
+// loaded from global memory), and by wgmma m64n128k16 with scale-d = 0 on
+// the same data staged in shared memory in the 128-byte swizzle, read
+// through wgmma_k16 and wg_desc as sa_gemm_wgmma reads W as stored (two
+// 64-column boxes). A block a step, one warpgroup.
+__global__ void __launch_bounds__(128)
+sa_k16_probe(const __nv_bfloat16* __restrict__ a,
+             const __nv_bfloat16* __restrict__ b, float* __restrict__ out_mma,
+             float* __restrict__ out_wg) {
+  constexpr int kBBox = 16 * 128;   // bytes of a 64-column box of 16 K rows
+  __shared__ __align__(1024) unsigned char sm[64 * 128 + 2 * kBBox];
+  const int s = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const __nv_bfloat16* as = a + (size_t)s * 64 * 16;
+  const __nv_bfloat16* bs = b + (size_t)s * 16 * 128;
+  // A: row r's two 16-byte chunks c at c ^ (r & 7) of its 128-byte row;
+  // B: K row k of box h (columns 64h..64h + 63), chunk c at c ^ (k & 7)
+  for (int i = tid; i < 64 * 2; i += 128) {
+    const int r = i >> 1, c = i & 1;
+    *reinterpret_cast<uint4*>(sm + r * 128 + ((c ^ (r & 7)) << 4)) =
+        *reinterpret_cast<const uint4*>(as + r * 16 + c * 8);
+  }
+  for (int i = tid; i < 16 * 16; i += 128) {
+    const int k = i >> 4, cn = i & 15, h = cn >> 3, c = cn & 7;
+    *reinterpret_cast<uint4*>(sm + 64 * 128 + h * kBBox + k * 128 +
+                              ((c ^ (k & 7)) << 4)) =
+        *reinterpret_cast<const uint4*>(bs + k * 128 + cn * 8);
+  }
+  // the generic-proxy stores, visible to wgmma's reads
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  const uint32_t sa = smem_u32(sm);
+  wg_fence();
+  wgmma_k16<0, 1>(d, wg_desc(sa, 16, 1024), wg_desc(sa + 64 * 128, kBBox,
+                                                    1024));
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(d);
+
+  const int r0 = warp * 16 + g;
+  auto pa = [&](int r, int k) {
+    return pack_bf16(as[r * 16 + k], as[r * 16 + k + 1]);
+  };
+  const uint32_t af[4] = {pa(r0, 2 * q), pa(r0 + 8, 2 * q), pa(r0, 2 * q + 8),
+                          pa(r0 + 8, 2 * q + 8)};
+  float* om = out_mma + (size_t)s * 64 * 128;
+  float* ow = out_wg + (size_t)s * 64 * 128;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = 8 * j + g;
+    const uint32_t b0 = pack_bf16(bs[2 * q * 128 + n], bs[(2 * q + 1) * 128 + n]);
+    const uint32_t b1 =
+        pack_bf16(bs[(2 * q + 8) * 128 + n], bs[(2 * q + 9) * 128 + n]);
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma16816(t, af, b0, b1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const size_t o = (size_t)(r0 + 8 * (e >> 1)) * 128 + 8 * j + 2 * q + (e & 1);
+      om[o] = t[e];
+      ow[o] = d[4 * j + e];
+    }
+  }
+}
+
+// The mma.sync tiles the wrapper's `mma_plan` chooses from beside
+// TileLarge (sweeps on the H100 chose them; PERF.md): below where the
+// large tile pays, 4 warps of 32 x 32 over 64 x 64; the
+// split's three A pieces take 8 warps of 32 x 64 over 128 x 128, 32-deep
+// stages three deep, so two 96 KB blocks share an SM.
 //
 // TileDecode, M <= 16: one m16 row of A (zero-filled past M) and four warps
 // of 16 columns over 64, 128-deep stages six deep, W by TMA (123 KB a
@@ -926,7 +1339,6 @@ cudaError_t launch_mma_layout(int a_kcont, int b_kcont, const void* a,
 // byte. So: 16 strips for wk and wv, 80 for wq, wo and wd, 216 for gate
 // and up, 2400 for the lm_head. A is restaged from L2 with every stage
 // (its rows, 40-110 KB, would not fit beside the ring).
-using TileLarge = TcTile<128, 128, 4, 2, 64, 2>;
 using TileSmall = TcTile<64, 64, 2, 2, 64, 3>;
 using TileSplit = TcTile<128, 128, 4, 2, 32, 3>;
 using TileDecode = TcTile<16, 64, 1, 4, 128, 6, true>;
@@ -1034,8 +1446,10 @@ extern "C" int sa_matmul_launch(const void* a, int a_dt, int a_kcont, int lda,
 // The tensor-core routes. npiece 1: bf16 A (mma); 3: A's hi, mid, lo
 // planes `a_plane` elements apart (split3). Output (m, n) at m * ldo_m + n *
 // ldo_n, the bias indexed by m when bias_on_m (a transposed problem). tile
-// (the `code` of sa_matmul.py's MMA_TILES entry): 0 TileLarge, 1
-// TileSmall, 2 TileDecode (npiece 1), 3 TileSplit (npiece 3).
+// (the `code` of sa_matmul.py's MMA_TILES entry): 0 TileLarge (wgmma), 1
+// TileSmall, 2 TileDecode (npiece 1), 3 TileSplit (npiece 3). Any other
+// pair, an unaligned operand or a tensor map that cuTensorMapEncodeTiled
+// refuses returns cudaErrorInvalidValue: the wrapper raises.
 extern "C" int sa_mma_launch(const void* a, int npiece, int a_kcont, int lda,
                              long long a_plane, const void* b, int b_kcont,
                              int ldb, const void* bias, int bias_on_m,
@@ -1053,8 +1467,8 @@ extern "C" int sa_mma_launch(const void* a, int npiece, int a_kcont, int lda,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (npiece == 1 && tile == 0)
-    err = launch_mma_layout<TileLarge, 1>(a_kcont, b_kcont, a, a_plane, lda,
-                                          b, ldb, epi, M, N, K, st);
+    err = launch_wgmma_layout(a_kcont, b_kcont, a, lda, b, ldb, epi, M, N, K,
+                              st);
   else if (npiece == 1 && tile == 1)
     err = launch_mma_layout<TileSmall, 1>(a_kcont, b_kcont, a, a_plane, lda,
                                           b, ldb, epi, M, N, K, st);
@@ -1067,6 +1481,22 @@ extern "C" int sa_mma_launch(const void* a, int npiece, int a_kcont, int lda,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);
+}
+
+// a (steps, 64, 16) and b (steps, 16, 128) bf16, contiguous and 16-byte
+// aligned -> each step's sums from zero by mma.sync (out_mma) and by wgmma
+// (out_wg), (steps, 64, 128) fp32 each
+extern "C" int sa_k16_probe_launch(const void* a, const void* b,
+                                   void* out_mma, void* out_wg, int steps,
+                                   void* stream) {
+  if (steps < 1 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  sa_k16_probe<<<steps, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<float*>(out_mma),
+      static_cast<float*>(out_wg));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // x (rows, cols) fp32 at x[r * ldx + c] -> three bf16 planes (hi, mid, lo)

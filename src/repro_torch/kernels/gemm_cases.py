@@ -1,5 +1,5 @@
-"""The GEMMs of the served model's path, and the operands the skewed
-datapath is checked and timed on.
+"""The GEMMs of the served model's path, the operands the skewed datapath
+is checked and timed on, and the k16 probe's steps.
 
 The shapes are qwen2.5-14b's at full width: a decoder layer's seven
 projections and the lm_head (its vocabulary padded to 153600). The same
@@ -7,6 +7,7 @@ cases feed chip_smoke.py, tools/chip_ab.py and the GPU tests.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 D_MODEL, D_FF, VOCAB = 5120, 13824, 153600
@@ -46,3 +47,72 @@ def emu_operands(g: torch.Generator, m: int, k: int, n: int, fmt: str):
     w[0, 4] = 1.0
     box = torch.float16 if fmt == "fp16" else torch.bfloat16
     return quantize(a, fmt).to(box), quantize(w, fmt).to(box)
+
+
+PROBE_STEPS = 64   # the k16 probe's steps a category
+PROBE_CASES = ("random", "spread", "cancel", "tiny", "zeros")
+
+
+def k16_probe_operands(seed: int = 0, steps: int = PROBE_STEPS) -> dict:
+    """The k16 probe's steps (`sa_matmul.k16_probe`), by category: {name:
+    (a (S, 64, 16), b (S, 16, 128))}, bf16 on the CPU, drawn by numpy's
+    generator from `seed`. Each output of a step sums 16 products:
+
+    * random: N(0, 1) operands;
+    * spread: the operands' exponents drawn within ±E/2 (E = 20, 30, 40,
+      50, 60 by step), random signs and mantissas, so a step's products
+      spread over 2^±20 to 2^±60 and the tensor cores' alignment
+      truncates the small ones;
+    * cancel: the second 8 products the first 8 negated, exactly in the
+      even columns (a zero sum) and with b's last bit flipped in the odd
+      ones (a residual ~2^-8 of the terms): near-total cancellation;
+    * tiny: exponents in [-70, -56], so the products (2^-140 to 2^-110)
+      straddle fp32's smallest normal 2^-126;
+    * zeros: rows of a at +0 and at -0, columns of b at +0 and at -0, the
+      rest random: steps whose products are all zeros of either sign, or
+      zeros beside nonzero ones."""
+    rng = np.random.default_rng(seed)
+    sa, sb = (steps, 64, 16), (steps, 16, 128)
+
+    def signed(shape, lo, hi):
+        e = rng.integers(lo, hi + 1, size=shape)
+        return (rng.choice([-1.0, 1.0], size=shape)
+                * (1.0 + rng.random(shape)) * np.exp2(e))
+
+    half = (np.array([20, 30, 40, 50, 60])[np.arange(steps) % 5]
+            // 2)[:, None, None]
+    cases = {"random": (rng.standard_normal(sa), rng.standard_normal(sb)),
+             "spread": (signed(sa, -half, half), signed(sb, -half, half)),
+             "tiny": (signed(sa, -70, -56), signed(sb, -70, -56))}
+    a, b = rng.standard_normal(sa), rng.standard_normal(sb)
+    a[:, :, 8:] = a[:, :, :8]
+    b[:, 8:, :] = -b[:, :8, :]
+    cases["cancel"] = (a, b)
+    a, b = rng.standard_normal(sa), rng.standard_normal(sb)
+    a[:, 0:8], a[:, 8:16], a[:, 16:24, ::2] = 0.0, -0.0, -0.0
+    b[:, :, 0:8], b[:, :, 8:16], b[:, ::3, 16:24] = 0.0, -0.0, 0.0
+    cases["zeros"] = (a, b)
+    out = {}
+    for name in PROBE_CASES:
+        a, b = cases[name]
+        ta = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        tb = torch.from_numpy(b.astype(np.float32)).to(torch.bfloat16)
+        if name == "cancel":   # flip the last bit of b's negated half
+            bits = tb.view(torch.int16)
+            bits[:, 8:, 1::2] ^= 1
+        out[name] = (ta, tb)
+    return out
+
+
+def k16_mismatches(x: torch.Tensor, y: torch.Tensor) -> dict:
+    """Where two fp32 tensors of step sums differ: `bits` (any bit),
+    `values` (+0 and -0 equal, NaN equal to NaN), and the worst value
+    mismatch as (|x - y|, x, y), or None."""
+    bits = int((x.view(torch.int32) != y.view(torch.int32)).sum())
+    ne = (x != y) & ~(torch.isnan(x) & torch.isnan(y))
+    worst = None
+    if bool(ne.any()):
+        d = torch.where(ne, (x - y).abs(), torch.zeros_like(x)).flatten()
+        i = int(torch.argmax(d))
+        worst = (float(d[i]), float(x.flatten()[i]), float(y.flatten()[i]))
+    return {"bits": bits, "values": int(ne.sum()), "worst": worst}

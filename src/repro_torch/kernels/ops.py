@@ -8,7 +8,8 @@ Each kernel module keeps two plain integers: `LAUNCHES` (kernel launches)
 and `PLAIN_CALLS` (calls of its plain version). `counts()` reads them and
 `reset_counts()` sets them to 0, so a run can show which path it took;
 `route_counts()` splits the SA GEMM's launches (forward and backward) and
-the prefill kernel's by route, and `mode_counts()` splits the launches of
+the prefill kernel's by route, `tile_counts()` the SA GEMM's tensor-core
+launches by tile, and `mode_counts()` splits the launches of
 the kernels that run the bulk tier's arithmetic by the policy's mode
 (`exact` or `approx`), so a run can show that an approximate decode chunk
 really ran the approximate datapath.
@@ -106,6 +107,13 @@ def route_counts() -> dict[str, dict[str, int]]:
             "prefill_attention": dict(_attn.ROUTE_LAUNCHES)}
 
 
+def tile_counts() -> dict[str, int]:
+    """The SA GEMM's tensor-core launches (`mma` and `split3`, forward and
+    backward) by tile (`sa_matmul.mma_plan`: `large`, on wgmma; `small`,
+    `decode`; `split3`)."""
+    return dict(_mm.TILE_LAUNCHES)
+
+
 _MODE_MODULES = {"sa_matmul": _mm, "paged_decode": _decode,
                  "prefill_attention": _attn, "fp_emu": _emu}
 
@@ -120,7 +128,8 @@ def reset_counts():
     for m in _MODULES.values():
         m.LAUNCHES = 0
         m.PLAIN_CALLS = 0
-    for counters in ([_attn.ROUTE_LAUNCHES, _mm.ROUTE_LAUNCHES]
+    for counters in ([_attn.ROUTE_LAUNCHES, _mm.ROUTE_LAUNCHES,
+                      _mm.TILE_LAUNCHES]
                      + [m.MODE_LAUNCHES for m in _MODE_MODULES.values()]):
         for key in counters:
             counters[key] = 0
@@ -131,4 +140,4 @@ def reset_counts():
 __all__ = ["sa_matmul", "sa_matmul_fp8", "skewed_datapath_matmul",
            "paged_decode_attention", "sa_attention", "quantize_fp8",
            "amax_scale", "fused_decode_supported", "counts", "route_counts",
-           "mode_counts", "reset_counts"]
+           "tile_counts", "mode_counts", "reset_counts"]

@@ -20,15 +20,17 @@ failed build or launch of any route raises) and counted apart in
   rows, a block per 128 columns and one K slice (`fp32_k_plan`), so narrow
   N fills the SMs; the epilogue kernel folds the slices.
 * `mma` — bf16 × bf16 at every M: the forward under the bf16 and FP8
-  policies (`cast_in` gives bf16 on the card), decode included.
-  `mma.sync` m16n8k16 on the tensor cores, fp32 accumulate; operand tiles
-  staged by cp.async into XOR-swizzled shared memory and read by ldmatrix
-  (`.trans` for a row-contiguous operand), so either operand is read in
-  place through its strides. Bound by the tensor cores at training shapes
-  (M = 1024), by W's bytes at prefill's and decode's M; `mma_plan` takes
-  64 × 64 block tiles where the large ones leave SMs idle, and for M ≤
-  DECODE_MAX_M the decode tile (one m16 row, 64 columns, W streamed by
-  TMA bulk copies into a six-stage ring), one launch a GEMM and no
+  policies (`cast_in` gives bf16 on the card), decode included, fp32
+  accumulate on the tensor cores. Bound by the tensor cores and the step
+  sums' adds at training shapes (M = 1024), by W's bytes at prefill's and
+  decode's M. `mma_plan` picks the tile (`MMA_TILES`): the large one
+  (128 × 128 blocks, warp-specialized: TMA copies of both operands into a
+  six-stage ring of 128-byte-swizzled tiles, two consumer warpgroups on
+  `wgmma` m64n128k16) where it pays (`large_pays`); 64 × 64 blocks
+  below that, and for M ≤ DECODE_MAX_M the decode tile (one m16 row, 64
+  columns, W streamed by TMA bulk copies into a six-stage ring), both on
+  `mma.sync` m16n8k16 with tiles read by ldmatrix. Either operand is read
+  in place through its strides on every tile; one launch a GEMM and no
   workspace. K is never split: every output's sum runs in one thread,
   k16 steps in order, whatever M or the tile, so a row's result does not
   depend on the other rows, and a bf16 GEMM's rows carry the same bits
@@ -99,24 +101,39 @@ DECODE_MAX_M = 16     # rows up to which a bf16 GEMM takes the decode tile
 
 
 class MmaTile(NamedTuple):
-    """A tile of the tensor-core kernel (csrc/sa_matmul.cu TcTile): block
-    rows and columns, warps, K stage depth, stages, the code that selects
-    it in `sa_mma_launch`, and whether W's stages arrive by TMA bulk copies
-    (a stage's mbarrier each, the ring aligned to 1024 bytes)."""
+    """A tile of the tensor-core kernels (csrc/sa_matmul.cu): block rows
+    and columns, warps, K stage depth, stages, the code that selects it in
+    `sa_mma_launch`, the operands (`a`, `w`) whose stages arrive by TMA
+    bulk copies (a full mbarrier a stage, the ring aligned to 1024 bytes),
+    and whether its products run on `wgmma` (TileLarge: warp-specialized,
+    `warps` // 4 warpgroups, the last one the producer, and an empty
+    mbarrier a stage as well) or on `mma.sync` (TcTile)."""
     bm: int
     bn: int
     warps: int
     bk: int
     stages: int
     code: int
-    tma: bool = False
+    tma: tuple = ()
+    wgmma: bool = False
+
+    def smem(self, npiece: int = 1) -> int:
+        """Dynamic shared memory a block: the ring, and with TMA its
+        barriers and 1024 bytes to align it."""
+        ring = self.stages * (npiece * self.bm + self.bn) * self.bk * 2
+        bars = 8 * self.stages * (2 if self.wgmma else 1)
+        return ring + (1024 + bars if self.tma else 0)
 
 
-# TileLarge, TileSmall, TileDecode, TileSplit
-MMA_TILES = {"large": MmaTile(128, 128, 8, 64, 2, code=0),
+# TileLarge (wgmma: two consumer warpgroups and a producer), TileSmall,
+# TileDecode, TileSplit
+MMA_TILES = {"large": MmaTile(128, 128, 12, 64, 6, code=0, tma=("a", "w"),
+                              wgmma=True),
              "small": MmaTile(64, 64, 4, 64, 3, code=1),
-             "decode": MmaTile(16, 64, 4, 128, 6, code=2, tma=True),
+             "decode": MmaTile(16, 64, 4, 128, 6, code=2, tma=("w",)),
              "split3": MmaTile(128, 128, 8, 32, 3, code=3)}
+# the tensor-core launches by tile (`mma_plan`), beside ROUTE_LAUNCHES
+TILE_LAUNCHES = {t: 0 for t in MMA_TILES}
 
 
 def truncate_mantissa(y: torch.Tensor, bits: int = APPROX_DROP_BITS
@@ -218,31 +235,43 @@ def gemm_route(m: int, a_dtype, w_dtype, a_kcont: bool = True,
     return "split3" if any(bf) else "simt"
 
 
+def large_pays(m: int, n: int, sms: int = 132) -> bool:
+    """Whether a bf16 GEMM of (m, n) outputs takes the large tile (wgmma)
+    rather than the small one: a large block's products and step adds run
+    all its 128 rows whatever m, so it pays where m passes half a block and
+    its blocks fill the card, or m passes a whole block and they fill half
+    of it. The H100 sweep (chip_smoke's crossover readings, PERF.md §6)
+    put the small tile ahead at m = 20-64 even for the lm_head's 1200
+    blocks, and the large one ahead at m = 256 from 80 blocks (wq, wd)."""
+    bm, bn = MMA_TILES["large"][:2]
+    blocks = -(-m // bm) * -(-n // bn)
+    return (2 * m > bm and blocks >= sms) or (m > bm and 2 * blocks >= sms)
+
+
 def mma_plan(m: int, n: int, route: str, sms: int = 132,
              tile: str | None = None) -> dict:
     """How the tensor-core kernel covers an (m, n) output: `npiece` bf16
     pieces of A (1 for `mma`, 3 for `split3`), the tile (`MMA_TILES`:
     `mma` takes the decode one up to DECODE_MAX_M rows, the large one
-    where its blocks fill the SMs and the small one between; `split3` its
-    own; `tile` forces one of `mma`'s, for sweeps and tests), the grid (n
-    tiles, m tiles) and each block's shared memory. K is never split: each
-    output's sum runs k = 0..K-1 in one thread whatever m or the tile, so
-    a row's result does not depend on the other rows (ROADMAP F2)."""
+    where `large_pays` and the small one between; `split3` its own; `tile`
+    forces one of `mma`'s, for sweeps and tests), the grid (n tiles, m
+    tiles) and each block's shared memory. K is never split: each output's
+    sum runs k = 0..K-1 in one thread whatever m or the tile, so a row's
+    result does not depend on the other rows (ROADMAP F2), and the choice
+    of tile changes no bit."""
     npiece = 3 if route == "split3" else 1
     if npiece == 3:
         tile = "split3"
     elif tile is None:
-        bm, bn = MMA_TILES["large"][:2]
         tile = ("decode" if m <= DECODE_MAX_M else "large"
-                if -(-m // bm) * -(-n // bn) >= sms else "small")
+                if large_pays(m, n, sms) else "small")
     elif tile == "split3" or tile not in MMA_TILES:
         raise ValueError(f"unknown mma tile {tile!r}; have "
                          f"{[t for t in MMA_TILES if t != 'split3']}")
     t = MMA_TILES[tile]
     return {"npiece": npiece, "tile": tile, "block": (t.bm, t.bn),
             "warps": t.warps, "grid": (-(-n // t.bn), -(-m // t.bm)),
-            "smem": t.stages * (npiece * t.bm + t.bn) * t.bk * 2
-            + (1024 + 8 * t.stages if t.tma else 0)}
+            "smem": t.smem(npiece)}
 
 
 _SMS: dict = {}
@@ -330,6 +359,57 @@ def split3_cuda(x: torch.Tensor) -> torch.Tensor:
     return planes if lastcontig else planes.transpose(1, 2)
 
 
+# `sa_mma_launch`'s arguments: A (pointer, pieces, K-contiguous, lda,
+# plane), B (pointer, K-contiguous, ldb), bias and bias_on_m, out, raw,
+# the output's strides, scale and its device copy, M, N, K, act, approx,
+# the tile's code, the stream
+MMA_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 2
+                + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                + [ctypes.c_longlong] * 2
+                + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 6
+                + [ctypes.c_void_p])
+
+
+def k16_probe_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the probe: each step's 16 products summed in fp64
+    and rounded once to fp32, (S, 64, 128)."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+        torch.float32)
+
+
+def k16_probe(a: torch.Tensor, b: torch.Tensor):
+    """Each step s's 16 products of a[s] (64 × 16) and b[s] (16 × 128),
+    bf16, summed from zero on the tensor cores two ways: `mma.sync`
+    m16n8k16 with C = 0, as the mma.sync tiles sum a k16 step, and `wgmma`
+    m64n128k16 with scale-d = 0, as the large tile does. Returns (mma,
+    wgmma), each (S, 64, 128) fp32. ROADMAP F2 needs their bits equal
+    (up to the sign of a zero step sum, which no accumulator started at
+    +0 can see): then the large tile gives a row the other tiles' bits.
+    On CPU tensors both are the plain version."""
+    from .build import check, function
+
+    s = a.shape[0]
+    if (a.shape != (s, 64, 16) or b.shape != (s, 16, 128) or s < 1
+            or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16):
+        raise ValueError(f"k16_probe takes bf16 (S, 64, 16) and (S, 16, "
+                         f"128), got {a.dtype} {tuple(a.shape)} and "
+                         f"{b.dtype} {tuple(b.shape)}")
+    if a.device.type == "cpu":
+        ref = k16_probe_ref(a, b)
+        return ref, ref.clone()
+    a, b = a.contiguous(), b.contiguous()
+    out_mma = torch.empty((s, 64, 128), dtype=torch.float32, device=a.device)
+    out_wg = torch.empty_like(out_mma)
+    fn = function("sa_matmul", "sa_k16_probe_launch",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    err = fn(a.data_ptr(), b.data_ptr(), out_mma.data_ptr(),
+             out_wg.data_ptr(), s,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    check(err, "sa_k16_probe")
+    return out_mma, out_wg
+
+
 def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
                scale_dev, act, mode, out, raw, planes, tile=None):
     """One launch of the tensor-core kernel (`mma` or `split3`). The
@@ -363,13 +443,7 @@ def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
         a_st, lda_k = _aligned(a_st, A_ld)
         a_ptr, a_plane = a_st.data_ptr(), 0
     plan = mma_plan(M, N, route, _sm_count(out.device), tile)
-    fn = function("sa_matmul", "sa_mma_launch",
-                  [ctypes.c_void_p] + [ctypes.c_int] * 3
-                  + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 2
-                  + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
-                  + [ctypes.c_longlong] * 2
-                  + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 6
-                  + [ctypes.c_void_p])
+    fn = function("sa_matmul", "sa_mma_launch", MMA_ARGTYPES)
     err = fn(a_ptr, plan["npiece"], int(A_kc), lda_k, a_plane,
              b_st.data_ptr(), int(B_kc), ldb,
              None if bias is None else bias.data_ptr(), int(trans),
@@ -380,6 +454,7 @@ def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
              MMA_TILES[plan["tile"]].code,
              torch.cuda.current_stream(out.device).cuda_stream)
     check(err, f"sa_matmul ({route})")
+    TILE_LAUNCHES[plan["tile"]] += 1
 
 
 def _launch(a, w, bias, scale, act, mode, save_raw, planes=None,

@@ -758,6 +758,13 @@ def test_sa_matmul_rows_fold_bit_identically(cuda, name, dtype):
     if dtype == "bf16":
         assert MM.mma_plan(8, n, "mma")["tile"] == "decode"
         assert MM.mma_plan(20, n, "mma")["tile"] != "decode"
+        # M = 1024 ran on the tile the plan names: the large one (wgmma)
+        # wherever its blocks fill the card
+        tile = MM.mma_plan(1024, n, "mma")["tile"]
+        assert tile == ("large" if n >= 5120 else "small")
+        ops.reset_counts()
+        run(1024)
+        assert ops.tile_counts()[tile] == 1
     else:
         assert MM.gemm_route(7, dt, dt) == "partial"
         assert MM.gemm_route(8, dt, dt) == "simt"
@@ -771,10 +778,11 @@ def test_sa_matmul_rows_fold_bit_identically(cuda, name, dtype):
 @pytest.mark.parametrize("tile", ["large", "small", "decode"])
 def test_sa_matmul_tiles_give_the_same_bits(cuda, tile):
     """Every `mma` tile gives every output the same bits (one summation
-    order: k16 steps in order, K never split), at decode's M and at M =
-    128, for each operand layout."""
+    order: k16 steps in order, K never split), at decode's M, at M = 128
+    and at M = 1024 (the large tile on wgmma against the plan's mma.sync
+    tile), for each operand layout."""
     g = torch.Generator(device=cuda).manual_seed(23)
-    for m in (4, 128):
+    for m in (4, 128, 1024):
         for a_t, w_t in ((False, False), (True, False), (False, True),
                          (True, True)):
             a = _operand(g, (m, 1000), torch.bfloat16, a_t, cuda)
@@ -784,6 +792,91 @@ def test_sa_matmul_tiles_give_the_same_bits(cuda, tile):
                                 tile=tile)
             assert torch.equal(got.view(torch.int32),
                                want.view(torch.int32)), (m, a_t, w_t)
+
+
+@pytest.mark.parametrize("case", GC.PROBE_CASES)
+def test_k16_probe_wgmma_step_sums_carry_mma_sync_bits(cuda, case):
+    """The large tile's premise (ROADMAP F2): wgmma m64n128k16 with
+    scale-d = 0 sums a k16 step's 16 products from zero to mma.sync
+    m16n8k16's bits (C = 0), on random steps and on planted ones whose
+    products spread over 2^±60, cancel, straddle fp32's smallest normal or
+    are signed zeros. A zero step sum's sign may differ: no accumulator
+    started at +0 can see it (+0 + ±0 = +0, x + ±0 = x)."""
+    a, b = GC.k16_probe_operands(0)[case]
+    got_mma, got_wg = MM.k16_probe(a.to(cuda), b.to(cuda))
+    diff = GC.k16_mismatches(got_mma, got_wg)
+    assert diff["values"] == 0, diff
+    assert bool(torch.isfinite(got_wg).all())
+
+
+def _large_case(g, m, k, n, a_t, w_t, dev):
+    a = _operand(g, (m, k), torch.bfloat16, a_t, dev)
+    w = _operand(g, (k, n), torch.bfloat16, w_t, dev)
+    return a, w, torch.randn((n,), generator=g, device=dev)
+
+
+# (M, K, N, act, mode, scale): ragged M, N and K (N not a multiple of 128)
+LARGE_CASES = [(20, 1000, 999, "none", "exact", None),
+               (129, 640, 1000, "silu", "approx", "dev"),
+               (1000, 1003, 384, "gelu", "exact", 0.75),
+               (1024, 5120, 640, "silu", "approx", 0.5)]
+
+
+@pytest.mark.parametrize("m,k,n,act,mode,scale", LARGE_CASES)
+@pytest.mark.parametrize("a_t,w_t", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+def test_sa_matmul_large_tile_matches_plain(cuda, m, k, n, act, mode, scale,
+                                            a_t, w_t):
+    """The large tile (wgmma, TMA for both operands) on each of the four
+    layouts (A as (M, K) or (K, M), W as stored or as Wᵀ), forced at ragged
+    shapes: the epilogue (bias, silu or gelu, approx, a host or device
+    scale) within `error_bound` of the plain version, the raw accumulator
+    (`save_raw`) within the bound and `split_check`; one launch, counted
+    on the large tile."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a, w, bias = _large_case(g, m, k, n, a_t, w_t, cuda)
+    if scale == "dev":
+        scale = torch.tensor(0.5, device=cuda)
+    ops.reset_counts()
+    got, raw = MM._launch(a, w, bias, scale, act, mode, True, tile="large")
+    assert ops.tile_counts() == {"large": 1, "small": 0, "decode": 0,
+                                 "split3": 0}
+    ref, raw_ref = MM.sa_matmul_ref(a, w, bias, scale, act=act, mode=mode,
+                                    save_raw=True)
+    assert bool(((got - ref).abs()
+                 <= MM.error_bound(a, w, scale, mode, y=ref)).all())
+    assert bool(((raw - raw_ref).abs()
+                 <= MM.error_bound(a, w, mode=mode)).all())
+    if mode == "exact":
+        assert MM.split_check(a, w, raw) <= 1.0
+
+
+def test_sa_matmul_large_tile_refuses_what_it_cannot_take(cuda):
+    """The large tile's launch returns an error, which the wrapper raises,
+    for what it cannot take: split pieces of an fp32 operand (it is bf16 x
+    bf16 only), a leading dimension off the 16-byte grid that TMA needs,
+    or an operand off its 16-byte alignment; the launch does not reroute
+    them."""
+    from repro_torch.kernels import build
+
+    a = torch.zeros((256, 1024), dtype=torch.bfloat16, device=cuda)
+    out = torch.empty((256, 256), device=cuda)
+    fn = build.function("sa_matmul", "sa_mma_launch", MM.MMA_ARGTYPES)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    code = MM.MMA_TILES["large"].code
+
+    def launch(ptr, npiece, lda, plane=0):
+        return fn(ptr, npiece, 1, lda, plane, a.data_ptr(), 0, 256, None, 0,
+                  out.data_ptr(), None, 256, 1, 1.0, None, 256, 256, 1000,
+                  0, 0, code, stream)
+
+    assert launch(a.data_ptr(), 1, 1024) == 0
+    torch.cuda.synchronize()
+    for bad in (launch(a.data_ptr(), 3, 1024, 256 * 1024),
+                launch(a.data_ptr(), 1, 1001),
+                launch(a.data_ptr() + 2, 1, 1024)):
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            build.check(bad, "sa_matmul (mma)")
 
 
 @pytest.mark.parametrize("lens,pool", [

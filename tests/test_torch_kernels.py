@@ -546,7 +546,9 @@ def test_mma_plan_covers_the_output_once(m, n, route):
     if route == "mma":
         assert (plan["tile"] == "decode") == (m <= MM.DECODE_MAX_M)
     t = MM.MMA_TILES[plan["tile"]]
-    tma = 1024 + 8 * t.stages if t.tma else 0
+    # with TMA: the ring's 1024-byte alignment and a full mbarrier a stage,
+    # on wgmma an empty one as well
+    tma = 1024 + 8 * t.stages * (1 + t.wgmma) if t.tma else 0
     assert plan["smem"] == t.stages * (plan["npiece"] * bm + bn) * t.bk * 2 \
         + tma
 
@@ -581,6 +583,118 @@ def test_mma_plan_keeps_the_grid_full_at_prefill_m():
         gx, gy = MM.mma_plan(128, n, "mma")["grid"]
         assert gx * gy >= 132
     assert MM.mma_plan(1024, 5120, "mma")["tile"] == "large"
+
+
+@pytest.mark.parametrize("m,n", [(1024, 5120), (1024, 13824), (1024, 153600),
+                                 (128, 153600), (256, 5120), (300, 7000)])
+def test_mma_plan_large_tile_is_warp_specialized_wgmma(m, n):
+    """Where the plan takes the large tile it is the wgmma design: 128 x
+    128 blocks of three warpgroups (two consumers of 64 x 128 and a TMA
+    producer), both operands by TMA, six 64-deep stages; one block an SM,
+    its ring and full and empty mbarriers under the 232,448 bytes a block
+    may hold; the grid covers the output once and fills at least half the
+    card."""
+    plan = MM.mma_plan(m, n, "mma")
+    t = MM.MMA_TILES["large"]
+    assert plan["tile"] == "large"
+    assert t.wgmma and t.tma == ("a", "w") and t.warps == 3 * 4
+    assert (t.bm, t.bn, t.bk, t.stages) == (128, 128, 64, 6)
+    ring = t.stages * (t.bm + t.bn) * t.bk * 2
+    assert plan["smem"] == ring + 1024 + 2 * 8 * t.stages == 197728
+    assert plan["smem"] <= 232448 < 2 * plan["smem"]
+    gx, gy = plan["grid"]
+    assert 2 * gx * gy >= 132
+    assert (gx - 1) * 128 < n <= gx * 128 and (gy - 1) * 128 < m <= gy * 128
+    assert all(not x.wgmma for k_, x in MM.MMA_TILES.items() if k_ != "large")
+
+
+@pytest.mark.parametrize("m,n,tile", [
+    (20, 153600, "small"), (64, 153600, "small"), (128, 153600, "large"),
+    (128, 5120, "small"), (128, 13824, "small"), (256, 5120, "large"),
+    (256, 1024, "small"), (256, 13824, "large"), (512, 1024, "small"),
+    (1024, 1024, "small"), (1024, 5120, "large"), (17, 153600, "small"),
+    (16, 153600, "decode")])
+def test_mma_plan_crossover_follows_the_sweep(m, n, tile):
+    """The small-to-large crossover where the H100 sweep put it (PERF.md
+    §6): the verify's lm_head at M = 20 and any GEMM up to 64 rows
+    on the small tile; the lm_head from M = 128, wq and wd from M = 256,
+    gate and up from M = 256 on the large one; wk and wv (N = 1024) small
+    through M = 1024."""
+    assert MM.mma_plan(m, n, "mma")["tile"] == tile
+    assert MM.large_pays(m, n) == (tile == "large")
+
+
+def test_tile_launches_stay_zero_on_cpu():
+    """On the CPU no tensor-core tile counts a launch (the plain version
+    runs), `reset_counts` clears the per-tile counter, and `tile_counts`
+    names every tile of the plan."""
+    MM.TILE_LAUNCHES["large"] = 3
+    ops.reset_counts()
+    assert ops.tile_counts() == {t: 0 for t in MM.MMA_TILES}
+    a = torch.randn(300, 64).to(torch.bfloat16).requires_grad_(True)
+    w = torch.randn(64, 200).to(torch.bfloat16).requires_grad_(True)
+    ops.sa_matmul(a, w, act="silu").sum().backward()
+    assert ops.tile_counts() == {"large": 0, "small": 0, "decode": 0,
+                                 "split3": 0}
+    assert ops.counts()["sa_matmul"] == {"launches": 0, "plain_calls": 1}
+
+
+def test_k16_probe_plants_what_it_names():
+    """The k16 probe's operands (gemm_cases.k16_probe_operands) are bf16
+    steps of the promised kinds: products spread over up to 2^±60 within
+    a step, exact and near-total cancellation, products straddling fp32's
+    smallest normal, zeros of both signs; on CPU tensors `k16_probe`
+    returns the plain version (the fp64 sum rounded once) twice, and it
+    refuses other shapes."""
+    from repro_torch.kernels import gemm_cases as GC
+
+    cases = GC.k16_probe_operands(0)
+    assert tuple(cases) == GC.PROBE_CASES
+    for a, b in cases.values():
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert a.shape == (GC.PROBE_STEPS, 64, 16)
+        assert b.shape == (GC.PROBE_STEPS, 16, 128)
+    a, b = cases["spread"]
+    prods = (a.double()[:, :, :, None] * b.double()[:, None, :, :]).abs()
+    lg = torch.log2(prods)                      # (S, 64, 16, 128)
+    span = lg.amax(2) - lg.amin(2)              # a step's exponent spread
+    per_step = span.flatten(1).amax(1)
+    assert float(per_step.max()) >= 55 and float(per_step.min()) >= 10
+    a, b = cases["cancel"]
+    s = torch.matmul(a.double(), b.double())
+    terms = torch.matmul(a.double().abs(), b.double().abs())
+    assert bool((s[:, :, 0::2] == 0).all())
+    rel = (s[:, :, 1::2].abs() / terms[:, :, 1::2])
+    assert 0 < float(rel.max()) < 2.0 ** -6
+    a, b = cases["tiny"]
+    p = (a.double()[:, :, :, None] * b.double()[:, None, :, :]).abs()
+    assert float(p.min()) < 2.0 ** -126 < float(p.max()) < 2.0 ** -100
+    a, b = cases["zeros"]
+    za = a.float() == 0
+    assert bool(torch.signbit(a.float()[za]).any())
+    assert bool((~torch.signbit(a.float()[za])).any())
+    assert bool((b.float() == 0).any())
+    got_mma, got_wg = MM.k16_probe(a, b)
+    want = MM.k16_probe_ref(a, b)
+    assert torch.equal(got_mma, want) and torch.equal(got_wg, want)
+    assert GC.k16_mismatches(got_mma, got_wg) == {"bits": 0, "values": 0,
+                                                 "worst": None}
+    with pytest.raises(ValueError, match="k16_probe"):
+        MM.k16_probe(a[:, :32], b)
+    with pytest.raises(ValueError, match="k16_probe"):
+        MM.k16_probe(a.float(), b)
+
+
+def test_k16_mismatches_counts_bits_and_values():
+    """Bits that differ, values that differ with +0 and -0 equal and NaN
+    equal to NaN, and the worst value mismatch."""
+    from repro_torch.kernels import gemm_cases as GC
+
+    x = torch.tensor([1.0, 0.0, float("nan"), 2.0, -3.0])
+    y = torch.tensor([1.0, -0.0, float("nan"), 2.0 + 2 ** -22, -3.5])
+    got = GC.k16_mismatches(x, y)
+    assert got["bits"] == 3 and got["values"] == 2
+    assert got["worst"] == (0.5, -3.0, -3.5)
 
 
 def _planted_split_values():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of this repository on one card, in one run.
 
-    python3 tools/chip_ab.py OTHER_ROOT [--what fp32,fp_emu]
+    python3 tools/chip_ab.py OTHER_ROOT [--what fp32,fp_emu,fwd]
 
 Runs chip_smoke.py's timing phases against the port in OTHER_ROOT (e.g.
 the parent commit, unpacked with `git archive`) and in this checkout, each
@@ -18,6 +18,10 @@ what both trees have: `sa_matmul_cuda` and `skewed_datapath_matmul`.
 * fp_emu — `chip_smoke.fp_emu_times`: the skewed datapath's wk GEMM at M
   = 1-33 (wall and device), a layer's 7 GEMMs and the lm_head at M = 2
   and 32 (wall).
+* fwd — `chip_smoke.forward_times`: the SA GEMM's bf16 forward at the
+  training M (1024), a layer's 7 GEMMs (summed) and the lm_head, wall and
+  device, beside bf16 torch.matmul: the `mma` route's large tile wherever
+  its blocks fill the card, in whichever design each tree has.
 """
 from __future__ import annotations
 
@@ -63,6 +67,8 @@ def measure(root: str, what: list[str]) -> dict:
         out.update(_flat("fp32", cs.fp32_gemm_times(torch, timer, g)))
     if "fp_emu" in what:
         out.update(_flat("emu", cs.fp_emu_times(torch, timer, g)))
+    if "fwd" in what:
+        out.update(_flat("fwd", cs.forward_times(torch, timer, g)))
     return out
 
 
