@@ -31,7 +31,16 @@ Phases, in order; any failure exits nonzero:
              shape, registers and spills, prefill times at T = 32, 64, 128
              and 1024 and decode times at the serve shape and at
              2048-token slots with the block width and cluster size swept,
-             a 12,288-token slot and bit-identical repeats.
+             a 12,288-token slot and bit-identical repeats. The families'
+             shapes: prefill at hd 256 (16 heads over 8 KV heads; gemma3's
+             T = 1024 and T = 1500 with a 1024-token window, gemma2's
+             T = 4200 with a 4096-token window and cap 50) on both routes
+             and with bf16 K/V, each within its bound with the planted
+             mask outside it, beside SDPA; paged decode at g = 2, hd 256
+             over B = 4 rings of 1024 and 4096 rows (`dense_pool_view`),
+             the pool's bits; the tied lm_head (W = embed^T in place) at
+             M = 4 and 1024, bit-identical to the contiguous W, beside
+             bf16 torch.matmul(x, embed.t()) and its bound.
 4. fold    — ROADMAP F2 and F2b at full width: every row of the path's
              GEMMs (7 layer shapes and the lm_head), bf16 x bf16 and fp32
              x fp32, bit-identical at M = 1, 4, 7, 8, 20 and 1024, and a
@@ -102,7 +111,17 @@ Phases, in order; any failure exits nonzero:
              digest, 2 prefill shapes (24, 48) against 5, prefill
              attention on `mma` at every padded length, no page leaked,
              no plain version.
-7. emulate — the same model served under `REPRO_GEMM_BACKEND=emulate`:
+   families — gemma3-12b (48 layers, 5:1 local:global, window 1024;
+             6 requests of 600-1500 tokens on 4 slots), gemma2-9b (42
+             layers, 1:1, window 4096, softcaps 50 and 30; prompts of 256
+             and 4200 tokens) and phi3-medium-14b (40 layers; the serve
+             stream) at full width and depth, one model on the card at a
+             time, through the driver under `cuda` with the serve phase's
+             checks; paged decode launched L times a decode step; the
+             window's gates off (no prefix hit); gemma3 and gemma2 again
+             with `--kv ring`, the same digest; gemma2's logits within
+             ±30; one prompt's prefill logits under `cuda` and `torch`.
+7. emulate — qwen2.5-14b served under `REPRO_GEMM_BACKEND=emulate`:
              every GEMM through the fp_emu kernel (the SA GEMM never
              launches), attention through the two attention kernels, no
              plain version; its two requests again under torch.profiler
@@ -1267,13 +1286,20 @@ def _gathered(torch, k, v, pp, bt):
     return gather_pages(PagedKVCache(k, v, pp, bt))
 
 
-def _prefill_bound(T, S, H, KVH, hd, kv_bytes=4):
-    """(bound ms, by, byte ms, flop ms) of a causal prefill."""
-    pairs = T * (T + 1) / 2 if S == T else T * S
+def _prefill_bound(T, S, H, KVH, hd, kv_bytes=4, window=0,
+                   peak=PEAK_BF16):
+    """(bound ms, by, byte ms, flop ms) of a causal prefill: the (query,
+    key) pairs its mask keeps (a window keeps min(t + 1, window) for query
+    t), at `peak` flop/s."""
+    if window and S == T:
+        w = min(window, T)
+        pairs = w * (w + 1) / 2 + (T - w) * w
+    else:
+        pairs = T * (T + 1) / 2 if S == T else T * S
     nbytes = 4 * T * H * hd * 2 + kv_bytes * 2 * S * KVH * hd
     flops = 4.0 * H * pairs * hd
-    b_ms, by = bound_ms(nbytes, flops, PEAK_BF16)
-    return b_ms, by, nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
+    b_ms, by = bound_ms(nbytes, flops, peak)
+    return b_ms, by, nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
 
 
 def check_prefill(torch, timer):
@@ -1409,6 +1435,277 @@ def check_prefill(torch, timer):
             "readings": readings,
             "timed": f"one layer's prefill of a {max(PROMPT_LENS)}-token "
                      f"prompt, fp32 q/k/v, bf16 policy (mma route)"}
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (continued): the families' kernel shapes — prefill and decode at
+# head dim 256 (gemma2, gemma3), the tied lm_head
+# ---------------------------------------------------------------------------
+
+# gemma2's and gemma3's attention: 16 heads over 8 KV heads at hd 256
+FAMILY_ATTN = (16, 8, 256)
+# (name, T, keyword arguments): gemma3's causal prefill and its local
+# window, gemma2's local window with the attention softcap
+HD256_PREFILL = [("gemma3_T1024", 1024, {}),
+                 ("gemma3_T1500_w1024", 1500, {"window": 1024}),
+                 ("gemma2_T4200_w4096_cap50", 4200,
+                  {"window": 4096, "cap": 50.0})]
+# (name, ring rows, window, cap): gemma3's and gemma2's local rings, B = 4
+HD256_RINGS = [("gemma3_ring1024", 1024, 1024, 0.0),
+               ("gemma2_ring4096", 4096, 4096, 50.0)]
+# the tied heads: (d_model, padded vocabulary), W = embed^T read in place
+TIED_HEADS = {"gemma2-9b": (3584, 256000), "gemma3-12b": (3840, 262144)}
+
+
+def _window_mask(torch, T, S, window, q_offset=0):
+    """(T, S) bool: causal and, with a window, within it."""
+    qp = q_offset + torch.arange(T, device="cuda")[:, None]
+    kp = torch.arange(S, device="cuda")[None, :]
+    ok = qp >= kp
+    return ok & (qp - kp < window) if window else ok
+
+
+def check_prefill_hd256(torch, timer):
+    """Prefill at gemma's shapes (hd 256): the `mma` route (fp32 and bf16
+    K/V) and the `simt` route against the plain version within
+    `error_bound`, a causal mask one key too wide outside it, bf16 K/V
+    bit-identical to fp32 K/V; times beside the bound and SDPA with the
+    same mask (without the softcap, which SDPA lacks: gemma2's yardstick
+    then computes another function)."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_attention as fa
+
+    H, KVH, hd = FAMILY_ATTN
+    g = torch.Generator(device="cuda").manual_seed(256)
+    pols = {"bf16": PrecisionPolicy(),
+            "fp32": PrecisionPolicy(input_format="fp32")}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    readings, worst, max_err = {}, 0.0, 0.0
+    for name, T, kw in HD256_PREFILL:
+        q = torch.randn((1, H, T, hd), generator=g, device="cuda").transpose(
+            1, 2)
+        k = torch.randn((1, T, KVH, hd), generator=g, device="cuda")
+        v = torch.randn((1, T, KVH, hd), generator=g, device="cuda")
+        kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        # the fp32 policy (simt) is checked at gemma3's lengths only: its
+        # plain version and bound at T = 4200 hold tens of GB of fp64
+        cases = [("bf16", k, v), ("bf16_kv16", kb, vb)]
+        if T <= 1500:
+            cases.append(("fp32", k, v))
+        rd = {}
+        for case, kk, vv in cases:
+            pol = pols[case.split("_")[0]]
+            call = (lambda kk=kk, vv=vv, pol=pol:
+                    ops.sa_attention(q, kk, vv, policy=pol, **kw))
+            ops.reset_counts()
+            y = call()
+            route = fa.launch_plan(1, T, H, hd, pol.input_format,
+                                   kk.dtype == torch.bfloat16)
+            got = ops.route_counts()["prefill_attention"]
+            if got[route["route"]] != 1 or sum(got.values()) != 1:
+                raise AssertionError(f"prefill hd256 {name} {case}: routes "
+                                     f"{got}, plan {route['route']}")
+            ref = fa.flash_attention_ref(q, kk, vv, policy=pol, **kw)
+            bnd = fa.error_bound(q, kk, vv, policy=pol, **kw)
+            err = (y - ref).abs()
+            ratio = float((err / bnd).max())
+            del ref
+            bad = fa.flash_attention_ref(
+                q, kk, vv, policy=pol,
+                **{**kw, "q_offset": kw.get("q_offset", 0) + 1})
+            r_bad = float(((y - bad).abs() / bnd).max())
+            del bad, bnd
+            if not torch.isfinite(y).all() or not ratio <= 1.0:
+                raise AssertionError(f"prefill hd256 {name} {case}: "
+                                     f"err/bound {ratio:.3f}")
+            if not r_bad > 1.0:
+                raise AssertionError(f"prefill hd256 {name} {case}: the "
+                                     f"bound does not reject a mask one "
+                                     f"key too wide ({r_bad:.3f})")
+            worst, max_err = max(worst, ratio), max(max_err,
+                                                    float(err.max()))
+            if case == "bf16_kv16":
+                y32 = ops.sa_attention(q, k, v, policy=pol, **kw)
+                if not torch.equal(y.view(torch.int32),
+                                   y32.view(torch.int32)):
+                    raise AssertionError(f"prefill hd256 {name}: bf16 K/V "
+                                         f"differ from fp32 K/V")
+                del y32
+            del y, err
+            t_k = timer.wall(call, reps=10)
+            d_k = timer.device(call)
+            kv_bytes = 2 if case == "bf16_kv16" else 4
+            b_ms, by, byte_ms, flop_ms = _prefill_bound(
+                T, T, H, KVH, hd, kv_bytes, window=kw.get("window", 0),
+                peak=peak_flops(pol))
+            rd[case] = {"route": route["route"], "ms": t_k,
+                        "device_ms": d_k, "bound_ms": b_ms,
+                        "bound_by": by, "err_over_bound": ratio,
+                        "planted_err_over_bound": r_bad,
+                        "smem": route["smem"]}
+            log(f"prefill attention hd256 {name} {case}: route "
+                f"{route['route']} grid {route['grid']} smem "
+                f"{route['smem']} B; err/bound {ratio:.4f}, planted mask "
+                f"{r_bad:.1f}; kernel {t_k:.4f} ms wall (device {d_k}), "
+                f"bound {b_ms:.5f} ms ({by}): {100 * b_ms / t_k:.1f} % of "
+                f"it ({100 * byte_ms / t_k:.1f} % bytes, "
+                f"{100 * flop_ms / t_k:.1f} % flops)")
+        plain = timer.wall(lambda: fa.flash_attention_ref(q, k, v, **kw),
+                           reps=3)
+        qh = q.transpose(1, 2)
+        kh = k.transpose(1, 2).repeat_interleave(H // KVH, 1)
+        vh = v.transpose(1, 2).repeat_interleave(H // KVH, 1)
+        if kw.get("window"):
+            mask = _window_mask(torch, T, T, kw["window"])
+            lib = (lambda: sdpa(qh, kh, vh, attn_mask=mask))
+        else:
+            lib = (lambda: sdpa(qh, kh, vh, is_causal=True))
+        t_l, d_l = timer.wall(lib, reps=10), timer.device(lib)
+        rd.update(plain_ms=plain, library_ms=t_l, library_device_ms=d_l,
+                  library_note=("SDPA without the softcap" if kw.get("cap")
+                                else "SDPA, the same mask"))
+        log(f"prefill attention hd256 {name}: plain {plain:.4f} ms, SDPA "
+            f"{t_l:.4f} ms (device {d_l}; {rd['library_note']})")
+        readings[name] = rd
+        del q, k, v, kb, vb, qh, kh, vh
+        torch.cuda.empty_cache()
+    return readings, worst, max_err
+
+
+def check_decode_rings(torch, timer):
+    """Paged decode at gemma's shapes (g = 2, hd 256) over B = 4 local rings
+    of 1024 and 4096 rows presented by `dense_pool_view` (`min_page=0`),
+    the rings full and wrapped: within `error_bound` of the plain version,
+    the same bits as the kernel over the rows copied into a pool; times
+    beside the byte bound and SDPA on the dense rows. Logs the split plan
+    at these rings and at gemma2's global slot (4352 tokens)."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_decode_attention as da
+
+    H, KVH, hd = FAMILY_ATTN
+    grp, B, psz = H // KVH, BATCH, PAGE
+    g = torch.Generator(device="cuda").manual_seed(4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    readings, worst = {}, 0.0
+    for name, rows, window, cap in HD256_RINGS:
+        q = torch.randn((B, 1, H, hd), generator=g, device="cuda")
+        k = torch.randn((B, rows, KVH, hd), generator=g, device="cuda")
+        v = torch.randn((B, rows, KVH, hd), generator=g, device="cuda")
+        pos = torch.tensor([rows + 37, 2 * rows - 1, 3 * rows + 5, rows // 2],
+                           dtype=torch.int32, device="cuda")
+        i = torch.arange(rows, device="cuda")
+        p = pos[:, None] - ((pos[:, None] - i[None]) % rows)
+        pp = torch.where(p >= 0, p, -1).to(torch.int32)
+        kp, vp, ppv, table = da.dense_pool_view(k, v, pp, psz)
+        kw = {"window": window, "cap": cap}
+        call = (lambda: ops.paged_decode_attention(q, kp, vp, ppv, table,
+                                                   pos, min_page=0, **kw))
+        y = call()
+        pool = (torch.cat([torch.zeros_like(kp[:1]), kp]),
+                torch.cat([torch.zeros_like(vp[:1]), vp]),
+                torch.cat([torch.full_like(ppv[:1], -1), ppv]), table + 1)
+        want = da.paged_decode_cuda(q, *pool, pos, **kw)
+        same = torch.equal(y.view(torch.int32), want.view(torch.int32))
+        ref = da.paged_decode_ref(q, *pool, pos, **kw)
+        bnd = da.error_bound(q, *pool, pos, **kw)
+        ratio = float(((y - ref).abs() / bnd).max())
+        if not same or not ratio <= 1.0:
+            raise AssertionError(f"decode {name}: same bits as the pool "
+                                 f"{same}, err/bound {ratio:.3f}")
+        worst = max(worst, ratio)
+        t_k, d_k = timer.wall(call), timer.device(call)
+        t_p = timer.wall(lambda: da.paged_decode_ref(
+            q, kp, vp, ppv, table, pos, min_page=0, **kw), reps=5)
+        mask = ((pp >= 0) & (pp <= pos[:, None]) & (pp > pos[:, None]
+                                                     - window))
+        mask = mask[:, None, None, :]
+        qs, kh, vh = (q.transpose(1, 2),
+                      k.transpose(1, 2).repeat_interleave(grp, 1),
+                      v.transpose(1, 2).repeat_interleave(grp, 1))
+        t_l = timer.wall(lambda: sdpa(qs, kh, vh, attn_mask=mask))
+        P = rows // psz
+        b_ms, by = _decode_bound(torch, table + 1, B, H, KVH, hd, psz, P,
+                                 PrecisionPolicy())
+        plan = da.split_plan(grp, hd, psz, P)
+        readings[name] = {"ms": t_k, "device_ms": d_k, "plain_ms": t_p,
+                          "library_ms": t_l, "bound_ms": b_ms,
+                          "bound_by": by, "err_over_bound": ratio,
+                          "split": list(plan)}
+        log(f"paged decode {name} (B={B}, g={grp}, hd={hd}, window "
+            f"{window}, cap {cap}, dense view): split {tuple(plan)}; "
+            f"err/bound {ratio:.4f}, bits equal to the pool's {same}; "
+            f"kernel {t_k:.4f} ms wall (device {d_k}), plain {t_p:.4f}, "
+            f"SDPA on the rows {t_l:.4f}, bound {b_ms:.5f} ms ({by}): "
+            f"{100 * b_ms / t_k:.1f} % of it")
+        del q, k, v, kp, vp, ppv, pool, ref, bnd, kh, vh
+        torch.cuda.empty_cache()
+    for P in (1024 // psz, 4096 // psz, 4352 // psz):
+        plan = da.split_plan(grp, hd, psz, P)
+        log(f"paged decode split plan g={grp} hd={hd}: {P * psz}-token slot "
+            f"-> {plan.n_split} blocks of {plan.keys_per_cta} keys, "
+            f"{plan.smem} B of shared memory a block")
+    return readings, worst
+
+
+def tied_head_times(torch, timer):
+    """The tied lm_head: W = embed^T, K contiguous, read in place by the SA
+    GEMM, against the same matrix made contiguous: the same bits at M = 4
+    (decode tile) and M = 1024 (large tile), within the plain version's
+    bound at M = 4; times beside bf16 torch.matmul(x, embed.t()) and the
+    bound (bytes at M = 4, flops at M = 1024)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_matmul as mm
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    readings = {}
+    for arch, (d, vocab) in TIED_HEADS.items():
+        embed = (torch.randn((vocab, d), generator=g, device="cuda")
+                 * 0.02).to(torch.bfloat16)
+        view = embed.t()
+        cont = view.contiguous()
+        for m in (BATCH, TRAIN_M):
+            a = torch.randn((m, d), generator=g, device="cuda").to(
+                torch.bfloat16)
+            y = ops.sa_matmul(a, view)
+            same = torch.equal(y.view(torch.int32),
+                               ops.sa_matmul(a, cont).view(torch.int32))
+            ratio = None
+            if m == BATCH:
+                ref = mm.sa_matmul_ref(a, view)
+                ratio = float(((y - ref).abs()
+                               / mm.error_bound(a, view, y=ref)).max())
+                del ref
+            if not same or (ratio is not None and not ratio <= 1.0):
+                raise AssertionError(f"tied lm_head {arch} M={m}: bits equal"
+                                     f" to the contiguous W {same}, "
+                                     f"err/bound {ratio}")
+            del y
+            tile = mm.mma_plan(m, vocab, "mma")["tile"]
+            t_v = timer.wall(lambda: ops.sa_matmul(a, view), reps=10)
+            d_v = timer.device(lambda: ops.sa_matmul(a, view))
+            t_c = timer.wall(lambda: ops.sa_matmul(a, cont), reps=10)
+            t_l = timer.wall(lambda: torch.matmul(a, view), reps=10)
+            t_p = (timer.wall(lambda: mm.sa_matmul_ref(a, view), reps=3)
+                   if m == BATCH else None)
+            b_ms, by = bound_ms(2 * (vocab * d + m * d) + 4 * m * vocab,
+                                2.0 * m * d * vocab, PEAK_BF16)
+            readings[f"{arch}_M{m}"] = {
+                "tile": tile, "ms": t_v, "device_ms": d_v,
+                "contiguous_ms": t_c, "plain_ms": t_p, "library_ms": t_l,
+                "bound_ms": b_ms, "bound_by": by, "err_over_bound": ratio,
+                "bits_equal_contiguous": same}
+            log(f"tied lm_head {arch} M={m} (K {d}, N {vocab}, {tile} tile, "
+                f"W = embed^T in place): bits equal to the contiguous W "
+                f"{same}, err/bound {ratio}; kernel {t_v:.4f} ms wall "
+                f"(device {d_v}), contiguous W {t_c:.4f} ms, plain {t_p}, "
+                f"bf16 torch.matmul(x, embed.t()) {t_l:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({by}): {100 * b_ms / t_v:.1f} % of it")
+            del a
+        del embed, view, cont
+        torch.cuda.empty_cache()
+    return readings
 
 
 # ---------------------------------------------------------------------------
@@ -3053,6 +3350,157 @@ def study(torch):
 
 
 # ---------------------------------------------------------------------------
+# families: gemma3-12b, gemma2-9b and phi3-medium-14b at full width and depth
+# ---------------------------------------------------------------------------
+
+# each family's stream through the driver: gemma3's prompts of 1100 and
+# 1500 tokens pass its 1024-token window in prefill, and its rings wrap in
+# decode; gemma2's 4200-token prompt passes its 4096-token window; phi3
+# takes the qwen serve's stream
+FAMILY_RUNS = {
+    "gemma3-12b": ["--batch", "4", "--requests", "6", "--prompt-lens",
+                   "600,1100,1500", "--max-new", "16", "--max-seq-len",
+                   "1552", "--rate", "0", "--seed", "0"],
+    "gemma2-9b": ["--batch", "2", "--requests", "2", "--prompt-lens",
+                  "256,4200", "--max-new", "16", "--max-seq-len", "4352",
+                  "--rate", "0", "--seed", "0"],
+    "phi3-medium-14b": ["--batch", "4", "--requests", "8", "--prompt-lens",
+                        "32,64,128", "--max-new", "16", "--rate", "0",
+                        "--seed", "0"],
+}
+
+
+class _LogitRange:
+    """Within the block, the largest |logit| over the real vocabulary that
+    any ServeEngine saw (prefill, decode and verify), kept on the device
+    beside the engine's own non-finite count."""
+
+    def __init__(self, torch):
+        self.torch, self.max = torch, None
+
+    def __enter__(self):
+        from repro_torch.serve.engine import ServeEngine
+
+        self.orig = orig = ServeEngine._note_logits
+        box = self
+
+        def note(eng, logits):
+            orig(eng, logits)
+            m = logits[..., :eng.cfg.vocab_size].abs().amax()
+            box.max = m if box.max is None else box.torch.maximum(box.max, m)
+
+        ServeEngine._note_logits = note
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve.engine import ServeEngine
+
+        ServeEngine._note_logits = self.orig
+
+
+def families(torch):
+    """Each family served through the driver under `cuda` with
+    `_serve_backend`'s checks (requests complete, no page leaked, finite
+    logits, the three kernels launched, no plain version, prefill on `mma`
+    only, every GEMM on `mma`); paged decode launched exactly L times a
+    decode step the run's chunks imply; where the stack has local windows,
+    prefix caching, disagg and bucketing off (no prefix hit), and the same
+    stream with `--kv ring` (both layouts decode through the paged-decode
+    kernel, F5) giving the same digest with the same launch count;
+    gemma2's logits within its final softcap (±30); one prompt's prefill
+    logits under `cuda` and `torch` within 2^-3·max|logit|. One model on
+    the card at a time."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+
+    out = {}
+    for arch, rest in FAMILY_RUNS.items():
+        args = ["--arch", arch] + rest
+        n_req = int(rest[rest.index("--requests") + 1])
+        with _LogitRange(torch) as rng:
+            summary, launches, engine, sched = _serve_backend(
+                torch, "cuda", args, n_req, MAX_NEW)
+            max_logit = float(rng.max)
+        cfg = engine.cfg
+        L = cfg.num_layers
+        problems = []
+        want = L * _decode_steps(engine, sched)
+        if launches["paged_decode"] != want:
+            problems.append(f"paged decode launched "
+                            f"{launches['paged_decode']} times, want {want}")
+        if launches["prefill_attention"] != L * n_req:
+            problems.append(f"prefill attention launched "
+                            f"{launches['prefill_attention']} times, want "
+                            f"{L * n_req}")
+        local = engine._frag_floor > 1
+        gates = {g: bool(getattr(engine, g)()) for g in (
+            "prefix_caching_on", "disagg_on", "bucketing_on")}
+        if local and (any(gates.values()) or summary.get("prefix_hits")):
+            problems.append(f"the window leaves gates on: {gates}, "
+                            f"prefix hits {summary.get('prefix_hits')}")
+        if cfg.final_softcap and max_logit > cfg.final_softcap:
+            problems.append(f"max |logit| {max_logit} above the final "
+                            f"softcap {cfg.final_softcap}")
+        rec = {"layers": L, "frag_floor": engine._frag_floor,
+               "gates": gates, "prefix_hits": summary.get("prefix_hits", 0),
+               "launches": launches, "max_abs_logit": max_logit,
+               "stream_digest": summary["stream_digest"]}
+        rec.update({key: summary.get(key) for key in (
+            "decode_itl_p50_ms", "ttft_mean_s", "prefill_s", "decode_s",
+            "decode_tok_s", "wall_s", "pages_peak_in_use")})
+        log(f"[families {arch}] {L} layers, window floor "
+            f"{engine._frag_floor}, gates {gates}, prefix hits "
+            f"{rec['prefix_hits']}; digest {rec['stream_digest']}; "
+            f"launches {launches}; paged decode want {want}; max |logit| "
+            f"{max_logit:.4f}; itl_p50 {rec['decode_itl_p50_ms']} ms, "
+            f"ttft_mean {rec['ttft_mean_s']} s, prefill_s "
+            f"{rec['prefill_s']}, decode_tok_s {rec['decode_tok_s']}")
+        if local:
+            ops.reset_counts()
+            r_sum, r_sched, r_eng = drv.main(args + ["--kv", "ring"],
+                                             return_state=True,
+                                             params=engine.params)
+            torch.cuda.synchronize()
+            counts = ops.counts()
+            r_want = L * _decode_steps(r_eng, r_sched)
+            r_got = counts["paged_decode"]["launches"]
+            rec["ring"] = {"stream_digest": r_sum["stream_digest"],
+                           "paged_decode": r_got,
+                           "ring_len": r_eng.ring_len,
+                           "decode_itl_p50_ms":
+                               r_sum.get("decode_itl_p50_ms")}
+            log(f"[families {arch}] --kv ring: digest "
+                f"{r_sum['stream_digest']} (paged "
+                f"{summary['stream_digest']}), ring rows {r_eng.ring_len} "
+                f"global / {min(cfg.window, r_eng.ring_len)} local, paged "
+                f"decode launches {r_got} (want {r_want}), itl_p50 "
+                f"{r_sum.get('decode_itl_p50_ms')} ms")
+            if r_sum["stream_digest"] != summary["stream_digest"]:
+                problems.append("the ring serve's digest differs from the "
+                                "paged serve's")
+            if r_got != r_want or any(c["plain_calls"]
+                                      for c in counts.values()):
+                problems.append(f"ring: paged decode {r_got} (want "
+                                f"{r_want}), counts {counts}")
+            if (r_sum["nonfinite_logits"] or len(r_sched.finished) != n_req
+                    or any(r.n_generated != MAX_NEW
+                           for r in r_sched.finished)):
+                problems.append("ring serve incomplete or non-finite")
+            del r_eng, r_sched
+        prompt = min(sched.finished, key=lambda r: r.rid).prompt
+        diff, bound = backend_logits(torch, engine, prompt)
+        rec["backend_logits"] = {"max_abs_diff": diff, "bound": bound}
+        out[arch] = rec
+        del engine, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+        if problems:
+            raise AssertionError(f"families phase {arch} failed: "
+                                 + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: train
 # ---------------------------------------------------------------------------
 
@@ -3350,6 +3798,18 @@ def main(argv=None):
     kernels[0]["readings"]["large_tile"] = {
         "design": LARGE_TILE_DESIGN, "k16_probe": probe_out}
     phases["kernels"] = time.monotonic() - t
+    # the families' shapes: prefill and decode at hd 256, the tied head
+    t = time.monotonic()
+    hd256, w256, e256 = check_prefill_hd256(torch, timer)
+    kernels[3]["readings"]["hd256"] = hd256
+    kernels[3]["err_over_bound"] = max(kernels[3]["err_over_bound"], w256)
+    kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], e256)
+    rings, w_rings = check_decode_rings(torch, timer)
+    kernels[2]["readings"]["hd256_rings"] = rings
+    kernels[2]["err_over_bound"] = max(kernels[2]["err_over_bound"],
+                                       w_rings)
+    kernels[0]["readings"]["tied_lm_head"] = tied_head_times(torch, timer)
+    phases["kernels_families"] = time.monotonic() - t
     t = time.monotonic()
     kernels[2]["readings"]["batch_fold_ms"] = check_fold(torch, timer)
     # what the fp32 routes' one order of sums (F2b) costs
@@ -3423,6 +3883,22 @@ def main(argv=None):
         del engine, sched
         gc.collect()
         torch.cuda.empty_cache()
+
+        t = time.monotonic()
+        fam = families(torch)
+        for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                         (3, "prefill_attention")):
+            kernels[k_]["readings"]["families_launches"] = {
+                arch: r["launches"][name] for arch, r in fam.items()}
+        kernels[2]["readings"]["families_ring_launches"] = {
+            arch: r["ring"]["paged_decode"] for arch, r in fam.items()
+            if "ring" in r}
+        log("[families] " + json.dumps({
+            arch: {key: r[key] for key in (
+                "stream_digest", "decode_itl_p50_ms", "ttft_mean_s",
+                "prefill_s", "decode_tok_s", "max_abs_logit")}
+            for arch, r in fam.items()}))
+        phases["families"] = time.monotonic() - t
 
         t = time.monotonic()
         summary, got, engine, sched = serve_emulate(torch)

@@ -21,7 +21,8 @@
 // T measured (8 is faster at T = 1024), though T = 128 with 40 heads then
 // gives 40 blocks on 132 SMs. Each warp converts its q rows to
 // 16-bit A fragments once (round to nearest even, which is cast_in) and
-// keeps them in registers. Key tiles of 64 rows of K and V come in fp32
+// keeps them in registers (HD = 256: in shared memory, below). Key tiles of
+// 64 rows (32 at HD = 256) of K and V come in fp32
 // through cp.async (16-byte pieces, only the rows below S), are converted
 // once by the whole block into 16-bit tiles in shared memory
 // (16-byte chunks XOR-swizzled by row, so ldmatrix reads without bank
@@ -48,11 +49,24 @@
 // T = 1024 each head's blocks re-read its kv head's K and V from L2 (g = 5
 // heads share them) and convert them again.
 //
+// Head dim 256 (gemma2, gemma3). A warp's 16 x 256 output alone is 128
+// fp32 registers a thread; with the q fragments in registers too (64) and
+// a 16 x 64 score tile (32) ptxas would spill past 255. At HD = 256 each
+// warp therefore keeps its 16 query rows in shared memory, cast in once to
+// 16 bits in the same swizzled layout as the key tiles, and reads the A
+// fragment of each k-step with ldmatrix inside the q.k loop; and the key
+// tile is halved to 32 rows (16 score registers), which also keeps the
+// fp32 staging, the 16-bit tiles and the 8 warps' q rows within one SM's
+// shared memory (163,840 B with fp32 K/V, 131,072 B with 16-bit K/V). The
+// arithmetic is the HD <= 128 kernel's: the same cast-in operands, online
+// max and normalizer, one 1e-30-floored normalization; only the key tile,
+// hence the points where P is rounded against the running max, differs.
+//
 // simt (fp32). fp32 operands have no exact tensor-core type (TF32 drops 13
 // bits), so this route keeps fp32 FMA chains: one block of 4 warps per
 // (16-query tile, head, batch row), each warp 4 query rows; key tiles of 32
 // rows staged in shared memory (K padded by one column); lane j scores key j
-// and owns output columns lane + 32 i.
+// and owns output columns lane + 32 i (hd up to 256: 8 columns a lane).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -67,8 +81,23 @@ namespace {
 // mma route
 // ---------------------------------------------------------------------------
 
-constexpr int kKeyTile = 64;
 constexpr int kMaxWarps = 8;
+
+// keys a tile, and whether a warp's q rows live in shared memory: the
+// HD = 256 layout (see the head of the file)
+template <int HD>
+struct MmaShape {
+  static constexpr int kKeyTile = HD > 128 ? 32 : 64;
+  static constexpr bool kQSmem = HD > 128;
+};
+
+// dynamic shared memory of the mma route (the wrapper's `launch_plan`):
+// fp32 staging of a K and a V tile and their 16-bit copies, or two 16-bit
+// (K, V) pairs (kv16); plus 16 q rows a warp in 16 bits where kQSmem
+int mma_smem(int hd, int kv16, int warps) {
+  const int tile = hd > 128 ? 32 : 64;
+  return tile * hd * (kv16 ? 8 : 12) + (hd > 128 ? warps * 16 * hd * 2 : 0);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -167,6 +196,8 @@ attn_mma(const float* __restrict__ q,
          long long skb, long long sks, long long skh, long long svb,
          long long svs, long long svh, float scale, float cap, int causal,
          int window, int q_offset) {
+  constexpr int kKeyTile = MmaShape<HD>::kKeyTile;
+  constexpr bool kQSmem = MmaShape<HD>::kQSmem;
   constexpr int kChunks = HD / 8;      // 16-byte chunks of a 16-bit row
   constexpr int kPieces = HD / 4;      // 16-byte pieces of an fp32 row
   constexpr int kNT = kKeyTile / 8;    // n-tiles of S per key tile
@@ -174,14 +205,16 @@ attn_mma(const float* __restrict__ q,
   constexpr int kOT = HD / 8;          // n-tiles of the output
   constexpr int kTile16 = kKeyTile * HD * 2;  // bytes of a 16-bit tile
   extern __shared__ __align__(16) unsigned char smem[];
-  // fp32 K/V: [64][HD] fp32 staging of K and V, then one 16-bit K and V
-  // tile; KV16: two (K, V) pairs of 16-bit tiles, no staging
+  // fp32 K/V: [kKeyTile][HD] fp32 staging of K and V, then one 16-bit K
+  // and V tile; KV16: two (K, V) pairs of 16-bit tiles, no staging; then
+  // (kQSmem) each warp's 16 q rows in 16 bits, swizzled as the key tiles
   float* stage_k = reinterpret_cast<float*>(smem);
   float* stage_v = stage_k + kKeyTile * HD;
   unsigned char* k16 =
       KV16 ? smem : reinterpret_cast<unsigned char*>(stage_v + kKeyTile * HD);
   unsigned char* v16 = k16 + kTile16 * (KV16 ? 2 : 1);  // 16-bit, swizzled
   const uint32_t k16_base = smem_u32(k16), v16_base = smem_u32(v16);
+  unsigned char* q16 = v16 + kTile16 * (KV16 ? 2 : 1);
 
   const int nthreads = blockDim.x;
   const int lane = threadIdx.x & 31;
@@ -233,20 +266,41 @@ attn_mma(const float* __restrict__ q,
   };
   if (j_begin < j_end) issue(j_begin * kKeyTile, 0);
 
-  // this warp's query rows as A fragments, cast in once
+  // this warp's query rows, cast in once: as A fragments in registers, or
+  // (kQSmem) as 16-bit rows in shared memory read back by ldmatrix
   const int ra = t0 + warp * 16 + grp, rb = ra + 8;
-  uint32_t qa[kKS][4];
+  uint32_t qa[kQSmem ? 1 : kKS][4];
+  unsigned char* q16w = q16 + warp * 16 * HD * 2;
+  const uint32_t q16_u = smem_u32(q16w);
+  if constexpr (kQSmem) {
+    for (int i = lane; i < 16 * kChunks; i += 32) {
+      const int r = i / kChunks, c = i % kChunks;
+      const int t = t0 + warp * 16 + r;
+      uint4 x = make_uint4(0, 0, 0, 0);
+      if (t < T) {
+        const float4 a0 =
+            __ldg(reinterpret_cast<const float4*>(qb + t * sqt + c * 8));
+        const float4 a1 =
+            __ldg(reinterpret_cast<const float4*>(qb + t * sqt + c * 8 + 4));
+        x = make_uint4(pack2<F16>(a0.x, a0.y), pack2<F16>(a0.z, a0.w),
+                       pack2<F16>(a1.x, a1.y), pack2<F16>(a1.z, a1.w));
+      }
+      *reinterpret_cast<uint4*>(q16w + r * HD * 2 + ((c ^ (r & 7)) << 4)) = x;
+    }
+    __syncwarp();
+  } else {
 #pragma unroll
-  for (int ks = 0; ks < kKS; ++ks) {
-    const int c = ks * 16 + 2 * qd;
-    const float2 x0 = ld_row2(qb + ra * sqt + c, ra < T);
-    const float2 x1 = ld_row2(qb + rb * sqt + c, rb < T);
-    const float2 x2 = ld_row2(qb + ra * sqt + c + 8, ra < T);
-    const float2 x3 = ld_row2(qb + rb * sqt + c + 8, rb < T);
-    qa[ks][0] = pack2<F16>(x0.x, x0.y);
-    qa[ks][1] = pack2<F16>(x1.x, x1.y);
-    qa[ks][2] = pack2<F16>(x2.x, x2.y);
-    qa[ks][3] = pack2<F16>(x3.x, x3.y);
+    for (int ks = 0; ks < kKS; ++ks) {
+      const int c = ks * 16 + 2 * qd;
+      const float2 x0 = ld_row2(qb + ra * sqt + c, ra < T);
+      const float2 x1 = ld_row2(qb + rb * sqt + c, rb < T);
+      const float2 x2 = ld_row2(qb + ra * sqt + c + 8, ra < T);
+      const float2 x3 = ld_row2(qb + rb * sqt + c + 8, rb < T);
+      qa[ks][0] = pack2<F16>(x0.x, x0.y);
+      qa[ks][1] = pack2<F16>(x1.x, x1.y);
+      qa[ks][2] = pack2<F16>(x2.x, x2.y);
+      qa[ks][3] = pack2<F16>(x3.x, x3.y);
+    }
   }
   const int pa_pos = q_offset + ra, pb_pos = q_offset + rb;
   const int warp_first = q_offset + t0 + warp * 16;
@@ -297,21 +351,41 @@ attn_mma(const float* __restrict__ q,
         (window && kv0 + kKeyTile - 1 <= warp_first - window))
       continue;  // every score of this warp in the tile is masked
 
-    // s = q . k over the tile's 64 keys
+    // s = q . k over the tile's keys; each s[n] sums its k-steps in order
     float s[kNT][4];
 #pragma unroll
     for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     const int mi = lane >> 3, ri = lane & 7;
-#pragma unroll
-    for (int np = 0; np < kNT; np += 2) {
+    if constexpr (kQSmem) {
+      const int qr = lane & 15;
 #pragma unroll
       for (int ks = 0; ks < kKS; ++ks) {
-        const int key = (np + (mi >> 1)) * 8 + ri;
-        const int ch = 2 * ks + (mi & 1);
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(k16_u + key * HD * 2 + ((ch ^ ri) << 4), b0, b1, b2, b3);
-        mma16816<F16>(s[np], qa[ks], b0, b1);
-        mma16816<F16>(s[np + 1], qa[ks], b2, b3);
+        uint32_t a[4];
+        const int qch = 2 * ks + (lane >> 4);
+        ldsm_x4(q16_u + qr * HD * 2 + ((qch ^ (qr & 7)) << 4), a[0], a[1],
+                a[2], a[3]);
+#pragma unroll
+        for (int np = 0; np < kNT; np += 2) {
+          const int key = (np + (mi >> 1)) * 8 + ri;
+          const int ch = 2 * ks + (mi & 1);
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4(k16_u + key * HD * 2 + ((ch ^ ri) << 4), b0, b1, b2, b3);
+          mma16816<F16>(s[np], a, b0, b1);
+          mma16816<F16>(s[np + 1], a, b2, b3);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int np = 0; np < kNT; np += 2) {
+#pragma unroll
+        for (int ks = 0; ks < kKS; ++ks) {
+          const int key = (np + (mi >> 1)) * 8 + ri;
+          const int ch = 2 * ks + (mi & 1);
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4(k16_u + key * HD * 2 + ((ch ^ ri) << 4), b0, b1, b2, b3);
+          mma16816<F16>(s[np], qa[ks], b0, b1);
+          mma16816<F16>(s[np + 1], qa[ks], b2, b3);
+        }
       }
     }
 
@@ -421,7 +495,7 @@ constexpr int kSimtWarps = 4;
 constexpr int kRowsPerWarp = 4;
 constexpr int kBQ = kSimtWarps * kRowsPerWarp;  // 16 query rows per block
 constexpr int kBK = 32;                          // keys per tile
-constexpr int kMaxChunks = 4;                    // hd <= 128, lane owns hd / 32
+constexpr int kMaxChunks = 8;                    // hd <= 256, lane owns hd / 32
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -435,6 +509,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// NCH = hd / 32 output columns a lane: a template parameter, so the
+// accumulators are registers at every hd (no guarded, spilled array)
+template <int NCH>
 __global__ void __launch_bounds__(kSimtWarps * 32)
 attn_simt(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int H, int KVH,
@@ -452,7 +529,6 @@ attn_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
-  const int nchunks = hd / 32;
   const float* qb = q + b * sqb + h * sqh;
   const float* kb = k + b * skb + kvh * skh;
   const float* vb = v + b * svb + kvh * svh;
@@ -462,13 +538,13 @@ attn_simt(const float* __restrict__ q, const float* __restrict__ k,
     q_s[i] = (t0 + r < T) ? qb[(t0 + r) * sqt + d] : 0.f;
   }
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kMaxChunks];
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][NCH];
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     m[rr] = -INFINITY;
     l[rr] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) acc[rr][c] = 0.f;
+    for (int c = 0; c < NCH; ++c) acc[rr][c] = 0.f;
   }
   // the last query position of this block: later key tiles are all masked
   const int last_q = q_offset + min(T, t0 + kBQ) - 1;
@@ -504,17 +580,17 @@ attn_simt(const float* __restrict__ q, const float* __restrict__ k,
       const float corr = expf(m[rr] - m_safe);
       l[rr] = l[rr] * corr + warp_sum(p);
       m[rr] = m_new;
-      float pv[kMaxChunks];
+      float pv[NCH];
 #pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) pv[c] = 0.f;
+      for (int c = 0; c < NCH; ++c) pv[c] = 0.f;
       for (int j = 0; j < kBK; ++j) {
         const float pj = __shfl_sync(~0u, p, j);
 #pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c)
-          if (c < nchunks) pv[c] = fmaf(pj, v_s[j * hd + lane + 32 * c], pv[c]);
+        for (int c = 0; c < NCH; ++c)
+          pv[c] = fmaf(pj, v_s[j * hd + lane + 32 * c], pv[c]);
       }
 #pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) acc[rr][c] = acc[rr][c] * corr + pv[c];
+      for (int c = 0; c < NCH; ++c) acc[rr][c] = acc[rr][c] * corr + pv[c];
     }
   }
 #pragma unroll
@@ -524,8 +600,7 @@ attn_simt(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[rr], 1e-30f);
     float* o = out + ((size_t)(b * T + t) * H + h) * hd;
 #pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c)
-      if (c < nchunks) o[lane + 32 * c] = acc[rr][c] / denom;
+    for (int c = 0; c < NCH; ++c) o[lane + 32 * c] = acc[rr][c] / denom;
   }
 }
 
@@ -543,8 +618,7 @@ extern "C" int sa_attention_mma_launch(
     long long svh, float scale, float cap, int causal, int window,
     int q_offset, int fp16, int kv16, int warps, int smem, void* stream) {
   const long long st[9] = {sqb, sqt, sqh, skb, sks, skh, svb, svs, svh};
-  // fp32 staging (K, V) + 16-bit K, V; or two 16-bit (K, V) pairs
-  if (warps < 1 || warps > kMaxWarps || smem < kKeyTile * hd * (kv16 ? 8 : 12))
+  if (warps < 1 || warps > kMaxWarps || smem < mma_smem(hd, kv16, warps))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
   float* of = static_cast<float*>(out);
@@ -561,6 +635,10 @@ extern "C" int sa_attention_mma_launch(
         B, H, KVH, T, S, st, scale, cap, causal, window, q_offset, warps,     \
         smem, s);                                                             \
   }
+  if (hd == 256) {
+    if (fp16) REPRO_MMA(256, true);
+    REPRO_MMA(256, false);
+  }
   if (hd == 128) {
     if (fp16) REPRO_MMA(128, true);
     REPRO_MMA(128, false);
@@ -573,6 +651,24 @@ extern "C" int sa_attention_mma_launch(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int NCH>
+int launch_simt(const float* q, const float* k, const float* v, float* out,
+                int B, int H, int KVH, int T, int S, const long long* st,
+                float scale, float cap, int causal, int window, int q_offset,
+                int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_simt<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid((T + kBQ - 1) / kBQ, H, B);
+  attn_simt<NCH><<<grid, kSimtWarps * 32, smem, stream>>>(
+      q, k, v, out, H, KVH, T, S, 32 * NCH, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], scale, cap, causal, window,
+      q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int sa_attention_simt_launch(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int KVH, int T, int S, int hd, long long sqb, long long sqt, long long sqh,
@@ -583,16 +679,26 @@ extern "C" int sa_attention_simt_launch(
       static_cast<int>(sizeof(float)) * (kBQ * hd + kBK * (hd + 1) + kBK * hd);
   if (hd % 32 || hd > 32 * kMaxChunks || smem < need)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attn_simt, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const long long st[9] = {sqb, sqt, sqh, skb, sks, skh, svb, svs, svh};
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd / 32) {
+#define REPRO_SIMT(N_)                                                       \
+  case N_:                                                                   \
+    return launch_simt<N_>(qf, kf, vf, of, B, H, KVH, T, S, st, scale, cap,  \
+                           causal, window, q_offset, smem, s);
+    REPRO_SIMT(1)
+    REPRO_SIMT(2)
+    REPRO_SIMT(3)
+    REPRO_SIMT(4)
+    REPRO_SIMT(5)
+    REPRO_SIMT(6)
+    REPRO_SIMT(7)
+    REPRO_SIMT(8)
+#undef REPRO_SIMT
   }
-  dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  attn_simt<<<grid, kSimtWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, KVH, T, S, hd,
-      sqb, sqt, sqh, skb, sks, skh, svb, svs, svh, scale, cap, causal, window,
-      q_offset);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

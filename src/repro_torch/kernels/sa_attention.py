@@ -33,7 +33,11 @@ launch of either raises:
   loads and the 16-bit conversion of each block's key tiles, so a block
   keeps its loads in flight together and shares each converted tile among
   its 8 warps (`launch_plan`). The tensor cores' truncating accumulation
-  is charged in `softmax_error_terms` (`tensor_cores`).
+  is charged in `softmax_error_terms` (`tensor_cores`). At head dim 256
+  (gemma2, gemma3) a warp's 16 × 256 output takes 128 registers a
+  thread, so each warp keeps its q rows in shared memory (cast in once,
+  read by ldmatrix each k-step) and the key tile is 32 keys
+  (`key_tile`): no spill, and one block within an SM's shared memory.
 * `simt` (fp32): fp32 FMA chains (fp32 has no exact tensor-core type),
   one block per (16-query tile, head, batch row).
 
@@ -147,9 +151,16 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
 
 
-KEY_TILE = 64        # keys a tile of the mma route
 MMA_WARPS = 8        # mma route: warps a block, 16 query rows each
 _SIMT_ROWS = 16      # simt route: 4 warps x 4 query rows
+MMA_HEAD_DIMS = (64, 128, 256)   # head dims the mma route instantiates
+SIMT_MAX_HD = 256    # simt route: hd a multiple of 32 up to this
+
+
+def key_tile(hd: int) -> int:
+    """Keys a tile of the mma route: 64, or 32 at hd 256, whose warps keep
+    their q rows in shared memory (csrc/sa_attention.cu `MmaShape`)."""
+    return 32 if hd > 128 else 64
 
 
 def launch_plan(B: int, T: int, H: int, hd: int, input_format: str,
@@ -158,7 +169,8 @@ def launch_plan(B: int, T: int, H: int, hd: int, input_format: str,
     inputs, `simt` for fp32), warps a block, query rows a block, the grid
     (q tiles, H, B) and the dynamic shared memory a block (`kv16`: the mma
     route reading K and V in the policy's 16-bit type, two 16-bit tile
-    pairs and no fp32 staging).
+    pairs and no fp32 staging; at hd 256 also each warp's 16 q rows in 16
+    bits).
 
     The mma route's blocks have MMA_WARPS warps at every T: each block
     converts its key tiles to 16 bits once for all its warps: on the card
@@ -173,10 +185,12 @@ def launch_plan(B: int, T: int, H: int, hd: int, input_format: str,
     else:
         rows = 16 * MMA_WARPS
         # fp32 staging of a K and a V tile and their 16-bit copies; or, for
-        # 16-bit K and V, two 16-bit (K, V) tile pairs
-        plan = {"route": "mma", "warps": MMA_WARPS,
-                "smem": KEY_TILE * hd * (2 * 2 * 2 if kv16
-                                         else 2 * 4 + 2 * 2)}
+        # 16-bit K and V, two 16-bit (K, V) tile pairs; at hd 256 the
+        # warps' q rows in 16 bits
+        q_rows = MMA_WARPS * 16 * hd * 2 if hd > 128 else 0
+        plan = {"route": "mma", "warps": MMA_WARPS, "key_tile": key_tile(hd),
+                "smem": key_tile(hd) * hd * (2 * 2 * 2 if kv16
+                                             else 2 * 4 + 2 * 2) + q_rows}
     plan.update(rows=rows, grid=(-(-T // rows), H, B))
     return plan
 
@@ -201,10 +215,10 @@ def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
     KVH, hd) fp32, bf16 or fp16 (one type), on one CUDA device, any strides
     with the last dimension contiguous → (B, T, H, hd) contiguous. The
     route follows the policy's input format (`launch_plan`): `mma` (tensor
-    cores) for bf16 and fp16, hd 64 or 128, which reads 16-bit K and V of
-    the policy's type as they are (another 16-bit type is cast in first,
-    exactly as `cast_in` does); `simt` for fp32, hd a multiple of 32 up to
-    128, which widens 16-bit K and V to fp32."""
+    cores) for bf16 and fp16, hd 64, 128 or 256, which reads 16-bit K and
+    V of the policy's type as they are (another 16-bit type is cast in
+    first, exactly as `cast_in` does); `simt` for fp32, hd a multiple of 32
+    up to 256, which widens 16-bit K and V to fp32."""
     global LAUNCHES
     from repro_torch.core.precision import current_policy
     from .build import check, function
@@ -230,7 +244,8 @@ def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
             and k.dtype in (torch.bfloat16, torch.float16))
     plan = launch_plan(B, T, H, hd, policy.input_format, kv16)
     route = plan["route"]
-    hd_ok = hd in (64, 128) if route == "mma" else hd % 32 == 0 and hd <= 128
+    hd_ok = (hd in MMA_HEAD_DIMS if route == "mma"
+             else hd % 32 == 0 and hd <= SIMT_MAX_HD)
     if H % KVH or not hd_ok or v.shape != k.shape:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} for the "

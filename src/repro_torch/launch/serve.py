@@ -4,8 +4,9 @@ through the continuous-batching engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
         --batch 4 --requests 8 --prompt-lens 32,64,128 --max-new 16 --rate 0
 
-Runs on CUDA unless `--device cpu` is given (with `--reduced` that is the
-CPU smoke run). The GEMM backend is REPRO_GEMM_BACKEND (`torch`, the
+`--arch` takes the dense decoders qwen2.5-14b, phi3-medium-14b, gemma2-9b
+and gemma3-12b, at full size or `--reduced`. Runs on CUDA unless `--device
+cpu` is given (with `--reduced` that is the CPU smoke run). The GEMM backend is REPRO_GEMM_BACKEND (`torch`, the
 plain version, `cuda`, the hand-written SA GEMM kernel, or `emulate`, the
 paper's bit-exact skewed datapath through the fp_emu kernel). The summary
 line `[continuous] k=v ...` and its `stream_digest` are the JAX driver's.

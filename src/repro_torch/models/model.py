@@ -1,4 +1,6 @@
-"""Model assembly, main-path subset: the dense decoder-only LM.
+"""Model assembly, main-path subset: the dense decoder-only LM
+(qwen2.5, phi3, gemma2, gemma3: untied or tied embeddings, global and
+local-window attention, softcaps, SwiGLU or GeGLU).
 
 Parameters are a plain nested dict with the JAX package's key names and
 its stacked superblock axis: `params["layers"]` is a tuple of
@@ -27,9 +29,9 @@ from .layers import KVCache, PagedKVCache
 
 
 def check_supported(cfg: ArchConfig):
-    """The port's model code covers the dense decoder-only family."""
-    if (cfg.family != "dense" or cfg.norm != "rmsnorm" or cfg.is_encdec
-            or cfg.tie_embeddings):
+    """The port's model code covers the dense decoder-only family, with
+    tied or untied embeddings."""
+    if cfg.family != "dense" or cfg.norm != "rmsnorm" or cfg.is_encdec:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} / norm "
                          f"{cfg.norm!r} is not ported yet (dense rmsnorm "
                          f"decoders only)")
@@ -116,7 +118,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
         "final_norm": {"w": ones(d)},
         "layers": tuple(layer() for _ in range(period)),
     }
-    params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
     return params
 
 
@@ -128,10 +131,15 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                dtype=torch.bfloat16, device=None,
                paged: tuple[int, int] | None = None):
     """Stacked per-layer cache, leaves with the superblock index on axis 0
-    and (dense) the batch slot on axis 1.
+    and (dense) the batch slot on axis 1. A local-window layer gets a
+    dense ring of min(window, seq_len) rows.
 
-    `paged=(n_pages, page_size)`: a shared `PagedKVCache` page pool plus a
-    per-slot block table of ceil(seq_len / page_size) columns."""
+    `paged=(n_pages, page_size)`: each global layer a shared `PagedKVCache`
+    page pool plus a per-slot block table of ceil(seq_len / page_size)
+    columns. A local layer keeps its dense ring beside the pools where
+    `window < seq_len` (bounded by the window, it strands no capacity),
+    and is paged like a global one otherwise, as in the JAX package; the
+    engine's splices handle the mixed tree."""
     check_supported(cfg)
     dev = resolve_device(device)
     period = cfg.stack_period
@@ -142,10 +150,9 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
         return torch.full(shape, fill, dtype=dt, device=dev)
 
     def layer_cache(j):
-        meta = cfg.layer_kind(j)
-        if meta["attn"] == "local" and cfg.window and cfg.window < seq_len:
-            raise ValueError("local-window caches are not ported yet")
-        if paged is not None:
+        local = (cfg.layer_kind(j)["attn"] == "local" and cfg.window
+                 and cfg.window < seq_len)
+        if paged is not None and not local:
             n_pages, psz = paged
             max_pages = -(-seq_len // psz)
             return {"kv": PagedKVCache(
@@ -154,10 +161,11 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                 positions=full((n_super, n_pages, psz), -1, torch.int32),
                 block_table=full((n_super, batch, max_pages), -1,
                                  torch.int32))}
+        S = cfg.window if local else seq_len
         return {"kv": KVCache(
-            k=full((n_super, batch, seq_len, kvh, hd), 0, dtype),
-            v=full((n_super, batch, seq_len, kvh, hd), 0, dtype),
-            positions=full((n_super, batch, seq_len), -1, torch.int32))}
+            k=full((n_super, batch, S, kvh, hd), 0, dtype),
+            v=full((n_super, batch, S, kvh, hd), 0, dtype),
+            positions=full((n_super, batch, S), -1, torch.int32))}
 
     return tuple(layer_cache(j) for j in range(period))
 
@@ -255,7 +263,13 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
             x = x[:, i:i + 1]
         else:
             x = x[:, -1:]
-    logits = sa_dot(x.reshape(-1, cfg.d_model), params["lm_head"]
+    # a tied head reads the embedding table transposed, as a view: the
+    # SA GEMM takes a K-contiguous W through its strides, so no step
+    # copies the (padded_vocab, d_model) table
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].t()
+    logits = sa_dot(x.reshape(-1, cfg.d_model), head
                     ).reshape(x.shape[0], x.shape[1], cfg.padded_vocab)
     logits = L.softcap(logits.to(torch.float32), cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab_size:   # mask padding logits
@@ -267,7 +281,9 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
 def lm_loss(params, cfg: ArchConfig, tokens, labels):
     """Next-token cross-entropy (fp32 logsumexp minus the gold logit,
     mean) → (loss, nll). The JAX package adds `aux_weight` times the MoE
-    aux losses, which are zero for the dense family, so loss == nll."""
+    aux losses, which are zero for the dense family, so loss == nll. A
+    tied embedding's gradient is the lookup's scatter plus the head's
+    dWᵀ, summed by autograd through the transposed view."""
     logits, _, _ = forward(params, cfg, tokens)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]

@@ -15,8 +15,9 @@
   block-table row.
 * **Ring KV** (`REPRO_KV=ring` / `kv_layout="ring"`): a dense per-slot
   ring of `cache_len` rows (`new_cache()`; on the card `cache_len` rounded
-  up to a page, so the decode kernel walks a ring slot as it walks a pool
-  slot of `max_seq_len` tokens: `ring_len`); an admission's fragment is a
+  up to a page and at least `max_seq_len`, so the decode kernel walks a
+  ring slot as it walks a pool slot of `max_seq_len` tokens: `ring_len`;
+  a local layer's ring has `window` rows); an admission's fragment is a
   whole ring row, copied into its slot. No allocator, no prefix cache; a
   request whose prompt plus budget exceeds `cache_len` is rejected (it
   would wrap a global-attention ring). `generate()` (static batches)
@@ -45,13 +46,18 @@
   shapes; padded rows get position -1 and the first token reads the real
   last row. `prefill_compiles` counts the distinct prefill shapes.
 
+* **Local windows** (gemma2, gemma3): a local-window layer keeps a dense
+  ring of `window` rows inside the paged layout too, so a paged cache is
+  a mixed tree of pool leaves and dense rings; the splices skip or
+  row-splice each kind. The prefill fragment is floored at `window`
+  tokens (`_frag_floor`) so its rings match the pool's, and the floor
+  turns off prefix caching, disagg and bucketing, and spec where
+  `spec_k + 1 > window`, as in the JAX engine.
+
 Where the JAX engine donates the cache buffer to a jitted update, this
 engine updates the cache tensors in place (`_scatter_impl`, `_bind_impl`,
 `_insert_impl`, `_clear_slot_impl`, the decode step's KV write) and says
 so at each site.
-
-Not ported yet, and refused with `ValueError("... not ported yet")`:
-local-window caches.
 """
 from __future__ import annotations
 
@@ -68,7 +74,7 @@ from repro_torch.core.precision import current_policy, use_policy
 from repro_torch.kernels.ops import fused_decode_supported
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import PagedKVCache
+from repro_torch.models.layers import KVCache, PagedKVCache
 from repro_torch.train.step import (make_bucketed_prefill_step,
                                     make_draft_step, make_prefill_step,
                                     make_serve_step, make_verify_step)
@@ -101,10 +107,6 @@ def _draft(draft_step, params, tok, cache, pos, k: int):
         pos = pos + 1
         drafts.append(tok)
     return torch.stack(drafts, dim=1), cache
-
-
-def _not_ported(what: str):
-    return ValueError(f"{what} is not ported yet")
 
 
 class ServeEngine:
@@ -152,19 +154,38 @@ class ServeEngine:
         self.spec_draft_layers = (
             min(max(1, int(spec_draft_layers)), n_super)
             if spec_draft_layers else max(1, n_super // 2))
-        if any(cfg.layer_kind(j).get("attn") == "local"
-               for j in range(cfg.stack_period)):
-            raise _not_ported("serving with local-window layers")
         self.kv_layout = kv_layout
         self.page_size = int(page_size)
         self.max_seq_len = _round_up(max_seq_len or cache_len, self.page_size)
         self.max_pages = self.max_seq_len // self.page_size
-        # a ring's rows: on the card a whole number of pages, so its slots
-        # split across the decode kernel's cluster as a pool slot of
-        # max_seq_len tokens does (the rows past cache_len stay masked at
-        # position -1; the reject rule stays on cache_len)
-        self.ring_len = (_round_up(cache_len, self.page_size)
+        # a ring's rows: on the card a whole number of pages, at least
+        # max_seq_len, so its slots split across the decode kernel's
+        # cluster as a pool slot of max_seq_len tokens does (the rows past
+        # cache_len stay masked at position -1; the reject rule stays on
+        # cache_len)
+        self.ring_len = (max(_round_up(cache_len, self.page_size),
+                             self.max_seq_len)
                          if self.device.type == "cuda" else cache_len)
+        # local-window rings survive in the paged layout (bounded by the
+        # window, they strand no capacity); a prefill fragment must carry
+        # rings of the same length, so fragments, and the pages an
+        # admission takes, are floored at `window` tokens
+        local = any(cfg.layer_kind(j).get("attn") == "local"
+                    for j in range(cfg.stack_period))
+        self._frag_floor = (cfg.window if local and cfg.window
+                            and cfg.window < self.max_seq_len else 1)
+        if self.device.type == "cuda" and local and cfg.window:
+            # on the card the decode kernel walks a dense ring as pages of
+            # `page_size` rows (`dense_pool_view`): a local ring's rows
+            # must split into whole pages
+            ring_rows = min(cfg.window, self.max_seq_len
+                            if kv_layout == "paged" else self.ring_len)
+            if ring_rows % self.page_size:
+                raise ValueError(
+                    f"{cfg.name}: a local ring of {ring_rows} rows does not "
+                    f"split into pages of {self.page_size} rows for the "
+                    f"decode kernel; take a page size that divides the "
+                    f"window {cfg.window}")
         self.pool_pages = int(
             pool_pages
             or _round_up(batch * cache_len, self.page_size) // self.page_size
@@ -195,46 +216,56 @@ class ServeEngine:
 
     def new_frag(self, prompt_len: int):
         """Dense batch-1 prefill fragment: the prompt rounded up to whole
-        pages."""
-        cap = _round_up(max(prompt_len, 1), self.page_size)
+        pages, and floored at `window` tokens (`_frag_floor`) so its
+        local rings match the pool's."""
+        cap = _round_up(max(prompt_len, self._frag_floor), self.page_size)
         return M.init_cache(self.cfg, 1, cap, dtype=self.cache_dtype,
                             device=self.device)
 
     def prefix_caching_on(self) -> bool:
-        """Prefix sharing (REPRO_PREFIX_CACHE, default on): every prompt
-        page is a pure function of the prompt tokens for the dense
-        decoders this engine serves."""
-        return optflags.prefix_cache_enabled() and self.kv_layout == "paged"
+        """Prefix sharing (REPRO_PREFIX_CACHE, default on) is sound only
+        where every prompt page is a pure function of the prompt tokens:
+        the paged layout without local-window rings (their fragment floor
+        couples neighbours)."""
+        return (optflags.prefix_cache_enabled() and self.kv_layout == "paged"
+                and self._frag_floor == 1)
 
     def disagg_on(self) -> bool:
         """The two-pool split (REPRO_DISAGG / `disagg`, default off) is
         sound exactly where prefix sharing is: a handed-off page run must
         mean the same to whichever decode slot binds it, so pages must be a
-        pure function of the prompt: the paged layout (every engine of the
-        port is a dense decoder without local windows). A ring engine
-        serves unified, without a word, as `spec_decoding_on` does."""
+        pure function of the prompt: the paged layout without local-window
+        rings. An ineligible engine serves unified, without a word, as
+        `spec_decoding_on` does."""
         on = (self._disagg_arg if self._disagg_arg is not None
               else optflags.disagg_enabled())
-        return bool(on) and self.kv_layout == "paged"
+        return bool(on) and self.kv_layout == "paged" and self._frag_floor == 1
 
     def bucketing_on(self) -> bool:
         """Prompt-length bucketing (REPRO_PREFILL_BUCKET / `bucket_prompts`,
-        default off). The JAX engine gates it to pure-attention stacks
-        without local-window rings; every engine of the port is one (the
-        constructor refuses local windows, `check_supported` the rest)."""
-        return (self._bucket_arg if self._bucket_arg is not None
-                else optflags.prefill_bucket_enabled())
+        default off) is sound only without local-window rings: a ring
+        write past the real prompt length could wrap onto live rows."""
+        on = (self._bucket_arg if self._bucket_arg is not None
+              else optflags.prefill_bucket_enabled())
+        return bool(on) and self._frag_floor == 1
 
     def spec_decoding_on(self) -> bool:
         """Self-speculative decoding is armed (`spec_k >= 1` and the
         REPRO_SPEC_DECODE kill switch up) and sound: the stack has at
-        least two superblocks to exit early from, and a ring holds the
-        verify block's `spec_k + 1` rows without collision."""
+        least two superblocks to exit early from, and every dense ring (a
+        local window; the ring layout) holds the verify block's
+        `spec_k + 1` rows without collision: the JAX engine's gate. A
+        local ring of `window` rows still loses, to a verify's writes,
+        rows that earlier verify rows and a query after a rejection
+        attend to, so under local windows neither engine's spec stream
+        equals its plain one (ROADMAP F6)."""
         n_super = self.cfg.num_layers // self.cfg.stack_period
-        ring_ok = (self.kv_layout != "ring"
-                   or self.spec_k + 1 <= self.cache_len)
+        min_ring = (self._frag_floor if self._frag_floor > 1
+                    else (self.cache_len if self.kv_layout == "ring"
+                          else None))
         return (optflags.spec_decode_enabled() and self.spec_k >= 1
-                and n_super >= 2 and ring_ok)
+                and n_super >= 2
+                and (min_ring is None or self.spec_k + 1 <= min_ring))
 
     def _fingerprint(self) -> str:
         """Cache-key component isolating engines whose pages would not be
@@ -245,7 +276,8 @@ class ServeEngine:
     def new_allocator(self) -> PageAllocator:
         return PageAllocator(
             self.pool_pages, self.page_size,
-            max_request_pages=self.max_pages, min_request_tokens=1,
+            max_request_pages=self.max_pages,
+            min_request_tokens=self._frag_floor,
             prefix_caching=self.prefix_caching_on(),
             fingerprint=self._fingerprint())
 
@@ -261,9 +293,13 @@ class ServeEngine:
         page in `block_row` are wiped to -1 (recycled pages still hold the
         previous owner's positions, which the mask would otherwise see).
         The first `keep` pages are shared prefix-cache pages: their wipe
-        and writes go to the trash page 0 instead."""
+        and writes go to the trash page 0 instead. Dense leaves (local
+        rings) have no pool and pass through: `_insert_impl` row-splices
+        them."""
         for full_c, one_c in zip(cache, frag):
             full, one = full_c["kv"], one_c["kv"]
+            if not isinstance(full, PagedKVCache):
+                continue
             n_super, n_pages, psz = full.k.shape[:3]
             npp = one.k.shape[2] // psz
             dev = full.k.device
@@ -288,25 +324,32 @@ class ServeEngine:
 
     @staticmethod
     def _bind_impl(cache, block_row, slot: int):
-        """Map a scattered page run into batch row `slot` (in place)."""
+        """Map a scattered page run into batch row `slot` (in place). Dense
+        leaves have no block table and pass through."""
         for c in cache:
-            bt = c["kv"].block_table
-            bt[:, slot] = block_row.to(bt.device, bt.dtype)     # in place
+            if isinstance(c["kv"], PagedKVCache):
+                bt = c["kv"].block_table
+                bt[:, slot] = block_row.to(bt.device, bt.dtype)  # in place
         return cache
 
     @staticmethod
     def _insert_impl(cache, frag, slot: int, block_row=None, keep: int = 0):
-        """Splice a batch-1 fragment into slot `slot`, in place. Paged
-        (`block_row` given): page scatter, then the block-table bind.
-        Ring: the fragment is a whole ring row (`new_cache(batch=1)`),
-        copied over the slot's row, positions included, so nothing of
-        the slot's previous request stays visible."""
+        """Splice a batch-1 fragment into slot `slot`, in place. Pool
+        leaves (`block_row` given): page scatter, then the block-table
+        bind. Dense leaves (the ring layout, and local rings in the paged
+        one): the fragment's leaf is a whole ring row (`new_cache(batch=1)`,
+        or a fragment floored at the window), copied over the slot's row,
+        positions included, so nothing of the slot's previous request
+        stays visible. The unified path runs both halves here, the
+        two-pool path the pool half at the handoff and the bind at
+        admission."""
         if block_row is not None:
             cache = ServeEngine._scatter_impl(cache, frag, block_row, keep)
-            return ServeEngine._bind_impl(cache, block_row, slot)
+            cache = ServeEngine._bind_impl(cache, block_row, slot)
         for full_c, one_c in zip(cache, frag):
-            for full, one in zip(full_c["kv"], one_c["kv"]):
-                full[:, slot] = one[:, 0].to(full.dtype)         # in place
+            if isinstance(full_c["kv"], KVCache):
+                for full, one in zip(full_c["kv"], one_c["kv"]):
+                    full[:, slot] = one[:, 0].to(full.dtype)     # in place
         return cache
 
     @staticmethod
@@ -314,9 +357,13 @@ class ServeEngine:
         """Load a shared prompt prefix from pool pages into the dense
         fragment's first `prefix_len` rows (in place on the fragment).
         `src_row` holds the source page ids in sequence order (the hit
-        pages, plus the copy-on-write donor's partial page last)."""
+        pages, plus the copy-on-write donor's partial page last). Dense
+        leaves are left as they are (prefix caching is off where a stack
+        has local rings)."""
         for one_c, full_c in zip(frag, cache):
             one, full = one_c["kv"], full_c["kv"]
+            if not isinstance(full, PagedKVCache):
+                continue
             n_super, _, psz = full.k.shape[:3]
             dev = full.k.device
             lane = torch.arange(psz, device=dev)
@@ -332,9 +379,10 @@ class ServeEngine:
 
     @staticmethod
     def _clear_slot_impl(cache, slot: int):
-        """Free a slot's cache row, in place. Paged: unmap its block-table
-        rows so its decode writes fall to the trash page before its pages
-        are reused. Ring: set its positions to -1 (every row masked)."""
+        """Free a slot's cache row, in place. Pool leaves: unmap its
+        block-table rows so its decode writes fall to the trash page
+        before its pages are reused. Dense leaves (rings, local rings):
+        set its positions to -1 (every row masked)."""
         for c in cache:
             kv = c["kv"]
             if isinstance(kv, PagedKVCache):

@@ -1075,3 +1075,151 @@ def test_serve_fused_gather_ring_equal_tokens_full_width_two_layers(
         del eng
     assert streams["fused"] == streams["gather"] == streams["ring"]
     assert all(len(t) == 9 for t in streams["fused"].values())
+
+
+# ---------------------------------------------------------------------------
+# the families' shapes: prefill and decode at head dim 256, the tied head
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T,S,kw,fmt,kv", [
+    (128, 128, {}, "bf16", F32), (200, 200, {"window": 64}, "bf16", F32),
+    (100, 100, {"window": 33, "cap": 50.0}, "bf16", BF16),
+    (64, 128, {"q_offset": 64, "window": 48, "cap": 50.0}, "bf16", F32),
+    (17, 17, {}, "fp16", F16), (33, 33, {"cap": 50.0}, "fp16", F32),
+    (100, 100, {"window": 33}, "fp32", F32), (40, 40, {}, "fp32", BF16)])
+def test_prefill_hd256_matches_plain(cuda, T, S, kw, fmt, kv):
+    """gemma2's and gemma3's prefill (16 heads over 8 KV heads, hd 256) on
+    both routes, q as `attention_block` hands it over: within the bound of
+    the plain version, the planted mask outside it, and 16-bit K/V the
+    fp32 K/V's bits."""
+    g = torch.Generator(device=cuda).manual_seed(T + S + 256)
+    q = torch.randn((1, 16, T, 256), generator=g, device=cuda).transpose(
+        1, 2)
+    k32 = torch.randn((1, S, 8, 256), generator=g, device=cuda)
+    v32 = torch.randn((1, S, 8, 256), generator=g, device=cuda)
+    k, v = k32.to(kv), v32.to(kv)
+    pol = PrecisionPolicy(input_format=fmt)
+    ops.reset_counts()
+    got = ops.sa_attention(q, k, v, policy=pol, **kw)
+    route = "simt" if fmt == "fp32" else "mma"
+    assert ops.route_counts()["prefill_attention"] == {
+        "mma": 0, "simt": 0, route: 1}
+    assert ops.counts()["prefill_attention"]["plain_calls"] == 0
+    ref = FA.flash_attention_ref(q, k, v, policy=pol, **kw)
+    bound = FA.error_bound(q, k, v, policy=pol, **kw)
+    assert bool(((got - ref).abs() <= bound).all())
+    bad = FA.flash_attention_ref(q, k, v, policy=pol,
+                                 **{**kw, "q_offset": kw.get("q_offset", 0)
+                                    + 1})
+    assert float(((got - bad).abs() / bound).max()) > 1.0
+    if kv != F32 and fmt == {BF16: "bf16", F16: "fp16"}[kv]:
+        y32 = ops.sa_attention(q, k32, v32, policy=pol, **kw)
+        assert torch.equal(got.view(torch.int32), y32.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows,window,pool", [
+    (1024, 1024, F32), (256, 256, BF16), (4096, 4096, F32)])
+def test_paged_decode_hd256_over_a_dense_ring(cuda, rows, window, pool):
+    """gemma's decode (g = 2, hd 256, softcap 50) over local rings of
+    `window` rows presented by `dense_pool_view` (`min_page=0`): within
+    the bound of the plain version, and the same bits as the kernel over
+    the ring's rows copied into a pool."""
+    B, KVH, grp, hd, psz = 4, 8, 2, 256, 16
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    q = torch.randn((B, 1, KVH * grp, hd), generator=g, device=cuda)
+    k = torch.randn((B, rows, KVH, hd), generator=g, device=cuda).to(pool)
+    v = torch.randn((B, rows, KVH, hd), generator=g, device=cuda).to(pool)
+    # ring rows: slot b is at position pos[b], its row i holds the latest
+    # position p <= pos[b] with p % rows == i (-1 where none was written)
+    pos = torch.tensor([rows + 37, rows - 1, 3 * rows + 5, 10],
+                       dtype=torch.int32, device=cuda)
+    i = torch.arange(rows, device=cuda)
+    p = pos[:, None] - ((pos[:, None] - i[None]) % rows)
+    pp = torch.where(p >= 0, p, -1).to(torch.int32)
+    kp, vp, ppv, table = DA.dense_pool_view(k, v, pp, psz)
+    before = DA.LAUNCHES
+    got = ops.paged_decode_attention(q, kp, vp, ppv, table, pos,
+                                     window=window, cap=50.0, min_page=0)
+    assert DA.LAUNCHES == before + 1
+    # the same rows as pool pages 1.. (page 0 the trash page)
+    pool = (torch.cat([torch.zeros_like(kp[:1]), kp]),
+            torch.cat([torch.zeros_like(vp[:1]), vp]),
+            torch.cat([torch.full_like(ppv[:1], -1), ppv]), table + 1)
+    want = DA.paged_decode_cuda(q, *pool, pos, window=window, cap=50.0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ref = DA.paged_decode_ref(q, *pool, pos, window=window, cap=50.0)
+    bound = DA.error_bound(q, *pool, pos, window=window, cap=50.0)
+    assert bool(((got - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 20, 1024])
+def test_tied_lm_head_layouts_give_the_same_bits(cuda, m):
+    """The tied lm_head reads W = embedᵀ through its strides (K
+    contiguous); the same matrix made contiguous gives the same bits on
+    every tile (decode, small, large: F2, the k16 steps are the same),
+    within the bound of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    vocab, d = 16384, 3584
+    embed = (torch.randn((vocab, d), generator=g, device=cuda) * 0.02).to(
+        torch.bfloat16)
+    a = torch.randn((m, d), generator=g, device=cuda).to(torch.bfloat16)
+    view = embed.t()
+    assert view.stride() == (1, d)
+    got = ops.sa_matmul(a, view)
+    want = ops.sa_matmul(a, view.contiguous())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ref = MM.sa_matmul_ref(a, view)
+    assert bool(((got - ref).abs() <= MM.error_bound(a, view, y=ref)).all())
+
+
+def test_engine_refuses_a_ring_that_does_not_split_into_pages(cuda):
+    """On the card a local ring is walked as pages: a window of 8 rows
+    over pages of 16 is refused at construction with the page size named;
+    pages of 8 serve."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = reduced_config("gemma3-12b")
+    params = M.init_params(cfg, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="page size"):
+        ServeEngine(cfg, params, batch=2, cache_len=32, page_size=16)
+    ServeEngine(cfg, params, batch=2, cache_len=32, page_size=8)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-12b", "gemma2-9b"])
+def test_serve_local_window_family_paged_equals_ring(cuda, arch,
+                                                     monkeypatch):
+    """gemma at full width, cut to one superblock and a window of 32
+    (two pages) so that prompts of 40-50 tokens wrap the rings: the paged
+    and ring streams launch every kernel of the path (prefill at hd 256),
+    no plain version, and give one token stream (both decode through the
+    paged-decode kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=full.stack_period, window=32)
+    params = M.init_params(cfg, seed=1, device=cuda)
+    streams = {}
+    for layout in ("paged", "ring"):
+        eng = ServeEngine(cfg, params, batch=2, cache_len=64, eos_id=-1,
+                          sync_every=4, kv_layout=layout)
+        assert not eng.prefix_caching_on() and not eng.bucketing_on()
+        sched = SlotScheduler(2, eos_id=-1)
+        _submit(sched, cfg, (45, 20, 50), ("premium",) * 3, max_new=6)
+        ops.reset_counts()
+        summary = eng.serve(sched)
+        c = ops.counts()
+        for name in ("sa_matmul", "paged_decode", "prefill_attention"):
+            assert c[name]["launches"] > 0, (layout, c)
+        assert all(v["plain_calls"] == 0 for v in c.values()), (layout, c)
+        assert ops.route_counts()["prefill_attention"]["simt"] == 0
+        assert summary["nonfinite_logits"] == 0
+        streams[layout] = {r.rid: r.tokens for r in sched.finished}
+        del eng
+    assert streams["paged"] == streams["ring"]
+    assert all(len(t) == 6 for t in streams["paged"].values())

@@ -249,6 +249,31 @@ def test_prefill_plain_matches_blockwise_bf16(T, S, kw):
     assert (np.abs(got - ref) <= bound).all()
 
 
+@pytest.mark.parametrize("fmt", ["bf16", "fp32"])
+@pytest.mark.parametrize("T,kw", [
+    (24, {"window": 9, "cap": 50.0}),      # gemma2's cap, a window that bites
+    (20, {"window": 8}),                   # gemma3's local layers
+    (16, {"q_offset": 8, "window": 6, "cap": 30.0})])
+def test_prefill_plain_matches_blockwise_hd256(T, kw, fmt):
+    """At head dim 256 (gemma2, gemma3: 16 heads over 8 KV heads, g = 2)
+    the plain version stays within its bound of the JAX package's
+    blockwise_attention, window and softcap included."""
+    rng = np.random.default_rng(T + 256)
+    S = T + kw.get("q_offset", 0)
+    q = rng.standard_normal((1, T, 4, 256)).astype(np.float32)
+    k = rng.standard_normal((1, S, 2, 256)).astype(np.float32)
+    v = rng.standard_normal((1, S, 2, 256)).astype(np.float32)
+    with JP.use_policy(JP.PrecisionPolicy(input_format=fmt)):
+        ref = np.array(j_blockwise(*map(jnp.asarray, (q, k, v)),
+                                   block_q=8, block_kv=8, **kw))
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    pol = TP.PrecisionPolicy(input_format=fmt)
+    got = FA.flash_attention_ref(*t, block_q=8, block_kv=8, policy=pol,
+                                 **kw).numpy()
+    bound = FA.error_bound(*t, policy=pol, **kw).numpy()
+    assert (np.abs(got - ref) <= bound).all()
+
+
 @pytest.mark.parametrize("kw", [{}, {"window": 7}, {"cap": 4.0},
                                 {"window": 5, "cap": 2.0}])
 def test_prefill_plain_matches_pallas_fp32(kw):
@@ -391,6 +416,24 @@ def test_prefill_launch_plan_tiles_cover_t(T, fmt):
     if plan["route"] == "mma":
         assert rows == 16 * plan["warps"]
     assert plan["smem"] <= 227 * 1024
+
+
+@pytest.mark.parametrize("hd,kv16,smem", [
+    (128, False, 98304), (128, True, 65536),
+    # hd 256: 32-key tiles, and the 8 warps' 16 q rows in 16 bits
+    (256, False, 32 * 256 * 12 + 8 * 16 * 256 * 2),
+    (256, True, 32 * 256 * 8 + 8 * 16 * 256 * 2)])
+def test_prefill_launch_plan_shared_memory_by_head_dim(hd, kv16, smem):
+    """The mma route's shared memory (the kernel's layout, checked again by
+    its launcher) fits one SM at every head dim it takes, hd 256's q rows
+    included; the simt route's at hd 256 too."""
+    plan = FA.launch_plan(1, 1500, 16, hd, "bf16", kv16)
+    assert plan["smem"] == smem <= 227 * 1024
+    assert plan["key_tile"] == (32 if hd == 256 else 64)
+    simt = FA.launch_plan(1, 1500, 16, hd, "fp32")
+    assert simt["smem"] == 4 * (16 * hd + 32 * (hd + 1) + 32 * hd)
+    assert simt["smem"] <= 227 * 1024
+    assert hd in FA.MMA_HEAD_DIMS and hd <= FA.SIMT_MAX_HD
 
 
 def test_prefill_route_counts_stay_zero_on_cpu():

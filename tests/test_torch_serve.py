@@ -200,10 +200,11 @@ def setup():
 
 
 def _streams(engine_cls, sched_cls, cfg, params, prompts, budgets,
-             eos_id=-1, sync_every=2, finished=None, **kw):
+             eos_id=-1, sync_every=2, finished=None,
+             kv_layout="paged", **kw):
     eng = engine_cls(cfg, params, batch=2, cache_len=32, eos_id=eos_id,
-                     sync_every=sync_every, kv_layout="paged", page_size=8,
-                     **kw)
+                     sync_every=sync_every, kv_layout=kv_layout,
+                     page_size=8, **kw)
     sched = sched_cls(2, eos_id=eos_id)
     for p, n in zip(prompts, budgets):
         sched.submit(p, max_new_tokens=n)
@@ -316,16 +317,30 @@ def test_engine_prefix_cache_hits_keep_tokens(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("pattern", [("local", "global"), ("local",)],
-                         ids=["kw2-env2", "kw4-env4"])
-def test_engine_refuses_unported_features(setup, pattern):
-    """Local-window layers are not ported: an engine over a dense config
-    with a local:global layer pattern, or with local layers only, is
-    refused at construction."""
-    cfg, _, tp = setup
-    local = dataclasses.replace(cfg, attn_pattern=pattern, window=8,
-                                num_layers=len(pattern))
-    with pytest.raises(ValueError, match="local-window layers is not ported"):
-        ServeEngine(local, tp, batch=2, cache_len=16)
+                         ids=["local-global", "local-only"])
+def test_engine_serves_local_window_patterns(pattern):
+    """A dense config with a local:global layer pattern, or with local
+    layers only (a paged cache with no pool leaf), served with prompts
+    longer than the window of 8: the port's paged stream equals its ring
+    stream and the JAX engine's (fp32 policy, weights from key 1)."""
+    cfg = dataclasses.replace(reduced_config("qwen2.5-14b"), remat=False,
+                              attn_pattern=pattern, window=8,
+                              num_layers=2 * len(pattern))
+    with use_policy(FP32_J):
+        jp = JM.init_params(jax.random.key(1), cfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    prompts = _probe_prompts(cfg, seed=1, lens=(12, 6, 14))
+    budgets = (5, 3, 4)
+    with use_policy(FP32_J):
+        ref, _ = _streams(JEngine, JSched, cfg, jp, prompts, budgets)
+    with TP.use_policy(TP.PrecisionPolicy(input_format="fp32")):
+        got, summary = _streams(ServeEngine, SlotScheduler, cfg, tp,
+                                prompts, budgets)
+        ring, _ = _streams(ServeEngine, SlotScheduler, cfg, tp, prompts,
+                           budgets, kv_layout="ring")
+    assert got == ref == ring
+    assert summary["pages_leaked"] == 0
+    assert "prefix_hits" not in summary       # the window turns it off
 
 
 # ---------------------------------------------------------------------------

@@ -331,6 +331,32 @@ def test_train_step_grads_match_jax(setup, accum, port_backend, jax_backend):
                                                 key=lambda kv: -kv[1])[:3]
 
 
+@pytest.mark.parametrize("port_backend,jax_backend",
+                         [("torch", "xla"), ("cuda", "pallas")])
+def test_tied_model_grads_match_jax(port_backend, jax_backend):
+    """Reduced gemma2 (tied embeddings, GeGLU, softcaps, a local window of
+    8 over 16 tokens): loss and every gradient leaf against
+    jax.value_and_grad(lm_loss). The tied table's gradient is the
+    lookup's scatter plus the head's dWᵀ, through the transposed view."""
+    cfg = reduced_config("gemma2-9b")
+    assert cfg.tie_embeddings and cfg.remat
+    np_params = jax.tree.map(np.asarray,
+                             JM.init_params(jax.random.key(3), cfg))
+    assert "lm_head" not in np_params
+    batch = JSynthetic(cfg.vocab_size, 16, 4, seed=1).batch_at(0)
+    t_loss, tg = _port_grads(cfg, np_params, batch, 1, port_backend)
+    toks, labs = (jnp.asarray(batch[k]) for k in ("tokens", "labels"))
+    with JP.use_policy(JP.PrecisionPolicy(backend=jax_backend)):
+        (j_loss, _), g = jax.jit(jax.value_and_grad(
+            lambda p, t, l: JM.lm_loss(p, cfg, t, l), has_aux=True))(
+            jax.tree.map(jnp.asarray, np_params), toks, labs)
+    jg = _paths(jax.tree.map(np.asarray, g))
+    assert abs(t_loss - float(j_loss)) <= REL_LOSS * abs(float(j_loss))
+    rel = _rel_errors(jg, tg)
+    assert max(rel.values()) <= REL_GRAD, sorted(rel.items(),
+                                                key=lambda kv: -kv[1])[:3]
+
+
 def test_train_step_grad_tolerance_rejects_dropped_jacobian(setup,
                                                             monkeypatch):
     """A backward that drops the FFN gate's activation jacobian lands
