@@ -40,7 +40,14 @@ Phases, in order; any failure exits nonzero:
              over B = 4 rings of 1024 and 4096 rows (`dense_pool_view`),
              the pool's bits; the tied lm_head (W = embed^T in place) at
              M = 4 and 1024, bit-identical to the contiguous W, beside
-             bf16 torch.matmul(x, embed.t()) and its bound.
+             bf16 torch.matmul(x, embed.t()) and its bound. The MoE
+             family's GEMMs: the routers (N = 40, 128 and 8) at M = 4,
+             20 and 128 within their bound on `mma`, timed at M = 4
+             beside their byte bound; granite's MoE layer at decode
+             (the router and 120 expert GEMMs) and one llama4 expert,
+             each GEMM within its bound, then timed; the expert shapes
+             and llama4's dense FFN at M = 20, 128 and 512 (a training
+             expert's B·C) within their bound.
 4. fold    — ROADMAP F2 and F2b at full width: every row of the path's
              GEMMs (7 layer shapes and the lm_head), bf16 x bf16 and fp32
              x fp32, bit-identical at M = 1, 4, 7, 8, 20 and 1024, and a
@@ -121,6 +128,21 @@ Phases, in order; any failure exits nonzero:
              window's gates off (no prefix hit); gemma3 and gemma2 again
              with `--kv ring`, the same digest; gemma2's logits within
              ±30; one prompt's prefill logits under `cuda` and `torch`.
+   moe     — granite-moe-3b-a800m at full width and depth (32 layers,
+             40 experts, top-8) on the serve stream, paged and `--kv
+             ring`: one digest, the serve phase's checks, every kernel's
+             launches exactly as the dropless dispatch implies
+             (`moe.gemm_calls`: a decode step 4001 SA GEMMs, run once
+             alone too), prefill logits under `cuda` and `torch`, one
+             decode chunk under torch.profiler (idle share);
+             llama4-maverick at full width cut to one superblock (a dense
+             layer at d_ff 16384, a MoE layer of 128 experts and the
+             shared expert: 37.4 GB) on 4 requests of 32-64 tokens, the
+             same launch gates, peak memory; granite cut to 4 layers
+             trained 3 AdamW steps at batch 4 x 512 (the capacity
+             dispatch): step 0 under `cuda` and `torch` with the routing
+             held (and the free-routing spread read out), the train
+             phase's gates, finite aux losses.
 7. emulate — qwen2.5-14b served under `REPRO_GEMM_BACKEND=emulate`:
              every GEMM through the fp_emu kernel (the SA GEMM never
              launches), attention through the two attention kernels, no
@@ -3171,14 +3193,62 @@ def _is_decode_tile(name: str) -> bool:
     return "sa_gemm_mma" in name and DECODE_TILE in name
 
 
-def profile_serve(torch, engine):
+def profile_serve(torch, engine, tag="profile", requests=True):
     """Where the time goes: four requests (the three prompt lengths and
     one more of the longest, 16 new tokens each) served again under
     torch.profiler (CUDA activity only); device-busy share of the wall and
     the kernels that take the device time. Then one decode chunk alone
     (`sync_every` steps on a fresh pool, as the engine's warm-up runs it):
-    its kernel launches per decode step and the decode tile's share of
-    its device time."""
+    its kernel launches and device time per decode step, the decode
+    tile's share of its device time, and its idle share under the
+    profiler. Without `requests`, the chunk alone. Returns those readings
+    (None if the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.precision import PrecisionPolicy, use_policy
+
+    out = {}
+    if requests:
+        out = _profile_requests(torch, engine, tag)
+        if out is None:
+            return None
+    steps = engine.sync_every
+    run = engine._chunk_fn(steps, True)
+    state = (torch.zeros((BATCH,), dtype=torch.int32, device="cuda"),
+             engine.new_pool(),
+             torch.zeros((BATCH,), dtype=torch.int32, device="cuda"))
+    with use_policy(PrecisionPolicy(backend="cuda")):
+        run(engine.params, *state, None, None)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(engine.params, *state, None, None)
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    ks = device_kernels(torch, prof)
+    if not ks:
+        log(f"[{tag}] the profiler recorded no device time")
+        return None
+    busy = sum(ms for ms, _ in ks.values())
+    launches = sum(n for _, n in ks.values())
+    tile = [(ms, n) for name, (ms, n) in ks.items() if _is_decode_tile(name)]
+    partial = sum(n for name, (_, n) in ks.items() if "sa_gemm_partial" in name)
+    out.update(step_launches=launches / steps, step_device_ms=busy / steps,
+               chunk_wall_s=wall, chunk_idle_share=1 - busy / 1e3 / wall)
+    log(f"[{tag}] one decode chunk ({steps} steps, B={BATCH}): "
+        f"{launches / steps:.1f} kernel launches a decode step, device "
+        f"{busy / steps:.4f} ms a step; the decode tile "
+        f"{sum(n for _, n in tile) / steps:.1f} launches and "
+        f"{100 * sum(ms for ms, _ in tile) / busy:.1f} % of device time; "
+        f"sa_gemm_partial {partial} launches; wall {wall:.3f} s under the "
+        f"profiler, idle share {out['chunk_idle_share']:.3f}")
+    if partial:
+        raise AssertionError("the bf16 decode step launched sa_gemm_partial")
+    return out
+
+
+def _profile_requests(torch, engine, tag):
+    """`profile_serve`'s four requests under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.precision import PrecisionPolicy, use_policy
@@ -3200,40 +3270,23 @@ def profile_serve(torch, engine):
     ks = device_kernels(torch, prof)
     busy = sum(ms for ms, _ in ks.values()) / 1e3
     if not ks:
-        log("[profile] the profiler recorded no device time")
-        return
+        log(f"[{tag}] the profiler recorded no device time")
+        return None
     tile_ms = sum(ms for name, (ms, _) in ks.items() if _is_decode_tile(name))
-    log(f"[profile] wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
-        f"{1 - busy / wall:.3f}; prefill_s {summary['prefill_s']} decode_s "
-        f"{summary['decode_s']} itl_p50 {itl_p50_ms(sched.finished)} ms; "
-        f"the decode tile {100 * tile_ms / 1e3 / busy:.1f} % of device time")
+    out = {"wall_s": wall, "device_busy_s": busy,
+           "idle_share": 1 - busy / wall,
+           "decode_tile_share": tile_ms / 1e3 / busy,
+           "prefill_s": summary["prefill_s"], "decode_s": summary["decode_s"],
+           "itl_p50_ms": itl_p50_ms(sched.finished)}
+    log(f"[{tag}] wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
+        f"{out['idle_share']:.3f}; prefill_s {summary['prefill_s']} "
+        f"decode_s {summary['decode_s']} itl_p50 {out['itl_p50_ms']} ms; "
+        f"the decode tile {100 * out['decode_tile_share']:.1f} % of device "
+        f"time")
     for name, (ms, n) in sorted(ks.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"[profile]   {ms / 1e3:8.4f} s {100 * ms / 1e3 / busy:5.1f}% "
+        log(f"[{tag}]   {ms / 1e3:8.4f} s {100 * ms / 1e3 / busy:5.1f}% "
             f"{n:7d} launches  {name[:90]}")
-    steps = engine.sync_every
-    run = engine._chunk_fn(steps, True)
-    state = (torch.zeros((BATCH,), dtype=torch.int32, device="cuda"),
-             engine.new_pool(),
-             torch.zeros((BATCH,), dtype=torch.int32, device="cuda"))
-    with use_policy(PrecisionPolicy(backend="cuda")):
-        run(engine.params, *state, None, None)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(engine.params, *state, None, None)
-            torch.cuda.synchronize()
-    ks = device_kernels(torch, prof)
-    busy = sum(ms for ms, _ in ks.values())
-    launches = sum(n for _, n in ks.values())
-    tile = [(ms, n) for name, (ms, n) in ks.items() if _is_decode_tile(name)]
-    partial = sum(n for name, (_, n) in ks.items() if "sa_gemm_partial" in name)
-    log(f"[profile] one decode chunk ({steps} steps, B={BATCH}): "
-        f"{launches / steps:.1f} kernel launches a decode step, device "
-        f"{busy / steps:.4f} ms a step; the decode tile "
-        f"{sum(n for _, n in tile) / steps:.1f} launches and "
-        f"{100 * sum(ms for ms, _ in tile) / busy:.1f} % of device time; "
-        f"sa_gemm_partial {partial} launches")
-    if partial:
-        raise AssertionError("the bf16 decode step launched sa_gemm_partial")
+    return out
 
 
 def profile_emulate(torch, engine):
@@ -3501,6 +3554,535 @@ def families(torch):
 
 
 # ---------------------------------------------------------------------------
+# moe: granite-moe-3b at full width and depth, llama4-maverick at full width
+# cut to one superblock, and granite training cut in depth
+# ---------------------------------------------------------------------------
+
+GRANITE, LLAMA4 = "granite-moe-3b-a800m", "llama4-maverick-400b-a17b"
+# granite's stream is the qwen serve's: every prompt fits one dropless
+# chunk (moe.DROPLESS_CHUNK_T = 128 tokens)
+GRANITE_ARGS = ["--arch", GRANITE, "--batch", "4", "--requests", "8",
+                "--prompt-lens", "32,64,128", "--max-new", "16", "--rate",
+                "0", "--seed", "0"]
+# llama4 cut to one superblock (a dense layer at d_ff 16384 and a MoE layer
+# of 128 experts and the shared expert: 18.7 B parameters, 37.4 GB bf16)
+LLAMA4_LAYERS, LLAMA4_REQUESTS, LLAMA4_MAX_NEW = 2, 4, 8
+LLAMA4_PROMPTS = (32, 64)
+# granite's training run: 4 of 32 layers, batch 4 x 512 (C = 128 tokens an
+# expert and batch row), no accumulation
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 3
+
+
+def check_moe_gemms(torch, timer):
+    """The MoE family's SA GEMMs: each router (N = 40, 128 and a narrow 8,
+    narrower than any other served N: a partial 64-column tile) at M = 4,
+    20 and 128 against the plain version within `error_bound`, on `mma`,
+    its tile and grid, and at M = 4 its time beside its byte bound, the
+    plain version and bf16 torch.matmul; then granite's MoE layer at
+    decode (the router and 40 experts' three GEMMs at M = 4, as the
+    dropless dispatch launches them) and one llama4 expert's three, each
+    GEMM held to its plain version, then timed wall and device beside
+    their byte bound and the same calls of bf16 torch.matmul; then each
+    expert shape and llama4's dense FFN (d_ff 16384) at the M the
+    dispatch gives them beyond decode (20, 128 and 512, a training
+    expert's B·C), held to the plain version. Returns (readings, max
+    err/bound, max abs err)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import (DENSE_FFN_GEMMS,
+                                                EXPERT_GEMMS, ROUTER_GEMMS)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+
+    def weight(k, n):
+        return (torch.randn((k, n), generator=g, device="cuda")
+                * k ** -0.5).to(bf16)
+
+    def rows(m, k):
+        return torch.randn((m, k), generator=g, device="cuda").to(bf16)
+
+    out, worst, max_err = {}, 0.0, 0.0
+
+    def checked(what, a, w, act="none"):
+        """One kernel call held to its plain version on the same inputs:
+        on `mma`, finite, within `error_bound`. Returns err/bound."""
+        nonlocal worst, max_err
+        ops.reset_counts()
+        y = ops.sa_matmul(a, w, act=act)
+        ref = mm.sa_matmul_ref(a, w, act=act)
+        torch.cuda.synchronize()
+        routes = ops.route_counts()["sa_matmul"]
+        err = (y - ref).abs()
+        ratio = float((err / mm.error_bound(a, w, y=ref)).max())
+        if (routes["mma"] != 1 or not bool(torch.isfinite(y).all())
+                or not ratio <= 1.0):
+            raise AssertionError(f"{what}: routes {routes}, err/bound "
+                                 f"{ratio}")
+        worst, max_err = max(worst, ratio), max(max_err, float(err.max()))
+        return ratio
+
+    for name, k, n in ROUTER_GEMMS:
+        w = weight(k, n)
+        for m in (BATCH, 20, 128):
+            a = rows(m, k)
+            ratio = checked(f"{name} M={m}", a, w)
+            plan = mm.mma_plan(m, n, "mma")
+            rec = {"tile": plan["tile"], "grid": plan["grid"],
+                   "err_over_bound": ratio}
+            if m == BATCH:
+                rec.update(
+                    ms=timer.wall(lambda: ops.sa_matmul(a, w)),
+                    device_ms=timer.device(lambda: ops.sa_matmul(a, w)),
+                    plain_ms=timer.wall(lambda: mm.sa_matmul_ref(a, w),
+                                        reps=5),
+                    library_ms=timer.wall(lambda: torch.matmul(a, w)))
+                rec["bound_ms"], rec["bound_by"] = bound_ms(
+                    2 * (m * k + k * n) + 4 * m * n, 2.0 * m * n * k,
+                    PEAK_BF16)
+            out[f"{name} M={m}"] = rec
+            log(f"[moe gemm] {name} M={m} (K {k}, N {n}): {plan['tile']} "
+                f"tile, grid {plan['grid']}, err/bound {ratio:.4f}"
+                + (f"; kernel {rec['ms']:.4f} ms wall (device "
+                   f"{rec['device_ms']}), plain {rec['plain_ms']:.4f}, bf16 "
+                   f"torch.matmul {rec['library_ms']:.4f}, bound "
+                   f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})"
+                   if m == BATCH else ""))
+            del a
+        del w
+
+    def dispatch(arch, experts, router):
+        """One token batch (M = 4) through `experts` experts' three GEMMs
+        (and the router), the activation in wg's epilogue, as
+        `moe_ffn_dropless` launches them: each GEMM held to its plain
+        version, then the whole timed."""
+        shapes = EXPERT_GEMMS[arch]
+        d, f = shapes[0][1], shapes[0][2]
+        ws = [[weight(k, n) for _, k, n, _ in shapes]
+              for _ in range(experts)]
+        wr = weight(d, router) if router else None
+        x, h = rows(BATCH, d), rows(BATCH, f)
+        ratio = 0.0
+        if wr is not None:
+            ratio = checked(f"{arch} router M={BATCH}", x, wr)
+        for e, (wg, wu, wd) in enumerate(ws):
+            for (name, _, _, act), a, w in zip(shapes, (x, x, h),
+                                               (wg, wu, wd)):
+                ratio = max(ratio, checked(f"{arch} expert {e} {name} "
+                                           f"M={BATCH}", a, w, act))
+
+        def kernel():
+            if wr is not None:
+                ops.sa_matmul(x, wr)
+            for wg, wu, wd in ws:
+                ops.sa_matmul(x, wg, act="silu")
+                ops.sa_matmul(x, wu)
+                ops.sa_matmul(h, wd)
+
+        def library():
+            if wr is not None:
+                torch.matmul(x, wr)
+            for wg, wu, wd in ws:
+                torch.matmul(x, wg)
+                torch.matmul(x, wu)
+                torch.matmul(h, wd)
+
+        nbytes = 2 * sum(w.numel() for e in ws for w in e) + (
+            2 * wr.numel() if wr is not None else 0)
+        flops = 2.0 * BATCH * nbytes / 2
+        b_ms, by = bound_ms(nbytes, flops, PEAK_BF16)
+        # a device reading under the byte bound is impossible (the
+        # profiler lost a kernel's records): read again, else keep none
+        dev = None
+        for _ in range(3):
+            dev = timer.device(kernel, reps=3)
+            if dev is not None and dev >= b_ms:
+                break
+            log(f"  (device reading {dev} ms under the bound {b_ms:.5f} "
+                f"ms: discarded)")
+            dev = None
+        rec = {"gemms": 3 * experts + bool(router), "err_over_bound": ratio,
+               "ms": timer.wall(kernel, reps=10), "device_ms": dev,
+               "library_ms": timer.wall(library, reps=10),
+               "bound_ms": b_ms, "bound_by": by,
+               "tile": mm.mma_plan(BATCH, f, "mma")["tile"]}
+        del ws, wr
+        torch.cuda.empty_cache()
+        return rec
+
+    out["granite_layer_M4"] = dispatch("granite", 40, 40)
+    out["llama4_expert_M4"] = dispatch("llama4", 1, 0)
+    for key in ("granite_layer_M4", "llama4_expert_M4"):
+        r = out[key]
+        log(f"[moe gemm] {key}: {r['gemms']} GEMMs on the {r['tile']} tile, "
+            f"err/bound {r['err_over_bound']:.4f}; {r['ms']:.4f} ms wall "
+            f"(device {r['device_ms']}), bf16 torch.matmul "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+    # the expert and dense-FFN shapes beyond decode: a prefill chunk's
+    # rows (<= 128 a request) and a training expert's B·C = 512
+    for what, shapes in (("granite expert", EXPERT_GEMMS["granite"]),
+                         ("llama4 expert", EXPERT_GEMMS["llama4"]),
+                         ("llama4 dense ffn", DENSE_FFN_GEMMS["llama4"])):
+        for name, k, n, act in shapes:
+            w = weight(k, n)
+            got = {}
+            for m in (BATCH, 20, 128, 512):
+                if m == BATCH and what != "llama4 dense ffn":
+                    continue        # checked in the dispatch above
+                got[m] = checked(f"{what} {name} M={m}", rows(m, k), w, act)
+            out[f"{what} {name}"] = {"K": k, "N": n, "act": act,
+                                     "err_over_bound": got}
+            log(f"[moe gemm] {what} {name} (K {k}, N {n}, {act}): "
+                f"err/bound by M " + ", ".join(f"{m} {r:.4f}"
+                                               for m, r in got.items()))
+            del w
+    torch.cuda.empty_cache()
+    return out, worst, max_err
+
+
+class _RoutingReplay:
+    """Records every routing decision of one run (`moe._top_k`: each
+    token's top k experts, each expert's top C tokens) and replays its
+    indices in later runs, each value read again from that run's own
+    scores. Routing is discontinuous: a token whose top-k gap or capacity
+    gate sits within two GEMMs' last-bit difference can route another
+    way (ROADMAP R8), which moves the expert leaves' gradients by far more
+    than the GEMMs' arithmetic does. With the routing held, two backends'
+    step-0 gradients differ by their arithmetic alone."""
+
+    def __init__(self):
+        self.idx, self.mode, self.pos = [], None, 0
+
+    def start(self, mode):
+        if mode == "record":
+            self.idx = []
+        self.mode, self.pos = mode, 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.orig = orig = moe._top_k
+        box = self
+
+        def top_k(x, k):
+            if box.mode == "replay":
+                i = box.idx[box.pos]
+                box.pos += 1
+                return x.gather(-1, i), i
+            v, i = orig(x, k)
+            if box.mode == "record":
+                box.idx.append(i)
+            return v, i
+
+        moe._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._top_k = self.orig
+
+
+def moe_granite(torch):
+    """granite-moe-3b at full width and depth through `launch/serve.main`
+    under `cuda` with `_serve_backend`'s checks, its launches held to what the
+    dropless dispatch implies (`moe.gemm_calls`: 125 SA GEMMs a layer
+    and the lm_head a decode step, 4001; a prefill of <= 128 tokens the
+    same), one decode step alone launching exactly that, paged decode L
+    a decode step and prefill attention L a request; then `--kv ring`:
+    the same digest and counts; then one prompt's prefill logits under
+    `cuda` and `torch`; then `profile_serve`'s decode chunk: a decode
+    step's device time and launches, the chunk's idle share under the
+    profiler, and the idle share the step's device time leaves in the
+    serve's unprofiled ITL."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    n_req = 8
+    torch.cuda.reset_peak_memory_stats()
+    summary, launches, engine, sched = _serve_backend(
+        torch, "cuda", GRANITE_ARGS, n_req, MAX_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = engine.cfg
+    L = cfg.num_layers
+    per_step = moe.gemm_calls(cfg)
+
+    def want(eng, sch):
+        steps = _decode_steps(eng, sch)
+        return {"sa_matmul": sum(moe.gemm_calls(cfg, len(r.prompt))
+                                 for r in sch.finished) + steps * per_step,
+                "paged_decode": L * steps, "prefill_attention": L * n_req}
+
+    problems = []
+    expect = want(engine, sched)
+    for name, n in expect.items():
+        if launches[name] != n:
+            problems.append(f"{name} launched {launches[name]} times, the "
+                            f"dispatch implies {n}")
+    # one decode step alone, on a fresh ring
+    cache = engine.new_cache()
+    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((BATCH,), dtype=torch.int32, device="cuda")
+    ops.reset_counts()
+    engine._serve_step(engine.params, tok, cache, pos)
+    torch.cuda.synchronize()
+    step_gemms = ops.counts()["sa_matmul"]["launches"]
+    del cache
+    if step_gemms != per_step:
+        problems.append(f"a decode step launched {step_gemms} SA GEMMs, "
+                        f"want {per_step}")
+    rec = {"layers": L, "params_b": sum(
+        t.numel() for t in M.tree_leaves(engine.params)) / 1e9,
+        "launches": launches, "want": expect,
+        "decode_step_gemms": step_gemms,
+        "stream_digest": summary["stream_digest"],
+        "peak_gib": peak / 2 ** 30}
+    rec.update({key: summary.get(key) for key in (
+        "decode_itl_p50_ms", "ttft_mean_s", "prefill_s", "decode_s",
+        "decode_tok_s", "wall_s")})
+    log(f"[moe granite] {L} layers, {rec['params_b']:.3f} B parameters; "
+        f"digest {rec['stream_digest']}; launches {launches} (want "
+        f"{expect}); a decode step {step_gemms} SA GEMMs (want {per_step});"
+        f" itl_p50 {rec['decode_itl_p50_ms']} ms, ttft_mean "
+        f"{rec['ttft_mean_s']} s, prefill_s {rec['prefill_s']}, "
+        f"decode_tok_s {rec['decode_tok_s']}; peak {rec['peak_gib']:.2f} "
+        f"GiB")
+    ops.reset_counts()
+    r_sum, r_sched, r_eng = drv.main(GRANITE_ARGS + ["--kv", "ring"],
+                                     return_state=True, params=engine.params)
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    r_got = {name: counts[name]["launches"] for name in expect}
+    r_want = want(r_eng, r_sched)
+    rec["ring"] = {"stream_digest": r_sum["stream_digest"],
+                   "launches": r_got,
+                   "decode_itl_p50_ms": r_sum.get("decode_itl_p50_ms")}
+    log(f"[moe granite] --kv ring: digest {r_sum['stream_digest']} (paged "
+        f"{summary['stream_digest']}), launches {r_got} (want {r_want}), "
+        f"itl_p50 {r_sum.get('decode_itl_p50_ms')} ms")
+    if r_sum["stream_digest"] != summary["stream_digest"]:
+        problems.append("the ring serve's digest differs from the paged "
+                        "serve's")
+    if r_got != r_want or any(c["plain_calls"] for c in counts.values()):
+        problems.append(f"ring: launches {r_got} (want {r_want}), counts "
+                        f"{counts}")
+    if (r_sum["nonfinite_logits"] or len(r_sched.finished) != n_req
+            or any(r.n_generated != MAX_NEW for r in r_sched.finished)):
+        problems.append("ring serve incomplete or non-finite")
+    del r_eng, r_sched
+    prompt = min(sched.finished, key=lambda r: r.rid).prompt
+    diff, bound = backend_logits(torch, engine, prompt)
+    rec["backend_logits"] = {"max_abs_diff": diff, "bound": bound}
+    rec["profile"] = profile_serve(torch, engine, "moe granite profile",
+                                   requests=False)
+    if rec["profile"]:
+        # the step's device time against the unprofiled serve's ITL
+        rec["profile"]["itl_idle_share"] = 1 - (
+            rec["profile"]["step_device_ms"] / rec["decode_itl_p50_ms"])
+    del engine, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("moe granite failed: " + "; ".join(problems))
+    return rec
+
+
+def moe_llama4(torch):
+    """llama4-maverick at full width cut to one superblock
+    (`dataclasses.replace(get_config(...), num_layers=2)`: its dense layer
+    at d_ff 16384 and its MoE layer of 128 experts and the shared expert),
+    LLAMA4_REQUESTS requests of 32-64 tokens through the engine under
+    `cuda`: every request complete, finite logits, no page leaked, no
+    plain version, every GEMM on `mma`, prefill on `mma`, each kernel's
+    launches as the dispatch implies; the peak memory; then one prompt's
+    prefill logits under `cuda` and `torch`."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    cfg = dataclasses.replace(get_config(LLAMA4), num_layers=LLAMA4_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in M.tree_leaves(params))
+    eng = ServeEngine(cfg, params, BATCH, max(LLAMA4_PROMPTS)
+                      + LLAMA4_MAX_NEW, eos_id=-1, sync_every=8,
+                      page_size=PAGE)
+    sched = SlotScheduler(BATCH, eos_id=-1)
+    drv.build_requests(sched, cfg, LLAMA4_REQUESTS, 0.0,
+                       list(LLAMA4_PROMPTS), LLAMA4_MAX_NEW, 0)
+    ops.reset_counts()
+    t0 = time.monotonic()
+    got = eng.serve(sched, greedy=True)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts, routes = ops.counts(), ops.route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    steps = _decode_steps(eng, sched)
+    want = {"sa_matmul": sum(moe.gemm_calls(cfg, len(r.prompt))
+                             for r in sched.finished)
+            + steps * moe.gemm_calls(cfg),
+            "paged_decode": L * steps,
+            "prefill_attention": L * LLAMA4_REQUESTS}
+    launches = {name: counts[name]["launches"] for name in want}
+    problems = _path_checks(got, sched, counts, routes, LLAMA4_REQUESTS,
+                            LLAMA4_MAX_NEW)
+    if launches != want:
+        problems.append(f"launches {launches}, the dispatch implies {want}")
+    rec = {"layers": L, "params_b": n_params / 1e9, "init_s": init_s,
+           "launches": launches, "want": want,
+           "stream_digest": drv.stream_digest(sched.finished),
+           "itl_p50_ms": drv.itl_p50_ms(sched.finished),
+           "peak_gib": peak / 2 ** 30, "wall_s": wall}
+    rec.update({key: got.get(key) for key in (
+        "prefill_s", "decode_s", "decode_tok_s")})
+    log(f"[moe llama4] {L} layers (one superblock), {rec['params_b']:.3f} B "
+        f"parameters drawn in {init_s:.1f} s; {LLAMA4_REQUESTS} requests: "
+        f"digest {rec['stream_digest']}, launches {launches} (want {want}), "
+        f"itl_p50 {rec['itl_p50_ms']} ms, prefill_s {rec['prefill_s']}, "
+        f"decode_s {rec['decode_s']}, decode_tok_s {rec['decode_tok_s']}, "
+        f"wall {wall:.2f} s; peak memory {rec['peak_gib']:.2f} GiB")
+    prompt = min(sched.finished, key=lambda r: r.rid).prompt
+    diff, bound = backend_logits(torch, eng, prompt)
+    rec["backend_logits"] = {"max_abs_diff": diff, "bound": bound}
+    del eng, sched, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("moe llama4 failed: " + "; ".join(problems))
+    return rec
+
+
+def moe_train(torch):
+    """granite at full width cut to MOE_TRAIN_LAYERS layers, batch 4 x 512
+    (the capacity dispatch: C = 128), under `cuda`. Step 0 with free
+    routing under `cuda` and `torch`: the loss within TRAIN_LOSS_REL, and
+    the gradients' spread read out; then `train_step0` with the routing
+    held (`_RoutingReplay`): the loss and every leaf within their bounds,
+    the planted faults outside; then MOE_TRAIN_STEPS AdamW steps through
+    `launch.train.run`: finite losses, grad norms and aux losses (loss −
+    nll = 0.01·(load_balance + router_z) > 0), every forward GEMM on
+    `mma`, every backward GEMM on `split3`, no plain version; peak memory
+    and time per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy, use_policy
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as drv
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_grad_fn
+
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    cfg = dataclasses.replace(get_config(GRANITE),
+                              num_layers=MOE_TRAIN_LAYERS)
+    params = M.init_params(cfg, seed=1, device="cuda", dtype=torch.float32)
+    for p in M.tree_leaves(params):
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1).batch_at(0).items()}
+    free = {}
+    for backend in ("torch", "cuda"):
+        with use_policy(PrecisionPolicy(backend=backend)):
+            loss, nll, grads = make_grad_fn(cfg)(params, batch)
+        free[backend] = (float(loss), float(nll), {
+            k: v.clone() for k, v in _grad_leaves(torch, grads).items()})
+    rel = _leaf_rel(torch, free["cuda"][2], free["torch"][2])
+    l_rel = abs(free["cuda"][0] - free["torch"][0]) / abs(free["torch"][0])
+    worst = max(rel, key=rel.get)
+    log(f"[moe train step0, free routing] loss torch {free['torch'][0]:.6f}"
+        f" cuda {free['cuda'][0]:.6f} (rel {l_rel:.3e}, bound "
+        f"{TRAIN_LOSS_REL:.3e}); nll {free['torch'][1]:.6f}, "
+        f"{free['cuda'][1]:.6f}; grad leaves max rel {rel[worst]:.3e} at "
+        f"{worst}, median {sorted(rel.values())[len(rel) // 2]:.3e}")
+    problems = []
+    if not l_rel <= TRAIN_LOSS_REL:
+        problems.append("free-routing loss beyond its bound")
+    del params, grads, free, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _RoutingReplay() as routing:
+        step0 = train_step0(torch, cfg, accum=1,
+                            jac_leaf="/layers/0/moe/wg", routing=routing)
+    step0.update(free_loss_rel=l_rel, free_grad_rel_max=rel[worst],
+                 free_grad_rel_worst=worst)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    args = drv.parse_args(["--arch", GRANITE, "--batch", str(TRAIN_BATCH),
+                           "--seq", str(TRAIN_SEQ), "--accum", "1",
+                           "--steps", str(MOE_TRAIN_STEPS), "--seed", "0"])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.monotonic()
+    state, hist = drv.run(cfg, args)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.counts()
+    routes = ops.route_counts()["sa_matmul"]
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in M.tree_leaves(state.params))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    aux = [(h["loss"] - h["nll"]) / 0.01 for h in hist]
+    steps = [h["wall_s"] for h in hist]
+    later = steps[1:] or steps
+    rec = {"layers": MOE_TRAIN_LAYERS, "params_b": n_params / 1e9,
+           "step_s": steps, "mean_step_s": sum(later) / len(later),
+           "losses": [h["loss"] for h in hist], "aux": aux,
+           "peak_gib": peak / 2 ** 30, "counts": counts, "routes": routes,
+           "step0": step0, "wall_s": wall}
+    log(f"[moe train] granite full width, {MOE_TRAIN_LAYERS} layers, "
+        f"{rec['params_b']:.3f} B parameters, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} (C = 128): {len(hist)} steps in {wall:.2f} s, step "
+        f"wall s {steps}, mean of steps 2-{len(steps)} "
+        f"{rec['mean_step_s']:.4f} s; losses {rec['losses']}; aux "
+        f"(load_balance + router_z) {aux}; grad norms "
+        f"{[h['grad_norm'] for h in hist]}; counts {counts}; routes "
+        f"{routes}; peak memory {rec['peak_gib']:.2f} GiB")
+    if len(hist) != MOE_TRAIN_STEPS:
+        problems.append(f"{len(hist)} of {MOE_TRAIN_STEPS} steps")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               and math.isfinite(a) and a > 0 for h, a in zip(hist, aux)):
+        problems.append("non-finite loss, grad norm or aux loss")
+    for key in ("sa_matmul", "sa_matmul_bwd"):
+        if counts[key]["launches"] <= 0 or counts[key]["plain_calls"]:
+            problems.append(f"{key}: {counts[key]}")
+    if (routes["mma"] != counts["sa_matmul"]["launches"]
+            or routes["split3"] != counts["sa_matmul_bwd"]["launches"]
+            or routes["simt"] or routes["partial"]):
+        problems.append(f"SA GEMM routes {routes}: the forward must run "
+                        f"mma only and the backward split3 only")
+    if problems:
+        raise AssertionError("moe train failed: " + "; ".join(problems))
+    return rec
+
+
+def moe(torch):
+    """The MoE family on the card: granite served at full width and depth,
+    llama4 served at full width cut to one superblock, granite trained
+    cut to MOE_TRAIN_LAYERS layers. One model on the card at a time."""
+    out = {}
+    for name, fn in (("granite", moe_granite), ("llama4", moe_llama4),
+                     ("train", moe_train)):
+        t = time.monotonic()
+        out[name] = fn(torch)
+        log(f"[moe] {name} {time.monotonic() - t:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: train
 # ---------------------------------------------------------------------------
 
@@ -3520,13 +4102,16 @@ def _leaf_rel(torch, got, want):
             for p in want}
 
 
-def train_step0(torch, cfg):
-    """Step 0's loss and gradients (accum 2) under the `cuda` and `torch`
-    GEMM backends on the same fp32 masters and batch: the loss within
-    TRAIN_LOSS_REL, every leaf within TRAIN_GRAD_REL of its norm. Two
-    planted faults must land outside: the kernel's dW of `wo` transposed
-    (a square weight, so the shapes still fit), and a backward through
-    the kernel that drops the activation jacobian (du = dy)."""
+def train_step0(torch, cfg, accum=TRAIN_ACCUM, jac_leaf="/layers/0/ffn/wg",
+                routing=None):
+    """Step 0's loss and gradients (`accum` microbatches) under the `cuda`
+    and `torch` GEMM backends on the same fp32 masters and batch: the loss
+    within TRAIN_LOSS_REL, every leaf within TRAIN_GRAD_REL of its norm.
+    Two planted faults must land outside: the kernel's dW of `wo`
+    transposed (a square weight, so the shapes still fit), and a backward
+    through the kernel that drops the activation jacobian (du = dy) at
+    `jac_leaf`. `routing` (a `_RoutingReplay`, MoE stacks) records the
+    `torch` run's routing decisions and replays them in the later runs."""
     from repro_torch.core.precision import PrecisionPolicy, use_policy
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import sa_matmul as mm
@@ -3538,9 +4123,11 @@ def train_step0(torch, cfg):
         p.requires_grad_(True)
     batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
         cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1).batch_at(0).items()}
-    grad_fn = make_grad_fn(cfg, TRAIN_ACCUM)
+    grad_fn = make_grad_fn(cfg, accum)
     out = {}
     for backend in ("torch", "cuda"):
+        if routing is not None:
+            routing.start("record" if backend == "torch" else "replay")
         with use_policy(PrecisionPolicy(backend=backend)):
             t0 = time.monotonic()
             loss, _, grads = grad_fn(params, batch)
@@ -3577,12 +4164,14 @@ def train_step0(torch, cfg):
             return backward(ctx, dy)
 
     mm.SAMatmulFn = NoJacobian
+    if routing is not None:
+        routing.start("replay")
     try:
         with use_policy(PrecisionPolicy(backend="cuda")):
             _, _, grads = grad_fn(params, batch)
     finally:
         mm.SAMatmulFn = NoJacobian.__base__
-    wg = "/layers/0/ffn/wg"
+    wg = jac_leaf
     r_j = _leaf_rel(torch, _grad_leaves(torch, grads), g_t)[wg]
     log(f"[train step0] planted faults: transposed dW of {wo} rel "
         f"{r_t:.3e}, dropped activation jacobian at {wg} rel {r_j:.3e} "
@@ -3810,6 +4399,13 @@ def main(argv=None):
                                        w_rings)
     kernels[0]["readings"]["tied_lm_head"] = tied_head_times(torch, timer)
     phases["kernels_families"] = time.monotonic() - t
+    # the MoE family's routers and expert GEMMs
+    t = time.monotonic()
+    moe_gemms, w_moe, e_moe = check_moe_gemms(torch, timer)
+    kernels[0]["readings"]["moe_gemms"] = moe_gemms
+    kernels[0]["err_over_bound"] = max(kernels[0]["err_over_bound"], w_moe)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], e_moe)
+    phases["kernels_moe"] = time.monotonic() - t
     t = time.monotonic()
     kernels[2]["readings"]["batch_fold_ms"] = check_fold(torch, timer)
     # what the fp32 routes' one order of sums (F2b) costs
@@ -3899,6 +4495,28 @@ def main(argv=None):
                 "prefill_s", "decode_tok_s", "max_abs_logit")}
             for arch, r in fam.items()}))
         phases["families"] = time.monotonic() - t
+
+        t = time.monotonic()
+        moe_out = moe(torch)
+        for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                         (3, "prefill_attention")):
+            kernels[k_]["readings"]["moe_launches"] = {
+                run: moe_out[run]["launches"][name]
+                for run in ("granite", "llama4")} | {
+                "granite_ring": moe_out["granite"]["ring"]["launches"][name]}
+        kernels[1]["readings"]["moe_train"] = {
+            key: moe_out["train"][key] for key in ("counts", "routes")}
+        log("[moe] " + json.dumps({
+            "granite": {key: moe_out["granite"][key] for key in (
+                "stream_digest", "decode_itl_p50_ms", "ttft_mean_s",
+                "prefill_s", "decode_tok_s", "decode_step_gemms",
+                "peak_gib", "backend_logits", "profile")},
+            "llama4": {key: moe_out["llama4"][key] for key in (
+                "stream_digest", "itl_p50_ms", "prefill_s",
+                "decode_tok_s", "peak_gib", "init_s", "backend_logits")},
+            "train": {key: moe_out["train"][key] for key in (
+                "mean_step_s", "losses", "aux", "peak_gib")}}))
+        phases["moe"] = time.monotonic() - t
 
         t = time.monotonic()
         summary, got, engine, sched = serve_emulate(torch)

@@ -2,7 +2,8 @@
 is checked and timed on, and the k16 probe's steps.
 
 The shapes are qwen2.5-14b's at full width: a decoder layer's seven
-projections and the lm_head (its vocabulary padded to 153600). The same
+projections and the lm_head (its vocabulary padded to 153600); and the
+MoE family's routers and experts. The same
 cases feed chip_smoke.py, tools/chip_ab.py and the GPU tests.
 """
 from __future__ import annotations
@@ -20,6 +21,23 @@ LAYER_GEMMS = [("wq", D_MODEL, 40 * 128, True, "none"),
                ("wu", D_MODEL, D_FF, False, "none"),
                ("wd", D_FF, D_MODEL, False, "none")]
 LM_HEAD = ("lm_head", D_MODEL, VOCAB, False, "none")
+
+# the MoE family's GEMMs at full width: (name, K, N) of the routers
+# (granite-moe-3b's 40 experts, llama4-maverick's 128, and a narrow N = 8,
+# each narrower than any other served N), and (name, K, N, activation) of
+# one expert's three GEMMs
+ROUTER_GEMMS = [("granite router", 1536, 40), ("llama4 router", 5120, 128),
+                ("router N=8", 1536, 8)]
+EXPERT_GEMMS = {
+    "granite": [("wg", 1536, 512, "silu"), ("wu", 1536, 512, "none"),
+                ("wd", 512, 1536, "none")],
+    "llama4": [("wg", 5120, 8192, "silu"), ("wu", 5120, 8192, "none"),
+               ("wd", 8192, 5120, "none")]}
+# llama4's dense layers' FFN (d_ff_dense 16384; its shared expert has the
+# experts' shapes)
+DENSE_FFN_GEMMS = {
+    "llama4": [("wg", 5120, 16384, "silu"), ("wu", 5120, 16384, "none"),
+               ("wd", 16384, 5120, "none")]}
 
 
 def emu_operands(g: torch.Generator, m: int, k: int, n: int, fmt: str):

@@ -5,7 +5,10 @@ through the continuous-batching engine.
         --batch 4 --requests 8 --prompt-lens 32,64,128 --max-new 16 --rate 0
 
 `--arch` takes the dense decoders qwen2.5-14b, phi3-medium-14b, gemma2-9b
-and gemma3-12b, at full size or `--reduced`. Runs on CUDA unless `--device
+and gemma3-12b and the MoE decoders granite-moe-3b-a800m and
+llama4-maverick-400b-a17b (whose 800 GB do not fit one card: at full width
+it is served cut in depth through the engine, as chip_smoke does), at full
+size or `--reduced`. A MoE layer serves through the dropless dispatch. Runs on CUDA unless `--device
 cpu` is given (with `--reduced` that is the CPU smoke run). The GEMM backend is REPRO_GEMM_BACKEND (`torch`, the
 plain version, `cuda`, the hand-written SA GEMM kernel, or `emulate`, the
 paper's bit-exact skewed datapath through the fp_emu kernel). The summary

@@ -32,7 +32,7 @@ class ArchConfig:
     shared_expert: bool = False
     d_ff_dense: int = 0             # FFN width of non-MoE layers (0 => d_ff)
     # force the exact dropless dispatch on *every* path (training included);
-    # the serving path is dropless regardless via optflags.moe_dropless_serve.
+    # every served forward is dropless regardless (model._sublayer).
     # Used by parity references: capacity-drop is not decode-exact.
     moe_dropless: bool = False
 

@@ -1,6 +1,8 @@
-"""Model assembly, main-path subset: the dense decoder-only LM
-(qwen2.5, phi3, gemma2, gemma3: untied or tied embeddings, global and
-local-window attention, softcaps, SwiGLU or GeGLU).
+"""Model assembly, main-path subset: the decoder-only LM, dense (qwen2.5,
+phi3, gemma2, gemma3: untied or tied embeddings, global and local-window
+attention, softcaps, SwiGLU or GeGLU) and MoE (granite, llama4: routed
+experts on every `moe_every`-th layer, an optional shared expert;
+models/moe.py).
 
 Parameters are a plain nested dict with the JAX package's key names and
 its stacked superblock axis: `params["layers"]` is a tuple of
@@ -26,15 +28,17 @@ from repro_torch.core.precision import sa_dot
 from .config import ArchConfig
 from . import layers as L
 from .layers import KVCache, PagedKVCache
+from .moe import moe_ffn
 
 
 def check_supported(cfg: ArchConfig):
-    """The port's model code covers the dense decoder-only family, with
-    tied or untied embeddings."""
-    if cfg.family != "dense" or cfg.norm != "rmsnorm" or cfg.is_encdec:
+    """The port's model code covers the dense and MoE decoder-only
+    families, with tied or untied embeddings."""
+    if (cfg.family not in ("dense", "moe") or cfg.norm != "rmsnorm"
+            or cfg.is_encdec):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} / norm "
-                         f"{cfg.norm!r} is not ported yet (dense rmsnorm "
-                         f"decoders only)")
+                         f"{cfg.norm!r} is not ported yet (dense and MoE "
+                         f"rmsnorm decoders only)")
 
 
 def tree_map(fn, tree):
@@ -80,14 +84,23 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     n_super = cfg.num_layers // period
     assert n_super * period == cfg.num_layers, (cfg.num_layers, period)
     d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    ff = cfg.d_ff_dense or cfg.d_ff
+    E, F = cfg.num_experts, cfg.d_ff
+    ff = cfg.d_ff_dense or cfg.d_ff      # the dense layers' FFN width
 
     def normal(shape, std):
-        # drawn in fp32 one superblock slice at a time, then stored: the
-        # fp32 temporary never exceeds one layer's matrix
+        # drawn in fp32 one matrix at a time (a superblock slice, or one
+        # expert of an expert stack), then stored: the fp32 temporary
+        # never exceeds one matrix (llama4's whole (128, 5120, 8192) slice
+        # would be 21.5 GB)
         out = torch.empty(shape, dtype=mat_dtype, device=dev)
         for i in range(shape[0]):
-            out[i] = torch.randn(shape[1:], generator=gen, device=dev) * std
+            if len(shape) == 4:
+                for e in range(shape[1]):
+                    out[i, e] = torch.randn(shape[2:], generator=gen,
+                                            device=dev) * std
+            else:
+                out[i] = torch.randn(shape[1:], generator=gen,
+                                     device=dev) * std
         return out
 
     def dense(fan_in, shape):
@@ -99,7 +112,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dev)
 
-    def layer():
+    def layer(j):
         attn = {"wq": dense(d, (d, H * hd)), "wk": dense(d, (d, KVH * hd)),
                 "wv": dense(d, (d, KVH * hd)),
                 "wo": dense(H * hd, (H * hd, d))}
@@ -107,16 +120,27 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
             attn |= {"bq": zeros(n_super, H * hd),
                      "bk": zeros(n_super, KVH * hd),
                      "bv": zeros(n_super, KVH * hd)}
-        return {"norm1": {"w": ones(n_super, d)},
-                "norm2": {"w": ones(n_super, d)},
-                "attn": attn,
-                "ffn": {"wg": dense(d, (d, ff)), "wu": dense(d, (d, ff)),
-                        "wd": dense(ff, (ff, d))}}
+        p = {"norm1": {"w": ones(n_super, d)},
+             "norm2": {"w": ones(n_super, d)},
+             "attn": attn}
+        if cfg.layer_kind(j)["moe"]:
+            # the experts are d_ff wide; the JAX package's `_init_moe`
+            p["moe"] = {"router": dense(d, (d, E)),
+                        "wg": dense(d, (E, d, F)), "wu": dense(d, (E, d, F)),
+                        "wd": dense(F, (E, F, d))}
+            if cfg.shared_expert:
+                p["moe"] |= {"shared_wg": dense(d, (d, F)),
+                             "shared_wu": dense(d, (d, F)),
+                             "shared_wd": dense(F, (F, d))}
+        else:
+            p["ffn"] = {"wg": dense(d, (d, ff)), "wu": dense(d, (d, ff)),
+                        "wd": dense(ff, (ff, d))}
+        return p
 
     params: dict[str, Any] = {
         "embed": normal((cfg.padded_vocab, d), 0.02),
         "final_norm": {"w": ones(d)},
-        "layers": tuple(layer() for _ in range(period)),
+        "layers": tuple(layer(j) for j in range(period)),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
@@ -176,7 +200,8 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
 
 def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
               decode_multi: bool = False, page_size: int = 16):
-    """One transformer layer. Returns (x, cache)."""
+    """One transformer layer. Returns (x, cache, aux): aux is a MoE
+    layer's aux losses where no cache is threaded, else None."""
     h = L.norm_apply(x, p["norm1"], cfg.norm, cfg.norm_eps)
     mix, kv = L.attention_block(h, p["attn"], cfg, meta, positions,
                                 cache=cache["kv"] if cache else None,
@@ -185,8 +210,19 @@ def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
                                 page_size=page_size)
     x = x + mix.to(x.dtype)
     h = L.norm_apply(x, p["norm2"], cfg.norm, cfg.norm_eps)
-    f = L.ffn_swiglu(h, p["ffn"], cfg.act)
-    return x + f.to(x.dtype), ({"kv": kv} if cache is not None else None)
+    aux = None
+    if meta["moe"]:
+        # every served path threads a cache, so it routes through the
+        # dropless dispatch: capacity drops tokens, a training-time
+        # approximation that would also let a padded or foreign row take
+        # a real token's slot
+        dropless = cfg.moe_dropless or cache is not None
+        f, aux = moe_ffn(h, p["moe"], cfg, cfg.act, dropless=dropless,
+                         with_aux=cache is None)
+    else:
+        f = L.ffn_swiglu(h, p["ffn"], cfg.act)
+    return (x + f.to(x.dtype), ({"kv": kv} if cache is not None else None),
+            aux)
 
 
 def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
@@ -208,7 +244,9 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     superblocks of the stacked params and cache, so a config of fewer
     layers over the full tree is the early-exit draft
     (train/step.py `make_draft_step`).
-    `aux` is None (the MoE aux losses come with the MoE families).
+    `aux` is the JAX package's dict: a MoE stack's `load_balance` and
+    `router_z` summed over its layers (zero for a dense stack and
+    wherever a cache is threaded, as the JAX forward leaves them).
 
     With `cfg.remat`, no cache and autograd recording, each superblock
     runs under `torch.utils.checkpoint` (the JAX package's `jax.checkpoint`
@@ -235,7 +273,11 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     n_super = cfg.num_layers // period
     cast = optflags.enabled("bf16_params_in_layers")
 
+    def add_aux(total, a):
+        return a if total is None else total + a
+
     def superblock(x, sb):
+        aux = None      # (2,): load_balance, router_z of its MoE layers
         for j in range(period):
             # cast matrices to bf16 at superblock entry (a no-op for the
             # bf16 storage on CUDA; 1-D norms and biases stay fp32)
@@ -245,17 +287,25 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
                 else w[sb], params["layers"][j])
             c_j = (None if cache is None
                    else tree_map(lambda t: t[sb], cache[j]))
-            x, _ = _sublayer(x, p_j, cfg, cfg.layer_kind(j), positions, c_j,
-                             prefix_len, decode_multi, page_size)
-        return x
+            x, _, a = _sublayer(x, p_j, cfg, cfg.layer_kind(j), positions,
+                                c_j, prefix_len, decode_multi, page_size)
+            if a is not None:
+                aux = add_aux(aux, torch.stack([a["load_balance"],
+                                                a["router_z"]]))
+        return x, aux
 
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    aux = None
     for sb in range(n_super):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(superblock, x, sb,
-                                                  use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(superblock, x, sb,
+                                                     use_reentrant=False)
         else:
-            x = superblock(x, sb)
+            x, a = superblock(x, sb)
+        if a is not None:
+            aux = add_aux(aux, a)
+    if aux is None:
+        aux = torch.zeros((2,), dtype=torch.float32, device=dev)
     x = L.norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     if last_only:
         if last_index is not None:
@@ -275,17 +325,18 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     if cfg.padded_vocab != cfg.vocab_size:   # mask padding logits
         valid = torch.arange(cfg.padded_vocab, device=dev) < cfg.vocab_size
         logits = torch.where(valid, logits, float("-inf"))
-    return logits, cache, None
+    return logits, cache, {"load_balance": aux[0], "router_z": aux[1]}
 
 
-def lm_loss(params, cfg: ArchConfig, tokens, labels):
+def lm_loss(params, cfg: ArchConfig, tokens, labels,
+            aux_weight: float = 0.01):
     """Next-token cross-entropy (fp32 logsumexp minus the gold logit,
-    mean) → (loss, nll). The JAX package adds `aux_weight` times the MoE
-    aux losses, which are zero for the dense family, so loss == nll. A
+    mean) plus `aux_weight` times the MoE aux losses → (loss, nll). The
+    aux losses are zero for the dense family, so there loss == nll. A
     tied embedding's gradient is the lookup's scatter plus the head's
     dWᵀ, summed by autograd through the transposed view."""
-    logits, _, _ = forward(params, cfg, tokens)
+    logits, _, aux = forward(params, cfg, tokens)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = torch.mean(lse - gold)
-    return nll, nll
+    return nll + aux_weight * (aux["load_balance"] + aux["router_z"]), nll

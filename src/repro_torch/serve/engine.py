@@ -54,6 +54,12 @@
   turns off prefix caching, disagg and bucketing, and spec where
   `spec_k + 1 > window`, as in the JAX engine.
 
+* **MoE** (granite, llama4): every forward the engine runs threads a
+  cache, so its MoE layers take the dropless dispatch
+  (`model._sublayer`, models/moe.py): no token is dropped,
+  and a padded or foreign row never takes a real token's expert slot.
+  The engine gates nothing on it, as the JAX engine does not.
+
 Where the JAX engine donates the cache buffer to a jitted update, this
 engine updates the cache tensors in place (`_scatter_impl`, `_bind_impl`,
 `_insert_impl`, `_clear_slot_impl`, the decode step's KV write) and says

@@ -20,9 +20,11 @@ from .optimizer import AdamW
 from .train_state import TrainState
 
 
-def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1):
+def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1,
+                 aux_weight: float = 0.01):
     """grad_fn(params, batch) → (loss, nll, grads), the gradient half of
-    `make_train_step`. `params` leaves require grad; their `.grad` is
+    `make_train_step`; the loss is `M.lm_loss`'s, nll plus `aux_weight`
+    times the MoE aux losses. `params` leaves require grad; their `.grad` is
     cleared, filled and returned as `grads` (the same tree of tensors,
     owned by the caller until the next call).
 
@@ -38,7 +40,7 @@ def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1):
             p.grad = None
         if accum_steps == 1:
             loss, nll = M.lm_loss(params, cfg, batch["tokens"],
-                                  batch["labels"])
+                                  batch["labels"], aux_weight)
             loss.backward()
             loss, nll = loss.detach(), nll.detach()
         else:
@@ -48,7 +50,7 @@ def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1):
             loss = nll = torch.zeros((), device=batch["tokens"].device)
             for i in range(accum_steps):
                 l, n = M.lm_loss(params, cfg, split(batch["tokens"], i),
-                                 split(batch["labels"], i))
+                                 split(batch["labels"], i), aux_weight)
                 # .backward() adds into .grad (fp32): g1 + g2 + ...
                 l.backward()
                 loss, nll = loss + l.detach(), nll + n.detach()
@@ -61,12 +63,13 @@ def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1):
     return grad_fn
 
 
-def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1):
+def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
+                    aux_weight: float = 0.01):
     """Returns train_step(state, batch) → (state, metrics), metrics the
     0-d tensors loss, nll, grad_norm and lr. The parameters and optimizer
     moments are updated in place (see train/optimizer.py); the gradients
     are released after the update."""
-    grad_fn = make_grad_fn(cfg, accum_steps)
+    grad_fn = make_grad_fn(cfg, accum_steps, aux_weight)
 
     def train_step(state: TrainState, batch):
         loss, nll, grads = grad_fn(state.params, batch)

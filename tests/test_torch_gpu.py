@@ -1223,3 +1223,159 @@ def test_serve_local_window_family_paged_equals_ring(cuda, arch,
         del eng
     assert streams["paged"] == streams["ring"]
     assert all(len(t) == 6 for t in streams["paged"].values())
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: the routers' narrow GEMMs, the expert dispatch, serving
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [4, 20, 128])
+@pytest.mark.parametrize("name,k,n", GC.ROUTER_GEMMS)
+def test_router_gemm_matches_plain(cuda, name, k, n, m):
+    """The routers' N = 40 and 128 (and a narrow 8), narrower than any
+    other served GEMM, so a 64-column tile is partial: on `mma`, within
+    the bound, and a row's bits the same alone as inside the batch (F2)."""
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=g, device=cuda) * k ** -0.5).to(
+        torch.bfloat16)
+    ops.reset_counts()
+    got = ops.sa_matmul(a, w)
+    assert ops.route_counts()["sa_matmul"]["mma"] == 1
+    ref = MM.sa_matmul_ref(a, w)
+    assert bool(((got - ref).abs() <= MM.error_bound(a, w, y=ref)).all())
+    one = ops.sa_matmul(a[m - 1:], w)
+    assert torch.equal(one.view(torch.int32), got[m - 1:].view(torch.int32))
+
+
+def _moe_layer(cuda, experts=8, k=2):
+    """granite's expert shapes (D 1536, F 512) with `experts` experts of
+    top-`k`, bf16 weights drawn from a seed."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              num_experts=experts, experts_per_token=k)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    d, f = cfg.d_model, cfg.d_ff
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device=cuda)
+                * shape[-2] ** -0.5).to(torch.bfloat16)
+
+    p = {"router": w(d, experts), "wg": w(experts, d, f),
+         "wu": w(experts, d, f), "wd": w(experts, f, d)}
+    x = torch.randn((2, 24, d), generator=g, device=cuda).to(torch.bfloat16)
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("dropless", [True, False])
+def test_moe_ffn_cuda_matches_torch_and_repeats_its_bits(cuda, dropless):
+    """The MoE FFN (8 experts, top-2; capacity 8 of 24 tokens drops some)
+    under `cuda`: every GEMM an SA GEMM launch (router, 3 an expert), the
+    same bits on a second run (the capacity combine adds each expert's
+    rows once), and within 2⁻⁶·max of the `torch` backend (bf16 output:
+    a last-bit fp32 difference may flip one bf16 rounding of h or y)."""
+    from repro_torch.core.precision import PrecisionPolicy as P
+    from repro_torch.core.precision import use_policy
+    from repro_torch.models import moe as MOE
+
+    cfg, p, x = _moe_layer(cuda)
+    runs = []
+    for _ in range(2):
+        ops.reset_counts()
+        with use_policy(P(backend="cuda")):
+            runs.append(MOE.moe_ffn(x, p, cfg, dropless=dropless)[0])
+        c = ops.counts()["sa_matmul"]
+        assert c["launches"] == 1 + 3 * cfg.num_experts, c
+        assert c["plain_calls"] == 0
+    assert torch.equal(runs[0].view(torch.int16), runs[1].view(torch.int16))
+    with use_policy(P(backend="torch")):
+        ref = MOE.moe_ffn(x, p, cfg, dropless=dropless)[0].float()
+    got = runs[0].float()
+    assert float((got - ref).abs().max()) <= 2.0 ** -6 * float(
+        ref.abs().max())
+
+
+def _moe_steps(eng, sched) -> int:
+    """The decode steps a plain serve ran: the warm-up chunk and one chunk
+    a scheduler observation, each `sync_every` steps."""
+    return eng.sync_every * (1 + len(sched.depth_samples))
+
+
+def test_serve_moe_full_width_two_layers_paged_equals_ring(cuda,
+                                                           monkeypatch):
+    """granite at full width cut to two layers (40 experts, top-8): the
+    paged and ring serves give one token stream, each launching the SA
+    GEMM exactly as the dropless dispatch implies (`moe.gemm_calls` a
+    prefill and a decode step), paged decode L a step, prefill L a
+    request, on `mma`, and no plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              num_layers=2)
+    params = M.init_params(cfg, seed=1, device=cuda)
+    streams = {}
+    for layout in ("paged", "ring"):
+        eng = ServeEngine(cfg, params, batch=2, cache_len=64, eos_id=-1,
+                          sync_every=4, kv_layout=layout)
+        sched = SlotScheduler(2, eos_id=-1)
+        _submit(sched, cfg, (45, 20, 50), ("premium",) * 3, max_new=6)
+        ops.reset_counts()
+        summary = eng.serve(sched)
+        c = ops.counts()
+        steps = _moe_steps(eng, sched)
+        assert c["sa_matmul"]["launches"] == sum(
+            moe.gemm_calls(cfg, len(r.prompt)) for r in sched.finished
+        ) + steps * moe.gemm_calls(cfg), (layout, c)
+        assert c["paged_decode"]["launches"] == 2 * steps
+        assert c["prefill_attention"]["launches"] == 2 * 3
+        assert all(v["plain_calls"] == 0 for v in c.values()), (layout, c)
+        routes = ops.route_counts()
+        assert routes["sa_matmul"]["mma"] == c["sa_matmul"]["launches"]
+        assert routes["prefill_attention"]["simt"] == 0
+        assert summary["nonfinite_logits"] == 0
+        if layout == "paged":
+            assert summary["pages_leaked"] == 0
+        else:
+            assert "pages_leaked" not in summary
+        streams[layout] = {r.rid: r.tokens for r in sched.finished}
+        del eng
+    assert streams["paged"] == streams["ring"]
+    assert all(len(t) == 6 for t in streams["paged"].values())
+
+
+@pytest.mark.parametrize("arch,experts", [("granite-moe-3b-a800m", None),
+                                          ("llama4-maverick-400b-a17b", 4)])
+def test_moe_decode_step_launches_the_dispatch_s_gemms(cuda, monkeypatch,
+                                                       arch, experts):
+    """One decode step of a full-width stack cut to two layers (llama4:
+    its dense layer at d_ff 16384 and a MoE layer cut to 4 experts, with
+    the shared expert) launches exactly `moe.gemm_calls(cfg)` SA GEMMs:
+    4 + 1 + 3E (+ 3 shared) a MoE layer, 7 a dense one, and the lm_head;
+    all on `mma`'s decode tile."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import ServeEngine
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=2,
+                              num_experts=experts or full.num_experts)
+    params = M.init_params(cfg, seed=0, device=cuda)
+    eng = ServeEngine(cfg, params, batch=4, cache_len=32, eos_id=-1)
+    cache = eng.new_cache()
+    ops.reset_counts()
+    logits, _ = eng._serve_step(
+        params, torch.zeros((4, 1), dtype=torch.int32, device=cuda), cache,
+        torch.zeros((4,), dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    want = moe.gemm_calls(cfg)
+    assert ops.counts()["sa_matmul"]["launches"] == want
+    assert ops.tile_counts()["decode"] == want
+    assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
