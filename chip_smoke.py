@@ -47,7 +47,14 @@ Phases, in order; any failure exits nonzero:
              (the router and 120 expert GEMMs) and one llama4 expert,
              each GEMM within its bound, then timed; the expert shapes
              and llama4's dense FFN at M = 20, 128 and 512 (a training
-             expert's B·C) within their bound.
+             expert's B·C) within their bound. The SSM family's
+             projections (mamba2's in_proj 2560 x 10576 and out_proj,
+             hymba's in_proj 1600 x 6482 stored with rows of 6488, and
+             out_proj) on the decode, small and large tiles within their
+             bound with no operand copied, timed at M = 4 beside their
+             byte bound and bf16 torch.matmul; hymba's prefill (hd 64,
+             g = 5, T = 2600, window 2048) and its decode over B = 4
+             rings of 2048 rows, each within its bound, beside SDPA.
 4. fold    — ROADMAP F2 and F2b at full width: every row of the path's
              GEMMs (7 layer shapes and the lm_head), bf16 x bf16 and fp32
              x fp32, bit-identical at M = 1, 4, 7, 8, 20 and 1024, and a
@@ -143,6 +150,27 @@ Phases, in order; any failure exits nonzero:
              dispatch): step 0 under `cuda` and `torch` with the routing
              held (and the free-routing spread read out), the train
              phase's gates, finite aux losses.
+   ssm     — mamba2-2.7b (64 layers, d 2560, 80 SSM heads of 64, state
+             128, chunk 256) and hymba-1.5b (32 layers, d 1600, 25 heads
+             over 5 KV heads at hd 64, window 2048, global layers 0 and
+             16, state 16) at full width and depth through the driver
+             under `cuda`, asked for `--kv paged` and `--kv ring` on the
+             same weights: one digest, the serve phase's checks, each
+             kernel's launches exactly as the forwards imply
+             (`model.gemm_calls`: 129 and 289 SA GEMMs a decode step;
+             paged decode 0 and 32 a step, prefill attention 0 and 32 a
+             prefill), one decode step alone with no operand copied
+             (hymba's ragged in_proj read in place), the layout the
+             engine took (mamba2 on rows whatever was asked) and its
+             prefix cache, disagg, bucketing and spec off, prefill then
+             decode equal to a full forward on the card within
+             2^-3·max|logit| (the backends check's bound; a decode from
+             a zeroed state at least twice as far), prefill logits
+             under `cuda` and `torch`,
+             peak memory; mamba2's decode chunk under torch.profiler and
+             `generate()` on 4 prompts; mamba2 cut to 4 layers trained 3
+             AdamW steps at batch 4 x 512 (step 0 under `cuda` and
+             `torch`, the train phase's route gates).
 7. emulate — qwen2.5-14b served under `REPRO_GEMM_BACKEND=emulate`:
              every GEMM through the fp_emu kernel (the SA GEMM never
              launches), attention through the two attention kernels, no
@@ -1477,6 +1505,12 @@ HD256_RINGS = [("gemma3_ring1024", 1024, 1024, 0.0),
                ("gemma2_ring4096", 4096, 4096, 50.0)]
 # the tied heads: (d_model, padded vocabulary), W = embed^T read in place
 TIED_HEADS = {"gemma2-9b": (3584, 256000), "gemma3-12b": (3840, 262144)}
+# hymba-1.5b's attention: 25 heads over 5 KV heads at hd 64, a 2048-token
+# window on its local layers; its longest prompt (2600 tokens) passes it,
+# and its decode walks B = 4 local rings of 2048 rows
+HYMBA_ATTN = (25, 5, 64)
+HD64_PREFILL = [("hymba_T2600_w2048", 2600, {"window": 2048})]
+HD64_RINGS = [("hymba_ring2048", 2048, 2048, 0.0)]
 
 
 def _window_mask(torch, T, S, window, q_offset=0):
@@ -1487,24 +1521,25 @@ def _window_mask(torch, T, S, window, q_offset=0):
     return ok & (qp - kp < window) if window else ok
 
 
-def check_prefill_hd256(torch, timer):
-    """Prefill at gemma's shapes (hd 256): the `mma` route (fp32 and bf16
-    K/V) and the `simt` route against the plain version within
-    `error_bound`, a causal mask one key too wide outside it, bf16 K/V
-    bit-identical to fp32 K/V; times beside the bound and SDPA with the
-    same mask (without the softcap, which SDPA lacks: gemma2's yardstick
-    then computes another function)."""
+def check_prefill_hd256(torch, timer, attn=FAMILY_ATTN,
+                        shapes=HD256_PREFILL, tag="hd256", seed=256):
+    """Prefill at gemma's shapes (hd 256; or `attn` and `shapes`, hymba's
+    hd 64): the `mma` route (fp32 and bf16 K/V) and the `simt` route
+    against the plain version within `error_bound`, a causal mask one key
+    too wide outside it, bf16 K/V bit-identical to fp32 K/V; times beside
+    the bound and SDPA with the same mask (without the softcap, which SDPA
+    lacks: gemma2's yardstick then computes another function)."""
     from repro_torch.core.precision import PrecisionPolicy
     from repro_torch.kernels import ops
     from repro_torch.kernels import sa_attention as fa
 
-    H, KVH, hd = FAMILY_ATTN
-    g = torch.Generator(device="cuda").manual_seed(256)
+    H, KVH, hd = attn
+    g = torch.Generator(device="cuda").manual_seed(seed)
     pols = {"bf16": PrecisionPolicy(),
             "fp32": PrecisionPolicy(input_format="fp32")}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     readings, worst, max_err = {}, 0.0, 0.0
-    for name, T, kw in HD256_PREFILL:
+    for name, T, kw in shapes:
         q = torch.randn((1, H, T, hd), generator=g, device="cuda").transpose(
             1, 2)
         k = torch.randn((1, T, KVH, hd), generator=g, device="cuda")
@@ -1526,7 +1561,7 @@ def check_prefill_hd256(torch, timer):
                                    kk.dtype == torch.bfloat16)
             got = ops.route_counts()["prefill_attention"]
             if got[route["route"]] != 1 or sum(got.values()) != 1:
-                raise AssertionError(f"prefill hd256 {name} {case}: routes "
+                raise AssertionError(f"prefill {tag} {name} {case}: routes "
                                      f"{got}, plan {route['route']}")
             ref = fa.flash_attention_ref(q, kk, vv, policy=pol, **kw)
             bnd = fa.error_bound(q, kk, vv, policy=pol, **kw)
@@ -1539,10 +1574,10 @@ def check_prefill_hd256(torch, timer):
             r_bad = float(((y - bad).abs() / bnd).max())
             del bad, bnd
             if not torch.isfinite(y).all() or not ratio <= 1.0:
-                raise AssertionError(f"prefill hd256 {name} {case}: "
+                raise AssertionError(f"prefill {tag} {name} {case}: "
                                      f"err/bound {ratio:.3f}")
             if not r_bad > 1.0:
-                raise AssertionError(f"prefill hd256 {name} {case}: the "
+                raise AssertionError(f"prefill {tag} {name} {case}: the "
                                      f"bound does not reject a mask one "
                                      f"key too wide ({r_bad:.3f})")
             worst, max_err = max(worst, ratio), max(max_err,
@@ -1551,7 +1586,7 @@ def check_prefill_hd256(torch, timer):
                 y32 = ops.sa_attention(q, k, v, policy=pol, **kw)
                 if not torch.equal(y.view(torch.int32),
                                    y32.view(torch.int32)):
-                    raise AssertionError(f"prefill hd256 {name}: bf16 K/V "
+                    raise AssertionError(f"prefill {tag} {name}: bf16 K/V "
                                          f"differ from fp32 K/V")
                 del y32
             del y, err
@@ -1566,7 +1601,7 @@ def check_prefill_hd256(torch, timer):
                         "bound_by": by, "err_over_bound": ratio,
                         "planted_err_over_bound": r_bad,
                         "smem": route["smem"]}
-            log(f"prefill attention hd256 {name} {case}: route "
+            log(f"prefill attention {tag} {name} {case}: route "
                 f"{route['route']} grid {route['grid']} smem "
                 f"{route['smem']} B; err/bound {ratio:.4f}, planted mask "
                 f"{r_bad:.1f}; kernel {t_k:.4f} ms wall (device {d_k}), "
@@ -1587,7 +1622,7 @@ def check_prefill_hd256(torch, timer):
         rd.update(plain_ms=plain, library_ms=t_l, library_device_ms=d_l,
                   library_note=("SDPA without the softcap" if kw.get("cap")
                                 else "SDPA, the same mask"))
-        log(f"prefill attention hd256 {name}: plain {plain:.4f} ms, SDPA "
+        log(f"prefill attention {tag} {name}: plain {plain:.4f} ms, SDPA "
             f"{t_l:.4f} ms (device {d_l}; {rd['library_note']})")
         readings[name] = rd
         del q, k, v, kb, vb, qh, kh, vh
@@ -1595,23 +1630,25 @@ def check_prefill_hd256(torch, timer):
     return readings, worst, max_err
 
 
-def check_decode_rings(torch, timer):
-    """Paged decode at gemma's shapes (g = 2, hd 256) over B = 4 local rings
-    of 1024 and 4096 rows presented by `dense_pool_view` (`min_page=0`),
-    the rings full and wrapped: within `error_bound` of the plain version,
-    the same bits as the kernel over the rows copied into a pool; times
-    beside the byte bound and SDPA on the dense rows. Logs the split plan
-    at these rings and at gemma2's global slot (4352 tokens)."""
+def check_decode_rings(torch, timer, attn=FAMILY_ATTN, rings=HD256_RINGS,
+                       plan_slots=(1024, 4096, 4352), seed=4):
+    """Paged decode at gemma's shapes (g = 2, hd 256; or `attn` and
+    `rings`, hymba's g = 5, hd 64) over B = 4 local rings of 1024 and 4096
+    rows presented by `dense_pool_view` (`min_page=0`), the rings full and
+    wrapped: within `error_bound` of the plain version, the same bits as
+    the kernel over the rows copied into a pool; times beside the byte
+    bound and SDPA on the dense rows. Logs the split plan at these rings
+    and at gemma2's global slot (4352 tokens; `plan_slots`)."""
     from repro_torch.core.precision import PrecisionPolicy
     from repro_torch.kernels import ops
     from repro_torch.kernels import sa_decode_attention as da
 
-    H, KVH, hd = FAMILY_ATTN
+    H, KVH, hd = attn
     grp, B, psz = H // KVH, BATCH, PAGE
-    g = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     readings, worst = {}, 0.0
-    for name, rows, window, cap in HD256_RINGS:
+    for name, rows, window, cap in rings:
         q = torch.randn((B, 1, H, hd), generator=g, device="cuda")
         k = torch.randn((B, rows, KVH, hd), generator=g, device="cuda")
         v = torch.randn((B, rows, KVH, hd), generator=g, device="cuda")
@@ -1663,7 +1700,7 @@ def check_decode_rings(torch, timer):
             f"{100 * b_ms / t_k:.1f} % of it")
         del q, k, v, kp, vp, ppv, pool, ref, bnd, kh, vh
         torch.cuda.empty_cache()
-    for P in (1024 // psz, 4096 // psz, 4352 // psz):
+    for P in (n // psz for n in plan_slots):
         plan = da.split_plan(grp, hd, psz, P)
         log(f"paged decode split plan g={grp} hd={hd}: {P * psz}-token slot "
             f"-> {plan.n_split} blocks of {plan.keys_per_cta} keys, "
@@ -4083,6 +4120,420 @@ def moe(torch):
 
 
 # ---------------------------------------------------------------------------
+# ssm: mamba2-2.7b and hymba-1.5b at full width and depth, mamba2 training
+# cut in depth
+# ---------------------------------------------------------------------------
+
+MAMBA2, HYMBA = "mamba2-2.7b", "hymba-1.5b"
+# mamba2's stream: prompts of 200-1100 tokens, 1 to 5 SSD chunks of 256
+# (each with a zero-padded tail), on 4 slots
+MAMBA2_ARGS = ["--arch", MAMBA2, "--batch", "4", "--requests", "8",
+               "--prompt-lens", "200,500,800,1100", "--max-new", "16",
+               "--rate", "0", "--seed", "0"]
+# hymba's: 6 prompts of 1500-2600 tokens, past its 2048-token window, so
+# the local rings wrap in prefill and in decode
+HYMBA_ARGS = ["--arch", HYMBA, "--batch", "4", "--requests", "6",
+              "--prompt-lens", "1500,1900,2300,2600", "--max-new", "16",
+              "--rate", "0", "--seed", "0"]
+SSM_RUNS = {MAMBA2: (MAMBA2_ARGS, 8), HYMBA: (HYMBA_ARGS, 6)}
+# mamba2 trained cut to 4 of 64 layers at batch 4 x 512 (2 SSD chunks)
+SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS = 4, 3
+# prefill then decode against a full forward on the card: the last
+# SSM_DECODE_STEPS tokens of a prompt decoded (tests/test_decode.py's
+# contract). The residual stream is bf16, so a last-bit fp32 difference
+# between the chunked scan and the recurrent step flips bf16 roundings
+# that 64 random layers carry to the logits, as a change of GEMM backend
+# does (`backend_logits`): the same bound as there, 2^-3 of the largest
+# |logit|, the argmax equal wherever the top-2 gap exceeds twice the
+# difference. A decode from a lost state (zeroed after the prefill) must
+# land at least SSM_LOST_STATE times as far from the full forward: the
+# check sees a state that did not survive. (hymba's attention half keeps
+# such a decode inside 2^-3: its state moves the logits by less.)
+SSM_DECODE_STEPS, SSM_DECODE_REL, SSM_LOST_STATE = 3, 2.0 ** -3, 2.0
+
+
+def check_ssm_gemms(torch, timer):
+    """The SSM family's SA GEMMs (`gemm_cases.SSM_GEMMS`), each weight
+    stored as the model stores it (`model.matrix_storage`: hymba's in_proj
+    a (1600, 6482) view of rows of 6488): at M = 4, 128 and 1024 on the
+    decode, small and large tiles, each within `error_bound` of the plain
+    version with no operand copied (the ragged output's rows are 6482 fp32
+    words apart); at M = 4 on the plan's tile, its time, wall and device,
+    beside the byte bound, the plain version and bf16 torch.matmul.
+    Returns (readings, max err/bound, max abs err)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import SSM_GEMMS
+    from repro_torch.models.model import matrix_storage
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out, worst, max_err = {}, 0.0, 0.0
+    for name, k, n in SSM_GEMMS:
+        w = matrix_storage((k, n), torch.bfloat16, "cuda")
+        w.copy_(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5)
+        rec = {"K": k, "N": n, "ld": w.stride(0), "err_over_bound": {}}
+        for m, tile in ((BATCH, "decode"), (128, "small"), (TRAIN_M, "large")):
+            a = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            ops.reset_counts()
+            y, _ = mm._launch(a, w, None, None, "none", "exact", False,
+                              tile=tile)
+            ref = mm.sa_matmul_ref(a, w)
+            torch.cuda.synchronize()
+            err = (y - ref).abs()
+            ratio = float((err / mm.error_bound(a, w, y=ref)).max())
+            copies = ops.operand_copies()
+            if (copies or not bool(torch.isfinite(y).all())
+                    or not ratio <= 1.0):
+                raise AssertionError(f"ssm gemm {name} M={m} {tile} tile: "
+                                     f"err/bound {ratio}, operand copies "
+                                     f"{copies}")
+            worst, max_err = max(worst, ratio), max(max_err,
+                                                    float(err.max()))
+            rec["err_over_bound"][tile] = ratio
+            del y, ref, err
+            if m != BATCH:
+                continue
+            plan = mm.mma_plan(m, n, "mma")
+            rec.update(
+                tile=plan["tile"], grid=plan["grid"],
+                ms=timer.wall(lambda: ops.sa_matmul(a, w)),
+                device_ms=timer.device(lambda: ops.sa_matmul(a, w)),
+                plain_ms=timer.wall(lambda: mm.sa_matmul_ref(a, w), reps=5),
+                library_ms=timer.wall(lambda: torch.matmul(a, w)))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                2 * (m * k + k * n) + 4 * m * n, 2.0 * m * n * k, PEAK_BF16)
+            del a
+        out[name] = rec
+        log(f"[ssm gemm] {name} (K {k}, N {n}, W rows {rec['ld']} apart): "
+            f"err/bound " + ", ".join(f"{t} {r:.4f}" for t, r in
+                                      rec["err_over_bound"].items())
+            + f", no operand copied; M={BATCH} on the {rec['tile']} tile, "
+            f"grid {rec['grid']}: kernel {rec['ms']:.4f} ms wall (device "
+            f"{rec['device_ms']}), plain {rec['plain_ms']:.4f}, bf16 "
+            f"torch.matmul {rec['library_ms']:.4f}, bound "
+            f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}): "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of it")
+        del w
+    torch.cuda.empty_cache()
+    return out, worst, max_err
+
+
+def _prefill_then_decode(torch, engine, prompt):
+    """On the card, with the kernels: a full forward over `prompt` (the
+    prefill kernel and the chunked scan over every token, on a fresh
+    batch-1 ring) against a prefill of all but its last SSM_DECODE_STEPS
+    tokens followed by that many decode steps (the recurrent step, paged
+    decode over the rings), and the same decode steps from the prefill's
+    cache with its SSM states zeroed (a planted fault: the state lost at
+    the splice). Returns {max_abs_diff, max_abs_logit, bound,
+    planted_abs_diff, argmax_ok}."""
+    from repro_torch.models import model as M
+
+    cfg, n = engine.cfg, SSM_DECODE_STEPS
+    toks = torch.tensor(prompt, dtype=torch.int32, device="cuda")[None]
+    T = toks.shape[1]
+    full, _, _ = M.forward(engine.params, cfg, toks,
+                           cache=engine.new_cache(batch=1),
+                           page_size=engine.page_size)
+    want = full[0, T - n - 1:, :cfg.vocab_size].float()
+    del full
+    cache = engine.new_cache(batch=1)
+    logits, cache = engine._prefill_for(0)(engine.params, toks[:, :T - n],
+                                           cache)
+    first = logits[0, -1, :cfg.vocab_size].float()
+    lost = M.tree_map(torch.clone, cache)
+    for c in lost:
+        c["ssm"][0].zero_()
+
+    def decode(cache):
+        rows = [first]
+        for t in range(T - n, T):
+            logits, cache = engine._serve_step(
+                engine.params, toks[:, t:t + 1], cache,
+                torch.tensor([t], dtype=torch.int32, device="cuda"))
+            rows.append(logits[0, -1, :cfg.vocab_size].float())
+        return torch.stack(rows)
+
+    got, bad = decode(cache), decode(lost)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("non-finite logits in the prefill/decode check")
+    diff = (got - want).abs().amax(-1)                   # a row each
+    top2 = torch.topk(want, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    argmax_ok = bool((got.argmax(-1) == want.argmax(-1))[decided].all())
+    scale = float(want.abs().max())
+    return {"max_abs_diff": float(diff.max()), "max_abs_logit": scale,
+            "bound": SSM_DECODE_REL * scale,
+            "planted_abs_diff": float((bad - want).abs().max()),
+            "argmax_ok": argmax_ok,
+            "rel_rows": (diff / scale).tolist()}
+
+
+def _ssm_checks(summary, sched, counts, routes, n_req):
+    # a serve on rows (mamba2's ring layout) has no pages to leak
+    return _path_checks(dict(summary, pages_leaked=summary.get(
+        "pages_leaked", 0)), sched, counts, routes, n_req, MAX_NEW)
+
+
+def ssm_serve(torch, arch):
+    """One family at full width and depth through `launch/serve.main`
+    under `cuda`, asked for `--kv paged` and then `--kv ring` on the same
+    weights: every request complete, finite logits, no page leaked, no
+    plain version, every GEMM and prefill on `mma`, one digest; each
+    kernel's launches exactly as the forwards imply (`model.gemm_calls`
+    SA GEMMs a forward: 129 for mamba2, 289 for hymba; paged decode and
+    prefill attention once a layer with attention a decode step and a
+    prefill: 0 for mamba2, 32 for hymba); the layout the engine took
+    (mamba2: rows, whatever was asked) and its prefix cache, disagg,
+    bucketing and spec gates off; one decode step alone: its launches and
+    no operand copied (hymba's ragged in_proj read in place); prefill then
+    decode against a full forward; prefill logits under `cuda` and
+    `torch`; peak memory. Returns (record, engine, scheduler)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+    from repro_torch.models import model as M
+
+    args, n_req = SSM_RUNS[arch]
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.monotonic()
+    summary, sched, engine = drv.main(args + ["--kv", "paged"],
+                                      return_state=True)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts, routes = ops.counts(), ops.route_counts()
+    copies = ops.operand_copies()
+    cfg = engine.cfg
+    L = cfg.num_layers
+    attn_layers = 0 if cfg.family == "ssm" else L
+    per_step = M.gemm_calls(cfg)
+    names = ("sa_matmul", "paged_decode", "prefill_attention")
+
+    def want(eng, sch):
+        steps = _decode_steps(eng, sch)
+        return {"sa_matmul": sum(M.gemm_calls(cfg, len(r.prompt))
+                                 for r in sch.finished) + steps * per_step,
+                "paged_decode": attn_layers * steps,
+                "prefill_attention": attn_layers * n_req}
+
+    problems = _ssm_checks(summary, sched, counts, routes, n_req)
+    launches = {name: counts[name]["launches"] for name in names}
+    expect = want(engine, sched)
+    if launches != expect:
+        problems.append(f"launches {launches}, the forwards imply {expect}")
+    if copies:
+        problems.append(f"the SA GEMM copied {copies} operands")
+    layout = "ring" if cfg.family == "ssm" else "paged"
+    gates = {g: bool(getattr(engine, g)()) for g in (
+        "prefix_caching_on", "disagg_on", "bucketing_on",
+        "spec_decoding_on")}
+    if (engine.kv_layout != layout or summary.get("kv_layout") != layout
+            or any(gates.values()) or "prefix_hits" in summary):
+        problems.append(f"layout {engine.kv_layout} (want {layout}), "
+                        f"gates {gates}")
+    # one decode step alone, on a fresh ring
+    cache = engine.new_cache()
+    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((BATCH,), dtype=torch.int32, device="cuda")
+    ops.reset_counts()
+    engine._serve_step(engine.params, tok, cache, pos)
+    torch.cuda.synchronize()
+    c = ops.counts()
+    step = {"sa_matmul": c["sa_matmul"]["launches"],
+            "paged_decode": c["paged_decode"]["launches"],
+            "operand_copies": ops.operand_copies()}
+    del cache
+    step_want = {"sa_matmul": per_step, "paged_decode": attn_layers,
+                 "operand_copies": 0}
+    if step != step_want:
+        problems.append(f"a decode step: {step}, want {step_want}")
+    rec = {"layers": L, "params_b": sum(
+        t.numel() for t in M.tree_leaves(engine.params)) / 1e9,
+        "kv_layout": engine.kv_layout, "gates": gates,
+        "launches": launches, "want": expect, "decode_step": step,
+        "stream_digest": summary["stream_digest"],
+        "peak_gib": peak / 2 ** 30, "wall_s": wall}
+    rec.update({key: summary.get(key) for key in (
+        "decode_itl_p50_ms", "ttft_mean_s", "prefill_s", "decode_s",
+        "decode_tok_s")})
+    log(f"[ssm {arch}] {L} layers, {rec['params_b']:.3f} B parameters; "
+        f"layout {engine.kv_layout} (asked paged), gates {gates}; digest "
+        f"{rec['stream_digest']}; launches {launches} (want {expect}); a "
+        f"decode step {step}; itl_p50 {rec['decode_itl_p50_ms']} ms, "
+        f"ttft_mean {rec['ttft_mean_s']} s, prefill_s {rec['prefill_s']}, "
+        f"decode_tok_s {rec['decode_tok_s']}; wall {wall:.2f} s (init + "
+        f"serve); peak {rec['peak_gib']:.2f} GiB")
+    ops.reset_counts()
+    r_sum, r_sched, r_eng = drv.main(args + ["--kv", "ring"],
+                                     return_state=True, params=engine.params)
+    torch.cuda.synchronize()
+    counts, routes = ops.counts(), ops.route_counts()
+    r_got = {name: counts[name]["launches"] for name in names}
+    r_want = want(r_eng, r_sched)
+    rec["ring"] = {"stream_digest": r_sum["stream_digest"],
+                   "launches": r_got, "kv_layout": r_eng.kv_layout,
+                   "decode_itl_p50_ms": r_sum.get("decode_itl_p50_ms")}
+    log(f"[ssm {arch}] --kv ring: digest {r_sum['stream_digest']} (paged "
+        f"{summary['stream_digest']}), layout {r_eng.kv_layout}, launches "
+        f"{r_got} (want {r_want}), itl_p50 "
+        f"{r_sum.get('decode_itl_p50_ms')} ms")
+    if r_sum["stream_digest"] != summary["stream_digest"]:
+        problems.append("the ring serve's digest differs from the paged "
+                        "serve's")
+    if r_got != r_want or r_eng.kv_layout != "ring":
+        problems.append(f"ring: launches {r_got} (want {r_want}), layout "
+                        f"{r_eng.kv_layout}")
+    problems += [f"ring: {p}" for p in _ssm_checks(r_sum, r_sched, counts,
+                                                   routes, n_req)]
+    del r_eng, r_sched
+    # the request whose prompt spans several SSD chunks (mamba2: 500
+    # tokens; hymba: 2300, past the window)
+    prompt = sorted(sched.finished, key=lambda r: r.rid)[
+        2 if cfg.hybrid else 1].prompt
+    pd = _prefill_then_decode(torch, engine, prompt)
+    rec["prefill_decode"] = dict(pd, tokens=len(prompt))
+    log(f"[ssm {arch}] prefill {len(prompt) - SSM_DECODE_STEPS} tokens then "
+        f"{SSM_DECODE_STEPS} decode steps against a full forward over "
+        f"{len(prompt)}: max|diff| {pd['max_abs_diff']:.4e} (a row over "
+        f"max|logit|: {[round(r, 5) for r in pd['rel_rows']]}), max|logit| "
+        f"{pd['max_abs_logit']:.4e}, bound {pd['bound']:.4e}, argmax where "
+        f"decided {pd['argmax_ok']}; from a zeroed state "
+        f"{pd['planted_abs_diff']:.4e}")
+    if not (pd["max_abs_diff"] <= pd["bound"] and pd["argmax_ok"]):
+        problems.append("prefill then decode differs from the full forward")
+    if not pd["planted_abs_diff"] > SSM_LOST_STATE * pd["max_abs_diff"]:
+        problems.append("a decode from a zeroed state is not told apart "
+                        "from the real decode")
+    first = min(sched.finished, key=lambda r: r.rid).prompt
+    diff, bound = backend_logits(torch, engine, first)
+    rec["backend_logits"] = {"max_abs_diff": diff, "bound": bound}
+    if problems:
+        raise AssertionError(f"ssm {arch} failed: " + "; ".join(problems))
+    return rec, engine, sched
+
+
+def ssm_generate(torch, engine):
+    """`generate()` on 4 prompts of 300 tokens (the chunked scan at B = 4,
+    then lock-step decode): complete, finite."""
+    g = torch.Generator().manual_seed(9)
+    prompts = torch.randint(0, engine.cfg.vocab_size, (BATCH, 300),
+                            generator=g)
+    t0 = time.monotonic()
+    toks = engine.generate(prompts, MAX_NEW)
+    wall = time.monotonic() - t0
+    st = engine.last_stats
+    log(f"[ssm generate] 4 prompts of 300 tokens, {MAX_NEW} new: shape "
+        f"{tuple(toks.shape)}, prefill_s {st['prefill_s']:.4f}, decode_s "
+        f"{st['decode_s']:.4f}, nonfinite {st['nonfinite_logits']}, wall "
+        f"{wall:.2f} s")
+    if tuple(toks.shape) != (BATCH, MAX_NEW) or st["nonfinite_logits"]:
+        raise AssertionError("ssm generate() incomplete or non-finite")
+    return {"prefill_s": st["prefill_s"], "decode_s": st["decode_s"]}
+
+
+def ssm_train(torch):
+    """mamba2 at full width cut to SSM_TRAIN_LAYERS layers, batch 4 x 512
+    (two SSD chunks), under `cuda`: step 0 under `cuda` and `torch` on the
+    same masters and batch (`train_step0`: the loss and every leaf within
+    their bounds, a planted dW fault outside them), then SSM_TRAIN_STEPS
+    AdamW steps through `launch.train.run`: finite losses and grad norms,
+    every forward GEMM on `mma` and every backward GEMM on `split3`, no
+    plain version; time a step and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as drv
+    from repro_torch.models import model as M
+
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    cfg = dataclasses.replace(get_config(MAMBA2), num_layers=SSM_TRAIN_LAYERS)
+    step0 = train_step0(torch, cfg, accum=1,
+                        fault_leaf="/layers/0/ssm/out_proj", jac_leaf=None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = drv.parse_args(["--arch", MAMBA2, "--batch", str(TRAIN_BATCH),
+                           "--seq", str(TRAIN_SEQ), "--accum", "1",
+                           "--steps", str(SSM_TRAIN_STEPS), "--seed", "0"])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.monotonic()
+    state, hist = drv.run(cfg, args)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.counts()
+    routes = ops.route_counts()["sa_matmul"]
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in M.tree_leaves(state.params))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = [h["wall_s"] for h in hist]
+    later = steps[1:] or steps
+    rec = {"layers": SSM_TRAIN_LAYERS, "params_b": n_params / 1e9,
+           "step_s": steps, "mean_step_s": sum(later) / len(later),
+           "losses": [h["loss"] for h in hist],
+           "peak_gib": peak / 2 ** 30, "counts": counts, "routes": routes,
+           "step0": step0, "wall_s": wall}
+    log(f"[ssm train] mamba2 full width, {SSM_TRAIN_LAYERS} layers, "
+        f"{rec['params_b']:.3f} B parameters, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: {len(hist)} steps in {wall:.2f} s, step wall s "
+        f"{steps}, mean of steps 2-{len(steps)} {rec['mean_step_s']:.4f} s; "
+        f"losses {rec['losses']}; grad norms "
+        f"{[h['grad_norm'] for h in hist]}; counts {counts}; routes "
+        f"{routes}; peak memory {rec['peak_gib']:.2f} GiB")
+    problems = []
+    if len(hist) != SSM_TRAIN_STEPS:
+        problems.append(f"{len(hist)} of {SSM_TRAIN_STEPS} steps")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        problems.append("non-finite loss or grad norm")
+    for key in ("sa_matmul", "sa_matmul_bwd"):
+        if counts[key]["launches"] <= 0 or counts[key]["plain_calls"]:
+            problems.append(f"{key}: {counts[key]}")
+    if (routes["mma"] != counts["sa_matmul"]["launches"]
+            or routes["split3"] != counts["sa_matmul_bwd"]["launches"]
+            or routes["simt"] or routes["partial"]):
+        problems.append(f"SA GEMM routes {routes}: the forward must run "
+                        f"mma only and the backward split3 only")
+    if problems:
+        raise AssertionError("ssm train failed: " + "; ".join(problems))
+    return rec
+
+
+def ssm(torch):
+    """The SSM and hybrid families on the card: mamba2 served at full
+    width and depth (with its profiled decode chunk and `generate()`),
+    hymba served at full width and depth, mamba2 trained cut to
+    SSM_TRAIN_LAYERS layers. One model on the card at a time."""
+    out = {}
+    t = time.monotonic()
+    out[MAMBA2], engine, sched = ssm_serve(torch, MAMBA2)
+    prof = profile_serve(torch, engine, "ssm mamba2 profile", requests=False)
+    if prof:
+        prof["itl_idle_share"] = 1 - (prof["step_device_ms"]
+                                      / out[MAMBA2]["decode_itl_p50_ms"])
+    out[MAMBA2]["profile"] = prof
+    out[MAMBA2]["generate"] = ssm_generate(torch, engine)
+    del engine, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ssm] {MAMBA2} {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
+    out[HYMBA], engine, sched = ssm_serve(torch, HYMBA)
+    del engine, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ssm] {HYMBA} {time.monotonic() - t:.1f} s")
+    t = time.monotonic()
+    out["train"] = ssm_train(torch)
+    log(f"[ssm] train {time.monotonic() - t:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: train
 # ---------------------------------------------------------------------------
 
@@ -4103,15 +4554,17 @@ def _leaf_rel(torch, got, want):
 
 
 def train_step0(torch, cfg, accum=TRAIN_ACCUM, jac_leaf="/layers/0/ffn/wg",
-                routing=None):
+                routing=None, fault_leaf="/layers/0/attn/wo"):
     """Step 0's loss and gradients (`accum` microbatches) under the `cuda`
     and `torch` GEMM backends on the same fp32 masters and batch: the loss
     within TRAIN_LOSS_REL, every leaf within TRAIN_GRAD_REL of its norm.
-    Two planted faults must land outside: the kernel's dW of `wo`
-    transposed (a square weight, so the shapes still fit), and a backward
-    through the kernel that drops the activation jacobian (du = dy) at
-    `jac_leaf`. `routing` (a `_RoutingReplay`, MoE stacks) records the
-    `torch` run's routing decisions and replays them in the later runs."""
+    Two planted faults must land outside: the kernel's dW of `fault_leaf`
+    transposed (`wo`: a square weight, so the shapes still fit; a
+    non-square one has its rows reversed instead), and a backward through
+    the kernel that drops the activation jacobian (du = dy) at `jac_leaf`
+    (None: a stack whose GEMMs fuse no activation, mamba2's, skips it).
+    `routing` (a `_RoutingReplay`, MoE stacks) records the `torch` run's
+    routing decisions and replays them in the later runs."""
     from repro_torch.core.precision import PrecisionPolicy, use_policy
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import sa_matmul as mm
@@ -4149,9 +4602,11 @@ def train_step0(torch, cfg, accum=TRAIN_ACCUM, jac_leaf="/layers/0/ffn/wg",
         problems.append("loss beyond its bound")
     if not rel[worst] <= TRAIN_GRAD_REL:
         problems.append(f"leaf {worst} beyond its bound")
-    # planted fault 1: the transposed dW of a square weight
-    wo = "/layers/0/attn/wo"
-    bad = g_c[wo].transpose(-1, -2)
+    # planted fault 1: the transposed dW of a square weight (rows reversed
+    # for another)
+    wo = fault_leaf
+    square = g_c[wo].shape[-1] == g_c[wo].shape[-2]
+    bad = g_c[wo].transpose(-1, -2) if square else g_c[wo].flip(-2)
     r_t = _leaf_rel(torch, {wo: bad}, {wo: g_t[wo]})[wo]
     # planted fault 2: the kernel's backward without the activation
     # jacobian (every FFN gate's du = dy)
@@ -4163,20 +4618,23 @@ def train_step0(torch, cfg, accum=TRAIN_ACCUM, jac_leaf="/layers/0/ffn/wg",
             ctx.act = "none"
             return backward(ctx, dy)
 
-    mm.SAMatmulFn = NoJacobian
-    if routing is not None:
-        routing.start("replay")
-    try:
-        with use_policy(PrecisionPolicy(backend="cuda")):
-            _, _, grads = grad_fn(params, batch)
-    finally:
-        mm.SAMatmulFn = NoJacobian.__base__
-    wg = jac_leaf
-    r_j = _leaf_rel(torch, _grad_leaves(torch, grads), g_t)[wg]
-    log(f"[train step0] planted faults: transposed dW of {wo} rel "
-        f"{r_t:.3e}, dropped activation jacobian at {wg} rel {r_j:.3e} "
-        f"(bound {TRAIN_GRAD_REL:.3e})")
-    if not (r_t > TRAIN_GRAD_REL and r_j > TRAIN_GRAD_REL):
+    r_j = None
+    if jac_leaf is not None:
+        mm.SAMatmulFn = NoJacobian
+        if routing is not None:
+            routing.start("replay")
+        try:
+            with use_policy(PrecisionPolicy(backend="cuda")):
+                _, _, grads = grad_fn(params, batch)
+        finally:
+            mm.SAMatmulFn = NoJacobian.__base__
+        r_j = _leaf_rel(torch, _grad_leaves(torch, grads), g_t)[jac_leaf]
+    log(f"[train step0] planted faults: "
+        f"{'transposed' if square else 'row-reversed'} dW of {wo} rel "
+        f"{r_t:.3e}, dropped activation jacobian at "
+        f"{jac_leaf} rel {r_j} (bound {TRAIN_GRAD_REL:.3e})")
+    if not (r_t > TRAIN_GRAD_REL
+            and (r_j is None or r_j > TRAIN_GRAD_REL)):
         problems.append("the gradient bound does not reject a planted fault")
     if problems:
         raise AssertionError("train step 0: " + "; ".join(problems))
@@ -4406,6 +4864,23 @@ def main(argv=None):
     kernels[0]["err_over_bound"] = max(kernels[0]["err_over_bound"], w_moe)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], e_moe)
     phases["kernels_moe"] = time.monotonic() - t
+    # the SSM family's projections (hymba's ragged in_proj on every tile),
+    # hymba's prefill (hd 64, g = 5, window 2048) and its decode rings
+    t = time.monotonic()
+    ssm_gemms, w_ssm, e_ssm = check_ssm_gemms(torch, timer)
+    kernels[0]["readings"]["ssm_gemms"] = ssm_gemms
+    kernels[0]["err_over_bound"] = max(kernels[0]["err_over_bound"], w_ssm)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], e_ssm)
+    hd64, w64, e64 = check_prefill_hd256(torch, timer, HYMBA_ATTN,
+                                         HD64_PREFILL, "hd64", seed=64)
+    kernels[3]["readings"]["hd64"] = hd64
+    kernels[3]["err_over_bound"] = max(kernels[3]["err_over_bound"], w64)
+    kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], e64)
+    rings64, w_r64 = check_decode_rings(torch, timer, HYMBA_ATTN, HD64_RINGS,
+                                        plan_slots=(2048, 2624), seed=64)
+    kernels[2]["readings"]["hd64_rings"] = rings64
+    kernels[2]["err_over_bound"] = max(kernels[2]["err_over_bound"], w_r64)
+    phases["kernels_ssm"] = time.monotonic() - t
     t = time.monotonic()
     kernels[2]["readings"]["batch_fold_ms"] = check_fold(torch, timer)
     # what the fp32 routes' one order of sums (F2b) costs
@@ -4517,6 +4992,31 @@ def main(argv=None):
             "train": {key: moe_out["train"][key] for key in (
                 "mean_step_s", "losses", "aux", "peak_gib")}}))
         phases["moe"] = time.monotonic() - t
+
+        t = time.monotonic()
+        ssm_out = ssm(torch)
+        for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                         (3, "prefill_attention")):
+            kernels[k_]["readings"]["ssm_launches"] = {
+                arch: ssm_out[arch]["launches"][name]
+                for arch in (MAMBA2, HYMBA)} | {
+                f"{arch}_ring": ssm_out[arch]["ring"]["launches"][name]
+                for arch in (MAMBA2, HYMBA)}
+        kernels[1]["readings"]["ssm_train"] = {
+            key: ssm_out["train"][key] for key in ("counts", "routes")}
+        log("[ssm] " + json.dumps({
+            arch: {key: ssm_out[arch][key] for key in (
+                "stream_digest", "kv_layout", "decode_itl_p50_ms",
+                "ttft_mean_s", "prefill_s", "decode_tok_s", "decode_step",
+                "peak_gib", "prefill_decode", "backend_logits")}
+            | ({"profile": ssm_out[arch]["profile"],
+                "generate": ssm_out[arch]["generate"]}
+               if arch == MAMBA2 else {})
+            for arch in (MAMBA2, HYMBA)} | {"train": {
+                key: ssm_out["train"][key] for key in (
+                    "mean_step_s", "step_s", "losses", "peak_gib",
+                    "step0")}}))
+        phases["ssm"] = time.monotonic() - t
 
         t = time.monotonic()
         summary, got, engine, sched = serve_emulate(torch)

@@ -2,8 +2,9 @@
 is checked and timed on, and the k16 probe's steps.
 
 The shapes are qwen2.5-14b's at full width: a decoder layer's seven
-projections and the lm_head (its vocabulary padded to 153600); and the
-MoE family's routers and experts. The same
+projections and the lm_head (its vocabulary padded to 153600); the
+MoE family's routers and experts; and the SSM family's projections. The
+same
 cases feed chip_smoke.py, tools/chip_ab.py and the GPU tests.
 """
 from __future__ import annotations
@@ -38,6 +39,12 @@ EXPERT_GEMMS = {
 DENSE_FFN_GEMMS = {
     "llama4": [("wg", 5120, 16384, "silu"), ("wu", 5120, 16384, "none"),
                ("wd", 16384, 5120, "none")]}
+# (name, K, N) of the Mamba2 mixers' projections: in_proj d → 2·d_inner +
+# 2·state + heads, out_proj d_inner → d. hymba's in_proj has N = 6482, not
+# a multiple of 8: its weight is stored with rows of 6488
+# (`model.matrix_storage`)
+SSM_GEMMS = [("mamba2 in_proj", 2560, 10576), ("mamba2 out_proj", 5120, 2560),
+             ("hymba in_proj", 1600, 6482), ("hymba out_proj", 3200, 1600)]
 
 
 def emu_operands(g: torch.Generator, m: int, k: int, n: int, fmt: str):

@@ -9,7 +9,8 @@ and `PLAIN_CALLS` (calls of its plain version). `counts()` reads them and
 `reset_counts()` sets them to 0, so a run can show which path it took;
 `route_counts()` splits the SA GEMM's launches (forward and backward) and
 the prefill kernel's by route, `tile_counts()` the SA GEMM's tensor-core
-launches by tile, and `mode_counts()` splits the launches of
+launches by tile, `operand_copies()` counts the operands its launches
+copied to a layout the kernel reads, and `mode_counts()` splits the launches of
 the kernels that run the bulk tier's arithmetic by the policy's mode
 (`exact` or `approx`), so a run can show that an approximate decode chunk
 really ran the approximate datapath.
@@ -114,6 +115,13 @@ def tile_counts() -> dict[str, int]:
     return dict(_mm.TILE_LAUNCHES)
 
 
+def operand_copies() -> int:
+    """Operands the SA GEMM's launches copied first (a layout it cannot
+    read in place, or a ragged leading dimension; sa_matmul._operand and
+    _aligned)."""
+    return _mm.OPERAND_COPIES
+
+
 _MODE_MODULES = {"sa_matmul": _mm, "paged_decode": _decode,
                  "prefill_attention": _attn, "fp_emu": _emu}
 
@@ -135,9 +143,11 @@ def reset_counts():
             counters[key] = 0
     _mm.BWD_LAUNCHES = 0
     _mm.BWD_PLAIN_CALLS = 0
+    _mm.OPERAND_COPIES = 0
 
 
 __all__ = ["sa_matmul", "sa_matmul_fp8", "skewed_datapath_matmul",
            "paged_decode_attention", "sa_attention", "quantize_fp8",
            "amax_scale", "fused_decode_supported", "counts", "route_counts",
-           "tile_counts", "mode_counts", "reset_counts"]
+           "tile_counts", "mode_counts", "operand_copies",
+           "reset_counts"]

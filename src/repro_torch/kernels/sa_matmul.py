@@ -88,6 +88,10 @@ MODE_LAUNCHES = {m: 0 for m in MODES}   # the forward launches by mode
 PLAIN_CALLS = 0       # calls of the plain version `sa_matmul_ref`
 BWD_LAUNCHES = 0      # backward GEMM launches (dA and dW: two a backward)
 BWD_PLAIN_CALLS = 0   # backward GEMMs through the plain version
+# operands a launch copied to a layout the kernel reads (`_operand`,
+# `_aligned`): 0 on a path whose weights are stored as the kernel reads
+# them (a ragged matrix as `model.matrix_storage` keeps it)
+OPERAND_COPIES = 0
 # every GEMM launch, forward and backward, by route (`gemm_route`)
 ROUTES = ("partial", "mma", "split3", "simt")
 ROUTE_LAUNCHES = {r: 0 for r in ROUTES}
@@ -301,11 +305,14 @@ def _aligned(st: torch.Tensor, ld: int):
     """A bf16 operand's storage matrix `st` (last dimension contiguous,
     leading dimension ld) and ld, copied to a leading dimension that is a
     multiple of 8 elements where the tensor-core kernel's 16-byte copies
-    need one (ragged shapes only: every shape of the model's path is
-    aligned)."""
+    need one: a ragged shape whose storage is not rounded up
+    (`model.matrix_storage` rounds every ragged weight's rows up, so the
+    served paths copy none)."""
+    global OPERAND_COPIES
     r, c = st.shape
     if ld % 8 == 0 and st.data_ptr() % 16 == 0:
         return st, ld
+    OPERAND_COPIES += 1
     buf = torch.empty((r, -(-c // 8) * 8), dtype=st.dtype, device=st.device)
     buf[:, :c] = st
     return buf[:, :c], buf.shape[1]
@@ -463,6 +470,7 @@ def _launch(a, w, bias, scale, act, mode, save_raw, planes=None,
     the fp32 operand's three bf16 pieces, already split (`split3` only);
     `tile` forces the `mma` route's tile (`mma_plan`; sweeps and tests)."""
     from .build import check, function
+    global OPERAND_COPIES
 
     _check_args(a, w, bias, act, mode)
     if a.ndim != 2 or w.ndim != 2:
@@ -488,8 +496,10 @@ def _launch(a, w, bias, scale, act, mode, save_raw, planes=None,
            if save_raw else None)
     if m == 0 or n == 0:
         return out, raw
+    a0, w0 = a, w
     a, a_kcont, lda = _operand(a)
     w, w_ncont, ldw = _operand(w)
+    OPERAND_COPIES += (a is not a0) + (w is not w0)
     route = gemm_route(m, a.dtype, w.dtype, a_kcont, w_ncont)
     if route in ("mma", "split3"):
         _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,

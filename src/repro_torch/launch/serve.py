@@ -5,11 +5,18 @@ through the continuous-batching engine.
         --batch 4 --requests 8 --prompt-lens 32,64,128 --max-new 16 --rate 0
 
 `--arch` takes the dense decoders qwen2.5-14b, phi3-medium-14b, gemma2-9b
-and gemma3-12b and the MoE decoders granite-moe-3b-a800m and
+and gemma3-12b, the MoE decoders granite-moe-3b-a800m and
 llama4-maverick-400b-a17b (whose 800 GB do not fit one card: at full width
-it is served cut in depth through the engine, as chip_smoke does), at full
-size or `--reduced`. A MoE layer serves through the dropless dispatch. Runs on CUDA unless `--device
-cpu` is given (with `--reduced` that is the CPU smoke run). The GEMM backend is REPRO_GEMM_BACKEND (`torch`, the
+it is served cut in depth through the engine, as chip_smoke does), the
+SSM mamba2-2.7b and the hybrid hymba-1.5b, at full size or `--reduced`.
+A MoE layer serves through the dropless dispatch. mamba2 has no KV, so the
+engine serves it on per-slot rows (its ring layout) whatever `--kv` asks;
+for both SSM families the prefix cache, `--disagg`, `--bucket-prompts` and
+`--spec-k` are off (a recurrent state can neither be shared by prefix nor
+roll back), as in the JAX engine: the `[engine]` line and the summary's
+`kv_layout` say which layout and gates the engine took. Runs on CUDA
+unless `--device cpu` is given (with `--reduced` that is the CPU smoke
+run). The GEMM backend is REPRO_GEMM_BACKEND (`torch`, the
 plain version, `cuda`, the hand-written SA GEMM kernel, or `emulate`, the
 paper's bit-exact skewed datapath through the fp_emu kernel). The summary
 line `[continuous] k=v ...` and its `stream_digest` are the JAX driver's.
@@ -168,7 +175,12 @@ def serve_continuous(args, cfg, params, plens, device):
     build_requests(sched, cfg, args.requests, args.rate, plens,
                    args.max_new, args.seed, tier_mix=args.tier_mix,
                    prefix_mix=args.prefix_mix, prefix_len=args.prefix_len)
+    print(f"[engine] kv_layout={engine.kv_layout} "
+          f"prefix_cache={engine.prefix_caching_on()} "
+          f"disagg={engine.disagg_on()} bucketing={engine.bucketing_on()} "
+          f"spec={engine.spec_decoding_on()}")
     summary = engine.serve(sched, greedy=True)
+    summary["kv_layout"] = engine.kv_layout
     summary["stream_digest"] = stream_digest(sched.finished)
     itl = itl_p50_ms(sched.finished)
     if itl is not None:

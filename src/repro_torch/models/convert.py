@@ -14,29 +14,44 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from .layers import KVCache, PagedKVCache
-from .model import tree_leaves
+from .model import matrix_storage, tree_leaves
 
 
-def _leaf(x, dev, mat_dtype):
-    t = torch.from_numpy(np.array(x, copy=True)).to(dev)
-    if t.is_floating_point():
-        t = t.to(mat_dtype if t.ndim >= 2 else torch.float32)
-    return t
+def _leaf(x, dev, mat_dtype, mat_ndim=2):
+    """One numpy leaf on `dev`: a float leaf of at least `mat_ndim`
+    dimensions (a matrix) in `mat_dtype`, in `matrix_storage` (rows
+    rounded up to 8 elements where ragged); other float leaves (vectors)
+    in fp32; integer leaves as they are."""
+    t = torch.from_numpy(np.array(x, copy=True))
+    if not t.is_floating_point():
+        return t.to(dev)
+    if t.ndim < mat_ndim:
+        return t.to(dev, torch.float32)
+    out = matrix_storage(tuple(t.shape), mat_dtype, dev)
+    out.copy_(t)
+    return out
 
 
 def params_from_numpy(tree, device=None, dtype=None):
     """The port's parameters from a numpy tree with the JAX key names.
     Matrices are stored in `dtype`: by default bf16 on CUDA and fp32 on
     the CPU (see models/model.py); `torch.float32` keeps fp32 masters for
-    training. 1-D leaves stay fp32."""
+    training. Vectors stay fp32: the top level's 1-D leaves and, under
+    `layers` (whose axis 0 stacks the superblocks), the 2-D stacked
+    vectors (norms, biases, the SSM's `dt_bias`, `A_log`, `D_skip` and
+    `norm_w`), the rule `init_params` and the forward's superblock cast
+    follow."""
     dev = resolve_device(device)
     mat = dtype or (torch.bfloat16 if dev.type == "cuda" else torch.float32)
-    return _convert(tree, lambda x: _leaf(x, dev, mat))
+    return {k: _convert(v, lambda x, nd=3 if k == "layers" else 2:
+                        _leaf(x, dev, mat, nd))
+            for k, v in tree.items()}
 
 
 def cache_from_numpy(tree, device=None):
-    """A cache tree (tuple of {"kv": KVCache | PagedKVCache}) with every
-    leaf copied as is; NamedTuples map by field names."""
+    """A cache tree (tuple of {"kv": KVCache | PagedKVCache, "ssm":
+    (state, conv tail)}) with every leaf copied as is; NamedTuples map by
+    field names, the ssm tuples stay plain tuples."""
     dev = resolve_device(device)
     return _convert(tree, lambda x: torch.from_numpy(
         np.array(x, copy=True)).to(dev))

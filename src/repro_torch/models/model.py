@@ -1,19 +1,25 @@
 """Model assembly, main-path subset: the decoder-only LM, dense (qwen2.5,
 phi3, gemma2, gemma3: untied or tied embeddings, global and local-window
-attention, softcaps, SwiGLU or GeGLU) and MoE (granite, llama4: routed
+attention, softcaps, SwiGLU or GeGLU), MoE (granite, llama4: routed
 experts on every `moe_every`-th layer, an optional shared expert;
-models/moe.py).
+models/moe.py), SSM (mamba2: every layer a Mamba2 mixer; models/ssm.py)
+and hybrid (hymba: attention and a Mamba2 mixer side by side in every
+layer, their outputs' RMSNorms averaged).
 
 Parameters are a plain nested dict with the JAX package's key names and
 its stacked superblock axis: `params["layers"]` is a tuple of
 `cfg.stack_period` layer dicts whose leaves carry the superblock index on
-axis 0. For serving on CUDA, matrices (≥ 2-D leaves) are stored in bf16 —
+axis 0. For serving on CUDA, matrices (≥ 2-D leaves; ≥ 3-D under
+`layers`, where axis 0 stacks the superblocks) are stored in bf16 —
 the JAX forward casts them to bf16 at superblock entry and `cast_in`
 rounds to bf16 at every use, so this is the same arithmetic at half the
 memory (the full qwen2.5-14b in fp32 would take 59 GB). On the CPU, and
 for training (`init_params(..., dtype=torch.float32)`: fp32 masters, as
 the JAX package's), they are fp32 and the forward casts at superblock
-entry, as the JAX package does.
+entry, as the JAX package does. A matrix whose last dimension is not a
+multiple of 8 (hymba's in_proj: 6482 columns) is a view of a buffer whose
+rows are rounded up to 8 elements (`matrix_storage`), so the SA GEMM's
+16-byte copies read it in place and no launch copies the weight.
 """
 from __future__ import annotations
 
@@ -28,17 +34,52 @@ from repro_torch.core.precision import sa_dot
 from .config import ArchConfig
 from . import layers as L
 from .layers import KVCache, PagedKVCache
-from .moe import moe_ffn
+from .moe import gemm_calls as moe_gemm_calls, moe_ffn
+from .ssm import mamba2_block
 
 
 def check_supported(cfg: ArchConfig):
-    """The port's model code covers the dense and MoE decoder-only
-    families, with tied or untied embeddings."""
-    if (cfg.family not in ("dense", "moe") or cfg.norm != "rmsnorm"
-            or cfg.is_encdec):
+    """The port's model code covers the dense, MoE, SSM and hybrid
+    decoder-only families, with tied or untied embeddings."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+            or cfg.norm != "rmsnorm" or cfg.is_encdec):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} / norm "
-                         f"{cfg.norm!r} is not ported yet (dense and MoE "
-                         f"rmsnorm decoders only)")
+                         f"{cfg.norm!r} is not ported yet (dense, MoE, SSM "
+                         f"and hybrid rmsnorm decoders only)")
+
+
+def has_ssm(cfg: ArchConfig) -> bool:
+    """Every layer carries a Mamba2 mixer (and its per-slot state)."""
+    return cfg.family == "ssm" or cfg.hybrid
+
+
+def gemm_calls(cfg: ArchConfig, tokens: int = 1) -> int:
+    """The SA GEMM calls one served forward over `tokens` tokens a row
+    makes: `moe.gemm_calls` (a layer's 4 attention GEMMs and its FFN or
+    MoE GEMMs, and the lm_head) where the stack has attention and an FFN;
+    an SSM layer makes 2 (in_proj and out_proj), a hybrid layer those 2
+    beside the 7 of attention and FFN. mamba2-2.7b: 129 a decode step,
+    hymba-1.5b: 289. On the card each call is one kernel launch."""
+    if cfg.family == "ssm":
+        return 1 + 2 * cfg.num_layers
+    return moe_gemm_calls(cfg, tokens) + (2 * cfg.num_layers if cfg.hybrid
+                                          else 0)
+
+
+def matrix_storage(shape, dtype, device) -> torch.Tensor:
+    """An empty matrix (or stack of matrices) of `shape`: contiguous where
+    the last dimension is a multiple of 8, else a view of a buffer whose
+    rows are rounded up to 8 elements. The SA GEMM kernel reads a bf16
+    operand with 16-byte copies and TMA, both of which need a leading
+    dimension of a multiple of 8 elements; a view with one is read in
+    place (`sa_matmul._aligned`), where a ragged contiguous weight would
+    be copied at every launch."""
+    n = shape[-1]
+    if len(shape) < 2 or n % 8 == 0:
+        return torch.empty(shape, dtype=dtype, device=device)
+    buf = torch.empty((*shape[:-1], -(-n // 8) * 8), dtype=dtype,
+                      device=device)
+    return buf[..., :n]
 
 
 def tree_map(fn, tree):
@@ -92,7 +133,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
         # expert of an expert stack), then stored: the fp32 temporary
         # never exceeds one matrix (llama4's whole (128, 5120, 8192) slice
         # would be 21.5 GB)
-        out = torch.empty(shape, dtype=mat_dtype, device=dev)
+        out = matrix_storage(shape, mat_dtype, dev)
         for i in range(shape[0]):
             if len(shape) == 4:
                 for e in range(shape[1]):
@@ -112,7 +153,18 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dev)
 
+    def ssm():
+        # the JAX package's `_init_ssm`: the conv runs over [x | B | C]
+        din, N, Hs = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+        return {"in_proj": dense(d, (d, 2 * din + 2 * N + Hs)),
+                "conv_w": normal((n_super, 4, din + 2 * N), 0.1),
+                "dt_bias": zeros(n_super, Hs), "A_log": zeros(n_super, Hs),
+                "D_skip": ones(n_super, din), "norm_w": ones(n_super, din),
+                "out_proj": dense(din, (din, d))}
+
     def layer(j):
+        if cfg.family == "ssm":           # no attention, no FFN, no norm2
+            return {"norm1": {"w": ones(n_super, d)}, "ssm": ssm()}
         attn = {"wq": dense(d, (d, H * hd)), "wk": dense(d, (d, KVH * hd)),
                 "wv": dense(d, (d, KVH * hd)),
                 "wo": dense(H * hd, (H * hd, d))}
@@ -123,6 +175,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
         p = {"norm1": {"w": ones(n_super, d)},
              "norm2": {"w": ones(n_super, d)},
              "attn": attn}
+        if cfg.hybrid:
+            p |= {"ssm": ssm(), "attn_norm": {"w": ones(n_super, d)},
+                  "ssm_norm": {"w": ones(n_super, d)}}
         if cfg.layer_kind(j)["moe"]:
             # the experts are d_ff wide; the JAX package's `_init_moe`
             p["moe"] = {"router": dense(d, (d, E)),
@@ -163,7 +218,12 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     columns. A local layer keeps its dense ring beside the pools where
     `window < seq_len` (bounded by the window, it strands no capacity),
     and is paged like a global one otherwise, as in the JAX package; the
-    engine's splices handle the mixed tree."""
+    engine's splices handle the mixed tree.
+
+    An SSM or hybrid layer also carries `"ssm"`: (state (n_super, batch,
+    H, P, N) fp32 whatever `dtype`, conv tail (n_super, batch, 3,
+    d_inner + 2N) in `dtype`), per slot in either layout; an SSM layer
+    has no `"kv"`. The JAX package's leaves and types."""
     check_supported(cfg)
     dev = resolve_device(device)
     period = cfg.stack_period
@@ -173,23 +233,33 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     def full(shape, fill, dt):
         return torch.full(shape, fill, dtype=dt, device=dev)
 
-    def layer_cache(j):
+    def kv_cache(j):
         local = (cfg.layer_kind(j)["attn"] == "local" and cfg.window
                  and cfg.window < seq_len)
         if paged is not None and not local:
             n_pages, psz = paged
             max_pages = -(-seq_len // psz)
-            return {"kv": PagedKVCache(
+            return PagedKVCache(
                 k=full((n_super, n_pages, psz, kvh, hd), 0, dtype),
                 v=full((n_super, n_pages, psz, kvh, hd), 0, dtype),
                 positions=full((n_super, n_pages, psz), -1, torch.int32),
                 block_table=full((n_super, batch, max_pages), -1,
-                                 torch.int32))}
+                                 torch.int32))
         S = cfg.window if local else seq_len
-        return {"kv": KVCache(
+        return KVCache(
             k=full((n_super, batch, S, kvh, hd), 0, dtype),
             v=full((n_super, batch, S, kvh, hd), 0, dtype),
-            positions=full((n_super, batch, S), -1, torch.int32))}
+            positions=full((n_super, batch, S), -1, torch.int32))
+
+    def layer_cache(j):
+        c = {} if cfg.family == "ssm" else {"kv": kv_cache(j)}
+        if has_ssm(cfg):
+            c["ssm"] = (
+                full((n_super, batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                      cfg.ssm_state), 0, torch.float32),
+                full((n_super, batch, 3, cfg.d_inner + 2 * cfg.ssm_state),
+                     0, dtype))
+        return c
 
     return tuple(layer_cache(j) for j in range(period))
 
@@ -201,13 +271,34 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
 def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
               decode_multi: bool = False, page_size: int = 16):
     """One transformer layer. Returns (x, cache, aux): aux is a MoE
-    layer's aux losses where no cache is threaded, else None."""
+    layer's aux losses where no cache is threaded, else None. An SSM or
+    hybrid layer's mixer state and conv tail are written into the cache's
+    `"ssm"` tensors in place (the tail rounded to the cache's type)."""
     h = L.norm_apply(x, p["norm1"], cfg.norm, cfg.norm_eps)
-    mix, kv = L.attention_block(h, p["attn"], cfg, meta, positions,
-                                cache=cache["kv"] if cache else None,
-                                prefix_len=prefix_len,
-                                decode_multi=decode_multi,
-                                page_size=page_size)
+
+    def mamba(h):
+        st = cache["ssm"] if cache else None
+        out, (state, tail) = mamba2_block(
+            h, p["ssm"], cfg, state=st[0] if st else None,
+            conv_cache=st[1] if st else None)
+        if st:
+            st[0].copy_(state)                                  # in place
+            st[1].copy_(tail)                                   # in place
+        return out
+
+    if cfg.family == "ssm":
+        x = x + mamba(h).to(x.dtype)
+        return x, cache, None
+    mix, _ = L.attention_block(h, p["attn"], cfg, meta, positions,
+                               cache=cache["kv"] if cache else None,
+                               prefix_len=prefix_len,
+                               decode_multi=decode_multi,
+                               page_size=page_size)
+    if cfg.hybrid:
+        # hymba's parallel heads: the mean of each branch's RMSNorm
+        s = mamba(h)
+        mix = 0.5 * (L.rmsnorm(mix, p["attn_norm"]["w"], cfg.norm_eps)
+                     + L.rmsnorm(s, p["ssm_norm"]["w"], cfg.norm_eps))
     x = x + mix.to(x.dtype)
     h = L.norm_apply(x, p["norm2"], cfg.norm, cfg.norm_eps)
     aux = None
@@ -221,8 +312,7 @@ def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
                          with_aux=cache is None)
     else:
         f = L.ffn_swiglu(h, p["ffn"], cfg.act)
-    return (x + f.to(x.dtype), ({"kv": kv} if cache is not None else None),
-            aux)
+    return x + f.to(x.dtype), cache, aux
 
 
 def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
@@ -252,9 +342,21 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     runs under `torch.utils.checkpoint` (the JAX package's `jax.checkpoint`
     for training): its activations are recomputed in the backward by the
     same operations on the same inputs, so the gradients are the same
-    (bit for bit on the CPU, tests/test_torch_train.py)."""
+    (bit for bit on the CPU, tests/test_torch_train.py).
+
+    SSM and hybrid stacks refuse `decode_multi` (their state cannot roll
+    back). With a cache, a single token runs the Mamba2 decode step from
+    the cached state, more tokens the chunked scan from it; either way
+    the state and conv tail are written back in place."""
     check_supported(cfg)
     B, T = tokens.shape
+    if decode_multi and has_ssm(cfg):
+        # a rejected draft would leave the recurrent state advanced past
+        # the rollback point: attention caches roll back by position, an
+        # SSM state cannot (the engine gates spec decoding off for these
+        # families, as the JAX engine does)
+        raise ValueError("decode_multi needs rollback by position; an "
+                         "ssm/hybrid recurrent state cannot roll back")
     dev = tokens.device
     x = params["embed"][tokens.long()].to(torch.bfloat16)
     if cfg.embed_scale:

@@ -60,6 +60,16 @@
   and a padded or foreign row never takes a real token's expert slot.
   The engine gates nothing on it, as the JAX engine does not.
 
+* **SSM and hybrid** (mamba2, hymba): every layer keeps a per-slot Mamba2
+  state (fp32) and conv tail beside (hymba) or instead of (mamba2) its
+  KV. An admission's fragment carries the prompt's final state, which
+  `_insert_impl` row-copies into the slot; the pool splices pass the
+  state through. mamba2 has no KV to page, so the engine takes the ring
+  layout whatever it is asked (`kv_layout` says which it took), and a
+  ring request is never rejected for its length. A recurrent state
+  cannot un-see a token, so prefix caching, disagg, bucketing and spec
+  are off for both families, as in the JAX engine.
+
 Where the JAX engine donates the cache buffer to a jitted update, this
 engine updates the cache tensors in place (`_scatter_impl`, `_bind_impl`,
 `_insert_impl`, `_clear_slot_impl`, the decode step's KV write) and says
@@ -151,6 +161,8 @@ class ServeEngine:
         if kv_layout not in ("ring", "paged"):
             raise ValueError(
                 f"REPRO_KV/kv_layout={kv_layout!r}; want 'ring' or 'paged'")
+        if cfg.family == "ssm":
+            kv_layout = "ring"   # no KV to page; the state is O(1) a slot
         self._disagg_arg = disagg
         self.prefill_workers = max(1, int(prefill_workers))
         self._bucket_arg = bucket_prompts
@@ -232,28 +244,31 @@ class ServeEngine:
         """Prefix sharing (REPRO_PREFIX_CACHE, default on) is sound only
         where every prompt page is a pure function of the prompt tokens:
         the paged layout without local-window rings (their fragment floor
-        couples neighbours)."""
+        couples neighbours) and without a per-slot recurrent state
+        (ssm, hybrid)."""
         return (optflags.prefix_cache_enabled() and self.kv_layout == "paged"
-                and self._frag_floor == 1)
+                and self._frag_floor == 1 and not M.has_ssm(self.cfg))
 
     def disagg_on(self) -> bool:
         """The two-pool split (REPRO_DISAGG / `disagg`, default off) is
         sound exactly where prefix sharing is: a handed-off page run must
         mean the same to whichever decode slot binds it, so pages must be a
         pure function of the prompt: the paged layout without local-window
-        rings. An ineligible engine serves unified, without a word, as
-        `spec_decoding_on` does."""
+        rings or a recurrent state. An ineligible engine serves unified,
+        without a word, as `spec_decoding_on` does."""
         on = (self._disagg_arg if self._disagg_arg is not None
               else optflags.disagg_enabled())
-        return bool(on) and self.kv_layout == "paged" and self._frag_floor == 1
+        return (bool(on) and self.kv_layout == "paged"
+                and self._frag_floor == 1 and not M.has_ssm(self.cfg))
 
     def bucketing_on(self) -> bool:
         """Prompt-length bucketing (REPRO_PREFILL_BUCKET / `bucket_prompts`,
-        default off) is sound only without local-window rings: a ring
-        write past the real prompt length could wrap onto live rows."""
+        default off) is sound only without local-window rings (a ring
+        write past the real prompt length could wrap onto live rows) and
+        without a recurrent state (padding tokens would advance it)."""
         on = (self._bucket_arg if self._bucket_arg is not None
               else optflags.prefill_bucket_enabled())
-        return bool(on) and self._frag_floor == 1
+        return bool(on) and self._frag_floor == 1 and not M.has_ssm(self.cfg)
 
     def spec_decoding_on(self) -> bool:
         """Self-speculative decoding is armed (`spec_k >= 1` and the
@@ -264,13 +279,14 @@ class ServeEngine:
         local ring of `window` rows still loses, to a verify's writes,
         rows that earlier verify rows and a query after a rejection
         attend to, so under local windows neither engine's spec stream
-        equals its plain one (ROADMAP F6)."""
+        equals its plain one (ROADMAP F6). An ssm or hybrid state cannot
+        roll back a rejected draft, so spec is off for them."""
         n_super = self.cfg.num_layers // self.cfg.stack_period
         min_ring = (self._frag_floor if self._frag_floor > 1
                     else (self.cache_len if self.kv_layout == "ring"
                           else None))
         return (optflags.spec_decode_enabled() and self.spec_k >= 1
-                and n_super >= 2
+                and n_super >= 2 and not M.has_ssm(self.cfg)
                 and (min_ring is None or self.spec_k + 1 <= min_ring))
 
     def _fingerprint(self) -> str:
@@ -301,9 +317,9 @@ class ServeEngine:
         The first `keep` pages are shared prefix-cache pages: their wipe
         and writes go to the trash page 0 instead. Dense leaves (local
         rings) have no pool and pass through: `_insert_impl` row-splices
-        them."""
+        them, as do SSM states."""
         for full_c, one_c in zip(cache, frag):
-            full, one = full_c["kv"], one_c["kv"]
+            full, one = full_c.get("kv"), one_c.get("kv")
             if not isinstance(full, PagedKVCache):
                 continue
             n_super, n_pages, psz = full.k.shape[:3]
@@ -331,9 +347,9 @@ class ServeEngine:
     @staticmethod
     def _bind_impl(cache, block_row, slot: int):
         """Map a scattered page run into batch row `slot` (in place). Dense
-        leaves have no block table and pass through."""
+        leaves and SSM states have no block table and pass through."""
         for c in cache:
-            if isinstance(c["kv"], PagedKVCache):
+            if isinstance(c.get("kv"), PagedKVCache):
                 bt = c["kv"].block_table
                 bt[:, slot] = block_row.to(bt.device, bt.dtype)  # in place
         return cache
@@ -346,16 +362,20 @@ class ServeEngine:
         one): the fragment's leaf is a whole ring row (`new_cache(batch=1)`,
         or a fragment floored at the window), copied over the slot's row,
         positions included, so nothing of the slot's previous request
-        stays visible. The unified path runs both halves here, the
-        two-pool path the pool half at the handoff and the bind at
-        admission."""
+        stays visible. SSM leaves (the state and the conv tail) are
+        per-slot rows in either layout and are copied the same way, so
+        the slot decodes from its prompt's final state. The unified path
+        runs both halves here, the two-pool path the pool half at the
+        handoff and the bind at admission."""
         if block_row is not None:
             cache = ServeEngine._scatter_impl(cache, frag, block_row, keep)
             cache = ServeEngine._bind_impl(cache, block_row, slot)
         for full_c, one_c in zip(cache, frag):
-            if isinstance(full_c["kv"], KVCache):
-                for full, one in zip(full_c["kv"], one_c["kv"]):
-                    full[:, slot] = one[:, 0].to(full.dtype)     # in place
+            pairs = list(zip(full_c.get("ssm", ()), one_c.get("ssm", ())))
+            if isinstance(full_c.get("kv"), KVCache):
+                pairs += zip(full_c["kv"], one_c["kv"])
+            for full, one in pairs:
+                full[:, slot] = one[:, 0].to(full.dtype)         # in place
         return cache
 
     @staticmethod
@@ -364,10 +384,10 @@ class ServeEngine:
         fragment's first `prefix_len` rows (in place on the fragment).
         `src_row` holds the source page ids in sequence order (the hit
         pages, plus the copy-on-write donor's partial page last). Dense
-        leaves are left as they are (prefix caching is off where a stack
-        has local rings)."""
+        leaves and SSM states are left as they are (prefix caching is off
+        where a stack has local rings or a recurrent state)."""
         for one_c, full_c in zip(frag, cache):
-            one, full = one_c["kv"], full_c["kv"]
+            one, full = one_c.get("kv"), full_c.get("kv")
             if not isinstance(full, PagedKVCache):
                 continue
             n_super, _, psz = full.k.shape[:3]
@@ -388,12 +408,13 @@ class ServeEngine:
         """Free a slot's cache row, in place. Pool leaves: unmap its
         block-table rows so its decode writes fall to the trash page
         before its pages are reused. Dense leaves (rings, local rings):
-        set its positions to -1 (every row masked)."""
+        set its positions to -1 (every row masked). SSM states stay: the
+        next admission overwrites the row whole."""
         for c in cache:
-            kv = c["kv"]
+            kv = c.get("kv")
             if isinstance(kv, PagedKVCache):
                 kv.block_table[:, slot] = -1                    # in place
-            else:
+            elif kv is not None:
                 kv.positions[:, slot] = -1                      # in place
         return cache
 
@@ -473,10 +494,12 @@ class ServeEngine:
         """A just-admitted request the engine cannot serve. Paged: the
         allocator marked it unallocatable (more pages than the pool or the
         per-request block table holds). Ring: prompt plus budget would
-        wrap the global-attention ring."""
+        wrap the global-attention ring (an SSM stack has none: its state
+        is O(1) a slot)."""
         if self.kv_layout == "paged":
             return req.pages is None
-        return req.prompt_len + req.max_new_tokens > self.cache_len
+        return (self.cfg.family != "ssm"
+                and req.prompt_len + req.max_new_tokens > self.cache_len)
 
     def _note_logits(self, logits):
         # device-side count of non-finite logits over the real vocabulary

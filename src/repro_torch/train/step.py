@@ -120,7 +120,8 @@ def make_bucketed_prefill_step(cfg: ArchConfig, prefix_len: int = 0):
                                      last_only=True, last_index=last_idx,
                                      prefix_len=prefix_len)
         for c in cache:
-            c["kv"].positions[..., int(valid_len):] = -1          # in place
+            if "kv" in c:
+                c["kv"].positions[..., int(valid_len):] = -1      # in place
         return logits, cache
 
     return prefill

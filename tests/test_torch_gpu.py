@@ -1379,3 +1379,100 @@ def test_moe_decode_step_launches_the_dispatch_s_gemms(cuda, monkeypatch,
     assert ops.counts()["sa_matmul"]["launches"] == want
     assert ops.tile_counts()["decode"] == want
     assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+
+
+@pytest.mark.parametrize("m,tile", [(4, "decode"), (128, "small"),
+                                    (1024, "large")])
+def test_ragged_ssm_weight_is_read_in_place(cuda, m, tile):
+    """hymba's in_proj (1600 × 6482, N not a multiple of 8) as the model
+    stores it (`matrix_storage`: rows of 6488): each tile reads it in
+    place (no operand copied), writes the ragged output's rows right
+    (within the plain version's bound) and gives the bits of the same
+    matrix stored contiguous, which the launch has to copy."""
+    from repro_torch.models.model import matrix_storage
+
+    k, n = 1600, 6482
+    g = torch.Generator(device=cuda).manual_seed(m)
+    w = matrix_storage((k, n), torch.bfloat16, cuda)
+    w.copy_(torch.randn((k, n), generator=g, device=cuda) * k ** -0.5)
+    assert w.stride() == (6488, 1)
+    a = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    ops.reset_counts()
+    got, _ = MM._launch(a, w, None, None, "none", "exact", False, tile=tile)
+    assert ops.operand_copies() == 0
+    cont, _ = MM._launch(a, w.contiguous(), None, None, "none", "exact",
+                         False, tile=tile)
+    assert ops.operand_copies() == 1
+    ref = MM.sa_matmul_ref(a, w)
+    assert bool(((got - ref).abs() <= MM.error_bound(a, w, y=ref)).all())
+    assert torch.equal(got.view(torch.int32), cont.view(torch.int32))
+
+
+def _ssm_cut(arch):
+    """mamba2 at full width cut to two layers; hymba at full width cut to
+    a global and a local layer with a 64-token window (so prompts of
+    45-80 tokens wrap its ring)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.hybrid:
+        return dataclasses.replace(cfg, num_layers=2, window=64,
+                                   attn_pattern=("global", "local"))
+    return dataclasses.replace(cfg, num_layers=2)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b"])
+def test_serve_ssm_full_width_two_layers_paged_equals_ring(cuda, monkeypatch,
+                                                           arch):
+    """The SSM and hybrid families at full width cut to two layers: the
+    engine asked for paged and for ring gives one token stream (mamba2
+    serves on rows either way), each kernel launched exactly as the
+    forwards imply (`model.gemm_calls` SA GEMMs a forward; paged decode
+    and prefill attention once a layer with attention), every GEMM on
+    `mma`, no plain version, no operand copied; and prefill then decode
+    equals a full forward (tests/test_decode.py's contract)."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    cfg = _ssm_cut(arch)
+    params = M.init_params(cfg, seed=1, device=cuda)
+    attn = 0 if cfg.family == "ssm" else cfg.num_layers
+    streams = {}
+    for layout in ("paged", "ring"):
+        eng = ServeEngine(cfg, params, batch=2, cache_len=96, eos_id=-1,
+                          sync_every=4, kv_layout=layout)
+        assert eng.kv_layout == ("ring" if cfg.family == "ssm" else layout)
+        sched = SlotScheduler(2, eos_id=-1)
+        _submit(sched, cfg, (45, 20, 80), ("premium",) * 3, max_new=6)
+        ops.reset_counts()
+        summary = eng.serve(sched)
+        c = ops.counts()
+        steps = _moe_steps(eng, sched)
+        assert c["sa_matmul"]["launches"] == (3 + steps) * M.gemm_calls(cfg)
+        assert c["paged_decode"]["launches"] == attn * steps
+        assert c["prefill_attention"]["launches"] == attn * 3
+        assert all(v["plain_calls"] == 0 for v in c.values()), (layout, c)
+        assert ops.operand_copies() == 0
+        assert ops.route_counts()["sa_matmul"]["mma"] == \
+            c["sa_matmul"]["launches"]
+        assert summary["nonfinite_logits"] == 0
+        assert summary.get("pages_leaked", 0) == 0
+        streams[layout] = {r.rid: r.tokens for r in sched.finished}
+    assert streams["paged"] == streams["ring"]
+    assert all(len(t) == 6 for t in streams["paged"].values())
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, 300), generator=g).to(cuda)
+    # a cache that holds all 300 tokens (the engine's rings hold 96)
+    full, _, _ = M.forward(params, cfg, toks, cache=M.init_cache(
+        cfg, 1, 304, dtype=torch.float32, device=cuda))
+    cache = M.init_cache(cfg, 1, 304, dtype=torch.float32, device=cuda)
+    steps = [M.forward(params, cfg, toks[:, :297], cache=cache)[0][:, -1:]]
+    for t in range(297, 300):
+        steps.append(M.forward(params, cfg, toks[:, t:t + 1], cache=cache,
+                               pos=t)[0])
+    got = torch.cat(steps, dim=1)[..., :cfg.vocab_size]
+    want = full[:, 296:, :cfg.vocab_size]
+    assert float((got - want).abs().max()) <= 2.0 ** -5 * float(
+        want.abs().max())
