@@ -54,7 +54,14 @@ Phases, in order; any failure exits nonzero:
              bound with no operand copied, timed at M = 4 beside their
              byte bound and bf16 torch.matmul; hymba's prefill (hd 64,
              g = 5, T = 2600, window 2048) and its decode over B = 4
-             rings of 2048 rows, each within its bound, beside SDPA.
+             rings of 2048 rows, each within its bound, beside SDPA. The
+             frontend families' shapes: whisper's GEMMs (d 384, d_ff
+             1536, the lm_head of 53248) at the encoder's M = 6000 and
+             the decoder's M = 4, within their bound with one launch and
+             no operand copied, beside the bound and bf16 torch.matmul;
+             prefill at whisper's g = 1, hd 64 (T = 64) and at pixtral's
+             T = 384, g = 4, hd 128; paged decode at g = 1, hd 64 over
+             B = 4 rings of 80 and 2048 rows, beside SDPA.
 4. fold    — ROADMAP F2 and F2b at full width: every row of the path's
              GEMMs (7 layer shapes and the lm_head), bf16 x bf16 and fp32
              x fp32, bit-identical at M = 1, 4, 7, 8, 20 and 1024, and a
@@ -134,7 +141,10 @@ Phases, in order; any failure exits nonzero:
              checks; paged decode launched L times a decode step; the
              window's gates off (no prefix hit); gemma3 and gemma2 again
              with `--kv ring`, the same digest; gemma2's logits within
-             ±30; one prompt's prefill logits under `cuda` and `torch`.
+             ±30; one prompt's prefill logits under `cuda` and `torch`;
+             gemma3's stream again with `--spec-k 4` (the spec phase's
+             local-window case, ROADMAP F6): local rings of 1040 rows,
+             the plain serve's digest.
    moe     — granite-moe-3b-a800m at full width and depth (32 layers,
              40 experts, top-8) on the serve stream, paged and `--kv
              ring`: one digest, the serve phase's checks, every kernel's
@@ -171,6 +181,27 @@ Phases, in order; any failure exits nonzero:
              `generate()` on 4 prompts; mamba2 cut to 4 layers trained 3
              AdamW steps at batch 4 x 512 (step 0 under `cuda` and
              `torch`, the train phase's route gates).
+   frontend — whisper-tiny (4 encoder and 4 decoder layers, d 384, 6
+             heads of 64 at g = 1, layernorm, GELU MLP, 1500 stub frames)
+             and pixtral-12b (40 layers, d 5120, 32 heads over 8 at hd
+             128, 256 stub patch rows; 24.5 GB of bf16 weights) at full
+             width and depth, one at a time, through the driver's static
+             waves (2 waves of 4 requests, 16 new tokens; whisper's
+             prompts 32 and 64 tokens, pixtral's 64 and 128): requests
+             complete, finite logits, no plain version, GEMMs and prefill
+             on `mma`, each kernel's launches exactly as the forwards
+             imply (73 and 281 SA GEMMs a forward, paged decode 4 and 40
+             a decode step, prefill attention 4 and 40 a prefill),
+             `serve()` refused, prefill then decode equal to a full
+             forward within 2^-5·max|logit| with a planted fault outside
+             (whisper's frames redrawn; pixtral's patch rows hidden from
+             decode), prefill logits under `cuda` and `torch`, peak
+             memory; whisper's `generate()` on 4 more prompts and one
+             decode chunk under torch.profiler (the encoder's share);
+             whisper trained at full depth (batch 4 x 256 over 1500
+             frames) and pixtral cut to 4 layers (4 x 512 after 256
+             patch rows), 3 AdamW steps each with step 0 under `cuda`
+             and `torch` and the train phase's route gates.
 7. emulate — qwen2.5-14b served under `REPRO_GEMM_BACKEND=emulate`:
              every GEMM through the fp_emu kernel (the SA GEMM never
              launches), attention through the two attention kernels, no
@@ -240,6 +271,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -3365,19 +3397,23 @@ def profile_emulate(torch, engine):
     return out
 
 
-def backend_logits(torch, engine, prompt, backends=("cuda", "torch")):
+def backend_logits(torch, engine, prompt, backends=("cuda", "torch"),
+                   frontend=None):
     """One prompt's prefill logits under two GEMM backends (same weights,
-    same policy otherwise)."""
+    same policy otherwise); `frontend` (1, S, d) feeds a frontend arch (a
+    VLM's fragment then holds its S patch rows too)."""
     from repro_torch.core.precision import PrecisionPolicy, use_policy
     from repro_torch.train.step import make_prefill_step
 
     tokens = torch.tensor(prompt, dtype=torch.int32, device="cuda")[None]
     step = make_prefill_step(engine.cfg)
+    rows = len(prompt) + (frontend.shape[1] if frontend is not None
+                          and engine.cfg.family == "vlm" else 0)
     out = {}
     for backend in backends:
         with use_policy(PrecisionPolicy(backend=backend)):
-            frag = engine.new_frag(len(prompt))
-            logits, _ = step(engine.params, tokens, frag)
+            frag = engine.new_frag(rows)
+            logits, _ = step(engine.params, tokens, frag, frontend)
         out[backend] = logits[0, -1, :engine.cfg.vocab_size].float()
     torch.cuda.synchronize()
     a, b = (out[k] for k in backends)
@@ -3488,6 +3524,59 @@ class _LogitRange:
         ServeEngine._note_logits = self.orig
 
 
+# the spec phase's local-window case (ROADMAP F6): gemma3's stream again
+# with `--spec-k 4` on the families phase's weights
+SPEC_LOCAL_ARCH = "gemma3-12b"
+
+
+def spec_local(torch, args, engine, plain, n_req):
+    """Self-speculative decoding over local-window rings (ROADMAP F6):
+    `args`' stream served again with `--spec-k SPEC_K` on the same
+    weights. Every local ring then has window + k rows rounded up to a
+    page (1040 for gemma3's 1024) and the global layers keep their pools;
+    the stream digest must equal the plain serve's (`plain`), drafts must
+    run, with the path's checks (requests complete, no page leaked, no
+    plain version, GEMMs and prefill on `mma`). Returns (record,
+    problems)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+
+    ops.reset_counts()
+    t0 = time.monotonic()
+    summary, sched, eng = drv.main(args + ["--spec-k", str(SPEC_K)],
+                                   return_state=True, params=engine.params)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts, routes = ops.counts(), ops.route_counts()
+    problems = _path_checks(summary, sched, counts, routes, n_req, MAX_NEW)
+    window = eng.cfg.window
+    rows = eng._local_rows()
+    want_rows = -(-(window + SPEC_K) // eng.page_size) * eng.page_size
+    rec = {"digest": summary["stream_digest"],
+           "plain_digest": plain["stream_digest"], "local_rows": rows,
+           "spec_accept_rate": summary.get("spec_accept_rate"),
+           "spec_iters": summary.get("spec_iters"),
+           "spec_drafted": summary.get("spec_drafted"),
+           "decode_itl_p50_ms": summary.get("decode_itl_p50_ms"),
+           "launches": {k: counts[k]["launches"] for k in (
+               "sa_matmul", "paged_decode", "prefill_attention")},
+           "wall_s": wall}
+    log(f"[spec {SPEC_LOCAL_ARCH}] k={SPEC_K}, draft "
+        f"{eng.spec_draft_layers} of {eng.cfg.num_layers // eng.cfg.stack_period}"
+        f" superblocks, local rings {rows} rows (window {window}): " + " ".join(
+            f"{k}={v}" for k, v in rec.items()))
+    if rows != want_rows or not eng.spec_decoding_on():
+        problems.append(f"spec off or local rings of {rows} rows, want "
+                        f"{want_rows}")
+    if not summary.get("spec_drafted"):
+        problems.append("no draft ran")
+    if summary["stream_digest"] != plain["stream_digest"]:
+        problems.append(f"spec digest {summary['stream_digest']} != the "
+                        f"plain serve's {plain['stream_digest']}")
+    del eng, sched
+    return rec, [f"spec: {p}" for p in problems]
+
+
 def families(torch):
     """Each family served through the driver under `cuda` with
     `_serve_backend`'s checks (requests complete, no page leaked, finite
@@ -3498,8 +3587,10 @@ def families(torch):
     stream with `--kv ring` (both layouts decode through the paged-decode
     kernel, F5) giving the same digest with the same launch count;
     gemma2's logits within its final softcap (±30); one prompt's prefill
-    logits under `cuda` and `torch` within 2^-3·max|logit|. One model on
-    the card at a time."""
+    logits under `cuda` and `torch` within 2^-3·max|logit|; gemma3's
+    stream with spec decoding over rings of window + k rows (`spec_local`,
+    the spec phase's local-window case) giving the plain serve's digest.
+    One model on the card at a time."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as drv
 
@@ -3577,6 +3668,10 @@ def families(torch):
                            for r in r_sched.finished)):
                 problems.append("ring serve incomplete or non-finite")
             del r_eng, r_sched
+        if arch == SPEC_LOCAL_ARCH:
+            rec["spec"], spec_problems = spec_local(
+                torch, args, engine, summary, n_req)
+            problems += spec_problems
         prompt = min(sched.finished, key=lambda r: r.rid).prompt
         diff, bound = backend_logits(torch, engine, prompt)
         rec["backend_logits"] = {"max_abs_diff": diff, "bound": bound}
@@ -4534,6 +4629,480 @@ def ssm(torch):
 
 
 # ---------------------------------------------------------------------------
+# frontend: whisper-tiny (encoder-decoder) and pixtral-12b (VLM) at full
+# width and depth through `generate()` and the driver's static waves, and
+# both trained
+# ---------------------------------------------------------------------------
+
+WHISPER, PIXTRAL = "whisper-tiny", "pixtral-12b"
+# the driver's static waves: 8 requests in 2 waves of 4, 16 new tokens;
+# whisper's decoder prompts of 32 and 64 tokens over 1500 stub frames,
+# pixtral's text prompts of 64 and 128 tokens after 256 stub patch rows
+# (a prefill of 320 and 384 rows)
+FRONTEND_RUNS = {
+    WHISPER: ["--arch", WHISPER, "--batch", "4", "--requests", "8",
+              "--prompt-lens", "32,64", "--max-new", "16", "--rate", "0",
+              "--seed", "0"],
+    PIXTRAL: ["--arch", PIXTRAL, "--batch", "4", "--requests", "8",
+              "--prompt-lens", "64,128", "--max-new", "16", "--rate", "0",
+              "--seed", "0"],
+}
+FRONTEND_WAVES = 2
+# the attention shapes (H, KVH, hd): whisper g = 1 at hd 64, pixtral g = 4
+# at hd 128; prefill at whisper's longest decoder prompt and at pixtral's
+# longest prefill (256 patch rows + 128 tokens); whisper's decode over the
+# served ring (64 + 16 tokens: 80 rows) and over 2048-row rings
+WHISPER_ATTN, PIXTRAL_ATTN = (6, 6, 64), (32, 8, 128)
+WHISPER_PREFILL = [("whisper_T64", 64, {})]
+PIXTRAL_PREFILL = [("pixtral_T384", 384, {})]
+WHISPER_RINGS = [("whisper_ring80", 80, 80, 0.0),
+                 ("whisper_ring2048", 2048, 2048, 0.0)]
+# prefill then decode against a full forward over the same sequence on the
+# card: the last FRONTEND_DECODE_STEPS tokens of a prompt decoded, each
+# row within 2^-5 of the largest |logit|; a planted fault (whisper: the
+# frames redrawn for the decode steps; pixtral: the patch rows' ring
+# positions set to -1 before them) must move the logits past that bound
+FRONTEND_DECODE_STEPS, FRONTEND_DECODE_REL = 3, 2.0 ** -5
+# training: whisper at full depth, batch 4 x 256 over 1500 frames; pixtral
+# cut to 4 of 40 layers, batch 4 x 512 after 256 patch rows; 3 AdamW steps
+FRONTEND_TRAIN = {WHISPER: (None, 256, "/layers/0/ffn/w1"),
+                  PIXTRAL: (4, 512, "/layers/0/ffn/wg")}
+FRONTEND_TRAIN_STEPS = 3
+
+
+def check_frontend_gemms(torch, timer):
+    """whisper-tiny's SA GEMMs (`gemm_cases.WHISPER_GEMMS`) at the
+    encoder's M = B·1500 = 6000 (all but the lm_head: the encoder's
+    projections and MLP, the cross-attention's K and V) and the decoder's
+    M = B = 4: each within `error_bound` of the plain version, one launch,
+    no operand copied; its tile, wall and device times beside the byte or
+    flop bound, the plain version and bf16 torch.matmul. Returns
+    (readings, max err/bound, max abs err)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.kernels.gemm_cases import WHISPER_FRAMES, WHISPER_GEMMS
+
+    g = torch.Generator(device="cuda").manual_seed(384)
+    out, worst, max_err = {}, 0.0, 0.0
+    for name, k, n in WHISPER_GEMMS:
+        w = (torch.randn((k, n), generator=g, device="cuda")
+             * k ** -0.5).to(torch.bfloat16)
+        for m in (BATCH * WHISPER_FRAMES, BATCH):
+            if name == "lm_head" and m != BATCH:
+                continue
+            a = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            ops.reset_counts()
+            y = ops.sa_matmul(a, w)
+            launched = ops.counts()["sa_matmul"]
+            copies = ops.operand_copies()
+            ref = mm.sa_matmul_ref(a, w)
+            torch.cuda.synchronize()
+            err = (y - ref).abs()
+            ratio = float((err / mm.error_bound(a, w, y=ref)).max())
+            if (copies or launched != {"launches": 1, "plain_calls": 0}
+                    or not bool(torch.isfinite(y).all())
+                    or not ratio <= 1.0):
+                raise AssertionError(f"whisper gemm {name} M={m}: err/bound "
+                                     f"{ratio}, counts {launched}, operand "
+                                     f"copies {copies}")
+            worst, max_err = max(worst, ratio), max(max_err,
+                                                    float(err.max()))
+            del y, ref, err
+            plan = mm.mma_plan(m, n, "mma")
+            rec = {"M": m, "K": k, "N": n, "tile": plan["tile"],
+                   "grid": plan["grid"], "err_over_bound": ratio,
+                   "ms": timer.wall(lambda: ops.sa_matmul(a, w)),
+                   "device_ms": timer.device(lambda: ops.sa_matmul(a, w)),
+                   "plain_ms": timer.wall(lambda: mm.sa_matmul_ref(a, w),
+                                          reps=5),
+                   "library_ms": timer.wall(lambda: torch.matmul(a, w))}
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                2 * (m * k + k * n) + 4 * m * n, 2.0 * m * n * k, PEAK_BF16)
+            out[f"{name} M={m}"] = rec
+            log(f"[whisper gemm] {name} M={m} K={k} N={n}: {rec['tile']} "
+                f"tile, grid {rec['grid']}; err/bound {ratio:.4f}; kernel "
+                f"{rec['ms']:.4f} ms wall (device {rec['device_ms']}), plain "
+                f"{rec['plain_ms']:.4f}, bf16 torch.matmul "
+                f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.5f} ms "
+                f"({rec['bound_by']}): {100 * rec['bound_ms'] / rec['ms']:.1f}"
+                f" % of it")
+            del a
+        del w
+    torch.cuda.empty_cache()
+    return out, worst, max_err
+
+
+def _frontend(torch, cfg, batch, seed):
+    """Stub frontend embeddings (batch, frontend_tokens, d_model), fp32 on
+    the card, from a seeded CPU generator."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
+                       generator=g).cuda()
+
+
+def _frontend_prefill_decode(torch, engine, prompt, fe):
+    """On the card, batch 1: a full forward over the sequence ([patches ‖
+    prompt] for pixtral; the prompt over the encoded frames for whisper)
+    into a fresh ring, so its attention runs the prefill kernel, against
+    a prefill of all but the prompt's last FRONTEND_DECODE_STEPS tokens
+    followed by that many decode steps (`generate()`'s steps: whisper
+    re-encodes the frames at each, pixtral decodes from position 256 + t
+    without them), and the same decode steps with the planted fault
+    (whisper: redrawn frames; pixtral: the patch rows' ring positions set
+    to -1 after the prefill, hiding the image from decode). Returns
+    {max_abs_diff, max_abs_logit, bound, planted_abs_diff, argmax_ok,
+    rel_rows}."""
+    from repro_torch.models import model as M
+
+    cfg, n = engine.cfg, FRONTEND_DECODE_STEPS
+    vlm = cfg.family == "vlm"
+    off = cfg.frontend_tokens if vlm else 0
+    toks = torch.tensor(prompt, dtype=torch.int32, device="cuda")[None]
+    T = toks.shape[1]
+    rows = -(-(off + T) // PAGE) * PAGE
+
+    def ring():
+        return M.init_cache(cfg, 1, max(rows, engine.ring_len),
+                            dtype=engine.cache_dtype, device="cuda")
+
+    full, _, _ = M.forward(engine.params, cfg, toks, cache=ring(),
+                           frontend_embeds=fe, page_size=engine.page_size)
+    want = full[0, off + T - n - 1:, :cfg.vocab_size].float()
+    del full
+    cache = ring()
+    logits, cache = engine._prefill_for(0)(engine.params, toks[:, :T - n],
+                                           cache, fe)
+    first = logits[0, -1, :cfg.vocab_size].float()
+    planted = M.tree_map(torch.clone, cache)
+    if vlm:
+        for c in planted:
+            c["kv"].positions[:, :, :off] = -1
+        step_fe = planted_fe = None
+    else:
+        step_fe = fe
+        planted_fe = torch.randn(fe.shape, generator=torch.Generator(
+            ).manual_seed(99)).cuda()
+
+    def decode(cache, frontend):
+        out = [first]
+        for t in range(T - n, T):
+            logits, cache = engine._serve_step(
+                engine.params, toks[:, t:t + 1], cache,
+                torch.tensor([off + t], dtype=torch.int32, device="cuda"),
+                frontend)
+            out.append(logits[0, -1, :cfg.vocab_size].float())
+        return torch.stack(out)
+
+    got = decode(cache, step_fe)
+    bad = decode(planted, planted_fe)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("non-finite logits in the prefill/decode check")
+    diff = (got - want).abs().amax(-1)
+    scale = float(want.abs().max())
+    bound = FRONTEND_DECODE_REL * scale
+    top2 = torch.topk(want, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * bound
+    argmax_ok = bool((got.argmax(-1) == want.argmax(-1))[decided].all())
+    return {"max_abs_diff": float(diff.max()), "max_abs_logit": scale,
+            "bound": bound, "argmax_ok": argmax_ok,
+            "planted_abs_diff": float((bad[1:] - want[1:]).abs().max()),
+            "rel_rows": (diff / scale).tolist()}
+
+
+def profile_frontend_chunk(torch, engine, fe, T=64):
+    """One decode chunk of whisper's `generate()` (`sync_every` steps, B =
+    4, after a T-token prefill) under torch.profiler: kernel launches and
+    device ms a step, the idle share of the chunk's wall, and the
+    encoder's share of the step's device time (`encode` over the same
+    frames profiled alone)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    cfg, steps = engine.cfg, engine.sync_every
+    g = torch.Generator().manual_seed(8)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, T), generator=g,
+                            dtype=torch.int32).cuda()
+    cache = engine.new_cache()
+    logits, cache = engine._prefill_for(0)(engine.params, prompts, cache, fe)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    pos = torch.full((BATCH,), T, dtype=torch.int32, device="cuda")
+    run = engine._chunk_fn(steps, True)
+    tok, cache, pos, _, _ = run(engine.params, tok, cache, pos, fe, None)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(engine.params, tok, cache, pos, fe, None)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    ks = device_kernels(torch, prof)
+    fe16 = fe.to(torch.bfloat16)
+    M.encode(engine.params, cfg, fe16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        M.encode(engine.params, cfg, fe16)
+        torch.cuda.synchronize()
+    enc = device_kernels(torch, prof)
+    if not ks or not enc:
+        log("[frontend whisper profile] the profiler recorded no device "
+            "time")
+        return None
+    busy = sum(ms for ms, _ in ks.values())
+    enc_ms = sum(ms for ms, _ in enc.values())
+    out = {"steps": steps,
+           "step_launches": sum(n for _, n in ks.values()) / steps,
+           "step_device_ms": busy / steps, "chunk_wall_s": wall,
+           "chunk_idle_share": 1 - busy / 1e3 / wall,
+           "encoder_device_ms": enc_ms,
+           "encoder_launches": sum(n for _, n in enc.values()),
+           "encoder_share": enc_ms / (busy / steps)}
+    log(f"[frontend whisper profile] one decode chunk ({steps} steps, "
+        f"B={BATCH}, frames re-encoded each step): "
+        f"{out['step_launches']:.1f} launches and "
+        f"{out['step_device_ms']:.4f} ms of device a step; chunk wall "
+        f"{wall:.3f} s under the profiler, idle share "
+        f"{out['chunk_idle_share']:.3f}; encode alone "
+        f"{enc_ms:.4f} ms device ({out['encoder_launches']} launches), "
+        f"{100 * out['encoder_share']:.1f} % of a step's device time")
+    for name, (ms, n) in sorted(ks.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[frontend whisper profile]   {ms / steps:8.4f} ms a step "
+            f"{100 * ms / busy:5.1f}% {n / steps:6.1f} launches  "
+            f"{name[:90]}")
+    return out
+
+
+def frontend_serve(torch, arch):
+    """One frontend arch at full width and depth through
+    `launch/serve.main` under `cuda` (the static waves: `generate()` on
+    batches of 4 with seeded frontends): every request complete, finite
+    logits, no plain version, every GEMM and prefill on `mma`; each
+    kernel's launches exactly as the forwards imply (a wave is a prefill
+    and 15 decode steps, each a forward of `model.gemm_calls` SA GEMMs:
+    73 for whisper, 281 for pixtral; paged decode a layer a decode step,
+    prefill attention a layer a prefill); `serve()` refused; prefill
+    then decode against a full forward with the planted fault outside the
+    bound; prefill logits under `cuda` and `torch`; peak memory. whisper
+    also runs `generate()` on 4 more prompts and a profiled decode chunk.
+    Returns the record."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+    from repro_torch.models import model as M
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    args = FRONTEND_RUNS[arch]
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.monotonic()
+    summary, outs, engine = drv.main(args, return_state=True)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts, routes = ops.counts(), ops.route_counts()
+    cfg = engine.cfg
+    L = cfg.num_layers
+    forwards = FRONTEND_WAVES * MAX_NEW
+    want = {"sa_matmul": M.gemm_calls(cfg) * forwards,
+            "paged_decode": L * FRONTEND_WAVES * (MAX_NEW - 1),
+            "prefill_attention": L * FRONTEND_WAVES}
+    launches = {k: counts[k]["launches"] for k in want}
+    problems = []
+    if (summary["requests"] != 8 or summary["generated_tokens"] != 8 * MAX_NEW
+            or summary["waves"] != FRONTEND_WAVES
+            or summary["nonfinite_logits"]
+            or any(o.shape != (BATCH, MAX_NEW) for o in outs)):
+        problems.append(f"incomplete or non-finite: {summary}")
+    if launches != want:
+        problems.append(f"launches {launches}, the forwards imply {want}")
+    if any(c["plain_calls"] for c in counts.values()):
+        problems.append(f"a plain version ran: {counts}")
+    mm_r, pre_r = routes["sa_matmul"], routes["prefill_attention"]
+    if mm_r["mma"] != launches["sa_matmul"] or pre_r["mma"] != launches[
+            "prefill_attention"]:
+        problems.append(f"routes {routes}: every GEMM and prefill on mma")
+    sched = SlotScheduler(BATCH)
+    sched.submit([1, 2, 3], max_new_tokens=2)
+    try:
+        engine.serve(sched)
+        problems.append("serve() did not refuse a frontend arch")
+    except ValueError as e:
+        if "text-only" not in str(e):
+            raise
+    ttft = summary["prefill_s"] / FRONTEND_WAVES
+    itl = 1e3 * summary["decode_s"] / (FRONTEND_WAVES * (MAX_NEW - 1))
+    rec = {"layers": L, "encoder_layers": cfg.encoder_layers,
+           "params_b": sum(t.numel() for t in M.tree_leaves(
+               engine.params)) / 1e9,
+           "launches": launches, "want": want, "gemm_calls": M.gemm_calls(
+               cfg), "ttft_s": ttft, "itl_ms": itl,
+           "prefill_s": summary["prefill_s"], "decode_s": summary["decode_s"],
+           "decode_tok_s": summary["decode_tok_s"],
+           "peak_gib": peak / 2 ** 30, "wall_s": wall,
+           "tokens_digest": hashlib.sha1(json.dumps(
+               [o.tolist() for o in outs]).encode()).hexdigest()[:16]}
+    log(f"[frontend {arch}] {L} decoder layers, {cfg.encoder_layers} "
+        f"encoder layers, {rec['params_b']:.3f} B parameters; static waves "
+        f"{summary}; launches {launches} (want {want}); ttft {ttft:.4f} s "
+        f"a wave, itl {itl:.3f} ms; wall {wall:.2f} s (init + serve); peak "
+        f"{rec['peak_gib']:.2f} GiB")
+    fe = _frontend(torch, cfg, 1, 21)
+    g = torch.Generator().manual_seed(22)
+    plen = 64 if arch == WHISPER else 128
+    prompt = torch.randint(0, cfg.vocab_size, (plen,), generator=g).tolist()
+    pd = _frontend_prefill_decode(torch, engine, prompt, fe)
+    rec["prefill_decode"] = pd
+    log(f"[frontend {arch}] prefill {plen - FRONTEND_DECODE_STEPS} tokens "
+        f"then {FRONTEND_DECODE_STEPS} decode steps against a full forward: "
+        f"max|diff| {pd['max_abs_diff']:.4e} (a row over max|logit|: "
+        f"{[round(r, 5) for r in pd['rel_rows']]}), max|logit| "
+        f"{pd['max_abs_logit']:.4e}, bound {pd['bound']:.4e}, argmax where "
+        f"decided {pd['argmax_ok']}; planted fault "
+        f"({'redrawn frames' if arch == WHISPER else 'patch rows hidden'}) "
+        f"{pd['planted_abs_diff']:.4e}")
+    if not pd["argmax_ok"]:
+        problems.append("prefill then decode: argmax differs where decided")
+    if not pd["max_abs_diff"] <= pd["bound"]:
+        problems.append("prefill then decode differs from the full forward "
+                        "beyond 2^-5 of max|logit|")
+    if not pd["planted_abs_diff"] > max(pd["bound"], 2 * pd["max_abs_diff"]):
+        problems.append("the planted fault is not told apart from the real "
+                        "decode")
+    diff, bound = backend_logits(torch, engine, prompt, frontend=fe)
+    rec["backend_logits"] = {"max_abs_diff": diff, "bound": bound}
+    if arch == WHISPER:
+        fe4 = _frontend(torch, cfg, BATCH, 23)
+        prompts = torch.randint(0, cfg.vocab_size, (BATCH, 48), generator=g,
+                                dtype=torch.int32)
+        ops.reset_counts()
+        toks = engine.generate(prompts, MAX_NEW, frontend=fe4)
+        st = engine.last_stats
+        got = ops.counts()["sa_matmul"]["launches"]
+        rec["generate"] = {"prefill_s": st["prefill_s"],
+                           "decode_s": st["decode_s"],
+                           "itl_ms": 1e3 * st["decode_s"] / (MAX_NEW - 1)}
+        log(f"[frontend {arch}] generate() on 4 prompts of 48 tokens: shape "
+            f"{tuple(toks.shape)}, prefill_s {st['prefill_s']:.4f}, "
+            f"decode_s {st['decode_s']:.4f}, SA GEMM launches {got} (want "
+            f"{M.gemm_calls(cfg) * MAX_NEW}), nonfinite "
+            f"{st['nonfinite_logits']}")
+        if (tuple(toks.shape) != (BATCH, MAX_NEW) or st["nonfinite_logits"]
+                or got != M.gemm_calls(cfg) * MAX_NEW):
+            problems.append("generate() incomplete, non-finite or off count")
+        prof = profile_frontend_chunk(torch, engine, fe4)
+        if prof:
+            prof["itl_idle_share"] = 1 - prof["step_device_ms"] / itl
+        rec["profile"] = prof
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"frontend {arch} failed: " + "; ".join(problems))
+    return rec
+
+
+def frontend_train(torch, arch):
+    """Training with a frontend under `cuda`: whisper at full depth over
+    1500 frames, pixtral cut to 4 of 40 layers after 256 patch rows
+    (FRONTEND_TRAIN), batch 4. Step 0 under `cuda` and `torch`
+    (`train_step0`: the loss within 2^-10, every leaf within 2^-5, the
+    planted faults outside), then FRONTEND_TRAIN_STEPS AdamW steps:
+    finite losses and grad norms, every forward GEMM on `mma` and every
+    backward GEMM on `split3`, no plain version; time a step and peak
+    memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.train_state import init_state
+
+    layers, seq, jac = FRONTEND_TRAIN[arch]
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    step0 = train_step0(torch, cfg, accum=1, jac_leaf=jac, seq=seq,
+                        frontend=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    opt = AdamW(schedule=warmup_cosine(3e-4, 1, FRONTEND_TRAIN_STEPS))
+    step = make_train_step(cfg, opt)
+    state = init_state(cfg, opt, seed=0, device="cuda")
+    data = SyntheticLM(cfg.vocab_size, seq, TRAIN_BATCH, seed=0)
+    hist = []
+    for i in range(FRONTEND_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch_at(i).items()}
+        batch["frontend"] = _frontend(torch, cfg, TRAIN_BATCH, 30 + i)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        hist.append(dict(m, wall_s=time.monotonic() - t0))
+    counts = ops.counts()
+    routes = ops.route_counts()["sa_matmul"]
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in M.tree_leaves(state.params))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = [h["wall_s"] for h in hist]
+    later = steps[1:]
+    rec = {"layers": cfg.num_layers, "params_b": n_params / 1e9,
+           "batch": [TRAIN_BATCH, seq, cfg.frontend_tokens],
+           "step_s": steps, "mean_step_s": sum(later) / len(later),
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "peak_gib": peak / 2 ** 30, "counts": counts, "routes": routes,
+           "step0": step0}
+    log(f"[frontend train {arch}] {cfg.num_layers} layers, "
+        f"{rec['params_b']:.3f} B parameters, batch {TRAIN_BATCH} x {seq} "
+        f"with {cfg.frontend_tokens} frontend rows: step wall s {steps}, "
+        f"mean of steps 2-{len(steps)} {rec['mean_step_s']:.4f} s; losses "
+        f"{rec['losses']}; grad norms {rec['grad_norms']}; counts {counts}; "
+        f"routes {routes}; peak memory {rec['peak_gib']:.2f} GiB")
+    problems = []
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        problems.append("non-finite loss or grad norm")
+    for key in ("sa_matmul", "sa_matmul_bwd"):
+        if counts[key]["launches"] <= 0 or counts[key]["plain_calls"]:
+            problems.append(f"{key}: {counts[key]}")
+    if (routes["mma"] != counts["sa_matmul"]["launches"]
+            or routes["split3"] != counts["sa_matmul_bwd"]["launches"]
+            or routes["simt"] or routes["partial"]):
+        problems.append(f"SA GEMM routes {routes}: the forward must run "
+                        f"mma only and the backward split3 only")
+    if problems:
+        raise AssertionError(f"frontend train {arch} failed: "
+                             + "; ".join(problems))
+    return rec
+
+
+def frontend(torch):
+    """The frontend families on the card, one model at a time: whisper-tiny
+    served (static waves, `generate()`, a profiled decode chunk) and
+    trained at full depth, pixtral-12b served at full width and depth
+    (~24.5 GB of bf16 weights) and trained cut to 4 layers."""
+    out = {}
+    for arch in (WHISPER, PIXTRAL):
+        t = time.monotonic()
+        out[arch] = frontend_serve(torch, arch)
+        log(f"[frontend] {arch} serve {time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        out[f"{arch}_train"] = frontend_train(torch, arch)
+        log(f"[frontend] {arch} train {time.monotonic() - t:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: train
 # ---------------------------------------------------------------------------
 
@@ -4554,7 +5123,8 @@ def _leaf_rel(torch, got, want):
 
 
 def train_step0(torch, cfg, accum=TRAIN_ACCUM, jac_leaf="/layers/0/ffn/wg",
-                routing=None, fault_leaf="/layers/0/attn/wo"):
+                routing=None, fault_leaf="/layers/0/attn/wo", seq=TRAIN_SEQ,
+                frontend=False):
     """Step 0's loss and gradients (`accum` microbatches) under the `cuda`
     and `torch` GEMM backends on the same fp32 masters and batch: the loss
     within TRAIN_LOSS_REL, every leaf within TRAIN_GRAD_REL of its norm.
@@ -4564,7 +5134,9 @@ def train_step0(torch, cfg, accum=TRAIN_ACCUM, jac_leaf="/layers/0/ffn/wg",
     the kernel that drops the activation jacobian (du = dy) at `jac_leaf`
     (None: a stack whose GEMMs fuse no activation, mamba2's, skips it).
     `routing` (a `_RoutingReplay`, MoE stacks) records the `torch` run's
-    routing decisions and replays them in the later runs."""
+    routing decisions and replays them in the later runs. `seq` is the
+    batch's token length; with `frontend` the batch also carries seeded
+    frontend embeddings (TRAIN_BATCH, frontend_tokens, d_model)."""
     from repro_torch.core.precision import PrecisionPolicy, use_policy
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import sa_matmul as mm
@@ -4575,7 +5147,9 @@ def train_step0(torch, cfg, accum=TRAIN_ACCUM, jac_leaf="/layers/0/ffn/wg",
     for p in M.tree_leaves(params):
         p.requires_grad_(True)
     batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
-        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1).batch_at(0).items()}
+        cfg.vocab_size, seq, TRAIN_BATCH, seed=1).batch_at(0).items()}
+    if frontend:
+        batch["frontend"] = _frontend(torch, cfg, TRAIN_BATCH, 1)
     grad_fn = make_grad_fn(cfg, accum)
     out = {}
     for backend in ("torch", "cuda"):
@@ -4881,6 +5455,27 @@ def main(argv=None):
     kernels[2]["readings"]["hd64_rings"] = rings64
     kernels[2]["err_over_bound"] = max(kernels[2]["err_over_bound"], w_r64)
     phases["kernels_ssm"] = time.monotonic() - t
+    # the frontend families: whisper's GEMMs at M = 6000 and 4, prefill at
+    # whisper's g = 1, hd 64 and pixtral's T = 384, whisper's decode rings
+    t = time.monotonic()
+    fe_gemms, w_fe, e_fe = check_frontend_gemms(torch, timer)
+    kernels[0]["readings"]["whisper_gemms"] = fe_gemms
+    kernels[0]["err_over_bound"] = max(kernels[0]["err_over_bound"], w_fe)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], e_fe)
+    for tag, attn, shapes, seed in (
+            ("whisper", WHISPER_ATTN, WHISPER_PREFILL, 65),
+            ("pixtral", PIXTRAL_ATTN, PIXTRAL_PREFILL, 128)):
+        r_fe, w_p, e_p = check_prefill_hd256(torch, timer, attn, shapes, tag,
+                                             seed=seed)
+        kernels[3]["readings"][tag] = r_fe
+        kernels[3]["err_over_bound"] = max(kernels[3]["err_over_bound"], w_p)
+        kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], e_p)
+    rings_w, w_rw = check_decode_rings(torch, timer, WHISPER_ATTN,
+                                       WHISPER_RINGS, plan_slots=(80, 2048),
+                                       seed=65)
+    kernels[2]["readings"]["whisper_rings"] = rings_w
+    kernels[2]["err_over_bound"] = max(kernels[2]["err_over_bound"], w_rw)
+    phases["kernels_frontend"] = time.monotonic() - t
     t = time.monotonic()
     kernels[2]["readings"]["batch_fold_ms"] = check_fold(torch, timer)
     # what the fp32 routes' one order of sums (F2b) costs
@@ -4968,6 +5563,7 @@ def main(argv=None):
             arch: {key: r[key] for key in (
                 "stream_digest", "decode_itl_p50_ms", "ttft_mean_s",
                 "prefill_s", "decode_tok_s", "max_abs_logit")}
+            | ({"spec": r["spec"]} if "spec" in r else {})
             for arch, r in fam.items()}))
         phases["families"] = time.monotonic() - t
 
@@ -5017,6 +5613,29 @@ def main(argv=None):
                     "mean_step_s", "step_s", "losses", "peak_gib",
                     "step0")}}))
         phases["ssm"] = time.monotonic() - t
+
+        t = time.monotonic()
+        fe_out = frontend(torch)
+        for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                         (3, "prefill_attention")):
+            kernels[k_]["readings"]["frontend_launches"] = {
+                arch: fe_out[arch]["launches"][name]
+                for arch in (WHISPER, PIXTRAL)}
+        kernels[1]["readings"]["frontend_train"] = {
+            arch: {key: fe_out[f"{arch}_train"][key]
+                   for key in ("counts", "routes")}
+            for arch in (WHISPER, PIXTRAL)}
+        log("[frontend] " + json.dumps({
+            arch: {key: fe_out[arch].get(key) for key in (
+                "launches", "gemm_calls", "ttft_s", "itl_ms", "prefill_s",
+                "decode_s", "decode_tok_s", "peak_gib", "prefill_decode",
+                "backend_logits", "generate", "profile", "tokens_digest")}
+            for arch in (WHISPER, PIXTRAL)} | {
+            f"{arch}_train": {key: fe_out[f"{arch}_train"][key] for key in (
+                "layers", "batch", "mean_step_s", "step_s", "losses",
+                "peak_gib", "step0")}
+            for arch in (WHISPER, PIXTRAL)}))
+        phases["frontend"] = time.monotonic() - t
 
         t = time.monotonic()
         summary, got, engine, sched = serve_emulate(torch)

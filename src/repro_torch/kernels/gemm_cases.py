@@ -45,6 +45,15 @@ DENSE_FFN_GEMMS = {
 # (`model.matrix_storage`)
 SSM_GEMMS = [("mamba2 in_proj", 2560, 10576), ("mamba2 out_proj", 5120, 2560),
              ("hymba in_proj", 1600, 6482), ("hymba out_proj", 3200, 1600)]
+# (name, K, N) of whisper-tiny's SA GEMMs (d 384, 6 heads of 64, d_ff
+# 1536, vocabulary padded to 53248): the attention projections (the
+# encoder's, the cross-attention's wq and wo and its K and V over the
+# encoder's output, the decoder's self-attention), the MLP and the lm_head.
+# The encoder's run at M = batch · WHISPER_FRAMES rows, the decoder's at
+# M = batch
+WHISPER_GEMMS = [("attn 384x384", 384, 384), ("mlp w1", 384, 1536),
+                 ("mlp w2", 1536, 384), ("lm_head", 384, 53248)]
+WHISPER_FRAMES = 1500
 
 
 def emu_operands(g: torch.Generator, m: int, k: int, n: int, fmt: str):

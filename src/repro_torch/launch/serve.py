@@ -21,6 +21,12 @@ plain version, `cuda`, the hand-written SA GEMM kernel, or `emulate`, the
 paper's bit-exact skewed datapath through the fp_emu kernel). The summary
 line `[continuous] k=v ...` and its `stream_digest` are the JAX driver's.
 
+The frontend archs, whisper-tiny (encoder-decoder) and pixtral-12b (VLM),
+take the JAX driver's static-wave path (`serve_static`): `--requests`
+prompts in waves of `--batch` through `ServeEngine.generate`, each wave's
+prompts and frontend (frame or patch embeddings) drawn from a seeded
+`torch.Generator`; the summary line is `[static] ...`.
+
 `--kv ring` serves on per-slot dense rings instead of the paged pool.
 `--tier-mix p` marks each request `bulk` with probability p (drawn after
 its prompt, so the prompts do not depend on p): a decode chunk whose
@@ -294,6 +300,50 @@ def serve_replicas(args, cfg, params, plens, device):
     return summary, scheds
 
 
+def serve_static(args, cfg, params, plens, device):
+    """Static-batch waves for the frontend archs (the JAX driver's
+    `serve_static`): `--requests` prompts served in waves of `--batch`
+    through `generate()` (arrivals and `--rate` do not apply: a wave
+    waits on its slowest member). Prompt lengths cycle a wave (a wave's
+    batch prefill is rectangular); wave w's prompts and frontend
+    embeddings (B, frontend_tokens, d_model) come from a
+    `torch.Generator` seeded `--seed + 1 + w`. Counts the real generated
+    tokens (through the first EOS a row; the last wave's padding rows do
+    not count). Returns (summary, the waves' token arrays, engine)."""
+    engine = ServeEngine(cfg, params, args.batch, args.cache_len,
+                         eos_id=args.eos_id, sync_every=args.sync_every,
+                         page_size=args.page_size, device=device)
+    served = n_real = nonfinite = 0
+    prefill_s = decode_s = 0.0
+    outs = []
+    waves = max(1, -(-args.requests // args.batch))
+    for w in range(waves):
+        plen = plens[w % len(plens)]
+        g = torch.Generator().manual_seed(args.seed + 1 + w)
+        prompts = torch.randint(0, cfg.vocab_size, (args.batch, plen),
+                                generator=g, dtype=torch.int32)
+        frontend = torch.randn((args.batch, cfg.frontend_tokens,
+                                cfg.d_model), generator=g)
+        out = engine.generate(prompts, args.max_new,
+                              frontend=frontend).numpy()
+        outs.append(out)
+        n_rows = min(args.batch, args.requests - served)
+        for row in out[:n_rows]:
+            eos = np.nonzero(row == args.eos_id)[0]
+            n_real += int(eos[0]) + 1 if eos.size else row.shape[0]
+        served += n_rows
+        prefill_s += engine.last_stats["prefill_s"]
+        decode_s += engine.last_stats["decode_s"]
+        nonfinite += engine.last_stats["nonfinite_logits"]
+    summary = {"requests": served, "generated_tokens": n_real,
+               "waves": waves, "prefill_s": round(prefill_s, 4),
+               "decode_s": round(decode_s, 4),
+               "decode_tok_s": round(max(n_real - served, 0) / decode_s, 2)
+               if decode_s > 0 else 0.0,
+               "nonfinite_logits": nonfinite}
+    return summary, outs, engine
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -373,7 +423,8 @@ def parse_args(argv=None):
 def main(argv=None, *, return_state: bool = False, params=None):
     """Serve the synthetic stream and print the summary line. Returns the
     summary, or (summary, scheduler, engine) with `return_state`; with
-    `--decode-replicas` N > 1, (aggregate summary, the N schedulers).
+    `--decode-replicas` N > 1, (aggregate summary, the N schedulers); for
+    a frontend arch (static waves), (summary, the waves' tokens, engine).
     `params` serves given weights (on the run's device) instead of
     drawing them from `--seed`."""
     args = parse_args(argv)
@@ -392,7 +443,12 @@ def main(argv=None, *, return_state: bool = False, params=None):
     plens = [int(x) for x in args.prompt_lens.split(",")]
     extra = args.prefix_len if args.prefix_mix > 0 else 0
     args.cache_len = args.cache_len or (max(plens) + extra + args.max_new)
-    if args.decode_replicas > 1:
+    if cfg.family == "vlm" or cfg.is_encdec:
+        summary, outs, engine = serve_static(args, cfg, params, plens,
+                                             device)
+        state = (summary, outs, engine)
+        mode = "static"
+    elif args.decode_replicas > 1:
         summary, scheds = serve_replicas(args, cfg, params, plens, device)
         state = (summary, scheds)
         mode = f"replicas x{args.decode_replicas}"

@@ -36,22 +36,31 @@ def params_from_numpy(tree, device=None, dtype=None):
     """The port's parameters from a numpy tree with the JAX key names.
     Matrices are stored in `dtype`: by default bf16 on CUDA and fp32 on
     the CPU (see models/model.py); `torch.float32` keeps fp32 masters for
-    training. Vectors stay fp32: the top level's 1-D leaves and, under
-    `layers` (whose axis 0 stacks the superblocks), the 2-D stacked
-    vectors (norms, biases, the SSM's `dt_bias`, `A_log`, `D_skip` and
+    training. Vectors stay fp32: the 1-D leaves outside any `layers` and,
+    under a `layers` key at any depth (whose axis 0 stacks the
+    superblocks, or the encoder-decoder's encoder layers under
+    `encoder`), the 2-D stacked vectors (norms and their layernorm
+    biases, the QKV biases, the SSM's `dt_bias`, `A_log`, `D_skip` and
     `norm_w`), the rule `init_params` and the forward's superblock cast
     follow."""
     dev = resolve_device(device)
     mat = dtype or (torch.bfloat16 if dev.type == "cuda" else torch.float32)
-    return {k: _convert(v, lambda x, nd=3 if k == "layers" else 2:
-                        _leaf(x, dev, mat, nd))
-            for k, v in tree.items()}
+
+    def convert(t, nd):
+        if isinstance(t, dict):
+            return {k: convert(v, 3 if k == "layers" else nd)
+                    for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return tuple(convert(v, nd) for v in t)
+        return _leaf(t, dev, mat, nd)
+
+    return convert(tree, 2)
 
 
 def cache_from_numpy(tree, device=None):
     """A cache tree (tuple of {"kv": KVCache | PagedKVCache, "ssm":
-    (state, conv tail)}) with every leaf copied as is; NamedTuples map by
-    field names, the ssm tuples stay plain tuples."""
+    (state, conv tail), "cross": KVCache}) with every leaf copied as is;
+    NamedTuples map by field names, the ssm tuples stay plain tuples."""
     dev = resolve_device(device)
     return _convert(tree, lambda x: torch.from_numpy(
         np.array(x, copy=True)).to(dev))

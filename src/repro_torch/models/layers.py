@@ -26,9 +26,19 @@ def rmsnorm(x, w, eps=1e-6):
     return (x32 * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
 
 
+def layernorm(x, w, b, eps=1e-5):
+    # the population variance, as jnp.var
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = ((x32 - mu) * torch.rsqrt(var + eps) * w.to(torch.float32)
+         + b.to(torch.float32))
+    return y.to(x.dtype)
+
+
 def norm_apply(x, p, kind="rmsnorm", eps=1e-6):
-    if kind != "rmsnorm":
-        raise ValueError(f"norm {kind!r} is not ported yet")
+    if kind == "layernorm":
+        return layernorm(x, p["w"], p["b"], eps)
     return rmsnorm(x, p["w"], eps)
 
 
@@ -354,7 +364,8 @@ def _decode_attend(q, k, v, cache, positions, window: int, cap: float,
 
 
 def attention_block(x, p, cfg, meta, positions, cache=None,
-                    causal: bool = True, prefix_len: int = 0,
+                    rope: bool = True, causal: bool = True,
+                    kv_override=None, prefix_len: int = 0,
                     decode_multi: bool = False, page_size: int = 16):
     """Attention sub-layer. Returns (out, cache).
 
@@ -364,13 +375,21 @@ def attention_block(x, p, cfg, meta, positions, cache=None,
     `page_size` splits a ring's rows for the decode kernel on the card).
     Otherwise prefill: a dense cache is filled in place; `prefix_len` is
     continued prefill over KV already in the cache's first `prefix_len`
-    rows."""
+    rows. `rope=False` rotates neither q nor k (whisper). `kv_override`
+    (k, v) replaces the projected k and v (cross-attention over the
+    encoder's output), unrotated; the three projections still run, as in
+    the JAX package."""
     window = cfg.window if meta.get("attn") == "local" else 0
     q, k, v = qkv_project(x, p, cfg)
-    q = apply_rope(q.transpose(1, 2), positions[:, None, :],
-                   cfg.rope_theta).transpose(1, 2)
-    k = apply_rope(k.transpose(1, 2), positions[:, None, :],
-                   cfg.rope_theta).transpose(1, 2)
+    rope_kv = kv_override is None
+    if kv_override is not None:          # cross-attention: kv from encoder
+        k, v = kv_override
+    if rope:
+        q = apply_rope(q.transpose(1, 2), positions[:, None, :],
+                       cfg.rope_theta).transpose(1, 2)
+        if rope_kv:
+            k = apply_rope(k.transpose(1, 2), positions[:, None, :],
+                           cfg.rope_theta).transpose(1, 2)
     if cache is not None and cache.k.shape[-2] != k.shape[2]:
         raise ValueError("padded KV heads are not ported yet")
     if cache is not None and (decode_multi or x.shape[1] == 1):
@@ -440,3 +459,13 @@ def ffn_swiglu(x, p, act="silu"):
     else:
         h = act_fn(sa_dot(xf, p["wg"]), act) * sa_dot(xf, p["wu"])
     return sa_dot(h, p["wd"]).reshape(B, T, D)
+
+
+def ffn_mlp(x, p, act="gelu"):
+    """The classic two-matrix MLP (whisper): act in w1's epilogue when
+    fused, else applied to its fp32 output."""
+    B, T, D = x.shape
+    xf = x.reshape(B * T, D)
+    if _fuse_epilogue():
+        return sa_dot(sa_dot(xf, p["w1"], act=act), p["w2"]).reshape(B, T, D)
+    return sa_dot(act_fn(sa_dot(xf, p["w1"]), act), p["w2"]).reshape(B, T, D)

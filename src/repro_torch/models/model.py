@@ -1,10 +1,13 @@
-"""Model assembly, main-path subset: the decoder-only LM, dense (qwen2.5,
-phi3, gemma2, gemma3: untied or tied embeddings, global and local-window
-attention, softcaps, SwiGLU or GeGLU), MoE (granite, llama4: routed
-experts on every `moe_every`-th layer, an optional shared expert;
-models/moe.py), SSM (mamba2: every layer a Mamba2 mixer; models/ssm.py)
-and hybrid (hymba: attention and a Mamba2 mixer side by side in every
-layer, their outputs' RMSNorms averaged).
+"""Model assembly: the decoder-only LM, dense (qwen2.5, phi3, gemma2,
+gemma3: untied or tied embeddings, global and local-window attention,
+softcaps, SwiGLU or GeGLU), MoE (granite, llama4: routed experts on every
+`moe_every`-th layer, an optional shared expert; models/moe.py), SSM
+(mamba2: every layer a Mamba2 mixer; models/ssm.py) and hybrid (hymba:
+attention and a Mamba2 mixer side by side in every layer, their outputs'
+RMSNorms averaged); the encoder-decoder (whisper: layernorm, a GELU MLP,
+an encoder stack over stub frame embeddings with sinusoidal positions,
+and a cross-attention sublayer in every decoder layer) and the VLM
+(pixtral: stub patch embeddings prepended to the text sequence).
 
 Parameters are a plain nested dict with the JAX package's key names and
 its stacked superblock axis: `params["layers"]` is a tuple of
@@ -39,13 +42,13 @@ from .ssm import mamba2_block
 
 
 def check_supported(cfg: ArchConfig):
-    """The port's model code covers the dense, MoE, SSM and hybrid
-    decoder-only families, with tied or untied embeddings."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.norm != "rmsnorm" or cfg.is_encdec):
+    """The port's model code covers every family the JAX package builds
+    (dense, MoE, SSM, hybrid, the encoder-decoder and the VLM), with
+    RMSNorm or LayerNorm, tied or untied embeddings."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+            or cfg.norm not in ("rmsnorm", "layernorm")):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} / norm "
-                         f"{cfg.norm!r} is not ported yet (dense, MoE, SSM "
-                         f"and hybrid rmsnorm decoders only)")
+                         f"{cfg.norm!r} is not ported")
 
 
 def has_ssm(cfg: ArchConfig) -> bool:
@@ -59,9 +62,16 @@ def gemm_calls(cfg: ArchConfig, tokens: int = 1) -> int:
     MoE GEMMs, and the lm_head) where the stack has attention and an FFN;
     an SSM layer makes 2 (in_proj and out_proj), a hybrid layer those 2
     beside the 7 of attention and FFN. mamba2-2.7b: 129 a decode step,
-    hymba-1.5b: 289. On the card each call is one kernel launch."""
+    hymba-1.5b: 289. The encoder-decoder's forward with a frontend re-runs
+    the encoder (6 an encoder layer: 4 attention, 2 MLP), and a decoder
+    layer makes 12 (self-attention 4, cross-attention 3 projections + the
+    encoder's K and V + the output, MLP 2): whisper-tiny 73. The VLM's is
+    the dense count (pixtral-12b: 281). On the card each call is one
+    kernel launch."""
     if cfg.family == "ssm":
         return 1 + 2 * cfg.num_layers
+    if cfg.is_encdec:
+        return 1 + 12 * cfg.num_layers + 6 * cfg.encoder_layers
     return moe_gemm_calls(cfg, tokens) + (2 * cfg.num_layers if cfg.hybrid
                                           else 0)
 
@@ -115,7 +125,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     matrices, 0.02-scaled embedding, unit norms, zero biases), not its
     random bits. `dtype` is the matrices' storage type: by default bf16 on
     CUDA (serving) and fp32 on the CPU; `torch.float32` gives the fp32
-    masters training keeps."""
+    masters training keeps. A layernorm adds a zero bias `b` beside each
+    norm's `w`; the encoder-decoder adds `cross` and `norm_cross` to every
+    decoder layer and `encoder = {layers, final_norm}`, its layers stacked
+    over `cfg.encoder_layers` on axis 0 (the JAX package's tree)."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
@@ -144,14 +157,35 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
                                      device=dev) * std
         return out
 
-    def dense(fan_in, shape):
-        return normal((n_super, *shape), fan_in ** -0.5)
+    def dense(fan_in, shape, n=n_super):
+        return normal((n, *shape), fan_in ** -0.5)
 
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    def norm(*lead):
+        p = {"w": ones(*lead, d)}
+        if cfg.norm == "layernorm":
+            p["b"] = zeros(*lead, d)
+        return p
+
+    def attention(n=n_super):
+        p = {"wq": dense(d, (d, H * hd), n), "wk": dense(d, (d, KVH * hd), n),
+             "wv": dense(d, (d, KVH * hd), n),
+             "wo": dense(H * hd, (H * hd, d), n)}
+        if cfg.qkv_bias:
+            p |= {"bq": zeros(n, H * hd), "bk": zeros(n, KVH * hd),
+                  "bv": zeros(n, KVH * hd)}
+        return p
+
+    def ffn(n=n_super):
+        if cfg.family == "audio":     # the classic 2-matrix MLP (whisper)
+            return {"w1": dense(d, (d, ff), n), "w2": dense(ff, (ff, d), n)}
+        return {"wg": dense(d, (d, ff), n), "wu": dense(d, (d, ff), n),
+                "wd": dense(ff, (ff, d), n)}
 
     def ssm():
         # the JAX package's `_init_ssm`: the conv runs over [x | B | C]
@@ -164,17 +198,11 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
 
     def layer(j):
         if cfg.family == "ssm":           # no attention, no FFN, no norm2
-            return {"norm1": {"w": ones(n_super, d)}, "ssm": ssm()}
-        attn = {"wq": dense(d, (d, H * hd)), "wk": dense(d, (d, KVH * hd)),
-                "wv": dense(d, (d, KVH * hd)),
-                "wo": dense(H * hd, (H * hd, d))}
-        if cfg.qkv_bias:
-            attn |= {"bq": zeros(n_super, H * hd),
-                     "bk": zeros(n_super, KVH * hd),
-                     "bv": zeros(n_super, KVH * hd)}
-        p = {"norm1": {"w": ones(n_super, d)},
-             "norm2": {"w": ones(n_super, d)},
-             "attn": attn}
+            return {"norm1": norm(n_super), "ssm": ssm()}
+        p = {"norm1": norm(n_super), "norm2": norm(n_super),
+             "attn": attention()}
+        if cfg.is_encdec:
+            p |= {"cross": attention(), "norm_cross": norm(n_super)}
         if cfg.hybrid:
             p |= {"ssm": ssm(), "attn_norm": {"w": ones(n_super, d)},
                   "ssm_norm": {"w": ones(n_super, d)}}
@@ -188,17 +216,22 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
                              "shared_wu": dense(d, (d, F)),
                              "shared_wd": dense(F, (F, d))}
         else:
-            p["ffn"] = {"wg": dense(d, (d, ff)), "wu": dense(d, (d, ff)),
-                        "wd": dense(ff, (ff, d))}
+            p["ffn"] = ffn()
         return p
 
     params: dict[str, Any] = {
         "embed": normal((cfg.padded_vocab, d), 0.02),
-        "final_norm": {"w": ones(d)},
+        "final_norm": norm(),
         "layers": tuple(layer(j) for j in range(period)),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
+    if cfg.is_encdec:
+        n_enc = cfg.encoder_layers
+        params["encoder"] = {
+            "layers": {"norm1": norm(n_enc), "norm2": norm(n_enc),
+                       "attn": attention(n_enc), "ffn": ffn(n_enc)},
+            "final_norm": norm()}
     return params
 
 
@@ -208,7 +241,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                dtype=torch.bfloat16, device=None,
-               paged: tuple[int, int] | None = None):
+               paged: tuple[int, int] | None = None,
+               local_rows: int | None = None):
     """Stacked per-layer cache, leaves with the superblock index on axis 0
     and (dense) the batch slot on axis 1. A local-window layer gets a
     dense ring of min(window, seq_len) rows.
@@ -223,7 +257,16 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     An SSM or hybrid layer also carries `"ssm"`: (state (n_super, batch,
     H, P, N) fp32 whatever `dtype`, conv tail (n_super, batch, 3,
     d_inner + 2N) in `dtype`), per slot in either layout; an SSM layer
-    has no `"kv"`. The JAX package's leaves and types."""
+    has no `"kv"`. An encoder-decoder layer carries `"cross"`, a KVCache
+    of `frontend_tokens` rows that the forward passes through unused (the
+    cross-attention recomputes the encoder's K and V, as the JAX package
+    does). The JAX package's leaves and types.
+
+    `local_rows` gives each local layer's ring that many rows instead of
+    `window`, and makes it a ring whatever `seq_len`: the serve engine's
+    rings under speculative decoding, `window + spec_k` rounded up to a
+    page, so a verify's writes never land on a row a live window still
+    reads (ROADMAP F6)."""
     check_supported(cfg)
     dev = resolve_device(device)
     period = cfg.stack_period
@@ -235,7 +278,7 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
 
     def kv_cache(j):
         local = (cfg.layer_kind(j)["attn"] == "local" and cfg.window
-                 and cfg.window < seq_len)
+                 and (cfg.window < seq_len or local_rows))
         if paged is not None and not local:
             n_pages, psz = paged
             max_pages = -(-seq_len // psz)
@@ -245,7 +288,7 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                 positions=full((n_super, n_pages, psz), -1, torch.int32),
                 block_table=full((n_super, batch, max_pages), -1,
                                  torch.int32))
-        S = cfg.window if local else seq_len
+        S = (local_rows or cfg.window) if local else seq_len
         return KVCache(
             k=full((n_super, batch, S, kvh, hd), 0, dtype),
             v=full((n_super, batch, S, kvh, hd), 0, dtype),
@@ -259,6 +302,12 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                       cfg.ssm_state), 0, torch.float32),
                 full((n_super, batch, 3, cfg.d_inner + 2 * cfg.ssm_state),
                      0, dtype))
+        if cfg.is_encdec:
+            ft = cfg.frontend_tokens
+            c["cross"] = KVCache(
+                k=full((n_super, batch, ft, kvh, hd), 0, dtype),
+                v=full((n_super, batch, ft, kvh, hd), 0, dtype),
+                positions=full((n_super, batch, ft), -1, torch.int32))
         return c
 
     return tuple(layer_cache(j) for j in range(period))
@@ -269,11 +318,15 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
 # ---------------------------------------------------------------------------
 
 def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
-              decode_multi: bool = False, page_size: int = 16):
+              decode_multi: bool = False, page_size: int = 16,
+              encoder_out=None):
     """One transformer layer. Returns (x, cache, aux): aux is a MoE
     layer's aux losses where no cache is threaded, else None. An SSM or
     hybrid layer's mixer state and conv tail are written into the cache's
-    `"ssm"` tensors in place (the tail rounded to the cache's type)."""
+    `"ssm"` tensors in place (the tail rounded to the cache's type). With
+    `encoder_out`, an encoder-decoder layer attends over it after its
+    self-attention (no rope, no mask; the cache's `"cross"` leaves pass
+    through unused, as in the JAX package)."""
     h = L.norm_apply(x, p["norm1"], cfg.norm, cfg.norm_eps)
 
     def mamba(h):
@@ -300,6 +353,13 @@ def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
         mix = 0.5 * (L.rmsnorm(mix, p["attn_norm"]["w"], cfg.norm_eps)
                      + L.rmsnorm(s, p["ssm_norm"]["w"], cfg.norm_eps))
     x = x + mix.to(x.dtype)
+    if cfg.is_encdec and encoder_out is not None:
+        h = L.norm_apply(x, p["norm_cross"], cfg.norm, cfg.norm_eps)
+        ca, _ = L.attention_block(
+            h, p["cross"], cfg, {"attn": "global"}, positions, cache=None,
+            rope=False, causal=False,
+            kv_override=_encoder_kv(p["cross"], cfg, encoder_out))
+        x = x + ca.to(x.dtype)
     h = L.norm_apply(x, p["norm2"], cfg.norm, cfg.norm_eps)
     aux = None
     if meta["moe"]:
@@ -310,14 +370,60 @@ def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
         dropless = cfg.moe_dropless or cache is not None
         f, aux = moe_ffn(h, p["moe"], cfg, cfg.act, dropless=dropless,
                          with_aux=cache is None)
+    elif cfg.family == "audio":
+        f = L.ffn_mlp(h, p["ffn"], "gelu")
     else:
         f = L.ffn_swiglu(h, p["ffn"], cfg.act)
     return x + f.to(x.dtype), cache, aux
 
 
+def _encoder_kv(p, cfg, encoder_out):
+    """The cross-attention's K and V: the encoder's output (B, S, D)
+    through wk and wv → (B, S, KVH, hd) each."""
+    B, S, _ = encoder_out.shape
+    flat = encoder_out.reshape(B * S, -1)
+    k = sa_dot(flat, p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.hd)
+    v = sa_dot(flat, p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.hd)
+    return k, v
+
+
+def _sinusoid(T, d, device=None):
+    """(1, T, d) fp32 positions: sin of pos / 10000^(2i/d) for the first
+    d/2 columns, then cos (concatenated, not interleaved)."""
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None]
+
+
+def encode(params, cfg: ArchConfig, frontend_embeds):
+    """The encoder stack over stub frontend embeddings (B, S, d_model):
+    sinusoidal positions added in the embeddings' type, then each encoder
+    layer (pre-norm self-attention without rope or mask, pre-norm GELU
+    MLP; the JAX package's `lax.scan` as a loop over the stacked layers),
+    then the encoder's final norm."""
+    x = frontend_embeds + _sinusoid(frontend_embeds.shape[1], cfg.d_model,
+                                    frontend_embeds.device
+                                    ).to(frontend_embeds.dtype)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    layers = params["encoder"]["layers"]
+    for i in range(cfg.encoder_layers):
+        p = tree_map(lambda w: w[i], layers)
+        h = L.norm_apply(x, p["norm1"], cfg.norm, cfg.norm_eps)
+        a, _ = L.attention_block(h, p["attn"], cfg, {"attn": "global"},
+                                 positions, rope=False, causal=False)
+        x = x + a.to(x.dtype)
+        h = L.norm_apply(x, p["norm2"], cfg.norm, cfg.norm_eps)
+        x = x + L.ffn_mlp(h, p["ffn"], "gelu").to(x.dtype)
+    return L.norm_apply(x, params["encoder"]["final_norm"], cfg.norm,
+                        cfg.norm_eps)
+
+
 def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
-            pos=None, last_only: bool = False, last_index=None,
-            prefix_len: int = 0, decode_multi: bool = False,
+            pos=None, frontend_embeds=None, last_only: bool = False,
+            last_index=None, prefix_len: int = 0, decode_multi: bool = False,
             page_size: int = 16):
     """Token ids (B, T) → (logits, cache, aux).
 
@@ -334,6 +440,10 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     superblocks of the stacked params and cache, so a config of fewer
     layers over the full tree is the early-exit draft
     (train/step.py `make_draft_step`).
+    `frontend_embeds` (B, S, d_model) feeds the modality stub: a VLM
+    prepends it to the text embeddings (T becomes S + T, positions start
+    at the first patch row), an encoder-decoder runs `encode` over it and
+    every decoder layer cross-attends to the result.
     `aux` is the JAX package's dict: a MoE stack's `load_balance` and
     `router_z` summed over its layers (zero for a dense stack and
     wherever a cache is threaded, as the JAX forward leaves them).
@@ -362,6 +472,12 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=torch.bfloat16,
                              device=dev)
+    encoder_out = None
+    if cfg.family == "vlm" and frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(torch.bfloat16), x], dim=1)
+        T = x.shape[1]
+    elif cfg.is_encdec and frontend_embeds is not None:
+        encoder_out = encode(params, cfg, frontend_embeds.to(torch.bfloat16))
     if pos is None and prefix_len:
         pos = prefix_len
     if pos is not None:
@@ -390,7 +506,8 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
             c_j = (None if cache is None
                    else tree_map(lambda t: t[sb], cache[j]))
             x, _, a = _sublayer(x, p_j, cfg, cfg.layer_kind(j), positions,
-                                c_j, prefix_len, decode_multi, page_size)
+                                c_j, prefix_len, decode_multi, page_size,
+                                encoder_out)
             if a is not None:
                 aux = add_aux(aux, torch.stack([a["load_balance"],
                                                 a["router_z"]]))
@@ -431,13 +548,17 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
 
 
 def lm_loss(params, cfg: ArchConfig, tokens, labels,
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, frontend_embeds=None):
     """Next-token cross-entropy (fp32 logsumexp minus the gold logit,
     mean) plus `aux_weight` times the MoE aux losses → (loss, nll). The
     aux losses are zero for the dense family, so there loss == nll. A
     tied embedding's gradient is the lookup's scatter plus the head's
-    dWᵀ, summed by autograd through the transposed view."""
-    logits, _, aux = forward(params, cfg, tokens)
+    dWᵀ, summed by autograd through the transposed view. A VLM's loss
+    drops the prepended frontend rows' logits."""
+    logits, _, aux = forward(params, cfg, tokens,
+                             frontend_embeds=frontend_embeds)
+    if cfg.family == "vlm" and frontend_embeds is not None:
+        logits = logits[:, frontend_embeds.shape[1]:]
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = torch.mean(lse - gold)

@@ -50,9 +50,21 @@
   ring of `window` rows inside the paged layout too, so a paged cache is
   a mixed tree of pool leaves and dense rings; the splices skip or
   row-splice each kind. The prefill fragment is floored at `window`
-  tokens (`_frag_floor`) so its rings match the pool's, and the floor
-  turns off prefix caching, disagg and bucketing, and spec where
-  `spec_k + 1 > window`, as in the JAX engine.
+  tokens (`_frag_floor`), and the floor turns off prefix caching, disagg
+  and bucketing, and spec where `spec_k + 1 > window`, as in the JAX
+  engine. With spec on, every local ring (pool, fragment and ring
+  layout alike) has `window + spec_k` rows rounded up to a page
+  (`_local_rows`), so a verify's writes never overwrite a row a live
+  window reads (ROADMAP F6; the JAX engine keeps `window` rows and its
+  spec stream under local windows is not its plain one).
+
+* **Frontend archs** (whisper, pixtral): `serve()` refuses them, as the
+  JAX engine does; `generate(frontend=)` serves them in static batches.
+  The encoder-decoder re-encodes its frames at every decode step, as the
+  JAX engine does; the VLM prefills [patches ‖ prompt] and decodes from
+  position `frontend_tokens + T` without the patches (ROADMAP F8: the
+  JAX engine passes them to every decode step, which makes each step a
+  fresh prefill of the patches and the one token).
 
 * **MoE** (granite, llama4): every forward the engine runs threads a
   cache, so its MoE layers take the dropless dispatch
@@ -196,8 +208,9 @@ class ServeEngine:
             # on the card the decode kernel walks a dense ring as pages of
             # `page_size` rows (`dense_pool_view`): a local ring's rows
             # must split into whole pages
-            ring_rows = min(cfg.window, self.max_seq_len
-                            if kv_layout == "paged" else self.ring_len)
+            ring_rows = self._local_rows() or min(
+                cfg.window, self.max_seq_len if kv_layout == "paged"
+                else self.ring_len)
             if ring_rows % self.page_size:
                 raise ValueError(
                     f"{cfg.name}: a local ring of {ring_rows} rows does not "
@@ -222,23 +235,40 @@ class ServeEngine:
         self._nonfinite = 0
         self.last_stats: dict[str, float] = {}
 
+    def _local_rows(self) -> int | None:
+        """The rows of every local-window ring under speculative decoding:
+        `window + spec_k` rounded up to a page, where spec is on and a
+        local window sits below `max_seq_len` (`_frag_floor > 1`); else
+        None, and a local ring keeps `window` rows. A verify writes
+        positions pos..pos+k, which in a ring of R rows land on positions
+        at most pos + k - R; with R >= window + k those are at most
+        pos - window, outside every window a query at pos or later reads,
+        where a ring of `window` rows loses rows the verify's earlier rows
+        and the next step's query still attend to (ROADMAP F6)."""
+        if self._frag_floor == 1 or not self.spec_decoding_on():
+            return None
+        return _round_up(self.cfg.window + self.spec_k, self.page_size)
+
     def new_cache(self, batch: int | None = None):
         return M.init_cache(self.cfg, batch or self.batch, self.ring_len,
-                            dtype=self.cache_dtype, device=self.device)
+                            dtype=self.cache_dtype, device=self.device,
+                            local_rows=self._local_rows())
 
     def new_pool(self):
         """Paged serve cache: global page pools + per-slot block tables."""
         return M.init_cache(self.cfg, self.batch, self.max_seq_len,
                             dtype=self.cache_dtype, device=self.device,
-                            paged=(self.pool_pages, self.page_size))
+                            paged=(self.pool_pages, self.page_size),
+                            local_rows=self._local_rows())
 
     def new_frag(self, prompt_len: int):
         """Dense batch-1 prefill fragment: the prompt rounded up to whole
-        pages, and floored at `window` tokens (`_frag_floor`) so its
-        local rings match the pool's."""
+        pages, and floored at `window` tokens (`_frag_floor`); its local
+        rings have the pool's rows (`_local_rows` under spec)."""
         cap = _round_up(max(prompt_len, self._frag_floor), self.page_size)
         return M.init_cache(self.cfg, 1, cap, dtype=self.cache_dtype,
-                            device=self.device)
+                            device=self.device,
+                            local_rows=self._local_rows())
 
     def prefix_caching_on(self) -> bool:
         """Prefix sharing (REPRO_PREFIX_CACHE, default on) is sound only
@@ -275,12 +305,14 @@ class ServeEngine:
         REPRO_SPEC_DECODE kill switch up) and sound: the stack has at
         least two superblocks to exit early from, and every dense ring (a
         local window; the ring layout) holds the verify block's
-        `spec_k + 1` rows without collision: the JAX engine's gate. A
-        local ring of `window` rows still loses, to a verify's writes,
-        rows that earlier verify rows and a query after a rejection
-        attend to, so under local windows neither engine's spec stream
-        equals its plain one (ROADMAP F6). An ssm or hybrid state cannot
-        roll back a rejected draft, so spec is off for them."""
+        `spec_k + 1` rows without collision: the JAX engine's gate. Where
+        it is on, local rings grow to `window + spec_k` rows rounded up to
+        a page (`_local_rows`): a ring of `window` rows would lose, to a
+        verify's writes, rows that earlier verify rows and a query after a
+        rejection attend to, and the JAX engine, which keeps `window`
+        rows, gives a spec stream under local windows that is not its
+        plain one (ROADMAP F6). An ssm or hybrid state cannot roll back a
+        rejected draft, so spec is off for them."""
         n_super = self.cfg.num_layers // self.cfg.stack_period
         min_ring = (self._frag_floor if self._frag_floor > 1
                     else (self.cache_len if self.kv_layout == "ring"
@@ -724,7 +756,17 @@ class ServeEngine:
         decode in chunks of `sync_every` steps; EOS is checked once per
         fetched chunk, so a batch that finishes early stops at chunk
         granularity. `last_stats` records the prefill/decode wall split
-        and the non-finite logits over the real vocabulary."""
+        and the non-finite logits over the real vocabulary.
+
+        `frontend` (B, S, d_model) feeds a frontend arch. The
+        encoder-decoder passes it to every forward, so every decode step
+        re-runs the encoder, as the JAX engine does. A VLM passes it to
+        the prefill only, over a ring of at least S + T + max_new_tokens
+        rows (rounded up to a page on the card), and decodes from
+        position S + T: the greedy stream is the one full forwards over
+        [patches ‖ prompt ‖ generated] give (ROADMAP F8; the JAX engine
+        hands the patches to every decode step, where its forward
+        prepends them to the one token, and starts decoding at T)."""
         prompts = torch.as_tensor(prompts, dtype=torch.int32,
                                   device=self.device)
         B, T = prompts.shape
@@ -734,21 +776,36 @@ class ServeEngine:
             gen = torch.Generator(device=self.device).manual_seed(0)
         self._nonfinite = torch.zeros((), dtype=torch.int64,
                                       device=self.device)
+        vlm = self.cfg.family == "vlm" and frontend is not None
+        if frontend is not None:
+            frontend = torch.as_tensor(frontend, device=self.device)
         t0 = time.monotonic()
-        cache = self.new_cache()
+        if vlm:
+            # F8: the ring holds the patches, the prompt and every new
+            # token; decode starts after the patches and the prompt, and
+            # no decode step sees the patches again
+            rows = frontend.shape[1] + T + max_new_tokens
+            if self.device.type == "cuda":
+                rows = _round_up(rows, self.page_size)
+            cache = M.init_cache(self.cfg, B, max(rows, self.ring_len),
+                                 dtype=self.cache_dtype, device=self.device)
+            start, step_frontend = frontend.shape[1] + T, None
+        else:
+            cache = self.new_cache()
+            start, step_frontend = T, frontend
         logits, cache = self._prefill_for(0)(self.params, prompts, cache,
                                              frontend)
         self._note_logits(logits)
         tok = self._pick(logits[:, -1], greedy, gen)
         first = tok.cpu().numpy()       # sync: the prefill boundary (TTFT)
         t_prefill = time.monotonic() - t0
-        pos = torch.full((B,), T, dtype=torch.int32, device=self.device)
+        pos = torch.full((B,), start, dtype=torch.int32, device=self.device)
         cols = [first]
         done = first == self.eos_id
         while len(cols) < max_new_tokens and not done.all():
             steps = min(self.sync_every, max_new_tokens - len(cols))
             tok, cache, pos, gen, toks = self._chunk_fn(steps, greedy)(
-                self.params, tok, cache, pos, frontend, gen)
+                self.params, tok, cache, pos, step_frontend, gen)
             t_np = toks.cpu().numpy()   # one sync per chunk
             cols.extend(t_np)
             done |= (t_np == self.eos_id).any(axis=0)
@@ -778,6 +835,12 @@ class ServeEngine:
         `spec_accepted` and `spec_accept_rate`."""
         assert scheduler.n_slots == self.batch, (
             scheduler.n_slots, self.batch)
+        if self.cfg.family == "vlm" or self.cfg.is_encdec:
+            # prefill and decode below run frontend=None: a vlm/enc-dec
+            # arch would skip its frontend and generate garbage
+            raise ValueError(
+                "continuous serving is text-only (per-slot frontends are a "
+                "ROADMAP item); use ServeEngine.generate for frontend archs")
         B = self.batch
         paged = self.kv_layout == "paged"
         if paged and scheduler.pages is None:

@@ -28,11 +28,12 @@ def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1,
     cleared, filled and returned as `grads` (the same tree of tensors,
     owned by the caller until the next call).
 
-    batch: {"tokens": (B, T) int, "labels": (B, T) int}. With accum_steps
-    > 1, B must divide evenly; microbatches are strided (row j of
-    microbatch i is row j·A + i, as the JAX step splits them), gradients
-    accumulate in fp32 over them and are divided by A, and loss and nll
-    are averaged."""
+    batch: {"tokens": (B, T) int, "labels": (B, T) int, optional
+    "frontend": (B, S, d) float, the modality stub's embeddings}. With
+    accum_steps > 1, B must divide evenly; microbatches are strided (row j
+    of microbatch i is row j·A + i, as the JAX step splits them; the
+    frontend rows with their tokens), gradients accumulate in fp32 over
+    them and are divided by A, and loss and nll are averaged."""
 
     def grad_fn(params, batch):
         leaves = M.tree_leaves(params)
@@ -40,17 +41,21 @@ def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1,
             p.grad = None
         if accum_steps == 1:
             loss, nll = M.lm_loss(params, cfg, batch["tokens"],
-                                  batch["labels"], aux_weight)
+                                  batch["labels"], aux_weight,
+                                  batch.get("frontend"))
             loss.backward()
             loss, nll = loss.detach(), nll.detach()
         else:
             def split(x, i):
+                if x is None:
+                    return None
                 mb = x.shape[0] // accum_steps
                 return x.reshape(mb, accum_steps, *x.shape[1:])[:, i]
             loss = nll = torch.zeros((), device=batch["tokens"].device)
             for i in range(accum_steps):
                 l, n = M.lm_loss(params, cfg, split(batch["tokens"], i),
-                                 split(batch["labels"], i), aux_weight)
+                                 split(batch["labels"], i), aux_weight,
+                                 split(batch.get("frontend"), i))
                 # .backward() adds into .grad (fp32): g1 + g2 + ...
                 l.backward()
                 loss, nll = loss + l.detach(), nll + n.detach()
@@ -89,12 +94,13 @@ def make_prefill_step(cfg: ArchConfig, prefix_len: int = 0):
 
     With `prefix_len > 0` (continued prefill), `tokens` holds only a
     prompt's uncached suffix and the cache's first `prefix_len` rows hold
-    the shared prefix's KV."""
+    the shared prefix's KV. `frontend` feeds the modality stub (the
+    VLM's patch rows, prepended; the encoder-decoder's frame embeddings,
+    encoded)."""
 
     def prefill(params, tokens, cache, frontend=None):
-        if frontend is not None:
-            raise ValueError("modality frontends are not ported yet")
         logits, cache, _ = M.forward(params, cfg, tokens, cache=cache,
+                                     frontend_embeds=frontend,
                                      last_only=True, prefix_len=prefix_len)
         return logits, cache
 
@@ -114,9 +120,8 @@ def make_bucketed_prefill_step(cfg: ArchConfig, prefix_len: int = 0):
 
     def prefill(params, tokens, cache, last_idx: int, valid_len: int,
                 frontend=None):
-        if frontend is not None:
-            raise ValueError("modality frontends are not ported yet")
         logits, cache, _ = M.forward(params, cfg, tokens, cache=cache,
+                                     frontend_embeds=frontend,
                                      last_only=True, last_index=last_idx,
                                      prefix_len=prefix_len)
         for c in cache:
@@ -131,13 +136,15 @@ def make_serve_step(cfg: ArchConfig, page_size: int = 16):
     """One decode step: (params, token (B,1), cache, pos (B,), [frontend])
     → (logits (B,1,V), cache). `page_size` splits a ring's rows for the
     decode kernel on the card (`M.forward`); the serve steps below take it
-    too."""
+    too. `frontend` is passed to the forward as the JAX step passes it:
+    the encoder-decoder re-encodes it every step; a VLM would prepend it
+    to the one token, so the engine passes None for a VLM's decode
+    (ROADMAP F8)."""
 
     def serve_step(params, token, cache, pos, frontend=None):
-        if frontend is not None:
-            raise ValueError("modality frontends are not ported yet")
         logits, cache, _ = M.forward(params, cfg, token, cache=cache,
-                                     pos=pos, page_size=page_size)
+                                     pos=pos, frontend_embeds=frontend,
+                                     page_size=page_size)
         return logits, cache
 
     return serve_step

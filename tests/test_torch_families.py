@@ -401,6 +401,99 @@ def test_gemma3_generate_and_probe_over_local_rings(families):
     assert np.isfinite([probe["kl_mean"], probe["max_abs_diff"]]).all()
 
 
+@pytest.fixture(scope="module")
+def gemma3_two_superblocks():
+    """Reduced gemma3 with two superblocks (12 layers: a draft of one to
+    exit from), the JAX package's weights from key 1 and the port's
+    copy."""
+    cfg = _cfg("gemma3-12b", num_layers=12)
+    return (cfg, *_weights(cfg))
+
+
+F6_SEEDS = (1, 3, 4, 5, 6)
+
+
+@pytest.fixture(scope="module")
+def f6_jax_streams(gemma3_two_superblocks):
+    """Per prompt seed: the JAX engine's plain and spec (k = 4) streams of
+    one 13-token prompt decoding 12 tokens, under the fp32 policy (one
+    engine each, so each compiles once)."""
+    cfg, jp, _ = gemma3_two_superblocks
+    out = {}
+    with use_policy(FP32_J):
+        engines = [JEngine(cfg, jp, batch=2, cache_len=32, eos_id=-1,
+                           sync_every=2, kv_layout="paged", page_size=8,
+                           max_seq_len=32, spec_k=k) for k in (0, 4)]
+        for seed in F6_SEEDS:
+            streams = []
+            for eng in engines:
+                sched = JSched(2, eos_id=-1)
+                sched.submit(_prompts(cfg, (13,), seed=seed)[0],
+                             max_new_tokens=12)
+                eng.serve(sched)
+                streams.append({r.rid: r.tokens for r in sched.finished})
+            out[seed] = tuple(streams)
+    return out
+
+
+@pytest.mark.parametrize("seed", F6_SEEDS)
+def test_spec_under_local_windows_equals_the_plain_stream(
+        gemma3_two_superblocks, f6_jax_streams, seed):
+    """ROADMAP F6: spec decoding (k = 4) over local rings of window 8. A
+    13-token prompt decodes 12 tokens, so every verify's writes wrap the
+    rings. The JAX engine's spec stream differs from its plain stream on
+    this data (its rings keep `window` rows, and a verify overwrites rows
+    still inside live windows); the port's, over rings of window + k
+    rounded up to a page (16 rows), equals the JAX engine's plain stream
+    in the paged and the ring layout. Under the fp32 policy (R1)."""
+    cfg, _, tp = gemma3_two_superblocks
+    plain, jspec = f6_jax_streams[seed]
+    assert jspec != plain
+    prompts = _prompts(cfg, (13,), seed=seed)
+    with TP.use_policy(TP.PrecisionPolicy(input_format="fp32")):
+        for layout in ("paged", "ring"):
+            got, s = _serve(ServeEngine, SlotScheduler, cfg, tp, prompts,
+                            (12,), layout, max_seq_len=32, spec_k=4)
+            assert s["spec_iters"] > 0 and s["nonfinite_logits"] == 0
+            assert got == plain, layout
+
+
+def test_spec_rings_grow_by_spec_k_and_the_plain_rings_do_not(
+        gemma3_two_superblocks):
+    """The local rings under spec: window + spec_k rounded up to a page in
+    the pool, the fragment and the ring layout alike; without spec (k = 0,
+    or the kill switch) `window` rows, as in the JAX engine. The global
+    layers are untouched."""
+    cfg, _, tp = gemma3_two_superblocks
+    local = [j for j in range(cfg.stack_period)
+             if cfg.layer_kind(j)["attn"] == "local"]
+    glob = [j for j in range(cfg.stack_period) if j not in local]
+
+    def rows(cache):
+        return ({c["kv"].k.shape[2] for j, c in enumerate(cache)
+                 if j in local},
+                {type(c["kv"]).__name__ for j, c in enumerate(cache)
+                 if j in glob})
+
+    for k, want in ((4, 16), (3, 16), (0, 8)):
+        eng = ServeEngine(cfg, tp, batch=2, cache_len=32, page_size=8,
+                          max_seq_len=32, spec_k=k)
+        assert eng._local_rows() == (want if k else None)
+        assert rows(eng.new_pool()) == ({want}, {"PagedKVCache"})
+        assert rows(eng.new_frag(5)) == ({want}, {"KVCache"})
+        assert rows(eng.new_cache()) == ({want}, {"KVCache"})
+        assert eng._frag_floor == 8
+
+
+def test_spec_kill_switch_keeps_window_rings(gemma3_two_superblocks,
+                                             monkeypatch):
+    cfg, _, tp = gemma3_two_superblocks
+    monkeypatch.setenv("REPRO_SPEC_DECODE", "0")
+    eng = ServeEngine(cfg, tp, batch=2, cache_len=32, page_size=8,
+                      max_seq_len=32, spec_k=4)
+    assert not eng.spec_decoding_on() and eng._local_rows() is None
+
+
 @pytest.mark.parametrize("layout", ["paged", "ring"])
 @pytest.mark.parametrize("arch", ARCHS + ("qwen2.5-14b",))
 def test_engine_gates_match_jax(families, arch, layout, monkeypatch):

@@ -239,7 +239,31 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
 
 
 def test_unported_families_raise():
+    """Every family builds now; what the port still refuses: continuous
+    serving of a frontend arch (`serve()` is text-only, as in the JAX
+    engine; `generate()` serves them) and a cache with padded KV heads
+    (the mesh's `pad_kv_heads`, not ported)."""
+    from repro_torch.serve.scheduler import SlotScheduler
+    from repro_torch.models import layers as TL
+
     for name in ("whisper-tiny", "pixtral-12b"):
-        with pytest.raises(ValueError, match="not ported"):
-            TM.init_params(t_reduced(name), device="cpu")
+        cfg = t_reduced(name)
+        eng = TEngine(cfg, TM.init_params(cfg, device="cpu"), batch=1,
+                      cache_len=16)
+        sched = SlotScheduler(1)
+        sched.submit([1, 2], max_new_tokens=2)
+        with pytest.raises(ValueError, match="text-only"):
+            eng.serve(sched)
+    cfg = t_reduced("qwen2.5-14b")
+    tp = TM.init_params(cfg, device="cpu")
+    cache = TM.init_cache(cfg, 1, 8, dtype=torch.float32, device="cpu")[0]
+    kv = cache["kv"]
+    padded = type(kv)(*(torch.cat([t, t], dim=-2) for t in kv[:2]),
+                      kv.positions)
+    p0 = TM.tree_map(lambda w: w[0], tp["layers"][0]["attn"])
+    with pytest.raises(ValueError, match="padded KV heads are not ported"):
+        TL.attention_block(torch.zeros((1, 1, cfg.d_model)), p0, cfg,
+                           {"attn": "global"},
+                           torch.zeros((1, 1), dtype=torch.int32),
+                           cache=TM.tree_map(lambda t: t[0], padded))
     assert t_get_config("qwen2.5-14b").padded_vocab == 153600
