@@ -132,6 +132,29 @@ Phases, in order; any failure exits nonzero:
              digest, 2 prefill shapes (24, 48) against 5, prefill
              attention on `mma` at every padded length, no page leaked,
              no plain version.
+   autotune — the serve stream through the driver with
+             `--autotune-decode` on the same weights and an empty cache
+             (the script points REPRO_AUTOTUNE_CACHE at its own files from
+             the start, so every other phase runs the heuristic's tiles
+             and cluster sizes): each swept (M, N, K) and paged-decode
+             n_split with every candidate's time, the winner and the
+             heuristic's choice; the untuned serve's digest (the tile
+             changes no bit; a tuned cluster size that parts it takes
+             ROADMAP F9's path: the GEMM-only tuned serve's digest, and
+             R1's near-tie rule for the attention-tuned stream), 0 misses
+             over the decode chunks, each kernel's launches as the run
+             implies, the serve phase's checks; again with `--spec-k 4`
+             and a draft of all 48 superblocks (the verify's M = 20
+             swept, accept rate 1.0, the tuned digest). After the engine
+             is freed, the tuned serve in a second process on the same
+             cache file: 0 sweeps, the same choices and digest; then a
+             fresh empty cache, and a lookup gives the heuristic again.
+   examples — the four port examples (`examples/*_torch.py`) as
+             subprocesses under `cuda`: quickstart's loss falls,
+             serve_batch finishes 12 of 12 requests, train_100m runs 30
+             steps and resumes from its checkpoint for 5 more, the
+             precision study prints "bit-exact: True" per format and
+             section 2's cycles equal to `core.systolic`'s.
    families — gemma3-12b (48 layers, 5:1 local:global, window 1024;
              6 requests of 600-1500 tokens on 4 slots), gemma2-9b (42
              layers, 1:1, window 4096, softcaps 50 and 30; prompts of 256
@@ -1061,13 +1084,17 @@ def check_fold(torch, timer):
                 row[key + "device_ms"] = timer.device(run)
             row["bound_ms"], row["bound_by"] = _decode_bound(
                 torch, bt, B, H, KVH, hd, psz, P, PrecisionPolicy())
+            # the yardstick: SDPA on the gathered dense view
+            row["library_ms"] = timer.wall(_sdpa_gathered(
+                torch, q, k, v, pp, bt, pos, grp))
             times[f"B{B}_slots{slot}"] = row
             log(f"[fold] paged decode B={B}, {slot}-token slots: "
                 f"{plan.n_split} blocks a cluster {row['ms']:.4f} ms wall "
                 f"({row['device_ms']} device); the earlier plan's {old} "
                 f"blocks {row['earlier_ms']:.4f} ms "
                 f"({row['earlier_device_ms']} device); bound "
-                f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']}); SDPA on "
+                f"the gathered view {row['library_ms']:.4f} ms")
             del q, k, v, pp, bt, pos
     return times
 
@@ -3255,6 +3282,432 @@ def bucket(torch, engine):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5 (continued): the autotuner and the examples
+# ---------------------------------------------------------------------------
+
+# the autotuner's cache files live here for the whole run (main sets it):
+# no phase reads a cache left by an earlier run
+TUNE_DIR = None
+# R1's near tie: the top two logits within 2·2^-5·max|logit| of each other
+NEAR_TIE_REL = 2 * 2.0 ** -5
+
+
+def fresh_tune_cache(tag: str) -> str:
+    """Point the autotuner at a new empty cache file and forget what it
+    holds in memory: lookups give the heuristic again."""
+    from repro_torch.kernels import autotune
+
+    path = os.path.join(TUNE_DIR, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump({"version": 1, "entries": {}}, f)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = path
+    os.environ.pop("REPRO_AUTOTUNE", None)
+    autotune.reset()
+    return path
+
+
+def _plain_launches(cfg, eng, sched, prefills=8):
+    """A plain serve's launches from its own record: 7 GEMMs a layer and
+    the lm_head a forward, a paged decode a layer a decode step, a
+    prefill attention a layer a prefill."""
+    L, steps = cfg.num_layers, _decode_steps(eng, sched)
+    return {"gemm": (7 * L + 1) * (prefills + steps),
+            "paged_decode": L * steps, "prefill_attention": L * prefills}
+
+
+def _launches_of(counts):
+    return {"gemm": counts["sa_matmul"]["launches"],
+            "paged_decode": counts["paged_decode"]["launches"],
+            "prefill_attention": counts["prefill_attention"]["launches"]}
+
+
+def _sweep_rows(sweeps):
+    """The sweeps as JSON-ready rows: the key, each candidate's µs, the
+    winner and the heuristic's choice."""
+    rows = []
+    for r in sweeps:
+        # the key: (m, n, k) or (g, hd, page, pages), then the dtype
+        n = 3 if r["kind"] == "gemm" else 4
+        rows.append({"kind": r["kind"],
+                     "key": "x".join(map(str, r["key"][:n])),
+                     "dtype": r["key"][n],
+                     "us": {str(c): round(us, 3) for c, us in r["us"].items()},
+                     "winner": r["winner"], "heuristic": r["heuristic"]})
+    return rows
+
+
+def _near_ties(torch, eng, prompt, tokens, upto):
+    """Teacher-force `tokens` (a stream the untuned plan emitted) after
+    `prompt` on a batch-1 cache, with the untuned cluster sizes. Returns
+    (the first j <= upto whose logits, those that choose token j, have
+    their top two within NEAR_TIE_REL·max|logit|, or None; the top-two
+    gap over max|logit| of the logits that choose token `upto`)."""
+    V = eng.cfg.vocab_size
+    T = len(prompt)
+    cache = eng.new_cache(batch=1)
+    toks = torch.tensor([int(t) for t in prompt], dtype=torch.int32,
+                        device="cuda")[None]
+    logits, cache = eng._prefill_for(0)(eng.params, toks, cache)
+    first = None
+    for j in range(upto + 1):
+        row = logits[0, -1, :V].float()
+        top2 = torch.topk(row, 2).values
+        gap = float(top2[0] - top2[1]) / float(row.abs().max())
+        if first is None and gap <= NEAR_TIE_REL:
+            first = j
+        if j == upto:
+            return first, gap
+        logits, cache = eng._serve_step(
+            eng.params,
+            torch.tensor([[int(tokens[j])]], dtype=torch.int32, device="cuda"),
+            cache, torch.tensor([T + j], dtype=torch.int32, device="cuda"))
+
+
+def _f9(torch, engine, serve_sched, tuned_sched, eng):
+    """ROADMAP F9's path, taken only if a tuned cluster size parted the
+    digest: the serve with the tuned GEMM tiles and attention on its
+    default plan must give the untuned digest (the tile changes no bit),
+    and the attention-tuned stream is held by R1's rule — each request's
+    tokens equal up to the first step whose top two logits lie within
+    2·2^-5·max|logit|."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import serve as drv
+
+    problems = []
+    dattn = dict(autotune._MEM_DATTN)
+    autotune._MEM_DATTN.clear()
+    try:
+        summary, _, _ = drv.main(SERVE_ARGS, return_state=True,
+                                 params=engine.params)
+        torch.cuda.synchronize()
+        if summary["stream_digest"] != drv.stream_digest(serve_sched.finished):
+            problems.append(f"GEMM-only tuned digest "
+                            f"{summary['stream_digest']} != untuned")
+        plain = {r.rid: r for r in serve_sched.finished}
+        parted = {}
+        for r in sorted(tuned_sched.finished, key=lambda r: r.rid):
+            want = plain[r.rid].tokens
+            t = next((i for i, (a, b) in enumerate(zip(r.tokens, want))
+                      if a != b), None)
+            if t is None:
+                continue
+            tie, gap = _near_ties(torch, eng, plain[r.rid].prompt, want, t)
+            parted[r.rid] = {"first_diff": t, "first_near_tie": tie,
+                             "gap_at_diff": round(gap, 6)}
+            if tie is None:
+                problems.append(f"request {r.rid} parts at token {t} with "
+                                f"no near tie before it (R1's rule)")
+    finally:
+        autotune._MEM_DATTN.update(dattn)
+    log(f"[autotune F9] GEMM-only tuned digest {summary['stream_digest']}; "
+        f"attention-tuned requests parted (first differing token, first "
+        f"near tie, the untuned logits' top-two gap over max|logit| at "
+        f"the differing token): {parted}")
+    return {"gemm_only_digest": summary["stream_digest"],
+            "parted": parted}, problems
+
+
+def autotune_serve(torch, engine, serve_summary, serve_sched):
+    """The serve stream through the driver with `--autotune-decode` on the
+    serve phase's weights and an empty cache: the sweep's every (M, N, K)
+    and n_split with each candidate's time, the winner and the heuristic's
+    choice; then with `--spec-k 4` and a draft of all 48 superblocks
+    (seeds the verify's M = 20; M = 4 and the cluster size come from the
+    cache). Gates: the untuned serve's digest (the tile changes no bit; a
+    cluster size that parts it takes F9's path), 0 autotune misses over
+    the decode chunks, each kernel's launches as the run implies (the
+    sweep's own launches are not counted), the serve phase's checks;
+    spec's digest and accept rate 1.0. Returns the readings (the cache
+    file stays for the second process)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+
+    fresh_tune_cache("tuned")
+    untuned = serve_summary["stream_digest"]
+    L = engine.cfg.num_layers
+    problems, out = [], {}
+    for tag, extra in (("plain", []), ("spec", [
+            "--spec-k", str(SPEC_K), "--spec-draft-layers", str(L)])):
+        n0 = len(autotune.SWEPT)
+        ops.reset_counts()
+        t0 = time.monotonic()
+        summary, sched, eng = drv.main(SERVE_ARGS + ["--autotune-decode"]
+                                       + extra, return_state=True,
+                                       params=engine.params)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts, routes = ops.counts(), ops.route_counts()
+        problems += [f"{tag}: {p}" for p in _path_checks(
+            summary, sched, counts, routes, 8, MAX_NEW)]
+        got = _launches_of(counts)
+        if tag == "plain":
+            want = _plain_launches(eng.cfg, eng, sched)
+        else:
+            want = _expected_spec(eng.cfg, summary,
+                                  -(-eng.sync_every // (SPEC_K + 1)), L,
+                                  SPEC_K, 8, PROBE_RUNS)
+        if got != want:
+            problems.append(f"{tag}: launches {got}, want {want}")
+        sweeps = autotune.SWEPT[n0:]
+        r = {"digest": summary["stream_digest"],
+             "sweeps": _sweep_rows(sweeps),
+             "tiles": summary["autotune_tiles"],
+             "n_split": summary["autotune_n_split"],
+             "decode_misses": summary["autotune_decode_misses"],
+             "decode_itl_p50_ms": summary.get("decode_itl_p50_ms"),
+             "prefill_s": summary["prefill_s"],
+             "decode_s": summary["decode_s"], "wall_s": round(wall, 2),
+             "launches": got, "tile_launches": ops.tile_counts()}
+        if summary["autotune_decode_misses"] != 0:
+            problems.append(f"{tag}: {summary['autotune_decode_misses']} "
+                            f"autotune misses in the decode chunks")
+        for s in r["sweeps"]:
+            log(f"[autotune {tag}] {s['kind']} {s['key']} {s['dtype']}: "
+                + " ".join(f"{c} {us:.3f} us" for c, us in s["us"].items())
+                + f" -> {s['winner']} (heuristic {s['heuristic']})")
+        # the (M, N, K) the summary reports as chosen
+        shapes = [t.split(":")[0] for t in r["tiles"].split(",")]
+        if tag == "plain":
+            # each distinct (N, K) of the decode step once at M = 4, and
+            # the cluster size
+            cfg = engine.cfg
+            want_keys = sorted(shapes + [
+                f"{cfg.num_heads // cfg.num_kv_heads}x{cfg.hd}x{PAGE}x"
+                f"{-(-CACHE_LEN // PAGE)}"])
+            if sorted(s["key"] for s in r["sweeps"]) != want_keys:
+                problems.append(f"plain: sweeps "
+                                f"{[s['key'] for s in r['sweeps']]}, want "
+                                f"{want_keys}")
+            if r["digest"] != untuned:
+                r["f9"], f9_problems = _f9(torch, engine, serve_sched,
+                                           sched, eng)
+                problems += f9_problems
+        else:
+            r["spec_accept_rate"] = summary["spec_accept_rate"]
+            # only the verify's M = 20: M = 4 and the cluster size are
+            # cached
+            want_keys = sorted(k_ for k_ in shapes if k_.startswith(
+                f"{BATCH * (SPEC_K + 1)}x"))
+            if sorted(s["key"] for s in r["sweeps"]) != want_keys:
+                problems.append(f"spec: sweeps "
+                                f"{[s['key'] for s in r['sweeps']]}, want "
+                                f"{want_keys}")
+            if r["digest"] != out["plain"]["digest"]:
+                problems.append(f"spec digest {r['digest']} != the tuned "
+                                f"plain serve's {out['plain']['digest']}")
+            if summary["spec_accept_rate"] != 1.0:
+                problems.append(f"spec accept rate "
+                                f"{summary['spec_accept_rate']}, want 1.0")
+        out[tag] = r
+        log(f"[autotune {tag}] wall {wall:.2f} s; digest {r['digest']} "
+            f"(untuned {untuned}); tiles {r['tiles']}; n_split "
+            f"{r['n_split']}; decode misses {r['decode_misses']}; launches "
+            f"{got}; tiles launched {r['tile_launches']}; itl_p50 "
+            f"{r['decode_itl_p50_ms']} ms (untuned "
+            f"{serve_summary.get('decode_itl_p50_ms')})")
+        del eng, sched
+    if problems:
+        raise AssertionError("autotune phase failed: " + "; ".join(problems))
+    return out
+
+
+def _summary_fields(line: str) -> dict:
+    """key=value fields of a driver summary line whose values hold no
+    spaces."""
+    return dict(f.split("=", 1) for f in line.split()[1:] if "=" in f)
+
+
+def autotune_second_process(torch, first):
+    """The tuned serve again in a new process (`python -m
+    repro_torch.launch.serve ... --autotune-decode`) on the cache file the
+    first run wrote: 0 sweeps, the same tiles and cluster size, the same
+    digest, 0 misses. Then the cache is reset to a fresh empty file and a
+    lookup gives the heuristic's tile again."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import sa_matmul as mm
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, REPRO_GEMM_BACKEND="cuda",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(root, "src")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.monotonic()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve"] + SERVE_ARGS
+        + ["--autotune-decode"], capture_output=True, text=True, env=env,
+        cwd=root, timeout=900)
+    wall = time.monotonic() - t0
+    line = next((ln for ln in res.stdout.splitlines()
+                 if ln.startswith("[continuous]")), "")
+    got = _summary_fields(line)
+    r = {"rc": res.returncode, "wall_s": round(wall, 2),
+         "digest": got.get("stream_digest"),
+         "n_sweeps": got.get("autotune_sweeps"),
+         "tiles": got.get("autotune_tiles"),
+         "n_split": got.get("autotune_n_split"),
+         "decode_misses": got.get("autotune_decode_misses"),
+         "decode_itl_p50_ms": got.get("decode_itl_p50_ms")}
+    log(f"[autotune second process] {json.dumps(r)}")
+    problems = []
+    if res.returncode != 0:
+        problems.append(f"exit {res.returncode}: {res.stderr[-2000:]}")
+    want = first["plain"]
+    if r["n_sweeps"] != "0":
+        problems.append(f"{r['n_sweeps']} sweeps, want 0 (the cache)")
+    for key in ("digest", "tiles", "n_split"):
+        if r[key] != str(want[key]):
+            problems.append(f"{key} {r[key]}, first process {want[key]}")
+    if r["decode_misses"] != "0":
+        problems.append(f"{r['decode_misses']} decode misses")
+    fresh_tune_cache("after")
+    heur = mm.mma_plan(BATCH, D_MODEL, "mma")["tile"]
+    if autotune.lookup(BATCH, D_MODEL, D_MODEL) != heur or \
+            autotune.MISSES != 1:
+        problems.append("after reset a lookup did not give the heuristic")
+    autotune.reset()
+    if problems:
+        raise AssertionError("autotune second process failed: "
+                             + "; ".join(problems))
+    return r
+
+
+EXAMPLE_TIMEOUT = 600
+
+
+def examples(torch):
+    """The four port examples on the card as subprocesses under the
+    `cuda` GEMM backend, each with its documented arguments:
+    quickstart's loss falls over its 40 steps; serve_batch finishes 12 of
+    12 requests (216 tokens, no page leaked, finite logits);
+    train_100m runs its 30 steps into a temporary checkpoint directory,
+    then resumes from step 30 there and runs 5 more; the precision study
+    prints "bit-exact: True" for every format and section 2's cycle
+    counts equal to `core.systolic`'s. Returns each one's wall and
+    readings."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.systolic import (BASELINE, SKEWED, SAConfig,
+                                           gemm_latency)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, REPRO_GEMM_BACKEND="cuda",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(root, "src")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    problems, out = [], {}
+    # the examples' output files, and train_100m's checkpoints under ckpt/
+    work = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    ckpt = os.path.join(work, "ckpt")
+
+    def start(name, *args):
+        """Start an example, its output to files (no pipe fills up while
+        another one is read)."""
+        base = os.path.join(work, f"{name}{len(args)}")
+        with open(base + ".out", "w") as fo, open(base + ".err", "w") as fe:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(root, "examples",
+                                              f"{name}.py"), *args],
+                stdout=fo, stderr=fe, env=env, cwd=root)
+        proc.base = base
+        return proc
+
+    def finish(tag, proc, t0):
+        try:
+            proc.wait(timeout=EXAMPLE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        with open(proc.base + ".out") as fo, open(proc.base + ".err") as fe:
+            stdout, stderr = fo.read(), fe.read()
+        out[tag] = {"rc": proc.returncode,
+                    "wall_s": round(time.monotonic() - t0, 2)}
+        if proc.returncode != 0:
+            problems.append(f"{tag}: exit {proc.returncode}: "
+                            f"{stderr[-1500:]}")
+        return stdout
+
+    # the four run side by side on the card (each is small); the resumed
+    # train_100m run follows its first
+    t0 = time.monotonic()
+    procs = {"quickstart": start("quickstart_torch"),
+             "serve_batch": start("serve_batch_torch"),
+             "train_100m": start("train_100m_torch", "--ckpt-dir", ckpt),
+             "study": start("sa_precision_study_torch")}
+    try:
+        text = finish("train_100m", procs.pop("train_100m"), t0)
+        steps = [ln for ln in text.splitlines() if ln.startswith("step ")]
+        losses = [float(ln.split("loss=")[1].split()[0]) for ln in steps]
+        out["train_100m"] |= {"steps": len(steps), "losses": losses[::10]
+                              + losses[-1:]}
+        if len(steps) != 30 or "done: 30 steps" not in text:
+            problems.append(f"train_100m ran {len(steps)} steps, want 30")
+        t1 = time.monotonic()
+        text = finish("train_100m_resume", start(
+            "train_100m_torch", "--ckpt-dir", ckpt, "--steps", "35"), t1)
+        steps = [ln for ln in text.splitlines() if ln.startswith("step ")]
+        out["train_100m_resume"]["steps"] = len(steps)
+        if "resumed from step 30" not in text or len(steps) != 5:
+            problems.append(f"train_100m resume: {len(steps)} steps, "
+                            f"'resumed from step 30' "
+                            f"{'resumed from step 30' in text}")
+
+        text = finish("quickstart", procs.pop("quickstart"), t0)
+        last = [ln for ln in text.splitlines() if ln.startswith("loss:")]
+        if last:
+            first, final = (float(x) for x in
+                            last[0].split()[1:4:2])
+            out["quickstart"] |= {"first_loss": first, "last_loss": final}
+            if not final < first:
+                problems.append(f"quickstart loss {first} -> {final}")
+        else:
+            problems.append("quickstart printed no loss line")
+
+        text = finish("serve_batch", procs.pop("serve_batch"), t0)
+        reqs = [ln for ln in text.splitlines() if ln.startswith("req ")]
+        summ = _summary_fields("- " + (text.strip().splitlines() or [""])[-1])
+        out["serve_batch"] |= {
+            key: summ.get(key) for key in (
+                "requests", "generated_tokens", "pages_leaked",
+                "nonfinite_logits", "decode_tok_s", "ttft_mean_s")}
+        if (len(reqs) != 12 or summ.get("requests") != "12"
+                or summ.get("generated_tokens") != "216"
+                or summ.get("pages_leaked") != "0"
+                or summ.get("nonfinite_logits") != "0"):
+            problems.append(f"serve_batch: {len(reqs)} request lines, "
+                            f"summary {out['serve_batch']}")
+
+        text = finish("study", procs.pop("study"), t0)
+        exact = [ln for ln in text.splitlines() if "bit-exact:" in ln]
+        cycles = []
+        for ln in text.splitlines():
+            if " cycles (" in ln:
+                shape, rest = ln.split(":")[0].split()[-1], ln.split(":")[1]
+                m, k, n = (int(x) for x in shape.split("x"))
+                cb, cs = (int(x) for x in rest.split()[0:3:2])
+                cycles.append((m, k, n, cb, cs))
+        want = [(m, k, n, gemm_latency(m, k, n, SAConfig(pipeline=BASELINE)),
+                 gemm_latency(m, k, n, SAConfig(pipeline=SKEWED)))
+                for m, k, n, _, _ in STUDY_GEMMS]
+        out["study"] |= {"bit_exact_lines": len(exact), "cycles": cycles}
+        if len(exact) != 3 or not all(ln.endswith("True") for ln in exact):
+            problems.append(f"study bit-exact lines {exact}")
+        if cycles != want or cycles != [tuple(x) for x in STUDY_GEMMS]:
+            problems.append(f"study cycles {cycles}, core.systolic {want}")
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = round(time.monotonic() - t0, 2)
+    log(f"[examples] {json.dumps(out)}")
+    if problems:
+        raise AssertionError("examples phase failed: " + "; ".join(problems))
+    return out
+
+
 DECODE_TILE = "TcTile<16, "    # the decode tile's kernels, by name
 
 
@@ -5370,6 +5823,14 @@ def main(argv=None):
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.kernels import build
 
+    # the autotuner reads only this run's cache files: every phase but the
+    # autotune phase runs the heuristic's tiles and cluster sizes
+    import shutil
+    import tempfile
+    global TUNE_DIR
+    TUNE_DIR = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    fresh_tune_cache("start")
+
     global LOG_FILE
     if args.log:
         LOG_FILE = os.path.abspath(args.log)
@@ -5526,6 +5987,9 @@ def main(argv=None):
         t = time.monotonic()
         bucket_out = bucket(torch, engine)
         phases["bucket"] = time.monotonic() - t
+        t = time.monotonic()
+        tuned = autotune_serve(torch, engine, summary, sched)
+        phases["autotune"] = time.monotonic() - t
         L = engine.cfg.num_layers
         kernels[0]["readings"]["spec"] = {
             E: {key: spec_out[E][key]
@@ -5547,6 +6011,22 @@ def main(argv=None):
             for name, v in bucket_out.items()}
         # the engine holds itself through its step closures: collect it
         del engine, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.monotonic()
+        tuned["second_process"] = autotune_second_process(torch, tuned)
+        for k_, kind in ((0, "gemm"), (2, "decode_attn")):
+            kernels[k_]["readings"]["autotune"] = {
+                run: {key: (v if key != "sweeps" else
+                            [s for s in v if s["kind"] == kind])
+                      for key, v in r.items()}
+                for run, r in tuned.items()}
+        phases["autotune_second_process"] = time.monotonic() - t
+        t = time.monotonic()
+        ex_out = examples(torch)
+        kernels[0]["readings"]["examples"] = ex_out
+        phases["examples"] = time.monotonic() - t
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5679,7 +6159,9 @@ def main(argv=None):
         kernels[0]["readings"]["large_tile"]["train_tile_launches"] = \
             train_tiles
         phases["train"] = time.monotonic() - t
-    log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items()))
+    log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items())
+        + f" total={sum(phases.values()):.1f}s")
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     if not args.skip_serve:

@@ -49,6 +49,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import autotune
+
 LAUNCHES = 0       # kernel launches through `paged_decode_cuda`
 MODE_LAUNCHES = {"exact": 0, "approx": 0}   # the launches by policy mode
 PLAIN_CALLS = 0    # calls of the plain version `paged_decode_ref`
@@ -167,13 +169,11 @@ def dense_pool_view(k, v, positions, page_size: int, block_table=None):
             positions.view(B * P, page_size), table)
 
 
-def launch_plan(q, k_pool, v_pool, block_table,
-                n_split: int | None = None) -> SplitPlan:
-    """The kernel's split for these operands' shapes (`split_plan`), after
-    checking what the kernel takes: g = H / KVH up to 8, hd 64, 128 or
-    256, both pools of one type in POOL_DTYPES."""
+def _group(q, k_pool, v_pool) -> int:
+    """g = H / KVH, after checking what the kernel takes: g up to 8, hd
+    64, 128 or 256, both pools of one type in POOL_DTYPES."""
     H, hd = q.shape[2], q.shape[3]
-    psz, KVH = k_pool.shape[1], k_pool.shape[2]
+    KVH = k_pool.shape[2]
     g = H // KVH
     if (H % KVH or not 1 <= g <= 8 or hd not in (64, 128, 256)
             or k_pool.dtype not in POOL_DTYPES
@@ -181,7 +181,16 @@ def launch_plan(q, k_pool, v_pool, block_table,
         raise ValueError(f"unsupported paged decode operands q "
                          f"{tuple(q.shape)} pool {tuple(k_pool.shape)} "
                          f"{k_pool.dtype}")
-    return split_plan(g, hd, psz, block_table.shape[1], n_split=n_split)
+    return g
+
+
+def launch_plan(q, k_pool, v_pool, block_table,
+                n_split: int | None = None) -> SplitPlan:
+    """The kernel's split for these operands' shapes (`split_plan`), after
+    checking what the kernel takes (`_group`)."""
+    g = _group(q, k_pool, v_pool)
+    return split_plan(g, q.shape[3], k_pool.shape[1], block_table.shape[1],
+                      n_split=n_split)
 
 
 def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
@@ -193,7 +202,9 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
     pool is widened exactly, then cast in as an fp32 one); page_positions (n_pages, psz) int32;
     block_table (B, P) int32; pos (B,) int32 → (B, 1, H, hd) fp32. g = H /
     KVH up to 8, hd 64, 128 or 256. `n_split` fixes the cluster size of
-    `split_plan` (tests of the split; default: the plan's). `min_page` is
+    `split_plan` (tests and sweeps of the split; default: the autotuner's,
+    `autotune.lookup_decode_attn`, keyed by the slot's shape and the
+    pool's type, else the plan's own). `min_page` is
     the lowest page id read: 1 for the pool (page 0 is the trash page), 0
     for a `dense_pool_view`."""
     global LAUNCHES
@@ -212,11 +223,15 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
         if not t.is_cuda or t.device != q.device:
             raise ValueError("paged_decode_cuda needs every operand on one "
                              "CUDA device")
-    plan = launch_plan(q, k_pool, v_pool, block_table, n_split)
     B, _, H, hd = q.shape
     psz, KVH = k_pool.shape[1], k_pool.shape[2]
     P = block_table.shape[1]
-    g = H // KVH
+    g = _group(q, k_pool, v_pool)
+    if n_split is None:
+        n_split = autotune.lookup_decode_attn(g, hd, psz, P,
+                                              dtype=k_pool.dtype, batch=B,
+                                              kvh=KVH)
+    plan = split_plan(g, hd, psz, P, n_split=n_split)
     scale = scale or hd ** -0.5
     cap = float(cap or 0.0)
     q = q.to(torch.float32).contiguous()

@@ -23,7 +23,9 @@ failed build or launch of any route raises) and counted apart in
   policies (`cast_in` gives bf16 on the card), decode included, fp32
   accumulate on the tensor cores. Bound by the tensor cores and the step
   sums' adds at training shapes (M = 1024), by W's bytes at prefill's and
-  decode's M. `mma_plan` picks the tile (`MMA_TILES`): the large one
+  decode's M. The tile is the autotuner's where its cache has one
+  (`autotune.lookup`, per (M, N, K, epilogue)), else `mma_plan`'s
+  (`MMA_TILES`): the large one
   (128 × 128 blocks, warp-specialized: TMA copies of both operands into a
   six-stage ring of 128-byte-swizzled tiles, two consumer warpgroups on
   `wgmma` m64n128k16) where it pays (`large_pays`); 64 × 64 blocks
@@ -74,6 +76,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import autotune
 from .sa_attention import TC_GROUP
 
 EPILOGUES = ("none", "relu", "gelu", "silu")
@@ -422,7 +425,9 @@ def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
     """One launch of the tensor-core kernel (`mma` or `split3`). The
     kernel's A carries the pieces: under `split3` with the fp32 operand on
     the weight side the problem is transposed (C^T = W^T A^T) and written
-    back through the output's strides."""
+    back through the output's strides. An `mma` launch with no `tile`
+    takes the autotuner's (`autotune.lookup`: the cached winner for (M, N,
+    K, epilogue), else `mma_plan`'s heuristic)."""
     from .build import check, function
 
     m, k = a.shape
@@ -449,7 +454,11 @@ def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
     else:
         a_st, lda_k = _aligned(a_st, A_ld)
         a_ptr, a_plane = a_st.data_ptr(), 0
-    plan = mma_plan(M, N, route, _sm_count(out.device), tile)
+    sms = _sm_count(out.device)
+    if tile is None and route == "mma":
+        # the tuned tile, or mma_plan's own where the cache has none
+        tile = autotune.lookup(M, N, k, epilogue=act, sms=sms)
+    plan = mma_plan(M, N, route, sms, tile)
     fn = function("sa_matmul", "sa_mma_launch", MMA_ARGTYPES)
     err = fn(a_ptr, plan["npiece"], int(A_kc), lda_k, a_plane,
              b_st.data_ptr(), int(B_kc), ldb,

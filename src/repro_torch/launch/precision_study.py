@@ -79,13 +79,26 @@ def latency_energy() -> dict:
     return {"gemms": gemms, "networks": nets}
 
 
-def ladder(cfg, device, seed: int) -> dict[str, dict[str, float]]:
-    print(f"\n== 3. the SA contract inside a real model ({cfg.name}, "
-          f"{cfg.num_layers} layers, d {cfg.d_model}, on {device}) ==")
-    params = M.init_params(cfg, seed=seed, device=device)
-    g = torch.Generator().manual_seed(seed + 1)
-    toks = torch.randint(0, cfg.vocab_size, (1, 32), generator=g,
-                         dtype=torch.int32).to(device)
+def ladder(cfg, device, seed: int, *, params=None, tokens=None,
+           title: str | None = None) -> dict[str, dict[str, float]]:
+    """Section 3: the logits of each policy of the ladder against fp32's.
+    The weights are drawn from `seed` unless `params` (a numpy tree with
+    the JAX package's key names, carried over by `params_from_numpy`)
+    gives them; the prompt is 32 tokens drawn from `seed + 1` unless
+    `tokens` ((1, T) integers) gives it. `title` replaces the heading."""
+    print("\n" + (title or f"== 3. the SA contract inside a real model "
+                   f"({cfg.name}, {cfg.num_layers} layers, d {cfg.d_model}, "
+                   f"on {device}) =="))
+    if params is None:
+        params = M.init_params(cfg, seed=seed, device=device)
+    else:
+        from repro_torch.models.convert import params_from_numpy
+        params = params_from_numpy(params, device)
+    if tokens is None:
+        g = torch.Generator().manual_seed(seed + 1)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 32), generator=g,
+                               dtype=torch.int32)
+    toks = torch.as_tensor(np.array(tokens), dtype=torch.int32).to(device)
     ref = None
     out = {}
     for fmt in LADDER:

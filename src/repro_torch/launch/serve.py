@@ -45,6 +45,19 @@ Markov corpus, so a shallow draft has something to agree with.
 `--bucket-prompts` pads each prefill to a bucket length (summary:
 `prefill_compiles`), with the same stream digest.
 
+`--autotune-decode` sweeps the decode step's SA GEMM tiles at M = batch
+(and the verify's M = batch·(k + 1) with `--spec-k`) and, on the paged
+layout, the paged decode's cluster size before the first decode chunk
+(`preseed_decode_blocks`, the JAX driver's shapes). Winners persist in the
+autotuner's JSON cache (`kernels/autotune.py`: ``REPRO_AUTOTUNE_CACHE``,
+default ``~/.cache/repro_torch/autotune.json``); a shape already there is
+not swept again. It times the kernels, so it needs the card: with
+`--device cpu` it is refused. `[autotune]` lines give each sweep's
+candidates and times, and the summary gains `autotune_sweeps`, the chosen
+`autotune_tiles` (MxNxK:tile) and `autotune_n_split`
+(g x hd x page x pages:n_split), and `autotune_decode_misses`, the decode
+chunks' lookups that found no entry.
+
 `--disagg` serves with two pools (DESIGN.md §10): `--prefill-workers`
 prefills a chunk stage their pages in the shared pool and a ready queue
 feeds decode admissions; the summary gains `ready_depth_p50`, and the
@@ -62,8 +75,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.core import optflags
 from repro_torch.core.device import resolve_device
 from repro_torch.core.energy import tier_energy_summary
+from repro_torch.kernels import autotune
 from repro_torch.models import model as M
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import SlotScheduler
@@ -132,6 +147,58 @@ def spec_warmup_train(cfg, params, steps: int, seed: int):
     return state.params
 
 
+def preseed_decode_blocks(cfg, batch: int, page_size: int | None = None,
+                          max_pages: int | None = None, spec_k: int = 0
+                          ) -> dict:
+    """Tune the decode step's kernels before serving starts (the JAX
+    driver's `preseed_decode_blocks`): the SA GEMM tile of each (N, K) the
+    decode step's projections run — QKV, out-proj, FFN up and down, the
+    lm_head — at M = batch (a decode step's GEMMs flatten (B, 1, D) to
+    (B, D)); epilogue keys (the silu'd gate) fall back to these bare-GEMM
+    entries. With `spec_k` > 0 also the verify forward's M = batch·(spec_k
+    + 1) (`tune_spec_verify`). With `page_size` and `max_pages` (the paged
+    layout) also the paged decode's cluster size for slots of `max_pages`
+    pages of the engine's fp32 pool. A shape already cached is not
+    swept.
+    Returns the choices: {"gemm": {(m, n, k): tile}, "decode_attn": {(g,
+    hd, page_size, max_pages): n_split}}."""
+    dtype = autotune.production_dtype()
+    d, hd = cfg.d_model, cfg.hd
+    shapes = {(cfg.num_heads * hd, d), (cfg.num_kv_heads * hd, d),
+              (d, cfg.num_heads * hd), (cfg.padded_vocab, d)}
+    ff = cfg.d_ff_dense or cfg.d_ff
+    if ff:
+        shapes |= {(ff, d), (d, ff)}
+    choices = {"gemm": {}, "decode_attn": {}}
+    for n, k in sorted(shapes):
+        if spec_k:
+            got = autotune.tune_spec_verify(n, k, batch, spec_k, dtype=dtype)
+        else:
+            got = autotune.tune_decode(n, k, ms=(batch,), dtype=dtype)
+        choices["gemm"] |= {(m, n, k): tile for m, tile in got.items()}
+    if page_size and max_pages:
+        kvh = cfg.num_kv_heads
+        g = cfg.num_heads // kvh
+        n_split, _ = autotune.tune_decode_attn(batch, kvh, g, hd, page_size,
+                                               max_pages)
+        choices["decode_attn"][(g, hd, page_size, max_pages)] = n_split
+    return choices
+
+
+def _print_sweeps(sweeps) -> None:
+    for r in sweeps:
+        times = " ".join(f"{c}={us:.2f}" for c, us in r["us"].items())
+        if r["kind"] == "gemm":
+            m, n, k, dtype, epi = r["key"]
+            what = f"gemm M={m} N={n} K={k} {dtype} {epi}: tile us"
+        else:
+            g, hd, psz, pages, dtype = r["key"]
+            what = (f"decode_attn g={g} hd={hd} page={psz} pages={pages} "
+                    f"{dtype}: n_split us")
+        print(f"[autotune] {what} {times} -> {r['winner']} (heuristic "
+              f"{r['heuristic']})")
+
+
 def itl_p50_ms(finished) -> float | None:
     itls = [(r.t_done - r.t_first_token) / (r.n_generated - 1)
             for r in finished
@@ -176,6 +243,17 @@ def _make_engine(args, cfg, params, device) -> ServeEngine:
 
 def serve_continuous(args, cfg, params, plens, device):
     """Serve the stream; returns (summary, scheduler, engine)."""
+    tuned = None
+    if args.autotune_decode:
+        paged = (args.kv or optflags.kv_layout()) == "paged"
+        seq = args.max_seq_len or args.cache_len
+        n_swept = len(autotune.SWEPT)
+        tuned = preseed_decode_blocks(
+            cfg, args.batch, page_size=args.page_size if paged else None,
+            max_pages=-(-seq // args.page_size) if paged else None,
+            spec_k=args.spec_k)
+        tuned["sweeps"] = autotune.SWEPT[n_swept:]
+        _print_sweeps(tuned["sweeps"])
     engine = _make_engine(args, cfg, params, device)
     sched = SlotScheduler(args.batch, eos_id=args.eos_id)
     build_requests(sched, cfg, args.requests, args.rate, plens,
@@ -188,6 +266,15 @@ def serve_continuous(args, cfg, params, plens, device):
     summary = engine.serve(sched, greedy=True)
     summary["kv_layout"] = engine.kv_layout
     summary["stream_digest"] = stream_digest(sched.finished)
+    if tuned is not None:
+        summary["autotune_sweeps"] = len(tuned["sweeps"])
+        summary["autotune_tiles"] = ",".join(
+            f"{m}x{n}x{k}:{t}" for (m, n, k), t in sorted(
+                tuned["gemm"].items()))
+        summary["autotune_n_split"] = ",".join(
+            "x".join(map(str, key)) + f":{v}"
+            for key, v in sorted(tuned["decode_attn"].items())) or None
+        summary["autotune_decode_misses"] = engine.decode_misses
     itl = itl_p50_ms(sched.finished)
     if itl is not None:
         summary["decode_itl_p50_ms"] = itl
@@ -416,6 +503,10 @@ def parse_args(argv=None):
                     help="width multiplier for --reduced configs")
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="EOS token id (-1: never fires on synthetic vocab)")
+    ap.add_argument("--autotune-decode", action="store_true",
+                    help="tune the decode step's GEMM tiles and the paged "
+                         "decode's cluster size before the first chunk "
+                         "(kernels/autotune.py; the card only)")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -429,6 +520,10 @@ def main(argv=None, *, return_state: bool = False, params=None):
     drawing them from `--seed`."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if args.autotune_decode and device.type != "cuda":
+        raise ValueError("--autotune-decode times the kernels on the card; "
+                         "on the CPU the port runs their plain versions, "
+                         "which have nothing to tune")
     cfg = (reduced_config(args.arch,
                           layers_per_period=args.layers_per_period,
                           width=args.width)

@@ -99,6 +99,7 @@ import torch
 
 from repro_torch.core import optflags
 from repro_torch.core.precision import current_policy, use_policy
+from repro_torch.kernels import autotune
 from repro_torch.kernels.ops import fused_decode_supported
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
@@ -234,6 +235,8 @@ class ServeEngine:
         # and generate() reset it
         self._nonfinite = 0
         self.last_stats: dict[str, float] = {}
+        # autotune misses during the last serve()'s decode chunks
+        self.decode_misses = 0
 
     def _local_rows(self) -> int | None:
         """The rows of every local-window ring under speculative decoding:
@@ -884,11 +887,16 @@ class ServeEngine:
         # so paged writes land on the trash page, and an admission
         # overwrites a ring row whole; tok/pos are discarded.
         t_c = clock()
+        # the autotuner's lookups that fell back to the heuristic during
+        # the decode chunks (the warm-up's too): 0 once every decode shape
+        # is tuned (`launch/serve.py --autotune-decode`)
+        misses0 = autotune.MISSES
         warm = (self._spec_chunk_fn(spec_iters, greedy, "exact", self.spec_k)
                 if spec else self._chunk_fn(self.sync_every, greedy))
         cache = warm(self.params, tok, cache, pos, None, gen)[1]
         sync()
         compile_s = clock() - t_c
+        self.decode_misses = autotune.MISSES - misses0
 
         def clear_freed():
             # unmap freed slots before their pages can be reallocated (a
@@ -1006,6 +1014,7 @@ class ServeEngine:
             mode = "approx" if active_tiers == {"bulk"} else "exact"
             chunk_modes[mode] += 1
             t_d = now()
+            misses0 = autotune.MISSES
             if spec:
                 tok, cache, pos, gen, toks, accs = self._spec_chunk_fn(
                     spec_iters, greedy, mode, self.spec_k)(
@@ -1022,6 +1031,7 @@ class ServeEngine:
                 toks_np = toks.cpu().numpy()   # the chunk's single host sync
                 decode_s += now() - t_d
                 scheduler.observe(toks_np, now(), mode=mode)
+            self.decode_misses += autotune.MISSES - misses0
 
         summary = scheduler.summary()
         if chunk_modes["approx"]:

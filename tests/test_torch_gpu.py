@@ -1476,3 +1476,139 @@ def test_serve_ssm_full_width_two_layers_paged_equals_ring(cuda, monkeypatch,
     want = full[:, 296:, :cfg.vocab_size]
     assert float((got - want).abs().max()) <= 2.0 ** -5 * float(
         want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the autotuner (kernels/autotune.py): tiles and cluster sizes on the card
+# ---------------------------------------------------------------------------
+
+# qwen2.5-14b's decode GEMMs as (N, K): wq and wo, wk and wv, wg and wu,
+# wd, the lm_head
+QWEN_NK = [(5120, 5120), (1024, 5120), (13824, 5120), (5120, 13824),
+           (152064, 5120)]
+
+
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    from repro_torch.kernels import autotune as AT
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    monkeypatch.delenv("REPRO_AUTOTUNE", raising=False)
+    AT.reset()
+    yield AT
+    AT.reset()
+
+
+@pytest.mark.parametrize("m", [4, 20])
+@pytest.mark.parametrize("w_layout", ["n_contiguous", "k_contiguous"])
+def test_every_tuned_tile_gives_the_heuristic_tiles_bits(cuda, tune_cache,
+                                                         m, w_layout):
+    """Every GEMM candidate the tuner sweeps gives the heuristic tile's
+    output bit for bit (ROADMAP F2: K is never split), at qwen's decode
+    (M = 4) and verify (M = 20) shapes, on W as the layers store it (N
+    contiguous) and as the tied lm_head reads it (`embed.t()`, K
+    contiguous)."""
+    AT = tune_cache
+    g = torch.Generator(device=cuda).manual_seed(m)
+    for n, k in QWEN_NK:
+        a = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+        if w_layout == "n_contiguous":
+            w = (torch.randn((k, n), generator=g, device=cuda)
+                 * k ** -0.5).to(torch.bfloat16)
+        else:
+            w = (torch.randn((n, k), generator=g, device=cuda)
+                 * k ** -0.5).to(torch.bfloat16).t()
+        bias = torch.randn((n,), generator=g, device=cuda)
+        want, _ = MM._launch(a, w, bias, None, "none", "exact", False,
+                             tile=AT.default_tile(m, n))
+        for tile in AT.candidates_for(m, n, k):
+            got, _ = MM._launch(a, w, bias, None, "none", "exact", False,
+                                tile=tile)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (n, k, tile)
+        del a, w
+
+
+def test_tuned_tile_reaches_ops_sa_matmul(cuda, tune_cache):
+    """A cached tile is the one `ops.sa_matmul` launches (tile_counts),
+    with the heuristic tile's bits; a real sweep on the card times every
+    candidate and writes the file."""
+    AT = tune_cache
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn((4, 5120), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((5120, 1024), generator=g, device=cuda)
+         * 5120 ** -0.5).to(torch.bfloat16)
+    ops.reset_counts()
+    want = ops.sa_matmul(a, w, act="silu")
+    assert ops.tile_counts()["decode"] == 1 and AT.MISSES == 1
+    AT.tune(4, 1024, 5120, timer=lambda t: 1.0 if t == "small" else 9.0)
+    ops.reset_counts()
+    got = ops.sa_matmul(a, w, act="silu")    # the epilogue key falls back
+    assert ops.tile_counts() == {"large": 0, "small": 1, "decode": 0,
+                                 "split3": 0}
+    assert ops.counts()["sa_matmul"]["launches"] == 1 and AT.MISSES == 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ops.reset_counts()
+    tile, table = AT.tune(4, 5120, 5120)
+    assert {r["tile"] for r in table} == {"decode", "small", "large"}
+    assert all(r["us"] > 0 for r in table) and tile == table[0]["tile"]
+    # the sweep's launches are not counted
+    assert ops.tile_counts() == {"large": 0, "small": 0, "decode": 0,
+                                 "split3": 0}
+    AT.reset()
+    assert AT.lookup(4, 5120, 5120) == tile        # from the file
+
+
+def test_every_tuned_n_split_within_the_bound_and_slots_fold(cuda,
+                                                             tune_cache):
+    """Every cluster size the tuner sweeps is within `error_bound` of the
+    plain version at the serve shape (144-token slots); with the tuned
+    plan (looked up, no n_split given) a slot's bits are the same at B = 4
+    and inside B = 20."""
+    AT = tune_cache
+    lens = SERVE_LENS
+    q, k, v, pp, bt, pos = _pool(cuda, P=9, lens=lens)
+    pol = PrecisionPolicy(input_format="bf16")
+    ref = DA.paged_decode_ref(q, k, v, pp, bt, pos, policy=pol)
+    bound = DA.error_bound(q, k, v, pp, bt, pos, policy=pol)
+    cands = AT.decode_attn_candidates(5, 128, 16, 9)
+    assert len(cands) > 1
+    for n in cands:
+        got = DA.paged_decode_cuda(q, k, v, pp, bt, pos, policy=pol,
+                                   n_split=n)
+        assert bool(((got - ref).abs() <= bound).all()), n
+        assert bool((got[lens.index(0)] == 0).all())
+    n, table = AT.tune_decode_attn(4, 8, 5, 128, 16, 9)
+    assert sorted(r["n_split"] for r in table) == sorted(cands)
+    lens20 = lens + tuple((37 * i) % 144 + 1 for i in range(16))
+    q, k, v, pp, bt, pos = _pool(cuda, B=20, P=9, lens=lens20)
+    y20 = ops.paged_decode_attention(q, k, v, pp, bt, pos, policy=pol)
+    y4 = ops.paged_decode_attention(q[:4], k, v, pp, bt[:4], pos[:4],
+                                    policy=pol)
+    assert torch.equal(y4.view(torch.int32), y20[:4].view(torch.int32))
+    forced = DA.paged_decode_cuda(q[:4], k, v, pp, bt[:4], pos[:4],
+                                  policy=pol, n_split=n)
+    assert torch.equal(forced.view(torch.int32), y4.view(torch.int32))
+    assert AT.MISSES == 0
+
+
+def test_no_sweep_during_a_cuda_graph_capture(cuda, tune_cache):
+    """A lookup asked to sweep while a CUDA graph is being captured falls
+    back to the heuristic (the timing would be captured, not run)."""
+    AT = tune_cache
+    x = torch.zeros(1, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        x.add_(1)
+    torch.cuda.current_stream().wait_stream(s)
+    with torch.cuda.graph(graph):
+        tile = AT.lookup(4, 5120, 5120, sweep=True)
+        n = AT.lookup_decode_attn(5, 128, 16, 9, sweep=True, batch=4, kvh=8)
+        x.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tile == "decode" and n == DA.split_plan(5, 128, 16, 9).n_split
+    assert AT.SWEPT == [] and AT.MISSES == 2
+    assert AT.lookup(4, 5120, 5120, sweep=True) in AT.MMA_CANDIDATES
+    assert len(AT.SWEPT) == 1

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of `repro_torch` and not
-`chip_smoke.py` imports JAX or the JAX package `repro`."""
+"""The PyTorch port stands alone: no module of `repro_torch`, no port
+example (`examples/*_torch.py`) and not `chip_smoke.py` imports JAX or the
+JAX package `repro`."""
 import ast
 import json
 import os
@@ -45,7 +46,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize("path", [str(p.relative_to(ROOT)) for p in
-                                  sorted(PKG.rglob("*.py"))]
+                                  sorted(PKG.rglob("*.py"))
+                                  + sorted((ROOT / "examples").glob(
+                                      "*_torch.py"))]
                          + ["chip_smoke.py"])
 def test_source_has_no_jax_or_repro_import(path):
     tree = ast.parse((ROOT / path).read_text())
