@@ -5,6 +5,9 @@
     python3 chip_smoke.py --skip-serve    # device, build and kernel phases
     python3 chip_smoke.py --log FILE      # every phase, the log also in FILE
 
+The run writes Python's bytecode under build/pycache (PYTHONPYCACHEPREFIX),
+so the processes it starts do not compile the installed modules again.
+
 Phases, in order; any failure exits nonzero:
 
 1. device  — the card's name and power limit (nvidia-smi), torch, CUDA and
@@ -69,6 +72,24 @@ Phases, in order; any failure exits nonzero:
              inside B = 20; then the fp32 routes' times (a layer's 7 GEMMs
              fp32 x fp32 at M = 4 and 1024, beside the plain version,
              fp32 torch.matmul and the bound).
+   parallel — `python -m repro_torch.launch.train` under torchrun, the
+             ranks sharing the one card over gloo, 3 AdamW steps under
+             `cuda` at batch 4 x 512, each mesh (data, model):
+             qwen2.5-14b at full width cut to 4 layers at (1, 2) (accum
+             2) and to 1 layer at (2, 2) (accum 1: four ranks' states
+             fill the card), phi3-medium-14b cut to 2 layers at (1, 4)
+             (accum 2; its 10 KV heads padded to 12). Step 0's loss and every
+             gathered gradient leaf (`--grads-out`) against the
+             one-process step on the same weights and global batch, run
+             first in this process: the train phase's bounds. The
+             backend on the launcher's first line, finite losses, every
+             rank's SA GEMM launched forward and backward with no plain
+             call; each rank's peak memory and step times. After the
+             (2, 2) run, its model on one rank under nccl
+             (`--model-parallel 1`): step 0's loss against the same
+             reference, the same launch checks.
+             It runs right after the fold phase, while this process
+             holds little of the card.
 5. serve   — full-width, full-depth qwen2.5-14b (random weights from a
              seed) served through `repro_torch.launch.serve.main` with the
              `cuda` GEMM backend; every request must generate `max_new`
@@ -138,10 +159,9 @@ Phases, in order; any failure exits nonzero:
              the start, so every other phase runs the heuristic's tiles
              and cluster sizes): each swept (M, N, K) and paged-decode
              n_split with every candidate's time, the winner and the
-             heuristic's choice; the untuned serve's digest (the tile
-             changes no bit; a tuned cluster size that parts it takes
-             ROADMAP F9's path: the GEMM-only tuned serve's digest, and
-             R1's near-tie rule for the attention-tuned stream), 0 misses
+             heuristic's choice; the untuned serve's digest (neither the
+             tile nor, since ROADMAP F9's repair, the paged decode's
+             cluster size changes a bit), 0 misses
              over the decode chunks, each kernel's launches as the run
              implies, the serve phase's checks; again with `--spec-k 4`
              and a draft of all 48 superblocks (the verify's M = 20
@@ -298,6 +318,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -498,15 +519,16 @@ def probe(torch):
 def forward_times(torch, timer, g):
     """A layer's 7 forward GEMMs (with their bias and activation) and the
     lm_head at the training M (1024) through `sa_matmul_cuda`, wall and
-    device, beside bf16 torch.matmul (fp32 accumulation): the `large`
-    tile wherever its blocks fill the card (tools/chip_ab.py times both
-    checkouts with it)."""
+    device, beside bf16 torch.matmul (fp32 accumulation) and the plain
+    version (`sa_matmul_ref`): the `large` tile wherever its blocks fill
+    the card (tools/chip_ab.py times both checkouts with it)."""
     from repro_torch.kernels import sa_matmul as mm
     from repro_torch.kernels.gemm_cases import LAYER_GEMMS, LM_HEAD
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     m = TRAIN_M
-    out = {"layer": {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0}}
+    out = {"layer": {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0,
+                     "plain_ms": 0.0}}
     for name, k, n, has_bias, act in LAYER_GEMMS + [LM_HEAD]:
         a = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
         w = (torch.randn((k, n), generator=g, device="cuda")
@@ -517,7 +539,9 @@ def forward_times(torch, timer, g):
                                                           act=act), reps=5),
                "device_ms": timer.device(lambda: mm.sa_matmul_cuda(
                    a, w, bias, act=act), reps=3),
-               "library_ms": timer.wall(lambda: torch.matmul(a, w), reps=5)}
+               "library_ms": timer.wall(lambda: torch.matmul(a, w), reps=5),
+               "plain_ms": timer.wall(lambda: mm.sa_matmul_ref(
+                   a, w, bias, act=act), reps=3)}
         if name == "lm_head":
             out["lm_head"] = row
         else:
@@ -940,9 +964,10 @@ def check_gemm_train(torch, timer):
         f"fills the card): one layer's 7 GEMMs {lay['ms']:.4f} ms wall, "
         f"{lay['device_ms']} ms device (flop bound {f_ms:.4f} ms, FADD "
         f"bound {fadd_ms:.4f} ms; bf16 torch.matmul {lay['library_ms']:.4f}"
-        f" ms); lm_head {lmf['ms']:.4f} ms wall, {lmf['device_ms']} ms "
-        f"device (bound {lm_b:.4f} ms by {lm_by}, FADD bound {lm_fadd:.4f} "
-        f"ms; bf16 torch.matmul {lmf['library_ms']:.4f} ms)")
+        f" ms; plain {lay['plain_ms']:.4f} ms); lm_head {lmf['ms']:.4f} ms "
+        f"wall, {lmf['device_ms']} ms device (bound {lm_b:.4f} ms by "
+        f"{lm_by}, FADD bound {lm_fadd:.4f} ms; bf16 torch.matmul "
+        f"{lmf['library_ms']:.4f} ms; plain {lmf['plain_ms']:.4f} ms)")
     log(f"sa_matmul train: one layer's 7 GEMMs at M={m}: forward "
         f"{tot['fwd_ms']:.3f} ms ({tot['fwd_flops'] / tot['fwd_ms'] / 1e9:.1f}"
         f" TFLOP/s, {100 * f_ms / tot['fwd_ms']:.1f} % of its {f_ms:.3f} ms "
@@ -1087,6 +1112,8 @@ def check_fold(torch, timer):
             # the yardstick: SDPA on the gathered dense view
             row["library_ms"] = timer.wall(_sdpa_gathered(
                 torch, q, k, v, pp, bt, pos, grp))
+            row["plain_ms"] = timer.wall(lambda: da.paged_decode_ref(
+                q, k, v, pp, bt, pos))
             times[f"B{B}_slots{slot}"] = row
             log(f"[fold] paged decode B={B}, {slot}-token slots: "
                 f"{plan.n_split} blocks a cluster {row['ms']:.4f} ms wall "
@@ -1094,9 +1121,37 @@ def check_fold(torch, timer):
                 f"blocks {row['earlier_ms']:.4f} ms "
                 f"({row['earlier_device_ms']} device); bound "
                 f"{row['bound_ms']:.5f} ms ({row['bound_by']}); SDPA on "
-                f"the gathered view {row['library_ms']:.4f} ms")
+                f"the gathered view {row['library_ms']:.4f} ms; plain "
+                f"{row['plain_ms']:.4f} ms")
             del q, k, v, pp, bt, pos
     return times
+
+
+def decode_times(torch, timer, g):
+    """The paged decode's times on its own plan (`paged_decode_cuda`, no
+    n_split given), full slots, g = 5, hd 128, page 16: B = 4 and 64 at
+    the serve shape (144-token slots), B = 4 at 2048-token slots with an
+    fp32 and a bf16 pool; ms wall and device. `tools/chip_ab.py --what
+    decode` runs it against another checkout's port."""
+    from repro_torch.kernels import sa_decode_attention as da
+
+    KVH, grp, hd, psz = 8, 5, 128, PAGE
+    out = {}
+    for slot, B, pool in ((CACHE_LEN, BATCH, torch.float32),
+                          (CACHE_LEN, 64, torch.float32),
+                          (2048, BATCH, torch.float32),
+                          (2048, BATCH, torch.bfloat16)):
+        P = -(-slot // psz)
+        q, k, v, pp, bt, pos = _paged_workload(
+            torch, g, B, KVH, grp, hd, psz, P, B * P + 1, [slot] * B)
+        k, v = k.to(pool), v.to(pool)
+
+        def run():
+            return da.paged_decode_cuda(q, k, v, pp, bt, pos)
+        key = f"B{B}_slots{slot}_{str(pool).split('.')[-1]}"
+        out[key] = {"ms": timer.wall(run), "device_ms": timer.device(run)}
+        del q, k, v, pp, bt, pos
+    return out
 
 
 def _paged_workload(torch, g, B, KVH, grp, hd, psz, P, n_pages, lens):
@@ -1125,13 +1180,15 @@ def _paged_workload(torch, g, B, KVH, grp, hd, psz, P, n_pages, lens):
 
 
 def ptxas_summary(name: str) -> str:
-    """Registers and spills of each entry function of kernel library
-    `name`, from the build phase's `-Xptxas -v` report."""
+    """Registers and spills of each entry function of kernel source
+    `name` (every library built from it), from the build phase's
+    `-Xptxas -v` report."""
     import re
 
     from repro_torch.kernels import build
 
-    rep = build.REPORTS.get(name)
+    rep = "\n".join(r for lib, r in build.REPORTS.items()
+                    if build.LIBRARIES[lib][0] == name)
     if not rep:
         return "(no ptxas report: the library was not built in this process)"
     out, entry, spills = [], None, ""
@@ -3088,13 +3145,15 @@ def verify_yardsticks(torch, slot_len=144):
     rows: the kernel, SDPA on the gathered view, and the bound with each
     slot's pages read once and each row's q and output)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_decode_attention as da
+    from repro_torch.kernels import sa_matmul as mm
     from repro_torch.kernels.gemm_cases import LAYER_GEMMS
 
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(11)
     T = SPEC_K + 1
     m = BATCH * T
-    gemm = {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0}
+    gemm = {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0}
     nbytes = flops = 0.0
     for _, k, n, has_bias, act in LAYER_GEMMS:
         a = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
@@ -3110,6 +3169,8 @@ def verify_yardsticks(torch, slot_len=144):
         gemm["device_ms"] = (None if d is None or gemm["device_ms"] is None
                              else gemm["device_ms"] + d)
         gemm["library_ms"] += timer.wall(lambda: torch.matmul(a, w))
+        gemm["plain_ms"] += timer.wall(lambda: mm.sa_matmul_ref(
+            a, w, bias, act=act))
         nbytes += 2 * (m * k + k * n) + 4 * m * n + (4 * n if has_bias
                                                        else 0)
         flops += 2.0 * m * n * k
@@ -3135,6 +3196,8 @@ def verify_yardsticks(torch, slot_len=144):
     decode = {"ms": timer.wall(run), "device_ms": timer.device(run),
               "library_ms": timer.wall(_sdpa_gathered(
                   torch, q, k, v, pp, rows, pos, grp)),
+              "plain_ms": timer.wall(lambda: da.paged_decode_ref(
+                  q, k, v, pp, rows, pos)),
               "bound_ms": b_ms, "bound_by": by}
     del timer, q, k, v, pp, bt, rows
     gc.collect()
@@ -3142,10 +3205,11 @@ def verify_yardsticks(torch, slot_len=144):
     out = {"rows": m, "gemm_layer": gemm, "paged_decode": decode}
     log(f"[spec] the verify's {m} rows, a layer: 7 GEMMs {gemm['ms']:.4f} "
         f"ms wall ({gemm['device_ms']} device), bf16 torch.matmul "
-        f"{gemm['library_ms']:.4f} ms, bound {gemm['bound_ms']:.4f} ms "
-        f"({gemm['bound_by']}); paged decode {decode['ms']:.4f} ms wall "
-        f"({decode['device_ms']} device), SDPA on the gathered view "
-        f"{decode['library_ms']:.4f} ms, bound {b_ms:.5f} ms ({by})")
+        f"{gemm['library_ms']:.4f} ms, plain {gemm['plain_ms']:.4f} ms, "
+        f"bound {gemm['bound_ms']:.4f} ms ({gemm['bound_by']}); paged "
+        f"decode {decode['ms']:.4f} ms wall ({decode['device_ms']} "
+        f"device), SDPA on the gathered view {decode['library_ms']:.4f} ms, "
+        f"plain {decode['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({by})")
     return out
 
 
@@ -3289,8 +3353,6 @@ def bucket(torch, engine):
 # the autotuner's cache files live here for the whole run (main sets it):
 # no phase reads a cache left by an earlier run
 TUNE_DIR = None
-# R1's near tie: the top two logits within 2·2^-5·max|logit| of each other
-NEAR_TIE_REL = 2 * 2.0 ** -5
 
 
 def fresh_tune_cache(tag: str) -> str:
@@ -3337,85 +3399,14 @@ def _sweep_rows(sweeps):
     return rows
 
 
-def _near_ties(torch, eng, prompt, tokens, upto):
-    """Teacher-force `tokens` (a stream the untuned plan emitted) after
-    `prompt` on a batch-1 cache, with the untuned cluster sizes. Returns
-    (the first j <= upto whose logits, those that choose token j, have
-    their top two within NEAR_TIE_REL·max|logit|, or None; the top-two
-    gap over max|logit| of the logits that choose token `upto`)."""
-    V = eng.cfg.vocab_size
-    T = len(prompt)
-    cache = eng.new_cache(batch=1)
-    toks = torch.tensor([int(t) for t in prompt], dtype=torch.int32,
-                        device="cuda")[None]
-    logits, cache = eng._prefill_for(0)(eng.params, toks, cache)
-    first = None
-    for j in range(upto + 1):
-        row = logits[0, -1, :V].float()
-        top2 = torch.topk(row, 2).values
-        gap = float(top2[0] - top2[1]) / float(row.abs().max())
-        if first is None and gap <= NEAR_TIE_REL:
-            first = j
-        if j == upto:
-            return first, gap
-        logits, cache = eng._serve_step(
-            eng.params,
-            torch.tensor([[int(tokens[j])]], dtype=torch.int32, device="cuda"),
-            cache, torch.tensor([T + j], dtype=torch.int32, device="cuda"))
-
-
-def _f9(torch, engine, serve_sched, tuned_sched, eng):
-    """ROADMAP F9's path, taken only if a tuned cluster size parted the
-    digest: the serve with the tuned GEMM tiles and attention on its
-    default plan must give the untuned digest (the tile changes no bit),
-    and the attention-tuned stream is held by R1's rule — each request's
-    tokens equal up to the first step whose top two logits lie within
-    2·2^-5·max|logit|."""
-    from repro_torch.kernels import autotune
-    from repro_torch.launch import serve as drv
-
-    problems = []
-    dattn = dict(autotune._MEM_DATTN)
-    autotune._MEM_DATTN.clear()
-    try:
-        summary, _, _ = drv.main(SERVE_ARGS, return_state=True,
-                                 params=engine.params)
-        torch.cuda.synchronize()
-        if summary["stream_digest"] != drv.stream_digest(serve_sched.finished):
-            problems.append(f"GEMM-only tuned digest "
-                            f"{summary['stream_digest']} != untuned")
-        plain = {r.rid: r for r in serve_sched.finished}
-        parted = {}
-        for r in sorted(tuned_sched.finished, key=lambda r: r.rid):
-            want = plain[r.rid].tokens
-            t = next((i for i, (a, b) in enumerate(zip(r.tokens, want))
-                      if a != b), None)
-            if t is None:
-                continue
-            tie, gap = _near_ties(torch, eng, plain[r.rid].prompt, want, t)
-            parted[r.rid] = {"first_diff": t, "first_near_tie": tie,
-                             "gap_at_diff": round(gap, 6)}
-            if tie is None:
-                problems.append(f"request {r.rid} parts at token {t} with "
-                                f"no near tie before it (R1's rule)")
-    finally:
-        autotune._MEM_DATTN.update(dattn)
-    log(f"[autotune F9] GEMM-only tuned digest {summary['stream_digest']}; "
-        f"attention-tuned requests parted (first differing token, first "
-        f"near tie, the untuned logits' top-two gap over max|logit| at "
-        f"the differing token): {parted}")
-    return {"gemm_only_digest": summary["stream_digest"],
-            "parted": parted}, problems
-
-
-def autotune_serve(torch, engine, serve_summary, serve_sched):
+def autotune_serve(torch, engine, serve_summary):
     """The serve stream through the driver with `--autotune-decode` on the
     serve phase's weights and an empty cache: the sweep's every (M, N, K)
     and n_split with each candidate's time, the winner and the heuristic's
     choice; then with `--spec-k 4` and a draft of all 48 superblocks
     (seeds the verify's M = 20; M = 4 and the cluster size come from the
-    cache). Gates: the untuned serve's digest (the tile changes no bit; a
-    cluster size that parts it takes F9's path), 0 autotune misses over
+    cache). Gates: the untuned serve's digest (neither the tile nor the
+    cluster size changes a bit: ROADMAP F9), 0 autotune misses over
     the decode chunks, each kernel's launches as the run implies (the
     sweep's own launches are not counted), the serve phase's checks;
     spec's digest and accept rate 1.0. Returns the readings (the cache
@@ -3480,10 +3471,11 @@ def autotune_serve(torch, engine, serve_summary, serve_sched):
                 problems.append(f"plain: sweeps "
                                 f"{[s['key'] for s in r['sweeps']]}, want "
                                 f"{want_keys}")
+            # ROADMAP F9: the paged decode sums run by run, so a tuned
+            # cluster size changes no bit either
             if r["digest"] != untuned:
-                r["f9"], f9_problems = _f9(torch, engine, serve_sched,
-                                           sched, eng)
-                problems += f9_problems
+                problems.append(f"plain: tuned digest {r['digest']} != the "
+                                f"untuned {untuned} (F9)")
         else:
             r["spec_accept_rate"] = summary["spec_accept_rate"]
             # only the verify's M = 20: M = 4 and the cluster size are
@@ -5782,6 +5774,194 @@ def train(torch, card):
     return counts["sa_matmul_bwd"]["launches"], step0, routes, tiles
 
 
+# ---------------------------------------------------------------------------
+# phase 10: parallel — the training launcher under torchrun on one card
+# ---------------------------------------------------------------------------
+
+# (arch, layers, (data, model), accum): full width, the depth cut so that
+# every rank's fp32 state (16 B a parameter) fits the one card beside the
+# others; (2, 2) takes its rows in one microbatch, since a second one's
+# gradient transients (the vocabulary shards' dW and the lookup's dense
+# gradient, 1.46 GiB each a rank) do not fit four ranks beside each other
+PARALLEL_RUNS = (("qwen2.5-14b", TRAIN_LAYERS, (1, 2), TRAIN_ACCUM),
+                 ("qwen2.5-14b", 1, (2, 2), 1),
+                 ("phi3-medium-14b", 2, (1, 4), TRAIN_ACCUM))
+PARALLEL_STEPS = 3
+
+
+def _parallel_reference(torch, cfg, accum):
+    """The one-process step 0 on the launcher's weights and first global
+    batch (seed 0) under `cuda`: (loss, {leaf path: fp32 gradient on the
+    host}); the card's memory is freed before it returns."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_grad_fn
+
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    for p in M.tree_leaves(params):
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch_at(0).items()}
+    loss, _, grads = make_grad_fn(cfg, accum)(params, batch)
+    host = {p.strip("/").replace("/", "."): g.detach().cpu()
+            for p, g in _grad_leaves(torch, grads).items()}
+    loss = float(loss)
+    del params, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, host
+
+
+def _parallel_run(torch, arch, layers, shape, accum, ref_loss, ref):
+    """`python -m repro_torch.launch.train` under torchrun, data x model
+    ranks on the one card, PARALLEL_STEPS steps under `cuda` with the
+    first step's gradients written (`--grads-out`) where `ref` is given.
+    Returns (readings, problems): the backend line, each step's loss,
+    each rank's peak memory, step times (the first's includes writing the
+    gradients) and SA GEMM launches, and step 0 against the one-process
+    reference (its loss alone where `ref` is None)."""
+    from repro_torch.launch.train import read_grads
+
+    dp, mp = shape
+    n = dp * mp
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", f"parallel_grads_{dp}x{mp}")
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), "-m", "repro_torch.launch.train",
+           "--arch", arch, "--layers", str(layers), "--batch",
+           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum",
+           str(accum), "--steps", str(PARALLEL_STEPS), "--seed", "0",
+           "--model-parallel", str(mp)] + (["--grads-out", out] if ref
+                                           else [])
+    # four ranks' states share the card: the caching allocator grows its
+    # segments rather than strand memory between them
+    env = dict(os.environ, REPRO_GEMM_BACKEND="cuda",
+               PYTHONPATH=os.path.join(root, "src"),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    t0 = time.monotonic()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=900)
+    wall = time.monotonic() - t0
+    lines = res.stdout.splitlines()
+    tag = f"[parallel {arch} {layers}L {dp}x{mp} accum {accum}]"
+    problems = []
+    if res.returncode != 0:
+        # the first rank's error, which the others' teardown follows
+        err = res.stderr.splitlines()
+        i = next((j for j, ln in enumerate(err) if "Error" in ln
+                  and "elastic" not in ln), len(err))
+        log(res.stdout[-3000:])
+        log("\n".join(err[max(0, i - 40):i + 2]))
+        with open(os.path.join(root, "build", f"parallel_{dp}x{mp}.err"),
+                  "w") as f:
+            f.write(res.stderr)
+        return {}, [f"{tag} exit code {res.returncode}"]
+    want = "nccl" if n == 1 else "gloo"
+    first = lines[0] if lines else ""
+    if not first.startswith(f"[mesh] backend={want} world={n} data={dp} "
+                            f"model={mp} device=cuda"):
+        problems.append(f"{tag} first line {first!r}")
+    steps = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    ranks = [_summary_fields(ln) for ln in lines if ln.startswith("[rank ")]
+    if (len(steps) != PARALLEL_STEPS
+            or not all(math.isfinite(st["loss"]) for st in steps)):
+        problems.append(f"{tag} steps {steps}")
+    if len(ranks) != n:
+        problems.append(f"{tag} {len(ranks)} rank lines of {n}")
+    for r in ranks:
+        fwd, bwd = (int(x) for x in r["sa_matmul_launches"].split("+"))
+        if fwd <= 0 or bwd <= 0 or int(r["plain_calls"]) != 0:
+            problems.append(f"{tag} a rank launched the SA GEMM {fwd}+{bwd}"
+                            f" times with {r['plain_calls']} plain calls")
+    loss0 = steps[0]["loss"] if steps else float("nan")
+    if ref:
+        with open(os.path.join(out, "loss.json")) as f:
+            loss0 = json.load(f)["loss"]
+    loss_rel = abs(loss0 - ref_loss) / abs(ref_loss)
+    rel = {"loss only": 0.0}
+    specs = {}
+    if ref:
+        from repro_torch.configs import get_config
+        from repro_torch.parallel.mesh import MeshSpec
+        from repro_torch.parallel.sharding import P, tree_map_with_path
+        from repro_torch.train.train_state import param_specs
+
+        tree_map_with_path(
+            lambda p, sp: specs.__setitem__(".".join(map(str, p)), sp),
+            param_specs(dataclasses.replace(get_config(arch),
+                                            num_layers=layers),
+                        MeshSpec(("data", "model"), shape)),
+            is_leaf=lambda x: isinstance(x, P))
+    for path, g in (ref or {}).items():
+        got = torch.from_numpy(read_grads(out, path, specs[path])).cuda()
+        want_g = g.cuda()
+        rel[path] = float(torch.linalg.vector_norm(got - want_g)
+                          / torch.linalg.vector_norm(want_g).clamp_min(
+                              1e-30))
+        del got, want_g
+    shutil.rmtree(out, ignore_errors=True)
+    if ref:
+        del rel["loss only"]
+    worst = max(rel, key=rel.get)
+    if not loss_rel <= TRAIN_LOSS_REL:
+        problems.append(f"{tag} step 0 loss {loss0} against {ref_loss}")
+    if rel[worst] > TRAIN_GRAD_REL:
+        problems.append(f"{tag} leaf {worst} rel {rel[worst]:.3e}")
+    readings = {
+        "backend": first.split()[1].split("=")[1] if first else None,
+        "wall_s": round(wall, 2), "losses": [st["loss"] for st in steps],
+        "step0_loss_rel": loss_rel, "grad_rel_max": rel[worst],
+        "grad_rel_worst_leaf": worst, "leaves": len(rel),
+        "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
+        "step_s": [r["step_s"] for r in ranks],
+        "sa_matmul_launches": [r["sa_matmul_launches"] for r in ranks]}
+    log(f"{tag} backend {readings['backend']}, wall {wall:.1f} s (start, "
+        f"init, {PARALLEL_STEPS} steps, gradients out); losses "
+        f"{readings['losses']}; step 0 against the one-process step: loss "
+        f"rel {loss_rel:.3e} (bound {TRAIN_LOSS_REL:.3e}), {len(rel)} "
+        f"leaves, max rel {rel[worst]:.3e} at {worst} (bound "
+        f"{TRAIN_GRAD_REL:.3e})")
+    for r in [ln for ln in lines if ln.startswith("[rank ")]:
+        log(f"{tag} {r}")
+    return readings, problems
+
+
+def parallel(torch, card):
+    """The parallel phase: each PARALLEL_RUNS entry's one-process step 0
+    in this process (its memory freed after), then the launcher under
+    torchrun on the mesh, the ranks sharing the card over gloo; after the
+    (2, 2) run, its model on one rank under nccl (`--model-parallel 1`,
+    step 0's loss against the same reference). Returns the readings;
+    raises on any problem."""
+    from repro_torch.configs import get_config
+
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    out, problems = {}, []
+    gib = 2 ** 30
+    log(f"[parallel] this process holds "
+        f"{torch.cuda.memory_allocated() / gib:.2f} GiB "
+        f"({torch.cuda.memory_reserved() / gib:.2f} reserved) of the card")
+    for arch, layers, shape, accum in PARALLEL_RUNS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        t = time.monotonic()
+        ref_loss, ref = _parallel_reference(torch, cfg, accum)
+        log(f"[parallel {arch} {layers}L] one-process step 0: loss "
+            f"{ref_loss:.6f} in {time.monotonic() - t:.1f} s")
+        runs = [shape] + ([(1, 1)] if shape == (2, 2) else [])
+        for sh in runs:
+            r, p = _parallel_run(torch, arch, layers, sh, accum, ref_loss,
+                                 ref if sh != (1, 1) else None)
+            out[f"{arch}_{layers}L_{sh[0]}x{sh[1]}"] = r
+            problems += p
+        del ref
+        gc.collect()
+    log(f"[parallel] {card}")
+    if problems:
+        raise AssertionError("parallel phase failed: " + "; ".join(problems))
+    return out
+
+
 def _expected_train_tiles(torch, bwd_launches):
     """The SA GEMM's launches by tile that the train phase's shapes imply:
     a microbatch of TRAIN_M rows runs each layer's 7 forward GEMMs twice
@@ -5810,16 +5990,24 @@ def main(argv=None):
                     help="also write every logged line to this file (the "
                          "end of the output may be all a caller keeps)")
     args = ap.parse_args(argv)
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "src", "repro_torch")):
         print("chip_smoke: src/repro_torch is missing beside this script",
               file=sys.stderr)
         return 3
+    # Python's bytecode of what this run imports (torch's modules among
+    # them), written once under the ignored build/ and read by every
+    # process the run starts: a fresh process otherwise compiles the
+    # modules again where the installed packages carry no bytecode
+    pycache = os.path.join(root, "build", "pycache")
+    os.makedirs(pycache, exist_ok=True)
+    sys.pycache_prefix = pycache
+    os.environ["PYTHONPYCACHEPREFIX"] = pycache
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.kernels import build
 
@@ -5956,6 +6144,13 @@ def main(argv=None):
 
     launches = {k["name"]: 0 for k in kernels}
     if not args.skip_serve:
+        # first, while this process holds little of the card: up to four
+        # ranks' states share it
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.monotonic()
+        kernels[0]["readings"]["parallel"] = parallel(torch, card)
+        phases["parallel"] = time.monotonic() - t
         t = time.monotonic()
         summary, got, engine, sched = serve(torch)
         launches.update(sa_matmul=got["sa_matmul"],
@@ -5988,7 +6183,7 @@ def main(argv=None):
         bucket_out = bucket(torch, engine)
         phases["bucket"] = time.monotonic() - t
         t = time.monotonic()
-        tuned = autotune_serve(torch, engine, summary, sched)
+        tuned = autotune_serve(torch, engine, summary)
         phases["autotune"] = time.monotonic() - t
         L = engine.cfg.num_layers
         kernels[0]["readings"]["spec"] = {

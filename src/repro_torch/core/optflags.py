@@ -14,8 +14,13 @@ environment variables as the JAX package, at call time.
   bf16_params_in_layers — cast fp32 matrices to bf16 at superblock entry
                       (the CPU's fp32 storage; CUDA stores bf16 already).
                       Numerically identical under the bf16 policy.
+  pad_kv_heads      — under tensor parallelism, pad KV heads (and the
+                      kv-major grouped Q heads) up to a multiple of the
+                      `model` axis where the arch asks for it in training
+                      (`cfg.pad_attn_train`; models/layers.py
+                      `_tp_attention`), so the heads split across ranks.
 
-`REPRO_OPT=0` disables all three.
+`REPRO_OPT=0` disables all four.
 
 String knobs: `gemm_backend()` (REPRO_GEMM_BACKEND: `torch` — the plain
 PyTorch GEMM and the default —, `cuda`, the hand-written SA GEMM kernel,
@@ -36,7 +41,8 @@ def _opt_enabled() -> bool:
     return os.environ.get("REPRO_OPT", "1") not in ("0", "false", "off")
 
 
-_PERF_FLAGS = ("fused_epilogue", "pallas_attention", "bf16_params_in_layers")
+_PERF_FLAGS = ("fused_epilogue", "pallas_attention", "bf16_params_in_layers",
+               "pad_kv_heads")
 
 
 def enabled(name: str) -> bool:

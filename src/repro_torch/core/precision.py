@@ -185,6 +185,35 @@ def sa_dot(a: torch.Tensor, w: torch.Tensor,
                                          mode=policy.mode))
 
 
+def sa_dot_chain(a: torch.Tensor, w: torch.Tensor,
+                 policy: PrecisionPolicy | None = None) -> torch.Tensor:
+    """The unrounded fp32 chain of `a @ w` under the SA contract: the
+    inputs cast in, the exact chain, no epilogue, no truncation, no output
+    rounding: a row-parallel GEMM's partial over its K slice, which the
+    ranks all-reduce in fp32 before `sa_finish`. On `cuda` it is the
+    hand-written SA GEMM's raw fp32 output (an exact-mode call without an
+    epilogue returns the chain as accumulated); `emulate` has no gradient
+    and is refused."""
+    policy = policy or current_policy()
+    if policy.backend == "emulate":
+        raise ValueError("the emulate backend has no row-parallel partial "
+                         "(no gradient, no training path)")
+    return sa_dot(a, w, dataclasses.replace(policy, mode="exact",
+                                            output_format="fp32"))
+
+
+def sa_finish(y: torch.Tensor,
+              policy: PrecisionPolicy | None = None) -> torch.Tensor:
+    """What `sa_dot` does after the chain, without an epilogue: the approx
+    truncation, then the single rounding to the output format."""
+    from repro_torch.kernels.sa_matmul import truncate_mantissa
+
+    policy = policy or current_policy()
+    if policy.mode == "approx":
+        y = truncate_mantissa(y)
+    return policy.cast_out(y)
+
+
 def sa_einsum(spec: str, a: torch.Tensor, w: torch.Tensor,
               policy: PrecisionPolicy | None = None) -> torch.Tensor:
     """Einsum under the SA contract (attention paths)."""

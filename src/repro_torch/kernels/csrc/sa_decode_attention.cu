@@ -19,23 +19,32 @@
 // Design: a thread-block cluster per (slot, KV head) splits the slot's keys
 // into n_split contiguous runs, one per block (grid (B, KVH, n_split),
 // cluster (1, 1, n_split), launched with cudaLaunchKernelEx; the wrapper's
-// `split_plan` picks n_split and the run length). The g query heads of the
-// KV head share every K and V row a block reads. A block stages its
-// block-table entries in shared memory, then each of its 8 warps takes 8
-// keys at a time: 8 independent 16-byte loads a lane (one K row a
-// warp-load at hd = 128) are in flight together, each lane forms the g
-// partial dots of its columns for all 8 keys, and one butterfly reduces the
-// 8 g partials in 9 g shuffles (the keys are halved across lanes 16, 8 and
-// 4 apart, then summed across the quad), instead of 5 g a key. The block's
-// g x (its keys) scores stay in its shared memory. Three exchanges through
-// distributed shared memory follow, each behind cluster.sync() and read in
-// rank order: the blocks' maxima give the row max m; their sums of
-// exp(s - m) give the denominator; after P is normalized and cast in, each
-// block's fp32 partial of P.V over its keys (its warps' partials added in
-// warp order) is added across the cluster in rank order, each block
-// finishing a slice of the g x hd outputs. Every block holds the same m and
-// denominator, so P is the reference's P; only the order of the fp32 sums
-// changes (the bound's 2 S 2^-24), and the result is deterministic.
+// `split_plan` picks n_split and the keys a block, a multiple of kRun). The
+// g query heads of the KV head share every K and V row a block reads. A
+// block stages its block-table entries in shared memory, then each of its 8
+// warps takes 8 keys at a time: 8 independent 16-byte loads a lane (one K
+// row a warp-load at hd = 128) are in flight together, each lane forms the
+// g partial dots of its columns for all 8 keys, and one butterfly reduces
+// the 8 g partials in 9 g shuffles (the keys are halved across lanes 16, 8
+// and 4 apart, then summed across the quad), instead of 5 g a key. The
+// block's g x (its keys) scores stay in its shared memory.
+//
+// The order of every sum is a function of the slot alone, not of n_split
+// (ROADMAP F9): the slot's keys fall into fixed runs of kRun = 64 keys (key
+// k in run k / 64), and a block holds whole runs. The row max is exact in
+// any order. The denominator: each run's sum of exp(s - m) is formed by one
+// warp in an order fixed by the run (lane l adds keys l and l + 32 of the
+// run, then a butterfly), and the runs' sums are folded in run order 0, 1,
+// 2, ... from whichever block holds each (distributed shared memory). P.V:
+// in run j warp w takes the run's keys 8 w .. 8 w + 7 (an fma chain from
+// zero in key order), the run's partial is its warps' added in warp order,
+// written to a global workspace, and after the cluster barrier each block
+// finishes a slice of the g x hd outputs by folding every run's partial in
+// run order (read through L2). n_split decides only which block computes
+// which run. Every block holds the same m and denominator, so P is the
+// reference's P; only the order of the fp32 sums differs from it (the
+// bound's 2 S 2^-24), and the result is deterministic and the same for
+// every cluster size.
 //
 // Pools: fp32, bf16 or fp16, the pool type a template parameter of the
 // row loads. A 16-bit row stays packed two values to a register while its
@@ -55,9 +64,11 @@
 // moves 67 MB of an fp32 pool (20 us at the byte rate; a bf16 pool half
 // that, 10 us) in two dependent passes over the pool, K then V, each warp holding 8 rows in flight; on the card that
 // reaches about 38 % of the byte rate (PERF.md). A block holds
-// g * keys_per_block scores, so a slot's length is limited only by the
-// cluster's shared memory (16 blocks of at most 227 KB: about 165,000
-// tokens at g = 5, hd = 128).
+// g * keys_per_block scores and g sums a run, so a slot's length is limited
+// only by the cluster's shared memory (16 blocks of at most 227 KB: 164,864
+// tokens at g = 5, hd = 128, page 16; 80,896 at g = 8, hd = 256). The
+// runs' P.V partials (g * hd fp32 a run, 40 B a key at g = 5, hd = 128) go
+// to the workspace, not to shared memory, so they do not bound the slot.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -73,6 +84,7 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kNK = 8;  // keys a warp has in flight
+constexpr int kRun = kWarps * kNK;  // keys a run: one batch of every warp
 
 __device__ __forceinline__ float cast_in(float x, int fmt) {
   if (fmt == 1) return __bfloat162float(__float2bfloat16_rn(x));
@@ -169,7 +181,8 @@ __global__ void __launch_bounds__(kThreads, G * VEC <= 20 ? 3 : 1)
 paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
                    const T* __restrict__ v_pool, const int* __restrict__ ppos,
                    const int* __restrict__ bt, const int* __restrict__ pos,
-                   float* __restrict__ out, int KVH, int psz, int P, int kpc,
+                   float* __restrict__ out, float* __restrict__ ws, int KVH,
+                   int psz, int P, int kpc,
                    int min_page, float scale, float scale_over_cap, float cap,
                    int window, int fmt, int approx) {
   constexpr int HD = 32 * VEC;
@@ -179,9 +192,9 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
   extern __shared__ float4 smem4[];
   float* s_buf = reinterpret_cast<float*>(smem4);  // [G][kpc] scores, then P
   float* o_w = s_buf + G * kpc;                    // [kWarps][G][HD]
-  float* o_c = o_w + kWarps * G * HD;              // [G][HD] this block's P.V
-  float* red = o_c + G * HD;  // [4][G]: local max, local sum, m_safe, denom
-  int* bt_s = reinterpret_cast<int*>(red + 4 * G);  // this run's pages
+  float* red = o_w + kWarps * G * HD;  // [4][G]: local max, -, m_safe, denom
+  float* run_den = red + 4 * G;        // [kpc / kRun][G]: each run's sum
+  int* bt_s = reinterpret_cast<int*>(run_den + (kpc / kRun) * G);  // pages
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -191,6 +204,9 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
   const int S = P * psz;
   const int k0 = rank * kpc;
   const int n_local = max(0, min(S, k0 + kpc) - k0);
+  const int rpb = kpc / kRun;                      // runs a block
+  const int n_run = (n_local + kRun - 1) / kRun;   // this block's, with keys
+  const int n_runs = (S + kRun - 1) / kRun;        // the slot's
   const int j0 = k0 / psz;
   const int n_pg = n_local ? (k0 + n_local - 1) / psz - j0 + 1 : 0;
   const int my_pos = pos[b];
@@ -289,7 +305,8 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
   __syncthreads();
 
   // the V rows of this warp's first batch (fp32 cast in at once; 16-bit
-  // packed, cast in when used): their loads run under the three exchanges
+  // packed, cast in when used): their loads run under the first two
+  // exchanges
   using VRow = Row<T, VEC>;
   auto load_v = [&](int base, VRow (&vx)[kNK]) {
 #pragma unroll
@@ -329,24 +346,31 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
   }
   __syncthreads();
 
-  // exchange 2: the denominator, block sums added in rank order
-  if (warp < G) {
-    const float ms = red[2 * G + warp];
-    float sum = 0.f;
-    for (int i = lane; i < n_local; i += 32) {
-      const float e = expf(s_buf[warp * kpc + i] - ms);
-      s_buf[warp * kpc + i] = e;
-      sum += e;
-    }
+  // exchange 2: the denominator. Each run's sum by one warp, in an order
+  // fixed by the run; then the runs' sums folded in run order across the
+  // cluster
+  for (int pr = warp; pr < G * n_run; pr += kWarps) {
+    const int h = pr / n_run, j = pr - h * n_run;
+    const float ms = red[2 * G + h];
+    float* row = s_buf + h * kpc + j * kRun;
+    float e0 = 0.f, e1 = 0.f;
+    if (j * kRun + lane < n_local) row[lane] = e0 = expf(row[lane] - ms);
+    if (j * kRun + lane + 32 < n_local)
+      row[lane + 32] = e1 = expf(row[lane + 32] - ms);
+    float sum = e0 + e1;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(~0u, sum, o);
-    if (lane == 0) red[G + warp] = sum;
+    if (lane == 0) run_den[j * G + h] = sum;
   }
   cluster.sync();
   if (threadIdx.x < G) {
     float den = 0.f;
-    for (int r = 0; r < nsplit; ++r)
-      den += cluster.map_shared_rank(red, r)[G + threadIdx.x];
+#pragma unroll 8
+    for (int j = 0; j < n_runs; ++j) {
+      const int r = j / rpb;
+      den += cluster.map_shared_rank(run_den, r)[(j - r * rpb) * G +
+                                                 threadIdx.x];
+    }
     red[3 * G + threadIdx.x] = fmaxf(den, 1e-30f);
   }
   __syncthreads();
@@ -356,14 +380,17 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
   }
   __syncthreads();
 
-  // P.V over this block's keys (the first batch's rows already in flight)
-  float acc[G][VEC];
+  // P.V a run at a time (the first run's rows already in flight): in run j
+  // warp w's fma chain over keys 8 w .. 8 w + 7 of the run from zero, the
+  // run's partial its warps' added in warp order, to the workspace
+  float* ws_s = ws + (size_t)(b * KVH + kvh) * (nsplit * rpb) * (G * HD);
+  for (int j = 0; j < n_run; ++j) {
+    const int base = j * kRun + warp * kNK;
+    float acc[G][VEC];
 #pragma unroll
-  for (int h = 0; h < G; ++h)
+    for (int h = 0; h < G; ++h)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[h][e] = 0.f;
-  for (int base = warp * kNK; base < n_local; base += kWarps * kNK) {
-    if (base != warp * kNK) load_v(base, vx);
+      for (int e = 0; e < VEC; ++e) acc[h][e] = 0.f;
 #pragma unroll
     for (int i = 0; i < kNK; ++i) {
       if (base + i >= n_local) break;
@@ -378,36 +405,44 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
         for (int e = 0; e < VEC; ++e) acc[h][e] = fmaf(p, xv[e], acc[h][e]);
       }
     }
-  }
+    if (j + 1 < n_run) load_v(base + kRun, vx);  // the next run's rows
 #pragma unroll
-  for (int h = 0; h < G; ++h)
+    for (int h = 0; h < G; ++h)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      o_w[(warp * G + h) * HD + col<VEC>(lane, e)] = acc[h][e];
-  __syncthreads();
-  for (int t = threadIdx.x; t < G * HD; t += kThreads) {
-    float sum = 0.f;
-    for (int w = 0; w < kWarps; ++w) sum += o_w[w * G * HD + t];
-    o_c[t] = sum;
+      for (int e = 0; e < VEC; ++e)
+        o_w[(warp * G + h) * HD + col<VEC>(lane, e)] = acc[h][e];
+    __syncthreads();
+    float* dst = ws_s + (size_t)(rank * rpb + j) * (G * HD);
+    for (int t = threadIdx.x; t < G * HD; t += kThreads) {
+      float sum = 0.f;
+      for (int w = 0; w < kWarps; ++w) sum += o_w[w * G * HD + t];
+      __stcg(dst + t, sum);
+    }
+    __syncthreads();
   }
 
-  // exchange 3: the blocks' partials added in rank order, each block
-  // finishing a slice of the outputs
+  // exchange 3: after the barrier (its release and acquire order the
+  // workspace writes of every block before these reads, which bypass L1)
+  // each block finishes a slice of the outputs, every run's partial folded
+  // in run order. No distributed shared memory is read after it, so a
+  // block may leave when done.
   cluster.sync();
   const int chunk = (G * HD + nsplit - 1) / nsplit;
   const int end = min(G * HD, (rank + 1) * chunk);
   for (int t = rank * chunk + threadIdx.x; t < end; t += kThreads) {
     float y = 0.f;
-    for (int r = 0; r < nsplit; ++r) y += cluster.map_shared_rank(o_c, r)[t];
+#pragma unroll 8
+    for (int j = 0; j < n_runs; ++j)
+      y += __ldcg(ws_s + (size_t)j * (G * HD) + t);
     const int h = t / HD, d = t - h * HD;
     out[((size_t)b * H + kvh * G + h) * HD + d] = approx ? truncate3(y) : y;
   }
-  cluster.sync();  // no block leaves while another still reads its memory
 }
 
 template <int G, int VEC, typename T>
 int launch(const float* q, const T* k_pool, const T* v_pool,
-           const int* ppos, const int* bt, const int* pos, float* out, int B,
+           const int* ppos, const int* bt, const int* pos, float* out,
+           float* ws, int B,
            int KVH, int psz, int P, int n_split, int kpc, int smem,
            int min_page, float scale, float scale_over_cap, float cap,
            int window, int fmt, int approx, cudaStream_t stream) {
@@ -432,24 +467,40 @@ int launch(const float* q, const T* k_pool, const T* v_pool,
   attr[0].val.clusterDim.z = n_split;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, q, k_pool, v_pool, ppos, bt, pos, out, KVH,
-                         psz, P, kpc, min_page, scale, scale_over_cap, cap,
+  e = cudaLaunchKernelEx(&cfg, kern, q, k_pool, v_pool, ppos, bt, pos, out, ws,
+                         KVH, psz, P, kpc, min_page, scale, scale_over_cap, cap,
                          window, fmt, approx);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The library's pool type: the source builds once a pool type (nvcc
+// -DREPRO_POOL_DT=0 fp32, 1 bf16, 2 fp16), 24 instantiations each, in three
+// nvcc processes at once.
+#if !defined(REPRO_POOL_DT)
+#error "build with -DREPRO_POOL_DT=0 (fp32), 1 (bf16) or 2 (fp16)"
+#elif REPRO_POOL_DT == 1
+using Pool = __nv_bfloat16;
+#elif REPRO_POOL_DT == 2
+using Pool = __half;
+#else
+using Pool = float;
+#endif
 
 }  // namespace
 
 // `n_split`, `kpc` (keys a block) and `smem` come from the wrapper's
 // `split_plan`; a plan whose shared memory is smaller than this layout
 // needs, or larger than a block may have, is refused. `pool_dt` is the K/V
-// pools' element type: 0 fp32, 1 bf16, 2 fp16 (both pools the same).
+// pools' element type: 0 fp32, 1 bf16, 2 fp16 (both pools the same), the
+// library's own (REPRO_POOL_DT) or refused.
 // `min_page` is the lowest page id the kernel reads: 1 for the pool, whose
-// page 0 is the trash page, 0 for dense rows presented as a pool.
+// page 0 is the trash page, 0 for dense rows presented as a pool. `ws` is
+// the runs' P.V workspace: B * KVH * n_split * (kpc / 64) * g * hd fp32.
 extern "C" int paged_decode_launch(const void* q, const void* k_pool,
                                    const void* v_pool, const void* ppos,
                                    const void* bt, const void* pos, void* out,
+                                   void* ws,
                                    int B, int KVH, int g, int hd, int psz,
                                    int P, int n_split, int kpc, int smem,
                                    int min_page, float scale,
@@ -457,38 +508,27 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
                                    float cap, int window, int fmt, int approx,
                                    int pool_dt, void* stream) {
   const long long need =
-      4LL * ((long long)g * kpc + (long long)(kWarps + 1) * g * hd + 4 * g) +
+      4LL * ((long long)g * kpc + (long long)kWarps * g * hd + 4 * g +
+             (long long)(kpc / kRun) * g) +
       4LL * (kpc / psz + 2);
-  if (n_split < 1 || n_split > 16 || kpc < 1 || smem < need ||
+  if (n_split < 1 || n_split > 16 || kpc < 1 || kpc % kRun || smem < need ||
       smem > 227 * 1024 || (long long)n_split * kpc < (long long)P * psz ||
-      pool_dt < 0 || pool_dt > 2 || min_page < 0 || min_page > 1)
+      pool_dt != REPRO_POOL_DT || min_page < 0 || min_page > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
   const int* pp = static_cast<const int*>(ppos);
   const int* btp = static_cast<const int*>(bt);
   const int* ps = static_cast<const int*>(pos);
   float* of = static_cast<float*>(out);
+  float* wsf = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_CASE(G_, VEC_)                                                  \
-  if (g == G_ && hd == 32 * VEC_) {                                           \
-    if (pool_dt == 1)                                                         \
-      return launch<G_, VEC_>(qf, static_cast<const __nv_bfloat16*>(k_pool), \
-                              static_cast<const __nv_bfloat16*>(v_pool), pp, \
-                              btp, ps, of, B, KVH, psz, P, n_split, kpc,     \
-                              smem, min_page, scale, scale_over_cap, cap,    \
-                              window, fmt, approx, s);                       \
-    if (pool_dt == 2)                                                         \
-      return launch<G_, VEC_>(qf, static_cast<const __half*>(k_pool),        \
-                              static_cast<const __half*>(v_pool), pp, btp,   \
-                              ps, of, B, KVH, psz, P, n_split, kpc, smem,    \
-                              min_page, scale, scale_over_cap, cap, window,  \
-                              fmt, approx, s);                               \
-    return launch<G_, VEC_>(qf, static_cast<const float*>(k_pool),           \
-                            static_cast<const float*>(v_pool), pp, btp, ps,  \
-                            of, B, KVH, psz, P, n_split, kpc, smem,          \
-                            min_page, scale, scale_over_cap, cap, window,    \
-                            fmt, approx, s);                                 \
-  }
+#define REPRO_CASE(G_, VEC_)                                              \
+  if (g == G_ && hd == 32 * VEC_)                                         \
+    return launch<G_, VEC_>(qf, static_cast<const Pool*>(k_pool),         \
+                            static_cast<const Pool*>(v_pool), pp, btp, ps, \
+                            of, wsf, B, KVH, psz, P, n_split, kpc, smem,   \
+                            min_page, scale, scale_over_cap, cap, window,  \
+                            fmt, approx, s);
 #define REPRO_G(G_) \
   REPRO_CASE(G_, 2); \
   REPRO_CASE(G_, 4); \

@@ -19,21 +19,25 @@ a slot to the fused path's bits (ROADMAP F5).
 
 The kernel (`csrc/sa_decode_attention.cu`) splits each (slot, KV head)'s
 keys across a thread-block cluster: grid (B, KVH, n_split), n_split
-blocks a cluster, each a contiguous run of the slot's keys (`split_plan`:
-one block per 8 keys up to 8 a cluster, 16 where shared memory needs it;
-from the slot's own shape alone, so a slot's order of sums does not depend
-on how many other slots share the batch: ROADMAP F2). The g query heads
-of a KV head share every K and V row a block reads; each warp keeps 8
-keys' loads in flight and reduces their g dots in one butterfly. A block keeps its own scores in shared memory, and three
-exchanges through distributed shared memory, in rank order, give the row
-max, the denominator and the sum of the blocks' P·V partials: P is
-normalized by the whole row before it is rounded, as in the reference, and
-the result is deterministic. At the serving shape a call is bound by
-latency (one cold read and three cluster barriers against 0.75 µs of
-bytes); at long slots by the two dependent passes over the pool (K, then
-V), each warp holding 8 rows in flight, short of the bytes' bound (38 %
-at 2048-token slots, PERF.md). A slot's length is limited by the cluster's shared memory (about 165,000
-tokens at g = 5, hd = 128, over 16 blocks), not by one block's.
+blocks a cluster, each a contiguous stretch of whole runs of RUN = 64 keys
+(`split_plan`: one block per run up to 8 a cluster, 16 where shared memory
+needs it; from the slot's own shape alone, so a slot's order of sums does
+not depend on how many other slots share the batch: ROADMAP F2). The g
+query heads of a KV head share every K and V row a block reads; each warp
+keeps 8 keys' loads in flight and reduces their g dots in one butterfly.
+A block keeps its own scores in shared memory. The row max is exact; the
+denominator and P·V are summed a run at a time in an order fixed by the
+run, and the runs' partials are folded in run order (the sums over a
+run's keys in shared memory, its P·V partial through a global workspace),
+so the output is the same for every cluster size (ROADMAP F9): n_split
+decides only which block computes which run. P is normalized by the
+whole row before it is rounded, as in the reference. At the serving
+shape a call is bound by latency (one cold read and three cluster
+barriers against 0.75 µs of bytes); at long slots by the two dependent
+passes over the pool (K, then V), each warp holding 8 rows in flight,
+short of the bytes' bound (PERF.md). A slot's length is limited by the
+cluster's shared memory (164,864 tokens at g = 5, hd = 128, page 16,
+over 16 blocks), not by one block's.
 
 The pools may be fp32, bf16 or fp16 (`ServeEngine(cache_dtype=)`, as the
 reference takes): the pool type is a template parameter of the kernel's
@@ -57,8 +61,12 @@ PLAIN_CALLS = 0    # calls of the plain version `paged_decode_ref`
 
 _SUPPORTED_INPUT_FORMATS = ("fp32", "bf16", "fp16")
 _FMT_CODE = {"fp32": 0, "bf16": 1, "fp16": 2}
-# the pools' element types the kernel reads (both pools one type)
+# the pools' element types the kernel reads (both pools one type), and the
+# library built for each (`build.LIBRARIES`)
 POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_POOL_LIBRARY = {torch.float32: "sa_decode_attention_f32",
+                 torch.bfloat16: "sa_decode_attention_bf16",
+                 torch.float16: "sa_decode_attention_f16"}
 
 
 def fused_decode_supported(policy) -> bool:
@@ -88,7 +96,8 @@ def paged_decode_ref(q, k_pool, v_pool, page_positions, block_table, pos, *,
 
 
 WARPS = 8              # warps a block (csrc/sa_decode_attention.cu kWarps)
-KEY_ALIGN = 8          # keys a warp has in flight: runs are whole batches
+KEY_ALIGN = 8          # keys a warp has in flight
+RUN = WARPS * KEY_ALIGN  # keys a run (kRun): a block holds whole runs
 PORTABLE_CLUSTER = 8   # blocks a cluster every sm_90 part schedules
 MAX_CLUSTER = 16       # with the non-portable cluster size (H100)
 SMEM_LIMIT = 227 * 1024
@@ -102,30 +111,39 @@ class SplitPlan(NamedTuple):
 
 def decode_smem(g: int, hd: int, psz: int, kpc: int) -> int:
     """A block's shared memory (the kernel's layout): g·kpc scores, the 8
-    warps' and the block's P·V partials, 4g reduction slots, and the block
-    table entries a run of kpc keys can touch."""
-    return 4 * (g * kpc + (WARPS + 1) * g * hd + 4 * g) + 4 * (kpc // psz + 2)
+    warps' P·V partials, 4g reduction slots, g sums a run, and the block
+    table entries kpc keys can touch."""
+    return (4 * (g * kpc + WARPS * g * hd + 4 * g + (kpc // RUN) * g)
+            + 4 * (kpc // psz + 2))
 
 
 def _keys_per_cta(S: int, n: int) -> int:
-    return -(-(-(-S // n)) // KEY_ALIGN) * KEY_ALIGN
+    """ceil(S / n) rounded up to whole runs."""
+    return -(-(-(-S // n)) // RUN) * RUN
+
+
+def workspace_floats(B: int, KVH: int, g: int, hd: int,
+                     plan: SplitPlan) -> int:
+    """The runs' P·V partials the kernel writes before the fold: g·hd
+    fp32 a run, n_split·kpc/RUN runs a (slot, KV head)."""
+    return B * KVH * plan.n_split * (plan.keys_per_cta // RUN) * g * hd
 
 
 def split_plan(g: int, hd: int, psz: int, P: int, *,
                n_split: int | None = None) -> SplitPlan:
     """How a slot's S = P·psz keys are split across a cluster.
 
-    n_split starts at PORTABLE_CLUSTER blocks (at most one per KEY_ALIGN
+    n_split starts at PORTABLE_CLUSTER blocks (at most one per RUN
     keys), doubles up to MAX_CLUSTER while a block's scores do not fit
-    SMEM_LIMIT, and shrinks to the runs the rounded run length needs, so
-    no block is empty. Nothing else enters: not the batch, not the card's
-    SM count, so a slot's blocks and their order of sums are the same in
-    any batch (ROADMAP F2; at the serve shape, 4 slots x 8 KV heads, this
-    is the 8 blocks the earlier batch-sized plan chose). `n_split` given
-    (tests) fixes the start. Raises where no cluster holds the slot."""
+    SMEM_LIMIT, and shrinks to the blocks the length rounded to whole
+    runs needs, so no block is empty. Nothing else enters: not the batch,
+    not the card's SM count (ROADMAP F2). The kernel's output does not
+    depend on the plan at all (F9): its sums go run by run. `n_split`
+    given (tests, the autotuner) fixes the start. Raises where no cluster
+    holds the slot."""
     S = P * psz
     if n_split is None:
-        n = max(1, min(PORTABLE_CLUSTER, -(-S // KEY_ALIGN)))
+        n = max(1, min(PORTABLE_CLUSTER, -(-S // RUN)))
         while (n < MAX_CLUSTER
                and decode_smem(g, hd, psz, _keys_per_cta(S, n)) > SMEM_LIMIT):
             n = min(MAX_CLUSTER, 2 * n)
@@ -240,13 +258,15 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
     bt = block_table.to(torch.int32).contiguous()
     ps = pos.to(torch.int32).reshape(B).contiguous()
     out = torch.empty((B, 1, H, hd), dtype=torch.float32, device=q.device)
-    fn = function("sa_decode_attention", "paged_decode_launch",
-                  [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+    ws = torch.empty(workspace_floats(B, KVH, g, hd, plan),
+                     dtype=torch.float32, device=q.device)
+    fn = function(_POOL_LIBRARY[k_pool.dtype], "paged_decode_launch",
+                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              pp.data_ptr(), bt.data_ptr(), ps.data_ptr(), out.data_ptr(),
-             B, KVH, g, hd, psz, P, *plan, int(min_page), float(scale),
+             ws.data_ptr(), B, KVH, g, hd, psz, P, *plan, int(min_page), float(scale),
              float(scale / cap) if cap else 0.0, cap, int(window),
              _FMT_CODE[policy.input_format], int(policy.mode == "approx"),
              POOL_DTYPES[k_pool.dtype],

@@ -1,21 +1,34 @@
-"""Training driver for the PyTorch port: data, fault tolerance,
-checkpointing, the JAX package's `repro/launch/train.py` on one card.
+"""Training driver for the PyTorch port: mesh, data, fault tolerance,
+checkpointing, the JAX package's `repro/launch/train.py`.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b \\
         --reduced --device cpu --steps 20
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen2.5-14b --reduced --device cpu --model-parallel 2
 
 Runs on CUDA unless `--device cpu` is given. The GEMM backend is
 REPRO_GEMM_BACKEND (`torch`, the plain version, or `cuda`, the
 hand-written SA GEMM kernel with its backward; `emulate` has no gradient,
-as in the JAX package). The flags are the JAX driver's, plus `--device`;
-`--model-parallel` above 1 raises: the mesh is not ported yet. `main`
-parses the flags and calls `run(cfg, args)`, which callers with a config
-of their own (a full-width model cut in depth) call directly.
+as in the JAX package). The flags are the JAX driver's, plus `--device`.
+Under torchrun (or any launcher that sets the torch.distributed
+environment) the world becomes a ("data", "model") mesh with
+`--model-parallel` ranks innermost (`parallel.mesh.make_host_mesh`; the
+backend, nccl where every rank has a card of its own and gloo where ranks
+share one or run on the CPU, is printed first): every rank draws the same
+full state from `--seed` and keeps its shard, each data rank takes its
+rows of the same global batch (`parallel.sharding.data_specs`), and rank
+0 prints a JSON line a step; at the end each rank prints its peak memory
+and step times. `main` parses the flags and calls `run(cfg, args)`, which
+callers with a config of their own (a full-width model cut in depth) call
+directly.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
+import sys
 import time
 
 import torch
@@ -23,11 +36,12 @@ import torch
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+from repro_torch.models.model import tree_leaves
 from repro_torch.train import checkpoint as CKPT
 from repro_torch.train.fault import PreemptionGuard, StragglerWatchdog
 from repro_torch.train.optimizer import AdamW, warmup_cosine
 from repro_torch.train.step import make_train_step
-from repro_torch.train.train_state import init_state
+from repro_torch.train.train_state import init_state, state_specs
 
 
 def parse_args(argv=None):
@@ -49,32 +63,141 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; no card and no --device "
                          "cpu raises")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers (a "
+                         "full-width model cut in depth)")
+    ap.add_argument("--grads-out", default=None,
+                    help="write the first step's loss and gradients "
+                         "(before the clip) to this directory, .npy "
+                         "files by leaf path and model rank (read_grads "
+                         "joins them)")
     return ap.parse_args(argv)
 
 
-def run(cfg, args):
+def say(line: str):
+    """One line to stdout in one write: the ranks of a launch share it,
+    and print's separate write of the newline lets another rank's line
+    in between."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
+def _mesh_line(mesh, device) -> str:
+    import torch.distributed as dist
+
+    dp, mp = mesh.shape
+    return (f"[mesh] backend={dist.get_backend()} world="
+            f"{dist.get_world_size()} data={dp} model={mp} device={device}")
+
+
+def _grads_writer(out_dir: str, then, mesh, specs, lead: bool):
+    """An `on_grads` that writes the first step's loss (loss.json) and
+    gradients to `out_dir`, no collective: a leaf the `model` axis cuts
+    as each model rank's piece (`<path>.<model index>.npy`, the path's
+    "/" as "."), a replicated leaf once (`<path>.npy`), both from data
+    rank 0 (the data ranks hold the same reduced gradients);
+    `read_grads` puts the pieces back together."""
+    import numpy as np
+
+    from repro_torch.parallel import sharding as S
+
+    coords = {"data": 0, "model": 0} if mesh is None else S.mesh_coords(
+        mesh)
+    done = []
+
+    def write(loss, nll, grads):
+        if not done and coords["data"] == 0:
+            os.makedirs(out_dir, exist_ok=True)
+            paths = []
+            S.tree_map_with_path(lambda p, _: paths.append(
+                ".".join(map(str, p))), grads)
+            pspecs = (S.spec_leaves(specs.params, grads) if mesh is not None
+                      else [S.P()] * len(paths))
+            for path, g, sp in zip(paths, tree_leaves(grads), pspecs):
+                if S.is_sharded(sp):
+                    name = f"{path}.{coords['model']}.npy"
+                elif coords["model"] == 0:
+                    name = f"{path}.npy"
+                else:
+                    continue
+                np.save(os.path.join(out_dir, name),
+                        g.detach().cpu().numpy())
+            if lead:
+                with open(os.path.join(out_dir, "loss.json"), "w") as f:
+                    json.dump({"loss": float(loss), "nll": float(nll)}, f)
+        done.append(True)
+        if then is not None:
+            then(loss, nll, grads)
+
+    return write
+
+
+def read_grads(out_dir: str, path: str, spec):
+    """A leaf `--grads-out` wrote, whole: its model ranks' pieces joined
+    along the dim `spec` (its `param_specs` entry) cuts, or the one
+    file."""
+    import numpy as np
+
+    whole = os.path.join(out_dir, f"{path}.npy")
+    if os.path.exists(whole):
+        return np.load(whole)
+    dim = next(i for i, e in enumerate(spec) if e is not None)
+    pieces, i = [], 0
+    while os.path.exists(os.path.join(out_dir, f"{path}.{i}.npy")):
+        pieces.append(np.load(os.path.join(out_dir, f"{path}.{i}.npy")))
+        i += 1
+    return np.concatenate(pieces, axis=dim)
+
+
+def run(cfg, args, on_grads=None):
     """Train `cfg` as `args` says. Returns (state, history): the final
-    TrainState and one metrics dict per step taken."""
-    if args.model_parallel != 1:
-        raise ValueError("--model-parallel > 1 is not ported yet (the mesh "
-                         "and sharding modules)")
+    TrainState (under a mesh, this rank's shards) and one metrics dict per
+    step taken. `on_grads` is passed to `make_train_step`."""
+    from repro_torch.models.model import check_parallel
+    from repro_torch.parallel import mesh as PM
+    from repro_torch.parallel import sharding as S
+
     device = resolve_device(args.device)
+    mesh = PM.make_host_mesh(args.model_parallel, device)
+    lead = True
+    specs = coords = None
+    if mesh is not None:
+        import torch.distributed as dist
+
+        check_parallel(cfg, mesh.shape[1], mesh.shape[0])
+        device = PM.rank_device(device)
+        lead = dist.get_rank() == 0
+        specs, coords = state_specs(cfg, mesh), S.mesh_coords(mesh)
+        if lead:
+            say(_mesh_line(mesh, device))
     opt = AdamW(schedule=warmup_cosine(args.lr, max(2, args.steps // 10),
                                        args.steps))
-    step_fn = make_train_step(cfg, opt, accum_steps=args.accum)
-    state = init_state(cfg, opt, seed=args.seed, device=device)
+    if args.grads_out:
+        on_grads = _grads_writer(args.grads_out, on_grads, mesh, specs, lead)
+    step_fn = make_train_step(cfg, opt, accum_steps=args.accum, mesh=mesh,
+                              on_grads=on_grads)
+    state = init_state(cfg, opt, seed=args.seed, device=device, mesh=mesh)
 
     start = 0
     if (args.resume and args.ckpt_dir
             and CKPT.latest_step(args.ckpt_dir) is not None):
-        state, _, start = CKPT.restore(args.ckpt_dir, state)
-        print(f"resumed from step {start}")
+        state, _, start = CKPT.restore(args.ckpt_dir, state, mesh=mesh,
+                                       specs=specs)
+        if lead:
+            say(f"resumed from step {start}")
+
+    def rows(v):
+        """This data rank's rows of the global batch."""
+        t = torch.from_numpy(v)
+        if mesh is not None:
+            t = S.shard_leaf(t, S.data_specs(mesh, v.shape), mesh, coords)
+        return t.to(device)
 
     data = Prefetcher(iter(SyntheticLM(cfg.vocab_size, args.seq, args.batch,
                                        seed=args.seed)))
     guard = PreemptionGuard()
     watchdog = StragglerWatchdog(
-        on_straggler=lambda s, dt, med: print(
+        on_straggler=lambda s, dt, med: say(
             f"[straggler] step {s}: {dt:.2f}s vs median {med:.2f}s"))
     saver = CKPT.AsyncSaver()
     logf = open(args.log, "a") if args.log else None
@@ -83,17 +206,19 @@ def run(cfg, args):
     try:
         for step in range(start, args.steps):
             watchdog.step_start()
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in next(data).items()}
+            batch = {k: rows(v) for k, v in next(data).items()}
             state, metrics = step_fn(state, batch)
             # float() waits for the card, so the step's wall is the work's
             m = {k: float(v) for k, v in metrics.items()}
             dt = watchdog.step_end(step)
             m |= {"step": step + 1, "wall_s": round(dt, 4)}
             history.append(m)
-            print(f"step {step+1:5d} loss={m['loss']:.4f} "
-                  f"gnorm={m['grad_norm']:.3f} {dt*1e3:.0f}ms", flush=True)
-            if logf:
+            if lead:
+                say(f"step {step+1:5d} loss={m['loss']:.4f} "
+                    f"gnorm={m['grad_norm']:.3f} {dt*1e3:.0f}ms")
+                if mesh is not None:
+                    say(json.dumps(m))
+            if logf and lead:
                 logf.write(json.dumps(m) + "\n")
                 logf.flush()
             want_ckpt = args.ckpt_dir and ((step + 1) % args.ckpt_every == 0
@@ -101,11 +226,13 @@ def run(cfg, args):
             if guard.should_stop:   # graceful preemption: checkpoint + exit
                 if args.ckpt_dir:
                     saver.wait()
-                    CKPT.save(args.ckpt_dir, step + 1, state)
-                print(f"preempted at step {step+1}; checkpoint written")
+                    CKPT.save(args.ckpt_dir, step + 1, state, mesh=mesh,
+                              specs=specs)
+                say(f"preempted at step {step+1}; checkpoint written")
                 break
             if want_ckpt:
-                saver.save_async(args.ckpt_dir, step + 1, state)
+                saver.save_async(args.ckpt_dir, step + 1, state, mesh=mesh,
+                                 specs=specs)
         saver.wait()
     finally:
         data.close()
@@ -113,14 +240,31 @@ def run(cfg, args):
         if logf:
             logf.close()
     n = args.steps - start
-    print(f"done: {n} steps in {time.time()-t_start:.1f}s; "
-          f"{len(watchdog.events)} straggler events")
+    if lead:
+        say(f"done: {n} steps in {time.time()-t_start:.1f}s; "
+            f"{len(watchdog.events)} straggler events")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from repro_torch.kernels import ops
+
+        peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                if device.type == "cuda" else None)
+        c = ops.counts()
+        say(f"[rank {dist.get_rank()}] peak_mem_gib="
+            f"{'n/a' if peak is None else f'{peak:.3f}'} step_s="
+            f"{','.join(str(m['wall_s']) for m in history)} "
+            f"sa_matmul_launches={c['sa_matmul']['launches']}+"
+            f"{c['sa_matmul_bwd']['launches']} plain_calls="
+            f"{sum(v['plain_calls'] for v in c.values())}")
     return state, history
 
 
 def main(argv=None):
     args = parse_args(argv)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     return run(cfg, args)[0]
 
 

@@ -5,6 +5,13 @@ Caches are tensors updated in place: where the JAX package returns a new
 cache from `.at[].set` (and donates the old buffer), the port writes into
 the given tensors and returns the same cache object. Each such write says
 so in a comment.
+
+Under a mesh whose `model` axis has more than one rank
+(`parallel.sharding.set_active_mesh`), the training path's attention and
+FFN run tensor-parallel on the rank's parameter shards
+(`parallel.sharding.param_specs`): wq, wk, wv, wg, wu column-parallel,
+wo, wd row-parallel, with the explicit collectives of
+`parallel/collectives.py` (`_tp_attention`, `_tp_ffn`, `row_linear`).
 """
 from __future__ import annotations
 
@@ -252,6 +259,143 @@ def gather_pages(cache: PagedKVCache, min_page: int = 1):
             pos.reshape(B, P * psz))
 
 
+def tp_context():
+    """(tp, group, rank) of the active mesh's `model` axis; (1, None, 0)
+    without one."""
+    from repro_torch.parallel import sharding as S
+
+    tp = S.axis_count("model")
+    if tp == 1:
+        return 1, None, 0
+    return tp, S.axis_group("model"), S.axis_index("model")
+
+
+def row_linear(h, h_sharded: bool, w, k_full: int):
+    """`h @ w` for a row-parallel weight (wo, wd): where `w` holds this
+    rank's K rows, each rank's partial is the SA contract's unrounded fp32
+    chain over its K slice (`sa_dot_chain`, the hand-written SA GEMM on
+    `cuda`); the ranks' partials are all-reduced in fp32, and only then
+    come the approx truncation and the single rounding (`sa_finish`), the
+    order of the JAX package's reduced fp32 dot. A replicated `w` (the
+    divisibility guard) takes the whole K on every rank. `h_sharded`: `h`
+    holds this rank's K columns (else the whole K, replicated)."""
+    from repro_torch.core.precision import sa_dot_chain, sa_finish
+    from repro_torch.parallel import collectives as C
+
+    _, group, _ = tp_context()
+    if w.shape[0] != k_full:
+        if not h_sharded:
+            h = C.split_to_model(h, -1, group)
+        return sa_finish(C.reduce_from_model(sa_dot_chain(h, w), group))
+    if h_sharded:
+        h = C.gather_from_model(h, -1, group)
+    return sa_dot(h, w)
+
+
+def _pad_heads(q, k, v, kvh_target: int):
+    """Zero-pad the KV heads, and the kv-major grouped Q heads, to
+    `kvh_target` (the JAX package's `_pad_heads`): a padded Q head
+    attends over zero K and V, and its output is dropped."""
+    pad = kvh_target - k.shape[2]
+    g = q.shape[2] // k.shape[2]
+    pad_k = (0, 0, 0, pad)
+    return (torch.nn.functional.pad(q, (0, 0, 0, pad * g)),
+            torch.nn.functional.pad(k, pad_k),
+            torch.nn.functional.pad(v, pad_k))
+
+
+def padded_kvh(kvh: int, tp: int) -> int:
+    """KV heads after TP padding (the JAX package's, under its default
+    optflags)."""
+    if tp <= 1 or kvh % tp == 0 or not optflags.enabled("pad_kv_heads"):
+        return kvh
+    return -(-kvh // tp) * tp
+
+
+def _tp_attention(x, p, cfg, window, positions, rope: bool, causal: bool):
+    """The attention sub-layer on the rank's shards, training path (no
+    cache). wq, wk, wv (and their biases) are column shards of the
+    replicated input; wo a row shard.
+
+    Where the KV heads divide the axis, each rank's columns are whole
+    heads (kv-major: its Q heads group over its KV heads), so it attends
+    over its own heads and feeds its row shard of wo. Otherwise the
+    projections are gathered whole (a column shard need not end on a head
+    boundary: phi3's 1280 K columns over 4 ranks are 2.5 heads a rank), and
+    with `cfg.pad_attn_train` the KV heads and kv-major Q heads are
+    zero-padded to `padded_kvh` and split by padded heads; the padded
+    heads' outputs are dropped after the heads are gathered back, and wo
+    takes this rank's K rows of the whole output, as GSPMD reshards the
+    JAX package's layout. Without padding every rank attends over every
+    head."""
+    from repro_torch.parallel import collectives as C
+
+    tp, group, _ = tp_context()
+    B, T, _ = x.shape
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    xf = x.reshape(B * T, -1)
+    xc = C.copy_to_model(xf, group)
+    fused = cfg.qkv_bias and _fuse_epilogue()
+
+    def proj(w, b, n_full):
+        sharded = w.shape[1] != n_full
+        y = sa_dot(xc if sharded else xf, w, bias=b if fused else None)
+        if cfg.qkv_bias and not fused:
+            y = y + b
+        return y, sharded
+
+    (q, qs), (k, ks), (v, vs) = (
+        proj(p["w" + n], p.get("b" + n), heads * hd)
+        for n, heads in (("q", H), ("k", KVH), ("v", KVH)))
+    aligned = qs and ks and vs and KVH % tp == 0
+    if not aligned:      # whole projections, replicated
+        q, k, v = (C.gather_from_model(t, -1, group) if s else t
+                   for t, s in ((q, qs), (k, ks), (v, vs)))
+    q, k, v = (t.reshape(B, T, -1, hd) for t in (q, k, v))
+    if rope:
+        q, k = (apply_rope(t.transpose(1, 2), positions[:, None, :],
+                           cfg.rope_theta).transpose(1, 2) for t in (q, k))
+
+    def attend(q_, k_, v_):
+        return blockwise_attention(q_, k_, v_, causal=causal, window=window,
+                                   cap=cfg.attn_softcap)
+
+    if aligned:
+        return row_linear(attend(q, k, v).reshape(B * T, -1), True,
+                          p["wo"], H * hd).reshape(B, T, -1)
+    kvp = padded_kvh(KVH, tp) if cfg.pad_attn_train else KVH
+    if kvp % tp == 0:
+        q, k, v = (C.split_to_model(t, 2, group)
+                   for t in _pad_heads(q, k, v, kvp))
+        o = C.gather_from_model(attend(q, k, v), 2, group)[:, :, :H]
+    else:
+        o = attend(q, k, v)
+    return row_linear(o.reshape(B * T, H * hd), False, p["wo"],
+                      H * hd).reshape(B, T, -1)
+
+
+def _tp_ffn(x, p, act, ff: int):
+    """SwiGLU on the rank's shards: wg, wu column-parallel (the gate's
+    activation in its epilogue, as unsharded), wd row-parallel."""
+    from repro_torch.parallel import collectives as C
+
+    _, group, _ = tp_context()
+    B, T, D = x.shape
+    xf = x.reshape(B * T, D)
+    xc = C.copy_to_model(xf, group)
+    gs, us = p["wg"].shape[1] != ff, p["wu"].shape[1] != ff
+    if _fuse_epilogue():
+        gate = sa_dot(xc if gs else xf, p["wg"], act=act)
+    else:
+        gate = act_fn(sa_dot(xc if gs else xf, p["wg"]), act)
+    up = sa_dot(xc if us else xf, p["wu"])
+    if gs != us:         # one layout for the product: both whole
+        gate = C.gather_from_model(gate, -1, group) if gs else gate
+        up = C.gather_from_model(up, -1, group) if us else up
+        gs = False
+    return row_linear(gate * up, gs, p["wd"], ff).reshape(B, T, D)
+
+
 def qkv_project(x, p, cfg):
     """x: (B, T, D) → q (B,T,H,hd), k/v (B,T,KVH,hd)."""
     B, T, _ = x.shape
@@ -380,6 +524,12 @@ def attention_block(x, p, cfg, meta, positions, cache=None,
     encoder's output), unrotated; the three projections still run, as in
     the JAX package."""
     window = cfg.window if meta.get("attn") == "local" else 0
+    if tp_context()[0] > 1:
+        if cache is not None or kv_override is not None or prefix_len:
+            raise ValueError("tensor parallelism covers the training "
+                             "path only: no cache, no cross-attention")
+        return _tp_attention(x, p, cfg, window, positions, rope,
+                             causal), None
     q, k, v = qkv_project(x, p, cfg)
     rope_kv = kv_override is None
     if kv_override is not None:          # cross-attention: kv from encoder
@@ -451,7 +601,11 @@ def _fill_dense(cache: KVCache, k, v, positions, prefix_len: int):
 # FFN
 # ---------------------------------------------------------------------------
 
-def ffn_swiglu(x, p, act="silu"):
+def ffn_swiglu(x, p, act="silu", ff: int | None = None):
+    """SwiGLU; `ff` (the full width) engages the tensor-parallel path
+    under a mesh with a `model` axis (`_tp_ffn`)."""
+    if ff is not None and tp_context()[0] > 1:
+        return _tp_ffn(x, p, act, ff)
     B, T, D = x.shape
     xf = x.reshape(B * T, D)
     if _fuse_epilogue():

@@ -51,6 +51,23 @@ def check_supported(cfg: ArchConfig):
                          f"{cfg.norm!r} is not ported")
 
 
+def check_parallel(cfg: ArchConfig, model_parallel: int,
+                   data_parallel: int = 1):
+    """Refuse what the mesh does not cover yet: tensor parallelism for
+    the MoE, SSM and hybrid families, the encoder-decoder, the VLM and
+    FSDP configs (`cfg.fsdp`), and a data axis above 1 for MoE, whose
+    capacity and load-balance loss are taken over the global microbatch
+    (a per-rank group would change them)."""
+    if model_parallel > 1 and (cfg.family != "dense" or cfg.fsdp):
+        raise ValueError(f"{cfg.name}: tensor parallelism covers the dense "
+                         f"family without FSDP; {cfg.family!r} (fsdp="
+                         f"{cfg.fsdp}) is not ported")
+    if data_parallel > 1 and cfg.family == "moe":
+        raise ValueError(f"{cfg.name}: a data axis above 1 would route each "
+                         f"rank's rows alone (capacity and load-balance "
+                         f"loss over the global microbatch); not ported")
+
+
 def has_ssm(cfg: ArchConfig) -> bool:
     """Every layer carries a Mamba2 mixer (and its per-slot state)."""
     return cfg.family == "ssm" or cfg.hybrid
@@ -131,7 +148,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     over `cfg.encoder_layers` on axis 0 (the JAX package's tree)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = generator or torch.Generator(device=dev).manual_seed(seed)
+    # on the meta device (shapes only, the sharding rules' abstract tree)
+    # nothing is drawn
+    gen = generator or (None if dev.type == "meta" else
+                        torch.Generator(device=dev).manual_seed(seed))
     mat_dtype = dtype or (torch.bfloat16 if dev.type == "cuda"
                           else torch.float32)
     period = cfg.stack_period
@@ -147,6 +167,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
         # never exceeds one matrix (llama4's whole (128, 5120, 8192) slice
         # would be 21.5 GB)
         out = matrix_storage(shape, mat_dtype, dev)
+        if dev.type == "meta":
+            return out
         for i in range(shape[0]):
             if len(shape) == 4:
                 for e in range(shape[1]):
@@ -373,7 +395,7 @@ def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
     elif cfg.family == "audio":
         f = L.ffn_mlp(h, p["ffn"], "gelu")
     else:
-        f = L.ffn_swiglu(h, p["ffn"], cfg.act)
+        f = L.ffn_swiglu(h, p["ffn"], cfg.act, cfg.d_ff_dense or cfg.d_ff)
     return x + f.to(x.dtype), cache, aux
 
 
@@ -444,6 +466,11 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     prepends it to the text embeddings (T becomes S + T, positions start
     at the first patch row), an encoder-decoder runs `encode` over it and
     every decoder layer cross-attends to the result.
+    Under a mesh whose `model` axis has more than one rank the dense
+    family runs tensor-parallel on the rank's shards (models/layers.py);
+    a vocabulary-parallel head (its columns cut across the axis) returns
+    this rank's columns of the logits, which `lm_loss` reduces across
+    the axis.
     `aux` is the JAX package's dict: a MoE stack's `load_balance` and
     `router_z` summed over its layers (zero for a dense stack and
     wherever a cache is threaded, as the JAX forward leaves them).
@@ -468,7 +495,10 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
         raise ValueError("decode_multi needs rollback by position; an "
                          "ssm/hybrid recurrent state cannot roll back")
     dev = tokens.device
-    x = params["embed"][tokens.long()].to(torch.bfloat16)
+    tp, group, tp_rank = L.tp_context()
+    if tp > 1:
+        check_parallel(cfg, tp)
+    x = _embed(params["embed"], tokens, cfg, group, tp_rank)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=torch.bfloat16,
                              device=dev)
@@ -538,13 +568,33 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].t()
-    logits = sa_dot(x.reshape(-1, cfg.d_model), head
-                    ).reshape(x.shape[0], x.shape[1], cfg.padded_vocab)
+    x2 = x.reshape(-1, cfg.d_model)
+    v0 = 0                  # the first vocabulary column of the logits
+    if head.shape[1] != cfg.padded_vocab:   # vocabulary-parallel head
+        from repro_torch.parallel import collectives as C
+        x2, v0 = C.copy_to_model(x2, group), tp_rank * head.shape[1]
+    logits = sa_dot(x2, head).reshape(x.shape[0], x.shape[1], head.shape[1])
     logits = L.softcap(logits.to(torch.float32), cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab_size:   # mask padding logits
-        valid = torch.arange(cfg.padded_vocab, device=dev) < cfg.vocab_size
+        valid = (torch.arange(head.shape[1], device=dev) + v0
+                 < cfg.vocab_size)
         logits = torch.where(valid, logits, float("-inf"))
     return logits, cache, {"load_balance": aux[0], "router_z": aux[1]}
+
+
+def _embed(embed, tokens, cfg: ArchConfig, group, tp_rank: int):
+    """The token lookup, cast to bf16. A vocabulary-parallel table (this
+    rank's rows) looks up the tokens it holds, zeros for the others, and
+    the ranks' rows are summed (one of them nonzero: exact)."""
+    if embed.shape[0] == cfg.padded_vocab:
+        return embed[tokens.long()].to(torch.bfloat16)
+    from repro_torch.parallel import collectives as C
+
+    n = embed.shape[0]
+    t = tokens.long() - tp_rank * n
+    mine = (t >= 0) & (t < n)
+    rows = torch.where(mine[..., None], embed[t.clamp(0, n - 1)], 0.0)
+    return C.reduce_from_model(rows, group).to(torch.bfloat16)
 
 
 def lm_loss(params, cfg: ArchConfig, tokens, labels,
@@ -559,7 +609,32 @@ def lm_loss(params, cfg: ArchConfig, tokens, labels,
                              frontend_embeds=frontend_embeds)
     if cfg.family == "vlm" and frontend_embeds is not None:
         logits = logits[:, frontend_embeds.shape[1]:]
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if logits.shape[-1] != cfg.padded_vocab:
+        lse, gold = _vocab_parallel_terms(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = torch.mean(lse - gold)
     return nll + aux_weight * (aux["load_balance"] + aux["router_z"]), nll
+
+
+def _vocab_parallel_terms(logits, labels):
+    """logsumexp and the gold logit of rows whose vocabulary is cut
+    across the `model` axis (`logits`: this rank's columns): the row max
+    by an all-reduce MAX (a constant of the gradient, as logsumexp's),
+    the exp-sum by SUM, the gold logit by SUM of the one rank that holds
+    its column (global column ids)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import collectives as C
+
+    _, group, tp_rank = L.tp_context()
+    n = logits.shape[-1]
+    m = logits.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    se = C.reduce_from_model(torch.exp(logits - m[..., None]).sum(-1), group)
+    lab = labels.long() - tp_rank * n
+    mine = (lab >= 0) & (lab < n)
+    gold = torch.gather(logits, -1, lab.clamp(0, n - 1)[..., None])[..., 0]
+    gold = C.reduce_from_model(torch.where(mine, gold, 0.0), group)
+    return m + torch.log(se), gold

@@ -4,7 +4,8 @@ async writer, as the JAX package's `repro/train/checkpoint.py`.
 Layout (one directory per step):
 
     <dir>/step_000000123/
-        manifest.json       leaf order, shapes, dtypes, sha256 per leaf
+        manifest.json       leaf order and paths, shapes, dtypes, sha256
+                            per leaf
         arr_00000.npy ...   one file per leaf
     <dir>/latest            text file → step directory name (atomic rename)
 
@@ -16,9 +17,15 @@ Layout (one directory per step):
   * **integrity** — sha256 per leaf, verified on restore.
 
 Leaves are numpy `.npy` files; bf16 tensors are stored as their raw 16-bit
-patterns (numpy has no bf16) with the dtype in the manifest. The JAX
-package's reshard-on-load does not apply at world size 1: `restore` puts
-each leaf on the device of the matching leaf of `target_tree`.
+patterns (numpy has no bf16) with the dtype in the manifest. `restore`
+puts each leaf on the device of the matching leaf of `target_tree`.
+
+Under a mesh (`mesh=` and the tree's `specs=`, `parallel.sharding`) a
+checkpoint still holds full leaves: `save` gathers each leaf across the
+ranks (every rank takes part; rank 0 writes), and `restore` cuts the
+current mesh's shard of each full leaf (the JAX package's reshard on
+load), so a checkpoint saved at one mesh restores at another, or in one
+process.
 """
 from __future__ import annotations
 
@@ -65,29 +72,62 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def _snapshot(tree):
-    """(numpy array, torch dtype name) of every leaf, on the host."""
-    return [(_to_numpy(x), str(x.dtype)) for x in tree_leaves(tree)]
+def _paths(tree) -> list:
+    """Each leaf's path ("layers/0/attn/wq"), in `tree_leaves`' order."""
+    from repro_torch.parallel.sharding import tree_map_with_path
+
+    out = []
+    tree_map_with_path(lambda p, _: out.append("/".join(map(str, p))), tree)
+    return out
 
 
-def save(path: str, step: int, tree, extra: dict | None = None) -> str:
-    """Synchronous atomic save of a tree of tensors. Returns the
-    checkpoint directory."""
-    return _write(path, step, _snapshot(tree), extra)
+def _writer(mesh) -> bool:
+    import torch.distributed as dist
+
+    return mesh is None or dist.get_rank() == 0
 
 
-def _write(path: str, step: int, host, extra) -> str:
+def _snapshot(tree, mesh=None, specs=None):
+    """(numpy array, torch dtype name) of every leaf, on the host; under a
+    mesh each leaf gathered whole first (on rank 0; the other ranks take
+    part in the gathers and keep nothing)."""
+    if mesh is None:
+        return [(_to_numpy(x), str(x.dtype)) for x in tree_leaves(tree)]
+    from repro_torch.parallel import sharding as S
+
+    host = []
+    for x, sp in zip(tree_leaves(tree), S.spec_leaves(specs, tree)):
+        full = S.gather_leaf(x, sp, mesh)
+        if _writer(mesh):
+            host.append((_to_numpy(full), str(x.dtype)))
+        del full
+    return host
+
+
+def save(path: str, step: int, tree, extra: dict | None = None, *,
+         mesh=None, specs=None) -> str:
+    """Synchronous atomic save of a tree of tensors (under a mesh, full
+    leaves, written by rank 0). Returns the checkpoint directory."""
+    host = _snapshot(tree, mesh, specs)
+    final = os.path.join(path, f"step_{step:09d}")
+    if not _writer(mesh):
+        return final
+    return _write(path, step, host, extra, _paths(tree))
+
+
+def _write(path: str, step: int, host, extra, paths) -> str:
     os.makedirs(path, exist_ok=True)
     name = f"step_{step:09d}"
     tmp = os.path.join(path, name + ".tmp")
     final = os.path.join(path, name)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "extra": extra or {}, "leaves": []}
-    for i, (arr, dtype) in enumerate(host):
+    for i, ((arr, dtype), leaf_path) in enumerate(zip(host, paths)):
         fn = f"arr_{i:05d}.npy"
         np.save(os.path.join(tmp, fn), arr)
         manifest["leaves"].append({
-            "file": fn, "shape": list(arr.shape), "dtype": dtype,
+            "file": fn, "path": leaf_path, "shape": list(arr.shape),
+            "dtype": dtype,
             "sha256": hashlib.sha256(arr.tobytes()).hexdigest()})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -117,10 +157,14 @@ class AsyncSaver:
             self._thread.join()
             self._thread = None
 
-    def save_async(self, path: str, step: int, tree, extra=None):
+    def save_async(self, path: str, step: int, tree, extra=None, *,
+                   mesh=None, specs=None):
         self.wait()
+        host = _snapshot(tree, mesh, specs)
+        if not _writer(mesh):
+            return
         self._thread = threading.Thread(
-            target=_write, args=(path, step, _snapshot(tree), extra),
+            target=_write, args=(path, step, host, extra, _paths(tree)),
             daemon=False)
         self._thread.start()
 
@@ -134,10 +178,12 @@ def latest_step(path: str) -> int | None:
 
 
 def restore(path: str, target_tree, step: int | None = None,
-            verify: bool = True):
-    """Load into the structure of `target_tree`: each leaf takes the
-    device of the target's leaf (and its `requires_grad`). Returns (tree,
-    extra, step)."""
+            verify: bool = True, *, mesh=None, specs=None):
+    """Load into the structure of `target_tree`: each leaf by its path
+    (its dicts may order their keys otherwise than the saved tree's),
+    taking the device of the target's leaf (and its `requires_grad`);
+    under a mesh each full leaf is cut to this rank's shard by `specs`
+    first. Returns (tree, extra, step)."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -146,16 +192,27 @@ def restore(path: str, target_tree, step: int | None = None,
     with open(os.path.join(cdir, "manifest.json")) as f:
         manifest = json.load(f)
     targets = tree_leaves(target_tree)
+    if mesh is not None:
+        from repro_torch.parallel import sharding as S
+
+        spec_list = S.spec_leaves(specs, target_tree)
+        coords = S.mesh_coords(mesh)
     if len(targets) != len(manifest["leaves"]):
         raise ValueError(f"tree structure changed: {len(targets)} leaves, "
                          f"checkpoint has {len(manifest['leaves'])}")
+    saved = {m.get("path"): m for m in manifest["leaves"]}
+    paths = _paths(target_tree)
+    metas = ([saved[p] for p in paths] if set(paths) == set(saved)
+             else manifest["leaves"])
     out = []
-    for meta, ref in zip(manifest["leaves"], targets):
+    for meta, ref in zip(metas, targets):
         arr = np.load(os.path.join(cdir, meta["file"]))
         if verify:
             h = hashlib.sha256(arr.tobytes()).hexdigest()
             if h != meta["sha256"]:
                 raise IOError(f"checkpoint corruption in {meta['file']}")
-        t = _from_numpy(arr, meta["dtype"]).to(ref.device)
-        out.append(t.requires_grad_(ref.requires_grad))
+        t = _from_numpy(arr, meta["dtype"])
+        if mesh is not None:
+            t = S.shard_leaf(t, spec_list[len(out)], mesh, coords)
+        out.append(t.to(ref.device).requires_grad_(ref.requires_grad))
     return _unflatten(target_tree, out), manifest["extra"], step

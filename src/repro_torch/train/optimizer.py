@@ -5,9 +5,9 @@ schedules, in the JAX package's (init, update) form and arithmetic
 master).
 
 One difference, for memory: `update` writes the new parameters, μ and ν
-in place (under `torch.no_grad`, one leaf at a time, so the temporaries
-never exceed one leaf) and returns the same tensors, where the JAX
-package returns new arrays. At full width a second copy of 2.7 B fp32
+in place (under `torch.no_grad`, a piece of a leaf at a time, two
+temporaries of at most CHUNK elements) and returns the same tensors,
+where the JAX package returns new arrays. At full width a second copy of 2.7 B fp32
 parameters and their two moments would not fit the card.
 """
 from __future__ import annotations
@@ -46,6 +46,23 @@ def constant_lr(lr: float) -> Callable:
     return lambda step: _f32(lr)
 
 
+CHUNK = 1 << 26   # elements an update step works on at a time
+
+
+def _chunks(*trees):
+    """The leaves (p, m, v, g), each cut along dim 0 into views of at
+    most about CHUNK elements: the update is elementwise, so the pieces
+    give the whole leaf's bits with smaller temporaries."""
+    for leaves in zip(*trees):
+        p = leaves[0]
+        rows = max(1, CHUNK // max(1, p[0].numel())) if p.dim() else 1
+        if p.dim() == 0 or rows >= p.shape[0]:
+            yield leaves
+            continue
+        for i in range(0, p.shape[0], rows):
+            yield tuple(x[i:i + rows] for x in leaves)
+
+
 class AdamWState(NamedTuple):
     count: torch.Tensor   # int32 scalar
     mu: dict
@@ -69,15 +86,30 @@ class AdamW:
                           nu=tree_map(z, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, sharded=None,
+               group=None):
         """One step on the gradient tree `grads` (same structure as
         `params`; each leaf is scaled in place by the clip). Returns
         (params, state, {"grad_norm", "lr"}), the first two updated in
-        place."""
+        place. Under tensor parallelism `sharded` flags the leaves that
+        are this rank's shard and `group` is the `model` axis: the global
+        norm adds the sharded leaves' squares across the group (one
+        all-reduce) to the replicated leaves' own, counted once, so every
+        rank gets the same norm and its replicated leaves the same bits."""
         gs = [g.to(_F32) for g in tree_leaves(grads)]
         ps, ms, vs = (tree_leaves(t) for t in (params, state.mu, state.nu))
         # global-norm clip
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gs))
+        if group is None:
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gs))
+        else:
+            import torch.distributed as dist
+
+            sq = [torch.sum(g * g) for g in gs]
+            part = sum(q for q, s in zip(sq, sharded) if s)
+            part = torch.as_tensor(part, dtype=_F32, device=gs[0].device)
+            dist.all_reduce(part, group=group)
+            gnorm = torch.sqrt(part + sum(
+                q for q, s in zip(sq, sharded) if not s))
         if self.clip_norm:
             scale = torch.minimum(
                 _f32(1.0).to(gnorm.device),
@@ -89,13 +121,22 @@ class AdamW:
         bc2 = float(1 - _f32(b2) ** c)
         lr = self.schedule(count)
         lr_f = float(lr)
-        for p, m, v, g in zip(ps, ms, vs, gs):
+        for p, m, v, g in _chunks(ps, ms, vs, gs):
+            # the JAX update's fp32 operations in its order, in place where
+            # that changes no bit: two temporaries of at most a chunk
             if self.clip_norm:
                 g.mul_(scale)
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            upd += self.weight_decay * p.to(_F32)
-            p.copy_((p.to(_F32) - lr_f * upd).to(p.dtype))
+            m.mul_(b1).add_(g.mul(1 - b1))
+            t = g.mul(1 - b2)
+            v.mul_(b2).add_(t.mul_(g))
+            upd = m.div(bc1)
+            t = v.div(bc2)
+            upd.div_(t.sqrt_().add_(self.eps))
+            del t
+            upd.add_(p.to(_F32).mul(self.weight_decay))
+            if p.dtype == _F32:
+                p.sub_(upd.mul_(lr_f))
+            else:
+                p.copy_((p.to(_F32) - lr_f * upd).to(p.dtype))
         return (params, AdamWState(count=count, mu=state.mu, nu=state.nu),
                 {"grad_norm": gnorm, "lr": lr})

@@ -69,17 +69,59 @@ def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1,
 
 
 def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
-                    aux_weight: float = 0.01):
+                    aux_weight: float = 0.01, mesh=None, on_grads=None):
     """Returns train_step(state, batch) → (state, metrics), metrics the
     0-d tensors loss, nll, grad_norm and lr. The parameters and optimizer
     moments are updated in place (see train/optimizer.py); the gradients
-    are released after the update."""
+    are released after the update.
+
+    Under a `mesh` (a ("data", "model") `DeviceMesh`) `state` holds this
+    rank's shards (`train_state.init_state(mesh=)`) and `batch` this data
+    rank's rows (`parallel.sharding.data_specs`); the forward runs
+    tensor-parallel over `model`, the gradients are all-reduced (SUM ÷
+    dp, fp32) over `data`, loss and nll averaged the same way, and the
+    clip's global norm sums the squares of sharded leaves across `model`
+    and counts replicated leaves once. `on_grads(loss, nll, grads)`, if
+    given, sees the step's gradients after that reduction and before the
+    update (which scales them in place by the clip)."""
     grad_fn = make_grad_fn(cfg, accum_steps, aux_weight)
+    dp_group = tp_group = None
+    if mesh is not None:
+        from repro_torch.parallel import sharding as S
+        from .train_state import param_specs
+
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        M.check_parallel(cfg, sizes["model"], sizes["data"])
+        specs = param_specs(cfg, mesh)
+        dp = sizes["data"]
+        dp_group = mesh.get_group("data") if dp > 1 else None
+        tp_group = mesh.get_group("model") if sizes["model"] > 1 else None
+
+    def grads_of(state, batch):
+        if mesh is None:
+            return grad_fn(state.params, batch)
+        import torch.distributed as dist
+
+        with S.using_mesh(mesh):
+            loss, nll, grads = grad_fn(state.params, batch)
+        if dp_group is not None:
+            for g in M.tree_leaves(grads):
+                dist.all_reduce(g, group=dp_group)
+                g.div_(dp)
+            ln = torch.stack([loss, nll])
+            dist.all_reduce(ln, group=dp_group)
+            loss, nll = ln[0] / dp, ln[1] / dp
+        return loss, nll, grads
 
     def train_step(state: TrainState, batch):
-        loss, nll, grads = grad_fn(state.params, batch)
+        loss, nll, grads = grads_of(state, batch)
+        if on_grads is not None:
+            on_grads(loss, nll, grads)
+        sharded = None if mesh is None else [
+            S.is_sharded(sp) for sp in S.spec_leaves(specs, state.params)]
         params, opt_state, om = opt.update(grads, state.opt_state,
-                                           state.params)
+                                           state.params, sharded=sharded,
+                                           group=tp_group)
         for p in M.tree_leaves(params):
             p.grad = None
         metrics = {"loss": loss, "nll": nll, **om}

@@ -90,11 +90,11 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
     ("bf16", "approx", 64, 50.0, SERVE_LENS, None, F32),
     ("fp32", "exact", 0, 0.0, SERVE_LENS, None, F32),
     ("fp16", "exact", 0, 0.0, SERVE_LENS, None, F32),
-    # cluster runs of 24 keys (ends inside pages), 48 (on page boundaries)
-    # and 16 (9 blocks: the non-portable cluster size)
+    # forced cluster sizes: 3 blocks of 64 keys at 144 tokens, and 16
+    # blocks of 128 at 2048 (the non-portable cluster size)
     ("bf16", "exact", 0, 0.0, SERVE_LENS, 6, F32),
     ("fp32", "approx", 0, 0.0, SERVE_LENS, 3, F32),
-    ("bf16", "exact", 0, 0.0, SERVE_LENS, 16, F32),
+    ("bf16", "exact", 0, 0.0, (2048, 1000, 17, 0), 16, F32),
     ("bf16", "exact", 0, 0.0, (2048, 1000, 17, 0), None, F32),
     # a slot whose scores exceed one block's shared memory
     ("bf16", "exact", 100, 0.0, (12288, 2049, 0, 5), None, F32),
@@ -1115,6 +1115,74 @@ def test_prefill_hd256_matches_plain(cuda, T, S, kw, fmt, kv):
     if kv != F32 and fmt == {BF16: "bf16", F16: "fp16"}[kv]:
         y32 = ops.sa_attention(q, k32, v32, policy=pol, **kw)
         assert torch.equal(got.view(torch.int32), y32.view(torch.int32))
+
+
+def _split_sizes(g, hd, psz, P):
+    """Every cluster size `split_plan` accepts for the slot, once each."""
+    sizes = []
+    for n in range(1, DA.MAX_CLUSTER + 1):
+        try:
+            got = DA.split_plan(g, hd, psz, P, n_split=n).n_split
+        except ValueError:
+            continue
+        if got not in sizes:
+            sizes.append(got)
+    return sizes
+
+
+@pytest.mark.parametrize("shape", ["serve", "2048", "ring_hd64", "hd256"])
+@pytest.mark.parametrize("pool", [F32, BF16])
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+def test_paged_decode_bits_do_not_depend_on_n_split(cuda, shape, pool,
+                                                    mode):
+    """ROADMAP F9: the kernel sums the denominator and P·V over fixed runs
+    of 64 keys and folds the runs in run order, so every cluster size
+    `split_plan` accepts gives the same bits: the serve shape (B 4, g 5,
+    hd 128, page 16, 9 pages), 2048-token slots, g 5 / hd 64 dense rings
+    of 2048 rows (`dense_pool_view`, hymba's) and g 2 / hd 256 rings of
+    1024 (gemma's, cap 50), fp32 and bf16 pools, exact and approx. The
+    kernel before the repair summed a block's keys and then the blocks in
+    rank order: at the serve shape its tuned cluster sizes 3 and 4 against
+    the heuristic's 6 parted the served stream (digests 09891ddc41ede9bf
+    and 2b00d17fea67feb8 against d436a40e4fd3dd59, chip_smoke's autotune
+    phase on the H100)."""
+    pol = PrecisionPolicy(input_format="bf16", mode=mode)
+    kw, min_page = {}, 1
+    if shape in ("serve", "2048"):
+        lens = SERVE_LENS if shape == "serve" else (2048, 1000, 17, 0)
+        P = -(-max(lens) // 16)
+        q, k, v, pp, bt, pos = _pool(cuda, P=P, lens=lens)
+        g_, hd = 5, 128
+    else:
+        B, KVH, g_, hd, rows = ((4, 5, 5, 64, 2048) if shape == "ring_hd64"
+                                else (4, 8, 2, 256, 1024))
+        gen = torch.Generator(device=cuda).manual_seed(rows + hd)
+        q = torch.randn((B, 1, KVH * g_, hd), generator=gen, device=cuda)
+        kd = torch.randn((B, rows, KVH, hd), generator=gen, device=cuda)
+        vd = torch.randn((B, rows, KVH, hd), generator=gen, device=cuda)
+        pos = torch.tensor([rows + 37, rows - 1, 3 * rows + 5, 10],
+                           dtype=torch.int32, device=cuda)
+        i = torch.arange(rows, device=cuda)
+        p = pos[:, None] - ((pos[:, None] - i[None]) % rows)
+        kp = torch.where(p >= 0, p, -1).to(torch.int32)
+        k, v, pp, bt = DA.dense_pool_view(kd, vd, kp, 16)
+        P, min_page = rows // 16, 0
+        kw = {"window": rows, "cap": 50.0} if hd == 256 else {
+            "window": rows}
+    k, v = k.to(pool), v.to(pool)
+    sizes = _split_sizes(g_, hd, 16, P)
+    assert len(sizes) >= 3, sizes
+    outs = {n: DA.paged_decode_cuda(q, k, v, pp, bt, pos, policy=pol,
+                                    n_split=n, min_page=min_page, **kw)
+            for n in sizes}
+    want = outs[sizes[0]].view(torch.int32)
+    for n, got in outs.items():
+        assert torch.equal(got.view(torch.int32), want), (n, sizes)
+    assert bool(torch.isfinite(outs[sizes[0]]).all())
+    if min_page:   # the pool: within the plain version's bound too
+        ref = DA.paged_decode_ref(q, k, v, pp, bt, pos, policy=pol, **kw)
+        bound = DA.error_bound(q, k, v, pp, bt, pos, policy=pol, **kw)
+        assert bool(((outs[sizes[0]] - ref).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("rows,window,pool", [

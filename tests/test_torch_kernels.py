@@ -355,6 +355,8 @@ def test_decode_split_plan_covers_every_key_once(B, psz, S, n_split):
     assert plan.smem == DA.decode_smem(g, hd, psz, plan.keys_per_cta)
     assert plan.smem <= 227 * 1024
     assert plan.keys_per_cta % DA.KEY_ALIGN == 0
+    # whole runs a block (ROADMAP F9: the kernel sums run by run)
+    assert plan.keys_per_cta % DA.RUN == 0
 
 
 def test_decode_split_plan_refuses_what_no_cluster_holds():
@@ -384,9 +386,8 @@ def test_decode_split_plan_does_not_depend_on_the_batch(S, psz, g, hd, B):
     its order of sums) is the same whatever the batch around it — B = 1,
     4, 20, 64 at 8 KV heads, for either pool type — so a slot gives the
     same bits decoded alone or folded into a larger batch. At the serve
-    shape (144-token slots) and at 2048-token slots it is the plan the
-    earlier batch-sized rule gave at B = 4: a start of 8 blocks (6 of 24
-    keys at 144 tokens)."""
+    shape (144-token slots) and at 2048-token slots it is the plan a start
+    of 8 blocks gives (3 runs of 64 keys at 144 tokens, the last of 16)."""
     P = -(-S // psz)
     want = _decode_launch_plan(4, 8, g, hd, psz, P)
     for dtype in (torch.float32, torch.bfloat16):

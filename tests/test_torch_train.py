@@ -606,5 +606,6 @@ def test_train_driver_checkpoints_and_resumes(tmp_path, capsys):
     assert "resumed from step 3" in capsys.readouterr().out
     assert [h["step"] for h in hist] == [4] and int(state2.step) == 4
     assert all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist)
-    with pytest.raises(ValueError, match="not ported"):
+    # one process that no launcher started has no world to shard over
+    with pytest.raises(ValueError, match="world of ranks"):
         drv.main(args + ["--model-parallel", "2"])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of two checkouts of this repository on one card, in one run.
 
-    python3 tools/chip_ab.py OTHER_ROOT [--what fp32,fp_emu,fwd]
+    python3 tools/chip_ab.py OTHER_ROOT [--what fp32,fp_emu,fwd,decode]
 
 Runs chip_smoke.py's timing phases against the port in OTHER_ROOT (e.g.
 the parent commit, unpacked with `git archive`) and in this checkout, each
@@ -10,7 +10,8 @@ this, this, other, and prints every reading of the four runs side by side
 with the card's name and power limit. The phases, their shapes and their
 operands are this checkout's (chip_smoke.py, `repro_torch.kernels.
 gemm_cases`) in all four runs; only the port they call differs. They call
-what both trees have: `sa_matmul_cuda` and `skewed_datapath_matmul`.
+what both trees have: `sa_matmul_cuda`, `skewed_datapath_matmul` and
+`paged_decode_cuda`.
 
 * fp32 — `chip_smoke.fp32_gemm_times`: the SA GEMM's fp32 routes, a
   layer's 7 GEMMs fp32 x fp32 at M = 4 (`partial`) and M = 1024 (`simt`),
@@ -22,6 +23,9 @@ what both trees have: `sa_matmul_cuda` and `skewed_datapath_matmul`.
   training M (1024), a layer's 7 GEMMs (summed) and the lm_head, wall and
   device, beside bf16 torch.matmul: the `mma` route's large tile wherever
   its blocks fill the card, in whichever design each tree has.
+* decode — `chip_smoke.decode_times`: the paged decode on each tree's own
+  plan (`paged_decode_cuda`), B = 4 and 64 at 144-token slots and B = 4
+  at 2048-token slots (fp32 and bf16 pools); ms wall and device.
 """
 from __future__ import annotations
 
@@ -69,6 +73,8 @@ def measure(root: str, what: list[str]) -> dict:
         out.update(_flat("emu", cs.fp_emu_times(torch, timer, g)))
     if "fwd" in what:
         out.update(_flat("fwd", cs.forward_times(torch, timer, g)))
+    if "decode" in what:
+        out.update(_flat("decode", cs.decode_times(torch, timer, g)))
     return out
 
 
