@@ -71,12 +71,19 @@ Phases, in order; any failure exits nonzero:
              slot's paged decode at B = 4 bit-identical to the same slot
              inside B = 20; then the fp32 routes' times (a layer's 7 GEMMs
              fp32 x fp32 at M = 4 and 1024, beside the plain version,
-             fp32 torch.matmul and the bound).
-   parallel — `python -m repro_torch.launch.train` under torchrun, the
+             fp32 torch.matmul and the bound); then every kernel of the
+             tensor-parallel serve at a rank's shapes (paged decode over
+             a rank's KV heads, padded ones included; prefill over a
+             rank's padded heads; the SA GEMM's column shards and the
+             row shards' fp32 chain at K / tp) against its plain
+             version and, bit for bit, the whole call.
+   parallel — the trainer (`python -m repro_torch.launch.train`; its
+             `main` inside this script's rank program in the worlds
+             that also serve) under torchrun, the
              ranks sharing the one card over gloo, 3 AdamW steps under
              `cuda` at batch 4 x 512, each mesh (data, model):
-             qwen2.5-14b at full width cut to 4 layers at (1, 2) (accum
-             2) and to 1 layer at (2, 2) (accum 1: four ranks' states
+             qwen2.5-14b at full width cut to 2 layers at (1, 2) (accum
+             2; 4 before PR 29) and to 1 layer at (2, 2) (accum 1: four ranks' states
              fill the card), phi3-medium-14b cut to 2 layers at (1, 4)
              (accum 2; its 10 KV heads padded to 12). Step 0's loss and every
              gathered gradient leaf (`--grads-out`) against the
@@ -90,6 +97,30 @@ Phases, in order; any failure exits nonzero:
              reference, the same launch checks.
              It runs right after the fold phase, while this process
              holds little of the card.
+   parallel_serve — serving under tensor parallelism, the ranks sharing
+             the card over gloo, each set of serve runs in the torchrun
+             world of a parallel run after its steps (this script's
+             rank program, `--serve-ranks SPEC`: the trainer's `main`,
+             then `launch.serve.main` a run, the first drawing the
+             rank's shards): qwen2.5-14b at full width and depth at
+             (data 1, model 2) on the serve stream, paged; the serve
+             stream on one nccl rank (`--model-parallel 1`);
+             phi3-medium-14b at full width cut to 4 layers at (1, 4)
+             (its 10 KV heads padded to 12), paged, `--kv ring` and
+             `--disagg`. Every rank one digest, phi3's three runs one
+             digest, no plain call, the serve driver's mesh lines; each
+             rank's launches and peak memory, ITL and TTFT. After the
+             serve phase each run is held to the one-process stream by
+             ROADMAP R1's rule (prefill logits within 2^-5 max|logit|,
+             tokens equal up to the first position whose one-process
+             top-two margin is below twice that bound; the equal tokens
+             counted), the qwen run's launches on every rank equal to
+             the serve phase's (the same GEMMs on shards), the nccl
+             rank's digest and launches equal to the serve phase's;
+             phi3's one-process stream is served there at the same
+             depth. The kernel phase holds each kernel at a rank's
+             shapes (`check_rank_shapes`). It measures no speed of a
+             real mesh.
 5. serve   — full-width, full-depth qwen2.5-14b (random weights from a
              seed) served through `repro_torch.launch.serve.main` with the
              `cuda` GEMM backend; every request must generate `max_new`
@@ -170,16 +201,19 @@ Phases, in order; any failure exits nonzero:
              cache file: 0 sweeps, the same choices and digest; then a
              fresh empty cache, and a lookup gives the heuristic again.
    examples — the four port examples (`examples/*_torch.py`) as
-             subprocesses under `cuda`: quickstart's loss falls,
+             subprocesses under `cuda`, beside the autotune phase's
+             second process (each a process of its own, with a fresh
+             empty cache of their own): quickstart's loss falls,
              serve_batch finishes 12 of 12 requests, train_100m runs 30
              steps and resumes from its checkpoint for 5 more, the
              precision study prints "bit-exact: True" per format and
              section 2's cycles equal to `core.systolic`'s.
-   families — gemma3-12b (48 layers, 5:1 local:global, window 1024;
-             6 requests of 600-1500 tokens on 4 slots), gemma2-9b (42
-             layers, 1:1, window 4096, softcaps 50 and 30; prompts of 256
-             and 4200 tokens) and phi3-medium-14b (40 layers; the serve
-             stream) at full width and depth, one model on the card at a
+   families — gemma3-12b (24 of its 48 layers, 5:1 local:global,
+             window 1024; 6 requests of 600-1500 tokens on 4 slots),
+             gemma2-9b (22 of 42 layers, 1:1, window 4096, softcaps 50
+             and 30; prompts of 256 and 4200 tokens) and phi3-medium-14b
+             (20 of 40 layers; the serve stream) at full width, cut to
+             half their depth since PR 29, one model on the card at a
              time, through the driver under `cuda` with the serve phase's
              checks; paged decode launched L times a decode step; the
              window's gates off (no prefix hit); gemma3 and gemma2 again
@@ -188,12 +222,15 @@ Phases, in order; any failure exits nonzero:
              gemma3's stream again with `--spec-k 4` (the spec phase's
              local-window case, ROADMAP F6): local rings of 1040 rows,
              the plain serve's digest.
-   moe     — granite-moe-3b-a800m at full width and depth (32 layers,
-             40 experts, top-8) on the serve stream, paged and `--kv
-             ring`: one digest, the serve phase's checks, every kernel's
-             launches exactly as the dropless dispatch implies
-             (`moe.gemm_calls`: a decode step 4001 SA GEMMs, run once
-             alone too), prefill logits under `cuda` and `torch`, one
+   moe     — granite-moe-3b-a800m at full width cut to 16 of its 32
+             layers (since PR 29; its layers are all alike, and its
+             host-bound decode, ~10,500 launches a step at full depth,
+             is the run's largest saving; 40 experts, top-8) on the
+             serve stream, paged and `--kv ring`: one digest, the serve
+             phase's checks, every kernel's launches exactly as the
+             dropless dispatch implies (`moe.gemm_calls`: a decode step
+             2001 SA GEMMs at 16 layers, 4001 at 32, run once alone
+             too), prefill logits under `cuda` and `torch`, one
              decode chunk under torch.profiler (idle share);
              llama4-maverick at full width cut to one superblock (a dense
              layer at d_ff 16384, a MoE layer of 128 experts and the
@@ -203,16 +240,18 @@ Phases, in order; any failure exits nonzero:
              dispatch): step 0 under `cuda` and `torch` with the routing
              held (and the free-routing spread read out), the train
              phase's gates, finite aux losses.
-   ssm     — mamba2-2.7b (64 layers, d 2560, 80 SSM heads of 64, state
-             128, chunk 256) and hymba-1.5b (32 layers, d 1600, 25 heads
-             over 5 KV heads at hd 64, window 2048, global layers 0 and
-             16, state 16) at full width and depth through the driver
-             under `cuda`, asked for `--kv paged` and `--kv ring` on the
-             same weights: one digest, the serve phase's checks, each
-             kernel's launches exactly as the forwards imply
-             (`model.gemm_calls`: 129 and 289 SA GEMMs a decode step;
-             paged decode 0 and 32 a step, prefill attention 0 and 32 a
-             prefill), one decode step alone with no operand copied
+   ssm     — mamba2-2.7b (32 of its 64 layers since PR 29, d 2560, 80
+             SSM heads of 64, state 128, chunk 256) and hymba-1.5b (32
+             layers, d 1600, 25 heads over 5 KV heads at hd 64, window
+             2048, global layers 0 and 16, state 16) at full width
+             (hymba at full depth) through the driver under `cuda`, asked
+             for `--kv paged` and `--kv ring` on the same weights: one
+             digest, the serve phase's checks, each kernel's launches
+             exactly as the forwards imply (`model.gemm_calls`: 65 and
+             289 SA GEMMs a decode step at these depths, mamba2's 129 at
+             full depth; paged decode 0 and 32 a step, prefill attention
+             0 and 32 a prefill), one decode step alone with no operand
+             copied
              (hymba's ragged in_proj read in place), the layout the
              engine took (mamba2 on rows whatever was asked) and its
              prefix cache, disagg, bucketing and spec off, prefill then
@@ -226,15 +265,15 @@ Phases, in order; any failure exits nonzero:
              `torch`, the train phase's route gates).
    frontend — whisper-tiny (4 encoder and 4 decoder layers, d 384, 6
              heads of 64 at g = 1, layernorm, GELU MLP, 1500 stub frames)
-             and pixtral-12b (40 layers, d 5120, 32 heads over 8 at hd
-             128, 256 stub patch rows; 24.5 GB of bf16 weights) at full
-             width and depth, one at a time, through the driver's static
+             and pixtral-12b (20 of its 40 layers since PR 29, d 5120,
+             32 heads over 8 at hd 128, 256 stub patch rows) at full
+             width, one at a time, through the driver's static
              waves (2 waves of 4 requests, 16 new tokens; whisper's
              prompts 32 and 64 tokens, pixtral's 64 and 128): requests
              complete, finite logits, no plain version, GEMMs and prefill
              on `mma`, each kernel's launches exactly as the forwards
-             imply (73 and 281 SA GEMMs a forward, paged decode 4 and 40
-             a decode step, prefill attention 4 and 40 a prefill),
+             imply (73 and 141 SA GEMMs a forward, paged decode 4 and 20
+             a decode step, prefill attention 4 and 20 a prefill),
              `serve()` refused, prefill then decode equal to a full
              forward within 2^-5·max|logit| with a planted fault outside
              (whisper's frames redrawn; pixtral's patch rows hidden from
@@ -3511,12 +3550,16 @@ def _summary_fields(line: str) -> dict:
     return dict(f.split("=", 1) for f in line.split()[1:] if "=" in f)
 
 
-def autotune_second_process(torch, first):
+def autotune_second_process(torch, first, during=None):
     """The tuned serve again in a new process (`python -m
     repro_torch.launch.serve ... --autotune-decode`) on the cache file the
     first run wrote: 0 sweeps, the same tiles and cluster size, the same
-    digest, 0 misses. Then the cache is reset to a fresh empty file and a
-    lookup gives the heuristic's tile again."""
+    digest, 0 misses. While it runs, `during()` runs here (the examples,
+    with a fresh empty cache of their own). Then the cache is reset to a
+    fresh empty file and a lookup gives the heuristic's tile again.
+    Returns (the readings, what `during` returned)."""
+    import tempfile
+
     from repro_torch.kernels import autotune
     from repro_torch.kernels import sa_matmul as mm
 
@@ -3526,11 +3569,27 @@ def autotune_second_process(torch, first):
                    [os.path.join(root, "src")]
                    + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     t0 = time.monotonic()
-    res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve"] + SERVE_ARGS
-        + ["--autotune-decode"], capture_output=True, text=True, env=env,
-        cwd=root, timeout=900)
-    wall = time.monotonic() - t0
+    with tempfile.TemporaryFile("w+") as fo, \
+            tempfile.TemporaryFile("w+") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve"] + SERVE_ARGS
+            + ["--autotune-decode"], stdout=fo, stderr=fe, env=env,
+            cwd=root)
+        beside = None
+        try:
+            if during is not None:
+                fresh_tune_cache("beside")
+                beside = during()
+            proc.wait(timeout=900)
+        finally:
+            if proc.poll() is None:     # `during` failed, or a timeout
+                proc.kill()
+                proc.wait()
+        wall = time.monotonic() - t0
+        fo.seek(0)
+        fe.seek(0)
+        res = types.SimpleNamespace(returncode=proc.returncode,
+                                    stdout=fo.read(), stderr=fe.read())
     line = next((ln for ln in res.stdout.splitlines()
                  if ln.startswith("[continuous]")), "")
     got = _summary_fields(line)
@@ -3562,7 +3621,7 @@ def autotune_second_process(torch, first):
     if problems:
         raise AssertionError("autotune second process failed: "
                              + "; ".join(problems))
-    return r
+    return r, beside
 
 
 EXAMPLE_TIMEOUT = 600
@@ -3928,16 +3987,19 @@ def study(torch):
 # 1500 tokens pass its 1024-token window in prefill, and its rings wrap in
 # decode; gemma2's 4200-token prompt passes its 4096-token window; phi3
 # takes the qwen serve's stream
+# each at full width cut to half its depth (since PR 29, for the whole
+# run's time limit): gemma3 24 of 48 layers (4 superblocks of 5 local + 1
+# global), gemma2 22 of 42, phi3 20 of 40
 FAMILY_RUNS = {
     "gemma3-12b": ["--batch", "4", "--requests", "6", "--prompt-lens",
                    "600,1100,1500", "--max-new", "16", "--max-seq-len",
-                   "1552", "--rate", "0", "--seed", "0"],
+                   "1552", "--rate", "0", "--seed", "0", "--layers", "24"],
     "gemma2-9b": ["--batch", "2", "--requests", "2", "--prompt-lens",
                   "256,4200", "--max-new", "16", "--max-seq-len", "4352",
-                  "--rate", "0", "--seed", "0"],
+                  "--rate", "0", "--seed", "0", "--layers", "22"],
     "phi3-medium-14b": ["--batch", "4", "--requests", "8", "--prompt-lens",
                         "32,64,128", "--max-new", "16", "--rate", "0",
-                        "--seed", "0"],
+                        "--seed", "0", "--layers", "20"],
 }
 
 
@@ -4131,16 +4193,21 @@ def families(torch):
 
 
 # ---------------------------------------------------------------------------
-# moe: granite-moe-3b at full width and depth, llama4-maverick at full width
-# cut to one superblock, and granite training cut in depth
+# moe: granite-moe-3b at full width cut in depth, llama4-maverick at full
+# width cut to one superblock, and granite training cut in depth
 # ---------------------------------------------------------------------------
 
 GRANITE, LLAMA4 = "granite-moe-3b-a800m", "llama4-maverick-400b-a17b"
+# granite served at full width cut to 16 of its 32 layers (since PR 29):
+# its layers are all alike (no path runs only past layer 16), and its
+# host-bound decode step (~10,500 launches at full depth) made the full
+# depth cost ~50 s of the whole run's 1200 s limit
+GRANITE_LAYERS = 16
 # granite's stream is the qwen serve's: every prompt fits one dropless
 # chunk (moe.DROPLESS_CHUNK_T = 128 tokens)
 GRANITE_ARGS = ["--arch", GRANITE, "--batch", "4", "--requests", "8",
                 "--prompt-lens", "32,64,128", "--max-new", "16", "--rate",
-                "0", "--seed", "0"]
+                "0", "--seed", "0", "--layers", str(GRANITE_LAYERS)]
 # llama4 cut to one superblock (a dense layer at d_ff 16384 and a MoE layer
 # of 128 experts and the shared expert: 18.7 B parameters, 37.4 GB bf16)
 LLAMA4_LAYERS, LLAMA4_REQUESTS, LLAMA4_MAX_NEW = 2, 4, 8
@@ -4665,11 +4732,14 @@ def moe(torch):
 # ---------------------------------------------------------------------------
 
 MAMBA2, HYMBA = "mamba2-2.7b", "hymba-1.5b"
+# both served at full width; mamba2 cut to 32 of its 64 layers (since
+# PR 29, for the whole run's time limit), hymba at full depth (two
+# superblocks: global layers 0 and 16)
 # mamba2's stream: prompts of 200-1100 tokens, 1 to 5 SSD chunks of 256
 # (each with a zero-padded tail), on 4 slots
 MAMBA2_ARGS = ["--arch", MAMBA2, "--batch", "4", "--requests", "8",
                "--prompt-lens", "200,500,800,1100", "--max-new", "16",
-               "--rate", "0", "--seed", "0"]
+               "--rate", "0", "--seed", "0", "--layers", "32"]
 # hymba's: 6 prompts of 1500-2600 tokens, past its 2048-token window, so
 # the local rings wrap in prefill and in decode
 HYMBA_ARGS = ["--arch", HYMBA, "--batch", "4", "--requests", "6",
@@ -5081,6 +5151,7 @@ def ssm(torch):
 
 WHISPER, PIXTRAL = "whisper-tiny", "pixtral-12b"
 # the driver's static waves: 8 requests in 2 waves of 4, 16 new tokens;
+# pixtral cut to 20 of its 40 layers (since PR 29, for the run's time);
 # whisper's decoder prompts of 32 and 64 tokens over 1500 stub frames,
 # pixtral's text prompts of 64 and 128 tokens after 256 stub patch rows
 # (a prefill of 320 and 384 rows)
@@ -5090,7 +5161,7 @@ FRONTEND_RUNS = {
               "--seed", "0"],
     PIXTRAL: ["--arch", PIXTRAL, "--batch", "4", "--requests", "8",
               "--prompt-lens", "64,128", "--max-new", "16", "--rate", "0",
-              "--seed", "0"],
+              "--seed", "0", "--layers", "20"],
 }
 FRONTEND_WAVES = 2
 # the attention shapes (H, KVH, hd): whisper g = 1 at hd 64, pixtral g = 4
@@ -5775,7 +5846,179 @@ def train(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: parallel — the training launcher under torchrun on one card
+# the kernels at the shapes a rank of the parallel_serve runs gives them
+# ---------------------------------------------------------------------------
+
+# (tag, arch, model axis, rank): the rank whose slice is checked (the last
+# one where phi3's padded heads sit)
+RANK_CASES = (("qwen 1x2 rank 1", "qwen2.5-14b", 2, 1),
+              ("qwen 1x4 rank 1", "qwen2.5-14b", 4, 1),
+              ("phi3 1x4 rank 3", "phi3-medium-14b", 4, 3))
+
+
+def check_rank_shapes(torch, timer):
+    """Each kernel of the tensor-parallel serve at a rank's shapes, held
+    against its plain version within `error_bound` and against the whole
+    (one-process) call bit for bit: the paged decode over the rank's KV
+    heads of the serve pool (qwen 4 and 2 of 8 at g = 5; phi3 3 of 12, its
+    10 heads padded with zero K/V and zero Q heads, g = 4); the prefill
+    over the rank's (padded) heads at the longest serve prompt; the SA
+    GEMM's column shards (wq, wk, wv, wg, wu, the lm_head at N / tp, M =
+    4) per column; the row shards' raw fp32 chain (`sa_dot_chain`, wo and
+    wd at K / tp on the decode tile). Returns (readings, the worst error
+    over its bound of each kernel, the largest error of each)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy, sa_dot_chain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_attention as fa
+    from repro_torch.kernels import sa_decode_attention as da
+    from repro_torch.kernels import sa_matmul as mm
+    from repro_torch.models.layers import padded_kvh
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    pol = PrecisionPolicy()
+    worst = {"decode": 0.0, "prefill": 0.0, "gemm": 0.0}
+    max_err = dict.fromkeys(worst, 0.0)
+    out = {}
+
+    def hold(kind, tag, got, ref, bnd, same):
+        ratio = float(((got - ref).abs() / bnd).max())
+        err = float((got - ref).abs().max())
+        if not torch.isfinite(got).all() or ratio > 1.0 or not same:
+            raise AssertionError(f"[rank shapes] {tag}: err/bound "
+                                 f"{ratio:.4f}, bits of the whole call "
+                                 f"{same}")
+        worst[kind] = max(worst[kind], ratio)
+        max_err[kind] = max(max_err[kind], err)
+        return ratio
+
+    def bits(a, b):
+        return torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+
+    P = -(-CACHE_LEN // PAGE)
+    n_pages = -(-BATCH * CACHE_LEN // PAGE) + 1
+    lens = [CACHE_LEN, 100, 40, 0]
+    T = max(PROMPT_LENS)
+    for tag, arch, tp, r in RANK_CASES:
+        cfg = get_config(arch)
+        kvh, hd = cfg.num_kv_heads, cfg.hd
+        grp = cfg.num_heads // kvh
+        pk = padded_kvh(kvh, tp)
+        lo, hi = r * pk // tp, (r + 1) * pk // tp
+        rd = {}
+        # paged decode over the rank's KV heads of the (padded) pool
+        q, k, v, pp, bt, pos = _paged_workload(torch, g, BATCH, pk, grp, hd,
+                                               PAGE, P, n_pages, lens)
+        k[:, :, kvh:] = v[:, :, kvh:] = 0.0
+        q[:, :, kvh * grp:] = 0.0
+        whole = ops.paged_decode_attention(q, k, v, pp, bt, pos, policy=pol)
+        qs = q[:, :, lo * grp:hi * grp].contiguous()
+        ks, vs = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
+        got = ops.paged_decode_attention(qs, ks, vs, pp, bt, pos, policy=pol)
+        ref = da.paged_decode_ref(qs, ks, vs, pp, bt, pos, policy=pol)
+        bnd = da.error_bound(qs, ks, vs, pp, bt, pos, policy=pol)
+        same = bits(got, whole[:, :, lo * grp:hi * grp])
+        if pk > kvh and whole[:, :, kvh * grp:].any():
+            same = False          # a padded head's output must be zeros
+        rd["decode"] = {
+            "kv_heads": f"{lo}:{hi} of {pk}", "g": grp,
+            "err_over_bound": hold("decode", f"{tag} decode", got, ref, bnd,
+                                   same),
+            "ms": timer.wall(lambda: ops.paged_decode_attention(
+                qs, ks, vs, pp, bt, pos, policy=pol)),
+            "n_split": da.split_plan(grp, hd, PAGE, P).n_split}
+        # prefill over the rank's (padded) heads of the longest prompt
+        qf = torch.randn((1, T, cfg.num_heads, hd), generator=g,
+                         device="cuda")
+        kf = torch.randn((1, T, kvh, hd), generator=g, device="cuda")
+        vf = torch.randn((1, T, kvh, hd), generator=g, device="cuda")
+        wf = ops.sa_attention(qf, kf, vf, policy=pol)
+        pad = torch.nn.functional.pad
+        extra = pk - kvh
+        qp = pad(qf, (0, 0, 0, extra * grp))
+        kp, vp = pad(kf, (0, 0, 0, extra)), pad(vf, (0, 0, 0, extra))
+        qs = qp[:, :, lo * grp:hi * grp].contiguous()
+        ks, vs = kp[:, :, lo:hi].contiguous(), vp[:, :, lo:hi].contiguous()
+        got = ops.sa_attention(qs, ks, vs, policy=pol)
+        ref = fa.flash_attention_ref(qs, ks, vs, policy=pol)
+        bnd = fa.error_bound(qs, ks, vs, policy=pol)
+        real = max(0, min(hi, kvh) - lo) * grp
+        same = bits(got[:, :, :real],
+                    wf[:, :, lo * grp:lo * grp + real]) and not bool(
+                        got[:, :, real:].any())
+        rd["prefill"] = {
+            "T": T, "err_over_bound": hold("prefill", f"{tag} prefill", got,
+                                           ref, bnd, same),
+            "ms": timer.wall(lambda: ops.sa_attention(qs, ks, vs,
+                                                      policy=pol))}
+        # the column shards at M = BATCH: each column the whole GEMM's bits
+        d, H, ff = cfg.d_model, cfg.num_heads, cfg.d_ff
+        cols = [("wq", H * hd, cfg.qkv_bias, "none"),
+                ("wk", kvh * hd, cfg.qkv_bias, "none"),
+                ("wv", kvh * hd, cfg.qkv_bias, "none"),
+                ("wg", ff, False, "silu"), ("wu", ff, False, "none"),
+                ("lm_head", cfg.padded_vocab, False, "none")]
+        a = torch.randn((BATCH, d), generator=g, device="cuda").to(
+            torch.bfloat16)
+        gem = {}
+        for name, n, has_bias, act in cols:
+            w = (torch.randn((d, n), generator=g, device="cuda")
+                 * d ** -0.5).to(torch.bfloat16)
+            b = (torch.randn((n,), generator=g, device="cuda") * 0.1
+                 if has_bias else None)
+            y = ops.sa_matmul(a, w, bias=b, act=act)
+            c0, c1 = r * n // tp, (r + 1) * n // tp
+            ws = w[:, c0:c1].contiguous()
+            bs = None if b is None else b[c0:c1].contiguous()
+            got = ops.sa_matmul(a, ws, bias=bs, act=act)
+            ref = mm.sa_matmul_ref(a, ws, bs, act=act)
+            bnd = mm.error_bound(a, ws, None, "exact", y=ref)
+            gem[name] = {"N": c1 - c0, "err_over_bound": hold(
+                "gemm", f"{tag} {name} columns {c0}:{c1}", got, ref, bnd,
+                bits(got, y[:, c0:c1])), "ms": timer.wall(
+                lambda: ops.sa_matmul(a, ws, bias=bs, act=act))}
+            del w, ws, y
+        # the row shards' partial chain at K / tp (wo, wd), N = d
+        for name, k_all in (("wo", H * hd), ("wd", ff)):
+            kk = k_all // tp
+            a = torch.randn((BATCH, kk), generator=g, device="cuda").to(
+                torch.bfloat16)
+            w = (torch.randn((kk, d), generator=g, device="cuda")
+                 * k_all ** -0.5).to(torch.bfloat16)
+            ops.reset_counts()
+            got = sa_dot_chain(a, w, PrecisionPolicy(backend="cuda"))
+            launched = ops.counts()["sa_matmul"]["launches"]
+            tile = mm.mma_plan(BATCH, d, "mma")["tile"]
+            ref = sa_dot_chain(a, w, PrecisionPolicy(backend="torch"))
+            bnd = mm.error_bound(a, w, y=ref)
+            gem[f"{name}_chain"] = {"K": kk, "tile": tile, "err_over_bound":
+                                    hold("gemm", f"{tag} {name} chain K "
+                                         f"{kk}", got, ref, bnd,
+                                         launched == 1 and got.dtype
+                                         == torch.float32
+                                         and tile == "decode"),
+                                    "ms": timer.wall(lambda: sa_dot_chain(
+                                        a, w, PrecisionPolicy(
+                                            backend="cuda")))}
+        rd["gemm"] = gem
+        out[tag] = rd
+        log(f"[rank shapes] {tag}: decode heads {rd['decode']['kv_heads']} "
+            f"g {grp}: err/bound {rd['decode']['err_over_bound']:.4f}, "
+            f"{rd['decode']['ms']:.4f} ms wall; prefill T {T} over "
+            f"{hi - lo} KV heads: err/bound "
+            f"{rd['prefill']['err_over_bound']:.4f}, "
+            f"{rd['prefill']['ms']:.4f} ms; GEMMs at M {BATCH} "
+            + ", ".join(f"{n_} {v_.get('N', v_.get('K'))}: "
+                        f"{v_['err_over_bound']:.4f} {v_['ms']:.4f} ms"
+                        for n_, v_ in gem.items())
+            + "; each column shard and rank head the whole call's bits")
+    return out, worst, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase 10: parallel — the training and serve launchers under torchrun on
+# one card
 # ---------------------------------------------------------------------------
 
 # (arch, layers, (data, model), accum): full width, the depth cut so that
@@ -5783,10 +6026,39 @@ def train(torch, card):
 # others; (2, 2) takes its rows in one microbatch, since a second one's
 # gradient transients (the vocabulary shards' dW and the lookup's dense
 # gradient, 1.46 GiB each a rank) do not fit four ranks beside each other
-PARALLEL_RUNS = (("qwen2.5-14b", TRAIN_LAYERS, (1, 2), TRAIN_ACCUM),
+PARALLEL_RUNS = (("qwen2.5-14b", 2, (1, 2), TRAIN_ACCUM),
                  ("qwen2.5-14b", 1, (2, 2), 1),
                  ("phi3-medium-14b", 2, (1, 4), TRAIN_ACCUM))
 PARALLEL_STEPS = 3
+
+# the serve runs (serving under tensor parallelism), each in the torchrun
+# world of a training run above, after its steps, on weights of their own
+# drawn from the serve seed (a world's start is the dearest part of a short
+# run): qwen2.5-14b at full width and depth on the serve stream at (1, 2),
+# paged; the serve stream on one nccl rank at (1, 1); phi3-medium-14b at
+# full width cut to PSERVE_PHI3_LAYERS at (1, 4) (its 10 KV heads padded to
+# 12), paged, `--kv ring` and `--disagg`: one digest
+PSERVE_PHI3_LAYERS = 4
+PHI3_SERVE_ARGS = ["--arch", "phi3-medium-14b"] + SERVE_ARGS[2:]
+PSERVE_WORLDS = {
+    (1, 2): ("qwen", SERVE_ARGS + ["--model-parallel", "2"],
+             {"paged": []}),
+    (1, 1): ("nccl", SERVE_ARGS + ["--model-parallel", "1"],
+             {"paged": []}),
+    (1, 4): ("phi3", PHI3_SERVE_ARGS + [
+        "--layers", str(PSERVE_PHI3_LAYERS), "--model-parallel", "4"],
+        {"paged": [], "ring": ["--kv", "ring"],
+         "disagg": ["--disagg", "--prefill-workers", "2"]})}
+# ROADMAP R1's rule for a stream against the one-process stream: each
+# request's prefill logits within 2^-5 max|logit|, its tokens equal up to
+# the first position where the one-process top-two margin is below twice
+# that bound (the row-parallel sums add fp32 in another order, and the
+# bf16 residual stream turns that into bf16 flips)
+PSERVE_REL = 2.0 ** -5
+PSERVE_KEYS = ("requests", "generated_tokens", "pages_leaked",
+               "nonfinite_logits", "decode_itl_p50_ms", "ttft_mean_s",
+               "prefill_s", "decode_s", "wall_s", "decode_tok_s", "disagg",
+               "kv_layout", "stream_digest")
 
 
 def _parallel_reference(torch, cfg, accum):
@@ -5812,37 +6084,79 @@ def _parallel_reference(torch, cfg, accum):
     return loss, host
 
 
-def _parallel_run(torch, arch, layers, shape, accum, ref_loss, ref):
-    """`python -m repro_torch.launch.train` under torchrun, data x model
-    ranks on the one card, PARALLEL_STEPS steps under `cuda` with the
-    first step's gradients written (`--grads-out`) where `ref` is given.
-    Returns (readings, problems): the backend line, each step's loss,
-    each rank's peak memory, step times (the first's includes writing the
-    gradients) and SA GEMM launches, and step 0 against the one-process
-    reference (its loss alone where `ref` is None)."""
-    from repro_torch.launch.train import read_grads
+def _torchrun_env():
+    root = os.path.dirname(os.path.abspath(__file__))
+    # four ranks' states share the card: the caching allocator grows its
+    # segments rather than strand memory between them
+    return dict(os.environ, REPRO_GEMM_BACKEND="cuda",
+                PYTHONPATH=os.path.join(root, "src"),
+                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
 
+
+def _parallel_start(arch, layers, shape, accum, grads: bool):
+    """Start `launch.train` under torchrun, data x model ranks on the one
+    card, PARALLEL_STEPS steps under `cuda`, the first step's gradients
+    written (`--grads-out`) where `grads`; in a world that PSERVE_WORLDS
+    names, this script's rank program (`--serve-ranks`) runs the
+    trainer's `main` and then that world's serve runs. Returns the run's
+    handle for `_parallel_finish` (its output goes to files, so worlds can
+    run side by side)."""
     dp, mp = shape
     n = dp * mp
     root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(root, "build", f"parallel_grads_{dp}x{mp}")
     shutil.rmtree(out, ignore_errors=True)
+    train = ["--arch", arch, "--layers", str(layers), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum",
+             str(accum), "--steps", str(PARALLEL_STEPS), "--seed", "0",
+             "--model-parallel", str(mp)] + (["--grads-out", out] if grads
+                                             else [])
+    serve = PSERVE_WORLDS.get(shape)
+    sdir = os.path.join(root, "build", f"pserve_{dp}x{mp}")
+    shutil.rmtree(sdir, ignore_errors=True)
+    os.makedirs(sdir)
+    if serve is None:
+        args = ["-m", "repro_torch.launch.train"] + train
+    else:
+        spec = os.path.join(sdir, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"train": train, "argv": serve[1], "runs": serve[2],
+                       "out": sdir, "prefill": serve[0] != "nccl"}, f)
+        args = [os.path.abspath(__file__), "--serve-ranks", spec]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(n), "-m", "repro_torch.launch.train",
-           "--arch", arch, "--layers", str(layers), "--batch",
-           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum",
-           str(accum), "--steps", str(PARALLEL_STEPS), "--seed", "0",
-           "--model-parallel", str(mp)] + (["--grads-out", out] if ref
-                                           else [])
-    # four ranks' states share the card: the caching allocator grows its
-    # segments rather than strand memory between them
-    env = dict(os.environ, REPRO_GEMM_BACKEND="cuda",
-               PYTHONPATH=os.path.join(root, "src"),
-               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    t0 = time.monotonic()
-    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                         timeout=900)
-    wall = time.monotonic() - t0
+           "--nproc-per-node", str(n)] + args
+    with open(os.path.join(sdir, "stdout"), "w") as fo, \
+            open(os.path.join(sdir, "stderr"), "w") as fe:
+        proc = subprocess.Popen(cmd, stdout=fo, stderr=fe,
+                                env=_torchrun_env())
+    return types.SimpleNamespace(
+        arch=arch, layers=layers, shape=shape, accum=accum, out=out,
+        serve=serve, sdir=sdir, proc=proc, t0=time.monotonic())
+
+
+def _parallel_finish(torch, h, ref_loss, ref):
+    """Wait for a `_parallel_start` run and check it. Returns (readings,
+    the serve results or None, problems): the backend line, each step's
+    loss, each rank's peak memory, step times (the first's includes
+    writing the gradients) and SA GEMM launches, and step 0 against the
+    one-process reference (its loss alone where `ref` is None)."""
+    from repro_torch.launch.train import read_grads
+
+    arch, layers, shape, accum = h.arch, h.layers, h.shape, h.accum
+    out, serve, sdir = h.out, h.serve, h.sdir
+    dp, mp = shape
+    n = dp * mp
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        h.proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        h.proc.kill()
+        h.proc.wait()
+    wall = time.monotonic() - h.t0
+    res = types.SimpleNamespace(returncode=h.proc.returncode)
+    with open(os.path.join(sdir, "stdout")) as fo, \
+            open(os.path.join(sdir, "stderr")) as fe:
+        res.stdout, res.stderr = fo.read(), fe.read()
     lines = res.stdout.splitlines()
     tag = f"[parallel {arch} {layers}L {dp}x{mp} accum {accum}]"
     problems = []
@@ -5856,14 +6170,17 @@ def _parallel_run(torch, arch, layers, shape, accum, ref_loss, ref):
         with open(os.path.join(root, "build", f"parallel_{dp}x{mp}.err"),
                   "w") as f:
             f.write(res.stderr)
-        return {}, [f"{tag} exit code {res.returncode}"]
+        return {}, None, [f"{tag} exit code {res.returncode}"]
     want = "nccl" if n == 1 else "gloo"
     first = lines[0] if lines else ""
     if not first.startswith(f"[mesh] backend={want} world={n} data={dp} "
                             f"model={mp} device=cuda"):
         problems.append(f"{tag} first line {first!r}")
     steps = [json.loads(ln) for ln in lines if ln.startswith("{")]
-    ranks = [_summary_fields(ln) for ln in lines if ln.startswith("[rank ")]
+    # the trainer's rank lines (the serve driver's carry a digest)
+    rank_lines = [ln for ln in lines if ln.startswith("[rank ")
+                  and " step_s=" in ln]
+    ranks = [_summary_fields(ln) for ln in rank_lines]
     if (len(steps) != PARALLEL_STEPS
             or not all(math.isfinite(st["loss"]) for st in steps)):
         problems.append(f"{tag} steps {steps}")
@@ -5901,6 +6218,9 @@ def _parallel_run(torch, arch, layers, shape, accum, ref_loss, ref):
                               1e-30))
         del got, want_g
     shutil.rmtree(out, ignore_errors=True)
+    # the comparison's blocks back to the card: the next worlds need it
+    gc.collect()
+    torch.cuda.empty_cache()
     if ref:
         del rel["loss only"]
     worst = max(rel, key=rel.get)
@@ -5917,14 +6237,159 @@ def _parallel_run(torch, arch, layers, shape, accum, ref_loss, ref):
         "step_s": [r["step_s"] for r in ranks],
         "sa_matmul_launches": [r["sa_matmul_launches"] for r in ranks]}
     log(f"{tag} backend {readings['backend']}, wall {wall:.1f} s (start, "
-        f"init, {PARALLEL_STEPS} steps, gradients out); losses "
+        f"init, {PARALLEL_STEPS} steps, gradients out"
+        + (", then the serve runs" if serve else "") + "); losses "
         f"{readings['losses']}; step 0 against the one-process step: loss "
         f"rel {loss_rel:.3e} (bound {TRAIN_LOSS_REL:.3e}), {len(rel)} "
         f"leaves, max rel {rel[worst]:.3e} at {worst} (bound "
         f"{TRAIN_GRAD_REL:.3e})")
-    for r in [ln for ln in lines if ln.startswith("[rank ")]:
+    for r in rank_lines:
         log(f"{tag} {r}")
-    return readings, problems
+    served = None
+    if serve is not None:
+        served, p = _served(torch, serve[0], n, serve[2], sdir, lines, wall)
+        problems += p
+    shutil.rmtree(sdir, ignore_errors=True)
+    return readings, served, problems
+
+
+def serve_ranks(spec_path: str) -> int:
+    """The rank program of a parallel world that also serves
+    (`chip_smoke.py --serve-ranks SPEC` under torchrun): the trainer's
+    `launch.train.main` on the spec's `train` arguments, its state freed,
+    then `launch.serve.main` once a run of the spec on this world's mesh,
+    the first drawing this rank's shards from the serve seed and the
+    others serving the same shards; each run's summary, streams, prompts,
+    launches (`ops.counts()` from 0 just before it) and peak memory to
+    `rank<r>.json`, and (where the spec asks) the first run's prefill
+    logits of each prompt to `prefill.pt` (rank 0)."""
+    import torch
+    import torch.distributed as dist
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+    from repro_torch.launch import train as trn
+    from repro_torch.parallel import sharding as S
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    cuda = torch.cuda.is_available()    # the CPU: a rehearsal
+    trn.main(spec["train"])
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    params, out = None, {}
+    for i, (name, extra) in enumerate(spec["runs"].items()):
+        ops.reset_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        summary, sched, engine = drv.main(spec["argv"] + extra,
+                                          return_state=True, params=params)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        params = engine.params
+        c = ops.counts()
+        done = sorted(sched.finished, key=lambda r: r.rid)
+        out[name] = {
+            "wall_s": wall, "summary": {k: summary.get(k)
+                                        for k in PSERVE_KEYS},
+            "launches": {k: v["launches"] for k, v in c.items()},
+            "plain_calls": sum(v["plain_calls"] for v in c.values()),
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if cuda else None),
+            "streams": [list(map(int, r.tokens)) for r in done],
+            "prompts": [list(map(int, r.prompt)) for r in done]}
+        if i == 0 and spec["prefill"]:
+            rows = []
+            with S.using_mesh(engine.mesh):
+                for p in out[name]["prompts"]:
+                    toks = torch.tensor([p], dtype=torch.int32,
+                                        device=engine.device)
+                    logits, _ = engine._prefill_for(0)(
+                        engine.params, toks, engine.new_frag(len(p)))
+                    rows.append(logits[0, -1].float().cpu())
+            if dist.get_rank() == 0:
+                torch.save(torch.stack(rows),
+                           os.path.join(spec["out"], "prefill.pt"))
+        del engine, sched
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    with open(os.path.join(spec["out"], f"rank{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _served(torch, key, n, runs, sdir, lines, wall):
+    """A world's serve runs from its ranks' files and lines: every rank
+    one digest a run, the runs one digest, no plain call, each kernel
+    launched, the serve driver's mesh line (and on one nccl rank its
+    summary and rank line). Returns (the results, problems); the streams
+    are held to the one-process ones after the serve phase
+    (`parallel_serve_check`)."""
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(sdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    pre = os.path.join(sdir, "prefill.pt")
+    prefill = torch.load(pre) if os.path.exists(pre) else None
+    shutil.rmtree(sdir, ignore_errors=True)
+    tag = f"[parallel_serve {key} 1x{n}]"
+    problems = []
+    backend = "nccl" if n == 1 else "gloo"
+    mesh = [ln for ln in lines if ln.startswith("[mesh]")]
+    if len(mesh) != 1 + len(runs) or any(
+            not ln.startswith(f"[mesh] backend={backend} world={n} data=1 "
+                              f"model={n} device=cuda") for ln in mesh):
+        problems.append(f"{tag} mesh lines {mesh}")
+    for run in runs:
+        digests = {r[run]["summary"]["stream_digest"] for r in ranks}
+        if len(digests) != 1:
+            problems.append(f"{tag} {run}: the ranks' digests {digests}")
+        for r, got in enumerate(ranks):
+            c = got[run]
+            if c["plain_calls"] or any(
+                    c["launches"][k] <= 0 for k in (
+                        "sa_matmul", "paged_decode", "prefill_attention")):
+                problems.append(f"{tag} {run} rank {r}: launches "
+                                f"{c['launches']}, plain calls "
+                                f"{c['plain_calls']}")
+        s = ranks[0][run]["summary"]
+        if (s["pages_leaked"] not in (0, None) or s["nonfinite_logits"]
+                or s["generated_tokens"] != 8 * MAX_NEW):
+            problems.append(f"{tag} {run}: {s}")
+        log(f"{tag} {run}: digest {digests}, wall "
+            f"{ranks[0][run]['wall_s']:.1f} s (init + serve), ITL p50 "
+            f"{s['decode_itl_p50_ms']} ms, TTFT mean {s['ttft_mean_s']} s, "
+            f"prefill_s {s['prefill_s']}, decode_tok_s "
+            f"{s['decode_tok_s']}; per rank: peak "
+            f"{[r[run]['peak_gib'] and round(r[run]['peak_gib'], 3) for r in ranks]} GiB, "
+            f"launches {[r[run]['launches'] for r in ranks]}")
+    d = {run: ranks[0][run]["summary"]["stream_digest"] for run in runs}
+    if len(set(d.values())) != 1:
+        problems.append(f"{tag} the runs' digests {d}")
+    out = {"ranks": ranks, "prefill": prefill, "wall_s": wall}
+    if key == "nccl":
+        # the serve driver's own lines on one rank
+        summ = [_summary_fields(ln) for ln in lines
+                if ln.startswith("[continuous] ")]
+        rank = [_summary_fields(ln) for ln in lines
+                if ln.startswith("[rank ") and " stream_digest=" in ln]
+        if len(summ) != 1 or len(rank) != 1:
+            problems.append(f"{tag} {len(summ)} summary and {len(rank)} "
+                            f"rank lines")
+        else:
+            log(f"{tag} digest {summ[0]['stream_digest']}, ITL p50 "
+                f"{summ[0].get('decode_itl_p50_ms')} ms; {rank[0]}")
+            out |= {"summary": summ[0], "rank": rank[0]}
+    return out, problems
 
 
 def parallel(torch, card):
@@ -5932,33 +6397,198 @@ def parallel(torch, card):
     in this process (its memory freed after), then the launcher under
     torchrun on the mesh, the ranks sharing the card over gloo; after the
     (2, 2) run, its model on one rank under nccl (`--model-parallel 1`,
-    step 0's loss against the same reference). Returns the readings;
-    raises on any problem."""
+    step 0's loss against the same reference). The worlds PSERVE_WORLDS
+    names serve after their steps. Worlds run beside the next
+    references, and the nccl rank beside the (1, 4) world, where the card
+    holds both. Returns (the training readings, the serve results by
+    key); raises on any problem."""
     from repro_torch.configs import get_config
 
     os.environ["REPRO_GEMM_BACKEND"] = "cuda"
-    out, problems = {}, []
+    out, served, problems = {}, {}, []
     gib = 2 ** 30
     log(f"[parallel] this process holds "
         f"{torch.cuda.memory_allocated() / gib:.2f} GiB "
         f"({torch.cuda.memory_reserved() / gib:.2f} reserved) of the card")
-    for arch, layers, shape, accum in PARALLEL_RUNS:
+    refs = {}
+
+    def reference(i):
+        arch, layers, _, accum = PARALLEL_RUNS[i]
         cfg = dataclasses.replace(get_config(arch), num_layers=layers)
         t = time.monotonic()
-        ref_loss, ref = _parallel_reference(torch, cfg, accum)
+        refs[i] = _parallel_reference(torch, cfg, accum)
         log(f"[parallel {arch} {layers}L] one-process step 0: loss "
-            f"{ref_loss:.6f} in {time.monotonic() - t:.1f} s")
-        runs = [shape] + ([(1, 1)] if shape == (2, 2) else [])
-        for sh in runs:
-            r, p = _parallel_run(torch, arch, layers, sh, accum, ref_loss,
-                                 ref if sh != (1, 1) else None)
-            out[f"{arch}_{layers}L_{sh[0]}x{sh[1]}"] = r
-            problems += p
-        del ref
-        gc.collect()
+            f"{refs[i][0]:.6f} in {time.monotonic() - t:.1f} s")
+
+    def start(i, shape=None):
+        arch, layers, sh, accum = PARALLEL_RUNS[i]
+        return _parallel_start(arch, layers, shape or sh, accum,
+                               grads=shape is None)
+
+    def finish(i, h):
+        r, s, p = _parallel_finish(torch, h, refs[i][0],
+                                   refs[i][1] if h.shape != (1, 1)
+                                   else None)
+        arch, layers = PARALLEL_RUNS[i][:2]
+        out[f"{arch}_{layers}L_{h.shape[0]}x{h.shape[1]}"] = r
+        if s is not None:
+            served[PSERVE_WORLDS[h.shape][0]] = s
+        problems.extend(p)
+
+    # the card holds at once: the (1, 2) world (2 x 19.2 GiB) beside the
+    # other two references (at most ~20 GiB, in this process, while it
+    # runs); the (2, 2) world alone (4 x 15.3 GiB); the nccl rank (30.5
+    # GiB) beside the (1, 4) world (4 x 8.0 GiB)
+    reference(0)
+    h = start(0)
+    reference(1)
+    reference(2)
+    finish(0, h)
+    finish(1, start(1))
+    h11, h14 = start(1, (1, 1)), start(2)
+    finish(1, h11)
+    finish(2, h14)
+    refs.clear()
+    gc.collect()
     log(f"[parallel] {card}")
     if problems:
         raise AssertionError("parallel phase failed: " + "; ".join(problems))
+    return out, served
+
+
+def _r1_hold(torch, engine, ref, tag, ranks, prefill, run):
+    """A tensor-parallel run's streams and prefill logits against the
+    one-process `engine` and its streams `ref` (rid order) on the same
+    prompts by R1's rule
+    (`PSERVE_REL`); returns (tokens equal, tokens, the worst prefill
+    error over its bound). A stream that parts from the one-process one
+    must part at or after a position whose one-process top-two margin
+    (a full forward over the prompt and the one-process tokens) is below
+    twice the bound."""
+    from repro_torch.models import model as M
+
+    got = ranks[0][run]
+    equal = total = 0
+    worst = 0.0
+    problems = []
+    for i, (prompt, toks) in enumerate(zip(got["prompts"], got["streams"])):
+        if prompt != ref[i][0]:
+            problems.append(f"{tag} {run} request {i}: another prompt")
+            continue
+        ref_toks = ref[i][1]
+        t = torch.tensor([prompt], dtype=torch.int32, device=engine.device)
+        logits, _ = engine._prefill_for(0)(engine.params, t,
+                                           engine.new_frag(len(prompt)))
+        one = logits[0, -1, :engine.cfg.vocab_size].float()
+        tp = prefill[i][:engine.cfg.vocab_size].to(engine.device)
+        bound = PSERVE_REL * float(one.abs().max())
+        worst = max(worst, float((tp - one).abs().max()) / bound)
+        same = [a == b for a, b in zip(toks, ref_toks)]
+        equal += sum(same)
+        total += len(ref_toks)
+        if all(same) and len(toks) == len(ref_toks):
+            continue
+        j = same.index(False) if False in same else len(same)
+        seq = torch.tensor([prompt + ref_toks[:-1]], dtype=torch.int32,
+                           device=engine.device)
+        full, _, _ = M.forward(engine.params, engine.cfg, seq)
+        rows = full[0, len(prompt) - 1:, :engine.cfg.vocab_size].float()
+        top2 = rows.topk(2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1]).tolist()
+        if min(margins[:j + 1]) >= 2 * bound:
+            problems.append(f"{tag} {run} request {i} parts at token {j} "
+                            f"with every margin up to it above "
+                            f"{2 * bound:.4f}: {margins[:j + 1]}")
+        del full
+    if worst > 1.0:
+        problems.append(f"{tag} {run} prefill logits {worst:.3f} of the "
+                        f"bound")
+    return equal, total, worst, problems
+
+
+def parallel_serve_check(torch, engine, serve_summary, serve_sched,
+                         serve_launches, ps):
+    """The parallel worlds' serve runs against the one-process streams:
+    qwen's at (1, 2) against the serve phase's stream (R1's rule), its
+    launches on every rank equal to the serve phase's (the same GEMMs on
+    shards); the nccl rank's digest equal to the serve phase's bit for
+    bit, its launches too; phi3's three at (1, 4) against its one-process
+    stream at the same depth, served here, the paged run's launches on
+    each rank equal to that run's. Returns the readings; raises on any
+    problem."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+
+    problems, out = [], {}
+
+    def streams(sched):
+        return [(list(map(int, r.prompt)), list(map(int, r.tokens)))
+                for r in sorted(sched.finished, key=lambda r: r.rid)]
+
+    q = ps["qwen"]
+    for run in q["ranks"][0]:
+        eq, n, worst, p = _r1_hold(torch, engine, streams(serve_sched),
+                                   "[parallel_serve qwen]", q["ranks"],
+                                   q["prefill"], run)
+        problems += p
+        out[f"qwen_{run}"] = {"equal_tokens": f"{eq}/{n}",
+                              "prefill_err_over_bound": worst}
+        log(f"[parallel_serve qwen 1x2] {run} against the serve phase: "
+            f"{eq} of {n} tokens equal, prefill logits {worst:.4f} of the "
+            f"bound (R1)")
+    for r, got in enumerate(q["ranks"]):
+        mine = {k: got["paged"]["launches"][k] for k in (
+            "sa_matmul", "paged_decode", "prefill_attention")}
+        want = {k: serve_launches[k] for k in mine}
+        if mine != want:
+            problems.append(f"[parallel_serve qwen 1x2] rank {r} launches "
+                            f"{mine} against the one-process {want}")
+    nccl = ps["nccl"]
+    if nccl["summary"]["stream_digest"] != serve_summary["stream_digest"]:
+        problems.append(f"[parallel_serve nccl] digest "
+                        f"{nccl['summary']['stream_digest']} against "
+                        f"{serve_summary['stream_digest']}")
+    mine = {"sa_matmul": int(nccl["rank"]["sa_matmul_launches"]),
+            "paged_decode": int(nccl["rank"]["decode_attn_launches"]),
+            "prefill_attention": int(nccl["rank"]["prefill_attn_launches"])}
+    if mine != {k: serve_launches[k] for k in mine} or int(
+            nccl["rank"]["plain_calls"]):
+        problems.append(f"[parallel_serve nccl] launches {nccl['rank']} "
+                        f"against {serve_launches}")
+    log(f"[parallel_serve qwen 1x1 nccl] digest "
+        f"{nccl['summary']['stream_digest']}, the serve phase's "
+        f"{serve_summary['stream_digest']}")
+    # phi3: its one-process stream at the same depth, and its launches
+    # (unaligned, padded: still the same GEMMs on shards)
+    ops.reset_counts()
+    summary, sched, ph = drv.main(PHI3_SERVE_ARGS + [
+        "--layers", str(PSERVE_PHI3_LAYERS)], return_state=True)
+    one = {k: v["launches"] for k, v in ops.counts().items()}
+    p = ps["phi3"]
+    for r, got in enumerate(p["ranks"]):
+        mine = {k: got["paged"]["launches"][k] for k in (
+            "sa_matmul", "paged_decode", "prefill_attention")}
+        if mine != {k: one[k] for k in mine}:
+            problems.append(f"[parallel_serve phi3 1x4] rank {r} launches "
+                            f"{mine} against the one-process {one}")
+    for run in p["ranks"][0]:
+        eq, n, worst, pr = _r1_hold(torch, ph, streams(sched),
+                                    "[parallel_serve phi3]", p["ranks"],
+                                    p["prefill"], run)
+        problems += pr
+        out[f"phi3_{run}"] = {"equal_tokens": f"{eq}/{n}",
+                              "prefill_err_over_bound": worst,
+                              "one_process_digest": summary["stream_digest"]}
+        log(f"[parallel_serve phi3 {PSERVE_PHI3_LAYERS}L 1x4] {run} against "
+            f"its one-process stream (digest {summary['stream_digest']}, "
+            f"ITL p50 {summary.get('decode_itl_p50_ms')} ms): {eq} of {n} "
+            f"tokens equal, prefill logits {worst:.4f} of the bound (R1)")
+    del ph, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("parallel_serve check failed: "
+                             + "; ".join(problems))
     return out
 
 
@@ -5989,7 +6619,10 @@ def main(argv=None):
     ap.add_argument("--log", default=None,
                     help="also write every logged line to this file (the "
                          "end of the output may be all a caller keeps)")
+    ap.add_argument("--serve-ranks", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.serve_ranks:    # a rank of the parallel_serve phase's torchrun
+        return serve_ranks(args.serve_ranks)
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "src", "repro_torch")):
         print("chip_smoke: src/repro_torch is missing beside this script",
@@ -6131,6 +6764,15 @@ def main(argv=None):
     fp32 = fp32_gemm_times(torch, timer,
                            torch.Generator(device="cuda").manual_seed(3))
     kernels[0]["readings"]["fp32_policy_ms"] = fp32
+    # the shapes a rank of the tensor-parallel serve gives the kernels
+    ranks, w_rank, e_rank = check_rank_shapes(torch, timer)
+    for k_, kind in ((0, "gemm"), (2, "decode"), (3, "prefill")):
+        kernels[k_]["readings"]["rank_shapes"] = {
+            tag: r[kind] for tag, r in ranks.items()}
+        kernels[k_]["err_over_bound"] = max(kernels[k_]["err_over_bound"],
+                                            w_rank[kind])
+        kernels[k_]["max_abs_err"] = max(kernels[k_]["max_abs_err"],
+                                         e_rank[kind])
     log("[fold] sa_matmul fp32 x fp32 (the fp32 policy's routes): " + ", ".join(
         f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
         for k_, v in fp32.items()))
@@ -6149,14 +6791,40 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
         t = time.monotonic()
-        kernels[0]["readings"]["parallel"] = parallel(torch, card)
+        kernels[0]["readings"]["parallel"], pserve = parallel(torch, card)
         phases["parallel"] = time.monotonic() - t
+        gc.collect()
+        torch.cuda.empty_cache()
         t = time.monotonic()
         summary, got, engine, sched = serve(torch)
         launches.update(sa_matmul=got["sa_matmul"],
                         paged_decode_attention=got["paged_decode"],
                         prefill_attention=got["prefill_attention"])
         phases["serve"] = time.monotonic() - t
+        t = time.monotonic()
+        held = parallel_serve_check(torch, engine, summary, sched, got,
+                                    pserve)
+        # rows 1-3: each rank's launches in the tensor-parallel runs
+        for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                         (3, "prefill_attention")):
+            kernels[k_]["readings"]["parallel_serve_launches"] = {
+                f"{key}_{run}": [r[run]["launches"][name]
+                                 for r in pserve[key]["ranks"]]
+                for key in ("qwen", "phi3")
+                for run in pserve[key]["ranks"][0]} | {
+                "nccl": pserve["nccl"]["rank"][{
+                    "sa_matmul": "sa_matmul_launches",
+                    "paged_decode": "decode_attn_launches",
+                    "prefill_attention": "prefill_attn_launches"}[name]]}
+        log("[parallel_serve] " + json.dumps({
+            f"{key}_{run}": held.get(f"{key}_{run}", {}) | {
+                k: pserve[key]["ranks"][0][run]["summary"][k]
+                for k in ("decode_itl_p50_ms", "ttft_mean_s", "prefill_s",
+                          "wall_s")}
+            for key in ("qwen", "phi3", "nccl")
+            for run in pserve[key]["ranks"][0]}))
+        log(f"[parallel_serve] {card}")
+        phases["parallel_serve_check"] = time.monotonic() - t
         t = time.monotonic()
         serve_bf16_pool(torch, engine, summary)
         phases["serve_bf16_pool"] = time.monotonic() - t
@@ -6209,19 +6877,19 @@ def main(argv=None):
         gc.collect()
         torch.cuda.empty_cache()
 
+        # the second process and the four examples side by side (each is
+        # a process of its own, this one waits)
         t = time.monotonic()
-        tuned["second_process"] = autotune_second_process(torch, tuned)
+        tuned["second_process"], ex_out = autotune_second_process(
+            torch, tuned, during=lambda: examples(torch))
         for k_, kind in ((0, "gemm"), (2, "decode_attn")):
             kernels[k_]["readings"]["autotune"] = {
                 run: {key: (v if key != "sweeps" else
                             [s for s in v if s["kind"] == kind])
                       for key, v in r.items()}
                 for run, r in tuned.items()}
-        phases["autotune_second_process"] = time.monotonic() - t
-        t = time.monotonic()
-        ex_out = examples(torch)
         kernels[0]["readings"]["examples"] = ex_out
-        phases["examples"] = time.monotonic() - t
+        phases["autotune_second_process+examples"] = time.monotonic() - t
         gc.collect()
         torch.cuda.empty_cache()
 

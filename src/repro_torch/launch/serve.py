@@ -64,12 +64,38 @@ feeds decode admissions; the summary gains `ready_depth_p50`, and the
 digest is the unified run's. `--decode-replicas N` routes the stream up
 front to N engine replicas (`serve_replicas`), which serve one after
 another on the same weights; the `[replicas xN]` line aggregates them.
+
+Under torchrun (or any launcher that sets the torch.distributed
+environment) the world becomes a ("data", "model") mesh with
+`--model-parallel` ranks innermost (`parallel.mesh.make_host_mesh`, as
+the train driver builds it), and the dense family serves tensor-parallel
+on the `model` axis:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch qwen2.5-14b --reduced --device cpu --model-parallel 2 \
+        --batch 2 --requests 4 --max-new 8 --prompt-lens 6,10 --rate 0
+
+Every rank draws its shards of the `--seed` weights (`init_params(...,
+mesh=)`: the one-process model), its caches hold its KV heads (padded
+to a multiple of the axis where it does not divide them), and every
+rank runs the same host loop on rank 0's clock. Rank 0 prints the
+`[mesh] backend=... world=... data=... model=... device=...` line first
+and the summary lines; every rank ends with one line `[rank r]
+stream_digest=... peak_mem_gib=... sa_matmul_launches=...
+decode_attn_launches=... prefill_attn_launches=... plain_calls=...`.
+Refused under a mesh: a `data` axis above 1 (the pool's pages would
+shard over it), `--model-parallel` N > 1 without a launcher, the MoE,
+SSM, hybrid, audio and VLM archs under TP (`model.check_parallel`),
+`--decode-replicas`, `--autotune-decode` and `--spec-warmup`. `--layers
+N` cuts the config's depth (a full-width model cut in depth).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
+import io
 
 import numpy as np
 import torch
@@ -508,7 +534,49 @@ def parse_args(argv=None):
                          "decode's cluster size before the first chunk "
                          "(kernels/autotune.py; the card only)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks of the mesh's model axis (tensor "
+                         "parallelism; launch with torchrun)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
     return ap.parse_args(argv)
+
+
+def _serve_mesh(args, cfg, device):
+    """The ("data", "model") mesh of the launched world (None for one
+    process that no launcher started), after the refusals of serving
+    under it. Returns (mesh, this rank's device)."""
+    from repro_torch.parallel import mesh as PM
+
+    mesh = PM.make_host_mesh(args.model_parallel, device)
+    if mesh is None:
+        return None, device
+    dp, mp = mesh.shape
+    M.check_parallel(cfg, mp, dp, serving=True)
+    for flag, on in (("--decode-replicas", args.decode_replicas > 1),
+                     ("--autotune-decode", args.autotune_decode),
+                     ("--spec-warmup", args.spec_warmup > 0)):
+        if on:
+            raise ValueError(f"{flag} is not ported under a mesh")
+    return mesh, PM.rank_device(device)
+
+
+def rank_line(summary, device) -> str:
+    """This rank's closing line: its digest, peak memory and each served
+    kernel's launches (`ops.counts()`, this process's)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+
+    c = ops.counts()
+    peak = (f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f}"
+            if device.type == "cuda" else "n/a")
+    return (f"[rank {dist.get_rank()}] stream_digest="
+            f"{summary.get('stream_digest')} peak_mem_gib={peak} "
+            f"sa_matmul_launches={c['sa_matmul']['launches']} "
+            f"decode_attn_launches={c['paged_decode']['launches']} "
+            f"prefill_attn_launches={c['prefill_attention']['launches']} "
+            f"plain_calls={sum(v['plain_calls'] for v in c.values())}")
 
 
 def main(argv=None, *, return_state: bool = False, params=None):
@@ -517,7 +585,11 @@ def main(argv=None, *, return_state: bool = False, params=None):
     `--decode-replicas` N > 1, (aggregate summary, the N schedulers); for
     a frontend arch (static waves), (summary, the waves' tokens, engine).
     `params` serves given weights (on the run's device) instead of
-    drawing them from `--seed`."""
+    drawing them from `--seed`; under a mesh they are this rank's shards
+    (`parallel.sharding.shard_tree` by `param_specs`)."""
+    from repro_torch.launch.train import say, _mesh_line
+    from repro_torch.parallel import sharding as S
+
     args = parse_args(argv)
     device = resolve_device(args.device)
     if args.autotune_decode and device.type != "cuda":
@@ -528,6 +600,28 @@ def main(argv=None, *, return_state: bool = False, params=None):
                           layers_per_period=args.layers_per_period,
                           width=args.width)
            if args.reduced else get_config(args.arch))
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    mesh, device = _serve_mesh(args, cfg, device)
+    if mesh is None:
+        return _serve(args, cfg, device, params, return_state)
+    import torch.distributed as dist
+
+    lead = dist.get_rank() == 0
+    if lead:
+        say(_mesh_line(mesh, device))
+    if params is None:
+        params = M.init_params(cfg, seed=args.seed, device=device, mesh=mesh)
+    # the lead rank prints the run's lines; every rank its closing line
+    out = contextlib.nullcontext() if lead else contextlib.redirect_stdout(
+        io.StringIO())
+    with S.using_mesh(mesh), out:
+        state = _serve(args, cfg, device, params, True)
+    say(rank_line(state[0], device))
+    return state if return_state else state[0]
+
+
+def _serve(args, cfg, device, params, return_state: bool):
     if params is None and args.spec_warmup > 0:
         params = spec_warmup_train(
             cfg, M.init_params(cfg, seed=args.seed, device=device,

@@ -7,8 +7,9 @@ the given tensors and returns the same cache object. Each such write says
 so in a comment.
 
 Under a mesh whose `model` axis has more than one rank
-(`parallel.sharding.set_active_mesh`), the training path's attention and
-FFN run tensor-parallel on the rank's parameter shards
+(`parallel.sharding.set_active_mesh`), attention (training and serving,
+over a cache of the rank's KV heads) and the FFN run tensor-parallel on
+the rank's parameter shards
 (`parallel.sharding.param_specs`): wq, wk, wv, wg, wu column-parallel,
 wo, wd row-parallel, with the explicit collectives of
 `parallel/collectives.py` (`_tp_attention`, `_tp_ffn`, `row_linear`).
@@ -312,22 +313,28 @@ def padded_kvh(kvh: int, tp: int) -> int:
     return -(-kvh // tp) * tp
 
 
-def _tp_attention(x, p, cfg, window, positions, rope: bool, causal: bool):
-    """The attention sub-layer on the rank's shards, training path (no
-    cache). wq, wk, wv (and their biases) are column shards of the
-    replicated input; wo a row shard.
+def _tp_attention(x, p, cfg, window, positions, rope: bool, causal: bool,
+                  cache=None, prefix_len: int = 0,
+                  decode_multi: bool = False, page_size: int = 16):
+    """The attention sub-layer on the rank's shards. wq, wk, wv (and their
+    biases) are column shards of the replicated input; wo a row shard.
+    With a cache (serving) every `"kv"` leaf holds this rank's KV heads
+    (`cache_specs` puts the padded heads on `model`), and the rank writes
+    and attends over those heads only, by the one-process cache paths
+    (`_attend`: prefill into a dense fragment or ring, decode, the
+    speculative verify).
 
     Where the KV heads divide the axis, each rank's columns are whole
     heads (kv-major: its Q heads group over its KV heads), so it attends
     over its own heads and feeds its row shard of wo. Otherwise the
     projections are gathered whole (a column shard need not end on a head
-    boundary: phi3's 1280 K columns over 4 ranks are 2.5 heads a rank), and
-    with `cfg.pad_attn_train` the KV heads and kv-major Q heads are
-    zero-padded to `padded_kvh` and split by padded heads; the padded
-    heads' outputs are dropped after the heads are gathered back, and wo
-    takes this rank's K rows of the whole output, as GSPMD reshards the
-    JAX package's layout. Without padding every rank attends over every
-    head."""
+    boundary: phi3's 1280 K columns over 4 ranks are 2.5 heads a rank);
+    under a cache (whose layout wins) or with `cfg.pad_attn_train` the KV
+    heads and kv-major Q heads are zero-padded to `padded_kvh` and split
+    by padded heads; the padded heads' outputs are dropped after the heads
+    are gathered back, and wo takes this rank's K rows of the whole
+    output, as GSPMD reshards the JAX package's layout. Without padding
+    every rank attends over every head (training only)."""
     from repro_torch.parallel import collectives as C
 
     tp, group, _ = tp_context()
@@ -357,13 +364,16 @@ def _tp_attention(x, p, cfg, window, positions, rope: bool, causal: bool):
                            cfg.rope_theta).transpose(1, 2) for t in (q, k))
 
     def attend(q_, k_, v_):
-        return blockwise_attention(q_, k_, v_, causal=causal, window=window,
-                                   cap=cfg.attn_softcap)
+        return _attend(q_, k_, v_, cache, cfg, window, positions, causal,
+                       prefix_len, decode_multi, page_size)
 
-    if aligned:
+    if cache is not None:
+        kvp = cache.k.shape[-2] * tp        # the cache's heads, all ranks
+    else:
+        kvp = padded_kvh(KVH, tp) if cfg.pad_attn_train else KVH
+    if aligned and kvp == KVH:
         return row_linear(attend(q, k, v).reshape(B * T, -1), True,
                           p["wo"], H * hd).reshape(B, T, -1)
-    kvp = padded_kvh(KVH, tp) if cfg.pad_attn_train else KVH
     if kvp % tp == 0:
         q, k, v = (C.split_to_model(t, 2, group)
                    for t in _pad_heads(q, k, v, kvp))
@@ -522,14 +532,22 @@ def attention_block(x, p, cfg, meta, positions, cache=None,
     rows. `rope=False` rotates neither q nor k (whisper). `kv_override`
     (k, v) replaces the projected k and v (cross-attention over the
     encoder's output), unrotated; the three projections still run, as in
-    the JAX package."""
+    the JAX package.
+
+    A cache whose KV heads outnumber the model's (`init_cache(kv_pad_to=)`)
+    wins the layout, as in the JAX package: the KV heads and the kv-major
+    Q heads are zero-padded to the cache's count (`_pad_heads`), the
+    padded K/V rows are written as the zeros they are, and the padded Q
+    heads' outputs are dropped before wo. Under a mesh with a `model`
+    axis the sub-layer runs on the rank's shards (`_tp_attention`)."""
     window = cfg.window if meta.get("attn") == "local" else 0
     if tp_context()[0] > 1:
-        if cache is not None or kv_override is not None or prefix_len:
-            raise ValueError("tensor parallelism covers the training "
-                             "path only: no cache, no cross-attention")
-        return _tp_attention(x, p, cfg, window, positions, rope,
-                             causal), None
+        if kv_override is not None:
+            raise ValueError("tensor parallelism does not cover "
+                             "cross-attention (kv_override)")
+        return _tp_attention(x, p, cfg, window, positions, rope, causal,
+                             cache, prefix_len, decode_multi,
+                             page_size), cache
     q, k, v = qkv_project(x, p, cfg)
     rope_kv = kv_override is None
     if kv_override is not None:          # cross-attention: kv from encoder
@@ -540,35 +558,47 @@ def attention_block(x, p, cfg, meta, positions, cache=None,
         if rope_kv:
             k = apply_rope(k.transpose(1, 2), positions[:, None, :],
                            cfg.rope_theta).transpose(1, 2)
+    H = q.shape[2]
     if cache is not None and cache.k.shape[-2] != k.shape[2]:
-        raise ValueError("padded KV heads are not ported yet")
-    if cache is not None and (decode_multi or x.shape[1] == 1):
-        o = _decode_attend(q, k, v, cache, positions, window,
-                           cfg.attn_softcap, page_size)
+        q, k, v = _pad_heads(q, k, v, cache.k.shape[-2])
+    o = _attend(q, k, v, cache, cfg, window, positions, causal, prefix_len,
+                decode_multi, page_size)
+    return attn_out(o[:, :, :H], p), cache
+
+
+def _attend(q, k, v, cache, cfg, window: int, positions, causal: bool,
+            prefix_len: int, decode_multi: bool, page_size: int):
+    """Attention of q (B, T, H, hd) over k, v (B, T, KVH, hd), the cache's
+    head count, writing k and v into the cache in place: decode with a
+    cache and one token or `decode_multi` (`_decode_attend`); otherwise
+    prefill (on the card with a cache through the prefill kernel), a dense
+    cache filled after, continued over its first `prefix_len` rows."""
+    if cache is not None and (decode_multi or q.shape[1] == 1):
+        return _decode_attend(q, k, v, cache, positions, window,
+                              cfg.attn_softcap, page_size)
+    from repro_torch.kernels import ops
+    if cache is not None and isinstance(cache, PagedKVCache):
+        raise ValueError(
+            "paged KV caches take prefill via the engine's fragment "
+            "splice, not a multi-token forward")
+    k_att, v_att = k, v
+    if cache is not None and prefix_len:
+        # continued prefill: suffix queries attend over [cached prefix
+        # ‖ fragment] at their absolute offset
+        k_att = torch.cat([cache.k[:, :prefix_len].to(k.dtype), k], 1)
+        v_att = torch.cat([cache.v[:, :prefix_len].to(v.dtype), v], 1)
+    if cache is not None and optflags.prefill_kernel_on(q.device):
+        # serving prefill through the hand-written flash kernel
+        o = ops.sa_attention(q, k_att, v_att, causal=causal,
+                             window=window, cap=cfg.attn_softcap,
+                             q_offset=prefix_len)
     else:
-        from repro_torch.kernels import ops
-        if cache is not None and isinstance(cache, PagedKVCache):
-            raise ValueError(
-                "paged KV caches take prefill via the engine's fragment "
-                "splice, not a multi-token forward")
-        k_att, v_att = k, v
-        if cache is not None and prefix_len:
-            # continued prefill: suffix queries attend over [cached prefix
-            # ‖ fragment] at their absolute offset
-            k_att = torch.cat([cache.k[:, :prefix_len].to(k.dtype), k], 1)
-            v_att = torch.cat([cache.v[:, :prefix_len].to(v.dtype), v], 1)
-        if cache is not None and optflags.prefill_kernel_on(q.device):
-            # serving prefill through the hand-written flash kernel
-            o = ops.sa_attention(q, k_att, v_att, causal=causal,
-                                 window=window, cap=cfg.attn_softcap,
-                                 q_offset=prefix_len)
-        else:
-            o = blockwise_attention(q, k_att, v_att, causal=causal,
-                                    window=window, cap=cfg.attn_softcap,
-                                    q_offset=prefix_len)
-        if cache is not None:
-            _fill_dense(cache, k, v, positions, prefix_len)
-    return attn_out(o, p), cache
+        o = blockwise_attention(q, k_att, v_att, causal=causal,
+                                window=window, cap=cfg.attn_softcap,
+                                q_offset=prefix_len)
+    if cache is not None:
+        _fill_dense(cache, k, v, positions, prefix_len)
+    return o
 
 
 def _fill_dense(cache: KVCache, k, v, positions, prefix_len: int):

@@ -26,6 +26,7 @@ rows are rounded up to 8 elements (`matrix_storage`), so the SA GEMM's
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any
 
 import torch
@@ -52,16 +53,23 @@ def check_supported(cfg: ArchConfig):
 
 
 def check_parallel(cfg: ArchConfig, model_parallel: int,
-                   data_parallel: int = 1):
+                   data_parallel: int = 1, serving: bool = False):
     """Refuse what the mesh does not cover yet: tensor parallelism for
     the MoE, SSM and hybrid families, the encoder-decoder, the VLM and
     FSDP configs (`cfg.fsdp`), and a data axis above 1 for MoE, whose
     capacity and load-balance loss are taken over the global microbatch
-    (a per-rank group would change them)."""
+    (a per-rank group would change them). Serving (`serving`) covers the
+    `model` axis only: a data axis above 1 would shard the page pool's
+    pages across ranks, so a slot's pages could sit on any data shard
+    (ROADMAP 7b)."""
     if model_parallel > 1 and (cfg.family != "dense" or cfg.fsdp):
         raise ValueError(f"{cfg.name}: tensor parallelism covers the dense "
                          f"family without FSDP; {cfg.family!r} (fsdp="
                          f"{cfg.fsdp}) is not ported")
+    if serving and data_parallel > 1:
+        raise ValueError(f"{cfg.name}: serving over a data axis of "
+                         f"{data_parallel} (the pool's pages sharded over "
+                         f"data) is not ported; serve on the model axis")
     if data_parallel > 1 and cfg.family == "moe":
         raise ValueError(f"{cfg.name}: a data axis above 1 would route each "
                          f"rank's rows alone (capacity and load-balance "
@@ -136,7 +144,8 @@ def tree_leaves(tree) -> list:
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
-                generator: torch.Generator | None = None, dtype=None):
+                generator: torch.Generator | None = None, dtype=None,
+                mesh=None):
     """Full parameter tree drawn on `device` (default CUDA) from a
     `torch.Generator`: the JAX package's distributions (normal · fan_in⁻½
     matrices, 0.02-scaled embedding, unit norms, zero biases), not its
@@ -145,7 +154,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     masters training keeps. A layernorm adds a zero bias `b` beside each
     norm's `w`; the encoder-decoder adds `cross` and `norm_cross` to every
     decoder layer and `encoder = {layers, final_norm}`, its layers stacked
-    over `cfg.encoder_layers` on axis 0 (the JAX package's tree)."""
+    over `cfg.encoder_layers` on axis 0 (the JAX package's tree).
+
+    Under a `mesh`, every leaf is this rank's piece of the same tree
+    (`parallel.sharding.param_specs`): each matrix is drawn a slice at a
+    time in the same order from the same generator and only the rank's
+    piece of each slice is kept, so a rank never holds a whole matrix
+    and the pieces are `shard_tree` of the one-process tree's."""
     check_supported(cfg)
     dev = resolve_device(device)
     # on the meta device (shapes only, the sharding rules' abstract tree)
@@ -161,11 +176,17 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     E, F = cfg.num_experts, cfg.d_ff
     ff = cfg.d_ff_dense or cfg.d_ff      # the dense layers' FFN width
 
+    draws = []
+
     def normal(shape, std):
         # drawn in fp32 one matrix at a time (a superblock slice, or one
         # expert of an expert stack), then stored: the fp32 temporary
         # never exceeds one matrix (llama4's whole (128, 5120, 8192) slice
-        # would be 21.5 GB)
+        # would be 21.5 GB). Under a mesh the draw waits until the leaf's
+        # spec is known (`_draw_pieces`), in this order.
+        if mesh is not None:
+            draws.append(_Draw(tuple(shape), std))
+            return draws[-1]
         out = matrix_storage(shape, mat_dtype, dev)
         if dev.type == "meta":
             return out
@@ -254,7 +275,58 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
             "layers": {"norm1": norm(n_enc), "norm2": norm(n_enc),
                        "attn": attention(n_enc), "ffn": ffn(n_enc)},
             "final_norm": norm()}
+    if mesh is not None:
+        params = _draw_pieces(cfg, params, draws, mesh, gen,
+                              mat_dtype, dev)
     return params
+
+
+class _Draw:
+    """A matrix `init_params` draws under a mesh once its spec is known."""
+
+    def __init__(self, shape, std):
+        self.shape, self.std, self.spec = shape, std, None
+
+
+def _draw_pieces(cfg, params, draws, mesh, gen, mat_dtype, dev):
+    """Fill a tree of `_Draw` placeholders and whole small leaves with
+    this rank's pieces: the matrices drawn slice by slice along axis 0 in
+    `draws`' order (the one-process tree's draws), each slice cut to the
+    rank's piece of its spec before it is stored; the other leaves (norms,
+    biases) cut from the whole."""
+    from repro_torch.parallel import sharding as S
+
+    specs = S.param_specs(cfg, params, mesh)
+    S.tree_map_with_path(
+        lambda _, x, sp: setattr(x, "spec", sp) if isinstance(x, _Draw)
+        else None, params, specs)
+    coords = S.mesh_coords(mesh)
+    sizes = S.axis_sizes(mesh)
+
+    def piece(shape, spec):
+        out = []
+        for d, e in zip(shape, spec):
+            parts, idx = (1, 0) if e is None else S._entry_index(
+                e, coords, sizes)
+            out.append((idx * (d // parts), d // parts))
+        return out
+
+    for d in draws:
+        cut = piece(d.shape, d.spec)
+        out = matrix_storage(tuple(n for _, n in cut), mat_dtype, dev)
+        lead = 2 if len(d.shape) == 4 else 1    # `normal`'s slices
+        for idx in itertools.product(*map(range, d.shape[:lead])):
+            x = torch.randn(d.shape[lead:], generator=gen,
+                            device=dev) * d.std
+            if not all(a <= i < a + n for i, (a, n) in zip(idx, cut)):
+                continue
+            for dim, (a, n) in enumerate(cut[lead:]):
+                x = x.narrow(dim, a, n)
+            out[tuple(i - a for i, (a, _) in zip(idx, cut))] = x
+        d.out = out
+    return S.tree_map_with_path(
+        lambda _, x, sp: x.out if isinstance(x, _Draw)
+        else S.shard_leaf(x, sp, mesh, coords), params, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -264,10 +336,19 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                dtype=torch.bfloat16, device=None,
                paged: tuple[int, int] | None = None,
-               local_rows: int | None = None):
+               local_rows: int | None = None, kv_pad_to: int = 1,
+               kv_shards: int = 1):
     """Stacked per-layer cache, leaves with the superblock index on axis 0
     and (dense) the batch slot on axis 1. A local-window layer gets a
     dense ring of min(window, seq_len) rows.
+
+    `kv_pad_to`: the `model` axis's size; every `"kv"` leaf (pools and
+    rings alike) gets `padded_kvh(num_kv_heads, kv_pad_to)` KV heads, so
+    the cache splits by heads across the axis (the JAX package's
+    `kv_pad_to`). `kv_shards`: the leaves hold one rank's share of those
+    heads, the shapes `shard_leaf` cuts from the whole cache by
+    `cache_specs` on a (data 1, model kv_shards) mesh, so no rank
+    allocates the whole pool.
 
     `paged=(n_pages, page_size)`: each global layer a shared `PagedKVCache`
     page pool plus a per-slot block table of ceil(seq_len / page_size)
@@ -293,7 +374,11 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     dev = resolve_device(device)
     period = cfg.stack_period
     n_super = cfg.num_layers // period
-    kvh, hd = cfg.num_kv_heads, cfg.hd
+    kvh, hd = L.padded_kvh(cfg.num_kv_heads, kv_pad_to), cfg.hd
+    if kvh % kv_shards:
+        raise ValueError(f"{cfg.name}: {kvh} KV heads do not split over "
+                         f"{kv_shards} ranks (pad them: kv_pad_to)")
+    kvh //= kv_shards
 
     def full(shape, fill, dt):
         return torch.full(shape, fill, dtype=dt, device=dev)
@@ -327,8 +412,8 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
         if cfg.is_encdec:
             ft = cfg.frontend_tokens
             c["cross"] = KVCache(
-                k=full((n_super, batch, ft, kvh, hd), 0, dtype),
-                v=full((n_super, batch, ft, kvh, hd), 0, dtype),
+                k=full((n_super, batch, ft, cfg.num_kv_heads, hd), 0, dtype),
+                v=full((n_super, batch, ft, cfg.num_kv_heads, hd), 0, dtype),
                 positions=full((n_super, batch, ft), -1, torch.int32))
         return c
 
@@ -470,7 +555,8 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     family runs tensor-parallel on the rank's shards (models/layers.py);
     a vocabulary-parallel head (its columns cut across the axis) returns
     this rank's columns of the logits, which `lm_loss` reduces across
-    the axis.
+    the axis; with a cache (serving) the columns are gathered across the
+    axis, so every rank returns the whole logits, the same bits.
     `aux` is the JAX package's dict: a MoE stack's `load_balance` and
     `router_z` summed over its layers (zero for a dense stack and
     wherever a cache is threaded, as the JAX forward leaves them).
@@ -497,7 +583,9 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     dev = tokens.device
     tp, group, tp_rank = L.tp_context()
     if tp > 1:
-        check_parallel(cfg, tp)
+        from repro_torch.parallel.sharding import axis_count
+        check_parallel(cfg, tp, axis_count("data"),
+                       serving=cache is not None)
     x = _embed(params["embed"], tokens, cfg, group, tp_rank)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=torch.bfloat16,
@@ -579,6 +667,11 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
         valid = (torch.arange(head.shape[1], device=dev) + v0
                  < cfg.vocab_size)
         logits = torch.where(valid, logits, float("-inf"))
+    if cache is not None and head.shape[1] != cfg.padded_vocab:
+        # served logits reach the engine whole: its picks and argmaxes
+        # read the global vocabulary on every rank
+        from repro_torch.parallel import collectives as C
+        logits = C.all_gather(logits, -1, group)
     return logits, cache, {"load_balance": aux[0], "router_z": aux[1]}
 
 

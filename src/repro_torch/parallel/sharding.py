@@ -310,6 +310,18 @@ def handoff_frag_specs(cfg: ArchConfig, frag_tree: Any, mesh):
                               is_leaf=lambda x: isinstance(x, KVCache))
 
 
+def reshard_handoff(frag: Any, mesh, cfg: ArchConfig):
+    """This rank's piece (`handoff_frag_specs`) of a whole prefill
+    fragment: the page-handoff move of the JAX package's two-pool serve
+    loop (`reshard_handoff`, a `device_put` there), for a fragment built
+    on every KV head (`init_cache(kv_pad_to=)` without `kv_shards`). The
+    identity without a mesh. The serve engine does not need it: its
+    fragments are born on the rank's heads (`ServeEngine.new_frag`)."""
+    if mesh is None:
+        return frag
+    return shard_tree(frag, handoff_frag_specs(cfg, frag, mesh), mesh)
+
+
 # ---------------------------------------------------------------------------
 # a full tree and a rank's slice of it
 # ---------------------------------------------------------------------------

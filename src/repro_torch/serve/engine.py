@@ -82,6 +82,20 @@
   cannot un-see a token, so prefix caching, disagg, bucketing and spec
   are off for both families, as in the JAX engine.
 
+* **Tensor parallelism** (a mesh whose `model` axis has N > 1 ranks,
+  `parallel.sharding.set_active_mesh`; the dense family): every rank
+  runs this engine on its parameter shards, and every cache, pool and
+  fragment is built on the rank's KV heads, padded to a multiple of N
+  where N does not divide them (`init_cache(kv_pad_to=, kv_shards=)`).
+  The layers write and attend over the rank's heads; the forward hands
+  back whole logits, so every rank picks the same tokens. Every rank
+  runs the same host loop: the clock the scheduler reads is rank 0's
+  (`_agreed_clock`, one broadcast a reading), so arrivals at a rate
+  admit the same requests at the same ticks on every rank. A prefill
+  fragment is born on the pool's layout (the rank's KV heads), so the
+  disagg handoff scatters it as it is: the JAX engine's
+  `reshard_handoff` before the scatter has nothing to move here.
+
 Where the JAX engine donates the cache buffer to a jitted update, this
 engine updates the cache tensors in place (`_scatter_impl`, `_bind_impl`,
 `_insert_impl`, `_clear_slot_impl`, the decode step's KV write) and says
@@ -103,7 +117,8 @@ from repro_torch.kernels import autotune
 from repro_torch.kernels.ops import fused_decode_supported
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import KVCache, PagedKVCache
+from repro_torch.models.layers import KVCache, PagedKVCache, padded_kvh
+from repro_torch.parallel import sharding as S
 from repro_torch.train.step import (make_bucketed_prefill_step,
                                     make_draft_step, make_prefill_step,
                                     make_serve_step, make_verify_step)
@@ -148,7 +163,12 @@ class ServeEngine:
                  spec_draft_layers: int | None = None,
                  disagg: bool | None = None, prefill_workers: int = 1,
                  bucket_prompts: bool | None = None, device=None):
-        """`cache_len` is the per-request capacity of the ring layout and
+        """Under the active mesh (`parallel.sharding.active_mesh`) the
+        engine serves on its `model` axis: `params` are this rank's shards
+        and every cache holds this rank's KV heads, padded to a multiple
+        of the axis's size (`init_cache(kv_pad_to=)`).
+
+        `cache_len` is the per-request capacity of the ring layout and
         sizes the paged one's pool: by default it holds `batch · cache_len`
         tokens plus the trash page, while `max_seq_len` (default
         `cache_len`, rounded up to a page) caps one request. `device`
@@ -161,6 +181,15 @@ class ServeEngine:
         pool runs a chunk; `bucket_prompts` (default REPRO_PREFILL_BUCKET)
         pads prefill suffixes to bucket lengths."""
         M.check_supported(cfg)
+        self.mesh = S.active_mesh()
+        self.tp = S.axis_count("model")
+        if self.tp > 1:
+            M.check_parallel(cfg, self.tp, S.axis_count("data"),
+                             serving=True)
+            if padded_kvh(cfg.num_kv_heads, self.tp) % self.tp:
+                raise ValueError(
+                    f"{cfg.name}: {cfg.num_kv_heads} KV heads do not split "
+                    f"over {self.tp} ranks and pad_kv_heads is off")
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device) if device is not None \
@@ -252,17 +281,22 @@ class ServeEngine:
             return None
         return _round_up(self.cfg.window + self.spec_k, self.page_size)
 
+    def _heads(self) -> dict:
+        """The caches' KV heads: padded to the `model` axis and this
+        rank's share of them (every head in one process)."""
+        return {"kv_pad_to": self.tp, "kv_shards": self.tp}
+
     def new_cache(self, batch: int | None = None):
         return M.init_cache(self.cfg, batch or self.batch, self.ring_len,
                             dtype=self.cache_dtype, device=self.device,
-                            local_rows=self._local_rows())
+                            local_rows=self._local_rows(), **self._heads())
 
     def new_pool(self):
         """Paged serve cache: global page pools + per-slot block tables."""
         return M.init_cache(self.cfg, self.batch, self.max_seq_len,
                             dtype=self.cache_dtype, device=self.device,
                             paged=(self.pool_pages, self.page_size),
-                            local_rows=self._local_rows())
+                            local_rows=self._local_rows(), **self._heads())
 
     def new_frag(self, prompt_len: int):
         """Dense batch-1 prefill fragment: the prompt rounded up to whole
@@ -271,7 +305,29 @@ class ServeEngine:
         cap = _round_up(max(prompt_len, self._frag_floor), self.page_size)
         return M.init_cache(self.cfg, 1, cap, dtype=self.cache_dtype,
                             device=self.device,
-                            local_rows=self._local_rows())
+                            local_rows=self._local_rows(), **self._heads())
+
+    def _agreed_clock(self, clock):
+        """`clock` as every rank of the `model` axis reads it: rank 0's
+        reading, broadcast at each call (on the host over gloo, on the
+        card over nccl). Every admission, arrival wait and fast-forward of
+        `serve` reads it, so the ranks take the same decisions at the same
+        ticks and call their collectives in the same order. The clock
+        itself without a mesh."""
+        if self.tp == 1:
+            return clock
+        import torch.distributed as dist
+
+        group = S.axis_group("model")
+        src = dist.get_global_rank(group, 0)
+        dev = self.device if dist.get_backend(group) == "nccl" else "cpu"
+
+        def agreed():
+            t = torch.tensor([clock()], dtype=torch.float64, device=dev)
+            dist.broadcast(t, src=src, group=group)
+            return float(t)
+
+        return agreed
 
     def prefix_caching_on(self) -> bool:
         """Prefix sharing (REPRO_PREFIX_CACHE, default on) is sound only
@@ -853,6 +909,7 @@ class ServeEngine:
             gen = torch.Generator(device=self.device).manual_seed(0)
         self._nonfinite = torch.zeros((), dtype=torch.int64,
                                       device=self.device)
+        clock = self._agreed_clock(clock)
         t0 = clock()
         skew = 0.0          # engine-time fast-forward for frozen clocks
 
@@ -944,7 +1001,8 @@ class ServeEngine:
                     prefill_s += dt
                     # the handoff: scatter the staged fragment's pages into
                     # the pool, then sync: the one wall decode can block on
-                    # (one device, so no reshard between the two pools)
+                    # (the fragment holds the pool's KV heads already, so
+                    # no reshard between the two pools)
                     t_h = now()
                     cache = self._scatter_impl(cache, frag, row, keep)
                     sync()

@@ -1680,3 +1680,132 @@ def test_no_sweep_during_a_cuda_graph_capture(cuda, tune_cache):
     assert AT.SWEPT == [] and AT.MISSES == 2
     assert AT.lookup(4, 5120, 5120, sweep=True) in AT.MMA_CANDIDATES
     assert len(AT.SWEPT) == 1
+
+
+# ---------------------------------------------------------------------------
+# serving under the model axis: a rank's heads, padded heads, the row
+# shards' fp32 chain
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["paged", "ring"])
+def test_padded_pool_serves_the_unpadded_stream_phi3_two_layers(
+        cuda, monkeypatch, layout):
+    """phi3-medium-14b at full width cut to two layers in one process: a
+    cache whose 10 KV heads are padded to 12 (`kv_pad_to=4`, what a
+    (1, 4) mesh holds across its ranks) serves the unpadded stream, every
+    kernel launched, no plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import stream_digest
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    monkeypatch.setenv("REPRO_GEMM_BACKEND", "cuda")
+    cfg = dataclasses.replace(get_config("phi3-medium-14b"), num_layers=2)
+    params = M.init_params(cfg, seed=0, device=cuda)
+    digests = []
+    for pad in (1, 4):
+        eng = ServeEngine(cfg, params, batch=2, cache_len=48, eos_id=-1,
+                          sync_every=4, kv_layout=layout)
+        # the caches a (1, 4) mesh's engine builds, whole in one process
+        eng._heads = lambda pad=pad: {"kv_pad_to": pad, "kv_shards": 1}
+        sched = SlotScheduler(2, eos_id=-1)
+        _submit(sched, cfg, (17, 40, 9), ("premium",) * 3)
+        ops.reset_counts()
+        summary = eng.serve(sched)
+        c = ops.counts()
+        for name in ("sa_matmul", "paged_decode", "prefill_attention"):
+            assert c[name]["launches"] > 0, c
+        assert all(v["plain_calls"] == 0 for v in c.values()), c
+        assert summary["nonfinite_logits"] == 0
+        cache = eng.new_pool() if layout == "paged" else eng.new_cache()
+        assert cache[0]["kv"].k.shape[-2] == (12 if pad == 4 else 10)
+        digests.append(stream_digest(sched.finished))
+        del eng, cache
+    assert digests[0] == digests[1]
+
+
+@pytest.mark.parametrize("kvh,grp,lo,hi", [
+    (8, 5, 4, 8),     # qwen at (1, 2): rank 1's 4 KV heads, g = 5
+    (8, 5, 2, 4),     # qwen at (1, 4): rank 1's 2
+    (12, 4, 9, 12)])  # phi3 at (1, 4): 10 heads padded to 12, rank 3's 3
+def test_paged_decode_on_a_rank_s_heads(cuda, kvh, grp, lo, hi):
+    """The paged decode over a rank's slice of KV heads (and their Q
+    heads) at the serve shape: within the plain version's bound, and the
+    same bits as those heads of the whole pool's decode (the cluster is
+    planned from (g, hd, page, pages) alone, never the head count). Under
+    phi3's padding the padded heads are zeros, their outputs zeros."""
+    q, k, v, pp, bt, pos = _pool(cuda, KVH=kvh, grp=grp)
+    if kvh == 12:
+        k[:, :, 10:] = v[:, :, 10:] = 0.0
+        k[0] = v[0] = float("nan")
+        q[:, :, 10 * grp:] = 0.0
+    pol = PrecisionPolicy(input_format="bf16")
+    whole = ops.paged_decode_attention(q, k, v, pp, bt, pos, policy=pol)
+    qs = q[:, :, lo * grp:hi * grp].contiguous()
+    ks, vs = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
+    got = ops.paged_decode_attention(qs, ks, vs, pp, bt, pos, policy=pol)
+    ref = DA.paged_decode_ref(qs, ks, vs, pp, bt, pos, policy=pol)
+    bound = DA.error_bound(qs, ks, vs, pp, bt, pos, policy=pol)
+    assert bool(((got - ref).abs() <= bound).all())
+    assert torch.equal(got.view(torch.int32),
+                       whole[:, :, lo * grp:hi * grp].contiguous().view(
+                           torch.int32))
+    if kvh == 12:
+        assert not whole[:, :, 10 * grp:].any()
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "fp32"])
+def test_prefill_over_padded_heads(cuda, fmt):
+    """phi3's prefill on a (1, 4) mesh: 40 Q heads over 10 KV heads
+    padded to 48 over 12 (zero K, V and Q), a rank's 12 over 3. Within
+    the plain version's bound; the real heads carry the unpadded call's
+    bits, a padded head's output is zeros."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    T, hd = 128, 128
+    q = torch.randn((1, T, 40, hd), generator=g, device=cuda)
+    k = torch.randn((1, T, 10, hd), generator=g, device=cuda)
+    v = torch.randn((1, T, 10, hd), generator=g, device=cuda)
+    pol = PrecisionPolicy(input_format=fmt)
+    pad = torch.nn.functional.pad
+    qp, kp, vp = pad(q, (0, 0, 0, 8)), pad(k, (0, 0, 0, 2)), pad(
+        v, (0, 0, 0, 2))
+    whole = ops.sa_attention(q, k, v, policy=pol)
+    for r in range(4):
+        qs = qp[:, :, 12 * r:12 * (r + 1)].contiguous()
+        ks = kp[:, :, 3 * r:3 * (r + 1)].contiguous()
+        vs = vp[:, :, 3 * r:3 * (r + 1)].contiguous()
+        got = ops.sa_attention(qs, ks, vs, policy=pol)
+        ref = FA.flash_attention_ref(qs, ks, vs, policy=pol)
+        bound = FA.error_bound(qs, ks, vs, policy=pol)
+        assert bool(((got - ref).abs() <= bound).all())
+        real = min(12, 40 - 12 * r)
+        assert torch.equal(
+            got[:, :, :real].contiguous().view(torch.int32),
+            whole[:, :, 12 * r:12 * r + real].contiguous().view(torch.int32))
+        assert not got[:, :, real:].any()
+
+
+@pytest.mark.parametrize("k,n", [(5120, 5120), (13824, 5120)])
+def test_row_shard_chain_on_the_decode_tile(cuda, k, n):
+    """The row-parallel partial (`sa_dot_chain`, the exact chain in fp32)
+    at M = 4 over a rank's K / 2 rows, on the decode tile: within the
+    plain chain's bound; and a column shard of a bf16 GEMM carries the
+    whole GEMM's bits per column (F2)."""
+    from repro_torch.core.precision import sa_dot, sa_dot_chain
+
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    a = torch.randn((4, k // 2), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k // 2, n), generator=g, device=cuda)
+         * k ** -0.5).to(torch.bfloat16)
+    ops.reset_counts()
+    got = sa_dot_chain(a, w, PrecisionPolicy(backend="cuda"))
+    assert ops.counts()["sa_matmul"]["launches"] == 1
+    assert got.dtype == torch.float32
+    ref = sa_dot_chain(a, w, PrecisionPolicy(backend="torch"))
+    assert bool(((got - ref).abs() <= MM.error_bound(a, w, y=ref)).all())
+    pol = PrecisionPolicy(backend="cuda")
+    whole = sa_dot(a, w, pol)
+    for r in range(2):
+        part = sa_dot(a, w[:, r * n // 2:(r + 1) * n // 2].contiguous(), pol)
+        assert torch.equal(part, whole[:, r * n // 2:(r + 1) * n // 2])

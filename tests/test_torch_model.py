@@ -241,8 +241,10 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
 def test_unported_families_raise():
     """Every family builds now; what the port still refuses: continuous
     serving of a frontend arch (`serve()` is text-only, as in the JAX
-    engine; `generate()` serves them) and a cache with padded KV heads
-    (the mesh's `pad_kv_heads`, not ported)."""
+    engine; `generate()` serves them). A cache with padded KV heads (the
+    mesh's `pad_kv_heads`), refused until the serving slice under a mesh,
+    now decodes: the unpadded output, the padded heads' rows written as
+    zeros."""
     from repro_torch.serve.scheduler import SlotScheduler
     from repro_torch.models import layers as TL
 
@@ -259,11 +261,17 @@ def test_unported_families_raise():
     cache = TM.init_cache(cfg, 1, 8, dtype=torch.float32, device="cpu")[0]
     kv = cache["kv"]
     padded = type(kv)(*(torch.cat([t, t], dim=-2) for t in kv[:2]),
-                      kv.positions)
+                      kv.positions.clone())
     p0 = TM.tree_map(lambda w: w[0], tp["layers"][0]["attn"])
-    with pytest.raises(ValueError, match="padded KV heads are not ported"):
-        TL.attention_block(torch.zeros((1, 1, cfg.d_model)), p0, cfg,
-                           {"attn": "global"},
-                           torch.zeros((1, 1), dtype=torch.int32),
-                           cache=TM.tree_map(lambda t: t[0], padded))
+    x = torch.randn((1, 1, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    outs = [TL.attention_block(x, p0, cfg, {"attn": "global"},
+                               torch.zeros((1, 1), dtype=torch.int32),
+                               cache=TM.tree_map(lambda t: t[0], c))[0]
+            for c in (kv, padded)]
+    assert torch.equal(outs[0], outs[1])
+    kvh = cfg.num_kv_heads
+    assert torch.equal(padded.k[0, 0, 0, :kvh], kv.k[0, 0, 0])
+    assert not padded.k[0, 0, 0, kvh:].any()
+    assert not padded.v[0, 0, 0, kvh:].any()
     assert t_get_config("qwen2.5-14b").padded_vocab == 153600
