@@ -82,10 +82,15 @@ Phases, in order; any failure exits nonzero:
              that also serve) under torchrun, the
              ranks sharing the one card over gloo, 3 AdamW steps under
              `cuda` at batch 4 x 512, each mesh (data, model):
-             qwen2.5-14b at full width cut to 2 layers at (1, 2) (accum
-             2; 4 before PR 29) and to 1 layer at (2, 2) (accum 1: four ranks' states
-             fill the card), phi3-medium-14b cut to 2 layers at (1, 4)
-             (accum 2; its 10 KV heads padded to 12). Step 0's loss and every
+             qwen2.5-14b at full width cut to 1 layer at (1, 2) (accum
+             2; 4 before PR 29, 2 before PR 30) and at (2, 2) (accum 1:
+             four ranks' states fill the card), phi3-medium-14b cut to 1
+             layer at (1, 4) (accum 2; 2 before PR 30; its 10 KV heads
+             padded to 12), granite-moe-3b cut
+             to 2 layers at (1, 2) (EP, 20 experts a rank) and (2, 2) (EP
+             with DP, the load-balance loss over the global batch), in
+             qwen's worlds of those shapes, its step 0 on the one-process
+             reference's routing (ROADMAP R8). Step 0's loss and every
              gathered gradient leaf (`--grads-out`) against the
              one-process step on the same weights and global batch, run
              first in this process: the train phase's bounds. The
@@ -102,10 +107,14 @@ Phases, in order; any failure exits nonzero:
              world of a parallel run after its steps (this script's
              rank program, `--serve-ranks SPEC`: the trainer's `main`,
              then `launch.serve.main` a run, the first drawing the
-             rank's shards): qwen2.5-14b at full width and depth at
-             (data 1, model 2) on the serve stream, paged; the serve
-             stream on one nccl rank (`--model-parallel 1`);
-             phi3-medium-14b at full width cut to 4 layers at (1, 4)
+             rank's shards): qwen2.5-14b at full width cut to 12 layers
+             (full depth before PR 30) at (data 1, model 2) on the serve
+             stream, paged; granite cut to
+             16 layers and llama4-maverick cut to one superblock at
+             (1, 2) on the moe phase's granite stream, paged (EP: a rank
+             20 and 64 experts; each prompt's prefill routing recorded);
+             the serve stream on one nccl rank (`--model-parallel 1`);
+             phi3-medium-14b at full width cut to 2 layers at (1, 4)
              (its 10 KV heads padded to 12), paged, `--kv ring` and
              `--disagg`. Every rank one digest, phi3's three runs one
              digest, no plain call, the serve driver's mesh lines; each
@@ -114,12 +123,14 @@ Phases, in order; any failure exits nonzero:
              ROADMAP R1's rule (prefill logits within 2^-5 max|logit|,
              tokens equal up to the first position whose one-process
              top-two margin is below twice that bound; the equal tokens
-             counted), the qwen run's launches on every rank equal to
-             the serve phase's (the same GEMMs on shards), the nccl
-             rank's digest and launches equal to the serve phase's;
-             phi3's one-process stream is served there at the same
-             depth. The kernel phase holds each kernel at a rank's
-             shapes (`check_rank_shapes`). It measures no speed of a
+             counted), the nccl rank's digest and launches equal to the
+             serve phase's; qwen's and phi3's one-process streams are
+             served there at the same depth, each rank's launches equal
+             to them (the same GEMMs on shards); granite's and llama4's
+             are held in the moe phase. The
+             kernel phase holds each kernel at a rank's shapes
+             (`check_rank_shapes`; since PR 30 also granite's expert
+             pieces under a model axis of 16). It measures no speed of a
              real mesh.
 5. serve   — full-width, full-depth qwen2.5-14b (random weights from a
              seed) served through `repro_torch.launch.serve.main` with the
@@ -208,12 +219,13 @@ Phases, in order; any failure exits nonzero:
              steps and resumes from its checkpoint for 5 more, the
              precision study prints "bit-exact: True" per format and
              section 2's cycles equal to `core.systolic`'s.
-   families — gemma3-12b (24 of its 48 layers, 5:1 local:global,
+   families — gemma3-12b (12 of its 48 layers, 5:1 local:global,
              window 1024; 6 requests of 600-1500 tokens on 4 slots),
-             gemma2-9b (22 of 42 layers, 1:1, window 4096, softcaps 50
+             gemma2-9b (12 of 42 layers, 1:1, window 4096, softcaps 50
              and 30; prompts of 256 and 4200 tokens) and phi3-medium-14b
-             (20 of 40 layers; the serve stream) at full width, cut to
-             half their depth since PR 29, one model on the card at a
+             (10 of 40 layers; the serve stream) at full width, cut to
+             half their depth since PR 29 and to these since PR 30, one
+             model on the card at a
              time, through the driver under `cuda` with the serve phase's
              checks; paged decode launched L times a decode step; the
              window's gates off (no prefix hit); gemma3 and gemma2 again
@@ -234,20 +246,24 @@ Phases, in order; any failure exits nonzero:
              decode chunk under torch.profiler (idle share);
              llama4-maverick at full width cut to one superblock (a dense
              layer at d_ff 16384, a MoE layer of 128 experts and the
-             shared expert: 37.4 GB) on 4 requests of 32-64 tokens, the
-             same launch gates, peak memory; granite cut to 4 layers
-             trained 3 AdamW steps at batch 4 x 512 (the capacity
+             shared expert: 37.4 GB) on granite's stream (since PR 30),
+             the same launch gates, peak memory; each also holds its
+             (1, 2) serve of the parallel phase by R1's rule
+             (`moe_parallel_check`: the prefill logits on the mesh's
+             routing, the tokens whose expert set differs counted, a
+             rank's launches `gemm_calls(tp=2)` a step); granite cut to
+             4 layers trained 3 AdamW steps at batch 4 x 512 (the capacity
              dispatch): step 0 under `cuda` and `torch` with the routing
              held (and the free-routing spread read out), the train
              phase's gates, finite aux losses.
-   ssm     — mamba2-2.7b (32 of its 64 layers since PR 29, d 2560, 80
+   ssm     — mamba2-2.7b (8 of its 64 layers since PR 30, d 2560, 80
              SSM heads of 64, state 128, chunk 256) and hymba-1.5b (32
              layers, d 1600, 25 heads over 5 KV heads at hd 64, window
              2048, global layers 0 and 16, state 16) at full width
              (hymba at full depth) through the driver under `cuda`, asked
              for `--kv paged` and `--kv ring` on the same weights: one
              digest, the serve phase's checks, each kernel's launches
-             exactly as the forwards imply (`model.gemm_calls`: 65 and
+             exactly as the forwards imply (`model.gemm_calls`: 17 and
              289 SA GEMMs a decode step at these depths, mamba2's 129 at
              full depth; paged decode 0 and 32 a step, prefill attention
              0 and 32 a prefill), one decode step alone with no operand
@@ -265,15 +281,15 @@ Phases, in order; any failure exits nonzero:
              `torch`, the train phase's route gates).
    frontend — whisper-tiny (4 encoder and 4 decoder layers, d 384, 6
              heads of 64 at g = 1, layernorm, GELU MLP, 1500 stub frames)
-             and pixtral-12b (20 of its 40 layers since PR 29, d 5120,
+             and pixtral-12b (6 of its 40 layers since PR 30, d 5120,
              32 heads over 8 at hd 128, 256 stub patch rows) at full
              width, one at a time, through the driver's static
              waves (2 waves of 4 requests, 16 new tokens; whisper's
              prompts 32 and 64 tokens, pixtral's 64 and 128): requests
              complete, finite logits, no plain version, GEMMs and prefill
              on `mma`, each kernel's launches exactly as the forwards
-             imply (73 and 141 SA GEMMs a forward, paged decode 4 and 20
-             a decode step, prefill attention 4 and 20 a prefill),
+             imply (73 and 43 SA GEMMs a forward, paged decode 4 and 6
+             a decode step, prefill attention 4 and 6 a prefill),
              `serve()` refused, prefill then decode equal to a full
              forward within 2^-5·max|logit| with a planted fault outside
              (whisper's frames redrawn; pixtral's patch rows hidden from
@@ -358,6 +374,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -3987,19 +4004,20 @@ def study(torch):
 # 1500 tokens pass its 1024-token window in prefill, and its rings wrap in
 # decode; gemma2's 4200-token prompt passes its 4096-token window; phi3
 # takes the qwen serve's stream
-# each at full width cut to half its depth (since PR 29, for the whole
-# run's time limit): gemma3 24 of 48 layers (4 superblocks of 5 local + 1
-# global), gemma2 22 of 42, phi3 20 of 40
+# each at full width cut to a quarter of its depth or so (half since PR
+# 29, a quarter since PR 30, for the whole run's time limit): gemma3 12 of
+# 48 layers (2 superblocks of 5 local + 1 global), gemma2 12 of 42, phi3
+# 10 of 40
 FAMILY_RUNS = {
     "gemma3-12b": ["--batch", "4", "--requests", "6", "--prompt-lens",
                    "600,1100,1500", "--max-new", "16", "--max-seq-len",
-                   "1552", "--rate", "0", "--seed", "0", "--layers", "24"],
+                   "1552", "--rate", "0", "--seed", "0", "--layers", "12"],
     "gemma2-9b": ["--batch", "2", "--requests", "2", "--prompt-lens",
                   "256,4200", "--max-new", "16", "--max-seq-len", "4352",
-                  "--rate", "0", "--seed", "0", "--layers", "22"],
+                  "--rate", "0", "--seed", "0", "--layers", "12"],
     "phi3-medium-14b": ["--batch", "4", "--requests", "8", "--prompt-lens",
                         "32,64,128", "--max-new", "16", "--rate", "0",
-                        "--seed", "0", "--layers", "20"],
+                        "--seed", "0", "--layers", "10"],
 }
 
 
@@ -4209,9 +4227,12 @@ GRANITE_ARGS = ["--arch", GRANITE, "--batch", "4", "--requests", "8",
                 "--prompt-lens", "32,64,128", "--max-new", "16", "--rate",
                 "0", "--seed", "0", "--layers", str(GRANITE_LAYERS)]
 # llama4 cut to one superblock (a dense layer at d_ff 16384 and a MoE layer
-# of 128 experts and the shared expert: 18.7 B parameters, 37.4 GB bf16)
-LLAMA4_LAYERS, LLAMA4_REQUESTS, LLAMA4_MAX_NEW = 2, 4, 8
-LLAMA4_PROMPTS = (32, 64)
+# of 128 experts and the shared expert: 18.7 B parameters, 37.4 GB bf16),
+# since PR 30 on granite's stream (its (1, 2) serve is held to it)
+LLAMA4_LAYERS = 2
+LLAMA4_ARGS = ["--arch", LLAMA4] + GRANITE_ARGS[2:-2] + [
+    "--layers", str(LLAMA4_LAYERS)]
+LLAMA4_REQUESTS, LLAMA4_MAX_NEW, LLAMA4_PROMPTS = 8, MAX_NEW, PROMPT_LENS
 # granite's training run: 4 of 32 layers, batch 4 x 512 (C = 128 tokens an
 # expert and batch row), no accumulation
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 3
@@ -4393,14 +4414,20 @@ class _RoutingReplay:
     gate sits within two GEMMs' last-bit difference can route another
     way (ROADMAP R8), which moves the expert leaves' gradients by far more
     than the GEMMs' arithmetic does. With the routing held, two backends'
-    step-0 gradients differ by their arithmetic alone."""
+    step-0 gradients differ by their arithmetic alone. A replay past the
+    recorded calls routes freely. On a mesh (a sharded step replaying one
+    process's routing) each recorded index tensor is cut to the call's
+    piece: this data rank's batch rows, and this model rank's experts
+    where the call ranks only its own (the capacity dispatch under EP).
+    A recording also keeps each call's scores (the router's probabilities
+    in a served forward), for the routing gate of `_r1_hold`."""
 
     def __init__(self):
-        self.idx, self.mode, self.pos = [], None, 0
+        self.idx, self.scores, self.mode, self.pos = [], [], None, 0
 
     def start(self, mode):
         if mode == "record":
-            self.idx = []
+            self.idx, self.scores = [], []
         self.mode, self.pos = mode, 0
 
     def __enter__(self):
@@ -4410,13 +4437,14 @@ class _RoutingReplay:
         box = self
 
         def top_k(x, k):
-            if box.mode == "replay":
-                i = box.idx[box.pos]
+            if box.mode == "replay" and box.pos < len(box.idx):
+                i = _rank_piece(box.idx[box.pos].to(x.device), x)
                 box.pos += 1
                 return x.gather(-1, i), i
             v, i = orig(x, k)
             if box.mode == "record":
                 box.idx.append(i)
+                box.scores.append(x.detach().float())
             return v, i
 
         moe._top_k = top_k
@@ -4428,7 +4456,91 @@ class _RoutingReplay:
         moe._top_k = self.orig
 
 
-def moe_granite(torch):
+def _rank_piece(i, x):
+    """The piece of a recorded (B, X, K) routing index tensor that a call
+    on `x` (b, x, ·) under the active mesh takes: its data rank's b rows
+    and, where x holds fewer columns than recorded, its model rank's."""
+    from repro_torch.parallel import sharding as S
+
+    if i.shape[0] != x.shape[0]:
+        b = x.shape[0]
+        i = i[S.axis_index("data") * b:(S.axis_index("data") + 1) * b]
+    if i.shape[1] != x.shape[1]:
+        n = x.shape[1]
+        i = i[:, S.axis_index("model") * n:(S.axis_index("model") + 1) * n]
+    return i.contiguous()
+
+
+def moe_parallel_check(torch, engine, sched, key, ps):
+    """The parallel phase's (1, 2) serve of `key` (granite or llama4, EP:
+    each rank its half of the experts) against a one-process serve at the
+    same depth on the same stream (`engine`, `sched`) by R1's rule (the
+    prefill logits on the mesh's routing, replayed; on one process's own
+    where the routing did not part), with each prompt's prefill routing
+    against the one-process routing (the first MoE layer where a token's
+    expert set differs, how many tokens there, and `_routing_gate`); each
+    rank's launches what the dispatch on its experts implies
+    (`moe.gemm_calls(tp=2)` a forward: its SA GEMMs a decode step), paged
+    decode L a decode step and prefill L a request. Returns (readings,
+    problems)."""
+    from repro_torch.launch import serve as drv
+    from repro_torch.models import moe
+
+    got = ps[key]
+    cfg, tp = engine.cfg, 2
+    tag = f"[parallel_serve {key} 1x{tp}]"
+    ref = [(list(map(int, r.prompt)), list(map(int, r.tokens)))
+           for r in sorted(sched.finished, key=lambda r: r.rid)]
+    eq, n, worst, problems, routes = _r1_hold(
+        torch, engine, ref, tag, got["ranks"], got["prefill"], "paged",
+        routing=got["routing"])
+    per_step = moe.gemm_calls(cfg, tp=tp)
+    L = cfg.num_layers
+    for r, rank in enumerate(got["ranks"]):
+        run = rank["paged"]
+        steps = run["decode_steps"]
+        want = {"sa_matmul": sum(moe.gemm_calls(cfg, len(p), tp)
+                                 for p in run["prompts"])
+                + steps * per_step,
+                "paged_decode": L * steps,
+                "prefill_attention": L * len(run["prompts"])}
+        mine = {k: run["launches"][k] for k in want}
+        if mine != want:
+            problems.append(f"{tag} rank {r} launches {mine}, the dispatch "
+                            f"on its experts implies {want}")
+    s0 = got["ranks"][0]["paged"]["summary"]
+    rec = {"equal_tokens": f"{eq}/{n}", "prefill_err_over_bound": worst,
+           "routing_parted": routes["parted"],
+           "routing_gate": [g and [round(g["spread_over_bound"], 4),
+                                   round(g["margin_over_2spread"], 4)]
+                            for g in routes["gate"]],
+           "free_prefill_err_over_bound": routes[
+               "free_prefill_err_over_bound"],
+           "gemms_a_decode_step": per_step,
+           "one_process_gemms_a_decode_step": moe.gemm_calls(cfg),
+           "digest": s0["stream_digest"],
+           "one_process_digest": drv.stream_digest(sched.finished)} | {
+        k: [rk["paged"]["summary"][k] for rk in got["ranks"]]
+        for k in ("decode_itl_p50_ms", "ttft_mean_s", "prefill_s")} | {
+        "peak_gib": [rk["paged"]["peak_gib"] for rk in got["ranks"]],
+        "launches": [rk["paged"]["launches"] for rk in got["ranks"]]}
+    log(f"{tag} paged against the one-process stream: {eq} of "
+        f"{n} tokens equal, prefill logits {worst:.4f} of the bound on the "
+        f"mesh's routing (R1; on one process's own routing, the prompts "
+        f"that did not part: {rec['free_prefill_err_over_bound']:.4f}); "
+        f"routing of each prompt's prefill (first MoE layer where a token's"
+        f" expert set differs, tokens there): {rec['routing_parted']}; "
+        f"there, the spread of the router's probabilities over R1's bound "
+        f"and the parted tokens' top-k margin over twice the spread: "
+        f"{rec['routing_gate']}; a rank's SA "
+        f"GEMMs a decode step {per_step} (one process "
+        f"{rec['one_process_gemms_a_decode_step']}); per rank ITL p50 "
+        f"{rec['decode_itl_p50_ms']} ms, TTFT mean {rec['ttft_mean_s']} s, "
+        f"peak {rec['peak_gib']} GiB, launches {rec['launches']}")
+    return rec, problems
+
+
+def moe_granite(torch, ps=None):
     """granite-moe-3b at full width and depth through `launch/serve.main`
     under `cuda` with `_serve_backend`'s checks, its launches held to what the
     dropless dispatch implies (`moe.gemm_calls`: 125 SA GEMMs a layer
@@ -4526,6 +4638,10 @@ def moe_granite(torch):
         # the step's device time against the unprofiled serve's ITL
         rec["profile"]["itl_idle_share"] = 1 - (
             rec["profile"]["step_device_ms"] / rec["decode_itl_p50_ms"])
+    if ps is not None:
+        rec["parallel"], p = moe_parallel_check(torch, engine, sched,
+                                                "granite", ps)
+        problems += p
     del engine, sched
     gc.collect()
     torch.cuda.empty_cache()
@@ -4534,11 +4650,12 @@ def moe_granite(torch):
     return rec
 
 
-def moe_llama4(torch):
+def moe_llama4(torch, ps=None):
     """llama4-maverick at full width cut to one superblock
     (`dataclasses.replace(get_config(...), num_layers=2)`: its dense layer
     at d_ff 16384 and its MoE layer of 128 experts and the shared expert),
-    LLAMA4_REQUESTS requests of 32-64 tokens through the engine under
+    granite's stream (LLAMA4_REQUESTS requests of 32-128 tokens, since PR
+    30) through the engine under
     `cuda`: every request complete, finite logits, no page leaked, no
     plain version, every GEMM on `mma`, prefill on `mma`, each kernel's
     launches as the dispatch implies; the peak memory; then one prompt's
@@ -4600,6 +4717,10 @@ def moe_llama4(torch):
     prompt = min(sched.finished, key=lambda r: r.rid).prompt
     diff, bound = backend_logits(torch, eng, prompt)
     rec["backend_logits"] = {"max_abs_diff": diff, "bound": bound}
+    if ps is not None:
+        rec["parallel"], p = moe_parallel_check(torch, eng, sched, "llama4",
+                                                ps)
+        problems += p
     del eng, sched, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4713,16 +4834,23 @@ def moe_train(torch):
     return rec
 
 
-def moe(torch):
-    """The MoE family on the card: granite served at full width and depth,
-    llama4 served at full width cut to one superblock, granite trained
-    cut to MOE_TRAIN_LAYERS layers. One model on the card at a time."""
+def moe(torch, ps=None, runs=("granite", "llama4", "train")):
+    """The MoE family on the card: granite served at full width cut to
+    GRANITE_LAYERS, llama4 served at full width cut to one superblock,
+    both on granite's stream, granite trained cut to MOE_TRAIN_LAYERS
+    layers; `runs` of them, in order. One model on the card at a time.
+    With `ps` (the parallel phase's serve results) each one-process serve
+    also holds its (1, 2) serve (`moe_parallel_check`; granite's is held
+    in the parallel lane)."""
+    fns = {"granite": moe_granite, "llama4": moe_llama4, "train": moe_train}
     out = {}
-    for name, fn in (("granite", moe_granite), ("llama4", moe_llama4),
-                     ("train", moe_train)):
+    for name in runs:
         t = time.monotonic()
-        out[name] = fn(torch)
+        out[name] = fns[name](torch, ps) if name != "train" else \
+            fns[name](torch)
         log(f"[moe] {name} {time.monotonic() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4732,14 +4860,15 @@ def moe(torch):
 # ---------------------------------------------------------------------------
 
 MAMBA2, HYMBA = "mamba2-2.7b", "hymba-1.5b"
-# both served at full width; mamba2 cut to 32 of its 64 layers (since
-# PR 29, for the whole run's time limit), hymba at full depth (two
+# both served at full width; mamba2 cut to 8 of its 64 layers (32 since
+# PR 29, 8 since PR 30, for the whole run's time limit), hymba at full
+# depth (two
 # superblocks: global layers 0 and 16)
 # mamba2's stream: prompts of 200-1100 tokens, 1 to 5 SSD chunks of 256
 # (each with a zero-padded tail), on 4 slots
 MAMBA2_ARGS = ["--arch", MAMBA2, "--batch", "4", "--requests", "8",
                "--prompt-lens", "200,500,800,1100", "--max-new", "16",
-               "--rate", "0", "--seed", "0", "--layers", "32"]
+               "--rate", "0", "--seed", "0", "--layers", "8"]
 # hymba's: 6 prompts of 1500-2600 tokens, past its 2048-token window, so
 # the local rings wrap in prefill and in decode
 HYMBA_ARGS = ["--arch", HYMBA, "--batch", "4", "--requests", "6",
@@ -5151,7 +5280,8 @@ def ssm(torch):
 
 WHISPER, PIXTRAL = "whisper-tiny", "pixtral-12b"
 # the driver's static waves: 8 requests in 2 waves of 4, 16 new tokens;
-# pixtral cut to 20 of its 40 layers (since PR 29, for the run's time);
+# pixtral cut to 6 of its 40 layers (20 since PR 29, 6 since PR 30,
+# for the run's time);
 # whisper's decoder prompts of 32 and 64 tokens over 1500 stub frames,
 # pixtral's text prompts of 64 and 128 tokens after 256 stub patch rows
 # (a prefill of 320 and 384 rows)
@@ -5161,7 +5291,7 @@ FRONTEND_RUNS = {
               "--seed", "0"],
     PIXTRAL: ["--arch", PIXTRAL, "--batch", "4", "--requests", "8",
               "--prompt-lens", "64,128", "--max-new", "16", "--rate", "0",
-              "--seed", "0", "--layers", "20"],
+              "--seed", "0", "--layers", "6"],
 }
 FRONTEND_WAVES = 2
 # the attention shapes (H, KVH, hd): whisper g = 1 at hd 64, pixtral g = 4
@@ -5602,19 +5732,25 @@ def frontend_train(torch, arch):
     return rec
 
 
-def frontend(torch):
+FRONTEND_ORDER = ((WHISPER, "serve"), (WHISPER, "train"),
+                  (PIXTRAL, "serve"), (PIXTRAL, "train"))
+
+
+def frontend(torch, runs=FRONTEND_ORDER):
     """The frontend families on the card, one model at a time: whisper-tiny
     served (static waves, `generate()`, a profiled decode chunk) and
-    trained at full depth, pixtral-12b served at full width and depth
-    (~24.5 GB of bf16 weights) and trained cut to 4 layers."""
+    trained at full depth, pixtral-12b served at full width cut to 6
+    layers and trained cut to 4 layers; `runs` of them, in order."""
     out = {}
-    for arch in (WHISPER, PIXTRAL):
+    for arch, kind in runs:
         t = time.monotonic()
-        out[arch] = frontend_serve(torch, arch)
-        log(f"[frontend] {arch} serve {time.monotonic() - t:.1f} s")
-        t = time.monotonic()
-        out[f"{arch}_train"] = frontend_train(torch, arch)
-        log(f"[frontend] {arch} train {time.monotonic() - t:.1f} s")
+        if kind == "serve":
+            out[arch] = frontend_serve(torch, arch)
+        else:
+            out[f"{arch}_train"] = frontend_train(torch, arch)
+        log(f"[frontend] {arch} {kind} {time.monotonic() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5865,8 +6001,9 @@ def check_rank_shapes(torch, timer):
     over the rank's (padded) heads at the longest serve prompt; the SA
     GEMM's column shards (wq, wk, wv, wg, wu, the lm_head at N / tp, M =
     4) per column; the row shards' raw fp32 chain (`sa_dot_chain`, wo and
-    wd at K / tp on the decode tile). Returns (readings, the worst error
-    over its bound of each kernel, the largest error of each)."""
+    wd at K / tp on the decode tile); then granite's expert pieces under a
+    `model` axis of 16 (`expert_shards`). Returns (readings, the worst
+    error over its bound of each kernel, the largest error of each)."""
     from repro_torch.configs import get_config
     from repro_torch.core.precision import PrecisionPolicy, sa_dot_chain
     from repro_torch.kernels import ops
@@ -6013,7 +6150,78 @@ def check_rank_shapes(torch, timer):
                         f"{v_['err_over_bound']:.4f} {v_['ms']:.4f} ms"
                         for n_, v_ in gem.items())
             + "; each column shard and rank head the whole call's bits")
+    out[EXPERT_SHARD_TAG] = {"gemm": expert_shards(torch, timer, g, hold,
+                                                   bits)}
     return out, worst, max_err
+
+
+# granite's experts on the JAX production mesh's `model` axis of 16, which
+# its 40 experts do not divide (tensor parallelism inside each expert):
+# (d_model, d_ff, model axis), and the M the dispatch gives an expert
+EXPERT_SHARD_TAG = "granite experts 1x16"
+EXPERT_SHARD = (1536, 512, 16)
+EXPERT_SHARD_M = (BATCH, 20, 512)
+
+
+def expert_shards(torch, timer, g, hold, bits):
+    """The SA GEMM at granite's expert pieces under a `model` axis of 16
+    (EXPERT_SHARD): wg and wu as (1536, 32) column pieces, each within
+    its plain version's bound and carrying the whole (1536, 512) call's
+    bits per column; wd as the row chain (`sa_dot_chain`) over K = 32,
+    two k16 steps, within the plain chain's bound; at each M of
+    EXPERT_SHARD_M, one piece of each timed. `hold` and `bits` are
+    `check_rank_shapes`'s. Returns the readings."""
+    from repro_torch.core.precision import PrecisionPolicy, sa_dot_chain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_matmul as mm
+
+    d, f, tp = EXPERT_SHARD
+    c = f // tp
+    tag = f"[rank shapes] {EXPERT_SHARD_TAG}"
+    out = {}
+    for m in EXPERT_SHARD_M:
+        a = torch.randn((m, d), generator=g, device="cuda").to(
+            torch.bfloat16)
+        for name, act in (("wg", "silu"), ("wu", "none")):
+            w = (torch.randn((d, f), generator=g, device="cuda")
+                 * d ** -0.5).to(torch.bfloat16)
+            y = ops.sa_matmul(a, w, act=act)
+            ratio = 0.0
+            for r in range(tp):
+                ws = w[:, r * c:(r + 1) * c].contiguous()
+                got = ops.sa_matmul(a, ws, act=act)
+                ref = mm.sa_matmul_ref(a, ws, act=act)
+                bnd = mm.error_bound(a, ws, None, "exact", y=ref)
+                ratio = max(ratio, hold(
+                    "gemm", f"{tag} {name} M {m} columns {r * c}:"
+                    f"{(r + 1) * c}", got, ref, bnd,
+                    bits(got, y[:, r * c:(r + 1) * c])))
+            out[f"{name} M={m}"] = {
+                "N": c, "pieces": tp, "err_over_bound": ratio,
+                "tile": mm.mma_plan(m, c, "mma")["tile"],
+                "ms": timer.wall(lambda: ops.sa_matmul(a, ws, act=act))}
+            del w, ws, y
+        h = torch.randn((m, c), generator=g, device="cuda").to(
+            torch.bfloat16)
+        wd = (torch.randn((c, d), generator=g, device="cuda")
+              * f ** -0.5).to(torch.bfloat16)
+        ops.reset_counts()
+        got = sa_dot_chain(h, wd, PrecisionPolicy(backend="cuda"))
+        launched = ops.counts()["sa_matmul"]["launches"]
+        ref = sa_dot_chain(h, wd, PrecisionPolicy(backend="torch"))
+        out[f"wd_chain M={m}"] = {
+            "K": c, "tile": mm.mma_plan(m, d, "mma")["tile"],
+            "err_over_bound": hold(
+                "gemm", f"{tag} wd chain M {m} K {c}", got, ref,
+                mm.error_bound(h, wd, y=ref),
+                launched == 1 and got.dtype == torch.float32),
+            "ms": timer.wall(lambda: sa_dot_chain(
+                h, wd, PrecisionPolicy(backend="cuda")))}
+    log(f"{tag}: " + ", ".join(
+        f"{k} {v.get('N', v.get('K'))} on {v['tile']}: err/bound "
+        f"{v['err_over_bound']:.4f}, {v['ms']:.4f} ms" for k, v in out.items())
+        + "; each column piece the whole call's bits")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6025,30 +6233,53 @@ def check_rank_shapes(torch, timer):
 # every rank's fp32 state (16 B a parameter) fits the one card beside the
 # others; (2, 2) takes its rows in one microbatch, since a second one's
 # gradient transients (the vocabulary shards' dW and the lookup's dense
-# gradient, 1.46 GiB each a rank) do not fit four ranks beside each other
-PARALLEL_RUNS = (("qwen2.5-14b", 2, (1, 2), TRAIN_ACCUM),
+# gradient, 1.46 GiB each a rank) do not fit four ranks beside each other;
+# granite (since PR 30) cut to PMOE_LAYERS of its 32 layers, EP at (1, 2)
+# (20 experts a rank) and EP with DP and the global load-balance loss at
+# (2, 2), in the worlds of qwen's runs of the same shape; since PR 30
+# qwen at (1, 2) and phi3 at (1, 4) cut to 1 layer (2 before), for the
+# whole run's time limit
+PMOE_LAYERS = 2
+# granite's serve on the mesh, on the moe phase's stream at the depth it
+# trains at (EP runs the same dispatch at every layer)
+PGRANITE_ARGS = GRANITE_ARGS[:-1] + [str(PMOE_LAYERS)]
+PARALLEL_RUNS = (("qwen2.5-14b", 1, (1, 2), TRAIN_ACCUM),
                  ("qwen2.5-14b", 1, (2, 2), 1),
-                 ("phi3-medium-14b", 2, (1, 4), TRAIN_ACCUM))
+                 ("phi3-medium-14b", 1, (1, 4), TRAIN_ACCUM),
+                 (GRANITE, PMOE_LAYERS, (1, 2), 1),
+                 (GRANITE, PMOE_LAYERS, (2, 2), 1))
 PARALLEL_STEPS = 3
 
 # the serve runs (serving under tensor parallelism), each in the torchrun
-# world of a training run above, after its steps, on weights of their own
-# drawn from the serve seed (a world's start is the dearest part of a short
-# run): qwen2.5-14b at full width and depth on the serve stream at (1, 2),
-# paged; the serve stream on one nccl rank at (1, 1); phi3-medium-14b at
-# full width cut to PSERVE_PHI3_LAYERS at (1, 4) (its 10 KV heads padded to
-# 12), paged, `--kv ring` and `--disagg`: one digest
-PSERVE_PHI3_LAYERS = 4
+# world of the training runs of its shape, after their steps, on weights
+# of their own drawn from the serve seed (a world's start is the dearest
+# part of a short run): qwen2.5-14b at full width cut to
+# PSERVE_QWEN_LAYERS (since PR 30; full depth before) on the serve stream
+# at (1, 2), paged; granite at full width cut to PMOE_LAYERS and
+# llama4-maverick at full width cut to one superblock, each on the moe
+# phase's granite stream at (1, 2), paged (since PR 30; granite held in
+# the parallel lane against a one-process serve of its own, llama4 after
+# the moe phase's one-process serve); the serve stream on one nccl rank at
+# (1, 1) (full depth: the serve phase's digest bit for bit);
+# phi3-medium-14b at full width cut to PSERVE_PHI3_LAYERS (4 before PR 30)
+# at (1, 4) (its 10 KV heads padded to 12), paged, `--kv ring` and
+# `--disagg`: one digest. Each: (key, driver arguments, runs)
+PSERVE_QWEN_LAYERS, PSERVE_PHI3_LAYERS = 12, 2
 PHI3_SERVE_ARGS = ["--arch", "phi3-medium-14b"] + SERVE_ARGS[2:]
 PSERVE_WORLDS = {
-    (1, 2): ("qwen", SERVE_ARGS + ["--model-parallel", "2"],
-             {"paged": []}),
-    (1, 1): ("nccl", SERVE_ARGS + ["--model-parallel", "1"],
-             {"paged": []}),
-    (1, 4): ("phi3", PHI3_SERVE_ARGS + [
+    (1, 2): (("qwen", SERVE_ARGS + ["--layers", str(PSERVE_QWEN_LAYERS),
+                                    "--model-parallel", "2"],
+              {"paged": []}),
+             ("granite", PGRANITE_ARGS + ["--model-parallel", "2"],
+              {"paged": []}),
+             ("llama4", LLAMA4_ARGS + ["--model-parallel", "2"],
+              {"paged": []})),
+    (1, 1): (("nccl", SERVE_ARGS + ["--model-parallel", "1"],
+              {"paged": []}),),
+    (1, 4): (("phi3", PHI3_SERVE_ARGS + [
         "--layers", str(PSERVE_PHI3_LAYERS), "--model-parallel", "4"],
         {"paged": [], "ring": ["--kv", "ring"],
-         "disagg": ["--disagg", "--prefill-workers", "2"]})}
+         "disagg": ["--disagg", "--prefill-workers", "2"]}),)}
 # ROADMAP R1's rule for a stream against the one-process stream: each
 # request's prefill logits within 2^-5 max|logit|, its tokens equal up to
 # the first position where the one-process top-two margin is below twice
@@ -6061,10 +6292,12 @@ PSERVE_KEYS = ("requests", "generated_tokens", "pages_leaked",
                "kv_layout", "stream_digest")
 
 
-def _parallel_reference(torch, cfg, accum):
+def _parallel_reference(torch, cfg, accum, routing_path=None):
     """The one-process step 0 on the launcher's weights and first global
     batch (seed 0) under `cuda`: (loss, {leaf path: fp32 gradient on the
-    host}); the card's memory is freed before it returns."""
+    host}); the card's memory is freed before it returns. With
+    `routing_path` (a MoE model) its routing (`_RoutingReplay`) is saved
+    there, for the sharded step 0 to replay (`serve_ranks`)."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import model as M
     from repro_torch.train.step import make_grad_fn
@@ -6074,7 +6307,13 @@ def _parallel_reference(torch, cfg, accum):
         p.requires_grad_(True)
     batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
         cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch_at(0).items()}
-    loss, _, grads = make_grad_fn(cfg, accum)(params, batch)
+    with _RoutingReplay() as rec:
+        rec.start("record" if routing_path else None)
+        loss, _, grads = make_grad_fn(cfg, accum)(params, batch)
+    if routing_path:
+        # written whole, then renamed: a world waits for the file
+        torch.save([i.cpu() for i in rec.idx], routing_path + ".tmp")
+        os.replace(routing_path + ".tmp", routing_path)
     host = {p.strip("/").replace("/", "."): g.detach().cpu()
             for p, g in _grad_leaves(torch, grads).items()}
     loss = float(loss)
@@ -6093,93 +6332,79 @@ def _torchrun_env():
                 PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
 
 
-def _parallel_start(arch, layers, shape, accum, grads: bool):
-    """Start `launch.train` under torchrun, data x model ranks on the one
-    card, PARALLEL_STEPS steps under `cuda`, the first step's gradients
-    written (`--grads-out`) where `grads`; in a world that PSERVE_WORLDS
-    names, this script's rank program (`--serve-ranks`) runs the
-    trainer's `main` and then that world's serve runs. Returns the run's
+def _routing_path(arch, layers):
+    """Where a MoE reference's step-0 routing is kept for the worlds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return os.path.join(root, "build", f"parallel_routing_{arch}_{layers}.pt")
+
+
+def _parallel_start(shape, runs, grads: bool):
+    """Start one torchrun world of data x model ranks on the one card:
+    this script's rank program (`--serve-ranks`) runs `launch.train` for
+    each PARALLEL_RUNS index in `runs` (PARALLEL_STEPS steps under `cuda`,
+    the first step's gradients written with `--grads-out` where `grads`;
+    a MoE model's step 0 replays the one-process reference's routing),
+    then the serve runs PSERVE_WORLDS gives the shape. Returns the world's
     handle for `_parallel_finish` (its output goes to files, so worlds can
     run side by side)."""
+    from repro_torch.configs import get_config
+
     dp, mp = shape
     n = dp * mp
     root = os.path.dirname(os.path.abspath(__file__))
-    out = os.path.join(root, "build", f"parallel_grads_{dp}x{mp}")
-    shutil.rmtree(out, ignore_errors=True)
-    train = ["--arch", arch, "--layers", str(layers), "--batch",
-             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum",
-             str(accum), "--steps", str(PARALLEL_STEPS), "--seed", "0",
-             "--model-parallel", str(mp)] + (["--grads-out", out] if grads
-                                             else [])
-    serve = PSERVE_WORLDS.get(shape)
     sdir = os.path.join(root, "build", f"pserve_{dp}x{mp}")
     shutil.rmtree(sdir, ignore_errors=True)
     os.makedirs(sdir)
-    if serve is None:
-        args = ["-m", "repro_torch.launch.train"] + train
-    else:
-        spec = os.path.join(sdir, "spec.json")
-        with open(spec, "w") as f:
-            json.dump({"train": train, "argv": serve[1], "runs": serve[2],
-                       "out": sdir, "prefill": serve[0] != "nccl"}, f)
-        args = [os.path.abspath(__file__), "--serve-ranks", spec]
+    trains, outs, routing = [], [], []
+    for t, i in enumerate(runs):
+        arch, layers, _, accum = PARALLEL_RUNS[i]
+        out = os.path.join(root, "build", f"parallel_grads_{dp}x{mp}_{t}")
+        shutil.rmtree(out, ignore_errors=True)
+        outs.append(out)
+        routing.append(_routing_path(arch, layers)
+                       if grads and get_config(arch).family == "moe"
+                       else None)
+        trains.append(["--arch", arch, "--layers", str(layers), "--batch",
+                       str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum",
+                       str(accum), "--steps", str(PARALLEL_STEPS), "--seed",
+                       "0", "--model-parallel", str(mp)]
+                      + (["--grads-out", out] if grads else []))
+    serves = [{"key": key, "argv": argv, "runs": sruns,
+               "prefill": key != "nccl"}
+              for key, argv, sruns in PSERVE_WORLDS.get(shape, ())]
+    spec = os.path.join(sdir, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"train": trains, "routing": routing, "serves": serves,
+                   "out": sdir}, f)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(n)] + args
+           "--nproc-per-node", str(n), os.path.abspath(__file__),
+           "--serve-ranks", spec]
     with open(os.path.join(sdir, "stdout"), "w") as fo, \
             open(os.path.join(sdir, "stderr"), "w") as fe:
         proc = subprocess.Popen(cmd, stdout=fo, stderr=fe,
                                 env=_torchrun_env())
-    return types.SimpleNamespace(
-        arch=arch, layers=layers, shape=shape, accum=accum, out=out,
-        serve=serve, sdir=sdir, proc=proc, t0=time.monotonic())
+    return types.SimpleNamespace(shape=shape, runs=tuple(runs), outs=outs,
+                                 grads=grads, routing=routing,
+                                 serves=serves, sdir=sdir, proc=proc,
+                                 t0=time.monotonic())
 
 
-def _parallel_finish(torch, h, ref_loss, ref):
-    """Wait for a `_parallel_start` run and check it. Returns (readings,
-    the serve results or None, problems): the backend line, each step's
-    loss, each rank's peak memory, step times (the first's includes
-    writing the gradients) and SA GEMM launches, and step 0 against the
-    one-process reference (its loss alone where `ref` is None)."""
+def _train_check(torch, i, t, h, lines, ranks_lines, ref_loss, ref):
+    """The world's t-th training run (PARALLEL_RUNS[i]) from its lines:
+    rank 0's step lines, each rank's t-th rank line, and step 0 against
+    the one-process reference (its loss alone where `ref` is None).
+    Returns (readings, problems)."""
     from repro_torch.launch.train import read_grads
 
-    arch, layers, shape, accum = h.arch, h.layers, h.shape, h.accum
-    out, serve, sdir = h.out, h.serve, h.sdir
-    dp, mp = shape
+    arch, layers, _, accum = PARALLEL_RUNS[i]
+    dp, mp = h.shape
     n = dp * mp
-    root = os.path.dirname(os.path.abspath(__file__))
-    try:
-        h.proc.wait(timeout=900)
-    except subprocess.TimeoutExpired:
-        h.proc.kill()
-        h.proc.wait()
-    wall = time.monotonic() - h.t0
-    res = types.SimpleNamespace(returncode=h.proc.returncode)
-    with open(os.path.join(sdir, "stdout")) as fo, \
-            open(os.path.join(sdir, "stderr")) as fe:
-        res.stdout, res.stderr = fo.read(), fe.read()
-    lines = res.stdout.splitlines()
+    out = h.outs[t]
     tag = f"[parallel {arch} {layers}L {dp}x{mp} accum {accum}]"
     problems = []
-    if res.returncode != 0:
-        # the first rank's error, which the others' teardown follows
-        err = res.stderr.splitlines()
-        i = next((j for j, ln in enumerate(err) if "Error" in ln
-                  and "elastic" not in ln), len(err))
-        log(res.stdout[-3000:])
-        log("\n".join(err[max(0, i - 40):i + 2]))
-        with open(os.path.join(root, "build", f"parallel_{dp}x{mp}.err"),
-                  "w") as f:
-            f.write(res.stderr)
-        return {}, None, [f"{tag} exit code {res.returncode}"]
-    want = "nccl" if n == 1 else "gloo"
-    first = lines[0] if lines else ""
-    if not first.startswith(f"[mesh] backend={want} world={n} data={dp} "
-                            f"model={mp} device=cuda"):
-        problems.append(f"{tag} first line {first!r}")
-    steps = [json.loads(ln) for ln in lines if ln.startswith("{")]
-    # the trainer's rank lines (the serve driver's carry a digest)
-    rank_lines = [ln for ln in lines if ln.startswith("[rank ")
-                  and " step_s=" in ln]
+    steps = [json.loads(ln) for ln in lines if ln.startswith("{")][
+        t * PARALLEL_STEPS:(t + 1) * PARALLEL_STEPS]
+    rank_lines = [mine[t] for mine in ranks_lines if len(mine) > t]
     ranks = [_summary_fields(ln) for ln in rank_lines]
     if (len(steps) != PARALLEL_STEPS
             or not all(math.isfinite(st["loss"]) for st in steps)):
@@ -6208,7 +6433,7 @@ def _parallel_finish(torch, h, ref_loss, ref):
             lambda p, sp: specs.__setitem__(".".join(map(str, p)), sp),
             param_specs(dataclasses.replace(get_config(arch),
                                             num_layers=layers),
-                        MeshSpec(("data", "model"), shape)),
+                        MeshSpec(("data", "model"), h.shape)),
             is_leaf=lambda x: isinstance(x, P))
     for path, g in (ref or {}).items():
         got = torch.from_numpy(read_grads(out, path, specs[path])).cuda()
@@ -6228,41 +6453,107 @@ def _parallel_finish(torch, h, ref_loss, ref):
         problems.append(f"{tag} step 0 loss {loss0} against {ref_loss}")
     if rel[worst] > TRAIN_GRAD_REL:
         problems.append(f"{tag} leaf {worst} rel {rel[worst]:.3e}")
+    held = h.routing[t] is not None
     readings = {
-        "backend": first.split()[1].split("=")[1] if first else None,
-        "wall_s": round(wall, 2), "losses": [st["loss"] for st in steps],
+        "losses": [st["loss"] for st in steps], "routing_held": held,
         "step0_loss_rel": loss_rel, "grad_rel_max": rel[worst],
         "grad_rel_worst_leaf": worst, "leaves": len(rel),
         "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
         "step_s": [r["step_s"] for r in ranks],
         "sa_matmul_launches": [r["sa_matmul_launches"] for r in ranks]}
-    log(f"{tag} backend {readings['backend']}, wall {wall:.1f} s (start, "
-        f"init, {PARALLEL_STEPS} steps, gradients out"
-        + (", then the serve runs" if serve else "") + "); losses "
-        f"{readings['losses']}; step 0 against the one-process step: loss "
-        f"rel {loss_rel:.3e} (bound {TRAIN_LOSS_REL:.3e}), {len(rel)} "
-        f"leaves, max rel {rel[worst]:.3e} at {worst} (bound "
-        f"{TRAIN_GRAD_REL:.3e})")
+    log(f"{tag} losses {readings['losses']}; step 0 against the "
+        f"one-process step" + (" (on its routing)" if held else "")
+        + f": loss rel {loss_rel:.3e} (bound "
+        f"{TRAIN_LOSS_REL:.3e}), {len(rel)} leaves, max rel "
+        f"{rel[worst]:.3e} at {worst} (bound {TRAIN_GRAD_REL:.3e})")
     for r in rank_lines:
         log(f"{tag} {r}")
-    served = None
-    if serve is not None:
-        served, p = _served(torch, serve[0], n, serve[2], sdir, lines, wall)
+    return readings, problems
+
+
+def _parallel_finish(torch, h, refs):
+    """Wait for a `_parallel_start` world and check it. Returns (readings
+    by training run, the serve results by key, problems): the backend
+    line, each training run's losses, each rank's peak memory, step times
+    (the first's includes writing the gradients) and SA GEMM launches,
+    step 0 against the one-process reference `refs[i]` (its loss alone
+    without `grads`); then the serve runs (`_served`)."""
+    dp, mp = h.shape
+    n = dp * mp
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        h.proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        h.proc.kill()
+        h.proc.wait()
+    wall = time.monotonic() - h.t0
+    res = types.SimpleNamespace(returncode=h.proc.returncode)
+    with open(os.path.join(h.sdir, "stdout")) as fo, \
+            open(os.path.join(h.sdir, "stderr")) as fe:
+        res.stdout, res.stderr = fo.read(), fe.read()
+    lines = res.stdout.splitlines()
+    tag = f"[parallel {dp}x{mp}]"
+    if res.returncode != 0:
+        # the first rank's error, which the others' teardown follows
+        err = res.stderr.splitlines()
+        i = next((j for j, ln in enumerate(err) if "Error" in ln
+                  and "elastic" not in ln), len(err))
+        log(res.stdout[-3000:])
+        log("\n".join(err[max(0, i - 40):i + 2]))
+        with open(os.path.join(root, "build", f"parallel_{dp}x{mp}.err"),
+                  "w") as f:
+            f.write(res.stderr)
+        return {}, {}, [f"{tag} exit code {res.returncode}"]
+    problems = []
+    want = "nccl" if n == 1 else "gloo"
+    mesh = [ln for ln in lines if ln.startswith("[mesh]")]
+    n_mesh = len(h.runs) + sum(len(sv["runs"]) for sv in h.serves)
+    if len(mesh) != n_mesh or any(
+            not ln.startswith(f"[mesh] backend={want} world={n} data={dp} "
+                              f"model={mp} device=cuda") for ln in mesh):
+        problems.append(f"{tag} mesh lines {mesh} (want {n_mesh})")
+    if not lines or not lines[0].startswith("[mesh]"):
+        problems.append(f"{tag} first line {lines[:1]}")
+    # each rank's trainer lines in order, one a training run
+    ranks_lines = [[ln for ln in lines if ln.startswith(f"[rank {r}] ")
+                    and " step_s=" in ln] for r in range(n)]
+    readings = {}
+    for t, i in enumerate(h.runs):
+        ref_loss, ref = refs[i]
+        r, p = _train_check(torch, i, t, h, lines, ranks_lines, ref_loss,
+                            ref if h.grads else None)
+        arch, layers = PARALLEL_RUNS[i][:2]
+        readings[f"{arch}_{layers}L_{dp}x{mp}"] = r | {
+            "backend": want, "world_wall_s": round(wall, 2)}
         problems += p
-    shutil.rmtree(sdir, ignore_errors=True)
+    log(f"{tag} backend {want}, wall {wall:.1f} s (start, init, "
+        f"{len(h.runs)} training runs of {PARALLEL_STEPS} steps"
+        + (", then the serve runs" if h.serves else "") + ")")
+    served = {}
+    for sv in h.serves:
+        served[sv["key"]], p = _served(torch, sv["key"], n, sv["runs"],
+                                       h.sdir, lines, wall)
+        problems += p
+    shutil.rmtree(h.sdir, ignore_errors=True)
     return readings, served, problems
 
 
 def serve_ranks(spec_path: str) -> int:
-    """The rank program of a parallel world that also serves
-    (`chip_smoke.py --serve-ranks SPEC` under torchrun): the trainer's
-    `launch.train.main` on the spec's `train` arguments, its state freed,
-    then `launch.serve.main` once a run of the spec on this world's mesh,
-    the first drawing this rank's shards from the serve seed and the
-    others serving the same shards; each run's summary, streams, prompts,
-    launches (`ops.counts()` from 0 just before it) and peak memory to
-    `rank<r>.json`, and (where the spec asks) the first run's prefill
-    logits of each prompt to `prefill.pt` (rank 0)."""
+    """The rank program of a parallel world (`chip_smoke.py --serve-ranks
+    SPEC` under torchrun): `launch.train.main` on each of the spec's
+    `train` argument lists (step 0 replaying the routing file its
+    `routing` entry names, where it names one), its state freed after
+    each, then for each of
+    the spec's `serves` `launch.serve.main` once a run on this world's
+    mesh, the first drawing this rank's shards from the serve seed and the
+    others serving the same shards (freed before the next serve); each
+    run's summary, streams, prompts, decode steps, launches (`ops.counts()`
+    from 0 just before it) and peak memory to `rank<r>_<key>.json`, and
+    (where the serve asks) the first run's prefill logits of each prompt
+    to `prefill_<key>.pt` and, for a MoE model, each prefill's routing
+    (each MoE layer's top-k experts of every token, and the router's
+    probabilities they were taken from) to `routing_<key>.pt`
+    (rank 0)."""
     import torch
     import torch.distributed as dist
 
@@ -6276,79 +6567,106 @@ def serve_ranks(spec_path: str) -> int:
     with open(spec_path) as f:
         spec = json.load(f)
     cuda = torch.cuda.is_available()    # the CPU: a rehearsal
-    trn.main(spec["train"])
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
-    params, out = None, {}
-    for i, (name, extra) in enumerate(spec["runs"].items()):
-        ops.reset_counts()
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.monotonic()
-        summary, sched, engine = drv.main(spec["argv"] + extra,
-                                          return_state=True, params=params)
-        if cuda:
-            torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        params = engine.params
-        c = ops.counts()
-        done = sorted(sched.finished, key=lambda r: r.rid)
-        out[name] = {
-            "wall_s": wall, "summary": {k: summary.get(k)
-                                        for k in PSERVE_KEYS},
-            "launches": {k: v["launches"] for k, v in c.items()},
-            "plain_calls": sum(v["plain_calls"] for v in c.values()),
-            "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
-                         if cuda else None),
-            "streams": [list(map(int, r.tokens)) for r in done],
-            "prompts": [list(map(int, r.prompt)) for r in done]}
-        if i == 0 and spec["prefill"]:
-            rows = []
-            with S.using_mesh(engine.mesh):
-                for p in out[name]["prompts"]:
-                    toks = torch.tensor([p], dtype=torch.int32,
-                                        device=engine.device)
-                    logits, _ = engine._prefill_for(0)(
-                        engine.params, toks, engine.new_frag(len(p)))
-                    rows.append(logits[0, -1].float().cpu())
-            if dist.get_rank() == 0:
-                torch.save(torch.stack(rows),
-                           os.path.join(spec["out"], "prefill.pt"))
-        del engine, sched
+
+    def free():
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-    with open(os.path.join(spec["out"], f"rank{dist.get_rank()}.json"),
-              "w") as f:
-        json.dump(out, f)
+
+    for argv, routing in zip(spec["train"], spec["routing"]):
+        # a MoE step 0 on the one-process reference's routing (ROADMAP
+        # R8: a near-tied token routed otherwise moves the router's and
+        # an expert's gradients by far more than the arithmetic does);
+        # the later steps route freely
+        with _RoutingReplay() as rec:
+            if routing:
+                # the reference may still be computing it beside the world
+                t0 = time.monotonic()
+                while (not os.path.exists(routing)
+                       and time.monotonic() - t0 < 600):
+                    time.sleep(1)
+                rec.idx = torch.load(routing)
+                rec.start("replay")
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            trn.main(argv)
+        free()
+    for sv in spec["serves"]:
+        params, out = None, {}
+        for i, (name, extra) in enumerate(sv["runs"].items()):
+            ops.reset_counts()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            summary, sched, engine = drv.main(sv["argv"] + extra,
+                                              return_state=True,
+                                              params=params)
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            params = engine.params
+            c = ops.counts()
+            done = sorted(sched.finished, key=lambda r: r.rid)
+            out[name] = {
+                "wall_s": wall, "summary": {k: summary.get(k)
+                                            for k in PSERVE_KEYS},
+                "launches": {k: v["launches"] for k, v in c.items()},
+                "plain_calls": sum(v["plain_calls"] for v in c.values()),
+                "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                             if cuda else None),
+                "decode_steps": _decode_steps(engine, sched),
+                "streams": [list(map(int, r.tokens)) for r in done],
+                "prompts": [list(map(int, r.prompt)) for r in done]}
+            if i == 0 and sv["prefill"]:
+                rows, routes, scores = [], [], []
+                with S.using_mesh(engine.mesh), _RoutingReplay() as rec:
+                    for p in out[name]["prompts"]:
+                        toks = torch.tensor([p], dtype=torch.int32,
+                                            device=engine.device)
+                        rec.start("record")
+                        logits, _ = engine._prefill_for(0)(
+                            engine.params, toks, engine.new_frag(len(p)))
+                        rows.append(logits[0, -1].float().cpu())
+                        routes.append([x.cpu() for x in rec.idx])
+                        scores.append([x.cpu() for x in rec.scores])
+                if dist.get_rank() == 0:
+                    torch.save(torch.stack(rows), os.path.join(
+                        spec["out"], f"prefill_{sv['key']}.pt"))
+                    if engine.cfg.family == "moe":
+                        torch.save({"idx": routes, "scores": scores},
+                                   os.path.join(spec["out"],
+                                                f"routing_{sv['key']}.pt"))
+            del engine, sched
+            free()
+        with open(os.path.join(spec["out"], f"rank{dist.get_rank()}_"
+                                            f"{sv['key']}.json"), "w") as f:
+            json.dump(out, f)
+        del params
+        free()
     dist.barrier()
     dist.destroy_process_group()
     return 0
 
 
 def _served(torch, key, n, runs, sdir, lines, wall):
-    """A world's serve runs from its ranks' files and lines: every rank
-    one digest a run, the runs one digest, no plain call, each kernel
-    launched, the serve driver's mesh line (and on one nccl rank its
-    summary and rank line). Returns (the results, problems); the streams
-    are held to the one-process ones after the serve phase
-    (`parallel_serve_check`)."""
+    """A world's serve runs of `key` from its ranks' files and lines:
+    every rank one digest a run, the runs one digest, no plain call, each
+    kernel launched (and on one nccl rank the serve driver's summary and
+    rank line). Returns (the results, problems); the streams are held to
+    the one-process ones after the serve phase (`parallel_serve_check`)
+    and the moe phase (`moe_parallel_check`)."""
     ranks = []
     for r in range(n):
-        with open(os.path.join(sdir, f"rank{r}.json")) as f:
+        with open(os.path.join(sdir, f"rank{r}_{key}.json")) as f:
             ranks.append(json.load(f))
-    pre = os.path.join(sdir, "prefill.pt")
-    prefill = torch.load(pre) if os.path.exists(pre) else None
-    shutil.rmtree(sdir, ignore_errors=True)
+
+    def load(name):
+        path = os.path.join(sdir, f"{name}_{key}.pt")
+        return torch.load(path) if os.path.exists(path) else None
+
+    prefill, routing = load("prefill"), load("routing")
     tag = f"[parallel_serve {key} 1x{n}]"
     problems = []
-    backend = "nccl" if n == 1 else "gloo"
-    mesh = [ln for ln in lines if ln.startswith("[mesh]")]
-    if len(mesh) != 1 + len(runs) or any(
-            not ln.startswith(f"[mesh] backend={backend} world={n} data=1 "
-                              f"model={n} device=cuda") for ln in mesh):
-        problems.append(f"{tag} mesh lines {mesh}")
     for run in runs:
         digests = {r[run]["summary"]["stream_digest"] for r in ranks}
         if len(digests) != 1:
@@ -6369,13 +6687,17 @@ def _served(torch, key, n, runs, sdir, lines, wall):
             f"{ranks[0][run]['wall_s']:.1f} s (init + serve), ITL p50 "
             f"{s['decode_itl_p50_ms']} ms, TTFT mean {s['ttft_mean_s']} s, "
             f"prefill_s {s['prefill_s']}, decode_tok_s "
-            f"{s['decode_tok_s']}; per rank: peak "
+            f"{s['decode_tok_s']}; per rank: ITL p50 "
+            f"{[r[run]['summary']['decode_itl_p50_ms'] for r in ranks]} ms, "
+            f"TTFT mean {[r[run]['summary']['ttft_mean_s'] for r in ranks]}"
+            f" s, peak "
             f"{[r[run]['peak_gib'] and round(r[run]['peak_gib'], 3) for r in ranks]} GiB, "
             f"launches {[r[run]['launches'] for r in ranks]}")
     d = {run: ranks[0][run]["summary"]["stream_digest"] for run in runs}
     if len(set(d.values())) != 1:
         problems.append(f"{tag} the runs' digests {d}")
-    out = {"ranks": ranks, "prefill": prefill, "wall_s": wall}
+    out = {"ranks": ranks, "prefill": prefill, "routing": routing,
+           "wall_s": wall}
     if key == "nccl":
         # the serve driver's own lines on one rank
         summ = [_summary_fields(ln) for ln in lines
@@ -6392,16 +6714,98 @@ def _served(torch, key, n, runs, sdir, lines, wall):
     return out, problems
 
 
+# the parallel lane (`--lane-parallel`): its marks, output and result
+LANE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "lane")
+GO_2X2, DONE_2X2, DONE_1X2 = "go_2x2", "done_2x2", "done_1x2"
+
+
+def parallel_lane(result: str) -> int:
+    """`chip_smoke.py --lane-parallel RESULT`, which the main process starts
+    after the kernel phase and runs beside its own phases: the parallel
+    phase (`parallel`), then the checks that need only its worlds and a
+    one-process serve of their own (qwen's and phi3's streams,
+    `parallel_serve_check`; granite's, against a one-process serve at
+    PMOE_LAYERS on its stream, `moe_parallel_check`). Writes
+    {"readings", "served", "held", "granite", "wall_s"} (or {"error"}) to RESULT with `torch.save`; exit code 0 when every
+    check held."""
+    import traceback
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    t0 = time.monotonic()
+    try:
+        card = smi("name,power.limit")
+        readings, served = parallel(torch, card)
+        t = time.monotonic()
+        held = parallel_serve_check(torch, served)
+        log(f"[parallel_lane] the one-process references of qwen and phi3 "
+            f"{time.monotonic() - t:.1f} s")
+        t = time.monotonic()
+        _, _, engine, sched = _serve_backend(
+            torch, "cuda", PGRANITE_ARGS, 8, MAX_NEW)
+        granite, problems = moe_parallel_check(torch, engine, sched,
+                                               "granite", served)
+        del engine, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[parallel_lane] granite's one-process reference "
+            f"{time.monotonic() - t:.1f} s")
+        if problems:
+            raise AssertionError("moe granite parallel check failed: "
+                                 + "; ".join(problems))
+        torch.save({"readings": readings, "served": served, "held": held,
+                    "granite": granite, "wall_s": time.monotonic() - t0},
+                   result)
+        return 0
+    except BaseException:
+        text = traceback.format_exc()
+        log(text)
+        torch.save({"error": text[-4000:]}, result)
+        return 1
+
+
+def _signal(name: str):
+    """Mark `name` reached, for the other process of the run (the parallel
+    lane and this script's main process hand the card's memory to each
+    other by these marks)."""
+    path = os.path.join(LANE_DIR, name)
+    with open(path + ".tmp", "w") as f:
+        f.write(str(time.monotonic()))
+    os.replace(path + ".tmp", path)
+
+
+def _wait_signal(name: str, alive, timeout: float = 900.0) -> float:
+    """Wait until `_signal(name)` or until `alive()` turns false (the other
+    process ended; `_signal` may have come first). Returns the seconds
+    waited; raises after `timeout`."""
+    t0 = time.monotonic()
+    path = os.path.join(LANE_DIR, name)
+    while not os.path.exists(path):
+        if not alive():
+            break
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"no {name} after {timeout:.0f} s")
+        time.sleep(0.5)
+    return time.monotonic() - t0
+
+
 def parallel(torch, card):
     """The parallel phase: each PARALLEL_RUNS entry's one-process step 0
     in this process (its memory freed after), then the launcher under
-    torchrun on the mesh, the ranks sharing the card over gloo; after the
-    (2, 2) run, its model on one rank under nccl (`--model-parallel 1`,
-    step 0's loss against the same reference). The worlds PSERVE_WORLDS
-    names serve after their steps. Worlds run beside the next
-    references, and the nccl rank beside the (1, 4) world, where the card
-    holds both. Returns (the training readings, the serve results by
-    key); raises on any problem."""
+    torchrun on the mesh, the ranks sharing the card over gloo, the runs
+    of one shape in one world; after the (2, 2) and (1, 2) worlds, qwen's
+    1-layer model on one rank under nccl (`--model-parallel 1`, step 0's
+    loss against the same reference), then the (1, 4) world. The worlds
+    PSERVE_WORLDS names serve after their steps. The phase runs in a lane
+    of its own (`parallel_lane`) beside the main process's phases: the
+    (2, 2) world (61 GiB) starts once the main process signals GO_2X2 and
+    signals DONE_2X2 when it has ended; the worlds after it hold at most
+    35 GiB, one at a time, the (1, 2) world (35 GiB) signalling DONE_1X2
+    when it has ended. Returns (the training readings, the serve
+    results by key); raises on any problem."""
     from repro_torch.configs import get_config
 
     os.environ["REPRO_GEMM_BACKEND"] = "cuda"
@@ -6410,45 +6814,54 @@ def parallel(torch, card):
     log(f"[parallel] this process holds "
         f"{torch.cuda.memory_allocated() / gib:.2f} GiB "
         f"({torch.cuda.memory_reserved() / gib:.2f} reserved) of the card")
-    refs = {}
+    refs, by_cfg = {}, {}
 
     def reference(i):
         arch, layers, _, accum = PARALLEL_RUNS[i]
-        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
-        t = time.monotonic()
-        refs[i] = _parallel_reference(torch, cfg, accum)
-        log(f"[parallel {arch} {layers}L] one-process step 0: loss "
-            f"{refs[i][0]:.6f} in {time.monotonic() - t:.1f} s")
+        key = (arch, layers, accum)
+        if key not in by_cfg:
+            cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+            t = time.monotonic()
+            by_cfg[key] = _parallel_reference(
+                torch, cfg, accum, _routing_path(arch, layers)
+                if cfg.family == "moe" else None)
+            log(f"[parallel {arch} {layers}L] one-process step 0: loss "
+                f"{by_cfg[key][0]:.6f} in {time.monotonic() - t:.1f} s")
+        refs[i] = by_cfg[key]
 
-    def start(i, shape=None):
-        arch, layers, sh, accum = PARALLEL_RUNS[i]
-        return _parallel_start(arch, layers, shape or sh, accum,
-                               grads=shape is None)
-
-    def finish(i, h):
-        r, s, p = _parallel_finish(torch, h, refs[i][0],
-                                   refs[i][1] if h.shape != (1, 1)
-                                   else None)
-        arch, layers = PARALLEL_RUNS[i][:2]
-        out[f"{arch}_{layers}L_{h.shape[0]}x{h.shape[1]}"] = r
-        if s is not None:
-            served[PSERVE_WORLDS[h.shape][0]] = s
+    def finish(h):
+        r, s, p = _parallel_finish(torch, h, refs)
+        out.update(r)
+        served.update(s)
         problems.extend(p)
 
-    # the card holds at once: the (1, 2) world (2 x 19.2 GiB) beside the
-    # other two references (at most ~20 GiB, in this process, while it
-    # runs); the (2, 2) world alone (4 x 15.3 GiB); the nccl rank (30.5
-    # GiB) beside the (1, 4) world (4 x 8.0 GiB)
-    reference(0)
-    h = start(0)
-    reference(1)
-    reference(2)
-    finish(0, h)
-    finish(1, start(1))
-    h11, h14 = start(1, (1, 1)), start(2)
-    finish(1, h11)
-    finish(2, h14)
+    # the card holds, beside the main process's phases: the references
+    # (at most ~20 GiB, in this process); the (2, 2) world (4 x 15.3 GiB)
+    # while the main process holds at most ~10 GiB; then the (1, 2) world
+    # (2 x 17.1 GiB training, then llama4's superblock, 2 x 17.6 GiB), the
+    # nccl rank (30.5 GiB) and the (1, 4) world (4 x 6.4 GiB), one at a
+    # time, while the main process serves qwen (~30 GiB)
+    for i in (3, 4):      # no routing of an earlier run
+        arch, layers = PARALLEL_RUNS[i][:2]
+        if os.path.exists(_routing_path(arch, layers)):
+            os.remove(_routing_path(arch, layers))
+    for i in (3, 0, 1, 2):
+        reference(i)
+    refs[4] = refs[3]
+    parent = os.getppid()
+    waited = _wait_signal(GO_2X2, lambda: os.getppid() == parent)
+    if os.getppid() != parent:
+        raise AssertionError("the main process ended")
+    log(f"[parallel] the (2, 2) world waited {waited:.1f} s for the main "
+        f"process's low-memory phases")
+    finish(_parallel_start((2, 2), (1, 4), grads=True))
+    _signal(DONE_2X2)
+    finish(_parallel_start((1, 2), (0, 3), grads=True))
+    _signal(DONE_1X2)
+    finish(_parallel_start((1, 1), (1,), grads=False))
+    finish(_parallel_start((1, 4), (2,), grads=True))
     refs.clear()
+    by_cfg.clear()
     gc.collect()
     log(f"[parallel] {card}")
     if problems:
@@ -6456,32 +6869,74 @@ def parallel(torch, card):
     return out, served
 
 
-def _r1_hold(torch, engine, ref, tag, ranks, prefill, run):
+def _r1_hold(torch, engine, ref, tag, ranks, prefill, run, routing=None):
     """A tensor-parallel run's streams and prefill logits against the
     one-process `engine` and its streams `ref` (rid order) on the same
     prompts by R1's rule
     (`PSERVE_REL`); returns (tokens equal, tokens, the worst prefill
-    error over its bound). A stream that parts from the one-process one
-    must part at or after a position whose one-process top-two margin
-    (a full forward over the prompt and the one-process tokens) is below
-    twice the bound."""
+    error over its bound, problems, routing). A stream that parts from the
+    one-process one must part at or after a position whose one-process
+    top-two margin (a full forward over the prompt and the one-process
+    tokens) is below twice the bound. With `routing` (a MoE model: each
+    prompt's prefill routing on the mesh, {"idx": a (1, T, k) tensor a
+    MoE layer, "scores": the router's (1, T, E) probabilities}), the
+    one-process prefill's own routing is recorded and its logits are held
+    on the mesh's routing (replayed); a prompt whose routing did not part
+    is also held on one process's own routing, and where it parted, the
+    first layer where a token's expert set differs is held by the routing
+    analogue of R1's near-tie rule (`_routing_gate`). The last value
+    returned is {"parted": a prompt, (that layer, the tokens whose set
+    differs there) or None, "gate": a prompt, that layer's readings or
+    None, "free_prefill_err_over_bound": the prefill logits on one
+    process's own routing where it did not part}."""
     from repro_torch.models import model as M
 
     got = ranks[0][run]
     equal = total = 0
-    worst = 0.0
-    problems = []
+    worst = free_worst = 0.0
+    problems, parted, gates = [], [], []
     for i, (prompt, toks) in enumerate(zip(got["prompts"], got["streams"])):
         if prompt != ref[i][0]:
             problems.append(f"{tag} {run} request {i}: another prompt")
             continue
         ref_toks = ref[i][1]
         t = torch.tensor([prompt], dtype=torch.int32, device=engine.device)
-        logits, _ = engine._prefill_for(0)(engine.params, t,
-                                           engine.new_frag(len(prompt)))
-        one = logits[0, -1, :engine.cfg.vocab_size].float()
         tp = prefill[i][:engine.cfg.vocab_size].to(engine.device)
+
+        def prefill_logits(mode, idx=()):
+            with _RoutingReplay() as rec:
+                rec.idx = list(idx)
+                rec.start(mode)
+                logits, _ = engine._prefill_for(0)(
+                    engine.params, t, engine.new_frag(len(prompt)))
+            return (logits[0, -1, :engine.cfg.vocab_size].float(), rec.idx,
+                    rec.scores)
+
+        one, free_idx, free_scores = prefill_logits(
+            "record" if routing else None)
         bound = PSERVE_REL * float(one.abs().max())
+        if routing is not None:
+            first, gate = None, None
+            for layer, (a, b) in enumerate(zip(free_idx, routing["idx"][i])):
+                diff = (a.sort(-1).values.cpu() != b.sort(-1).values).any(-1)
+                if diff.any():
+                    first = (layer, int(diff.sum()))
+                    gate, p = _routing_gate(
+                        torch, free_scores[layer].cpu(),
+                        routing["scores"][i][layer], diff, a.shape[-1],
+                        f"{tag} {run} request {i} layer {layer}")
+                    problems += p
+                    break
+            parted.append(first)
+            gates.append(gate)
+            if first is None:
+                # one routing on both sides: the free logits are held too
+                free_worst = max(free_worst,
+                                 float((tp - one).abs().max()) / bound)
+            # the logits held on the mesh's own routing: a token routed
+            # otherwise at a near tie (R8) moves them past any arithmetic
+            # bound
+            one, _, _ = prefill_logits("replay", routing["idx"][i])
         worst = max(worst, float((tp - one).abs().max()) / bound)
         same = [a == b for a, b in zip(toks, ref_toks)]
         equal += sum(same)
@@ -6500,49 +6955,52 @@ def _r1_hold(torch, engine, ref, tag, ranks, prefill, run):
                             f"with every margin up to it above "
                             f"{2 * bound:.4f}: {margins[:j + 1]}")
         del full
-    if worst > 1.0:
+    if worst > 1.0 or free_worst > 1.0:
         problems.append(f"{tag} {run} prefill logits {worst:.3f} of the "
-                        f"bound")
-    return equal, total, worst, problems
+                        f"bound on the mesh's routing, {free_worst:.3f} on "
+                        f"one process's own where it did not part")
+    routes = {"parted": parted, "gate": gates,
+              "free_prefill_err_over_bound": free_worst}
+    return equal, total, worst, problems, routes if routing else None
 
 
-def parallel_serve_check(torch, engine, serve_summary, serve_sched,
-                         serve_launches, ps):
-    """The parallel worlds' serve runs against the one-process streams:
-    qwen's at (1, 2) against the serve phase's stream (R1's rule), its
-    launches on every rank equal to the serve phase's (the same GEMMs on
-    shards); the nccl rank's digest equal to the serve phase's bit for
-    bit, its launches too; phi3's three at (1, 4) against its one-process
-    stream at the same depth, served here, the paged run's launches on
-    each rank equal to that run's. Returns the readings; raises on any
+def _routing_gate(torch, one, mesh, diff, k, tag):
+    """The routing analogue of R1's near-tie rule at the first MoE layer
+    where a prompt's routing parts from one process. Every layer before
+    it routed alike, so the two sides' router probabilities there (`one`,
+    `mesh`: (1, T, E)) differ by arithmetic alone: their largest
+    difference, the spread, must stay within R1's bound (PSERVE_REL of
+    the largest probability), and every token whose expert set differs
+    (`diff`) must sit at a one-process top-k margin (its k-th probability
+    less its (k+1)-th) of at most twice the spread, the most by which two
+    probabilities can trade places through arithmetic. A token routed
+    otherwise past that margin is a fault of the dispatch, not a near
+    tie. Returns (readings, problems)."""
+    spread = float((one - mesh).abs().max())
+    bound = PSERVE_REL * float(one.abs().max())
+    top = one.sort(-1, descending=True).values
+    margin = (top[..., k - 1] - top[..., k])[diff]
+    worst = float(margin.max())
+    out = {"tokens": int(diff.sum()), "spread": spread,
+           "spread_over_bound": spread / bound,
+           "margin_max": worst, "margin_over_2spread":
+               worst / (2 * spread) if spread else math.inf}
+    problems = []
+    if spread > bound:
+        problems.append(f"{tag}: the router's probabilities part by "
+                        f"{spread:.3e}, above R1's {bound:.3e}")
+    if worst > 2 * spread:
+        problems.append(f"{tag}: a token routed otherwise at a top-{k} "
+                        f"margin of {worst:.3e}, above twice the spread "
+                        f"{spread:.3e}")
+    return out, problems
+
+
+def nccl_serve_check(serve_summary, serve_launches, ps):
+    """The nccl rank's serve (full depth, one rank) against the serve
+    phase's: the digest and launches equal bit for bit. Raises on any
     problem."""
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve as drv
-
-    problems, out = [], {}
-
-    def streams(sched):
-        return [(list(map(int, r.prompt)), list(map(int, r.tokens)))
-                for r in sorted(sched.finished, key=lambda r: r.rid)]
-
-    q = ps["qwen"]
-    for run in q["ranks"][0]:
-        eq, n, worst, p = _r1_hold(torch, engine, streams(serve_sched),
-                                   "[parallel_serve qwen]", q["ranks"],
-                                   q["prefill"], run)
-        problems += p
-        out[f"qwen_{run}"] = {"equal_tokens": f"{eq}/{n}",
-                              "prefill_err_over_bound": worst}
-        log(f"[parallel_serve qwen 1x2] {run} against the serve phase: "
-            f"{eq} of {n} tokens equal, prefill logits {worst:.4f} of the "
-            f"bound (R1)")
-    for r, got in enumerate(q["ranks"]):
-        mine = {k: got["paged"]["launches"][k] for k in (
-            "sa_matmul", "paged_decode", "prefill_attention")}
-        want = {k: serve_launches[k] for k in mine}
-        if mine != want:
-            problems.append(f"[parallel_serve qwen 1x2] rank {r} launches "
-                            f"{mine} against the one-process {want}")
+    problems = []
     nccl = ps["nccl"]
     if nccl["summary"]["stream_digest"] != serve_summary["stream_digest"]:
         problems.append(f"[parallel_serve nccl] digest "
@@ -6558,34 +7016,55 @@ def parallel_serve_check(torch, engine, serve_summary, serve_sched,
     log(f"[parallel_serve qwen 1x1 nccl] digest "
         f"{nccl['summary']['stream_digest']}, the serve phase's "
         f"{serve_summary['stream_digest']}")
-    # phi3: its one-process stream at the same depth, and its launches
-    # (unaligned, padded: still the same GEMMs on shards)
-    ops.reset_counts()
-    summary, sched, ph = drv.main(PHI3_SERVE_ARGS + [
-        "--layers", str(PSERVE_PHI3_LAYERS)], return_state=True)
-    one = {k: v["launches"] for k, v in ops.counts().items()}
-    p = ps["phi3"]
-    for r, got in enumerate(p["ranks"]):
-        mine = {k: got["paged"]["launches"][k] for k in (
-            "sa_matmul", "paged_decode", "prefill_attention")}
-        if mine != {k: one[k] for k in mine}:
-            problems.append(f"[parallel_serve phi3 1x4] rank {r} launches "
-                            f"{mine} against the one-process {one}")
-    for run in p["ranks"][0]:
-        eq, n, worst, pr = _r1_hold(torch, ph, streams(sched),
-                                    "[parallel_serve phi3]", p["ranks"],
-                                    p["prefill"], run)
-        problems += pr
-        out[f"phi3_{run}"] = {"equal_tokens": f"{eq}/{n}",
-                              "prefill_err_over_bound": worst,
-                              "one_process_digest": summary["stream_digest"]}
-        log(f"[parallel_serve phi3 {PSERVE_PHI3_LAYERS}L 1x4] {run} against "
-            f"its one-process stream (digest {summary['stream_digest']}, "
-            f"ITL p50 {summary.get('decode_itl_p50_ms')} ms): {eq} of {n} "
-            f"tokens equal, prefill logits {worst:.4f} of the bound (R1)")
-    del ph, sched
-    gc.collect()
-    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("parallel_serve check failed: "
+                             + "; ".join(problems))
+
+
+def parallel_serve_check(torch, ps):
+    """The parallel worlds' dense serve runs against the one-process
+    streams: qwen's at (1, 2) (cut to PSERVE_QWEN_LAYERS) and phi3's
+    three at (1, 4) (cut to PSERVE_PHI3_LAYERS) each against its
+    one-process stream at the same depth, served here, by R1's rule, the
+    paged run's launches on each rank equal to that run's (the same GEMMs
+    on shards). Returns the readings; raises on any problem."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+
+    problems, out = [], {}
+    for key, args, layers, mesh in (
+            ("qwen", SERVE_ARGS, PSERVE_QWEN_LAYERS, "1x2"),
+            ("phi3", PHI3_SERVE_ARGS, PSERVE_PHI3_LAYERS, "1x4")):
+        tag = f"[parallel_serve {key} {layers}L {mesh}]"
+        ops.reset_counts()
+        summary, sched, eng = drv.main(args + ["--layers", str(layers)],
+                                       return_state=True)
+        one = {k: v["launches"] for k, v in ops.counts().items()}
+        got = ps[key]
+        for r, rank in enumerate(got["ranks"]):
+            mine = {k: rank["paged"]["launches"][k] for k in (
+                "sa_matmul", "paged_decode", "prefill_attention")}
+            if mine != {k: one[k] for k in mine}:
+                problems.append(f"{tag} rank {r} launches {mine} against "
+                                f"the one-process {one}")
+        ref = [(list(map(int, r.prompt)), list(map(int, r.tokens)))
+               for r in sorted(sched.finished, key=lambda r: r.rid)]
+        for run in got["ranks"][0]:
+            eq, n, worst, p, _ = _r1_hold(torch, eng, ref, tag,
+                                          got["ranks"], got["prefill"], run)
+            problems += p
+            out[f"{key}_{run}"] = {
+                "equal_tokens": f"{eq}/{n}",
+                "prefill_err_over_bound": worst,
+                "one_process_digest": summary["stream_digest"]}
+            log(f"{tag} {run} against its one-process stream (digest "
+                f"{summary['stream_digest']}, ITL p50 "
+                f"{summary.get('decode_itl_p50_ms')} ms): {eq} of {n} "
+                f"tokens equal, prefill logits {worst:.4f} of the bound "
+                f"(R1)")
+        del eng, sched
+        gc.collect()
+        torch.cuda.empty_cache()
     if problems:
         raise AssertionError("parallel_serve check failed: "
                              + "; ".join(problems))
@@ -6612,6 +7091,366 @@ def _expected_train_tiles(torch, bwd_launches):
     return want
 
 
+def _start_lane():
+    """Start the parallel lane (`parallel_lane`) in a process group of its
+    own, its output to LANE_DIR."""
+    shutil.rmtree(LANE_DIR, ignore_errors=True)
+    os.makedirs(LANE_DIR)
+    result = os.path.join(LANE_DIR, "result.pt")
+    with open(os.path.join(LANE_DIR, "stdout"), "w") as fo, \
+            open(os.path.join(LANE_DIR, "stderr"), "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--lane-parallel",
+             result], stdout=fo, stderr=fe, env=dict(
+                os.environ, REPRO_GEMM_BACKEND="cuda"),
+            start_new_session=True)
+    proc.result, proc.t0 = result, time.monotonic()
+    return proc
+
+
+def _descendants(pid: int) -> list:
+    """The processes under `pid`, from /proc (torchrun's workers run in
+    sessions of their own, out of reach of a group's signal)."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                pass
+    out, todo = [], [pid]
+    while todo:
+        kids = [p for p, pp in parent.items() if pp == todo[-1]]
+        todo.pop()
+        out += kids
+        todo += kids
+    return out
+
+
+def _end_lane(lane):
+    """End the lane and every process under it: SIGTERM first, SIGKILL to
+    what is left after a grace."""
+    pids = [lane.pid] + _descendants(lane.pid)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for p in pids:
+            try:
+                os.kill(p, sig)
+            except ProcessLookupError:
+                pass
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 20:
+            lane.poll()
+            alive = []
+            for p in pids:
+                try:
+                    os.kill(p, 0)
+                    alive.append(p)
+                except ProcessLookupError:
+                    pass
+            if not alive:
+                return
+            time.sleep(0.5)
+
+
+def _join_lane(torch, lane):
+    """Wait for the parallel lane, log its output here and return its
+    result; raises where it failed."""
+    try:
+        lane.wait(timeout=1500)
+    except subprocess.TimeoutExpired:
+        _end_lane(lane)
+    with open(os.path.join(LANE_DIR, "stdout")) as f:
+        for line in f.read().splitlines():
+            log(line)
+    got = (torch.load(lane.result, weights_only=False)
+           if os.path.exists(lane.result) else {"error": "no result"})
+    if lane.returncode != 0 or "error" in got:
+        with open(os.path.join(LANE_DIR, "stderr")) as f:
+            log(f.read()[-4000:])
+        raise AssertionError(f"parallel lane: exit {lane.returncode}: "
+                             f"{got.get('error', '')[-2000:]}")
+    log(f"[parallel_lane] wall {time.monotonic() - lane.t0:.1f} s beside "
+        f"this process's phases")
+    return got
+
+
+def _serve_phases(torch, card, kernels, launches, phases, state):
+    """Every phase after the kernel phase. The parallel phase runs in a
+    lane of its own beside them (`parallel_lane`, started first), and the
+    card's memory passes between the two: the families, ssm, whisper and
+    granite phases (at most ~10 GiB) run
+    here while the lane holds its references and its (2, 2) world (61
+    GiB; it starts once the families phase is done), pixtral's serve,
+    granite's training and the qwen serve phases (~30 GiB) once that
+    world has ended, beside
+    the lane's later worlds (at most 35 GiB), the second tuned process and
+    the examples (~38 GiB) once its (1, 2) world has ended; llama4's (35 GiB) and
+    pixtral's training (39 GiB), the checks that read the lane's results,
+    emulate, the study and the train phase after the lane has ended. The
+    wall times of these phases are read beside the lane's work on the
+    card and its host; the kernel phase before them runs alone. Returns
+    (the tiers' and the emulate run's launches by mode)."""
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    gc.collect()
+    torch.cuda.empty_cache()
+    lane = state["lane"] = _start_lane()
+
+    def step(name, fn):
+        t = time.monotonic()
+        got = fn()
+        phases[name] = time.monotonic() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        return got
+
+    fam = step("families", lambda: families(torch))
+    _signal(GO_2X2)
+    for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                     (3, "prefill_attention")):
+        kernels[k_]["readings"]["families_launches"] = {
+            arch: r["launches"][name] for arch, r in fam.items()}
+    kernels[2]["readings"]["families_ring_launches"] = {
+        arch: r["ring"]["paged_decode"] for arch, r in fam.items()
+        if "ring" in r}
+    log("[families] " + json.dumps({
+        arch: {key: r[key] for key in (
+            "stream_digest", "decode_itl_p50_ms", "ttft_mean_s",
+            "prefill_s", "decode_tok_s", "max_abs_logit")}
+        | ({"spec": r["spec"]} if "spec" in r else {})
+        for arch, r in fam.items()}))
+
+    ssm_out = step("ssm", lambda: ssm(torch))
+    for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                     (3, "prefill_attention")):
+        kernels[k_]["readings"]["ssm_launches"] = {
+            arch: ssm_out[arch]["launches"][name]
+            for arch in (MAMBA2, HYMBA)} | {
+            f"{arch}_ring": ssm_out[arch]["ring"]["launches"][name]
+            for arch in (MAMBA2, HYMBA)}
+    kernels[1]["readings"]["ssm_train"] = {
+        key: ssm_out["train"][key] for key in ("counts", "routes")}
+    log("[ssm] " + json.dumps({
+        arch: {key: ssm_out[arch][key] for key in (
+            "stream_digest", "kv_layout", "decode_itl_p50_ms",
+            "ttft_mean_s", "prefill_s", "decode_tok_s", "decode_step",
+            "peak_gib", "prefill_decode", "backend_logits")}
+        | ({"profile": ssm_out[arch]["profile"],
+            "generate": ssm_out[arch]["generate"]}
+           if arch == MAMBA2 else {})
+        for arch in (MAMBA2, HYMBA)} | {"train": {
+            key: ssm_out["train"][key] for key in (
+                "mean_step_s", "step_s", "losses", "peak_gib",
+                "step0")}}))
+
+    fe_out = step("frontend_whisper",
+                  lambda: frontend(torch, FRONTEND_ORDER[:2]))
+    moe_out = step("moe_granite", lambda: moe(torch, runs=("granite",)))
+    phases["wait_2x2"] = _wait_signal(DONE_2X2, lambda: lane.poll() is None)
+    # pixtral's serve reads its prefill under `torch` too: fp32 copies of
+    # its 131072-row head, more than the (2, 2) world leaves
+    fe_out |= step("frontend_pixtral_serve",
+                   lambda: frontend(torch, FRONTEND_ORDER[2:3]))
+    moe_out |= step("moe_train", lambda: moe(torch, runs=("train",)))
+
+    t = time.monotonic()
+    summary, got, engine, sched = serve(torch)
+    launches.update(sa_matmul=got["sa_matmul"],
+                    paged_decode_attention=got["paged_decode"],
+                    prefill_attention=got["prefill_attention"])
+    phases["serve"] = time.monotonic() - t
+    t = time.monotonic()
+    serve_bf16_pool(torch, engine, summary)
+    phases["serve_bf16_pool"] = time.monotonic() - t
+    t = time.monotonic()
+    prompt = min(sched.finished, key=lambda r: r.rid).prompt
+    backend_logits(torch, engine, prompt)
+    phases["backends"] = time.monotonic() - t
+    t = time.monotonic()
+    profile_serve(torch, engine)
+    phases["profile"] = time.monotonic() - t
+    t = time.monotonic()
+    tier_modes = tiers(torch, engine, sched)
+    phases["tiers"] = time.monotonic() - t
+    t = time.monotonic()
+    ring_launches = ring(torch, engine, summary, sched)
+    phases["ring"] = time.monotonic() - t
+    t = time.monotonic()
+    disagg_out = disagg(torch, engine)
+    phases["disagg"] = time.monotonic() - t
+    t = time.monotonic()
+    spec_out = spec(torch, engine, summary)
+    phases["spec"] = time.monotonic() - t
+    t = time.monotonic()
+    bucket_out = bucket(torch, engine)
+    phases["bucket"] = time.monotonic() - t
+    t = time.monotonic()
+    tuned = autotune_serve(torch, engine, summary)
+    phases["autotune"] = time.monotonic() - t
+    L = engine.cfg.num_layers
+    kernels[0]["readings"]["spec"] = {
+        E: {key: spec_out[E][key]
+            for key in ("launches", "verify_launches", "routes")}
+        for E in (L // 2, L)} | {"layer_ms": spec_out["layer_ms"]}
+    kernels[2]["readings"]["spec_launches"] = {
+        E: spec_out[E]["launches"]["paged_decode"] for E in (L // 2, L)}
+    yard = spec_out["verify_yardsticks"]
+    kernels[0]["readings"]["verify_M20_layer"] = yard["gemm_layer"]
+    kernels[2]["readings"]["verify_rows20"] = yard["paged_decode"]
+    # the dense-row decode (F5) and the disagg runs' launches
+    kernels[2]["readings"]["gather_ring_launches"] = ring_launches
+    for k_, name in ((2, "paged_decode"), (3, "prefill_attention")):
+        kernels[k_]["readings"]["disagg_launches"] = {
+            run: r["launches"][name] for run, r in disagg_out.items()}
+    kernels[3]["readings"]["bucket"] = {
+        name: {key: v[key] for key in ("prefill_launches", "prefill_s",
+                                       "prefill_compiles")}
+        for name, v in bucket_out.items()}
+    # the engine holds itself through its step closures: collect it
+    del engine, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the second process and the four examples side by side (each is a
+    # process of its own, this one waits), after the lane's (1, 2) world
+    # (35 GiB): the lane then holds at most 30.5 GiB
+    phases["wait_1x2"] = _wait_signal(DONE_1X2, lambda: lane.poll() is None)
+    t = time.monotonic()
+    tuned["second_process"], ex_out = autotune_second_process(
+        torch, tuned, during=lambda: examples(torch))
+    for k_, kind in ((0, "gemm"), (2, "decode_attn")):
+        kernels[k_]["readings"]["autotune"] = {
+            run: {key: (v if key != "sweeps" else
+                        [s for s in v if s["kind"] == kind])
+                  for key, v in r.items()}
+            for run, r in tuned.items()}
+    kernels[0]["readings"]["examples"] = ex_out
+    phases["autotune_second_process+examples"] = time.monotonic() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the lane's results
+    t = time.monotonic()
+    par = _join_lane(torch, lane)
+    phases["parallel_join"] = time.monotonic() - t
+    phases["(parallel_lane)"] = par["wall_s"]
+    kernels[0]["readings"]["parallel"], pserve = (par["readings"],
+                                                  par["served"])
+    held = par["held"]
+    t = time.monotonic()
+    nccl_serve_check(summary, got, pserve)
+    moe_out["granite"]["parallel"] = par["granite"]
+    # rows 1-3: each rank's launches in the tensor-parallel runs
+    for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                     (3, "prefill_attention")):
+        kernels[k_]["readings"]["parallel_serve_launches"] = {
+            f"{key}_{run}": [r[run]["launches"][name]
+                             for r in pserve[key]["ranks"]]
+            for key in ("qwen", "phi3", "granite", "llama4")
+            for run in pserve[key]["ranks"][0]} | {
+            "nccl": pserve["nccl"]["rank"][{
+                "sa_matmul": "sa_matmul_launches",
+                "paged_decode": "decode_attn_launches",
+                "prefill_attention": "prefill_attn_launches"}[name]]}
+    log("[parallel_serve] " + json.dumps({
+        f"{key}_{run}": held.get(f"{key}_{run}", {}) | {
+            k: pserve[key]["ranks"][0][run]["summary"][k]
+            for k in ("decode_itl_p50_ms", "ttft_mean_s", "prefill_s",
+                      "wall_s")}
+        for key in ("qwen", "phi3", "nccl")
+        for run in pserve[key]["ranks"][0]}))
+    log(f"[parallel_serve] {card}")
+    phases["parallel_serve_check"] = time.monotonic() - t
+
+    moe_out |= step("moe_llama4",
+                    lambda: moe(torch, pserve, runs=("llama4",)))
+    for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                     (3, "prefill_attention")):
+        kernels[k_]["readings"]["moe_launches"] = {
+            run: moe_out[run]["launches"][name]
+            for run in ("granite", "llama4")} | {
+            "granite_ring": moe_out["granite"]["ring"]["launches"][name]}
+    kernels[1]["readings"]["moe_train"] = {
+        key: moe_out["train"][key] for key in ("counts", "routes")}
+    log("[moe] " + json.dumps({
+        "granite": {key: moe_out["granite"][key] for key in (
+            "stream_digest", "decode_itl_p50_ms", "ttft_mean_s",
+            "prefill_s", "decode_tok_s", "decode_step_gemms",
+            "peak_gib", "backend_logits", "profile", "parallel")},
+        "llama4": {key: moe_out["llama4"][key] for key in (
+            "stream_digest", "itl_p50_ms", "prefill_s",
+            "decode_tok_s", "peak_gib", "init_s", "backend_logits",
+            "parallel")},
+        "train": {key: moe_out["train"][key] for key in (
+            "mean_step_s", "losses", "aux", "peak_gib")}}))
+
+    fe_out |= step("frontend_pixtral_train",
+                   lambda: frontend(torch, FRONTEND_ORDER[3:]))
+    for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                     (3, "prefill_attention")):
+        kernels[k_]["readings"]["frontend_launches"] = {
+            arch: fe_out[arch]["launches"][name]
+            for arch in (WHISPER, PIXTRAL)}
+    kernels[1]["readings"]["frontend_train"] = {
+        arch: {key: fe_out[f"{arch}_train"][key]
+               for key in ("counts", "routes")}
+        for arch in (WHISPER, PIXTRAL)}
+    log("[frontend] " + json.dumps({
+        arch: {key: fe_out[arch].get(key) for key in (
+            "launches", "gemm_calls", "ttft_s", "itl_ms", "prefill_s",
+            "decode_s", "decode_tok_s", "peak_gib", "prefill_decode",
+            "backend_logits", "generate", "profile", "tokens_digest")}
+        for arch in (WHISPER, PIXTRAL)} | {
+        f"{arch}_train": {key: fe_out[f"{arch}_train"][key] for key in (
+            "layers", "batch", "mean_step_s", "step_s", "losses",
+            "peak_gib", "step0")}
+        for arch in (WHISPER, PIXTRAL)}))
+
+    t = time.monotonic()
+    summary, got, engine, sched = serve_emulate(torch)
+    launches["fp_emu"] = got["fp_emu"]
+    log(f"[serve emulate] launches {got}; prefill_s "
+        f"{summary['prefill_s']} decode_s {summary['decode_s']} "
+        f"compile_s {summary['compile_s']} wall_s {summary['wall_s']} "
+        f"itl_p50 {summary.get('decode_itl_p50_ms')} ms")
+    phases["emulate_serve"] = time.monotonic() - t
+    t = time.monotonic()
+    kernels[5]["readings"]["emulate_serve"] = dict(
+        profile_emulate(torch, engine),
+        serve_prefill_s=summary["prefill_s"],
+        serve_decode_itl_p50_ms=summary.get("decode_itl_p50_ms"))
+    phases["emulate_profile"] = time.monotonic() - t
+    t = time.monotonic()
+    prompt = min(sched.finished, key=lambda r: r.rid).prompt
+    backend_logits(torch, engine, prompt, ("emulate", "cuda"))
+    phases["emulate_backends"] = time.monotonic() - t
+    t = time.monotonic()
+    emu_modes, emu_step = tiers_emulate(
+        torch, engine, {"prefill_s": summary["prefill_s"],
+                        "itl": summary.get("decode_itl_p50_ms")})
+    kernels[5]["readings"]["emulate_bulk_step_ms"] = emu_step
+    phases["tiers_emulate"] = time.monotonic() - t
+    del engine, sched
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.monotonic()
+    launches["quantize_fp8"] = study(torch)
+    phases["study"] = time.monotonic() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.monotonic()
+    launches["sa_matmul_bwd"], _, train_routes, train_tiles = train(
+        torch, card)
+    kernels[1]["readings"]["train_routes"] = train_routes
+    kernels[0]["readings"]["large_tile"]["train_tile_launches"] = \
+        train_tiles
+    phases["train"] = time.monotonic() - t
+    return tier_modes, emu_modes
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-serve", action="store_true",
@@ -6620,9 +7459,12 @@ def main(argv=None):
                     help="also write every logged line to this file (the "
                          "end of the output may be all a caller keeps)")
     ap.add_argument("--serve-ranks", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--lane-parallel", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.serve_ranks:    # a rank of the parallel_serve phase's torchrun
         return serve_ranks(args.serve_ranks)
+    if args.lane_parallel:  # the parallel lane, beside the main process
+        return parallel_lane(args.lane_parallel)
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "src", "repro_torch")):
         print("chip_smoke: src/repro_torch is missing beside this script",
@@ -6659,6 +7501,7 @@ def main(argv=None):
         open(LOG_FILE, "w").close()
 
     phases = {}
+    t_start = time.monotonic()
     t = time.monotonic()
     card = smi("name,power.limit")
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
@@ -6768,7 +7611,7 @@ def main(argv=None):
     ranks, w_rank, e_rank = check_rank_shapes(torch, timer)
     for k_, kind in ((0, "gemm"), (2, "decode"), (3, "prefill")):
         kernels[k_]["readings"]["rank_shapes"] = {
-            tag: r[kind] for tag, r in ranks.items()}
+            tag: r[kind] for tag, r in ranks.items() if kind in r}
         kernels[k_]["err_over_bound"] = max(kernels[k_]["err_over_bound"],
                                             w_rank[kind])
         kernels[k_]["max_abs_err"] = max(kernels[k_]["max_abs_err"],
@@ -6785,245 +7628,19 @@ def main(argv=None):
         for k in kernels))
 
     launches = {k["name"]: 0 for k in kernels}
-    if not args.skip_serve:
-        # first, while this process holds little of the card: up to four
-        # ranks' states share it
-        gc.collect()
-        torch.cuda.empty_cache()
-        t = time.monotonic()
-        kernels[0]["readings"]["parallel"], pserve = parallel(torch, card)
-        phases["parallel"] = time.monotonic() - t
-        gc.collect()
-        torch.cuda.empty_cache()
-        t = time.monotonic()
-        summary, got, engine, sched = serve(torch)
-        launches.update(sa_matmul=got["sa_matmul"],
-                        paged_decode_attention=got["paged_decode"],
-                        prefill_attention=got["prefill_attention"])
-        phases["serve"] = time.monotonic() - t
-        t = time.monotonic()
-        held = parallel_serve_check(torch, engine, summary, sched, got,
-                                    pserve)
-        # rows 1-3: each rank's launches in the tensor-parallel runs
-        for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
-                         (3, "prefill_attention")):
-            kernels[k_]["readings"]["parallel_serve_launches"] = {
-                f"{key}_{run}": [r[run]["launches"][name]
-                                 for r in pserve[key]["ranks"]]
-                for key in ("qwen", "phi3")
-                for run in pserve[key]["ranks"][0]} | {
-                "nccl": pserve["nccl"]["rank"][{
-                    "sa_matmul": "sa_matmul_launches",
-                    "paged_decode": "decode_attn_launches",
-                    "prefill_attention": "prefill_attn_launches"}[name]]}
-        log("[parallel_serve] " + json.dumps({
-            f"{key}_{run}": held.get(f"{key}_{run}", {}) | {
-                k: pserve[key]["ranks"][0][run]["summary"][k]
-                for k in ("decode_itl_p50_ms", "ttft_mean_s", "prefill_s",
-                          "wall_s")}
-            for key in ("qwen", "phi3", "nccl")
-            for run in pserve[key]["ranks"][0]}))
-        log(f"[parallel_serve] {card}")
-        phases["parallel_serve_check"] = time.monotonic() - t
-        t = time.monotonic()
-        serve_bf16_pool(torch, engine, summary)
-        phases["serve_bf16_pool"] = time.monotonic() - t
-        t = time.monotonic()
-        prompt = min(sched.finished, key=lambda r: r.rid).prompt
-        backend_logits(torch, engine, prompt)
-        phases["backends"] = time.monotonic() - t
-        t = time.monotonic()
-        profile_serve(torch, engine)
-        phases["profile"] = time.monotonic() - t
-        t = time.monotonic()
-        tier_modes = tiers(torch, engine, sched)
-        phases["tiers"] = time.monotonic() - t
-        t = time.monotonic()
-        ring_launches = ring(torch, engine, summary, sched)
-        phases["ring"] = time.monotonic() - t
-        t = time.monotonic()
-        disagg_out = disagg(torch, engine)
-        phases["disagg"] = time.monotonic() - t
-        t = time.monotonic()
-        spec_out = spec(torch, engine, summary)
-        phases["spec"] = time.monotonic() - t
-        t = time.monotonic()
-        bucket_out = bucket(torch, engine)
-        phases["bucket"] = time.monotonic() - t
-        t = time.monotonic()
-        tuned = autotune_serve(torch, engine, summary)
-        phases["autotune"] = time.monotonic() - t
-        L = engine.cfg.num_layers
-        kernels[0]["readings"]["spec"] = {
-            E: {key: spec_out[E][key]
-                for key in ("launches", "verify_launches", "routes")}
-            for E in (L // 2, L)} | {"layer_ms": spec_out["layer_ms"]}
-        kernels[2]["readings"]["spec_launches"] = {
-            E: spec_out[E]["launches"]["paged_decode"] for E in (L // 2, L)}
-        yard = spec_out["verify_yardsticks"]
-        kernels[0]["readings"]["verify_M20_layer"] = yard["gemm_layer"]
-        kernels[2]["readings"]["verify_rows20"] = yard["paged_decode"]
-        # the dense-row decode (F5) and the disagg runs' launches
-        kernels[2]["readings"]["gather_ring_launches"] = ring_launches
-        for k_, name in ((2, "paged_decode"), (3, "prefill_attention")):
-            kernels[k_]["readings"]["disagg_launches"] = {
-                run: r["launches"][name] for run, r in disagg_out.items()}
-        kernels[3]["readings"]["bucket"] = {
-            name: {key: v[key] for key in ("prefill_launches", "prefill_s",
-                                           "prefill_compiles")}
-            for name, v in bucket_out.items()}
-        # the engine holds itself through its step closures: collect it
-        del engine, sched
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # the second process and the four examples side by side (each is
-        # a process of its own, this one waits)
-        t = time.monotonic()
-        tuned["second_process"], ex_out = autotune_second_process(
-            torch, tuned, during=lambda: examples(torch))
-        for k_, kind in ((0, "gemm"), (2, "decode_attn")):
-            kernels[k_]["readings"]["autotune"] = {
-                run: {key: (v if key != "sweeps" else
-                            [s for s in v if s["kind"] == kind])
-                      for key, v in r.items()}
-                for run, r in tuned.items()}
-        kernels[0]["readings"]["examples"] = ex_out
-        phases["autotune_second_process+examples"] = time.monotonic() - t
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        t = time.monotonic()
-        fam = families(torch)
-        for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
-                         (3, "prefill_attention")):
-            kernels[k_]["readings"]["families_launches"] = {
-                arch: r["launches"][name] for arch, r in fam.items()}
-        kernels[2]["readings"]["families_ring_launches"] = {
-            arch: r["ring"]["paged_decode"] for arch, r in fam.items()
-            if "ring" in r}
-        log("[families] " + json.dumps({
-            arch: {key: r[key] for key in (
-                "stream_digest", "decode_itl_p50_ms", "ttft_mean_s",
-                "prefill_s", "decode_tok_s", "max_abs_logit")}
-            | ({"spec": r["spec"]} if "spec" in r else {})
-            for arch, r in fam.items()}))
-        phases["families"] = time.monotonic() - t
-
-        t = time.monotonic()
-        moe_out = moe(torch)
-        for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
-                         (3, "prefill_attention")):
-            kernels[k_]["readings"]["moe_launches"] = {
-                run: moe_out[run]["launches"][name]
-                for run in ("granite", "llama4")} | {
-                "granite_ring": moe_out["granite"]["ring"]["launches"][name]}
-        kernels[1]["readings"]["moe_train"] = {
-            key: moe_out["train"][key] for key in ("counts", "routes")}
-        log("[moe] " + json.dumps({
-            "granite": {key: moe_out["granite"][key] for key in (
-                "stream_digest", "decode_itl_p50_ms", "ttft_mean_s",
-                "prefill_s", "decode_tok_s", "decode_step_gemms",
-                "peak_gib", "backend_logits", "profile")},
-            "llama4": {key: moe_out["llama4"][key] for key in (
-                "stream_digest", "itl_p50_ms", "prefill_s",
-                "decode_tok_s", "peak_gib", "init_s", "backend_logits")},
-            "train": {key: moe_out["train"][key] for key in (
-                "mean_step_s", "losses", "aux", "peak_gib")}}))
-        phases["moe"] = time.monotonic() - t
-
-        t = time.monotonic()
-        ssm_out = ssm(torch)
-        for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
-                         (3, "prefill_attention")):
-            kernels[k_]["readings"]["ssm_launches"] = {
-                arch: ssm_out[arch]["launches"][name]
-                for arch in (MAMBA2, HYMBA)} | {
-                f"{arch}_ring": ssm_out[arch]["ring"]["launches"][name]
-                for arch in (MAMBA2, HYMBA)}
-        kernels[1]["readings"]["ssm_train"] = {
-            key: ssm_out["train"][key] for key in ("counts", "routes")}
-        log("[ssm] " + json.dumps({
-            arch: {key: ssm_out[arch][key] for key in (
-                "stream_digest", "kv_layout", "decode_itl_p50_ms",
-                "ttft_mean_s", "prefill_s", "decode_tok_s", "decode_step",
-                "peak_gib", "prefill_decode", "backend_logits")}
-            | ({"profile": ssm_out[arch]["profile"],
-                "generate": ssm_out[arch]["generate"]}
-               if arch == MAMBA2 else {})
-            for arch in (MAMBA2, HYMBA)} | {"train": {
-                key: ssm_out["train"][key] for key in (
-                    "mean_step_s", "step_s", "losses", "peak_gib",
-                    "step0")}}))
-        phases["ssm"] = time.monotonic() - t
-
-        t = time.monotonic()
-        fe_out = frontend(torch)
-        for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
-                         (3, "prefill_attention")):
-            kernels[k_]["readings"]["frontend_launches"] = {
-                arch: fe_out[arch]["launches"][name]
-                for arch in (WHISPER, PIXTRAL)}
-        kernels[1]["readings"]["frontend_train"] = {
-            arch: {key: fe_out[f"{arch}_train"][key]
-                   for key in ("counts", "routes")}
-            for arch in (WHISPER, PIXTRAL)}
-        log("[frontend] " + json.dumps({
-            arch: {key: fe_out[arch].get(key) for key in (
-                "launches", "gemm_calls", "ttft_s", "itl_ms", "prefill_s",
-                "decode_s", "decode_tok_s", "peak_gib", "prefill_decode",
-                "backend_logits", "generate", "profile", "tokens_digest")}
-            for arch in (WHISPER, PIXTRAL)} | {
-            f"{arch}_train": {key: fe_out[f"{arch}_train"][key] for key in (
-                "layers", "batch", "mean_step_s", "step_s", "losses",
-                "peak_gib", "step0")}
-            for arch in (WHISPER, PIXTRAL)}))
-        phases["frontend"] = time.monotonic() - t
-
-        t = time.monotonic()
-        summary, got, engine, sched = serve_emulate(torch)
-        launches["fp_emu"] = got["fp_emu"]
-        log(f"[serve emulate] launches {got}; prefill_s "
-            f"{summary['prefill_s']} decode_s {summary['decode_s']} "
-            f"compile_s {summary['compile_s']} wall_s {summary['wall_s']} "
-            f"itl_p50 {summary.get('decode_itl_p50_ms')} ms")
-        phases["emulate_serve"] = time.monotonic() - t
-        t = time.monotonic()
-        kernels[5]["readings"]["emulate_serve"] = dict(
-            profile_emulate(torch, engine),
-            serve_prefill_s=summary["prefill_s"],
-            serve_decode_itl_p50_ms=summary.get("decode_itl_p50_ms"))
-        phases["emulate_profile"] = time.monotonic() - t
-        t = time.monotonic()
-        prompt = min(sched.finished, key=lambda r: r.rid).prompt
-        backend_logits(torch, engine, prompt, ("emulate", "cuda"))
-        phases["emulate_backends"] = time.monotonic() - t
-        t = time.monotonic()
-        emu_modes, emu_step = tiers_emulate(
-            torch, engine, {"prefill_s": summary["prefill_s"],
-                            "itl": summary.get("decode_itl_p50_ms")})
-        kernels[5]["readings"]["emulate_bulk_step_ms"] = emu_step
-        phases["tiers_emulate"] = time.monotonic() - t
-        del engine, sched
-        os.environ["REPRO_GEMM_BACKEND"] = "cuda"
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        t = time.monotonic()
-        launches["quantize_fp8"] = study(torch)
-        phases["study"] = time.monotonic() - t
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        t = time.monotonic()
-        launches["sa_matmul_bwd"], _, train_routes, train_tiles = train(
-            torch, card)
-        kernels[1]["readings"]["train_routes"] = train_routes
-        kernels[0]["readings"]["large_tile"]["train_tile_launches"] = \
-            train_tiles
-        phases["train"] = time.monotonic() - t
+    state = {}
+    try:
+        if not args.skip_serve:
+            tier_modes, emu_modes = _serve_phases(
+                torch, card, kernels, launches, phases, state)
+    finally:
+        lane = state.get("lane")
+        if lane is not None and lane.poll() is None:
+            # a phase failed here: the lane and its worlds end with it
+            _end_lane(lane)
+    total = time.monotonic() - t_start
     log("[phases] " + " ".join(f"{k}={v:.1f}s" for k, v in phases.items())
-        + f" total={sum(phases.values()):.1f}s")
+        + f" total={total:.1f}s")
     shutil.rmtree(TUNE_DIR, ignore_errors=True)
     for k in kernels:
         k["launches"] = launches[k["name"]]

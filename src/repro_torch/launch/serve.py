@@ -68,8 +68,10 @@ another on the same weights; the `[replicas xN]` line aggregates them.
 Under torchrun (or any launcher that sets the torch.distributed
 environment) the world becomes a ("data", "model") mesh with
 `--model-parallel` ranks innermost (`parallel.mesh.make_host_mesh`, as
-the train driver builds it), and the dense family serves tensor-parallel
-on the `model` axis:
+the train driver builds it), and the dense and MoE families serve
+tensor-parallel on the `model` axis (a MoE layer's experts split over the
+ranks where the axis divides them, else each expert's columns; the
+dropless dispatch on the rank's experts, the logits gathered whole):
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch qwen2.5-14b --reduced --device cpu --model-parallel 2 \
@@ -84,8 +86,8 @@ and the summary lines; every rank ends with one line `[rank r]
 stream_digest=... peak_mem_gib=... sa_matmul_launches=...
 decode_attn_launches=... prefill_attn_launches=... plain_calls=...`.
 Refused under a mesh: a `data` axis above 1 (the pool's pages would
-shard over it), `--model-parallel` N > 1 without a launcher, the MoE,
-SSM, hybrid, audio and VLM archs under TP (`model.check_parallel`),
+shard over it; any family), `--model-parallel` N > 1 without a launcher,
+the SSM, hybrid, audio and VLM archs under TP (`model.check_parallel`),
 `--decode-replicas`, `--autotune-decode` and `--spec-warmup`. `--layers
 N` cuts the config's depth (a full-width model cut in depth).
 """

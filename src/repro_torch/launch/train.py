@@ -5,6 +5,8 @@ checkpointing, the JAX package's `repro/launch/train.py`.
         --reduced --device cpu --steps 20
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch qwen2.5-14b --reduced --device cpu --model-parallel 2
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch granite-moe-3b-a800m --reduced --device cpu --model-parallel 2
 
 Runs on CUDA unless `--device cpu` is given. The GEMM backend is
 REPRO_GEMM_BACKEND (`torch`, the plain version, or `cuda`, the
@@ -16,7 +18,8 @@ environment) the world becomes a ("data", "model") mesh with
 backend, nccl where every rank has a card of its own and gloo where ranks
 share one or run on the CPU, is printed first): every rank draws the same
 full state from `--seed` and keeps its shard, each data rank takes its
-rows of the same global batch (`parallel.sharding.data_specs`), and rank
+rows of the same global batch (`parallel.sharding.data_specs`; a MoE
+model's load-balance loss is taken over the global batch), and rank
 0 prints a JSON line a step; at the end each rank prints its peak memory
 and step times. `main` parses the flags and calls `run(cfg, args)`, which
 callers with a config of their own (a full-width model cut in depth) call
@@ -114,7 +117,7 @@ def _grads_writer(out_dir: str, then, mesh, specs, lead: bool):
             pspecs = (S.spec_leaves(specs.params, grads) if mesh is not None
                       else [S.P()] * len(paths))
             for path, g, sp in zip(paths, tree_leaves(grads), pspecs):
-                if S.is_sharded(sp):
+                if S.is_sharded(sp, mesh):
                     name = f"{path}.{coords['model']}.npy"
                 elif coords["model"] == 0:
                     name = f"{path}.npy"
@@ -134,14 +137,15 @@ def _grads_writer(out_dir: str, then, mesh, specs, lead: bool):
 
 def read_grads(out_dir: str, path: str, spec):
     """A leaf `--grads-out` wrote, whole: its model ranks' pieces joined
-    along the dim `spec` (its `param_specs` entry) cuts, or the one
-    file."""
+    along the dim `spec` (its `param_specs` entry) cuts over `model`, or
+    the one file."""
     import numpy as np
 
     whole = os.path.join(out_dir, f"{path}.npy")
     if os.path.exists(whole):
         return np.load(whole)
-    dim = next(i for i, e in enumerate(spec) if e is not None)
+    dim = next(i for i, e in enumerate(spec)
+               if e == "model" or isinstance(e, tuple) and "model" in e)
     pieces, i = [], 0
     while os.path.exists(os.path.join(out_dir, f"{path}.{i}.npy")):
         pieces.append(np.load(os.path.join(out_dir, f"{path}.{i}.npy")))

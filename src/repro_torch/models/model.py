@@ -54,26 +54,33 @@ def check_supported(cfg: ArchConfig):
 
 def check_parallel(cfg: ArchConfig, model_parallel: int,
                    data_parallel: int = 1, serving: bool = False):
-    """Refuse what the mesh does not cover yet: tensor parallelism for
-    the MoE, SSM and hybrid families, the encoder-decoder, the VLM and
-    FSDP configs (`cfg.fsdp`), and a data axis above 1 for MoE, whose
-    capacity and load-balance loss are taken over the global microbatch
-    (a per-rank group would change them). Serving (`serving`) covers the
-    `model` axis only: a data axis above 1 would shard the page pool's
-    pages across ranks, so a slot's pages could sit on any data shard
-    (ROADMAP 7b)."""
-    if model_parallel > 1 and (cfg.family != "dense" or cfg.fsdp):
+    """Refuse what the mesh does not cover yet. Tensor parallelism covers
+    the dense and MoE families (the MoE layer by expert parallelism where
+    the axis divides the experts, else tensor parallelism inside each
+    expert, `models/moe.py`); the SSM and hybrid families, the
+    encoder-decoder and the VLM are refused under it (ROADMAP queue 1
+    item 9). FSDP configs (`cfg.fsdp`) run where the data axis is 1,
+    where the JAX rules' FSDP axis has size 1; above 1 the port would
+    replicate what the JAX package shards over `data`, and is refused.
+    Training takes a data axis for MoE: the capacity dispatch takes each
+    expert's top C tokens within each batch row, so splitting rows over
+    `data` moves no token, and only `load_balance` needs the global
+    batch's statistics, which `moe.router` sums over `data`. Serving
+    (`serving`) covers the `model` axis only: a data axis above 1 would
+    shard the page pool's pages across ranks, so a slot's pages could sit
+    on any data shard (ROADMAP 7b)."""
+    if model_parallel > 1 and cfg.family not in ("dense", "moe"):
         raise ValueError(f"{cfg.name}: tensor parallelism covers the dense "
-                         f"family without FSDP; {cfg.family!r} (fsdp="
-                         f"{cfg.fsdp}) is not ported")
+                         f"and MoE families; {cfg.family!r} is not ported")
     if serving and data_parallel > 1:
         raise ValueError(f"{cfg.name}: serving over a data axis of "
                          f"{data_parallel} (the pool's pages sharded over "
                          f"data) is not ported; serve on the model axis")
-    if data_parallel > 1 and cfg.family == "moe":
-        raise ValueError(f"{cfg.name}: a data axis above 1 would route each "
-                         f"rank's rows alone (capacity and load-balance "
-                         f"loss over the global microbatch); not ported")
+    if cfg.fsdp and data_parallel > 1:
+        raise ValueError(f"{cfg.name}: FSDP is not ported (the parameters "
+                         f"the JAX package shards over a data axis of "
+                         f"{data_parallel} would be replicated); run it "
+                         f"at data 1")
 
 
 def has_ssm(cfg: ArchConfig) -> bool:
@@ -81,10 +88,12 @@ def has_ssm(cfg: ArchConfig) -> bool:
     return cfg.family == "ssm" or cfg.hybrid
 
 
-def gemm_calls(cfg: ArchConfig, tokens: int = 1) -> int:
+def gemm_calls(cfg: ArchConfig, tokens: int = 1, tp: int = 1) -> int:
     """The SA GEMM calls one served forward over `tokens` tokens a row
-    makes: `moe.gemm_calls` (a layer's 4 attention GEMMs and its FFN or
-    MoE GEMMs, and the lm_head) where the stack has attention and an FFN;
+    makes (on one rank of a `model` axis of `tp` ranks: a MoE layer runs
+    the rank's experts, `moe.gemm_calls`): `moe.gemm_calls` (a layer's 4
+    attention GEMMs and its FFN or MoE GEMMs, and the lm_head) where the
+    stack has attention and an FFN;
     an SSM layer makes 2 (in_proj and out_proj), a hybrid layer those 2
     beside the 7 of attention and FFN. mamba2-2.7b: 129 a decode step,
     hymba-1.5b: 289. The encoder-decoder's forward with a frontend re-runs
@@ -97,8 +106,8 @@ def gemm_calls(cfg: ArchConfig, tokens: int = 1) -> int:
         return 1 + 2 * cfg.num_layers
     if cfg.is_encdec:
         return 1 + 12 * cfg.num_layers + 6 * cfg.encoder_layers
-    return moe_gemm_calls(cfg, tokens) + (2 * cfg.num_layers if cfg.hybrid
-                                          else 0)
+    return moe_gemm_calls(cfg, tokens, tp) + (2 * cfg.num_layers
+                                              if cfg.hybrid else 0)
 
 
 def matrix_storage(shape, dtype, device) -> torch.Tensor:
@@ -551,15 +560,18 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     prepends it to the text embeddings (T becomes S + T, positions start
     at the first patch row), an encoder-decoder runs `encode` over it and
     every decoder layer cross-attends to the result.
-    Under a mesh whose `model` axis has more than one rank the dense
-    family runs tensor-parallel on the rank's shards (models/layers.py);
+    Under a mesh whose `model` axis has more than one rank the dense and
+    MoE families run tensor-parallel on the rank's shards
+    (models/layers.py, models/moe.py);
     a vocabulary-parallel head (its columns cut across the axis) returns
     this rank's columns of the logits, which `lm_loss` reduces across
     the axis; with a cache (serving) the columns are gathered across the
     axis, so every rank returns the whole logits, the same bits.
     `aux` is the JAX package's dict: a MoE stack's `load_balance` and
     `router_z` summed over its layers (zero for a dense stack and
-    wherever a cache is threaded, as the JAX forward leaves them).
+    wherever a cache is threaded, as the JAX forward leaves them); on a
+    mesh every model rank sums the same per-layer values (each layer's
+    `load_balance` over the global batch under a data axis).
 
     With `cfg.remat`, no cache and autograd recording, each superblock
     runs under `torch.utils.checkpoint` (the JAX package's `jax.checkpoint`

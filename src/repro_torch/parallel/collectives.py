@@ -15,6 +15,10 @@ sharded (the rank's piece, and the piece's gradient). The four moves:
 * `split_to_model`  replicated → sharded along a dim: this rank's slice
                     forward, all-gather backward.
 
+Over the `data` axis, `sum_over_data` sums a statistic of each rank's
+rows into the global batch's (the MoE load-balance loss's token counts
+and router probabilities): all-reduce forward, all-reduce backward.
+
 gloo takes CUDA tensors for `all_reduce` and `broadcast` only, so on a
 gloo group (ranks sharing one card) `all_gather` is one broadcast a rank;
 on nccl and for CPU tensors it is `dist.all_gather`. No collective copies
@@ -103,6 +107,20 @@ class _SplitToModel(torch.autograd.Function):
         return all_gather(dy, ctx.dim, ctx.group), None, None
 
 
+class _SumOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # the transpose of a sum across ranks: every rank's output depends
+        # on every rank's input, so each input's cotangent is the sum of
+        # the ranks' output cotangents
+        return all_reduce(dy, ctx.group), None
+
+
 def copy_to_model(x, group):
     return _CopyToModel.apply(x, group)
 
@@ -117,3 +135,7 @@ def gather_from_model(x, dim, group):
 
 def split_to_model(x, dim, group):
     return _SplitToModel.apply(x, dim, group)
+
+
+def sum_over_data(x, group):
+    return _SumOverData.apply(x, group)

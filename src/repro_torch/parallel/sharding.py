@@ -152,11 +152,26 @@ def _fit(spec, shape, sizes) -> P:
 # parameters
 # ---------------------------------------------------------------------------
 
+def expert_layout(cfg: ArchConfig, tp: int) -> str:
+    """How a `model` axis of `tp` ranks holds a MoE layer's expert stacks,
+    as `_param_rule` and its divisibility guard cut them: "ep" where the
+    axis divides the expert count (a rank holds E/tp experts whole), "tp"
+    where it divides only d_ff (every expert cut by its d_ff columns and
+    rows), "whole" in one process and where it divides neither."""
+    if tp > 1 and cfg.num_experts % tp == 0:
+        return "ep"
+    if tp > 1 and cfg.d_ff % tp == 0:
+        return "tp"
+    return "whole"
+
+
 def _param_rule(path: str, ndim: int, cfg: ArchConfig, fsdp,
                 model_size: int) -> P:
     """PartitionSpec for one (unstacked) parameter leaf."""
     f = fsdp if cfg.fsdp else None
-    ep = cfg.num_experts > 0 and cfg.num_experts % model_size == 0
+    # at model 1 the axis cuts nothing either way; JAX names it on E there
+    ep = cfg.num_experts > 0 and (
+        model_size == 1 or expert_layout(cfg, model_size) == "ep")
     # modality-agnostic rules, most-specific first
     if "embed" in path:
         return P("model", f)
@@ -396,5 +411,10 @@ def spec_leaves(specs, tree=None) -> list:
     return []
 
 
-def is_sharded(spec) -> bool:
-    return any(e is not None for e in spec)
+def is_sharded(spec, mesh) -> bool:
+    """Whether `spec` cuts its leaf on `mesh`: an entry whose axes all have
+    size 1 cuts nothing (an FSDP config's `data` entries at data 1: the
+    leaf is whole on every rank)."""
+    sizes = axis_sizes(mesh)
+    return any(e is not None and _entry_index(
+        e, dict.fromkeys(sizes, 0), sizes)[0] > 1 for e in spec)

@@ -81,9 +81,13 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
     tensor-parallel over `model`, the gradients are all-reduced (SUM ÷
     dp, fp32) over `data`, loss and nll averaged the same way, and the
     clip's global norm sums the squares of sharded leaves across `model`
-    and counts replicated leaves once. `on_grads(loss, nll, grads)`, if
-    given, sees the step's gradients after that reduction and before the
-    update (which scales them in place by the clip)."""
+    and counts replicated leaves once. A MoE model's `load_balance` is
+    taken over the global batch (`moe.router`); with accum_steps A
+    dividing a data rank's rows, the ranks' microbatch i together are
+    the one-process step's microbatch i (rows ≡ i mod A of the global
+    batch), so the step is the one-process step's. `on_grads(loss, nll,
+    grads)`, if given, sees the step's gradients after that reduction and
+    before the update (which scales them in place by the clip)."""
     grad_fn = make_grad_fn(cfg, accum_steps, aux_weight)
     dp_group = tp_group = None
     if mesh is not None:
@@ -118,7 +122,8 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
         if on_grads is not None:
             on_grads(loss, nll, grads)
         sharded = None if mesh is None else [
-            S.is_sharded(sp) for sp in S.spec_leaves(specs, state.params)]
+            S.is_sharded(sp, mesh)
+            for sp in S.spec_leaves(specs, state.params)]
         params, opt_state, om = opt.update(grads, state.opt_state,
                                            state.params, sharded=sharded,
                                            group=tp_group)

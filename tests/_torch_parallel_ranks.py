@@ -75,7 +75,7 @@ def _step(job, arch, accum, fmt, mesh):
     group = mesh.get_group("model")
     for p, sp in zip(M.tree_leaves(state.params),
                      S.spec_leaves(specs, state.params)):
-        if not S.is_sharded(sp) and mesh.shape[1] > 1:
+        if not S.is_sharded(sp, mesh) and mesh.shape[1] > 1:
             bits = p.detach().reshape(1, -1).contiguous().view(torch.int32)
             every = all_gather(bits, 0, group)
             same &= bool((every == every[0]).all())

@@ -1809,3 +1809,41 @@ def test_row_shard_chain_on_the_decode_tile(cuda, k, n):
     for r in range(2):
         part = sa_dot(a, w[:, r * n // 2:(r + 1) * n // 2].contiguous(), pol)
         assert torch.equal(part, whole[:, r * n // 2:(r + 1) * n // 2])
+
+
+@pytest.mark.parametrize("m", [4, 20, 512])
+def test_expert_shard_pieces_at_model_16(cuda, m):
+    """granite's experts on the JAX production mesh's `model` axis of 16,
+    which its 40 experts do not divide (tensor parallelism inside each
+    expert): wg and wu as (1536, 32) column pieces, each within its plain
+    version's bound and carrying the whole (1536, 512) call's bits per
+    column (F2); wd as a row chain over K = 32 (two k16 steps) within
+    the plain chain's bound."""
+    from repro_torch.core.precision import sa_dot_chain
+
+    d, f, tp = 1536, 512, 16
+    g = torch.Generator(device=cuda).manual_seed(1600 + m)
+    a = torch.randn((m, d), generator=g, device=cuda).to(torch.bfloat16)
+    for act in ("silu", "none"):          # wg (its activation), wu
+        w = (torch.randn((d, f), generator=g, device=cuda)
+             * d ** -0.5).to(torch.bfloat16)
+        whole = ops.sa_matmul(a, w, act=act)
+        for r in range(tp):
+            ws = w[:, r * f // tp:(r + 1) * f // tp].contiguous()
+            got = ops.sa_matmul(a, ws, act=act)
+            ref = MM.sa_matmul_ref(a, ws, act=act)
+            assert bool(((got - ref).abs()
+                         <= MM.error_bound(a, ws, y=ref)).all())
+            assert torch.equal(got.view(torch.int32), whole[
+                :, r * f // tp:(r + 1) * f // tp].contiguous().view(
+                    torch.int32))
+    h = torch.randn((m, f // tp), generator=g, device=cuda).to(
+        torch.bfloat16)
+    wd = (torch.randn((f // tp, d), generator=g, device=cuda)
+          * f ** -0.5).to(torch.bfloat16)
+    ops.reset_counts()
+    got = sa_dot_chain(h, wd, PrecisionPolicy(backend="cuda"))
+    assert ops.counts()["sa_matmul"]["launches"] == 1
+    ref = sa_dot_chain(h, wd, PrecisionPolicy(backend="torch"))
+    assert got.dtype == torch.float32
+    assert bool(((got - ref).abs() <= MM.error_bound(h, wd, y=ref)).all())

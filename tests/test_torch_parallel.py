@@ -132,15 +132,15 @@ def test_sharding_rules_equal_jax(arch, mesh):
 
 
 def test_refusals():
-    """Tensor parallelism outside the dense family (or under FSDP), and a
-    data axis above 1 for MoE, are refused with a reason."""
+    """Tensor parallelism outside the dense and MoE families is refused
+    with a reason (the MoE family's cases moved to
+    tests/test_torch_moe_parallel.py, which trains and serves it on the
+    mesh)."""
     from repro_torch.models.model import check_parallel
-    for arch in ("granite-moe-3b-a800m", "mamba2-2.7b", "hymba-1.5b",
-                 "whisper-tiny", "pixtral-12b", "llama4-maverick-400b-a17b"):
+    for arch in ("mamba2-2.7b", "hymba-1.5b", "whisper-tiny",
+                 "pixtral-12b"):
         with pytest.raises(ValueError, match="tensor parallelism"):
             check_parallel(get_config(arch), 2)
-    with pytest.raises(ValueError, match="data axis"):
-        check_parallel(get_config("granite-moe-3b-a800m"), 1, 2)
     check_parallel(get_config("qwen2.5-14b"), 4, 2)
 
 

@@ -291,7 +291,7 @@ def worlds(tmp_path_factory):
                                 "2"],
              "spec_warmup": DRV + ["--model-parallel", "2", "--spec-warmup",
                                    "2"],
-             "moe": refusal + ["--model-parallel", "2"]}
+             "moe": refusal + ["--model-parallel", "1"]}
     for k in ("unified", "disagg", "ring"):
         runs2[k] = runs2[k] + ["--model-parallel", "2"]
     runs4 = {"unified": DRV + ["--model-parallel", "4"],
@@ -484,19 +484,19 @@ def test_reshard_handoff_is_the_identity_without_a_mesh():
 # ---------------------------------------------------------------------------
 
 def test_refusals_on_the_mesh(worlds):
-    """Under a mesh the driver refuses by name: a data axis above 1, the
-    MoE family under TP, `--decode-replicas` and `--spec-warmup`."""
+    """Under a mesh the driver refuses by name: a data axis above 1 (the
+    dense and the MoE family alike), `--decode-replicas` and
+    `--spec-warmup`."""
     for rank in worlds["res"]["qwen2"]:
         runs = rank["runs"]
         assert "data axis" in runs["data2"]["error"]
-        assert "tensor parallelism" in runs["moe"]["error"]
+        assert "data axis" in runs["moe"]["error"]
         assert "--decode-replicas" in runs["replicas"]["error"]
         assert "--spec-warmup" in runs["spec_warmup"]["error"]
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-2.7b",
-                                  "hymba-1.5b", "whisper-tiny",
-                                  "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b",
+                                  "whisper-tiny", "pixtral-12b"])
 def test_serving_refuses_other_families_under_tp(arch):
     with pytest.raises(ValueError, match="tensor parallelism"):
         TM.check_parallel(get_config(arch), 2, serving=True)
