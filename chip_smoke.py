@@ -4420,10 +4420,13 @@ class _RoutingReplay:
     piece: this data rank's batch rows, and this model rank's experts
     where the call ranks only its own (the capacity dispatch under EP).
     A recording also keeps each call's scores (the router's probabilities
-    in a served forward), for the routing gate of `_r1_hold`."""
+    in a served forward), for the routing gate of `_r1_hold`. With `free`
+    a list, a replay records the calls past the replayed ones there, as
+    (indices, scores) (a training run's free steps after step 0)."""
 
     def __init__(self):
         self.idx, self.scores, self.mode, self.pos = [], [], None, 0
+        self.free = None
 
     def start(self, mode):
         if mode == "record":
@@ -4445,6 +4448,8 @@ class _RoutingReplay:
             if box.mode == "record":
                 box.idx.append(i)
                 box.scores.append(x.detach().float())
+            elif box.mode == "replay" and box.free is not None:
+                box.free.append((i, x.detach().float()))
             return v, i
 
         moe._top_k = top_k
@@ -6152,6 +6157,8 @@ def check_rank_shapes(torch, timer):
             + "; each column shard and rank head the whole call's bits")
     out[EXPERT_SHARD_TAG] = {"gemm": expert_shards(torch, timer, g, hold,
                                                    bits)}
+    out[FAMILY_SHARD_TAG] = {"gemm": family_shards(torch, timer, g, hold,
+                                                   bits)}
     return out, worst, max_err
 
 
@@ -6161,6 +6168,104 @@ def check_rank_shapes(torch, timer):
 EXPERT_SHARD_TAG = "granite experts 1x16"
 EXPERT_SHARD = (1536, 512, 16)
 EXPERT_SHARD_M = (BATCH, 20, 512)
+
+
+def _gemm_times(torch, timer, a, w, run, plain):
+    """The three times and the bound of one SA GEMM piece (a (M, K) bf16
+    @ w (K, N) bf16 to fp32): `run` (the kernel), `plain` (its plain
+    version) and bf16 `torch.matmul`, each `Timer.wall`; the bound the
+    larger of the bytes (A and W read once, the fp32 output written once)
+    over the byte rate and 2MNK over the bf16 tensor-core peak."""
+    m, k = a.shape
+    n = w.shape[1]
+    b_ms, by = bound_ms(2 * (m * k + k * n) + 4 * m * n, 2 * m * n * k,
+                        PEAK_BF16)
+    return {"ms": timer.wall(run), "plain_ms": timer.wall(plain),
+            "library_ms": timer.wall(lambda: torch.matmul(a, w)),
+            "bound_ms": b_ms, "bound_by": by}
+
+
+# the SSM, hybrid and frontend families' rank shapes: (name, M, K, N of
+# the whole call, tp, kind, act): a column piece ("cols": the rank's
+# N / tp columns, its bits the whole call's) or a row chain ("rows": the
+# rank's K / tp rows' unrounded fp32 chain); mamba2 at model 2 and hymba
+# at model 4 at the decode batch, whisper at model 4 over the encoder's
+# 4 x 1500 frames and at the decode batch
+FAMILY_SHARD_TAG = "families 1x2 / 1x4"
+FAMILY_SHARDS = (
+    ("mamba2 in_proj", BATCH, 2560, 10576, 2, "cols", "none"),
+    ("mamba2 out_proj", BATCH, 5120, 2560, 2, "rows", "none"),
+    ("hymba out_proj", BATCH, 3200, 1600, 4, "rows", "none"),
+    *((f"whisper {name} M={m}", m, k, n, 4, kind, act)
+      for m in (4 * 1500, BATCH)
+      for name, k, n, kind, act in (
+          ("w1", 384, 1536, "cols", "gelu"), ("w2", 1536, 384, "rows", "none"),
+          ("cross wk", 384, 384, "cols", "none"),
+          ("cross wv", 384, 384, "cols", "none"))))
+
+
+def family_shards(torch, timer, g, hold, bits):
+    """The SA GEMM at this slice's rank shapes (FAMILY_SHARDS), the last
+    rank's piece of each: a column piece within its plain version's bound
+    and carrying the whole call's bits; a row chain (`sa_dot_chain`, one
+    launch, fp32 out) within the plain chain's bound. Each timed beside
+    its plain version, bf16 `torch.matmul` and its bound (`_gemm_times`).
+    `hold` and `bits` are `check_rank_shapes`'s. Returns the readings."""
+    from repro_torch.core.precision import PrecisionPolicy, sa_dot_chain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_matmul as mm
+
+    out = {}
+    for name, m, k, n, tp, kind, act in FAMILY_SHARDS:
+        r = tp - 1
+        tag = f"[rank shapes] {name} {kind} 1x{tp} rank {r}"
+        if kind == "cols":
+            a = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            w = (torch.randn((k, n), generator=g, device="cuda")
+                 * k ** -0.5).to(torch.bfloat16)
+            c = n // tp
+            y = ops.sa_matmul(a, w, act=act)
+            ws = w[:, r * c:].contiguous()
+            got = ops.sa_matmul(a, ws, act=act)
+            ref = mm.sa_matmul_ref(a, ws, act=act)
+            rec = {"K": k, "N": c, "err_over_bound": hold(
+                "gemm", tag, got, ref, mm.error_bound(
+                    a, ws, None, "exact", y=ref), bits(got, y[:, r * c:])),
+                "tile": mm.mma_plan(m, c, "mma")["tile"]}
+            rec |= _gemm_times(torch, timer, a, ws,
+                               lambda: ops.sa_matmul(a, ws, act=act),
+                               lambda: mm.sa_matmul_ref(a, ws, act=act))
+            del y, w
+        else:
+            c = k // tp
+            a = torch.randn((m, c), generator=g, device="cuda").to(
+                torch.bfloat16)
+            ws = (torch.randn((c, n), generator=g, device="cuda")
+                  * k ** -0.5).to(torch.bfloat16)
+            ops.reset_counts()
+            got = sa_dot_chain(a, ws, PrecisionPolicy(backend="cuda"))
+            launched = ops.counts()["sa_matmul"]["launches"]
+            ref = sa_dot_chain(a, ws, PrecisionPolicy(backend="torch"))
+            rec = {"K": c, "N": n, "err_over_bound": hold(
+                "gemm", tag, got, ref, mm.error_bound(a, ws, y=ref),
+                launched == 1 and got.dtype == torch.float32),
+                "tile": mm.mma_plan(m, n, "mma")["tile"]}
+            rec |= _gemm_times(
+                torch, timer, a, ws,
+                lambda: sa_dot_chain(a, ws, PrecisionPolicy(backend="cuda")),
+                lambda: sa_dot_chain(a, ws, PrecisionPolicy(
+                    backend="torch")))
+        out[name] = rec
+        del a, ws, got, ref
+    log(f"[rank shapes] {FAMILY_SHARD_TAG}: " + ", ".join(
+        f"{name} M {m} K {v['K']} N {v['N']} on {v['tile']}: err/bound "
+        f"{v['err_over_bound']:.4f}, {v['ms']:.4f} ms (plain "
+        f"{v['plain_ms']:.4f}, bf16 torch.matmul {v['library_ms']:.4f}, "
+        f"bound {v['bound_ms']:.3g} by {v['bound_by']})"
+        for (name, m, *_), v in zip(FAMILY_SHARDS, out.values()))
+        + "; each column piece the whole call's bits")
+    return out
 
 
 def expert_shards(torch, timer, g, hold, bits):
@@ -6198,8 +6303,9 @@ def expert_shards(torch, timer, g, hold, bits):
                     bits(got, y[:, r * c:(r + 1) * c])))
             out[f"{name} M={m}"] = {
                 "N": c, "pieces": tp, "err_over_bound": ratio,
-                "tile": mm.mma_plan(m, c, "mma")["tile"],
-                "ms": timer.wall(lambda: ops.sa_matmul(a, ws, act=act))}
+                "tile": mm.mma_plan(m, c, "mma")["tile"]} | _gemm_times(
+                torch, timer, a, ws, lambda: ops.sa_matmul(a, ws, act=act),
+                lambda: mm.sa_matmul_ref(a, ws, act=act))
             del w, ws, y
         h = torch.randn((m, c), generator=g, device="cuda").to(
             torch.bfloat16)
@@ -6214,12 +6320,16 @@ def expert_shards(torch, timer, g, hold, bits):
             "err_over_bound": hold(
                 "gemm", f"{tag} wd chain M {m} K {c}", got, ref,
                 mm.error_bound(h, wd, y=ref),
-                launched == 1 and got.dtype == torch.float32),
-            "ms": timer.wall(lambda: sa_dot_chain(
-                h, wd, PrecisionPolicy(backend="cuda")))}
+                launched == 1 and got.dtype == torch.float32)} | _gemm_times(
+            torch, timer, h, wd,
+            lambda: sa_dot_chain(h, wd, PrecisionPolicy(backend="cuda")),
+            lambda: sa_dot_chain(h, wd, PrecisionPolicy(backend="torch")))
     log(f"{tag}: " + ", ".join(
         f"{k} {v.get('N', v.get('K'))} on {v['tile']}: err/bound "
-        f"{v['err_over_bound']:.4f}, {v['ms']:.4f} ms" for k, v in out.items())
+        f"{v['err_over_bound']:.4f}, {v['ms']:.4f} ms (plain "
+        f"{v['plain_ms']:.4f}, bf16 torch.matmul {v['library_ms']:.4f}, "
+        f"bound {v['bound_ms']:.3g} by {v['bound_by']})"
+        for k, v in out.items())
         + "; each column piece the whole call's bits")
     return out
 
@@ -6243,12 +6353,45 @@ PMOE_LAYERS = 2
 # granite's serve on the mesh, on the moe phase's stream at the depth it
 # trains at (EP runs the same dispatch at every layer)
 PGRANITE_ARGS = GRANITE_ARGS[:-1] + [str(PMOE_LAYERS)]
+# The SSM, hybrid and frontend families and a 6-expert granite
+# (GRANITE_E6) train in the worlds of their shape, each at full width:
+# pixtral cut to 2 layers and mamba2 to 2 at (1, 2); whisper at full
+# depth, hymba cut to 2 (its global layer 0 and local layer 1,
+# `configs.cut_depth`) and GRANITE_E6 to 2 at (1, 4); the frontend archs
+# on seeded stub frames or patches (`launch.train --frontend`)
+GRANITE_E6 = "granite-moe-3b-a800m-e6"
 PARALLEL_RUNS = (("qwen2.5-14b", 1, (1, 2), TRAIN_ACCUM),
                  ("qwen2.5-14b", 1, (2, 2), 1),
                  ("phi3-medium-14b", 1, (1, 4), TRAIN_ACCUM),
                  (GRANITE, PMOE_LAYERS, (1, 2), 1),
-                 (GRANITE, PMOE_LAYERS, (2, 2), 1))
+                 (GRANITE, PMOE_LAYERS, (2, 2), 1),
+                 (PIXTRAL, 2, (1, 2), 1),
+                 (MAMBA2, 2, (1, 2), 1),
+                 (WHISPER, 4, (1, 4), 1),
+                 (HYMBA, 2, (1, 4), 1),
+                 (GRANITE_E6, PMOE_LAYERS, (1, 4), 1))
 PARALLEL_STEPS = 3
+# the stand-ins the worlds and their references register under a name of
+# their own (`_register_stand_ins`): granite at full width with 6 of its
+# 40 experts, which a `model` axis of 4 does not divide, so each expert is
+# cut by its d_ff (512 / 4), the layout tests/test_torch_moe_parallel.py
+# holds on its reduced 6-expert stand-in (whose 16-wide heads are below
+# the attention kernels' on the card)
+STAND_INS = {GRANITE_E6: (GRANITE, {"num_experts": 6})}
+
+
+def _register_stand_ins():
+    """Put STAND_INS in the port's config registry, so the launchers'
+    `--arch` finds them."""
+    from repro_torch import configs
+
+    for name, (base, kw) in STAND_INS.items():
+        configs.REGISTRY[name] = dataclasses.replace(
+            configs.get_config(base), name=name, **kw)
+
+
+def _is_frontend(arch) -> bool:
+    return arch in (WHISPER, PIXTRAL)
 
 # the serve runs (serving under tensor parallelism), each in the torchrun
 # world of the training runs of its shape, after their steps, on weights
@@ -6266,6 +6409,21 @@ PARALLEL_STEPS = 3
 # `--disagg`: one digest. Each: (key, driver arguments, runs)
 PSERVE_QWEN_LAYERS, PSERVE_PHI3_LAYERS = 12, 2
 PHI3_SERVE_ARGS = ["--arch", "phi3-medium-14b"] + SERVE_ARGS[2:]
+# The families' serves (`family_serve_check`): pixtral cut to 2 layers on
+# the frontend phase's static waves and mamba2 cut to 2 on the ssm phase's
+# stream at (1, 2); whisper at full depth on its static waves, hymba cut
+# to 2 (in_proj whole, 5 KV heads padded to 8, a local ring of 2048 rows
+# beside the pool) on the ssm phase's stream, paged and `--kv ring`, and
+# GRANITE_E6 cut to 2 on granite's stream at (1, 4)
+PFAMILY_SERVES = {
+    (1, 2): (("pixtral", FRONTEND_RUNS[PIXTRAL][:-1] + ["2"],
+              {"static": []}),
+             ("mamba2", MAMBA2_ARGS[:-1] + ["2"], {"paged": []})),
+    (1, 4): (("whisper", FRONTEND_RUNS[WHISPER], {"static": []}),
+             ("hymba", HYMBA_ARGS + ["--layers", "2"],
+              {"paged": [], "ring": ["--kv", "ring"]}),
+             ("granite_e6", ["--arch", GRANITE_E6] + PGRANITE_ARGS[2:],
+              {"paged": []}))}
 PSERVE_WORLDS = {
     (1, 2): (("qwen", SERVE_ARGS + ["--layers", str(PSERVE_QWEN_LAYERS),
                                     "--model-parallel", "2"],
@@ -6273,13 +6431,17 @@ PSERVE_WORLDS = {
              ("granite", PGRANITE_ARGS + ["--model-parallel", "2"],
               {"paged": []}),
              ("llama4", LLAMA4_ARGS + ["--model-parallel", "2"],
-              {"paged": []})),
+              {"paged": []})) + tuple(
+        (key, argv + ["--model-parallel", "2"], runs)
+        for key, argv, runs in PFAMILY_SERVES[(1, 2)]),
     (1, 1): (("nccl", SERVE_ARGS + ["--model-parallel", "1"],
               {"paged": []}),),
     (1, 4): (("phi3", PHI3_SERVE_ARGS + [
         "--layers", str(PSERVE_PHI3_LAYERS), "--model-parallel", "4"],
         {"paged": [], "ring": ["--kv", "ring"],
-         "disagg": ["--disagg", "--prefill-workers", "2"]}),)}
+         "disagg": ["--disagg", "--prefill-workers", "2"]}),) + tuple(
+        (key, argv + ["--model-parallel", "4"], runs)
+        for key, argv, runs in PFAMILY_SERVES[(1, 4)])}
 # ROADMAP R1's rule for a stream against the one-process stream: each
 # request's prefill logits within 2^-5 max|logit|, its tokens equal up to
 # the first position where the one-process top-two margin is below twice
@@ -6307,6 +6469,8 @@ def _parallel_reference(torch, cfg, accum, routing_path=None):
         p.requires_grad_(True)
     batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
         cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0).batch_at(0).items()}
+    if _is_frontend(cfg.name):
+        batch["frontend"] = _train_frontend(torch, cfg, 0)
     with _RoutingReplay() as rec:
         rec.start("record" if routing_path else None)
         loss, _, grads = make_grad_fn(cfg, accum)(params, batch)
@@ -6321,6 +6485,92 @@ def _parallel_reference(torch, cfg, accum, routing_path=None):
     gc.collect()
     torch.cuda.empty_cache()
     return loss, host
+
+
+def _train_frontend(torch, cfg, step, seed=0):
+    """The stub frames or patches `launch.train --frontend` feeds a step
+    (drawn on the host, seeded seed + 1 + step), on the card."""
+    g = torch.Generator().manual_seed(seed + 1 + step)
+    return torch.randn((TRAIN_BATCH, cfg.frontend_tokens, cfg.d_model),
+                       generator=g).cuda()
+
+
+# the training run whose free routing (steps 1-2, after step 0 on the
+# one-process routing) is held by `_train_routing_gate`: granite at (1, 2)
+TRAIN_ROUTING_RUN = 3
+
+
+def _router_calls(rec, experts):
+    """The router's calls among a `_RoutingReplay` recording (each token's
+    top k of `experts`; the capacity dispatch's calls rank tokens): their
+    (indices, probabilities) in call order."""
+    return [(i, x) for i, x in zip(rec.idx, rec.scores)
+            if x.shape[-1] == experts and i.shape[:-1] == x.shape[:-1]]
+
+
+def _train_routing_reference(torch, cfg):
+    """granite's one-process run of the launcher's PARALLEL_STEPS steps
+    (its optimizer, weights, batches and backend), recording the router's
+    calls of steps 1 to PARALLEL_STEPS - 1: a list a step of (indices,
+    probabilities) on the host. The card's memory is freed after."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.train_state import init_state
+
+    opt = AdamW(schedule=warmup_cosine(3e-4, max(2, PARALLEL_STEPS // 10),
+                                       PARALLEL_STEPS))
+    step = make_train_step(cfg, opt)
+    state = init_state(cfg, opt, seed=0, device="cuda")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    out = []
+    with _RoutingReplay() as rec:
+        for i in range(PARALLEL_STEPS):
+            rec.start("record" if i else None)
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in data.batch_at(i).items()}
+            state, m = step(state, batch)
+            float(m["loss"])
+            if i:
+                out.append([(a.cpu(), b.cpu()) for a, b in _router_calls(
+                    rec, cfg.num_experts)])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_routing_gate(torch, one, mesh, k, tag):
+    """The routing gate (`_routing_gate`) on a training run's free
+    routing: `one` and `mesh` each a list a step of the router's calls
+    (indices (B, T, k), probabilities (B, T, E)) in call order, the
+    one-process run's and the mesh's. In each step, at the first call
+    where a token's expert set differs, the spread of the two sides'
+    probabilities must stay within R1's bound and every parted token's
+    one-process top-k margin within twice it. Returns (readings a step:
+    None where the step routed alike, else the call and its gate's
+    readings; problems)."""
+    out, problems = [], []
+    for s, (a_calls, b_calls) in enumerate(zip(one, mesh)):
+        if len(a_calls) != len(b_calls):
+            problems.append(f"{tag} step {s + 1}: {len(b_calls)} router "
+                            f"calls against {len(a_calls)}")
+            out.append(None)
+            continue
+        got = None
+        for c, ((ia, pa), (ib, pb)) in enumerate(zip(a_calls, b_calls)):
+            diff = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+            if diff.any():
+                gate, p = _routing_gate(torch, pa, pb, diff, k,
+                                        f"{tag} step {s + 1} call {c}")
+                problems += p
+                got = {"call": c, "tokens": int(diff.sum())} | gate
+                break
+        out.append(got)
+    if len(one) != len(mesh):
+        problems.append(f"{tag}: {len(mesh)} steps recorded against "
+                        f"{len(one)}")
+    return out, problems
 
 
 def _torchrun_env():
@@ -6355,7 +6605,7 @@ def _parallel_start(shape, runs, grads: bool):
     sdir = os.path.join(root, "build", f"pserve_{dp}x{mp}")
     shutil.rmtree(sdir, ignore_errors=True)
     os.makedirs(sdir)
-    trains, outs, routing = [], [], []
+    trains, outs, routing, record = [], [], [], []
     for t, i in enumerate(runs):
         arch, layers, _, accum = PARALLEL_RUNS[i]
         out = os.path.join(root, "build", f"parallel_grads_{dp}x{mp}_{t}")
@@ -6364,18 +6614,21 @@ def _parallel_start(shape, runs, grads: bool):
         routing.append(_routing_path(arch, layers)
                        if grads and get_config(arch).family == "moe"
                        else None)
+        # granite's free routing of steps 1-2 at (1, 2), for the gate
+        record.append(i == TRAIN_ROUTING_RUN)
         trains.append(["--arch", arch, "--layers", str(layers), "--batch",
                        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum",
                        str(accum), "--steps", str(PARALLEL_STEPS), "--seed",
                        "0", "--model-parallel", str(mp)]
-                      + (["--grads-out", out] if grads else []))
+                      + (["--grads-out", out] if grads else [])
+                      + (["--frontend"] if _is_frontend(arch) else []))
     serves = [{"key": key, "argv": argv, "runs": sruns,
                "prefill": key != "nccl"}
               for key, argv, sruns in PSERVE_WORLDS.get(shape, ())]
     spec = os.path.join(sdir, "spec.json")
     with open(spec, "w") as f:
-        json.dump({"train": trains, "routing": routing, "serves": serves,
-                   "out": sdir}, f)
+        json.dump({"train": trains, "routing": routing, "record": record,
+                   "serves": serves, "out": sdir}, f)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(n), os.path.abspath(__file__),
            "--serve-ranks", spec]
@@ -6385,8 +6638,8 @@ def _parallel_start(shape, runs, grads: bool):
                                 env=_torchrun_env())
     return types.SimpleNamespace(shape=shape, runs=tuple(runs), outs=outs,
                                  grads=grads, routing=routing,
-                                 serves=serves, sdir=sdir, proc=proc,
-                                 t0=time.monotonic())
+                                 record=record, serves=serves, sdir=sdir,
+                                 proc=proc, t0=time.monotonic())
 
 
 def _train_check(torch, i, t, h, lines, ranks_lines, ref_loss, ref):
@@ -6424,15 +6677,14 @@ def _train_check(torch, i, t, h, lines, ranks_lines, ref_loss, ref):
     rel = {"loss only": 0.0}
     specs = {}
     if ref:
-        from repro_torch.configs import get_config
+        from repro_torch.configs import cut_depth, get_config
         from repro_torch.parallel.mesh import MeshSpec
         from repro_torch.parallel.sharding import P, tree_map_with_path
         from repro_torch.train.train_state import param_specs
 
         tree_map_with_path(
             lambda p, sp: specs.__setitem__(".".join(map(str, p)), sp),
-            param_specs(dataclasses.replace(get_config(arch),
-                                            num_layers=layers),
+            param_specs(cut_depth(get_config(arch), layers),
                         MeshSpec(("data", "model"), h.shape)),
             is_leaf=lambda x: isinstance(x, P))
     for path, g in (ref or {}).items():
@@ -6471,13 +6723,15 @@ def _train_check(torch, i, t, h, lines, ranks_lines, ref_loss, ref):
     return readings, problems
 
 
-def _parallel_finish(torch, h, refs):
+def _parallel_finish(torch, h, refs, train_routing=None):
     """Wait for a `_parallel_start` world and check it. Returns (readings
     by training run, the serve results by key, problems): the backend
     line, each training run's losses, each rank's peak memory, step times
     (the first's includes writing the gradients) and SA GEMM launches,
     step 0 against the one-process reference `refs[i]` (its loss alone
-    without `grads`); then the serve runs (`_served`)."""
+    without `grads`), and the free routing of steps 1-2 of the run that
+    recorded it against `train_routing` (the one-process run's,
+    `_train_routing_gate`); then the serve runs (`_served`)."""
     dp, mp = h.shape
     n = dp * mp
     root = os.path.dirname(os.path.abspath(__file__))
@@ -6523,6 +6777,20 @@ def _parallel_finish(torch, h, refs):
         r, p = _train_check(torch, i, t, h, lines, ranks_lines, ref_loss,
                             ref if h.grads else None)
         arch, layers = PARALLEL_RUNS[i][:2]
+        if h.record[t]:
+            from repro_torch.configs import get_config
+
+            mesh_calls = torch.load(os.path.join(h.sdir,
+                                                 f"train_routing_{t}.pt"))
+            tag_t = f"[parallel {arch} {layers}L {dp}x{mp} train routing]"
+            r["train_routing_gate"], p2 = _train_routing_gate(
+                torch, train_routing, mesh_calls,
+                get_config(arch).experts_per_token, tag_t)
+            p += p2
+            log(f"{tag_t} steps 1-{PARALLEL_STEPS - 1} on free routing "
+                f"against the one-process steps: "
+                f"{json.dumps(r['train_routing_gate'])} (None: the step "
+                f"routed every token alike)")
         readings[f"{arch}_{layers}L_{dp}x{mp}"] = r | {
             "backend": want, "world_wall_s": round(wall, 2)}
         problems += p
@@ -6532,7 +6800,7 @@ def _parallel_finish(torch, h, refs):
     served = {}
     for sv in h.serves:
         served[sv["key"]], p = _served(torch, sv["key"], n, sv["runs"],
-                                       h.sdir, lines, wall)
+                                       h.sdir, lines, wall, sv["argv"])
         problems += p
     shutil.rmtree(h.sdir, ignore_errors=True)
     return readings, served, problems
@@ -6567,13 +6835,15 @@ def serve_ranks(spec_path: str) -> int:
     with open(spec_path) as f:
         spec = json.load(f)
     cuda = torch.cuda.is_available()    # the CPU: a rehearsal
+    _register_stand_ins()
 
     def free():
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
 
-    for argv, routing in zip(spec["train"], spec["routing"]):
+    for t, (argv, routing, record) in enumerate(zip(
+            spec["train"], spec["routing"], spec["record"])):
         # a MoE step 0 on the one-process reference's routing (ROADMAP
         # R8: a near-tied token routed otherwise moves the router's and
         # an expert's gradients by far more than the arithmetic does);
@@ -6587,9 +6857,25 @@ def serve_ranks(spec_path: str) -> int:
                     time.sleep(1)
                 rec.idx = torch.load(routing)
                 rec.start("replay")
+            if record:
+                rec.free = []
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
             trn.main(argv)
+        if record and dist.get_rank() == 0:
+            # the router's calls of the free steps, a list a step
+            from repro_torch.configs import get_config, reduced_config
+            a = trn.parse_args(argv)
+            experts = (reduced_config(a.arch) if a.reduced
+                       else get_config(a.arch)).num_experts
+            n = len(rec.free) // (PARALLEL_STEPS - 1)
+            steps = [rec.free[j * n:(j + 1) * n]
+                     for j in range(PARALLEL_STEPS - 1)]
+            torch.save([[(i.cpu(), x.cpu()) for i, x in call_list
+                         if x.shape[-1] == experts
+                         and i.shape[:-1] == x.shape[:-1]]
+                        for call_list in steps],
+                       os.path.join(spec["out"], f"train_routing_{t}.pt"))
         free()
     for sv in spec["serves"]:
         params, out = None, {}
@@ -6606,14 +6892,28 @@ def serve_ranks(spec_path: str) -> int:
             wall = time.monotonic() - t0
             params = engine.params
             c = ops.counts()
-            done = sorted(sched.finished, key=lambda r: r.rid)
             out[name] = {
                 "wall_s": wall, "summary": {k: summary.get(k)
                                             for k in PSERVE_KEYS},
                 "launches": {k: v["launches"] for k, v in c.items()},
                 "plain_calls": sum(v["plain_calls"] for v in c.values()),
                 "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
-                             if cuda else None),
+                             if cuda else None)}
+            if isinstance(sched, list):
+                # a frontend arch's static waves: their token arrays, and
+                # each wave's last prompt row's logits on the mesh
+                out[name]["streams"] = [w.tolist() for w in sched]
+                if i == 0 and dist.get_rank() == 0:
+                    torch.save(_static_prefill_logits(
+                        torch, engine, sv["argv"]), os.path.join(
+                            spec["out"], f"prefill_{sv['key']}.pt"))
+                elif i == 0:
+                    _static_prefill_logits(torch, engine, sv["argv"])
+                del engine, sched
+                free()
+                continue
+            done = sorted(sched.finished, key=lambda r: r.rid)
+            out[name] |= {
                 "decode_steps": _decode_steps(engine, sched),
                 "streams": [list(map(int, r.tokens)) for r in done],
                 "prompts": [list(map(int, r.prompt)) for r in done]}
@@ -6648,7 +6948,43 @@ def serve_ranks(spec_path: str) -> int:
     return 0
 
 
-def _served(torch, key, n, runs, sdir, lines, wall):
+def _static_prefill_logits(torch, engine, argv):
+    """A static serve's (`launch.serve.serve_static`) prefill logits: each
+    wave's prompts and frontend (`static_wave`) through a full forward,
+    the last prompt row's logits over the real vocabulary, (waves x
+    batch, vocab) on the host; under the engine's mesh the vocabulary
+    columns gathered (every rank of the mesh must call it)."""
+    from repro_torch.launch import serve as drv
+    from repro_torch.models import model as M
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding as S
+
+    args = drv.parse_args(argv)
+    cfg, dev = engine.cfg, engine.device
+    plens = [int(x) for x in args.prompt_lens.split(",")]
+    rows = []
+    with S.using_mesh(engine.mesh), torch.no_grad():
+        for w in range(-(-args.requests // args.batch)):
+            prompts, fe = drv.static_wave(cfg, args.batch,
+                                          plens[w % len(plens)], args.seed,
+                                          w)
+            logits, _, _ = M.forward(engine.params, cfg, prompts.to(dev),
+                                     frontend_embeds=fe.to(dev),
+                                     last_only=True)
+            if logits.shape[-1] != cfg.padded_vocab:
+                logits = C.all_gather(logits, -1, S.axis_group("model"))
+            rows.append(logits[:, -1, :cfg.vocab_size].float().cpu())
+    return torch.cat(rows)
+
+
+def _served_kernels(cfg):
+    """The kernels a serve of `cfg` launches (the SSM family has no
+    attention)."""
+    return ("sa_matmul",) if cfg.family == "ssm" else (
+        "sa_matmul", "paged_decode", "prefill_attention")
+
+
+def _served(torch, key, n, runs, sdir, lines, wall, argv):
     """A world's serve runs of `key` from its ranks' files and lines:
     every rank one digest a run, the runs one digest, no plain call, each
     kernel launched (and on one nccl rank the serve driver's summary and
@@ -6667,21 +7003,25 @@ def _served(torch, key, n, runs, sdir, lines, wall):
     prefill, routing = load("prefill"), load("routing")
     tag = f"[parallel_serve {key} 1x{n}]"
     problems = []
+    from repro_torch.launch import serve as drv
+
+    a = drv.parse_args(argv)
+    kernels = _served_kernels(drv.config_of(a))
+    tokens = a.requests * a.max_new
     for run in runs:
         digests = {r[run]["summary"]["stream_digest"] for r in ranks}
         if len(digests) != 1:
             problems.append(f"{tag} {run}: the ranks' digests {digests}")
         for r, got in enumerate(ranks):
             c = got[run]
-            if c["plain_calls"] or any(
-                    c["launches"][k] <= 0 for k in (
-                        "sa_matmul", "paged_decode", "prefill_attention")):
+            if c["plain_calls"] or any(c["launches"][k] <= 0
+                                       for k in kernels):
                 problems.append(f"{tag} {run} rank {r}: launches "
                                 f"{c['launches']}, plain calls "
                                 f"{c['plain_calls']}")
         s = ranks[0][run]["summary"]
         if (s["pages_leaked"] not in (0, None) or s["nonfinite_logits"]
-                or s["generated_tokens"] != 8 * MAX_NEW):
+                or s["generated_tokens"] != tokens):
             problems.append(f"{tag} {run}: {s}")
         log(f"{tag} {run}: digest {digests}, wall "
             f"{ranks[0][run]['wall_s']:.1f} s (init + serve), ITL p50 "
@@ -6738,6 +7078,7 @@ def parallel_lane(result: str) -> int:
     t0 = time.monotonic()
     try:
         card = smi("name,power.limit")
+        _register_stand_ins()
         readings, served = parallel(torch, card)
         t = time.monotonic()
         held = parallel_serve_check(torch, served)
@@ -6756,9 +7097,13 @@ def parallel_lane(result: str) -> int:
         if problems:
             raise AssertionError("moe granite parallel check failed: "
                                  + "; ".join(problems))
+        t = time.monotonic()
+        families = family_serve_check(torch, served)
+        log(f"[parallel_lane] the families' one-process references "
+            f"{time.monotonic() - t:.1f} s; {card}")
         torch.save({"readings": readings, "served": served, "held": held,
-                    "granite": granite, "wall_s": time.monotonic() - t0},
-                   result)
+                    "granite": granite, "families": families,
+                    "wall_s": time.monotonic() - t0}, result)
         return 0
     except BaseException:
         text = traceback.format_exc()
@@ -6806,7 +7151,7 @@ def parallel(torch, card):
     35 GiB, one at a time, the (1, 2) world (35 GiB) signalling DONE_1X2
     when it has ended. Returns (the training readings, the serve
     results by key); raises on any problem."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import cut_depth, get_config
 
     os.environ["REPRO_GEMM_BACKEND"] = "cuda"
     out, served, problems = {}, {}, []
@@ -6820,7 +7165,7 @@ def parallel(torch, card):
         arch, layers, _, accum = PARALLEL_RUNS[i]
         key = (arch, layers, accum)
         if key not in by_cfg:
-            cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+            cfg = cut_depth(get_config(arch), layers)
             t = time.monotonic()
             by_cfg[key] = _parallel_reference(
                 torch, cfg, accum, _routing_path(arch, layers)
@@ -6829,8 +7174,8 @@ def parallel(torch, card):
                 f"{by_cfg[key][0]:.6f} in {time.monotonic() - t:.1f} s")
         refs[i] = by_cfg[key]
 
-    def finish(h):
-        r, s, p = _parallel_finish(torch, h, refs)
+    def finish(h, train_routing=None):
+        r, s, p = _parallel_finish(torch, h, refs, train_routing)
         out.update(r)
         served.update(s)
         problems.extend(p)
@@ -6841,13 +7186,20 @@ def parallel(torch, card):
     # (2 x 17.1 GiB training, then llama4's superblock, 2 x 17.6 GiB), the
     # nccl rank (30.5 GiB) and the (1, 4) world (4 x 6.4 GiB), one at a
     # time, while the main process serves qwen (~30 GiB)
-    for i in (3, 4):      # no routing of an earlier run
+    for i in (3, 4, 9):      # no routing of an earlier run
         arch, layers = PARALLEL_RUNS[i][:2]
         if os.path.exists(_routing_path(arch, layers)):
             os.remove(_routing_path(arch, layers))
-    for i in (3, 0, 1, 2):
+    for i in (3, 0, 1, 2, 5, 6, 7, 8, 9):
         reference(i)
     refs[4] = refs[3]
+    t = time.monotonic()
+    arch, layers = PARALLEL_RUNS[TRAIN_ROUTING_RUN][:2]
+    train_routing = _train_routing_reference(
+        torch, cut_depth(get_config(arch), layers))
+    log(f"[parallel {arch} {layers}L] one-process steps 0-"
+        f"{PARALLEL_STEPS - 1}, routing of steps 1-{PARALLEL_STEPS - 1} "
+        f"recorded, in {time.monotonic() - t:.1f} s")
     parent = os.getppid()
     waited = _wait_signal(GO_2X2, lambda: os.getppid() == parent)
     if os.getppid() != parent:
@@ -6856,10 +7208,11 @@ def parallel(torch, card):
         f"process's low-memory phases")
     finish(_parallel_start((2, 2), (1, 4), grads=True))
     _signal(DONE_2X2)
-    finish(_parallel_start((1, 2), (0, 3), grads=True))
+    finish(_parallel_start((1, 2), (0, 3, 5, 6), grads=True),
+           train_routing)
     _signal(DONE_1X2)
     finish(_parallel_start((1, 1), (1,), grads=False))
-    finish(_parallel_start((1, 4), (2,), grads=True))
+    finish(_parallel_start((1, 4), (2, 7, 8, 9), grads=True))
     refs.clear()
     by_cfg.clear()
     gc.collect()
@@ -7071,6 +7424,163 @@ def parallel_serve_check(torch, ps):
     return out
 
 
+def _static_hold(torch, eng, argv, outs, prefill, streams, tag):
+    """A static serve (`argv`) on the mesh against the one-process `eng`
+    and its waves' tokens `outs` by R1's rule: the mesh's prefill logits
+    (`prefill`, `_static_prefill_logits`) within PSERVE_REL of each row's
+    largest one-process |logit|, each row of the mesh's waves (`streams`)
+    equal to one process up to the first position where the one-process
+    top-two margin (a full forward over the prompt and the one-process
+    tokens with the row's frontend) is below twice that bound. Returns
+    (tokens equal, tokens, the worst prefill error over its bound,
+    problems)."""
+    from repro_torch.launch import serve as drv
+    from repro_torch.models import model as M
+
+    cfg = eng.cfg
+    one = _static_prefill_logits(torch, eng, argv)
+    bound = PSERVE_REL * one.abs().amax(-1)
+    worst = float(((prefill - one).abs().amax(-1) / bound).max())
+    problems = [] if worst <= 1.0 else [
+        f"{tag} prefill logits {worst:.3f} of R1's bound"]
+    a = drv.parse_args(argv)
+    plens = [int(x) for x in a.prompt_lens.split(",")]
+    off = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    equal = total = 0
+    for w, (mine, ref) in enumerate(zip(streams, outs)):
+        prompts, fe = drv.static_wave(cfg, a.batch, plens[w % len(plens)],
+                                      a.seed, w)
+        for b, (toks, want) in enumerate(zip(mine, ref.tolist())):
+            same = [x == y for x, y in zip(toks, want)]
+            equal += sum(same)
+            total += len(want)
+            if all(same):
+                continue
+            j = same.index(False)
+            seq = torch.cat([prompts[b], torch.tensor(want[:-1],
+                                                      dtype=torch.int32)])
+            with torch.no_grad():
+                full, _, _ = M.forward(eng.params, cfg, seq[None].cuda(),
+                                       frontend_embeds=fe[b:b + 1].cuda())
+            rows = full[0, off + prompts.shape[1] - 1:,
+                        :cfg.vocab_size].float()
+            top2 = rows.topk(2, dim=-1).values
+            margins = (top2[:, 0] - top2[:, 1]).tolist()
+            bnd = float(bound[w * a.batch + b])
+            if min(margins[:j + 1]) >= 2 * bnd:
+                problems.append(f"{tag} wave {w} row {b} parts at token {j}"
+                                f" with every margin up to it above "
+                                f"{2 * bnd:.4f}")
+    return equal, total, worst, problems
+
+
+def family_serve_check(torch, ps):
+    """The worlds' serves of the SSM, hybrid and frontend families and of
+    GRANITE_E6 (PFAMILY_SERVES) against one-process serves at the same
+    depth on the same streams, served here, by R1's rule (`_r1_hold`; the
+    static waves by `_static_hold`; GRANITE_E6's prefill routing by
+    `_routing_gate`); each rank's launches the one-process run's (the same
+    GEMMs on the rank's pieces), and its SA GEMMs what `model.gemm_calls(
+    tp=)` implies: a static wave's MAX_NEW forwards, or each request's
+    prefill and each decode step. Returns the readings; raises on any
+    problem."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as drv
+    from repro_torch.models import model as M
+
+    problems, out = [], {}
+    for shape, serves in PFAMILY_SERVES.items():
+        tp = shape[1]
+        for key, argv, runs in serves:
+            tag = f"[parallel_family {key} 1x{tp}]"
+            got = ps[key]
+            ops.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.monotonic()
+            summary, sched, eng = drv.main(argv, return_state=True)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t
+            one = {k: v["launches"] for k, v in ops.counts().items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            cfg = eng.cfg
+            names = _served_kernels(cfg)
+            rec = {"one_process_digest": summary["stream_digest"],
+                   "one_process_launches": {k: one[k] for k in names},
+                   "one_process_peak_gib": peak, "one_process_wall_s": wall}
+            for run in runs:
+                ranks = [r[run] for r in got["ranks"]]
+                a = drv.parse_args(argv)
+                for r, rank in enumerate(ranks):
+                    if isinstance(sched, list):
+                        forwards = -(-a.requests // a.batch) * a.max_new
+                    else:
+                        forwards = None
+                        steps = rank["decode_steps"]
+                    want = (M.gemm_calls(cfg, tp=tp) * forwards
+                            if forwards else
+                            sum(M.gemm_calls(cfg, len(p), tp)
+                                for p in rank["prompts"])
+                            + steps * M.gemm_calls(cfg, tp=tp))
+                    mine = {k: rank["launches"][k] for k in names}
+                    if mine["sa_matmul"] != want or (
+                            run == next(iter(runs))
+                            and mine != rec["one_process_launches"]):
+                        problems.append(
+                            f"{tag} {run} rank {r} launches {mine}: the "
+                            f"one-process run's {rec['one_process_launches']}"
+                            f", gemm_calls(tp={tp}) implies {want} SA GEMMs")
+                if isinstance(sched, list):
+                    eq, n, worst, p = _static_hold(
+                        torch, eng, argv, sched, got["prefill"],
+                        ranks[0]["streams"], tag)
+                    routes = None
+                else:
+                    ref = [(list(map(int, r_.prompt)),
+                            list(map(int, r_.tokens)))
+                           for r_ in sorted(sched.finished,
+                                            key=lambda r_: r_.rid)]
+                    eq, n, worst, p, routes = _r1_hold(
+                        torch, eng, ref, tag, got["ranks"], got["prefill"],
+                        run, routing=got["routing"])
+                problems += p
+                rec[run] = {
+                    "equal_tokens": f"{eq}/{n}",
+                    "prefill_err_over_bound": worst,
+                    "digest": ranks[0]["summary"]["stream_digest"],
+                    "gemm_calls_a_forward": M.gemm_calls(cfg, tp=tp),
+                    "launches": [{k: r["launches"][k] for k in names}
+                                 for r in ranks],
+                    "peak_gib": [r["peak_gib"] for r in ranks],
+                    "itl_p50_ms": [r["summary"]["decode_itl_p50_ms"]
+                                   for r in ranks],
+                    "wall_s": [r["wall_s"] for r in ranks]}
+                if routes:
+                    rec[run]["routing_parted"] = routes["parted"]
+                    rec[run]["routing_gate"] = [
+                        g and [round(g["spread_over_bound"], 4),
+                               round(g["margin_over_2spread"], 4)]
+                        for g in routes["gate"]]
+                log(f"{tag} {run} against its one-process stream (digest "
+                    f"{summary['stream_digest']}, ITL p50 "
+                    f"{summary.get('decode_itl_p50_ms')} ms): {eq} of {n} "
+                    f"tokens equal, prefill logits {worst:.4f} of the bound "
+                    f"(R1); per rank: digest {rec[run]['digest']}, ITL p50 "
+                    f"{rec[run]['itl_p50_ms']} ms, peak "
+                    f"{[x and round(x, 3) for x in rec[run]['peak_gib']]} "
+                    f"GiB, launches {rec[run]['launches']} (one process "
+                    f"{rec['one_process_launches']})"
+                    + (f"; routing parted {rec[run]['routing_parted']}, "
+                       f"gate {rec[run]['routing_gate']}" if routes else ""))
+            out[key] = rec
+            del eng, sched
+            gc.collect()
+            torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("parallel_family check failed: "
+                             + "; ".join(problems))
+    return out
+
+
 def _expected_train_tiles(torch, bwd_launches):
     """The SA GEMM's launches by tile that the train phase's shapes imply:
     a microbatch of TRAIN_M rows runs each layer's 7 forward GEMMs twice
@@ -7185,9 +7695,10 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
     granite's training and the qwen serve phases (~30 GiB) once that
     world has ended, beside
     the lane's later worlds (at most 35 GiB), the second tuned process and
-    the examples (~38 GiB) once its (1, 2) world has ended; llama4's (35 GiB) and
-    pixtral's training (39 GiB), the checks that read the lane's results,
-    emulate, the study and the train phase after the lane has ended. The
+    the examples (~38 GiB), then emulate and the study (~30 GiB), once its
+    (1, 2) world has ended; llama4's (35 GiB) and pixtral's training (39
+    GiB), the checks that read the lane's results and the train phase
+    after the lane has ended. The
     wall times of these phases are read beside the lane's work on the
     card and its host; the kernel phase before them runs alone. Returns
     (the tiers' and the emulate run's launches by mode)."""
@@ -7329,6 +7840,44 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # emulate and the study beside the lane's last worlds (~30 GiB here,
+    # at most 30.5 GiB there): the lane's worlds are the
+    # run's longest path
+    t = time.monotonic()
+    e_sum, e_got, engine, sched = serve_emulate(torch)
+    launches["fp_emu"] = e_got["fp_emu"]
+    log(f"[serve emulate] launches {e_got}; prefill_s "
+        f"{e_sum['prefill_s']} decode_s {e_sum['decode_s']} "
+        f"compile_s {e_sum['compile_s']} wall_s {e_sum['wall_s']} "
+        f"itl_p50 {e_sum.get('decode_itl_p50_ms')} ms")
+    phases["emulate_serve"] = time.monotonic() - t
+    t = time.monotonic()
+    kernels[5]["readings"]["emulate_serve"] = dict(
+        profile_emulate(torch, engine),
+        serve_prefill_s=e_sum["prefill_s"],
+        serve_decode_itl_p50_ms=e_sum.get("decode_itl_p50_ms"))
+    phases["emulate_profile"] = time.monotonic() - t
+    t = time.monotonic()
+    prompt = min(sched.finished, key=lambda r: r.rid).prompt
+    backend_logits(torch, engine, prompt, ("emulate", "cuda"))
+    phases["emulate_backends"] = time.monotonic() - t
+    t = time.monotonic()
+    emu_modes, emu_step = tiers_emulate(
+        torch, engine, {"prefill_s": e_sum["prefill_s"],
+                        "itl": e_sum.get("decode_itl_p50_ms")})
+    kernels[5]["readings"]["emulate_bulk_step_ms"] = emu_step
+    phases["tiers_emulate"] = time.monotonic() - t
+    del engine, sched
+    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.monotonic()
+    launches["quantize_fp8"] = study(torch)
+    phases["study"] = time.monotonic() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # the lane's results
     t = time.monotonic()
     par = _join_lane(torch, lane)
@@ -7360,6 +7909,16 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
         for key in ("qwen", "phi3", "nccl")
         for run in pserve[key]["ranks"][0]}))
     log(f"[parallel_serve] {card}")
+    # the SSM, hybrid and frontend families and GRANITE_E6 on the mesh
+    fam_par = par["families"]
+    for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
+                     (3, "prefill_attention")):
+        kernels[k_]["readings"]["parallel_family_launches"] = {
+            f"{key}_{run}": [ln.get(name) for ln in rec[run]["launches"]]
+            for key, rec in fam_par.items() for run in rec
+            if isinstance(rec[run], dict) and "launches" in rec[run]}
+    log("[parallel_family] " + json.dumps(fam_par))
+    log(f"[parallel_family] {card}")
     phases["parallel_serve_check"] = time.monotonic() - t
 
     moe_out |= step("moe_llama4",
@@ -7405,41 +7964,6 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
             "layers", "batch", "mean_step_s", "step_s", "losses",
             "peak_gib", "step0")}
         for arch in (WHISPER, PIXTRAL)}))
-
-    t = time.monotonic()
-    summary, got, engine, sched = serve_emulate(torch)
-    launches["fp_emu"] = got["fp_emu"]
-    log(f"[serve emulate] launches {got}; prefill_s "
-        f"{summary['prefill_s']} decode_s {summary['decode_s']} "
-        f"compile_s {summary['compile_s']} wall_s {summary['wall_s']} "
-        f"itl_p50 {summary.get('decode_itl_p50_ms')} ms")
-    phases["emulate_serve"] = time.monotonic() - t
-    t = time.monotonic()
-    kernels[5]["readings"]["emulate_serve"] = dict(
-        profile_emulate(torch, engine),
-        serve_prefill_s=summary["prefill_s"],
-        serve_decode_itl_p50_ms=summary.get("decode_itl_p50_ms"))
-    phases["emulate_profile"] = time.monotonic() - t
-    t = time.monotonic()
-    prompt = min(sched.finished, key=lambda r: r.rid).prompt
-    backend_logits(torch, engine, prompt, ("emulate", "cuda"))
-    phases["emulate_backends"] = time.monotonic() - t
-    t = time.monotonic()
-    emu_modes, emu_step = tiers_emulate(
-        torch, engine, {"prefill_s": summary["prefill_s"],
-                        "itl": summary.get("decode_itl_p50_ms")})
-    kernels[5]["readings"]["emulate_bulk_step_ms"] = emu_step
-    phases["tiers_emulate"] = time.monotonic() - t
-    del engine, sched
-    os.environ["REPRO_GEMM_BACKEND"] = "cuda"
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    t = time.monotonic()
-    launches["quantize_fp8"] = study(torch)
-    phases["study"] = time.monotonic() - t
-    gc.collect()
-    torch.cuda.empty_cache()
 
     t = time.monotonic()
     launches["sa_matmul_bwd"], _, train_routes, train_tiles = train(

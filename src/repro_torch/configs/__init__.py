@@ -68,5 +68,17 @@ def reduced_config(name: str, layers_per_period: int = 1,
     return dataclasses.replace(full, **changes)
 
 
+def cut_depth(cfg: ArchConfig, layers: int) -> ArchConfig:
+    """`cfg` cut to its first `layers` layers (a full-width model cut in
+    depth). Where `layers` is below the attention pattern's period the
+    pattern is cut with it (hymba's 2 layers: its global layer 0 and the
+    local layer 1), so the stack is one superblock of those layers."""
+    changes = {"num_layers": layers}
+    if layers < len(cfg.attn_pattern):
+        changes["attn_pattern"] = cfg.attn_pattern[:layers]
+    return dataclasses.replace(cfg, **changes)
+
+
 __all__ = ["REGISTRY", "ARCH_NAMES", "get_config", "reduced_config",
-           "ArchConfig", "SHAPES", "SHAPES_BY_NAME", "ShapeCfg"]
+           "cut_depth", "ArchConfig", "SHAPES", "SHAPES_BY_NAME",
+           "ShapeCfg"]

@@ -68,10 +68,13 @@ another on the same weights; the `[replicas xN]` line aggregates them.
 Under torchrun (or any launcher that sets the torch.distributed
 environment) the world becomes a ("data", "model") mesh with
 `--model-parallel` ranks innermost (`parallel.mesh.make_host_mesh`, as
-the train driver builds it), and the dense and MoE families serve
-tensor-parallel on the `model` axis (a MoE layer's experts split over the
-ranks where the axis divides them, else each expert's columns; the
-dropless dispatch on the rank's experts, the logits gathered whole):
+the train driver builds it), and every family serves tensor-parallel on
+the `model` axis (a MoE layer's experts split over the ranks where the
+axis divides them, else each expert's columns, the dropless dispatch on
+the rank's experts; a Mamba2 mixer's projections on the rank's pieces,
+its conv and SSD whole on every rank; the frontend archs' static waves
+on the same seeded frames or patches on every rank; the logits gathered
+whole):
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch qwen2.5-14b --reduced --device cpu --model-parallel 2 \
@@ -87,7 +90,6 @@ stream_digest=... peak_mem_gib=... sa_matmul_launches=...
 decode_attn_launches=... prefill_attn_launches=... plain_calls=...`.
 Refused under a mesh: a `data` axis above 1 (the pool's pages would
 shard over it; any family), `--model-parallel` N > 1 without a launcher,
-the SSM, hybrid, audio and VLM archs under TP (`model.check_parallel`),
 `--decode-replicas`, `--autotune-decode` and `--spec-warmup`. `--layers
 N` cuts the config's depth (a full-width model cut in depth).
 """
@@ -98,11 +100,12 @@ import contextlib
 import dataclasses
 import hashlib
 import io
+import types
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import cut_depth, get_config, reduced_config
 from repro_torch.core import optflags
 from repro_torch.core.device import resolve_device
 from repro_torch.core.energy import tier_energy_summary
@@ -415,48 +418,79 @@ def serve_replicas(args, cfg, params, plens, device):
     return summary, scheds
 
 
+def static_wave(cfg, batch: int, plen: int, seed: int, w: int):
+    """Wave w's prompts (batch, plen) int32 and frontend embeddings
+    (batch, frontend_tokens, d_model) for `serve_static`, drawn on the host
+    from a `torch.Generator` seeded seed + 1 + w."""
+    g = torch.Generator().manual_seed(seed + 1 + w)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, plen), generator=g,
+                            dtype=torch.int32)
+    return prompts, torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
+                                generator=g)
+
+
 def serve_static(args, cfg, params, plens, device):
     """Static-batch waves for the frontend archs (the JAX driver's
     `serve_static`): `--requests` prompts served in waves of `--batch`
     through `generate()` (arrivals and `--rate` do not apply: a wave
     waits on its slowest member). Prompt lengths cycle a wave (a wave's
     batch prefill is rectangular); wave w's prompts and frontend
-    embeddings (B, frontend_tokens, d_model) come from a
-    `torch.Generator` seeded `--seed + 1 + w`. Counts the real generated
-    tokens (through the first EOS a row; the last wave's padding rows do
-    not count). Returns (summary, the waves' token arrays, engine)."""
+    embeddings (B, frontend_tokens, d_model) come from
+    `static_wave` (on the host: under a mesh every rank draws the same
+    ones). Counts the real generated tokens
+    (through the first EOS a row; the last wave's padding rows do not
+    count); `stream_digest` is `stream_digest`'s over those tokens, wave
+    w's row i request w·batch + i; `decode_itl_p50_ms` is the median over
+    the waves of a wave's decode wall time over its lock-step decode
+    steps (every row gets one token a step). Returns (summary, the waves'
+    token arrays, engine)."""
     engine = ServeEngine(cfg, params, args.batch, args.cache_len,
                          eos_id=args.eos_id, sync_every=args.sync_every,
                          page_size=args.page_size, device=device)
     served = n_real = nonfinite = 0
     prefill_s = decode_s = 0.0
-    outs = []
+    outs, streams, itls = [], [], []
     waves = max(1, -(-args.requests // args.batch))
     for w in range(waves):
-        plen = plens[w % len(plens)]
-        g = torch.Generator().manual_seed(args.seed + 1 + w)
-        prompts = torch.randint(0, cfg.vocab_size, (args.batch, plen),
-                                generator=g, dtype=torch.int32)
-        frontend = torch.randn((args.batch, cfg.frontend_tokens,
-                                cfg.d_model), generator=g)
+        prompts, frontend = static_wave(cfg, args.batch,
+                                        plens[w % len(plens)], args.seed, w)
         out = engine.generate(prompts, args.max_new,
                               frontend=frontend).numpy()
         outs.append(out)
         n_rows = min(args.batch, args.requests - served)
-        for row in out[:n_rows]:
+        for i, row in enumerate(out[:n_rows]):
             eos = np.nonzero(row == args.eos_id)[0]
-            n_real += int(eos[0]) + 1 if eos.size else row.shape[0]
+            n = int(eos[0]) + 1 if eos.size else row.shape[0]
+            n_real += n
+            streams.append(types.SimpleNamespace(
+                rid=w * args.batch + i, tokens=row[:n].tolist()))
         served += n_rows
         prefill_s += engine.last_stats["prefill_s"]
         decode_s += engine.last_stats["decode_s"]
+        steps = engine.last_stats["decode_tokens"] // args.batch
+        if steps:
+            itls.append(engine.last_stats["decode_s"] / steps)
         nonfinite += engine.last_stats["nonfinite_logits"]
     summary = {"requests": served, "generated_tokens": n_real,
                "waves": waves, "prefill_s": round(prefill_s, 4),
                "decode_s": round(decode_s, 4),
                "decode_tok_s": round(max(n_real - served, 0) / decode_s, 2)
                if decode_s > 0 else 0.0,
-               "nonfinite_logits": nonfinite}
+               "decode_itl_p50_ms": round(float(np.percentile(itls, 50))
+                                          * 1000, 3) if itls else None,
+               "nonfinite_logits": nonfinite,
+               "stream_digest": stream_digest(streams)}
     return summary, outs, engine
+
+
+def config_of(args):
+    """The config that `--arch`, `--reduced` (with `--layers-per-period`
+    and `--width`) and `--layers` name."""
+    cfg = (reduced_config(args.arch,
+                          layers_per_period=args.layers_per_period,
+                          width=args.width)
+           if args.reduced else get_config(args.arch))
+    return cut_depth(cfg, args.layers) if args.layers else cfg
 
 
 def parse_args(argv=None):
@@ -598,12 +632,7 @@ def main(argv=None, *, return_state: bool = False, params=None):
         raise ValueError("--autotune-decode times the kernels on the card; "
                          "on the CPU the port runs their plain versions, "
                          "which have nothing to tune")
-    cfg = (reduced_config(args.arch,
-                          layers_per_period=args.layers_per_period,
-                          width=args.width)
-           if args.reduced else get_config(args.arch))
-    if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    cfg = config_of(args)
     mesh, device = _serve_mesh(args, cfg, device)
     if mesh is None:
         return _serve(args, cfg, device, params, return_state)

@@ -19,7 +19,8 @@ backend, nccl where every rank has a card of its own and gloo where ranks
 share one or run on the CPU, is printed first): every rank draws the same
 full state from `--seed` and keeps its shard, each data rank takes its
 rows of the same global batch (`parallel.sharding.data_specs`; a MoE
-model's load-balance loss is taken over the global batch), and rank
+model's load-balance loss is taken over the global batch; with
+`--frontend` the stub frames or patches with their rows), and rank
 0 prints a JSON line a step; at the end each rank prints its peak memory
 and step times. `main` parses the flags and calls `run(cfg, args)`, which
 callers with a config of their own (a full-width model cut in depth) call
@@ -28,7 +29,6 @@ directly.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -36,7 +36,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import cut_depth, get_config, reduced_config
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.models.model import tree_leaves
@@ -69,6 +69,11 @@ def parse_args(argv=None):
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config's depth to this many layers (a "
                          "full-width model cut in depth)")
+    ap.add_argument("--frontend", action="store_true",
+                    help="feed a frontend arch stub frame or patch "
+                         "embeddings, (batch, frontend_tokens, d_model) "
+                         "drawn a step from a host generator seeded "
+                         "--seed + 1 + step (the JAX driver feeds none)")
     ap.add_argument("--grads-out", default=None,
                     help="write the first step's loss and gradients "
                          "(before the clip) to this directory, .npy "
@@ -211,6 +216,11 @@ def run(cfg, args, on_grads=None):
         for step in range(start, args.steps):
             watchdog.step_start()
             batch = {k: rows(v) for k, v in next(data).items()}
+            if args.frontend and cfg.frontend_tokens:
+                g = torch.Generator().manual_seed(args.seed + 1 + step)
+                batch["frontend"] = rows(torch.randn(
+                    (args.batch, cfg.frontend_tokens, cfg.d_model),
+                    generator=g).numpy())
             state, metrics = step_fn(state, batch)
             # float() waits for the card, so the step's wall is the work's
             m = {k: float(v) for k, v in metrics.items()}
@@ -268,7 +278,7 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = cut_depth(cfg, args.layers)
     return run(cfg, args)[0]
 
 

@@ -8,11 +8,12 @@ so in a comment.
 
 Under a mesh whose `model` axis has more than one rank
 (`parallel.sharding.set_active_mesh`), attention (training and serving,
-over a cache of the rank's KV heads) and the FFN run tensor-parallel on
-the rank's parameter shards
-(`parallel.sharding.param_specs`): wq, wk, wv, wg, wu column-parallel,
-wo, wd row-parallel, with the explicit collectives of
-`parallel/collectives.py` (`_tp_attention`, `_tp_ffn`, `row_linear`).
+over a cache of the rank's KV heads; cross-attention over the rank's
+heads of the encoder's K and V) and the FFNs run tensor-parallel on the
+rank's parameter shards (`parallel.sharding.param_specs`): wq, wk, wv,
+wg, wu, w1 column-parallel, wo, wd, w2 row-parallel, with the explicit
+collectives of `parallel/collectives.py` (`_tp_attention`, `_tp_ffn`,
+`_tp_column_row`, `row_linear`).
 """
 from __future__ import annotations
 
@@ -315,9 +316,13 @@ def padded_kvh(kvh: int, tp: int) -> int:
 
 def _tp_attention(x, p, cfg, window, positions, rope: bool, causal: bool,
                   cache=None, prefix_len: int = 0,
-                  decode_multi: bool = False, page_size: int = 16):
+                  decode_multi: bool = False, page_size: int = 16,
+                  kv_input=None):
     """The attention sub-layer on the rank's shards. wq, wk, wv (and their
     biases) are column shards of the replicated input; wo a row shard.
+    `kv_input` (B, S, D), the encoder's output, gives the cross-attention
+    its K and V through the same wk and wv pieces (`encoder_kv`'s rule,
+    unrotated); the three projections of x still run, as in one process.
     With a cache (serving) every `"kv"` leaf holds this rank's KV heads
     (`cache_specs` puts the padded heads on `model`), and the rank writes
     and attends over those heads only, by the one-process cache paths
@@ -340,28 +345,40 @@ def _tp_attention(x, p, cfg, window, positions, rope: bool, causal: bool,
     tp, group, _ = tp_context()
     B, T, _ = x.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    xf = x.reshape(B * T, -1)
-    xc = C.copy_to_model(xf, group)
     fused = cfg.qkv_bias and _fuse_epilogue()
 
-    def proj(w, b, n_full):
+    def rows(t):         # (rows, D) and its copy onto the model axis
+        t = t.reshape(-1, t.shape[-1])
+        return t, C.copy_to_model(t, group)
+
+    def proj(src, w, b, n_full):
         sharded = w.shape[1] != n_full
-        y = sa_dot(xc if sharded else xf, w, bias=b if fused else None)
-        if cfg.qkv_bias and not fused:
+        y = sa_dot(src[1] if sharded else src[0], w,
+                   bias=b if fused else None)
+        if b is not None and not fused:
             y = y + b
         return y, sharded
 
+    xs = rows(x)
     (q, qs), (k, ks), (v, vs) = (
-        proj(p["w" + n], p.get("b" + n), heads * hd)
+        proj(xs, p["w" + n], p["b" + n] if cfg.qkv_bias else None,
+             heads * hd)
         for n, heads in (("q", H), ("k", KVH), ("v", KVH)))
+    if kv_input is not None:
+        es = rows(kv_input)
+        (k, ks), (v, vs) = (proj(es, p[w], None, KVH * hd)
+                            for w in ("wk", "wv"))
     aligned = qs and ks and vs and KVH % tp == 0
     if not aligned:      # whole projections, replicated
         q, k, v = (C.gather_from_model(t, -1, group) if s else t
                    for t, s in ((q, qs), (k, ks), (v, vs)))
-    q, k, v = (t.reshape(B, T, -1, hd) for t in (q, k, v))
-    if rope:
-        q, k = (apply_rope(t.transpose(1, 2), positions[:, None, :],
-                           cfg.rope_theta).transpose(1, 2) for t in (q, k))
+    q, k, v = (t.reshape(B, t.shape[0] // B, -1, hd) for t in (q, k, v))
+    if rope:             # the encoder's K is not rotated
+        q = apply_rope(q.transpose(1, 2), positions[:, None, :],
+                       cfg.rope_theta).transpose(1, 2)
+        if kv_input is None:
+            k = apply_rope(k.transpose(1, 2), positions[:, None, :],
+                           cfg.rope_theta).transpose(1, 2)
 
     def attend(q_, k_, v_):
         return _attend(q_, k_, v_, cache, cfg, window, positions, causal,
@@ -384,26 +401,44 @@ def _tp_attention(x, p, cfg, window, positions, rope: bool, causal: bool,
                       H * hd).reshape(B, T, -1)
 
 
-def _tp_ffn(x, p, act, ff: int):
-    """SwiGLU on the rank's shards: wg, wu column-parallel (the gate's
-    activation in its epilogue, as unsharded), wd row-parallel."""
+def _act_dot(x, w, act=None):
+    """`x @ w` through the SA GEMM, `act` in its epilogue when fused, else
+    applied to its fp32 output."""
+    if act is None:
+        return sa_dot(x, w)
+    if _fuse_epilogue():
+        return sa_dot(x, w, act=act)
+    return act_fn(sa_dot(x, w), act)
+
+
+def _tp_column_row(x, cols, w_out, ff: int, mix):
+    """The FFN's column-in, row-out rule on the rank's shards: each
+    (w, act) of `cols` runs column-parallel on the copied input where `w`
+    holds the rank's columns, whole where the divisibility guard left it
+    whole, its activation in its epilogue as unsharded; where pieces and
+    whole outputs meet, the pieces are gathered (one layout for `mix`);
+    `mix` of the outputs feeds `w_out` through `row_linear`."""
     from repro_torch.parallel import collectives as C
 
     _, group, _ = tp_context()
     B, T, D = x.shape
     xf = x.reshape(B * T, D)
     xc = C.copy_to_model(xf, group)
-    gs, us = p["wg"].shape[1] != ff, p["wu"].shape[1] != ff
-    if _fuse_epilogue():
-        gate = sa_dot(xc if gs else xf, p["wg"], act=act)
-    else:
-        gate = act_fn(sa_dot(xc if gs else xf, p["wg"]), act)
-    up = sa_dot(xc if us else xf, p["wu"])
-    if gs != us:         # one layout for the product: both whole
-        gate = C.gather_from_model(gate, -1, group) if gs else gate
-        up = C.gather_from_model(up, -1, group) if us else up
-        gs = False
-    return row_linear(gate * up, gs, p["wd"], ff).reshape(B, T, D)
+    sharded = [w.shape[1] != ff for w, _ in cols]
+    outs = [_act_dot(xc if s else xf, w, act)
+            for (w, act), s in zip(cols, sharded)]
+    if len(set(sharded)) > 1:
+        outs = [C.gather_from_model(o, -1, group) if s else o
+                for o, s in zip(outs, sharded)]
+        sharded = [False]
+    return row_linear(mix(*outs), sharded[0], w_out, ff).reshape(B, T, D)
+
+
+def _tp_ffn(x, p, act, ff: int):
+    """SwiGLU on the rank's shards: wg, wu column-parallel, wd
+    row-parallel (`_tp_column_row`)."""
+    return _tp_column_row(x, ((p["wg"], act), (p["wu"], None)), p["wd"],
+                          ff, torch.mul)
 
 
 def qkv_project(x, p, cfg):
@@ -423,6 +458,16 @@ def qkv_project(x, p, cfg):
         k = k + p["bk"].reshape(cfg.num_kv_heads, cfg.hd)
         v = v + p["bv"].reshape(cfg.num_kv_heads, cfg.hd)
     return q, k, v
+
+
+def encoder_kv(p, cfg, encoder_out):
+    """The cross-attention's K and V: the encoder's output (B, S, D)
+    through wk and wv → (B, S, KVH, hd) each."""
+    B, S, _ = encoder_out.shape
+    flat = encoder_out.reshape(B * S, -1)
+    k = sa_dot(flat, p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.hd)
+    v = sa_dot(flat, p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.hd)
+    return k, v
 
 
 def attn_out(x_attn, p):
@@ -519,7 +564,7 @@ def _decode_attend(q, k, v, cache, positions, window: int, cap: float,
 
 def attention_block(x, p, cfg, meta, positions, cache=None,
                     rope: bool = True, causal: bool = True,
-                    kv_override=None, prefix_len: int = 0,
+                    kv_input=None, prefix_len: int = 0,
                     decode_multi: bool = False, page_size: int = 16):
     """Attention sub-layer. Returns (out, cache).
 
@@ -529,10 +574,10 @@ def attention_block(x, p, cfg, meta, positions, cache=None,
     `page_size` splits a ring's rows for the decode kernel on the card).
     Otherwise prefill: a dense cache is filled in place; `prefix_len` is
     continued prefill over KV already in the cache's first `prefix_len`
-    rows. `rope=False` rotates neither q nor k (whisper). `kv_override`
-    (k, v) replaces the projected k and v (cross-attention over the
-    encoder's output), unrotated; the three projections still run, as in
-    the JAX package.
+    rows. `rope=False` rotates neither q nor k (whisper). `kv_input`
+    (B, S, D), the encoder's output, gives the cross-attention its K and V
+    (`encoder_kv`), unrotated, in place of the projected ones; the three
+    projections still run, as in the JAX package.
 
     A cache whose KV heads outnumber the model's (`init_cache(kv_pad_to=)`)
     wins the layout, as in the JAX package: the KV heads and the kv-major
@@ -542,20 +587,16 @@ def attention_block(x, p, cfg, meta, positions, cache=None,
     axis the sub-layer runs on the rank's shards (`_tp_attention`)."""
     window = cfg.window if meta.get("attn") == "local" else 0
     if tp_context()[0] > 1:
-        if kv_override is not None:
-            raise ValueError("tensor parallelism does not cover "
-                             "cross-attention (kv_override)")
         return _tp_attention(x, p, cfg, window, positions, rope, causal,
-                             cache, prefix_len, decode_multi,
-                             page_size), cache
+                             cache, prefix_len, decode_multi, page_size,
+                             kv_input), cache
     q, k, v = qkv_project(x, p, cfg)
-    rope_kv = kv_override is None
-    if kv_override is not None:          # cross-attention: kv from encoder
-        k, v = kv_override
+    if kv_input is not None:             # cross-attention: kv from encoder
+        k, v = encoder_kv(p, cfg, kv_input)
     if rope:
         q = apply_rope(q.transpose(1, 2), positions[:, None, :],
                        cfg.rope_theta).transpose(1, 2)
-        if rope_kv:
+        if kv_input is None:
             k = apply_rope(k.transpose(1, 2), positions[:, None, :],
                            cfg.rope_theta).transpose(1, 2)
     H = q.shape[2]
@@ -638,18 +679,18 @@ def ffn_swiglu(x, p, act="silu", ff: int | None = None):
         return _tp_ffn(x, p, act, ff)
     B, T, D = x.shape
     xf = x.reshape(B * T, D)
-    if _fuse_epilogue():
-        h = sa_dot(xf, p["wg"], act=act) * sa_dot(xf, p["wu"])
-    else:
-        h = act_fn(sa_dot(xf, p["wg"]), act) * sa_dot(xf, p["wu"])
+    h = _act_dot(xf, p["wg"], act) * sa_dot(xf, p["wu"])
     return sa_dot(h, p["wd"]).reshape(B, T, D)
 
 
-def ffn_mlp(x, p, act="gelu"):
+def ffn_mlp(x, p, act="gelu", ff: int | None = None):
     """The classic two-matrix MLP (whisper): act in w1's epilogue when
-    fused, else applied to its fp32 output."""
+    fused, else applied to its fp32 output. `ff` (the full width) engages
+    the tensor-parallel path under a mesh with a `model` axis
+    (`_tp_column_row`: w1 column-parallel, w2 row-parallel)."""
+    if ff is not None and tp_context()[0] > 1:
+        return _tp_column_row(x, ((p["w1"], act),), p["w2"], ff,
+                              lambda h: h)
     B, T, D = x.shape
     xf = x.reshape(B * T, D)
-    if _fuse_epilogue():
-        return sa_dot(sa_dot(xf, p["w1"], act=act), p["w2"]).reshape(B, T, D)
-    return sa_dot(act_fn(sa_dot(xf, p["w1"]), act), p["w2"]).reshape(B, T, D)
+    return sa_dot(_act_dot(xf, p["w1"], act), p["w2"]).reshape(B, T, D)

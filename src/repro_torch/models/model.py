@@ -55,12 +55,14 @@ def check_supported(cfg: ArchConfig):
 def check_parallel(cfg: ArchConfig, model_parallel: int,
                    data_parallel: int = 1, serving: bool = False):
     """Refuse what the mesh does not cover yet. Tensor parallelism covers
-    the dense and MoE families (the MoE layer by expert parallelism where
-    the axis divides the experts, else tensor parallelism inside each
-    expert, `models/moe.py`); the SSM and hybrid families, the
-    encoder-decoder and the VLM are refused under it (ROADMAP queue 1
-    item 9). FSDP configs (`cfg.fsdp`) run where the data axis is 1,
-    where the JAX rules' FSDP axis has size 1; above 1 the port would
+    every family at any `model_parallel`: dense, MoE (the MoE layer by
+    expert parallelism where the axis divides the experts, else tensor
+    parallelism inside each expert, `models/moe.py`), the SSM and hybrid
+    families (the Mamba2 mixer in the gather layout,
+    `ssm._tp_mixer_params`), the encoder-decoder (cross-attention over
+    the rank's heads of the encoder's K and V) and the VLM. FSDP configs
+    (`cfg.fsdp`) run where the data axis is 1, where the JAX rules' FSDP
+    axis has size 1; above 1 the port would
     replicate what the JAX package shards over `data`, and is refused.
     Training takes a data axis for MoE: the capacity dispatch takes each
     expert's top C tokens within each batch row, so splitting rows over
@@ -69,9 +71,6 @@ def check_parallel(cfg: ArchConfig, model_parallel: int,
     (`serving`) covers the `model` axis only: a data axis above 1 would
     shard the page pool's pages across ranks, so a slot's pages could sit
     on any data shard (ROADMAP 7b)."""
-    if model_parallel > 1 and cfg.family not in ("dense", "moe"):
-        raise ValueError(f"{cfg.name}: tensor parallelism covers the dense "
-                         f"and MoE families; {cfg.family!r} is not ported")
     if serving and data_parallel > 1:
         raise ValueError(f"{cfg.name}: serving over a data axis of "
                          f"{data_parallel} (the pool's pages sharded over "
@@ -100,8 +99,10 @@ def gemm_calls(cfg: ArchConfig, tokens: int = 1, tp: int = 1) -> int:
     the encoder (6 an encoder layer: 4 attention, 2 MLP), and a decoder
     layer makes 12 (self-attention 4, cross-attention 3 projections + the
     encoder's K and V + the output, MLP 2): whisper-tiny 73. The VLM's is
-    the dense count (pixtral-12b: 281). On the card each call is one
-    kernel launch."""
+    the dense count (pixtral-12b: 281). On a rank of a `model` axis every
+    GEMM of these families runs on the rank's piece (or whole, where the
+    divisibility guard left its weight whole), so a rank makes the same
+    count. On the card each call is one kernel launch."""
     if cfg.family == "ssm":
         return 1 + 2 * cfg.num_layers
     if cfg.is_encdec:
@@ -369,7 +370,11 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     An SSM or hybrid layer also carries `"ssm"`: (state (n_super, batch,
     H, P, N) fp32 whatever `dtype`, conv tail (n_super, batch, 3,
     d_inner + 2N) in `dtype`), per slot in either layout; an SSM layer
-    has no `"kv"`. An encoder-decoder layer carries `"cross"`, a KVCache
+    has no `"kv"`. Under `kv_shards` these stay whole on every rank: the
+    mixer's gather layout runs the conv and the SSD whole on every rank
+    (`ssm._tp_mixer_params`), where the JAX package's `cache_specs` cuts
+    the state on P and the tail on its channels (ROADMAP queue 1 item
+    9). An encoder-decoder layer carries `"cross"`, a KVCache
     of `frontend_tokens` rows that the forward passes through unused (the
     cross-attention recomputes the encoder's K and V, as the JAX package
     does). The JAX package's leaves and types.
@@ -473,8 +478,7 @@ def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
         h = L.norm_apply(x, p["norm_cross"], cfg.norm, cfg.norm_eps)
         ca, _ = L.attention_block(
             h, p["cross"], cfg, {"attn": "global"}, positions, cache=None,
-            rope=False, causal=False,
-            kv_override=_encoder_kv(p["cross"], cfg, encoder_out))
+            rope=False, causal=False, kv_input=encoder_out)
         x = x + ca.to(x.dtype)
     h = L.norm_apply(x, p["norm2"], cfg.norm, cfg.norm_eps)
     aux = None
@@ -487,20 +491,10 @@ def _sublayer(x, p, cfg, meta, positions, cache, prefix_len: int = 0,
         f, aux = moe_ffn(h, p["moe"], cfg, cfg.act, dropless=dropless,
                          with_aux=cache is None)
     elif cfg.family == "audio":
-        f = L.ffn_mlp(h, p["ffn"], "gelu")
+        f = L.ffn_mlp(h, p["ffn"], "gelu", cfg.d_ff)
     else:
         f = L.ffn_swiglu(h, p["ffn"], cfg.act, cfg.d_ff_dense or cfg.d_ff)
     return x + f.to(x.dtype), cache, aux
-
-
-def _encoder_kv(p, cfg, encoder_out):
-    """The cross-attention's K and V: the encoder's output (B, S, D)
-    through wk and wv → (B, S, KVH, hd) each."""
-    B, S, _ = encoder_out.shape
-    flat = encoder_out.reshape(B * S, -1)
-    k = sa_dot(flat, p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.hd)
-    v = sa_dot(flat, p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.hd)
-    return k, v
 
 
 def _sinusoid(T, d, device=None):
@@ -532,7 +526,7 @@ def encode(params, cfg: ArchConfig, frontend_embeds):
                                  positions, rope=False, causal=False)
         x = x + a.to(x.dtype)
         h = L.norm_apply(x, p["norm2"], cfg.norm, cfg.norm_eps)
-        x = x + L.ffn_mlp(h, p["ffn"], "gelu").to(x.dtype)
+        x = x + L.ffn_mlp(h, p["ffn"], "gelu", cfg.d_ff).to(x.dtype)
     return L.norm_apply(x, params["encoder"]["final_norm"], cfg.norm,
                         cfg.norm_eps)
 
@@ -560,9 +554,9 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     prepends it to the text embeddings (T becomes S + T, positions start
     at the first patch row), an encoder-decoder runs `encode` over it and
     every decoder layer cross-attends to the result.
-    Under a mesh whose `model` axis has more than one rank the dense and
-    MoE families run tensor-parallel on the rank's shards
-    (models/layers.py, models/moe.py);
+    Under a mesh whose `model` axis has more than one rank every family
+    runs tensor-parallel on the rank's shards (models/layers.py,
+    models/moe.py, models/ssm.py; the frontend embeddings replicated);
     a vocabulary-parallel head (its columns cut across the axis) returns
     this rank's columns of the logits, which `lm_loss` reduces across
     the axis; with a cache (serving) the columns are gathered across the

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.precision import sa_dot, sa_einsum
-from .layers import rmsnorm
+from .layers import rmsnorm, row_linear, tp_context
 
 
 def _segsum(a):
@@ -128,15 +128,64 @@ def _causal_conv(x, w, cache=None):
     return F.silu(y), tail
 
 
+def _tp_mixer_params(x, p, cfg):
+    """The mixer's inputs under a `model` axis of more than one rank, the
+    gather layout: the parameters are stored as the JAX package's specs
+    cut them (`param_specs`: in_proj's columns, conv_w's channels, A_log,
+    dt_bias, D_skip and norm_w over `model`, each whole where the axis
+    does not divide it), but the conv, the SSD and the gated norm run
+    whole on every rank. in_proj runs column-parallel on the rank's piece
+    (whole where the guard left it whole) and its output is gathered: a
+    column piece carries the whole call's bits, so the gathered
+    [z | x | B | C | dt] is the one-process tensor; the cut small vectors
+    are gathered too. Returns (in_proj's output (B·T, n), the parameter
+    dict with every small vector whole).
+
+    The backward is right because everything between the gathers and
+    out_proj's `row_linear` is replicated: every rank computes the same
+    whole cotangent of the gathered tensors, so `gather_from_model`'s
+    backward (this rank's slice) is the gradient of the rank's piece, and
+    `row_linear`'s `split_to_model` gathers the ranks' equal slices back.
+    A layout whose compute between them were partitioned would need these
+    cotangents summed over `model` instead (ROADMAP, the P-sliced SSD)."""
+    from repro_torch.parallel import collectives as C
+
+    _, group, _ = tp_context()
+    B, T, D = x.shape
+    H, N, din = cfg.n_ssm_heads, cfg.ssm_state, cfg.d_inner
+    xf = x.reshape(B * T, D)
+    w = p["in_proj"]
+    if w.shape[1] != 2 * din + 2 * N + H:         # the rank's columns
+        y = C.gather_from_model(sa_dot(C.copy_to_model(xf, group), w), -1,
+                                group)
+    else:
+        y = sa_dot(xf, w)
+    full = {"conv_w": din + 2 * N, "A_log": H, "dt_bias": H,
+            "D_skip": din, "norm_w": din}
+    q = dict(p)
+    for k, n in full.items():
+        if p[k].shape[-1] != n:
+            q[k] = C.gather_from_model(p[k], -1, group)
+    return y, q
+
+
 def mamba2_block(x, p, cfg, state=None, conv_cache=None):
     """The Mamba2 mixer. x: (B, T, D). With a `state` and T == 1 it runs
     the recurrent decode step, else the chunked SSD from `state` (zeros
     where None). Returns (y (B, T, D) fp32, (state, conv_tail)); the
-    caller writes them into its cache."""
+    caller writes them into its cache. Under a `model` axis of more than
+    one rank (`_tp_mixer_params`) the state and conv tail are whole on
+    every rank, and out_proj runs row-parallel (`layers.row_linear`: the
+    rank's K rows, the fp32 chains all-reduced, then one rounding)."""
     B, T, D = x.shape
     H, N = cfg.n_ssm_heads, cfg.ssm_state
     din = cfg.d_inner
-    zxbcdt = sa_dot(x.reshape(B * T, D), p["in_proj"]).reshape(B, T, -1)
+    tp = tp_context()[0] > 1
+    if tp:
+        zxbcdt, p = _tp_mixer_params(x, p, cfg)
+    else:
+        zxbcdt = sa_dot(x.reshape(B * T, D), p["in_proj"])
+    zxbcdt = zxbcdt.reshape(B, T, -1)
     z, xin, B_, C_, dt = torch.split(
         zxbcdt, [din, din, N, N, zxbcdt.shape[-1] - 2 * din - 2 * N], dim=-1)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"])     # (B, T, H)
@@ -157,5 +206,9 @@ def mamba2_block(x, p, cfg, state=None, conv_cache=None):
     y = y.reshape(B, T, din) + xin * p["D_skip"]
     y = rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["norm_w"],
                 cfg.norm_eps)
-    out = sa_dot(y.reshape(B * T, din), p["out_proj"]).reshape(B, T, D)
+    if tp:
+        out = row_linear(y.reshape(B * T, din), False, p["out_proj"], din)
+    else:
+        out = sa_dot(y.reshape(B * T, din), p["out_proj"])
+    out = out.reshape(B, T, D)
     return out, (new_state, conv_tail)

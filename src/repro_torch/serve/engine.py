@@ -83,15 +83,18 @@
   are off for both families, as in the JAX engine.
 
 * **Tensor parallelism** (a mesh whose `model` axis has N > 1 ranks,
-  `parallel.sharding.set_active_mesh`; the dense family): every rank
-  runs this engine on its parameter shards, and every cache, pool and
+  `parallel.sharding.set_active_mesh`; every family): every rank runs
+  this engine on its parameter shards, and every cache, pool and
   fragment is built on the rank's KV heads, padded to a multiple of N
-  where N does not divide them (`init_cache(kv_pad_to=, kv_shards=)`).
+  where N does not divide them (`init_cache(kv_pad_to=, kv_shards=)`;
+  an SSM layer's state and conv tail whole on every rank, the mixer's
+  gather layout).
   The layers write and attend over the rank's heads; the forward hands
   back whole logits, so every rank picks the same tokens. Every rank
   runs the same host loop: the clock the scheduler reads is rank 0's
   (`_agreed_clock`, one broadcast a reading), so arrivals at a rate
-  admit the same requests at the same ticks on every rank. A prefill
+  admit the same requests at the same ticks on every rank, and
+  `generate()` times its prefill and decode on it too. A prefill
   fragment is born on the pool's layout (the rank's KV heads), so the
   disagg handoff scatters it as it is: the JAX engine's
   `reshard_handoff` before the scatter has nothing to move here.
@@ -838,7 +841,8 @@ class ServeEngine:
         vlm = self.cfg.family == "vlm" and frontend is not None
         if frontend is not None:
             frontend = torch.as_tensor(frontend, device=self.device)
-        t0 = time.monotonic()
+        clock = self._agreed_clock(time.monotonic)
+        t0 = clock()
         if vlm:
             # F8: the ring holds the patches, the prompt and every new
             # token; decode starts after the patches and the prompt, and
@@ -847,7 +851,8 @@ class ServeEngine:
             if self.device.type == "cuda":
                 rows = _round_up(rows, self.page_size)
             cache = M.init_cache(self.cfg, B, max(rows, self.ring_len),
-                                 dtype=self.cache_dtype, device=self.device)
+                                 dtype=self.cache_dtype, device=self.device,
+                                 **self._heads())
             start, step_frontend = frontend.shape[1] + T, None
         else:
             cache = self.new_cache()
@@ -857,7 +862,7 @@ class ServeEngine:
         self._note_logits(logits)
         tok = self._pick(logits[:, -1], greedy, gen)
         first = tok.cpu().numpy()       # sync: the prefill boundary (TTFT)
-        t_prefill = time.monotonic() - t0
+        t_prefill = clock() - t0
         pos = torch.full((B,), start, dtype=torch.int32, device=self.device)
         cols = [first]
         done = first == self.eos_id
@@ -869,7 +874,7 @@ class ServeEngine:
             cols.extend(t_np)
             done |= (t_np == self.eos_id).any(axis=0)
         self.last_stats = {"prefill_s": t_prefill,
-                           "decode_s": time.monotonic() - t0 - t_prefill,
+                           "decode_s": clock() - t0 - t_prefill,
                            "decode_tokens": (len(cols) - 1) * B,
                            "nonfinite_logits": int(self._nonfinite)}
         return torch.from_numpy(np.stack(cols, axis=1).astype(np.int32))

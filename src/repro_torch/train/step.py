@@ -43,7 +43,7 @@ def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1,
             loss, nll = M.lm_loss(params, cfg, batch["tokens"],
                                   batch["labels"], aux_weight,
                                   batch.get("frontend"))
-            loss.backward()
+            backward(loss, leaves)
             loss, nll = loss.detach(), nll.detach()
         else:
             def split(x, i):
@@ -57,13 +57,22 @@ def make_grad_fn(cfg: ArchConfig, accum_steps: int = 1,
                                  split(batch["labels"], i), aux_weight,
                                  split(batch.get("frontend"), i))
                 # .backward() adds into .grad (fp32): g1 + g2 + ...
-                l.backward()
+                backward(l, leaves)
                 loss, nll = loss + l.detach(), nll + n.detach()
             for p in leaves:
                 p.grad.div_(accum_steps)
             loss, nll = loss / accum_steps, nll / accum_steps
         grads = M.tree_map(lambda p: p.grad, params)
         return loss, nll, grads
+
+    def backward(loss, leaves):
+        # a parameter the loss does not reach (an encoder-decoder's encoder
+        # and cross-attention without a frontend) gets a zero gradient, as
+        # jax.grad gives it
+        loss.backward()
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
     return grad_fn
 

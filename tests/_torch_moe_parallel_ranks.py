@@ -1,18 +1,17 @@
 """Rank programs for tests/test_torch_moe_parallel.py: spawned gloo worlds
-on the CPU (a `FileStore` under the world's own directory, no port),
-importing torch and the port only. Each rank writes what it computed with
-`torch.save` under the world's directory; the test process compares."""
+on the CPU, on the shared harness of tests/_torch_parallel_ranks.py. Each
+rank writes what it computed with `torch.save` under the world's
+directory; the test process compares."""
 from __future__ import annotations
 
-import contextlib
-import io
 import os
-import pickle
 
 import torch
 import torch.distributed as dist
 
-from _torch_parallel_ranks import _init, _mesh, _step
+from _torch_parallel_ranks import (_bits, _init, _job, _mesh, _same_on,
+                                   _step, driver_runs, engine_streams,
+                                   run_world)
 
 # the MoE layer alone: (case, mesh shape, ranks)
 LAYER_MESHES = (("granite", (1, 2), (0, 1)), ("granite", (1, 4), range(4)),
@@ -24,24 +23,6 @@ LAYER_MESHES = (("granite", (1, 2), (0, 1)), ("granite", (1, 4), range(4)),
 # two 4-rank meshes
 PAIRS = (((1, 2), (0, 1)), ((2, 1), (2, 3)))
 QUADS = ((2, 2), (1, 4))
-
-
-def _job(root):
-    with open(os.path.join(root, "job.pkl"), "rb") as f:
-        return pickle.load(f)
-
-
-def _bits(x):
-    return x.detach().contiguous().view(torch.int32)
-
-
-def _same_on(x, group) -> bool:
-    """Whether `x` has the same bits on every rank of `group`."""
-    from repro_torch.parallel.collectives import all_gather
-
-    b = _bits(x).reshape(1, -1)
-    every = all_gather(b, 0, group)
-    return bool((every == every[0]).all())
 
 
 def _layer_shards(cfg, p, mesh):
@@ -192,65 +173,33 @@ def serve_world(rank: int, world: int, root: str):
     mesh (each arch's shards of the job's weights), under the fp32
     policy: each run's digest, streams and summary, or the ValueError it
     raised; then the engine on a (1, 1) mesh of rank 0."""
-    from repro_torch.core import precision as TP
-    from repro_torch.launch import serve as drv
+    run_world(rank, world, root, _serve_body)
+
+
+def _serve_body(rank, world, job):
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.parallel import sharding as S
 
-    _init(rank, world, root)
-    job = _job(root)
     mesh = _mesh((1, world), range(world))
     out = {}
     for arch, (cfg, np_params) in job["weights"].items():
         params = params_from_numpy(np_params, "cpu")
         shards = S.shard_tree(params, S.param_specs(cfg, params, mesh), mesh)
-        for name, argv in job["runs"][arch].items():
-            buf = io.StringIO()
-            try:
-                with TP.use_policy(TP.PrecisionPolicy(input_format="fp32")), \
-                        contextlib.redirect_stdout(buf):
-                    summary, sched, _ = drv.main(argv, return_state=True,
-                                                 params=shards)
-            except ValueError as e:
-                out[(arch, name)] = {"error": str(e)}
-                continue
-            out[(arch, name)] = {
-                "digest": summary["stream_digest"],
-                "streams": {r.rid: list(r.tokens) for r in sched.finished},
-                "stdout": buf.getvalue(),
-                "summary": {k: summary.get(k) for k in (
-                    "requests", "generated_tokens", "pages_leaked",
-                    "disagg", "kv_layout", "nonfinite_logits")}}
+        for name, r in driver_runs(job["runs"][arch], shards).items():
+            out[(arch, name)] = r
     one = _mesh((1, 1), (0,))
     if rank == 0:
         out["one_rank"] = {arch: engine_digest(cfg, np_params,
                                                job["stream"], one)
                            for arch, (cfg, np_params)
                            in job["weights"].items()}
-    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
-    dist.barrier()
-    dist.destroy_process_group()
+    return out
 
 
 def engine_digest(cfg, np_params, stream, mesh=None):
     """The paged engine on `stream` (build_requests' arguments) under the
     fp32 policy, on `mesh` where given: the stream digest."""
-    from repro_torch.core import precision as TP
-    from repro_torch.launch import serve as drv
     from repro_torch.models.convert import params_from_numpy
-    from repro_torch.parallel import sharding as S
-    from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.scheduler import SlotScheduler
 
-    params = params_from_numpy(np_params, "cpu")
-    ctx = S.using_mesh(mesh) if mesh is not None else contextlib.nullcontext()
-    with ctx, TP.use_policy(TP.PrecisionPolicy(input_format="fp32")):
-        if mesh is not None:
-            params = S.shard_tree(params, S.param_specs(cfg, params, mesh),
-                                  mesh)
-        eng = ServeEngine(cfg, params, batch=2, cache_len=24, eos_id=-1,
-                          sync_every=2, page_size=8, device="cpu")
-        sched = SlotScheduler(2, eos_id=-1)
-        drv.build_requests(sched, cfg, **stream)
-        eng.serve(sched)
-    return drv.stream_digest(sched.finished)
+    return engine_streams(cfg, params_from_numpy(np_params, "cpu"), mesh,
+                          stream=stream)["paged"][3]

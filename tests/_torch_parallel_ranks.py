@@ -1,9 +1,13 @@
-"""Rank programs for tests/test_torch_parallel.py: spawned gloo worlds on
-the CPU (a `FileStore` under the test's temporary directory, no port),
-importing torch and the port only. Each writes what it computed with
-`torch.save` under the job's directory; the test process compares."""
+"""Rank programs for tests/test_torch_parallel.py, and the harness every
+spawned world of the port's mesh tests shares (tests/_torch_*_ranks.py):
+gloo worlds on the CPU (a `FileStore` under the world's own directory, no
+port), importing torch and the port only. A world reads its job from
+`job.pkl` (`_job`) and writes what it computed with `torch.save` under
+its directory (`run_world`); the test process compares."""
 from __future__ import annotations
 
+import contextlib
+import io
 import os
 import pickle
 
@@ -29,6 +33,113 @@ def _mesh(shape, ranks):
 
     return DeviceMesh("cpu", torch.tensor(list(ranks)).reshape(shape),
                       mesh_dim_names=NAMES)
+
+
+def _job(root):
+    with open(os.path.join(root, "job.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def run_world(rank: int, world: int, root: str, body):
+    """A world's rank: `body(rank, world, job)` between the group's start
+    and end (`job["root"]` the world's directory), its result saved to
+    `<root>/rank<rank>.pt`."""
+    _init(rank, world, root)
+    out = body(rank, world, _job(root) | {"root": root})
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _bits(x):
+    return x.detach().contiguous().view(torch.int32)
+
+
+def _same_on(x, group) -> bool:
+    """Whether `x` has the same bits on every rank of `group`."""
+    from repro_torch.parallel.collectives import all_gather
+
+    b = _bits(x).reshape(1, -1)
+    every = all_gather(b, 0, group)
+    return bool((every == every[0]).all())
+
+
+def _streams(sched):
+    return {r.rid: list(r.tokens) for r in sched.finished}
+
+
+def _shards(cfg, params, mesh):
+    """This rank's shards of the whole tree (`param_specs`)."""
+    from repro_torch.parallel import sharding as S
+
+    return S.shard_tree(params, S.param_specs(cfg, params, mesh), mesh)
+
+
+SUMMARY_KEYS = ("requests", "generated_tokens", "pages_leaked", "disagg",
+                "prefix_hits", "kv_layout", "nonfinite_logits",
+                "decode_itl_p50_ms")
+
+
+def driver_runs(runs, params):
+    """`launch.serve.main` once a run of `runs` ({name: argv}) on this
+    world under the fp32 policy (the launcher builds the (1, world) mesh
+    of the whole world; `params` are this rank's shards on it): each
+    run's digest, streams, what it printed and its summary's
+    SUMMARY_KEYS; or the ValueError it raised."""
+    from repro_torch.core import precision as TP
+    from repro_torch.launch import serve as drv
+
+    out = {}
+    for name, argv in runs.items():
+        buf = io.StringIO()
+        try:
+            with TP.use_policy(TP.PrecisionPolicy(input_format="fp32")), \
+                    contextlib.redirect_stdout(buf):
+                summary, sched, _ = drv.main(argv, return_state=True,
+                                             params=params)
+        except ValueError as e:
+            out[name] = {"error": str(e)}
+            continue
+        # a frontend arch's static waves return their token arrays
+        streams = _streams(sched) if hasattr(sched, "finished") else None
+        out[name] = {"digest": summary["stream_digest"],
+                     "streams": streams, "stdout": buf.getvalue(),
+                     "summary": {k: summary.get(k) for k in SUMMARY_KEYS}}
+    return out
+
+
+def engine_streams(cfg, params, mesh=None, layouts=("paged",), stream=None,
+                   prompts=None, cache_len: int = 24):
+    """The engine on `params` (whole; cut to this rank's shards under
+    `mesh`) under the fp32 policy, batch 2 on 8-token pages, a run a KV
+    layout: the requests `build_requests(**stream)` draws, or `prompts`
+    [(tokens, max_new), ...]. Returns {layout: (streams, pages_leaked,
+    nonfinite_logits, digest)}."""
+    from repro_torch.core import precision as TP
+    from repro_torch.launch import serve as drv
+    from repro_torch.parallel import sharding as S
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SlotScheduler
+
+    ctx = S.using_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    out = {}
+    with ctx, TP.use_policy(TP.PrecisionPolicy(input_format="fp32")):
+        if mesh is not None:
+            params = _shards(cfg, params, mesh)
+        for layout in layouts:
+            eng = ServeEngine(cfg, params, batch=2, cache_len=cache_len,
+                              eos_id=-1, sync_every=2, kv_layout=layout,
+                              page_size=8, device="cpu")
+            sched = SlotScheduler(2, eos_id=-1)
+            if stream is not None:
+                drv.build_requests(sched, cfg, **stream)
+            for p, n in prompts or ():
+                sched.submit(p, max_new_tokens=n)
+            summary = eng.serve(sched)
+            out[layout] = (_streams(sched), summary.get("pages_leaked"),
+                           summary["nonfinite_logits"],
+                           drv.stream_digest(sched.finished))
+    return out
 
 
 def _step(job, arch, accum, fmt, mesh):

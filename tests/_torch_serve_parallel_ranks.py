@@ -1,62 +1,13 @@
 """Rank programs for tests/test_torch_serve_parallel.py: spawned gloo
-worlds on the CPU (a `FileStore` under the world's own directory, no
-port), importing torch and the port only. Each rank writes what it served
-with `torch.save` under the world's directory; the test process
-compares."""
+worlds on the CPU, on the shared harness of tests/_torch_parallel_ranks.py.
+Each rank writes what it served with `torch.save` under the world's
+directory; the test process compares."""
 from __future__ import annotations
 
-import contextlib
-import io
-import os
-import pickle
-
 import torch
-import torch.distributed as dist
 
-from _torch_parallel_ranks import _init, _mesh
-
-
-def _job(root):
-    with open(os.path.join(root, "job.pkl"), "rb") as f:
-        return pickle.load(f)
-
-
-def _streams(sched):
-    return {r.rid: list(r.tokens) for r in sched.finished}
-
-
-def _shards(cfg, params, mesh):
-    """This rank's shards of the whole tree (`param_specs`)."""
-    from repro_torch.parallel import sharding as S
-
-    return S.shard_tree(params, S.param_specs(cfg, params, mesh), mesh)
-
-
-def _driver_runs(job, params):
-    """`launch.serve.main` once a run of `job["runs"]` on this world (the
-    launcher builds the (1, world) mesh of the whole world; `params` are
-    this rank's shards on it): its digest, streams and what it printed;
-    or the ValueError it raised."""
-    from repro_torch.core import precision as TP
-    from repro_torch.launch import serve as drv
-
-    out = {}
-    for name, argv in job["runs"].items():
-        buf = io.StringIO()
-        try:
-            with TP.use_policy(TP.PrecisionPolicy(input_format="fp32")), \
-                    contextlib.redirect_stdout(buf):
-                summary, sched, _ = drv.main(argv, return_state=True,
-                                             params=params)
-        except ValueError as e:
-            out[name] = {"error": str(e)}
-            continue
-        out[name] = {"digest": summary["stream_digest"],
-                     "streams": _streams(sched), "stdout": buf.getvalue(),
-                     "summary": {k: summary.get(k) for k in (
-                         "requests", "generated_tokens", "pages_leaked",
-                         "disagg", "prefix_hits", "nonfinite_logits")}}
-    return out
+from _torch_parallel_ranks import (_mesh, _shards, _streams, driver_runs,
+                                   engine_streams, run_world)
 
 
 def _clocked_serve(job, cfg, params, mesh, rank):
@@ -117,14 +68,16 @@ def _leaves(tree):
 def serve_world(rank: int, world: int, root: str):
     """The world's driver runs, then (where the job asks) the clocked
     engine and the handoff, on the (1, world) mesh."""
+    run_world(rank, world, root, _serve_body)
+
+
+def _serve_body(rank, world, job):
     from repro_torch.models.convert import params_from_numpy
 
-    _init(rank, world, root)
-    job = _job(root)
     cfg = job["cfg"]
     params = params_from_numpy(job["params"], "cpu")
     mesh = _mesh((1, world), range(world))
-    out = {"runs": _driver_runs(job, _shards(cfg, params, mesh))}
+    out = {"runs": driver_runs(job["runs"], _shards(cfg, params, mesh))}
     if job.get("clocked"):
         out["clocked"] = _clocked_serve(job, cfg, params, mesh, rank)
     if job.get("handoff"):
@@ -133,38 +86,20 @@ def serve_world(rank: int, world: int, root: str):
         out["engine"] = _engine_stream(job["engine"], mesh)
     if job.get("generate"):
         out["generate"] = _generate(job, cfg, params, mesh)
-    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
-    dist.barrier()
-    dist.destroy_process_group()
+    return out
 
 
 def _engine_stream(e, mesh):
     """The engine on another arch's weights (`e`: its cfg, numpy params,
     prompts and budgets) on the mesh, paged and ring, under the fp32
     policy: the streams and summaries."""
-    from repro_torch.core import precision as TP
-    from repro_torch.launch import serve as drv
     from repro_torch.models.convert import params_from_numpy
-    from repro_torch.parallel import sharding as S
-    from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.scheduler import SlotScheduler
 
-    cfg, params = e["cfg"], params_from_numpy(e["params"], "cpu")
-    out = {}
-    with S.using_mesh(mesh), TP.use_policy(
-            TP.PrecisionPolicy(input_format="fp32")):
-        shards = _shards(cfg, params, mesh)
-        for layout in ("paged", "ring"):
-            eng = ServeEngine(cfg, shards, batch=2, cache_len=32, eos_id=-1,
-                              sync_every=2, kv_layout=layout, page_size=8,
-                              device="cpu")
-            sched = SlotScheduler(2, eos_id=-1)
-            for p, n in zip(e["prompts"], e["budgets"]):
-                sched.submit(p, max_new_tokens=n)
-            summary = eng.serve(sched)
-            out[layout] = (_streams(sched), summary.get("pages_leaked"),
-                           summary["nonfinite_logits"])
-    return out
+    got = engine_streams(e["cfg"], params_from_numpy(e["params"], "cpu"),
+                         mesh, ("paged", "ring"),
+                         prompts=list(zip(e["prompts"], e["budgets"])),
+                         cache_len=32)
+    return {layout: r[:3] for layout, r in got.items()}
 
 
 def _generate(job, cfg, params, mesh):

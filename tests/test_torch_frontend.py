@@ -5,7 +5,7 @@ encoder layers over 16 stub frames, pixtral's 16 stub patch rows; weights
 drawn by the JAX package and carried over by `params_from_numpy`).
 
 What they add to the decoder: layernorm, the GELU MLP, attention without
-rope or mask and over another sequence's K and V (`kv_override`), the
+rope or mask and over another sequence's K and V (`kv_input`), the
 sinusoidal positions and the encoder stack, the cross-attention sublayer
 (whisper), the patch rows prepended to the text (pixtral), the frontend
 through the steps, `generate(frontend=)` and the driver's static waves,
@@ -13,7 +13,7 @@ and `serve()`'s refusal.
 
 Tolerances, each with its reason:
 
-* layernorm, the MLP, attention, `_encoder_kv` and `_sinusoid` under the
+* layernorm, the MLP, attention, `encoder_kv` and `_sinusoid` under the
   fp32 policy: 2⁻¹⁶ of the output's largest magnitude (the same fp32
   operations on the same operands, associated another way: XLA fuses and
   reorders sums, and its sin and cos may differ from torch's in the last
@@ -182,8 +182,9 @@ def test_ffn_mlp_matches_jax(fused, monkeypatch):
 @pytest.mark.parametrize("form", ["encoder", "cross"])
 def test_attention_block_without_rope_or_mask_matches_jax(models, form):
     """The encoder's self-attention (`rope=False`, `causal=False`) and the
-    cross-attention (`kv_override` from `_encoder_kv`: K unrotated, wq,
-    wk and wv still run) of whisper's layer 0, under the fp32 policy."""
+    cross-attention (`kv_input`, K and V by `encoder_kv`: K unrotated,
+    wq, wk and wv still run) of whisper's layer 0, under the fp32
+    policy."""
     cfg, jp, tp = models[WHISPER]
     x = _x((2, 5, cfg.d_model), 6)
     pos = np.broadcast_to(np.arange(5, dtype=np.int32), (2, 5))
@@ -201,15 +202,15 @@ def test_attention_block_without_rope_or_mask_matches_jax(models, form):
                                      {"attn": "global"}, jnp.asarray(pos),
                                      rope=False, causal=False,
                                      kv_override=kv)
-    ops.reset_counts()
     with TP.use_policy(FP32_T):
-        tkv = (TM._encoder_kv(tpar, cfg, torch.from_numpy(enc))
-               if form == "cross" else None)
+        tenc = torch.from_numpy(enc) if form == "cross" else None
+        tkv = TL.encoder_kv(tpar, cfg, tenc) if form == "cross" else None
+        ops.reset_counts()
         got, _ = TL.attention_block(torch.from_numpy(x), tpar, cfg,
                                     {"attn": "global"},
                                     torch.from_numpy(pos.copy()),
                                     rope=False, causal=False,
-                                    kv_override=tkv)
+                                    kv_input=tenc)
     _close(want, got)
     if form == "cross":
         for a, b in zip(kv, tkv):

@@ -132,15 +132,13 @@ def test_sharding_rules_equal_jax(arch, mesh):
 
 
 def test_refusals():
-    """Tensor parallelism outside the dense and MoE families is refused
-    with a reason (the MoE family's cases moved to
-    tests/test_torch_moe_parallel.py, which trains and serves it on the
-    mesh)."""
+    """What the mesh still refuses, with a reason: FSDP over a data axis
+    above 1 (llama4). Every family trains under tensor parallelism (the
+    MoE family in tests/test_torch_moe_parallel.py, the SSM, hybrid and
+    frontend families in tests/test_torch_family_parallel.py)."""
     from repro_torch.models.model import check_parallel
-    for arch in ("mamba2-2.7b", "hymba-1.5b", "whisper-tiny",
-                 "pixtral-12b"):
-        with pytest.raises(ValueError, match="tensor parallelism"):
-            check_parallel(get_config(arch), 2)
+    with pytest.raises(ValueError, match="FSDP is not ported"):
+        check_parallel(get_config("llama4-maverick-400b-a17b"), 2, 2)
     check_parallel(get_config("qwen2.5-14b"), 4, 2)
 
 
@@ -244,7 +242,7 @@ def _order(tcfg, np_params):
     return order
 
 
-def _one_process(cfg, np_params, batch, accum):
+def _one_process(cfg, np_params, batch, accum, fmt="fp32"):
     params = params_from_numpy(np_params, "cpu", dtype=torch.float32)
     for p in TM.tree_leaves(params):
         p.requires_grad_(True)
@@ -258,7 +256,7 @@ def _one_process(cfg, np_params, batch, accum):
         got["grads"] = [g.detach().clone().numpy()
                         for g in TM.tree_leaves(grads)]
 
-    with TP.use_policy(TP.PrecisionPolicy(input_format="fp32",
+    with TP.use_policy(TP.PrecisionPolicy(input_format=fmt,
                                           backend="cuda")):
         state, _ = make_train_step(cfg, opt, accum, on_grads=on_grads)(
             state, {k: torch.from_numpy(v) for k, v in batch.items()})

@@ -495,13 +495,6 @@ def test_refusals_on_the_mesh(worlds):
         assert "--spec-warmup" in runs["spec_warmup"]["error"]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b",
-                                  "whisper-tiny", "pixtral-12b"])
-def test_serving_refuses_other_families_under_tp(arch):
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        TM.check_parallel(get_config(arch), 2, serving=True)
-
-
 def test_serving_refuses_a_data_axis():
     with pytest.raises(ValueError, match="data axis"):
         TM.check_parallel(get_config(QWEN), 2, 2, serving=True)
