@@ -99,7 +99,14 @@ Phases, in order; any failure exits nonzero:
              call; each rank's peak memory and step times. After the
              (2, 2) run, its model on one rank under nccl
              (`--model-parallel 1`): step 0's loss against the same
-             reference, the same launch checks.
+             reference, the same launch checks. FSDP (PR 32):
+             llama4-maverick at full width cut to one superblock and 4
+             of its 128 experts (LLAMA4_E4) trained 2 steps at (2, 2) in
+             a world of its own, every matrix cut over data and model;
+             step 0 held as above on the one-process routing, the clip
+             norm the same on every rank, each rank's parameters, μ and
+             ν within 5 % of a quarter of the world's; each rank's peak
+             memory and step times.
              It runs right after the fold phase, while this process
              holds little of the card.
    parallel_serve — serving under tensor parallelism, the ranks sharing
@@ -6360,6 +6367,16 @@ PGRANITE_ARGS = GRANITE_ARGS[:-1] + [str(PMOE_LAYERS)]
 # `configs.cut_depth`) and GRANITE_E6 to 2 at (1, 4); the frontend archs
 # on seeded stub frames or patches (`launch.train --frontend`)
 GRANITE_E6 = "granite-moe-3b-a800m-e6"
+# FSDP: llama4-maverick at full width (LLAMA4_E4) cut to its first
+# superblock (LLAMA4_LAYERS) and to 4 of its 128 experts (all 128 at 16 B a
+# parameter of fp32 state would need ~260 GB), 3.08 B parameters or 45.8
+# GiB of fp32 state (parameters, μ, ν, gradients) over the world, trained
+# at (2, 2) in the (2, 2) world: every matrix cut over `data` and `model`,
+# each superblock's weights gathered over `data` in the forward and
+# reduce-scattered in the backward, EP over `model`, the load-balance loss
+# over the global batch
+LLAMA4_E4 = "llama4-maverick-400b-a17b-e4"
+FSDP_RUN = 10
 PARALLEL_RUNS = (("qwen2.5-14b", 1, (1, 2), TRAIN_ACCUM),
                  ("qwen2.5-14b", 1, (2, 2), 1),
                  ("phi3-medium-14b", 1, (1, 4), TRAIN_ACCUM),
@@ -6369,15 +6386,30 @@ PARALLEL_RUNS = (("qwen2.5-14b", 1, (1, 2), TRAIN_ACCUM),
                  (MAMBA2, 2, (1, 2), 1),
                  (WHISPER, 4, (1, 4), 1),
                  (HYMBA, 2, (1, 4), 1),
-                 (GRANITE_E6, PMOE_LAYERS, (1, 4), 1))
+                 (GRANITE_E6, PMOE_LAYERS, (1, 4), 1),
+                 (LLAMA4_E4, LLAMA4_LAYERS, (2, 2), 1))
 PARALLEL_STEPS = 3
+# runs cut to fewer steps for the script's time limit: the FSDP run's
+# 2 (3 before its first full run, PR 32: ~12 s a step on four ranks'
+# gloo traffic)
+RUN_STEPS = {FSDP_RUN: 2}
+
+
+def _run_steps(i) -> int:
+    """The steps PARALLEL_RUNS[i] trains."""
+    return RUN_STEPS.get(i, PARALLEL_STEPS)
+# a rank's parameters, μ and ν under FSDP: within this share of the
+# world's over the ranks (the norms, whole on every rank, are the rest)
+FSDP_STATE_REL = 0.05
 # the stand-ins the worlds and their references register under a name of
 # their own (`_register_stand_ins`): granite at full width with 6 of its
 # 40 experts, which a `model` axis of 4 does not divide, so each expert is
 # cut by its d_ff (512 / 4), the layout tests/test_torch_moe_parallel.py
 # holds on its reduced 6-expert stand-in (whose 16-wide heads are below
-# the attention kernels' on the card)
-STAND_INS = {GRANITE_E6: (GRANITE, {"num_experts": 6})}
+# the attention kernels' on the card); llama4 with 4 of its 128 experts
+# (LLAMA4_E4)
+STAND_INS = {GRANITE_E6: (GRANITE, {"num_experts": 6}),
+             LLAMA4_E4: (LLAMA4, {"num_experts": 4})}
 
 
 def _register_stand_ins():
@@ -6591,7 +6623,7 @@ def _routing_path(arch, layers):
 def _parallel_start(shape, runs, grads: bool):
     """Start one torchrun world of data x model ranks on the one card:
     this script's rank program (`--serve-ranks`) runs `launch.train` for
-    each PARALLEL_RUNS index in `runs` (PARALLEL_STEPS steps under `cuda`,
+    each PARALLEL_RUNS index in `runs` (`_run_steps` steps under `cuda`,
     the first step's gradients written with `--grads-out` where `grads`;
     a MoE model's step 0 replays the one-process reference's routing),
     then the serve runs PSERVE_WORLDS gives the shape. Returns the world's
@@ -6618,7 +6650,7 @@ def _parallel_start(shape, runs, grads: bool):
         record.append(i == TRAIN_ROUTING_RUN)
         trains.append(["--arch", arch, "--layers", str(layers), "--batch",
                        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--accum",
-                       str(accum), "--steps", str(PARALLEL_STEPS), "--seed",
+                       str(accum), "--steps", str(_run_steps(i)), "--seed",
                        "0", "--model-parallel", str(mp)]
                       + (["--grads-out", out] if grads else [])
                       + (["--frontend"] if _is_frontend(arch) else []))
@@ -6655,11 +6687,13 @@ def _train_check(torch, i, t, h, lines, ranks_lines, ref_loss, ref):
     out = h.outs[t]
     tag = f"[parallel {arch} {layers}L {dp}x{mp} accum {accum}]"
     problems = []
+    first = sum(_run_steps(j) for j in h.runs[:t])
+    n_steps = _run_steps(i)
     steps = [json.loads(ln) for ln in lines if ln.startswith("{")][
-        t * PARALLEL_STEPS:(t + 1) * PARALLEL_STEPS]
+        first:first + n_steps]
     rank_lines = [mine[t] for mine in ranks_lines if len(mine) > t]
     ranks = [_summary_fields(ln) for ln in rank_lines]
-    if (len(steps) != PARALLEL_STEPS
+    if (len(steps) != n_steps
             or not all(math.isfinite(st["loss"]) for st in steps)):
         problems.append(f"{tag} steps {steps}")
     if len(ranks) != n:
@@ -6669,6 +6703,12 @@ def _train_check(torch, i, t, h, lines, ranks_lines, ref_loss, ref):
         if fwd <= 0 or bwd <= 0 or int(r["plain_calls"]) != 0:
             problems.append(f"{tag} a rank launched the SA GEMM {fwd}+{bwd}"
                             f" times with {r['plain_calls']} plain calls")
+    # every rank clips by one global norm, the same bits a step
+    if len({r["grad_norm"] for r in ranks}) > 1:
+        problems.append(f"{tag} the ranks' clip norms differ: "
+                        f"{[r['grad_norm'] for r in ranks]}")
+    state = _state_check(torch, i, n, ranks, tag)
+    problems += state.pop("problems")
     loss0 = steps[0]["loss"] if steps else float("nan")
     if ref:
         with open(os.path.join(out, "loss.json")) as f:
@@ -6712,6 +6752,7 @@ def _train_check(torch, i, t, h, lines, ranks_lines, ref_loss, ref):
         "grad_rel_worst_leaf": worst, "leaves": len(rel),
         "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
         "step_s": [r["step_s"] for r in ranks],
+        "grad_norm": [r["grad_norm"] for r in ranks[:1]], **state,
         "sa_matmul_launches": [r["sa_matmul_launches"] for r in ranks]}
     log(f"{tag} losses {readings['losses']}; step 0 against the "
         f"one-process step" + (" (on its routing)" if held else "")
@@ -6720,7 +6761,43 @@ def _train_check(torch, i, t, h, lines, ranks_lines, ref_loss, ref):
         f"{rel[worst]:.3e} at {worst} (bound {TRAIN_GRAD_REL:.3e})")
     for r in rank_lines:
         log(f"{tag} {r}")
+    if "fsdp_state_gib_want" in state:
+        log(f"{tag} FSDP: a rank's parameters, μ and ν "
+            f"{state['state_gib']} GiB against "
+            f"{state['fsdp_state_gib_want']:.4f} (a {n}th of the world's "
+            f"{state['world_state_gib']:.4f} GiB; "
+            f"with its gradients {state['fsdp_with_grads_gib']:.4f}), peak "
+            f"{readings['peak_mem_gib']} GiB, step"
+            f"{f's 2-{n_steps}' if n_steps > 2 else ' 2'} "
+            f"{[st.split(',')[1:] for st in readings['step_s']]} s")
     return readings, problems
+
+
+def _state_check(torch, i, n, ranks, tag):
+    """Each rank's parameters', μ's and ν's bytes (the launcher's
+    `state_bytes`), in GiB, and the world's (12 B a parameter of the
+    config); under FSDP (`cfg.fsdp`) a rank's must lie within
+    FSDP_STATE_REL of a world's share, 1/n (no rank keeps a leaf the
+    rules cut whole). Returns the readings with their `problems`."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.models import model as M
+
+    arch, layers = PARALLEL_RUNS[i][:2]
+    cfg = cut_depth(get_config(arch), layers)
+    meta = M.init_params(cfg, device="meta", dtype=torch.float32)
+    world = 12 * sum(x.numel() for x in M.tree_leaves(meta)) / 2 ** 30
+    got = [int(r["state_bytes"]) / 2 ** 30 for r in ranks]
+    out = {"state_gib": [round(g, 4) for g in got],
+           "world_state_gib": world, "problems": []}
+    if cfg.fsdp:
+        want = world / n
+        out |= {"fsdp_state_gib_want": want,
+                "fsdp_with_grads_gib": want * 16 / 12}
+        if not all(abs(g - want) <= FSDP_STATE_REL * want for g in got):
+            out["problems"].append(
+                f"{tag} a rank keeps {got} GiB of parameters, μ and ν, "
+                f"against {want:.4f} (a {n}th of the world's)")
+    return out
 
 
 def _parallel_finish(torch, h, refs, train_routing=None):
@@ -6795,7 +6872,8 @@ def _parallel_finish(torch, h, refs, train_routing=None):
             "backend": want, "world_wall_s": round(wall, 2)}
         problems += p
     log(f"{tag} backend {want}, wall {wall:.1f} s (start, init, "
-        f"{len(h.runs)} training runs of {PARALLEL_STEPS} steps"
+        f"{len(h.runs)} training runs of "
+        f"{'/'.join(str(_run_steps(i)) for i in h.runs)} steps"
         + (", then the serve runs" if h.serves else "") + ")")
     served = {}
     for sv in h.serves:
@@ -7146,10 +7224,11 @@ def parallel(torch, card):
     loss against the same reference), then the (1, 4) world. The worlds
     PSERVE_WORLDS names serve after their steps. The phase runs in a lane
     of its own (`parallel_lane`) beside the main process's phases: the
-    (2, 2) world (61 GiB) starts once the main process signals GO_2X2 and
-    signals DONE_2X2 when it has ended; the worlds after it hold at most
-    35 GiB, one at a time, the (1, 2) world (35 GiB) signalling DONE_1X2
-    when it has ended. Returns (the training readings, the serve
+    (2, 2) world (61 GiB) starts once the main process signals GO_2X2,
+    the FSDP world (LLAMA4_E4 at (2, 2), 4 x 13.0 GiB) after it, and
+    DONE_2X2 is signalled when that has ended; the worlds after it hold
+    at most 35 GiB, one at a time, the (1, 2) world (35 GiB) signalling
+    DONE_1X2 when it has ended. Returns (the training readings, the serve
     results by key); raises on any problem."""
     from repro_torch.configs import cut_depth, get_config
 
@@ -7181,16 +7260,17 @@ def parallel(torch, card):
         problems.extend(p)
 
     # the card holds, beside the main process's phases: the references
-    # (at most ~20 GiB, in this process); the (2, 2) world (4 x 15.3 GiB)
-    # while the main process holds at most ~10 GiB; then the (1, 2) world
+    # (at most ~23 GiB, LLAMA4_E4's, in this process); the (2, 2) world
+    # (4 x 15.3 GiB), then the FSDP world (4 x 13.0 GiB), while the main
+    # process holds at most ~10 GiB; then the (1, 2) world
     # (2 x 17.1 GiB training, then llama4's superblock, 2 x 17.6 GiB), the
     # nccl rank (30.5 GiB) and the (1, 4) world (4 x 6.4 GiB), one at a
     # time, while the main process serves qwen (~30 GiB)
-    for i in (3, 4, 9):      # no routing of an earlier run
+    for i in (3, 4, 9, FSDP_RUN):      # no routing of an earlier run
         arch, layers = PARALLEL_RUNS[i][:2]
         if os.path.exists(_routing_path(arch, layers)):
             os.remove(_routing_path(arch, layers))
-    for i in (3, 0, 1, 2, 5, 6, 7, 8, 9):
+    for i in (3, 0, 1, 2, 5, 6, 7, 8, 9, FSDP_RUN):
         reference(i)
     refs[4] = refs[3]
     t = time.monotonic()
@@ -7206,7 +7286,19 @@ def parallel(torch, card):
         raise AssertionError("the main process ended")
     log(f"[parallel] the (2, 2) world waited {waited:.1f} s for the main "
         f"process's low-memory phases")
+    def drop_grads(i):
+        # the host copy of a reference's gradients that no later world
+        # reads (the nccl rank reads qwen's loss alone)
+        arch, layers, _, accum = PARALLEL_RUNS[i]
+        refs[i] = by_cfg[(arch, layers, accum)] = (refs[i][0], None)
+        gc.collect()
+
     finish(_parallel_start((2, 2), (1, 4), grads=True))
+    drop_grads(1)
+    # FSDP in a (2, 2) world of its own: its gradients' files (12.3 GB)
+    # never on the host beside the other runs'
+    finish(_parallel_start((2, 2), (FSDP_RUN,), grads=True))
+    drop_grads(FSDP_RUN)
     _signal(DONE_2X2)
     finish(_parallel_start((1, 2), (0, 3, 5, 6), grads=True),
            train_routing)
@@ -7690,15 +7782,15 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
     lane of its own beside them (`parallel_lane`, started first), and the
     card's memory passes between the two: the families, ssm, whisper and
     granite phases (at most ~10 GiB) run
-    here while the lane holds its references and its (2, 2) world (61
-    GiB; it starts once the families phase is done), pixtral's serve,
-    granite's training and the qwen serve phases (~30 GiB) once that
-    world has ended, beside
+    here while the lane holds its references and its (2, 2) worlds (61
+    GiB, then the FSDP world's 57; they start once the families phase is
+    done), pixtral's serve, granite's training and the qwen serve phases
+    (~30 GiB) once those worlds have ended, beside
     the lane's later worlds (at most 35 GiB), the second tuned process and
-    the examples (~38 GiB), then emulate and the study (~30 GiB), once its
-    (1, 2) world has ended; llama4's (35 GiB) and pixtral's training (39
-    GiB), the checks that read the lane's results and the train phase
-    after the lane has ended. The
+    the examples (~38 GiB), then emulate, the study (~30 GiB) and pixtral's
+    training (39 GiB), once its (1, 2) world has ended; llama4's (35 GiB),
+    the checks that read the lane's results and the train phase after the
+    lane has ended. The
     wall times of these phases are read beside the lane's work on the
     card and its host; the kernel phase before them runs alone. Returns
     (the tiers' and the emulate run's launches by mode)."""
@@ -7877,6 +7969,10 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
     phases["study"] = time.monotonic() - t
     gc.collect()
     torch.cuda.empty_cache()
+    # pixtral's training (39 GiB) beside the lane's last world and its
+    # one-process references (at most ~26 GiB)
+    fe_out |= step("frontend_pixtral_train",
+                   lambda: frontend(torch, FRONTEND_ORDER[3:]))
 
     # the lane's results
     t = time.monotonic()
@@ -7943,8 +8039,6 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
         "train": {key: moe_out["train"][key] for key in (
             "mean_step_s", "losses", "aux", "peak_gib")}}))
 
-    fe_out |= step("frontend_pixtral_train",
-                   lambda: frontend(torch, FRONTEND_ORDER[3:]))
     for k_, name in ((0, "sa_matmul"), (2, "paged_decode"),
                      (3, "prefill_attention")):
         kernels[k_]["readings"]["frontend_launches"] = {

@@ -107,6 +107,14 @@ _POLICY_STACK: list[PrecisionPolicy] = [
     PrecisionPolicy(backend=optflags.gemm_backend(), mode=optflags.sa_mode())]
 
 
+def input_dtype(policy: PrecisionPolicy | None = None):
+    """The 16-bit type `cast_in` rounds an operand to under `policy`
+    (default the current one): bf16 or fp16, None for fp32 and the FP8
+    formats."""
+    policy = policy or current_policy()
+    return _TORCH_INPUT_DTYPE.get(get_format(policy.input_format).name)
+
+
 def current_policy() -> PrecisionPolicy:
     """Innermost `use_policy` scope, else the default policy that tracks
     REPRO_GEMM_BACKEND / REPRO_SA_MODE at call time."""

@@ -7,6 +7,9 @@ checkpointing, the JAX package's `repro/launch/train.py`.
         --arch qwen2.5-14b --reduced --device cpu --model-parallel 2
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch granite-moe-3b-a800m --reduced --device cpu --model-parallel 2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch llama4-maverick-400b-a17b --reduced --fsdp --device cpu \\
+        --model-parallel 2
 
 Runs on CUDA unless `--device cpu` is given. The GEMM backend is
 REPRO_GEMM_BACKEND (`torch`, the plain version, or `cuda`, the
@@ -21,14 +24,18 @@ full state from `--seed` and keeps its shard, each data rank takes its
 rows of the same global batch (`parallel.sharding.data_specs`; a MoE
 model's load-balance loss is taken over the global batch; with
 `--frontend` the stub frames or patches with their rows), and rank
-0 prints a JSON line a step; at the end each rank prints its peak memory
-and step times. `main` parses the flags and calls `run(cfg, args)`, which
-callers with a config of their own (a full-width model cut in depth) call
-directly.
+0 prints a JSON line a step; at the end each rank prints its peak memory,
+step times, the bytes of its parameters, μ and ν, and each step's clip
+norm. A config flagged `fsdp` (llama4; `--fsdp` puts the flag back on a
+reduced config, which drops it) keeps its leaves cut over `data` as well
+(FSDP, `models.model.check_parallel`). `main` parses the flags and
+calls `run(cfg, args)`, which callers with a config of their own (a
+full-width model cut in depth) call directly.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -66,6 +73,10 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; no card and no --device "
                          "cpu raises")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="cut the parameters over data as well (the "
+                         "config's fsdp flag, which llama4 has and the "
+                         "reduced configs drop)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config's depth to this many layers (a "
                          "full-width model cut in depth)")
@@ -77,8 +88,9 @@ def parse_args(argv=None):
     ap.add_argument("--grads-out", default=None,
                     help="write the first step's loss and gradients "
                          "(before the clip) to this directory, .npy "
-                         "files by leaf path and model rank (read_grads "
-                         "joins them)")
+                         "files by leaf path and a piece's index along "
+                         "each axis that cuts it (read_grads joins "
+                         "them)")
     return ap.parse_args(argv)
 
 
@@ -100,21 +112,22 @@ def _mesh_line(mesh, device) -> str:
 
 def _grads_writer(out_dir: str, then, mesh, specs, lead: bool):
     """An `on_grads` that writes the first step's loss (loss.json) and
-    gradients to `out_dir`, no collective: a leaf the `model` axis cuts
-    as each model rank's piece (`<path>.<model index>.npy`, the path's
-    "/" as "."), a replicated leaf once (`<path>.npy`), both from data
-    rank 0 (the data ranks hold the same reduced gradients);
-    `read_grads` puts the pieces back together."""
+    gradients to `out_dir`, no collective: each distinct piece of a leaf
+    once, by the rank that counts it (`sharding.counts_once`), named by
+    its index along each entry of the leaf's spec that names an axis
+    (`<path>.<i>[.<j>].npy`, the path's "/" as "."; a leaf cut over
+    `model` and `data` has two), and a leaf no axis cuts once
+    (`<path>.npy`); `read_grads` joins the pieces."""
     import numpy as np
 
     from repro_torch.parallel import sharding as S
 
-    coords = {"data": 0, "model": 0} if mesh is None else S.mesh_coords(
-        mesh)
+    if mesh is not None:
+        coords, sizes = S.mesh_coords(mesh), S.axis_sizes(mesh)
     done = []
 
     def write(loss, nll, grads):
-        if not done and coords["data"] == 0:
+        if not done:
             os.makedirs(out_dir, exist_ok=True)
             paths = []
             S.tree_map_with_path(lambda p, _: paths.append(
@@ -122,13 +135,12 @@ def _grads_writer(out_dir: str, then, mesh, specs, lead: bool):
             pspecs = (S.spec_leaves(specs.params, grads) if mesh is not None
                       else [S.P()] * len(paths))
             for path, g, sp in zip(paths, tree_leaves(grads), pspecs):
-                if S.is_sharded(sp, mesh):
-                    name = f"{path}.{coords['model']}.npy"
-                elif coords["model"] == 0:
-                    name = f"{path}.npy"
-                else:
+                if mesh is not None and not S.counts_once(sp, mesh, coords):
                     continue
-                np.save(os.path.join(out_dir, name),
+                idx = ([] if mesh is None or not S.is_sharded(sp, mesh) else
+                       [str(S._entry_index(e, coords, sizes)[1])
+                        for e in sp if e is not None])
+                np.save(os.path.join(out_dir, ".".join([path, *idx, "npy"])),
                         g.detach().cpu().numpy())
             if lead:
                 with open(os.path.join(out_dir, "loss.json"), "w") as f:
@@ -141,21 +153,34 @@ def _grads_writer(out_dir: str, then, mesh, specs, lead: bool):
 
 
 def read_grads(out_dir: str, path: str, spec):
-    """A leaf `--grads-out` wrote, whole: its model ranks' pieces joined
-    along the dim `spec` (its `param_specs` entry) cuts over `model`, or
-    the one file."""
+    """A leaf `--grads-out` wrote, whole: the one file, or its pieces
+    joined along each dim its spec (its `param_specs` entry at the run's
+    mesh) names an axis for, in order."""
     import numpy as np
 
     whole = os.path.join(out_dir, f"{path}.npy")
     if os.path.exists(whole):
         return np.load(whole)
-    dim = next(i for i, e in enumerate(spec)
-               if e == "model" or isinstance(e, tuple) and "model" in e)
-    pieces, i = [], 0
-    while os.path.exists(os.path.join(out_dir, f"{path}.{i}.npy")):
-        pieces.append(np.load(os.path.join(out_dir, f"{path}.{i}.npy")))
-        i += 1
-    return np.concatenate(pieces, axis=dim)
+    dims = [d for d, e in enumerate(spec) if e is not None]
+    names = set(os.listdir(out_dir))
+
+    def join(prefix, k):
+        if k == len(dims):
+            return np.load(os.path.join(out_dir, prefix + ".npy"))
+        parts = []
+        while any(n.startswith(f"{prefix}.{len(parts)}.") for n in names):
+            parts.append(join(f"{prefix}.{len(parts)}", k + 1))
+        return np.concatenate(parts, axis=dims[k])
+
+    return join(path, 0)
+
+
+def state_bytes(state) -> int:
+    """The bytes a rank keeps from step to step: its parameters, μ and ν
+    (under a mesh its pieces)."""
+    return sum(x.numel() * x.element_size() for t in (
+        state.params, state.opt_state.mu, state.opt_state.nu)
+        for x in tree_leaves(t))
 
 
 def run(cfg, args, on_grads=None):
@@ -270,7 +295,9 @@ def run(cfg, args, on_grads=None):
             f"{','.join(str(m['wall_s']) for m in history)} "
             f"sa_matmul_launches={c['sa_matmul']['launches']}+"
             f"{c['sa_matmul_bwd']['launches']} plain_calls="
-            f"{sum(v['plain_calls'] for v in c.values())}")
+            f"{sum(v['plain_calls'] for v in c.values())} state_bytes="
+            f"{state_bytes(state)} grad_norm="
+            f"{','.join(repr(m['grad_norm']) for m in history)}")
     return state, history
 
 
@@ -279,6 +306,8 @@ def main(argv=None):
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.layers:
         cfg = cut_depth(cfg, args.layers)
+    if args.fsdp:
+        cfg = dataclasses.replace(cfg, fsdp=True)
     return run(cfg, args)[0]
 
 

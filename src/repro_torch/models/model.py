@@ -26,6 +26,7 @@ rows are rounded up to 8 elements (`matrix_storage`), so the SA GEMM's
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Any
 
@@ -34,7 +35,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import optflags
 from repro_torch.core.device import resolve_device
-from repro_torch.core.precision import sa_dot
+from repro_torch.core.precision import input_dtype, sa_dot
 from .config import ArchConfig
 from . import layers as L
 from .layers import KVCache, PagedKVCache
@@ -60,26 +61,84 @@ def check_parallel(cfg: ArchConfig, model_parallel: int,
     parallelism inside each expert, `models/moe.py`), the SSM and hybrid
     families (the Mamba2 mixer in the gather layout,
     `ssm._tp_mixer_params`), the encoder-decoder (cross-attention over
-    the rank's heads of the encoder's K and V) and the VLM. FSDP configs
-    (`cfg.fsdp`) run where the data axis is 1, where the JAX rules' FSDP
-    axis has size 1; above 1 the port would
-    replicate what the JAX package shards over `data`, and is refused.
-    Training takes a data axis for MoE: the capacity dispatch takes each
-    expert's top C tokens within each batch row, so splitting rows over
-    `data` moves no token, and only `load_balance` needs the global
-    batch's statistics, which `moe.router` sums over `data`. Serving
-    (`serving`) covers the `model` axis only: a data axis above 1 would
-    shard the page pool's pages across ranks, so a slot's pages could sit
-    on any data shard (ROADMAP 7b)."""
+    the rank's heads of the encoder's K and V) and the VLM. Training takes
+    any data axis. A config flagged `cfg.fsdp` trains with its leaves cut
+    over `data` too, as the JAX rules cut them: `forward` gathers each
+    one whole over the axis where a layer reads it (`_data_dims`), its
+    gradient comes back reduce-scattered to the rank's piece, and the
+    optimizer keeps μ and ν on that piece. MoE training splits rows over
+    `data`: the capacity dispatch takes each expert's top C tokens within
+    each batch row, so that moves no token, and only `load_balance` needs
+    the global batch's statistics, which `moe.router` sums over `data`.
+    Serving (`serving`) covers the `model` axis only: a data axis above 1
+    would shard the page pool's pages across ranks, so a slot's pages
+    could sit on any data shard, and needs a design of its own (ROADMAP
+    7b; an FSDP config's leaves are whole over a data axis of 1)."""
     if serving and data_parallel > 1:
         raise ValueError(f"{cfg.name}: serving over a data axis of "
                          f"{data_parallel} (the pool's pages sharded over "
-                         f"data) is not ported; serve on the model axis")
-    if cfg.fsdp and data_parallel > 1:
-        raise ValueError(f"{cfg.name}: FSDP is not ported (the parameters "
-                         f"the JAX package shards over a data axis of "
-                         f"{data_parallel} would be replicated); run it "
-                         f"at data 1")
+                         f"data, ROADMAP 7b) is not ported; serve on the "
+                         f"model axis")
+
+
+@functools.lru_cache(maxsize=16)
+def _data_dim_tree(cfg: ArchConfig, names: tuple, shape: tuple):
+    """The tree of each parameter's dim that the data axes of a mesh of
+    `names` and `shape` cut (`sharding.data_dim` of its `param_specs`
+    entry; a stacked leaf's dim in its superblock slice), None where they
+    cut none."""
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel.mesh import MeshSpec
+
+    mesh = MeshSpec(names, shape)
+    meta = init_params(cfg, device="meta", dtype=torch.float32)
+    return S.tree_map_with_path(
+        lambda path, _, sp: S.data_dim(sp, mesh, sliced="layers" in path),
+        meta, S.param_specs(cfg, meta, mesh))
+
+
+def _data_dims(cfg: ArchConfig):
+    """Under FSDP (`cfg.fsdp` on an active mesh whose data axis has more
+    than one rank): (the tree of `_data_dim_tree`, the data group); else
+    (None, None): the leaves are whole over `data`."""
+    from repro_torch.parallel import sharding as S
+
+    mesh = S.active_mesh()
+    if not cfg.fsdp or S.axis_count("data") == 1:
+        return None, None
+    return (_data_dim_tree(cfg, S.axis_names(mesh), tuple(mesh.shape)),
+            S.axis_group("data"))
+
+
+def _take(w, dim, group, dtype=None):
+    """A weight as the layer code reads it: cast to `dtype` where given,
+    and where the data axis cuts it (`dim`, with the data `group`)
+    gathered whole over `data` after the cast
+    (`collectives.gather_from_data`, whose backward reduce-scatters)."""
+    if dim is not None:
+        from repro_torch.parallel import collectives as C
+
+        return C.gather_from_data(w, dim, group, dtype)
+    return w if dtype is None else w.to(dtype)
+
+
+def _stack_slice(tree, i: int, dims=None, group=None, cast: bool = False):
+    """Slice `i` of a stacked tree (a superblock's layer, an encoder layer)
+    as the layer code reads it: each leaf's `w[i]`, a matrix (≥ 3-D
+    stacked fp32 leaf) cast to bf16 where `cast`, and under FSDP (`dims`
+    this tree's part of `_data_dims`' tree, `group` the data group) each
+    leaf the data axis cuts gathered whole over it after the cast
+    (`_take`), so the layer code sees the tensors it sees at data 1."""
+    from repro_torch.parallel.sharding import tree_map_with_path
+
+    def take(_, w, d=None):
+        dt = (torch.bfloat16 if cast and w.ndim >= 3
+              and w.dtype == torch.float32 else None)
+        return _take(w[i], d, group, dt)
+
+    if dims is None:
+        return tree_map_with_path(take, tree)
+    return tree_map_with_path(take, tree, dims)
 
 
 def has_ssm(cfg: ArchConfig) -> bool:
@@ -519,8 +578,10 @@ def encode(params, cfg: ArchConfig, frontend_embeds):
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     layers = params["encoder"]["layers"]
+    dims, dgroup = _data_dims(cfg)
+    dims = dims and dims["encoder"]["layers"]
     for i in range(cfg.encoder_layers):
-        p = tree_map(lambda w: w[i], layers)
+        p = _stack_slice(layers, i, dims, dgroup)
         h = L.norm_apply(x, p["norm1"], cfg.norm, cfg.norm_eps)
         a, _ = L.attention_block(h, p["attn"], cfg, {"attn": "global"},
                                  positions, rope=False, causal=False)
@@ -561,6 +622,16 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     this rank's columns of the logits, which `lm_loss` reduces across
     the axis; with a cache (serving) the columns are gathered across the
     axis, so every rank returns the whole logits, the same bits.
+    Under FSDP (`cfg.fsdp` on a mesh whose data axis has more than one
+    rank) each leaf the JAX rules cut over `data` is gathered whole over
+    it before the layer code reads it (`_take`: the head after its 16-bit
+    input rounding, a superblock's matrices one superblock at a time
+    after their bf16 cast, inside the function remat recomputes), so the
+    layer code runs on the tensors it runs on at data 1, and each
+    gradient comes back reduce-scattered to the rank's piece; the
+    embedding's rows are looked up without the whole table
+    (`collectives.lookup_over_data`; a tied table, which the head reads
+    too, is gathered whole in fp32).
     `aux` is the JAX package's dict: a MoE stack's `load_balance` and
     `router_z` summed over its layers (zero for a dense stack and
     wherever a cache is threaded, as the JAX forward leaves them); on a
@@ -592,7 +663,18 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
         from repro_torch.parallel.sharding import axis_count
         check_parallel(cfg, tp, axis_count("data"),
                        serving=cache is not None)
-    x = _embed(params["embed"], tokens, cfg, group, tp_rank)
+    # under FSDP each leaf the data axis cuts is gathered where it is read
+    # (a superblock's inside the function remat recomputes, so its
+    # gathered weights live only while the superblock runs); the
+    # embedding's rows are looked up without the whole table
+    dims, dgroup = _data_dims(cfg)
+    embed, lookup_group = params["embed"], None
+    if dims and dims["embed"] is not None:
+        if "lm_head" in params:         # the lookup alone reads the table
+            lookup_group = dgroup
+        else:                           # the tied head reads it whole too
+            embed = _take(embed, dims["embed"], dgroup)
+    x = _embed(embed, tokens, cfg, group, tp_rank, lookup_group)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=torch.bfloat16,
                              device=dev)
@@ -623,10 +705,8 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
         for j in range(period):
             # cast matrices to bf16 at superblock entry (a no-op for the
             # bf16 storage on CUDA; 1-D norms and biases stay fp32)
-            p_j = tree_map(
-                lambda w: w[sb].to(torch.bfloat16)
-                if cast and w.ndim >= 3 and w.dtype == torch.float32
-                else w[sb], params["layers"][j])
+            p_j = _stack_slice(params["layers"][j], sb,
+                               dims and dims["layers"][j], dgroup, cast)
             c_j = (None if cache is None
                    else tree_map(lambda t: t[sb], cache[j]))
             x, _, a = _sublayer(x, p_j, cfg, cfg.layer_kind(j), positions,
@@ -661,7 +741,13 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     # copies the (padded_vocab, d_model) table
     head = params.get("lm_head")
     if head is None:
-        head = params["embed"].t()
+        head = embed.t()
+    elif dims and dims["lm_head"] is not None:
+        # gathered after `sa_dot`'s 16-bit input rounding, which the
+        # kernel would make anyway: half the bytes, the same bits both
+        # ways (the cotangent reaching the gather is rounded as the
+        # cast's backward rounds it)
+        head = _take(head, dims["lm_head"], dgroup, input_dtype())
     x2 = x.reshape(-1, cfg.d_model)
     v0 = 0                  # the first vocabulary column of the logits
     if head.shape[1] != cfg.padded_vocab:   # vocabulary-parallel head
@@ -681,18 +767,26 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     return logits, cache, {"load_balance": aux[0], "router_z": aux[1]}
 
 
-def _embed(embed, tokens, cfg: ArchConfig, group, tp_rank: int):
+def _embed(embed, tokens, cfg: ArchConfig, group, tp_rank: int,
+           data_group=None):
     """The token lookup, cast to bf16. A vocabulary-parallel table (this
     rank's rows) looks up the tokens it holds, zeros for the others, and
-    the ranks' rows are summed (one of them nonzero: exact)."""
-    if embed.shape[0] == cfg.padded_vocab:
-        return embed[tokens.long()].to(torch.bfloat16)
+    the ranks' rows are summed (one of them nonzero: exact). `data_group`:
+    the table's columns are cut over that data group (FSDP), and each row
+    is made whole by `collectives.lookup_over_data`, the same bits as a
+    lookup in the whole table."""
     from repro_torch.parallel import collectives as C
 
+    def lookup(i):
+        return embed[i] if data_group is None else C.lookup_over_data(
+            embed, i, data_group)
+
+    if embed.shape[0] == cfg.padded_vocab:
+        return lookup(tokens.long()).to(torch.bfloat16)
     n = embed.shape[0]
     t = tokens.long() - tp_rank * n
     mine = (t >= 0) & (t < n)
-    rows = torch.where(mine[..., None], embed[t.clamp(0, n - 1)], 0.0)
+    rows = torch.where(mine[..., None], lookup(t.clamp(0, n - 1)), 0.0)
     return C.reduce_from_model(rows, group).to(torch.bfloat16)
 
 

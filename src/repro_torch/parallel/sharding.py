@@ -10,6 +10,11 @@ leading block dim, so their specs are prepended with None. A dim the
 axis does not divide is replicated (the divisibility guard: the reduced
 configs' vocabulary of 503, granite's 40 experts over 16).
 
+Under FSDP `data_dim` names the dim of a leaf that the data axes cut
+(the forward gathers the leaf over it, `models/model.py`), and
+`counts_once` which rank's piece enters a sum over the whole mesh that
+must take each element once (the clip's global norm).
+
 A spec is a `P`: a tuple with one entry a dim, None (replicated), an axis
 name or a tuple of names. The rules read a mesh's axis names and sizes
 only (a `mesh.MeshSpec` or a `DeviceMesh`). The JAX package's
@@ -411,10 +416,46 @@ def spec_leaves(specs, tree=None) -> list:
     return []
 
 
+def cut_axes(spec, mesh) -> set:
+    """The axes of `mesh` that cut a leaf of `spec`: those an entry names
+    whose size is above 1 (an FSDP config's `data` entries at data 1 cut
+    nothing)."""
+    sizes = axis_sizes(mesh)
+    return {a for e in spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,)) if sizes[a] > 1}
+
+
+def data_dim(spec, mesh, sliced: bool = False):
+    """The dim of a leaf of `spec` (a `param_specs` entry) that the data
+    axes cut on `mesh` (FSDP), or None where they cut none. `sliced`: the
+    dim in a superblock's slice `w[sb]` of a stacked leaf, whose leading
+    (None) entry the slice drops. Read off the rules' spec alone, never
+    off the leaf's shape."""
+    data = set(batch_axes(mesh)) & cut_axes(spec, mesh)
+    dims = [d for d, e in enumerate(spec) if e is not None and data & set(
+        e if isinstance(e, tuple) else (e,))]
+    if not dims:
+        return None
+    d = dims[0]
+    e = spec[d]
+    if (len(dims) > 1 or isinstance(e, tuple)
+            or (sliced and spec[0] is not None)):
+        raise ValueError(f"{spec}: the data axes cut more than one dim, or "
+                         f"one dim together with another axis")
+    return d - 1 if sliced else d
+
+
+def counts_once(spec, mesh, coords) -> bool:
+    """Whether this rank's piece of a leaf of `spec` enters a sum over the
+    whole mesh that takes every element of the leaf once (the clip's
+    global norm): the rank at index 0 along every axis that does not cut
+    the leaf holds the piece that its copies on the other ranks repeat."""
+    cut = cut_axes(spec, mesh)
+    return all(coords[a] == 0 for a in axis_names(mesh) if a not in cut)
+
+
 def is_sharded(spec, mesh) -> bool:
     """Whether `spec` cuts its leaf on `mesh`: an entry whose axes all have
     size 1 cuts nothing (an FSDP config's `data` entries at data 1: the
     leaf is whole on every rank)."""
-    sizes = axis_sizes(mesh)
-    return any(e is not None and _entry_index(
-        e, dict.fromkeys(sizes, 0), sizes)[0] > 1 for e in spec)
+    return bool(cut_axes(spec, mesh))

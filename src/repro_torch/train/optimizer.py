@@ -86,30 +86,21 @@ class AdamW:
                           nu=tree_map(z, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params, sharded=None,
-               group=None):
+    def update(self, grads, state: AdamWState, params, sq_sum=None):
         """One step on the gradient tree `grads` (same structure as
         `params`; each leaf is scaled in place by the clip). Returns
         (params, state, {"grad_norm", "lr"}), the first two updated in
-        place. Under tensor parallelism `sharded` flags the leaves that
-        are this rank's shard and `group` is the `model` axis: the global
-        norm adds the sharded leaves' squares across the group (one
-        all-reduce) to the replicated leaves' own, counted once, so every
-        rank gets the same norm and its replicated leaves the same bits."""
+        place. `sq_sum(squares)` takes each leaf's fp32 sum of squares,
+        in `tree_leaves` order, to the global tree's (default: their sum,
+        one process). On a mesh, where a rank holds pieces of the global
+        leaves, the caller's `sq_sum` counts each element of the global
+        tree once and gives every rank the same total, so every rank
+        clips by the same scale (`train.step.make_train_step`)."""
         gs = [g.to(_F32) for g in tree_leaves(grads)]
         ps, ms, vs = (tree_leaves(t) for t in (params, state.mu, state.nu))
         # global-norm clip
-        if group is None:
-            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in gs))
-        else:
-            import torch.distributed as dist
-
-            sq = [torch.sum(g * g) for g in gs]
-            part = sum(q for q, s in zip(sq, sharded) if s)
-            part = torch.as_tensor(part, dtype=_F32, device=gs[0].device)
-            dist.all_reduce(part, group=group)
-            gnorm = torch.sqrt(part + sum(
-                q for q, s in zip(sq, sharded) if not s))
+        sq = [torch.sum(g * g) for g in gs]
+        gnorm = torch.sqrt(sum(sq) if sq_sum is None else sq_sum(sq))
         if self.clip_norm:
             scale = torch.minimum(
                 _f32(1.0).to(gnorm.device),

@@ -87,19 +87,26 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
     Under a `mesh` (a ("data", "model") `DeviceMesh`) `state` holds this
     rank's shards (`train_state.init_state(mesh=)`) and `batch` this data
     rank's rows (`parallel.sharding.data_specs`); the forward runs
-    tensor-parallel over `model`, the gradients are all-reduced (SUM ÷
-    dp, fp32) over `data`, loss and nll averaged the same way, and the
-    clip's global norm sums the squares of sharded leaves across `model`
-    and counts replicated leaves once. A MoE model's `load_balance` is
-    taken over the global batch (`moe.router`); with accum_steps A
-    dividing a data rank's rows, the ranks' microbatch i together are
-    the one-process step's microbatch i (rows ≡ i mod A of the global
-    batch), so the step is the one-process step's. `on_grads(loss, nll,
-    grads)`, if given, sees the step's gradients after that reduction and
-    before the update (which scales them in place by the clip)."""
+    tensor-parallel over `model`, the gradients are summed over `data` in
+    fp32 and divided by dp, loss and nll averaged the same way. A leaf
+    whole over `data` is all-reduced; a leaf the data axis cuts (FSDP,
+    `cfg.fsdp`: the forward gathers it and its gradient arrives
+    reduce-scattered, `models.model._take`) is already summed. The
+    clip's global norm takes every element of the global tree once
+    (`sharding.counts_once`: each piece from the one rank of its copies
+    at index 0 along the axes that do not cut it), summed over `model`
+    and then `data`, so every rank gets the same norm. A MoE model's
+    `load_balance` is taken over the global batch (`moe.router`); with
+    accum_steps A dividing a data rank's rows, the ranks' microbatch i
+    together are the one-process step's microbatch i (rows ≡ i mod A of
+    the global batch), so the step is the one-process step's.
+    `on_grads(loss, nll, grads)`, if given, sees the step's gradients
+    after that reduction and before the update (which scales them in
+    place by the clip)."""
     grad_fn = make_grad_fn(cfg, accum_steps, aux_weight)
-    dp_group = tp_group = None
     if mesh is not None:
+        import torch.distributed as dist
+
         from repro_torch.parallel import sharding as S
         from .train_state import param_specs
 
@@ -107,35 +114,51 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
         M.check_parallel(cfg, sizes["model"], sizes["data"])
         specs = param_specs(cfg, mesh)
         dp = sizes["data"]
-        dp_group = mesh.get_group("data") if dp > 1 else None
-        tp_group = mesh.get_group("model") if sizes["model"] > 1 else None
+        coords = S.mesh_coords(mesh)
+        # the groups a sum over the whole mesh runs through, model first
+        groups = [mesh.get_group(a) for a in ("model", "data")
+                  if sizes[a] > 1]
+
+    def leaf_specs(params):
+        return S.spec_leaves(specs, params)
 
     def grads_of(state, batch):
         if mesh is None:
             return grad_fn(state.params, batch)
-        import torch.distributed as dist
-
         with S.using_mesh(mesh):
             loss, nll, grads = grad_fn(state.params, batch)
-        if dp_group is not None:
-            for g in M.tree_leaves(grads):
-                dist.all_reduce(g, group=dp_group)
+        if dp > 1:
+            group = mesh.get_group("data")
+            for g, sp in zip(M.tree_leaves(grads), leaf_specs(grads)):
+                if S.data_dim(sp, mesh) is None:
+                    dist.all_reduce(g, group=group)
                 g.div_(dp)
             ln = torch.stack([loss, nll])
-            dist.all_reduce(ln, group=dp_group)
+            dist.all_reduce(ln, group=group)
             loss, nll = ln[0] / dp, ln[1] / dp
         return loss, nll, grads
+
+    def sq_sum(params):
+        """The clip's global sum of squares over the mesh (`update`'s
+        `sq_sum`), for this rank's leaves of `params`."""
+        once = [S.counts_once(sp, mesh, coords) for sp in leaf_specs(params)]
+
+        def total(sq):
+            part = sum(q for q, o in zip(sq, once) if o)
+            part = torch.as_tensor(part, dtype=torch.float32,
+                                   device=sq[0].device)
+            for group in groups:
+                dist.all_reduce(part, group=group)
+            return part
+        return total
 
     def train_step(state: TrainState, batch):
         loss, nll, grads = grads_of(state, batch)
         if on_grads is not None:
             on_grads(loss, nll, grads)
-        sharded = None if mesh is None else [
-            S.is_sharded(sp, mesh)
-            for sp in S.spec_leaves(specs, state.params)]
-        params, opt_state, om = opt.update(grads, state.opt_state,
-                                           state.params, sharded=sharded,
-                                           group=tp_group)
+        params, opt_state, om = opt.update(
+            grads, state.opt_state, state.params,
+            sq_sum=None if mesh is None else sq_sum(state.params))
         for p in M.tree_leaves(params):
             p.grad = None
         metrics = {"loss": loss, "nll": nll, **om}

@@ -39,14 +39,12 @@ def init_state(cfg: ArchConfig, opt: AdamW, *, seed: int = 0,
                device=None, mesh=None) -> TrainState:
     """Fresh fp32 masters from `seed` (a `torch.Generator`, see
     `model.init_params`) and a zero AdamW state. Under a `mesh` every
-    rank draws the same full tree and keeps its shard (`param_specs`), so
-    a one-process run and a sharded one start from the same weights."""
+    rank draws the same tree a matrix slice at a time and keeps its shard
+    of each (`init_params(mesh=)`, `param_specs`), so a one-process run
+    and a sharded one start from the same weights and no rank holds the
+    whole tree; μ and ν take the shards' shapes."""
     params = M.init_params(cfg, seed=seed, device=device,
-                           dtype=torch.float32)
-    if mesh is not None:
-        from repro_torch.parallel import sharding as S
-
-        params = S.shard_tree(params, param_specs(cfg, mesh), mesh)
+                           dtype=torch.float32, mesh=mesh)
     for p in M.tree_leaves(params):
         p.requires_grad_(True)
     return TrainState(step=torch.zeros((), dtype=torch.int32),

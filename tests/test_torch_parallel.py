@@ -132,13 +132,15 @@ def test_sharding_rules_equal_jax(arch, mesh):
 
 
 def test_refusals():
-    """What the mesh still refuses, with a reason: FSDP over a data axis
-    above 1 (llama4). Every family trains under tensor parallelism (the
-    MoE family in tests/test_torch_moe_parallel.py, the SSM, hybrid and
-    frontend families in tests/test_torch_family_parallel.py)."""
+    """What the mesh still refuses, with a reason: a data axis when
+    serving (ROADMAP 7b). Every family trains at any mesh (the MoE family
+    in tests/test_torch_moe_parallel.py, the SSM, hybrid and frontend
+    families in tests/test_torch_family_parallel.py), FSDP over a data
+    axis above 1 too (llama4, tests/test_torch_fsdp.py)."""
     from repro_torch.models.model import check_parallel
-    with pytest.raises(ValueError, match="FSDP is not ported"):
-        check_parallel(get_config("llama4-maverick-400b-a17b"), 2, 2)
+    with pytest.raises(ValueError, match="7b"):
+        check_parallel(get_config("qwen2.5-14b"), 2, 2, serving=True)
+    check_parallel(get_config("llama4-maverick-400b-a17b"), 2, 2)
     check_parallel(get_config("qwen2.5-14b"), 4, 2)
 
 
