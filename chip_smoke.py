@@ -114,9 +114,10 @@ Phases, in order; any failure exits nonzero:
              world of a parallel run after its steps (this script's
              rank program, `--serve-ranks SPEC`: the trainer's `main`,
              then `launch.serve.main` a run, the first drawing the
-             rank's shards): qwen2.5-14b at full width cut to 12 layers
-             (full depth before PR 30) at (data 1, model 2) on the serve
-             stream, paged; granite cut to
+             rank's shards): qwen2.5-14b at full width cut to 4 layers
+             (12 before the data axis's serves came in, full depth
+             before that) at (data 1, model 2) on the serve stream,
+             paged; granite cut to
              16 layers and llama4-maverick cut to one superblock at
              (1, 2) on the moe phase's granite stream, paged (EP: a rank
              20 and 64 experts; each prompt's prefill routing recorded);
@@ -134,7 +135,18 @@ Phases, in order; any failure exits nonzero:
              serve phase's; qwen's and phi3's one-process streams are
              served there at the same depth, each rank's launches equal
              to them (the same GEMMs on shards); granite's and llama4's
-             are held in the moe phase. The
+             are held in the moe phase. The first (2, 2) world serves
+             over `data` too: qwen at 4 layers paged, ring
+             and disagg and granite on its stream, each data rank its
+             two slots and its range of pages, each digest the (1, 2)
+             world's bit for bit; and the batch-1 ring (a 2048-token
+             prompt, a 4096-row ring whose rows split over `data`, 16
+             new tokens) against a one-process batch-1 serve by R1's
+             rule (`data_serve_check`); each rank's ITL, TTFT, peak
+             memory, SA GEMMs a decode step and its shard's pages. The
+             kernel phase holds the decode kernel's log-sum-exp output
+             against its twin and the fold of two halves against the
+             whole (`check_decode_lse`). The
              kernel phase holds each kernel at a rank's shapes
              (`check_rank_shapes`; since PR 30 also granite's expert
              pieces under a model axis of 16). It measures no speed of a
@@ -1293,8 +1305,9 @@ def _sdpa_gathered(torch, q, k, v, pp, bt, pos, grp):
     return lambda: sdpa(qs, kh, vh, attn_mask=mask)
 
 
-def _decode_bound(torch, bt, B, H, KVH, hd, psz, P, pol, pool_bytes=4):
-    mapped = int((bt > 0).sum())
+def _decode_bound(torch, bt, B, H, KVH, hd, psz, P, pol, pool_bytes=4,
+                  min_page=1):
+    mapped = int((bt >= min_page).sum())
     nbytes = (4 * B * H * hd * 2 + mapped * psz * KVH * hd * pool_bytes * 2
               + mapped * psz * 4 + 4 * B * P + 4 * B)
     flops = 4.0 * H * mapped * psz * hd     # q.k and p.v
@@ -1498,6 +1511,215 @@ def check_decode(torch, timer):
             "readings": readings,
             "timed": f"one layer's decode step, B={BATCH}, "
                      f"{CACHE_LEN}-token slots, pool fp32"}
+
+
+def check_decode_lse(torch, timer):
+    """The decode kernel's log-sum-exp output (the batch-1 ring whose rows
+    split over `data`), held against its plain twin at the serve
+    shape under the bf16 and fp32 policies and the approx mode, fp32 and
+    bf16 pools: the lse within `lse_error_bound`, the output within
+    `error_bound` and bit-identical to the call without the lse, the fully
+    masked slot -inf and zeros; the fold of each slot's two halves of keys
+    (`layers.fold_partials`) against the whole kernel within
+    `error_bound(folded=True)`, a fully masked half folding to the other
+    half bit for bit. Then the batch-1 ring at (2, 2) as the main path
+    reads it (each data rank's 2048-row block of the 4096-row ring at
+    model 2: g = 5, 4 KV heads, an fp32 ring through `dense_pool_view`,
+    min_page=0): each rank's (out, lse) against its twin, their fold
+    against the whole ring's decode; rank 0's timed with and without the
+    lse, its plain twin, the library's SDPA with its log-sum-exp, and the
+    fold of two ranks' (out, lse) (the elementwise ops; the all-gather
+    beside them runs on gloo in the world and is not timed here). Returns
+    the entry of the JSON line."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.kernels import sa_decode_attention as da
+    from repro_torch.models.layers import fold_partials
+
+    KVH, grp, hd, psz = 8, 5, 128, PAGE
+    H = KVH * grp
+    P = -(-CACHE_LEN // psz)
+    n_pages = -(-BATCH * CACHE_LEN // psz) + 1
+    g = torch.Generator(device="cuda").manual_seed(33)
+    lens = [CACHE_LEN, 100, 40, 0]            # slot 3: all masked
+    worst = max_err = 0.0
+    for name, pol, pool in (
+            ("bf16", PrecisionPolicy(), torch.float32),
+            ("bf16 pool", PrecisionPolicy(), torch.bfloat16),
+            ("approx", PrecisionPolicy(mode="approx"), torch.float32),
+            ("fp32", PrecisionPolicy(input_format="fp32"), torch.float32)):
+        q, k, v, pp, bt, pos = _paged_workload(torch, g, BATCH, KVH, grp, hd,
+                                               psz, P, n_pages, lens)
+        k, v = k.to(pool), v.to(pool)
+        o, lse = da.paged_decode_cuda(q, k, v, pp, bt, pos, policy=pol,
+                                      lse=True)
+        plain = da.paged_decode_cuda(q, k, v, pp, bt, pos, policy=pol)
+        o_ref, lse_ref = da.paged_decode_ref(q, k, v, pp, bt, pos,
+                                             policy=pol, lse=True)
+        torch.cuda.synchronize()
+        same = torch.equal(o.view(torch.int32), plain.view(torch.int32))
+        r_o = float(((o - o_ref).abs() / da.error_bound(
+            q, k, v, pp, bt, pos, policy=pol)).max())
+        live = torch.isfinite(lse_ref)
+        lb = da.lse_error_bound(q, k, v, pp, bt, pos, policy=pol)
+        d_l = (lse - lse_ref).abs()[live]
+        r_l = float((d_l / lb[live]).max())
+        masked = (not torch.isfinite(lse[3]).any() and not o[3].any()
+                  and bool(live[:3].all()))
+        # the fold of each slot's two halves of keys against the whole
+        halves = []
+        for part in range(2):
+            t = bt.clone()
+            for b in range(BATCH):
+                n = int(pos[b]) // psz + 1
+                if part == 0:
+                    t[b, n // 2:] = -1
+                else:
+                    t[b, :n // 2] = -1
+            halves.append(da.paged_decode_cuda(q, k, v, pp, t, pos,
+                                               policy=pol, lse=True))
+        folded = fold_partials(torch.stack([h[0] for h in halves]),
+                               torch.stack([h[1] for h in halves]))
+        r_f = float(((folded - plain).abs() / da.error_bound(
+            q, k, v, pp, bt, pos, policy=pol, folded=True)).max())
+        e_f = float((folded - plain).abs().max())
+        empty = da.paged_decode_cuda(q, k, v, pp, torch.full_like(bt, -1),
+                                     pos, policy=pol, lse=True)
+        alone = fold_partials(torch.stack([empty[0], o]),
+                              torch.stack([empty[1], lse]))
+        alone_same = torch.equal(alone.view(torch.int32),
+                                 o.view(torch.int32))
+        line = (f"paged decode lse {name}: out err/bound {r_o:.4f}, the "
+                f"same bits as without the lse {same}; lse max err "
+                f"{float(d_l.max()):.3e}, err/bound {r_l:.4f}; masked slot "
+                f"-inf and zeros {masked}; two halves folded against the "
+                f"whole: max err {e_f:.3e}, err/bound (folded) {r_f:.4f}; a "
+                f"fully masked half folds to the other bit for bit "
+                f"{alone_same}")
+        log(line)
+        if not (same and masked and alone_same and max(r_o, r_l, r_f) <= 1.0
+                and bool(torch.isfinite(folded).all())):
+            raise AssertionError(line)
+        worst = max(worst, r_o, r_l, r_f)
+        max_err = max(max_err, float((o - o_ref).abs().max()),
+                      float(d_l.max()), e_f)
+        del q, k, v, pp, bt, pos, o, lse, plain, o_ref, lse_ref, halves
+    # the batch-1 ring's decode a layer on each data rank at (2, 2), as
+    # `layers._ring_decode_split` runs it: the rank's 2048-row block of the
+    # 4096-row ring (g = 5, 4 KV heads at model 2, hd 128, an fp32 ring)
+    # read through `dense_pool_view` with min_page=0, the query at
+    # position 2063: rank 0's block full, rank 1's the 16 rows past it
+    # and masked beyond; each held against its twin, their fold against
+    # the whole ring's decode, rank 0's timed
+    kvh1, rows, qpos = 4, 2048, 2048 + 15
+    q = torch.randn((1, 1, kvh1 * grp, hd), generator=g, device="cuda")
+    kr, vr = (torch.randn((1, 2 * rows, kvh1, hd), generator=g,
+                          device="cuda") for _ in range(2))
+    ids = torch.arange(2 * rows, dtype=torch.int32, device="cuda")
+    pr = torch.where(ids <= qpos, ids, -1)[None]
+    pos = torch.tensor([qpos], dtype=torch.int32, device="cuda")
+    pol = PrecisionPolicy()
+    views = [da.dense_pool_view(kr[:, i * rows:(i + 1) * rows].contiguous(),
+                                vr[:, i * rows:(i + 1) * rows].contiguous(),
+                                pr[:, i * rows:(i + 1) * rows].contiguous(),
+                                psz) for i in range(2)]
+    parts, errs = [], []
+    for i, view in enumerate(views):
+        o, lse = da.paged_decode_cuda(q, *view, pos, min_page=0, lse=True)
+        o_ref, lse_ref = da.paged_decode_ref(q, *view, pos, min_page=0,
+                                             lse=True)
+        r_o = float(((o - o_ref).abs() / da.error_bound(
+            q, *view, pos, min_page=0)).max())
+        r_l = float(((lse - lse_ref).abs() / da.lse_error_bound(
+            q, *view, pos, min_page=0)).max())
+        line = (f"paged decode lse, data rank {i}'s block of the batch-1 "
+                f"ring at (2, 2): out err/bound {r_o:.4f}, lse err/bound "
+                f"{r_l:.4f}")
+        log(line)
+        if not (max(r_o, r_l) <= 1.0 and bool(torch.isfinite(lse).all())):
+            raise AssertionError(line)
+        errs += [r_o, r_l]
+        max_err = max(max_err, float((o - o_ref).abs().max()),
+                      float((lse - lse_ref).abs().max()))
+        parts.append((o, lse))
+    whole = da.dense_pool_view(kr, vr, pr, psz)
+    ring = da.paged_decode_cuda(q, *whole, pos, min_page=0)
+    folded = fold_partials(torch.stack([p[0] for p in parts]),
+                           torch.stack([p[1] for p in parts]))
+    e_f = float((folded - ring).abs().max())
+    r_f = float(((folded - ring).abs() / da.error_bound(
+        q, *whole, pos, min_page=0, folded=True)).max())
+    line = (f"paged decode lse: the two ranks' blocks folded against the "
+            f"whole 4096-row ring: max err {e_f:.3e}, err/bound (folded) "
+            f"{r_f:.4f}")
+    log(line)
+    if not r_f <= 1.0:
+        raise AssertionError(line)
+    worst = max(worst, r_f, *errs)
+    max_err = max(max_err, e_f)
+    kp, vp, pp, bt = views[0]
+
+    def with_lse():
+        return da.paged_decode_cuda(q, kp, vp, pp, bt, pos, min_page=0,
+                                    lse=True)
+
+    def without():
+        return da.paged_decode_cuda(q, kp, vp, pp, bt, pos, min_page=0)
+
+    # the two variants in one call, alternated: without, with, with,
+    # without; the device times after the wall times
+    walls = [timer.wall(fn) for fn in (without, with_lse, with_lse,
+                                       without)]
+    t_lse, t_no = (walls[1] + walls[2]) / 2, (walls[0] + walls[3]) / 2
+    d_lse, d_no = timer.device(with_lse), timer.device(without)
+    t_p = timer.wall(lambda: da.paged_decode_ref(q, kp, vp, pp, bt, pos,
+                                                 min_page=0, lse=True))
+    o, lse = parts[0]
+    os_, ls_ = torch.stack([o, o]), torch.stack([lse, lse])
+    t_fold = timer.wall(lambda: fold_partials(os_, ls_))
+    # the library: one call that returns attention with its log-sum-exp,
+    # the memory-efficient SDPA on the block's rows with the KV heads
+    # expanded (every row of rank 0's block is live: no mask)
+    qs = q.transpose(1, 2)                           # (1, H, 1, hd)
+    kh, vh = (x[:, :rows].transpose(1, 2).repeat_interleave(grp, 1)
+              for x in (kr, vr))
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+
+    def library():
+        return eff(qs, kh, vh, None, True)
+
+    t_l = timer.wall(library)
+    lib_o, lib_lse = library()[:2]
+    lib_do = float((lib_o.transpose(1, 2) - o).abs().max())
+    lib_dl = float((lib_lse[..., 0].reshape(-1) - lse.reshape(-1)).abs()
+                   .max())
+    b_ms, by = _decode_bound(torch, bt, 1, kvh1 * grp, kvh1, hd, psz,
+                             rows // psz, pol, min_page=0)
+    b_ms += 4 * kvh1 * grp / PEAK_BYTES * 1e3     # the lse written
+    log(f"paged decode lse, a data rank's block of the batch-1 ring (2048 "
+        f"of 4096 rows, g = {grp}, {kvh1} KV heads, fp32 ring, "
+        f"dense_pool_view): wall without / with / with / without the lse "
+        f"{' / '.join(f'{w:.4f}' for w in walls)} ms, device with "
+        f"{d_lse}, without {d_no}; plain twin {t_p:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({by}, {100 * b_ms / t_lse:.1f} % of it); the fold "
+        f"of two ranks' (out, lse) {t_fold:.4f} ms a layer; library "
+        f"(_scaled_dot_product_efficient_attention with its log-sum-exp, "
+        f"fp32) {t_l:.4f} ms, its max difference from the kernel: out "
+        f"{lib_do:.3e}, lse {lib_dl:.3e} (the kernel rounds to bf16)")
+    return {"name": "paged_decode_attention_lse", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sa_decode_attention.cu",
+            "replaces": "src/repro/kernels/sa_decode_attention.py:94",
+            "max_abs_err": max_err, "err_over_bound": worst, "ms": t_lse,
+            "device_ms": d_lse, "plain_ms": t_p, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": t_l,
+            "readings": {"without_lse_ms": t_no, "without_lse_device_ms":
+                         d_no, "walls_alternated_ms": walls,
+                         "fold_ms_a_layer": t_fold,
+                         "library_max_diff_out": lib_do,
+                         "library_max_diff_lse": lib_dl},
+            "timed": "one layer's decode on data rank 0's block of the "
+                     "batch-1 ring: B=1, 2048 rows, g=5, 4 KV heads, hd "
+                     "128, fp32 ring through dense_pool_view (min_page=0), "
+                     "with the log-sum-exp output"}
 
 
 def _drop_last_page(torch, bt):
@@ -6438,9 +6660,17 @@ def _is_frontend(arch) -> bool:
 # (1, 1) (full depth: the serve phase's digest bit for bit);
 # phi3-medium-14b at full width cut to PSERVE_PHI3_LAYERS (4 before PR 30)
 # at (1, 4) (its 10 KV heads padded to 12), paged, `--kv ring` and
-# `--disagg`: one digest. Each: (key, driver arguments, runs)
-PSERVE_QWEN_LAYERS, PSERVE_PHI3_LAYERS = 12, 2
+# `--disagg`: one digest. Each: (key, driver arguments, runs). qwen's
+# depth: 4 layers (12 before the (2, 2) world served too), in both
+# worlds that serve it and in its one-process reference
+PSERVE_QWEN_LAYERS, PSERVE_PHI3_LAYERS = 4, 2
 PHI3_SERVE_ARGS = ["--arch", "phi3-medium-14b"] + SERVE_ARGS[2:]
+# the batch-1 long-context serve over the `data` axis: one
+# 2048-token prompt, 16 new tokens, on a 4096-row ring whose rows split
+# over `data` (2048 rows, 128 pages, a data rank)
+B1_ARGS = ["--arch", ARCH, "--batch", "1", "--requests", "1",
+           "--prompt-lens", "2048", "--max-new", "16", "--cache-len", "4096",
+           "--kv", "ring", "--rate", "0", "--seed", "0"]
 # The families' serves (`family_serve_check`): pixtral cut to 2 layers on
 # the frontend phase's static waves and mamba2 cut to 2 on the ssm phase's
 # stream at (1, 2); whisper at full depth on its static waves, hymba cut
@@ -6468,6 +6698,20 @@ PSERVE_WORLDS = {
         for key, argv, runs in PFAMILY_SERVES[(1, 2)]),
     (1, 1): (("nccl", SERVE_ARGS + ["--model-parallel", "1"],
               {"paged": []}),),
+    # serving over the `data` axis, in the (2, 2) world of qwen's
+    # and granite's steps: qwen on the serve stream at PSERVE_QWEN_LAYERS
+    # paged, ring and disagg, granite on its stream, each data rank its two
+    # slots and its range of pages (`data_serve_check`: the (1, 2)
+    # world's digests bit for bit), and the batch-1 ring whose rows split
+    # over `data` (R1's rule against one process)
+    (2, 2): (("qwen_2x2", SERVE_ARGS + [
+        "--layers", str(PSERVE_QWEN_LAYERS), "--model-parallel", "2"],
+        {"paged": [], "ring": ["--kv", "ring"],
+         "disagg": ["--disagg", "--prefill-workers", "2"]}),
+        ("granite_2x2", PGRANITE_ARGS + ["--model-parallel", "2"],
+         {"paged": []}),
+        ("qwen_b1", B1_ARGS + ["--layers", str(PSERVE_QWEN_LAYERS),
+                               "--model-parallel", "2"], {"ring": []})),
     (1, 4): (("phi3", PHI3_SERVE_ARGS + [
         "--layers", str(PSERVE_PHI3_LAYERS), "--model-parallel", "4"],
         {"paged": [], "ring": ["--kv", "ring"],
@@ -6483,7 +6727,11 @@ PSERVE_REL = 2.0 ** -5
 PSERVE_KEYS = ("requests", "generated_tokens", "pages_leaked",
                "nonfinite_logits", "decode_itl_p50_ms", "ttft_mean_s",
                "prefill_s", "decode_s", "wall_s", "decode_tok_s", "disagg",
-               "kv_layout", "stream_digest")
+               "kv_layout", "stream_digest", "pages_peak_in_use",
+               "pages_peak_by_shard")
+# the serves whose ranks also record each prompt's prefill logits on the
+# mesh (R1's rule); the others are held by their digests
+PSERVE_NO_PREFILL = ("nccl", "qwen_2x2", "granite_2x2")
 
 
 def _parallel_reference(torch, cfg, accum, routing_path=None):
@@ -6620,15 +6868,15 @@ def _routing_path(arch, layers):
     return os.path.join(root, "build", f"parallel_routing_{arch}_{layers}.pt")
 
 
-def _parallel_start(shape, runs, grads: bool):
+def _parallel_start(shape, runs, grads: bool, serve: bool = True):
     """Start one torchrun world of data x model ranks on the one card:
     this script's rank program (`--serve-ranks`) runs `launch.train` for
     each PARALLEL_RUNS index in `runs` (`_run_steps` steps under `cuda`,
     the first step's gradients written with `--grads-out` where `grads`;
     a MoE model's step 0 replays the one-process reference's routing),
-    then the serve runs PSERVE_WORLDS gives the shape. Returns the world's
-    handle for `_parallel_finish` (its output goes to files, so worlds can
-    run side by side)."""
+    then (where `serve`) the serve runs PSERVE_WORLDS gives the shape.
+    Returns the world's handle for `_parallel_finish` (its output goes to
+    files, so worlds can run side by side)."""
     from repro_torch.configs import get_config
 
     dp, mp = shape
@@ -6655,8 +6903,9 @@ def _parallel_start(shape, runs, grads: bool):
                       + (["--grads-out", out] if grads else [])
                       + (["--frontend"] if _is_frontend(arch) else []))
     serves = [{"key": key, "argv": argv, "runs": sruns,
-               "prefill": key != "nccl"}
-              for key, argv, sruns in PSERVE_WORLDS.get(shape, ())]
+               "prefill": key not in PSERVE_NO_PREFILL}
+              for key, argv, sruns in (PSERVE_WORLDS.get(shape, ())
+                                       if serve else ())]
     spec = os.path.join(sdir, "spec.json")
     with open(spec, "w") as f:
         json.dump({"train": trains, "routing": routing, "record": record,
@@ -6877,8 +7126,9 @@ def _parallel_finish(torch, h, refs, train_routing=None):
         + (", then the serve runs" if h.serves else "") + ")")
     served = {}
     for sv in h.serves:
-        served[sv["key"]], p = _served(torch, sv["key"], n, sv["runs"],
-                                       h.sdir, lines, wall, sv["argv"])
+        served[sv["key"]], p = _served(torch, sv["key"], h.shape,
+                                       sv["runs"], h.sdir, lines, wall,
+                                       sv["argv"])
         problems += p
     shutil.rmtree(h.sdir, ignore_errors=True)
     return readings, served, problems
@@ -7062,13 +7312,16 @@ def _served_kernels(cfg):
         "sa_matmul", "paged_decode", "prefill_attention")
 
 
-def _served(torch, key, n, runs, sdir, lines, wall, argv):
+def _served(torch, key, shape, runs, sdir, lines, wall, argv):
     """A world's serve runs of `key` from its ranks' files and lines:
     every rank one digest a run, the runs one digest, no plain call, each
-    kernel launched (and on one nccl rank the serve driver's summary and
-    rank line). Returns (the results, problems); the streams are held to
-    the one-process ones after the serve phase (`parallel_serve_check`)
-    and the moe phase (`moe_parallel_check`)."""
+    kernel launched (the decode kernel's log-sum-exp variant where the
+    rings split over `data`), and on one nccl rank the serve driver's
+    summary and rank line. Returns (the results, problems); the streams
+    are held to the one-process ones after the serve phase
+    (`parallel_serve_check`), the moe phase (`moe_parallel_check`) and
+    the (1, 2) world's (`data_serve_check`)."""
+    n = shape[0] * shape[1]
     ranks = []
     for r in range(n):
         with open(os.path.join(sdir, f"rank{r}_{key}.json")) as f:
@@ -7079,12 +7332,14 @@ def _served(torch, key, n, runs, sdir, lines, wall, argv):
         return torch.load(path) if os.path.exists(path) else None
 
     prefill, routing = load("prefill"), load("routing")
-    tag = f"[parallel_serve {key} 1x{n}]"
+    tag = f"[parallel_serve {key} {shape[0]}x{shape[1]}]"
     problems = []
     from repro_torch.launch import serve as drv
 
     a = drv.parse_args(argv)
     kernels = _served_kernels(drv.config_of(a))
+    if shape[0] > 1 and a.batch % shape[0]:
+        kernels += ("paged_decode_lse",)
     tokens = a.requests * a.max_new
     for run in runs:
         digests = {r[run]["summary"]["stream_digest"] for r in ranks}
@@ -7179,9 +7434,13 @@ def parallel_lane(result: str) -> int:
         families = family_serve_check(torch, served)
         log(f"[parallel_lane] the families' one-process references "
             f"{time.monotonic() - t:.1f} s; {card}")
+        t = time.monotonic()
+        data = data_serve_check(torch, served)
+        log(f"[parallel_lane] the data axis's batch-1 one-process "
+            f"reference {time.monotonic() - t:.1f} s; {card}")
         torch.save({"readings": readings, "served": served, "held": held,
                     "granite": granite, "families": families,
-                    "wall_s": time.monotonic() - t0}, result)
+                    "data": data, "wall_s": time.monotonic() - t0}, result)
         return 0
     except BaseException:
         text = traceback.format_exc()
@@ -7222,7 +7481,11 @@ def parallel(torch, card):
     of one shape in one world; after the (2, 2) and (1, 2) worlds, qwen's
     1-layer model on one rank under nccl (`--model-parallel 1`, step 0's
     loss against the same reference), then the (1, 4) world. The worlds
-    PSERVE_WORLDS names serve after their steps. The phase runs in a lane
+    PSERVE_WORLDS names serve after their steps: the (1, 2), (1, 1) and
+    (1, 4) worlds on the `model` axis, the first (2, 2) world over `data`
+    and `model` (each data rank its own slots and pages, and the batch-1
+    ring whose rows split over `data`; the FSDP world serves nothing).
+    The phase runs in a lane
     of its own (`parallel_lane`) beside the main process's phases: the
     (2, 2) world (61 GiB) starts once the main process signals GO_2X2,
     the FSDP world (LLAMA4_E4 at (2, 2), 4 x 13.0 GiB) after it, and
@@ -7297,7 +7560,7 @@ def parallel(torch, card):
     drop_grads(1)
     # FSDP in a (2, 2) world of its own: its gradients' files (12.3 GB)
     # never on the host beside the other runs'
-    finish(_parallel_start((2, 2), (FSDP_RUN,), grads=True))
+    finish(_parallel_start((2, 2), (FSDP_RUN,), grads=True, serve=False))
     drop_grads(FSDP_RUN)
     _signal(DONE_2X2)
     finish(_parallel_start((1, 2), (0, 3, 5, 6), grads=True),
@@ -7512,6 +7775,99 @@ def parallel_serve_check(torch, ps):
         torch.cuda.empty_cache()
     if problems:
         raise AssertionError("parallel_serve check failed: "
+                             + "; ".join(problems))
+    return out
+
+
+def data_serve_check(torch, ps):
+    """The (2, 2) world's serves over the `data` axis (PSERVE_WORLDS): each
+    qwen run's digest (paged, ring, disagg) the (1, 2) world's qwen digest
+    at the same depth bit for bit, and granite's its (1, 2) digest (the
+    data axis changes no row's arithmetic); the batch-1 ring against a
+    one-process batch-1 serve by R1's rule (`_r1_hold`). Readings a rank:
+    ITL p50, TTFT mean, peak memory, the SA GEMM launches a decode step
+    (a dense run's launches less its prefills' over its decode steps; a
+    rank prefills its own slots' requests only) against `gemm_calls(tp=)`,
+    and the pages its shard used. Returns the readings; raises on any
+    problem."""
+    from repro_torch.launch import serve as drv
+    from repro_torch.models import model as M
+
+    problems, out = [], {}
+    for key, ref_key in (("qwen_2x2", "qwen"), ("granite_2x2", "granite")):
+        want = ps[ref_key]["ranks"][0]["paged"]["summary"]["stream_digest"]
+        argv = dict((k, v) for k, v, _ in PSERVE_WORLDS[(2, 2)])[key]
+        cfg = drv.config_of(drv.parse_args(argv))
+        tag = f"[parallel_serve {key}]"
+        for run in ps[key]["ranks"][0]:
+            got = ps[key]["ranks"][0][run]["summary"]["stream_digest"]
+            if got != want:
+                problems.append(f"{tag} {run}: digest {got}, the (1, 2) "
+                                f"world's {want}")
+            ranks = []
+            for r, rank in enumerate(ps[key]["ranks"]):
+                rr, summ = rank[run], rank[run]["summary"]
+                per_step = None
+                if cfg.family == "dense":
+                    prefills = (rr["launches"]["prefill_attention"]
+                                // cfg.num_layers)
+                    per_step = ((rr["launches"]["sa_matmul"] - prefills
+                                 * M.gemm_calls(cfg, 1, 2))
+                                / rr["decode_steps"])
+                shard = summ.get("pages_peak_by_shard")
+                ranks.append({
+                    "itl_p50_ms": summ["decode_itl_p50_ms"],
+                    "ttft_mean_s": summ["ttft_mean_s"],
+                    "peak_gib": rr["peak_gib"] and round(rr["peak_gib"], 3),
+                    "sa_matmul_launches": rr["launches"]["sa_matmul"],
+                    "decode_steps": rr["decode_steps"],
+                    "sa_matmul_a_decode_step": per_step,
+                    "pages_peak_of_its_shard":
+                        shard[r // 2] if shard else None})
+                if per_step is not None and per_step != M.gemm_calls(
+                        cfg, 1, 2):
+                    problems.append(f"{tag} {run} rank {r}: {per_step} SA "
+                                    f"GEMMs a decode step, gemm_calls "
+                                    f"{M.gemm_calls(cfg, 1, 2)}")
+            out[f"{key}_{run}"] = {"digest": got, "digest_1x2": want,
+                                   "ranks": ranks,
+                                   "pages_peak_by_shard": ps[key]["ranks"][
+                                       0][run]["summary"].get(
+                                           "pages_peak_by_shard")}
+            log(f"{tag} {run}: digest {got} (the (1, 2) world's {want}); "
+                f"a rank: {json.dumps(ranks)}")
+    key = "qwen_b1"
+    tag = f"[parallel_serve {key} {PSERVE_QWEN_LAYERS}L 2x2]"
+    summary, sched, eng = drv.main(
+        B1_ARGS + ["--layers", str(PSERVE_QWEN_LAYERS)], return_state=True)
+    ref = [(list(map(int, r.prompt)), list(map(int, r.tokens)))
+           for r in sorted(sched.finished, key=lambda r: r.rid)]
+    got = ps[key]
+    eq, n, worst, p, _ = _r1_hold(torch, eng, ref, tag, got["ranks"],
+                                  got["prefill"], "ring")
+    problems += p
+    ranks = [{"itl_p50_ms": rank["ring"]["summary"]["decode_itl_p50_ms"],
+              "ttft_mean_s": rank["ring"]["summary"]["ttft_mean_s"],
+              "peak_gib": rank["ring"]["peak_gib"]
+              and round(rank["ring"]["peak_gib"], 3),
+              "launches": rank["ring"]["launches"]}
+             for rank in got["ranks"]]
+    out[key] = {"equal_tokens": f"{eq}/{n}", "prefill_err_over_bound": worst,
+                "digest": got["ranks"][0]["ring"]["summary"][
+                    "stream_digest"],
+                "one_process_digest": summary["stream_digest"],
+                "one_process_itl_p50_ms": summary.get("decode_itl_p50_ms"),
+                "ranks": ranks}
+    log(f"{tag} against its one-process stream (digest "
+        f"{summary['stream_digest']}, ITL p50 "
+        f"{summary.get('decode_itl_p50_ms')} ms): {eq} of {n} tokens equal, "
+        f"prefill logits {worst:.4f} of the bound (R1); a rank: "
+        f"{json.dumps(ranks)}")
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("data_serve check failed: "
                              + "; ".join(problems))
     return out
 
@@ -8015,6 +8371,13 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
             if isinstance(rec[run], dict) and "launches" in rec[run]}
     log("[parallel_family] " + json.dumps(fam_par))
     log(f"[parallel_family] {card}")
+    # serving over the data axis: the (2, 2) world's runs, and the
+    # decode kernel's log-sum-exp launches in the batch-1 ring's run
+    log("[parallel_data] " + json.dumps(par["data"]))
+    log(f"[parallel_data] {card}")
+    kernels[2]["readings"]["parallel_data"] = par["data"]
+    launches["paged_decode_attention_lse"] = pserve["qwen_b1"]["ranks"][0][
+        "ring"]["launches"]["paged_decode_lse"]
     phases["parallel_serve_check"] = time.monotonic() - t
 
     moe_out |= step("moe_llama4",
@@ -8234,6 +8597,8 @@ def main(argv=None):
                                             w_rank[kind])
         kernels[k_]["max_abs_err"] = max(kernels[k_]["max_abs_err"],
                                          e_rank[kind])
+    # the decode kernel's log-sum-exp variant (the rings split over data)
+    kernels.append(check_decode_lse(torch, timer))
     log("[fold] sa_matmul fp32 x fp32 (the fp32 policy's routes): " + ", ".join(
         f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}"
         for k_, v in fp32.items()))

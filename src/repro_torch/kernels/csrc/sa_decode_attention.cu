@@ -14,7 +14,11 @@
 //   * deferred softmax with the all-masked guard: m_safe = 0 when the row
 //     max is -inf, p = exp(s - m_safe) / max(sum, 1e-30), p cast in: P is
 //     normalized by the whole row's max and sum before it is rounded;
-//   * out = sum_k p_k cast_in(v_k) in fp32, then the approx truncation.
+//   * out = sum_k p_k cast_in(v_k) in fp32, then the approx truncation;
+//   * optionally (`lse` not null) each query row's log-sum-exp of its
+//     scores, m + log(sum), or -inf where every key is masked (the output
+//     is then zeros): the fold of attentions over rows split across ranks
+//     (repro_torch/models/layers.py `fold_partials`).
 //
 // Design: a thread-block cluster per (slot, KV head) splits the slot's keys
 // into n_split contiguous runs, one per block (grid (B, KVH, n_split),
@@ -181,8 +185,8 @@ __global__ void __launch_bounds__(kThreads, G * VEC <= 20 ? 3 : 1)
 paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
                    const T* __restrict__ v_pool, const int* __restrict__ ppos,
                    const int* __restrict__ bt, const int* __restrict__ pos,
-                   float* __restrict__ out, float* __restrict__ ws, int KVH,
-                   int psz, int P, int kpc,
+                   float* __restrict__ out, float* __restrict__ ws,
+                   float* __restrict__ lse, int KVH, int psz, int P, int kpc,
                    int min_page, float scale, float scale_over_cap, float cap,
                    int window, int fmt, int approx) {
   constexpr int HD = 32 * VEC;
@@ -192,7 +196,7 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
   extern __shared__ float4 smem4[];
   float* s_buf = reinterpret_cast<float*>(smem4);  // [G][kpc] scores, then P
   float* o_w = s_buf + G * kpc;                    // [kWarps][G][HD]
-  float* red = o_w + kWarps * G * HD;  // [4][G]: local max, -, m_safe, denom
+  float* red = o_w + kWarps * G * HD;  // [4][G]: local max, m, m_safe, denom
   float* run_den = red + 4 * G;        // [kpc / kRun][G]: each run's sum
   int* bt_s = reinterpret_cast<int*>(run_den + (kpc / kRun) * G);  // pages
 
@@ -342,6 +346,7 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
     float m = -INFINITY;
     for (int r = 0; r < nsplit; ++r)
       m = fmaxf(m, cluster.map_shared_rank(red, r)[threadIdx.x]);
+    red[G + threadIdx.x] = m;
     red[2 * G + threadIdx.x] = isfinite(m) ? m : 0.f;
   }
   __syncthreads();
@@ -372,6 +377,13 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
                                                  threadIdx.x];
     }
     red[3 * G + threadIdx.x] = fmaxf(den, 1e-30f);
+    // the row's log-sum-exp: the max key's term is exp(0) = 1, so den >= 1
+    // wherever m is finite
+    if (lse != nullptr && rank == 0) {
+      const float m = red[G + threadIdx.x];
+      lse[(size_t)b * H + kvh * G + threadIdx.x] =
+          isfinite(m) ? m + logf(den) : -INFINITY;
+    }
   }
   __syncthreads();
   for (int t = threadIdx.x; t < G * kpc; t += kThreads) {
@@ -442,7 +454,7 @@ paged_decode_split(const float* __restrict__ q, const T* __restrict__ k_pool,
 template <int G, int VEC, typename T>
 int launch(const float* q, const T* k_pool, const T* v_pool,
            const int* ppos, const int* bt, const int* pos, float* out,
-           float* ws, int B,
+           float* ws, float* lse, int B,
            int KVH, int psz, int P, int n_split, int kpc, int smem,
            int min_page, float scale, float scale_over_cap, float cap,
            int window, int fmt, int approx, cudaStream_t stream) {
@@ -468,8 +480,8 @@ int launch(const float* q, const T* k_pool, const T* v_pool,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kern, q, k_pool, v_pool, ppos, bt, pos, out, ws,
-                         KVH, psz, P, kpc, min_page, scale, scale_over_cap, cap,
-                         window, fmt, approx);
+                         lse, KVH, psz, P, kpc, min_page, scale, scale_over_cap,
+                         cap, window, fmt, approx);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -497,10 +509,11 @@ using Pool = float;
 // `min_page` is the lowest page id the kernel reads: 1 for the pool, whose
 // page 0 is the trash page, 0 for dense rows presented as a pool. `ws` is
 // the runs' P.V workspace: B * KVH * n_split * (kpc / 64) * g * hd fp32.
+// `lse`, null or B * KVH * g fp32: each query row's log-sum-exp.
 extern "C" int paged_decode_launch(const void* q, const void* k_pool,
                                    const void* v_pool, const void* ppos,
                                    const void* bt, const void* pos, void* out,
-                                   void* ws,
+                                   void* ws, void* lse,
                                    int B, int KVH, int g, int hd, int psz,
                                    int P, int n_split, int kpc, int smem,
                                    int min_page, float scale,
@@ -521,12 +534,14 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
   const int* ps = static_cast<const int*>(pos);
   float* of = static_cast<float*>(out);
   float* wsf = static_cast<float*>(ws);
+  float* lsef = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_CASE(G_, VEC_)                                              \
   if (g == G_ && hd == 32 * VEC_)                                         \
     return launch<G_, VEC_>(qf, static_cast<const Pool*>(k_pool),         \
                             static_cast<const Pool*>(v_pool), pp, btp, ps, \
-                            of, wsf, B, KVH, psz, P, n_split, kpc, smem,   \
+                            of, wsf, lsef, B, KVH, psz, P, n_split, kpc,   \
+                            smem,                                          \
                             min_page, scale, scale_over_cap, cap, window,  \
                             fmt, approx, s);
 #define REPRO_G(G_) \

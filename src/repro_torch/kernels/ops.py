@@ -92,11 +92,15 @@ def skewed_datapath_matmul(a, w, fmt_name: str = "bf16",
 
 def counts() -> dict[str, dict[str, int]]:
     """Launches and plain calls per kernel; `sa_matmul_bwd` counts the SA
-    GEMM's backward GEMMs (dA and dW) apart from its forward."""
+    GEMM's backward GEMMs (dA and dW) apart from its forward, and
+    `paged_decode_lse` those of paged decode's launches and plain calls
+    that also gave the log-sum-exp (counted in `paged_decode` too)."""
     out = {name: {"launches": m.LAUNCHES, "plain_calls": m.PLAIN_CALLS}
            for name, m in _MODULES.items()}
     out["sa_matmul_bwd"] = {"launches": _mm.BWD_LAUNCHES,
                             "plain_calls": _mm.BWD_PLAIN_CALLS}
+    out["paged_decode_lse"] = {"launches": _decode.LSE_LAUNCHES,
+                               "plain_calls": _decode.LSE_PLAIN_CALLS}
     return out
 
 
@@ -144,6 +148,8 @@ def reset_counts():
     _mm.BWD_LAUNCHES = 0
     _mm.BWD_PLAIN_CALLS = 0
     _mm.OPERAND_COPIES = 0
+    _decode.LSE_LAUNCHES = 0
+    _decode.LSE_PLAIN_CALLS = 0
 
 
 __all__ = ["sa_matmul", "sa_matmul_fp8", "skewed_datapath_matmul",

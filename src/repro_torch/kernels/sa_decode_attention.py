@@ -58,6 +58,10 @@ from . import autotune
 LAUNCHES = 0       # kernel launches through `paged_decode_cuda`
 MODE_LAUNCHES = {"exact": 0, "approx": 0}   # the launches by policy mode
 PLAIN_CALLS = 0    # calls of the plain version `paged_decode_ref`
+# of those, the launches and plain calls that also gave the log-sum-exp
+# (`lse=True`: the rings split over `data`)
+LSE_LAUNCHES = 0
+LSE_PLAIN_CALLS = 0
 
 _SUPPORTED_INPUT_FORMATS = ("fp32", "bf16", "fp16")
 _FMT_CODE = {"fp32": 0, "bf16": 1, "fp16": 2}
@@ -78,21 +82,24 @@ def fused_decode_supported(policy) -> bool:
 
 def paged_decode_ref(q, k_pool, v_pool, page_positions, block_table, pos, *,
                      window: int = 0, cap: float = 0.0, scale=None,
-                     policy=None, min_page: int = 1):
+                     policy=None, min_page: int = 1, lse: bool = False):
     """Plain version: gather the slot's pages (those with an id of at least
-    `min_page`), then `decode_attention`."""
-    global PLAIN_CALLS
+    `min_page`), then `decode_attention`. `lse`: (out, lse (B, H) fp32),
+    each query row's log-sum-exp of its scaled scores, -inf where every
+    key is masked (`decode_attention(return_lse=True)`)."""
+    global PLAIN_CALLS, LSE_PLAIN_CALLS
     from repro_torch.core.precision import current_policy, use_policy
     from repro_torch.models.layers import (PagedKVCache, decode_attention,
                                            gather_pages)
 
     PLAIN_CALLS += 1
+    LSE_PLAIN_CALLS += int(lse)
     policy = policy or current_policy()
     k, v, kvp = gather_pages(PagedKVCache(k_pool, v_pool, page_positions,
                                           block_table), min_page=min_page)
     with use_policy(policy):
         return decode_attention(q, k, v, kvp, pos, window=window, cap=cap,
-                                scale=scale)
+                                scale=scale, return_lse=lse)
 
 
 WARPS = 8              # warps a block (csrc/sa_decode_attention.cu kWarps)
@@ -214,7 +221,7 @@ def launch_plan(q, k_pool, v_pool, block_table,
 def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
                       *, window: int = 0, cap: float = 0.0, scale=None,
                       policy=None, n_split: int | None = None,
-                      min_page: int = 1):
+                      min_page: int = 1, lse: bool = False):
     """Launch the paged decode kernel. q (B, 1, H, hd) fp32; pools
     (n_pages, psz, KVH, hd) fp32, bf16 or fp16 (both one type; a 16-bit
     pool is widened exactly, then cast in as an fp32 one); page_positions (n_pages, psz) int32;
@@ -224,8 +231,12 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
     `autotune.lookup_decode_attn`, keyed by the slot's shape and the
     pool's type, else the plan's own). `min_page` is
     the lowest page id read: 1 for the pool (page 0 is the trash page), 0
-    for a `dense_pool_view`."""
-    global LAUNCHES
+    for a `dense_pool_view`. `lse`: the kernel also writes each query
+    row's log-sum-exp (the row max plus the log of the exp-sum, -inf with
+    an output of zeros where every key is masked) and (out, lse (B, H)
+    fp32) is returned: the fold of a ring split over `data`
+    (`layers.fold_partials`)."""
+    global LAUNCHES, LSE_LAUNCHES
     from repro_torch.core.precision import current_policy
     from .build import check, function
 
@@ -260,27 +271,33 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
     out = torch.empty((B, 1, H, hd), dtype=torch.float32, device=q.device)
     ws = torch.empty(workspace_floats(B, KVH, g, hd, plan),
                      dtype=torch.float32, device=q.device)
+    lse_out = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+               if lse else None)
     fn = function(_POOL_LIBRARY[k_pool.dtype], "paged_decode_launch",
-                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              pp.data_ptr(), bt.data_ptr(), ps.data_ptr(), out.data_ptr(),
-             ws.data_ptr(), B, KVH, g, hd, psz, P, *plan, int(min_page), float(scale),
+             ws.data_ptr(), lse_out.data_ptr() if lse else None,
+             B, KVH, g, hd, psz, P, *plan, int(min_page), float(scale),
              float(scale / cap) if cap else 0.0, cap, int(window),
              _FMT_CODE[policy.input_format], int(policy.mode == "approx"),
              POOL_DTYPES[k_pool.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "paged_decode")
     LAUNCHES += 1
+    LSE_LAUNCHES += int(lse)
     MODE_LAUNCHES[policy.mode] += 1
-    return out
+    return (out, lse_out) if lse else out
 
 
 def error_bound(q, k_pool, v_pool, page_positions, block_table, pos, *,
-                window: int = 0, cap: float = 0.0, scale=None, policy=None):
+                window: int = 0, cap: float = 0.0, scale=None, policy=None,
+                folded: bool = False, min_page: int = 1):
     """Per-output bound on |kernel − plain| (B, 1, H, hd), from the plain
-    version's own terms.
+    version's own terms (the pages of an id of at least `min_page`, as
+    `paged_decode_ref` reads them).
 
     Both normalize with the full row max before P is rounded to the input
     format, so with p the exact softmax weights each side's weight lies in
@@ -290,7 +307,17 @@ def error_bound(q, k_pool, v_pool, page_positions, block_table, pos, *,
     the format where a rounding boundary falls inside. Then
     |Δo_d| ≤ Σ_j D_j·|v_jd| + (2·S·2⁻²⁴ + approx 2⁻²⁰)·Σ_j p_j·|v_jd| (the
     fp32 P·V sums in two orders, the output's truncation quantum). The
-    leading 2 of the returned bound covers the second-order terms."""
+    leading 2 of the returned bound covers the second-order terms.
+
+    `folded`: the bound on a fold of partial attentions over disjoint key
+    rows (`layers.fold_partials`, two parts) against the kernel over all
+    of them. A part normalizes its weights by its own exp-sum before they
+    are rounded to the input format, so a weight may differ from the
+    whole's by the two roundings, 2u·p_j (u the format's unit roundoff:
+    2⁻⁸ bf16, 2⁻¹¹ fp16, 0 fp32), where that exceeds D_j; and the fold's
+    fp32 steps (the weights exp(lse_r − lse) from log-sum-exps of size
+    |lse|, then two parts added) add (8·(1 + |lse|) + 4)·2⁻²⁴·Σ_j
+    p_j·|v_jd|."""
     from repro_torch.core.precision import current_policy
     from repro_torch.models.layers import PagedKVCache, gather_pages
 
@@ -303,7 +330,7 @@ def error_bound(q, k_pool, v_pool, page_positions, block_table, pos, *,
     g = H // KVH
     scale = scale or hd ** -0.5
     k, v, kvp = gather_pages(PagedKVCache(k_pool, v_pool, page_positions,
-                                          block_table))
+                                          block_table), min_page=min_page)
     S = k.shape[1]
     f64 = torch.float64
     qc = policy.cast_in(q).to(f64).reshape(B, KVH, g, hd)
@@ -322,7 +349,64 @@ def error_bound(q, k_pool, v_pool, page_positions, block_table, pos, *,
 
     d_p = rnd(p * (1 + eps)) - rnd(p * (1 - eps))
     va = vc.abs()
+    rel = 2 * S * 2.0 ** -24 + (2.0 ** -20 if approx else 0.0)
+    if folded:
+        u = {"bf16": 2.0 ** -8, "fp16": 2.0 ** -11}.get(
+            policy.input_format, 0.0)
+        d_p = torch.maximum(d_p, 2 * u * p * (1 + eps))
+        lse = _exact_lse(qc, kc, ok, scale, cap)              # (B, KVH, g)
+        rel = rel + (8 * (1 + lse.abs()[..., None]) + 4) * 2.0 ** -24
     bound = (torch.einsum("bhgs,bshd->bhgd", d_p, va)
-             + (2 * S * 2.0 ** -24 + (2.0 ** -20 if approx else 0.0))
-             * torch.einsum("bhgs,bshd->bhgd", p, va))
+             + rel * torch.einsum("bhgs,bshd->bhgd", p, va))
     return (2 * bound).reshape(B, 1, H, hd).to(torch.float32) + 1e-30
+
+
+def _exact_lse(qc, kc, ok, scale, cap):
+    """The exact (fp64) log-sum-exp of each query row's scaled scores over
+    its unmasked keys, 0 where every key is masked: qc (B, KVH, g, hd), kc
+    (B, S, KVH, hd) cast in, ok (B, S)."""
+    s = torch.einsum("bhgd,bshd->bhgs", qc, kc)
+    s = cap * torch.tanh(s * (scale / cap)) if cap else s * scale
+    s = torch.where(ok[:, None, None, :], s, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(torch.isfinite(lse), lse, 0.0)
+
+
+def lse_error_bound(q, k_pool, v_pool, page_positions, block_table, pos, *,
+                    window: int = 0, cap: float = 0.0, scale=None,
+                    policy=None, min_page: int = 1):
+    """Bound on |kernel − plain| of the log-sum-exp output, (B, H). Each
+    side's lse is m + log Σ_j exp(s_j − m) from its own fp32 scores: the
+    scores' and the exp-sum's errors move it by at most the relative
+    error `eps` of the weights (`sa_attention.softmax_error_terms`), the
+    log and the add by a few ulp of |lse|, so the sides differ by at most
+    2·(eps + 2⁻²¹·(1 + |lse|)). A row whose keys are all masked gives -inf
+    on both sides (bound 0)."""
+    from repro_torch.core.precision import current_policy
+    from repro_torch.models.layers import PagedKVCache, gather_pages
+
+    from .sa_attention import softmax_error_terms
+
+    policy = policy or current_policy()
+    B, _, H, hd = q.shape
+    KVH = k_pool.shape[2]
+    g = H // KVH
+    scale = scale or hd ** -0.5
+    k, _, kvp = gather_pages(PagedKVCache(k_pool, v_pool, page_positions,
+                                          block_table), min_page=min_page)
+    f64 = torch.float64
+    qc = policy.cast_in(q).to(f64).reshape(B, KVH, g, hd)
+    kc = policy.cast_in(k).to(f64)
+    pos = pos.reshape(B, 1)
+    ok = (kvp >= 0) & (kvp <= pos)
+    if window:
+        ok &= kvp > pos - window
+    s_raw = torch.einsum("bhgd,bshd->bhgs", qc, kc)
+    a_abs = torch.einsum("bhgd,bshd->bhgs", qc.abs(), kc.abs())
+    _, eps = softmax_error_terms(s_raw, a_abs, ok[:, None, None, :], hd=hd,
+                                 scale=scale, cap=cap,
+                                 approx=policy.mode == "approx")
+    lse = _exact_lse(qc, kc, ok, scale, cap)
+    bound = 2 * (eps[..., 0] + 2.0 ** -21 * (1 + lse.abs()))
+    bound = torch.where(ok.any(-1)[:, None, None], bound, 0.0)
+    return bound.reshape(B, H).to(torch.float32)

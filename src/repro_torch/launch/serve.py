@@ -68,28 +68,37 @@ another on the same weights; the `[replicas xN]` line aggregates them.
 Under torchrun (or any launcher that sets the torch.distributed
 environment) the world becomes a ("data", "model") mesh with
 `--model-parallel` ranks innermost (`parallel.mesh.make_host_mesh`, as
-the train driver builds it), and every family serves tensor-parallel on
-the `model` axis (a MoE layer's experts split over the ranks where the
-axis divides them, else each expert's columns, the dropless dispatch on
-the rank's experts; a Mamba2 mixer's projections on the rank's pieces,
-its conv and SSD whole on every rank; the frontend archs' static waves
-on the same seeded frames or patches on every rank; the logits gathered
-whole):
+the train driver builds it). Every family serves tensor-parallel on the
+`model` axis (a MoE layer's experts split over the ranks where the axis
+divides them, else each expert's columns, the dropless dispatch on the
+rank's experts; a Mamba2 mixer's projections on the rank's pieces, its
+conv and SSD whole on every rank; the frontend archs' static waves on the
+same seeded frames or patches on every rank; the logits gathered whole)
+and data-parallel on the `data` axis (`serve/engine.py`: where the axis
+divides `--batch` each data rank serves its own slots from its own range
+of the pool's pages, one page allocator a data shard; where it does not,
+every slot's ring rows split over `data`, which needs `--kv ring`):
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch qwen2.5-14b --reduced --device cpu --model-parallel 2 \
         --batch 2 --requests 4 --max-new 8 --prompt-lens 6,10 --rate 0
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch qwen2.5-14b --reduced --device cpu --model-parallel 1 \
+        --batch 1 --requests 2 --max-new 8 --prompt-lens 40 --kv ring \
+        --cache-len 64 --rate 0
 
 Every rank draws its shards of the `--seed` weights (`init_params(...,
 mesh=)`: the one-process model), its caches hold its KV heads (padded
-to a multiple of the axis where it does not divide them), and every
-rank runs the same host loop on rank 0's clock. Rank 0 prints the
-`[mesh] backend=... world=... data=... model=... device=...` line first
-and the summary lines; every rank ends with one line `[rank r]
-stream_digest=... peak_mem_gib=... sa_matmul_launches=...
-decode_attn_launches=... prefill_attn_launches=... plain_calls=...`.
-Refused under a mesh: a `data` axis above 1 (the pool's pages would
-shard over it; any family), `--model-parallel` N > 1 without a launcher,
+to a multiple of the axis where it does not divide them) and its data
+shard, and every rank runs the same host loop on rank 0's clock. Rank 0
+prints the `[mesh] backend=... world=... data=... model=... device=...`
+line first and the summary lines; every rank ends with one line `[rank
+r] data=... slots=... pages=... stream_digest=... peak_mem_gib=...
+sa_matmul_launches=... decode_attn_launches=... prefill_attn_launches=...
+plain_calls=...` (its data coordinate, the slots it decodes, and the
+global ids of its pages with the most it leased at once). Refused under a
+mesh: a paged pool where the data axis does not divide `--batch`
+(`model.check_parallel`), `--model-parallel` N > 1 without a launcher,
 `--decode-replicas`, `--autotune-decode` and `--spec-warmup`. `--layers
 N` cuts the config's depth (a full-width model cut in depth).
 """
@@ -446,7 +455,8 @@ def serve_static(args, cfg, params, plens, device):
     token arrays, engine)."""
     engine = ServeEngine(cfg, params, args.batch, args.cache_len,
                          eos_id=args.eos_id, sync_every=args.sync_every,
-                         page_size=args.page_size, device=device)
+                         kv_layout="ring", page_size=args.page_size,
+                         device=device)
     served = n_real = nonfinite = 0
     prefill_s = decode_s = 0.0
     outs, streams, itls = [], [], []
@@ -588,7 +598,10 @@ def _serve_mesh(args, cfg, device):
     if mesh is None:
         return None, device
     dp, mp = mesh.shape
-    M.check_parallel(cfg, mp, dp, serving=True)
+    static = cfg.family == "vlm" or cfg.is_encdec    # `generate()`'s rings
+    M.check_parallel(cfg, mp, dp, serving=True, batch=args.batch,
+                     kv_layout="ring" if static
+                     else args.kv or optflags.kv_layout())
     for flag, on in (("--decode-replicas", args.decode_replicas > 1),
                      ("--autotune-decode", args.autotune_decode),
                      ("--spec-warmup", args.spec_warmup > 0)):
@@ -597,9 +610,11 @@ def _serve_mesh(args, cfg, device):
     return mesh, PM.rank_device(device)
 
 
-def rank_line(summary, device) -> str:
-    """This rank's closing line: its digest, peak memory and each served
-    kernel's launches (`ops.counts()`, this process's)."""
+def rank_line(summary, device, engine=None) -> str:
+    """This rank's closing line: its data coordinate, the slots it decodes
+    and its pages (the global ids of its shard of the pool, and the most
+    of them leased at once; n/a on rings), its digest, peak memory and
+    each served kernel's launches (`ops.counts()`, this process's)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ops
@@ -607,7 +622,19 @@ def rank_line(summary, device) -> str:
     c = ops.counts()
     peak = (f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f}"
             if device.type == "cuda" else "n/a")
-    return (f"[rank {dist.get_rank()}] stream_digest="
+    where = ""
+    if engine is not None:
+        pages = "n/a"
+        by_shard = summary.get("pages_peak_by_shard")
+        if engine.kv_layout == "paged" and "pages_total" in summary:
+            n = engine.pool_pages // engine.dp
+            peak_p = (by_shard[engine.dp_rank] if by_shard
+                      else summary.get("pages_peak_in_use"))
+            pages = (f"{engine.page_base}-{engine.page_base + n - 1}"
+                     f":peak{peak_p}")
+        where = (f"data={engine.dp_rank} slots={engine.slot0}-"
+                 f"{engine.slot0 + engine.rows - 1} pages={pages} ")
+    return (f"[rank {dist.get_rank()}] {where}stream_digest="
             f"{summary.get('stream_digest')} peak_mem_gib={peak} "
             f"sa_matmul_launches={c['sa_matmul']['launches']} "
             f"decode_attn_launches={c['paged_decode']['launches']} "
@@ -648,7 +675,7 @@ def main(argv=None, *, return_state: bool = False, params=None):
         io.StringIO())
     with S.using_mesh(mesh), out:
         state = _serve(args, cfg, device, params, True)
-    say(rank_line(state[0], device))
+    say(rank_line(state[0], device, state[2]))
     return state if return_state else state[0]
 
 

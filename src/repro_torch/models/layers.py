@@ -197,11 +197,15 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, cap=0.0,
 
 
 def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window=0,
-                     cap=0.0, scale=None):
+                     cap=0.0, scale=None, return_lse: bool = False):
     """Single-token attention against a per-slot cache.
 
     q: (B, 1, H, hd); caches: (B, S, KVH, hd); kv_positions: (B, S) token
-    position per cache row (-1 = empty); pos: (B,) per-slot position."""
+    position per cache row (-1 = empty); pos: (B,) per-slot position.
+    `return_lse`: also each query row's log-sum-exp of its scaled scores,
+    (B, H) fp32 (-inf, and an output of zeros, where every row is
+    masked), so partial attentions over disjoint rows fold into the
+    whole one (`fold_partials`)."""
     B, _, H, hd = q.shape
     S, KVH = k_cache.shape[1], k_cache.shape[2]
     g = H // KVH
@@ -221,9 +225,32 @@ def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window=0,
     m = s.amax(dim=-1)
     m_safe = torch.where(torch.isfinite(m), m, 0.0)
     p = torch.exp(s - m_safe[..., None])
-    p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    den = p.sum(dim=-1, keepdim=True)
+    p = p / torch.clamp_min(den, 1e-30)
     out = sa_einsum("bhgk,bkhd->bhgd", p.to(q.dtype), v_cache)
-    return out.reshape(B, 1, H, hd)
+    if not return_lse:
+        return out.reshape(B, 1, H, hd)
+    lse = torch.where(torch.isfinite(m), m + torch.log(den[..., 0]),
+                      float("-inf"))
+    return out.reshape(B, 1, H, hd), lse.reshape(B, H)
+
+
+def fold_partials(o, lse):
+    """Attention over disjoint sets of key rows folded into the attention
+    over all of them: o (R, N, 1, H, hd) and lse (R, N, H) fp32 of R
+    parts → o (N, 1, H, hd) = Σ_r exp(lse_r − lse)·o_r in part order,
+    lse the log-sum-exp of the lse_r. A part whose rows are all masked
+    (lse_r = -inf) weighs 0; where every part is, the output is zeros, as
+    one `decode_attention` over the masked rows gives."""
+    m = lse.amax(0)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    total = m_safe + torch.log(torch.exp(lse - m_safe).sum(0))
+    total = torch.where(torch.isfinite(total), total, 0.0)
+    w = torch.exp(lse - total)                          # (R, N, H)
+    out = w[0, :, None, :, None] * o[0]
+    for r in range(1, o.shape[0]):
+        out = out + w[r, :, None, :, None] * o[r]
+    return out
 
 
 class KVCache(NamedTuple):
@@ -259,6 +286,51 @@ def gather_pages(cache: PagedKVCache, min_page: int = 1):
     pos = torch.where(mapped, cache.positions[safe], -1)
     return (k.reshape(B, P * psz, *kvhd), v.reshape(B, P * psz, *kvhd),
             pos.reshape(B, P * psz))
+
+
+# the decode steps' rings hold this data rank's block of R/D rows of
+# every slot (`seq_sharded`: the engine's layout where the `data` axis does
+# not divide the batch)
+_SEQ_SHARDED = False
+
+
+class seq_sharded:
+    """Run the decode steps in a block over rings whose rows split over the
+    active mesh's `data` axis (`on`; a no-op otherwise): data rank r holds
+    rows [r·R/D, (r + 1)·R/D) of every slot's ring of R rows, writes a
+    step's K/V only where it holds row pos % R, and the ranks' partial
+    attentions are folded by their log-sum-exps (`_ring_decode_split`)."""
+
+    def __init__(self, on: bool = True):
+        self.on = bool(on)
+
+    def __enter__(self):
+        global _SEQ_SHARDED
+        self.prev, _SEQ_SHARDED = _SEQ_SHARDED, self.on or _SEQ_SHARDED
+        return self
+
+    def __exit__(self, *exc):
+        global _SEQ_SHARDED
+        _SEQ_SHARDED = self.prev
+
+
+def _rank_pool(cache: "PagedKVCache", batch: int) -> "PagedKVCache":
+    """A pool as this data rank's decode reads it. Under a `data` axis of
+    D > 1 ranks the pool holds the rank's shard of the pages (global ids
+    [r·n, (r + 1)·n) for n local pages) beside the whole block table of
+    the D·`batch` slots: the rank's `batch` rows of the table, each id
+    made relative to its first page (-1 where unmapped). The same cache
+    in one process."""
+    from repro_torch.parallel import sharding as S
+
+    dp = S.axis_count("data")
+    bt = cache.block_table
+    if dp == 1 or bt.shape[0] != dp * batch:
+        return cache
+    r = S.axis_index("data")
+    bt = bt[r * batch:(r + 1) * batch]
+    base = r * cache.k.shape[0]
+    return cache._replace(block_table=torch.where(bt >= 0, bt - base, -1))
 
 
 def tp_context():
@@ -529,17 +601,22 @@ def _decode_attend(q, k, v, cache, positions, window: int, cap: float,
     def rows(t):
         return t if T == 1 else torch.repeat_interleave(t, T, dim=0)
 
-    def attend_dense(k_d, v_d, pos_d, psz, block_table=None):
+    def attend_dense(k_d, v_d, pos_d, psz, block_table=None, lse=False):
         if not dense_kernel:
             return decode_attention(qf, rows(k_d), rows(v_d), rows(pos_d),
-                                    posf, window=window, cap=cap)
+                                    posf, window=window, cap=cap,
+                                    return_lse=lse)
         kp, vp, pp, table = dense_pool_view(k_d, v_d, pos_d, psz,
                                             block_table)
         return ops.paged_decode_attention(qf, kp, vp, pp, rows(table), posf,
                                           window=window, cap=cap,
-                                          min_page=0)
+                                          min_page=0, lse=lse)
 
+    if _SEQ_SHARDED and isinstance(cache, KVCache):
+        return _ring_decode_split(k, v, cache, tpos, page_size,
+                                  attend_dense).reshape(B, T, H, hd)
     if isinstance(cache, PagedKVCache):
+        cache = _rank_pool(cache, B)
         _paged_write(cache, k, v, tpos)
         # attention over the slot's mapped pages: the hand kernel walks the
         # block table (default; on the card it raises for a policy it cannot
@@ -560,6 +637,42 @@ def _decode_attend(q, k, v, cache, positions, window: int, cap: float,
         cache.positions[b, slot] = tpos                       # in place
         o = attend_dense(cache.k, cache.v, cache.positions, page_size)
     return o.reshape(B, T, H, hd)
+
+
+def _ring_decode_split(k, v, cache: KVCache, tpos, page_size: int,
+                       attend_dense):
+    """The decode step over rings whose rows split over `data`
+    (`seq_sharded`): this rank's cache holds rows [r·n, (r + 1)·n) of each
+    slot's ring of D·n rows. Row t of slot b writes its K/V where this
+    rank holds ring row pos % (D·n) (in place; the other ranks keep
+    theirs), every rank attends over its own rows with the log-sum-exp
+    output (on the card the decode kernel's over the rows as pages), and
+    the ranks' (out, lse) are gathered over `data` in one all-gather and
+    folded (`fold_partials`): every rank the same bits."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding as S
+
+    B, T = tpos.shape
+    n = cache.k.shape[1]
+    dp, r = S.axis_count("data"), S.axis_index("data")
+    row = tpos.long() % (dp * n)
+    mine = (row // n) == r
+    loc = row % n
+    b = torch.arange(B, device=k.device)[:, None]
+    held = mine[..., None, None]
+    cache.k[b, loc] = torch.where(held, k.to(cache.k.dtype),
+                                  cache.k[b, loc])          # in place
+    cache.v[b, loc] = torch.where(held, v.to(cache.v.dtype),
+                                  cache.v[b, loc])          # in place
+    cache.positions[b, loc] = torch.where(mine, tpos,
+                                          cache.positions[b, loc])
+    o, lse = attend_dense(cache.k, cache.v, cache.positions, page_size,
+                          lse=True)
+    N, _, H, hd = o.shape
+    both = torch.cat([o.reshape(N, H * hd).to(torch.float32), lse], dim=1)
+    every = C.all_gather(both[None], 0, S.axis_group("data"))
+    return fold_partials(every[..., :H * hd].reshape(dp, N, 1, H, hd),
+                         every[..., H * hd:])
 
 
 def attention_block(x, p, cfg, meta, positions, cache=None,

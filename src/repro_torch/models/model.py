@@ -54,7 +54,8 @@ def check_supported(cfg: ArchConfig):
 
 
 def check_parallel(cfg: ArchConfig, model_parallel: int,
-                   data_parallel: int = 1, serving: bool = False):
+                   data_parallel: int = 1, serving: bool = False,
+                   batch: int | None = None, kv_layout: str | None = None):
     """Refuse what the mesh does not cover yet. Tensor parallelism covers
     every family at any `model_parallel`: dense, MoE (the MoE layer by
     expert parallelism where the axis divides the experts, else tensor
@@ -70,15 +71,24 @@ def check_parallel(cfg: ArchConfig, model_parallel: int,
     `data`: the capacity dispatch takes each expert's top C tokens within
     each batch row, so that moves no token, and only `load_balance` needs
     the global batch's statistics, which `moe.router` sums over `data`.
-    Serving (`serving`) covers the `model` axis only: a data axis above 1
-    would shard the page pool's pages across ranks, so a slot's pages
-    could sit on any data shard, and needs a design of its own (ROADMAP
-    7b; an FSDP config's leaves are whole over a data axis of 1)."""
-    if serving and data_parallel > 1:
-        raise ValueError(f"{cfg.name}: serving over a data axis of "
-                         f"{data_parallel} (the pool's pages sharded over "
-                         f"data, ROADMAP 7b) is not ported; serve on the "
-                         f"model axis")
+    Serving (`serving`) covers both axes, every family: where the data
+    axis divides `batch` a data rank serves its own slots, with its own
+    range of the pool's pages and one page allocator a data shard
+    (`serve/engine.py`); where it does not (the batch-1 long-context
+    case), every slot's ring rows split over `data` and the ranks' partial
+    attentions are folded by their log-sum-exps. A paged pool there
+    (`kv_layout` "paged" for a stack with KV to page) is refused: its
+    pages would have to split a slot's sequence across ranks. An FSDP
+    config serves with its leaves cut over `data`, gathered a layer at a
+    time as in training."""
+    if (serving and data_parallel > 1 and batch is not None
+            and batch % data_parallel and kv_layout == "paged"
+            and cfg.family != "ssm"):
+        raise ValueError(f"{cfg.name}: a paged pool at batch {batch} over a "
+                         f"data axis of {data_parallel} (the batch does not "
+                         f"split over data, so each slot's sequence would) "
+                         f"is not ported; serve it with --kv ring, whose "
+                         f"rows split over data")
 
 
 @functools.lru_cache(maxsize=16)
@@ -406,7 +416,7 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                dtype=torch.bfloat16, device=None,
                paged: tuple[int, int] | None = None,
                local_rows: int | None = None, kv_pad_to: int = 1,
-               kv_shards: int = 1):
+               kv_shards: int = 1, data_shards: int = 1):
     """Stacked per-layer cache, leaves with the superblock index on axis 0
     and (dense) the batch slot on axis 1. A local-window layer gets a
     dense ring of min(window, seq_len) rows.
@@ -442,7 +452,16 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     `window`, and makes it a ring whatever `seq_len`: the serve engine's
     rings under speculative decoding, `window + spec_k` rounded up to a
     page, so a verify's writes never land on a row a live window still
-    reads (ROADMAP F6)."""
+    reads (ROADMAP F6).
+
+    `data_shards`: the leaves hold one rank's share over a `data` axis of
+    that many ranks, the shapes `shard_leaf` cuts by `cache_specs`: where
+    it divides `batch`, every per-slot leaf (rings, SSM states and tails,
+    the cross leaves) holds batch / data_shards slots and a pool n_pages /
+    data_shards pages beside the whole block table; where it does not,
+    every ring's rows (and the cross leaves' where they divide) split into
+    data_shards blocks, the SSM states whole. The SSM states stay whole
+    over `model` (above)."""
     check_supported(cfg)
     dev = resolve_device(device)
     period = cfg.stack_period
@@ -452,6 +471,16 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
         raise ValueError(f"{cfg.name}: {kvh} KV heads do not split over "
                          f"{kv_shards} ranks (pad them: kv_pad_to)")
     kvh //= kv_shards
+    by_slot = batch % data_shards == 0
+    rows_b = batch // data_shards if by_slot else batch   # per-slot leaves
+
+    def seq_rows(n):      # a ring's rows on this rank
+        if by_slot:
+            return n
+        if n % data_shards:
+            raise ValueError(f"{cfg.name}: a ring of {n} rows does not split "
+                             f"over {data_shards} data ranks")
+        return n // data_shards
 
     def full(shape, fill, dt):
         return torch.full(shape, fill, dtype=dt, device=dev)
@@ -461,6 +490,11 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                  and (cfg.window < seq_len or local_rows))
         if paged is not None and not local:
             n_pages, psz = paged
+            if not by_slot or n_pages % data_shards:
+                raise ValueError(f"{cfg.name}: a pool of {n_pages} pages at "
+                                 f"batch {batch} does not split over "
+                                 f"{data_shards} data ranks")
+            n_pages //= data_shards
             max_pages = -(-seq_len // psz)
             return PagedKVCache(
                 k=full((n_super, n_pages, psz, kvh, hd), 0, dtype),
@@ -468,26 +502,30 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                 positions=full((n_super, n_pages, psz), -1, torch.int32),
                 block_table=full((n_super, batch, max_pages), -1,
                                  torch.int32))
-        S = (local_rows or cfg.window) if local else seq_len
+        S = seq_rows((local_rows or cfg.window) if local else seq_len)
         return KVCache(
-            k=full((n_super, batch, S, kvh, hd), 0, dtype),
-            v=full((n_super, batch, S, kvh, hd), 0, dtype),
-            positions=full((n_super, batch, S), -1, torch.int32))
+            k=full((n_super, rows_b, S, kvh, hd), 0, dtype),
+            v=full((n_super, rows_b, S, kvh, hd), 0, dtype),
+            positions=full((n_super, rows_b, S), -1, torch.int32))
 
     def layer_cache(j):
         c = {} if cfg.family == "ssm" else {"kv": kv_cache(j)}
         if has_ssm(cfg):
             c["ssm"] = (
-                full((n_super, batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                full((n_super, rows_b, cfg.n_ssm_heads, cfg.ssm_head_dim,
                       cfg.ssm_state), 0, torch.float32),
-                full((n_super, batch, 3, cfg.d_inner + 2 * cfg.ssm_state),
+                full((n_super, rows_b, 3, cfg.d_inner + 2 * cfg.ssm_state),
                      0, dtype))
         if cfg.is_encdec:
             ft = cfg.frontend_tokens
+            if not by_slot and ft % data_shards == 0:
+                ft //= data_shards
             c["cross"] = KVCache(
-                k=full((n_super, batch, ft, cfg.num_kv_heads, hd), 0, dtype),
-                v=full((n_super, batch, ft, cfg.num_kv_heads, hd), 0, dtype),
-                positions=full((n_super, batch, ft), -1, torch.int32))
+                k=full((n_super, rows_b, ft, cfg.num_kv_heads, hd), 0,
+                       dtype),
+                v=full((n_super, rows_b, ft, cfg.num_kv_heads, hd), 0,
+                       dtype),
+                positions=full((n_super, rows_b, ft), -1, torch.int32))
         return c
 
     return tuple(layer_cache(j) for j in range(period))

@@ -99,6 +99,52 @@
   disagg handoff scatters it as it is: the JAX engine's
   `reshard_handoff` before the scatter has nothing to move here.
 
+* **Data parallelism** (a mesh whose `data` axis has D > 1 ranks; every
+  family, beside any `model` axis), the layout of `sharding.cache_specs`:
+  - where D divides the batch, data rank r serves the slots [r·B/D,
+    (r + 1)·B/D): it holds only their ring rows, SSM states, conv tails,
+    token and position vectors (`init_cache(data_shards=)`), decodes only
+    them, and a paged pool holds its shard's P/D pages, the block table
+    whole with the pool's global page ids (each rank's layers read its
+    own rows of it, relative to its first page). One `PageAllocator` a
+    data shard (`ShardedPageAllocator`): a slot's pages come only from
+    its shard's range, each shard's own first page its trash page, so
+    every slot's attention stays on its own rank (no collective in the
+    decode step; the decode kernel's plan and F9's runs as in one
+    process). The pool is sized D·(⌈(B/D)·cache_len/page⌉ + 1) pages,
+    where the JAX package's `pool_pages_for` rounds B·cache_len/page + 1
+    up to a multiple of D: each shard keeps its own trash page. A prefill
+    runs on the ranks of the owning data coordinate only, so a fragment is
+    born on the rank that scatters it (the JAX fragment is replicated
+    over `data`; the contents are equal), its first token broadcast over
+    `data`; under FSDP (`cfg.fsdp`) every data rank runs every prefill,
+    since each forward gathers the layers' weights over `data`. After
+    each decode chunk (and spec verify) the ranks all-gather their slots'
+    tokens (and accepted counts) over `data`, so every rank's replicated
+    `SlotScheduler` sees the whole chunk and admits alike. The prefix
+    cache is per shard; the prefill pool stages a request in the shard
+    `SlotScheduler.begin_prefill` picks, and a free slot binds the oldest
+    ready request of its own shard. `generate()` serves the rank's rows
+    of the static batch and gathers the tokens. Sampling (`greedy=False`)
+    draws one uniform a slot from the shared generator: every rank draws
+    the whole batch's and keeps its slots' (`_pick`), so a slot samples
+    with the number it takes in one process. A sampled token therefore
+    depends on its slot, and where the two-pool loop binds a request to
+    another slot than one process does, its sampled stream is another
+    sample (the same on every rank); greedy streams never move.
+  - where D does not divide the batch (the batch-1 long-context case),
+    the ring layout splits every slot's ring rows into D blocks of R/D
+    (`init_cache(data_shards=)`; on the card R/D whole pages). Tokens,
+    positions and the forward are replicated: every rank prefills the
+    prompt into a whole ring and keeps its block, writes a decode step's
+    K/V row only where it holds row pos % R, attends over its rows (the
+    decode kernel's log-sum-exp output) and folds the ranks' partial
+    attentions by their log-sum-exps (`layers.seq_sharded`). The SSM
+    state is replicated, as `cache_specs` has it. A paged pool is refused
+    there (`model.check_parallel`).
+  The summary's stream digest, request counts and page stats are global,
+  the same on every rank.
+
 Where the JAX engine donates the cache buffer to a jitted update, this
 engine updates the cache tensors in place (`_scatter_impl`, `_bind_impl`,
 `_insert_impl`, `_clear_slot_impl`, the decode step's KV write) and says
@@ -125,7 +171,7 @@ from repro_torch.parallel import sharding as S
 from repro_torch.train.step import (make_bucketed_prefill_step,
                                     make_draft_step, make_prefill_step,
                                     make_serve_step, make_verify_step)
-from .scheduler import PageAllocator, SlotScheduler
+from .scheduler import PageAllocator, ShardedPageAllocator, SlotScheduler
 
 
 def _round_up(x: int, m: int) -> int:
@@ -167,9 +213,12 @@ class ServeEngine:
                  disagg: bool | None = None, prefill_workers: int = 1,
                  bucket_prompts: bool | None = None, device=None):
         """Under the active mesh (`parallel.sharding.active_mesh`) the
-        engine serves on its `model` axis: `params` are this rank's shards
-        and every cache holds this rank's KV heads, padded to a multiple
-        of the axis's size (`init_cache(kv_pad_to=)`).
+        engine serves on its `model` and `data` axes: `params` are this
+        rank's shards, every cache holds this rank's KV heads, padded to a
+        multiple of the `model` axis's size (`init_cache(kv_pad_to=)`),
+        and this data rank's slots, or its block of every ring's rows
+        where the `data` axis does not divide `batch` (the module
+        docstring).
 
         `cache_len` is the per-request capacity of the ring layout and
         sizes the paged one's pool: by default it holds `batch · cache_len`
@@ -186,9 +235,24 @@ class ServeEngine:
         M.check_supported(cfg)
         self.mesh = S.active_mesh()
         self.tp = S.axis_count("model")
+        self.dp = S.axis_count("data")
+        self.dp_rank = S.axis_index("data")
+        # the batch-1 long-context layout: D does not divide the batch, so
+        # every ring's rows split over `data` and the forward is replicated
+        self.seq_split = batch % self.dp != 0
+        # the slots this rank decodes: [slot0, slot0 + rows)
+        self.rows = batch if self.seq_split else batch // self.dp
+        self.slot0 = 0 if self.seq_split else self.dp_rank * self.rows
+        kv_layout = kv_layout or optflags.kv_layout()
+        if kv_layout not in ("ring", "paged"):
+            raise ValueError(
+                f"REPRO_KV/kv_layout={kv_layout!r}; want 'ring' or 'paged'")
+        if cfg.family == "ssm":
+            kv_layout = "ring"   # no KV to page; the state is O(1) a slot
+        if self.tp > 1 or self.dp > 1:
+            M.check_parallel(cfg, self.tp, self.dp, serving=True,
+                             batch=batch, kv_layout=kv_layout)
         if self.tp > 1:
-            M.check_parallel(cfg, self.tp, S.axis_count("data"),
-                             serving=True)
             if padded_kvh(cfg.num_kv_heads, self.tp) % self.tp:
                 raise ValueError(
                     f"{cfg.name}: {cfg.num_kv_heads} KV heads do not split "
@@ -202,12 +266,6 @@ class ServeEngine:
         self.eos_id = eos_id
         self.cache_dtype = cache_dtype
         self.sync_every = max(1, int(sync_every))
-        kv_layout = kv_layout or optflags.kv_layout()
-        if kv_layout not in ("ring", "paged"):
-            raise ValueError(
-                f"REPRO_KV/kv_layout={kv_layout!r}; want 'ring' or 'paged'")
-        if cfg.family == "ssm":
-            kv_layout = "ring"   # no KV to page; the state is O(1) a slot
         self._disagg_arg = disagg
         self.prefill_workers = max(1, int(prefill_workers))
         self._bucket_arg = bucket_prompts
@@ -229,6 +287,10 @@ class ServeEngine:
         self.ring_len = (max(_round_up(cache_len, self.page_size),
                              self.max_seq_len)
                          if self.device.type == "cuda" else cache_len)
+        if self.seq_split:
+            # each data rank's block of a ring: R/D rows (whole pages on
+            # the card)
+            self.ring_len = _round_up(self.ring_len, self._ring_quantum())
         # local-window rings survive in the paged layout (bounded by the
         # window, they strand no capacity); a prefill fragment must carry
         # rings of the same length, so fragments, and the pages an
@@ -250,10 +312,16 @@ class ServeEngine:
                     f"split into pages of {self.page_size} rows for the "
                     f"decode kernel; take a page size that divides the "
                     f"window {cfg.window}")
+        # +1 a data shard: its reserved trash page (at D > 1 the JAX
+        # package's `pool_pages_for` rounds batch·cache_len/page + 1 up to
+        # a multiple of D instead; here each shard keeps its own)
         self.pool_pages = int(
             pool_pages
-            or _round_up(batch * cache_len, self.page_size) // self.page_size
-            + 1)                 # +1: the reserved trash page
+            or self.dp * (_round_up(self.rows * cache_len, self.page_size)
+                          // self.page_size + 1))
+        if kv_layout == "paged" and self.pool_pages % self.dp:
+            raise ValueError(f"a pool of {self.pool_pages} pages does not "
+                             f"split over {self.dp} data shards")
         self._prefills: dict[int, Any] = {}
         self._bucketed_prefills: dict[int, Any] = {}
         # distinct prefill shapes run: (prefix_len, T, bucketed), the
@@ -289,17 +357,34 @@ class ServeEngine:
         rank's share of them (every head in one process)."""
         return {"kv_pad_to": self.tp, "kv_shards": self.tp}
 
-    def new_cache(self, batch: int | None = None):
-        return M.init_cache(self.cfg, batch or self.batch, self.ring_len,
-                            dtype=self.cache_dtype, device=self.device,
-                            local_rows=self._local_rows(), **self._heads())
+    def _ring_quantum(self) -> int:
+        """What a ring's rows are rounded up to where they split over
+        `data`: D blocks of whole pages on the card (the decode kernel
+        walks a block as pages), D rows on the CPU."""
+        return self.dp * (self.page_size if self.device.type == "cuda"
+                          else 1)
+
+    def new_cache(self, batch: int | None = None, rows: int | None = None):
+        """The ring layout's serving cache: this rank's piece (its slots,
+        or its block of every ring's rows, `init_cache(data_shards=)`).
+        `batch` given: a whole cache of that many rows (a prefill fragment,
+        the probe's), on no data shard. `rows` overrides `ring_len`."""
+        return M.init_cache(self.cfg, batch or self.batch,
+                            rows or self.ring_len, dtype=self.cache_dtype,
+                            device=self.device,
+                            local_rows=self._local_rows(),
+                            data_shards=1 if batch else self.dp,
+                            **self._heads())
 
     def new_pool(self):
-        """Paged serve cache: global page pools + per-slot block tables."""
+        """Paged serve cache: page pools + per-slot block tables (this
+        data rank's shard of the pages, and of the dense rows, beside the
+        whole block table)."""
         return M.init_cache(self.cfg, self.batch, self.max_seq_len,
                             dtype=self.cache_dtype, device=self.device,
                             paged=(self.pool_pages, self.page_size),
-                            local_rows=self._local_rows(), **self._heads())
+                            local_rows=self._local_rows(),
+                            data_shards=self.dp, **self._heads())
 
     def new_frag(self, prompt_len: int):
         """Dense batch-1 prefill fragment: the prompt rounded up to whole
@@ -311,26 +396,67 @@ class ServeEngine:
                             local_rows=self._local_rows(), **self._heads())
 
     def _agreed_clock(self, clock):
-        """`clock` as every rank of the `model` axis reads it: rank 0's
-        reading, broadcast at each call (on the host over gloo, on the
-        card over nccl). Every admission, arrival wait and fast-forward of
-        `serve` reads it, so the ranks take the same decisions at the same
-        ticks and call their collectives in the same order. The clock
-        itself without a mesh."""
-        if self.tp == 1:
+        """`clock` as every rank of the mesh reads it: the reading of the
+        mesh's first rank (data 0, model 0), broadcast at each call over
+        the `data` axis, then over the `model` axis (on the host over
+        gloo, on the card over nccl). Every admission, arrival wait and
+        fast-forward of `serve` reads it, so the ranks take the same
+        decisions at the same ticks and call their collectives in the same
+        order. The clock itself without a mesh."""
+        if self.tp == 1 and self.dp == 1:
             return clock
         import torch.distributed as dist
 
-        group = S.axis_group("model")
-        src = dist.get_global_rank(group, 0)
-        dev = self.device if dist.get_backend(group) == "nccl" else "cpu"
+        groups = [S.axis_group(a) for a in ("data", "model")
+                  if S.axis_count(a) > 1]
+        dev = self.device if dist.get_backend(groups[0]) == "nccl" else "cpu"
 
         def agreed():
             t = torch.tensor([clock()], dtype=torch.float64, device=dev)
-            dist.broadcast(t, src=src, group=group)
+            for group in groups:
+                dist.broadcast(t, src=dist.get_global_rank(group, 0),
+                               group=group)
             return float(t)
 
         return agreed
+
+    def _shard_of(self, slot: int) -> int:
+        """The data coordinate that holds `slot`'s rows (every rank's own
+        where the rings split by rows)."""
+        return self.dp_rank if self.seq_split else slot // self.rows
+
+    def _over_data(self) -> bool:
+        """Whether the ranks of the `data` axis hold different slots."""
+        return self.dp > 1 and not self.seq_split
+
+    def _from_shard(self, value, shard: int):
+        """An int that data coordinate `shard` computed (None on the other
+        data ranks), on every rank: one broadcast over `data`."""
+        if not self._over_data():
+            return value
+        import torch.distributed as dist
+
+        group = S.axis_group("data")
+        dev = self.device if dist.get_backend(group) == "nccl" else "cpu"
+        t = torch.tensor([0 if value is None else int(value)],
+                         dtype=torch.int64, device=dev)
+        dist.broadcast(t, src=dist.get_global_rank(group, shard),
+                       group=group)
+        return int(t)
+
+    def _gather_rows(self, x, dim: int = 1):
+        """Every data rank's slots' `x` (its rows along `dim`) joined in
+        slot order: the whole batch's, on every rank."""
+        if not self._over_data():
+            return x
+        from repro_torch.parallel.collectives import all_gather
+        return all_gather(x, dim, S.axis_group("data"))
+
+    def _ring_split(self):
+        """The context the decode steps run in: the rings' rows split
+        over `data` (`layers.seq_sharded`) where the batch does not."""
+        from repro_torch.models.layers import seq_sharded
+        return seq_sharded(self.seq_split)
 
     def prefix_caching_on(self) -> bool:
         """Prefix sharing (REPRO_PREFIX_CACHE, default on) is sound only
@@ -389,20 +515,29 @@ class ServeEngine:
         raw = f"{self.cfg!r}|{self.cache_dtype}|{optflags.gemm_backend()}"
         return hashlib.sha1(raw.encode()).hexdigest()[:16]
 
-    def new_allocator(self) -> PageAllocator:
-        return PageAllocator(
-            self.pool_pages, self.page_size,
-            max_request_pages=self.max_pages,
-            min_request_tokens=self._frag_floor,
-            prefix_caching=self.prefix_caching_on(),
-            fingerprint=self._fingerprint())
+    def new_allocator(self) -> PageAllocator | ShardedPageAllocator:
+        """The pool's allocator: one `PageAllocator`, or one a data shard
+        (`ShardedPageAllocator`) where the slots split over `data`."""
+        kw = dict(max_request_pages=self.max_pages,
+                  min_request_tokens=self._frag_floor,
+                  prefix_caching=self.prefix_caching_on(),
+                  fingerprint=self._fingerprint())
+        if self.dp > 1:
+            return ShardedPageAllocator(self.dp, self.pool_pages,
+                                        self.page_size, self.batch, **kw)
+        return PageAllocator(self.pool_pages, self.page_size, **kw)
+
+    @property
+    def page_base(self) -> int:
+        """This data rank's first global page id (0 in one process)."""
+        return self.dp_rank * (self.pool_pages // self.dp)
 
     # ------------------------------------------------------------------
     # cache splices (all in place on the pool tensors)
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _scatter_impl(cache, frag, block_row, keep: int = 0):
+    def _scatter_impl(cache, frag, block_row, keep: int = 0, base: int = 0):
         """Write a batch-1 fragment's rows into the page pool, IN PLACE,
         without touching any block table. Rows land at flat offsets
         `block_row[t // psz] · psz + t % psz` after the positions of every
@@ -411,7 +546,10 @@ class ServeEngine:
         The first `keep` pages are shared prefix-cache pages: their wipe
         and writes go to the trash page 0 instead. Dense leaves (local
         rings) have no pool and pass through: `_insert_impl` row-splices
-        them, as do SSM states."""
+        them, as do SSM states. `base`: the pool holds a data shard's
+        pages, global ids [base, base + n_pages), `block_row`'s ids (the
+        trash page of `keep` and unmapped entries the shard's own page
+        `base`)."""
         for full_c, one_c in zip(cache, frag):
             full, one = full_c.get("kv"), one_c.get("kv")
             if not isinstance(full, PagedKVCache):
@@ -421,6 +559,7 @@ class ServeEngine:
             dev = full.k.device
             lane = torch.arange(psz, device=dev)
             row = block_row.to(dev).long()
+            row = torch.where(row >= 0, row - base, -1)
             dest_row = torch.where(torch.arange(npp, device=dev) < keep, 0,
                                    row[:npp])
             dest_row = torch.where(dest_row >= 0, dest_row, 0)
@@ -449,7 +588,8 @@ class ServeEngine:
         return cache
 
     @staticmethod
-    def _insert_impl(cache, frag, slot: int, block_row=None, keep: int = 0):
+    def _insert_impl(cache, frag, slot: int, block_row=None, keep: int = 0,
+                     base: int = 0, row: int | None = None, block: int = 0):
         """Splice a batch-1 fragment into slot `slot`, in place. Pool
         leaves (`block_row` given): page scatter, then the block-table
         bind. Dense leaves (the ring layout, and local rings in the paged
@@ -460,26 +600,53 @@ class ServeEngine:
         per-slot rows in either layout and are copied the same way, so
         the slot decodes from its prompt's final state. The unified path
         runs both halves here, the two-pool path the pool half at the
-        handoff and the bind at admission."""
+        handoff and the bind at admission.
+
+        Under a `data` axis: `base` is the rank's first global page id,
+        `row` the slot's row in the rank's dense leaves (default `slot`)
+        and `block` the rank's block of a ring whose rows split over
+        `data` (`_copy_rows_impl`). `frag` None: another data rank holds
+        the slot, and only the block table, whole on every rank, is
+        bound."""
         if block_row is not None:
-            cache = ServeEngine._scatter_impl(cache, frag, block_row, keep)
+            if frag is not None:
+                cache = ServeEngine._scatter_impl(cache, frag, block_row,
+                                                  keep, base)
             cache = ServeEngine._bind_impl(cache, block_row, slot)
+        if frag is None:
+            return cache
+        return ServeEngine._copy_rows_impl(
+            cache, frag, slot if row is None else row, block)
+
+    @staticmethod
+    def _copy_rows_impl(cache, frag, row: int, block: int = 0):
+        """`_insert_impl`'s dense half: the fragment's ring rows (the ring
+        layout, local rings) and SSM state and tail copied over cache row
+        `row`, in place. Where the cache's rings hold one data rank's
+        block of R/D rows (the rows split over `data`), the fragment's
+        whole ring gives block `block` of them."""
         for full_c, one_c in zip(cache, frag):
             pairs = list(zip(full_c.get("ssm", ()), one_c.get("ssm", ())))
             if isinstance(full_c.get("kv"), KVCache):
                 pairs += zip(full_c["kv"], one_c["kv"])
             for full, one in pairs:
-                full[:, slot] = one[:, 0].to(full.dtype)         # in place
+                src = one[:, 0]
+                if src.shape[1:] != full.shape[2:]:
+                    n = full.shape[2]
+                    src = src[:, block * n:(block + 1) * n]
+                full[:, row] = src.to(full.dtype)               # in place
         return cache
 
     @staticmethod
-    def _load_prefix_impl(frag, cache, src_row, prefix_len: int):
+    def _load_prefix_impl(frag, cache, src_row, prefix_len: int,
+                          base: int = 0):
         """Load a shared prompt prefix from pool pages into the dense
         fragment's first `prefix_len` rows (in place on the fragment).
         `src_row` holds the source page ids in sequence order (the hit
         pages, plus the copy-on-write donor's partial page last). Dense
         leaves and SSM states are left as they are (prefix caching is off
-        where a stack has local rings or a recurrent state)."""
+        where a stack has local rings or a recurrent state). `base`: the
+        pool's first global page id (a data shard's pool)."""
         for one_c, full_c in zip(frag, cache):
             one, full = one_c.get("kv"), full_c.get("kv")
             if not isinstance(full, PagedKVCache):
@@ -487,7 +654,7 @@ class ServeEngine:
             n_super, _, psz = full.k.shape[:3]
             dev = full.k.device
             lane = torch.arange(psz, device=dev)
-            src = (src_row.to(dev).long()[:, None] * psz
+            src = ((src_row.to(dev).long()[:, None] - base) * psz
                    + lane).reshape(-1)[:prefix_len]
             kf = full.k.reshape(n_super, -1, *full.k.shape[3:])[:, src]
             vf = full.v.reshape(n_super, -1, *full.v.shape[3:])[:, src]
@@ -498,19 +665,30 @@ class ServeEngine:
         return frag
 
     @staticmethod
-    def _clear_slot_impl(cache, slot: int):
+    def _clear_slot_impl(cache, slot: int, row: int | None = None,
+                         held: bool = True):
         """Free a slot's cache row, in place. Pool leaves: unmap its
         block-table rows so its decode writes fall to the trash page
         before its pages are reused. Dense leaves (rings, local rings):
         set its positions to -1 (every row masked). SSM states stay: the
-        next admission overwrites the row whole."""
+        next admission overwrites the row whole. Under a `data` axis: `row`
+        is the slot's row in the rank's dense leaves (default `slot`);
+        `held` False, another data rank holds the slot, and only the block
+        table, whole on every rank, is unmapped."""
         for c in cache:
             kv = c.get("kv")
             if isinstance(kv, PagedKVCache):
                 kv.block_table[:, slot] = -1                    # in place
-            elif kv is not None:
-                kv.positions[:, slot] = -1                      # in place
+            elif kv is not None and held:
+                kv.positions[:, slot if row is None else row] = -1
         return cache
+
+    def _local_row(self, slot: int) -> int | None:
+        """`slot`'s row in this rank's caches and token and position
+        vectors; None where another data rank holds it."""
+        if self._shard_of(slot) != self.dp_rank:
+            return None
+        return slot - self.slot0
 
     def _prefill_for(self, prefix_len: int):
         fn = self._prefills.get(prefix_len)
@@ -526,17 +704,74 @@ class ServeEngine:
                 make_bucketed_prefill_step(self.cfg, prefix_len)
         return fn
 
-    def _pick(self, logits, greedy: bool, gen):
-        """Next tokens from (..., V) logits: argmax, or a sample drawn with
-        the explicit generator."""
+    def _pick(self, logits, greedy: bool, gen, spread: bool = True):
+        """Next tokens from (..., V) logits: argmax, or a sample: the first
+        token whose cumulative probability exceeds a uniform drawn from the
+        explicit generator, one a row. `spread`: the leading dim holds this
+        data rank's slots of the batch, so the uniforms of every data
+        rank's slots are drawn and this rank's kept. Each slot then samples
+        with the number it takes in one process, and the ranks'
+        generators stay in step (`_skip_pick` for a pick made on another
+        rank)."""
         if greedy:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
         flat = probs.reshape(-1, probs.shape[-1])
-        return torch.multinomial(flat, 1, generator=gen)[:, 0].to(
+        n = flat.shape[0]
+        if spread and self._over_data():
+            u = self._uniforms(n * self.dp, gen)
+            u = u[self.dp_rank * n:(self.dp_rank + 1) * n]
+        else:
+            u = self._uniforms(n, gen)
+        cdf = flat.cumsum(dim=-1)
+        idx = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)
+        return idx[:, 0].clamp_max(flat.shape[-1] - 1).to(
             torch.int32).reshape(probs.shape[:-1])
 
-    def _prefill_request(self, scheduler, req, cache, greedy: bool, gen):
+    def _uniforms(self, n: int, gen):
+        return torch.rand((n,), generator=gen, dtype=torch.float32,
+                          device=self.device)
+
+    def _skip_pick(self, greedy: bool, gen):
+        """The generator's draw of a batch-1 `_pick` another data rank
+        made: keeps this rank's generator in step with it."""
+        if not greedy:
+            self._uniforms(1, gen)
+
+    def _page_row(self, req):
+        """The request's -1-padded (max_pages,) page run on the device and
+        its shared leading page count; (None, None) on the ring layout."""
+        if self.kv_layout != "paged":
+            return None, None
+        r = np.full((self.max_pages,), -1, np.int32)
+        r[:len(req.pages)] = req.pages
+        return (torch.from_numpy(r).to(self.device),
+                req.shared_tokens // self.page_size)
+
+    def _admit_prefill(self, scheduler, req, cache, greedy: bool, gen,
+                       shard: int):
+        """`_prefill_request` where data coordinate `shard` holds the
+        request's slot or pages: there it runs and its first token is
+        broadcast over `data`; elsewhere only the scheduler's copy-on-write
+        accounting runs (every rank's scheduler is the same), and under
+        FSDP the prefill too, its results dropped (each forward gathers
+        the weights over `data`, so every data rank runs every forward).
+        Returns (frag or None, first, row, keep)."""
+        mine = shard == self.dp_rank or not self._over_data()
+        if mine or self.cfg.fsdp:
+            frag, first, row, keep = self._prefill_request(
+                scheduler, req, cache, greedy, gen, owner=mine)
+        else:
+            if req.cow_src is not None:
+                scheduler.cow_done(req)
+            self._skip_pick(greedy, gen)
+            row, keep = self._page_row(req)
+            frag = first = None
+        return (frag if mine else None, self._from_shard(
+            first if mine else None, shard), row, keep)
+
+    def _prefill_request(self, scheduler, req, cache, greedy: bool, gen,
+                         owner: bool = True):
         """Build the dense fragment (prefix-cache load included), prefill
         the uncached suffix and pick the first token. Returns (frag,
         first, row, keep): `row` is the -1-padded (max_pages,) page run,
@@ -545,7 +780,9 @@ class ServeEngine:
         suffix is padded to `_bucket_len(suffix)` where that still fits
         one request (`max_seq_len`, or the ring's `cache_len`); a paged
         fragment rounded up past the request's pages scatters its padding
-        pages to the trash page (`_scatter_impl`)."""
+        pages to the trash page (`_scatter_impl`). `owner` False (a data
+        rank that runs an FSDP prefill in step with the owner): no prefix
+        load from pages it does not hold, no logits counted."""
         paged = self.kv_layout == "paged"
         shared = req.shared_tokens if paged else 0
         suffix = req.prompt_len - shared
@@ -561,8 +798,10 @@ class ServeEngine:
             src = list(req.pages[:shared // self.page_size])
             if req.cow_src is not None:
                 src.append(req.cow_src)
-            frag = self._load_prefix_impl(
-                frag, cache, torch.tensor(src, dtype=torch.int32), shared)
+            if owner:
+                frag = self._load_prefix_impl(
+                    frag, cache, torch.tensor(src, dtype=torch.int32),
+                    shared, self.page_base)
             if req.cow_src is not None:
                 scheduler.cow_done(req)
         padded = np.zeros((1, Tb), np.int32)
@@ -575,14 +814,10 @@ class ServeEngine:
         else:
             logits, frag = self._prefill_for(shared)(self.params, tokens,
                                                      frag)
-        self._note_logits(logits)
-        first = int(self._pick(logits[:, -1], greedy, gen)[0])
-        if not paged:
-            return frag, first, None, None
-        r = np.full((self.max_pages,), -1, np.int32)
-        r[:len(req.pages)] = req.pages
-        row = torch.from_numpy(r).to(self.device)
-        return frag, first, row, shared // self.page_size
+        if owner:
+            self._note_logits(logits)
+        first = int(self._pick(logits[:, -1], greedy, gen, spread=False)[0])
+        return (frag, first) + self._page_row(req)
 
     def _must_reject(self, req) -> bool:
         """A just-admitted request the engine cannot serve. Paged: the
@@ -614,7 +849,7 @@ class ServeEngine:
             def run(params, tok, cache, pos, frontend, gen):
                 pol = dataclasses.replace(current_policy(), mode=mode)
                 toks = []
-                with use_policy(pol):
+                with use_policy(pol), self._ring_split():
                     for _ in range(steps):
                         logits, cache = serve_step(params, tok[:, None],
                                                    cache, pos, frontend)
@@ -656,7 +891,7 @@ class ServeEngine:
                     raise ValueError("serve() is text-only")
                 pol = dataclasses.replace(current_policy(), mode=mode)
                 toks, accs = [], []
-                with use_policy(pol):
+                with use_policy(pol), self._ring_split():
                     for _ in range(iters):
                         drafts, cache = _draft(draft_step, params, tok,
                                                cache, pos, k)   # (B, k)
@@ -690,16 +925,18 @@ class ServeEngine:
         verify_step = make_verify_step(self.cfg, self.page_size)
         cache = (self.new_pool() if self.kv_layout == "paged"
                  else self.new_cache())
-        zeros = torch.zeros((self.batch,), dtype=torch.int32,
+        zeros = torch.zeros((self.rows,), dtype=torch.int32,
                             device=self.device)
-        block = torch.zeros((self.batch, k + 1), dtype=torch.int32,
+        block = torch.zeros((self.rows, k + 1), dtype=torch.int32,
                             device=self.device)
 
         def draft():
-            _draft(draft_step, self.params, zeros, cache, zeros, k)
+            with self._ring_split():
+                _draft(draft_step, self.params, zeros, cache, zeros, k)
 
         def verify():
-            verify_step(self.params, block, cache, zeros)
+            with self._ring_split():
+                verify_step(self.params, block, cache, zeros)
 
         cuda = self.device.type == "cuda"
         out = {}
@@ -828,7 +1065,14 @@ class ServeEngine:
         position S + T: the greedy stream is the one full forwards over
         [patches ‖ prompt ‖ generated] give (ROADMAP F8; the JAX engine
         hands the patches to every decode step, where its forward
-        prepends them to the one token, and starts decoding at T)."""
+        prepends them to the one token, and starts decoding at T).
+
+        Under a `data` axis that divides the batch, each data rank
+        prefills and decodes its own rows of `prompts` (and `frontend`)
+        and the tokens are gathered over `data` a chunk, so every rank
+        returns the whole batch's; where it does not divide the batch,
+        every rank prefills the whole batch into whole rings, keeps its
+        block of their rows and decodes under `layers.seq_sharded`."""
         prompts = torch.as_tensor(prompts, dtype=torch.int32,
                                   device=self.device)
         B, T = prompts.shape
@@ -841,8 +1085,13 @@ class ServeEngine:
         vlm = self.cfg.family == "vlm" and frontend is not None
         if frontend is not None:
             frontend = torch.as_tensor(frontend, device=self.device)
+        mine = slice(self.slot0, self.slot0 + self.rows)
+        prompts = prompts[mine]
+        if frontend is not None:
+            frontend = frontend[mine]
         clock = self._agreed_clock(time.monotonic)
         t0 = clock()
+        rows = None
         if vlm:
             # F8: the ring holds the patches, the prompt and every new
             # token; decode starts after the patches and the prompt, and
@@ -850,34 +1099,54 @@ class ServeEngine:
             rows = frontend.shape[1] + T + max_new_tokens
             if self.device.type == "cuda":
                 rows = _round_up(rows, self.page_size)
-            cache = M.init_cache(self.cfg, B, max(rows, self.ring_len),
-                                 dtype=self.cache_dtype, device=self.device,
-                                 **self._heads())
+            rows = max(rows, self.ring_len)
+            if self.seq_split:
+                rows = _round_up(rows, self._ring_quantum())
             start, step_frontend = frontend.shape[1] + T, None
         else:
-            cache = self.new_cache()
             start, step_frontend = T, frontend
+        # where the rings split by rows, the prompts fill whole rings and
+        # each rank keeps its block
+        cache = (self.new_cache(batch=B, rows=rows) if self.seq_split
+                 else self.new_cache(rows=rows))
         logits, cache = self._prefill_for(0)(self.params, prompts, cache,
                                              frontend)
+        if self.seq_split:
+            part = self.new_cache(rows=rows)
+            for b in range(B):
+                part = self._copy_rows_impl(part, M.tree_map(
+                    lambda t, b=b: t[:, b:b + 1], cache), b, self.dp_rank)
+            cache = part
         self._note_logits(logits)
         tok = self._pick(logits[:, -1], greedy, gen)
-        first = tok.cpu().numpy()       # sync: the prefill boundary (TTFT)
+        # sync: the prefill boundary (TTFT)
+        first = self._gather_rows(tok, 0).cpu().numpy()
         t_prefill = clock() - t0
-        pos = torch.full((B,), start, dtype=torch.int32, device=self.device)
+        pos = torch.full((self.rows,), start, dtype=torch.int32,
+                         device=self.device)
         cols = [first]
         done = first == self.eos_id
         while len(cols) < max_new_tokens and not done.all():
             steps = min(self.sync_every, max_new_tokens - len(cols))
             tok, cache, pos, gen, toks = self._chunk_fn(steps, greedy)(
                 self.params, tok, cache, pos, step_frontend, gen)
-            t_np = toks.cpu().numpy()   # one sync per chunk
+            t_np = self._gather_rows(toks).cpu().numpy()  # a chunk's sync
             cols.extend(t_np)
             done |= (t_np == self.eos_id).any(axis=0)
         self.last_stats = {"prefill_s": t_prefill,
                            "decode_s": clock() - t0 - t_prefill,
                            "decode_tokens": (len(cols) - 1) * B,
-                           "nonfinite_logits": int(self._nonfinite)}
+                           "nonfinite_logits": self._nonfinite_total()}
         return torch.from_numpy(np.stack(cols, axis=1).astype(np.int32))
+
+    def _nonfinite_total(self) -> int:
+        """The non-finite logits counted on the device, over every data
+        rank's slots."""
+        n = self._nonfinite
+        if self._over_data():
+            from repro_torch.parallel.collectives import all_reduce
+            n = all_reduce(n.reshape(1).clone(), S.axis_group("data"))
+        return int(n.sum())
 
     # ------------------------------------------------------------------
     # continuous batching
@@ -926,8 +1195,12 @@ class ServeEngine:
                 torch.cuda.synchronize(self.device)
 
         cache = self.new_pool() if paged else self.new_cache()
-        tok = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        pos = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        # this rank's slots' tokens and positions (the whole batch's in
+        # one process)
+        tok = torch.zeros((self.rows,), dtype=torch.int32,
+                          device=self.device)
+        pos = torch.zeros((self.rows,), dtype=torch.int32,
+                          device=self.device)
         # the wall split: handoff = the page scatter and block-table
         # writes; decode_stall = admission wall while another slot waits
         # to decode (unified: the whole prefill and insert; two-pool: only
@@ -965,7 +1238,11 @@ class ServeEngine:
             # ring row is masked whole until its next admission)
             nonlocal cache
             for freed in scheduler.drain_freed():
-                cache = self._clear_slot_impl(cache, freed)
+                # the block table is whole on every rank, the rows on the
+                # data rank that holds the slot
+                row = self._local_row(freed)
+                cache = self._clear_slot_impl(cache, freed, row,
+                                              held=row is not None)
 
         while not scheduler.drained():
             clear_freed()
@@ -973,20 +1250,23 @@ class ServeEngine:
                 # decode-pool admissions: bind already-prefilled requests
                 # off the ready queue (a block-table write, no prefill
                 # compute), so free slots refill between chunks at the
-                # handoff's cost only
+                # handoff's cost only (a sharded pool binds a slot only
+                # to a request staged in its own shard)
                 for slot in scheduler.free_slots():
                     req = scheduler.admit_ready(slot, now())
                     if req is None:
-                        break
+                        if scheduler.ready_depth() == 0:
+                            break
+                        continue
                     t_h = now()
-                    r = np.full((self.max_pages,), -1, np.int32)
-                    r[:len(req.pages)] = req.pages
-                    cache = self._bind_impl(
-                        cache, torch.from_numpy(r).to(self.device), slot)
+                    cache = self._bind_impl(cache, self._page_row(req)[0],
+                                            slot)
                     # the first token came from finish_prefill: resume
                     # after it
-                    tok[slot] = req.tokens[0]
-                    pos[slot] = req.prompt_len
+                    row = self._local_row(slot)
+                    if row is not None:
+                        tok[row] = req.tokens[0]
+                        pos[row] = req.prompt_len
                     handoff_s += now() - t_h
                 # prefill pool: up to `prefill_workers` prefills a chunk,
                 # stopping once the ready queue could refill every slot
@@ -1000,16 +1280,19 @@ class ServeEngine:
                         scheduler.reject_prefill(req, now())
                         continue
                     t_p = now()
-                    frag, first, row, keep = self._prefill_request(
-                        scheduler, req, cache, greedy, gen)
+                    frag, first, row, keep = self._admit_prefill(
+                        scheduler, req, cache, greedy, gen, req.shard)
                     dt = now() - t_p
                     prefill_s += dt
                     # the handoff: scatter the staged fragment's pages into
-                    # the pool, then sync: the one wall decode can block on
+                    # the pool (on the data rank that holds the shard's
+                    # pages), then sync: the one wall decode can block on
                     # (the fragment holds the pool's KV heads already, so
                     # no reshard between the two pools)
                     t_h = now()
-                    cache = self._scatter_impl(cache, frag, row, keep)
+                    if frag is not None:
+                        cache = self._scatter_impl(cache, frag, row, keep,
+                                                   self.page_base)
                     sync()
                     dt_h = now() - t_h
                     handoff_s += dt_h
@@ -1026,15 +1309,24 @@ class ServeEngine:
                 for slot in scheduler.free_slots():
                     req = scheduler.admit(slot, now())
                     if req is None:
+                        if isinstance(scheduler.pages, ShardedPageAllocator):
+                            # another shard's pages may still take it
+                            continue
                         break
                     if self._must_reject(req):
                         scheduler.reject(slot, now())
                         continue
                     t_p = now()
-                    frag, first, row, keep = self._prefill_request(
-                        scheduler, req, cache, greedy, gen)
+                    frag, first, row, keep = self._admit_prefill(
+                        scheduler, req, cache, greedy, gen,
+                        self._shard_of(slot))
                     t_h = now()
-                    cache = self._insert_impl(cache, frag, slot, row, keep)
+                    # the pages scattered and the rows copied where this
+                    # rank holds the slot (`frag` None elsewhere), the
+                    # block-table row bound on every rank
+                    cache = self._insert_impl(
+                        cache, frag, slot, row, keep, self.page_base,
+                        self._local_row(slot), self.dp_rank)
                     if paged:
                         # register the prompt's pages BEFORE the scheduler
                         # sees the first token: a first-token EOS retires
@@ -1043,8 +1335,10 @@ class ServeEngine:
                         scheduler.pages.prefix_register(req.prompt,
                                                         req.pages, req.tier)
                     handoff_s += now() - t_h
-                    tok[slot] = first
-                    pos[slot] = req.prompt_len
+                    local = self._local_row(slot)
+                    if local is not None:
+                        tok[local] = first
+                        pos[local] = req.prompt_len
                     dt = now() - t_p
                     prefill_s += dt
                     if scheduler.num_active() > 1:
@@ -1082,8 +1376,10 @@ class ServeEngine:
                 tok, cache, pos, gen, toks, accs = self._spec_chunk_fn(
                     spec_iters, greedy, mode, self.spec_k)(
                     self.params, tok, cache, pos, None, gen)
-                toks_np = toks.cpu().numpy()   # the chunk's host sync
-                accs_np = accs.cpu().numpy()
+                # the chunk's host sync (the whole batch's, gathered
+                # over `data`)
+                toks_np = self._gather_rows(toks).cpu().numpy()
+                accs_np = self._gather_rows(accs).cpu().numpy()
                 decode_s += now() - t_d
                 spec_chunks += 1
                 scheduler.observe_spec(toks_np, accs_np, now(), mode=mode)
@@ -1091,7 +1387,8 @@ class ServeEngine:
                 tok, cache, pos, gen, toks = self._chunk_fn(
                     self.sync_every, greedy, mode)(self.params, tok, cache,
                                                    pos, None, gen)
-                toks_np = toks.cpu().numpy()   # the chunk's single host sync
+                # the chunk's single host sync (the whole batch's)
+                toks_np = self._gather_rows(toks).cpu().numpy()
                 decode_s += now() - t_d
                 scheduler.observe(toks_np, now(), mode=mode)
             self.decode_misses += autotune.MISSES - misses0
@@ -1125,7 +1422,7 @@ class ServeEngine:
                     current_policy()):
                 impl = "gather"
             summary["decode_attn"] = impl
-        summary["nonfinite_logits"] = int(self._nonfinite)
+        summary["nonfinite_logits"] = self._nonfinite_total()
         served = summary["requests"] - summary["rejected"]
         if decode_s > 0 and served:
             decode_tokens = summary["generated_tokens"] - served

@@ -372,6 +372,180 @@ class PageAllocator:
         added.append(key)
 
 
+class _ShardView:
+    """One data shard's `PageAllocator` in the pool's global page ids: the
+    shard's allocator hands out its local ids [1, n) (its own page 0 is
+    its trash page) and this view adds the shard's first global id. The
+    scheduler's page transaction runs on it as on a `PageAllocator`."""
+
+    def __init__(self, alloc: PageAllocator, base: int, owner):
+        self.allocator = alloc
+        self.base = int(base)
+        self._owner = owner
+
+    def _local(self, pages):
+        return [p - self.base for p in pages]
+
+    def _global(self, pages):
+        return [p + self.base for p in pages]
+
+    @property
+    def leased(self) -> int:
+        return self.allocator.leased
+
+    @property
+    def free_pages(self) -> int:
+        return self.allocator.free_pages
+
+    @property
+    def cached(self) -> int:
+        return self.allocator.cached
+
+    def pages_needed(self, tokens: int) -> int:
+        return self.allocator.pages_needed(tokens)
+
+    def fits_ever(self, tokens: int) -> bool:
+        return self.allocator.fits_ever(tokens)
+
+    def allocatable(self, exclude: set[int] | None = None) -> int:
+        return self.allocator.allocatable(set(self._local(exclude or ())))
+
+    def prefix_lookup(self, prompt, tier):
+        pages, shared, donor = self.allocator.prefix_lookup(prompt, tier)
+        return (self._global(pages), shared,
+                None if donor is None else donor + self.base)
+
+    def prefix_peek(self, prompt, tier):
+        """`prefix_lookup` with its touch of the LRU order undone: what
+        the shard would give, with no side effect."""
+        runs = self.allocator._runs
+        order = list(runs)
+        got = self.prefix_lookup(prompt, tier)
+        for run in order:
+            runs.move_to_end(run)
+        return got
+
+    def alloc(self, n: int) -> list[int] | None:
+        got = self.allocator.alloc(n)
+        self._owner._note_peak()
+        return None if got is None else self._global(got)
+
+    def retain(self, pages):
+        self.allocator.retain(self._local(pages))
+        self._owner._note_peak()
+
+    def free(self, pages):
+        self.allocator.free(self._local(pages))
+        self._owner._note_peak()
+
+    def cow_fork(self, donor: int):
+        self.allocator.cow_fork(donor - self.base)
+
+    def prefix_register(self, prompt, pages, tier) -> int:
+        return self.allocator.prefix_register(prompt, self._local(pages),
+                                              tier)
+
+
+class ShardedPageAllocator:
+    """One `PageAllocator` per data shard behind one interface: the page
+    pool of serving over a `data` axis of `n_shards` ranks
+    (`ServeEngine`). Shard i owns the slots [i·b, (i + 1)·b) of
+    `n_slots` = n_shards·b and the global page ids [i·n, (i + 1)·n) of
+    `n_pages` = n_shards·n, the page cut of `sharding.cache_specs`; its
+    allocator is a `PageAllocator` over n pages whose local page 0, global
+    i·n, is the shard's own trash page. A slot's pages come only from its
+    shard's range, so every slot attends over pages its own data rank
+    holds. The allocators themselves are the JAX package's bits: at one
+    shard the ids are `PageAllocator`'s, and each shard's are those of a
+    `PageAllocator` over its range.
+
+    The scheduler takes a shard's `view(i)` for an admission's page
+    transaction (the unified path: the slot's shard; the prefill pool: the
+    shard `SlotScheduler.begin_prefill` picks); a request's retirement,
+    prefix registration and copy-on-write fork route by its page ids. The
+    pool's counts (`capacity`, `in_use`, `leased`, `cached`, `leaked`) are
+    the shards' summed, `peak_in_use` the pool's high-water mark of
+    `leased` and `peak_by_shard` each shard's."""
+
+    def __init__(self, n_shards: int, n_pages: int, page_size: int,
+                 n_slots: int, **kw):
+        if n_pages % n_shards or n_slots % n_shards:
+            raise ValueError(f"{n_pages} pages and {n_slots} slots do not "
+                             f"split over {n_shards} data shards")
+        self.n_shards = int(n_shards)
+        self.pages_per_shard = n_pages // n_shards
+        self.slots_per_shard = n_slots // n_shards
+        self.page_size = int(page_size)
+        self.shards = [_ShardView(PageAllocator(self.pages_per_shard,
+                                                page_size, **kw),
+                                  i * self.pages_per_shard, self)
+                       for i in range(self.n_shards)]
+        self.prefix_caching = self.shards[0].allocator.prefix_caching
+        self.peak_in_use = 0
+
+    def view(self, shard: int) -> _ShardView:
+        return self.shards[shard]
+
+    def shard_of_slot(self, slot: int) -> int:
+        return slot // self.slots_per_shard
+
+    def shard_of_page(self, page: int) -> int:
+        return page // self.pages_per_shard
+
+    def _of(self, pages) -> _ShardView:
+        return self.shards[self.shard_of_page(pages[0])]
+
+    def _note_peak(self):
+        self.peak_in_use = max(self.peak_in_use, self.leased)
+
+    def _sum(self, name: str) -> int:
+        return sum(getattr(s.allocator, name) for s in self.shards)
+
+    @property
+    def capacity(self) -> int:
+        return self._sum("capacity")
+
+    @property
+    def in_use(self) -> int:
+        return self._sum("in_use")
+
+    @property
+    def leased(self) -> int:
+        return self._sum("leased")
+
+    @property
+    def cached(self) -> int:
+        return self._sum("cached")
+
+    @property
+    def leaked(self) -> int:
+        return self._sum("leaked")
+
+    @property
+    def cow_forks(self) -> int:
+        return self._sum("cow_forks")
+
+    @property
+    def prefix_evictions(self) -> int:
+        return self._sum("prefix_evictions")
+
+    @property
+    def peak_by_shard(self) -> list[int]:
+        return [s.allocator.peak_in_use for s in self.shards]
+
+    def free(self, pages):
+        self._of(pages).free(pages)
+
+    def retain(self, pages):
+        self._of(pages).retain(pages)
+
+    def cow_fork(self, donor: int):
+        self._of([donor]).cow_fork(donor)
+
+    def prefix_register(self, prompt, pages, tier) -> int:
+        return self._of(pages).prefix_register(prompt, pages, tier)
+
+
 @dataclasses.dataclass
 class Request:
     """One generation request and (after serving) its result + metrics."""
@@ -397,6 +571,9 @@ class Request:
     # first write (engine copies device-side into pages[shared_tokens //
     # page_size] then reports the fork; cleared back to None once done)
     cow_src: int | None = None
+    # the data shard whose pages and slots serve it (a sharded pool's
+    # `ShardedPageAllocator`; 0 with one allocator)
+    shard: int = 0
     t_admitted: float | None = None
     t_first_token: float | None = None   # TTFT reference point
     t_done: float | None = None
@@ -525,35 +702,74 @@ class SlotScheduler:
                     return i
         return 0
 
-    def _page_transaction(self, cand: Request) -> bool:
+    def _sharded(self) -> bool:
+        return isinstance(self.pages, ShardedPageAllocator)
+
+    def _page_plan(self, cand: Request, pages, peek: bool = False):
+        """The pages admitting `cand` from `pages` (the allocator, or one
+        data shard's view of a `ShardedPageAllocator`) would take now:
+        (hit, shared, donor, fresh), or None where they are not free now.
+        `peek` (a shard's view): no side effect."""
+        tokens = cand.prompt_len + cand.max_new_tokens
+        needed = pages.pages_needed(tokens)
+        lookup = pages.prefix_peek if peek else pages.prefix_lookup
+        hit, shared, donor = lookup(cand.prompt, cand.tier)
+        fresh = needed - len(hit)
+        pinned = set(hit) | ({donor} if donor is not None else set())
+        if (fresh > pages.allocatable(pinned) and pinned
+                and self._sharded() and pages.leased == 0
+                and needed <= pages.allocatable()):
+            # a data shard's pool holds a few slots' pages: where no lease
+            # in it is live, no retirement will ever free the pages its
+            # cached run pins, so the request takes fresh pages (evicting
+            # the run) and prefills its whole prompt, the same tokens
+            hit, shared, donor, fresh, pinned = [], 0, None, needed, set()
+        if fresh > pages.allocatable(pinned):
+            return None
+        return hit, shared, donor, fresh
+
+    def _fits_now(self, cand: Request, shard: int) -> bool:
+        """Whether data shard `shard` of a sharded pool takes `cand` now
+        (or never could: the transaction passes it on to be rejected),
+        with no side effect."""
+        pages = self.pages.view(shard)
+        return (not pages.fits_ever(cand.prompt_len + cand.max_new_tokens)
+                or self._page_plan(cand, pages, peek=True) is not None)
+
+    def _note_block(self, cand: Request):
+        # count *requests* that waited, not poll attempts — the loop
+        # re-asks every chunk tick while the head is blocked
+        if cand.rid not in self._blocked_rids:
+            self._blocked_rids.add(cand.rid)
+            self.page_blocks += 1
+
+    def _page_transaction(self, cand: Request, shard: int = 0) -> bool:
         """Page-gate one candidate and, on success, take its leases and
         fill `pages/shared_tokens/cow_src` in place. Returns False when
         the candidate must stay queued (could fit an empty pool but not
         the current one); a candidate that can NEVER fit passes with
         `pages=None` for the engine to reject. Shared by the unified path
-        (`admit`) and the prefill pool (`begin_prefill`)."""
+        (`admit`) and the prefill pool (`begin_prefill`). A sharded pool
+        (`ShardedPageAllocator`) takes the pages from data shard
+        `shard`'s range, and `cand.shard` records it."""
+        pages = self.pages.view(shard) if self._sharded() else self.pages
+        cand.shard = shard
         tokens = cand.prompt_len + cand.max_new_tokens
-        if not self.pages.fits_ever(tokens):
+        if not pages.fits_ever(tokens):
             cand.pages = None
             return True
-        needed = self.pages.pages_needed(tokens)
-        hit, shared, donor = self.pages.prefix_lookup(cand.prompt, cand.tier)
-        fresh = needed - len(hit)
-        pinned = set(hit) | ({donor} if donor is not None else set())
-        if fresh > self.pages.allocatable(pinned):
-            # count *requests* that waited, not poll attempts — the
-            # loop re-asks every chunk tick while the head is blocked
-            if cand.rid not in self._blocked_rids:
-                self._blocked_rids.add(cand.rid)
-                self.page_blocks += 1
+        plan = self._page_plan(cand, pages)
+        if plan is None:
+            self._note_block(cand)
             return False
+        hit, shared, donor, fresh = plan
         # transaction: pin the hit pages (+ COW donor) with leases FIRST
         # so the fresh alloc's eviction pass cannot reclaim them, then
         # allocate the remainder — the allocatable() gate above
         # guarantees this succeeds
-        if pinned:
-            self.pages.retain(hit + ([donor] if donor is not None else []))
-        fresh_pages = self.pages.alloc(fresh)
+        if hit or donor is not None:
+            pages.retain(hit + ([donor] if donor is not None else []))
+        fresh_pages = pages.alloc(fresh)
         assert fresh_pages is not None, (fresh, "gate lied")
         cand.pages = hit + fresh_pages
         cand.shared_tokens = shared
@@ -576,7 +792,18 @@ class SlotScheduler:
         if i is None:
             return None
         cand = self.pending[i]
-        if self.pages is not None and not self._page_transaction(cand):
+        shard = 0
+        if self._sharded():
+            shard = self.pages.shard_of_slot(slot_idx)
+            if not self._fits_now(cand, shard):
+                # the engine tries the next free slot: a block counts only
+                # where no shard with a free slot takes the request now
+                if not any(self._fits_now(cand, self.pages.shard_of_slot(s))
+                           for s in self.free_slots()):
+                    self._note_block(cand)
+                return None
+        if (self.pages is not None
+                and not self._page_transaction(cand, shard)):
             return None
         req = cand
         del self.pending[i]
@@ -627,16 +854,42 @@ class SlotScheduler:
         downstream at `admit_ready`, where the decode batch whose tier
         matters actually lives. Returns None when nothing has arrived by
         `now` or the head is blocked on pages. A returned request with
-        `pages=None` can never fit — retire it via `reject_prefill`."""
+        `pages=None` can never fit — retire it via `reject_prefill`.
+
+        A sharded pool (`ShardedPageAllocator`) stages the request in the
+        first shard of `_prefill_shards`' order whose pages it fits now
+        (`req.shard`): a rule of the scheduler's own state, so every rank
+        of a data axis picks the same shard."""
         self._two_pool = True
         if not self.pending or self.pending[0].arrival_time > now:
             return None
         cand = self.pending[0]
-        if self.pages is not None and not self._page_transaction(cand):
+        shard = 0
+        if self._sharded():
+            shard = next((s for s in self._prefill_shards()
+                          if self._fits_now(cand, s)), None)
+            if shard is None:
+                self._note_block(cand)
+                return None
+        if (self.pages is not None
+                and not self._page_transaction(cand, shard)):
             return None
         self.pending.popleft()
         cand.t_admitted = now
         return cand
+
+    def _prefill_shards(self) -> list[int]:
+        """The shards a prefill may stage in, in the order it tries them:
+        the fewest staged requests on the ready queue first, then the most
+        allocatable pages, then the lowest index (one shard, 0, for an
+        unsharded pool)."""
+        if not self._sharded():
+            return [0]
+        depth = [0] * self.pages.n_shards
+        for r in self.ready:
+            depth[r.shard] += 1
+        return sorted(range(self.pages.n_shards), key=lambda s: (
+            depth[s], -self.pages.view(s).allocatable(), s))
 
     def reject_prefill(self, req: Request, now: float,
                        reason: str = "rejected") -> Request:
@@ -667,19 +920,23 @@ class SlotScheduler:
         two-pool engine phase-separates mixed streams exactly like the
         unified one. The only device work this admission needs is the
         block-table splice (engine._bind): the KV pages were handed off at
-        prefill completion."""
-        if not self.ready:
+        prefill completion. A sharded pool binds only a request staged in
+        the slot's own shard (its pages are there)."""
+        mine = [j for j, r in enumerate(self.ready)
+                if not self._sharded()
+                or r.shard == self.pages.shard_of_slot(slot_idx)]
+        if not mine:
             return None
-        i = 0
+        i = mine[0]
         tier = self._active_tier()
-        if tier is not None and self.ready[0].tier != tier:
-            for j, r in enumerate(self.ready):
-                if r.tier == tier:
+        if tier is not None and self.ready[i].tier != tier:
+            for j in mine:
+                if self.ready[j].tier == tier:
                     i = j
                     break
         req = self.ready[i]
         del self.ready[i]
-        if i > 0:
+        if i > mine[0]:
             self.tier_affine_picks += 1
         req.slot = slot_idx
         if self._slot_used[slot_idx]:
@@ -881,6 +1138,8 @@ class SlotScheduler:
                     np.mean(self.page_util_samples)), 4)
                 if self.page_util_samples else 0.0,
             }
+            if self._sharded():
+                out["pages_peak_by_shard"] = self.pages.peak_by_shard
             if self.pages.prefix_caching:
                 out |= {
                     "prefix_hits": self.prefix_hits,

@@ -80,11 +80,12 @@ SUMMARY_KEYS = ("requests", "generated_tokens", "pages_leaked", "disagg",
                 "decode_itl_p50_ms")
 
 
-def driver_runs(runs, params):
+def driver_runs(runs, params, by_run=None):
     """`launch.serve.main` once a run of `runs` ({name: argv}) on this
-    world under the fp32 policy (the launcher builds the (1, world) mesh
-    of the whole world; `params` are this rank's shards on it): each
-    run's digest, streams, what it printed and its summary's
+    world under the fp32 policy (the launcher builds the mesh of the whole
+    world its `--model-parallel` names; `params` are this rank's shards on
+    it, or `by_run[name]` where given: None draws them from `--seed`):
+    each run's digest, streams, what it printed and its summary's
     SUMMARY_KEYS; or the ValueError it raised."""
     from repro_torch.core import precision as TP
     from repro_torch.launch import serve as drv
@@ -95,8 +96,9 @@ def driver_runs(runs, params):
         try:
             with TP.use_policy(TP.PrecisionPolicy(input_format="fp32")), \
                     contextlib.redirect_stdout(buf):
-                summary, sched, _ = drv.main(argv, return_state=True,
-                                             params=params)
+                summary, sched, _ = drv.main(
+                    argv, return_state=True,
+                    params=(by_run or {}).get(name, params))
         except ValueError as e:
             out[name] = {"error": str(e)}
             continue
@@ -109,12 +111,15 @@ def driver_runs(runs, params):
 
 
 def engine_streams(cfg, params, mesh=None, layouts=("paged",), stream=None,
-                   prompts=None, cache_len: int = 24):
+                   prompts=None, cache_len: int = 24, batch: int = 2,
+                   sample_seed: int | None = None,
+                   disagg: bool | None = None):
     """The engine on `params` (whole; cut to this rank's shards under
-    `mesh`) under the fp32 policy, batch 2 on 8-token pages, a run a KV
-    layout: the requests `build_requests(**stream)` draws, or `prompts`
-    [(tokens, max_new), ...]. Returns {layout: (streams, pages_leaked,
-    nonfinite_logits, digest)}."""
+    `mesh`) under the fp32 policy, `batch` slots on 8-token pages, a run a
+    KV layout: the requests `build_requests(**stream)` draws, or `prompts`
+    [(tokens, max_new), ...]; greedy, or sampled from a generator seeded
+    `sample_seed`; `disagg` the engine's two-pool switch. Returns
+    {layout: (streams, pages_leaked, nonfinite_logits, digest)}."""
     from repro_torch.core import precision as TP
     from repro_torch.launch import serve as drv
     from repro_torch.parallel import sharding as S
@@ -127,15 +132,18 @@ def engine_streams(cfg, params, mesh=None, layouts=("paged",), stream=None,
         if mesh is not None:
             params = _shards(cfg, params, mesh)
         for layout in layouts:
-            eng = ServeEngine(cfg, params, batch=2, cache_len=cache_len,
+            eng = ServeEngine(cfg, params, batch=batch, cache_len=cache_len,
                               eos_id=-1, sync_every=2, kv_layout=layout,
-                              page_size=8, device="cpu")
-            sched = SlotScheduler(2, eos_id=-1)
+                              page_size=8, disagg=disagg, device="cpu")
+            sched = SlotScheduler(batch, eos_id=-1)
             if stream is not None:
                 drv.build_requests(sched, cfg, **stream)
             for p, n in prompts or ():
                 sched.submit(p, max_new_tokens=n)
-            summary = eng.serve(sched)
+            summary = (eng.serve(sched) if sample_seed is None else
+                       eng.serve(sched, greedy=False,
+                                 rng=torch.Generator().manual_seed(
+                                     sample_seed)))
             out[layout] = (_streams(sched), summary.get("pages_leaked"),
                            summary["nonfinite_logits"],
                            drv.stream_digest(sched.finished))

@@ -77,7 +77,12 @@ def _serve_body(rank, world, job):
     cfg = job["cfg"]
     params = params_from_numpy(job["params"], "cpu")
     mesh = _mesh((1, world), range(world))
-    out = {"runs": driver_runs(job["runs"], _shards(cfg, params, mesh))}
+    # a run at another mesh than (1, world) takes its own weights: the
+    # whole tree at (world, 1), or those `--seed` draws
+    by_run = {name: params for name in job.get("whole_weights", ())}
+    by_run |= {name: None for name in job.get("own_weights", ())}
+    out = {"runs": driver_runs(job["runs"], _shards(cfg, params, mesh),
+                               by_run)}
     if job.get("clocked"):
         out["clocked"] = _clocked_serve(job, cfg, params, mesh, rank)
     if job.get("handoff"):

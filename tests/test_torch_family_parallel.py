@@ -602,14 +602,23 @@ def test_family_init_params_on_a_mesh_are_the_one_process_shards(
 @pytest.mark.parametrize("arch", [MAMBA2, HYMBA, WHISPER, PIXTRAL])
 def test_check_parallel_admits_the_families(arch):
     """Tensor parallelism at 2 and 4 is admitted for training and
-    serving; a data axis when serving stays refused."""
+    serving, and serving over a data axis too (ROADMAP 7b); a paged pool
+    where the data axis does not divide the batch stays refused, except
+    for mamba2, which has no KV to page (its engine serves on rows)."""
     cfg = get_config(arch)
     for tp in (2, 4):
         TM.check_parallel(cfg, tp)
         TM.check_parallel(cfg, tp, serving=True)
         TM.check_parallel(cfg, tp, 2)
-    with pytest.raises(ValueError, match="data axis"):
-        TM.check_parallel(cfg, 2, 2, serving=True)
+        TM.check_parallel(cfg, tp, 2, serving=True, batch=2,
+                          kv_layout="paged")
+    if arch == MAMBA2:
+        TM.check_parallel(cfg, 2, 2, serving=True, batch=1,
+                          kv_layout="paged")
+    else:
+        with pytest.raises(ValueError, match="data axis"):
+            TM.check_parallel(cfg, 2, 2, serving=True, batch=1,
+                              kv_layout="paged")
 
 
 @pytest.mark.parametrize("arch,calls", [(MAMBA2, 5), (HYMBA, 19),

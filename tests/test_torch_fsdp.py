@@ -234,12 +234,17 @@ def test_init_params_on_a_data_mesh_are_the_one_process_shards(
 
 
 def test_check_parallel_admits_fsdp_for_training_only():
-    """FSDP trains at any mesh; serving over a data axis stays refused by
-    name (ROADMAP 7b)."""
+    """FSDP trains at any mesh, and since serving took the data axis
+    (ROADMAP 7b) it serves there too, its leaves gathered a layer at a
+    time (tests/test_torch_serve_data.py); only a paged pool where the
+    data axis does not divide the batch stays refused by name."""
     TM.check_parallel(get_config(LLAMA4), 2, 2)
     TM.check_parallel(get_config(LLAMA4), 1, 4)
-    with pytest.raises(ValueError, match="7b"):
-        TM.check_parallel(get_config(LLAMA4), 2, 2, serving=True)
+    TM.check_parallel(get_config(LLAMA4), 2, 2, serving=True, batch=2,
+                      kv_layout="paged")
+    with pytest.raises(ValueError, match="data axis"):
+        TM.check_parallel(get_config(LLAMA4), 2, 2, serving=True, batch=3,
+                          kv_layout="paged")
 
 
 # ---------------------------------------------------------------------------

@@ -1847,3 +1847,86 @@ def test_expert_shard_pieces_at_model_16(cuda, m):
     ref = sa_dot_chain(h, wd, PrecisionPolicy(backend="torch"))
     assert got.dtype == torch.float32
     assert bool(((got - ref).abs() <= MM.error_bound(h, wd, y=ref)).all())
+
+
+def _lse_case(cuda, grp, hd, pool):
+    """`_pool`'s four slots (144, 100, 40 and 0 tokens: the last fully
+    masked) at g = grp, hd, the pools in `pool`'s type."""
+    q, k, v, pp, bt, pos = _pool(cuda, grp=grp, hd=hd)
+    return q, k.to(pool), v.to(pool), pp, bt, pos
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grp,hd", [(5, 128), (2, 256)])
+def test_decode_lse_matches_plain(cuda, grp, hd, pool):
+    """The decode kernel's log-sum-exp output (the fold of a ring split
+    over `data`) against its plain twin's within `lse_error_bound`, the
+    attention itself within `error_bound` and the same bits as without
+    the output; a slot whose keys are all masked gives lse -inf and zeros,
+    no NaN."""
+    q, k, v, pp, bt, pos = _lse_case(cuda, grp, hd, pool)
+    pol = PrecisionPolicy(input_format="bf16")
+    o, lse = DA.paged_decode_cuda(q, k, v, pp, bt, pos, policy=pol,
+                                  lse=True)
+    plain = DA.paged_decode_cuda(q, k, v, pp, bt, pos, policy=pol)
+    assert torch.equal(o.view(torch.int32), plain.view(torch.int32))
+    o_ref, lse_ref = DA.paged_decode_ref(q, k, v, pp, bt, pos, policy=pol,
+                                         lse=True)
+    bound = DA.error_bound(q, k, v, pp, bt, pos, policy=pol)
+    assert bool(((o - o_ref).abs() <= bound).all())
+    live = torch.isfinite(lse_ref)
+    assert live[:3].all() and not live[3].any()
+    assert torch.equal(torch.isfinite(lse), live)
+    lb = DA.lse_error_bound(q, k, v, pp, bt, pos, policy=pol)
+    assert bool(((lse - lse_ref).abs()[live] <= lb[live]).all())
+    assert not torch.isnan(o).any() and not o[3].any()
+
+
+def _halves(bt, pos, psz=16):
+    """Each slot's pages split into its first and second half of keys
+    (the pages not in a half unmapped): two block tables."""
+    first, second = bt.clone(), bt.clone()
+    for b in range(bt.shape[0]):
+        n = int(pos[b]) // psz + 1
+        first[b, n // 2:] = -1
+        second[b, :n // 2] = -1
+    return first, second
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx"])
+@pytest.mark.parametrize("grp,hd", [(5, 128), (2, 256)])
+def test_fold_of_two_halves_matches_the_whole(cuda, grp, hd, mode):
+    """Each slot's keys split into two halves, each half's attention with
+    its log-sum-exp from the kernel, folded (`layers.fold_partials`): the
+    whole slot's kernel output within `error_bound(folded=True)`. The
+    fully masked slot folds to zeros."""
+    from repro_torch.models.layers import fold_partials
+
+    q, k, v, pp, bt, pos = _lse_case(cuda, grp, hd, torch.bfloat16)
+    pol = PrecisionPolicy(input_format="bf16", mode=mode)
+    whole = DA.paged_decode_cuda(q, k, v, pp, bt, pos, policy=pol)
+    parts = [DA.paged_decode_cuda(q, k, v, pp, t, pos, policy=pol, lse=True)
+             for t in _halves(bt, pos)]
+    got = fold_partials(torch.stack([o for o, _ in parts]),
+                        torch.stack([s for _, s in parts]))
+    bound = DA.error_bound(q, k, v, pp, bt, pos, policy=pol, folded=True)
+    assert bool(((got - whole).abs() <= bound).all())
+    assert not got[3].any() and not torch.isnan(got).any()
+
+
+def test_fold_with_a_fully_masked_half_is_the_other_half(cuda):
+    """A half whose keys are all masked (as every rank's but the first
+    early in a batch-1 decode) gives lse -inf and zeros; the fold then
+    returns the other half's output bit for bit."""
+    from repro_torch.models.layers import fold_partials
+
+    q, k, v, pp, bt, pos = _lse_case(cuda, 5, 128, torch.float32)
+    pol = PrecisionPolicy(input_format="bf16")
+    empty = torch.full_like(bt, -1)
+    o0, s0 = DA.paged_decode_cuda(q, k, v, pp, empty, pos, policy=pol,
+                                  lse=True)
+    o1, s1 = DA.paged_decode_cuda(q, k, v, pp, bt, pos, policy=pol, lse=True)
+    assert not torch.isfinite(s0).any() and not o0.any()
+    got = fold_partials(torch.stack([o0, o1]), torch.stack([s0, s1]))
+    assert torch.equal(got[:3].view(torch.int32), o1[:3].view(torch.int32))
+    assert not got[3].any() and not torch.isnan(got).any()

@@ -501,15 +501,20 @@ def test_one_rank_mesh_gives_the_one_process_digest(worlds, arch):
 
 @pytest.mark.parametrize("case", ["fsdp-data2", "serve-data2"])
 def test_moe_refusals(case):
-    """Still refused by name: a data axis when serving. Training MoE over
-    a data axis is admitted, and FSDP at data 1 and above (llama4's
-    leaves cut over `data` too, tests/test_torch_fsdp.py)."""
+    """Still refused by name: serving a paged pool over a data axis that
+    does not divide the batch; serving over one that does is admitted
+    (ROADMAP 7b). Training MoE over a data axis is admitted, and FSDP at
+    data 1 and above (llama4's leaves cut over `data` too,
+    tests/test_torch_fsdp.py)."""
     if case == "fsdp-data2":
         TM.check_parallel(get_config(LLAMA4), 2, 2)
         TM.check_parallel(get_config(LLAMA4), 2, 1)
     else:
         with pytest.raises(ValueError, match="data axis"):
-            TM.check_parallel(get_config(GRANITE), 2, 2, serving=True)
+            TM.check_parallel(get_config(GRANITE), 2, 2, serving=True,
+                              batch=3, kv_layout="paged")
+        TM.check_parallel(get_config(GRANITE), 2, 2, serving=True,
+                          batch=2, kv_layout="paged")
         TM.check_parallel(get_config(GRANITE), 2, 2)
 
 

@@ -132,16 +132,22 @@ def test_sharding_rules_equal_jax(arch, mesh):
 
 
 def test_refusals():
-    """What the mesh still refuses, with a reason: a data axis when
-    serving (ROADMAP 7b). Every family trains at any mesh (the MoE family
-    in tests/test_torch_moe_parallel.py, the SSM, hybrid and frontend
-    families in tests/test_torch_family_parallel.py), FSDP over a data
-    axis above 1 too (llama4, tests/test_torch_fsdp.py)."""
+    """What the mesh still refuses, with a reason: a paged pool when
+    serving where the data axis does not divide the batch (it names the
+    ring layout, whose rows split over `data`). Serving over a data axis
+    that divides the batch, and the ring at batch 1, are admitted (ROADMAP
+    7b, tests/test_torch_serve_data.py). Every family trains at any mesh
+    (the MoE family in tests/test_torch_moe_parallel.py, the SSM, hybrid
+    and frontend families in tests/test_torch_family_parallel.py), FSDP
+    over a data axis above 1 too (llama4, tests/test_torch_fsdp.py)."""
     from repro_torch.models.model import check_parallel
-    with pytest.raises(ValueError, match="7b"):
-        check_parallel(get_config("qwen2.5-14b"), 2, 2, serving=True)
+    qwen = get_config("qwen2.5-14b")
+    with pytest.raises(ValueError, match="--kv ring"):
+        check_parallel(qwen, 2, 2, serving=True, batch=1, kv_layout="paged")
+    check_parallel(qwen, 2, 2, serving=True, batch=4, kv_layout="paged")
+    check_parallel(qwen, 2, 2, serving=True, batch=1, kv_layout="ring")
     check_parallel(get_config("llama4-maverick-400b-a17b"), 2, 2)
-    check_parallel(get_config("qwen2.5-14b"), 4, 2)
+    check_parallel(qwen, 4, 2)
 
 
 # ---------------------------------------------------------------------------

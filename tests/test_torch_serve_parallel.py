@@ -282,7 +282,7 @@ def worlds(tmp_path_factory):
     jq, nq = _weights(QWEN)
     jg, ng = _weights(GEMMA3)
     tq = reduced_config(QWEN)
-    refusal = ["--arch", "granite-moe-3b-a800m"] + DRV[2:]
+    moe = ["--arch", "granite-moe-3b-a800m"] + DRV[2:]
     runs2 = {"unified": DRV, "disagg": DRV + ["--disagg",
                                               "--prefill-workers", "2"],
              "ring": DRV + ["--kv", "ring"],
@@ -291,7 +291,7 @@ def worlds(tmp_path_factory):
                                 "2"],
              "spec_warmup": DRV + ["--model-parallel", "2", "--spec-warmup",
                                    "2"],
-             "moe": refusal + ["--model-parallel", "1"]}
+             "moe": moe + ["--model-parallel", "1"]}
     for k in ("unified", "disagg", "ring"):
         runs2[k] = runs2[k] + ["--model-parallel", "2"]
     runs4 = {"unified": DRV + ["--model-parallel", "4"],
@@ -306,6 +306,7 @@ def worlds(tmp_path_factory):
     ctx = [
         _spawn(os.path.join(base, "qwen2"), 2,
                {"cfg": tq, "params": nq, "runs": runs2, "clocked": True,
+                "whole_weights": ("data2",), "own_weights": ("moe",),
                 "handoff": {(1, 2): handoff[(1, 2)]},
                 "generate": (gen_prompts, 5),
                 "engine": {"cfg": dataclasses.replace(
@@ -327,6 +328,8 @@ def worlds(tmp_path_factory):
     tparams = params_from_numpy(nq, "cpu")
     with TP.use_policy(FP32_T):
         one = drv.main(DRV, params=tparams)
+        # granite's stream in one process, on the weights of `--seed`
+        one_moe = drv.main(moe)
         clocked = _one_process_clocked(tq, tparams)
         generated = ServeEngine(tq, tparams, batch=2, cache_len=24,
                                 eos_id=-1, sync_every=2,
@@ -338,7 +341,8 @@ def worlds(tmp_path_factory):
                   for r in range(n)]
            for name, n in (("qwen2", 2), ("qwen4", 4))}
     return {"res": res, "jax_digest": want["stream_digest"],
-            "one": one, "refs": refs, "gemma_ref": gemma_ref,
+            "one": one, "one_moe": one_moe, "refs": refs,
+            "gemma_ref": gemma_ref,
             "clocked": clocked, "generated": generated}
 
 
@@ -484,20 +488,33 @@ def test_reshard_handoff_is_the_identity_without_a_mesh():
 # ---------------------------------------------------------------------------
 
 def test_refusals_on_the_mesh(worlds):
-    """Under a mesh the driver refuses by name: a data axis above 1 (the
-    dense and the MoE family alike), `--decode-replicas` and
-    `--spec-warmup`."""
+    """Under a mesh the driver refuses by name `--decode-replicas` and
+    `--spec-warmup`. A data axis above 1 is served (the dense and the MoE
+    family alike, at (2, 1), each data rank its own slot from its own
+    range of pages): the dense stream is the JAX driver's digest, the MoE
+    stream the one-process driver's on the same `--seed` weights."""
     for rank in worlds["res"]["qwen2"]:
         runs = rank["runs"]
-        assert "data axis" in runs["data2"]["error"]
-        assert "data axis" in runs["moe"]["error"]
+        assert "error" not in runs["data2"], runs["data2"]
+        assert runs["data2"]["digest"] == worlds["jax_digest"]
+        assert "error" not in runs["moe"], runs["moe"]
+        assert runs["moe"]["digest"] == worlds["one_moe"]["stream_digest"]
+        assert runs["moe"]["summary"]["pages_leaked"] == 0
         assert "--decode-replicas" in runs["replicas"]["error"]
         assert "--spec-warmup" in runs["spec_warmup"]["error"]
 
 
 def test_serving_refuses_a_data_axis():
+    """Serving over a data axis passes at (2, 2); a paged pool where the
+    data axis does not divide the batch is refused by name, pointing to
+    the ring layout, whose rows split over `data`."""
+    TM.check_parallel(get_config(QWEN), 2, 2, serving=True, batch=4,
+                      kv_layout="paged")
+    TM.check_parallel(get_config(QWEN), 2, 2, serving=True, batch=3,
+                      kv_layout="ring")
     with pytest.raises(ValueError, match="data axis"):
-        TM.check_parallel(get_config(QWEN), 2, 2, serving=True)
+        TM.check_parallel(get_config(QWEN), 2, 2, serving=True, batch=3,
+                          kv_layout="paged")
     TM.check_parallel(get_config(QWEN), 4, 1, serving=True)
 
 
