@@ -6102,10 +6102,12 @@ def train_step0(torch, cfg, accum=TRAIN_ACCUM, jac_leaf="/layers/0/ffn/wg",
             "fault_transposed": r_t, "fault_jacobian": r_j}
 
 
-def profile_train_step(torch, cfg, args, state):
+def profile_train_step(torch, cfg, args, state, hold=None):
     """Where a training step's time goes: one more step (the seventh
     batch) under torch.profiler, CUDA activity only: the device's busy
-    and idle share of the wall and the kernels that take the time."""
+    and idle share of the wall and the kernels that take the time.
+    `hold(run, step_args)`, where given, runs that step (the dryrun
+    phase's hold of the train cell, `_dry_hold`)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import SyntheticLM
@@ -6121,7 +6123,10 @@ def profile_train_step(torch, cfg, args, state):
     torch.cuda.synchronize()
     t0 = time.monotonic()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
+        if hold is None:
+            step(state, batch)
+        else:
+            hold(lambda: step(state, batch), (state, batch))
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
     ks = device_kernels(torch, prof)
@@ -6169,7 +6174,16 @@ def train(torch, card):
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in _grad_leaves(torch, state.params)
                    .values())
-    profile_train_step(torch, cfg, args, state)
+    # the dryrun phase's train cell: the dry run of this phase's step (the
+    # same config, batch and accum), held against its seventh step
+    from repro_torch.models.config import ShapeCfg
+    rec = _dry_count(cfg, ShapeCfg("train_4x512", TRAIN_SEQ, TRAIN_BATCH,
+                                   "train"), accum=TRAIN_ACCUM)
+    dry, dry_problems = {}, []
+    profile_train_step(torch, cfg, args, state, lambda run, a: dry.update(
+        _dry_hold(torch, "train", rec, run, a, card, dry_problems)))
+    if dry_problems:
+        raise AssertionError("dryrun phase: " + "; ".join(dry_problems))
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -6212,7 +6226,238 @@ def train(torch, card):
                         f"{want_tiles}")
     if problems:
         raise AssertionError("train phase failed: " + "; ".join(problems))
-    return counts["sa_matmul_bwd"]["launches"], step0, routes, tiles
+    return counts["sa_matmul_bwd"]["launches"], step0, routes, tiles, dry
+
+
+# ---------------------------------------------------------------------------
+# the dryrun phase: the dry run's counts (launch/dryrun.py, a step on the
+# meta device) held against the same steps run for real on the card
+# ---------------------------------------------------------------------------
+
+DRY_LAYERS = 4                   # full width, cut to 4 layers
+DRY_PREFILL = (4, 1024)          # rows x tokens
+DRY_DECODE = (8, 2048)           # slots x tokens of the pool, page PAGE
+DRY_PEAK_FLOOR = 0.85            # predicted peak / measured, at least
+DRY_PRODUCTION = ("qwen2.5-14b", "decode_32k", "pod", "paged")
+
+
+def _dry_run_cell(*args, **kw):
+    """`launch.dryrun.run_cell` in this process: its `fake` process group
+    ended after, and the exception hook that starting a group installs
+    (a rank prefix on every later traceback) put back."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun as D
+
+    hook = sys.excepthook
+    try:
+        return D.run_cell(*args, **kw)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        sys.excepthook = hook
+
+
+def _dry_count(cfg, shape, kv="ring", page_size=None, accum=None):
+    """The dry run's record of one cell on a (1, 1) mesh (this process as
+    the one rank of a `fake` group)."""
+    from repro_torch.parallel.mesh import MeshSpec
+
+    rec = _dry_run_cell(cfg.name, shape.name, "1x1", cfg=cfg, shape=shape,
+                        spec=MeshSpec(("data", "model"), (1, 1)), kv=kv,
+                        page_size=page_size, accum=accum)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry run of {cfg.name} {shape.name}: "
+                             f"{rec.get('error') or rec}")
+    return rec
+
+
+def _dry_hold(torch, tag, rec, run, args, card, problems):
+    """Run `run()` (one real step on `args`, on the card) and hold `rec`,
+    the dry run's record of the same cell, to it: launches by kernel,
+    route and tile equal to the ops counters' deltas, argument bytes equal
+    to the real arguments', the predicted peak (arguments, outputs and
+    temporaries) at least DRY_PEAK_FLOOR of the measured one (the
+    arguments plus what the step allocated above them,
+    `max_memory_allocated`). Returns the reading."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cost import storage_bytes
+
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    run()
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t
+    step_bytes = torch.cuda.max_memory_allocated() - base
+    real = {"counts": {k: v["launches"] for k, v in ops.counts().items()},
+            "routes": ops.route_counts(), "tiles": ops.tile_counts()}
+    pred = {k: rec["launches"][k] for k in ("counts", "routes", "tiles")}
+    arg = storage_bytes(args)
+    mem = rec["memory"]
+    measured = arg + step_bytes
+    ratio = mem["peak_estimate_bytes"] / measured
+    out = {"launches": sum(real["counts"].values()),
+           "launches_equal": pred == real,
+           "argument_bytes": arg, "predicted_argument_bytes":
+               mem["argument_bytes"],
+           "measured_peak_bytes": measured,
+           "predicted_peak_bytes": mem["peak_estimate_bytes"],
+           "predicted_over_measured": ratio,
+           "measured_over_predicted": measured / mem["peak_estimate_bytes"],
+           "step_over_args_bytes": step_bytes,
+           "predicted_output_temp_bytes": mem["output_bytes"]
+           + mem["temp_peak_bytes"],
+           "flops": rec["flops"], "kernel_bytes": rec["kernel_bytes"],
+           "eager_bytes": rec["eager_bytes"], "host_ops": rec["host_ops"],
+           "dry_seconds": rec["seconds"], "step_s": step_s}
+    log(f"[dryrun] {tag}: launches {out['launches']} "
+        f"{'equal' if pred == real else 'DIFFER'}; argument bytes "
+        f"{arg} real, {mem['argument_bytes']} predicted; peak "
+        f"{measured / 2 ** 30:.3f} GiB measured, "
+        f"{mem['peak_estimate_bytes'] / 2 ** 30:.3f} GiB predicted "
+        f"(predicted/measured {ratio:.4f}, measured/predicted "
+        f"{1 / ratio:.4f}); {card}")
+    if pred != real:
+        log(f"[dryrun] {tag}: predicted {json.dumps(pred)}")
+        log(f"[dryrun] {tag}: measured  {json.dumps(real)}")
+        problems.append(f"{tag}: launches differ")
+    if arg != mem["argument_bytes"]:
+        problems.append(f"{tag}: argument bytes {arg} != "
+                        f"{mem['argument_bytes']}")
+    if ratio < DRY_PEAK_FLOOR:
+        problems.append(f"{tag}: predicted peak {ratio:.4f} of the "
+                        f"measured one")
+    return out
+
+
+def _dry_pool(torch, cache, B, T, psz):
+    """Every slot of a paged cache mapped to its own T / psz pages (page 0
+    the trash page), every row at its position: a full cache of T."""
+    from repro_torch.models.layers import PagedKVCache
+
+    P = T // psz
+    table = (1 + torch.arange(B * P, dtype=torch.int32, device="cuda")
+             ).reshape(B, P)
+    rows = torch.arange(T, dtype=torch.int32, device="cuda").reshape(P, psz)
+    for c in cache:
+        kv = c.get("kv")
+        if isinstance(kv, PagedKVCache):
+            kv.block_table.copy_(table.expand_as(kv.block_table))
+            kv.positions[:, 1:1 + B * P] = rows.repeat(B, 1)
+
+
+def dryrun_serving(torch, card):
+    """The dry run's prefill and decode cells against real steps: qwen at
+    full width cut to DRY_LAYERS layers, a prefill of DRY_PREFILL and a
+    decode step of DRY_DECODE slots over a paged pool of pages of PAGE
+    (the serve stream's page); granite (dropless) and mamba2 decode steps
+    at the same depth. Then a production cell's dry run on this host
+    (DRY_PRODUCTION), and the 4-layer qwen decode step's host_ops beside
+    the CUDA launches torch.profiler counts over the same real step."""
+    from repro_torch.configs import cut_depth, get_config
+    from repro_torch.core.precision import PrecisionPolicy, use_policy
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeCfg
+    from repro_torch.parallel.mesh import MeshSpec
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    problems, out = [], {}
+    fresh_tune_cache("dryrun")      # the heuristic's tiles, as on meta
+    g = torch.Generator(device="cuda").manual_seed(7)
+    pol = PrecisionPolicy(backend="cuda")
+    rows, T = DRY_PREFILL
+    B, S = DRY_DECODE
+    cells = [("qwen_prefill", ARCH, ShapeCfg("prefill_4x1024", T, rows,
+                                             "prefill"), "ring"),
+             ("qwen_decode", ARCH, ShapeCfg("decode_8x2048", S, B,
+                                            "decode"), "paged"),
+             ("granite_decode", GRANITE, ShapeCfg("decode_8x2048", S, B,
+                                                  "decode"), "paged"),
+             ("mamba2_decode", MAMBA2, ShapeCfg("decode_8x2048", S, B,
+                                                "decode"), "ring")]
+    qwen_decode = None
+    for tag, arch, shape, kv in cells:
+        cfg = cut_depth(get_config(arch), DRY_LAYERS)
+        rec = _dry_count(cfg, shape, kv, PAGE)
+        params = M.init_params(cfg, seed=0, device="cuda",
+                               dtype=torch.bfloat16)
+        paged = kv == "paged" and shape.kind == "decode"
+        pages = SP.pool_pages_for(MeshSpec(("data", "model"), (1, 1)),
+                                  shape.global_batch, shape.seq_len,
+                                  PAGE) if paged else None
+        cache = M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                             dtype=torch.bfloat16, device="cuda",
+                             paged=(pages, PAGE) if paged else None)
+        n = shape.global_batch
+        if shape.kind == "prefill":
+            tokens = torch.randint(0, cfg.vocab_size, (n, shape.seq_len),
+                                   generator=g, device="cuda",
+                                   dtype=torch.int32)
+            step, args = make_prefill_step(cfg), (params, tokens, cache)
+        else:
+            if paged:
+                _dry_pool(torch, cache, n, shape.seq_len, PAGE)
+            tokens = torch.randint(0, cfg.vocab_size, (n, 1), generator=g,
+                                   device="cuda", dtype=torch.int32)
+            pos = torch.full((n,), shape.seq_len - 1, dtype=torch.int32,
+                             device="cuda")
+            step = make_serve_step(cfg, PAGE)
+            args = (params, tokens, cache, pos)
+
+        def run(step=step, args=args):
+            with use_policy(pol), torch.no_grad():
+                step(*args)
+        out[tag] = _dry_hold(torch, tag, rec, run, args, card, problems)
+        if tag == "qwen_decode":
+            qwen_decode = (run, rec)
+        del params, cache, args, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the 4-layer qwen decode step: the aten ops the dry run says would
+    # launch, beside the CUDA kernels the profiler sees (no gate)
+    from torch.profiler import ProfilerActivity, profile
+
+    run, rec = qwen_decode
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ks = device_kernels(torch, prof)
+    seen = sum(n for _, n in ks.values())
+    n_kernels = (sum(rec["launches"]["counts"].values())
+                 - rec["launches"]["counts"]["paged_decode_lse"]
+                 + sum(v for k, v in rec["launches"]["other"].items()
+                       if k != "operand_copy"))
+    out["qwen_decode"]["profiler_launches"] = seen
+    log(f"[dryrun] qwen_decode host_ops {rec['host_ops']} + kernel launches "
+        f"{n_kernels} = {rec['host_ops'] + n_kernels} predicted; CUDA "
+        f"launches the profiler counts over the same step: {seen}; {card}")
+    del qwen_decode, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a production cell on this host
+    t = time.monotonic()
+    prod = _dry_run_cell(*DRY_PRODUCTION[:3], kv=DRY_PRODUCTION[3])
+    log(f"[dryrun] production {D.summary_line(prod)} (host wall "
+        f"{time.monotonic() - t:.1f} s)")
+    if prod["status"] != "ok":
+        problems.append(f"production cell {prod['status']}: "
+                        f"{prod.get('error')}")
+    out["production"] = {k: prod.get(k) for k in (
+        "status", "memory", "flops", "kernel_bytes", "eager_bytes",
+        "host_ops", "seconds")} | {
+        "launches": sum(prod.get("launches", {}).get("counts", {}).values()),
+        "collectives_mib": prod.get("collectives", {}).get("total", 0)
+        / 2 ** 20}
+    if problems:
+        raise AssertionError("dryrun phase: " + "; ".join(problems))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -8143,7 +8388,8 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
     done), pixtral's serve, granite's training and the qwen serve phases
     (~30 GiB) once those worlds have ended, beside
     the lane's later worlds (at most 35 GiB), the second tuned process and
-    the examples (~38 GiB), then emulate, the study (~30 GiB) and pixtral's
+    the examples (~38 GiB), the dry run's serving cells
+    (`dryrun_serving`, at most ~6 GiB), then emulate, the study (~30 GiB) and pixtral's
     training (39 GiB), once its (1, 2) world has ended; llama4's (35 GiB),
     the checks that read the lane's results and the train phase after the
     lane has ended. The
@@ -8288,6 +8534,13 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the dry run's serving cells against real steps (at most ~6 GiB),
+    # once the tuned runs are done: on the heuristic's tiles, as on meta
+    dry = step("dryrun", lambda: dryrun_serving(torch, card))
+    for k_ in (0, 2, 3):
+        kernels[k_]["readings"]["dryrun"] = dry
+    log("[dryrun] " + json.dumps(dry))
+
     # emulate and the study beside the lane's last worlds (~30 GiB here,
     # at most 30.5 GiB there): the lane's worlds are the
     # run's longest path
@@ -8423,8 +8676,9 @@ def _serve_phases(torch, card, kernels, launches, phases, state):
         for arch in (WHISPER, PIXTRAL)}))
 
     t = time.monotonic()
-    launches["sa_matmul_bwd"], _, train_routes, train_tiles = train(
+    launches["sa_matmul_bwd"], _, train_routes, train_tiles, dry = train(
         torch, card)
+    kernels[1]["readings"]["dryrun_train"] = dry
     kernels[1]["readings"]["train_routes"] = train_routes
     kernels[0]["readings"]["large_tile"]["train_tile_launches"] = \
         train_tiles

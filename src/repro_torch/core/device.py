@@ -12,3 +12,10 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass "
                            "device='cpu' (--device cpu) to run on the CPU")
     return dev
+
+
+def card_program(device) -> bool:
+    """Whether tensors on `device` run the card's program (bf16
+    containers, the kernels' routes): a CUDA device, or the meta device,
+    on which the dry run stands in for the card (`launch/dryrun.py`)."""
+    return torch.device(device).type in ("cuda", "meta")

@@ -51,8 +51,10 @@ def enabled(name: str) -> bool:
 
 def prefill_kernel_on(device) -> bool:
     """Serving prefill runs the hand-written flash kernel: on for CUDA
-    tensors, off for CPU ones (there it is the plain blockwise path)."""
-    return enabled("pallas_attention") and str(device).startswith("cuda")
+    tensors (and meta ones, the dry run's card), off for CPU ones (there
+    it is the plain blockwise path)."""
+    from .device import card_program
+    return enabled("pallas_attention") and card_program(device)
 
 
 _GEMM_BACKENDS = ("torch", "cuda", "emulate")

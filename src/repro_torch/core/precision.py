@@ -49,8 +49,10 @@ def exact_cpu_containers(device) -> bool:
     Every reduced-format value is exact in fp32 and products of <= 12-bit
     significands are exact in fp32, so carrying quantized values in fp32
     containers on the CPU is bit-identical to the bf16 contract; on the
-    card the operands stay bf16 (half the bytes) and the kernels upcast."""
-    return torch.device(device).type != "cuda"
+    card the operands stay bf16 (half the bytes) and the kernels upcast.
+    The meta device (the dry run) takes the card's containers."""
+    from .device import card_program
+    return not card_program(device)
 
 
 @dataclasses.dataclass(frozen=True)

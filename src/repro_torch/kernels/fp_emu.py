@@ -26,12 +26,19 @@ off the chain. A GEMM is bound by K times that path's latency where few
 outputs are in flight (decode) and by instruction issue where many are
 (prefill); `launch_plan` picks, from (M, N), how many chains a thread
 interleaves and how the warps spread over the SMs.
+
+A meta tensor takes the kernel's meta route: the same checks and plan as
+a CUDA tensor, then a meta output and a record for the cost counters
+(`core/tally.py`) in place of the launch; the launch counters do not
+move.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from repro_torch.core import tally
 
 from repro_torch.core.chained_fma import ACC_MSB, APPROX_COARSE, E_ZERO, GUARD
 from repro_torch.core.fpformats import get_format
@@ -250,9 +257,9 @@ def _launch(a: torch.Tensor, w: torch.Tensor, fmt_name: str, mode: str,
 
     fmt = _check_args(a, w, fmt_name, mode)
     for t in (a, w):
-        if not t.is_cuda or t.device != a.device:
+        if not (t.is_cuda or t.is_meta) or t.device != a.device:
             raise ValueError("fma_emu_matmul_cuda needs both operands on "
-                             "one CUDA device")
+                             "one CUDA device (or the meta device)")
         if t.dtype not in _DTYPE_CODE:
             raise ValueError(f"fma_emu_matmul_cuda takes fp32, bf16 or "
                              f"fp16 containers, got {t.dtype}")
@@ -270,6 +277,11 @@ def _launch(a: torch.Tensor, w: torch.Tensor, fmt_name: str, mode: str,
             "rows") not in ROWS:
         raise ValueError(f"fp_emu plan {plan}: kernel in {KERNELS}; for ilp "
                          f"rows in {ROWS}")
+    if a.is_meta:
+        tally.kernel("fp_emu", route=plan["kernel"], flops=2 * M * N * K,
+                     nbytes=(a.numel() * a.element_size()
+                             + w.numel() * w.element_size() + 4 * M * N))
+        return out
     fn = function("fp_emu", "fp_emu_launch",
                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                   + [ctypes.c_void_p])
@@ -289,8 +301,9 @@ def fma_emu_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
     (M, N) fp32."""
     global LAUNCHES
     out = _launch(a, w, fmt_name, mode)
-    LAUNCHES += 1
-    MODE_LAUNCHES[mode] += 1
+    if not out.is_meta:
+        LAUNCHES += 1
+        MODE_LAUNCHES[mode] += 1
     return out
 
 

@@ -2,11 +2,15 @@
 
 A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
 to the hand-written kernel, which launches or raises. There is no fallback
-from the kernel to the plain version.
+from the kernel to the plain version. A meta tensor (the dry run,
+`launch/dryrun.py`) goes to the kernel's wrapper too and takes its meta
+route: the launch's checks and plan, a meta output, and a record for the
+cost counters (`core/tally.py`) in place of the launch.
 
 Each kernel module keeps two plain integers: `LAUNCHES` (kernel launches)
 and `PLAIN_CALLS` (calls of its plain version). `counts()` reads them and
-`reset_counts()` sets them to 0, so a run can show which path it took;
+`reset_counts()` sets them to 0, so a run can show which path it took
+(a meta route moves none of them);
 `route_counts()` splits the SA GEMM's launches (forward and backward) and
 the prefill kernel's by route, `tile_counts()` the SA GEMM's tensor-core
 launches by tile, `operand_copies()` counts the operands its launches

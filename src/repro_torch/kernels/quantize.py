@@ -13,12 +13,19 @@ The kernel (`csrc/quantize.cu`) is bound by bytes: 8 per fp32 element
 integer operations. It reads 16 bytes a thread (four fp32 or eight bf16
 values) and reads `scale` from device memory, so a caller whose scale is
 computed on the card (`amax_scale`) never waits on the host.
+
+A meta tensor takes the kernel's meta route: the same checks and plan as
+a CUDA tensor, then a meta output and a record for the cost counters
+(`core/tally.py`) in place of the launch; the launch counters do not
+move.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from repro_torch.core import tally
 
 from repro_torch.core.fpformats import get_format, round_fp8
 
@@ -65,8 +72,8 @@ def quantize_fp8_cuda(x: torch.Tensor, scale, fmt_name: str = "fp8_e4m3"
     from .build import check, function
 
     fmt = _fp8(fmt_name)
-    if not x.is_cuda:
-        raise ValueError("quantize_fp8_cuda needs a CUDA tensor")
+    if not (x.is_cuda or x.is_meta):
+        raise ValueError("quantize_fp8_cuda needs a CUDA (or meta) tensor")
     if x.dtype not in _IN_CODE:
         x = x.to(torch.float32)
     x = x.contiguous()
@@ -74,6 +81,9 @@ def quantize_fp8_cuda(x: torch.Tensor, scale, fmt_name: str = "fp8_e4m3"
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     n = x.numel()
     if n == 0:
+        return out
+    if x.is_meta:
+        tally.kernel("quantize", nbytes=n * (x.element_size() + 4) + 4)
         return out
     fn = function("quantize", "quantize_fp8_launch",
                   [ctypes.c_void_p] * 3 + [ctypes.c_longlong]

@@ -46,12 +46,20 @@ and write out (B, T, H, hd) contiguous: the layer's `attention_block`
 hands its rotated q view over as it is, and `attn_out` reshapes the
 result without a copy. Causal tiles past a block's last query are
 skipped.
+
+A meta tensor takes the kernel's meta route: the same checks and plan as
+a CUDA tensor, then a meta output and a record for the cost counters
+(`core/tally.py`) in place of the launch; the launch counters do not
+move.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+
+from repro_torch.core import tally
 
 LAUNCHES = 0       # kernel launches through `sa_attention_cuda`
 PLAIN_CALLS = 0    # calls of the plain version `flash_attention_ref`
@@ -195,6 +203,19 @@ def launch_plan(B: int, T: int, H: int, hd: int, input_format: str,
     return plan
 
 
+def visible_pairs(T: int, S: int, causal: bool = True, window: int = 0,
+                  q_offset: int = 0) -> int:
+    """The (query, key) pairs the masks leave visible: query i sits at
+    position q_offset + i over keys at positions 0..S-1; causal keeps keys
+    at or before it, a window the last `window` of those. Attention's work
+    is 4·hd flops a pair a query head (q·k and p·v), whatever computes
+    it."""
+    qpos = q_offset + np.arange(T, dtype=np.int64)
+    hi = np.minimum(qpos + 1, S) if causal else np.full(T, S)
+    lo = np.maximum(qpos - window + 1, 0) if window and causal else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
 def _strides(t) -> list:
     """(batch, row, head) strides of a (B, rows, heads, hd) view whose last
     dimension is contiguous and whose rows start on 16 bytes (0 for a
@@ -233,9 +254,9 @@ def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
                          f"input_format={policy.input_format!r} / "
                          f"output_format={policy.output_format!r}")
     for t in (q, k, v):
-        if not t.is_cuda or t.device != q.device:
+        if not (t.is_cuda or t.is_meta) or t.device != q.device:
             raise ValueError("sa_attention_cuda needs q, k, v on one CUDA "
-                             "device")
+                             "device (or the meta device)")
     B, T, H, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
     if k.dtype not in _KV_DTYPES or v.dtype != k.dtype:
@@ -256,6 +277,13 @@ def sa_attention_cuda(q, k, v, *, causal=True, window=0, cap=0.0,
     k, v = k.to(kv_dtype), v.to(kv_dtype)
     strides = [*_strides(q), *_strides(k), *_strides(v)]
     out = torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        tally.kernel("prefill_attention", route=route,
+                     flops=4 * hd * H * B * visible_pairs(
+                         T, S, causal, window, q_offset),
+                     nbytes=sum(t.numel() * t.element_size()
+                                for t in (q, k, v, out)))
+        return out
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, KVH, T, S, hd, *strides, float(scale), float(cap or 0.0),
             int(causal), int(window), int(q_offset)]

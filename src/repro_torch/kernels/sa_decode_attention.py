@@ -45,6 +45,13 @@ row loads, and each value is widened exactly and cast in as before, so the
 order of the sums does not depend on it. Under the bf16 policy a bf16 pool
 gives the fp32 pool's output bit for bit (its values are the fp32 ones
 rounded once, as cast_in rounds them), and halves the bytes.
+
+A meta tensor takes the kernel's meta route: the same checks and plan as
+a CUDA tensor (`launch_plan`; the tuner's cache is the card's, so the
+meta route takes the plan's own split, as a card with no tuned entry
+does), then a meta output and a record for the cost counters
+(`core/tally.py`) in place of the launch; the launch counters do not
+move.
 """
 from __future__ import annotations
 
@@ -52,6 +59,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core import tally
 
 from . import autotune
 
@@ -249,18 +258,22 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
             f"{policy.input_format!r} / output_format="
             f"{policy.output_format!r}; use the gather path")
     for t in (q, k_pool, v_pool, page_positions, block_table, pos):
-        if not t.is_cuda or t.device != q.device:
+        if not (t.is_cuda or t.is_meta) or t.device != q.device:
             raise ValueError("paged_decode_cuda needs every operand on one "
-                             "CUDA device")
+                             "CUDA device (or the meta device)")
     B, _, H, hd = q.shape
     psz, KVH = k_pool.shape[1], k_pool.shape[2]
     P = block_table.shape[1]
-    g = _group(q, k_pool, v_pool)
-    if n_split is None:
-        n_split = autotune.lookup_decode_attn(g, hd, psz, P,
-                                              dtype=k_pool.dtype, batch=B,
-                                              kvh=KVH)
-    plan = split_plan(g, hd, psz, P, n_split=n_split)
+    if q.is_meta:
+        plan = launch_plan(q, k_pool, v_pool, block_table, n_split)
+    else:
+        g = _group(q, k_pool, v_pool)
+        if n_split is None:
+            n_split = autotune.lookup_decode_attn(g, hd, psz, P,
+                                                  dtype=k_pool.dtype,
+                                                  batch=B, kvh=KVH)
+        plan = split_plan(g, hd, psz, P, n_split=n_split)
+    g = H // KVH
     scale = scale or hd ** -0.5
     cap = float(cap or 0.0)
     q = q.to(torch.float32).contiguous()
@@ -273,6 +286,14 @@ def paged_decode_cuda(q, k_pool, v_pool, page_positions, block_table, pos,
                      dtype=torch.float32, device=q.device)
     lse_out = (torch.empty((B, H), dtype=torch.float32, device=q.device)
                if lse else None)
+    if q.is_meta:
+        # the work depends on each row's live keys, which a meta tensor
+        # does not hold: the counter takes them from the cell
+        tally.kernel("paged_decode", lse=lse,
+                     decode=dict(B=B, H=H, KVH=KVH, hd=hd, psz=psz, P=P,
+                                 window=int(window),
+                                 pool_bytes=k_pool.element_size()))
+        return (out, lse_out) if lse else out
     fn = function(_POOL_LIBRARY[k_pool.dtype], "paged_decode_launch",
                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                   + [ctypes.c_float] * 3 + [ctypes.c_int] * 4

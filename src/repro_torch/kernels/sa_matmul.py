@@ -66,6 +66,15 @@ plain version.
 The sum's order differs from XLA's and from the plain version's; the
 contract holds it to a per-route bound (`error_bound`), and the tensor-core
 routes to the sharper `split_check` as well.
+
+A meta tensor takes the kernel's meta route: the same planning as a CUDA
+tensor (`_operand`, `gemm_route`, `mma_plan`, the operand copies, the
+split's planes), then a meta output and a record for the cost counters
+(`core/tally.py`: route, tile, 2·M·N·K flops, each operand read once and
+each output written once) in place of the launch; the launch counters
+do not move. Where the launch reads the card (its SM count) or the
+tuner's cache, the meta route takes the H100's SM count and the
+heuristic's tile (`mma_plan`), as a card with no tuned entry does.
 """
 from __future__ import annotations
 
@@ -75,6 +84,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import tally
 
 from . import autotune
 from .sa_attention import TC_GROUP
@@ -282,9 +293,12 @@ def mma_plan(m: int, n: int, route: str, sms: int = 132,
 
 
 _SMS: dict = {}
+H100_SMS = 132        # the H100 SXM's SMs: the meta route's card
 
 
 def _sm_count(device) -> int:
+    if device.type == "meta":
+        return H100_SMS
     if device not in _SMS:
         _SMS[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
@@ -315,7 +329,7 @@ def _aligned(st: torch.Tensor, ld: int):
     r, c = st.shape
     if ld % 8 == 0 and st.data_ptr() % 16 == 0:
         return st, ld
-    OPERAND_COPIES += 1
+    _copied(st)
     buf = torch.empty((r, -(-c // 8) * 8), dtype=st.dtype, device=st.device)
     buf[:, :c] = st
     return buf[:, :c], buf.shape[1]
@@ -347,6 +361,9 @@ def _split3_planes(st: torch.Tensor, ld: int) -> tuple[torch.Tensor, int]:
     r, c = st.shape
     ldp = -(-c // 8) * 8
     planes = torch.empty((3, r, ldp), dtype=torch.bfloat16, device=st.device)
+    if st.is_meta:
+        tally.kernel("sa_split3", nbytes=r * c * (4 + 3 * 2))
+        return planes, ldp
     fn = function("sa_matmul", "sa_split3_launch",
                   [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
@@ -422,12 +439,14 @@ def k16_probe(a: torch.Tensor, b: torch.Tensor):
 
 def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
                scale_dev, act, mode, out, raw, planes, tile=None):
-    """One launch of the tensor-core kernel (`mma` or `split3`). The
-    kernel's A carries the pieces: under `split3` with the fp32 operand on
-    the weight side the problem is transposed (C^T = W^T A^T) and written
-    back through the output's strides. An `mma` launch with no `tile`
-    takes the autotuner's (`autotune.lookup`: the cached winner for (M, N,
-    K, epilogue), else `mma_plan`'s heuristic)."""
+    """One launch of the tensor-core kernel (`mma` or `split3`) → (its
+    tile, the bytes of the operands it reads). The kernel's A carries the
+    pieces: under `split3` with the fp32 operand on the weight side the
+    problem is transposed (C^T = W^T A^T) and written back through the
+    output's strides. An `mma` launch with no `tile` takes the
+    autotuner's (`autotune.lookup`: the cached winner for (M, N, K,
+    epilogue), else `mma_plan`'s heuristic; on the meta route the
+    heuristic's)."""
     from .build import check, function
 
     m, k = a.shape
@@ -455,10 +474,14 @@ def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
         a_st, lda_k = _aligned(a_st, A_ld)
         a_ptr, a_plane = a_st.data_ptr(), 0
     sms = _sm_count(out.device)
-    if tile is None and route == "mma":
+    if tile is None and route == "mma" and not out.is_meta:
         # the tuned tile, or mma_plan's own where the cache has none
         tile = autotune.lookup(M, N, k, epilogue=act, sms=sms)
     plan = mma_plan(M, N, route, sms, tile)
+    read = (M * k * 2 * plan["npiece"] + b_st.shape[0] * b_st.shape[1]
+            * b_st.element_size() + (0 if bias is None else 4 * n))
+    if out.is_meta:
+        return plan["tile"], read
     fn = function("sa_matmul", "sa_mma_launch", MMA_ARGTYPES)
     err = fn(a_ptr, plan["npiece"], int(A_kc), lda_k, a_plane,
              b_st.data_ptr(), int(B_kc), ldb,
@@ -471,23 +494,35 @@ def _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
              torch.cuda.current_stream(out.device).cuda_stream)
     check(err, f"sa_matmul ({route})")
     TILE_LAUNCHES[plan["tile"]] += 1
+    return plan["tile"], read
+
+
+def _copied(t):
+    """An operand a launch copied first: counted in OPERAND_COPIES, or on
+    the meta route for the cost counters."""
+    global OPERAND_COPIES
+    if t.is_meta:
+        tally.kernel("operand_copy")
+    else:
+        OPERAND_COPIES += 1
 
 
 def _launch(a, w, bias, scale, act, mode, save_raw, planes=None,
-            tile=None):
+            tile=None, kind="sa_matmul"):
     """One kernel launch: (out, raw or None), both (M, N) fp32. `planes`:
     the fp32 operand's three bf16 pieces, already split (`split3` only);
-    `tile` forces the `mma` route's tile (`mma_plan`; sweeps and tests)."""
+    `tile` forces the `mma` route's tile (`mma_plan`; sweeps and tests).
+    `kind` names the launch for the cost counters on the meta route
+    (`sa_matmul`, or `sa_matmul_bwd` for the backward's GEMMs)."""
     from .build import check, function
-    global OPERAND_COPIES
 
     _check_args(a, w, bias, act, mode)
     if a.ndim != 2 or w.ndim != 2:
         raise ValueError("sa_matmul_cuda takes 2-D operands")
     for t in (a, w) + (() if bias is None else (bias,)):
-        if not t.is_cuda or t.device != a.device:
+        if not (t.is_cuda or t.is_meta) or t.device != a.device:
             raise ValueError("sa_matmul_cuda needs every operand on one "
-                             "CUDA device")
+                             "CUDA device (or the meta device)")
     if a.dtype not in _DTYPE_CODE or w.dtype not in _DTYPE_CODE:
         raise ValueError(f"sa_matmul_cuda takes bf16 or fp32 operands, got "
                          f"{a.dtype} @ {w.dtype}")
@@ -508,12 +543,20 @@ def _launch(a, w, bias, scale, act, mode, save_raw, planes=None,
     a0, w0 = a, w
     a, a_kcont, lda = _operand(a)
     w, w_ncont, ldw = _operand(w)
-    OPERAND_COPIES += (a is not a0) + (w is not w0)
+    for t, t0 in ((a, a0), (w, w0)):
+        if t is not t0:
+            _copied(t)
     route = gemm_route(m, a.dtype, w.dtype, a_kcont, w_ncont)
+    written = m * n * 4 * (2 if save_raw else 1)
     if route in ("mma", "split3"):
-        _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw, bias, scale,
-                   scale_dev, act, mode, out, raw, planes, tile)
-        ROUTE_LAUNCHES[route] += 1
+        tile, read = _launch_tc(route, a, a_kcont, lda, w, w_ncont, ldw,
+                                bias, scale, scale_dev, act, mode, out, raw,
+                                planes, tile)
+        if out.is_meta:
+            tally.kernel(kind, route=route, tile=tile,
+                         flops=2 * m * n * k, nbytes=read + written)
+        else:
+            ROUTE_LAUNCHES[route] += 1
         return out, raw
     tiled = route == "simt"
     if not tiled:
@@ -523,6 +566,12 @@ def _launch(a, w, bias, scale, act, mode, save_raw, planes=None,
     # the workspace holds the slices' sums (partial) or the parts' (simt)
     ws = (torch.empty((plan["workspace"], m, n), dtype=torch.float32,
                       device=a.device) if plan["workspace"] else out)
+    if out.is_meta:
+        tally.kernel(kind, route=route, flops=2 * m * n * k,
+                     nbytes=(m * k * a.element_size()
+                             + k * n * w.element_size()
+                             + (0 if bias is None else 4 * n) + written))
+        return out, raw
     fn = function("sa_matmul", "sa_matmul_launch",
                   ([ctypes.c_void_p] + [ctypes.c_int] * 3) * 2
                   + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p]
@@ -552,8 +601,9 @@ def sa_matmul_cuda(a: torch.Tensor, w: torch.Tensor,
     epilogue reads there (no host sync)."""
     global LAUNCHES
     out, raw = _launch(a, w, bias, scale, act, mode, save_raw)
-    LAUNCHES += 1
-    MODE_LAUNCHES[mode] += 1
+    if not out.is_meta:
+        LAUNCHES += 1
+        MODE_LAUNCHES[mode] += 1
     return (out, raw) if save_raw else out
 
 
@@ -579,9 +629,12 @@ def backward_gemms(a: torch.Tensor, w: torch.Tensor, dus: torch.Tensor,
     dus = dus.to(torch.float32).contiguous()
     if planes is None and torch.bfloat16 in (a.dtype, w.dtype):
         planes, _ = _split3_planes(dus, dus.shape[1])
-    da, _ = _launch(dus, w.t(), None, None, "none", "exact", False, planes)
-    dw, _ = _launch(a.t(), dus, None, None, "none", "exact", False, planes)
-    BWD_LAUNCHES += 2
+    da, _ = _launch(dus, w.t(), None, None, "none", "exact", False, planes,
+                    kind="sa_matmul_bwd")
+    dw, _ = _launch(a.t(), dus, None, None, "none", "exact", False, planes,
+                    kind="sa_matmul_bwd")
+    if not dus.is_meta:
+        BWD_LAUNCHES += 2
     return da, dw
 
 

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import optflags
+from repro_torch.core import optflags, tally
 from repro_torch.core.precision import sa_dot, sa_einsum
 
 # ---------------------------------------------------------------------------
@@ -96,15 +96,20 @@ class _Flash(torch.autograd.Function):
     """Flash attention with the JAX package's custom VJP (`_flash`): the
     forward keeps only (out, lse); the backward recomputes the
     probabilities tile by tile, O(block²) memory. Plain torch, as the JAX
-    package computes it outside any Pallas kernel."""
+    package computes it outside any Pallas kernel. The cost counters
+    (`core/tally.py`) take its work as the function's: 4·hd flops a
+    visible (query, key) pair a query head forward, 8·hd backward (dP, dV,
+    dQ, dK), whatever the tiles compute around the masks."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, cap, q_offset, bq, bkv, scale,
                 policy):
         from repro_torch.kernels.sa_attention import flash_forward
-        out, lse = flash_forward(q, k, v, causal=causal, window=window,
-                                 cap=cap, q_offset=q_offset, bq=bq, bkv=bkv,
-                                 scale=scale, policy=policy)
+        _count_attention(q, k, causal, window, q_offset, 4)
+        with tally.in_function():
+            out, lse = flash_forward(q, k, v, causal=causal, window=window,
+                                     cap=cap, q_offset=q_offset, bq=bq,
+                                     bkv=bkv, scale=scale, policy=policy)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, cap, q_offset, bq, bkv, scale, policy)
         return out
@@ -112,8 +117,22 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        causal, window, _, q_offset = ctx.args[:4]
+        _count_attention(q, k, causal, window, q_offset, 8)
+        with tally.in_function():
+            dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
         return (dq, dk, dv) + (None,) * 8
+
+
+def _count_attention(q, k, causal, window, q_offset, per_pair: int):
+    """`per_pair`·hd flops for each visible pair of each query head, for
+    the active cost counters (none: nothing is computed)."""
+    if tally.ACTIVE:
+        from repro_torch.kernels.sa_attention import visible_pairs
+
+        B, T, KVH, g, hd = q.shape
+        tally.attention(per_pair * hd * B * KVH * g * visible_pairs(
+            T, k.shape[1], causal, window, q_offset))
 
 
 def _flash_bwd(q, k, v, out, lse, dout, causal, window, cap, q_offset, bq,
@@ -323,11 +342,11 @@ def _rank_pool(cache: "PagedKVCache", batch: int) -> "PagedKVCache":
     in one process."""
     from repro_torch.parallel import sharding as S
 
-    dp = S.axis_count("data")
+    dp = S.batch_count()
     bt = cache.block_table
     if dp == 1 or bt.shape[0] != dp * batch:
         return cache
-    r = S.axis_index("data")
+    r = S.batch_index()
     bt = bt[r * batch:(r + 1) * batch]
     base = r * cache.k.shape[0]
     return cache._replace(block_table=torch.where(bt >= 0, bt - base, -1))
@@ -588,6 +607,7 @@ def _decode_attend(q, k, v, cache, positions, window: int, cap: float,
     order of sums whichever way it decodes. On the CPU, and for a policy
     the kernel does not reproduce (FP8 in, non-fp32 out), the gathered
     view and the ring run `decode_attention`, as in the JAX engine."""
+    from repro_torch.core.device import card_program
     from repro_torch.core.precision import current_policy
     from repro_torch.kernels import ops
     from repro_torch.kernels.sa_decode_attention import dense_pool_view
@@ -596,7 +616,8 @@ def _decode_attend(q, k, v, cache, positions, window: int, cap: float,
     tpos = positions.to(torch.int32)                     # (B, T) = pos + t
     qf = q.reshape(B * T, 1, H, hd)
     posf = tpos.reshape(B * T)
-    dense_kernel = q.is_cuda and ops.fused_decode_supported(current_policy())
+    dense_kernel = (card_program(q.device)
+                    and ops.fused_decode_supported(current_policy()))
 
     def rows(t):
         return t if T == 1 else torch.repeat_interleave(t, T, dim=0)
@@ -654,6 +675,8 @@ def _ring_decode_split(k, v, cache: KVCache, tpos, page_size: int,
 
     B, T = tpos.shape
     n = cache.k.shape[1]
+    # the rows split over `data` alone, as `cache_specs` cuts a batch the
+    # batch axes do not divide (a `pod` axis holds copies)
     dp, r = S.axis_count("data"), S.axis_index("data")
     row = tpos.long() % (dp * n)
     mine = (row // n) == r

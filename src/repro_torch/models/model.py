@@ -34,7 +34,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import optflags
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import card_program, resolve_device
 from repro_torch.core.precision import input_dtype, sa_dot
 from .config import ArchConfig
 from . import layers as L
@@ -108,16 +108,17 @@ def _data_dim_tree(cfg: ArchConfig, names: tuple, shape: tuple):
 
 
 def _data_dims(cfg: ArchConfig):
-    """Under FSDP (`cfg.fsdp` on an active mesh whose data axis has more
-    than one rank): (the tree of `_data_dim_tree`, the data group); else
-    (None, None): the leaves are whole over `data`."""
+    """Under FSDP (`cfg.fsdp` on an active mesh whose batch axes have more
+    than one rank): (the tree of `_data_dim_tree`, the batch group,
+    `sharding.batch_group`); else (None, None): the leaves are whole over
+    the batch axes."""
     from repro_torch.parallel import sharding as S
 
     mesh = S.active_mesh()
-    if not cfg.fsdp or S.axis_count("data") == 1:
+    if not cfg.fsdp or S.batch_count() == 1:
         return None, None
     return (_data_dim_tree(cfg, S.axis_names(mesh), tuple(mesh.shape)),
-            S.axis_group("data"))
+            S.batch_group())
 
 
 def _take(w, dim, group, dtype=None):
@@ -229,11 +230,12 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     `torch.Generator`: the JAX package's distributions (normal · fan_in⁻½
     matrices, 0.02-scaled embedding, unit norms, zero biases), not its
     random bits. `dtype` is the matrices' storage type: by default bf16 on
-    CUDA (serving) and fp32 on the CPU; `torch.float32` gives the fp32
-    masters training keeps. A layernorm adds a zero bias `b` beside each
-    norm's `w`; the encoder-decoder adds `cross` and `norm_cross` to every
-    decoder layer and `encoder = {layers, final_norm}`, its layers stacked
-    over `cfg.encoder_layers` on axis 0 (the JAX package's tree).
+    CUDA and the meta device (serving) and fp32 on the CPU;
+    `torch.float32` gives the fp32 masters training keeps. A layernorm
+    adds a zero bias `b` beside each norm's `w`; the encoder-decoder adds
+    `cross` and `norm_cross` to every decoder layer and `encoder =
+    {layers, final_norm}`, its layers stacked over `cfg.encoder_layers`
+    on axis 0 (the JAX package's tree).
 
     Under a `mesh`, every leaf is this rank's piece of the same tree
     (`parallel.sharding.param_specs`): each matrix is drawn a slice at a
@@ -246,7 +248,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     # nothing is drawn
     gen = generator or (None if dev.type == "meta" else
                         torch.Generator(device=dev).manual_seed(seed))
-    mat_dtype = dtype or (torch.bfloat16 if dev.type == "cuda"
+    mat_dtype = dtype or (torch.bfloat16 if card_program(dev)
                           else torch.float32)
     period = cfg.stack_period
     n_super = cfg.num_layers // period
@@ -393,6 +395,9 @@ def _draw_pieces(cfg, params, draws, mesh, gen, mat_dtype, dev):
     for d in draws:
         cut = piece(d.shape, d.spec)
         out = matrix_storage(tuple(n for _, n in cut), mat_dtype, dev)
+        d.out = out
+        if dev.type == "meta":                  # shapes only: no draw
+            continue
         lead = 2 if len(d.shape) == 4 else 1    # `normal`'s slices
         for idx in itertools.product(*map(range, d.shape[:lead])):
             x = torch.randn(d.shape[lead:], generator=gen,
@@ -402,7 +407,6 @@ def _draw_pieces(cfg, params, draws, mesh, gen, mat_dtype, dev):
             for dim, (a, n) in enumerate(cut[lead:]):
                 x = x.narrow(dim, a, n)
             out[tuple(i - a for i, (a, _) in zip(idx, cut))] = x
-        d.out = out
     return S.tree_map_with_path(
         lambda _, x, sp: x.out if isinstance(x, _Draw)
         else S.shard_leaf(x, sp, mesh, coords), params, specs)
@@ -446,7 +450,9 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     9). An encoder-decoder layer carries `"cross"`, a KVCache
     of `frontend_tokens` rows that the forward passes through unused (the
     cross-attention recomputes the encoder's K and V, as the JAX package
-    does). The JAX package's leaves and types.
+    does); its heads unpadded, and under `kv_shards` cut on the heads or,
+    where the shards do not divide them, on the head dim, as
+    `cache_specs` cuts them. The JAX package's leaves and types.
 
     `local_rows` gives each local layer's ring that many rows instead of
     `window`, and makes it a ring whatever `seq_len`: the serve engine's
@@ -520,11 +526,16 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
             ft = cfg.frontend_tokens
             if not by_slot and ft % data_shards == 0:
                 ft //= data_shards
+            # unpadded: cut over `model` on the heads where the axis
+            # divides them, else on the head dim (`cache_specs`)
+            ck, chd = cfg.num_kv_heads, hd
+            if ck % kv_shards == 0:
+                ck //= kv_shards
+            elif chd % kv_shards == 0:
+                chd //= kv_shards
             c["cross"] = KVCache(
-                k=full((n_super, rows_b, ft, cfg.num_kv_heads, hd), 0,
-                       dtype),
-                v=full((n_super, rows_b, ft, cfg.num_kv_heads, hd), 0,
-                       dtype),
+                k=full((n_super, rows_b, ft, ck, chd), 0, dtype),
+                v=full((n_super, rows_b, ft, ck, chd), 0, dtype),
                 positions=full((n_super, rows_b, ft), -1, torch.int32))
         return c
 
@@ -698,9 +709,8 @@ def forward(params, cfg: ArchConfig, tokens, *, positions=None, cache=None,
     dev = tokens.device
     tp, group, tp_rank = L.tp_context()
     if tp > 1:
-        from repro_torch.parallel.sharding import axis_count
-        check_parallel(cfg, tp, axis_count("data"),
-                       serving=cache is not None)
+        from repro_torch.parallel.sharding import batch_count
+        check_parallel(cfg, tp, batch_count(), serving=cache is not None)
     # under FSDP each leaf the data axis cuts is gathered where it is read
     # (a superblock's inside the function remat recomputes, so its
     # gathered weights live only while the superblock runs); the
@@ -861,8 +871,8 @@ def _vocab_parallel_terms(logits, labels):
 
     _, group, tp_rank = L.tp_context()
     n = logits.shape[-1]
-    m = logits.detach().amax(dim=-1)
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    m = C.all_reduce_(logits.detach().amax(dim=-1), group,
+                      dist.ReduceOp.MAX)
     se = C.reduce_from_model(torch.exp(logits - m[..., None]).sum(-1), group)
     lab = labels.long() - tp_rank * n
     mine = (lab >= 0) & (lab < n)

@@ -78,7 +78,7 @@ def router(x, w_router, k: int, with_aux: bool = True):
         return combine, None
     from repro_torch.parallel import sharding as S
 
-    dp = S.axis_count("data")
+    dp = S.batch_count()
     if dp == 1:
         density = torch.mean(F.one_hot(topi, E).to(torch.float32),
                              dim=(0, 1, 2))
@@ -96,7 +96,7 @@ def router(x, w_router, k: int, with_aux: bool = True):
         n = B * T * dp
         stats = C.sum_over_data(torch.cat([
             F.one_hot(topi, E).to(torch.float32).sum(dim=(0, 1, 2)),
-            probs.sum(dim=(0, 1))]), S.axis_group("data"))
+            probs.sum(dim=(0, 1))]), S.batch_group())
         density, mean_probs = stats[:E] / (n * k), stats[E:] / n
     # router_z stays this rank's mean: the step's average over `data`
     # makes it the global batch's

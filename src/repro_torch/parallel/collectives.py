@@ -32,11 +32,23 @@ reduce-scatter: there `reduce_scatter` all-reduces each rank's slice in
 turn and keeps its own; on nccl it is `dist.reduce_scatter_tensor`. No
 collective copies a CUDA tensor to the host, and none catches a failure:
 a collective that fails raises.
+
+Each collective tells the active cost counters (`core/tally.py`) its
+class, as the nccl path issues it (a reduce-scatter is one whatever the
+backend runs), and its payload, the largest tensor of the op: the
+gathered output, the reduced tensor, the reduce-scatter's input.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core import tally
+
+
+def _nbytes(x, dtype=None) -> int:
+    return x.numel() * (x.element_size() if dtype is None else
+                        torch.empty((), dtype=dtype).element_size())
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -44,6 +56,7 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     if n == 1:
         return x
+    tally.collective("all-gather", n * _nbytes(x))
     x = x.contiguous()
     if x.is_cuda and dist.get_backend(group) == "gloo":
         me = dist.get_rank(group)
@@ -62,9 +75,15 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """A new tensor: `x` reduced over the group (every rank gets the same
     bits)."""
-    y = x.clone()
-    dist.all_reduce(y, op=op, group=group)
-    return y
+    return all_reduce_(x.clone(), group, op)
+
+
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    """`x` reduced over the group in place, and returned."""
+    tally.collective("all-reduce", _nbytes(x))
+    dist.all_reduce(x, op=op, group=group)
+    return x
 
 
 def _slice(x, dim, group):
@@ -85,6 +104,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, group,
                          f"does not split over {n} ranks")
     if n == 1:
         return x.to(dtype)
+    tally.collective("reduce-scatter", _nbytes(x, dtype))
     if dist.get_backend(group) != "nccl":
         # an all-reduce a rank's slice, keeping this rank's: the same sums
         # as one all-reduce of `x`, with one slice's copy at a time

@@ -4,6 +4,9 @@ The sharding rules read a mesh's axis names and sizes only, so a
 `MeshSpec` (names and sizes, no processes) stands in for a mesh wherever
 no collective runs: `make_production_mesh` gives the 16 x 16 and
 2 x 16 x 16 production layouts the rules are checked against.
+`make_dry_mesh` builds a `DeviceMesh` of any such layout with this
+process as one of its ranks over torch's `fake` backend, whose
+collectives move nothing (the dry run, `launch/dryrun.py`).
 `make_host_mesh` builds the real one, a `DeviceMesh` over the launched
 world (`torchrun`, or any launcher that sets RANK, WORLD_SIZE,
 LOCAL_RANK and MASTER_ADDR / MASTER_PORT), with the axes `("data",
@@ -40,6 +43,29 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
     if multi_pod:
         return MeshSpec(("pod", "data", "model"), (2, 16, 16))
     return MeshSpec(("data", "model"), (16, 16))
+
+
+def make_dry_mesh(spec: MeshSpec, rank: int = 0):
+    """A `DeviceMesh` of `spec`'s axes and sizes with this process as rank
+    `rank` of its world, over the `fake` process-group backend (every
+    collective returns at once and moves nothing): one rank of a
+    production mesh in one process, its collectives called as they would
+    be. Ends the process group this process had started, if any."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    n = 1
+    for s in spec.shape:
+        n *= s
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} outside a world of {n}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    return init_device_mesh("cpu", tuple(spec.shape),
+                            mesh_dim_names=tuple(spec.axis_names))
 
 
 def backend_for(device: torch.device, local_world: int) -> str:

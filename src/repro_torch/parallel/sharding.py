@@ -101,6 +101,59 @@ class using_mesh:
         set_active_mesh(self.prev)
 
 
+# ---------------------------------------------------------------------------
+# the batch axes together: ("data",), or ("pod", "data") pod-major
+# ---------------------------------------------------------------------------
+
+_BATCH_GROUPS: dict = {}
+
+
+def _mesh_or_active(mesh):
+    return _ACTIVE_MESH if mesh is None else mesh
+
+
+def batch_count(mesh=None) -> int:
+    """The data-parallel ranks of `mesh` (default the active mesh): the
+    batch axes' sizes multiplied; 1 without a mesh."""
+    mesh = _mesh_or_active(mesh)
+    if mesh is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in batch_axes(mesh):
+        n *= sizes[a]
+    return n
+
+
+def batch_index(mesh=None) -> int:
+    """This rank's index over the batch axes, pod-major (the order in
+    which the JAX `P(("pod", "data"))` lays out shards, and `shard_leaf`
+    cuts them); 0 without a mesh."""
+    mesh = _mesh_or_active(mesh)
+    if mesh is None:
+        return 0
+    sizes = axis_sizes(mesh)
+    idx = 0
+    for a in batch_axes(mesh):
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+    return idx
+
+
+def batch_group(mesh=None):
+    """The process group of this rank's line over the batch axes: the
+    `data` axis's group, or on a mesh with a `pod` axis the ("pod",
+    "data") sub-mesh flattened, pod-major (made once a mesh, by every
+    rank at its first call)."""
+    mesh = _mesh_or_active(mesh)
+    if "pod" not in axis_names(mesh):
+        return mesh.get_group("data")
+    key = id(mesh)
+    if key not in _BATCH_GROUPS:
+        _BATCH_GROUPS[key] = (mesh, mesh["pod", "data"]._flatten()
+                              .get_group())
+    return _BATCH_GROUPS[key][1]
+
+
 def mesh_coords(mesh) -> dict:
     """This rank's index along every axis of a `DeviceMesh`."""
     return {a: mesh.get_local_rank(a) for a in axis_names(mesh)}
@@ -355,6 +408,13 @@ def _entry_index(entry, coords, sizes):
     return parts, idx
 
 
+def shard_shape(shape, spec, mesh) -> tuple:
+    """The shape of a rank's slice of a leaf of `shape` cut by `spec`."""
+    sizes = axis_sizes(mesh)
+    return tuple(d if e is None else d // _entry_index(
+        e, dict.fromkeys(sizes, 0), sizes)[0] for d, e in zip(shape, spec))
+
+
 def shard_leaf(x: torch.Tensor, spec, mesh, coords) -> torch.Tensor:
     """This rank's slice of the full leaf `x` (a copy, so the full leaf
     can be freed)."""
@@ -387,11 +447,13 @@ def gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
         if entry is None:
             continue
         if isinstance(entry, tuple):
-            if len(entry) != 1:
+            if set(entry) != set(batch_axes(mesh)):
                 raise ValueError(f"gather over the axes {entry} together "
                                  f"is not supported")
-            entry = entry[0]
-        out = all_gather(out, dim, mesh.get_group(entry))
+            group = batch_group(mesh)
+        else:
+            group = mesh.get_group(entry)
+        out = all_gather(out, dim, group)
     return out
 
 
@@ -427,7 +489,8 @@ def cut_axes(spec, mesh) -> set:
 
 def data_dim(spec, mesh, sliced: bool = False):
     """The dim of a leaf of `spec` (a `param_specs` entry) that the data
-    axes cut on `mesh` (FSDP), or None where they cut none. `sliced`: the
+    axes cut on `mesh` (FSDP; on a mesh with a `pod` axis the two
+    together, `batch_group`), or None where they cut none. `sliced`: the
     dim in a superblock's slice `w[sb]` of a stacked leaf, whose leading
     (None) entry the slice drops. Read off the rules' spec alone, never
     off the leaf's shape."""
@@ -438,7 +501,8 @@ def data_dim(spec, mesh, sliced: bool = False):
         return None
     d = dims[0]
     e = spec[d]
-    if (len(dims) > 1 or isinstance(e, tuple)
+    if (len(dims) > 1
+            or isinstance(e, tuple) and not set(e) <= set(batch_axes(mesh))
             or (sliced and spec[0] is not None)):
         raise ValueError(f"{spec}: the data axes cut more than one dim, or "
                          f"one dim together with another axis")

@@ -235,11 +235,18 @@ class ServeEngine:
         M.check_supported(cfg)
         self.mesh = S.active_mesh()
         self.tp = S.axis_count("model")
-        self.dp = S.axis_count("data")
-        self.dp_rank = S.axis_index("data")
+        # the batch axes together (`data`, or `pod` and `data`, pod-major)
+        self.dp = S.batch_count()
+        self.dp_rank = S.batch_index()
         # the batch-1 long-context layout: D does not divide the batch, so
         # every ring's rows split over `data` and the forward is replicated
         self.seq_split = batch % self.dp != 0
+        dp_all = self.dp
+        if self.seq_split:
+            # over `data` alone, as `cache_specs` cuts the rows (a `pod`
+            # axis holds copies)
+            self.dp, self.dp_rank = (S.axis_count("data"),
+                                     S.axis_index("data"))
         # the slots this rank decodes: [slot0, slot0 + rows)
         self.rows = batch if self.seq_split else batch // self.dp
         self.slot0 = 0 if self.seq_split else self.dp_rank * self.rows
@@ -249,8 +256,8 @@ class ServeEngine:
                 f"REPRO_KV/kv_layout={kv_layout!r}; want 'ring' or 'paged'")
         if cfg.family == "ssm":
             kv_layout = "ring"   # no KV to page; the state is O(1) a slot
-        if self.tp > 1 or self.dp > 1:
-            M.check_parallel(cfg, self.tp, self.dp, serving=True,
+        if self.tp > 1 or dp_all > 1:
+            M.check_parallel(cfg, self.tp, dp_all, serving=True,
                              batch=batch, kv_layout=kv_layout)
         if self.tp > 1:
             if padded_kvh(cfg.num_kv_heads, self.tp) % self.tp:
@@ -403,12 +410,12 @@ class ServeEngine:
         fast-forward of `serve` reads it, so the ranks take the same
         decisions at the same ticks and call their collectives in the same
         order. The clock itself without a mesh."""
-        if self.tp == 1 and self.dp == 1:
+        if self.tp == 1 and S.batch_count() == 1:
             return clock
         import torch.distributed as dist
 
-        groups = [S.axis_group(a) for a in ("data", "model")
-                  if S.axis_count(a) > 1]
+        groups = (([S.batch_group()] if S.batch_count() > 1 else [])
+                  + ([S.axis_group("model")] if self.tp > 1 else []))
         dev = self.device if dist.get_backend(groups[0]) == "nccl" else "cpu"
 
         def agreed():
@@ -436,7 +443,7 @@ class ServeEngine:
             return value
         import torch.distributed as dist
 
-        group = S.axis_group("data")
+        group = S.batch_group()
         dev = self.device if dist.get_backend(group) == "nccl" else "cpu"
         t = torch.tensor([0 if value is None else int(value)],
                          dtype=torch.int64, device=dev)
@@ -450,7 +457,7 @@ class ServeEngine:
         if not self._over_data():
             return x
         from repro_torch.parallel.collectives import all_gather
-        return all_gather(x, dim, S.axis_group("data"))
+        return all_gather(x, dim, S.batch_group())
 
     def _ring_split(self):
         """The context the decode steps run in: the rings' rows split
@@ -1145,7 +1152,7 @@ class ServeEngine:
         n = self._nonfinite
         if self._over_data():
             from repro_torch.parallel.collectives import all_reduce
-            n = all_reduce(n.reshape(1).clone(), S.axis_group("data"))
+            n = all_reduce(n.reshape(1).clone(), S.batch_group())
         return int(n.sum())
 
     # ------------------------------------------------------------------

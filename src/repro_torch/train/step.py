@@ -84,10 +84,12 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
     moments are updated in place (see train/optimizer.py); the gradients
     are released after the update.
 
-    Under a `mesh` (a ("data", "model") `DeviceMesh`) `state` holds this
-    rank's shards (`train_state.init_state(mesh=)`) and `batch` this data
-    rank's rows (`parallel.sharding.data_specs`); the forward runs
-    tensor-parallel over `model`, the gradients are summed over `data` in
+    Under a `mesh` (a ("data", "model") or ("pod", "data", "model")
+    `DeviceMesh`) `state` holds this rank's shards
+    (`train_state.init_state(mesh=)`) and `batch` this data rank's rows
+    (`parallel.sharding.data_specs`); the forward runs tensor-parallel
+    over `model`, the gradients are summed over the batch axes
+    (`sharding.batch_group`: `data`, or `pod` and `data` together) in
     fp32 and divided by dp, loss and nll averaged the same way. A leaf
     whole over `data` is all-reduced; a leaf the data axis cuts (FSDP,
     `cfg.fsdp`: the forward gathers it and its gradient arrives
@@ -95,7 +97,7 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
     clip's global norm takes every element of the global tree once
     (`sharding.counts_once`: each piece from the one rank of its copies
     at index 0 along the axes that do not cut it), summed over `model`
-    and then `data`, so every rank gets the same norm. A MoE model's
+    and then the batch axes, so every rank gets the same norm. A MoE model's
     `load_balance` is taken over the global batch (`moe.router`); with
     accum_steps A dividing a data rank's rows, the ranks' microbatch i
     together are the one-process step's microbatch i (rows ≡ i mod A of
@@ -105,19 +107,19 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
     place by the clip)."""
     grad_fn = make_grad_fn(cfg, accum_steps, aux_weight)
     if mesh is not None:
-        import torch.distributed as dist
-
+        from repro_torch.parallel import collectives as C
         from repro_torch.parallel import sharding as S
         from .train_state import param_specs
 
         sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        M.check_parallel(cfg, sizes["model"], sizes["data"])
+        dp = S.batch_count(mesh)
+        M.check_parallel(cfg, sizes["model"], dp)
         specs = param_specs(cfg, mesh)
-        dp = sizes["data"]
         coords = S.mesh_coords(mesh)
-        # the groups a sum over the whole mesh runs through, model first
-        groups = [mesh.get_group(a) for a in ("model", "data")
-                  if sizes[a] > 1]
+        # the groups a sum over the whole mesh runs through, model first,
+        # then the batch axes together
+        groups = ([mesh.get_group("model")] if sizes["model"] > 1 else []) \
+            + ([S.batch_group(mesh)] if dp > 1 else [])
 
     def leaf_specs(params):
         return S.spec_leaves(specs, params)
@@ -128,13 +130,13 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
         with S.using_mesh(mesh):
             loss, nll, grads = grad_fn(state.params, batch)
         if dp > 1:
-            group = mesh.get_group("data")
+            group = S.batch_group(mesh)
             for g, sp in zip(M.tree_leaves(grads), leaf_specs(grads)):
                 if S.data_dim(sp, mesh) is None:
-                    dist.all_reduce(g, group=group)
+                    C.all_reduce_(g, group)
                 g.div_(dp)
             ln = torch.stack([loss, nll])
-            dist.all_reduce(ln, group=group)
+            C.all_reduce_(ln, group)
             loss, nll = ln[0] / dp, ln[1] / dp
         return loss, nll, grads
 
@@ -148,7 +150,7 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, accum_steps: int = 1,
             part = torch.as_tensor(part, dtype=torch.float32,
                                    device=sq[0].device)
             for group in groups:
-                dist.all_reduce(part, group=group)
+                C.all_reduce_(part, group)
             return part
         return total
 

@@ -1930,3 +1930,94 @@ def test_fold_with_a_fully_masked_half_is_the_other_half(cuda):
     got = fold_partials(torch.stack([o0, o1]), torch.stack([s0, s1]))
     assert torch.equal(got[:3].view(torch.int32), o1[:3].view(torch.int32))
     assert not got[3].any() and not torch.isnan(got).any()
+
+
+# ---------------------------------------------------------------------------
+# the dry run's meta routes (launch/cost.py): each meta route's choice is
+# the launch's for the same shapes and types
+# ---------------------------------------------------------------------------
+
+def _dryrun_launches(fn, dev, *shapes):
+    """(launches by kernel, route and tile) of `fn` on fresh tensors of
+    `shapes` ((shape, dtype, requires_grad) each): on `dev` the ops
+    counters' deltas, on meta the cost counter's record."""
+    from repro_torch.launch.cost import CostCounter
+
+    ts = [torch.randn(s, device=dev).to(dt).requires_grad_(g)
+          if dev != "meta" else
+          torch.empty(s, dtype=dt, device=dev, requires_grad=g)
+          for s, dt, g in shapes]
+    pol = PrecisionPolicy(backend="cuda")
+    from repro_torch.core.precision import use_policy
+    if dev == "meta":
+        with use_policy(pol), CostCounter() as c:
+            fn(*ts)
+        s = c.summary()["launches"]
+        return s["counts"], s["routes"], s["tiles"]
+    ops.reset_counts()
+    with use_policy(pol):
+        fn(*ts)
+    torch.cuda.synchronize()
+    return ({k: v["launches"] for k, v in ops.counts().items()},
+            ops.route_counts(), ops.tile_counts())
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 256, 1024])
+@pytest.mark.parametrize("k,n", [(5120, 1024), (5120, 13824), (13824, 5120),
+                                 (1600, 6482)])
+@pytest.mark.parametrize("dts", [("bf16", "bf16"), ("fp32", "bf16"),
+                                 ("fp32", "fp32")])
+def test_dryrun_sa_matmul_meta_route_is_the_launch(cuda, tune_cache, m, k, n,
+                                                   dts):
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    shapes = [((m, k), dt[dts[0]], True), ((k, n), dt[dts[1]], True)]
+
+    def fwd_bwd(a, w):
+        ops.sa_matmul(a, w).sum().backward()
+    assert (_dryrun_launches(fwd_bwd, "meta", *shapes)
+            == _dryrun_launches(fwd_bwd, cuda, *shapes))
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "fp32"])
+@pytest.mark.parametrize("T,S,hd,window", [(32, 32, 128, 0),
+                                           (1024, 1024, 128, 0),
+                                           (64, 96, 256, 32)])
+def test_dryrun_prefill_meta_route_is_the_launch(cuda, fmt, T, S, hd,
+                                                 window):
+    from repro_torch.core.precision import use_policy
+
+    shapes = [((2, T, 8, hd), torch.float32, False),
+              ((2, S, 2, hd), torch.bfloat16, False),
+              ((2, S, 2, hd), torch.bfloat16, False)]
+    with use_policy(PrecisionPolicy(input_format=fmt)):
+        def attend(q, k_, v):
+            ops.sa_attention(q, k_, v, window=window, q_offset=S - T)
+        assert (_dryrun_launches(attend, "meta", *shapes)
+                == _dryrun_launches(attend, cuda, *shapes))
+
+
+@pytest.mark.parametrize("grp,hd,psz,P", [(5, 128, 16, 9), (8, 128, 64, 512),
+                                          (2, 256, 16, 128), (1, 64, 8, 4)])
+def test_dryrun_decode_meta_plan_is_the_launch(cuda, tune_cache, grp, hd,
+                                               psz, P):
+    B, KVH = 4, 2
+    q = torch.zeros((B, 1, KVH * grp, hd), device=cuda)
+    pool = torch.zeros((B * P + 1, psz, KVH, hd), dtype=torch.bfloat16,
+                       device=cuda)
+    bt = torch.zeros((B, P), dtype=torch.int32, device=cuda)
+    n = tune_cache.lookup_decode_attn(grp, hd, psz, P, dtype=pool.dtype,
+                                      batch=B, kvh=KVH)
+    on_card = DA.split_plan(grp, hd, psz, P, n_split=n)
+    meta = DA.launch_plan(q.to("meta"), pool.to("meta"), pool.to("meta"),
+                          bt.to("meta"))
+    assert meta == on_card
+
+    def decode(q_, kp, vp, pp, bt_, pos):
+        ops.paged_decode_attention(q_, kp, vp, pp, bt_, pos, lse=True)
+    shapes = [((B, 1, KVH * grp, hd), torch.float32, False),
+              ((B * P + 1, psz, KVH, hd), torch.bfloat16, False),
+              ((B * P + 1, psz, KVH, hd), torch.bfloat16, False),
+              ((B * P + 1, psz), torch.int32, False),
+              ((B, P), torch.int32, False), ((B,), torch.int32, False)]
+    assert (_dryrun_launches(decode, "meta", *shapes)
+            == _dryrun_launches(decode, cuda, *shapes))

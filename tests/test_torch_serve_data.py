@@ -478,11 +478,10 @@ def test_handoff_on_the_data_sharded_pool(data_worlds):
 
 def _cut(tree, specs, mesh, coords, keep_model_whole=False):
     """`shard_tree`, with the SSM leaves whole over `model` (the port's
-    stated deviation: the mixer's gather layout) and the encoder-decoder's
-    `cross` leaves too (unused by the forward, passed through on every
-    head)."""
+    stated deviation: the mixer's gather layout). The encoder-decoder's
+    `cross` leaves are cut as `cache_specs` cuts them (ROADMAP F10)."""
     def cut(path, x, sp):
-        if keep_model_whole and ("ssm" in path or "cross" in path):
+        if keep_model_whole and "ssm" in path:
             sp = S.P(*(None if e == "model" else e for e in sp))
         return S.shard_leaf(x, sp, mesh, coords)
     return S.tree_map_with_path(cut, tree, specs)
